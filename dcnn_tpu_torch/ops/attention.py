@@ -1,0 +1,216 @@
+"""Scaled-dot-product attention ops (counterpart of ``dcnn_tpu/ops/attention.py``).
+
+Shapes follow (B, H, S, D): batch, heads, sequence, head dim.
+
+- :func:`attention`: the materialising version, the numerics oracle.
+- :func:`blockwise_attention`: online softmax over K/V tiles in plain
+  PyTorch, with arbitrary masks.
+- :func:`flash_attention`: the flash-attention forward. On a CUDA tensor it
+  launches the hand-written Hopper kernel (``csrc/flash_fwd.cu``) or raises;
+  on a CPU tensor it runs :func:`flash_forward_reference`, the kernel's
+  plain version.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from . import _kernels
+
+NEG_INF = -1e30
+
+
+def _check_mask_rank(mask: torch.Tensor) -> torch.Tensor:
+    """Masks are 2-D (Sq, Sk) or 4-D (B|1, H|1, Sq, Sk), True = attend.
+    3-D masks are rejected: a (B, Sq, Sk) key-padding mask would broadcast
+    head-aligned, not batch-aligned; pass ``mask[:, None]``."""
+    mask = torch.as_tensor(mask).bool()
+    if mask.ndim == 3:
+        raise ValueError(
+            "3-D attention masks are ambiguous (batch- vs head-aligned); "
+            "pass (Sq, Sk) or (B|1, H|1, Sq, Sk) — for a batch key-padding "
+            "mask use mask[:, None].")
+    if mask.ndim > 4:
+        raise ValueError(
+            f"attention mask rank {mask.ndim} > 4; expected (Sq, Sk) or "
+            f"(B|1, H|1, Sq, Sk)")
+    while mask.ndim < 4:
+        mask = mask[None]
+    return mask
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = False, mask: Optional[torch.Tensor] = None,
+              scale: Optional[float] = None) -> torch.Tensor:
+    """Materialising attention ``softmax(q·kᵀ·scale)·v``; O(S²) memory.
+    Fully-masked rows return 0."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    scores = torch.matmul(q, k.transpose(-1, -2)) * scale
+    sq, sk = scores.shape[-2], scores.shape[-1]
+    allowed = None
+    if causal:
+        allowed = torch.ones(sq, sk, dtype=torch.bool,
+                             device=q.device).tril(sk - sq)
+    if mask is not None:
+        mask = _check_mask_rank(mask).to(q.device)
+        allowed = mask if allowed is None else (allowed & mask)
+    if allowed is not None:
+        scores = scores.masked_fill(~allowed, NEG_INF)
+    weights = torch.softmax(scores, dim=-1)
+    if allowed is not None:
+        any_allowed = allowed.expand(scores.shape).any(-1, keepdim=True)
+        weights = weights.masked_fill(~any_allowed, 0.0)
+    return torch.matmul(weights, v)
+
+
+def _online_softmax(q, k, v, *, causal: bool, block_kv: int, scale: float,
+                    mask: Optional[torch.Tensor]
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Online softmax over K/V tiles of ``block_kv`` keys; never holds the
+    (Sq, Sk) score matrix. Running state (acc, m, l) is at least fp32
+    whatever the input dtype. Returns (O in q's dtype, logsumexp (B, H, Sq)
+    in the state dtype). Fully-masked rows give O = 0."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    acc_dt = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf = q.to(acc_dt), k.to(acc_dt), v.to(acc_dt)
+    acc = torch.zeros(b, h, sq, d, dtype=acc_dt, device=q.device)
+    m = torch.full((b, h, sq), NEG_INF, dtype=acc_dt, device=q.device)
+    l = torch.zeros(b, h, sq, dtype=acc_dt, device=q.device)
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    for start in range(0, sk, block_kv):
+        end = min(start + block_kv, sk)
+        s = torch.matmul(qf, kf[:, :, start:end].transpose(-1, -2)) * scale
+        allowed = None
+        if causal:
+            kv_pos = torch.arange(start, end, device=q.device)[None, :]
+            allowed = kv_pos <= q_pos + (sk - sq)
+        if mask is not None:
+            blk = mask if mask.shape[-1] == 1 else mask[..., start:end]
+            allowed = blk if allowed is None else (allowed & blk)
+        if allowed is not None:
+            s = s.masked_fill(~allowed, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        # masked entries are zeroed explicitly: in a row masked so far,
+        # exp(NEG_INF - NEG_INF) would be 1
+        p = torch.exp(s - m_new[..., None])
+        if allowed is not None:
+            p = p.masked_fill(~allowed, 0.0)
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.matmul(p, vf[:, :, start:end])
+        m = m_new
+    l_fin = torch.clamp_min(l, 1e-30)
+    return (acc / l_fin[..., None]).to(q.dtype), m + torch.log(l_fin)
+
+
+def blockwise_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = False, block_kv: int = 512,
+                        scale: Optional[float] = None,
+                        mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Flash-style attention in plain PyTorch: online softmax over K/V
+    blocks, exact. ``mask``: (Sq, Sk) or (B|1, H|1, Sq, Sk), True = attend.
+
+    This is also where :func:`flash_attention` sends a call with a
+    ``mask``; that path is not on the serving path and runs no kernel."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    sk = k.shape[2]
+    if mask is not None:
+        mask = _check_mask_rank(mask).to(q.device)
+        if mask.shape[-1] not in (1, sk):
+            raise ValueError(
+                f"mask last dim {mask.shape[-1]} must be 1 or Sk={sk}")
+    return _online_softmax(q, k, v, causal=causal, block_kv=block_kv,
+                           scale=float(scale), mask=mask)[0]
+
+
+def flash_forward_reference(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, *, causal: bool = False,
+                            scale: Optional[float] = None,
+                            block_kv: int = 512
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the flash forward kernel: the same online
+    softmax over kv tiles, fp32 state, returning (O, logsumexp (B, H, Sq)
+    fp32). The CPU path and the tests use it; ``chip_smoke.py`` holds the
+    kernel against it on the card."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    return _online_softmax(q, k, v, causal=causal, block_kv=block_kv,
+                           scale=float(scale), mask=None)
+
+
+def _check_qkv(q, k, v) -> None:
+    if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+        raise ValueError(f"flash attention expects (B, H, S, D) tensors, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if k.shape != v.shape or q.shape[:2] != k.shape[:2] \
+            or q.shape[3] != k.shape[3]:
+        raise ValueError(f"incompatible q {tuple(q.shape)}, k {tuple(k.shape)}"
+                         f", v {tuple(v.shape)}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise ValueError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q/k/v on different devices")
+
+
+def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool, scale: float
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(O, logsumexp (B, H, Sq) fp32). A CUDA tensor goes to the Hopper
+    kernel, which raises on what it cannot take; a CPU tensor goes to the
+    plain version. There is no other route."""
+    _check_qkv(q, k, v)
+    if q.device.type == "cuda":
+        return _kernels.flash_fwd(q, k, v, causal=causal, scale=scale)
+    if q.device.type == "cpu":
+        return flash_forward_reference(q, k, v, causal=causal, scale=scale)
+    raise RuntimeError(f"flash_attention: no implementation for {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Forward through :func:`_flash_forward`, saving (O, logsumexp) for
+    the backward. The backward kernels are not ported yet: on the CPU the
+    gradient comes from the plain version, on CUDA it raises."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float):
+        o, lse = _flash_forward(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return o
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, _, _ = ctx.saved_tensors
+        if q.device.type != "cpu":
+            raise NotImplementedError(
+                "flash-attention backward kernels are not ported yet "
+                "(see ROADMAP.md)")
+        with torch.enable_grad():
+            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
+            o, _ = flash_forward_reference(*qkv, causal=ctx.causal,
+                                           scale=ctx.scale)
+            grads = torch.autograd.grad(o, qkv, g)
+        return (*grads, None, None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False, scale: Optional[float] = None,
+                    mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Flash-attention forward: online softmax with fp32 state, causal
+    masking with diagonal offset ``sk - sq``, fully-masked rows 0.
+
+    Without ``mask`` it launches the Hopper kernel on a CUDA tensor (or
+    raises) and runs the plain version on a CPU tensor. With ``mask`` it
+    takes :func:`blockwise_attention`, as the JAX function does; that route
+    is off the serving path."""
+    if scale is None:
+        scale = q.shape[-1] ** -0.5
+    if mask is not None:
+        return blockwise_attention(q, k, v, causal=causal, scale=scale,
+                                   mask=mask)
+    return _FlashAttention.apply(q, k, v, bool(causal), float(scale))

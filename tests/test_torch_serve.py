@@ -1,0 +1,339 @@
+"""The port's serving stack: ``InferenceEngine`` buckets and padding,
+``DynamicBatcher`` batching, shedding, teardown, and ``ServeMetrics``.
+These mirror ``tests/test_serve.py``; the model is a narrow attention
+classifier on the CPU (the kernel's plain path), and the engine's answers
+are held against the JAX model with the same weights."""
+
+import threading
+import time
+from types import SimpleNamespace
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dcnn_tpu.nn import MultiHeadAttentionLayer as JaxMHA
+from dcnn_tpu.nn import SequentialBuilder as JaxBuilder
+from dcnn_tpu.nn.residual import ResidualBlock as JaxResidual
+from dcnn_tpu_torch.interop import from_jax
+from dcnn_tpu_torch.serve import (
+    DrainingError, DynamicBatcher, InferenceEngine, QueueFullError,
+    ServeMetrics, ShutdownError, serve_buckets,
+)
+
+
+class FakeClock:
+    def __init__(self, t: float = 0.0):
+        self.t = t
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> None:
+        self.t += dt
+
+
+@pytest.fixture(scope="module")
+def tiny():
+    jm = (JaxBuilder("srv").input((8, 16))
+          .add_layer(JaxResidual(layers=[JaxMHA(num_heads=2, name="mha")],
+                                 shortcut=[], name="blk"))
+          .flatten().dense(5).build())
+    params, state = jm.init(jax.random.PRNGKey(0), jm.input_shape)
+    pool = np.random.default_rng(0).normal(size=(16, 8, 16)).astype(np.float32)
+    jax_logits = np.asarray(jm.apply(params, state, jnp.asarray(pool))[0])
+    model = from_jax(jm.get_config(),
+                     jax.tree_util.tree_map(np.asarray, params), device="cpu")
+    return model, pool, jax_logits
+
+
+@pytest.fixture(scope="module")
+def engine(tiny):
+    model, _, _ = tiny
+    return InferenceEngine.from_model(model, max_batch=8, device="cpu")
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+# ---------------------------------------------------------------- engine
+
+def test_serve_buckets():
+    assert serve_buckets(1) == [1]
+    assert serve_buckets(8) == [1, 2, 4, 8]
+    assert serve_buckets(32) == [1, 2, 4, 8, 16, 32]
+    assert serve_buckets(6) == [1, 2, 4, 6]
+    with pytest.raises(ValueError):
+        serve_buckets(0)
+
+
+def test_engine_warms_every_bucket(engine):
+    assert engine.bucket_sizes == [1, 2, 4, 8]
+    assert sorted(engine.compile_stats) == [1, 2, 4, 8]
+    assert all(st["warmup_s"] >= 0 for st in engine.compile_stats.values())
+    assert engine.run_padded(torch.zeros(4, 8, 16)).shape == (4, 5)
+    with pytest.raises(ValueError, match="no session"):
+        engine.run_padded(torch.zeros(3, 8, 16))
+
+
+def test_engine_bucket_math(engine):
+    assert [engine.bucket_for(n) for n in (1, 2, 3, 5, 8)] == [1, 2, 4, 8, 8]
+    for n in (0, 9):
+        with pytest.raises(ValueError):
+            engine.bucket_for(n)
+
+
+def test_engine_matches_jax_model(engine, tiny):
+    _, pool, jax_logits = tiny
+    np.testing.assert_allclose(_np(engine.infer(pool)), jax_logits,
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_engine_infer_shapes_and_chunking(engine, tiny):
+    _, pool, _ = tiny
+    assert engine.infer(pool[0]).shape == (5,)
+    assert engine.infer(pool[:3]).shape == (3, 5)
+    y = engine.infer(pool)  # 16 rows > max_batch 8: two chunks
+    assert y.shape == (16, 5)
+    np.testing.assert_array_equal(_np(y[:8]), _np(engine.infer(pool[:8])))
+    with pytest.raises(ValueError, match="trailing dims"):
+        engine.infer(np.zeros((2, 4, 16), np.float32))
+
+
+def test_engine_padding_is_row_exact_within_bucket(engine, tiny):
+    _, pool, _ = tiny
+    padded, n = engine.pad_to_bucket(pool[:5])
+    assert padded.shape == (8, 8, 16) and n == 5
+    assert torch.equal(padded[5:], torch.zeros(3, 8, 16))
+    full = np.zeros((8, 8, 16), np.float32)
+    full[:5] = pool[:5]
+    np.testing.assert_array_equal(_np(engine.run_padded(padded))[:5],
+                                  _np(engine.run_padded(torch.from_numpy(full)))[:5])
+
+
+def test_engine_float_is_allclose_across_buckets(engine, tiny):
+    _, pool, _ = tiny
+    ref = _np(engine.infer(pool[:8]))
+    for i in range(8):
+        np.testing.assert_allclose(_np(engine.infer(pool[i])), ref[i],
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_engine_int8_not_ported(tiny):
+    model, pool, _ = tiny
+    with pytest.raises(NotImplementedError, match="quantize"):
+        InferenceEngine.from_model(model, int8_calib=pool, device="cpu")
+    # fold is accepted: with no batchnorm it is the identity
+    eng = InferenceEngine.from_model(model, fold=True, max_batch=2,
+                                     device="cpu", warmup=False)
+    assert eng.compile_stats.keys() == {1, 2}
+
+
+# ---------------------------------------------------------------- batcher
+
+def test_batcher_matches_engine_and_mixed_sizes(engine, tiny):
+    _, pool, _ = tiny
+    b = DynamicBatcher(engine, max_batch=8, queue_capacity=64, start=False)
+    f2 = b.submit(pool[:2])
+    f3 = b.submit(pool[2:5])
+    f1 = b.submit(pool[5])
+    b.drain()
+    ref = _np(engine.infer(pool[:8]))  # the same bucket the batch ran in
+    np.testing.assert_array_equal(f2.result(1), ref[:2])
+    np.testing.assert_array_equal(f3.result(1), ref[2:5])
+    np.testing.assert_array_equal(f1.result(1), ref[5])
+    assert f1.result(1).shape == (5,)
+
+
+def test_batcher_backpressure_sheds_and_drain_completes(engine, tiny):
+    _, pool, _ = tiny
+    mets = ServeMetrics()
+    b = DynamicBatcher(engine, max_batch=4, queue_capacity=6, metrics=mets,
+                       start=False)
+    accepted = [b.submit(pool[i]) for i in range(6)]
+    with pytest.raises(QueueFullError):
+        b.submit(pool[6])
+    with pytest.raises(QueueFullError):
+        b.submit(pool[:2])
+    assert b.queue_depth == 6
+    b.drain()
+    for i, f in enumerate(accepted):
+        np.testing.assert_allclose(f.result(timeout=1), _np(engine.infer(pool[i])),
+                                   rtol=1e-5, atol=1e-5)
+    snap = mets.snapshot()
+    assert snap["requests_completed"] == 6
+    assert snap["requests_shed"] == 3
+    assert snap["shed_fraction"] == pytest.approx(3 / 9)
+    assert snap["queue_depth"] == 0
+    with pytest.raises(DrainingError, match="draining or shut down"):
+        b.submit(pool[0])
+
+
+def test_batcher_deadline_batching_fake_clock(engine, tiny):
+    _, pool, _ = tiny
+    fc = FakeClock()
+    mets = ServeMetrics(clock=fc)
+    b = DynamicBatcher(engine, max_batch=4, max_wait_ms=10.0,
+                       queue_capacity=64, metrics=mets, clock=fc, start=False)
+    f0 = b.submit(pool[0])
+    assert b.step(force=False) == 0
+    fc.advance(0.004)
+    f1 = b.submit(pool[1])
+    assert b.step(force=False) == 0
+    fc.advance(0.007)
+    assert b.step(force=False) == 2
+    assert f0.done() and f1.done()
+    snap = mets.snapshot()
+    assert snap["p99_ms"] == pytest.approx(11.0)
+    assert snap["p50_ms"] == pytest.approx(11.0)
+    assert snap["mean_ms"] == pytest.approx(9.0)
+    assert snap["batches"] == 1 and snap["batch_occupancy"] == 1.0
+    futs = [b.submit(pool[i]) for i in range(4)]
+    assert b.step(force=False) == 4  # a full batch is due at once
+    assert all(f.done() for f in futs)
+
+
+def test_batcher_threaded(engine, tiny):
+    _, pool, _ = tiny
+    b = DynamicBatcher(engine, max_batch=8, max_wait_ms=0.0,
+                       queue_capacity=256)
+    futs = [b.submit(pool[i % 16]) for i in range(48)]
+    got = [f.result(timeout=30) for f in futs]
+    b.shutdown()
+    for i, y in enumerate(got):
+        np.testing.assert_allclose(y, _np(engine.infer(pool[i % 16])),
+                                   rtol=1e-5, atol=1e-5)
+    snap = b.metrics.snapshot()
+    assert snap["requests_completed"] == 48 and snap["requests_shed"] == 0
+    assert snap["batches"] >= 1 and snap["p99_ms"] is not None
+
+
+def test_batcher_submit_validation(engine, tiny):
+    _, pool, _ = tiny
+    b = DynamicBatcher(engine, max_batch=4, start=False)
+    with pytest.raises(ValueError, match="expected"):
+        b.submit(np.zeros((4, 16), np.float32))
+    with pytest.raises(ValueError, match="outside"):
+        b.submit(pool[:5])
+    b.drain()
+
+
+def test_batcher_scatter_failure_to_futures(engine, tiny):
+    _, pool, _ = tiny
+    b = DynamicBatcher(engine, max_batch=4, start=False)
+    futs = [b.submit(pool[i]) for i in range(2)]
+
+    def boom(x):
+        raise RuntimeError("boom")
+
+    b.engine = SimpleNamespace(run_padded=boom, pad_to_bucket=engine.pad_to_bucket,
+                               input_shape=engine.input_shape)
+    assert b.step() == 2
+    for f in futs:
+        with pytest.raises(RuntimeError, match="boom"):
+            f.result(timeout=1)
+
+
+def test_batcher_user_cancel_while_queued(engine, tiny):
+    _, pool, _ = tiny
+    b = DynamicBatcher(engine, max_batch=4, start=False)
+    f0 = b.submit(pool[0])
+    f1 = b.submit(pool[1])
+    assert f0.cancel()
+    assert b.step() == 1
+    assert f0.cancelled()
+    np.testing.assert_allclose(f1.result(1), _np(engine.infer(pool[1])),
+                               rtol=1e-5, atol=1e-5)
+    b.drain()
+
+
+def test_batcher_shutdown_without_drain_fails_pending(engine, tiny):
+    _, pool, _ = tiny
+    b = DynamicBatcher(engine, max_batch=4, start=False)
+    futs = [b.submit(pool[i]) for i in range(3)]
+    b.shutdown(drain=False)
+    for f in futs:
+        assert f.done() and not f.cancelled()
+        with pytest.raises(ShutdownError):
+            f.result(timeout=0)
+    assert b.queue_depth == 0
+    with pytest.raises(RuntimeError):
+        b.submit(pool[0])
+
+
+def test_batcher_drain_timeout_fails_pending_not_orphans(engine, tiny):
+    """A drain whose timeout trips releases every pending future with
+    ShutdownError — including one held by a dispatch stuck in the engine —
+    then raises TimeoutError; the late completion is absorbed."""
+    _, pool, _ = tiny
+    b = DynamicBatcher(engine, max_batch=2, max_wait_ms=0, queue_capacity=8)
+    gate = threading.Event()
+
+    def hung_run(padded):
+        gate.wait(timeout=30)
+        return engine.run_padded(padded)
+
+    b.engine = SimpleNamespace(run_padded=hung_run,
+                               pad_to_bucket=engine.pad_to_bucket,
+                               input_shape=engine.input_shape,
+                               name=engine.name, max_batch=engine.max_batch)
+    f0 = b.submit(pool[0])
+    for _ in range(100):
+        if f0.running():
+            break
+        time.sleep(0.01)
+    f1 = b.submit(pool[1])
+    with pytest.raises(TimeoutError):
+        b.drain(timeout=0.2)
+    for f in (f0, f1):
+        assert f.done()
+        with pytest.raises(ShutdownError):
+            f.result(timeout=0)
+    gate.set()
+    b._thread.join(timeout=30)
+    assert not b._thread.is_alive()
+
+
+# ---------------------------------------------------------------- metrics
+
+def test_metrics_fake_clock_exact():
+    fc = FakeClock()
+    m = ServeMetrics(clock=fc)
+    for lat_ms in range(1, 11):
+        m.record_done(lat_ms / 1e3)
+    m.record_submit(10)
+    m.record_shed(2)
+    m.record_batch(6, 8)
+    m.record_queue_depth(3)
+    fc.advance(2.0)
+    s = m.snapshot()
+    assert s["throughput_rps"] == pytest.approx(5.0)
+    assert s["p50_ms"] == pytest.approx(6.0)
+    assert s["p95_ms"] == pytest.approx(10.0)
+    assert s["p99_ms"] == pytest.approx(10.0)
+    assert s["mean_ms"] == pytest.approx(5.5)
+    assert s["batch_occupancy"] == pytest.approx(0.75)
+    assert s["shed_fraction"] == pytest.approx(2 / 12)
+    assert s["queue_depth"] == 3 and s["wall_s"] == pytest.approx(2.0)
+    m.reset()
+    s = m.snapshot()
+    assert s["requests_completed"] == 0 and s["p50_ms"] is None
+    assert s["throughput_rps"] is None
+
+
+def test_metrics_rolling_window():
+    m = ServeMetrics(window=4)
+    for lat_ms in (100, 100, 100, 1, 1, 1, 1):
+        m.record_done(lat_ms / 1e3)
+    s = m.snapshot()
+    assert s["p99_ms"] == pytest.approx(1.0)
+    assert s["requests_completed"] == 7
+
+
+def test_metrics_empty_snapshot_is_unambiguous():
+    s = ServeMetrics(clock=FakeClock()).snapshot()
+    assert s["p50_ms"] is None and s["batch_occupancy"] is None
+    assert s["requests_completed"] == 0 and s["shed_fraction"] == 0.0

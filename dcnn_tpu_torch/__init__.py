@@ -11,6 +11,7 @@ This package imports neither ``jax`` nor anything of ``dcnn_tpu``; the
 weights of a JAX model come across as numpy through :mod:`.interop`.
 """
 
-from . import core, interop, models, nn, ops, serve
+from . import core, data, interop, models, nn, ops, optim, serve, train
 
-__all__ = ["core", "interop", "models", "nn", "ops", "serve"]
+__all__ = ["core", "data", "interop", "models", "nn", "ops", "optim",
+           "serve", "train"]

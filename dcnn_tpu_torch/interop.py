@@ -1,9 +1,13 @@
-"""Carry a model across from the JAX package.
+"""Carry a model and its training state across to and from the JAX package.
 
 :func:`from_jax` takes what the JAX package gives for a model — its
 ``get_config()`` dict and its params pytree, converted to numpy arrays — and
 returns a port :class:`~dcnn_tpu_torch.nn.Sequential` that computes the same
-function. It needs no JAX: the pytree is plain tuples, dicts and arrays.
+function. :func:`to_jax` is its exact inverse, :func:`grads_to_jax` gives
+each ``param.grad`` in the same layout, and :func:`opt_state_to_jax` /
+:func:`opt_state_from_jax` carry an optimizer's state (SGD's ``velocity``,
+Adam's ``m``, ``v``, ``t``), so both packages can step from the same state.
+None of it needs JAX: a pytree is plain tuples, dicts and numpy arrays.
 
 This module is where the two packages' weight layouts meet:
 
@@ -18,7 +22,7 @@ This module is where the two packages' weight layouts meet:
 
 from __future__ import annotations
 
-from typing import Any, Dict, Sequence
+from typing import Any, Dict, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -76,3 +80,74 @@ def from_jax(config: Dict[str, Any], params_np: Sequence[Any], *,
     state = {k: torch.tensor(a) for k, a in flat.items()}
     model.load_state_dict(state, strict=True)
     return model
+
+
+def _layer_tree(cfg: Dict[str, Any], prefix: str,
+                flat: Mapping[str, np.ndarray]) -> Any:
+    """Inverse of :func:`_layer_state`: one layer's pytree entry from port
+    names."""
+    ty = cfg["type"]
+    if ty in ("multi_head_attention", "dense"):
+        own = sorted(k[len(prefix):] for k in flat
+                     if k.startswith(prefix) and "." not in k[len(prefix):])
+        transpose = ty == "multi_head_attention"
+        return {n: (np.ascontiguousarray(flat[prefix + n].T)
+                    if transpose and n in _MHA_WEIGHTS else flat[prefix + n])
+                for n in own}
+    if ty == "residual_block":
+        return {"main": _layers_tree(cfg["layers"], prefix + "layers.", flat),
+                "shortcut": _layers_tree(cfg.get("shortcut", []),
+                                         prefix + "shortcut.", flat)}
+    if ty in ("flatten", "activation"):
+        return {}
+    raise NotImplementedError(f"to_jax has no weight rule for {ty!r}")
+
+
+def _layers_tree(cfgs: Sequence[Dict[str, Any]], prefix: str,
+                 flat: Mapping[str, np.ndarray]) -> tuple:
+    return tuple(_layer_tree(cfg, f"{prefix}{i}.", flat)
+                 for i, cfg in enumerate(cfgs))
+
+
+def _tree(model: Sequential, named: Mapping[str, torch.Tensor]) -> tuple:
+    flat = {n: t.detach().cpu().numpy() for n, t in named.items()}
+    return _layers_tree(model.get_config()["layers"], "layers.", flat)
+
+
+def _flat(model: Sequential, tree: Sequence[Any],
+          device: torch.device) -> Dict[str, torch.Tensor]:
+    flat: Dict[str, np.ndarray] = {}
+    _layers_state(model.get_config()["layers"], tree, "layers.", flat)
+    return {n: torch.tensor(a, device=device) for n, a in flat.items()}
+
+
+def to_jax(model: Sequential) -> tuple:
+    """The model's params as the JAX package's pytree of numpy arrays: the
+    exact inverse of :func:`from_jax` (MHA weights transposed back)."""
+    return _tree(model, dict(model.named_parameters()))
+
+
+def grads_to_jax(model: Sequential) -> tuple:
+    """Each parameter's ``.grad`` in the layout of :func:`to_jax`, as
+    ``jax.grad`` would give it for the JAX model."""
+    missing = [n for n, p in model.named_parameters() if p.grad is None]
+    if missing:
+        raise ValueError(f"no gradient for {missing}")
+    return _tree(model, {n: p.grad for n, p in model.named_parameters()})
+
+
+def opt_state_to_jax(model: Sequential, opt_state: Mapping[str, Any]
+                     ) -> Dict[str, Any]:
+    """A port optimizer's state in the JAX package's layout: every
+    per-parameter entry (``velocity``, ``m``, ``v``) as a params-shaped
+    pytree, the step ``t`` as an int32 scalar array."""
+    return {k: (np.asarray(v, np.int32) if k == "t" else _tree(model, v))
+            for k, v in opt_state.items()}
+
+
+def opt_state_from_jax(model: Sequential, jax_state: Mapping[str, Any]
+                       ) -> Dict[str, Any]:
+    """The inverse of :func:`opt_state_to_jax`, on the model's device."""
+    dev = next(model.parameters()).device
+    return {k: (int(np.asarray(v)) if k == "t" else _flat(model, v, dev))
+            for k, v in jax_state.items()}

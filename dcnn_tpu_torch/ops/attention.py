@@ -5,10 +5,12 @@ Shapes follow (B, H, S, D): batch, heads, sequence, head dim.
 - :func:`attention`: the materialising version, the numerics oracle.
 - :func:`blockwise_attention`: online softmax over K/V tiles in plain
   PyTorch, with arbitrary masks.
-- :func:`flash_attention`: the flash-attention forward. On a CUDA tensor it
-  launches the hand-written Hopper kernel (``csrc/flash_fwd.cu``) or raises;
-  on a CPU tensor it runs :func:`flash_forward_reference`, the kernel's
-  plain version.
+- :func:`flash_attention`: flash attention, differentiable. On CUDA
+  tensors the forward launches the hand-written Hopper kernel
+  (``csrc/flash_fwd.cu``) and the backward the dQ and dK/dV kernels
+  (``csrc/flash_bwd.cu``), or they raise; on CPU tensors they run
+  :func:`flash_forward_reference` and :func:`flash_backward_reference`, the
+  kernels' plain versions.
 """
 
 from __future__ import annotations
@@ -171,10 +173,83 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     raise RuntimeError(f"flash_attention: no implementation for {q.device}")
 
 
+def flash_backward_reference(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, g: torch.Tensor, *,
+                             causal: bool, scale: float, block_q: int = 64,
+                             block_kv: int = 64
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Plain PyTorch version of both flash backward kernels (FlashAttention-2
+    math, no autograd): Δ = rowsum(dO·O) in fp32; per (q tile, kv tile) of
+    the forward's ``live`` band, P = where(mask, exp(S − lse), 0) masked
+    before the exponential (rows that saw no key carry lse ≈ −1e30), dP =
+    dO·Vᵀ, dS = P∘(dP − Δ)·scale; dQ accumulates dS·K over kv tiles, dK
+    dSᵀ·Q and dV Pᵀ·dO over q tiles, in fp32 (fp64 stays fp64). Under bf16
+    dS and P are rounded to the input type before their products, as the
+    kernels do. Returns (dQ, dK, dV) in q's dtype. The CPU path and the
+    tests use it; ``chip_smoke.py`` holds the kernels against it."""
+    _, _, sq, _ = q.shape
+    sk = k.shape[2]
+    acc_dt = torch.promote_types(q.dtype, torch.float32)
+    qf, kf, vf, gf = (t.to(acc_dt) for t in (q, k, v, g))
+    delta = (gf * o.to(acc_dt)).sum(-1)
+    lse = lse.to(acc_dt)
+
+    def as_input(t):  # the cast the kernels make before a product
+        return t.to(q.dtype).to(acc_dt)
+
+    dq, dk, dv = (torch.zeros_like(t) for t in (qf, kf, vf))
+    for qs in range(0, sq, block_q):
+        qe = min(qs + block_q, sq)
+        q_pos = torch.arange(qs, qe, device=q.device)[:, None]
+        for ks in range(0, sk, block_kv):
+            if causal and ks > qe - 1 + (sk - sq):
+                break  # this and every later kv tile lie above the band
+            ke = min(ks + block_kv, sk)
+            s = torch.matmul(qf[..., qs:qe, :],
+                             kf[..., ks:ke, :].transpose(-1, -2)) * scale
+            s = s - lse[..., qs:qe, None]
+            if causal:
+                kv_pos = torch.arange(ks, ke, device=q.device)[None, :]
+                s = s.masked_fill(kv_pos > q_pos + (sk - sq), -float("inf"))
+            p = torch.exp(s)
+            dp = torch.matmul(gf[..., qs:qe, :],
+                              vf[..., ks:ke, :].transpose(-1, -2))
+            ds = as_input(p * (dp - delta[..., qs:qe, None]) * scale)
+            dq[..., qs:qe, :] += torch.matmul(ds, kf[..., ks:ke, :])
+            dk[..., ks:ke, :] += torch.matmul(ds.transpose(-1, -2),
+                                              qf[..., qs:qe, :])
+            dv[..., ks:ke, :] += torch.matmul(as_input(p).transpose(-1, -2),
+                                              gf[..., qs:qe, :])
+    return dq.to(q.dtype), dk.to(q.dtype), dv.to(q.dtype)
+
+
+def _flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    o: torch.Tensor, lse: torch.Tensor, g: torch.Tensor, *,
+                    causal: bool, scale: float
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dQ, dK, dV). CUDA tensors go to the two Hopper kernels, which raise
+    on what they cannot take; Δ = rowsum(dO·O) is computed here in fp32, as
+    the JAX package computes it outside its kernels. CPU tensors go to the
+    plain version. There is no other route."""
+    _check_qkv(q, k, v)
+    if q.device.type == "cuda":
+        delta = (g.float() * o.float()).sum(-1)
+        dq = _kernels.flash_bwd_dq(q, k, v, g, lse, delta, causal=causal,
+                                   scale=scale)
+        dk, dv = _kernels.flash_bwd_dkv(q, k, v, g, lse, delta,
+                                        causal=causal, scale=scale)
+        return dq, dk, dv
+    if q.device.type == "cpu":
+        return flash_backward_reference(q, k, v, o, lse, g, causal=causal,
+                                        scale=scale)
+    raise RuntimeError(f"flash_attention: no implementation for {q.device}")
+
+
 class _FlashAttention(torch.autograd.Function):
-    """Forward through :func:`_flash_forward`, saving (O, logsumexp) for
-    the backward. The backward kernels are not ported yet: on the CPU the
-    gradient comes from the plain version, on CUDA it raises."""
+    """Forward through :func:`_flash_forward`, saving (q, k, v, O,
+    logsumexp); backward through :func:`_flash_backward` from them."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):
@@ -185,29 +260,24 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, _, _ = ctx.saved_tensors
-        if q.device.type != "cpu":
-            raise NotImplementedError(
-                "flash-attention backward kernels are not ported yet "
-                "(see ROADMAP.md)")
-        with torch.enable_grad():
-            qkv = [t.detach().requires_grad_() for t in (q, k, v)]
-            o, _ = flash_forward_reference(*qkv, causal=ctx.causal,
-                                           scale=ctx.scale)
-            grads = torch.autograd.grad(o, qkv, g)
+        q, k, v, o, lse = ctx.saved_tensors
+        # the head merge after the forward hands the cotangent back
+        # transposed; the kernels take contiguous rows only
+        grads = _flash_backward(q, k, v, o, lse, g.contiguous(),
+                                causal=ctx.causal, scale=ctx.scale)
         return (*grads, None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, scale: Optional[float] = None,
                     mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Flash-attention forward: online softmax with fp32 state, causal
-    masking with diagonal offset ``sk - sq``, fully-masked rows 0.
+    """Flash attention: online softmax with fp32 state, causal masking with
+    diagonal offset ``sk - sq``, fully-masked rows 0; differentiable.
 
-    Without ``mask`` it launches the Hopper kernel on a CUDA tensor (or
-    raises) and runs the plain version on a CPU tensor. With ``mask`` it
-    takes :func:`blockwise_attention`, as the JAX function does; that route
-    is off the serving path."""
+    Without ``mask`` the forward and backward launch the Hopper kernels on
+    CUDA tensors (or raise) and run their plain versions on CPU tensors.
+    With ``mask`` it takes :func:`blockwise_attention`, as the JAX function
+    does; that route runs no kernel."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     if mask is not None:

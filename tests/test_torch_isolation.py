@@ -35,16 +35,38 @@ def test_sources_import_no_jax_or_reference():
     assert not bad, bad
 
 
-def test_import_and_cpu_forward_leave_jax_out():
+SERVE = (
+    "from dcnn_tpu_torch.models import create_model\n"
+    "from dcnn_tpu_torch.serve import InferenceEngine\n"
+    "m = create_model('mha_classifier').init("
+    "generator=torch.Generator().manual_seed(0), device='cpu')\n"
+    "e = InferenceEngine.from_model(m, max_batch=2, device='cpu')\n"
+    "assert e.infer(torch.zeros(32, 64)).shape == (10,)\n")
+TRAIN = (
+    "import numpy as np\n"
+    "import dcnn_tpu_torch.data, dcnn_tpu_torch.optim, dcnn_tpu_torch.train\n"
+    "from dcnn_tpu_torch.models import create_model\n"
+    "from dcnn_tpu_torch.ops.losses import get_loss\n"
+    "m = create_model('mha_classifier').init("
+    "generator=torch.Generator().manual_seed(0), device='cpu')\n"
+    "opt = dcnn_tpu_torch.optim.Adam(1e-3)\n"
+    "ts = dcnn_tpu_torch.train.create_train_state(m, opt)\n"
+    "step = dcnn_tpu_torch.train.make_train_step("
+    "m, get_loss('softmax_crossentropy'), opt)\n"
+    "x, y = next(iter(dcnn_tpu_torch.data.ArrayDataLoader("
+    "np.zeros((4, 32, 64), np.float32), np.eye(10, dtype=np.float32)[:4],"
+    " batch_size=4)))\n"
+    "loss, _ = step(ts, torch.from_numpy(x), torch.from_numpy(y), 1e-3)\n"
+    "assert ts.step == 1 and bool(torch.isfinite(loss))\n")
+
+
+def _run_isolated(body: str) -> None:
+    """Run ``body`` in a fresh interpreter after ``import dcnn_tpu_torch``
+    and check that no module of JAX, flax or the JAX package was loaded."""
     code = (
         "import sys, torch\n"
         "import dcnn_tpu_torch\n"
-        "from dcnn_tpu_torch.models import create_model\n"
-        "from dcnn_tpu_torch.serve import InferenceEngine\n"
-        "m = create_model('mha_classifier').init("
-        "generator=torch.Generator().manual_seed(0), device='cpu')\n"
-        "e = InferenceEngine.from_model(m, max_batch=2, device='cpu')\n"
-        "assert e.infer(torch.zeros(32, 64)).shape == (10,)\n"
+        + body +
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -54,3 +76,11 @@ def test_import_and_cpu_forward_leave_jax_out():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "isolated" in out.stdout
+
+
+def test_import_and_cpu_forward_leave_jax_out():
+    _run_isolated(SERVE)
+
+
+def test_import_and_cpu_train_step_leave_jax_out():
+    _run_isolated(TRAIN)

@@ -9,22 +9,35 @@ Phases, each fatal on failure:
    (``nvidia-smi --query-gpu=name,power.limit --format=csv,noheader``);
 2. build: compile every CUDA kernel from ``dcnn_tpu_torch/ops/csrc`` with
    ``nvcc -Xptxas -v`` (registers, shared memory and spills are printed);
-3. kernels: hold each kernel (the flash forward, the dQ and the dK/dV
+3. flash kernels: hold each kernel (the flash forward, the dQ and the dK/dV
    backward kernels) against its plain PyTorch version on the card at the
    model's shape and at harder ones, and time the kernel, the plain
    version, one PyTorch library call computing the same function (a
    yardstick the port never calls) and the card's bound for the work;
-4. serve: build ``mha_classifier`` at its full width (S=32, E=64, 4 heads)
+4. conv kernels: the same for the 3x3 implicit-GEMM convs (plain, column
+   pairs, BN prologue) and the fused scale/bias/ReLU, at the shapes of
+   ``benchmarks/bench_pallas_conv.py::_shapes`` (bf16, B=256) and at ragged
+   shapes (fp32 and bf16); the library call is ``F.conv2d``;
+5. model sites: one B=32 batch through the unfolded NHWC
+   ``resnet18_tiny_imagenet`` on CUDA; at every 3x3 stride-1 site the
+   four kernels (through their public functions) are held to the model's
+   own tensors, the launch counters show one launch per site, and each
+   distinct site is timed in fp32 and bf16;
+6. serve: build ``mha_classifier`` at its full width (S=32, E=64, 4 heads)
    from JAX-layout numpy weights made from a seed, through
    ``interop.from_jax``; serve threaded single and small-batch requests
    through ``DynamicBatcher`` over ``InferenceEngine`` on CUDA; check every
    answer against the same model on the CPU (plain path), and check from
    the launch counters that the serving path ran the forward kernel;
-5. train: the same model and weights, trained for 2 epochs (16 Adam steps)
+7. train: the same model and weights, trained for 2 epochs (16 Adam steps)
    on a synthetic marker task through ``Trainer.fit`` on CUDA and on the
    CPU; check that the loss falls, that every epoch's loss and the final
    params track the CPU run, and from the launch counters that every step
-   ran the forward, dQ and dK/dV kernels twice each.
+   ran the forward, dQ and dK/dV kernels twice each;
+8. serve cnn: full-width ``resnet18_tiny_imagenet`` (NHWC, random BN
+   statistics) served through ``DynamicBatcher`` over
+   ``InferenceEngine.from_model(..., fold=True)`` on CUDA, every answer held
+   to the unfolded model on the CPU (relative to the logit scale).
 
 Then it prints ``{"kernels": [...]}`` on a line of its own and, last,
 ``{"ok": true, "device": {...}}``. Times come from CUDA events around CUDA
@@ -333,58 +346,78 @@ def phase_bwd_kernels():
     return results
 
 
-def jax_layout_params(cfg, rng):
-    """Params in the JAX package's pytree layout, as numpy: what
-    ``model.init`` gives there (Kaiming-uniform, bound 1/sqrt(fan_in)),
-    drawn from ``rng`` instead of a jax.random key."""
+def jax_layout(cfg, rng):
+    """(params, state) in the JAX package's pytree layout, as numpy: the
+    weights as ``model.init`` draws them there (Kaiming-uniform, bound
+    1/sqrt(fan_in)), drawn from ``rng`` instead of a jax.random key;
+    batchnorm's gamma, beta, running mean and running variance (> 0) drawn
+    at random, since with their initial 1/0/0/1 a broken fold or BN would
+    not show. Shapes follow the port's layers built from ``cfg``."""
     import numpy as np
+
+    from dcnn_tpu_torch.nn import Sequential
 
     def u(shape, fan_in):
         bound = fan_in ** -0.5
         return rng.uniform(-bound, bound, size=shape).astype(np.float32)
 
-    def layer(lc, shape):
-        ty = lc["type"]
+    def f32(a):
+        return a.astype(np.float32)
+
+    def layer(l, shape):
+        ty, p, s = l.type_name, {}, {}
         if ty == "multi_head_attention":
             e = shape[1]
             p = {n: u((e, e), e) for n in ("wq", "wk", "wv", "wo")}
             p.update({n: u((e,), e) for n in ("bq", "bk", "bv", "bo")})
-            return p, shape
-        if ty == "residual_block":
-            main, s = [], shape
-            for c in lc["layers"]:
-                p, s = layer(c, s)
-                main.append(p)
-            return {"main": tuple(main), "shortcut": ()}, s
-        if ty == "flatten":
-            return {}, (int(np.prod(shape)),)
-        if ty == "dense":
-            n = lc["out_features"]
-            return {"w": u((n, shape[0]), shape[0]),
-                    "b": u((n,), shape[0])}, (n,)
-        raise ValueError(f"no params rule for {ty}")
+        elif ty == "residual_block":
+            main, short = layers(l.layers, shape), layers(l.shortcut, shape)
+            p = {"main": main[0], "shortcut": short[0]}
+            s = {"main": main[1], "shortcut": short[1]}
+        elif ty == "dense":
+            p = {"w": u((l.out_features, shape[0]), shape[0])}
+            if l.use_bias:
+                p["b"] = u((l.out_features,), shape[0])
+        elif ty == "conv2d":
+            cin = shape[0 if l.data_format == "NCHW" else 2]
+            fan_in = cin * l.kernel_size[0] * l.kernel_size[1]
+            p = {"w": u((l.out_channels, cin, *l.kernel_size), fan_in)}
+            if l.use_bias:
+                p["b"] = u((l.out_channels,), fan_in)
+        elif ty == "batchnorm":
+            c = l.num_features
+            if l.affine:
+                p = {"gamma": f32(rng.uniform(0.5, 1.5, c)),
+                     "beta": f32(rng.normal(0.0, 0.1, c))}
+            s = {"running_mean": f32(rng.normal(0.0, 0.1, c)),
+                 "running_var": f32(rng.uniform(0.5, 1.5, c))}
+        elif ty not in ("flatten", "activation", "maxpool2d", "avgpool2d"):
+            raise ValueError(f"no params rule for {ty}")
+        return p, s, l.output_shape(shape)
 
-    shape, params = tuple(cfg["input_shape"]), []
-    for lc in cfg["layers"]:
-        p, shape = layer(lc, shape)
-        params.append(p)
-    return tuple(params)
+    def layers(ls, shape):
+        params, state = [], []
+        for l in ls:
+            p, s, shape = layer(l, shape)
+            params.append(p)
+            state.append(s)
+        return tuple(params), tuple(state)
+
+    return layers(Sequential.from_config(cfg).layers,
+                  tuple(cfg["input_shape"]))
 
 
 def reset_launches() -> None:
     from dcnn_tpu_torch.ops import _kernels
 
-    for fn in (_kernels.flash_fwd, _kernels.flash_bwd_dq,
-               _kernels.flash_bwd_dkv):
+    for fn in _kernels.COUNTED:
         fn.launches = 0
 
 
 def launches() -> dict:
     from dcnn_tpu_torch.ops import _kernels
 
-    return {"flash_fwd": _kernels.flash_fwd.launches,
-            "flash_bwd_dq": _kernels.flash_bwd_dq.launches,
-            "flash_bwd_dkv": _kernels.flash_bwd_dkv.launches}
+    return {fn.__name__: fn.launches for fn in _kernels.COUNTED}
 
 
 def model_params():
@@ -395,7 +428,7 @@ def model_params():
 
     rng = np.random.default_rng(SEED)
     cfg = create_model("mha_classifier").get_config()
-    return cfg, jax_layout_params(cfg, rng), rng
+    return cfg, jax_layout(cfg, rng)[0], rng
 
 
 def phase_serve(card: str):
@@ -520,7 +553,8 @@ def phase_train(card: str):
             reset_launches()  # the training path starts here
             ts = trainer.fit(ts, loader)
             torch.cuda.synchronize()
-            counts = launches()  # the training path ends here
+            counts = {k: v for k, v in launches().items()  # the path ends
+                      if k.startswith("flash_")}
         else:
             ts = trainer.fit(ts, loader)
         runs[dev] = (trainer.history, to_jax(model),
@@ -611,6 +645,430 @@ def phase_train(card: str):
             "samples_per_s": sps}
 
 
+CONV_TOL = {"float32": 1e-4,   # the same products summed in another order
+            "bfloat16": 2e-2}  # output rounded to bf16 (8 significant bits)
+CNN_SERVE_RTOL = 1e-4  # max |served - CPU| over max |CPU logit|, fp32
+# bench_pallas_conv.py::_shapes, (B, H, W, Cin, Cout), bf16 as that bench
+# runs them; layer1 sits at 64x64 there, though the model max-pools it to 32
+BENCH_SHAPES = [(256, 64, 64, 64, 64), (256, 32, 32, 128, 128),
+                (256, 16, 16, 256, 256), (256, 8, 8, 512, 512)]
+# tests/test_pallas_kernels.py's conv shapes, and an odd W
+RAGGED_SHAPES = [(4, 8, 8, 8, 16), (4, 6, 10, 4, 8), (2, 5, 5, 3, 4),
+                 (3, 7, 9, 8, 8)]
+CONV_KERNELS = ("conv3x3_s1", "conv3x3_s1_pairs", "conv3x3_s1_bnrelu_in",
+                "fused_scale_bias_relu")
+# launches per 3x3 stride-1 site of resnet18_tiny_imagenet: the stem and
+# the conv1 of its 8 basic blocks; the pairs kernel at layer1's two
+SITE_LAUNCHES = {"conv3x3_s1": 9, "conv3x3_s1_pairs": 2,
+                 "conv3x3_s1_bnrelu_in": 8, "fused_scale_bias_relu": 8}
+
+
+def conv_bound(n, h, w, cin, cout, dtype_name, bn):
+    """Least time for one 3x3 conv: x, the weights (and fp32 scale and
+    shift) read once and the output written once, over HBM bandwidth,
+    against 2 N H W 9 Cin Cout FLOPs over the peak rate for the input
+    type, whatever the formulation (the pairs kernel's extra third of
+    products counts against it, not in its bound)."""
+    es = 4 if dtype_name == "float32" else 2
+    nbytes = es * (n * h * w * (cin + cout) + 9 * cin * cout) + 8 * cin * bn
+    flops = 2 * n * h * w * 9 * cin * cout
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def fused_bound(numel, c, dtype_name):
+    """x read and y written once, scale and bias once; 3 operations per
+    element."""
+    es = 4 if dtype_name == "float32" else 2
+    nbytes, flops = es * (2 * numel + 2 * c), 3 * numel
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
+
+
+def conv_case(kind, label, x, w, sc, sh, reps):
+    """Hold one conv or scale/bias/ReLU kernel against its plain version on
+    the same inputs (kernel and plain launched directly, so the launch
+    counters of a path do not see them), and time the kernel, the plain
+    version and, for the convs, ``F.conv2d`` on the same shape, dtype and
+    layout (channels-last; for the BN variant without its prologue). For
+    ``fused_scale_bias_relu`` x is (..., C) and ``sc``, ``sh`` are the
+    scale and bias in x's dtype."""
+    import torch
+    import torch.nn.functional as F
+
+    from dcnn_tpu_torch.ops import _kernels
+    from dcnn_tpu_torch.ops.pallas import conv as pconv
+    from dcnn_tpu_torch.ops.pallas import fused as pfused
+
+    dtn = str(x.dtype).replace("torch.", "")
+    k_reps, p_reps, l_reps = reps
+    lib = None
+    if kind == "fused_scale_bias_relu":
+        def kern():
+            return _kernels.fused_scale_bias_relu(x, sc, sh)
+
+        def plain():
+            return pfused.scale_bias_relu_reference(x, sc, sh)
+        bound = fused_bound(x.numel(), x.shape[-1], dtn)
+        shape = {"shape": list(x.shape)}
+    else:
+        n, h, wd, cin = x.shape
+        cout = w.shape[3]
+        x_cl = x.permute(0, 3, 1, 2)  # NHWC memory as a channels-last NCHW view
+        w_cl = w.permute(3, 2, 0, 1).contiguous(
+            memory_format=torch.channels_last)
+
+        def lib():
+            return F.conv2d(x_cl, w_cl, padding=1)
+        if kind == "conv3x3_s1":
+            def kern():
+                return _kernels.conv3x3_s1(x, w, out_dtype=x.dtype)
+
+            def plain():
+                return pconv.conv3x3_reference(x, w)
+        elif kind == "conv3x3_s1_bnrelu_in":
+            def kern():
+                return _kernels.conv3x3_s1_bnrelu_in(x, w, sc, sh,
+                                                     out_dtype=x.dtype)
+
+            def plain():
+                return pconv.conv3x3_reference(
+                    pconv.bnrelu_reference(x, sc, sh), w)
+        else:
+            w2 = pconv.fuse_pair_weights(w)
+
+            def kern():
+                return _kernels.conv3x3_s1_pairs(x, w2, out_dtype=x.dtype)
+
+            def plain():
+                return pconv.conv3x3_pairs_reference(x, w2)
+        bound = conv_bound(n, h, wd, cin, cout, dtn,
+                           kind == "conv3x3_s1_bnrelu_in")
+        shape = {"B": n, "H": h, "W": wd, "Cin": cin, "Cout": cout}
+
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    top = want.float().abs().max().item()
+    rel = err / top if top > 0 else err
+    if not (math.isfinite(err) and rel <= CONV_TOL[dtn]):
+        fail(f"{kind} [{label}] {shape} {dtn}: max |err| {err:.3e} is "
+             f"{rel:.3e} of max |plain| {top:.3e} > {CONV_TOL[dtn]:g}")
+    lib_ms = lib_rel = None
+    if lib is not None:
+        if kind != "conv3x3_s1_bnrelu_in":  # the same function as plain
+            lib_rel = ((lib().permute(0, 2, 3, 1).float() - want.float())
+                       .abs().max().item() / max(top, 1e-30))
+        lib_ms = device_ms(lib, l_reps)
+    kern_ms = device_ms(kern, k_reps)
+    plain_ms = device_ms(plain, p_reps)
+    bound_ms, bound_by, nbytes, flops = bound
+    print(f"{kind} [{label}] {shape} {dtn}: max_abs_err={err:.3e} (rel "
+          f"{rel:.3e}, tol {CONV_TOL[dtn]:g}) kernel_ms={kern_ms:.6f} "
+          f"plain_ms={plain_ms:.6f} library_ms={lib_ms} "
+          f"bound_ms={bound_ms:.3e} ({bound_by}); kernel at "
+          f"{100 * bound_ms / kern_ms:.1f}% of bound", flush=True)
+    return {"case": label, **shape, "dtype": dtn, "max_abs_err": err,
+            "max_rel_err": rel, "tolerance": CONV_TOL[dtn], "ms": kern_ms,
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "library_rel_err": lib_rel, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "flops": flops}
+
+
+def phase_conv_kernels():
+    """Rows 4-7 against their plain versions at the JAX bench's shapes
+    (bf16) and at the ragged test shapes (fp32 and bf16)."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+
+    def randn(*shape, dt=torch.float32, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=gen)
+                * scale).to(dt)
+
+    results = {k: [] for k in CONV_KERNELS}
+    cases = ([("bench", s, torch.bfloat16, (3, 2, 5)) for s in BENCH_SHAPES]
+             + [("ragged", s, dt, (50, 10, 50)) for s in RAGGED_SHAPES
+                for dt in (torch.float32, torch.bfloat16)])
+    for group, (n, h, w, cin, cout), dt, reps in cases:
+        x, wt = randn(n, h, w, cin, dt=dt), randn(3, 3, cin, cout, dt=dt,
+                                                  scale=0.05)
+        sc = torch.rand(cin, device="cuda", generator=gen) + 0.5
+        sh = randn(cin, scale=0.1)
+        label = f"{group} {n}x{h}x{w}x{cin}->{cout}"
+        for kind in ("conv3x3_s1", "conv3x3_s1_bnrelu_in"):
+            results[kind].append(conv_case(kind, label, x, wt, sc, sh, reps))
+        # as the bench races the pairs variant: narrow Cout, even W
+        if w % 2 == 0 and (group == "ragged" or cout < 128):
+            results["conv3x3_s1_pairs"].append(
+                conv_case("conv3x3_s1_pairs", label, x, wt, sc, sh, reps))
+        results["fused_scale_bias_relu"].append(conv_case(
+            "fused_scale_bias_relu", label, x, None, sc.to(dt), sh.to(dt),
+            reps))
+    for dt in (torch.float32, torch.bfloat16):  # ragged rows, wide C
+        x = randn(3, 700, dt=dt)
+        results["fused_scale_bias_relu"].append(conv_case(
+            "fused_scale_bias_relu", "ragged 3x700", x, None,
+            randn(700, dt=dt), randn(700, dt=dt), (50, 10, 50)))
+    return results
+
+
+def resnet18(device, rng):
+    """Full-width ``resnet18_tiny_imagenet`` (64x64x3, NHWC) in eval mode
+    from JAX-layout params and random BN state made from ``rng``."""
+    from dcnn_tpu_torch.interop import from_jax
+    from dcnn_tpu_torch.models import create_model
+
+    cfg = create_model("resnet18_tiny_imagenet", "NHWC").get_config()
+    params, state = jax_layout(cfg, rng)
+    return cfg, params, state, from_jax(cfg, params, state,
+                                        device=device).eval()
+
+
+def phase_model_sites(card):
+    """Run one B=32 batch through the unfolded NHWC ResNet-18 on CUDA and
+    hold the four kernels to the model's own tensors at every 3x3
+    stride-1 site: the stem conv, and in each basic block conv1 with the
+    bn0 + relu0 before it. The launch counters are reset just before and
+    read just after: 9 conv, 8 BN-prologue conv, 2 pairs conv (layer1) and
+    8 scale/bias/ReLU launches. Then each distinct site is timed in fp32
+    and bf16 against its plain version, its library call and its bound."""
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.ops.pallas import (
+        conv3x3_s1, conv3x3_s1_bnrelu_in, conv3x3_s1_pairs,
+        fused_scale_bias_relu,
+    )
+
+    rng = np.random.default_rng(SEED + 3)
+    _, _, _, model = resnet18("cuda", rng)
+    x = torch.from_numpy(rng.normal(size=(32, 64, 64, 3)).astype(np.float32)
+                         ).cuda()
+    blocks = [l for l in model.layers if l.type_name == "residual_block"]
+    seen = {}
+
+    def keep(key):
+        return lambda module, inputs, out: seen.__setitem__(key, out)
+
+    hooks = [model[0].register_forward_hook(keep("stem"))]
+    for bi, blk in enumerate(blocks):
+        for j, tag in ((0, "y0"), (2, "a0"), (3, "y1")):
+            hooks.append(blk.layers[j].register_forward_hook(keep((bi, tag))))
+    with torch.no_grad():
+        logits = model(x)
+    torch.cuda.synchronize()
+    for hk in hooks:
+        hk.remove()
+    if not bool(torch.isfinite(logits).all()):
+        fail("model sites: non-finite logits")
+
+    stem_w = model[0].w.detach().permute(2, 3, 1, 0).contiguous()
+    sites = []  # (kernel, block, kernel output, the model's tensor)
+    per_block = []
+    with torch.no_grad():
+        for bi, blk in enumerate(blocks):
+            bn0, conv1 = blk.layers[1], blk.layers[3]
+            s0 = bn0.gamma / torch.sqrt(bn0.running_var + bn0.epsilon)
+            t0 = bn0.beta - bn0.running_mean * s0
+            y0, a0, y1 = (seen[(bi, t)].contiguous() for t in ("y0", "a0",
+                                                                 "y1"))
+            per_block.append((blk.name, y0, a0, y1, s0.contiguous(),
+                              t0.contiguous(),
+                              conv1.w.permute(2, 3, 1, 0).contiguous(),
+                              conv1.b))
+        reset_launches()  # the kernels' path starts here
+        sites.append(("conv3x3_s1", "stem", conv3x3_s1(x, stem_w),
+                      seen["stem"]))
+        for name, y0, a0, y1, s0, t0, w1, b1 in per_block:
+            sites.append(("fused_scale_bias_relu", name,
+                          fused_scale_bias_relu(y0, s0, t0), a0))
+            sites.append(("conv3x3_s1", name, conv3x3_s1(a0, w1) + b1, y1))
+            sites.append(("conv3x3_s1_bnrelu_in", name,
+                          conv3x3_s1_bnrelu_in(y0, w1, s0, t0) + b1, y1))
+            if name.startswith("layer1_"):
+                sites.append(("conv3x3_s1_pairs", name,
+                              conv3x3_s1_pairs(a0, w1) + b1, y1))
+        torch.cuda.synchronize()
+        counts = launches()  # the kernels' path ends here
+    for k, want in SITE_LAUNCHES.items():
+        if counts[k] != want:
+            fail(f"model sites: {k} launched {counts[k]} times, expected "
+                 f"{want} (one per site); all counts {counts}")
+    worst = {k: 0.0 for k in CONV_KERNELS}
+    for kind, name, got, want in sites:
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        if not (math.isfinite(rel) and rel <= CONV_TOL["float32"]):
+            fail(f"model sites: {kind} at {name} differs from the model's "
+                 f"tensor by {rel:.3e} of its max > {CONV_TOL['float32']:g}")
+        worst[kind] = max(worst[kind], rel)
+    print(f"model sites: resnet18_tiny_imagenet B=32 NHWC fp32, {len(sites)}"
+          f" kernel outputs held to the model's own tensors, worst relative "
+          f"error per kernel {worst} (tol {CONV_TOL['float32']:g}); launches "
+          f"{ {k: counts[k] for k in CONV_KERNELS} } on {card}", flush=True)
+
+    # one timed case per distinct site shape, "sites" such sites on the path
+    results = {k: [] for k in CONV_KERNELS}
+    by_name = {pb[0]: pb[1:] for pb in per_block}
+    distinct = [("stem", 1, {"conv3x3_s1": (x, stem_w, None, None)})]
+    for name in ("layer1_block1", "layer2_block1", "layer3_block1",
+                 "layer4_block1"):
+        y0, a0, _, s0, t0, w1, _ = by_name[name]
+        kinds = {"conv3x3_s1": (a0, w1, None, None),
+                 "conv3x3_s1_bnrelu_in": (y0, w1, s0, t0),
+                 "fused_scale_bias_relu": (y0, None, s0, t0)}
+        if name.startswith("layer1_"):
+            kinds["conv3x3_s1_pairs"] = (a0, w1, None, None)
+        distinct.append((name.split("_")[0], 2, kinds))
+    for dt in (torch.float32, torch.bfloat16):
+        for label, count, kinds in distinct:
+            for kind, (inp, w, sc, sh) in kinds.items():
+                if kind == "fused_scale_bias_relu":  # scale, bias in x's type
+                    sc, sh = sc.to(dt), sh.to(dt)
+                r = conv_case(kind, f"model {label}", inp.to(dt),
+                              None if w is None else w.to(dt), sc, sh,
+                              (20, 5, 20))
+                results[kind].append({**r, "sites": count})
+    return counts, worst, results
+
+
+def phase_serve_cnn(card):
+    """Full-width resnet18_tiny_imagenet (NHWC, random BN statistics)
+    served through DynamicBatcher over InferenceEngine.from_model(...,
+    fold=True) on CUDA, every answer held to the unfolded model on the
+    CPU."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+
+    from dcnn_tpu_torch.interop import from_jax
+    from dcnn_tpu_torch.serve import DynamicBatcher, InferenceEngine
+
+    rng = np.random.default_rng(SEED + 4)
+    cfg, params, state, _ = resnet18("cpu", rng)
+    n_single, batches = 48, (2, 3, 5, 8, 16)
+    pool = rng.normal(size=(n_single + sum(batches), *cfg["input_shape"])
+                      ).astype(np.float32)
+    cpu_model = from_jax(cfg, params, state, device="cpu").eval()
+    with torch.no_grad():
+        ref = cpu_model(torch.from_numpy(pool)).numpy()
+    n_params = sum(p.numel() for p in cpu_model.parameters())
+    scale = float(np.abs(ref).max())
+
+    model = from_jax(cfg, params, state, device="cuda")
+    reset_launches()  # the serving path starts here
+    t0 = time.perf_counter()
+    engine = InferenceEngine.from_model(model, fold=True, max_batch=32,
+                                        device="cuda")
+    warm_s = time.perf_counter() - t0
+    batcher = DynamicBatcher(engine, max_wait_ms=2.0, queue_capacity=256)
+
+    def serve_round():
+        """Threaded singles and small batches; waits for every answer."""
+        futs = {}
+
+        def submit_singles(lo, hi):
+            for i in range(lo, hi):
+                futs[i] = batcher.submit(pool[i])
+
+        threads = [threading.Thread(target=submit_singles, args=(lo, lo + 12))
+                   for lo in range(0, n_single, 12)]
+        t0 = time.perf_counter()
+        for t in threads:
+            t.start()
+        off = n_single
+        for n in batches:
+            futs[(off, n)] = batcher.submit(pool[off:off + n])
+            off += n
+        for t in threads:
+            t.join(timeout=120)
+            if t.is_alive():
+                fail("serve cnn: a submitter thread did not finish")
+        out = {key: f.result(timeout=300) for key, f in futs.items()}
+        return out, time.perf_counter() - t0, batcher.metrics.snapshot()
+
+    # round 1 pays the dispatcher thread's first calls; round 2 is warm
+    answers, wall, snap = serve_round()
+    batcher.metrics.reset()
+    answers2, wall2, snap2 = serve_round()
+    batcher.drain(timeout=300)
+    counts = launches()  # the serving path ends here
+    worst = 0.0
+    for key in answers:
+        lo, n = (key, None) if isinstance(key, int) else key
+        want = ref[lo] if n is None else ref[lo:lo + n]
+        for y in (answers[key], answers2[key]):
+            if y.shape != want.shape or not np.all(np.isfinite(y)):
+                fail(f"serve cnn: request {key}: got shape {y.shape}, "
+                     f"finite={bool(np.all(np.isfinite(y)))}")
+            worst = max(worst, float(np.abs(y - want).max()))
+    rel = worst / scale
+
+    # where a B=32 batch's time goes: host wall of eager batches (launch to
+    # sync), device time of the same batch replayed as a CUDA graph, and
+    # the profiler's device time by kernel for one eager batch
+    x32 = torch.from_numpy(pool[:32]).cuda()
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine.run_padded(x32)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall_ms = sorted(walls)[2]
+    graph_ms = device_ms(lambda: engine.run_padded(x32), 5)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        engine.run_padded(x32)
+        torch.cuda.synchronize()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # the kernels themselves; an operator's entry repeats its kernels' time
+    events = sorted((e for e in prof.key_averages()
+                     if getattr(e, "device_type", None) == DeviceType.CUDA),
+                    key=dev_us, reverse=True)
+    prof_us = sum(dev_us(e) for e in events)
+    top = [(e.key[:60], e.count, round(dev_us(e), 1)) for e in events[:6]]
+    print(f"serve cnn: one B=32 batch: host wall {wall_ms:.3f} ms (median "
+          f"of 5 eager batches {[round(w, 3) for w in walls]}), device "
+          f"{graph_ms:.3f} ms (CUDA graph replay), so the card is busy "
+          f"{100 * graph_ms / wall_ms:.1f}% of an eager batch; profiler: "
+          f"{prof_us / 1e3:.3f} ms of device time, top kernels (name, "
+          f"calls, us) {top}", flush=True)
+    if rel > CNN_SERVE_RTOL:
+        fail(f"serve cnn: folded CUDA logits differ from the unfolded CPU "
+             f"model by {worst:.3e}, {rel:.3e} of max |logit| {scale:.3e} "
+             f"> {CNN_SERVE_RTOL:g}")
+    print(f"serve cnn: resnet18_tiny_imagenet NHWC ({n_params} params, BN "
+          f"folded) {len(answers)} requests ({snap['requests_completed']} "
+          f"samples) per round; max |logit err| vs unfolded CPU "
+          f"{worst:.3e} = {rel:.3e} of the logit scale {scale:.3e} (tol "
+          f"{CNN_SERVE_RTOL:g}); round 1: {snap['batches']} batches, "
+          f"occupancy {snap['batch_occupancy']}, throughput "
+          f"{snap['throughput_rps']} samples/s, p50 {snap['p50_ms']} ms, p99 "
+          f"{snap['p99_ms']} ms, wall {wall:.3f} s; round 2 (warm "
+          f"dispatcher): {snap2['batches']} batches, throughput "
+          f"{snap2['throughput_rps']} samples/s, p50 {snap2['p50_ms']} ms, "
+          f"p99 {snap2['p99_ms']} ms, wall {wall2:.3f} s; warm-up of "
+          f"{len(engine.bucket_sizes)} buckets {warm_s:.3f} s; kernel "
+          f"launches {counts} (the platform conv serves, as in the JAX "
+          f"package) on {card}", flush=True)
+    return {"requests": len(answers), "params": n_params,
+            "max_abs_err": worst, "round2": snap2,
+            "max_rel_err": rel, "logit_scale": scale, "warmup_s": warm_s,
+            "batch32_wall_ms": wall_ms, "batch32_device_ms": graph_ms,
+            "batch32_profiled_device_ms": prof_us / 1e3, "launches": counts,
+            **snap}
+
+
 def main() -> None:
     card = phase_device()
     sys.path.insert(0, ROOT)
@@ -626,8 +1084,11 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     fwd_cases = phase_kernels()
     bwd_cases = phase_bwd_kernels()
+    conv_cases = phase_conv_kernels()
+    site_counts, site_worst, site_cases = phase_model_sites(card)
     serve = phase_serve(card)
     train = phase_train(card)
+    serve_cnn = phase_serve_cnn(card)
 
     def row(name, source, replaces, cases, by_path):
         model_case = cases[0]  # the model's shape: B=32, H=4, S=32, D=16
@@ -640,7 +1101,29 @@ def main() -> None:
                 "bound_by": model_case["bound_by"],
                 "library_ms": model_case["library_ms"], "cases": cases}
 
+    def site_row(name, source, replaces):
+        """Rows 4-7: times summed over the model's sites in fp32 (each
+        distinct site times the number of such sites on the path); the
+        race and the bf16 sites are in ``cases``."""
+        sites = [c for c in site_cases[name] if c["dtype"] == "float32"]
+        total = {k: sum(c[k] * c["sites"] for c in sites)
+                 for k in ("ms", "plain_ms", "bound_ms")}
+        lib = (None if name == "fused_scale_bias_relu"
+               else sum(c["library_ms"] * c["sites"] for c in sites))
+        by = max(sites, key=lambda c: c["bound_ms"] * c["sites"])["bound_by"]
+        cases = conv_cases[name] + site_cases[name]
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": site_counts[name],
+                "launches_by_path": {"model_sites": site_counts[name],
+                                     "serve_cnn": serve_cnn["launches"][name]},
+                "max_abs_err": max(c["max_abs_err"] for c in cases),
+                "max_rel_err_at_model_sites": site_worst[name],
+                "ms": total["ms"], "plain_ms": total["plain_ms"],
+                "bound_ms": total["bound_ms"], "bound_by": by,
+                "library_ms": lib, "cases": cases}
+
     tl = train["launches"]
+    conv_src = "dcnn_tpu_torch/ops/csrc/conv3x3.cu"
     kernels = [
         row("flash_fwd", "dcnn_tpu_torch/ops/csrc/flash_fwd.cu",
             "dcnn_tpu/ops/attention.py:297", fwd_cases,
@@ -651,6 +1134,13 @@ def main() -> None:
         row("flash_bwd_dkv", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:478", bwd_cases["dkv"],
             {"serve": 0, "train": tl["flash_bwd_dkv"]}),
+        site_row("conv3x3_s1", conv_src, "dcnn_tpu/ops/pallas/conv.py:82"),
+        site_row("conv3x3_s1_pairs", conv_src,
+                 "dcnn_tpu/ops/pallas/conv.py:173"),
+        site_row("conv3x3_s1_bnrelu_in", conv_src,
+                 "dcnn_tpu/ops/pallas/conv.py:209"),
+        site_row("fused_scale_bias_relu", "dcnn_tpu_torch/ops/csrc/fused.cu",
+                 "dcnn_tpu/ops/pallas/fused.py:49"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

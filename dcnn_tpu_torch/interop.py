@@ -1,10 +1,12 @@
 """Carry a model and its training state across to and from the JAX package.
 
 :func:`from_jax` takes what the JAX package gives for a model — its
-``get_config()`` dict and its params pytree, converted to numpy arrays — and
-returns a port :class:`~dcnn_tpu_torch.nn.Sequential` that computes the same
-function. :func:`to_jax` is its exact inverse, :func:`grads_to_jax` gives
-each ``param.grad`` in the same layout, and :func:`opt_state_to_jax` /
+``get_config()`` dict, its params pytree and, optionally, its state pytree
+(batchnorm running statistics), converted to numpy arrays — and returns a
+port :class:`~dcnn_tpu_torch.nn.Sequential` that computes the same
+function. :func:`to_jax` and :func:`state_to_jax` are its exact inverses,
+:func:`grads_to_jax` gives each ``param.grad`` in the same layout, and
+:func:`opt_state_to_jax` /
 :func:`opt_state_from_jax` carry an optimizer's state (SGD's ``velocity``,
 Adam's ``m``, ``v``, ``t``), so both packages can step from the same state.
 None of it needs JAX: a pytree is plain tuples, dicts and numpy arrays.
@@ -14,15 +16,20 @@ This module is where the two packages' weight layouts meet:
 - ``multi_head_attention``: JAX stores ``wq``/``wk``/``wv``/``wo`` as
   (E_in, E_out) and computes ``x @ w``; the port stores (out, in) for
   ``F.linear``, so these are transposed. Biases carry over as they are.
-- ``dense``: both store ``w`` as (out, in); no transpose.
-- ``residual_block``: params ``{"main": (...), "shortcut": (...)}``, one
-  entry per nested layer.
-- ``flatten`` / ``activation``: no params (``{}``).
+- ``dense``: both store ``w`` as (out, in); ``conv2d``: both store ``w``
+  as OIHW; no transpose.
+- ``batchnorm`` / ``groupnorm``: ``gamma`` and ``beta``, only when
+  ``affine``; batchnorm's state ``running_mean`` and ``running_var`` are the
+  port's buffers of the same names.
+- ``residual_block``: params and state ``{"main": (...), "shortcut":
+  (...)}``, one entry per nested layer.
+- ``flatten``, ``activation``, ``maxpool2d``, ``avgpool2d``,
+  ``log_softmax``: no params and no state (``{}``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Sequence
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -31,6 +38,8 @@ from .core.device import DeviceLike, resolve_device
 from .nn.sequential import Sequential
 
 _MHA_WEIGHTS = ("wq", "wk", "wv", "wo")
+_AS_IS = ("dense", "conv2d", "batchnorm", "groupnorm")
+_EMPTY = ("flatten", "activation", "maxpool2d", "avgpool2d", "log_softmax")
 
 
 def _layer_state(cfg: Dict[str, Any], p: Any, prefix: str,
@@ -40,14 +49,14 @@ def _layer_state(cfg: Dict[str, Any], p: Any, prefix: str,
         for name, a in p.items():
             a = np.asarray(a)
             out[prefix + name] = a.T if name in _MHA_WEIGHTS else a
-    elif ty == "dense":
+    elif ty in _AS_IS:
         for name, a in p.items():
             out[prefix + name] = np.asarray(a)
     elif ty == "residual_block":
         _layers_state(cfg["layers"], p["main"], prefix + "layers.", out)
         _layers_state(cfg.get("shortcut", []), p["shortcut"],
                       prefix + "shortcut.", out)
-    elif ty in ("flatten", "activation"):
+    elif ty in _EMPTY:
         if p:
             raise ValueError(f"{cfg.get('name')}: {ty} takes no params, "
                              f"got keys {sorted(p)}")
@@ -64,21 +73,27 @@ def _layers_state(cfgs: Sequence[Dict[str, Any]], params: Sequence[Any],
         _layer_state(cfg, p, f"{prefix}{i}.", out)
 
 
-def from_jax(config: Dict[str, Any], params_np: Sequence[Any], *,
+def from_jax(config: Dict[str, Any], params_np: Sequence[Any],
+             state_np: Optional[Sequence[Any]] = None, *,
              device: DeviceLike = None) -> Sequential:
-    """Build the port's model from a JAX ``Sequential.get_config()`` dict
-    and its params pytree as numpy arrays, on ``device`` (CUDA unless
-    ``"cpu"``). Every weight is checked for name and shape against the
-    port's parameters."""
+    """Build the port's model from a JAX ``Sequential.get_config()`` dict,
+    its params pytree and (optionally) its state pytree as numpy arrays, on
+    ``device`` (CUDA unless ``"cpu"``). Without ``state_np`` the running
+    statistics keep their initial values (mean 0, variance 1). Every array
+    is checked for name and shape against the port's parameters and
+    buffers."""
     dev = resolve_device(device)
     model = Sequential.from_config(config)
-    # parameters are created (and then overwritten) so that load_state_dict
-    # can check every name and shape
+    # parameters and buffers are created (and then overwritten) so that
+    # load_state_dict can check every name and shape
     model.init(generator=torch.Generator().manual_seed(0), device=dev)
     flat: Dict[str, np.ndarray] = {}
     _layers_state(config["layers"], params_np, "layers.", flat)
-    state = {k: torch.tensor(a) for k, a in flat.items()}
-    model.load_state_dict(state, strict=True)
+    if state_np is not None:
+        _layers_state(config["layers"], state_np, "layers.", flat)
+    sd = {n: b for n, b in model.named_buffers()}
+    sd.update({k: torch.tensor(a) for k, a in flat.items()})
+    model.load_state_dict(sd, strict=True)
     return model
 
 
@@ -87,7 +102,7 @@ def _layer_tree(cfg: Dict[str, Any], prefix: str,
     """Inverse of :func:`_layer_state`: one layer's pytree entry from port
     names."""
     ty = cfg["type"]
-    if ty in ("multi_head_attention", "dense"):
+    if ty == "multi_head_attention" or ty in _AS_IS:
         own = sorted(k[len(prefix):] for k in flat
                      if k.startswith(prefix) and "." not in k[len(prefix):])
         transpose = ty == "multi_head_attention"
@@ -98,7 +113,7 @@ def _layer_tree(cfg: Dict[str, Any], prefix: str,
         return {"main": _layers_tree(cfg["layers"], prefix + "layers.", flat),
                 "shortcut": _layers_tree(cfg.get("shortcut", []),
                                          prefix + "shortcut.", flat)}
-    if ty in ("flatten", "activation"):
+    if ty in _EMPTY:
         return {}
     raise NotImplementedError(f"to_jax has no weight rule for {ty!r}")
 
@@ -125,6 +140,12 @@ def to_jax(model: Sequential) -> tuple:
     """The model's params as the JAX package's pytree of numpy arrays: the
     exact inverse of :func:`from_jax` (MHA weights transposed back)."""
     return _tree(model, dict(model.named_parameters()))
+
+
+def state_to_jax(model: Sequential) -> tuple:
+    """The model's batchnorm running statistics as the JAX package's state
+    pytree of numpy arrays: the inverse of ``from_jax``'s ``state_np``."""
+    return _tree(model, dict(model.named_buffers()))
 
 
 def grads_to_jax(model: Sequential) -> tuple:

@@ -1,12 +1,18 @@
 from .attention_layer import MultiHeadAttentionLayer
 from .builder import SequentialBuilder
 from .factory import layer_from_config, register_layer
+from .fold import fold_batchnorm
 from .layer import Layer, ParameterizedLayer, StatelessLayer
-from .layers import ActivationLayer, DenseLayer, FlattenLayer
+from .layers import (
+    ActivationLayer, AvgPool2DLayer, BatchNormLayer, Conv2DLayer, DenseLayer,
+    FlattenLayer, GroupNormLayer, LogSoftmaxLayer, MaxPool2DLayer,
+)
 from .residual import ResidualBlock
 from .sequential import Sequential
 
 __all__ = ["MultiHeadAttentionLayer", "SequentialBuilder", "layer_from_config",
-           "register_layer", "Layer", "ParameterizedLayer", "StatelessLayer",
-           "ActivationLayer", "DenseLayer", "FlattenLayer", "ResidualBlock",
-           "Sequential"]
+           "register_layer", "fold_batchnorm", "Layer", "ParameterizedLayer",
+           "StatelessLayer", "ActivationLayer", "AvgPool2DLayer",
+           "BatchNormLayer", "Conv2DLayer", "DenseLayer", "FlattenLayer",
+           "GroupNormLayer", "LogSoftmaxLayer", "MaxPool2DLayer",
+           "ResidualBlock", "Sequential"]

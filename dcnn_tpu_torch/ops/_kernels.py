@@ -11,8 +11,10 @@ unchanged one is reused. All missing libraries are compiled at once, one
 Each wrapper launches on PyTorch's current stream, raises when the C
 function reports a CUDA error, and counts its launches in a plain integer
 attribute (``flash_fwd.launches``, ``flash_bwd_dq.launches``,
-``flash_bwd_dkv.launches``), so a run can show that its path went
-through the kernel.
+``flash_bwd_dkv.launches``, ``conv3x3_s1.launches``,
+``conv3x3_s1_pairs.launches``, ``conv3x3_s1_bnrelu_in.launches``,
+``fused_scale_bias_relu.launches``), so a run can show that its path went
+through the kernel. :data:`COUNTED` lists them all.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "conv3x3.cu", "fused.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -64,6 +66,15 @@ def _bind(lib: ctypes.CDLL) -> None:
             fn.argtypes = [p] * (6 + n_out) + [i, i, i, i, i, ctypes.c_float,
                                                i, p]
             fn.restype = i
+    if hasattr(lib, "dcnn_conv3x3"):
+        lib.dcnn_conv3x3.argtypes = [p] * 5 + [i] * 7 + [p]
+        lib.dcnn_conv3x3.restype = i
+        lib.dcnn_conv3x3_pairs.argtypes = [p] * 3 + [i] * 7 + [p]
+        lib.dcnn_conv3x3_pairs.restype = i
+    if hasattr(lib, "dcnn_scale_bias_relu"):
+        lib.dcnn_scale_bias_relu.argtypes = [p] * 4 + [ctypes.c_longlong, i,
+                                                      i, p]
+        lib.dcnn_scale_bias_relu.restype = i
     lib.dcnn_cuda_error_string.argtypes = [i]
     lib.dcnn_cuda_error_string.restype = ctypes.c_char_p
 
@@ -233,3 +244,148 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_bwd_dq.launches = 0
 flash_bwd_dkv.launches = 0
+
+
+CONV_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _check_cuda(fn: str, ref: torch.Tensor, **tensors: torch.Tensor) -> None:
+    """Contiguous tensors on ``ref``'s CUDA device, of the types the conv
+    and elementwise kernels take."""
+    for name, t in tensors.items():
+        if t.device.type != "cuda" or t.device != ref.device:
+            raise ValueError(f"{fn}: {name} is on {t.device}, not on "
+                             f"{ref.device} (CUDA)")
+        if not t.is_contiguous():
+            raise ValueError(f"{fn}: {name} must be contiguous")
+    if ref.dtype not in CONV_DTYPES:
+        raise TypeError(f"{fn}: dtype {ref.dtype} not in {CONV_DTYPES}")
+
+
+def _check_conv(fn: str, x: torch.Tensor, w: torch.Tensor, taps: int,
+                lanes_per_cout: int, out_dtype: torch.dtype) -> Tuple[int, ...]:
+    """x (N, H, W, Cin) and weights (3, taps, Cin, lanes_per_cout * Cout)
+    of x's dtype; returns (N, H, W, Cin, Cout)."""
+    _check_cuda(fn, x, x=x, w=w)
+    if w.dtype != x.dtype:
+        raise TypeError(f"{fn}: w is {w.dtype}, x is {x.dtype}")
+    if out_dtype not in CONV_DTYPES:
+        raise TypeError(f"{fn}: out_dtype {out_dtype} not in {CONV_DTYPES}")
+    if x.ndim != 4 or w.ndim != 4:
+        raise ValueError(f"{fn}: need x (N, H, W, Cin) and 4-D weights, got "
+                         f"{tuple(x.shape)} and {tuple(w.shape)}")
+    n, h, wd, cin = x.shape
+    if (w.shape[:3] != (3, taps, cin) or w.shape[3] % lanes_per_cout
+            or w.shape[3] == 0):
+        raise ValueError(f"{fn}: weights {tuple(w.shape)} do not fit x "
+                         f"{tuple(x.shape)}")
+    cout = w.shape[3] // lanes_per_cout
+    if not (1 <= n <= 65535 and min(h, wd, cin) >= 1
+            and x.numel() < 2 ** 31 and n * h * wd * cout < 2 ** 31):
+        raise ValueError(f"{fn}: sizes out of range: x {tuple(x.shape)}, "
+                         f"Cout {cout}")
+    return n, h, wd, cin, cout
+
+
+def _launch_conv(fn: str, x, w, scale, shift, out_dtype) -> torch.Tensor:
+    n, h, wd, _, cout = _check_conv(fn, x, w, 3, 1, out_dtype)
+    lib = build()["conv3x3.cu"]
+    out = torch.empty((n, h, wd, cout), dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.dcnn_conv3x3(
+            x.data_ptr(), w.data_ptr(),
+            None if scale is None else scale.data_ptr(),
+            None if shift is None else shift.data_ptr(), out.data_ptr(),
+            *x.shape, cout, int(x.dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), stream)
+    _raise_on(lib, fn, err)
+    return out
+
+
+def conv3x3_s1(x: torch.Tensor, w: torch.Tensor, *,
+               out_dtype: torch.dtype) -> torch.Tensor:
+    """Launch the plain 3×3 stride-1 SAME conv of ``csrc/conv3x3.cu`` on
+    contiguous CUDA tensors x (N, H, W, Cin) and w (3, 3, Cin, Cout) of one
+    dtype of CONV_DTYPES. Returns (N, H, W, Cout) of ``out_dtype``."""
+    out = _launch_conv("conv3x3_s1", x, w, None, None, out_dtype)
+    conv3x3_s1.launches += 1
+    return out
+
+
+def conv3x3_s1_bnrelu_in(x: torch.Tensor, w: torch.Tensor,
+                         scale: torch.Tensor, shift: torch.Tensor, *,
+                         out_dtype: torch.dtype) -> torch.Tensor:
+    """Launch the conv of ``csrc/conv3x3.cu`` with ``relu(x·scale+shift)``
+    applied to the input at load; ``scale`` and ``shift`` contiguous fp32
+    (Cin,) on x's device. Otherwise as :func:`conv3x3_s1`."""
+    cin = x.shape[-1] if x.ndim == 4 else -1
+    for name, t in (("scale", scale), ("shift", shift)):
+        if (t.shape != (cin,) or t.dtype != torch.float32
+                or t.device != x.device or not t.is_contiguous()):
+            raise ValueError(f"conv3x3_s1_bnrelu_in: {name} must be "
+                             f"contiguous fp32 ({cin},) on {x.device}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    out = _launch_conv("conv3x3_s1_bnrelu_in", x, w, scale, shift, out_dtype)
+    conv3x3_s1_bnrelu_in.launches += 1
+    return out
+
+
+def conv3x3_s1_pairs(x: torch.Tensor, w2: torch.Tensor, *,
+                     out_dtype: torch.dtype) -> torch.Tensor:
+    """Launch the output-column-pair conv of ``csrc/conv3x3.cu`` on
+    contiguous CUDA tensors x (N, H, W, Cin), W even, and the fused weights
+    w2 (3, 4, Cin, 2·Cout) of ``fuse_pair_weights``. Returns (N, H, W,
+    Cout) of ``out_dtype``."""
+    fn = "conv3x3_s1_pairs"
+    n, h, wd, cin, cout = _check_conv(fn, x, w2, 4, 2, out_dtype)
+    if wd % 2:
+        raise ValueError(f"{fn}: W={wd} must be even")
+    lib = build()["conv3x3.cu"]
+    out = torch.empty((n, h, wd, cout), dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.dcnn_conv3x3_pairs(
+            x.data_ptr(), w2.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
+            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            stream)
+    _raise_on(lib, fn, err)
+    conv3x3_s1_pairs.launches += 1
+    return out
+
+
+def fused_scale_bias_relu(x: torch.Tensor, scale: torch.Tensor,
+                          bias: torch.Tensor) -> torch.Tensor:
+    """Launch ``csrc/fused.cu``: ``max(x·scale + bias, 0)`` over the last
+    axis of a contiguous CUDA tensor x (..., C); scale and bias contiguous
+    (C,) of x's dtype. Returns a tensor like x."""
+    fn = "fused_scale_bias_relu"
+    _check_cuda(fn, x, x=x, scale=scale, bias=bias)
+    c = x.shape[-1] if x.ndim else 0
+    for name, t in (("scale", scale), ("bias", bias)):
+        if t.dtype != x.dtype or t.shape != (c,):
+            raise ValueError(f"{fn}: {name} must be {x.dtype} ({c},), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if x.numel() == 0 or c == 0 or c >= 2 ** 31:
+        raise ValueError(f"{fn}: need a non-empty x with channels, got "
+                         f"{tuple(x.shape)}")
+    lib = build()["fused.cu"]
+    y = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.dcnn_scale_bias_relu(
+            x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
+            x.numel(), c, int(x.dtype == torch.bfloat16), stream)
+    _raise_on(lib, fn, err)
+    fused_scale_bias_relu.launches += 1
+    return y
+
+
+conv3x3_s1.launches = 0
+conv3x3_s1_bnrelu_in.launches = 0
+conv3x3_s1_pairs.launches = 0
+fused_scale_bias_relu.launches = 0
+
+# every launch-counted wrapper, for runs that reset and read the counts
+COUNTED = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, conv3x3_s1,
+           conv3x3_s1_pairs, conv3x3_s1_bnrelu_in, fused_scale_bias_relu)

@@ -21,6 +21,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..core.device import DeviceLike, resolve_device
+from ..nn.fold import fold_batchnorm
 
 
 def serve_buckets(max_batch: int) -> List[int]:
@@ -71,14 +72,15 @@ class InferenceEngine:
     def from_model(cls, model, *, fold: bool = True,
                    int8_calib: Optional[Any] = None,
                    device: DeviceLike = None, **kw) -> "InferenceEngine":
-        """Engine over a live :class:`~dcnn_tpu_torch.nn.Sequential`, moved
-        to ``device`` and put in eval mode.
+        """Engine over a live :class:`~dcnn_tpu_torch.nn.Sequential` in
+        eval mode on ``device``, for inputs of its ``input_shape`` in
+        whatever layout the model was built for (an image as (C, H, W) or
+        (H, W, C)).
 
-        ``fold`` folds batchnorm into the preceding layer in the JAX
-        package; the port has no batchnorm layer yet, so for every model it
-        can build, folding is the identity. ``int8_calib`` raises until
+        ``fold=True`` serves :func:`~dcnn_tpu_torch.nn.fold.fold_batchnorm`
+        of the model, a new model, and leaves the original untouched;
+        ``fold=False`` moves the model itself. ``int8_calib`` raises until
         ``nn/quantize.py`` is ported."""
-        del fold
         if int8_calib is not None:
             raise NotImplementedError(
                 "int8 serving needs nn/quantize.py, which is not ported to "
@@ -87,6 +89,8 @@ class InferenceEngine:
             raise ValueError("model has no input_shape; build it through "
                              "SequentialBuilder.input or set input_shape")
         dev = resolve_device(device)
+        if fold:
+            model = fold_batchnorm(model)
         model = model.to(dev).eval()
         kw.setdefault("name", model.name)
         return cls(model, model.input_shape, device=dev, **kw)

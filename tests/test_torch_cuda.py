@@ -1,5 +1,5 @@
 """The port's CUDA kernels on the card, each held against its plain PyTorch
-version, and the training path run through them.
+version, and the training path run through the flash kernels.
 
 Every test here needs an NVIDIA GPU and skips without one (decided inside
 the test). The file imports neither JAX nor the JAX package, so it also
@@ -8,9 +8,11 @@ there run it without the conftest::
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
-Tolerances: fp32 1e-4 (of the value, or of max |grad| for gradients): the
-same math summed in another order. bf16 2e-2: outputs, and in the backward
-dS and P, are rounded to bf16's 8-bit mantissa.
+Tolerances: fp32 1e-4 (of the value, or of max |grad| for gradients, or
+of max |output| for the convs): the same math summed in another order.
+bf16 2e-2: outputs, and in the backward dS and P, are rounded to bf16's
+8-bit mantissa. The scale/bias/ReLU kernel rounds as its plain version
+does, so it is held to equality.
 """
 
 import numpy as np
@@ -25,6 +27,8 @@ from dcnn_tpu_torch.ops import _kernels
 from dcnn_tpu_torch.ops.attention import (
     flash_attention, flash_backward_reference, flash_forward_reference,
 )
+from dcnn_tpu_torch.ops.pallas import conv as pconv
+from dcnn_tpu_torch.ops.pallas import fused as pfused
 from dcnn_tpu_torch.optim import SGD
 from dcnn_tpu_torch.train import Trainer, create_train_state
 
@@ -171,3 +175,101 @@ def test_trainer_on_card_tracks_cpu():
         assert tuple(a - b for a, b in zip(_launches(), before)) == (want,) * 3
         hist[dev] = [h["train_loss"] for h in tr.history]
     np.testing.assert_allclose(hist["cuda"], hist["cpu"], rtol=1e-4)
+
+
+def _conv_inputs(seed, n, h, w, cin, cout, dtype):
+    rng = np.random.default_rng(seed)
+    x, wt = rng.normal(size=(n, h, w, cin)), rng.normal(size=(3, 3, cin, cout))
+    sc, sh = rng.normal(size=cin), rng.normal(size=cin)
+    return (torch.from_numpy(x).to("cuda", dtype),
+            (torch.from_numpy(wt) * 0.1).to("cuda", dtype),
+            torch.from_numpy(sc).float().cuda(),
+            torch.from_numpy(sh).float().cuda())
+
+
+def _rel_err(got, want):
+    return ((got.float() - want.float()).abs().max()
+            / want.float().abs().max().clamp_min(1e-30)).item()
+
+
+_CONV_SHAPES = [
+    (2, 5, 5, 3, 4, torch.float32, torch.float32),      # ragged, Cin 3
+    (4, 6, 10, 4, 8, torch.float32, torch.float32),
+    (3, 7, 9, 8, 8, torch.bfloat16, torch.bfloat16),    # odd W
+    (2, 16, 16, 70, 72, torch.float32, torch.float32),  # partial chunks/tiles
+    (2, 12, 20, 64, 64, torch.bfloat16, torch.float32),
+    (1, 4, 4, 512, 130, torch.float32, torch.bfloat16),
+]
+
+
+# the pairs formulation takes even W only
+@pytest.mark.parametrize("kind,n,h,w,cin,cout,dtype,out_dtype", [
+    (kind, *shape) for kind in ("conv", "bnrelu", "pairs")
+    for shape in _CONV_SHAPES if kind != "pairs" or shape[2] % 2 == 0])
+def test_conv_kernels_match_plain_on_card(kind, n, h, w, cin, cout, dtype,
+                                          out_dtype):
+    """Each conv kernel against its plain version, one counted launch."""
+    x, wt, sc, sh = _conv_inputs(3, n, h, w, cin, cout, dtype)
+    if kind == "conv":
+        counter = _kernels.conv3x3_s1
+        got = pconv.conv3x3_s1(x, wt, out_dtype=out_dtype)
+        want = pconv.conv3x3_reference(x, wt, out_dtype=out_dtype)
+    elif kind == "bnrelu":
+        counter = _kernels.conv3x3_s1_bnrelu_in
+        got = pconv.conv3x3_s1_bnrelu_in(x, wt, sc, sh, out_dtype=out_dtype)
+        want = pconv.conv3x3_reference(pconv.bnrelu_reference(x, sc, sh), wt,
+                                       out_dtype=out_dtype)
+    else:
+        counter = _kernels.conv3x3_s1_pairs
+        got = pconv.conv3x3_s1_pairs(x, wt, out_dtype=out_dtype)
+        want = pconv.conv3x3_pairs_reference(x, pconv.fuse_pair_weights(wt),
+                                             out_dtype=out_dtype)
+    before = counter.launches
+    torch.cuda.synchronize()
+    assert got.dtype == out_dtype and got.shape == (n, h, w, cout)
+    assert _rel_err(got, want) <= TOL[out_dtype]
+    again = {"conv": lambda: _kernels.conv3x3_s1(x, wt, out_dtype=out_dtype),
+             "bnrelu": lambda: _kernels.conv3x3_s1_bnrelu_in(
+                 x, wt, sc, sh, out_dtype=out_dtype),
+             "pairs": lambda: _kernels.conv3x3_s1_pairs(
+                 x, pconv.fuse_pair_weights(wt), out_dtype=out_dtype)}[kind]()
+    assert counter.launches == before + 1
+    assert torch.equal(again, got)  # deterministic
+
+
+@pytest.mark.parametrize("shape,dtype", [((3, 700), torch.float32),
+                                         ((4, 8, 8, 16), torch.float32),
+                                         ((2, 5, 5, 3), torch.bfloat16),
+                                         ((7, 33, 130), torch.bfloat16)])
+def test_scale_bias_relu_kernel_matches_plain_on_card(shape, dtype):
+    rng = np.random.default_rng(4)
+    x, sc, b = (torch.from_numpy(rng.normal(size=s)).to("cuda", dtype)
+                for s in (shape, shape[-1:], shape[-1:]))
+    before = _kernels.fused_scale_bias_relu.launches
+    got = pfused.fused_scale_bias_relu(x, sc, b)
+    torch.cuda.synchronize()
+    assert _kernels.fused_scale_bias_relu.launches == before + 1
+    assert torch.equal(got, pfused.scale_bias_relu_reference(x, sc, b))
+
+
+def test_conv_kernels_refuse_what_they_cannot_take():
+    x, wt, sc, sh = _conv_inputs(5, 2, 6, 6, 4, 8, torch.float32)
+    with pytest.raises(ValueError, match="x must be contiguous"):
+        _kernels.conv3x3_s1(x.transpose(1, 2), wt, out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="w is on cpu"):
+        _kernels.conv3x3_s1(x, wt.cpu(), out_dtype=torch.float32)
+    with pytest.raises(TypeError, match="w is torch.bfloat16"):
+        _kernels.conv3x3_s1(x, wt.bfloat16(), out_dtype=torch.float32)
+    with pytest.raises(TypeError, match="dtype torch.float64"):
+        _kernels.conv3x3_s1(x.double(), wt.double(), out_dtype=torch.float64)
+    with pytest.raises(ValueError, match="scale must be contiguous fp32"):
+        _kernels.conv3x3_s1_bnrelu_in(x, wt, sc.double(), sh,
+                                      out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="W=5 must be even"):
+        _kernels.conv3x3_s1_pairs(x[:, :, :5].contiguous(),
+                                  pconv.fuse_pair_weights(wt),
+                                  out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="bias must be"):
+        _kernels.fused_scale_bias_relu(x, sc[:4], sh[:3])
+    with pytest.raises(ValueError, match="scale is on cpu"):
+        _kernels.fused_scale_bias_relu(x, sc[:4].cpu(), sh[:4])

@@ -1,5 +1,7 @@
 """The port stands alone: ``dcnn_tpu_torch`` (and ``chip_smoke.py``, which
-drives it on the GPU) import neither JAX nor anything of ``dcnn_tpu``."""
+drives it on the GPU) import neither JAX nor anything of ``dcnn_tpu``, on
+the attention serving and training paths and on the CNN serving path with
+the conv kernels' plain versions."""
 
 import ast
 import os
@@ -58,6 +60,20 @@ TRAIN = (
     " batch_size=4)))\n"
     "loss, _ = step(ts, torch.from_numpy(x), torch.from_numpy(y), 1e-3)\n"
     "assert ts.step == 1 and bool(torch.isfinite(loss))\n")
+CNN = (
+    "from dcnn_tpu_torch.models import create_model\n"
+    "from dcnn_tpu_torch.ops.pallas import (conv3x3_s1, conv3x3_s1_pairs,\n"
+    "    conv3x3_s1_bnrelu_in, fused_scale_bias_relu)\n"
+    "from dcnn_tpu_torch.serve import InferenceEngine\n"
+    "m = create_model('resnet18_tiny_imagenet', 'NHWC').init("
+    "generator=torch.Generator().manual_seed(0), device='cpu')\n"
+    "e = InferenceEngine.from_model(m, fold=True, max_batch=1, device='cpu')\n"
+    "assert e.infer(torch.zeros(64, 64, 3)).shape == (200,)\n"
+    "x, w, s = torch.ones(1, 4, 4, 2), torch.ones(3, 3, 2, 2), torch.ones(2)\n"
+    "for y in (conv3x3_s1(x, w), conv3x3_s1_pairs(x, w),\n"
+    "          conv3x3_s1_bnrelu_in(x, w, s, s),\n"
+    "          fused_scale_bias_relu(x, s, s)):\n"
+    "    assert bool(torch.isfinite(y).all())\n")
 
 
 def _run_isolated(body: str) -> None:
@@ -84,3 +100,7 @@ def test_import_and_cpu_forward_leave_jax_out():
 
 def test_import_and_cpu_train_step_leave_jax_out():
     _run_isolated(TRAIN)
+
+
+def test_import_and_cpu_cnn_serving_and_conv_kernels_leave_jax_out():
+    _run_isolated(CNN)

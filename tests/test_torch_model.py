@@ -94,8 +94,8 @@ def test_from_jax_checks_names_and_shapes():
     with pytest.raises(ValueError, match="param entries"):
         from_jax(jm.get_config(), pnp[:3], device="cpu")
     cfg = jm.get_config()
-    cfg["layers"][2] = {"type": "maxpool2d", "name": "p"}
-    with pytest.raises(ValueError, match="unknown layer type 'maxpool2d'"):
+    cfg["layers"][2] = {"type": "dropout", "name": "p"}
+    with pytest.raises(ValueError, match="unknown layer type 'dropout'"):
         from_jax(cfg, pnp, device="cpu")
 
 
@@ -151,8 +151,10 @@ def test_builder_shape_inference():
 
 def test_zoo_names():
     assert isinstance(create_model("mha_classifier"), Sequential)
+    assert isinstance(create_model("resnet18_tiny_imagenet", "NHWC"),
+                      Sequential)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("resnet18_tiny_imagenet")
+        create_model("mha_decoder")
     with pytest.raises(ValueError, match="unknown model"):
         create_model("no_such_model")
 

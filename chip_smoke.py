@@ -19,10 +19,11 @@ Phases, each fatal on failure:
    ``benchmarks/bench_pallas_conv.py::_shapes`` (bf16, B=256) and at ragged
    shapes (fp32 and bf16); the library call is ``F.conv2d``;
 5. model sites: one B=32 batch through the unfolded NHWC
-   ``resnet18_tiny_imagenet`` on CUDA; at every 3x3 stride-1 site the
-   four kernels (through their public functions) are held to the model's
-   own tensors, the launch counters show one launch per site, and each
-   distinct site is timed in fp32 and bf16;
+   ``resnet18_tiny_imagenet`` on CUDA; at every 3x3 stride-1 conv (the
+   pairs kernel: those in layer1), every BN -> ReLU and every bn0 ->
+   relu0 -> conv1 chain the four kernels (through their public functions)
+   are held to the model's own tensors, the launch counters show one
+   launch per site, and every site is timed in fp32 and bf16;
 6. serve: build ``mha_classifier`` at its full width (S=32, E=64, 4 heads)
    from JAX-layout numpy weights made from a seed, through
    ``interop.from_jax``; serve threaded single and small-batch requests
@@ -37,7 +38,9 @@ Phases, each fatal on failure:
 8. serve cnn: full-width ``resnet18_tiny_imagenet`` (NHWC, random BN
    statistics) served through ``DynamicBatcher`` over
    ``InferenceEngine.from_model(..., fold=True)`` on CUDA, every answer held
-   to the unfolded model on the CPU (relative to the logit scale).
+   to the unfolded model on the CPU (relative to the logit scale), in two
+   rounds on a dispatcher that warmed its buckets and a control round on
+   one that did not.
 
 Then it prints ``{"kernels": [...]}`` on a line of its own and, last,
 ``{"ok": true, "device": {...}}``. Times come from CUDA events around CUDA
@@ -449,8 +452,9 @@ def phase_serve(card: str):
     model = from_jax(cfg, params, device="cuda")
     reset_launches()  # the serving path starts here
     engine = InferenceEngine.from_model(model, max_batch=32, device="cuda")
-    warm_launches = _kernels.flash_fwd.launches
+    # the engine warms its buckets, then the dispatcher on its own thread
     batcher = DynamicBatcher(engine, max_wait_ms=2.0, queue_capacity=256)
+    warm_launches = _kernels.flash_fwd.launches
     futs = {}
 
     def submit_singles(lo, hi):
@@ -492,9 +496,9 @@ def phase_serve(card: str):
              f"> {SERVE_TOL:g}")
     n_batches = snap["batches"]
     served_launches = launches_fwd - warm_launches
-    if warm_launches < 2 * len(engine.bucket_sizes):
-        fail(f"warm-up launched flash_fwd {warm_launches} times for "
-             f"{len(engine.bucket_sizes)} buckets")
+    if warm_launches < 4 * len(engine.bucket_sizes):
+        fail(f"warm-up (engine and dispatcher) launched flash_fwd "
+             f"{warm_launches} times for {len(engine.bucket_sizes)} buckets")
     if n_batches < 1 or served_launches < 2 * n_batches:
         fail(f"flash_fwd launched {served_launches} times for {n_batches} "
              f"dispatched batches (2 attention layers each)")
@@ -657,10 +661,14 @@ RAGGED_SHAPES = [(4, 8, 8, 8, 16), (4, 6, 10, 4, 8), (2, 5, 5, 3, 4),
                  (3, 7, 9, 8, 8)]
 CONV_KERNELS = ("conv3x3_s1", "conv3x3_s1_pairs", "conv3x3_s1_bnrelu_in",
                 "fused_scale_bias_relu")
-# launches per 3x3 stride-1 site of resnet18_tiny_imagenet: the stem and
-# the conv1 of its 8 basic blocks; the pairs kernel at layer1's two
-SITE_LAUNCHES = {"conv3x3_s1": 9, "conv3x3_s1_pairs": 2,
-                 "conv3x3_s1_bnrelu_in": 8, "fused_scale_bias_relu": 8}
+# launches on the model-site path of resnet18_tiny_imagenet: the plain conv
+# at its 14 3x3 stride-1 convs (the stem, conv1 of the 8 basic blocks,
+# conv0 of the 5 blocks whose conv0 has stride 1), the pairs conv at the 4
+# of them in layer1 (W=32, Cout 64), the BN-prologue conv at the 8
+# bn0 -> relu0 -> conv1 chains, and scale/bias/ReLU at the 9 BN -> ReLU
+# pairs (the stem's bn1/relu1 and each block's bn0/relu0)
+SITE_LAUNCHES = {"conv3x3_s1": 14, "conv3x3_s1_pairs": 4,
+                 "conv3x3_s1_bnrelu_in": 8, "fused_scale_bias_relu": 9}
 
 
 def conv_bound(n, h, w, cin, cout, dtype_name, bn):
@@ -831,12 +839,11 @@ def resnet18(device, rng):
 
 def phase_model_sites(card):
     """Run one B=32 batch through the unfolded NHWC ResNet-18 on CUDA and
-    hold the four kernels to the model's own tensors at every 3x3
-    stride-1 site: the stem conv, and in each basic block conv1 with the
-    bn0 + relu0 before it. The launch counters are reset just before and
-    read just after: 9 conv, 8 BN-prologue conv, 2 pairs conv (layer1) and
-    8 scale/bias/ReLU launches. Then each distinct site is timed in fp32
-    and bf16 against its plain version, its library call and its bound."""
+    hold the four kernels to the model's own tensors at every site of
+    SITE_LAUNCHES. The launch counters are reset just before the kernels
+    run and read just after: one launch per site. Then every site is
+    timed in fp32 and bf16 against its plain version, its library call and
+    its bound."""
     import numpy as np
     import torch
 
@@ -852,13 +859,18 @@ def phase_model_sites(card):
     blocks = [l for l in model.layers if l.type_name == "residual_block"]
     seen = {}
 
-    def keep(key):
-        return lambda module, inputs, out: seen.__setitem__(key, out)
+    def keep(key, take_input=False):
+        return lambda module, inputs, out: seen.__setitem__(
+            key, (inputs[0] if take_input else out).contiguous())
 
-    hooks = [model[0].register_forward_hook(keep("stem"))]
-    for bi, blk in enumerate(blocks):
+    hooks = [model[0].register_forward_hook(keep("stem y")),
+             model[2].register_forward_hook(keep("stem a"))]
+    for blk in blocks:
+        hooks.append(blk.layers[0].register_forward_hook(
+            keep((blk.name, "x"), take_input=True)))
         for j, tag in ((0, "y0"), (2, "a0"), (3, "y1")):
-            hooks.append(blk.layers[j].register_forward_hook(keep((bi, tag))))
+            hooks.append(blk.layers[j].register_forward_hook(
+                keep((blk.name, tag))))
     with torch.no_grad():
         logits = model(x)
     torch.cuda.synchronize()
@@ -867,41 +879,65 @@ def phase_model_sites(card):
     if not bool(torch.isfinite(logits).all()):
         fail("model sites: non-finite logits")
 
-    stem_w = model[0].w.detach().permute(2, 3, 1, 0).contiguous()
-    sites = []  # (kernel, block, kernel output, the model's tensor)
-    per_block = []
+    def hwio(conv):
+        return conv.w.detach().permute(2, 3, 1, 0).contiguous()
+
+    def scale_shift(bn):  # eval-mode BN as relu's per-channel affine input
+        sc = bn.gamma / torch.sqrt(bn.running_var + bn.epsilon)
+        return sc.contiguous(), (bn.beta - bn.running_mean * sc).contiguous()
+
+    # (kernel, site, (x, w HWIO, scale, shift), conv bias, model's tensor)
+    sites = [("conv3x3_s1", "stem conv", (x, hwio(model[0]), None, None),
+              None, seen["stem y"]),
+             ("fused_scale_bias_relu", "stem bn1+relu1",
+              (seen["stem y"], None, *scale_shift(model[1])), None,
+              seen["stem a"])]
     with torch.no_grad():
-        for bi, blk in enumerate(blocks):
-            bn0, conv1 = blk.layers[1], blk.layers[3]
-            s0 = bn0.gamma / torch.sqrt(bn0.running_var + bn0.epsilon)
-            t0 = bn0.beta - bn0.running_mean * s0
-            y0, a0, y1 = (seen[(bi, t)].contiguous() for t in ("y0", "a0",
-                                                                 "y1"))
-            per_block.append((blk.name, y0, a0, y1, s0.contiguous(),
-                              t0.contiguous(),
-                              conv1.w.permute(2, 3, 1, 0).contiguous(),
-                              conv1.b))
+        for blk in blocks:
+            conv0, bn0, _, conv1 = blk.layers[:4]
+            xin, y0, a0, y1 = (seen[(blk.name, t)]
+                               for t in ("x", "y0", "a0", "y1"))
+            s0, t0 = scale_shift(bn0)
+            w0, w1 = hwio(conv0), hwio(conv1)
+            pairs = blk.name.startswith("layer1_")  # W=32, Cout 64
+            if tuple(conv0.stride) == (1, 1):
+                sites.append(("conv3x3_s1", f"{blk.name} conv0",
+                              (xin, w0, None, None), conv0.b, y0))
+                if pairs:
+                    sites.append(("conv3x3_s1_pairs", f"{blk.name} conv0",
+                                  (xin, w0, None, None), conv0.b, y0))
+            sites += [
+                ("fused_scale_bias_relu", f"{blk.name} bn0+relu0",
+                 (y0, None, s0, t0), None, a0),
+                ("conv3x3_s1", f"{blk.name} conv1", (a0, w1, None, None),
+                 conv1.b, y1),
+                ("conv3x3_s1_bnrelu_in", f"{blk.name} bn0+relu0+conv1",
+                 (y0, w1, s0, t0), conv1.b, y1)]
+            if pairs:
+                sites.append(("conv3x3_s1_pairs", f"{blk.name} conv1",
+                              (a0, w1, None, None), conv1.b, y1))
+    call = {"conv3x3_s1": lambda i, w, sc, sh: conv3x3_s1(i, w),
+            "conv3x3_s1_pairs": lambda i, w, sc, sh: conv3x3_s1_pairs(i, w),
+            "conv3x3_s1_bnrelu_in": conv3x3_s1_bnrelu_in,
+            "fused_scale_bias_relu": lambda i, w, sc, sh:
+                fused_scale_bias_relu(i, sc, sh)}
+    got = []
+    with torch.no_grad():
         reset_launches()  # the kernels' path starts here
-        sites.append(("conv3x3_s1", "stem", conv3x3_s1(x, stem_w),
-                      seen["stem"]))
-        for name, y0, a0, y1, s0, t0, w1, b1 in per_block:
-            sites.append(("fused_scale_bias_relu", name,
-                          fused_scale_bias_relu(y0, s0, t0), a0))
-            sites.append(("conv3x3_s1", name, conv3x3_s1(a0, w1) + b1, y1))
-            sites.append(("conv3x3_s1_bnrelu_in", name,
-                          conv3x3_s1_bnrelu_in(y0, w1, s0, t0) + b1, y1))
-            if name.startswith("layer1_"):
-                sites.append(("conv3x3_s1_pairs", name,
-                              conv3x3_s1_pairs(a0, w1) + b1, y1))
+        for kind, _, args, bias, _ in sites:
+            y = call[kind](*args)
+            got.append(y if bias is None else y + bias)
         torch.cuda.synchronize()
         counts = launches()  # the kernels' path ends here
     for k, want in SITE_LAUNCHES.items():
-        if counts[k] != want:
-            fail(f"model sites: {k} launched {counts[k]} times, expected "
-                 f"{want} (one per site); all counts {counts}")
+        n_sites = sum(site[0] == k for site in sites)
+        if counts[k] != want or n_sites != want:
+            fail(f"model sites: {k} launched {counts[k]} times at {n_sites}"
+                 f" sites, expected {want} (one per site); all counts "
+                 f"{counts}")
     worst = {k: 0.0 for k in CONV_KERNELS}
-    for kind, name, got, want in sites:
-        rel = ((got - want).abs().max() / want.abs().max()).item()
+    for (kind, name, _, _, want), y in zip(sites, got):
+        rel = ((y - want).abs().max() / want.abs().max()).item()
         if not (math.isfinite(rel) and rel <= CONV_TOL["float32"]):
             fail(f"model sites: {kind} at {name} differs from the model's "
                  f"tensor by {rel:.3e} of its max > {CONV_TOL['float32']:g}")
@@ -911,28 +947,15 @@ def phase_model_sites(card):
           f"error per kernel {worst} (tol {CONV_TOL['float32']:g}); launches "
           f"{ {k: counts[k] for k in CONV_KERNELS} } on {card}", flush=True)
 
-    # one timed case per distinct site shape, "sites" such sites on the path
-    results = {k: [] for k in CONV_KERNELS}
-    by_name = {pb[0]: pb[1:] for pb in per_block}
-    distinct = [("stem", 1, {"conv3x3_s1": (x, stem_w, None, None)})]
-    for name in ("layer1_block1", "layer2_block1", "layer3_block1",
-                 "layer4_block1"):
-        y0, a0, _, s0, t0, w1, _ = by_name[name]
-        kinds = {"conv3x3_s1": (a0, w1, None, None),
-                 "conv3x3_s1_bnrelu_in": (y0, w1, s0, t0),
-                 "fused_scale_bias_relu": (y0, None, s0, t0)}
-        if name.startswith("layer1_"):
-            kinds["conv3x3_s1_pairs"] = (a0, w1, None, None)
-        distinct.append((name.split("_")[0], 2, kinds))
+    results = {k: [] for k in CONV_KERNELS}  # every site, timed on its own
     for dt in (torch.float32, torch.bfloat16):
-        for label, count, kinds in distinct:
-            for kind, (inp, w, sc, sh) in kinds.items():
-                if kind == "fused_scale_bias_relu":  # scale, bias in x's type
-                    sc, sh = sc.to(dt), sh.to(dt)
-                r = conv_case(kind, f"model {label}", inp.to(dt),
-                              None if w is None else w.to(dt), sc, sh,
-                              (20, 5, 20))
-                results[kind].append({**r, "sites": count})
+        for kind, name, (inp, w, sc, sh), _, _ in sites:
+            if kind == "fused_scale_bias_relu":  # scale, bias in x's type
+                sc, sh = sc.to(dt), sh.to(dt)
+            r = conv_case(kind, f"model {name}", inp.to(dt),
+                          None if w is None else w.to(dt), sc, sh,
+                          (20, 5, 20))
+            results[kind].append({**r, "site": name})
     return counts, worst, results
 
 
@@ -965,15 +988,17 @@ def phase_serve_cnn(card):
     engine = InferenceEngine.from_model(model, fold=True, max_batch=32,
                                         device="cuda")
     warm_s = time.perf_counter() - t0
+    # the dispatcher warms every bucket on its own thread before it serves
     batcher = DynamicBatcher(engine, max_wait_ms=2.0, queue_capacity=256)
+    dispatcher_warm_s = sum(batcher.warmup_s.values())
 
-    def serve_round():
+    def serve_round(server):
         """Threaded singles and small batches; waits for every answer."""
         futs = {}
 
         def submit_singles(lo, hi):
             for i in range(lo, hi):
-                futs[i] = batcher.submit(pool[i])
+                futs[i] = server.submit(pool[i])
 
         threads = [threading.Thread(target=submit_singles, args=(lo, lo + 12))
                    for lo in range(0, n_single, 12)]
@@ -982,26 +1007,32 @@ def phase_serve_cnn(card):
             t.start()
         off = n_single
         for n in batches:
-            futs[(off, n)] = batcher.submit(pool[off:off + n])
+            futs[(off, n)] = server.submit(pool[off:off + n])
             off += n
         for t in threads:
             t.join(timeout=120)
             if t.is_alive():
                 fail("serve cnn: a submitter thread did not finish")
         out = {key: f.result(timeout=300) for key, f in futs.items()}
-        return out, time.perf_counter() - t0, batcher.metrics.snapshot()
+        return out, time.perf_counter() - t0, server.metrics.snapshot()
 
-    # round 1 pays the dispatcher thread's first calls; round 2 is warm
-    answers, wall, snap = serve_round()
+    # round 1 is the dispatcher's first requests, round 2 the same again;
+    # the control round runs on a new dispatcher that skips its warm-up,
+    # so it shows what that warm-up saves (cuDNN's per-thread plans)
+    answers, wall, snap = serve_round(batcher)
     batcher.metrics.reset()
-    answers2, wall2, snap2 = serve_round()
+    answers2, wall2, snap2 = serve_round(batcher)
     batcher.drain(timeout=300)
+    cold = DynamicBatcher(engine, max_wait_ms=2.0, queue_capacity=256,
+                          warm=False)
+    answers3, wall3, snap3 = serve_round(cold)
+    cold.drain(timeout=300)
     counts = launches()  # the serving path ends here
     worst = 0.0
     for key in answers:
         lo, n = (key, None) if isinstance(key, int) else key
         want = ref[lo] if n is None else ref[lo:lo + n]
-        for y in (answers[key], answers2[key]):
+        for y in (answers[key], answers2[key], answers3[key]):
             if y.shape != want.shape or not np.all(np.isfinite(y)):
                 fail(f"serve cnn: request {key}: got shape {y.shape}, "
                      f"finite={bool(np.all(np.isfinite(y)))}")
@@ -1054,15 +1085,20 @@ def phase_serve_cnn(card):
           f"{CNN_SERVE_RTOL:g}); round 1: {snap['batches']} batches, "
           f"occupancy {snap['batch_occupancy']}, throughput "
           f"{snap['throughput_rps']} samples/s, p50 {snap['p50_ms']} ms, p99 "
-          f"{snap['p99_ms']} ms, wall {wall:.3f} s; round 2 (warm "
-          f"dispatcher): {snap2['batches']} batches, throughput "
+          f"{snap['p99_ms']} ms, wall {wall:.3f} s; round 2: "
+          f"{snap2['batches']} batches, throughput "
           f"{snap2['throughput_rps']} samples/s, p50 {snap2['p50_ms']} ms, "
-          f"p99 {snap2['p99_ms']} ms, wall {wall2:.3f} s; warm-up of "
-          f"{len(engine.bucket_sizes)} buckets {warm_s:.3f} s; kernel "
-          f"launches {counts} (the platform conv serves, as in the JAX "
-          f"package) on {card}", flush=True)
+          f"p99 {snap2['p99_ms']} ms, wall {wall2:.3f} s; control round on "
+          f"a dispatcher that did not warm: {snap3['batches']} batches, "
+          f"throughput {snap3['throughput_rps']} samples/s, p50 "
+          f"{snap3['p50_ms']} ms, p99 {snap3['p99_ms']} ms, wall "
+          f"{wall3:.3f} s; warm-up of {len(engine.bucket_sizes)} buckets "
+          f"{warm_s:.3f} s building the engine, {dispatcher_warm_s:.3f} s "
+          f"on the dispatcher; kernel launches {counts} (the platform conv "
+          f"serves, as in the JAX package) on {card}", flush=True)
     return {"requests": len(answers), "params": n_params,
-            "max_abs_err": worst, "round2": snap2,
+            "max_abs_err": worst, "round2": snap2, "cold_round": snap3,
+            "dispatcher_warmup_s": dispatcher_warm_s,
             "max_rel_err": rel, "logit_scale": scale, "warmup_s": warm_s,
             "batch32_wall_ms": wall_ms, "batch32_device_ms": graph_ms,
             "batch32_profiled_device_ms": prof_us / 1e3, "launches": counts,
@@ -1102,15 +1138,15 @@ def main() -> None:
                 "library_ms": model_case["library_ms"], "cases": cases}
 
     def site_row(name, source, replaces):
-        """Rows 4-7: times summed over the model's sites in fp32 (each
-        distinct site times the number of such sites on the path); the
-        race and the bf16 sites are in ``cases``."""
+        """Rows 4-7: times summed over the model's sites in fp32, each
+        site timed on its own; the race and the bf16 sites are in
+        ``cases``."""
         sites = [c for c in site_cases[name] if c["dtype"] == "float32"]
-        total = {k: sum(c[k] * c["sites"] for c in sites)
+        total = {k: sum(c[k] for c in sites)
                  for k in ("ms", "plain_ms", "bound_ms")}
         lib = (None if name == "fused_scale_bias_relu"
-               else sum(c["library_ms"] * c["sites"] for c in sites))
-        by = max(sites, key=lambda c: c["bound_ms"] * c["sites"])["bound_by"]
+               else sum(c["library_ms"] for c in sites))
+        by = max(sites, key=lambda c: c["bound_ms"])["bound_by"]
         cases = conv_cases[name] + site_cases[name]
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": site_counts[name],

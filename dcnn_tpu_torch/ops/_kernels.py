@@ -67,10 +67,8 @@ def _bind(lib: ctypes.CDLL) -> None:
                                                i, p]
             fn.restype = i
     if hasattr(lib, "dcnn_conv3x3"):
-        lib.dcnn_conv3x3.argtypes = [p] * 5 + [i] * 7 + [p]
+        lib.dcnn_conv3x3.argtypes = [p] * 5 + [i] * 8 + [p]
         lib.dcnn_conv3x3.restype = i
-        lib.dcnn_conv3x3_pairs.argtypes = [p] * 3 + [i] * 7 + [p]
-        lib.dcnn_conv3x3_pairs.restype = i
     if hasattr(lib, "dcnn_scale_bias_relu"):
         lib.dcnn_scale_bias_relu.argtypes = [p] * 4 + [ctypes.c_longlong, i,
                                                       i, p]
@@ -287,8 +285,15 @@ def _check_conv(fn: str, x: torch.Tensor, w: torch.Tensor, taps: int,
     return n, h, wd, cin, cout
 
 
-def _launch_conv(fn: str, x, w, scale, shift, out_dtype) -> torch.Tensor:
-    n, h, wd, _, cout = _check_conv(fn, x, w, 3, 1, out_dtype)
+def _launch_conv(fn: str, x, w, scale, shift, out_dtype, *,
+                 pairs: bool = False) -> torch.Tensor:
+    """Launch ``csrc/conv3x3.cu``: with ``pairs`` on the fused weights
+    (3, 4, Cin, 2·Cout), else on (3, 3, Cin, Cout) with the BN prologue
+    where ``scale`` and ``shift`` are given."""
+    n, h, wd, _, cout = _check_conv(fn, x, w, 4 if pairs else 3,
+                                    2 if pairs else 1, out_dtype)
+    if pairs and wd % 2:
+        raise ValueError(f"{fn}: W={wd} must be even")
     lib = build()["conv3x3.cu"]
     out = torch.empty((n, h, wd, cout), dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
@@ -297,7 +302,7 @@ def _launch_conv(fn: str, x, w, scale, shift, out_dtype) -> torch.Tensor:
             x.data_ptr(), w.data_ptr(),
             None if scale is None else scale.data_ptr(),
             None if shift is None else shift.data_ptr(), out.data_ptr(),
-            *x.shape, cout, int(x.dtype == torch.bfloat16),
+            *x.shape, cout, int(pairs), int(x.dtype == torch.bfloat16),
             int(out_dtype == torch.bfloat16), stream)
     _raise_on(lib, fn, err)
     return out
@@ -337,19 +342,8 @@ def conv3x3_s1_pairs(x: torch.Tensor, w2: torch.Tensor, *,
     contiguous CUDA tensors x (N, H, W, Cin), W even, and the fused weights
     w2 (3, 4, Cin, 2·Cout) of ``fuse_pair_weights``. Returns (N, H, W,
     Cout) of ``out_dtype``."""
-    fn = "conv3x3_s1_pairs"
-    n, h, wd, cin, cout = _check_conv(fn, x, w2, 4, 2, out_dtype)
-    if wd % 2:
-        raise ValueError(f"{fn}: W={wd} must be even")
-    lib = build()["conv3x3.cu"]
-    out = torch.empty((n, h, wd, cout), dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.dcnn_conv3x3_pairs(
-            x.data_ptr(), w2.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
-            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-            stream)
-    _raise_on(lib, fn, err)
+    out = _launch_conv("conv3x3_s1_pairs", x, w2, None, None, out_dtype,
+                       pairs=True)
     conv3x3_s1_pairs.launches += 1
     return out
 

@@ -3,9 +3,9 @@
 // (dcnn_tpu_torch/ops/_kernels.py).
 //
 // Replaces the three Pallas TPU kernels of dcnn_tpu/ops/pallas/conv.py:
-//   _conv3x3_kernel        (conv3x3_s1)           -> conv3x3_kernel<T, TO, false>
-//   _conv3x3_bn_kernel     (conv3x3_s1_bnrelu_in) -> conv3x3_kernel<T, TO, true>
-//   _conv3x3_pairs_kernel  (conv3x3_s1_pairs)     -> conv3x3_pairs_kernel<T, TO>
+//   _conv3x3_kernel        (conv3x3_s1)           -> conv3x3_kernel<T, TO, false, false>
+//   _conv3x3_bn_kernel     (conv3x3_s1_bnrelu_in) -> conv3x3_kernel<T, TO, true, false>
+//   _conv3x3_pairs_kernel  (conv3x3_s1_pairs)     -> conv3x3_kernel<T, TO, false, true>
 // Same functions: x (N, H, W, Cin) NHWC, weights HWIO (3, 3, Cin, Cout), the
 // output (N, H, W, Cout) the sum over the 9 taps of the zero-padded input
 // shifted by the tap times the tap's (Cin, Cout) weights, accumulated in
@@ -19,9 +19,10 @@
 // [Cout, 2 Cout) column 2p+1, 12 products per pair where the plain conv has
 // 9 per pixel, so a wrong w2 layout gives a wrong result.
 //
-// Design. One block of 256 threads computes one output tile of one image:
-// 8 x 8 pixels (the pairs kernel: 8 rows x 8 pairs = 16 columns) x 64
-// output channels (the pairs kernel: 64 of the 2 Cout lanes). Each thread
+// Design. One kernel template serves all three. One block of 256 threads
+// computes one output tile of one image: 8 x 8 pixels (the pairs form: 8
+// rows x 8 pairs = 16 columns) x 64 output channels (the pairs form: 64 of
+// the 2 Cout lanes). Each thread
 // holds a 4 x 4 (pixels x channels) fp32 accumulator in registers. The
 // block walks Cin in chunks of 32: per chunk it stages the input tile with
 // its 1-pixel halo in shared memory, zero-filled beyond the image edge and
@@ -62,13 +63,19 @@ __device__ __forceinline__ float round_as(float v, const __nv_bfloat16*) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
-template <int kCols>
-struct Smem {  // input tile (rows + 2) x (kCols + 2) x kCK, weights kTaps x kCK x kNT
-  static constexpr int kIn = (kTH + 2) * (kCols + 2) * kCK;
+// What differs between the plain conv and the pairs conv, as constants: a
+// tile's output unit is one pixel (plain) or one pair of adjacent columns
+// (pairs); the weights have 3 x 3 taps (plain) or 3 x 4 (pairs, padded
+// input columns 2p .. 2p+3 of pair p).
+template <bool kPairs>
+struct Form {
+  static constexpr int kStep = kPairs ? 2 : 1;        // image columns per unit
+  static constexpr int kTapCols = kPairs ? 4 : 3;     // taps per kernel row
+  static constexpr int kTaps = 3 * kTapCols;
+  static constexpr int kCols = kStep * kTW;           // staged columns, halo aside
+  static constexpr int kIn = (kTH + 2) * (kCols + 2) * kCK;  // staged input floats
+  static constexpr size_t kSmem = (kIn + kTaps * kCK * kNT) * sizeof(float);
 };
-constexpr int kTapsPlain = 9, kTapsPairs = 12;
-constexpr size_t kSmemPlain = (Smem<kTW>::kIn + kTapsPlain * kCK * kNT) * sizeof(float);
-constexpr size_t kSmemPairs = (Smem<2 * kTW>::kIn + kTapsPairs * kCK * kNT) * sizeof(float);
 
 // Stage input rows y0-1 .. y0+kTH and columns x0-1 .. x0+kCols of channels
 // c0 .. c0+kCK-1 of one image, zero outside the image and beyond Cin.
@@ -78,7 +85,7 @@ __device__ __forceinline__ void stage_input(float* sX, const T* __restrict__ xn,
                                             const float* __restrict__ shift, int y0,
                                             int x0, int c0, int h, int wd, int cin) {
   constexpr int kRowLen = kCols + 2;
-  for (int e = threadIdx.x; e < Smem<kCols>::kIn; e += kThreads) {
+  for (int e = threadIdx.x; e < (kTH + 2) * kRowLen * kCK; e += kThreads) {
     const int c = e % kCK, pix = e / kCK;
     const int iy = y0 - 1 + pix / kRowLen, ix = x0 - 1 + pix % kRowLen, ci = c0 + c;
     float v = 0.f;
@@ -102,16 +109,21 @@ __device__ __forceinline__ void stage_weights(float* sW, const T* __restrict__ w
   }
 }
 
-template <typename T, typename TO, bool kBN>
+// One block: kTH rows x kTW units of one image by kNT lanes. Lanes are the
+// output channels (plain) or the 2 Cout lanes of w2 (pairs: lane n < Cout
+// is column 2p, lane Cout + n column 2p+1).
+template <typename T, typename TO, bool kBN, bool kPairs>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
                const float* __restrict__ scale, const float* __restrict__ shift,
                TO* __restrict__ out, int h, int wd, int cin, int cout, int tiles_w) {
+  using F = Form<kPairs>;
   extern __shared__ float smem[];
   float* sX = smem;
-  float* sW = sX + Smem<kTW>::kIn;
+  float* sW = sX + F::kIn;
   const int tp = threadIdx.x / 16, tc = threadIdx.x % 16;
-  const int y0 = (blockIdx.x / tiles_w) * kTH, x0 = (blockIdx.x % tiles_w) * kTW;
+  const int lanes = F::kStep * cout, units = wd / F::kStep;
+  const int y0 = (blockIdx.x / tiles_w) * kTH, u0 = (blockIdx.x % tiles_w) * kTW;
   const int n0 = blockIdx.y * kNT;
   const size_t img = blockIdx.z;
   const T* xn = x + img * h * wd * cin;
@@ -124,19 +136,19 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
   for (int c0 = 0; c0 < cin; c0 += kCK) {
     __syncthreads();  // the previous chunk's readers are done
-    stage_input<T, kTW, kBN>(sX, xn, scale, shift, y0, x0, c0, h, wd, cin);
-    stage_weights<T, kTapsPlain>(sW, w, c0, n0, cin, cout);
+    stage_input<T, F::kCols, kBN>(sX, xn, scale, shift, y0, F::kStep * u0, c0, h, wd, cin);
+    stage_weights<T, F::kTaps>(sW, w, c0, n0, cin, lanes);
     __syncthreads();
     const int kc = min(kCK, cin - c0);
 #pragma unroll 1
-    for (int tap = 0; tap < 9; ++tap) {
-      const int kh = tap / 3, kw = tap % 3;
+    for (int tap = 0; tap < F::kTaps; ++tap) {
+      const int kh = tap / F::kTapCols, kw = tap % F::kTapCols;
       const float* wt = sW + tap * kCK * kNT + tc;
       int base[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int p = tp + 16 * i;
-        base[i] = ((p / kTW + kh) * (kTW + 2) + p % kTW + kw) * kCK;
+        base[i] = ((p / kTW + kh) * (F::kCols + 2) + F::kStep * (p % kTW) + kw) * kCK;
       }
 #pragma unroll 4
       for (int c = 0; c < kc; ++c) {
@@ -155,79 +167,14 @@ conv3x3_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const int p = tp + 16 * i, oy = y0 + p / kTW, ox = x0 + p % kTW;
-    if (oy >= h || ox >= wd) continue;
-    TO* orow = out + ((img * h + oy) * wd + ox) * cout;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = n0 + tc + 16 * j;
-      if (co < cout) store(orow + co, acc[i][j]);
-    }
-  }
-}
-
-template <typename T, typename TO>
-__global__ void __launch_bounds__(kThreads)
-conv3x3_pairs_kernel(const T* __restrict__ x, const T* __restrict__ w2,
-                     TO* __restrict__ out, int h, int wd, int cin, int cout, int tiles_w) {
-  extern __shared__ float smem[];
-  float* sX = smem;
-  float* sW = sX + Smem<2 * kTW>::kIn;
-  const int tp = threadIdx.x / 16, tc = threadIdx.x % 16;
-  const int lanes = 2 * cout, half = wd / 2;
-  const int y0 = (blockIdx.x / tiles_w) * kTH, p0 = (blockIdx.x % tiles_w) * kTW;
-  const int n0 = blockIdx.y * kNT;
-  const size_t img = blockIdx.z;
-  const T* xn = x + img * h * wd * cin;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int c0 = 0; c0 < cin; c0 += kCK) {
-    __syncthreads();
-    // pair p reads padded columns 2p .. 2p+3, image columns 2p-1 .. 2p+2
-    stage_input<T, 2 * kTW, false>(sX, xn, nullptr, nullptr, y0, 2 * p0, c0, h, wd, cin);
-    stage_weights<T, kTapsPairs>(sW, w2, c0, n0, cin, lanes);
-    __syncthreads();
-    const int kc = min(kCK, cin - c0);
-#pragma unroll 1
-    for (int tap = 0; tap < 12; ++tap) {
-      const int kh = tap / 4, j4 = tap % 4;
-      const float* wt = sW + tap * kCK * kNT + tc;
-      int base[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int p = tp + 16 * i;
-        base[i] = ((p / kTW + kh) * (2 * kTW + 2) + 2 * (p % kTW) + j4) * kCK;
-      }
-#pragma unroll 4
-      for (int c = 0; c < kc; ++c) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = sX[base[i] + c];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = wt[c * kNT + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int p = tp + 16 * i, oy = y0 + p / kTW, pair = p0 + p % kTW;
-    if (oy >= h || pair >= half) continue;
+    const int p = tp + 16 * i, oy = y0 + p / kTW, unit = u0 + p % kTW;
+    if (oy >= h || unit >= units) continue;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int n = n0 + tc + 16 * j;
       if (n >= lanes) continue;
-      const int odd = n >= cout, co = n - odd * cout;
-      store(out + ((img * h + oy) * wd + 2 * pair + odd) * cout + co, acc[i][j]);
+      const int odd = kPairs && n >= cout, co = n - odd * cout;
+      store(out + ((img * h + oy) * wd + F::kStep * unit + odd) * cout + co, acc[i][j]);
     }
   }
 }
@@ -243,90 +190,70 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* raised) {
   return err;
 }
 
-template <typename T, typename TO, bool kBN>
+template <typename T, typename TO, bool kBN, bool kPairs>
 cudaError_t launch_conv(const void* x, const void* w, const void* scale, const void* shift,
                         void* out, int n, int h, int wd, int cin, int cout,
                         cudaStream_t stream) {
+  using F = Form<kPairs>;
   static bool raised = false;
-  const cudaError_t err = allow_smem(conv3x3_kernel<T, TO, kBN>, kSmemPlain, &raised);
+  const auto kernel = conv3x3_kernel<T, TO, kBN, kPairs>;
+  const cudaError_t err = allow_smem(kernel, F::kSmem, &raised);
   if (err != cudaSuccess) return err;
-  const int tiles_w = (wd + kTW - 1) / kTW, tiles_h = (h + kTH - 1) / kTH;
-  const dim3 grid(tiles_h * tiles_w, (cout + kNT - 1) / kNT, n);
-  conv3x3_kernel<T, TO, kBN><<<grid, kThreads, kSmemPlain, stream>>>(
+  const int tiles_w = (wd / F::kStep + kTW - 1) / kTW, tiles_h = (h + kTH - 1) / kTH;
+  const dim3 grid(tiles_h * tiles_w, (F::kStep * cout + kNT - 1) / kNT, n);
+  kernel<<<grid, kThreads, F::kSmem, stream>>>(
       static_cast<const T*>(x), static_cast<const T*>(w),
       static_cast<const float*>(scale), static_cast<const float*>(shift),
       static_cast<TO*>(out), h, wd, cin, cout, tiles_w);
   return cudaGetLastError();
 }
 
-template <typename T, typename TO>
-cudaError_t launch_pairs(const void* x, const void* w2, void* out, int n, int h, int wd,
-                         int cin, int cout, cudaStream_t stream) {
-  static bool raised = false;
-  const cudaError_t err = allow_smem(conv3x3_pairs_kernel<T, TO>, kSmemPairs, &raised);
-  if (err != cudaSuccess) return err;
-  const int tiles_w = (wd / 2 + kTW - 1) / kTW, tiles_h = (h + kTH - 1) / kTH;
-  const dim3 grid(tiles_h * tiles_w, (2 * cout + kNT - 1) / kNT, n);
-  conv3x3_pairs_kernel<T, TO><<<grid, kThreads, kSmemPairs, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w2), static_cast<TO*>(out), h, wd,
-      cin, cout, tiles_w);
-  return cudaGetLastError();
-}
-
-template <bool kBN>
+template <bool kBN, bool kPairs>
 cudaError_t dispatch_conv(const void* x, const void* w, const void* scale, const void* shift,
                           void* out, int n, int h, int wd, int cin, int cout, int in_bf16,
                           int out_bf16, cudaStream_t s) {
   using BF = __nv_bfloat16;
   if (in_bf16)
-    return out_bf16 ? launch_conv<BF, BF, kBN>(x, w, scale, shift, out, n, h, wd, cin, cout, s)
-                    : launch_conv<BF, float, kBN>(x, w, scale, shift, out, n, h, wd, cin, cout, s);
-  return out_bf16 ? launch_conv<float, BF, kBN>(x, w, scale, shift, out, n, h, wd, cin, cout, s)
-                  : launch_conv<float, float, kBN>(x, w, scale, shift, out, n, h, wd, cin, cout, s);
-}
-
-bool bad_sizes(int n, int h, int wd, int cin, int lanes) {
-  return n < 1 || n > 65535 || h < 1 || wd < 1 || cin < 1 || lanes < 1 ||
-         (lanes + kNT - 1) / kNT > 65535;
+    return out_bf16
+               ? launch_conv<BF, BF, kBN, kPairs>(x, w, scale, shift, out, n, h, wd, cin, cout, s)
+               : launch_conv<BF, float, kBN, kPairs>(x, w, scale, shift, out, n, h, wd, cin,
+                                                     cout, s);
+  return out_bf16
+             ? launch_conv<float, BF, kBN, kPairs>(x, w, scale, shift, out, n, h, wd, cin, cout,
+                                                   s)
+             : launch_conv<float, float, kBN, kPairs>(x, w, scale, shift, out, n, h, wd, cin,
+                                                      cout, s);
 }
 
 }  // namespace
 
 extern "C" {
 
-// x: contiguous (n, h, wd, cin); w: contiguous (3, 3, cin, cout), both fp32
-// (in_bf16 = 0) or bf16 (in_bf16 = 1); out: contiguous (n, h, wd, cout) fp32
-// (out_bf16 = 0) or bf16. scale and shift: contiguous (cin,) fp32 for the BN
-// prologue, or both null for the plain conv. Returns the launch's
-// cudaError_t (0 = queued).
+// x: contiguous (n, h, wd, cin); w: contiguous (3, 3, cin, cout), or with
+// pairs = 1 the fused (3, 4, cin, 2 cout) of fuse_pair_weights and wd even;
+// both fp32 (in_bf16 = 0) or bf16 (in_bf16 = 1). out: contiguous (n, h, wd,
+// cout) fp32 (out_bf16 = 0) or bf16. scale and shift: contiguous (cin,)
+// fp32 for the BN prologue (not with pairs), or both null. Returns the
+// launch's cudaError_t (0 = queued).
 int dcnn_conv3x3(const void* x, const void* w, const void* scale, const void* shift,
-                 void* out, int n, int h, int wd, int cin, int cout, int in_bf16,
+                 void* out, int n, int h, int wd, int cin, int cout, int pairs, int in_bf16,
                  int out_bf16, void* stream) {
-  if (bad_sizes(n, h, wd, cin, cout) || (scale == nullptr) != (shift == nullptr))
+  const int lanes = pairs ? 2 * cout : cout;
+  if (n < 1 || n > 65535 || h < 1 || wd < 1 || cin < 1 || cout < 1 ||
+      (lanes + kNT - 1) / kNT > 65535 || (scale == nullptr) != (shift == nullptr) ||
+      (pairs && (wd % 2 || scale != nullptr)))
     return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      scale ? dispatch_conv<true>(x, w, scale, shift, out, n, h, wd, cin, cout, in_bf16,
-                                  out_bf16, s)
-            : dispatch_conv<false>(x, w, nullptr, nullptr, out, n, h, wd, cin, cout, in_bf16,
-                                   out_bf16, s);
-  return static_cast<int>(err);
-}
-
-// x: contiguous (n, h, wd, cin), wd even; w2: contiguous (3, 4, cin, 2 cout)
-// from fuse_pair_weights; out: contiguous (n, h, wd, cout). Types as above.
-int dcnn_conv3x3_pairs(const void* x, const void* w2, void* out, int n, int h, int wd,
-                       int cin, int cout, int in_bf16, int out_bf16, void* stream) {
-  if (bad_sizes(n, h, wd, cin, 2 * cout) || wd % 2) return cudaErrorInvalidValue;
-  using BF = __nv_bfloat16;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (in_bf16)
-    err = out_bf16 ? launch_pairs<BF, BF>(x, w2, out, n, h, wd, cin, cout, s)
-                   : launch_pairs<BF, float>(x, w2, out, n, h, wd, cin, cout, s);
+  if (pairs)
+    err = dispatch_conv<false, true>(x, w, nullptr, nullptr, out, n, h, wd, cin, cout, in_bf16,
+                                     out_bf16, s);
+  else if (scale)
+    err = dispatch_conv<true, false>(x, w, scale, shift, out, n, h, wd, cin, cout, in_bf16,
+                                     out_bf16, s);
   else
-    err = out_bf16 ? launch_pairs<float, BF>(x, w2, out, n, h, wd, cin, cout, s)
-                   : launch_pairs<float, float>(x, w2, out, n, h, wd, cin, cout, s);
+    err = dispatch_conv<false, false>(x, w, nullptr, nullptr, out, n, h, wd, cin, cout,
+                                      in_bf16, out_bf16, s);
   return static_cast<int>(err);
 }
 

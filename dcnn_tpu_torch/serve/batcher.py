@@ -8,9 +8,12 @@ request at most ``max_wait_ms``, group what arrives meanwhile up to
 - a bounded queue (capacity in samples): beyond it :meth:`submit` raises
   :class:`QueueFullError` at once, so the server sheds load instead of
   letting latency grow without bound;
-- a dispatcher thread that pops a batch when it is due (full, oldest
+- a dispatcher thread that first warms the engine's buckets on itself
+  (``warm``; cuDNN's handles and plans are per-thread in PyTorch), then
+  pops a batch when it is due (full, oldest
   request past its deadline, or draining), pads it to the engine's bucket,
-  runs it and resolves the per-request futures;
+  runs it and resolves the per-request futures; the constructor returns
+  once the warm-up is done, so no request waits for it;
 - teardown with a no-orphan guarantee: :meth:`drain` completes everything
   accepted; :meth:`shutdown` with ``drain=False`` fails queued requests
   with :class:`ShutdownError`; a :meth:`drain` that trips its timeout fails
@@ -62,7 +65,9 @@ class DynamicBatcher:
     :class:`~dcnn_tpu_torch.serve.engine.InferenceEngine`.
 
     ``max_wait_ms`` trades tail latency for occupancy; ``queue_capacity``
-    is in samples.
+    is in samples. With ``warm`` (threaded mode) the dispatcher runs
+    :meth:`InferenceEngine.warm` before the constructor returns, and a
+    failure there raises from the constructor.
     """
 
     def __init__(self, engine: InferenceEngine, *,
@@ -70,7 +75,7 @@ class DynamicBatcher:
                  queue_capacity: int = 128,
                  metrics: Optional[ServeMetrics] = None,
                  clock: Callable[[], float] = time.monotonic,
-                 start: bool = True):
+                 start: bool = True, warm: bool = True):
         if max_wait_ms < 0:
             raise ValueError(f"max_wait_ms must be >= 0, got {max_wait_ms}")
         if queue_capacity < 1:
@@ -90,11 +95,23 @@ class DynamicBatcher:
         self._cond = threading.Condition()
         self._closing = False
         self._thread: Optional[threading.Thread] = None
+        # seconds the dispatcher spent warming each bucket on itself
+        self.warmup_s: dict = {}
         if start:
+            warmed = threading.Event()
+            failure: list = []
             self._thread = threading.Thread(
-                target=self._loop, daemon=True,
+                target=self._loop, args=(warm, warmed, failure),
+                daemon=True,
                 name=f"dcnn-torch-serve-batcher-{engine.name}")
             self._thread.start()
+            warmed.wait()
+            if failure:
+                self._thread.join()
+                self._thread = None
+                raise failure[0]
+            if metrics is None:  # its throughput clock starts when ready
+                self.metrics.reset()
 
     def submit(self, x) -> Future:
         """Enqueue one request: a single sample ``input_shape`` (the future
@@ -203,7 +220,16 @@ class DynamicBatcher:
             self._run(batch)
         return len(batch)
 
-    def _loop(self) -> None:
+    def _loop(self, warm: bool, warmed: threading.Event,
+              failure: list) -> None:
+        try:
+            if warm:
+                self.warmup_s = self.engine.warm()
+        except Exception as e:  # raised by the constructor
+            failure.append(e)
+            return
+        finally:
+            warmed.set()
         while True:
             with self._cond:
                 while not self._q and not self._closing:

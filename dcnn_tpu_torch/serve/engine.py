@@ -2,7 +2,9 @@
 
 One session per batch bucket (powers of two up to ``max_batch``), each
 warmed once at construction so the first real request pays no first-call
-cost (kernel build, allocator growth), with zero-pad-to-bucket dispatch.
+cost (kernel build, allocator growth, cuDNN plans), with
+zero-pad-to-bucket dispatch. :meth:`InferenceEngine.warm` repeats the
+warm-up on another thread (``DynamicBatcher`` calls it on its dispatcher).
 PyTorch runs eagerly, so a session is the model's forward at that batch
 size. Buckets still bound the shapes the kernels see to
 ``log2(max_batch)+1``.
@@ -58,15 +60,26 @@ class InferenceEngine:
         self.bucket_sizes = serve_buckets(max_batch)
         self.max_batch = self.bucket_sizes[-1]
         self._apply = apply_fn
-        self.compile_stats: Dict[int, Dict[str, float]] = {}
+        self.compile_stats: Dict[int, Dict[str, float]] = {
+            b: {"warmup_s": 0.0} for b in self.bucket_sizes}
+        if warmup:
+            for b, s in self.warm().items():
+                self.compile_stats[b]["warmup_s"] = s
+
+    def warm(self) -> Dict[int, float]:
+        """Run every bucket once on zeros, on the calling thread, and wait
+        for the device. Returns {bucket: seconds}. PyTorch keeps cuDNN's
+        handles and execution-plan cache per thread, so a thread that will
+        serve (the batcher's dispatcher) warms for itself."""
+        out = {}
         for b in self.bucket_sizes:
             t0 = time.perf_counter()
-            if warmup:
-                self.run_padded(torch.zeros((b, *self.input_shape),
-                                            dtype=self.input_dtype,
-                                            device=self.device))
-                _sync(self.device)
-            self.compile_stats[b] = {"warmup_s": time.perf_counter() - t0}
+            self.run_padded(torch.zeros((b, *self.input_shape),
+                                        dtype=self.input_dtype,
+                                        device=self.device))
+            _sync(self.device)
+            out[b] = time.perf_counter() - t0
+        return out
 
     @classmethod
     def from_model(cls, model, *, fold: bool = True,

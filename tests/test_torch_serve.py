@@ -297,6 +297,41 @@ def test_batcher_drain_timeout_fails_pending_not_orphans(engine, tiny):
     assert not b._thread.is_alive()
 
 
+def test_batcher_warms_buckets_on_its_dispatcher_thread(tiny):
+    """The threaded batcher runs every bucket once on its own dispatcher
+    thread before the constructor returns (cuDNN keeps handles and plans
+    per thread); ``warm=False`` skips it, and a failing warm-up raises from
+    the constructor."""
+    model, pool, _ = tiny
+    eng = InferenceEngine.from_model(model, max_batch=4, device="cpu",
+                                     warmup=False)
+    seen = []
+    apply = eng._apply
+
+    def recording(x):
+        seen.append((threading.current_thread().name, x.shape[0]))
+        return apply(x)
+
+    eng._apply = recording
+    b = DynamicBatcher(eng, max_batch=4)
+    assert sorted(b.warmup_s) == [1, 2, 4]
+    assert seen == [(b._thread.name, n) for n in (1, 2, 4)]
+    np.testing.assert_allclose(b.submit(pool[0]).result(timeout=30),
+                               _np(eng.infer(pool[0])), rtol=1e-5, atol=1e-5)
+    b.shutdown()
+    seen.clear()
+    cold = DynamicBatcher(eng, max_batch=4, warm=False)
+    assert cold.warmup_s == {} and seen == []
+    cold.shutdown()
+
+    def boom(x):
+        raise RuntimeError("warm-up failed")
+
+    eng._apply = boom
+    with pytest.raises(RuntimeError, match="warm-up failed"):
+        DynamicBatcher(eng, max_batch=4)
+
+
 # ---------------------------------------------------------------- metrics
 
 def test_metrics_fake_clock_exact():

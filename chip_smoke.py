@@ -14,16 +14,20 @@ Phases, each fatal on failure:
    model's shape and at harder ones, and time the kernel, the plain
    version, one PyTorch library call computing the same function (a
    yardstick the port never calls) and the card's bound for the work;
-4. conv kernels: the same for the 3x3 implicit-GEMM convs (plain, column
-   pairs, BN prologue) and the fused scale/bias/ReLU, at the shapes of
+4. conv kernels: the same for the 3x3 implicit-GEMM convs (plain and BN
+   prologue on the tensor cores, column pairs on the CUDA cores) and the
+   fused scale/bias/ReLU, at the shapes of
    ``benchmarks/bench_pallas_conv.py::_shapes`` (bf16, B=256) and at ragged
-   shapes (fp32 and bf16); the library call is ``F.conv2d``;
+   shapes (fp32 and bf16); the library call is ``F.conv2d``; each case of
+   the tensor-core kernel prints its plan (tile, Cout tile, K split, how
+   the halo is staged);
 5. model sites: one B=32 batch through the unfolded NHWC
    ``resnet18_tiny_imagenet`` on CUDA; at every 3x3 stride-1 conv (the
    pairs kernel: those in layer1), every BN -> ReLU and every bn0 ->
    relu0 -> conv1 chain the four kernels (through their public functions)
    are held to the model's own tensors, the launch counters show one
-   launch per site, and every site is timed in fp32 and bf16;
+   launch per site, and every site is timed in fp32 and bf16 (then the
+   sums per kernel and type);
 6. serve: build ``mha_classifier`` at its full width (S=32, E=64, 4 heads)
    from JAX-layout numpy weights made from a seed, through
    ``interop.from_jax``; serve threaded single and small-batch requests
@@ -61,7 +65,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,     # fp32 outside the tensor cores (TF32 off)
-              "bfloat16": 989e12}   # bf16 tensor cores, dense
+              "bfloat16": 989e12,   # bf16 tensor cores, dense
+              "tfloat32": 495e12}   # TF32 tensor cores, dense
 TOL = {"float32": 1e-4,  # same math, another summation order
        "bfloat16": 2e-2}  # output rounded to bf16 (8 significant bits)
 # backward kernels: max |kernel - plain| over max |plain| per gradient.
@@ -676,11 +681,16 @@ def conv_bound(n, h, w, cin, cout, dtype_name, bn):
     shift) read once and the output written once, over HBM bandwidth,
     against 2 N H W 9 Cin Cout FLOPs over the peak rate for the input
     type, whatever the formulation (the pairs kernel's extra third of
-    products counts against it, not in its bound)."""
+    products counts against it, not in its bound). An fp32-accurate
+    product is fastest on this card as three TF32 tensor-core products
+    (hi*hi + hi*lo + lo*hi), so fp32 counts 3 FLOPs each at the TF32 peak,
+    above the 67 TFLOP/s of the CUDA cores."""
     es = 4 if dtype_name == "float32" else 2
     nbytes = es * (n * h * w * (cin + cout) + 9 * cin * cout) + 8 * cin * bn
     flops = 2 * n * h * w * 9 * cin * cout
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / PEAK_FLOPS[dtype_name]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = (3 * flops / PEAK_FLOPS["tfloat32"] if dtype_name == "float32"
+             else flops / PEAK_FLOPS[dtype_name])
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
@@ -755,6 +765,13 @@ def conv_case(kind, label, x, w, sc, sh, reps):
         bound = conv_bound(n, h, wd, cin, cout, dtn,
                            kind == "conv3x3_s1_bnrelu_in")
         shape = {"B": n, "H": h, "W": wd, "Cin": cin, "Cout": cout}
+        if kind != "conv3x3_s1_pairs":  # the tensor-core kernel's tiling
+            unit = _kernels._copy_unit(x)
+            shape["plan"] = (_kernels.conv_plan(
+                n, h, wd, cin, cout, x.dtype, _kernels._card_sms(x.device),
+                prologue=kind == "conv3x3_s1_bnrelu_in").describe()
+                + ", halo by "
+                + (f"cp.async {unit} B" if unit else "TMA"))
 
     got = kern()
     torch.cuda.synchronize()
@@ -956,6 +973,14 @@ def phase_model_sites(card):
                           None if w is None else w.to(dt), sc, sh,
                           (20, 5, 20))
             results[kind].append({**r, "site": name})
+    for dtn in ("float32", "bfloat16"):
+        sums = {}
+        for kind in CONV_KERNELS:
+            rs = [r for r in results[kind] if r["dtype"] == dtn]
+            sums[kind] = {k: round(sum(r[k] or 0.0 for r in rs), 6)
+                          for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        print(f"model sites {dtn}: sums over the sites (kernel, plain, "
+              f"F.conv2d, bound ms) {sums} on {card}", flush=True)
     return counts, worst, results
 
 
@@ -1159,7 +1184,7 @@ def main() -> None:
                 "library_ms": lib, "cases": cases}
 
     tl = train["launches"]
-    conv_src = "dcnn_tpu_torch/ops/csrc/conv3x3.cu"
+    tc_src = "dcnn_tpu_torch/ops/csrc/conv3x3_tc.cu"
     kernels = [
         row("flash_fwd", "dcnn_tpu_torch/ops/csrc/flash_fwd.cu",
             "dcnn_tpu/ops/attention.py:297", fwd_cases,
@@ -1170,10 +1195,10 @@ def main() -> None:
         row("flash_bwd_dkv", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:478", bwd_cases["dkv"],
             {"serve": 0, "train": tl["flash_bwd_dkv"]}),
-        site_row("conv3x3_s1", conv_src, "dcnn_tpu/ops/pallas/conv.py:82"),
-        site_row("conv3x3_s1_pairs", conv_src,
+        site_row("conv3x3_s1", tc_src, "dcnn_tpu/ops/pallas/conv.py:82"),
+        site_row("conv3x3_s1_pairs", "dcnn_tpu_torch/ops/csrc/conv3x3.cu",
                  "dcnn_tpu/ops/pallas/conv.py:173"),
-        site_row("conv3x3_s1_bnrelu_in", conv_src,
+        site_row("conv3x3_s1_bnrelu_in", tc_src,
                  "dcnn_tpu/ops/pallas/conv.py:209"),
         site_row("fused_scale_bias_relu", "dcnn_tpu_torch/ops/csrc/fused.cu",
                  "dcnn_tpu/ops/pallas/fused.py:49"),

@@ -8,6 +8,9 @@ hash of its source and flags, so a changed source is rebuilt and an
 unchanged one is reused. All missing libraries are compiled at once, one
 ``nvcc`` process per source.
 
+The 3×3 convs' tiling is chosen here, in pure Python (:func:`conv_plan`),
+and passed to ``csrc/conv3x3_tc.cu``, so the CPU tests reach it.
+
 Each wrapper launches on PyTorch's current stream, raises when the C
 function reports a CUDA error, and counts its launches in a plain integer
 attribute (``flash_fwd.launches``, ``flash_bwd_dq.launches``,
@@ -25,6 +28,7 @@ import os
 import shutil
 import subprocess
 import threading
+from dataclasses import dataclass
 from pathlib import Path
 from typing import Dict, Tuple
 
@@ -32,7 +36,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "conv3x3.cu", "fused.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "conv3x3.cu", "conv3x3_tc.cu",
+           "fused.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
@@ -66,9 +71,12 @@ def _bind(lib: ctypes.CDLL) -> None:
             fn.argtypes = [p] * (6 + n_out) + [i, i, i, i, i, ctypes.c_float,
                                                i, p]
             fn.restype = i
-    if hasattr(lib, "dcnn_conv3x3"):
-        lib.dcnn_conv3x3.argtypes = [p] * 5 + [i] * 8 + [p]
-        lib.dcnn_conv3x3.restype = i
+    if hasattr(lib, "dcnn_conv3x3_pairs"):
+        lib.dcnn_conv3x3_pairs.argtypes = [p] * 3 + [i] * 7 + [p]
+        lib.dcnn_conv3x3_pairs.restype = i
+    if hasattr(lib, "dcnn_conv3x3_tc"):
+        lib.dcnn_conv3x3_tc.argtypes = [p] * 7 + [i] * 14 + [p]
+        lib.dcnn_conv3x3_tc.restype = i
     if hasattr(lib, "dcnn_scale_bias_relu"):
         lib.dcnn_scale_bias_relu.argtypes = [p] * 4 + [ctypes.c_longlong, i,
                                                       i, p]
@@ -285,34 +293,150 @@ def _check_conv(fn: str, x: torch.Tensor, w: torch.Tensor, taps: int,
     return n, h, wd, cin, cout
 
 
-def _launch_conv(fn: str, x, w, scale, shift, out_dtype, *,
-                 pairs: bool = False) -> torch.Tensor:
-    """Launch ``csrc/conv3x3.cu``: with ``pairs`` on the fused weights
-    (3, 4, Cin, 2·Cout), else on (3, 3, Cin, Cout) with the BN prologue
-    where ``scale`` and ``shift`` are given."""
-    n, h, wd, _, cout = _check_conv(fn, x, w, 4 if pairs else 3,
-                                    2 if pairs else 1, out_dtype)
-    if pairs and wd % 2:
-        raise ValueError(f"{fn}: W={wd} must be even")
-    lib = build()["conv3x3.cu"]
+TILE_PIXELS = 128      # output pixels per 64-row slab pair of conv3x3_tc.cu
+MAX_HALO_ROWS = 400    # the kernel's largest staged halo, b (th+2)(tw+2)
+CARD_SMS = 132         # H100 SXM; the wrappers pass the card's own count
+
+
+@dataclass(frozen=True)
+class ConvPlan:
+    """How ``csrc/conv3x3_tc.cu`` cuts one conv: output tiles of b images ×
+    th rows × tw columns (128·mw pixels: mw 64-row slabs per multiplying
+    warpgroup) by ``bn`` output channels, and K (``units`` = 9 taps ×
+    ⌈Cin / chunk⌉ Cin chunks of 128 bytes) split in ``ksplit`` ranges
+    across blocks."""
+    b: int
+    th: int
+    tw: int
+    mw: int
+    bn: int
+    ksplit: int
+    chunk: int         # channels per staged 128-byte row: 64 bf16, 32 fp32
+    units: int
+    tiles_m: int
+    tiles_n: int
+    halo_rows: int
+
+    def k_ranges(self) -> Tuple[Tuple[int, int], ...]:
+        """Each split's units [u0, u1) as the kernel computes them (unit u
+        is Cin chunk u // 9 at tap u % 9)."""
+        return tuple((k * self.units // self.ksplit,
+                      (k + 1) * self.units // self.ksplit)
+                     for k in range(self.ksplit))
+
+    def describe(self) -> str:
+        return (f"tile {self.b}x{self.th}x{self.tw}, Cout tile {self.bn}, "
+                f"{self.tiles_m}x{self.tiles_n} tiles, K split {self.ksplit} "
+                f"of {self.units} units")
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _tiling(n: int, h: int, w: int, pixels: int):
+    """(tiles, b, th, tw, halo rows) of the power-of-two tile (tw, th) with
+    b = pixels/(th·tw) images that stages the fewest halo rows in all
+    (tiles × b (th+2)(tw+2)), wider first on a tie."""
+    best = None
+    for tw in (1 << i for i in range(9)):
+        for th in (1 << i for i in range(9)):
+            if tw * th > pixels:
+                continue
+            b = pixels // (tw * th)
+            rows = b * (th + 2) * (tw + 2)
+            if rows > MAX_HALO_ROWS:
+                continue
+            tiles = _cdiv(n, b) * _cdiv(h, th) * _cdiv(w, tw)
+            key = (tiles * rows, -tw, -th)
+            if best is None or key < best[0]:
+                best = (key, (tiles, b, th, tw, rows))
+    return best[1]
+
+
+def conv_plan(n: int, h: int, w: int, cin: int, cout: int,
+              dtype: torch.dtype, sms: int = CARD_SMS, *,
+              prologue: bool = False) -> ConvPlan:
+    """The tiling of ``conv3x3_tc.cu`` for an (n, h, w, cin) -> cout conv
+    (``prologue``: the BN-prologue conv): Cout tiles of 64 up to Cout 64,
+    else 128; output tiles of 256 pixels where they alone fill ``sms`` SMs
+    (bf16 without the prologue, whose warps would set the pace over a
+    256-pixel halo), else of 128 (see :func:`_tiling`); and where the tiles
+    are fewer than ``sms``, K split in ⌊sms / tiles⌋ ranges (at most one
+    per unit), so the work items fill the card in one wave."""
+    chunk = 128 // (2 if dtype == torch.bfloat16 else 4)
+    bn = 64 if cout <= 64 else 128
+    tiles_n = _cdiv(cout, bn)
+    mw = 1
+    tiles_m, b, th, tw, rows = _tiling(n, h, w, TILE_PIXELS)
+    if dtype == torch.bfloat16 and not prologue:
+        big = _tiling(n, h, w, 2 * TILE_PIXELS)
+        if big[0] * tiles_n >= sms:
+            mw, (tiles_m, b, th, tw, rows) = 2, big
+    units = 9 * _cdiv(cin, chunk)
+    tiles = tiles_m * tiles_n
+    ksplit = 1 if tiles >= sms else min(units, sms // tiles)
+    return ConvPlan(b, th, tw, mw, bn, ksplit, chunk, units, tiles_m,
+                    tiles_n, rows)
+
+
+_sms: Dict[int, int] = {}
+
+
+def _card_sms(dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _sms:
+        _sms[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _sms[idx]
+
+
+def _copy_unit(x: torch.Tensor) -> int:
+    """How the kernel stages x: 0 for TMA (a row of Cin and the base
+    16-byte aligned), else the widest cp.async unit both allow (2: plain
+    loads, bf16 with odd Cin)."""
+    row = x.shape[3] * x.element_size()
+    for unit in (16, 8, 4, 2):
+        if row % unit == 0 and x.data_ptr() % unit == 0:
+            return 0 if unit == 16 else unit
+    raise ValueError(f"x of {x.dtype} is not {x.element_size()}-byte aligned")
+
+
+def _launch_conv(fn: str, x, w, scale, shift, out_dtype) -> torch.Tensor:
+    """Launch ``csrc/conv3x3_tc.cu`` on x (N, H, W, Cin) and w (3, 3, Cin,
+    Cout), with the BN prologue where ``scale`` and ``shift`` are given.
+    The packed weights and, for a K split, the fp32 partial sums are
+    scratch allocated here."""
+    n, h, wd, cin, cout = _check_conv(fn, x, w, 3, 1, out_dtype)
+    sms = _card_sms(x.device)
+    plan = conv_plan(n, h, wd, cin, cout, x.dtype, sms,
+                     prologue=scale is not None)
+    parts = 1 if x.dtype == torch.bfloat16 else 2  # fp32: tf32 hi and lo
+    kp = plan.units // 9 * plan.chunk  # Cin padded to whole chunks
+    wpack = torch.empty(9 * parts * plan.tiles_n * plan.bn * kp,
+                        dtype=x.dtype, device=x.device)
+    ws = (torch.empty((plan.ksplit, n, h, wd, cout), dtype=torch.float32,
+                      device=x.device) if plan.ksplit > 1 else None)
+    lib = build()["conv3x3_tc.cu"]
     out = torch.empty((n, h, wd, cout), dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.dcnn_conv3x3(
+        err = lib.dcnn_conv3x3_tc(
             x.data_ptr(), w.data_ptr(),
             None if scale is None else scale.data_ptr(),
             None if shift is None else shift.data_ptr(), out.data_ptr(),
-            *x.shape, cout, int(pairs), int(x.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), stream)
+            wpack.data_ptr(), None if ws is None else ws.data_ptr(),
+            n, h, wd, cin, cout, plan.b, plan.th, plan.tw, plan.bn,
+            plan.ksplit, _copy_unit(x), int(x.dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), sms, stream)
     _raise_on(lib, fn, err)
     return out
 
 
 def conv3x3_s1(x: torch.Tensor, w: torch.Tensor, *,
                out_dtype: torch.dtype) -> torch.Tensor:
-    """Launch the plain 3×3 stride-1 SAME conv of ``csrc/conv3x3.cu`` on
-    contiguous CUDA tensors x (N, H, W, Cin) and w (3, 3, Cin, Cout) of one
-    dtype of CONV_DTYPES. Returns (N, H, W, Cout) of ``out_dtype``."""
+    """Launch the plain 3×3 stride-1 SAME conv of ``csrc/conv3x3_tc.cu``
+    on contiguous CUDA tensors x (N, H, W, Cin) and w (3, 3, Cin, Cout) of
+    one dtype of CONV_DTYPES. Returns (N, H, W, Cout) of ``out_dtype``."""
     out = _launch_conv("conv3x3_s1", x, w, None, None, out_dtype)
     conv3x3_s1.launches += 1
     return out
@@ -321,9 +445,10 @@ def conv3x3_s1(x: torch.Tensor, w: torch.Tensor, *,
 def conv3x3_s1_bnrelu_in(x: torch.Tensor, w: torch.Tensor,
                          scale: torch.Tensor, shift: torch.Tensor, *,
                          out_dtype: torch.dtype) -> torch.Tensor:
-    """Launch the conv of ``csrc/conv3x3.cu`` with ``relu(x·scale+shift)``
-    applied to the input at load; ``scale`` and ``shift`` contiguous fp32
-    (Cin,) on x's device. Otherwise as :func:`conv3x3_s1`."""
+    """Launch the conv of ``csrc/conv3x3_tc.cu`` with
+    ``relu(x·scale+shift)`` applied to each staged input chunk; ``scale``
+    and ``shift`` contiguous fp32 (Cin,) on x's device. Otherwise as
+    :func:`conv3x3_s1`."""
     cin = x.shape[-1] if x.ndim == 4 else -1
     for name, t in (("scale", scale), ("shift", shift)):
         if (t.shape != (cin,) or t.dtype != torch.float32
@@ -331,7 +456,8 @@ def conv3x3_s1_bnrelu_in(x: torch.Tensor, w: torch.Tensor,
             raise ValueError(f"conv3x3_s1_bnrelu_in: {name} must be "
                              f"contiguous fp32 ({cin},) on {x.device}, got "
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    out = _launch_conv("conv3x3_s1_bnrelu_in", x, w, scale, shift, out_dtype)
+    out = _launch_conv("conv3x3_s1_bnrelu_in", x, w, scale, shift,
+                          out_dtype)
     conv3x3_s1_bnrelu_in.launches += 1
     return out
 
@@ -342,8 +468,19 @@ def conv3x3_s1_pairs(x: torch.Tensor, w2: torch.Tensor, *,
     contiguous CUDA tensors x (N, H, W, Cin), W even, and the fused weights
     w2 (3, 4, Cin, 2·Cout) of ``fuse_pair_weights``. Returns (N, H, W,
     Cout) of ``out_dtype``."""
-    out = _launch_conv("conv3x3_s1_pairs", x, w2, None, None, out_dtype,
-                       pairs=True)
+    fn = "conv3x3_s1_pairs"
+    n, h, wd, cin, cout = _check_conv(fn, x, w2, 4, 2, out_dtype)
+    if wd % 2:
+        raise ValueError(f"{fn}: W={wd} must be even")
+    lib = build()["conv3x3.cu"]
+    out = torch.empty((n, h, wd, cout), dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.dcnn_conv3x3_pairs(
+            x.data_ptr(), w2.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
+            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+            stream)
+    _raise_on(lib, fn, err)
     conv3x3_s1_pairs.launches += 1
     return out
 

@@ -192,13 +192,25 @@ def _rel_err(got, want):
             / want.float().abs().max().clamp_min(1e-30)).item()
 
 
+# How conv3x3_tc.cu stages each (its plan: _kernels.conv_plan; the copy
+# unit: _kernels._copy_unit): cp.async where a row of Cin is not a multiple
+# of 16 bytes, TMA elsewhere
 _CONV_SHAPES = [
-    (2, 5, 5, 3, 4, torch.float32, torch.float32),      # ragged, Cin 3
-    (4, 6, 10, 4, 8, torch.float32, torch.float32),
+    (2, 5, 5, 3, 4, torch.float32, torch.float32),      # Cin 3: cp.async 4 B
+    (2, 5, 5, 3, 4, torch.bfloat16, torch.bfloat16),    # Cin 3: plain loads
+    (4, 6, 10, 4, 8, torch.float32, torch.float32),     # TMA, 16-byte rows
     (3, 7, 9, 8, 8, torch.bfloat16, torch.bfloat16),    # odd W
-    (2, 16, 16, 70, 72, torch.float32, torch.float32),  # partial chunks/tiles
-    (2, 12, 20, 64, 64, torch.bfloat16, torch.float32),
-    (1, 4, 4, 512, 130, torch.float32, torch.bfloat16),
+    (2, 16, 16, 70, 72, torch.float32, torch.float32),  # cp.async 8 B, partial chunks/tiles
+    (2, 16, 16, 70, 72, torch.bfloat16, torch.float32),  # cp.async 4 B
+    (2, 12, 20, 64, 64, torch.bfloat16, torch.float32),  # TMA, weights resident
+    (1, 4, 4, 512, 130, torch.float32, torch.bfloat16),  # TMA, Cout 130
+    (2, 8, 8, 64, 130, torch.bfloat16, torch.bfloat16),  # Cout 130 in bf16
+    # layer4 of resnet18_tiny_imagenet at B=32: 8 images per tile, K split 8
+    (32, 4, 4, 512, 512, torch.bfloat16, torch.bfloat16),
+    (32, 4, 4, 512, 512, torch.float32, torch.float32),
+    # enough 256-pixel tiles to fill the card: two slabs per warpgroup
+    (34, 32, 32, 64, 64, torch.bfloat16, torch.bfloat16),
+    (36, 32, 32, 70, 130, torch.bfloat16, torch.float32),  # + cp.async, Cout 130
 ]
 
 
@@ -208,7 +220,9 @@ _CONV_SHAPES = [
     for shape in _CONV_SHAPES if kind != "pairs" or shape[2] % 2 == 0])
 def test_conv_kernels_match_plain_on_card(kind, n, h, w, cin, cout, dtype,
                                           out_dtype):
-    """Each conv kernel against its plain version, one counted launch."""
+    """Each conv kernel against its plain version, one counted launch, and
+    a rerun bit-identical (the K split adds its partial sums in a fixed
+    order)."""
     x, wt, sc, sh = _conv_inputs(3, n, h, w, cin, cout, dtype)
     if kind == "conv":
         counter = _kernels.conv3x3_s1

@@ -27,7 +27,8 @@ Phases, each fatal on failure:
    relu0 -> conv1 chain the four kernels (through their public functions)
    are held to the model's own tensors, the launch counters show one
    launch per site, and every site is timed in fp32 and bf16 (then the
-   sums per kernel and type);
+   sums per kernel and type); at the last layer4 site the tensor-core
+   kernels are also timed as eager calls, beside their graph time;
 6. serve: build ``mha_classifier`` at its full width (S=32, E=64, 4 heads)
    from JAX-layout numpy weights made from a seed, through
    ``interop.from_jax``; serve threaded single and small-batch requests
@@ -133,6 +134,22 @@ def device_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def eager_ms(fn, reps: int) -> float:
+    """Mean wall time of ``fn`` in ms over ``reps`` calls issued one
+    after another from the host, synchronised once at the end: where the
+    host's work per call (checks, planning, allocation, the launch) takes
+    longer than the kernel, this is above the graph time of device_ms."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def allowed_pairs(sq: int, sk: int, causal: bool) -> int:
@@ -864,6 +881,7 @@ def phase_model_sites(card):
     import numpy as np
     import torch
 
+    from dcnn_tpu_torch.ops import _kernels
     from dcnn_tpu_torch.ops.pallas import (
         conv3x3_s1, conv3x3_s1_bnrelu_in, conv3x3_s1_pairs,
         fused_scale_bias_relu,
@@ -973,6 +991,31 @@ def phase_model_sites(card):
                           None if w is None else w.to(dt), sc, sh,
                           (20, 5, 20))
             results[kind].append({**r, "site": name})
+    # eager calls through the public functions at the last layer4 site of
+    # each tensor-core kernel, beside its graph time: the host's share
+    for kind in ("conv3x3_s1", "conv3x3_s1_bnrelu_in"):
+        name, (inp, w, sc, sh) = [(s[1], s[2]) for s in sites
+                                  if s[0] == kind][-1]
+        n, h, wd, cin = inp.shape
+        for r in results[kind]:
+            if r["site"] != name:
+                continue
+            dt = getattr(torch, r["dtype"])
+            xi, wi = inp.to(dt), w.to(dt)
+            with torch.no_grad():
+                r["eager_ms"] = eager_ms(lambda: call[kind](xi, wi, sc, sh),
+                                         200)
+            plan = _kernels.conv_plan.__wrapped__  # the plan without its cache
+            t0 = time.perf_counter()
+            for _ in range(200):
+                plan(n, h, wd, cin, w.shape[3], dt,
+                     prologue=kind == "conv3x3_s1_bnrelu_in")
+            r["plan_uncached_ms"] = (time.perf_counter() - t0) * 1e3 / 200
+            print(f"model sites eager: {kind} at {name} {r['dtype']}: "
+                  f"{r['eager_ms']:.6f} ms per eager call, "
+                  f"{r['ms']:.6f} ms per call in a CUDA graph; its plan "
+                  f"takes {r['plan_uncached_ms']:.6f} ms uncached on {card}",
+                  flush=True)
     for dtn in ("float32", "bfloat16"):
         sums = {}
         for kind in CONV_KERNELS:

@@ -9,7 +9,9 @@ unchanged one is reused. All missing libraries are compiled at once, one
 ``nvcc`` process per source.
 
 The 3×3 convs' tiling is chosen here, in pure Python (:func:`conv_plan`),
-and passed to ``csrc/conv3x3_tc.cu``, so the CPU tests reach it.
+and passed to ``csrc/conv3x3_tc.cu``, so the CPU tests reach it; the tile
+format it plans in (:data:`TILE_FORMAT`) is defined here alone and reaches
+that source's build as ``-D`` flags.
 
 Each wrapper launches on PyTorch's current stream, raises when the C
 function reports a CUDA error, and counts its launches in a plain integer
@@ -23,6 +25,7 @@ through the kernel. :data:`COUNTED` lists them all.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -40,6 +43,21 @@ SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "conv3x3.cu", "conv3x3_tc.cu",
            "fused.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
+# conv3x3_tc.cu's tile format: output pixels per tile (two 64-row wgmma
+# slabs; a 256-pixel tile holds two such), bytes of one staged pixel row (a
+# Cin chunk, the 128-byte swizzle's row), and the most halo rows, b (th+2)
+# (tw+2), a plan may stage
+TILE_FORMAT = {"CONV_TC_TILE_M": 128, "CONV_TC_ROW_BYTES": 128,
+               "CONV_TC_MAX_HALO_ROWS": 400}
+TILE_PIXELS = TILE_FORMAT["CONV_TC_TILE_M"]
+ROW_BYTES = TILE_FORMAT["CONV_TC_ROW_BYTES"]
+MAX_HALO_ROWS = TILE_FORMAT["CONV_TC_MAX_HALO_ROWS"]
+# a diagnostic build of conv3x3_tc.cu with per-stage clock counters
+# (-DCONV_TC_TRACE), built and launched only where asked for by name
+CONV_TC_TRACE = "conv3x3_tc.cu+trace"
+_TILE_DEFINES = tuple(f"-D{k}={v}" for k, v in TILE_FORMAT.items())
+_DEFINES = {"conv3x3_tc.cu": _TILE_DEFINES,
+            CONV_TC_TRACE: (*_TILE_DEFINES, "-DCONV_TC_TRACE")}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -54,9 +72,19 @@ def _nvcc() -> str:
                        "the CUDA kernels build only where the toolkit is")
 
 
-def _lib_path(src: Path) -> Path:
-    h = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:16]}.so"
+def _source(name: str) -> Path:
+    return CSRC / name.split("+")[0]
+
+
+def _flags(name: str) -> Tuple[str, ...]:
+    return (*NVCC_FLAGS, *_DEFINES.get(name, ()))
+
+
+def _lib_path(name: str) -> Path:
+    src = _source(name)
+    h = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode())
+    stem = src.stem + name[len(src.name):].replace("+", "_")
+    return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -77,6 +105,9 @@ def _bind(lib: ctypes.CDLL) -> None:
     if hasattr(lib, "dcnn_conv3x3_tc"):
         lib.dcnn_conv3x3_tc.argtypes = [p] * 7 + [i] * 14 + [p]
         lib.dcnn_conv3x3_tc.restype = i
+    if hasattr(lib, "dcnn_conv3x3_tc_trace"):
+        lib.dcnn_conv3x3_tc_trace.argtypes = [p]
+        lib.dcnn_conv3x3_tc_trace.restype = i
     if hasattr(lib, "dcnn_scale_bias_relu"):
         lib.dcnn_scale_bias_relu.argtypes = [p] * 4 + [ctypes.c_longlong, i,
                                                       i, p]
@@ -85,22 +116,26 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dcnn_cuda_error_string.restype = ctypes.c_char_p
 
 
-def build(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
+def build(verbose: bool = False, extra: Tuple[str, ...] = ()
+          ) -> Dict[str, ctypes.CDLL]:
     """Compile every source not built yet (all ``nvcc`` runs in parallel)
-    and load every library. ``verbose`` adds ``-Xptxas -v`` to fresh builds
-    and prints the compiler's report of registers, shared memory and
-    spills. Returns {source name: library}."""
+    and load every library. ``extra`` names diagnostic builds to add
+    (:data:`CONV_TC_TRACE`); the wrappers never launch those. ``verbose``
+    adds ``-Xptxas -v`` to fresh builds and prints the compiler's report of
+    registers, shared memory and spills. Returns {build name: library}."""
     with _lock:
-        missing = [s for s in SOURCES if s not in _libs]
+        missing = [s for s in dict.fromkeys((*SOURCES, *extra))
+                   if s not in _libs]
         procs = []
         for name in missing:
-            src, out = CSRC / name, _lib_path(CSRC / name)
+            out = _lib_path(name)
             if out.exists():
                 continue
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-                   "-o", str(tmp), str(src)]
+            cmd = [_nvcc(), *_flags(name),
+                   *(["-Xptxas", "-v"] if verbose else []),
+                   "-o", str(tmp), str(_source(name))]
             procs.append((name, out, tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -116,7 +151,7 @@ def build(verbose: bool = False) -> Dict[str, ctypes.CDLL]:
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         for name in missing:
-            lib = ctypes.CDLL(str(_lib_path(CSRC / name)))
+            lib = ctypes.CDLL(str(_lib_path(name)))
             _bind(lib)
             _libs[name] = lib
         return dict(_libs)
@@ -293,8 +328,6 @@ def _check_conv(fn: str, x: torch.Tensor, w: torch.Tensor, taps: int,
     return n, h, wd, cin, cout
 
 
-TILE_PIXELS = 128      # output pixels per 64-row slab pair of conv3x3_tc.cu
-MAX_HALO_ROWS = 400    # the kernel's largest staged halo, b (th+2)(tw+2)
 CARD_SMS = 132         # H100 SXM; the wrappers pass the card's own count
 
 
@@ -354,6 +387,7 @@ def _tiling(n: int, h: int, w: int, pixels: int):
     return best[1]
 
 
+@functools.lru_cache(maxsize=1024)
 def conv_plan(n: int, h: int, w: int, cin: int, cout: int,
               dtype: torch.dtype, sms: int = CARD_SMS, *,
               prologue: bool = False) -> ConvPlan:
@@ -363,8 +397,9 @@ def conv_plan(n: int, h: int, w: int, cin: int, cout: int,
     (bf16 without the prologue, whose warps would set the pace over a
     256-pixel halo), else of 128 (see :func:`_tiling`); and where the tiles
     are fewer than ``sms``, K split in ⌊sms / tiles⌋ ranges (at most one
-    per unit), so the work items fill the card in one wave."""
-    chunk = 128 // (2 if dtype == torch.bfloat16 else 4)
+    per unit), so the work items fill the card in one wave. Cached: a
+    call reuses the plan of an earlier one with the same arguments."""
+    chunk = ROW_BYTES // (2 if dtype == torch.bfloat16 else 4)
     bn = 64 if cout <= 64 else 128
     tiles_n = _cdiv(cout, bn)
     mw = 1
@@ -401,11 +436,25 @@ def _copy_unit(x: torch.Tensor) -> int:
     raise ValueError(f"x of {x.dtype} is not {x.element_size()}-byte aligned")
 
 
-def _launch_conv(fn: str, x, w, scale, shift, out_dtype) -> torch.Tensor:
-    """Launch ``csrc/conv3x3_tc.cu`` on x (N, H, W, Cin) and w (3, 3, Cin,
-    Cout), with the BN prologue where ``scale`` and ``shift`` are given.
-    The packed weights and, for a K split, the fp32 partial sums are
-    scratch allocated here."""
+def _conv_out(fn: str, lib: ctypes.CDLL, entry, x: torch.Tensor, cout: int,
+              out_dtype: torch.dtype, args) -> torch.Tensor:
+    """Allocate the (N, H, W, Cout) output of a conv of x, call the C
+    ``entry`` with ``args(output pointer)`` and PyTorch's current stream,
+    and raise on a CUDA error."""
+    out = torch.empty((*x.shape[:3], cout), dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = entry(*args(out.data_ptr()),
+                    torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(lib, fn, err)
+    return out
+
+
+def _launch_conv(fn: str, x, w, scale, shift, out_dtype,
+                 lib_name: str = "conv3x3_tc.cu") -> torch.Tensor:
+    """Launch ``csrc/conv3x3_tc.cu`` (the build ``lib_name``) on x (N, H,
+    W, Cin) and w (3, 3, Cin, Cout), with the BN prologue where ``scale``
+    and ``shift`` are given. The packed weights and, for a K split, the
+    fp32 partial sums are scratch allocated here."""
     n, h, wd, cin, cout = _check_conv(fn, x, w, 3, 1, out_dtype)
     sms = _card_sms(x.device)
     plan = conv_plan(n, h, wd, cin, cout, x.dtype, sms,
@@ -416,20 +465,16 @@ def _launch_conv(fn: str, x, w, scale, shift, out_dtype) -> torch.Tensor:
                         dtype=x.dtype, device=x.device)
     ws = (torch.empty((plan.ksplit, n, h, wd, cout), dtype=torch.float32,
                       device=x.device) if plan.ksplit > 1 else None)
-    lib = build()["conv3x3_tc.cu"]
-    out = torch.empty((n, h, wd, cout), dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.dcnn_conv3x3_tc(
-            x.data_ptr(), w.data_ptr(),
-            None if scale is None else scale.data_ptr(),
-            None if shift is None else shift.data_ptr(), out.data_ptr(),
-            wpack.data_ptr(), None if ws is None else ws.data_ptr(),
-            n, h, wd, cin, cout, plan.b, plan.th, plan.tw, plan.bn,
-            plan.ksplit, _copy_unit(x), int(x.dtype == torch.bfloat16),
-            int(out_dtype == torch.bfloat16), sms, stream)
-    _raise_on(lib, fn, err)
-    return out
+    lib = build(extra=(lib_name,))[lib_name]
+    return _conv_out(fn, lib, lib.dcnn_conv3x3_tc, x, cout, out_dtype,
+                     lambda out: (
+        x.data_ptr(), w.data_ptr(),
+        None if scale is None else scale.data_ptr(),
+        None if shift is None else shift.data_ptr(), out, wpack.data_ptr(),
+        None if ws is None else ws.data_ptr(), n, h, wd, cin, cout, plan.b,
+        plan.th, plan.tw, plan.bn, plan.ksplit, _copy_unit(x),
+        int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
+        sms))
 
 
 def conv3x3_s1(x: torch.Tensor, w: torch.Tensor, *,
@@ -473,14 +518,10 @@ def conv3x3_s1_pairs(x: torch.Tensor, w2: torch.Tensor, *,
     if wd % 2:
         raise ValueError(f"{fn}: W={wd} must be even")
     lib = build()["conv3x3.cu"]
-    out = torch.empty((n, h, wd, cout), dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.dcnn_conv3x3_pairs(
-            x.data_ptr(), w2.data_ptr(), out.data_ptr(), n, h, wd, cin, cout,
-            int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-            stream)
-    _raise_on(lib, fn, err)
+    out = _conv_out(fn, lib, lib.dcnn_conv3x3_pairs, x, cout, out_dtype,
+                    lambda out: (
+        x.data_ptr(), w2.data_ptr(), out, n, h, wd, cin, cout,
+        int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)))
     conv3x3_s1_pairs.launches += 1
     return out
 

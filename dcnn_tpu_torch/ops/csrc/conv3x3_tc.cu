@@ -41,10 +41,8 @@
 // cp.async and/or apply the BN prologue. Rings of 3 (else 2) halo stages
 // and up to 9 weight stages, as deep as shared memory allows, with
 // full/empty mbarriers, keep the copies of the coming units in flight
-// under this unit's products; where one Cout tile's 9 units fit the ring
-// (bf16 with Cin <= 64 and Cout <= 64, the stem) the weights stay resident
-// for the whole launch. bf16 keeps one group of products in flight while
-// the next unit's A is loaded. The epilogue writes the tile into shared
+// under this unit's products. bf16 keeps one group of products in flight
+// while the next unit's A is loaded. The epilogue writes the tile into shared
 // memory and one thread stores it by TMA (direct stores where a row of
 // Cout is not a multiple of 16 bytes). Blocks are persistent over the work
 // items (tile, K range). Where the tiles are fewer than the SMs
@@ -66,7 +64,7 @@
 // moves more bytes than its operations take (bf16: 268 MB, 0.080 ms at
 // 3.35 TB/s); at the deeper shapes it is bound by operations (989 TFLOP/s
 // bf16; fp32 runs three tf32 products at 495 TFLOP/s). The kernel itself
-// reaches about half of that: tools/conv_tc_stages.py shows each unit's
+// reaches about half of that: ops/conv_tc_stages.py shows each unit's
 // A loads, barrier waits and weight stage hand-over beside its products.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
@@ -74,12 +72,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// The tile format is defined once, in _kernels.py (TILE_FORMAT), which plans
+// the tiling and passes it to this build as -D flags.
+#if !defined(CONV_TC_TILE_M) || !defined(CONV_TC_ROW_BYTES) || !defined(CONV_TC_MAX_HALO_ROWS)
+#error "build through dcnn_tpu_torch/ops/_kernels.py, which defines the tile format"
+#endif
+
 namespace {
 
 constexpr int kThreads = 384;        // warpgroup 0 copies, 1-2 multiply
-constexpr int kTileM = 128;          // output pixels per tile
-constexpr int kRow = 128;            // bytes of one staged pixel row (a Cin chunk)
-constexpr int kMaxHaloRows = 400;    // b (th+2)(tw+2) of any plan (conv_plan)
+constexpr int kTileM = CONV_TC_TILE_M;                // output pixels per tile
+constexpr int kRow = CONV_TC_ROW_BYTES;               // bytes of one staged pixel row (a Cin chunk)
+constexpr int kMaxHaloRows = CONV_TC_MAX_HALO_ROWS;   // b (th+2)(tw+2) of any plan (conv_plan)
+static_assert(kTileM == 128 && kRow == 128,
+              "two 64-row wgmma slabs a tile; rows in the 128-byte swizzle");
 constexpr int kMaxHStages = 3;       // halo ring: 3 stages where they fit, else 2
 constexpr int kMaxWStages = 9;       // weight ring: as many stages as fit, up to 9
 constexpr int kSmemMax = 232448;     // a block's dynamic shared memory on sm_90
@@ -121,7 +127,6 @@ struct Params {
   int cout_pad;        // packed weight rows per (tap, part)
   int halo_rows;       // b (th+2)(tw+2)
   int hst, wst;        // stages of the halo and weight rings
-  int resident;        // all the weights fit the ring: loaded once per block
   int obytes;          // the output tile staged for TMA stores, or 0: direct stores
   int copy;            // 0: halo by TMA; else cp.async (plain for 2) unit in bytes
   int out_bf16;
@@ -730,8 +735,6 @@ __global__ void __launch_bounds__(kThreads, 1)
                         (wc.u % 9 * Tr::kParts + part) * p.cout_pad + wc.k.nt * BN);
           if (++ws == p.wst) ws = 0, wph ^= 1;
           wc.next(p);
-          // resident: stage u holds unit u for every work item
-          if (p.resident && wc.work != (int)blockIdx.x) wc.work = p.works;
           idle = false;
         }
         if (idle) __nanosleep(20);
@@ -841,13 +844,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     clk.add(7, 1);
   };
   auto release_w = [&](int stage) {
-    if (p.resident) return;
     __syncwarp();
     if (lane == 0) mbar_arrive(empty_w + stage);
   };
   // unit u's products from cur; the next unit's A into nxt under them
   auto unit = [&](const Work& k, int u, uint32_t(&cur)[MW][4][4], uint32_t(&nxt)[MW][4][4]) {
-    if (p.resident) ws = u, wph = 0;  // its barrier completes once and stays so
     clk.start();
     mbar_wait(full_w + ws, wph);
     clk.add(1);
@@ -872,7 +873,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       fence_acc(acc);
       release_w(ws);
     }
-    if (!p.resident && ++ws == p.wst) ws = 0, wph ^= 1;
+    if (++ws == p.wst) ws = 0, wph ^= 1;
   };
 
   for (int work = blockIdx.x; work < p.works; work += gridDim.x) {
@@ -1061,15 +1062,10 @@ cudaError_t launch(Params p, const void* w, void* wpack, int kp, int sms, cudaSt
     const int n = (kSmemMax - Sm::total(p.halo_rows, hst, 0, p.obytes)) / Sm::kW;
     return n < kMaxWStages ? n : kMaxWStages;
   };
-  // a third halo stage where 4 weight stages still fit beside it; one K
-  // range and one Cout tile: every work item runs the same units, which
-  // stay resident where they fit (a third halo stage gives way)
-  const bool same = p.ksplit == 1 && p.tiles_n == 1;
+  // a third halo stage where 4 weight stages still fit beside it
   p.hst = wstages(kMaxHStages) >= 4 ? kMaxHStages : 2;
-  if (same && wstages(p.hst) < p.units && wstages(2) >= p.units) p.hst = 2;
   p.wst = wstages(p.hst);
   if (p.wst < 2) return cudaErrorInvalidValue;
-  p.resident = same && p.units <= p.wst;
   kernel<<<p.works < sms ? p.works : sms, kThreads,
            Sm::total(p.halo_rows, p.hst, p.wst, p.obytes), s>>>(xmap, wmap, omap, p);
   if (p.ksplit > 1) {

@@ -103,6 +103,35 @@ def test_copy_unit_picks_tma_where_the_layout_allows(cin, dtype, offset, unit):
     assert _kernels._copy_unit(x) == unit
 
 
+def test_plan_is_computed_once_per_shape():
+    """A wrapper plans every call; the plan of a shape seen before comes
+    from the cache."""
+    plan = _kernels.conv_plan(32, 8, 8, 256, 256, torch.float32)
+    hits = _kernels.conv_plan.cache_info().hits
+    assert _kernels.conv_plan(32, 8, 8, 256, 256, torch.float32) is plan
+    assert _kernels.conv_plan.cache_info().hits == hits + 1
+
+
+def test_tile_format_reaches_the_kernel_build_from_one_place():
+    """conv3x3_tc.cu takes the tile format the plan uses (TILE_FORMAT) from
+    its build's -D flags and refuses to build without them; the diagnostic
+    build adds its clock counters under a name and a library of its own,
+    which the wrappers do not launch."""
+    src = (_kernels.CSRC / "conv3x3_tc.cu").read_text()
+    flags = _kernels._flags("conv3x3_tc.cu")
+    for key, value in _kernels.TILE_FORMAT.items():
+        assert f"-D{key}={value}" in flags
+        assert f"defined({key})" in src
+    assert (_kernels.TILE_PIXELS, _kernels.ROW_BYTES, _kernels.MAX_HALO_ROWS
+            ) == tuple(_kernels.TILE_FORMAT.values())
+    trace = _kernels._flags(_kernels.CONV_TC_TRACE)
+    assert "-DCONV_TC_TRACE" in trace and "-DCONV_TC_TRACE" not in flags
+    assert set(flags) < set(trace)
+    assert _kernels.CONV_TC_TRACE not in _kernels.SOURCES
+    assert (_kernels._lib_path(_kernels.CONV_TC_TRACE)
+            != _kernels._lib_path("conv3x3_tc.cu"))
+
+
 def _tf32(t: torch.Tensor) -> torch.Tensor:
     """Round fp32 to TF32 (10 mantissa bits), to nearest with ties away
     from zero, as ``cvt.rna.tf32.f32`` does."""

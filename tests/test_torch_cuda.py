@@ -202,7 +202,7 @@ _CONV_SHAPES = [
     (3, 7, 9, 8, 8, torch.bfloat16, torch.bfloat16),    # odd W
     (2, 16, 16, 70, 72, torch.float32, torch.float32),  # cp.async 8 B, partial chunks/tiles
     (2, 16, 16, 70, 72, torch.bfloat16, torch.float32),  # cp.async 4 B
-    (2, 12, 20, 64, 64, torch.bfloat16, torch.float32),  # TMA, weights resident
+    (2, 12, 20, 64, 64, torch.bfloat16, torch.float32),  # TMA, one Cin chunk
     (1, 4, 4, 512, 130, torch.float32, torch.bfloat16),  # TMA, Cout 130
     (2, 8, 8, 64, 130, torch.bfloat16, torch.bfloat16),  # Cout 130 in bf16
     # layer4 of resnet18_tiny_imagenet at B=32: 8 images per tile, K split 8

@@ -14,13 +14,13 @@ Phases, each fatal on failure:
    model's shape and at harder ones, and time the kernel, the plain
    version, one PyTorch library call computing the same function (a
    yardstick the port never calls) and the card's bound for the work;
-4. conv kernels: the same for the 3x3 implicit-GEMM convs (plain and BN
-   prologue on the tensor cores, column pairs on the CUDA cores) and the
+4. conv kernels: the same for the 3x3 implicit-GEMM convs (plain, BN
+   prologue and output-column pairs, all on the tensor cores) and the
    fused scale/bias/ReLU, at the shapes of
    ``benchmarks/bench_pallas_conv.py::_shapes`` (bf16, B=256) and at ragged
-   shapes (fp32 and bf16); the library call is ``F.conv2d``; each case of
-   the tensor-core kernel prints its plan (tile, Cout tile, K split, how
-   the halo is staged);
+   shapes (fp32 and bf16); the library call is ``F.conv2d``; each conv
+   case prints its plan (tile, Cout tile, K split, how the halo is
+   staged);
 5. model sites: one B=32 batch through the unfolded NHWC
    ``resnet18_tiny_imagenet`` on CUDA; at every 3x3 stride-1 conv (the
    pairs kernel: those in layer1), every BN -> ReLU and every bn0 ->
@@ -163,12 +163,16 @@ def allowed_pairs(sq: int, sk: int, causal: bool) -> int:
 def flash_bound(b, h, sq, sk, d, causal, dtype_name):
     """Least time the card could take: the larger of bytes moved (q, k, v
     read once; O and the fp32 logsumexp written once) over HBM bandwidth
-    and the two products' FLOPs over the peak rate for the input type."""
+    and the two products' FLOPs over the peak rate for the input type. An
+    fp32-accurate product is fastest on this card as three TF32
+    tensor-core products, so fp32 counts 3 FLOPs each at the TF32 peak (as
+    conv_bound does)."""
     esize = 4 if dtype_name == "float32" else 2
     nbytes = esize * b * h * d * (2 * sq + 2 * sk) + 4 * b * h * sq
     flops = 4 * b * h * allowed_pairs(sq, sk, causal) * d
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_ops = (3 * flops / PEAK_FLOPS["tfloat32"] if dtype_name == "float32"
+             else flops / PEAK_FLOPS[dtype_name])
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
@@ -200,8 +204,15 @@ FLASH_CASES = [  # name, B, H, Sq, Sk, D, causal, dtype name, timing reps
     ("long context", 4, 8, 4096, 4096, 64, True, "bfloat16", 5),
     ("fully masked rows", 1, 2, 200, 10, 32, True, "float32", 50),
     # diagonal offset 65: the last key the first 64-row q tile may see is
-    # the first key of the third kv tile, the edge of the kernels' bands
+    # the first key of the third kv tile, the edge of the backward
+    # kernels' bands
     ("band edge", 1, 2, 100, 165, 32, True, "float32", 50),
+    # offset = kv tile + 1 at the forward's tiles: the first q tile's last
+    # row sees exactly the first key of a kv tile (bf16: 128 rows, 128
+    # keys; fp32: 128 rows, 64 keys; fp32 at D 128: 64 rows, 32 keys)
+    ("band edge, 128-key tiles", 1, 2, 300, 429, 64, True, "bfloat16", 50),
+    ("band edge, 64-key tiles", 1, 2, 300, 365, 64, True, "float32", 50),
+    ("band edge, 32-key tiles", 1, 2, 100, 133, 128, True, "float32", 50),
 ]
 
 
@@ -259,7 +270,9 @@ def phase_kernels():
                                             scale=scale), max(2, reps // 10))
         bound_ms, bound_by, nbytes, flops = flash_bound(b, h, sq, sk, d,
                                                         causal, dtn)
+        plan = _kernels.flash_plan(sq, sk, d, dt)
         r = {"case": name, "B": b, "H": h, "Sq": sq, "Sk": sk, "D": d,
+             "plan": str(plan),
              "causal": causal, "dtype": dtn, "max_abs_err": err,
              "lse_max_abs_err": lse_err, "tolerance": TOL[dtn],
              "ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -270,7 +283,7 @@ def phase_kernels():
               f"causal={causal} {dtn}: max_abs_err={err:.3e} "
               f"(lse {lse_err:.3e}, tol {TOL[dtn]:g}) kernel_ms={kern_ms:.6f}"
               f" plain_ms={plain_ms:.6f} library_ms={lib_ms} "
-              f"bound_ms={bound_ms:.6f} ({bound_by})", flush=True)
+              f"bound_ms={bound_ms:.6f} ({bound_by}); {plan}", flush=True)
     return results
 
 
@@ -782,13 +795,12 @@ def conv_case(kind, label, x, w, sc, sh, reps):
         bound = conv_bound(n, h, wd, cin, cout, dtn,
                            kind == "conv3x3_s1_bnrelu_in")
         shape = {"B": n, "H": h, "W": wd, "Cin": cin, "Cout": cout}
-        if kind != "conv3x3_s1_pairs":  # the tensor-core kernel's tiling
-            unit = _kernels._copy_unit(x)
-            shape["plan"] = (_kernels.conv_plan(
-                n, h, wd, cin, cout, x.dtype, _kernels._card_sms(x.device),
-                prologue=kind == "conv3x3_s1_bnrelu_in").describe()
-                + ", halo by "
-                + (f"cp.async {unit} B" if unit else "TMA"))
+        unit = _kernels._copy_unit(x)  # the tensor-core kernel's tiling
+        shape["plan"] = (_kernels.conv_plan(
+            n, h, wd, cin, cout, x.dtype, _kernels._card_sms(x.device),
+            prologue=kind == "conv3x3_s1_bnrelu_in",
+            pairs=kind == "conv3x3_s1_pairs").describe()
+            + ", halo by " + (f"cp.async {unit} B" if unit else "TMA"))
 
     got = kern()
     torch.cuda.synchronize()
@@ -1174,6 +1186,9 @@ def phase_serve_cnn(card):
 
 
 def main() -> None:
+    if not os.path.isdir(os.path.join(ROOT, "dcnn_tpu_torch")):
+        fail(f"no dcnn_tpu_torch package in {ROOT}: run this script from a "
+             f"checkout of the repo, which builds the kernels from its sources")
     card = phase_device()
     sys.path.insert(0, ROOT)
     import torch
@@ -1196,6 +1211,7 @@ def main() -> None:
 
     def row(name, source, replaces, cases, by_path):
         model_case = cases[0]  # the model's shape: B=32, H=4, S=32, D=16
+        long = next(c for c in cases if c["case"] == "long context")
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
@@ -1203,7 +1219,10 @@ def main() -> None:
                 "ms": model_case["ms"], "plain_ms": model_case["plain_ms"],
                 "bound_ms": model_case["bound_ms"],
                 "bound_by": model_case["bound_by"],
-                "library_ms": model_case["library_ms"], "cases": cases}
+                "library_ms": model_case["library_ms"],
+                "long_context": {k: long[k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                "cases": cases}
 
     def site_row(name, source, replaces):
         """Rows 4-7: times summed over the model's sites in fp32, each
@@ -1239,7 +1258,7 @@ def main() -> None:
             "dcnn_tpu/ops/attention.py:478", bwd_cases["dkv"],
             {"serve": 0, "train": tl["flash_bwd_dkv"]}),
         site_row("conv3x3_s1", tc_src, "dcnn_tpu/ops/pallas/conv.py:82"),
-        site_row("conv3x3_s1_pairs", "dcnn_tpu_torch/ops/csrc/conv3x3.cu",
+        site_row("conv3x3_s1_pairs", tc_src,
                  "dcnn_tpu/ops/pallas/conv.py:173"),
         site_row("conv3x3_s1_bnrelu_in", tc_src,
                  "dcnn_tpu/ops/pallas/conv.py:209"),

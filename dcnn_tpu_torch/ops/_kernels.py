@@ -8,10 +8,12 @@ hash of its source and flags, so a changed source is rebuilt and an
 unchanged one is reused. All missing libraries are compiled at once, one
 ``nvcc`` process per source.
 
-The 3×3 convs' tiling is chosen here, in pure Python (:func:`conv_plan`),
-and passed to ``csrc/conv3x3_tc.cu``, so the CPU tests reach it; the tile
-format it plans in (:data:`TILE_FORMAT`) is defined here alone and reaches
-that source's build as ``-D`` flags.
+The 3×3 convs' tiling (:func:`conv_plan`) and the flash forward's
+(:func:`flash_plan`) are chosen here, in pure Python, and passed to
+``csrc/conv3x3_tc.cu`` and ``csrc/flash_fwd.cu``, so the CPU tests reach
+them; the conv's tile format (:data:`TILE_FORMAT`) is defined here alone
+and reaches that source's build as ``-D`` flags. The headers in ``csrc/``
+(``hopper.cuh``) are part of every library's hash.
 
 Each wrapper launches on PyTorch's current stream, raises when the C
 function reports a CUDA error, and counts its launches in a plain integer
@@ -39,8 +41,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "conv3x3.cu", "conv3x3_tc.cu",
-           "fused.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "conv3x3_tc.cu", "fused.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # conv3x3_tc.cu's tile format: output pixels per tile (two 64-row wgmma
@@ -52,12 +53,15 @@ TILE_FORMAT = {"CONV_TC_TILE_M": 128, "CONV_TC_ROW_BYTES": 128,
 TILE_PIXELS = TILE_FORMAT["CONV_TC_TILE_M"]
 ROW_BYTES = TILE_FORMAT["CONV_TC_ROW_BYTES"]
 MAX_HALO_ROWS = TILE_FORMAT["CONV_TC_MAX_HALO_ROWS"]
-# a diagnostic build of conv3x3_tc.cu with per-stage clock counters
-# (-DCONV_TC_TRACE), built and launched only where asked for by name
+# diagnostic builds of conv3x3_tc.cu and flash_fwd.cu with per-stage clock
+# counters (-DCONV_TC_TRACE, -DFLASH_TRACE), built and launched only where
+# asked for by name (ops/conv_tc_stages.py)
 CONV_TC_TRACE = "conv3x3_tc.cu+trace"
+FLASH_TRACE = "flash_fwd.cu+trace"
 _TILE_DEFINES = tuple(f"-D{k}={v}" for k, v in TILE_FORMAT.items())
 _DEFINES = {"conv3x3_tc.cu": _TILE_DEFINES,
-            CONV_TC_TRACE: (*_TILE_DEFINES, "-DCONV_TC_TRACE")}
+            CONV_TC_TRACE: (*_TILE_DEFINES, "-DCONV_TC_TRACE"),
+            FLASH_TRACE: ("-DFLASH_TRACE",)}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -81,8 +85,13 @@ def _flags(name: str) -> Tuple[str, ...]:
 
 
 def _lib_path(name: str) -> Path:
+    """The library of build ``name``: its file name hashes the source, every
+    header of ``csrc/`` (a source may include any) and the flags."""
     src = _source(name)
-    h = hashlib.sha256(src.read_bytes() + " ".join(_flags(name)).encode())
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(_flags(name)).encode())
     stem = src.stem + name[len(src.name):].replace("+", "_")
     return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
 
@@ -91,7 +100,7 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     if hasattr(lib, "dcnn_flash_fwd"):
         lib.dcnn_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                       ctypes.c_float, i, p]
+                                       ctypes.c_float, i, i, i, i, i, p]
         lib.dcnn_flash_fwd.restype = i
     for name, n_out in (("dcnn_flash_bwd_dq", 1), ("dcnn_flash_bwd_dkv", 2)):
         if hasattr(lib, name):
@@ -99,15 +108,13 @@ def _bind(lib: ctypes.CDLL) -> None:
             fn.argtypes = [p] * (6 + n_out) + [i, i, i, i, i, ctypes.c_float,
                                                i, p]
             fn.restype = i
-    if hasattr(lib, "dcnn_conv3x3_pairs"):
-        lib.dcnn_conv3x3_pairs.argtypes = [p] * 3 + [i] * 7 + [p]
-        lib.dcnn_conv3x3_pairs.restype = i
     if hasattr(lib, "dcnn_conv3x3_tc"):
-        lib.dcnn_conv3x3_tc.argtypes = [p] * 7 + [i] * 14 + [p]
+        lib.dcnn_conv3x3_tc.argtypes = [p] * 7 + [i] * 15 + [p]
         lib.dcnn_conv3x3_tc.restype = i
-    if hasattr(lib, "dcnn_conv3x3_tc_trace"):
-        lib.dcnn_conv3x3_tc_trace.argtypes = [p]
-        lib.dcnn_conv3x3_tc_trace.restype = i
+    for name in ("dcnn_conv3x3_tc_trace", "dcnn_flash_fwd_trace"):
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = [p]
+            getattr(lib, name).restype = i
     if hasattr(lib, "dcnn_scale_bias_relu"):
         lib.dcnn_scale_bias_relu.argtypes = [p] * 4 + [ctypes.c_longlong, i,
                                                       i, p]
@@ -159,6 +166,67 @@ def build(verbose: bool = False, extra: Tuple[str, ...] = ()
 
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
+SMEM_MAX = 232448      # a block's dynamic shared memory on sm_90
+FLASH_MAX_STAGES = 4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclass(frozen=True)
+class FlashPlan:
+    """How ``csrc/flash_fwd.cu`` cuts one attention: blocks of ``q_rows``
+    q rows (one multiplying warpgroup per 64), kv tiles of ``kv_tile``
+    keys in a ring of ``stages``, and the block's shared memory in bytes
+    (``smem``), laid out as the kernel's ``Tile`` lays it out: Q (and in
+    fp32 its tf32 lo), then per stage K and V as they land (fp32: K's lo,
+    V transposed as hi and lo), each row of D in ``chunks`` 128-byte
+    chunks."""
+    q_rows: int
+    kv_tile: int
+    stages: int
+    smem: int
+    chunks: int
+
+    def kv_tiles(self, q_tile: int, sq: int, sk: int, causal: bool) -> range:
+        """The kv tiles the kernel visits for q tile ``q_tile``: every tile
+        up to the last holding an allowed (q, k) pair for a real row
+        (causal: key <= row + sk - sq)."""
+        n = _cdiv(sk, self.kv_tile)
+        if causal:
+            hi = min((q_tile + 1) * self.q_rows, sq) - 1 + sk - sq
+            n = 0 if hi < 0 else min(n, hi // self.kv_tile + 1)
+        return range(n)
+
+
+@functools.lru_cache(maxsize=1024)
+def flash_plan(sq: int, sk: int, d: int, dtype: torch.dtype) -> FlashPlan:
+    """The tiling of ``flash_fwd.cu``: 128 q rows a block (two multiplying
+    warpgroups) above Sq 64 where two stages fit beside them, else 64; kv
+    tiles of 128 keys in bf16, 64 in fp32 and 32 for fp32 at D 128 (its
+    tf32 splits and V^T take five tiles' room a stage); as many stages as
+    shared memory holds, up to FLASH_MAX_STAGES and the number of kv
+    tiles. The kernel refuses a plan whose tile or shared memory differs
+    from its own layout. Cached per shape."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    f32 = es == 4
+    chunks = _cdiv(d * es, ROW_BYTES)
+    padded = chunks * (ROW_BYTES // es)   # D padded to whole chunks
+    kv = (32 if d == 128 else 64) if f32 else 128
+    kv_bytes = chunks * kv * ROW_BYTES    # one K or V tile as it lands
+    stage = kv_bytes * (3 if f32 else 2) + (2 * kv * padded * 4 if f32 else 0)
+
+    def smem(q_rows: int, stages: int) -> int:
+        return (1024 + chunks * q_rows * ROW_BYTES * (2 if f32 else 1)
+                + stages * stage + 256)
+
+    def fit(q_rows: int) -> int:
+        return min(FLASH_MAX_STAGES, (SMEM_MAX - smem(q_rows, 0)) // stage)
+
+    q_rows = 64 if sq <= 64 or fit(128) < 2 else 128
+    stages = max(1, min(fit(q_rows), _cdiv(sk, kv)))
+    return FlashPlan(q_rows, kv, stages, smem(q_rows, stages), chunks)
 
 
 def _check_attention(fn: str, q: torch.Tensor, k: torch.Tensor,
@@ -212,14 +280,29 @@ def _raise_on(lib: ctypes.CDLL, fn: str, err: int) -> None:
 
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``csrc/flash_fwd.cu`` on contiguous CUDA tensors q (B, H, Sq,
-    D), k and v (B, H, Sk, D) of fp32 or bf16, D in {16, 32, 64, 128}.
-    Returns (O like q, logsumexp (B, H, Sq) fp32). Raises on anything the
-    kernel does not take."""
+    """Launch ``csrc/flash_fwd.cu`` on contiguous, 16-byte aligned CUDA
+    tensors q (B, H, Sq, D), k and v (B, H, Sk, D) of fp32 or bf16, D in
+    {16, 32, 64, 128}, tiled by :func:`flash_plan`. Returns (O like q,
+    logsumexp (B, H, Sq) fp32). Raises on anything the kernel does not
+    take."""
+    out = _launch_flash(q, k, v, causal, scale)
+    flash_fwd.launches += 1
+    return out
+
+
+def _launch_flash(q, k, v, causal: bool, scale: float,
+                  lib_name: str = "flash_fwd.cu"
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the build ``lib_name`` of ``csrc/flash_fwd.cu``; see
+    :func:`flash_fwd`."""
     _check_attention("flash_fwd", q, k, v)
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.data_ptr() % 16:  # TMA copies from 16-byte aligned rows
+            raise ValueError(f"flash_fwd: {name} is not 16-byte aligned")
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    lib = build()["flash_fwd.cu"]
+    plan = flash_plan(sq, sk, d, q.dtype)
+    lib = build(extra=(lib_name,))[lib_name]
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
@@ -227,9 +310,9 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         err = lib.dcnn_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                  o.data_ptr(), lse.data_ptr(), b * h, sq, sk,
                                  d, int(causal), float(scale),
-                                 int(q.dtype == torch.bfloat16), stream)
+                                 int(q.dtype == torch.bfloat16), plan.q_rows,
+                                 plan.kv_tile, plan.stages, plan.smem, stream)
     _raise_on(lib, "flash_fwd", err)
-    flash_fwd.launches += 1
     return o, lse
 
 
@@ -334,10 +417,12 @@ CARD_SMS = 132         # H100 SXM; the wrappers pass the card's own count
 @dataclass(frozen=True)
 class ConvPlan:
     """How ``csrc/conv3x3_tc.cu`` cuts one conv: output tiles of b images ×
-    th rows × tw columns (128·mw pixels: mw 64-row slabs per multiplying
-    warpgroup) by ``bn`` output channels, and K (``units`` = 9 taps ×
-    ⌈Cin / chunk⌉ Cin chunks of 128 bytes) split in ``ksplit`` ranges
-    across blocks."""
+    th rows × tw output columns (128·mw of them: mw 64-row slabs per
+    multiplying warpgroup) by ``bn`` output channels, and K (``units`` =
+    ``taps`` × ⌈Cin / chunk⌉ Cin chunks of 128 bytes) split in ``ksplit``
+    ranges across blocks. The pairs form (``taps`` 12) counts its output
+    columns in pairs of pixels and its channels in the 2·Cout lanes; its
+    halo box is 2·tw + 2 input columns wide."""
     b: int
     th: int
     tw: int
@@ -349,70 +434,81 @@ class ConvPlan:
     tiles_m: int
     tiles_n: int
     halo_rows: int
+    taps: int = 9      # 9, or 12 in the pairs form
+
+    @property
+    def step(self) -> int:
+        """Input columns per output column: 1, or 2 in the pairs form."""
+        return 2 if self.taps == 12 else 1
 
     def k_ranges(self) -> Tuple[Tuple[int, int], ...]:
         """Each split's units [u0, u1) as the kernel computes them (unit u
-        is Cin chunk u // 9 at tap u % 9)."""
+        is Cin chunk u // taps at tap u % taps)."""
         return tuple((k * self.units // self.ksplit,
                       (k + 1) * self.units // self.ksplit)
                      for k in range(self.ksplit))
 
     def describe(self) -> str:
-        return (f"tile {self.b}x{self.th}x{self.tw}, Cout tile {self.bn}, "
-                f"{self.tiles_m}x{self.tiles_n} tiles, K split {self.ksplit} "
-                f"of {self.units} units")
+        what = "pairs" if self.taps == 12 else "pixels"
+        return (f"tile {self.b}x{self.th}x{self.tw} {what}, Cout tile "
+                f"{self.bn}, {self.tiles_m}x{self.tiles_n} tiles, K split "
+                f"{self.ksplit} of {self.units} units")
 
 
-def _cdiv(a: int, b: int) -> int:
-    return -(-a // b)
-
-
-def _tiling(n: int, h: int, w: int, pixels: int):
+def _tiling(n: int, h: int, w: int, pixels: int, step: int = 1):
     """(tiles, b, th, tw, halo rows) of the power-of-two tile (tw, th) with
     b = pixels/(th·tw) images that stages the fewest halo rows in all
-    (tiles × b (th+2)(tw+2)), wider first on a tie."""
+    (tiles × b (th+2)(step·tw+2)), wider first on a tie; w counts output
+    columns, each ``step`` input columns wide. None where no tile keeps
+    its halo within MAX_HALO_ROWS."""
     best = None
     for tw in (1 << i for i in range(9)):
         for th in (1 << i for i in range(9)):
             if tw * th > pixels:
                 continue
             b = pixels // (tw * th)
-            rows = b * (th + 2) * (tw + 2)
+            rows = b * (th + 2) * (step * tw + 2)
             if rows > MAX_HALO_ROWS:
                 continue
             tiles = _cdiv(n, b) * _cdiv(h, th) * _cdiv(w, tw)
             key = (tiles * rows, -tw, -th)
             if best is None or key < best[0]:
                 best = (key, (tiles, b, th, tw, rows))
-    return best[1]
+    return None if best is None else best[1]
 
 
 @functools.lru_cache(maxsize=1024)
 def conv_plan(n: int, h: int, w: int, cin: int, cout: int,
               dtype: torch.dtype, sms: int = CARD_SMS, *,
-              prologue: bool = False) -> ConvPlan:
+              prologue: bool = False, pairs: bool = False) -> ConvPlan:
     """The tiling of ``conv3x3_tc.cu`` for an (n, h, w, cin) -> cout conv
-    (``prologue``: the BN-prologue conv): Cout tiles of 64 up to Cout 64,
-    else 128; output tiles of 256 pixels where they alone fill ``sms`` SMs
-    (bf16 without the prologue, whose warps would set the pace over a
-    256-pixel halo), else of 128 (see :func:`_tiling`); and where the tiles
-    are fewer than ``sms``, K split in ⌊sms / tiles⌋ ranges (at most one
-    per unit), so the work items fill the card in one wave. Cached: a
-    call reuses the plan of an earlier one with the same arguments."""
+    (``prologue``: the BN-prologue conv; ``pairs``: the output-column-pair
+    form, w even, whose output columns are the w/2 pairs and whose
+    channels are the 2·cout lanes of the fused weights): tiles of 64
+    channels up to 64, else 128; output tiles of 256 columns where they
+    alone fill ``sms`` SMs (the bf16 conv without the prologue, whose
+    warps would set the pace over a 256-pixel halo; no 256-pair tile keeps
+    its halo within MAX_HALO_ROWS), else of 128 (see :func:`_tiling`); and
+    where the tiles are fewer than ``sms``, K split in ⌊sms / tiles⌋
+    ranges (at most one per unit), so the work items fill the card in one
+    wave. Cached: a call reuses the plan of an earlier one with the same
+    arguments."""
     chunk = ROW_BYTES // (2 if dtype == torch.bfloat16 else 4)
-    bn = 64 if cout <= 64 else 128
-    tiles_n = _cdiv(cout, bn)
+    step, taps = (2, 12) if pairs else (1, 9)
+    wo, lanes = w // step, cout * step
+    bn = 64 if lanes <= 64 else 128
+    tiles_n = _cdiv(lanes, bn)
     mw = 1
-    tiles_m, b, th, tw, rows = _tiling(n, h, w, TILE_PIXELS)
-    if dtype == torch.bfloat16 and not prologue:
-        big = _tiling(n, h, w, 2 * TILE_PIXELS)
+    tiles_m, b, th, tw, rows = _tiling(n, h, wo, TILE_PIXELS, step)
+    if dtype == torch.bfloat16 and not prologue and not pairs:
+        big = _tiling(n, h, wo, 2 * TILE_PIXELS)
         if big[0] * tiles_n >= sms:
             mw, (tiles_m, b, th, tw, rows) = 2, big
-    units = 9 * _cdiv(cin, chunk)
+    units = taps * _cdiv(cin, chunk)
     tiles = tiles_m * tiles_n
     ksplit = 1 if tiles >= sms else min(units, sms // tiles)
     return ConvPlan(b, th, tw, mw, bn, ksplit, chunk, units, tiles_m,
-                    tiles_n, rows)
+                    tiles_n, rows, taps)
 
 
 _sms: Dict[int, int] = {}
@@ -436,45 +532,41 @@ def _copy_unit(x: torch.Tensor) -> int:
     raise ValueError(f"x of {x.dtype} is not {x.element_size()}-byte aligned")
 
 
-def _conv_out(fn: str, lib: ctypes.CDLL, entry, x: torch.Tensor, cout: int,
-              out_dtype: torch.dtype, args) -> torch.Tensor:
-    """Allocate the (N, H, W, Cout) output of a conv of x, call the C
-    ``entry`` with ``args(output pointer)`` and PyTorch's current stream,
-    and raise on a CUDA error."""
-    out = torch.empty((*x.shape[:3], cout), dtype=out_dtype, device=x.device)
-    with torch.cuda.device(x.device):
-        err = entry(*args(out.data_ptr()),
-                    torch.cuda.current_stream(x.device).cuda_stream)
-    _raise_on(lib, fn, err)
-    return out
-
-
 def _launch_conv(fn: str, x, w, scale, shift, out_dtype,
-                 lib_name: str = "conv3x3_tc.cu") -> torch.Tensor:
+                 lib_name: str = "conv3x3_tc.cu", pairs: bool = False
+                 ) -> torch.Tensor:
     """Launch ``csrc/conv3x3_tc.cu`` (the build ``lib_name``) on x (N, H,
     W, Cin) and w (3, 3, Cin, Cout), with the BN prologue where ``scale``
-    and ``shift`` are given. The packed weights and, for a K split, the
-    fp32 partial sums are scratch allocated here."""
-    n, h, wd, cin, cout = _check_conv(fn, x, w, 3, 1, out_dtype)
+    and ``shift`` are given; or, with ``pairs``, on W even and the fused
+    weights w (3, 4, Cin, 2·Cout). The packed weights and, for a K split,
+    the fp32 partial sums are scratch allocated here."""
+    n, h, wd, cin, cout = _check_conv(fn, x, w, 4 if pairs else 3,
+                                      2 if pairs else 1, out_dtype)
+    if pairs and wd % 2:
+        raise ValueError(f"{fn}: W={wd} must be even")
     sms = _card_sms(x.device)
     plan = conv_plan(n, h, wd, cin, cout, x.dtype, sms,
-                     prologue=scale is not None)
+                     prologue=scale is not None, pairs=pairs)
     parts = 1 if x.dtype == torch.bfloat16 else 2  # fp32: tf32 hi and lo
-    kp = plan.units // 9 * plan.chunk  # Cin padded to whole chunks
-    wpack = torch.empty(9 * parts * plan.tiles_n * plan.bn * kp,
+    kp = plan.units // plan.taps * plan.chunk  # Cin padded to whole chunks
+    wpack = torch.empty(plan.taps * parts * plan.tiles_n * plan.bn * kp,
                         dtype=x.dtype, device=x.device)
     ws = (torch.empty((plan.ksplit, n, h, wd, cout), dtype=torch.float32,
                       device=x.device) if plan.ksplit > 1 else None)
     lib = build(extra=(lib_name,))[lib_name]
-    return _conv_out(fn, lib, lib.dcnn_conv3x3_tc, x, cout, out_dtype,
-                     lambda out: (
-        x.data_ptr(), w.data_ptr(),
-        None if scale is None else scale.data_ptr(),
-        None if shift is None else shift.data_ptr(), out, wpack.data_ptr(),
-        None if ws is None else ws.data_ptr(), n, h, wd, cin, cout, plan.b,
-        plan.th, plan.tw, plan.bn, plan.ksplit, _copy_unit(x),
-        int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16),
-        sms))
+    out = torch.empty((n, h, wd, cout), dtype=out_dtype, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.dcnn_conv3x3_tc(
+            x.data_ptr(), w.data_ptr(),
+            None if scale is None else scale.data_ptr(),
+            None if shift is None else shift.data_ptr(), out.data_ptr(),
+            wpack.data_ptr(), None if ws is None else ws.data_ptr(), n, h, wd,
+            cin, cout, plan.b, plan.th, plan.tw, plan.bn, plan.ksplit,
+            _copy_unit(x), int(x.dtype == torch.bfloat16),
+            int(out_dtype == torch.bfloat16), int(pairs), sms,
+            torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(lib, fn, err)
+    return out
 
 
 def conv3x3_s1(x: torch.Tensor, w: torch.Tensor, *,
@@ -509,19 +601,13 @@ def conv3x3_s1_bnrelu_in(x: torch.Tensor, w: torch.Tensor,
 
 def conv3x3_s1_pairs(x: torch.Tensor, w2: torch.Tensor, *,
                      out_dtype: torch.dtype) -> torch.Tensor:
-    """Launch the output-column-pair conv of ``csrc/conv3x3.cu`` on
-    contiguous CUDA tensors x (N, H, W, Cin), W even, and the fused weights
-    w2 (3, 4, Cin, 2·Cout) of ``fuse_pair_weights``. Returns (N, H, W,
-    Cout) of ``out_dtype``."""
-    fn = "conv3x3_s1_pairs"
-    n, h, wd, cin, cout = _check_conv(fn, x, w2, 4, 2, out_dtype)
-    if wd % 2:
-        raise ValueError(f"{fn}: W={wd} must be even")
-    lib = build()["conv3x3.cu"]
-    out = _conv_out(fn, lib, lib.dcnn_conv3x3_pairs, x, cout, out_dtype,
-                    lambda out: (
-        x.data_ptr(), w2.data_ptr(), out, n, h, wd, cin, cout,
-        int(x.dtype == torch.bfloat16), int(out_dtype == torch.bfloat16)))
+    """Launch the output-column-pair form of ``csrc/conv3x3_tc.cu`` on
+    contiguous CUDA tensors x (N, H, W, Cin), W even, and fused weights w2
+    (3, 4, Cin, 2·Cout), read as given (all 12 taps and 2·Cout lanes; any
+    w2, not only ``fuse_pair_weights``'). Returns (N, H, W, Cout) of
+    ``out_dtype``."""
+    out = _launch_conv("conv3x3_s1_pairs", x, w2, None, None, out_dtype,
+                       pairs=True)
     conv3x3_s1_pairs.launches += 1
     return out
 

@@ -69,12 +69,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _online_softmax(q, k, v, *, causal: bool, block_kv: int, scale: float,
-                    mask: Optional[torch.Tensor]
+                    mask: Optional[torch.Tensor], round_p: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Online softmax over K/V tiles of ``block_kv`` keys; never holds the
     (Sq, Sk) score matrix. Running state (acc, m, l) is at least fp32
-    whatever the input dtype. Returns (O in q's dtype, logsumexp (B, H, Sq)
-    in the state dtype). Fully-masked rows give O = 0."""
+    whatever the input dtype. ``round_p``: P is rounded to V's dtype before
+    P·V (l sums it before), as the flash kernels do. Returns (O in q's
+    dtype, logsumexp (B, H, Sq) in the state dtype). Fully-masked rows give
+    O = 0."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     acc_dt = torch.promote_types(q.dtype, torch.float32)
@@ -103,6 +105,8 @@ def _online_softmax(q, k, v, *, causal: bool, block_kv: int, scale: float,
             p = p.masked_fill(~allowed, 0.0)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
+        if round_p:
+            p = p.to(v.dtype).to(acc_dt)
         acc = acc * corr[..., None] + torch.matmul(p, vf[:, :, start:end])
         m = m_new
     l_fin = torch.clamp_min(l, 1e-30)
@@ -136,13 +140,13 @@ def flash_forward_reference(q: torch.Tensor, k: torch.Tensor,
                             block_kv: int = 512
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the flash forward kernel: the same online
-    softmax over kv tiles, fp32 state, returning (O, logsumexp (B, H, Sq)
-    fp32). The CPU path and the tests use it; ``chip_smoke.py`` holds the
-    kernel against it on the card."""
+    softmax over kv tiles, fp32 state, P rounded to V's dtype before P·V,
+    returning (O, logsumexp (B, H, Sq) fp32). The CPU path and the tests
+    use it; ``chip_smoke.py`` holds the kernel against it on the card."""
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return _online_softmax(q, k, v, causal=causal, block_kv=block_kv,
-                           scale=float(scale), mask=None)
+                           scale=float(scale), mask=None, round_p=True)
 
 
 def _check_qkv(q, k, v) -> None:

@@ -13,7 +13,8 @@ first 132 blocks: the multiplying warps waiting for a halo tile
 products (``mma``), loading A (``load_a``, which includes ``wait_halo``),
 the epilogue, the whole loop (``total``); the BN prologue's warps waiting
 for (or, by cp.async, making) a copy (``pro_wait``) and applying it
-(``prologue``). The counters cost a few percent of the kernel's time. The
+(``prologue``). The pairs form (``pairs``) runs the same counters over its
+12-tap units. The counters cost a few percent of the kernel's time. The
 public wrappers never launch that build.
 
 Spills: disassembles the library the wrappers launch (``cuobjdump -sass``)
@@ -46,6 +47,10 @@ CASES = [  # kind, (N, H, W, Cin, Cout), dtype name
     ("conv", (32, 4, 4, 512, 512), "bfloat16"),
     ("conv", (32, 32, 32, 64, 64), "float32"),
     ("conv", (32, 4, 4, 512, 512), "float32"),
+    # the pairs form (fused weights, 12 taps): the bench shape and layer1
+    ("pairs", (256, 64, 64, 64, 64), "bfloat16"),
+    ("pairs", (32, 32, 32, 64, 64), "bfloat16"),
+    ("pairs", (32, 32, 32, 64, 64), "float32"),
 ]
 
 
@@ -54,6 +59,7 @@ def stage_counts() -> None:
     import torch
 
     from dcnn_tpu_torch.ops import _kernels
+    from dcnn_tpu_torch.ops.pallas.conv import fuse_pair_weights
 
     lib = _kernels.build(extra=(_kernels.CONV_TC_TRACE,))[
         _kernels.CONV_TC_TRACE]
@@ -67,15 +73,19 @@ def stage_counts() -> None:
               * 0.05).to(dt)
         sc = torch.rand(cin, device="cuda", generator=gen) + 0.5
         sh = torch.randn(cin, device="cuda", generator=gen) * 0.1
-        bn = kind == "bn"
+        bn, pairs = kind == "bn", kind == "pairs"
+        if pairs:
+            wt = fuse_pair_weights(wt)
         for _ in range(2):  # the second run's counts
             lib.dcnn_conv3x3_tc_trace(counts.ctypes.data)
             _kernels._launch_conv("conv_tc_stages", x, wt, sc if bn else None,
                                   sh if bn else None, dt,
-                                  lib_name=_kernels.CONV_TC_TRACE)
+                                  lib_name=_kernels.CONV_TC_TRACE,
+                                  pairs=pairs)
             torch.cuda.synchronize()
         lib.dcnn_conv3x3_tc_trace(counts.ctypes.data)
-        plan = _kernels.conv_plan(n, h, w, cin, cout, dt, sms, prologue=bn)
+        plan = _kernels.conv_plan(n, h, w, cin, cout, dt, sms, prologue=bn,
+                                  pairs=pairs)
         works = plan.tiles_m * plan.tiles_n * plan.ksplit
         per = counts[:min(sms, works)].mean(0) / max(1.0, works / sms)
         print(f"{kind} {(n, h, w, cin, cout)} {dtn} [{plan.describe()}]: "

@@ -2,9 +2,10 @@
 // (sm_90a: TMA, mbarriers, wgmma), with a plain C interface bound from
 // Python through ctypes (dcnn_tpu_torch/ops/_kernels.py).
 //
-// Replaces two Pallas TPU kernels of dcnn_tpu/ops/pallas/conv.py:
-//   _conv3x3_kernel     (conv3x3_s1, called at :82)            -> conv_tc_kernel, no scale
-//   _conv3x3_bn_kernel  (conv3x3_s1_bnrelu_in, called at :209) -> conv_tc_kernel with scale, shift
+// Replaces three Pallas TPU kernels of dcnn_tpu/ops/pallas/conv.py:
+//   _conv3x3_kernel        (conv3x3_s1, called at :82)            -> conv_tc_kernel<.., 9>, no scale
+//   _conv3x3_pairs_kernel  (conv3x3_s1_pairs, called at :173)     -> conv_tc_kernel<.., 12>
+//   _conv3x3_bn_kernel     (conv3x3_s1_bnrelu_in, called at :209) -> conv_tc_kernel<.., 9> with scale, shift
 // Same functions: x (N, H, W, Cin) NHWC, weights HWIO (3, 3, Cin, Cout),
 // the output (N, H, W, Cout) the sum over the 9 taps of the zero-padded
 // input shifted by the tap times the tap's (Cin, Cout) weights, accumulated
@@ -12,6 +13,17 @@
 // real input cell to relu(x * scale + shift) in fp32 (no FMA contraction,
 // as the plain version computes it) and rounds that to x's type; halo cells
 // stay 0, not relu(shift).
+//
+// The pairs form computes the same conv as a product of output-column
+// pairs with the fused weights w2 (3, 4, Cin, 2 Cout) of fuse_pair_weights:
+// out[n, i, 2p + c, o] = sum over r < 3, j < 4, ci of xpad[n, i + r, 2p + j,
+// ci] * w2[r, j, ci, c Cout + o]. It reads w2 as given, all 12 taps and all
+// 2 Cout lanes, zero blocks included, so it is right for any w2 and a
+// wrong w2 layout shows. It is the same kernel with TAPS = 12: an output
+// column is a pair (the tile's halo box is 2 tw + 2 input columns wide and
+// tap (r, j) of pair p reads halo column 2p + j), its channels are the 2
+// Cout lanes, and its output (n, h, w/2, 2 Cout) is (n, h, w, Cout) in
+// memory, so any split of the lanes into Cout tiles stores correctly.
 //
 // Design. The GEMM is M = output pixels, N = Cout, K = 9 taps x Cin. An
 // output tile is 128 MW pixels, b images x th rows x tw columns (small
@@ -67,10 +79,9 @@
 // reaches about half of that: ops/conv_tc_stages.py shows each unit's
 // A loads, barrier waits and weight stage hand-over beside its products.
 
-#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 // The tile format is defined once, in _kernels.py (TILE_FORMAT), which plans
 // the tiling and passes it to this build as -D flags.
@@ -88,7 +99,6 @@ static_assert(kTileM == 128 && kRow == 128,
               "two 64-row wgmma slabs a tile; rows in the 128-byte swizzle");
 constexpr int kMaxHStages = 3;       // halo ring: 3 stages where they fit, else 2
 constexpr int kMaxWStages = 9;       // weight ring: as many stages as fit, up to 9
-constexpr int kSmemMax = 232448;     // a block's dynamic shared memory on sm_90
 
 template <typename T>
 struct Traits;
@@ -120,12 +130,14 @@ struct Params {
   const float* shift;
   void* out;           // (n, h, w, cout), bf16 if out_bf16 else fp32
   float* ws;           // K split: fp32 partial sums (ksplit, n h w, cout)
-  int n, h, w, cin, cout;
-  int b, th, tw;       // tile: b images x th rows x tw columns = 128 pixels
+  int n, h, w, cin, cout;  // the output (n, h, w, cout): pairs: (n, h, wi / 2, 2 cout)
+  int wi;              // the input's width: w, or 2 w in pairs
+  int b, th, tw;       // tile: b images x th rows x tw output columns (pairs) = 128
+  int step, hw;        // input columns per output column (1, pairs 2); halo width step tw + 2
   int tiles_x, tiles_y, tiles_n;
-  int units, ksplit, works;  // units = 9 x Cin chunks
+  int units, ksplit, works;  // units = taps (9, pairs 12) x Cin chunks
   int cout_pad;        // packed weight rows per (tap, part)
-  int halo_rows;       // b (th+2)(tw+2)
+  int halo_rows;       // b (th+2) hw
   int hst, wst;        // stages of the halo and weight rings
   int obytes;          // the output tile staged for TMA stores, or 0: direct stores
   int copy;            // 0: halo by TMA; else cp.async (plain for 2) unit in bytes
@@ -181,7 +193,8 @@ __device__ __forceinline__ Work decode(const Params& p, int work) {
 }
 
 // Walks this block's units in order: work items blockIdx.x, + gridDim.x,
-// ..., and within each its units u0 .. u1-1
+// ..., and within each its units u0 .. u1-1 (TAPS units a Cin chunk)
+template <int TAPS>
 struct Cursor {
   int work, u;
   Work k;
@@ -197,54 +210,9 @@ struct Cursor {
   // the next unit that starts a halo tile: a work item's first, or tap 0
   __device__ void next_halo(const Params& p) {
     do next(p);
-    while (!done(p) && u != k.u0 && u % 9 != 0);
+    while (!done(p) && u != k.u0 && u % TAPS != 0);
   }
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// has the phase of this parity completed? (does not wait)
-__device__ __forceinline__ bool mbar_test(uint64_t* bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(smem_u32(bar)), "r"(parity)
-      : "memory");
-  return done;
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-  } while (!done);
-}
 
 template <int G>
 __device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src, bool ok) {
@@ -252,25 +220,6 @@ __device__ __forceinline__ void cp_async_zfill(uint32_t dst, const void* src, bo
   asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;" ::"r"(dst), "l"(src), "n"(G),
                "r"(n)
                : "memory");
-}
-
-__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4}], [%2];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1)
-      : "memory");
 }
 
 // smem -> global; the copy clips what lies outside the tensor
@@ -296,30 +245,6 @@ __device__ __forceinline__ void ldsm_x4(uint32_t* r, uint32_t addr) {
                : "r"(addr));
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float f) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(f));
-  return r;
-}
-
-// K-major operand in 128-byte-swizzled rows of 128 bytes, 8-row groups
-// 1024 bytes apart (the leading offset is unused in this layout)
-__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) | ((uint64_t)(1024 >> 4) << 32) |
-         ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;" ::: "memory"); }
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait1() {
-  asm volatile("wgmma.wait_group.sync.aligned 1;" ::: "memory");
-}
-
 // the accumulators live and in place across the asynchronous products
 template <int MW, int N>
 __device__ __forceinline__ void fence_acc(float (&d)[MW][N]) {
@@ -328,51 +253,6 @@ __device__ __forceinline__ void fence_acc(float (&d)[MW][N]) {
 #pragma unroll
     for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[s][i])::"memory");
 }
-
-// wgmma with A (64 x K, this warp's 16 rows) in registers and B (BN x K)
-// K-major in shared memory; D += A * B^T in fp32
-template <int BN>
-struct Mma;
-template <> struct Mma<64> {
-  static __device__ __forceinline__ void bf16(float* d, const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-  static __device__ __forceinline__ void tf32(float* d, const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
-template <> struct Mma<128> {
-  static __device__ __forceinline__ void bf16(float* d, const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-  static __device__ __forceinline__ void tf32(float* d, const uint32_t* a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-  }
-};
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -383,13 +263,13 @@ __device__ __forceinline__ void from_f32(__nv_bfloat16* p, float v) { *p = __flo
 struct Halo {
   int img, iy, ix;
   __device__ __forceinline__ bool inside(const Params& p) const {
-    return img < p.n && iy >= 0 && iy < p.h && ix >= 0 && ix < p.w;
+    return img < p.n && iy >= 0 && iy < p.h && ix >= 0 && ix < p.wi;
   }
 };
 __device__ __forceinline__ Halo halo_cell(const Params& p, const Work& k, int row) {
-  const int hw2 = (p.th + 2) * (p.tw + 2), rr = row % hw2;
-  return {k.tb * p.b + row / hw2, k.ty * p.th + rr / (p.tw + 2) - 1,
-          k.tx * p.tw + rr % (p.tw + 2) - 1};
+  const int hw2 = (p.th + 2) * p.hw, rr = row % hw2;
+  return {k.tb * p.b + row / hw2, k.ty * p.th + rr / p.hw - 1,
+          k.tx * (p.hw - 2) + rr % p.hw - 1};
 }
 
 // The halo box of chunk `chunk` without TMA, in the 128-byte swizzle TMA
@@ -417,7 +297,7 @@ __device__ void stage_halo(const Params& p, const Work& k, uint8_t* dst, int chu
       v[q][0] = v[q][1] = v[q][2] = v[q][3] = 0;
       const Halo c = halo_cell(p, k, row);
       if (i >= cells || ch >= p.cin || !c.inside(p)) continue;
-      const T* src = x + (((size_t)c.img * p.h + c.iy) * p.w + c.ix) * p.cin + ch;
+      const T* src = x + (((size_t)c.img * p.h + c.iy) * p.wi + c.ix) * p.cin + ch;
       if constexpr (G >= 4) {
 #pragma unroll
         for (int j = 0; j < 16 / G; ++j)  // a unit is all inside Cin or all beyond
@@ -475,23 +355,26 @@ __device__ void bn_prologue(const Params& p, const Work& k, uint8_t* tile, int c
     sc[e] = ch0 + e < p.cin ? __ldg(p.scale + ch0 + e) : 0.f;
     sh[e] = ch0 + e < p.cin ? __ldg(p.shift + ch0 + e) : 0.f;
   }
-  const int step = nthr >> 3, wd2 = p.tw + 2, hd2 = p.th + 2;
-  const int img0 = k.tb * p.b, y0 = k.ty * p.th - 1, x0 = k.tx * p.tw - 1;
+  // the loop's bounds in registers, and the test for a cell inside the
+  // image without branches (unsigned compares take the lower bounds too)
+  const int step = nthr >> 3, wd2 = p.hw, hd2 = p.th + 2, rows = p.halo_rows;
+  const int img_end = p.n - k.tb * p.b, y0 = k.ty * p.th - 1, x0 = k.tx * (p.hw - 2) - 1;
+  const unsigned h = p.h, wi = p.wi;
   int row = ptid >> 3, xi = row % wd2, yi = (row / wd2) % hd2, bi = row / (wd2 * hd2);
   auto inside = [&]() {
-    return img0 + bi < p.n && y0 + yi >= 0 && y0 + yi < p.h && x0 + xi >= 0 && x0 + xi < p.w;
+    return (bi < img_end) & ((unsigned)(y0 + yi) < h) & ((unsigned)(x0 + xi) < wi);
   };
   auto advance = [&]() {
     row += step;
     for (xi += step; xi >= wd2; xi -= wd2)
       if (++yi == hd2) yi = 0, ++bi;
   };
-  while (row < p.halo_rows) {
+  while (row < rows) {
     const int row1 = row;
     const bool in1 = inside();
     advance();
     const int row2 = row;
-    const bool in2 = row2 < p.halo_rows && inside();
+    const bool in2 = (row2 < rows) & inside();
     advance();
     uint4* c1 = reinterpret_cast<uint4*>(tile + row1 * kRow + ((lc ^ (row1 & 7)) << 4));
     uint4* c2 = reinterpret_cast<uint4*>(tile + row2 * kRow + ((lc ^ (row2 & 7)) << 4));
@@ -521,7 +404,8 @@ struct Frag<__nv_bfloat16> {
 #pragma unroll
     for (int k = 0; k < 4; ++k)
 #pragma unroll
-      for (int s = 0; s < MW; ++s) Mma<BN>::bf16(acc[s], a[s][k], desc_sw128(w + 32 * k));
+      for (int s = 0; s < MW; ++s)
+        Wgmma<BN>::template rs_bf16<0>(acc[s], a[s][k], desc_sw128(w + 32 * k));
   }
   template <int MW>
   __device__ __forceinline__ void hold(uint32_t (&a)[MW][4][4]) {
@@ -552,9 +436,9 @@ struct Frag<float> {
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
       const uint64_t bhi = desc_sw128(w + 32 * k), blo = desc_sw128(w + BN * kRow + 32 * k);
-      Mma<BN>::tf32(acc[0], lo[k], bhi);
-      Mma<BN>::tf32(acc[0], hi[k], blo);
-      Mma<BN>::tf32(acc[0], hi[k], bhi);
+      Wgmma<BN>::rs_tf32(acc[0], lo[k], bhi);
+      Wgmma<BN>::rs_tf32(acc[0], hi[k], blo);
+      Wgmma<BN>::rs_tf32(acc[0], hi[k], bhi);
     }
   }
   template <int MW>
@@ -662,7 +546,7 @@ __device__ __forceinline__ void epilogue_tma(uint8_t* ostage, const CUtensorMap*
   }
 }
 
-template <typename T, int BN, int MW>
+template <typename T, int BN, int MW, int TAPS>
 __global__ void __launch_bounds__(kThreads, 1)
     conv_tc_kernel(const __grid_constant__ CUtensorMap xmap,
                    const __grid_constant__ CUtensorMap wmap,
@@ -680,7 +564,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* empty_h = ready_h + kMaxHStages;
   uint64_t* full_w = empty_h + kMaxHStages;
   uint64_t* empty_w = full_w + kMaxWStages;
-  const bool tma = p.copy == 0, bn = p.scale != nullptr;
+  constexpr int kCols = TAPS / 3;  // taps a kernel row: 3, or 4 input columns a pair
+  // the BN prologue exists only for the plain conv
+  const bool tma = p.copy == 0, bn = TAPS == 9 && p.scale != nullptr;
   const int tid = threadIdx.x;
   if (tid == 0) {
     for (int s = 0; s < p.hst; ++s) {
@@ -709,7 +595,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       // One thread issues every TMA: the weights, one (chunk, tap) tile per
       // stage, and (with TMA staging) the halo tiles, each as soon as its
       // ring has a free stage; two cursors walk the same units.
-      Cursor hc(p), wc(p);
+      Cursor<TAPS> hc(p), wc(p);
       int hs = 0, hph = 0, ws = 0, wph = 0;
       if (!tma) hc.work = p.works;  // warps 1-3 stage the halo
       while (!hc.done(p) || !wc.done(p)) {
@@ -719,7 +605,7 @@ __global__ void __launch_bounds__(kThreads, 1)
           asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
           mbar_expect_tx(full_h + hs, p.halo_rows * kRow);
           tma_load_4d(smem_u32(halo + hs * halo_bytes), &xmap, full_h + hs,
-                      hc.u / 9 * Tr::kChunk, hc.k.tx * p.tw - 1, hc.k.ty * p.th - 1,
+                      hc.u / TAPS * Tr::kChunk, hc.k.tx * (p.hw - 2) - 1, hc.k.ty * p.th - 1,
                       hc.k.tb * p.b);
           if (++hs == p.hst) hs = 0, hph ^= 1;
           hc.next_halo(p);
@@ -731,8 +617,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
           for (int part = 0; part < Tr::kParts; ++part)
             tma_load_2d(smem_u32(dst + part * BN * kRow), &wmap, full_w + ws,
-                        wc.u / 9 * Tr::kChunk,
-                        (wc.u % 9 * Tr::kParts + part) * p.cout_pad + wc.k.nt * BN);
+                        wc.u / TAPS * Tr::kChunk,
+                        (wc.u % TAPS * Tr::kParts + part) * p.cout_pad + wc.k.nt * BN);
           if (++ws == p.wst) ws = 0, wph ^= 1;
           wc.next(p);
           idle = false;
@@ -750,16 +636,16 @@ __global__ void __launch_bounds__(kThreads, 1)
     // by cp.async with Cin in one chunk, the cells beyond Cin are the same
     // zeros in every tile: zero every stage once, then stage the rest
     int cols = 8;
-    if (!tma && p.units == 9) {
+    if (!tma && p.units == TAPS) {
       cols = (p.cin * (int)sizeof(T) + 15) / 16;
       for (int i = htid; i < p.hst * halo_bytes / 16; i += 96)
         asm volatile("st.shared.v4.u32 [%0], {%1, %1, %1, %1};" ::"r"(smem_u32(halo) + 16 * i),
                      "r"(0));
       asm volatile("bar.sync 1, 96;" ::: "memory");
     }
-    for (Cursor hc(p); !hc.done(p); hc.next_halo(p)) {
+    for (Cursor<TAPS> hc(p); !hc.done(p); hc.next_halo(p)) {
       const Work& k = hc.k;
-      const int chunk = hc.u / 9;
+      const int chunk = hc.u / TAPS;
       uint8_t* dst = halo + hs * halo_bytes;
       clk.start();
       if (tma) {
@@ -796,12 +682,14 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int tpix = p.th * p.tw;
   const int khalf = lane >> 4;
   // this lane's ldmatrix row in each slab (rows 0-15 of the warp's 16, K
-  // half lane/16), as a halo row at tap (0, 0)
+  // half lane/16), as a halo row at tap (0, 0): output column c reads
+  // input columns step c - 1 .. step c + kCols - 2
   int hrow0[MW];
 #pragma unroll
   for (int s = 0; s < MW; ++s) {
     const int lrow = 64 * (MW * wg + s) + 16 * warp + (lane & 7) + ((lane >> 3) & 1) * 8;
-    hrow0[s] = ((lrow / tpix) * (p.th + 2) + (lrow % tpix) / p.tw) * (p.tw + 2) + lrow % p.tw;
+    hrow0[s] = ((lrow / tpix) * (p.th + 2) + (lrow % tpix) / p.tw) * p.hw +
+               p.step * (lrow % p.tw);
   }
   const size_t plane = (size_t)p.n * p.h * p.w;
   float acc[MW][BN / 2];
@@ -816,18 +704,18 @@ __global__ void __launch_bounds__(kThreads, 1)
   const long long t_loop = clock64();
 #endif
 
-  // ldmatrix the warp's 16 rows of unit u (chunk u / 9 at tap u % 9) from
+  // ldmatrix the warp's 16 rows of unit u (chunk u / TAPS at tap u % TAPS) from
   // its halo tile; release the tile after its last tap
   auto load_a = [&](const Work& k, int u, uint32_t(&a)[MW][4][4]) {
     clk.start(1);
-    const int tap = u % 9;
+    const int tap = u % TAPS;
     if (u == k.u0 || tap == 0) {
       clk.start();
       mbar_wait(ready + hs, hph);
       clk.add(0);
       hbase = smem_u32(halo + hs * halo_bytes);
     }
-    const int shift = (tap / 3) * (p.tw + 2) + tap % 3;
+    const int shift = (tap / kCols) * p.hw + tap % kCols;
 #pragma unroll
     for (int s = 0; s < MW; ++s) {
       const int hrow = hrow0[s] + shift;
@@ -836,7 +724,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int k4 = 0; k4 < 4; ++k4)
         ldsm_x4(a[s][k4], arow + (((2 * k4 + khalf) ^ (hrow & 7)) << 4));
     }
-    if (u == k.u1 - 1 || tap == 8) {
+    if (u == k.u1 - 1 || tap == TAPS - 1) {
       __syncwarp();
       if (lane == 0) mbar_arrive(empty_h + hs);
       if (++hs == p.hst) hs = 0, hph ^= 1;
@@ -933,9 +821,10 @@ __global__ void splitk_reduce(const float* __restrict__ ws, TO* __restrict__ out
   }
 }
 
-// HWIO (3, 3, cin, cout) -> K-major rows ((tap * parts + part) * cout_pad +
-// n, kp): zero beyond Cin and Cout; fp32 as tf32 hi (part 0) and lo (part
-// 1). One block transposes a 32 x 32 (Cin, Cout) tile of one tap through
+// (3, taps / 3, cin, cout) -> K-major rows ((tap * parts + part) *
+// cout_pad + n, kp): zero beyond Cin and Cout; fp32 as tf32 hi (part 0) and
+// lo (part 1). The conv's HWIO weights have 9 taps, the pairs form's fused
+// weights 12, their lanes as cout. One block transposes a 32 x 32 (Cin, Cout) tile of one tap through
 // shared memory, so reads and writes are both coalesced.
 template <typename T>
 __global__ void __launch_bounds__(256) pack_weights(const T* __restrict__ w, T* __restrict__ wp,
@@ -964,75 +853,36 @@ __global__ void __launch_bounds__(256) pack_weights(const T* __restrict__ w, T* 
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, fetched once through the runtime
-// (nothing links libcuda)
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-#if CUDART_VERSION >= 12050
-    cudaDriverEntryPointQueryResult q;
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
-                                         cudaEnableDefault, &q) == cudaSuccess &&
-        q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault) ==
-        cudaSuccess)
-      fn = reinterpret_cast<EncodeTiled>(ptr);
-#endif
-  }
-  return fn;
-}
-
-// a tensor map with the 128-byte swizzle and zero out-of-bounds fill;
-// dims and box innermost first, strides in bytes (rank - 1 of them)
-bool encode(CUtensorMap* map, bool bf16, int rank, const void* ptr, const cuuint64_t* dims,
-            const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiled fn = encoder();
-  if (fn == nullptr) return false;
-  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  return fn(map, bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32, rank,
-            const_cast<void*>(ptr), dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 int grid_for(long long count) {
   return (int)((count + 255) / 256 < 4096 ? (count + 255) / 256 : 4096);
 }
 
-template <typename T, int BN, int MW>
+template <typename T, int BN, int MW, int TAPS>
 cudaError_t launch(Params p, const void* w, void* wpack, int kp, int sms, cudaStream_t s) {
   using Tr = Traits<T>;
   constexpr bool kBf16 = sizeof(T) == 2;
   static bool raised = false;  // once per instantiation, never inside a graph capture
-  const auto kernel = conv_tc_kernel<T, BN, MW>;
+  const auto kernel = conv_tc_kernel<T, BN, MW, TAPS>;
   if (!raised) {
     const cudaError_t err =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (err != cudaSuccess) return err;
     raised = true;
   }
-  pack_weights<T><<<dim3(kp / 32, p.cout_pad / 32, 9), 256, 0, s>>>(
+  pack_weights<T><<<dim3(kp / 32, p.cout_pad / 32, TAPS), 256, 0, s>>>(
       static_cast<const T*>(w), static_cast<T*>(wpack), p.cin, p.cout, kp, p.cout_pad);
   CUtensorMap xmap = {}, wmap = {};
   const int es = (int)sizeof(T);
   if (p.copy == 0) {
-    const cuuint64_t dims[4] = {(cuuint64_t)p.cin, (cuuint64_t)p.w, (cuuint64_t)p.h,
+    const cuuint64_t dims[4] = {(cuuint64_t)p.cin, (cuuint64_t)p.wi, (cuuint64_t)p.h,
                                 (cuuint64_t)p.n};
-    const cuuint64_t strides[3] = {(cuuint64_t)p.cin * es, (cuuint64_t)p.w * p.cin * es,
-                                   (cuuint64_t)p.h * p.w * p.cin * es};
-    const cuuint32_t box[4] = {(cuuint32_t)Tr::kChunk, (cuuint32_t)p.tw + 2,
+    const cuuint64_t strides[3] = {(cuuint64_t)p.cin * es, (cuuint64_t)p.wi * p.cin * es,
+                                   (cuuint64_t)p.h * p.wi * p.cin * es};
+    const cuuint32_t box[4] = {(cuuint32_t)Tr::kChunk, (cuuint32_t)p.hw,
                                (cuuint32_t)p.th + 2, (cuuint32_t)p.b};
     if (!encode(&xmap, kBf16, 4, p.x, dims, strides, box)) return cudaErrorInvalidValue;
   }
-  const cuuint64_t wdims[2] = {(cuuint64_t)kp, (cuuint64_t)9 * Tr::kParts * p.cout_pad};
+  const cuuint64_t wdims[2] = {(cuuint64_t)kp, (cuuint64_t)TAPS * Tr::kParts * p.cout_pad};
   const cuuint64_t wstrides[1] = {(cuuint64_t)kp * es};
   const cuuint32_t wbox[2] = {(cuuint32_t)Tr::kChunk, (cuuint32_t)BN};
   if (!encode(&wmap, kBf16, 2, wpack, wdims, wstrides, wbox)) return cudaErrorInvalidValue;
@@ -1084,28 +934,34 @@ cudaError_t launch(Params p, const void* w, void* wpack, int kp, int sms, cudaSt
 
 extern "C" {
 
-// x: contiguous (n, h, wd, cin); w: contiguous (3, 3, cin, cout), both fp32
-// (in_bf16 = 0) or bf16 (in_bf16 = 1). out: contiguous (n, h, wd, cout)
-// fp32 (out_bf16 = 0) or bf16. scale, shift: contiguous (cin,) fp32 for the
-// BN prologue, or both null. The plan (_kernels.conv_plan): tile b x th x
-// tw (128 pixels, or 256 for bf16), Cout tile bn (64 or 128), K split ksplit, copy 0 (the
-// halo by TMA: cin * sizeof(T) and x 16-byte aligned) or the cp.async unit
-// in bytes (8, 4; 2 = plain loads, bf16 only). wpack: scratch for the
-// packed weights, 9 * parts * cout_pad * kp elements of x's type (parts 1
-// for bf16, 2 for fp32; cout_pad = bn * ceil(cout / bn); kp = chunk *
-// ceil(cin / chunk), chunk 64 for bf16 and 32 for fp32). ws: fp32 scratch
-// of ksplit * n * h * wd * cout for ksplit > 1, else null. sms: the
-// persistent grid's size. Returns the launches' cudaError_t (0 = queued).
+// x: contiguous (n, h, wd, cin); w: contiguous (3, 3, cin, cout), or with
+// pairs = 1 the fused weights (3, 4, cin, 2 cout) of fuse_pair_weights and
+// wd even; both fp32 (in_bf16 = 0) or bf16 (in_bf16 = 1). out: contiguous
+// (n, h, wd, cout) fp32 (out_bf16 = 0) or bf16. scale, shift: contiguous
+// (cin,) fp32 for the BN prologue, or both null (always null in pairs). The
+// plan (_kernels.conv_plan): tile b x th x tw output columns (pixels, or
+// pairs of pixels in pairs; 128 of them, or 256 for the bf16 conv), bn (64
+// or 128) of the cout output channels (pairs: of the 2 cout lanes), K split
+// ksplit, copy 0 (the halo by TMA: cin * sizeof(T) and x 16-byte aligned) or
+// the cp.async unit in bytes (8, 4; 2 = plain loads, bf16 only). wpack:
+// scratch for the packed weights, taps * parts * cout_pad * kp elements of
+// x's type (taps 9, pairs 12; parts 1 for bf16, 2 for fp32; cout_pad = bn *
+// ceil(lanes / bn), lanes cout or pairs 2 cout; kp = chunk * ceil(cin /
+// chunk), chunk 64 for bf16 and 32 for fp32). ws: fp32 scratch of ksplit *
+// n * h * wd * cout for ksplit > 1, else null. sms: the persistent grid's
+// size. Returns the launches' cudaError_t (0 = queued).
 int dcnn_conv3x3_tc(const void* x, const void* w, const void* scale, const void* shift, void* out,
                     void* wpack, void* ws, int n, int h, int wd, int cin, int cout, int b, int th,
-                    int tw, int bn, int ksplit, int copy, int in_bf16, int out_bf16, int sms,
-                    void* stream) {
+                    int tw, int bn, int ksplit, int copy, int in_bf16, int out_bf16, int pairs,
+                    int sms, void* stream) {
   const int es = in_bf16 ? 2 : 4, chunk = kRow / es;
   const int chunks = (cin + chunk - 1) / chunk;
-  const long long units = 9LL * chunks;
-  const long long rows = (long long)b * (th + 2) * (tw + 2);
-  // 128 pixels a tile (one 64-row slab per multiplying warpgroup) or, bf16
-  // only, 256 (two)
+  const int taps = pairs ? 12 : 9, step = pairs ? 2 : 1;
+  const long long units = (long long)taps * chunks;
+  const long long hw = (long long)step * tw + 2;
+  const long long rows = (long long)b * (th + 2) * hw;
+  // 128 output columns a tile (one 64-row slab per multiplying warpgroup)
+  // or, for the bf16 conv only, 256 (two)
   const int mw = b * th * tw == kTileM ? 1 : b * th * tw == 2 * kTileM ? 2 : 0;
   const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
   const bool copy_ok =
@@ -1113,8 +969,10 @@ int dcnn_conv3x3_tc(const void* x, const void* w, const void* scale, const void*
                 : (copy == 8 || copy == 4 || (copy == 2 && in_bf16)) &&
                       (cin * es) % copy == 0 && xa % copy == 0;
   if (n < 1 || h < 1 || wd < 1 || cin < 1 || cout < 1 || b < 1 || th < 1 || tw < 1 ||
-      (mw != 1 && !(mw == 2 && in_bf16)) || rows > kMaxHaloRows || tw + 2 > 256 || th + 2 > 256 || b > 256 ||
-      (bn != 64 && bn != 128) || ksplit < 1 || ksplit > units || units * ksplit > 0x7fffffff || (ksplit > 1) != (ws != nullptr) ||
+      (pairs != 0 && pairs != 1) || (pairs && (wd % 2 || scale != nullptr)) ||
+      (mw != 1 && !(mw == 2 && in_bf16 && !pairs)) || rows > kMaxHaloRows || hw > 256 ||
+      th + 2 > 256 || b > 256 || (bn != 64 && bn != 128) || ksplit < 1 || ksplit > units ||
+      units * ksplit > 0x7fffffff || (ksplit > 1) != (ws != nullptr) ||
       (scale == nullptr) != (shift == nullptr) || !copy_ok || sms < 1)
     return cudaErrorInvalidValue;
   Params p;
@@ -1123,11 +981,12 @@ int dcnn_conv3x3_tc(const void* x, const void* w, const void* scale, const void*
   p.shift = static_cast<const float*>(shift);
   p.out = out;
   p.ws = static_cast<float*>(ws);
-  p.n = n, p.h = h, p.w = wd, p.cin = cin, p.cout = cout;
-  p.b = b, p.th = th, p.tw = tw;
-  p.tiles_x = (wd + tw - 1) / tw;
+  // pairs: the output (n, h, wd, cout) as (n, h, wd / 2, 2 cout), the same memory
+  p.n = n, p.h = h, p.w = wd / step, p.wi = wd, p.cin = cin, p.cout = cout * step;
+  p.b = b, p.th = th, p.tw = tw, p.step = step, p.hw = (int)hw;
+  p.tiles_x = (p.w + tw - 1) / tw;
   p.tiles_y = (h + th - 1) / th;
-  p.tiles_n = (cout + bn - 1) / bn;
+  p.tiles_n = (p.cout + bn - 1) / bn;
   p.units = (int)units;
   p.ksplit = ksplit;
   const long long works =
@@ -1141,14 +1000,20 @@ int dcnn_conv3x3_tc(const void* x, const void* w, const void* scale, const void*
   const int kp = chunks * chunk;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   using BF = __nv_bfloat16;
+  if (pairs && in_bf16)
+    return static_cast<int>(bn == 64 ? launch<BF, 64, 1, 12>(p, w, wpack, kp, sms, s)
+                                     : launch<BF, 128, 1, 12>(p, w, wpack, kp, sms, s));
+  if (pairs)
+    return static_cast<int>(bn == 64 ? launch<float, 64, 1, 12>(p, w, wpack, kp, sms, s)
+                                     : launch<float, 128, 1, 12>(p, w, wpack, kp, sms, s));
   if (in_bf16 && mw == 2)
-    return static_cast<int>(bn == 64 ? launch<BF, 64, 2>(p, w, wpack, kp, sms, s)
-                                     : launch<BF, 128, 2>(p, w, wpack, kp, sms, s));
+    return static_cast<int>(bn == 64 ? launch<BF, 64, 2, 9>(p, w, wpack, kp, sms, s)
+                                     : launch<BF, 128, 2, 9>(p, w, wpack, kp, sms, s));
   if (in_bf16)
-    return static_cast<int>(bn == 64 ? launch<BF, 64, 1>(p, w, wpack, kp, sms, s)
-                                     : launch<BF, 128, 1>(p, w, wpack, kp, sms, s));
-  return static_cast<int>(bn == 64 ? launch<float, 64, 1>(p, w, wpack, kp, sms, s)
-                                   : launch<float, 128, 1>(p, w, wpack, kp, sms, s));
+    return static_cast<int>(bn == 64 ? launch<BF, 64, 1, 9>(p, w, wpack, kp, sms, s)
+                                     : launch<BF, 128, 1, 9>(p, w, wpack, kp, sms, s));
+  return static_cast<int>(bn == 64 ? launch<float, 64, 1, 9>(p, w, wpack, kp, sms, s)
+                                   : launch<float, 128, 1, 9>(p, w, wpack, kp, sms, s));
 }
 
 #ifdef CONV_TC_TRACE

@@ -1,219 +1,596 @@
-// Flash-attention forward for Hopper (sm_90a), with a plain C interface
-// bound from Python through ctypes (dcnn_tpu_torch/ops/_kernels.py).
+// Flash-attention forward on Hopper's tensor cores (sm_90a: TMA, mbarriers,
+// wgmma), with a plain C interface bound from Python through ctypes
+// (dcnn_tpu_torch/ops/_kernels.py).
 //
 // Replaces: dcnn_tpu/ops/attention.py::_flash_kernel, the Pallas TPU kernel
-// behind flash_attention -> _flash_forward. Same function: online softmax
-// over K/V tiles with fp32 running max m, sum l and accumulator; kv padding
-// mask; causal mask with diagonal offset sk - sq, whole kv tiles above the
-// diagonal band skipped; l clamped at 1e-30 so fully-masked rows give 0;
-// logsumexp written as m + log(l).
+// behind flash_attention -> _flash_forward. Same function: S = (Q K^T)
+// scale in fp32; a kv-padding mask and a causal mask with diagonal offset
+// sk - sq; the online softmax with fp32 running max m and sum l; P = exp(S -
+// m), masked, rounded to V's type before P V (l sums P before that
+// rounding); l clamped at 1e-30, so a fully masked row gives O exactly 0;
+// O = acc / l in q's type and logsumexp m + log(l) as (bh, sq) fp32, -1e30
+// for a fully masked row (the backward kernels read it).
 //
-// Design. One block of 256 threads per (batch*head, 64-row q tile). The
-// TPU's sequential kv grid axis becomes a loop inside the block: each
-// iteration stages one 64-key K and V tile in shared memory (as fp32, bf16
-// inputs are widened on load), computes the 64x64 score tile (4x4 outputs
-// per thread), runs the online-softmax update with 4 threads per q row
-// (their max and sum meet through warp shuffles), and adds P.V into the
-// row's accumulator, which those 4 threads hold in registers (D/4 columns
-// each). Q and K rows are padded by one float so column walks hit distinct
-// shared-memory banks. Shared memory is 29 KB at D=16 and 113 KB at D=128;
-// above 48 KB the launch raises the block's dynamic shared-memory limit.
+// Design. One block per (batch*head, tile of q_rows = 64 or 128 q rows),
+// the heaviest causal tiles first. Warpgroup 0 copies, warpgroups 1-2 (one
+// per 64 q rows) multiply. One thread issues every TMA: the Q tile once,
+// then each kv tile's K and V into a ring of up to 4 stages with full/empty
+// mbarriers; the copy's out-of-bounds zero fill covers ragged Sq, Sk and D.
+// Rows of D land as 128-byte chunks in the 128-byte swizzle. A multiplying
+// warpgroup computes S = Q K^T by wgmma with both operands in shared memory
+// (K's (key, d) rows are already K-major as K^T's B), runs the online
+// softmax on the accumulator fragment (a row lives in one quad: two
+// shuffles give its max; the sum stays per thread until the end), and adds
+// P V by wgmma with P converted in registers to the A operand. Pass t
+// issues S of tile t and P V of tile t - 1 together and runs the softmax of
+// tile t while P V is in flight; only O's rescale waits for it. The two
+// warpgroups take turns to issue (two named barriers), so one's softmax
+// runs beside the other's products. Tiles above the causal band are
+// skipped (the kv loop ends at the last tile holding an allowed pair for a
+// real row; a warpgroup releases unread the tiles above its own rows); the
+// mask is applied only on tiles that cross the diagonal or the end of the
+// keys, in a branch of its own. The tiling is planned on the host
+// (_kernels.flash_plan) and checked here.
 //
-// What bounds it on an H100. Both products run on the CUDA cores as fp32
-// FMAs, so the ceiling is the 67 TFLOP/s fp32 rate, not the 989 TFLOP/s of
-// the bf16 tensor cores: at long context this kernel is bound by operations
-// and sits far below the card's bf16 bound. At the serving shape (S=32,
-// D=16) the work is a few MFLOP and about a megabyte, so launch latency
-// dominates. Moving the two products onto wgmma with TMA-fed tiles and warp
-// specialisation is the later step; this version is the simple, correct one.
+// Products. bf16: wgmma m64n128k16 for S (128-key tiles); P V m64n64k16
+// per 64-column chunk of D, V read MN-major (the transposed-B form of
+// 16-bit types). fp32 keeps fp32 accuracy (TF32 is off at parity
+// precision): each operand is split into hi = tf32(x) and lo = tf32(x -
+// hi) and both products run lo*hi + hi*lo + hi*hi on wgmma m64nNk8 tf32.
+// TF32 takes only K-major B, so for fp32 warps 1-3 of the copying
+// warpgroup split Q, K and V in shared memory once per tile and write V
+// transposed (keys contiguous) as V^T's hi and lo, its keys permuted
+// within each group of 8 to match the order in which the accumulator
+// fragment holds P (columns 2t, 2t+1 of a group are fed as the A operand's
+// columns t, t+4). fp32 uses 64-key tiles, and at D = 128 32-key tiles and
+// 64 q rows, so two stages fit.
+//
+// What bounds it on an H100. At long context the two products: 4 D FLOPs
+// per allowed (q, k) pair at 989 TFLOP/s (bf16; fp32 as three TF32
+// products at 495), far above the bytes of Q, K, V and O. Beside them the
+// softmax's exponentials: one per pair on the special-function units (16
+// a clock per SM), as much time as the products at D = 64. The softmax is
+// the longest phase of a pass (clock counts in PERF.md); fp32 waits on its
+// splits in shared memory. At the serving shape (S = 32, D = 16) the work
+// is a few MFLOP and launch latency sets the time.
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;        // q rows per block
-constexpr int kBKV = 64;       // keys per staged tile
-constexpr int kThreads = 256;
-constexpr int kRowThreads = 4; // threads sharing one q row in the softmax/PV phases
-constexpr float kNegInf = -1e30f;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRow = 128;          // bytes of a staged row: a 128-byte chunk of D (or of keys)
+constexpr int kThreads = 384;      // warpgroup 0 copies, 1-2 multiply
+constexpr int kMaxStages = 4;
+constexpr float kNeg = -1e30f;     // a masked score and an empty row's max; its logsumexp
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-template <int D>
-struct Layout {
-  static constexpr int kLdQ = D + 1;      // Q and K row stride (floats)
-  static constexpr int kLdS = kBKV + 1;   // score tile row stride
-  static constexpr int kFloats = kBQ * kLdQ + kBKV * kLdQ + kBKV * D + kBQ * kLdS;
-  static constexpr size_t kBytes = kFloats * sizeof(float);
+// The tile format, mirrored by _kernels.flash_plan (which sizes the block's
+// shared memory from the same formula)
+template <typename T, int D>
+struct Tile {
+  static constexpr int kEs = sizeof(T);
+  static constexpr bool kF32 = kEs == 4;
+  static constexpr int kChunkE = kRow / kEs;              // elements of a 128-byte chunk
+  static constexpr int kDC = (D * kEs + kRow - 1) / kRow;  // chunks of a row of D
+  static constexpr int kDP = kDC * kChunkE;                // D padded to whole chunks
+  static constexpr int kBKV = !kF32 ? 128 : D == 128 ? 32 : 64;  // keys a kv tile
+  static constexpr int kKSteps = D * kEs / 32;             // 32-byte K steps of Q K^T
+  static constexpr int kParts = kF32 ? 2 : 1;              // fp32: hi and lo
+  static constexpr int kKV = kDC * kBKV * kRow;            // one K or V tile as it lands
+  static constexpr int kVt = kBKV * kDP * 4;               // fp32: V^T, one part
+  static constexpr int kStage = kKV * (kF32 ? 3 : 2) + (kF32 ? 2 * kVt : 0);
+  __host__ __device__ static int q_bytes(int q_rows) { return kDC * q_rows * kRow * kParts; }
+  // 1024 bytes of slack to align the base for the swizzle, and the barriers
+  static int smem(int q_rows, int stages) {
+    return 1024 + q_bytes(q_rows) + stages * kStage + 256;
+  }
 };
 
-__device__ __forceinline__ bool allowed(int qi, int kj, int sk, int causal, int offset) {
-  return kj < sk && (!causal || kj <= qi + offset);
+// Clock counts of the steady passes for one thread of each multiplying
+// warpgroup, kept only when built with -DFLASH_TRACE (a diagnostic build;
+// dcnn_flash_fwd_trace reads them, summed over blocks): [0] waiting for
+// the tile, [1] for the turn, [2] issuing S and P V, [3] waiting for S,
+// [4] the softmax, [5] waiting for P V, [6] O's rescale and P to the A
+// form, [7] the passes
+#ifdef FLASH_TRACE
+__device__ unsigned long long g_trace[2][8];
+struct PassClock {
+  long long t = 0, sum[8] = {};
+  __device__ __forceinline__ void start() { t = clock64(); }
+  __device__ __forceinline__ void lap(int i) {
+    const long long now = clock64();
+    sum[i] += now - t;
+    t = now;
+  }
+  __device__ void save(int wg, bool keep) {
+    if (keep)
+      for (int i = 0; i < 8; ++i) atomicAdd(&g_trace[wg][i], (unsigned long long)sum[i]);
+  }
+};
+#else
+struct PassClock {
+  __device__ __forceinline__ void start() {}
+  __device__ __forceinline__ void lap(int) {}
+  __device__ __forceinline__ void save(int, bool) {}
+};
+#endif
+
+struct Params {
+  void* o;
+  float* lse;
+  int sq, sk, causal, q_rows, stages, n_qtiles;
+  float scale_log2;  // scale * log2(e): the softmax runs in base 2
+};
+
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// 2^x on the special-function unit (relative error about 2^-22; results
+// below 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// fp32: `cells` 16-byte cells of hi, split in place into tf32 hi and, at
+// the same offsets of lo, tf32(x - hi)
+__device__ void split_cells(uint8_t* hi, uint8_t* lo, int cells, int tid, int nthr) {
+  for (int i = tid; i < cells; i += nthr) {
+    float4 v = reinterpret_cast<float4*>(hi)[i], r;
+    float* a = reinterpret_cast<float*>(&v);
+    float* b = reinterpret_cast<float*>(&r);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float h = __uint_as_float(to_tf32(a[e]));
+      b[e] = __uint_as_float(to_tf32(a[e] - h));
+      a[e] = h;
+    }
+    reinterpret_cast<float4*>(hi)[i] = v;
+    reinterpret_cast<float4*>(lo)[i] = r;
+  }
+}
+
+// The place of key r of a tile in V^T: within each group of 8 keys, key 2t
+// goes to column t and key 2t + 1 to column t + 4, where the A operand of
+// tf32 wgmma reads the P fragment's columns 2t and 2t + 1
+__device__ __forceinline__ int key_pos(int r) {
+  return (r & ~7) | ((r & 1) << 2) | ((r & 7) >> 1);
+}
+
+// fp32: the landed V tile ((key, d) rows in chunks of 32 d) to V^T hi and lo
+// ((d, key) rows in chunks of 32 keys, keys placed by key_pos), 128-byte
+// swizzle on both sides
+template <int D>
+__device__ void transpose_v(const uint8_t* v, uint8_t* vt_hi, uint8_t* vt_lo, int tid, int nthr) {
+  using L = Tile<float, D>;
+  for (int i = tid; i < L::kDC * L::kBKV * 8; i += nthr) {
+    const int j = i & 7, r = (i >> 3) % L::kBKV, c = i / (8 * L::kBKV);
+    const float4 x = *reinterpret_cast<const float4*>(v + c * L::kBKV * kRow + r * kRow +
+                                                      ((j ^ (r & 7)) << 4));
+    const float* xe = reinterpret_cast<const float*>(&x);
+    const int kk = key_pos(r), kc = kk >> 5, ki = kk & 31;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int d = c * 32 + 4 * j + e;
+      const int off = kc * L::kDP * kRow + d * kRow + (((ki >> 2) ^ (d & 7)) << 4) + 4 * (ki & 3);
+      const float h = __uint_as_float(to_tf32(xe[e]));
+      *reinterpret_cast<float*>(vt_hi + off) = h;
+      *reinterpret_cast<float*>(vt_lo + off) = __uint_as_float(to_tf32(xe[e] - h));
+    }
+  }
+}
+
+// named barriers between the two multiplying warpgroups (256 threads)
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void hold_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int s = 0; s < N; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[s][i])::"memory");
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
-                 float* __restrict__ lse, int sq, int sk, int causal,
-                 float scale) {
-  static_assert(D % kRowThreads == 0, "head dim must split over the row's threads");
-  using L = Layout<D>;
-  constexpr int kCols = D / kRowThreads;
-  extern __shared__ float smem[];
-  float* sQ = smem;
-  float* sK = sQ + kBQ * L::kLdQ;
-  float* sV = sK + kBKV * L::kLdQ;
-  float* sS = sV + kBKV * D;
-
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap qmap,
+                     const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap, const Params p) {
+  using L = Tile<T, D>;
+  constexpr int kBKV = L::kBKV;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sq_hi = base;  // Q: kDC chunks of q_rows rows; fp32: then Q's lo
+  uint8_t* sq_lo = base + L::kDC * p.q_rows * kRow;
+  uint8_t* ring = base + L::q_bytes(p.q_rows);
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(ring + p.stages * L::kStage);
+  uint64_t* ready_q = full_q + 1;  // fp32: Q split
+  uint64_t* full = full_q + 2;
+  uint64_t* ready = full + kMaxStages;  // fp32: the stage split and V transposed
+  uint64_t* empty = ready + kMaxStages;
+  const int nwg = p.q_rows / 64;
+  const int qt = p.n_qtiles - 1 - blockIdx.x;
+  const int bh = blockIdx.y, q0 = qt * p.q_rows, offset = p.sk - p.sq;
+  // the kv tiles holding an allowed pair for a real row of this q tile
+  int n_kv = (p.sk + kBKV - 1) / kBKV;
+  if (p.causal) {
+    const int hi = min(q0 + p.q_rows, p.sq) - 1 + offset;
+    n_kv = hi < 0 ? 0 : min(n_kv, hi / kBKV + 1);
+  }
   const int tid = threadIdx.x;
-  const int q_start = blockIdx.x * kBQ;
-  const size_t bh = blockIdx.y;
-  const T* qb = q + bh * sq * D;
-  const T* kb = k + bh * sk * D;
-  const T* vb = v + bh * sk * D;
-  const int offset = sk - sq;
-
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, c = e % D, qi = q_start + r;
-    sQ[r * L::kLdQ + c] = qi < sq ? to_f32(qb[(size_t)qi * D + c]) : 0.f;
-  }
-
-  // softmax / PV ownership: row `row`, columns part, part+4, ...
-  const int row = tid / kRowThreads, part = tid % kRowThreads;
-  const int q_row = q_start + row;
-  float m_i = kNegInf, l_i = 0.f, acc[kCols];
-#pragma unroll
-  for (int c = 0; c < kCols; ++c) acc[c] = 0.f;
-
-  int n_tiles = (sk + kBKV - 1) / kBKV;
-  if (causal) {  // last key any row of this q tile may see
-    const int hi = q_start + kBQ - 1 + offset;
-    n_tiles = hi < 0 ? 0 : min(n_tiles, hi / kBKV + 1);
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int kv_start = t * kBKV;
-    __syncthreads();  // the previous tile's readers of sK, sV, sS are done
-    for (int e = tid; e < kBKV * D; e += kThreads) {
-      const int r = e / D, c = e % D, kj = kv_start + r;
-      const bool ok = kj < sk;
-      sK[r * L::kLdQ + c] = ok ? to_f32(kb[(size_t)kj * D + c]) : 0.f;
-      sV[r * D + c] = ok ? to_f32(vb[(size_t)kj * D + c]) : 0.f;
+  if (tid == 0) {
+    mbar_init(full_q, 1);
+    mbar_init(ready_q, 96);
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(ready + s, 96);         // warps 1-3 of the copying warpgroup
+      mbar_init(empty + s, 4 * nwg);    // one arrival per multiplying warp
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
 
-    {  // S = scale * Q K^T, masked entries set to kNegInf
-      const int ty = tid / 16, tx = tid % 16;
-      float s[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-      for (int c = 0; c < D; ++c) {
-        float a[4], b[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = sQ[(ty + 16 * i) * L::kLdQ + c];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) b[j] = sK[(tx + 16 * j) * L::kLdQ + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int r = ty + 16 * i, cc = tx + 16 * j;
-          sS[r * L::kLdS + cc] = allowed(q_start + r, kv_start + cc, sk, causal, offset)
-                                     ? s[i][j] * scale : kNegInf;
+  if (tid < 128) {  // the copying warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (tid == 0) {
+      mbar_expect_tx(full_q, L::kDC * p.q_rows * kRow);
+      for (int c = 0; c < L::kDC; ++c)
+        tma_load_3d(smem_u32(sq_hi + c * p.q_rows * kRow), &qmap, full_q, c * L::kChunkE, q0, bh);
+      for (int t = 0; t < n_kv; ++t) {
+        const int s = t % p.stages;
+        mbar_wait(empty + s, ((t / p.stages) & 1) ^ 1);
+        fence_proxy_async();  // fp32: the split's stores to this stage before the copy
+        uint8_t* st = ring + s * L::kStage;
+        mbar_expect_tx(full + s, 2 * L::kKV);
+        for (int c = 0; c < L::kDC; ++c) {
+          tma_load_3d(smem_u32(st + c * kBKV * kRow), &kmap, full + s, c * L::kChunkE, t * kBKV, bh);
+          tma_load_3d(smem_u32(st + L::kKV + c * kBKV * kRow), &vmap, full + s, c * L::kChunkE,
+                      t * kBKV, bh);
         }
-    }
-    __syncthreads();
-
-    {  // online-softmax update; each thread rewrites only its own entries with p
-      float* srow = sS + row * L::kLdS;
-      float mx = kNegInf;
-      for (int c = part; c < kBKV; c += kRowThreads) mx = fmaxf(mx, srow[c]);
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, 2));
-      const float m_new = fmaxf(m_i, mx);
-      const float corr = expf(m_i - m_new);
-      float sum = 0.f;
-      for (int c = part; c < kBKV; c += kRowThreads) {
-        // masked entries are zeroed explicitly: in a row masked so far,
-        // exp(kNegInf - kNegInf) would be 1
-        const float p = allowed(q_row, kv_start + c, sk, causal, offset)
-                            ? expf(srow[c] - m_new) : 0.f;
-        srow[c] = p;
-        sum += p;
       }
-      sum += __shfl_xor_sync(kFull, sum, 1);
-      sum += __shfl_xor_sync(kFull, sum, 2);
-      l_i = l_i * corr + sum;
-      m_i = m_new;
-#pragma unroll
-      for (int c = 0; c < kCols; ++c) acc[c] *= corr;
+      return;
     }
-    __syncthreads();
-
-    {  // acc += P V over the keys of this tile
-      const float* prow = sS + row * L::kLdS;
-      const int n_keys = min(kBKV, sk - kv_start);
-      for (int j = 0; j < n_keys; ++j) {
-        const float p = prow[j];
-        const float* vr = sV + j * D + part;
-#pragma unroll
-        for (int c = 0; c < kCols; ++c) acc[c] = fmaf(p, vr[kRowThreads * c], acc[c]);
+    if constexpr (L::kF32) {  // warps 1-3: the tf32 splits
+      if (tid >= 32) {
+        const int st_tid = tid - 32;
+        mbar_wait(full_q, 0);
+        split_cells(sq_hi, sq_lo, L::kDC * p.q_rows * kRow / 16, st_tid, 96);
+        fence_proxy_async();
+        mbar_arrive(ready_q);
+        for (int t = 0; t < n_kv; ++t) {
+          const int s = t % p.stages;
+          mbar_wait(full + s, (t / p.stages) & 1);
+          uint8_t* st = ring + s * L::kStage;
+          split_cells(st, st + 2 * L::kKV, L::kKV / 16, st_tid, 96);
+          transpose_v<D>(st + L::kKV, st + 3 * L::kKV, st + 3 * L::kKV + L::kVt, st_tid, 96);
+          fence_proxy_async();
+          mbar_arrive(ready + s);
+        }
       }
     }
+    return;
   }
 
-  if (q_row < sq) {
-    const float l_fin = fmaxf(l_i, 1e-30f);
-    T* orow = o + (bh * sq + q_row) * D + part;
+  // the multiplying warpgroups: wg's 64 rows of the q tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+  const int ct = tid - 128, wg = ct >> 7, warp = (ct >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = q0 + 64 * wg + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  const int wg_first = q0 + 64 * wg, wg_last = min(wg_first + 64, p.sq) - 1;
+  uint64_t* rdy = L::kF32 ? ready : full;
+  mbar_wait(L::kF32 ? ready_q : full_q, 0);
+  const uint32_t qa = smem_u32(sq_hi) + wg * 64 * kRow;
+  const uint32_t qa_lo = smem_u32(sq_lo) + wg * 64 * kRow;
+
+  float o[L::kDP / 2];
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) store(orow + kRowThreads * c, acc[c] / l_fin);
-    if (part == 0) lse[bh * sq + q_row] = m_i + logf(l_fin);
+  for (int i = 0; i < L::kDP / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  float sc[kBKV / 2];  // S of the tile, then its P in fp32
+  // P of the previous tile as wgmma's A operand: bf16 pairs, or tf32 hi and lo
+  uint32_t pa[L::kF32 ? kBKV / 8 : kBKV / 16][4], plo[L::kF32 ? kBKV / 8 : 1][4];
+  // the tiles this warpgroup multiplies: those up to the last one holding
+  // an allowed pair for one of its real rows (a prefix of the block's)
+  int n_live = wg_first <= wg_last ? n_kv : 0;
+  if (p.causal && n_live) {
+    const int hi = wg_last + offset;
+    n_live = hi < 0 ? 0 : min(n_kv, hi / kBKV + 1);
+  }
+  // Two warpgroups take turns to issue their products (named barriers 1
+  // and 2, "wg may issue"), so one's softmax runs beside the other's
+  // products. Both pass their turn n_kv + 1 times.
+  const bool turns = nwg == 2;
+  if (turns && wg == 1) named_arrive(1);
+  auto turn_begin = [&]() { if (turns) named_sync(1 + wg); };
+  auto turn_end = [&]() { if (turns) named_arrive(2 - wg); };
+  auto stage_of = [&](int t) { return smem_u32(ring + (t % p.stages) * L::kStage); };
+  auto wait_tile = [&](int t) { mbar_wait(rdy + t % p.stages, (t / p.stages) & 1); };
+  auto release = [&](int t) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + t % p.stages);
+  };
+
+  // S = Q K^T of the tile at stage st into sc
+  auto issue_s = [&](uint32_t st) {
+#pragma unroll
+    for (int i = 0; i < kBKV / 2; ++i) sc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < L::kKSteps; ++ks) {
+      // chunk ks / 4 of D, 32 bytes a step within it
+      const uint32_t qoff = (ks >> 2) * p.q_rows * kRow + 32 * (ks & 3);
+      const uint32_t koff = (ks >> 2) * kBKV * kRow + 32 * (ks & 3);
+      const uint64_t a = desc_sw128(qa + qoff), b = desc_sw128(st + koff);
+      if constexpr (L::kF32) {
+        const uint64_t alo = desc_sw128(qa_lo + qoff);
+        const uint64_t blo = desc_sw128(st + 2 * L::kKV + koff);
+        Wgmma<kBKV>::ss_tf32(sc, alo, b);
+        Wgmma<kBKV>::ss_tf32(sc, a, blo);
+        Wgmma<kBKV>::ss_tf32(sc, a, b);
+      } else {
+        Wgmma<kBKV>::ss_bf16(sc, a, b);
+      }
+    }
+    wgmma_commit();
+  };
+  // O += P V with P in pa (and plo) and V at stage st
+  auto issue_pv = [&](uint32_t st) {
+    wgmma_fence();
+    if constexpr (L::kF32) {
+      const uint32_t vt_hi = st + 3 * L::kKV, vt_lo = vt_hi + L::kVt;
+#pragma unroll
+      for (int j = 0; j < kBKV / 8; ++j) {
+        const int off = (j >> 2) * L::kDP * kRow + 32 * (j & 3);
+        const uint64_t bhi = desc_sw128(vt_hi + off), blo = desc_sw128(vt_lo + off);
+        Wgmma<L::kDP>::rs_tf32(o, plo[j], bhi);
+        Wgmma<L::kDP>::rs_tf32(o, pa[j], blo);
+        Wgmma<L::kDP>::rs_tf32(o, pa[j], bhi);
+      }
+    } else {
+      const uint32_t vb = st + L::kKV;
+#pragma unroll
+      for (int k = 0; k < kBKV / 16; ++k)
+#pragma unroll
+        for (int c = 0; c < L::kDC; ++c)  // 64 columns of D a product
+          Wgmma<64>::rs_bf16<1>(o + 32 * c, pa[k], desc_sw128(vb + c * kBKV * kRow + k * 16 * kRow));
+    }
+    wgmma_commit();
+  };
+  // the online softmax of tile t on the fragment (sc[4j + e] is row row0 +
+  // 8 (e >> 1), key kv0 + 8j + 2 t4 + (e & 1)): P into sc, m and l
+  // updated; returns the rows' rescale factors through corr
+  auto softmax = [&](int t, float (&corr)[2]) {
+    const int kv0 = t * kBKV;
+#pragma unroll
+    for (int i = 0; i < kBKV / 2; ++i) sc[i] *= p.scale_log2;
+    // the mask only on tiles that cross the end of the keys or the
+    // diagonal, as a branch of its own: per element one compare against
+    // the row's last allowed key
+    if (kv0 + kBKV > p.sk || (p.causal && kv0 + kBKV - 1 > wg_first + offset)) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int last = (p.causal ? min(p.sk - 1, row0 + 8 * h + offset) : p.sk - 1) -
+                         (kv0 + 2 * t4);
+#pragma unroll
+        for (int j = 0; j < kBKV / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (8 * j + e > last) sc[4 * j + 2 * h + e] = kNeg;
+      }
+    }
+    // max and sum in 4 independent chains: the softmax's latency, not its
+    // issue rate, sets its pace
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mx[4] = {kNeg, kNeg, kNeg, kNeg};
+#pragma unroll
+      for (int j = 0; j < kBKV / 8; ++j)
+        mx[j & 3] = fmaxf(mx[j & 3], fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+      float rmax = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 2));
+      const float m_new = fmaxf(m[h], rmax);
+      corr[h] = ex2(m[h] - m_new);
+      m[h] = m_new;
+      // a masked score is kNeg, so exp2(kNeg - m) is 0; in a row masked so
+      // far m is kNeg too, and its entries are exp2(kNeg - 0) = 0
+      const float m_use = m_new == kNeg ? 0.f : m_new;
+      float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < kBKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float pv = ex2(sc[4 * j + 2 * h + e] - m_use);
+          sc[4 * j + 2 * h + e] = pv;
+          sum[j & 3] += pv;
+        }
+      // this thread's share of the row; the quad's are added at the end
+      l[h] = l[h] * corr[h] + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
+    }
+  };
+  // once no P V is in flight: O rescaled, and P in sc to wgmma's A form
+  auto to_operand = [&](const float (&corr)[2]) {
+#pragma unroll
+    for (int j = 0; j < L::kDP / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[4 * j + e] *= corr[e >> 1];
+    if constexpr (L::kF32) {
+#pragma unroll
+      for (int j = 0; j < kBKV / 8; ++j) {
+        // A's (row g, col t), (g + 8, t), (g, t + 4), (g + 8, t + 4) take
+        // the fragment's keys 2t, 2t, 2t + 1, 2t + 1 (see key_pos)
+        const float v[4] = {sc[4 * j], sc[4 * j + 2], sc[4 * j + 1], sc[4 * j + 3]};
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          pa[j][i] = to_tf32(v[i]);
+          plo[j][i] = to_tf32(v[i] - __uint_as_float(pa[j][i]));
+        }
+      }
+    } else {
+      // the accumulator's columns 16k .. 16k + 15 are the A operand of K
+      // step k as they are, rounded to bf16
+#pragma unroll
+      for (int k = 0; k < kBKV / 16; ++k)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) pa[k][i] = pack_bf16(sc[8 * k + 2 * i], sc[8 * k + 2 * i + 1]);
+    }
+  };
+  auto pv_done = [&]() {
+    wgmma_wait0();
+    fence_regs(o);
+    hold_regs(pa);
+    if constexpr (L::kF32) hold_regs(plo);
+  };
+
+  // tile 0; then each pass t issues S of tile t and P V of tile t - 1 and
+  // runs the softmax of tile t while P V is in flight; then P V of the last
+  // live tile; then the tiles above this warpgroup's band, released unread
+  if (n_live > 0) {
+    float corr[2];
+    wait_tile(0);
+    turn_begin();
+    issue_s(stage_of(0));
+    turn_end();
+    wgmma_wait0();
+    fence_regs(sc);
+    softmax(0, corr);
+    to_operand(corr);
+    PassClock clk;
+    for (int t = 1; t < n_live; ++t) {
+      clk.start();
+      wait_tile(t);
+      clk.lap(0);
+      turn_begin();
+      clk.lap(1);
+      issue_s(stage_of(t));
+      issue_pv(stage_of(t - 1));
+      turn_end();
+      clk.lap(2);
+      wgmma_wait1();  // S done; P V may still run
+      fence_regs(sc);
+      clk.lap(3);
+      softmax(t, corr);
+      fence_regs(sc);  // the softmax done before P V's wait
+      clk.lap(4);
+      pv_done();
+      clk.lap(5);
+      release(t - 1);
+      to_operand(corr);
+      clk.lap(6);
+    }
+#ifdef FLASH_TRACE
+    clk.sum[7] = n_live - 1;
+#endif
+    clk.save(wg, (ct & 127) == 0);
+    turn_begin();
+    issue_pv(stage_of(n_live - 1));
+    turn_end();
+    pv_done();
+    release(n_live - 1);
+  } else {
+    turn_begin();  // the pass that has no tile
+    turn_end();
+  }
+  for (int t = n_live; t < n_kv; ++t) {
+    wait_tile(t);
+    turn_begin();
+    turn_end();
+    release(t);
+  }
+  if (turns && wg == 0) named_sync(1);  // the turn warpgroup 1 passed last
+
+  // O = acc / max(l, 1e-30) and the logsumexp of rows row0 and row0 + 8
+  T* out = static_cast<T*>(p.o);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sum = l[h];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int row = row0 + 8 * h;
+    if (row >= p.sq) continue;
+    const float l_fin = fmaxf(sum, 1e-30f);
+    T* orow = out + ((size_t)bh * p.sq + row) * D;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      store2(orow + 8 * j + 2 * t4, o[4 * j + 2 * h] / l_fin, o[4 * j + 2 * h + 1] / l_fin);
+    if (t4 == 0)
+      p.lse[(size_t)bh * p.sq + row] = m[h] == kNeg ? kNeg : m[h] * kLn2 + logf(l_fin);
   }
 }
 
 template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* lse, int bh, int sq, int sk, int causal, float scale,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int sq,
+                   int sk, int causal, float scale, int q_rows, int kv_tile, int stages, int smem,
                    cudaStream_t stream) {
-  constexpr size_t smem = Layout<D>::kBytes;
-  static bool smem_raised = false;  // once per instantiation; a repeat is harmless
-  if (smem > 48 * 1024 && !smem_raised) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  using L = Tile<T, D>;
+  // two stages at least where there are two kv tiles: a pass holds the
+  // previous tile's stage while it waits for the next
+  if (kv_tile != L::kBKV || (q_rows != 64 && q_rows != 128) || stages < 1 ||
+      (stages < 2 && sk > kv_tile) || stages > kMaxStages || smem != L::smem(q_rows, stages) ||
+      smem > kSmemMax)
+    return cudaErrorInvalidValue;
+  const auto kernel = flash_fwd_kernel<T, D>;
+  static bool raised = false;  // once per instantiation, never inside a graph capture
+  if (!raised) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
     if (err != cudaSuccess) return err;
-    smem_raised = true;
+    raised = true;
   }
-  const dim3 grid((sq + kBQ - 1) / kBQ, bh);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), sq, sk, causal, scale);
+  // (bh, s, D) as 3-d tensors, D innermost; boxes of one 128-byte chunk of D
+  // by q_rows or kv_tile rows, zero beyond D, beyond s
+  CUtensorMap maps[3] = {};
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t rows = i == 0 ? sq : sk;
+    const cuuint64_t dims[3] = {(cuuint64_t)D, rows, (cuuint64_t)bh};
+    const cuuint64_t strides[2] = {(cuuint64_t)D * L::kEs, rows * D * L::kEs};
+    const cuuint32_t box[3] = {(cuuint32_t)L::kChunkE, (cuuint32_t)(i == 0 ? q_rows : kv_tile), 1};
+    if (!encode(&maps[i], !L::kF32, 3, ptrs[i], dims, strides, box)) return cudaErrorInvalidValue;
+  }
+  Params p;
+  p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.sq = sq, p.sk = sk, p.causal = causal, p.q_rows = q_rows, p.stages = stages;
+  p.n_qtiles = (sq + q_rows - 1) / q_rows;
+  p.scale_log2 = scale * kLog2e;
+  kernel<<<dim3(p.n_qtiles, bh), 128 + 2 * q_rows, smem, stream>>>(maps[0], maps[1], maps[2], p);
   return cudaGetLastError();
 }
 
 template <typename T>
-cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     void* lse, int bh, int sq, int sk, int d, int causal,
-                     float scale, cudaStream_t stream) {
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                     int sq, int sk, int d, int causal, float scale, int q_rows, int kv_tile,
+                     int stages, int smem, cudaStream_t s) {
   switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, bh, sq, sk, causal, scale, stream);
-    case 32: return launch<T, 32>(q, k, v, o, lse, bh, sq, sk, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, bh, sq, sk, causal, scale, stream);
-    case 128: return launch<T, 128>(q, k, v, o, lse, bh, sq, sk, causal, scale, stream);
+    case 16: return launch<T, 16>(q, k, v, o, lse, bh, sq, sk, causal, scale, q_rows, kv_tile, stages, smem, s);
+    case 32: return launch<T, 32>(q, k, v, o, lse, bh, sq, sk, causal, scale, q_rows, kv_tile, stages, smem, s);
+    case 64: return launch<T, 64>(q, k, v, o, lse, bh, sq, sk, causal, scale, q_rows, kv_tile, stages, smem, s);
+    case 128: return launch<T, 128>(q, k, v, o, lse, bh, sq, sk, causal, scale, q_rows, kv_tile, stages, smem, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -222,18 +599,38 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 
 extern "C" {
 
-// q, k, v, o: contiguous (bh, s, d) of fp32 (is_bf16 = 0) or bf16 (is_bf16 = 1);
-// lse: contiguous (bh, sq) fp32. Returns the launch's cudaError_t (0 = queued).
-int dcnn_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
-                   int bh, int sq, int sk, int d, int causal, float scale,
-                   int is_bf16, void* stream) {
-  if (bh < 1 || bh > 65535 || sq < 1 || sk < 1) return cudaErrorInvalidValue;
+// q, k, v, o: contiguous (bh, s, d) of fp32 (is_bf16 = 0) or bf16 (is_bf16 =
+// 1), 16-byte aligned; lse: contiguous (bh, sq) fp32. The plan
+// (_kernels.flash_plan): q_rows (64 or 128) a block, kv_tile keys a stage,
+// stages of the K/V ring, smem the block's dynamic shared memory in bytes;
+// a plan this build would lay out otherwise is refused. Returns the
+// launch's cudaError_t (0 = queued).
+int dcnn_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int sq,
+                   int sk, int d, int causal, float scale, int is_bf16, int q_rows, int kv_tile,
+                   int stages, int smem, void* stream) {
+  const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v);
+  if (bh < 1 || bh > 65535 || sq < 1 || sk < 1 || align % 16) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, s)
-              : dispatch<float>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, s);
+      is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows,
+                                        kv_tile, stages, smem, s)
+              : dispatch<float>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile,
+                                stages, smem, s);
   return static_cast<int>(err);
 }
+
+#ifdef FLASH_TRACE
+// the diagnostic build's clock counts (2 x 8), zeroed after
+int dcnn_flash_fwd_trace(unsigned long long* host) {
+  cudaError_t err = cudaMemcpyFromSymbol(host, g_trace, sizeof(g_trace));
+  if (err == cudaSuccess) {
+    static unsigned long long zeros[2][8];
+    err = cudaMemcpyToSymbol(g_trace, zeros, sizeof(g_trace));
+  }
+  return static_cast<int>(err);
+}
+#endif
 
 const char* dcnn_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -1,8 +1,7 @@
 """Counterparts of ``dcnn_tpu/ops/pallas/``: the 3×3 implicit-GEMM convs
 and the fused scale/bias/ReLU. The JAX package writes them as Pallas TPU
 kernels; here they are CUDA kernels written by hand for Hopper
-(``ops/csrc/conv3x3_tc.cu``, ``ops/csrc/conv3x3.cu``, ``ops/csrc/fused.cu``),
-with the JAX public
+(``ops/csrc/conv3x3_tc.cu``, ``ops/csrc/fused.cu``), with the JAX public
 signatures and a plain PyTorch version beside each kernel that CPU tensors
 take."""
 

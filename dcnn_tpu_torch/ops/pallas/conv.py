@@ -4,10 +4,10 @@
 x is NHWC (N, H, W, Cin) and the weights HWIO (3, 3, Cin, Cout), as in the
 JAX package; a layer's OIHW weight goes in as
 ``w.permute(2, 3, 1, 0).contiguous()``. On CUDA tensors each function
-launches its hand-written Hopper kernel (or raises): the conv and the
-BN-prologue conv the tensor-core implicit GEMM of ``ops/csrc/conv3x3_tc.cu``,
-the pairs form the CUDA-core kernel of ``ops/csrc/conv3x3.cu``. On CPU
-tensors it runs the kernel's plain version here. There is no other route.
+launches its hand-written Hopper kernel (or raises): all three the
+tensor-core implicit GEMM of ``ops/csrc/conv3x3_tc.cu``, the pairs form as
+its 12-tap mode. On CPU tensors it runs the kernel's plain version here.
+There is no other route.
 
 - :func:`conv3x3_s1`: the conv.
 - :func:`conv3x3_s1_bnrelu_in`: the conv of ``relu(x·scale + shift)``, the

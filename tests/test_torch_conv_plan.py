@@ -1,6 +1,7 @@
 """The host side of the tensor-core conv kernel (``csrc/conv3x3_tc.cu``) on
-the CPU: the plan that cuts each conv into tiles and K ranges, how the
-input is staged, and why fp32 takes three TF32 products.
+the CPU: the plan that cuts each conv (and its output-column-pair form)
+into tiles and K ranges, how the input is staged, what the pairs form
+gathers, and why fp32 takes three TF32 products.
 
 The kernel itself runs only on the card (``tests/test_torch_cuda.py``);
 what it is told to do is decided here, in Python, and checked at every
@@ -132,6 +133,25 @@ def test_tile_format_reaches_the_kernel_build_from_one_place():
             != _kernels._lib_path("conv3x3_tc.cu"))
 
 
+def test_a_header_edit_changes_every_library_name(tmp_path, monkeypatch):
+    """The sources include ``csrc/hopper.cuh``; a library's file name hashes
+    every header of ``csrc/`` with its source, so an edited header is
+    rebuilt, never loaded stale from ``_build/``."""
+    import shutil
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_kernels.CSRC, csrc)
+    monkeypatch.setattr(_kernels, "CSRC", csrc)
+    for name in ("conv3x3_tc.cu", "flash_fwd.cu"):
+        assert '#include "hopper.cuh"' in (csrc / name).read_text()
+    before = {n: _kernels._lib_path(n) for n in _kernels.SOURCES}
+    header = csrc / "hopper.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {n: _kernels._lib_path(n) for n in _kernels.SOURCES}
+    assert all(before[n] != after[n] for n in _kernels.SOURCES)
+    assert "conv3x3.cu" not in _kernels.SOURCES  # the pairs form is a mode
+
+
 def _tf32(t: torch.Tensor) -> torch.Tensor:
     """Round fp32 to TF32 (10 mantissa bits), to nearest with ties away
     from zero, as ``cvt.rna.tf32.f32`` does."""
@@ -158,3 +178,112 @@ def test_fp32_takes_three_tf32_products():
     one = (a_hi @ w_hi).double().numpy()
     assert np.abs(three - ref).max() / top <= 1e-5
     assert np.abs(one - ref).max() / top > 1e-4
+
+
+# the pairs form's shapes (even W): layer1 of resnet18_tiny_imagenet, the
+# bench's first shape, and the ragged ones, Cout 130 (260 lanes) among them
+PAIRS = ([s for s in MODEL + BENCH if s[2] % 2 == 0 and s[4] <= 64]
+         + [s for s in RAGGED if s[2] % 2 == 0] + [(3, 5, 6, 8, 130)])
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", PAIRS, ids=lambda s: "x".join(map(str, s)))
+def test_pairs_plan_covers_every_pair_and_unit_once(shape, dtype):
+    """The pairs form's plan: 128-pair tiles (b × th × tp) whose halo box
+    (b, th+2, 2·tp+2) stays within MAX_HALO_ROWS, tiles of the 2·Cout
+    lanes, and K ranges over 12 taps × Cin chunks."""
+    n, h, w, cin, cout = shape
+    plan = _kernels.conv_plan(n, h, w, cin, cout, dtype, pairs=True)
+    assert (plan.taps, plan.step, plan.mw) == (12, 2, 1)
+    assert plan.b * plan.th * plan.tw == _kernels.TILE_PIXELS
+    assert plan.halo_rows == plan.b * (plan.th + 2) * (2 * plan.tw + 2)
+    assert plan.halo_rows <= _kernels.MAX_HALO_ROWS
+    assert 2 * plan.tw + 2 <= 256  # a TMA box dimension
+    tb, ty, tx = -(-n // plan.b), -(-h // plan.th), -(-(w // 2) // plan.tw)
+    assert plan.tiles_m == tb * ty * tx
+    seen = np.zeros((n, h, w // 2), dtype=np.int64)
+    for b0 in range(0, tb * plan.b, plan.b):
+        for y0 in range(0, ty * plan.th, plan.th):
+            for x0 in range(0, tx * plan.tw, plan.tw):
+                seen[b0:b0 + plan.b, y0:y0 + plan.th, x0:x0 + plan.tw] += 1
+    assert (seen == 1).all()
+    lanes = 2 * cout
+    assert plan.bn == (64 if lanes <= 64 else 128)
+    assert (plan.tiles_n - 1) * plan.bn < lanes <= plan.tiles_n * plan.bn
+    assert plan.units == 12 * -(-cin // plan.chunk)
+    units = [u for u0, u1 in plan.k_ranges() for u in range(u0, u1)]
+    assert units == list(range(plan.units))
+    assert len({(u % 12, u // 12) for u in units}) == plan.units
+    tiles = plan.tiles_m * plan.tiles_n
+    assert plan.ksplit == 1 if tiles >= _kernels.CARD_SMS else (
+        tiles * plan.ksplit <= _kernels.CARD_SMS)
+
+
+def _pairs_mirror(x, w2, plan):
+    """What conv3x3_tc.cu computes in the pairs form, step by step in
+    numpy (fp64): per tile and Cin chunk the halo box as staged (zero
+    outside the image and beyond Cin; halo row (b·(th+2) + y)·hw + x,
+    hw = 2·tp + 2), the weights packed K-major as (tap, lane, chunk) rows
+    (tap = 4 r + j, zero beyond Cin and the lanes), and for unit (chunk,
+    tap) the A row of pair p at tile row i of image b the halo row (b·(th
+    + 2) + i + r)·hw + 2p + j; K ranges summed in split order; the (n, h,
+    w/2, 2·Cout) result read as (n, h, w, Cout)."""
+    n, h, w, cin = x.shape
+    lanes = w2.shape[3]
+    hw = 2 * plan.tw + 2
+    ck = plan.chunk
+    chunks = plan.units // 12
+    kp = chunks * ck
+    wpack = np.zeros((12, plan.tiles_n * plan.bn, kp))
+    wpack[:, :lanes, :cin] = w2.reshape(12, cin, lanes).transpose(0, 2, 1)
+    out = np.zeros((n, h, w // 2, lanes))
+    tb, ty, tx = -(-n // plan.b), -(-h // plan.th), -(-(w // 2) // plan.tw)
+    m = np.arange(plan.b * plan.th * plan.tw)
+    tpix = plan.th * plan.tw
+    img, row, col = m // tpix, (m % tpix) // plan.tw, m % plan.tw
+    hrow0 = (img * (plan.th + 2) + row) * hw + 2 * col
+    for bt in range(tb):
+        for yt in range(ty):
+            for xt in range(tx):
+                halo = np.zeros((chunks, plan.b * (plan.th + 2) * hw, ck))
+                for r in range(plan.b * (plan.th + 2) * hw):
+                    bi = bt * plan.b + r // ((plan.th + 2) * hw)
+                    iy = yt * plan.th + (r // hw) % (plan.th + 2) - 1
+                    ix = xt * (hw - 2) + r % hw - 1
+                    if bi < n and 0 <= iy < h and 0 <= ix < w:
+                        for c in range(chunks):
+                            v = x[bi, iy, ix, c * ck:(c + 1) * ck]
+                            halo[c, r, :v.shape[0]] = v
+                acc = np.zeros((len(m), plan.tiles_n * plan.bn))
+                for u0, u1 in plan.k_ranges():
+                    part = np.zeros_like(acc)
+                    for u in range(u0, u1):
+                        c, tap = u // 12, u % 12
+                        a = halo[c, hrow0 + (tap // 4) * hw + tap % 4]
+                        part += a @ wpack[tap, :, c * ck:(c + 1) * ck].T
+                    acc += part
+                ob, oy, ox = bt * plan.b + img, yt * plan.th + row, xt * plan.tw + col
+                ok = (ob < n) & (oy < h) & (ox < w // 2)
+                out[ob[ok], oy[ok], ox[ok]] = acc[ok, :lanes]
+    return out.reshape(n, h, w, lanes // 2)
+
+
+@pytest.mark.parametrize("shape", [(2, 5, 6, 3, 4), (3, 4, 18, 40, 9),
+                                   (1, 3, 4, 70, 33)],
+                         ids=lambda s: "x".join(map(str, s)))
+def test_pairs_mirror_reproduces_the_plain_version(shape):
+    """The A-row index and the weight packing of the pairs form, gathered
+    with numpy, give conv3x3_pairs_reference for a random dense w2 (no
+    zero blocks), with partial chunks, tiles and a K split."""
+    from dcnn_tpu_torch.ops.pallas.conv import conv3x3_pairs_reference
+
+    n, h, w, cin, cout = shape
+    rng = np.random.default_rng(5)
+    x = rng.normal(size=(n, h, w, cin))
+    w2 = rng.normal(size=(3, 4, cin, 2 * cout))
+    plan = _kernels.conv_plan(n, h, w, cin, cout, torch.float32, pairs=True)
+    assert plan.ksplit > 1 or plan.units == 12
+    got = _pairs_mirror(x, w2, plan)
+    want = conv3x3_pairs_reference(torch.from_numpy(x),
+                                   torch.from_numpy(w2)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-10)

@@ -53,6 +53,25 @@ def _arrays(seed, sq, sk, d, b=2, h=3):
                  for s in (sq, sk, sk, sq))  # q, k, v, dO
 
 
+def _flash_check(causal, sq, sk, d, dtype, b=2, h=3):
+    """One forward launch against the plain version: O and logsumexp
+    within TOL, fully-masked rows (causal, sq > sk) exactly 0 with
+    logsumexp -1e30."""
+    q, k, v, _ = (torch.from_numpy(a).to("cuda", dtype)
+                  for a in _arrays(9, sq, sk, d, b, h))
+    before = _kernels.flash_fwd.launches
+    o, lse = _kernels.flash_fwd(q, k, v, causal=causal, scale=d ** -0.5)
+    torch.cuda.synchronize()
+    assert _kernels.flash_fwd.launches == before + 1
+    o_ref, lse_ref = flash_forward_reference(q, k, v, causal=causal)
+    assert o.dtype == dtype and o.shape == q.shape and lse.shape == (b, h, sq)
+    assert (o.float() - o_ref.float()).abs().max().item() <= TOL[dtype]
+    assert (lse - lse_ref).abs().max().item() <= TOL[dtype]
+    if causal and sq > sk:
+        assert o[:, :, :sq - sk].abs().max().item() == 0.0
+        assert (lse[:, :, :sq - sk] == -1e30).all()
+
+
 @pytest.mark.parametrize("causal,sq,sk,d,dtype", [
     (False, 32, 32, 16, torch.float32),
     (True, 100, 70, 32, torch.float32),
@@ -61,15 +80,55 @@ def _arrays(seed, sq, sk, d, b=2, h=3):
 ])
 def test_flash_kernel_matches_plain_on_card(causal, sq, sk, d, dtype):
     """The forward kernel: O and logsumexp, one counted launch."""
-    q, k, v, _ = (torch.from_numpy(a).to("cuda", dtype)
-                  for a in _arrays(9, sq, sk, d))
-    before = _kernels.flash_fwd.launches
-    o, lse = _kernels.flash_fwd(q, k, v, causal=causal, scale=d ** -0.5)
+    _flash_check(causal, sq, sk, d, dtype)
+
+
+@pytest.mark.parametrize("d", _kernels.FLASH_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", _kernels.FLASH_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal,sq,sk", [
+    (False, 200, 333),   # ragged: neither a multiple of the tiles
+    (True, 150, 330),    # sq < sk
+    (True, 300, 100),    # sq > sk: fully masked rows
+    # band edges, diagonal offset = kv tile + 1: the first q tile's last
+    # row sees exactly the first key of a kv tile (bf16, 128 rows and 128
+    # keys: 127 + 129 = 256; fp32, 128 rows, 64 keys: 127 + 65 = 192; fp32
+    # at D 128, 64 rows, 32 keys: 63 + 33 = 96)
+    (True, 300, 429),
+    (True, 300, 365),
+    (True, 100, 133),
+])
+def test_flash_forward_every_head_dim_and_type(causal, sq, sk, d, dtype):
+    _flash_check(causal, sq, sk, d, dtype, b=1, h=2)
+
+
+def test_flash_forward_refuses_a_misaligned_view():
+    """TMA reads 16-byte aligned rows: a contiguous view 4 bytes off is
+    refused, not read wrong."""
+    q, k, v, _ = (torch.from_numpy(a).cuda() for a in _arrays(2, 32, 32, 16))
+    off = torch.empty(q.numel() + 1, device="cuda")[1:].view(q.shape)
+    off.copy_(q)
+    with pytest.raises(ValueError, match="q is not 16-byte aligned"):
+        _kernels.flash_fwd(off, k, v, causal=False, scale=0.25)
+
+
+def test_flash_forward_in_a_cuda_graph():
+    """After its first call (which raises the shared-memory limit) the
+    forward can be captured in a CUDA graph; replays give the eager
+    answer."""
+    q, k, v, _ = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+                  for a in _arrays(11, 190, 190, 64))
+    want, want_lse = _kernels.flash_fwd(q, k, v, causal=True, scale=0.125)
     torch.cuda.synchronize()
-    assert _kernels.flash_fwd.launches == before + 1
-    o_ref, lse_ref = flash_forward_reference(q, k, v, causal=causal)
-    assert (o.float() - o_ref.float()).abs().max().item() <= TOL[dtype]
-    assert (lse - lse_ref).abs().max().item() <= TOL[dtype]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side), torch.cuda.graph(graph):
+        o, lse = _kernels.flash_fwd(q, k, v, causal=True, scale=0.125)
+    torch.cuda.current_stream().wait_stream(side)
+    o.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(o, want) and torch.equal(lse, want_lse)
 
 
 @pytest.mark.parametrize("causal,sq,sk,d,dtype", [
@@ -102,6 +161,24 @@ def test_backward_kernels_match_plain_on_card(causal, sq, sk, d, dtype):
         assert err <= TOL[dtype] * ref.float().abs().max().item()
     if causal and sq > sk:
         assert dq[:, :, :sq - sk].abs().max().item() == 0.0
+
+
+def test_pairs_kernel_reads_any_fused_weights():
+    """A random dense w2 (3, 4, Cin, 2 Cout), no zero blocks: the kernel
+    reads all 12 taps and all 2 Cout lanes as given, fp32 and bf16, with
+    and without a K split (Cout 130: 260 lanes over three lane tiles)."""
+    rng = np.random.default_rng(21)
+    for n, h, w, cin, cout, dtype in [
+            (2, 8, 16, 64, 64, torch.float32), (2, 8, 16, 64, 64, torch.bfloat16),
+            (3, 5, 6, 8, 130, torch.float32), (2, 6, 10, 3, 4, torch.bfloat16),
+            (32, 4, 4, 512, 64, torch.bfloat16)]:
+        x = torch.from_numpy(rng.normal(size=(n, h, w, cin))).to("cuda", dtype)
+        w2 = (torch.from_numpy(rng.normal(size=(3, 4, cin, 2 * cout)))
+              / np.sqrt(12 * cin)).to("cuda", dtype)
+        got = _kernels.conv3x3_s1_pairs(x, w2, out_dtype=dtype)
+        want = pconv.conv3x3_pairs_reference(x, w2)
+        torch.cuda.synchronize()
+        assert _rel_err(got, want) <= TOL[dtype], (n, h, w, cin, cout, dtype)
 
 
 def test_backward_kernels_refuse_what_they_cannot_take():

@@ -1,0 +1,118 @@
+"""The host side of the tensor-core flash forward (``csrc/flash_fwd.cu``)
+on the CPU: the plan that sizes its blocks, kv tiles, stages and shared
+memory, the kv tiles each q tile visits, and why fp32 takes three TF32
+products for P·V.
+
+The kernel runs only on the card (``tests/test_torch_cuda.py``); what it
+is told to do is decided here, in Python. The live-tile check holds the
+plan to the JAX package's ``_tile_geometry``, the mask its Pallas kernel
+applies.
+"""
+
+import importlib
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from dcnn_tpu_torch.ops import _kernels
+
+jax_attn = importlib.import_module("dcnn_tpu.ops.attention")
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+FLASH_CASES = importlib.import_module("chip_smoke").FLASH_CASES
+
+SHAPES = [(32, 32), (1, 1), (64, 64), (65, 65), (100, 70), (77, 300),
+          (200, 10), (1000, 1000), (4096, 4096), (300, 429)]
+
+
+@pytest.mark.parametrize("sq,sk", SHAPES, ids=lambda s: str(s))
+@pytest.mark.parametrize("d", _kernels.FLASH_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", _kernels.FLASH_DTYPES, ids=["fp32", "bf16"])
+def test_flash_plan_fits_the_card_and_wgmma(dtype, d, sq, sk):
+    """Shared memory within a block's 232448 bytes; q rows a multiple of
+    64 (one multiplying warpgroup each); the kv tile a whole number of
+    wgmma N steps (8) and K steps (16 keys bf16, 8 tf32) within N 256; two
+    stages wherever there are two kv tiles (a pass holds the previous
+    tile's stage while it waits for the next)."""
+    plan = _kernels.flash_plan(sq, sk, d, dtype)
+    es = 2 if dtype == torch.bfloat16 else 4
+    assert plan.smem <= _kernels.SMEM_MAX
+    assert plan.q_rows in (64, 128) and plan.q_rows % 64 == 0
+    assert plan.q_rows == 64 or sq > 64
+    assert plan.kv_tile % 16 == 0 and 16 <= plan.kv_tile <= 256
+    assert plan.chunks * _kernels.ROW_BYTES >= d * es
+    tiles = -(-sk // plan.kv_tile)
+    assert 1 <= plan.stages <= _kernels.FLASH_MAX_STAGES
+    assert plan.stages >= min(2, tiles) and plan.stages <= tiles
+    # the layout: Q (fp32: and its lo), then per stage K and V as they
+    # land (fp32: K's lo, V^T as hi and lo), 1024 bytes of alignment slack
+    # and 256 of barriers
+    rows = plan.chunks * _kernels.ROW_BYTES
+    f32 = dtype == torch.float32
+    stage = plan.kv_tile * rows * (3 if f32 else 2) + (
+        2 * plan.kv_tile * plan.chunks * (_kernels.ROW_BYTES // es) * 4
+        if f32 else 0)
+    assert plan.smem == (1024 + plan.q_rows * rows * (2 if f32 else 1)
+                         + plan.stages * stage + 256)
+    # the largest block the card holds: one more stage would not fit, or
+    # the ring is as deep as it goes
+    assert (plan.stages in (_kernels.FLASH_MAX_STAGES, tiles)
+            or plan.smem + stage > _kernels.SMEM_MAX)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: c[0])
+def test_flash_live_tiles_are_the_tiles_with_an_allowed_pair(case):
+    """At every geometry of chip_smoke.py's FLASH_CASES, the kv tiles a q
+    tile visits (FlashPlan.kv_tiles, what the kernel loops over) are
+    exactly those holding at least one allowed (real q row, key) pair,
+    by a plain mask and by the JAX package's _tile_geometry, whose
+    ``live`` they never exceed."""
+    _, _, _, sq, sk, d, causal, dtn, _ = case
+    plan = _kernels.flash_plan(sq, sk, d, getattr(torch, dtn))
+    bq, bkv = plan.q_rows, plan.kv_tile
+    n_kv = -(-sk // bkv)
+    q_pos = np.arange(sq)[:, None]
+    k_pos = np.arange(sk)[None, :]
+    allowed = (k_pos <= q_pos + sk - sq) if causal else np.ones((sq, sk), bool)
+    for qt in range(-(-sq // bq)):
+        got = set(plan.kv_tiles(qt, sq, sk, causal))
+        plain = {t for t in range(n_kv)
+                 if allowed[qt * bq:(qt + 1) * bq, t * bkv:(t + 1) * bkv].any()}
+        assert got == plain, (qt, got, plain)
+        jax_tiles = set()
+        for t in range(n_kv):
+            live, mask = jax_attn._tile_geometry(qt * bq, t * bkv, bq, bkv,
+                                                 sk, sq, causal)
+            real = np.asarray(mask) & (qt * bq + np.arange(bq) < sq)[:, None]
+            if real.any():
+                jax_tiles.add(t)
+                assert bool(live)
+        assert got == jax_tiles
+
+
+def _tf32(t: torch.Tensor) -> torch.Tensor:
+    """Round fp32 to TF32, to nearest with ties away from zero, as
+    ``cvt.rna.tf32.f32`` does."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def test_fp32_pv_takes_three_tf32_products():
+    """P·V as the fp32 kernel runs it: P in [0, 1] (after the softmax's
+    exp) and V split into tf32 hi and lo, lo*hi + hi*lo + hi*hi over K =
+    4096 keys, within 1e-5 of the fp64 product relative to its largest
+    value; one TF32 product misses that by far."""
+    rng = np.random.default_rng(11)
+    p = rng.uniform(0, 1, size=(128, 4096)).astype(np.float32)
+    v = rng.normal(size=(4096, 64)).astype(np.float32)
+    ref = p.astype(np.float64) @ v.astype(np.float64)
+    pt, vt = torch.from_numpy(p), torch.from_numpy(v)
+    p_hi, v_hi = _tf32(pt), _tf32(vt)
+    p_lo, v_lo = _tf32(pt - p_hi), _tf32(vt - v_hi)
+    top = np.abs(ref).max()
+    three = (p_lo @ v_hi + p_hi @ v_lo + p_hi @ v_hi).double().numpy()
+    one = (p_hi @ v_hi).double().numpy()
+    assert np.abs(three - ref).max() / top <= 1e-5
+    assert np.abs(one - ref).max() / top > 1e-4

@@ -14,6 +14,8 @@ Phases, each fatal on failure:
    model's shape and at harder ones, and time the kernel, the plain
    version, one PyTorch library call computing the same function (a
    yardstick the port never calls) and the card's bound for the work;
+   each case prints its plan (flash_plan, flash_bwd_plan), and the
+   long-context backward is also replayed from a CUDA graph;
 4. conv kernels: the same for the 3x3 implicit-GEMM convs (plain, BN
    prologue and output-column pairs, all on the tensor cores) and the
    fused scale/bias/ReLU, at the shapes of
@@ -182,7 +184,8 @@ def flash_bwd_bound(b, h, sq, sk, d, causal, dtype_name, kernel):
     q, k, v, dO, fp32 lse and delta; each output written once: dQ, or dK
     and dV) over HBM bandwidth, against FLOPs over the peak rate for the
     input type. Per allowed (q, k) pair dQ does 3 products (S, dP, dS·K),
-    6·D FLOPs; dK/dV 4 (S, dP, Pᵀ·dO, dSᵀ·Q), 8·D FLOPs."""
+    6·D FLOPs; dK/dV 4 (S, dP, Pᵀ·dO, dSᵀ·Q), 8·D FLOPs. fp32 counts three
+    TF32 products at the TF32 peak, as flash_bound does."""
     esize = 4 if dtype_name == "float32" else 2
     rows = esize * b * h * d
     if kernel == "dq":
@@ -192,7 +195,8 @@ def flash_bwd_bound(b, h, sq, sk, d, causal, dtype_name, kernel):
         nbytes = rows * (2 * sq + 4 * sk) + 8 * b * h * sq
         flops = 8 * d * b * h * allowed_pairs(sq, sk, causal)
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype_name]
+    t_ops = (3 * flops / PEAK_FLOPS["tfloat32"] if dtype_name == "float32"
+             else flops / PEAK_FLOPS[dtype_name])
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, flops)
 
@@ -290,8 +294,11 @@ def phase_kernels():
 def phase_bwd_kernels():
     """dQ and dK/dV kernels against ``flash_backward_reference`` on the
     same inputs (O and logsumexp from the forward kernel, a random
-    cotangent), at the cases of the forward; times both kernels, the plain
-    version, SDPA's backward through autograd and the bound."""
+    cotangent), at the cases of the forward, each printing its
+    flash_bwd_plan; times both kernels, the plain version, SDPA's backward
+    through autograd and the bound. At the long-context case both kernels
+    are also captured in a CUDA graph once, whose replay must give the
+    eager gradients bit for bit."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention.bias import causal_lower_right
@@ -325,6 +332,22 @@ def phase_bwd_kernels():
         dq = dq_kernel()
         dk, dv = dkv_kernel()
         torch.cuda.synchronize()
+        if name == "long context":
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side), torch.cuda.graph(graph):
+                captured = (dq_kernel(), *dkv_kernel())
+            torch.cuda.current_stream().wait_stream(side)
+            for t in captured:
+                t.zero_()
+            graph.replay()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b)
+                       for a, b in zip(captured, (dq, dk, dv))):
+                fail("flash backward: a CUDA-graph replay differs from the "
+                     "eager launches")
+            del graph, captured
         ref = plain()
         torch.cuda.synchronize()
         errs = {}
@@ -361,6 +384,7 @@ def phase_bwd_kernels():
                 sdpa(), (qa, ka, va), g), reps)
                 - device_ms(sdpa, reps))
         plain_ms = device_ms(plain, max(2, reps // 10))
+        plan = _kernels.flash_bwd_plan(sq, sk, d, dt)
         for kname, fn, gnames in (("dq", dq_kernel, ("dq",)),
                                   ("dkv", dkv_kernel, ("dk", "dv"))):
             bound_ms, bound_by, nbytes, flops = flash_bwd_bound(
@@ -368,8 +392,10 @@ def phase_bwd_kernels():
             err = max(errs[n][0] for n in gnames)
             rel = max(errs[n][1] for n in gnames)
             kern_ms = device_ms(fn, reps)
+            part = getattr(plan, kname)
             results[kname].append({
                 "case": name, "B": b, "H": h, "Sq": sq, "Sk": sk, "D": d,
+                "plan": str(part),
                 "causal": causal, "dtype": dtn, "max_abs_err": err,
                 "max_rel_err": rel, "tolerance": BWD_TOL[dtn],
                 "ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -380,7 +406,7 @@ def phase_bwd_kernels():
                   f"(rel {rel:.3e}, tol {BWD_TOL[dtn]:g}) kernel_ms="
                   f"{kern_ms:.6f} plain_ms(dq+dk+dv)={plain_ms:.6f} "
                   f"library_ms(sdpa bwd)={lib_ms} bound_ms={bound_ms:.6f} "
-                  f"({bound_by})", flush=True)
+                  f"({bound_by}); {part}", flush=True)
     return results
 
 

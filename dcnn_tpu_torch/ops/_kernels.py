@@ -8,12 +8,13 @@ hash of its source and flags, so a changed source is rebuilt and an
 unchanged one is reused. All missing libraries are compiled at once, one
 ``nvcc`` process per source.
 
-The 3×3 convs' tiling (:func:`conv_plan`) and the flash forward's
-(:func:`flash_plan`) are chosen here, in pure Python, and passed to
-``csrc/conv3x3_tc.cu`` and ``csrc/flash_fwd.cu``, so the CPU tests reach
+The 3×3 convs' tiling (:func:`conv_plan`), the flash forward's
+(:func:`flash_plan`) and the flash backward's (:func:`flash_bwd_plan`) are
+chosen here, in pure Python, and passed to ``csrc/conv3x3_tc.cu``,
+``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, so the CPU tests reach
 them; the conv's tile format (:data:`TILE_FORMAT`) is defined here alone
 and reaches that source's build as ``-D`` flags. The headers in ``csrc/``
-(``hopper.cuh``) are part of every library's hash.
+(``hopper.cuh``, ``flash.cuh``) are part of every library's hash.
 
 Each wrapper launches on PyTorch's current stream, raises when the C
 function reports a CUDA error, and counts its launches in a plain integer
@@ -53,15 +54,18 @@ TILE_FORMAT = {"CONV_TC_TILE_M": 128, "CONV_TC_ROW_BYTES": 128,
 TILE_PIXELS = TILE_FORMAT["CONV_TC_TILE_M"]
 ROW_BYTES = TILE_FORMAT["CONV_TC_ROW_BYTES"]
 MAX_HALO_ROWS = TILE_FORMAT["CONV_TC_MAX_HALO_ROWS"]
-# diagnostic builds of conv3x3_tc.cu and flash_fwd.cu with per-stage clock
-# counters (-DCONV_TC_TRACE, -DFLASH_TRACE), built and launched only where
-# asked for by name (ops/conv_tc_stages.py)
+# diagnostic builds of conv3x3_tc.cu, flash_fwd.cu and flash_bwd.cu with
+# per-stage clock counters (-DCONV_TC_TRACE, -DFLASH_TRACE,
+# -DFLASH_BWD_TRACE), built and launched only where asked for by name
+# (ops/conv_tc_stages.py, ops/flash_stages.py)
 CONV_TC_TRACE = "conv3x3_tc.cu+trace"
 FLASH_TRACE = "flash_fwd.cu+trace"
+FLASH_BWD_TRACE = "flash_bwd.cu+trace"
 _TILE_DEFINES = tuple(f"-D{k}={v}" for k, v in TILE_FORMAT.items())
 _DEFINES = {"conv3x3_tc.cu": _TILE_DEFINES,
             CONV_TC_TRACE: (*_TILE_DEFINES, "-DCONV_TC_TRACE"),
-            FLASH_TRACE: ("-DFLASH_TRACE",)}
+            FLASH_TRACE: ("-DFLASH_TRACE",),
+            FLASH_BWD_TRACE: ("-DFLASH_BWD_TRACE",)}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -106,12 +110,13 @@ def _bind(lib: ctypes.CDLL) -> None:
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes = [p] * (6 + n_out) + [i, i, i, i, i, ctypes.c_float,
-                                               i, p]
+                                               i, i, i, i, i, p]
             fn.restype = i
     if hasattr(lib, "dcnn_conv3x3_tc"):
         lib.dcnn_conv3x3_tc.argtypes = [p] * 7 + [i] * 15 + [p]
         lib.dcnn_conv3x3_tc.restype = i
-    for name in ("dcnn_conv3x3_tc_trace", "dcnn_flash_fwd_trace"):
+    for name in ("dcnn_conv3x3_tc_trace", "dcnn_flash_fwd_trace",
+                 "dcnn_flash_bwd_trace"):
         if hasattr(lib, name):
             getattr(lib, name).argtypes = [p]
             getattr(lib, name).restype = i
@@ -164,14 +169,35 @@ def build(verbose: bool = False, extra: Tuple[str, ...] = ()
         return dict(_libs)
 
 
+# the head-dim classes the flash kernels are built for: a head dim d <= 128
+# runs as the smallest class >= d, columns d.. zero-filled by the copy
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
 SMEM_MAX = 232448      # a block's dynamic shared memory on sm_90
 FLASH_MAX_STAGES = 4
+# registers a backward kernel's multiplying thread may give to its
+# accumulators, S and dP fragments and A operands (flash_bwd.cu kRegBudget)
+FLASH_BWD_REG_BUDGET = 176
 
 
 def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def flash_head_class(d: int) -> int:
+    """The class of :data:`FLASH_HEAD_DIMS` a head dim runs as."""
+    for c in FLASH_HEAD_DIMS:
+        if d <= c:
+            return c
+    raise ValueError(f"head dim {d} > {FLASH_HEAD_DIMS[-1]}")
+
+
+def flash_head_width(d: int, dtype: torch.dtype) -> int:
+    """The head dim the kernels are given for d: d, or d padded with zero
+    columns to whole 16-byte units where its rows are not (TMA copies rows
+    of whole 16-byte units): a multiple of 4 in fp32, of 8 in bf16."""
+    unit = 16 // (2 if dtype == torch.bfloat16 else 4)
+    return _cdiv(d, unit) * unit
 
 
 @dataclass(frozen=True)
@@ -181,8 +207,8 @@ class FlashPlan:
     keys in a ring of ``stages``, and the block's shared memory in bytes
     (``smem``), laid out as the kernel's ``Tile`` lays it out: Q (and in
     fp32 its tf32 lo), then per stage K and V as they land (fp32: K's lo,
-    V transposed as hi and lo), each row of D in ``chunks`` 128-byte
-    chunks."""
+    V transposed as hi and lo), each row of the head-dim class in
+    ``chunks`` 128-byte chunks."""
     q_rows: int
     kv_tile: int
     stages: int
@@ -193,27 +219,34 @@ class FlashPlan:
         """The kv tiles the kernel visits for q tile ``q_tile``: every tile
         up to the last holding an allowed (q, k) pair for a real row
         (causal: key <= row + sk - sq)."""
-        n = _cdiv(sk, self.kv_tile)
-        if causal:
-            hi = min((q_tile + 1) * self.q_rows, sq) - 1 + sk - sq
-            n = 0 if hi < 0 else min(n, hi // self.kv_tile + 1)
-        return range(n)
+        return _live_kv(q_tile, self.q_rows, self.kv_tile, sq, sk, causal)
+
+
+def _live_kv(q_block: int, q_rows: int, kv_tile: int, sq: int, sk: int,
+             causal: bool) -> range:
+    n = _cdiv(sk, kv_tile)
+    if causal:
+        hi = min((q_block + 1) * q_rows, sq) - 1 + sk - sq
+        n = 0 if hi < 0 else min(n, hi // kv_tile + 1)
+    return range(n)
 
 
 @functools.lru_cache(maxsize=1024)
 def flash_plan(sq: int, sk: int, d: int, dtype: torch.dtype) -> FlashPlan:
-    """The tiling of ``flash_fwd.cu``: 128 q rows a block (two multiplying
+    """The tiling of ``flash_fwd.cu`` for head dim d (run as its class,
+    :func:`flash_head_class`): 128 q rows a block (two multiplying
     warpgroups) above Sq 64 where two stages fit beside them, else 64; kv
-    tiles of 128 keys in bf16, 64 in fp32 and 32 for fp32 at D 128 (its
+    tiles of 128 keys in bf16, 64 in fp32 and 32 for fp32 at class 128 (its
     tf32 splits and V^T take five tiles' room a stage); as many stages as
     shared memory holds, up to FLASH_MAX_STAGES and the number of kv
     tiles. The kernel refuses a plan whose tile or shared memory differs
     from its own layout. Cached per shape."""
+    dc = flash_head_class(d)
     es = 2 if dtype == torch.bfloat16 else 4
     f32 = es == 4
-    chunks = _cdiv(d * es, ROW_BYTES)
+    chunks = _cdiv(dc * es, ROW_BYTES)
     padded = chunks * (ROW_BYTES // es)   # D padded to whole chunks
-    kv = (32 if d == 128 else 64) if f32 else 128
+    kv = (32 if dc == 128 else 64) if f32 else 128
     kv_bytes = chunks * kv * ROW_BYTES    # one K or V tile as it lands
     stage = kv_bytes * (3 if f32 else 2) + (2 * kv * padded * 4 if f32 else 0)
 
@@ -229,11 +262,125 @@ def flash_plan(sq: int, sk: int, d: int, dtype: torch.dtype) -> FlashPlan:
     return FlashPlan(q_rows, kv, stages, smem(q_rows, stages), chunks)
 
 
+@dataclass(frozen=True)
+class BwdKernelPlan:
+    """How one kernel of ``csrc/flash_bwd.cu`` cuts its work: blocks of
+    ``rows`` (q rows for dQ, keys for dK/dV; one multiplying warpgroup per
+    64), the other side streamed in tiles of ``tile`` (keys for dQ, q rows
+    for dK/dV) through a ring of ``stages``, the block's shared memory in
+    bytes (``smem``), and ``regs``, the registers a multiplying thread gives
+    to its accumulators, S and dP fragments and A operands at that tile."""
+    rows: int
+    tile: int
+    stages: int
+    smem: int
+    regs: int
+
+
+class _BwdLayout:
+    """``BwdTile`` of flash_bwd.cu for a head-dim class and element size."""
+
+    def __init__(self, dc: int, es: int):
+        self.f32 = es == 4
+        self.chunks = _cdiv(dc * es, ROW_BYTES)
+        self.padded = self.chunks * (ROW_BYTES // es)
+
+    def regs(self, dq: bool, n: int) -> int:
+        acc = self.padded // 2 if dq else self.padded
+        ops = (n if dq else 2 * n) if self.f32 else (n // 4 if dq else n // 2)
+        return acc + n + ops
+
+    def reg_tile(self, dq: bool) -> int:
+        n = 128
+        while n > 16 and self.regs(dq, n) > FLASH_BWD_REG_BUDGET:
+            n //= 2
+        return n
+
+    def stage(self, dq: bool, n: int) -> int:
+        if not self.f32:
+            return 2 * self.chunks * n * ROW_BYTES
+        t_bytes = _cdiv(n, 32) * self.padded * ROW_BYTES  # a transposed part
+        return 4 * self.chunks * n * ROW_BYTES + (2 if dq else 4) * t_bytes
+
+    def smem(self, dq: bool, rows: int, n: int, stages: int) -> int:
+        fixed = 2 * (2 if self.f32 else 1) * self.chunks * rows * ROW_BYTES
+        return (1024 + fixed + stages * self.stage(dq, n)
+                + (0 if dq else stages * 8 * n) + 256)
+
+    def tile(self, dq: bool) -> int:
+        n = self.reg_tile(dq)
+        while n >= 16:
+            if self.smem(dq, 64, n, 2) <= SMEM_MAX:
+                return n
+            n //= 2
+        return self.reg_tile(dq)
+
+
+@dataclass(frozen=True)
+class FlashBwdPlan:
+    """The tiling of both kernels of ``csrc/flash_bwd.cu`` for one shape:
+    ``dq`` and ``dkv`` (:class:`BwdKernelPlan`), each row of the head-dim
+    class in ``chunks`` 128-byte chunks, ``padded`` columns in all (the
+    accumulators' width)."""
+    dq: BwdKernelPlan
+    dkv: BwdKernelPlan
+    chunks: int
+    padded: int
+
+    def kv_tiles(self, q_block: int, sq: int, sk: int, causal: bool) -> range:
+        """The kv tiles the dQ kernel visits for q block ``q_block``: every
+        tile up to the last holding an allowed pair for a real row."""
+        return _live_kv(q_block, self.dq.rows, self.dq.tile, sq, sk, causal)
+
+    def q_tiles(self, kv_block: int, sq: int, sk: int, causal: bool) -> range:
+        """The q tiles the dK/dV kernel visits for kv block ``kv_block``:
+        every tile from the first whose last row may see the block's first
+        key (causal: key <= row + sk - sq)."""
+        n, lo = _cdiv(sq, self.dkv.tile), 0
+        if causal:
+            first = kv_block * self.dkv.rows - (sk - sq) - (self.dkv.tile - 1)
+            lo = 0 if first <= 0 else min(n, _cdiv(first, self.dkv.tile))
+        return range(lo, n)
+
+
+@functools.lru_cache(maxsize=1024)
+def flash_bwd_plan(sq: int, sk: int, d: int, dtype: torch.dtype
+                   ) -> FlashBwdPlan:
+    """The tiling of ``flash_bwd.cu`` for head dim d (run as its class,
+    :func:`flash_head_class`). Each kernel streams tiles of the largest
+    power of two up to 128 whose registers (:meth:`_BwdLayout.regs`) stay
+    within FLASH_BWD_REG_BUDGET, halved further while two stages would not
+    fit beside a 64-row block (kept where no tile would); blocks of 128 rows
+    (two multiplying warpgroups) where its own side exceeds 256 and two
+    stages fit, else 64 (below that a block's latency, not the card's
+    throughput, sets the time, and smaller blocks are more of them); as many stages as shared memory holds, up to
+    FLASH_MAX_STAGES and the number of streamed tiles. The kernels refuse a
+    plan that differs from their own layout. Cached per shape."""
+    lay = _BwdLayout(flash_head_class(d), 2 if dtype == torch.bfloat16 else 4)
+
+    def part(dq: bool, own: int, other: int) -> BwdKernelPlan:
+        n = lay.tile(dq)
+        per_stage = lay.smem(dq, 0, n, 1) - lay.smem(dq, 0, n, 0)
+
+        def fit(rows: int) -> int:
+            return min(FLASH_MAX_STAGES,
+                       (SMEM_MAX - lay.smem(dq, rows, n, 0)) // per_stage)
+
+        rows = 64 if own <= 256 or fit(128) < 2 else 128
+        stages = max(1, min(fit(rows), _cdiv(other, n)))
+        return BwdKernelPlan(rows, n, stages, lay.smem(dq, rows, n, stages),
+                             lay.regs(dq, n))
+
+    return FlashBwdPlan(part(True, sq, sk), part(False, sk, sq), lay.chunks,
+                        lay.padded)
+
+
 def _check_attention(fn: str, q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor, *like_q: torch.Tensor) -> None:
-    """What every flash kernel takes: contiguous CUDA tensors q (B, H, Sq,
-    D), k and v (B, H, Sk, D), and ``like_q`` (dO) shaped as q, all of one
-    dtype of FLASH_DTYPES, D in FLASH_HEAD_DIMS, 1 <= B*H <= 65535."""
+    """What every flash kernel takes: contiguous, 16-byte aligned CUDA
+    tensors q (B, H, Sq, D), k and v (B, H, Sk, D), and ``like_q`` (dO)
+    shaped as q, all of one dtype of FLASH_DTYPES; 1 <= D <= 128 with rows
+    of whole 16-byte units (:func:`flash_head_width`); B*H >= 1."""
     for name, t in (("q", q), ("k", k), ("v", v),
                     *(("dO", t) for t in like_q)):
         if t.device.type != "cuda":
@@ -242,6 +389,8 @@ def _check_attention(fn: str, q: torch.Tensor, k: torch.Tensor,
             raise ValueError(f"{fn}: {name} must be contiguous")
         if t.dtype != q.dtype:
             raise TypeError(f"{fn}: {name} is {t.dtype}, q is {q.dtype}")
+        if t.data_ptr() % 16:  # TMA copies from 16-byte aligned rows
+            raise ValueError(f"{fn}: {name} is not 16-byte aligned")
     if q.dtype not in FLASH_DTYPES:
         raise TypeError(f"{fn}: dtype {q.dtype} not in {FLASH_DTYPES}")
     if q.ndim != 4:
@@ -253,11 +402,15 @@ def _check_attention(fn: str, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{fn}: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree"
                          + "".join(f", dO {tuple(t.shape)}" for t in like_q))
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"{fn}: head dim {d} not in {FLASH_HEAD_DIMS}")
-    if not (1 <= b * h <= 65535 and sq >= 1 and sk >= 1):
-        raise ValueError(f"{fn}: need 1 <= B*H <= 65535 and non-empty "
-                         f"sequences, got B*H={b * h}, Sq={sq}, Sk={sk}")
+    if not (1 <= d <= FLASH_HEAD_DIMS[-1]) or flash_head_width(d, q.dtype) != d:
+        raise ValueError(f"{fn}: head dim {d} is not within 1..."
+                         f"{FLASH_HEAD_DIMS[-1]} with rows of whole 16-byte "
+                         f"units")
+    if not (b * h >= 1 and sq >= 1 and sk >= 1
+            and b * h * _cdiv(max(sq, sk), 64) < 2 ** 31):
+        raise ValueError(f"{fn}: need B*H >= 1, non-empty sequences and "
+                         f"fewer than 2^31 blocks, got B*H={b * h}, Sq={sq}, "
+                         f"Sk={sk}")
 
 
 def _check_rows(fn: str, q: torch.Tensor, **rows: torch.Tensor) -> None:
@@ -281,10 +434,10 @@ def _raise_on(lib: ctypes.CDLL, fn: str, err: int) -> None:
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/flash_fwd.cu`` on contiguous, 16-byte aligned CUDA
-    tensors q (B, H, Sq, D), k and v (B, H, Sk, D) of fp32 or bf16, D in
-    {16, 32, 64, 128}, tiled by :func:`flash_plan`. Returns (O like q,
-    logsumexp (B, H, Sq) fp32). Raises on anything the kernel does not
-    take."""
+    tensors q (B, H, Sq, D), k and v (B, H, Sk, D) of fp32 or bf16, D <=
+    128 in whole 16-byte units, tiled by :func:`flash_plan`. Returns (O
+    like q, logsumexp (B, H, Sq) fp32). Raises on anything the kernel does
+    not take."""
     out = _launch_flash(q, k, v, causal, scale)
     flash_fwd.launches += 1
     return out
@@ -296,9 +449,6 @@ def _launch_flash(q, k, v, causal: bool, scale: float,
     """Launch the build ``lib_name`` of ``csrc/flash_fwd.cu``; see
     :func:`flash_fwd`."""
     _check_attention("flash_fwd", q, k, v)
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.data_ptr() % 16:  # TMA copies from 16-byte aligned rows
-            raise ValueError(f"flash_fwd: {name} is not 16-byte aligned")
     b, h, sq, d = q.shape
     sk = k.shape[2]
     plan = flash_plan(sq, sk, d, q.dtype)
@@ -319,26 +469,40 @@ def _launch_flash(q, k, v, causal: bool, scale: float,
 flash_fwd.launches = 0
 
 
+def _launch_flash_bwd(fn: str, q, k, v, do, lse, delta, outs, causal: bool,
+                      scale: float, lib_name: str = "flash_bwd.cu") -> None:
+    """Launch kernel ``fn`` (flash_bwd_dq or flash_bwd_dkv) of the build
+    ``lib_name`` of ``csrc/flash_bwd.cu`` into ``outs``."""
+    _check_attention(fn, q, k, v, do)
+    _check_rows(fn, q, lse=lse, delta=delta)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    plan = flash_bwd_plan(sq, sk, d, q.dtype)
+    part = plan.dq if fn == "flash_bwd_dq" else plan.dkv
+    lib = build(extra=(lib_name,))[lib_name]
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = getattr(lib, "dcnn_" + fn)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
+            b * h, sq, sk, d, int(causal), float(scale),
+            int(q.dtype == torch.bfloat16), part.rows, part.tile, part.stages,
+            part.smem, stream)
+    _raise_on(lib, fn, err)
+
+
 def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  do: torch.Tensor, lse: torch.Tensor, delta: torch.Tensor, *,
                  causal: bool, scale: float) -> torch.Tensor:
     """Launch the dQ kernel of ``csrc/flash_bwd.cu``: q and the output
-    cotangent ``do`` (B, H, Sq, D), k and v (B, H, Sk, D), contiguous CUDA
-    tensors of fp32 or bf16; ``lse`` the forward's logsumexp and ``delta``
-    = rowsum(dO * O), both (B, H, Sq) fp32. Returns dQ like q."""
-    _check_attention("flash_bwd_dq", q, k, v, do)
-    _check_rows("flash_bwd_dq", q, lse=lse, delta=delta)
-    b, h, sq, d = q.shape
-    lib = build()["flash_bwd.cu"]
+    cotangent ``do`` (B, H, Sq, D), k and v (B, H, Sk, D), contiguous,
+    16-byte aligned CUDA tensors of fp32 or bf16 (D as :func:`flash_fwd`
+    takes it), tiled by :func:`flash_bwd_plan`; ``lse`` the forward's
+    logsumexp and ``delta`` = rowsum(dO * O), both (B, H, Sq) fp32. Returns
+    dQ like q."""
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.dcnn_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b * h, sq,
-            k.shape[2], d, int(causal), float(scale),
-            int(q.dtype == torch.bfloat16), stream)
-    _raise_on(lib, "flash_bwd_dq", err)
+    _launch_flash_bwd("flash_bwd_dq", q, k, v, do, lse, delta, (dq,),
+                      causal, scale)
     flash_bwd_dq.launches += 1
     return dq
 
@@ -349,19 +513,9 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dK/dV kernel of ``csrc/flash_bwd.cu`` on the inputs
     :func:`flash_bwd_dq` takes. Returns (dK like k, dV like v)."""
-    _check_attention("flash_bwd_dkv", q, k, v, do)
-    _check_rows("flash_bwd_dkv", q, lse=lse, delta=delta)
-    b, h, sq, d = q.shape
-    lib = build()["flash_bwd.cu"]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.dcnn_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            b * h, sq, k.shape[2], d, int(causal), float(scale),
-            int(q.dtype == torch.bfloat16), stream)
-    _raise_on(lib, "flash_bwd_dkv", err)
+    _launch_flash_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv),
+                      causal, scale)
     flash_bwd_dkv.launches += 1
     return dk, dv
 

@@ -69,14 +69,14 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def _online_softmax(q, k, v, *, causal: bool, block_kv: int, scale: float,
-                    mask: Optional[torch.Tensor], round_p: bool = False
+                    mask: Optional[torch.Tensor]
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Online softmax over K/V tiles of ``block_kv`` keys; never holds the
     (Sq, Sk) score matrix. Running state (acc, m, l) is at least fp32
-    whatever the input dtype. ``round_p``: P is rounded to V's dtype before
-    P·V (l sums it before), as the flash kernels do. Returns (O in q's
-    dtype, logsumexp (B, H, Sq) in the state dtype). Fully-masked rows give
-    O = 0."""
+    whatever the input dtype. P is rounded to V's dtype before P·V (l sums
+    it before), as the JAX package's ``_online_block`` and the flash
+    kernels do. Returns (O in q's dtype, logsumexp (B, H, Sq) in the state
+    dtype). Fully-masked rows give O = 0."""
     b, h, sq, d = q.shape
     sk = k.shape[2]
     acc_dt = torch.promote_types(q.dtype, torch.float32)
@@ -105,9 +105,8 @@ def _online_softmax(q, k, v, *, causal: bool, block_kv: int, scale: float,
             p = p.masked_fill(~allowed, 0.0)
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
-        if round_p:
-            p = p.to(v.dtype).to(acc_dt)
-        acc = acc * corr[..., None] + torch.matmul(p, vf[:, :, start:end])
+        p_v = p.to(v.dtype).to(acc_dt)
+        acc = acc * corr[..., None] + torch.matmul(p_v, vf[:, :, start:end])
         m = m_new
     l_fin = torch.clamp_min(l, 1e-30)
     return (acc / l_fin[..., None]).to(q.dtype), m + torch.log(l_fin)
@@ -146,7 +145,7 @@ def flash_forward_reference(q: torch.Tensor, k: torch.Tensor,
     if scale is None:
         scale = q.shape[-1] ** -0.5
     return _online_softmax(q, k, v, causal=causal, block_kv=block_kv,
-                           scale=float(scale), mask=None, round_p=True)
+                           scale=float(scale), mask=None)
 
 
 def _check_qkv(q, k, v) -> None:
@@ -163,15 +162,36 @@ def _check_qkv(q, k, v) -> None:
         raise ValueError("q/k/v on different devices")
 
 
+def _for_kernel(t: torch.Tensor, width: int) -> torch.Tensor:
+    """``t`` as the flash kernels take it: contiguous, 16-byte aligned, its
+    head dim ``width`` (zero columns added). Copies only where ``t`` is not
+    so already."""
+    if t.shape[-1] != width:
+        return torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+    if not t.is_contiguous():
+        return t.contiguous()
+    if t.data_ptr() % 16:
+        return t.clone()
+    return t
+
+
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool, scale: float
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(O, logsumexp (B, H, Sq) fp32). A CUDA tensor goes to the Hopper
-    kernel, which raises on what it cannot take; a CPU tensor goes to the
-    plain version. There is no other route."""
+    kernel, which raises on what it cannot take (a head dim above 128, a
+    dtype other than fp32 or bf16); strided or misaligned views are copied
+    first, and a head dim whose rows are not whole 16-byte units is padded
+    with zero columns, which add nothing to the scores, and cut off the
+    output. A CPU tensor goes to the plain version. There is no other
+    route."""
     _check_qkv(q, k, v)
     if q.device.type == "cuda":
-        return _kernels.flash_fwd(q, k, v, causal=causal, scale=scale)
+        d = q.shape[-1]
+        w = _kernels.flash_head_width(d, q.dtype)
+        o, lse = _kernels.flash_fwd(*(_for_kernel(t, w) for t in (q, k, v)),
+                                    causal=causal, scale=scale)
+        return (o if w == d else o[..., :d]), lse
     if q.device.type == "cpu":
         return flash_forward_reference(q, k, v, causal=causal, scale=scale)
     raise RuntimeError(f"flash_attention: no implementation for {q.device}")
@@ -234,16 +254,23 @@ def _flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool, scale: float
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dQ, dK, dV). CUDA tensors go to the two Hopper kernels, which raise
-    on what they cannot take; Δ = rowsum(dO·O) is computed here in fp32, as
-    the JAX package computes it outside its kernels. CPU tensors go to the
-    plain version. There is no other route."""
+    on what they cannot take, after the copies and padding of
+    :func:`_flash_forward` (dO too); Δ = rowsum(dO·O) is computed here in
+    fp32, as the JAX package computes it outside its kernels. CPU tensors
+    go to the plain version. There is no other route."""
     _check_qkv(q, k, v)
     if q.device.type == "cuda":
         delta = (g.float() * o.float()).sum(-1)
-        dq = _kernels.flash_bwd_dq(q, k, v, g, lse, delta, causal=causal,
+        d = q.shape[-1]
+        w = _kernels.flash_head_width(d, q.dtype)
+        qc, kc, vc, gc = (_for_kernel(t, w) for t in (q, k, v, g))
+        lse = lse.contiguous()
+        dq = _kernels.flash_bwd_dq(qc, kc, vc, gc, lse, delta, causal=causal,
                                    scale=scale)
-        dk, dv = _kernels.flash_bwd_dkv(q, k, v, g, lse, delta,
+        dk, dv = _kernels.flash_bwd_dkv(qc, kc, vc, gc, lse, delta,
                                         causal=causal, scale=scale)
+        if w != d:
+            dq, dk, dv = (t[..., :d] for t in (dq, dk, dv))
         return dq, dk, dv
     if q.device.type == "cpu":
         return flash_backward_reference(q, k, v, o, lse, g, causal=causal,
@@ -266,7 +293,7 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, g):
         q, k, v, o, lse = ctx.saved_tensors
         # the head merge after the forward hands the cotangent back
-        # transposed; the kernels take contiguous rows only
+        # transposed; both paths take it in contiguous rows
         grads = _flash_backward(q, k, v, o, lse, g.contiguous(),
                                 causal=ctx.causal, scale=ctx.scale)
         return (*grads, None, None)

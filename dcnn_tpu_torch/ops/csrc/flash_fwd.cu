@@ -12,7 +12,9 @@
 // for a fully masked row (the backward kernels read it).
 //
 // Design. One block per (batch*head, tile of q_rows = 64 or 128 q rows),
-// the heaviest causal tiles first. Warpgroup 0 copies, warpgroups 1-2 (one
+// on a 1-d grid (any batch*head), the heaviest causal tiles first. Any head
+// dim d <= 128 runs as its class D (16, 32, 64 or 128; flash.cuh): columns
+// d .. D - 1 are the copy's zero fill. Warpgroup 0 copies, warpgroups 1-2 (one
 // per 64 q rows) multiply. One thread issues every TMA: the Q tile once,
 // then each kv tile's K and V into a ring of up to 4 stages with full/empty
 // mbarriers; the copy's out-of-bounds zero fill covers ragged Sq, Sk and D.
@@ -57,19 +59,21 @@
 #include <cuda_bf16.h>
 #include <math.h>
 
+#include "flash.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kRow = 128;          // bytes of a staged row: a 128-byte chunk of D (or of keys)
 constexpr int kThreads = 384;      // warpgroup 0 copies, 1-2 multiply
 constexpr int kMaxStages = 4;
-constexpr float kNeg = -1e30f;     // a masked score and an empty row's max; its logsumexp
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
+#ifdef FLASH_TRACE
+constexpr bool kTrace = true;
+#else
+constexpr bool kTrace = false;
+#endif
 
-// The tile format, mirrored by _kernels.flash_plan (which sizes the block's
-// shared memory from the same formula)
+// The tile format for head-dim class D, mirrored by _kernels.flash_plan
+// (which sizes the block's shared memory from the same formula)
 template <typename T, int D>
 struct Tile {
   static constexpr int kEs = sizeof(T);
@@ -90,130 +94,18 @@ struct Tile {
   }
 };
 
-// Clock counts of the steady passes for one thread of each multiplying
-// warpgroup, kept only when built with -DFLASH_TRACE (a diagnostic build;
-// dcnn_flash_fwd_trace reads them, summed over blocks): [0] waiting for
-// the tile, [1] for the turn, [2] issuing S and P V, [3] waiting for S,
-// [4] the softmax, [5] waiting for P V, [6] O's rescale and P to the A
-// form, [7] the passes
-#ifdef FLASH_TRACE
+// Clock counts of the steady passes (the -DFLASH_TRACE build;
+// dcnn_flash_fwd_trace reads them): [0] waiting for the tile, [1] for the
+// turn, [2] issuing S and P V, [3] waiting for S, [4] the softmax, [5]
+// waiting for P V, [6] O's rescale and P to the A form, [7] the passes
 __device__ unsigned long long g_trace[2][8];
-struct PassClock {
-  long long t = 0, sum[8] = {};
-  __device__ __forceinline__ void start() { t = clock64(); }
-  __device__ __forceinline__ void lap(int i) {
-    const long long now = clock64();
-    sum[i] += now - t;
-    t = now;
-  }
-  __device__ void save(int wg, bool keep) {
-    if (keep)
-      for (int i = 0; i < 8; ++i) atomicAdd(&g_trace[wg][i], (unsigned long long)sum[i]);
-  }
-};
-#else
-struct PassClock {
-  __device__ __forceinline__ void start() {}
-  __device__ __forceinline__ void lap(int) {}
-  __device__ __forceinline__ void save(int, bool) {}
-};
-#endif
 
 struct Params {
   void* o;
   float* lse;
-  int sq, sk, causal, q_rows, stages, n_qtiles;
+  int sq, sk, d, causal, q_rows, stages, n_qtiles, bh;
   float scale_log2;  // scale * log2(e): the softmax runs in base 2
 };
-
-__device__ __forceinline__ void store2(float* p, float a, float b) {
-  *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
-}
-
-// 2^x on the special-function unit (relative error about 2^-22; results
-// below 2^-126 flush to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// fp32: `cells` 16-byte cells of hi, split in place into tf32 hi and, at
-// the same offsets of lo, tf32(x - hi)
-__device__ void split_cells(uint8_t* hi, uint8_t* lo, int cells, int tid, int nthr) {
-  for (int i = tid; i < cells; i += nthr) {
-    float4 v = reinterpret_cast<float4*>(hi)[i], r;
-    float* a = reinterpret_cast<float*>(&v);
-    float* b = reinterpret_cast<float*>(&r);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float h = __uint_as_float(to_tf32(a[e]));
-      b[e] = __uint_as_float(to_tf32(a[e] - h));
-      a[e] = h;
-    }
-    reinterpret_cast<float4*>(hi)[i] = v;
-    reinterpret_cast<float4*>(lo)[i] = r;
-  }
-}
-
-// The place of key r of a tile in V^T: within each group of 8 keys, key 2t
-// goes to column t and key 2t + 1 to column t + 4, where the A operand of
-// tf32 wgmma reads the P fragment's columns 2t and 2t + 1
-__device__ __forceinline__ int key_pos(int r) {
-  return (r & ~7) | ((r & 1) << 2) | ((r & 7) >> 1);
-}
-
-// fp32: the landed V tile ((key, d) rows in chunks of 32 d) to V^T hi and lo
-// ((d, key) rows in chunks of 32 keys, keys placed by key_pos), 128-byte
-// swizzle on both sides
-template <int D>
-__device__ void transpose_v(const uint8_t* v, uint8_t* vt_hi, uint8_t* vt_lo, int tid, int nthr) {
-  using L = Tile<float, D>;
-  for (int i = tid; i < L::kDC * L::kBKV * 8; i += nthr) {
-    const int j = i & 7, r = (i >> 3) % L::kBKV, c = i / (8 * L::kBKV);
-    const float4 x = *reinterpret_cast<const float4*>(v + c * L::kBKV * kRow + r * kRow +
-                                                      ((j ^ (r & 7)) << 4));
-    const float* xe = reinterpret_cast<const float*>(&x);
-    const int kk = key_pos(r), kc = kk >> 5, ki = kk & 31;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int d = c * 32 + 4 * j + e;
-      const int off = kc * L::kDP * kRow + d * kRow + (((ki >> 2) ^ (d & 7)) << 4) + 4 * (ki & 3);
-      const float h = __uint_as_float(to_tf32(xe[e]));
-      *reinterpret_cast<float*>(vt_hi + off) = h;
-      *reinterpret_cast<float*>(vt_lo + off) = __uint_as_float(to_tf32(xe[e] - h));
-    }
-  }
-}
-
-// named barriers between the two multiplying warpgroups (256 threads)
-__device__ __forceinline__ void named_sync(int id) {
-  asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
-}
-__device__ __forceinline__ void named_arrive(int id) {
-  asm volatile("bar.arrive %0, 256;" ::"r"(id) : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void hold_regs(uint32_t (&a)[N][4]) {
-#pragma unroll
-  for (int s = 0; s < N; ++s)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[s][i])::"memory");
-}
 
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads, 1)
@@ -233,8 +125,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* ready = full + kMaxStages;  // fp32: the stage split and V transposed
   uint64_t* empty = ready + kMaxStages;
   const int nwg = p.q_rows / 64;
-  const int qt = p.n_qtiles - 1 - blockIdx.x;
-  const int bh = blockIdx.y, q0 = qt * p.q_rows, offset = p.sk - p.sq;
+  // one block per (q tile, batch*head), the heaviest causal q tiles first
+  const int qt = p.n_qtiles - 1 - (int)(blockIdx.x / p.bh);
+  const int bh = blockIdx.x % p.bh, q0 = qt * p.q_rows, offset = p.sk - p.sq;
   // the kv tiles holding an allowed pair for a real row of this q tile
   int n_kv = (p.sk + kBKV - 1) / kBKV;
   if (p.causal) {
@@ -286,7 +179,8 @@ __global__ void __launch_bounds__(kThreads, 1)
           mbar_wait(full + s, (t / p.stages) & 1);
           uint8_t* st = ring + s * L::kStage;
           split_cells(st, st + 2 * L::kKV, L::kKV / 16, st_tid, 96);
-          transpose_v<D>(st + L::kKV, st + 3 * L::kKV, st + 3 * L::kKV + L::kVt, st_tid, 96);
+          transpose_split<L::kDP>(st + L::kKV, nullptr, st + 3 * L::kKV, st + 3 * L::kKV + L::kVt,
+                                  kBKV, st_tid, 96);
           fence_proxy_async();
           mbar_arrive(ready + s);
         }
@@ -479,7 +373,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     fence_regs(sc);
     softmax(0, corr);
     to_operand(corr);
-    PassClock clk;
+    PassClock<kTrace> clk;
     for (int t = 1; t < n_live; ++t) {
       clk.start();
       wait_tile(t);
@@ -502,10 +396,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       to_operand(corr);
       clk.lap(6);
     }
-#ifdef FLASH_TRACE
-    clk.sum[7] = n_live - 1;
-#endif
-    clk.save(wg, (ct & 127) == 0);
+    clk.save(g_trace, wg, n_live - 1, (ct & 127) == 0);
     turn_begin();
     issue_pv(stage_of(n_live - 1));
     turn_end();
@@ -533,10 +424,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int row = row0 + 8 * h;
     if (row >= p.sq) continue;
     const float l_fin = fmaxf(sum, 1e-30f);
-    T* orow = out + ((size_t)bh * p.sq + row) * D;
+    T* orow = out + ((size_t)bh * p.sq + row) * p.d;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
-      store2(orow + 8 * j + 2 * t4, o[4 * j + 2 * h] / l_fin, o[4 * j + 2 * h + 1] / l_fin);
+      if (8 * j + 2 * t4 < p.d)  // d is even: a pair is stored whole or not at all
+        store2(orow + 8 * j + 2 * t4, o[4 * j + 2 * h] / l_fin, o[4 * j + 2 * h + 1] / l_fin);
     if (t4 == 0)
       p.lse[(size_t)bh * p.sq + row] = m[h] == kNeg ? kNeg : m[h] * kLn2 + logf(l_fin);
   }
@@ -544,8 +436,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int sq,
-                   int sk, int causal, float scale, int q_rows, int kv_tile, int stages, int smem,
-                   cudaStream_t stream) {
+                   int sk, int d, int causal, float scale, int q_rows, int kv_tile, int stages,
+                   int smem, cudaStream_t stream) {
   using L = Tile<T, D>;
   // two stages at least where there are two kv tiles: a pass holds the
   // previous tile's stage while it waits for the next
@@ -561,24 +453,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
     if (err != cudaSuccess) return err;
     raised = true;
   }
-  // (bh, s, D) as 3-d tensors, D innermost; boxes of one 128-byte chunk of D
-  // by q_rows or kv_tile rows, zero beyond D, beyond s
+  // (bh, s, d) as 3-d tensors, d innermost; boxes of one 128-byte chunk of D
+  // by q_rows or kv_tile rows, zero beyond d, beyond s
   CUtensorMap maps[3] = {};
   const void* ptrs[3] = {q, k, v};
   for (int i = 0; i < 3; ++i) {
     const cuuint64_t rows = i == 0 ? sq : sk;
-    const cuuint64_t dims[3] = {(cuuint64_t)D, rows, (cuuint64_t)bh};
-    const cuuint64_t strides[2] = {(cuuint64_t)D * L::kEs, rows * D * L::kEs};
+    const cuuint64_t dims[3] = {(cuuint64_t)d, rows, (cuuint64_t)bh};
+    const cuuint64_t strides[2] = {(cuuint64_t)d * L::kEs, rows * d * L::kEs};
     const cuuint32_t box[3] = {(cuuint32_t)L::kChunkE, (cuuint32_t)(i == 0 ? q_rows : kv_tile), 1};
     if (!encode(&maps[i], !L::kF32, 3, ptrs[i], dims, strides, box)) return cudaErrorInvalidValue;
   }
   Params p;
   p.o = o;
   p.lse = static_cast<float*>(lse);
-  p.sq = sq, p.sk = sk, p.causal = causal, p.q_rows = q_rows, p.stages = stages;
+  p.sq = sq, p.sk = sk, p.d = d, p.causal = causal, p.q_rows = q_rows, p.stages = stages;
   p.n_qtiles = (sq + q_rows - 1) / q_rows;
+  p.bh = bh;
   p.scale_log2 = scale * kLog2e;
-  kernel<<<dim3(p.n_qtiles, bh), 128 + 2 * q_rows, smem, stream>>>(maps[0], maps[1], maps[2], p);
+  if ((long long)p.n_qtiles * bh > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<p.n_qtiles * bh, 128 + 2 * q_rows, smem, stream>>>(maps[0], maps[1], maps[2], p);
   return cudaGetLastError();
 }
 
@@ -586,11 +480,11 @@ template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                      int sq, int sk, int d, int causal, float scale, int q_rows, int kv_tile,
                      int stages, int smem, cudaStream_t s) {
-  switch (d) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, bh, sq, sk, causal, scale, q_rows, kv_tile, stages, smem, s);
-    case 32: return launch<T, 32>(q, k, v, o, lse, bh, sq, sk, causal, scale, q_rows, kv_tile, stages, smem, s);
-    case 64: return launch<T, 64>(q, k, v, o, lse, bh, sq, sk, causal, scale, q_rows, kv_tile, stages, smem, s);
-    case 128: return launch<T, 128>(q, k, v, o, lse, bh, sq, sk, causal, scale, q_rows, kv_tile, stages, smem, s);
+  switch (head_class(d)) {
+    case 16: return launch<T, 16>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile, stages, smem, s);
+    case 32: return launch<T, 32>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile, stages, smem, s);
+    case 64: return launch<T, 64>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile, stages, smem, s);
+    case 128: return launch<T, 128>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile, stages, smem, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -600,7 +494,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void*
 extern "C" {
 
 // q, k, v, o: contiguous (bh, s, d) of fp32 (is_bf16 = 0) or bf16 (is_bf16 =
-// 1), 16-byte aligned; lse: contiguous (bh, sq) fp32. The plan
+// 1), 16-byte aligned, 1 <= d <= 128 with rows of whole 16-byte units (the
+// TMA copy's rule); lse: contiguous (bh, sq) fp32. The plan
 // (_kernels.flash_plan): q_rows (64 or 128) a block, kv_tile keys a stage,
 // stages of the K/V ring, smem the block's dynamic shared memory in bytes;
 // a plan this build would lay out otherwise is refused. Returns the
@@ -609,8 +504,9 @@ int dcnn_flash_fwd(const void* q, const void* k, const void* v, void* o, void* l
                    int sk, int d, int causal, float scale, int is_bf16, int q_rows, int kv_tile,
                    int stages, int smem, void* stream) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                          reinterpret_cast<uintptr_t>(v);
-  if (bh < 1 || bh > 65535 || sq < 1 || sk < 1 || align % 16) return cudaErrorInvalidValue;
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  if (bh < 1 || sq < 1 || sk < 1 || d < 1 || d * (is_bf16 ? 2 : 4) % 16 || align % 16)
+    return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows,

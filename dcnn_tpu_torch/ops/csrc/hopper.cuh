@@ -1,5 +1,5 @@
 // Hopper (sm_90a) helpers shared by the port's tensor-core kernels
-// (conv3x3_tc.cu, flash_fwd.cu): mbarriers, TMA copies and their tensor
+// (conv3x3_tc.cu, flash_fwd.cu, flash_bwd.cu): mbarriers, TMA copies and their tensor
 // maps, the 128-byte-swizzle wgmma descriptor, and the wgmma products in
 // the forms those kernels issue. _kernels._lib_path hashes this header
 // with each source, so an edit rebuilds every library that includes it.
@@ -124,6 +124,27 @@ __device__ __forceinline__ void wgmma_wait1() {
 // m64nNk8 for tf32; B by descriptor in shared memory
 template <int N>
 struct Wgmma;
+template <> struct Wgmma<16> {
+  // A and B both by descriptor, both K-major
+  static __device__ __forceinline__ void ss_bf16(float* d, uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void ss_tf32(float* d, uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(1));
+  }
+};
 template <> struct Wgmma<32> {
   // A (64 x k) in registers; B by descriptor; tnsp 1: B MN-major
   template <int TNSP>

@@ -1,11 +1,11 @@
-"""Where the time of ``csrc/flash_fwd.cu`` goes, by phase of its steady
-passes.
+"""Where the time of ``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu`` goes,
+by phase of their steady passes.
 
     python3 -m dcnn_tpu_torch.ops.flash_stages   # on a machine with an H100
 
 Launches the diagnostic build :data:`_kernels.FLASH_TRACE` (the source built
 with ``-DFLASH_TRACE``: clock64 counters for one thread of each multiplying
-warpgroup, see ``struct PassClock`` in the source) through
+warpgroup, see ``struct PassClock`` in ``csrc/flash.cuh``) through
 :func:`_kernels._launch_flash`, runs each case twice and prints the mean SM
 clock cycles per steady pass (one kv tile: S of this tile and P·V of the
 previous one issued, the softmax between) of each warpgroup: waiting for
@@ -14,6 +14,14 @@ the tile (``wait_tile``), for its turn to issue (``wait_turn``), issuing
 (``wait_pv``), and O's rescale with P's conversion (``to_operand``). The
 counters cost a few percent of the kernel's time. The public wrapper never
 launches that build.
+
+Then the same for the backward's diagnostic build
+:data:`_kernels.FLASH_BWD_TRACE` (``-DFLASH_BWD_TRACE``), launched through
+:func:`_kernels._launch_flash_bwd`: per live pass of the dQ and the dK/dV
+kernel (one streamed tile), waiting for the tile, issuing (S and dP; then
+dQ, or dV and dK), waiting for S and dP (``wait_sdp``), building P, dS and
+their A operands (``p_ds``), waiting for the accumulating products
+(``wait_acc``) and the release.
 
 Exits 1 without a GPU.
 """
@@ -60,6 +68,48 @@ def stage_counts() -> None:
                   + f" over {passes:.0f} passes", flush=True)
 
 
+BWD_NAMES = ("wait_tile", "issue", "wait_sdp", "p_ds", "wait_acc",
+             "release")
+
+
+def bwd_stage_counts() -> None:
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.ops import _kernels
+
+    name = _kernels.FLASH_BWD_TRACE
+    lib = _kernels.build(extra=(name,))[name]
+    counts = np.zeros((2, 2, 8), dtype=np.uint64)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for b, h, sq, sk, d, causal, dtn in CASES + [(32, 4, 32, 32, 16, False,
+                                                  "float32")]:
+        dt = getattr(torch, dtn)
+        q, k, v, g = (torch.randn(b, h, s, d, device="cuda",
+                                  generator=gen).to(dt) for s in (sq, sk, sk, sq))
+        o, lse = _kernels.flash_fwd(q, k, v, causal=causal, scale=d ** -0.5)
+        delta = (g.float() * o.float()).sum(-1)
+        plan = _kernels.flash_bwd_plan(sq, sk, d, dt)
+        for kern, fn, outs in ((0, "flash_bwd_dq", (torch.empty_like(q),)),
+                               (1, "flash_bwd_dkv", (torch.empty_like(k),
+                                                     torch.empty_like(v)))):
+            for _ in range(2):  # the second run's counts
+                lib.dcnn_flash_bwd_trace(counts.ctypes.data)
+                _kernels._launch_flash_bwd(fn, q, k, v, g, lse, delta, outs,
+                                           causal, d ** -0.5, lib_name=name)
+                torch.cuda.synchronize()
+            lib.dcnn_flash_bwd_trace(counts.ctypes.data)
+            part = plan.dq if kern == 0 else plan.dkv
+            for wg in range(part.rows // 64):
+                c = counts[kern, wg].astype(np.float64)
+                passes = max(c[7], 1.0)
+                print(f"{fn} B={b} H={h} Sq={sq} Sk={sk} D={d} causal={causal}"
+                      f" {dtn} [{part}] warpgroup {wg}: cycles per live pass "
+                      + ", ".join(f"{n}={x / passes:.0f}"
+                                  for n, x in zip(BWD_NAMES, c))
+                      + f" over {passes:.0f} passes", flush=True)
+
+
 def main() -> None:
     import torch
 
@@ -67,6 +117,7 @@ def main() -> None:
         print("flash_stages: needs a GPU", file=sys.stderr)
         sys.exit(1)
     stage_counts()
+    bwd_stage_counts()
 
 
 if __name__ == "__main__":

@@ -6,8 +6,8 @@ two checkouts on one card in one call.
 imports ``dcnn_tpu_torch`` from the checkout at ROOT (default: the one this
 file is in), builds its kernels and prints one line tagged TAG: the 3×3
 conv, BN-prologue conv and (Cout ≤ 64) pairs conv at the JAX conv bench's
-shapes (bf16, B=256) and ResNet-18 sites (B=32), and the flash forward at
-the long-context, model and causal-ragged shapes of ``chip_smoke.py``. Each
+shapes (bf16, B=256) and ResNet-18 sites (B=32), and the flash forward,
+dQ and dK/dV kernels at the shapes of ``chip_smoke.py``'s FLASH_CASES. Each
 time is the mean of a CUDA graph of calls, between CUDA events; the pairs
 conv's fused weights are made before the timed calls. Run parent, change,
 change, parent in one call: two calls may land on two cards.
@@ -25,9 +25,12 @@ CONVS = [  # N, H, W, Cin, Cout, dtype name, calls a graph
     (256, 8, 8, 512, 512, "bfloat16", 5), (32, 32, 32, 64, 64, "float32", 20),
     (32, 16, 16, 128, 128, "float32", 20), (32, 4, 4, 512, 512, "float32", 20),
     (32, 32, 32, 64, 64, "bfloat16", 20)]
-FLASH = [  # B, H, S, D, dtype name, causal, calls a graph
-    (4, 8, 4096, 64, "bfloat16", True, 5), (32, 4, 32, 16, "float32", False, 50),
-    (2, 4, 1000, 64, "float32", True, 50)]
+FLASH = [  # B, H, Sq, Sk, D, dtype name, causal, calls a graph: chip_smoke.py's FLASH_CASES
+    (4, 8, 4096, 4096, 64, "bfloat16", True, 5), (32, 4, 32, 32, 16, "float32", False, 50),
+    (2, 4, 1000, 1000, 64, "float32", True, 50), (2, 3, 77, 300, 128, "float32", True, 50),
+    (1, 2, 200, 10, 32, "float32", True, 50), (1, 2, 100, 165, 32, "float32", True, 50),
+    (1, 2, 300, 429, 64, "bfloat16", True, 50), (1, 2, 300, 365, 64, "float32", True, 50),
+    (1, 2, 100, 133, 128, "float32", True, 50)]
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -96,13 +99,21 @@ def main() -> None:
                 x, w2, out_dtype=dt), reps)
             line += f" pairs {pairs:.6f}"
         out.append(line)
-    for b, h, s, d, dtn, causal, reps in FLASH:
+    for b, h, sq, sk, d, dtn, causal, reps in FLASH:
         dt = getattr(torch, dtn)
-        q, k, v = (torch.randn(b, h, s, d, device="cuda", generator=gen).to(dt)
-                   for _ in range(3))
+        q, k, v, g = (torch.randn(b, h, s, d, device="cuda",
+                                  generator=gen).to(dt) for s in (sq, sk, sk, sq))
+        scale = d ** -0.5
         ms = graph_ms(lambda: _kernels.flash_fwd(q, k, v, causal=causal,
-                                                 scale=d ** -0.5), reps)
-        out.append(f"flash B{b} H{h} S{s} D{d} {dtn} causal={causal} {ms:.6f}")
+                                                 scale=scale), reps)
+        o, lse = _kernels.flash_fwd(q, k, v, causal=causal, scale=scale)
+        delta = (g.float() * o.float()).sum(-1)
+        dq = graph_ms(lambda: _kernels.flash_bwd_dq(
+            q, k, v, g, lse, delta, causal=causal, scale=scale), reps)
+        dkv = graph_ms(lambda: _kernels.flash_bwd_dkv(
+            q, k, v, g, lse, delta, causal=causal, scale=scale), reps)
+        out.append(f"flash B{b} H{h} Sq{sq} Sk{sk} D{d} {dtn} causal={causal} {ms:.6f}"
+                   f" dq {dq:.6f} dkv {dkv:.6f}")
     print(f"{tag} ms: " + " | ".join(out), flush=True)
 
 

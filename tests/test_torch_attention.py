@@ -6,6 +6,13 @@ kernel in interpret mode, as ``tests/test_attention.py`` runs it on the
 CPU; the port's flash forward runs its plain version, which is what a CPU
 tensor gets. fp32 tolerance 1e-5: the same exact algorithm, summed in
 another order and over other tile sizes.
+
+bf16 (the blockwise op, which rounds P to V's type before P·V as the JAX
+``_online_block`` does): at most one bf16 ulp (relative 2^-7, absolute
+1e-6 near zero) and bit-identical in all but 1e-3 of the outputs. The
+rest come from XLA's and PyTorch's fp32 ``exp`` differing in the last bit
+(on about a tenth of inputs), which now and then flips the bf16 rounding of
+a P or of an output.
 """
 
 import importlib
@@ -45,6 +52,8 @@ def _j(*arrays):
     (False, 40, 72, 64),    # ragged: neither length a multiple of the tile
     (True, 40, 72, 64),     # causal diagonal offset sk - sq > 0
     (True, 72, 40, 16),     # sq > sk: the first 32 rows are fully masked
+    (True, 40, 72, 8),      # head dims between the kernels' classes
+    (False, 40, 72, 48),
 ])
 def test_flash_plain_matches_pallas_interpret(causal, sq, sk, d):
     """O and the logsumexp of the port's plain flash forward against the
@@ -98,6 +107,35 @@ def test_masked_attention_matches_jax(causal):
                                     block_kv=16, mask=m),
                 flash_attention(*_t(q, k, v), causal=causal, mask=m)):
         np.testing.assert_allclose(out.numpy(), ref, **TOL)
+
+
+BF16_ULP = dict(rtol=2 ** -7, atol=1e-6)
+
+
+def _bf16_parity(got, want):
+    got, want = got.float().numpy(), np.asarray(want.astype(jnp.float32))
+    np.testing.assert_allclose(got, want, **BF16_ULP)
+    assert (got != want).mean() <= 1e-3
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_blockwise_bf16_matches_jax(causal):
+    """bf16 inputs: the blockwise op and flash with a mask (which routes
+    to it) against the JAX ops, P rounded to V's type before P·V in both."""
+    q, k, v = _qkv(9, b=2, h=4, sq=64, sk=64, d=32)
+    qj, kj, vj = (a.astype(jnp.bfloat16) for a in _j(q, k, v))
+    qt, kt, vt = (t.bfloat16() for t in _t(q, k, v))
+    ref = jax_attn.blockwise_attention(qj, kj, vj, causal=causal, block_kv=16)
+    got = blockwise_attention(qt, kt, vt, causal=causal, block_kv=16)
+    assert got.dtype == torch.bfloat16
+    _bf16_parity(got, ref)
+    kmask = np.ones((2, 1, 1, 64), bool)
+    kmask[1, ..., 40:] = False
+    ref = jax_attn.flash_attention(qj, kj, vj, causal=causal,
+                                   mask=jnp.asarray(kmask))
+    got = flash_attention(qt, kt, vt, causal=causal,
+                          mask=torch.from_numpy(kmask))
+    _bf16_parity(got, ref)
 
 
 def test_fully_masked_rows_return_zero():

@@ -192,9 +192,154 @@ def test_backward_kernels_refuse_what_they_cannot_take():
     with pytest.raises(ValueError, match="delta must be contiguous fp32"):
         _kernels.flash_bwd_dkv(q, k, v, g, lse, delta.double(), causal=False,
                                scale=0.25)
-    with pytest.raises(ValueError, match="head dim"):
-        _kernels.flash_bwd_dq(*(t[..., :8].contiguous() for t in (q, k, v, g)),
-                              lse, delta, causal=False, scale=0.25)
+    with pytest.raises(ValueError, match="head dim 136"):
+        wide = [torch.zeros(*t.shape[:3], 136, device="cuda")
+                for t in (q, k, v, g)]
+        _kernels.flash_bwd_dq(*wide, lse, delta, causal=False, scale=0.25)
+
+
+def _backward_check(causal, sq, sk, d, dtype, b=2, h=3):
+    """Both backward kernels at one shape against the plain version,
+    relative to max |grad|; dQ of fully-masked rows exactly 0."""
+    q, k, v, g = (torch.from_numpy(a).to("cuda", dtype)
+                  for a in _arrays(9, sq, sk, d, b, h))
+    scale = d ** -0.5
+    o, lse = _kernels.flash_fwd(q, k, v, causal=causal, scale=scale)
+    delta = (g.float() * o.float()).sum(-1)
+    dq = _kernels.flash_bwd_dq(q, k, v, g, lse, delta, causal=causal,
+                               scale=scale)
+    dk, dv = _kernels.flash_bwd_dkv(q, k, v, g, lse, delta, causal=causal,
+                                    scale=scale)
+    torch.cuda.synchronize()
+    want = flash_backward_reference(q, k, v, o, lse, g, causal=causal,
+                                    scale=scale)
+    for name, got, ref in zip(("dq", "dk", "dv"), (dq, dk, dv), want):
+        assert got.dtype == dtype and got.shape == ref.shape, name
+        assert _rel_err(got, ref) <= TOL[dtype], (name, _rel_err(got, ref))
+    if causal and sq > sk:
+        assert dq[:, :, :sq - sk].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("d", _kernels.FLASH_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", _kernels.FLASH_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal,sq,sk", [
+    (False, 200, 333),   # ragged
+    (True, 300, 100),    # sq > sk: fully masked rows
+    (True, 150, 330),    # sq < sk
+    (True, 300, 429),    # band edges of the forward's tiles
+])
+def test_backward_kernels_every_head_dim_and_type(causal, sq, sk, d, dtype):
+    """Every head-dim class and type: each plan of flash_bwd_plan (the
+    dK/dV q tile 16, 32 or 64, one to four stages) on the card."""
+    _backward_check(causal, sq, sk, d, dtype, b=1, h=2)
+
+
+@pytest.mark.parametrize("d", [8, 48, 96])
+@pytest.mark.parametrize("dtype", _kernels.FLASH_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_kernels_take_any_head_dim(causal, d, dtype):
+    """A head dim between the classes runs as its class, the columns
+    beyond it the copy's zero fill: forward and both backward kernels."""
+    _flash_check(causal, 150, 200, d, dtype, b=1, h=2)
+    _backward_check(causal, 150, 200, d, dtype, b=1, h=2)
+
+
+@pytest.mark.parametrize("d", [5, 8, 48, 96])
+def test_flash_attention_any_head_dim_matches_cpu(d):
+    """Through ``flash_attention``: a head dim whose rows are not whole
+    16-byte units (5, fp32) is padded with zero columns before the launch
+    and cut after; forward and gradients match the CPU's plain path."""
+    q, k, v, w = _arrays(16, 40, 56, d, b=1, h=2)
+    outs, grads = {}, {}
+    for dev in ("cpu", "cuda"):
+        qkv = [torch.from_numpy(a).to(dev).requires_grad_()
+               for a in (q, k, v)]
+        out = flash_attention(*qkv, causal=True)
+        (out * torch.from_numpy(w).to(dev)).sum().backward()
+        outs[dev], grads[dev] = out.detach().cpu(), [t.grad.cpu() for t in qkv]
+    torch.testing.assert_close(outs["cuda"], outs["cpu"], atol=1e-4,
+                               rtol=1e-4)
+    for a, b in zip(grads["cuda"], grads["cpu"]):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_flash_attention_takes_strided_and_misaligned_views():
+    """q, k and v as strided views (heads split out of a (B, S, H, D)
+    tensor) and as a contiguous view 4 bytes off alignment: the op copies
+    them for the kernels, which refuse such views themselves."""
+    rng = np.random.default_rng(17)
+    x = torch.from_numpy(rng.normal(size=(3, 2, 48, 2, 32)).astype(
+        np.float32))
+    want = flash_attention(*(x[i].transpose(1, 2) for i in range(3)),
+                           causal=True)
+    xc = x.cuda()
+    views = [xc[i].transpose(1, 2) for i in range(3)]
+    assert not views[0].is_contiguous()
+    with pytest.raises(ValueError, match="q must be contiguous"):
+        _kernels.flash_fwd(*views, causal=True, scale=32 ** -0.5)
+    torch.testing.assert_close(flash_attention(*views, causal=True).cpu(),
+                               want, atol=1e-4, rtol=1e-4)
+    flat = torch.empty(views[0].numel() + 1, device="cuda")
+    off = flat[1:].view(views[0].shape)
+    off.copy_(views[0])
+    assert off.data_ptr() % 16
+    torch.testing.assert_close(
+        flash_attention(off, views[1].contiguous(), views[2].contiguous(),
+                        causal=True).cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_kernels_take_more_than_65535_heads():
+    """B*H = 65537 at tiny S: the grid is 1-d, so every (batch*head)
+    block runs; forward and both backward kernels against the plain
+    version."""
+    rng = np.random.default_rng(18)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(65537, 1, 8, 16)).astype(
+        np.float32)).cuda() for _ in range(4))
+    o, lse = _kernels.flash_fwd(q, k, v, causal=True, scale=0.25)
+    o_ref, lse_ref = flash_forward_reference(q, k, v, causal=True,
+                                             scale=0.25)
+    torch.cuda.synchronize()
+    assert (o - o_ref).abs().max().item() <= 1e-4
+    assert (lse - lse_ref).abs().max().item() <= 1e-4
+    delta = (g * o).sum(-1)
+    dq = _kernels.flash_bwd_dq(q, k, v, g, lse, delta, causal=True,
+                               scale=0.25)
+    dk, dv = _kernels.flash_bwd_dkv(q, k, v, g, lse, delta, causal=True,
+                                    scale=0.25)
+    want = flash_backward_reference(q, k, v, o, lse, g, causal=True,
+                                    scale=0.25)
+    torch.cuda.synchronize()
+    for got, ref in zip((dq, dk, dv), want):
+        assert _rel_err(got, ref) <= 1e-4
+
+
+def test_backward_kernels_in_a_cuda_graph():
+    """After their first calls the backward kernels can be captured in a
+    CUDA graph; replays give the eager answers."""
+    q, k, v, g = (torch.from_numpy(a).to("cuda", torch.bfloat16)
+                  for a in _arrays(19, 190, 190, 64))
+    o, lse = _kernels.flash_fwd(q, k, v, causal=True, scale=0.125)
+    delta = (g.float() * o.float()).sum(-1)
+
+    def grads():
+        return (_kernels.flash_bwd_dq(q, k, v, g, lse, delta, causal=True,
+                                      scale=0.125),
+                *_kernels.flash_bwd_dkv(q, k, v, g, lse, delta, causal=True,
+                                        scale=0.125))
+
+    want = grads()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side), torch.cuda.graph(graph):
+        got = grads()
+    torch.cuda.current_stream().wait_stream(side)
+    for t in got:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_flash_attention_gradient_on_card_matches_cpu():

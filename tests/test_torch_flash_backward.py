@@ -63,7 +63,7 @@ def _torch(a, dtype=torch.float32):
                             ).to(dtype)
 
 
-@pytest.mark.parametrize("d", [16, 64])
+@pytest.mark.parametrize("d", [8, 16, 48, 64])  # 8 and 48: between the classes
 @pytest.mark.parametrize("causal,sq,sk", [
     (True, 40, 40),    # ragged: 40 is not a multiple of the 16-row tile
     (False, 24, 56),   # cross-attention, Sq != Sk

@@ -15,7 +15,10 @@ Phases, each fatal on failure:
    version, one PyTorch library call computing the same function (a
    yardstick the port never calls) and the card's bound for the work;
    each case prints its plan (flash_plan, flash_bwd_plan), and the
-   long-context backward is also replayed from a CUDA graph;
+   long-context backward is also replayed from a CUDA graph; the cases
+   include head-dim class 256 (B2 H8 S2048 D256 bf16 causal timed against
+   SDPA and its bound; fp32 and bf16, causal and not, a ragged D), where
+   the fp32 backward must refuse D > 128;
 4. conv kernels: the same for the 3x3 implicit-GEMM convs (plain, BN
    prologue and output-column pairs, all on the tensor cores) and the
    fused scale/bias/ReLU, at the shapes of
@@ -47,7 +50,15 @@ Phases, each fatal on failure:
    ``InferenceEngine.from_model(..., fold=True)`` on CUDA, every answer held
    to the unfolded model on the CPU (relative to the logit scale), in two
    rounds on a dispatcher that warmed its buckets and a control round on
-   one that did not.
+   one that did not;
+9. train cnn: ``train_classification_model`` on full-width
+   ``resnet18_tiny_imagenet`` (NCHW) with the Tiny-ImageNet trainer's
+   recipe (AdamW under WarmupCosineAnnealing, softmax cross-entropy, B=32,
+   the synthetic loader with ``random_crop(4).horizontal_flip(0.5)``), 8
+   steps on CUDA and on the CPU from the same weights: per-step losses,
+   final params and BN running statistics against the CPU run; prints the
+   warm steps' train samples/s and the top device ops of one profiled
+   step.
 
 Then it prints ``{"kernels": [...]}`` on a line of its own and, last,
 ``{"ok": true, "device": {...}}``. Times come from CUDA events around CUDA
@@ -217,7 +228,20 @@ FLASH_CASES = [  # name, B, H, Sq, Sk, D, causal, dtype name, timing reps
     ("band edge, 128-key tiles", 1, 2, 300, 429, 64, True, "bfloat16", 50),
     ("band edge, 64-key tiles", 1, 2, 300, 365, 64, True, "float32", 50),
     ("band edge, 32-key tiles", 1, 2, 100, 133, 128, True, "float32", 50),
+    # head-dim class 256: O's (and dK's, dV's) columns in two groups, the
+    # fp32 forward in serial passes of 16-key tiles; causal and not, a
+    # ragged D; the fp32 backward refuses D > 128 (shared memory)
+    ("d256 long context", 2, 8, 2048, 2048, 256, True, "bfloat16", 5),
+    ("d256 ragged", 1, 2, 200, 333, 200, False, "bfloat16", 50),
+    ("d256 fp32", 1, 2, 300, 300, 256, False, "float32", 20),
+    ("d256 fp32 causal", 1, 2, 150, 330, 256, True, "float32", 20),
 ]
+
+
+def bwd_refused(dtn: str, d: int) -> bool:
+    """The fp32 backward takes D <= 128: its fixed operands as tf32 hi and
+    lo (Q and dO, or K and V) need 256 KB of shared memory at class 256."""
+    return dtn == "float32" and d > 128
 
 
 def phase_kernels():
@@ -316,6 +340,22 @@ def phase_bwd_kernels():
         scale = d ** -0.5
         o, lse = _kernels.flash_fwd(q, k, v, causal=causal, scale=scale)
         delta = (g.float() * o.float()).sum(-1)
+        if bwd_refused(dtn, d):
+            before = (_kernels.flash_bwd_dq.launches,
+                      _kernels.flash_bwd_dkv.launches)
+            for fn in (_kernels.flash_bwd_dq, _kernels.flash_bwd_dkv):
+                try:
+                    fn(q, k, v, g, lse, delta, causal=causal, scale=scale)
+                except ValueError as e:
+                    msg = str(e)
+                else:
+                    fail(f"{fn.__name__} [{name}]: fp32 D={d} was not refused")
+            if before != (_kernels.flash_bwd_dq.launches,
+                          _kernels.flash_bwd_dkv.launches):
+                fail(f"flash backward [{name}]: a refused call launched")
+            print(f"flash_bwd [{name}] D={d} {dtn}: refused as planned "
+                  f"({msg})", flush=True)
+            continue
 
         def dq_kernel():
             return _kernels.flash_bwd_dq(q, k, v, g, lse, delta,
@@ -588,6 +628,66 @@ def marker_task(rng, n=256, s=32, e=64):
     return x, np.eye(10, dtype=np.float32)[y_idx]
 
 
+# the bands of RMS gradient (lower edges) over which a param comparison
+# reports its elements and largest difference
+ADAM_BANDS = (0.0, 1e-8, 1e-7, 1e-6, 1e-5, 1e-4)
+
+
+def adam_param_diff(p_gpu, p_cpu, v_cpu, steps, lr, b1, b2, what,
+                    atol=TRAIN_PARAM_ATOL):
+    """Final params of a CUDA run against the CPU run of the same Adam
+    training: Adam's RMS gradient per element, from the CPU run's second
+    moment ``v_cpu``, decides which tolerance holds (see GRAD_FLOOR); fails
+    when either is exceeded. Returns (max |diff| where the RMS gradient >=
+    GRAD_FLOOR (held to ``atol``), max |diff| below it, elements below,
+    elements, [elements, max |diff|] per ADAM_BANDS band, the step
+    bound)."""
+    import numpy as np
+
+    bc2 = 1.0 - b2 ** steps
+    step_bound = 2 * steps * lr * (1 - b1) / math.sqrt(1 - b2)
+    flat = []
+
+    def walk(a, b, v):
+        if isinstance(a, dict):
+            for key in a:
+                walk(a[key], b[key], v[key])
+        elif isinstance(a, (tuple, list)):
+            for ai, bi, vi in zip(a, b, v):
+                walk(ai, bi, vi)
+        else:
+            flat.append((np.asarray(a), np.asarray(b), np.asarray(v)))
+
+    walk(p_gpu, p_cpu, v_cpu)
+    worst = worst_noise = 0.0
+    n_noise = n_all = 0
+    edges = (*ADAM_BANDS, math.inf)
+    bins = [[0, 0.0] for _ in edges[1:]]  # elements, max |diff| per band
+    for a, b, v in flat:
+        diff = np.abs(a - b)
+        if not np.all(np.isfinite(a)):
+            fail(f"{what}: non-finite params on CUDA")
+        rms = np.sqrt(v / bc2)
+        for i, (lo, hi) in enumerate(zip(edges, edges[1:])):
+            band = (rms >= lo) & (rms < hi)
+            if band.any():
+                bins[i][0] += int(band.sum())
+                bins[i][1] = max(bins[i][1], float(diff[band].max()))
+        noise = rms < GRAD_FLOOR
+        n_noise += int(noise.sum())
+        n_all += diff.size
+        if (~noise).any():
+            worst = max(worst, float(diff[~noise].max()))
+        if noise.any():
+            worst_noise = max(worst_noise, float(diff[noise].max()))
+    if worst > atol or worst_noise > step_bound:
+        fail(f"{what}: final params differ from the CPU run by {worst:.3e} "
+             f"(tol {atol:g}) where the RMS gradient >= "
+             f"{GRAD_FLOOR:g}, {worst_noise:.3e} (bound {step_bound:.3e}) "
+             f"on the {n_noise} of {n_all} elements below it")
+    return worst, worst_noise, n_noise, n_all, bins, step_bound
+
+
 def phase_train(card: str):
     """16 Adam steps of full-width ``mha_classifier`` through
     ``Trainer.fit`` on CUDA and on the CPU, from the same weights and
@@ -643,51 +743,11 @@ def phase_train(card: str):
     if not losses[-1] < losses[0]:
         fail(f"train: loss did not fall: {losses}")
 
-    # final params: Adam's RMS gradient per element from the CPU run's
-    # second moment decides which tolerance holds (see GRAD_FLOOR)
     opt = Adam(1e-3)
-    bc2 = 1.0 - opt.beta2 ** steps
-    step_bound = 2 * steps * opt.learning_rate * (1 - opt.beta1) \
-        / math.sqrt(1 - opt.beta2)
-    flat = []
-
-    def walk(a, b, v):
-        if isinstance(a, dict):
-            for key in a:
-                walk(a[key], b[key], v[key])
-        elif isinstance(a, (tuple, list)):
-            for ai, bi, vi in zip(a, b, v):
-                walk(ai, bi, vi)
-        else:
-            flat.append((np.asarray(a), np.asarray(b), np.asarray(v)))
-
-    walk(p_gpu, p_cpu, st_cpu["v"])
-    worst = worst_noise = 0.0
-    n_noise = n_all = 0
-    edges = (0.0, 1e-8, 1e-7, 1e-6, 1e-5, 1e-4, math.inf)
-    bins = [[0, 0.0] for _ in edges[1:]]  # elements, max |diff| per band
-    for a, b, v in flat:
-        diff = np.abs(a - b)
-        if not np.all(np.isfinite(a)):
-            fail("train: non-finite params on CUDA")
-        rms = np.sqrt(v / bc2)
-        for i, (lo, hi) in enumerate(zip(edges, edges[1:])):
-            band = (rms >= lo) & (rms < hi)
-            if band.any():
-                bins[i][0] += int(band.sum())
-                bins[i][1] = max(bins[i][1], float(diff[band].max()))
-        noise = rms < GRAD_FLOOR
-        n_noise += int(noise.sum())
-        n_all += diff.size
-        if (~noise).any():
-            worst = max(worst, float(diff[~noise].max()))
-        if noise.any():
-            worst_noise = max(worst_noise, float(diff[noise].max()))
-    if worst > TRAIN_PARAM_ATOL or worst_noise > step_bound:
-        fail(f"train: final params differ from the CPU run by {worst:.3e} "
-             f"(tol {TRAIN_PARAM_ATOL:g}) where the RMS gradient >= "
-             f"{GRAD_FLOOR:g}, {worst_noise:.3e} (bound {step_bound:.3e}) "
-             f"on the {n_noise} of {n_all} elements below it")
+    worst, worst_noise, n_noise, n_all, bins, step_bound = adam_param_diff(
+        p_gpu, p_cpu, st_cpu["v"], steps, opt.learning_rate, opt.beta1,
+        opt.beta2, "train")
+    edges = ADAM_BANDS
     secs = [h["seconds"] for h in hist]
     sps = [len(x) / t for t in secs]
     print(f"train: {steps} steps of B={batch} in {epochs} epochs, losses "
@@ -1211,6 +1271,330 @@ def phase_serve_cnn(card):
             **snap}
 
 
+# train cnn phase: full-width resnet18_tiny_imagenet, B=32, AdamW under a
+# per-batch warmup-cosine lr, on CUDA and on the CPU from the same weights
+# and augmented batches.
+# - The first step, alone, in fp64 on both devices: loss, logits, every
+#   gradient, the BN running statistics and the params after the update
+#   within CNN_F64_TOL (of the logit scale, of each tensor's largest value):
+#   the port's arithmetic on the card, cuDNN's double convs, to rounding.
+#   fp64's rounding (1.1e-16) times the conditioning the fp32 gradients
+#   show below (9.3e-2 from rounding of 6e-8: about 1.5e6) is about 2e-10
+#   (measured on the card: 1.5e-10), well inside 1e-8.
+# - The same step in fp32, the path users run: loss and logits within
+#   CNN_STEP_TOL of the logit scale, BN statistics within CNN_STEP_TOL of
+#   their scale. Its gradients are ill-conditioned at this initialisation
+#   (BN's backward subtracts nearly equal sums): measured on an H100 80GB
+#   HBM3 (700 W), the CPU's own fp32 gradients are up to 9.3e-2 of a
+#   tensor's largest value from the fp64 ones, the card's cuDNN ones up to
+#   9.3e-2 too (4.6e-2 where the CPU's are 1e-2). So each device's fp32
+#   gradients are held to the fp64 gradients: the card's worst tensor no
+#   further than CNN_GRAD_FACTOR times the CPU's worst. A conv bias that
+#   feeds a batchnorm has a gradient that is zero in exact arithmetic (the
+#   batch mean takes the bias out): in fp32 it is rounding noise, held below
+#   CNN_NOISE_TOL of the model's largest gradient (measured: 5.5e-7).
+# - The 8 steps of train_classification_model, run twice on each device:
+#   in fp64 (precision mode "fp64") the per-step losses, the final params
+#   and the BN running statistics within CNN_F64_RUN_TOL (relative; params
+#   of each tensor's largest value): 8 steps amplify fp32's first-step
+#   differences of ~1e-6 to ~3e-3 (a factor ~2e3), so fp64's ~2e-10 stay
+#   below 1e-6 (measured: 3.1e-10). In fp32, the run users make and the one
+#   timed: AdamW's
+#   first steps move every param by about lr whatever its gradient, so an
+#   element whose gradient is rounding noise steps by +lr on one device and
+#   -lr on the other, and the runs drift apart chaotically. Measured: the
+#   same 8 fp32 steps on the CPU with 3 threads instead of 8 differ from the
+#   8-thread run by 6.9e-4 relative in their losses, 6.8e-3 in their params
+#   and 3.6e-2 of a BN statistic's scale; the H100 from the CPU by 2.9e-3
+#   in its losses and 1.9e-1 in its BN statistics. So the fp32 run
+#   is held to CNN_LOSS_RTOL, every param to Adam's step bound
+#   2·steps·lr·(1-b1)/sqrt(1-b2), and the BN statistics to CNN_STATS_RTOL
+#   of their scale.
+CNN_TRAIN_SAMPLES, CNN_TRAIN_BATCH, CNN_TRAIN_LR = 256, 32, 1e-3
+CNN_F64_TOL = 1e-8
+CNN_STEP_TOL = 1e-4
+CNN_GRAD_FACTOR = 2.0
+CNN_NOISE_TOL = 1e-3
+CNN_F64_RUN_TOL = 1e-6
+CNN_LOSS_RTOL = 1e-2
+CNN_STATS_RTOL = 5e-1
+CNN_PARAMS = 11_258_088
+
+
+def phase_train_cnn(card):
+    """``train_classification_model`` on full-width
+    ``resnet18_tiny_imagenet`` (NCHW, 64x64x3, 200 classes) with the
+    Tiny-ImageNet trainer's recipe: AdamW (weight decay 1e-4) under
+    ``WarmupCosineAnnealing`` (stepped per batch here: 2 warm-up steps of
+    8), softmax cross-entropy, B=32, ``SyntheticClassificationLoader(256,
+    (3, 64, 64), 200)`` with ``random_crop(4).horizontal_flip(0.5)`` on the
+    loader's hook; on CUDA and on the CPU from the same JAX-layout weights
+    (``interop.from_jax``). First one step alone (loss, logits, every
+    gradient, BN statistics, params), then the 8 steps (per-step losses,
+    final params, BN statistics), each against the CPU at the tolerances
+    above; prints the warm steps' samples/s and the top device ops of one
+    more step from ``torch.profiler``."""
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from dcnn_tpu_torch.core import TrainingConfig, set_precision
+    from dcnn_tpu_torch.data import (
+        AugmentationBuilder, SyntheticClassificationLoader, decode_batch,
+        wire_scale,
+    )
+    from dcnn_tpu_torch.interop import (
+        from_jax, opt_state_to_jax, state_to_jax, to_jax,
+    )
+    from dcnn_tpu_torch.models import create_model
+    from dcnn_tpu_torch.ops.losses import get_loss
+    from dcnn_tpu_torch.optim import AdamW, WarmupCosineAnnealing
+    from dcnn_tpu_torch.train import (
+        batch_generator, create_train_state, make_train_step,
+        train_classification_model,
+    )
+
+    cfg = create_model("resnet18_tiny_imagenet", "NCHW").get_config()
+    params, state = jax_layout(cfg, np.random.default_rng(SEED + 7))
+    steps = CNN_TRAIN_SAMPLES // CNN_TRAIN_BATCH
+    ce = get_loss("softmax_crossentropy")
+
+    def loader():
+        return SyntheticClassificationLoader(
+            CNN_TRAIN_SAMPLES, (3, 64, 64), 200, batch_size=CNN_TRAIN_BATCH,
+            seed=SEED, augmentation=AugmentationBuilder("NCHW")
+            .random_crop(4).horizontal_flip(0.5).build())
+
+    def optimizer():
+        return AdamW(CNN_TRAIN_LR, weight_decay=1e-4)
+
+    # the first step alone, on the loader's first batch, in fp64 and fp32
+    x, y = next(iter(loader()))
+
+    def first_step(dev, dtype):
+        model = from_jax(cfg, params, state, device=dev).to(dtype)
+        opt = optimizer()
+        loss, logits = make_train_step(model, ce, opt)(
+            create_train_state(model, opt), torch.from_numpy(x).to(dev, dtype),
+            torch.from_numpy(y).to(dev, dtype), CNN_TRAIN_LR)
+
+        def host(t):
+            return t.detach().double().cpu().numpy()
+
+        return (float(loss), host(logits),
+                {n: host(p.grad) for n, p in model.named_parameters()},
+                [host(b) for b in model.buffers()],
+                [host(p) for p in model.parameters()], model)
+
+    def rel(a, b):
+        return float(np.abs(a - b).max()) / (float(np.abs(b).max()) or 1.0)
+
+    f64 = {dev: first_step(dev, torch.float64) for dev in ("cuda", "cpu")}
+    f32 = {dev: first_step(dev, torch.float32) for dev in ("cuda", "cpu")}
+    model = f32["cpu"][5]
+    n_params = sum(p.numel() for p in model.parameters())
+    if n_params != CNN_PARAMS:
+        fail(f"train cnn: {n_params} params, expected {CNN_PARAMS}")
+    noise = bias_before_bn(model)
+    (lg, og, gg, bg, pg, _), (lc, oc, gc, bc, pc, _) = f64["cuda"], f64["cpu"]
+    g_top = max(float(np.abs(g).max()) for g in gc.values())
+    scale = float(np.abs(oc).max())
+    f64_err = max([abs(lg - lc) / scale, rel(og, oc)]
+                  + [float(np.abs(gg[n] - gc[n]).max())
+                     / (g_top if n in noise else float(np.abs(gc[n]).max()))
+                     for n in gc]
+                  + [rel(a, b) for a, b in zip(bg + pg, bc + pc)])
+    if not f64_err <= CNN_F64_TOL:
+        fail(f"train cnn: first step in fp64, card vs CPU: {f64_err:.3e} > "
+             f"{CNN_F64_TOL:g}")
+    truth = gc
+    (lg, og, gg, bg, _, _), (lc, oc, gc, bc, _, _) = f32["cuda"], f32["cpu"]
+    scale = float(np.abs(oc).max())
+    step_loss, step_logits = abs(lg - lc) / scale, rel(og, oc)
+    step_stats = max(rel(a, b) for a, b in zip(bg, bc))
+
+    def worst(g):
+        return max((rel(g[n], truth[n]), n) for n in truth if n not in noise)
+
+    card_grad, cpu_grad = worst(gg), worst(gc)
+    step_noise = max(float(np.abs(g[n]).max()) / g_top
+                     for g in (gg, gc) for n in noise)
+    if not (math.isfinite(lg) and max(step_loss, step_logits, step_stats)
+            <= CNN_STEP_TOL and step_noise <= CNN_NOISE_TOL
+            and card_grad[0] <= CNN_GRAD_FACTOR * cpu_grad[0]):
+        fail(f"train cnn: first step in fp32, card vs CPU: loss "
+             f"{step_loss:.3e}, logits {step_logits:.3e} of the logit scale, "
+             f"BN statistics {step_stats:.3e} (tol {CNN_STEP_TOL:g}); "
+             f"gradients vs fp64: card {card_grad}, CPU {cpu_grad} (factor "
+             f"{CNN_GRAD_FACTOR:g}); the {len(noise)} conv biases before a "
+             f"BN at {step_noise:.3e} of the largest gradient (tol "
+             f"{CNN_NOISE_TOL:g})")
+
+    # the 8 steps through the trainer, in fp64 and in fp32 (timed)
+    def train8(dev):
+        model = from_jax(cfg, params, state, device=dev)
+        ldr, opt = loader(), optimizer()
+        sched = WarmupCosineAnnealing(CNN_TRAIN_LR, warmup_steps=2,
+                                      total_steps=steps)
+        config = TrainingConfig(
+            epochs=1, batch_size=CNN_TRAIN_BATCH, learning_rate=CNN_TRAIN_LR,
+            scheduler_step="batch", snapshot_dir=None, progress_interval=0,
+            device_type=dev)
+        losses, stamps = [], []
+
+        def loss_fn(logits, y):
+            loss = ce(logits, y)
+            losses.append(loss.detach())
+            stamps.append(time.perf_counter())  # the step before has synced
+            return loss
+
+        ts, trainer = train_classification_model(
+            model, opt, loss_fn, ldr, config=config, scheduler=sched)
+        return dict(model=model, ts=ts, trainer=trainer, opt=opt, loader=ldr,
+                    losses=[float(v) for v in losses], stamps=stamps,
+                    params=to_jax(model), state=state_to_jax(model),
+                    v=opt_state_to_jax(model, ts.opt_state)["v"])
+
+    set_precision("fp64")
+    try:
+        d64 = {dev: train8(dev) for dev in ("cuda", "cpu")}
+    finally:
+        set_precision("parity")
+    run64 = max([abs(a - b) / abs(b) for a, b in zip(d64["cuda"]["losses"],
+                                                      d64["cpu"]["losses"])]
+                + [rel(a, b) for k in ("params", "state")
+                   for a, b in zip(_leaves(d64["cuda"][k]),
+                                   _leaves(d64["cpu"][k]))])
+    if not run64 <= CNN_F64_RUN_TOL:
+        fail(f"train cnn: {steps} steps in fp64, card vs CPU: losses, params "
+             f"and BN statistics differ by {run64:.3e} > {CNN_F64_RUN_TOL:g}")
+    reset_launches()  # the fp32 training path starts here
+    gpu = train8("cuda")
+    torch.cuda.synchronize()
+    counts = launches()  # the path ends
+    cpu = train8("cpu")
+    if gpu["ts"].step != steps or len(gpu["losses"]) != steps:
+        fail(f"train cnn: {gpu['ts'].step} steps, expected {steps}")
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(gpu["losses"], cpu["losses"]))
+    if not (all(math.isfinite(v) for v in gpu["losses"])
+            and loss_rel <= CNN_LOSS_RTOL):
+        fail(f"train cnn: CUDA losses {gpu['losses']} vs CPU "
+             f"{cpu['losses']} (rel {loss_rel:.3e} > {CNN_LOSS_RTOL:g})")
+    worst, worst_noise, n_noise, n_all, bins, step_bound = adam_param_diff(
+        gpu["params"], cpu["params"], cpu["v"], steps, CNN_TRAIN_LR,
+        gpu["opt"].beta1, gpu["opt"].beta2, "train cnn",
+        atol=2 * steps * CNN_TRAIN_LR * (1 - gpu["opt"].beta1)
+        / math.sqrt(1 - gpu["opt"].beta2))
+    stats_rel = max(rel(a, b) for a, b in zip(_leaves(gpu["state"]),
+                                              _leaves(cpu["state"])))
+    if not stats_rel <= CNN_STATS_RTOL:
+        fail(f"train cnn: BN running statistics differ from the CPU run by "
+             f"{stats_rel:.3e} of their scale (tol {CNN_STATS_RTOL:g})")
+    if any(np.array_equal(a, b)
+           for a, b in zip(_leaves(gpu["state"]), _leaves(state))):
+        fail("train cnn: the BN running statistics did not move")
+    # warm steps: from the third loss to the last, one step each
+    warm = gpu["stamps"][2:]
+    warm_sps = CNN_TRAIN_BATCH * (len(warm) - 1) / (warm[-1] - warm[0])
+    epoch_s = gpu["trainer"].history[0]["seconds"]
+
+    # one more step, profiled: the top device ops of a train step
+    model, opt = gpu["model"], gpu["opt"]
+    xb = decode_batch(torch.as_tensor(x).cuda(), wire_scale(gpu["loader"]))
+    yb = torch.as_tensor(y).cuda()
+    step = make_train_step(model, ce, opt)
+    gen = batch_generator(SEED, 99, 0, torch.device("cuda"))
+    step(gpu["ts"], xb, yb, CNN_TRAIN_LR, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(gpu["ts"], xb, yb, CNN_TRAIN_LR, gen)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    def dev_us(e):
+        for attr in ("self_device_time_total", "self_cuda_time_total"):
+            if hasattr(e, attr):
+                return float(getattr(e, attr))
+        return 0.0
+
+    # device time from the kernels alone (an aten op's self device time is
+    # its kernels' again); host time from the ops' self CPU time
+    events = prof.key_averages()
+    kernels = [e for e in events if dev_us(e) > 0
+               and getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    host = sorted((e for e in events
+                   if getattr(e, "device_type", None) == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    print(f"train cnn: profiled step: wall {wall_ms:.3f} ms (profiler on), "
+          f"{len(kernels)} kernels {busy_ms:.3f} ms of device time "
+          f"({100 * busy_ms / wall_ms:.1f}% busy); top kernels:", flush=True)
+    for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
+        print(f"  {dev_us(e) / 1e3:10.4f} ms  x{e.count:<5d} {e.key[:90]}",
+              flush=True)
+    print("train cnn: top host ops by self CPU time:", flush=True)
+    for e in host[:10]:
+        print(f"  {e.self_cpu_time_total / 1e3:10.4f} ms  x{e.count:<5d} "
+              f"{e.key[:90]}", flush=True)
+    print(f"train cnn: resnet18_tiny_imagenet ({n_params} params, NCHW), "
+          f"first step in fp64, card vs CPU: max {f64_err:.3e} (tol "
+          f"{CNN_F64_TOL:g}); in fp32: loss {step_loss:.3e}, logits "
+          f"{step_logits:.3e} of the logit scale, BN statistics "
+          f"{step_stats:.3e} (tol {CNN_STEP_TOL:g}), gradients vs fp64: card "
+          f"{card_grad[0]:.3e} ({card_grad[1]}), CPU {cpu_grad[0]:.3e} "
+          f"({cpu_grad[1]}), the {len(noise)} conv biases before a BN at "
+          f"{step_noise:.3e} of the largest gradient (tol "
+          f"{CNN_NOISE_TOL:g}); {steps} steps in fp64, card vs CPU: max "
+          f"{run64:.3e} (tol {CNN_F64_RUN_TOL:g}); in fp32 {steps} steps through "
+          f"train_classification_model: losses {gpu['losses']} (CPU "
+          f"{cpu['losses']}, max rel diff {loss_rel:.3e}, tol "
+          f"{CNN_LOSS_RTOL:g}); final params vs CPU max |diff| {worst:.3e}, "
+          f"{worst_noise:.3e} on {n_noise} of {n_all} elements with RMS "
+          f"gradient < {GRAD_FLOOR:g} (bound {step_bound:.3e}; by "
+          f"RMS-gradient band [lo, hi): elements, max |diff|: "
+          f"{[(lo, n, d) for lo, (n, d) in zip(ADAM_BANDS, bins)]}); BN "
+          f"running statistics max rel diff {stats_rel:.3e} (tol "
+          f"{CNN_STATS_RTOL:g}); launches {counts} (the platform conv "
+          f"trains, as in the JAX package); train samples/s of the warm "
+          f"steps {warm_sps:.1f}, epoch of {steps} steps {epoch_s:.3f} s "
+          f"(first steps included) on {card}", flush=True)
+
+
+def bias_before_bn(model):
+    """Names (as ``named_parameters`` gives them) of the conv biases that
+    feed a batchnorm directly: their gradient is zero in exact arithmetic,
+    since the batch mean takes the bias out."""
+    names = set()
+
+    def walk(layers, prefix):
+        for i, l in enumerate(layers):
+            if l.type_name == "residual_block":
+                walk(l.layers, f"{prefix}{i}.layers.")
+                walk(l.shortcut, f"{prefix}{i}.shortcut.")
+            elif (l.type_name == "conv2d" and l.use_bias
+                  and i + 1 < len(layers)
+                  and layers[i + 1].type_name == "batchnorm"):
+                names.add(f"{prefix}{i}.b")
+
+    walk(model.layers, "layers.")
+    return names
+
+
+def _leaves(tree):
+    """The arrays of a nested tuple/dict pytree, in order."""
+    import numpy as np
+
+    if isinstance(tree, dict):
+        return [a for k in tree for a in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [a for t in tree for a in _leaves(t)]
+    return [np.asarray(tree)]
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "dcnn_tpu_torch")):
         fail(f"no dcnn_tpu_torch package in {ROOT}: run this script from a "
@@ -1234,10 +1618,12 @@ def main() -> None:
     serve = phase_serve(card)
     train = phase_train(card)
     serve_cnn = phase_serve_cnn(card)
+    phase_train_cnn(card)
 
     def row(name, source, replaces, cases, by_path):
         model_case = cases[0]  # the model's shape: B=32, H=4, S=32, D=16
         long = next(c for c in cases if c["case"] == "long context")
+        d256 = next(c for c in cases if c["case"] == "d256 long context")
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
@@ -1247,6 +1633,8 @@ def main() -> None:
                 "bound_by": model_case["bound_by"],
                 "library_ms": model_case["library_ms"],
                 "long_context": {k: long[k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                "d256_long_context": {k: d256[k] for k in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
                 "cases": cases}
 

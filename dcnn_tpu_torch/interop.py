@@ -23,7 +23,7 @@ This module is where the two packages' weight layouts meet:
   port's buffers of the same names.
 - ``residual_block``: params and state ``{"main": (...), "shortcut":
   (...)}``, one entry per nested layer.
-- ``flatten``, ``activation``, ``maxpool2d``, ``avgpool2d``,
+- ``flatten``, ``activation``, ``maxpool2d``, ``avgpool2d``, ``dropout``,
   ``log_softmax``: no params and no state (``{}``).
 """
 
@@ -39,7 +39,8 @@ from .nn.sequential import Sequential
 
 _MHA_WEIGHTS = ("wq", "wk", "wv", "wo")
 _AS_IS = ("dense", "conv2d", "batchnorm", "groupnorm")
-_EMPTY = ("flatten", "activation", "maxpool2d", "avgpool2d", "log_softmax")
+_EMPTY = ("flatten", "activation", "maxpool2d", "avgpool2d", "dropout",
+          "log_softmax")
 
 
 def _layer_state(cfg: Dict[str, Any], p: Any, prefix: str,

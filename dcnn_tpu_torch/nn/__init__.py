@@ -5,7 +5,7 @@ from .fold import fold_batchnorm
 from .layer import Layer, ParameterizedLayer, StatelessLayer
 from .layers import (
     ActivationLayer, AvgPool2DLayer, BatchNormLayer, Conv2DLayer, DenseLayer,
-    FlattenLayer, GroupNormLayer, LogSoftmaxLayer, MaxPool2DLayer,
+    DropoutLayer, FlattenLayer, GroupNormLayer, LogSoftmaxLayer, MaxPool2DLayer,
 )
 from .residual import ResidualBlock
 from .sequential import Sequential
@@ -13,6 +13,7 @@ from .sequential import Sequential
 __all__ = ["MultiHeadAttentionLayer", "SequentialBuilder", "layer_from_config",
            "register_layer", "fold_batchnorm", "Layer", "ParameterizedLayer",
            "StatelessLayer", "ActivationLayer", "AvgPool2DLayer",
-           "BatchNormLayer", "Conv2DLayer", "DenseLayer", "FlattenLayer",
+           "BatchNormLayer", "Conv2DLayer", "DenseLayer", "DropoutLayer",
+           "FlattenLayer",
            "GroupNormLayer", "LogSoftmaxLayer", "MaxPool2DLayer",
            "ResidualBlock", "Sequential"]

@@ -8,7 +8,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from ..core.precision import cast_to_compute
@@ -16,6 +15,7 @@ from ..ops.attention import attention, blockwise_attention, flash_attention
 from . import initializers as init
 from .factory import register_layer
 from .layer import ParameterizedLayer
+from .layers import linear
 
 _WEIGHTS = ("wq", "wk", "wv", "wo")
 _BIASES = ("bq", "bk", "bv", "bo")
@@ -73,7 +73,7 @@ class MultiHeadAttentionLayer(ParameterizedLayer):
 
     @staticmethod
     def _project(x, w, b):
-        return F.linear(x, cast_to_compute(w), cast_to_compute(b))
+        return linear(x, cast_to_compute(w), cast_to_compute(b))
 
     def _attend(self, q, k, v):
         """(B, S, E) projections -> heads (B, H, S, E/H) -> attention ->

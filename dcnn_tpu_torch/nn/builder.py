@@ -4,7 +4,7 @@ calls that track the per-sample shape, and the residual-block helpers
 ``basic_residual_block`` (two 3×3 conv+BN with a ReLU between; a 1×1
 projection shortcut when the stride or the width changes) and
 ``bottleneck_residual_block`` (1×1→3×3→1×1 conv+BN, biasless, BN eps 1e-3,
-as the reference). ``dropout`` waits for its layer (ROADMAP.md).
+as the reference).
 """
 
 from __future__ import annotations
@@ -14,7 +14,7 @@ from typing import Optional, Sequence, Tuple
 from .layer import Layer
 from .layers import (
     ActivationLayer, AvgPool2DLayer, BatchNormLayer, Conv2DLayer, DenseLayer,
-    FlattenLayer, GroupNormLayer, LogSoftmaxLayer, MaxPool2DLayer,
+    DropoutLayer, FlattenLayer, GroupNormLayer, LogSoftmaxLayer, MaxPool2DLayer,
 )
 from .residual import ResidualBlock
 from .sequential import Sequential
@@ -93,6 +93,10 @@ class SequentialBuilder:
         return self.add_layer(AvgPool2DLayer(
             kernel_size, stride, padding, data_format=self.data_format,
             name=name or f"avgpool2d_{len(self.model)}"))
+
+    def dropout(self, rate: float, name: str = "") -> "SequentialBuilder":
+        return self.add_layer(DropoutLayer(
+            rate, name=name or f"dropout_{len(self.model)}"))
 
     def flatten(self, name: str = "") -> "SequentialBuilder":
         return self.add_layer(FlattenLayer(name=name or f"flatten_{len(self.model)}"))

@@ -1,8 +1,8 @@
 """Concrete layers (counterpart of ``dcnn_tpu/nn/layers.py``).
 
-Ported: ``conv2d``, ``dense``, ``batchnorm``, ``groupnorm``, ``maxpool2d``,
-``avgpool2d``, ``flatten``, ``activation`` and ``log_softmax``;
-``dropout`` waits for a later slice (no zoo model uses it).
+All of them: ``conv2d``, ``dense``, ``batchnorm``, ``groupnorm``,
+``maxpool2d``, ``avgpool2d``, ``flatten``, ``activation``, ``dropout`` and
+``log_softmax``.
 
 Image layers take a ``data_format``. Under ``"NHWC"`` every layer takes and
 returns a logical (N, H, W, C) tensor, as the JAX layers do, so that
@@ -28,6 +28,17 @@ from ..ops import pool as pool_ops
 from . import initializers as init
 from .factory import register_layer
 from .layer import ParameterizedLayer, Shape, StatelessLayer
+
+
+def linear(x: torch.Tensor, w: torch.Tensor,
+           b: Optional[torch.Tensor]) -> torch.Tensor:
+    """``x·Wᵀ + b``. In bf16 the product is rounded to bf16 first and the
+    bias added after, rounded again, as the JAX layers compute
+    ``matmul(x, W.T) + b``; in fp32 the bias goes into the product's call
+    (one kernel fewer; the two agree to the last bit)."""
+    if b is not None and x.dtype == torch.bfloat16:
+        return F.linear(x, w) + b
+    return F.linear(x, w, b)
 
 
 @register_layer("dense")
@@ -66,7 +77,7 @@ class DenseLayer(ParameterizedLayer):
                 device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, cast_to_compute(self.w), cast_to_compute(self.b))
+        return linear(x, cast_to_compute(self.w), cast_to_compute(self.b))
 
     def output_shape(self, input_shape):
         return (self.out_features,)
@@ -75,6 +86,46 @@ class DenseLayer(ParameterizedLayer):
         return {"type": self.type_name, "name": self.name,
                 "out_features": self.out_features, "use_bias": self.use_bias,
                 "in_features": self.in_features}
+
+
+def apply_dropout_mask(x: torch.Tensor, keep: torch.Tensor,
+                       rate: float) -> torch.Tensor:
+    """Inverted dropout under a given boolean keep mask: ``x / (1 - rate)``
+    where kept, 0 elsewhere, in x's dtype (the JAX layer's
+    ``where(mask, x / keep, 0)``)."""
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+@register_layer("dropout")
+class DropoutLayer(StatelessLayer):
+    """Inverted dropout. In training mode with ``rate > 0`` each element is
+    kept with probability ``1 - rate`` and scaled by ``1 / (1 - rate)``; the
+    keep mask is drawn from the ``generator`` the caller passes (a
+    ``torch.Generator`` on x's device: the trainer gives one per batch),
+    never from the global generator, and a training call without one
+    raises, as the JAX layer does without its rng key. Identity in eval
+    mode or at rate 0. The two packages draw different bits from one seed
+    (``apply_dropout_mask`` takes a mask made elsewhere)."""
+
+    draws = True  # Sequential passes its generator on
+
+    def __init__(self, rate: float = 0.5, name: Optional[str] = None):
+        super().__init__(name)
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if not self.training or self.rate <= 0.0:
+            return x
+        if generator is None:
+            raise ValueError(f"{self.name}: dropout in training mode needs a "
+                             f"generator")
+        keep = torch.rand(x.shape, generator=generator, device=x.device,
+                          dtype=torch.float32) < 1.0 - self.rate
+        return apply_dropout_mask(x, keep, self.rate)
+
+    def get_config(self):
+        return {"type": self.type_name, "name": self.name, "rate": self.rate}
 
 
 @register_layer("flatten")

@@ -37,13 +37,17 @@ class ResidualBlock(Layer):
             raise ValueError(f"{self.name}: main path output {shape} != "
                              f"shortcut output {sshape}")
 
-    def forward(self, x):
-        h = x
-        for layer in self.layers:
-            h = layer(h)
-        s = x
-        for layer in self.shortcut:
-            s = layer(s)
+    draws = True  # may hold dropout: takes the model's generator
+
+    def forward(self, x, generator=None):
+        def run(layers, h):
+            for layer in layers:
+                h = (layer(h, generator=generator)
+                     if getattr(layer, "draws", False) else layer(h))
+            return h
+
+        h = run(self.layers, x)
+        s = run(self.shortcut, x)
         return act_ops.ACTIVATIONS[self.activation](h + s)
 
     def output_shape(self, input_shape):

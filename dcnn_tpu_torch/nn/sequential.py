@@ -62,12 +62,16 @@ class Sequential(nn.Module):
             shape = layer.output_shape(shape)
         return self
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """Chain the layers. Under the ``bf16`` precision mode the input is
-        cast to bfloat16 here and each layer casts its params at use."""
+        cast to bfloat16 here and each layer casts its params at use. The
+        layers that draw random numbers (dropout, and the residual blocks
+        that may hold it) take ``generator``, in order."""
         h = cast_to_compute(x)
         for layer in self.layers:
-            h = layer(h)
+            h = (layer(h, generator=generator) if getattr(layer, "draws", False)
+                 else layer(h))
         return h
 
     def output_shape(self, input_shape: Optional[Shape] = None) -> Shape:

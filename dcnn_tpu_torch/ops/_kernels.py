@@ -104,13 +104,13 @@ def _bind(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     if hasattr(lib, "dcnn_flash_fwd"):
         lib.dcnn_flash_fwd.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                       ctypes.c_float, i, i, i, i, i, p]
+                                       ctypes.c_float, i, i, i, i, i, i, p]
         lib.dcnn_flash_fwd.restype = i
     for name, n_out in (("dcnn_flash_bwd_dq", 1), ("dcnn_flash_bwd_dkv", 2)):
         if hasattr(lib, name):
             fn = getattr(lib, name)
             fn.argtypes = [p] * (6 + n_out) + [i, i, i, i, i, ctypes.c_float,
-                                               i, i, i, i, i, p]
+                                               i, i, i, i, i, i, p]
             fn.restype = i
     if hasattr(lib, "dcnn_conv3x3_tc"):
         lib.dcnn_conv3x3_tc.argtypes = [p] * 7 + [i] * 15 + [p]
@@ -169,14 +169,16 @@ def build(verbose: bool = False, extra: Tuple[str, ...] = ()
         return dict(_libs)
 
 
-# the head-dim classes the flash kernels are built for: a head dim d <= 128
+# the head-dim classes the flash kernels are built for: a head dim d <= 256
 # runs as the smallest class >= d, columns d.. zero-filled by the copy
-FLASH_HEAD_DIMS = (16, 32, 64, 128)
+FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
 SMEM_MAX = 232448      # a block's dynamic shared memory on sm_90
 FLASH_MAX_STAGES = 4
-# registers a backward kernel's multiplying thread may give to its
-# accumulators, S and dP fragments and A operands (flash_bwd.cu kRegBudget)
+# registers a multiplying thread of a flash kernel may give to its
+# accumulators, S (and dP) fragments and A operands (flash_fwd.cu and
+# flash_bwd.cu kRegBudget); where a class's accumulators would exceed it, a
+# block produces its output in column groups (one group per block)
 FLASH_BWD_REG_BUDGET = 176
 
 
@@ -189,7 +191,8 @@ def flash_head_class(d: int) -> int:
     for c in FLASH_HEAD_DIMS:
         if d <= c:
             return c
-    raise ValueError(f"head dim {d} > {FLASH_HEAD_DIMS[-1]}")
+    raise ValueError(f"head dim {d} > {FLASH_HEAD_DIMS[-1]}, the largest the "
+                     f"flash kernels take")
 
 
 def flash_head_width(d: int, dtype: torch.dtype) -> int:
@@ -203,17 +206,23 @@ def flash_head_width(d: int, dtype: torch.dtype) -> int:
 @dataclass(frozen=True)
 class FlashPlan:
     """How ``csrc/flash_fwd.cu`` cuts one attention: blocks of ``q_rows``
-    q rows (one multiplying warpgroup per 64), kv tiles of ``kv_tile``
-    keys in a ring of ``stages``, and the block's shared memory in bytes
-    (``smem``), laid out as the kernel's ``Tile`` lays it out: Q (and in
-    fp32 its tf32 lo), then per stage K and V as they land (fp32: K's lo,
-    V transposed as hi and lo), each row of the head-dim class in
-    ``chunks`` 128-byte chunks."""
+    q rows (one multiplying warpgroup per 64) and one of ``groups`` groups
+    of O's columns (each block recomputes S over the whole head dim), kv
+    tiles of ``kv_tile`` keys in a ring of ``stages``, and the block's
+    shared memory in bytes (``smem``), laid out as the kernel's ``Tile``
+    lays it out: Q (and in fp32 its tf32 lo), then per stage K and the
+    group's columns of V as they land (fp32: K's lo, V transposed as hi and
+    lo), each row of the head-dim class in ``chunks`` 128-byte chunks.
+    ``serial``: two stages do not fit beside a 64-row block, so one stage
+    holds a tile at a time and a pass runs S, the softmax and P·V in turn
+    (fp32 at class 256)."""
     q_rows: int
     kv_tile: int
     stages: int
     smem: int
     chunks: int
+    groups: int = 1
+    serial: bool = False
 
     def kv_tiles(self, q_tile: int, sq: int, sk: int, causal: bool) -> range:
         """The kv tiles the kernel visits for q tile ``q_tile``: every tile
@@ -231,50 +240,82 @@ def _live_kv(q_block: int, q_rows: int, kv_tile: int, sq: int, sk: int,
     return range(n)
 
 
+def flash_fwd_regs(padded: int, kv: int, f32: bool, groups: int) -> int:
+    """Registers of a forward multiplying thread (flash_fwd.cu
+    ``Tile::regs``): O's accumulator over the group's columns, S of a kv
+    tile, and P as the A operand (tf32 hi and lo in fp32)."""
+    return padded // groups // 2 + kv // 2 + (kv if f32 else kv // 4)
+
+
 @functools.lru_cache(maxsize=1024)
 def flash_plan(sq: int, sk: int, d: int, dtype: torch.dtype) -> FlashPlan:
     """The tiling of ``flash_fwd.cu`` for head dim d (run as its class,
-    :func:`flash_head_class`): 128 q rows a block (two multiplying
-    warpgroups) above Sq 64 where two stages fit beside them, else 64; kv
-    tiles of 128 keys in bf16, 64 in fp32 and 32 for fp32 at class 128 (its
-    tf32 splits and V^T take five tiles' room a stage); as many stages as
-    shared memory holds, up to FLASH_MAX_STAGES and the number of kv
-    tiles. The kernel refuses a plan whose tile or shared memory differs
-    from its own layout. Cached per shape."""
+    :func:`flash_head_class`): kv tiles of 128 keys in bf16, 64 in fp32, 32
+    for fp32 at class 128 and 16 at class 256 (its tf32 splits and V^T take
+    five tiles' room a stage); O's columns in the fewest groups whose
+    registers (:func:`flash_fwd_regs`) stay within FLASH_BWD_REG_BUDGET and
+    whose one stage fits beside 64 q rows (2 at class 256, else 1); 128 q rows a block (two multiplying
+    warpgroups) above Sq 64 where two stages fit beside them, else 64; as
+    many stages as shared memory holds, up to FLASH_MAX_STAGES and the
+    number of kv tiles, and one stage with serial passes where two do not
+    fit beside 64 rows. The kernel refuses a plan whose tile, groups or
+    shared memory differs from its own layout. Cached per shape."""
     dc = flash_head_class(d)
     es = 2 if dtype == torch.bfloat16 else 4
     f32 = es == 4
     chunks = _cdiv(dc * es, ROW_BYTES)
     padded = chunks * (ROW_BYTES // es)   # D padded to whole chunks
-    kv = (32 if dc == 128 else 64) if f32 else 128
-    kv_bytes = chunks * kv * ROW_BYTES    # one K or V tile as it lands
-    stage = kv_bytes * (3 if f32 else 2) + (2 * kv * padded * 4 if f32 else 0)
+    kv = ({128: 32, 256: 16}.get(dc, 64)) if f32 else 128
+    kv_bytes = chunks * kv * ROW_BYTES    # one K tile as it lands
 
-    def smem(q_rows: int, stages: int) -> int:
+    def stage_bytes(groups: int) -> int:
+        # K, the group's columns of V; fp32: K's lo, V^T's hi and lo (a
+        # 128-byte row per column for each 32 keys)
+        vt = _cdiv(kv, 32) * padded // groups * ROW_BYTES
+        return (kv_bytes + kv_bytes // groups
+                + (kv_bytes + 2 * vt if f32 else 0))
+
+    def smem_of(q_rows: int, stages: int, stage: int) -> int:
         return (1024 + chunks * q_rows * ROW_BYTES * (2 if f32 else 1)
                 + stages * stage + 256)
+
+    # the fewest groups whose registers fit the budget and whose stage fits
+    # beside 64 q rows (fp32 at class 256: 2, for shared memory)
+    groups = 1
+    while (flash_fwd_regs(padded, kv, f32, groups) > FLASH_BWD_REG_BUDGET
+           or smem_of(64, 1, stage_bytes(groups)) > SMEM_MAX):
+        groups *= 2
+    stage = stage_bytes(groups)
+
+    def smem(q_rows: int, stages: int) -> int:
+        return smem_of(q_rows, stages, stage)
 
     def fit(q_rows: int) -> int:
         return min(FLASH_MAX_STAGES, (SMEM_MAX - smem(q_rows, 0)) // stage)
 
+    serial = fit(64) < 2
     q_rows = 64 if sq <= 64 or fit(128) < 2 else 128
-    stages = max(1, min(fit(q_rows), _cdiv(sk, kv)))
-    return FlashPlan(q_rows, kv, stages, smem(q_rows, stages), chunks)
+    stages = 1 if serial else max(1, min(fit(q_rows), _cdiv(sk, kv)))
+    return FlashPlan(q_rows, kv, stages, smem(q_rows, stages), chunks,
+                     groups, serial)
 
 
 @dataclass(frozen=True)
 class BwdKernelPlan:
     """How one kernel of ``csrc/flash_bwd.cu`` cuts its work: blocks of
     ``rows`` (q rows for dQ, keys for dK/dV; one multiplying warpgroup per
-    64), the other side streamed in tiles of ``tile`` (keys for dQ, q rows
-    for dK/dV) through a ring of ``stages``, the block's shared memory in
-    bytes (``smem``), and ``regs``, the registers a multiplying thread gives
-    to its accumulators, S and dP fragments and A operands at that tile."""
+    64) and one of ``groups`` groups of the output's columns (each block
+    recomputes S and dP over the whole head dim), the other side streamed
+    in tiles of ``tile`` (keys for dQ, q rows for dK/dV) through a ring of
+    ``stages``, the block's shared memory in bytes (``smem``), and
+    ``regs``, the registers a multiplying thread gives to its accumulators,
+    S and dP fragments and A operands at that tile."""
     rows: int
     tile: int
     stages: int
     smem: int
     regs: int
+    groups: int = 1
 
 
 class _BwdLayout:
@@ -285,21 +326,30 @@ class _BwdLayout:
         self.chunks = _cdiv(dc * es, ROW_BYTES)
         self.padded = self.chunks * (ROW_BYTES // es)
 
-    def regs(self, dq: bool, n: int) -> int:
-        acc = self.padded // 2 if dq else self.padded
+    def regs(self, dq: bool, n: int, groups: int = 1) -> int:
+        acc = (self.padded // 2 if dq else self.padded) // groups
         ops = (n if dq else 2 * n) if self.f32 else (n // 4 if dq else n // 2)
         return acc + n + ops
 
+    def groups(self, dq: bool) -> int:
+        """The fewest column groups with which a 16-row tile fits the
+        register budget: 1 at every class up to 128, 2 for dK/dV at 256."""
+        g = 1
+        while self.regs(dq, 16, g) > FLASH_BWD_REG_BUDGET:
+            g *= 2
+        return g
+
     def reg_tile(self, dq: bool) -> int:
-        n = 128
-        while n > 16 and self.regs(dq, n) > FLASH_BWD_REG_BUDGET:
+        n, g = 128, self.groups(dq)
+        while n > 16 and self.regs(dq, n, g) > FLASH_BWD_REG_BUDGET:
             n //= 2
         return n
 
     def stage(self, dq: bool, n: int) -> int:
         if not self.f32:
             return 2 * self.chunks * n * ROW_BYTES
-        t_bytes = _cdiv(n, 32) * self.padded * ROW_BYTES  # a transposed part
+        # a transposed part of the group's columns
+        t_bytes = _cdiv(n, 32) * self.padded // self.groups(dq) * ROW_BYTES
         return 4 * self.chunks * n * ROW_BYTES + (2 if dq else 4) * t_bytes
 
     def smem(self, dq: bool, rows: int, n: int, stages: int) -> int:
@@ -320,8 +370,7 @@ class _BwdLayout:
 class FlashBwdPlan:
     """The tiling of both kernels of ``csrc/flash_bwd.cu`` for one shape:
     ``dq`` and ``dkv`` (:class:`BwdKernelPlan`), each row of the head-dim
-    class in ``chunks`` 128-byte chunks, ``padded`` columns in all (the
-    accumulators' width)."""
+    class in ``chunks`` 128-byte chunks, ``padded`` columns in all."""
     dq: BwdKernelPlan
     dkv: BwdKernelPlan
     chunks: int
@@ -347,19 +396,31 @@ class FlashBwdPlan:
 def flash_bwd_plan(sq: int, sk: int, d: int, dtype: torch.dtype
                    ) -> FlashBwdPlan:
     """The tiling of ``flash_bwd.cu`` for head dim d (run as its class,
-    :func:`flash_head_class`). Each kernel streams tiles of the largest
-    power of two up to 128 whose registers (:meth:`_BwdLayout.regs`) stay
-    within FLASH_BWD_REG_BUDGET, halved further while two stages would not
-    fit beside a 64-row block (kept where no tile would); blocks of 128 rows
+    :func:`flash_head_class`). Each kernel produces its output in the
+    fewest column groups with which a tile fits the register budget
+    (:meth:`_BwdLayout.groups`) and streams tiles of the largest power of
+    two up to 128 whose registers (:meth:`_BwdLayout.regs`) stay within
+    FLASH_BWD_REG_BUDGET, halved further while two stages would not fit
+    beside a 64-row block (kept where no tile would); blocks of 128 rows
     (two multiplying warpgroups) where its own side exceeds 256 and two
     stages fit, else 64 (below that a block's latency, not the card's
-    throughput, sets the time, and smaller blocks are more of them); as many stages as shared memory holds, up to
-    FLASH_MAX_STAGES and the number of streamed tiles. The kernels refuse a
-    plan that differs from their own layout. Cached per shape."""
+    throughput, sets the time, and smaller blocks are more of them); as
+    many stages as shared memory holds, up to FLASH_MAX_STAGES and the
+    number of streamed tiles. Raises ValueError where not one stage fits
+    beside a 64-row block: fp32 above class 128, whose fixed operands
+    alone (Q and dO, or K and V, as tf32 hi and lo: 4 x 64 rows x 1 KB)
+    fill 256 KB. The kernels refuse a plan that differs from their own
+    layout. Cached per shape."""
     lay = _BwdLayout(flash_head_class(d), 2 if dtype == torch.bfloat16 else 4)
 
     def part(dq: bool, own: int, other: int) -> BwdKernelPlan:
         n = lay.tile(dq)
+        if lay.smem(dq, 64, n, 1) > SMEM_MAX:
+            raise ValueError(
+                f"flash backward: head dim {d} in {dtype} needs "
+                f"{lay.smem(dq, 64, n, 1)} bytes of shared memory a block, "
+                f"above {SMEM_MAX}; the fp32 backward takes head dims up to "
+                f"128")
         per_stage = lay.smem(dq, 0, n, 1) - lay.smem(dq, 0, n, 0)
 
         def fit(rows: int) -> int:
@@ -369,7 +430,7 @@ def flash_bwd_plan(sq: int, sk: int, d: int, dtype: torch.dtype
         rows = 64 if own <= 256 or fit(128) < 2 else 128
         stages = max(1, min(fit(rows), _cdiv(other, n)))
         return BwdKernelPlan(rows, n, stages, lay.smem(dq, rows, n, stages),
-                             lay.regs(dq, n))
+                             lay.regs(dq, n, lay.groups(dq)), lay.groups(dq))
 
     return FlashBwdPlan(part(True, sq, sk), part(False, sk, sq), lay.chunks,
                         lay.padded)
@@ -379,7 +440,7 @@ def _check_attention(fn: str, q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor, *like_q: torch.Tensor) -> None:
     """What every flash kernel takes: contiguous, 16-byte aligned CUDA
     tensors q (B, H, Sq, D), k and v (B, H, Sk, D), and ``like_q`` (dO)
-    shaped as q, all of one dtype of FLASH_DTYPES; 1 <= D <= 128 with rows
+    shaped as q, all of one dtype of FLASH_DTYPES; 1 <= D <= 256 with rows
     of whole 16-byte units (:func:`flash_head_width`); B*H >= 1."""
     for name, t in (("q", q), ("k", k), ("v", v),
                     *(("dO", t) for t in like_q)):
@@ -435,7 +496,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/flash_fwd.cu`` on contiguous, 16-byte aligned CUDA
     tensors q (B, H, Sq, D), k and v (B, H, Sk, D) of fp32 or bf16, D <=
-    128 in whole 16-byte units, tiled by :func:`flash_plan`. Returns (O
+    256 in whole 16-byte units, tiled by :func:`flash_plan`. Returns (O
     like q, logsumexp (B, H, Sq) fp32). Raises on anything the kernel does
     not take."""
     out = _launch_flash(q, k, v, causal, scale)
@@ -461,7 +522,8 @@ def _launch_flash(q, k, v, causal: bool, scale: float,
                                  o.data_ptr(), lse.data_ptr(), b * h, sq, sk,
                                  d, int(causal), float(scale),
                                  int(q.dtype == torch.bfloat16), plan.q_rows,
-                                 plan.kv_tile, plan.stages, plan.smem, stream)
+                                 plan.kv_tile, plan.stages, plan.smem,
+                                 plan.groups, stream)
     _raise_on(lib, "flash_fwd", err)
     return o, lse
 
@@ -487,7 +549,7 @@ def _launch_flash_bwd(fn: str, q, k, v, do, lse, delta, outs, causal: bool,
             lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
             b * h, sq, sk, d, int(causal), float(scale),
             int(q.dtype == torch.bfloat16), part.rows, part.tile, part.stages,
-            part.smem, stream)
+            part.smem, part.groups, stream)
     _raise_on(lib, fn, err)
 
 
@@ -499,7 +561,7 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     16-byte aligned CUDA tensors of fp32 or bf16 (D as :func:`flash_fwd`
     takes it), tiled by :func:`flash_bwd_plan`; ``lse`` the forward's
     logsumexp and ``delta`` = rowsum(dO * O), both (B, H, Sq) fp32. Returns
-    dQ like q."""
+    dQ like q. The fp32 kernels take D <= 128 (:func:`flash_bwd_plan`)."""
     dq = torch.empty_like(q)
     _launch_flash_bwd("flash_bwd_dq", q, k, v, do, lse, delta, (dq,),
                       causal, scale)

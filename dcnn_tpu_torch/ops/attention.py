@@ -179,7 +179,7 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool, scale: float
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(O, logsumexp (B, H, Sq) fp32). A CUDA tensor goes to the Hopper
-    kernel, which raises on what it cannot take (a head dim above 128, a
+    kernel, which raises on what it cannot take (a head dim above 256, a
     dtype other than fp32 or bf16); strided or misaligned views are copied
     first, and a head dim whose rows are not whole 16-byte units is padded
     with zero columns, which add nothing to the scores, and cut off the

@@ -6,8 +6,10 @@ tensor: it is handed to ``F.conv2d`` as an NCHW view with channels-last
 strides (no copy when it is contiguous) and comes back as a logical NHWC
 tensor. ``F.conv2d`` is the platform conv, as ``lax.conv_general_dilated``
 is the JAX package's; the hand-written 3×3 kernels live in
-:mod:`.pallas.conv`. ``conv2d_int8`` and the explicit gradient functions
-come in later slices (ROADMAP.md).
+:mod:`.pallas.conv`. The explicit gradient functions are autograd's
+vector-Jacobian products of :func:`conv2d`, as the JAX ones are
+``jax.vjp`` of theirs. ``conv2d_int8`` comes in a later slice
+(ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -31,13 +33,55 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
            *, stride: IntOrPair = 1, padding: IntOrPair = 0,
            data_format: str = "NCHW") -> torch.Tensor:
     """Forward conv. ``w`` is OIHW; ``padding`` is symmetric int(s), not a
-    string."""
+    string. In bf16 the conv is rounded to bf16 first and the bias added
+    after, rounded again, as the JAX op adds ``b`` after ``lax.conv``; in
+    fp32 the bias goes into the conv's call (one kernel fewer)."""
     if data_format not in ("NCHW", "NHWC"):
         raise ValueError(f"unsupported data_format {data_format!r}")
     if data_format == "NHWC":
         x = x.permute(0, 3, 1, 2)
-    y = F.conv2d(x, w, b, stride=_pair(stride), padding=_pair(padding))
+    apart = b is not None and x.dtype == torch.bfloat16
+    y = F.conv2d(x, w, None if apart else b, stride=_pair(stride),
+                 padding=_pair(padding))
+    if apart:
+        y = y + b.view(1, -1, 1, 1)
     return y.permute(0, 2, 3, 1) if data_format == "NHWC" else y
+
+
+def _vjp(fn, primal: torch.Tensor, grad_out: torch.Tensor) -> torch.Tensor:
+    with torch.enable_grad():
+        p = primal.detach().requires_grad_()
+        (g,) = torch.autograd.grad(fn(p), p, grad_out)
+    return g
+
+
+def conv2d_weight_grad(x: torch.Tensor, grad_out: torch.Tensor,
+                       kernel_hw: Tuple[int, int], *,
+                       stride: IntOrPair = 1, padding: IntOrPair = 0,
+                       data_format: str = "NCHW") -> torch.Tensor:
+    """dL/dW (OIHW) of :func:`conv2d` for input ``x`` and output cotangent
+    ``grad_out``."""
+    c = 1 if data_format == "NCHW" else 3
+    w0 = x.new_zeros((grad_out.shape[c], x.shape[c], *kernel_hw))
+    return _vjp(lambda w: conv2d(x, w, stride=stride, padding=padding,
+                                 data_format=data_format), w0, grad_out)
+
+
+def conv2d_input_grad(w: torch.Tensor, grad_out: torch.Tensor,
+                      input_shape: Sequence[int], *,
+                      stride: IntOrPair = 1, padding: IntOrPair = 0,
+                      data_format: str = "NCHW") -> torch.Tensor:
+    """dL/dX (``input_shape``, in ``data_format``) of :func:`conv2d` for
+    weights ``w`` and output cotangent ``grad_out``."""
+    x0 = w.new_zeros(tuple(input_shape))
+    return _vjp(lambda x: conv2d(x, w, stride=stride, padding=padding,
+                                 data_format=data_format), x0, grad_out)
+
+
+def conv2d_bias_grad(grad_out: torch.Tensor, *,
+                     data_format: str = "NCHW") -> torch.Tensor:
+    """dL/db: ``grad_out`` summed over N, H and W."""
+    return grad_out.sum(dim=(0, 2, 3) if data_format == "NCHW" else (0, 1, 2))
 
 
 def conv2d_output_shape(input_hw: Tuple[int, int], kernel_hw: Tuple[int, int],

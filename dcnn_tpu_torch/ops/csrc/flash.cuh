@@ -18,10 +18,18 @@ constexpr float kNeg = -1e30f;   // a masked score and an empty row's max; its l
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// The head-dim class an input of head dim d runs as: 16, 32, 64 or 128.
-// Columns d .. class - 1 are the TMA copy's zero fill; products over them
-// add zero and the epilogues store only the first d.
-inline int head_class(int d) { return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : 0; }
+// The head-dim class an input of head dim d runs as: 16, 32, 64, 128 or
+// 256. Columns d .. class - 1 are the TMA copy's zero fill; products over
+// them add zero and the epilogues store only the first d.
+inline int head_class(int d) {
+  return d <= 16 ? 16 : d <= 32 ? 32 : d <= 64 ? 64 : d <= 128 ? 128 : d <= 256 ? 256 : 0;
+}
+
+// registers a multiplying thread may give to its accumulators, S (and dP)
+// fragments and A operands (setmaxnreg gives it 232; the rest holds
+// addresses, row statistics and loop state); mirrored by
+// _kernels.FLASH_BWD_REG_BUDGET
+constexpr int kRegBudget = 176;
 
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);

@@ -20,7 +20,7 @@
 // loop inside one block, and nothing carries between blocks (no atomics:
 // the result is the same from run to run). Both kernels take flash_fwd.cu's
 // tile format: rows of D land by TMA as 128-byte chunks in the 128-byte
-// swizzle, any head dim d <= 128 running as its class D (flash.cuh) with
+// swizzle, any head dim d <= 256 running as its class D (flash.cuh) with
 // zero-filled columns; warpgroup 0 copies (one thread issues every TMA into
 // a ring of full/empty mbarriers; in fp32 warps 1-3 split operands into
 // tf32 hi and lo and write the transposed copies), warpgroups 1-2 multiply,
@@ -54,8 +54,15 @@
 // so the dK/dV kernel's q tile shrinks as D grows (32 at bf16 D 128, where
 // two 64 x 128 fp32 accumulators take 128 registers), and a tile shrinks
 // further where two stages would not fit in shared memory beside a 64-row
-// block. The host plans rows, stages and shared memory and the launch
-// refuses any other plan.
+// block. Where no tile keeps the accumulators within the budget (dK/dV at
+// D = 256: two 64 x 256 fp32 accumulators are 256 registers), the outputs
+// are cut in column groups of 128, one group a block, folded into the 1-d
+// grid: each block recomputes S and dP over the whole of D (the contraction
+// stays whole) and accumulates only its group's columns. fp32 above D = 128
+// does not fit: its fixed operands alone as tf32 hi and lo (Q and dO, or K
+// and V: 4 x 64 rows x 1 KB) fill 256 KB, above a block's shared memory, so
+// the host refuses it. The host plans rows, groups, stages and shared
+// memory and the launch refuses any other plan.
 //
 // What bounds it on an H100. At long context the products: per allowed
 // (q, k) pair 6 D FLOPs in dQ (S, dP, dS K) and 8 D in dK/dV (S, dP, P^T
@@ -74,10 +81,6 @@ namespace {
 
 constexpr int kThreads = 384;  // warpgroup 0 copies, 1-2 multiply
 constexpr int kMaxStages = 4;
-// registers a multiplying thread may give to accumulators, the S and dP
-// fragments and the A operands (setmaxnreg gives it 232; the rest holds
-// addresses, row statistics and loop state)
-constexpr int kRegBudget = 176;
 #ifdef FLASH_BWD_TRACE
 constexpr bool kTrace = true;
 #else
@@ -102,19 +105,27 @@ struct BwdTile {
   static constexpr int kKSteps = D * kEs / 32;             // 32-byte K steps over D
   static constexpr int kParts = kF32 ? 2 : 1;              // fp32: hi and lo
   // registers of a multiplying thread at a tile of n (keys for dQ, q rows
-  // for dK/dV): accumulators, S and dP fragments, A operands
-  __host__ __device__ static constexpr int regs(bool dq, int n) {
-    return (dq ? kDP / 2 : kDP) + n + (kF32 ? (dq ? n : 2 * n) : (dq ? n / 4 : n / 2));
+  // for dK/dV) with the outputs in g column groups: accumulators, S and dP
+  // fragments, A operands
+  __host__ __device__ static constexpr int regs(bool dq, int n, int g = 1) {
+    return (dq ? kDP / 2 : kDP) / g + n + (kF32 ? (dq ? n : 2 * n) : (dq ? n / 4 : n / 2));
+  }
+  // the fewest column groups with which a 16-row tile fits the budget
+  __host__ __device__ static constexpr int groups(bool dq) {
+    return regs(dq, 16, 1) <= kRegBudget ? 1 : 2;
   }
   __host__ __device__ static constexpr int reg_tile(bool dq) {
     int n = 128;
-    while (n > 16 && regs(dq, n) > kRegBudget) n /= 2;
+    while (n > 16 && regs(dq, n, groups(dq)) > kRegBudget) n /= 2;
     return n;
   }
-  // fp32: one part (hi or lo) of a transposed copy of a tile of n rows
-  __host__ __device__ static constexpr int t_bytes(int n) { return (n + 31) / 32 * kDP * kRow; }
+  // fp32: one part (hi or lo) of a transposed copy of a tile of n rows, the
+  // group's columns
+  __host__ __device__ static constexpr int t_bytes(bool dq, int n) {
+    return (n + 31) / 32 * (kDP / groups(dq)) * kRow;
+  }
   __host__ __device__ static constexpr int stage(bool dq, int n) {
-    return kF32 ? 4 * kDC * n * kRow + (dq ? 2 : 4) * t_bytes(n) : 2 * kDC * n * kRow;
+    return kF32 ? 4 * kDC * n * kRow + (dq ? 2 : 4) * t_bytes(dq, n) : 2 * kDC * n * kRow;
   }
   // the block's fixed operands (Q and dO, or K and V; fp32 with their lo)
   __host__ __device__ static constexpr int fixed(int rows) {
@@ -131,6 +142,10 @@ struct BwdTile {
     for (int n = reg_tile(dq); n >= 16; n /= 2)
       if (smem(dq, 64, n, 2) <= kSmemMax) return n;
     return reg_tile(dq);
+  }
+  // one stage fits beside a 64-row block (not fp32 above D = 128)
+  __host__ __device__ static constexpr bool fits(bool dq) {
+    return smem(dq, 64, tile(dq), 1) <= kSmemMax;
   }
 };
 
@@ -152,8 +167,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   using L = BwdTile<T, D>;
   constexpr int kN = L::tile(true);            // keys a kv tile
   constexpr int kRb = L::kDC * kN * kRow;      // one K or V tile as it lands
-  constexpr int kTb = L::t_bytes(kN);          // fp32: K^T, one part
+  constexpr int kTb = L::t_bytes(true, kN);    // fp32: K^T, one part
   constexpr int kStage = L::stage(true, kN);
+  static_assert(L::groups(true) == 1, "dQ keeps its columns in one group");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int rb = L::kDC * p.rows * kRow;       // Q or dO as it lands
@@ -413,8 +429,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   using L = BwdTile<T, D>;
   constexpr int kN = L::tile(false);           // q rows a tile
   constexpr int kRb = L::kDC * kN * kRow;      // one Q or dO tile as it lands
-  constexpr int kTb = L::t_bytes(kN);          // fp32: Q^T or dO^T, one part
+  constexpr int kTb = L::t_bytes(false, kN);   // fp32: Q^T or dO^T, one part
   constexpr int kStage = L::stage(false, kN);
+  constexpr int kG = L::groups(false);         // column groups of dK and dV
+  constexpr int kDO = L::kDP / kG;             // columns a block accumulates
+  constexpr int kDCo = L::kDC / kG;            // their chunks
+  static_assert(!L::kF32 || kG == 1, "fp32 keeps dK and dV in one group");
   extern __shared__ uint8_t smem_raw[];
   uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int rb = L::kDC * p.rows * kRow;       // K or V as it lands
@@ -427,7 +447,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* ready = full + kMaxStages;         // lse and delta staged; fp32: the splits
   uint64_t* empty = ready + kMaxStages;
   const int nwg = p.rows / 64;
-  const int kt = (int)(blockIdx.x / p.bh);  // the heaviest causal kv tiles first
+  // one block per (kv tile, column group, batch*head), the heaviest causal
+  // kv tiles first
+  const int idx = (int)(blockIdx.x / p.bh), grp = idx % kG, kt = idx / kG;
   const int bh = blockIdx.x % p.bh, k0 = kt * p.rows, offset = p.sk - p.sq;
   const int n_q = (p.sq + kN - 1) / kN;
   // the first q tile whose last row may see key `key` (causal), else 0
@@ -517,9 +539,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   const uint32_t ka = smem_u32(sk_hi) + wg * 64 * kRow, va = smem_u32(sv_hi) + wg * 64 * kRow;
 
-  float acc_k[L::kDP / 2], acc_v[L::kDP / 2];
+  float acc_k[kDO / 2], acc_v[kDO / 2];
 #pragma unroll
-  for (int i = 0; i < L::kDP / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  for (int i = 0; i < kDO / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
   float sc[kN / 2], dp[kN / 2];  // S^T, then P^T; dP^T, then dS^T
   // P^T and dS^T as wgmma's A operand: bf16 pairs, or tf32 hi and lo
   constexpr int kA = L::kF32 ? kN / 8 : kN / 16, kLo = L::kF32 ? kN / 8 : 1;
@@ -633,8 +655,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int k = 0; k < kN / 16; ++k)
 #pragma unroll
-        for (int c = 0; c < L::kDC; ++c) {  // 64 columns of D a product
-          const uint32_t off = c * kN * kRow + k * 16 * kRow;
+        for (int c = 0; c < kDCo; ++c) {  // 64 columns of the group a product
+          const uint32_t off = (grp * kDCo + c) * kN * kRow + k * 16 * kRow;
           Wgmma<64>::rs_bf16<1>(acc_v + 32 * c, pa[k], desc_sw128(st + kRb + off));
           Wgmma<64>::rs_bf16<1>(acc_k + 32 * c, da[k], desc_sw128(st + off));
         }
@@ -684,16 +706,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 
   // dK and dV of keys key0 and key0 + 8, the first d columns
-  T* out_k = static_cast<T*>(p.g0);
-  T* out_v = static_cast<T*>(p.g1);
+  T* out_k = static_cast<T*>(p.g0) + grp * kDO;  // the group's columns
+  T* out_v = static_cast<T*>(p.g1) + grp * kDO;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int key = key0 + 8 * h;
     if (key >= p.sk) continue;
     const size_t at = ((size_t)bh * p.sk + key) * p.d;
 #pragma unroll
-    for (int j = 0; j < L::kDP / 8; ++j)
-      if (8 * j + 2 * t4 < p.d) {  // d is even: a pair is stored whole or not at all
+    for (int j = 0; j < kDO / 8; ++j)
+      if (grp * kDO + 8 * j + 2 * t4 < p.d) {  // d is even: a pair is stored whole or not at all
         store2(out_k + at + 8 * j + 2 * t4, acc_k[4 * j + 2 * h], acc_k[4 * j + 2 * h + 1]);
         store2(out_v + at + 8 * j + 2 * t4, acc_v[4 * j + 2 * h], acc_v[4 * j + 2 * h + 1]);
       }
@@ -702,10 +724,11 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 template <typename T, int D, bool kDq>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, const Params& p0,
-                   int rows, int tile, int smem, cudaStream_t stream) {
+                   int rows, int tile, int smem, int groups, cudaStream_t stream) {
   using L = BwdTile<T, D>;
-  if (tile != L::tile(kDq) || (rows != 64 && rows != 128) || p0.stages < 1 ||
-      p0.stages > kMaxStages || smem != L::smem(kDq, rows, tile, p0.stages) || smem > kSmemMax)
+  if (tile != L::tile(kDq) || groups != L::groups(kDq) || (rows != 64 && rows != 128) ||
+      p0.stages < 1 || p0.stages > kMaxStages || smem != L::smem(kDq, rows, tile, p0.stages) ||
+      smem > kSmemMax)
     return cudaErrorInvalidValue;
   const auto kernel = kDq ? flash_bwd_dq_kernel<T, D> : flash_bwd_dkv_kernel<T, D>;
   static bool raised = false;  // once per instantiation, never inside a graph capture
@@ -732,20 +755,24 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   Params p = p0;
   p.rows = rows;
   p.n_blocks = ((kDq ? p.sq : p.sk) + rows - 1) / rows;
-  if ((long long)p.n_blocks * p.bh > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kernel<<<p.n_blocks * p.bh, 128 + 2 * rows, smem, stream>>>(maps[0], maps[1], maps[2], maps[3],
-                                                              p);
+  const long long blocks = (long long)p.n_blocks * groups * p.bh;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, 128 + 2 * rows, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
   return cudaGetLastError();
 }
 
 template <typename T, bool kDq>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* dout,
-                     const Params& p, int rows, int tile, int smem, cudaStream_t s) {
+                     const Params& p, int rows, int tile, int smem, int groups, cudaStream_t s) {
   switch (head_class(p.d)) {
-    case 16: return launch<T, 16, kDq>(q, k, v, dout, p, rows, tile, smem, s);
-    case 32: return launch<T, 32, kDq>(q, k, v, dout, p, rows, tile, smem, s);
-    case 64: return launch<T, 64, kDq>(q, k, v, dout, p, rows, tile, smem, s);
-    case 128: return launch<T, 128, kDq>(q, k, v, dout, p, rows, tile, smem, s);
+    case 16: return launch<T, 16, kDq>(q, k, v, dout, p, rows, tile, smem, groups, s);
+    case 32: return launch<T, 32, kDq>(q, k, v, dout, p, rows, tile, smem, groups, s);
+    case 64: return launch<T, 64, kDq>(q, k, v, dout, p, rows, tile, smem, groups, s);
+    case 128: return launch<T, 128, kDq>(q, k, v, dout, p, rows, tile, smem, groups, s);
+    case 256:
+      if constexpr (BwdTile<T, 256>::fits(kDq))
+        return launch<T, 256, kDq>(q, k, v, dout, p, rows, tile, smem, groups, s);
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
@@ -753,7 +780,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, const void* do
 template <bool kDq>
 int run(const void* q, const void* k, const void* v, const void* dout, const void* lse,
         const void* delta, void* g0, void* g1, int bh, int sq, int sk, int d, int causal,
-        float scale, int is_bf16, int rows, int tile, int stages, int smem, void* stream) {
+        float scale, int is_bf16, int rows, int tile, int stages, int smem, int groups,
+        void* stream) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
                           reinterpret_cast<uintptr_t>(g0) | reinterpret_cast<uintptr_t>(g1);
@@ -767,8 +795,9 @@ int run(const void* q, const void* k, const void* v, const void* dout, const voi
   p.scale = scale, p.scale_log2 = scale * kLog2e;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err = is_bf16
-                              ? dispatch<__nv_bfloat16, kDq>(q, k, v, dout, p, rows, tile, smem, s)
-                              : dispatch<float, kDq>(q, k, v, dout, p, rows, tile, smem, s);
+                              ? dispatch<__nv_bfloat16, kDq>(q, k, v, dout, p, rows, tile, smem,
+                                                             groups, s)
+                              : dispatch<float, kDq>(q, k, v, dout, p, rows, tile, smem, groups, s);
   return static_cast<int>(err);
 }
 
@@ -777,18 +806,18 @@ int run(const void* q, const void* k, const void* v, const void* dout, const voi
 extern "C" {
 
 // q, dout, dq: contiguous (bh, sq, d); k, v: contiguous (bh, sk, d); all fp32
-// (is_bf16 = 0) or bf16 (is_bf16 = 1), 16-byte aligned, 1 <= d <= 128 with
-// rows of whole 16-byte units. lse, delta: contiguous (bh, sq) fp32. The
-// plan (_kernels.flash_bwd_plan, this kernel's part): rows (64 or 128) a
-// block, tile keys a stage, stages of the ring, smem the block's dynamic
-// shared memory in bytes; a plan this build would lay out otherwise is
-// refused. Returns the launch's cudaError_t (0 = queued).
+// (is_bf16 = 0) or bf16 (is_bf16 = 1), 16-byte aligned, 1 <= d <= 256 (fp32:
+// 128) with rows of whole 16-byte units. lse, delta: contiguous (bh, sq)
+// fp32. The plan (_kernels.flash_bwd_plan, this kernel's part): rows (64 or
+// 128) a block, tile keys a stage, stages of the ring, smem the block's
+// dynamic shared memory in bytes, groups of the output's columns; a plan
+// this build would lay out otherwise is refused. Returns the launch's cudaError_t (0 = queued).
 int dcnn_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int bh, int sq, int sk, int d,
                       int causal, float scale, int is_bf16, int rows, int tile, int stages,
-                      int smem, void* stream) {
+                      int smem, int groups, void* stream) {
   return run<true>(q, k, v, dout, lse, delta, dq, dq, bh, sq, sk, d, causal, scale, is_bf16, rows,
-                   tile, stages, smem, stream);
+                   tile, stages, smem, groups, stream);
 }
 
 // as above; dk, dv: contiguous (bh, sk, d) of the input type; rows keys a
@@ -796,9 +825,9 @@ int dcnn_flash_bwd_dq(const void* q, const void* k, const void* v, const void* d
 int dcnn_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int bh, int sq,
                        int sk, int d, int causal, float scale, int is_bf16, int rows, int tile,
-                       int stages, int smem, void* stream) {
+                       int stages, int smem, int groups, void* stream) {
   return run<false>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, causal, scale, is_bf16,
-                    rows, tile, stages, smem, stream);
+                    rows, tile, stages, smem, groups, stream);
 }
 
 #ifdef FLASH_BWD_TRACE

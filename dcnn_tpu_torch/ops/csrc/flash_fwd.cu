@@ -11,10 +11,16 @@
 // O = acc / l in q's type and logsumexp m + log(l) as (bh, sq) fp32, -1e30
 // for a fully masked row (the backward kernels read it).
 //
-// Design. One block per (batch*head, tile of q_rows = 64 or 128 q rows),
-// on a 1-d grid (any batch*head), the heaviest causal tiles first. Any head
-// dim d <= 128 runs as its class D (16, 32, 64 or 128; flash.cuh): columns
-// d .. D - 1 are the copy's zero fill. Warpgroup 0 copies, warpgroups 1-2 (one
+// Design. One block per (batch*head, tile of q_rows = 64 or 128 q rows,
+// group of O's columns), on a 1-d grid (any batch*head), the heaviest
+// causal tiles first. Any head dim d <= 256 runs as its class D (16, 32,
+// 64, 128 or 256; flash.cuh): columns d .. D - 1 are the copy's zero fill.
+// Where O's fp32 accumulator over D would not fit the register budget with
+// S and P (bf16 at D = 256: 128 registers for O alone), or a stage would not
+// fit beside 64 q rows (fp32 at D = 256), O's columns are cut in groups of
+// 128, one group a block: each block computes S over the whole
+// of D and lands only its group's columns of V; group 0 writes the
+// logsumexp. Warpgroup 0 copies, warpgroups 1-2 (one
 // per 64 q rows) multiply. One thread issues every TMA: the Q tile once,
 // then each kv tile's K and V into a ring of up to 4 stages with full/empty
 // mbarriers; the copy's out-of-bounds zero fill covers ragged Sq, Sk and D.
@@ -45,7 +51,11 @@
 // within each group of 8 to match the order in which the accumulator
 // fragment holds P (columns 2t, 2t+1 of a group are fed as the A operand's
 // columns t, t+4). fp32 uses 64-key tiles, and at D = 128 32-key tiles and
-// 64 q rows, so two stages fit.
+// 64 q rows, so two stages fit. At D = 256 fp32 Q's hi and lo alone take
+// 128 KB: 16-key tiles (V^T still takes a 128-byte row per column) and O's
+// columns in two groups, in one stage, so a pass runs S, the softmax and P
+// V in turn (kSerial) instead of overlapping S of one tile with P V of the
+// one before.
 //
 // What bounds it on an H100. At long context the two products: 4 D FLOPs
 // per allowed (q, k) pair at 989 TFLOP/s (bf16; fp32 as three TF32
@@ -81,17 +91,40 @@ struct Tile {
   static constexpr int kChunkE = kRow / kEs;              // elements of a 128-byte chunk
   static constexpr int kDC = (D * kEs + kRow - 1) / kRow;  // chunks of a row of D
   static constexpr int kDP = kDC * kChunkE;                // D padded to whole chunks
-  static constexpr int kBKV = !kF32 ? 128 : D == 128 ? 32 : 64;  // keys a kv tile
+  static constexpr int kBKV = !kF32 ? 128 : D == 256 ? 16 : D == 128 ? 32 : 64;  // keys a kv tile
   static constexpr int kKSteps = D * kEs / 32;             // 32-byte K steps of Q K^T
   static constexpr int kParts = kF32 ? 2 : 1;              // fp32: hi and lo
-  static constexpr int kKV = kDC * kBKV * kRow;            // one K or V tile as it lands
-  static constexpr int kVt = kBKV * kDP * 4;               // fp32: V^T, one part
-  static constexpr int kStage = kKV * (kF32 ? 3 : 2) + (kF32 ? 2 * kVt : 0);
-  __host__ __device__ static int q_bytes(int q_rows) { return kDC * q_rows * kRow * kParts; }
+  __host__ __device__ static constexpr int q_bytes(int q_rows) { return kDC * q_rows * kRow * kParts; }
+  // registers of a multiplying thread with O's columns in g groups: O, S,
+  // and P as the A operand (_kernels.flash_fwd_regs)
+  static constexpr int regs(int g) { return kDP / g / 2 + kBKV / 2 + (kF32 ? kBKV : kBKV / 4); }
+  // fp32: one part (hi or lo) of V^T over g groups' columns: a row of 128
+  // bytes per column for each 32 keys
+  static constexpr int vt_bytes(int g) { return (kBKV + 31) / 32 * (kDP / g) * kRow; }
+  // a stage with O's columns in g groups: K, the group's columns of V;
+  // fp32: then K's lo, V^T's hi and lo
+  static constexpr int stage_bytes(int g) {
+    return kDC * kBKV * kRow * (kF32 ? 2 : 1) + kDC / g * kBKV * kRow + (kF32 ? 2 * vt_bytes(g) : 0);
+  }
+  // the fewest groups whose registers fit the budget and whose stage fits
+  // beside 64 q rows (fp32 at D = 256: 2, for shared memory)
+  static constexpr bool fits(int g) {
+    return regs(g) <= kRegBudget && 1024 + q_bytes(64) + stage_bytes(g) + 256 <= kSmemMax;
+  }
+  static constexpr int kGroups = fits(1) ? 1 : 2;          // groups of O's columns
+  static constexpr int kDO = kDP / kGroups;                // O's columns a block
+  static constexpr int kDCo = kDC / kGroups;               // chunks of V a stage holds
+  static constexpr int kKV = kDC * kBKV * kRow;            // one K tile as it lands
+  static constexpr int kVV = kDCo * kBKV * kRow;           // the group's columns of a V tile
+  static constexpr int kVt = vt_bytes(kGroups);            // fp32: V^T, one part
+  static constexpr int kStage = stage_bytes(kGroups);      // K, V; fp32: K's lo, V^T hi, lo
+  static_assert(fits(kGroups), "no tile format for this class");
   // 1024 bytes of slack to align the base for the swizzle, and the barriers
-  static int smem(int q_rows, int stages) {
+  __host__ __device__ static constexpr int smem(int q_rows, int stages) {
     return 1024 + q_bytes(q_rows) + stages * kStage + 256;
   }
+  // two stages do not fit beside 64 q rows: one stage, serial passes
+  static constexpr bool kSerial = smem(64, 2) > kSmemMax;
 };
 
 // Clock counts of the steady passes (the -DFLASH_TRACE build;
@@ -125,8 +158,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* ready = full + kMaxStages;  // fp32: the stage split and V transposed
   uint64_t* empty = ready + kMaxStages;
   const int nwg = p.q_rows / 64;
-  // one block per (q tile, batch*head), the heaviest causal q tiles first
-  const int qt = p.n_qtiles - 1 - (int)(blockIdx.x / p.bh);
+  // one block per (q tile, column group, batch*head), the heaviest causal
+  // q tiles first
+  const int idx = (int)(blockIdx.x / p.bh), grp = idx % L::kGroups;
+  const int qt = p.n_qtiles - 1 - idx / L::kGroups;
   const int bh = blockIdx.x % p.bh, q0 = qt * p.q_rows, offset = p.sk - p.sq;
   // the kv tiles holding an allowed pair for a real row of this q tile
   int n_kv = (p.sk + kBKV - 1) / kBKV;
@@ -158,12 +193,12 @@ __global__ void __launch_bounds__(kThreads, 1)
         mbar_wait(empty + s, ((t / p.stages) & 1) ^ 1);
         fence_proxy_async();  // fp32: the split's stores to this stage before the copy
         uint8_t* st = ring + s * L::kStage;
-        mbar_expect_tx(full + s, 2 * L::kKV);
-        for (int c = 0; c < L::kDC; ++c) {
+        mbar_expect_tx(full + s, L::kKV + L::kVV);
+        for (int c = 0; c < L::kDC; ++c)
           tma_load_3d(smem_u32(st + c * kBKV * kRow), &kmap, full + s, c * L::kChunkE, t * kBKV, bh);
-          tma_load_3d(smem_u32(st + L::kKV + c * kBKV * kRow), &vmap, full + s, c * L::kChunkE,
-                      t * kBKV, bh);
-        }
+        for (int c = 0; c < L::kDCo; ++c)  // the group's chunks of V
+          tma_load_3d(smem_u32(st + L::kKV + c * kBKV * kRow), &vmap, full + s,
+                      (grp * L::kDCo + c) * L::kChunkE, t * kBKV, bh);
       }
       return;
     }
@@ -178,9 +213,9 @@ __global__ void __launch_bounds__(kThreads, 1)
           const int s = t % p.stages;
           mbar_wait(full + s, (t / p.stages) & 1);
           uint8_t* st = ring + s * L::kStage;
-          split_cells(st, st + 2 * L::kKV, L::kKV / 16, st_tid, 96);
-          transpose_split<L::kDP>(st + L::kKV, nullptr, st + 3 * L::kKV, st + 3 * L::kKV + L::kVt,
-                                  kBKV, st_tid, 96);
+          uint8_t* vt = st + 2 * L::kKV + L::kVV;
+          split_cells(st, st + L::kKV + L::kVV, L::kKV / 16, st_tid, 96);
+          transpose_split<L::kDO>(st + L::kKV, nullptr, vt, vt + L::kVt, kBKV, st_tid, 96);
           fence_proxy_async();
           mbar_arrive(ready + s);
         }
@@ -200,9 +235,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const uint32_t qa = smem_u32(sq_hi) + wg * 64 * kRow;
   const uint32_t qa_lo = smem_u32(sq_lo) + wg * 64 * kRow;
 
-  float o[L::kDP / 2];
+  float o[L::kDO / 2];
 #pragma unroll
-  for (int i = 0; i < L::kDP / 2; ++i) o[i] = 0.f;
+  for (int i = 0; i < L::kDO / 2; ++i) o[i] = 0.f;
   float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
   float sc[kBKV / 2];  // S of the tile, then its P in fp32
   // P of the previous tile as wgmma's A operand: bf16 pairs, or tf32 hi and lo
@@ -241,7 +276,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const uint64_t a = desc_sw128(qa + qoff), b = desc_sw128(st + koff);
       if constexpr (L::kF32) {
         const uint64_t alo = desc_sw128(qa_lo + qoff);
-        const uint64_t blo = desc_sw128(st + 2 * L::kKV + koff);
+        const uint64_t blo = desc_sw128(st + L::kKV + L::kVV + koff);
         Wgmma<kBKV>::ss_tf32(sc, alo, b);
         Wgmma<kBKV>::ss_tf32(sc, a, blo);
         Wgmma<kBKV>::ss_tf32(sc, a, b);
@@ -255,21 +290,24 @@ __global__ void __launch_bounds__(kThreads, 1)
   auto issue_pv = [&](uint32_t st) {
     wgmma_fence();
     if constexpr (L::kF32) {
-      const uint32_t vt_hi = st + 3 * L::kKV, vt_lo = vt_hi + L::kVt;
+      const uint32_t vt_hi = st + 2 * L::kKV + L::kVV, vt_lo = vt_hi + L::kVt;
+      constexpr int kNW = L::kDO > 128 ? 128 : L::kDO;  // O's columns a product
 #pragma unroll
-      for (int j = 0; j < kBKV / 8; ++j) {
-        const int off = (j >> 2) * L::kDP * kRow + 32 * (j & 3);
-        const uint64_t bhi = desc_sw128(vt_hi + off), blo = desc_sw128(vt_lo + off);
-        Wgmma<L::kDP>::rs_tf32(o, plo[j], bhi);
-        Wgmma<L::kDP>::rs_tf32(o, pa[j], blo);
-        Wgmma<L::kDP>::rs_tf32(o, pa[j], bhi);
-      }
+      for (int j = 0; j < kBKV / 8; ++j)
+#pragma unroll
+        for (int n = 0; n < L::kDO / kNW; ++n) {
+          const int off = (j >> 2) * L::kDO * kRow + 32 * (j & 3) + n * kNW * kRow;
+          const uint64_t bhi = desc_sw128(vt_hi + off), blo = desc_sw128(vt_lo + off);
+          Wgmma<kNW>::rs_tf32(o + n * kNW / 2, plo[j], bhi);
+          Wgmma<kNW>::rs_tf32(o + n * kNW / 2, pa[j], blo);
+          Wgmma<kNW>::rs_tf32(o + n * kNW / 2, pa[j], bhi);
+        }
     } else {
       const uint32_t vb = st + L::kKV;
 #pragma unroll
       for (int k = 0; k < kBKV / 16; ++k)
 #pragma unroll
-        for (int c = 0; c < L::kDC; ++c)  // 64 columns of D a product
+        for (int c = 0; c < L::kDCo; ++c)  // 64 columns of the group a product
           Wgmma<64>::rs_bf16<1>(o + 32 * c, pa[k], desc_sw128(vb + c * kBKV * kRow + k * 16 * kRow));
     }
     wgmma_commit();
@@ -329,7 +367,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   // once no P V is in flight: O rescaled, and P in sc to wgmma's A form
   auto to_operand = [&](const float (&corr)[2]) {
 #pragma unroll
-    for (int j = 0; j < L::kDP / 8; ++j)
+    for (int j = 0; j < L::kDO / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) o[4 * j + e] *= corr[e >> 1];
     if constexpr (L::kF32) {
@@ -362,8 +400,23 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // tile 0; then each pass t issues S of tile t and P V of tile t - 1 and
   // runs the softmax of tile t while P V is in flight; then P V of the last
-  // live tile; then the tiles above this warpgroup's band, released unread
-  if (n_live > 0) {
+  // live tile; then the tiles above this warpgroup's band, released unread.
+  // With one stage (kSerial, one warpgroup) each pass runs S, the softmax
+  // and P V of its tile in turn.
+  if constexpr (L::kSerial) {
+    for (int t = 0; t < n_live; ++t) {
+      float corr[2];
+      wait_tile(t);
+      issue_s(stage_of(t));
+      wgmma_wait0();
+      fence_regs(sc);
+      softmax(t, corr);
+      to_operand(corr);
+      issue_pv(stage_of(t));
+      pv_done();
+      release(t);
+    }
+  } else if (n_live > 0) {
     float corr[2];
     wait_tile(0);
     turn_begin();
@@ -415,7 +468,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (turns && wg == 0) named_sync(1);  // the turn warpgroup 1 passed last
 
   // O = acc / max(l, 1e-30) and the logsumexp of rows row0 and row0 + 8
-  T* out = static_cast<T*>(p.o);
+  T* out = static_cast<T*>(p.o) + grp * L::kDO;  // the group's columns
+  constexpr int kCols = L::kGroups == 1 ? D : L::kDO;        // columns a block may store
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     float sum = l[h];
@@ -426,10 +480,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     const float l_fin = fmaxf(sum, 1e-30f);
     T* orow = out + ((size_t)bh * p.sq + row) * p.d;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      if (8 * j + 2 * t4 < p.d)  // d is even: a pair is stored whole or not at all
+    for (int j = 0; j < kCols / 8; ++j)
+      if (grp * L::kDO + 8 * j + 2 * t4 < p.d)  // d is even: a pair is stored whole or not at all
         store2(orow + 8 * j + 2 * t4, o[4 * j + 2 * h] / l_fin, o[4 * j + 2 * h + 1] / l_fin);
-    if (t4 == 0)
+    if (t4 == 0 && grp == 0)
       p.lse[(size_t)bh * p.sq + row] = m[h] == kNeg ? kNeg : m[h] * kLn2 + logf(l_fin);
   }
 }
@@ -437,13 +491,15 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int sq,
                    int sk, int d, int causal, float scale, int q_rows, int kv_tile, int stages,
-                   int smem, cudaStream_t stream) {
+                   int smem, int groups, cudaStream_t stream) {
   using L = Tile<T, D>;
   // two stages at least where there are two kv tiles: a pass holds the
-  // previous tile's stage while it waits for the next
-  if (kv_tile != L::kBKV || (q_rows != 64 && q_rows != 128) || stages < 1 ||
-      (stages < 2 && sk > kv_tile) || stages > kMaxStages || smem != L::smem(q_rows, stages) ||
-      smem > kSmemMax)
+  // previous tile's stage while it waits for the next; a serial plan has
+  // one stage and one warpgroup
+  if (kv_tile != L::kBKV || groups != L::kGroups || (q_rows != 64 && q_rows != 128) ||
+      stages < 1 || (!L::kSerial && stages < 2 && sk > kv_tile) ||
+      (L::kSerial && (stages != 1 || q_rows != 64)) || stages > kMaxStages ||
+      smem != L::smem(q_rows, stages) || smem > kSmemMax)
     return cudaErrorInvalidValue;
   const auto kernel = flash_fwd_kernel<T, D>;
   static bool raised = false;  // once per instantiation, never inside a graph capture
@@ -471,20 +527,22 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
   p.n_qtiles = (sq + q_rows - 1) / q_rows;
   p.bh = bh;
   p.scale_log2 = scale * kLog2e;
-  if ((long long)p.n_qtiles * bh > 0x7fffffffLL) return cudaErrorInvalidValue;
-  kernel<<<p.n_qtiles * bh, 128 + 2 * q_rows, smem, stream>>>(maps[0], maps[1], maps[2], p);
+  const long long blocks = (long long)p.n_qtiles * L::kGroups * bh;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, 128 + 2 * q_rows, smem, stream>>>(maps[0], maps[1], maps[2], p);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
                      int sq, int sk, int d, int causal, float scale, int q_rows, int kv_tile,
-                     int stages, int smem, cudaStream_t s) {
+                     int stages, int smem, int groups, cudaStream_t s) {
   switch (head_class(d)) {
-    case 16: return launch<T, 16>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile, stages, smem, s);
-    case 32: return launch<T, 32>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile, stages, smem, s);
-    case 64: return launch<T, 64>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile, stages, smem, s);
-    case 128: return launch<T, 128>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile, stages, smem, s);
+    case 16: return launch<T, 16>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile, stages, smem, groups, s);
+    case 32: return launch<T, 32>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile, stages, smem, groups, s);
+    case 64: return launch<T, 64>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile, stages, smem, groups, s);
+    case 128: return launch<T, 128>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile, stages, smem, groups, s);
+    case 256: return launch<T, 256>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile, stages, smem, groups, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -494,15 +552,16 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void*
 extern "C" {
 
 // q, k, v, o: contiguous (bh, s, d) of fp32 (is_bf16 = 0) or bf16 (is_bf16 =
-// 1), 16-byte aligned, 1 <= d <= 128 with rows of whole 16-byte units (the
+// 1), 16-byte aligned, 1 <= d <= 256 with rows of whole 16-byte units (the
 // TMA copy's rule); lse: contiguous (bh, sq) fp32. The plan
 // (_kernels.flash_plan): q_rows (64 or 128) a block, kv_tile keys a stage,
-// stages of the K/V ring, smem the block's dynamic shared memory in bytes;
-// a plan this build would lay out otherwise is refused. Returns the
+// stages of the K/V ring, smem the block's dynamic shared memory in bytes,
+// groups of O's columns; a plan this build would lay out otherwise is
+// refused. Returns the
 // launch's cudaError_t (0 = queued).
 int dcnn_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int sq,
                    int sk, int d, int causal, float scale, int is_bf16, int q_rows, int kv_tile,
-                   int stages, int smem, void* stream) {
+                   int stages, int smem, int groups, void* stream) {
   const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
   if (bh < 1 || sq < 1 || sk < 1 || d < 1 || d * (is_bf16 ? 2 : 4) % 16 || align % 16)
@@ -510,9 +569,9 @@ int dcnn_flash_fwd(const void* q, const void* k, const void* v, void* o, void* l
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
       is_bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows,
-                                        kv_tile, stages, smem, s)
+                                        kv_tile, stages, smem, groups, s)
               : dispatch<float>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile,
-                                stages, smem, s);
+                                stages, smem, groups, s);
   return static_cast<int>(err);
 }
 

@@ -2,12 +2,13 @@
 single-device trainer over host loaders)."""
 
 from .trainer import (
-    TrainState, Trainer, create_train_state, evaluate_classification,
+    TrainState, Trainer, batch_generator, create_train_state,
+    evaluate_classification,
     evaluate_regression, make_eval_step, make_train_step,
     train_classification_model, train_regression_model,
 )
 
-__all__ = ["TrainState", "Trainer", "create_train_state",
+__all__ = ["TrainState", "Trainer", "batch_generator", "create_train_state",
            "evaluate_classification", "evaluate_regression",
            "make_eval_step", "make_train_step",
            "train_classification_model", "train_regression_model"]

@@ -7,10 +7,14 @@
 - :func:`make_train_step`: forward, :func:`upcast_logits`, loss, backward
   (autograd; the attention core's gradient comes from the flash backward
   kernels on CUDA) and the optimizer update, with optional microbatch
-  gradient accumulation.
+  gradient accumulation; dropout draws from the step's generator.
 - :class:`Trainer`: the epoch loop over host loaders: per-batch or
   per-epoch scheduler stepping, multiplicative lr decay, validation,
   progress prints and a ``history`` of dicts with the JAX package's keys.
+  Each batch's random draws come from a generator seeded by (seed, epoch,
+  batch) (:func:`batch_generator`), the JAX trainer's
+  ``fold_in(fold_in(key, epoch), batch)``: one seed gives the same masks
+  run after run.
 
 Runs on ``config.device_type`` (CUDA unless ``"cpu"``); asking for CUDA
 without a GPU raises. What the config asks for that this package has not
@@ -26,6 +30,8 @@ from dataclasses import dataclass
 from typing import Any, Callable, Optional, Tuple
 
 import torch
+
+import numpy as np
 
 from ..core.config import ProfilerType, TrainingConfig
 from ..core.device import DeviceLike, resolve_device
@@ -96,10 +102,22 @@ def create_train_state(model: Sequential, optimizer: Optimizer,
     return TrainState(model, optimizer.init(dict(model.named_parameters())))
 
 
+def batch_generator(seed: int, epoch: int, batch: int,
+                    device: torch.device) -> torch.Generator:
+    """The generator of one batch's random draws (dropout masks) on
+    ``device``, seeded from (seed, epoch, batch) through numpy's
+    ``SeedSequence``."""
+    state = np.random.SeedSequence([seed, epoch, batch]).generate_state(
+        1, np.uint64)[0]
+    return torch.Generator(device=device).manual_seed(int(state >> 1))
+
+
 def make_train_step(model: Sequential, loss_fn: Callable,
                     optimizer: Optimizer, num_microbatches: int = 1):
-    """Returns ``step(ts, x, y, lr) -> (loss, logits)``, which updates
-    ``ts`` in place. ``x`` and ``y`` are tensors on the model's device.
+    """Returns ``step(ts, x, y, lr, generator=None) -> (loss, logits)``,
+    which updates ``ts`` in place. ``x`` and ``y`` are tensors on the
+    model's device; ``generator`` (on that device) feeds the model's dropout
+    layers, whose training forward raises without one.
 
     With ``num_microbatches > 1`` the batch is split on the leading axis,
     the gradients of the pieces are summed and divided by their number
@@ -108,13 +126,14 @@ def make_train_step(model: Sequential, loss_fn: Callable,
     each parameter's ``.grad`` until the next step."""
     n_mb = int(num_microbatches)
 
-    def forward_loss(x, y):
-        logits = upcast_logits(model(x))
+    def forward_loss(x, y, generator):
+        logits = upcast_logits(model(x, generator=generator))
         loss = loss_fn(logits, y)
         loss.backward()
         return loss.detach(), logits.detach()
 
-    def step(ts: TrainState, x: torch.Tensor, y: torch.Tensor, lr: float
+    def step(ts: TrainState, x: torch.Tensor, y: torch.Tensor, lr: float,
+             generator: Optional[torch.Generator] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         params = dict(model.named_parameters())
         model.train()
@@ -126,11 +145,11 @@ def make_train_step(model: Sequential, loss_fn: Callable,
                 f"{n_mb}: training this batch unmicrobatched "
                 f"(different BN statistics semantics)", stacklevel=2)
         if n_mb == 1 or x.shape[0] % n_mb != 0:
-            loss, logits = forward_loss(x, y)
+            loss, logits = forward_loss(x, y, generator)
         else:
             losses, outs = [], []
             for xi, yi in zip(x.chunk(n_mb), y.chunk(n_mb)):
-                li, oi = forward_loss(xi, yi)  # .grad sums over the pieces
+                li, oi = forward_loss(xi, yi, generator)  # .grad sums
                 losses.append(li)
                 outs.append(oi)
             for p in params.values():
@@ -212,9 +231,13 @@ class Trainer:
             raise ValueError(f"model is on {dev}, but the config asks for "
                              f"{self.device}; build it there")
 
-    def train_epoch(self, ts: TrainState, loader, epoch: int = 0
+    def train_epoch(self, ts: TrainState, loader, epoch: int = 0,
+                    seed: Optional[int] = None
                     ) -> Tuple[TrainState, float, float]:
-        """One pass over a host loader. Returns (ts, mean loss, accuracy)."""
+        """One pass over a host loader, batch ``bi`` drawing from
+        :func:`batch_generator` (``seed`` (default ``config.seed``), epoch,
+        bi). Returns (ts, mean loss, accuracy)."""
+        seed = self.config.seed if seed is None else seed
         _refuse_resident(loader)
         self._check_device(ts)
         total_loss, total_correct, total_n = 0.0, 0, 0
@@ -223,7 +246,9 @@ class Trainer:
         for bi, (x, y) in enumerate(loader):
             xb, yb = _batch(x, y, self.device, scale)
             self._global_step += 1
-            loss, logits = self.train_step(ts, xb, yb, self.lr)
+            loss, logits = self.train_step(
+                ts, xb, yb, self.lr,
+                batch_generator(seed, epoch, bi, self.device))
             total_loss += float(loss) * x.shape[0]
             total_correct += int(correct_count(logits, yb))
             total_n += x.shape[0]
@@ -244,10 +269,8 @@ class Trainer:
     def fit(self, ts: TrainState, train_loader, val_loader=None,
             epochs: Optional[int] = None, seed: Optional[int] = None
             ) -> TrainState:
-        """Train for ``epochs`` (default ``config.epochs``). ``seed`` is
-        accepted for the JAX signature; the port's layers draw no random
-        numbers while training."""
-        del seed
+        """Train for ``epochs`` (default ``config.epochs``); the random draws
+        of every batch follow from ``seed`` (default ``config.seed``)."""
         cfg = self.config
         if cfg.snapshot_dir and val_loader is not None:
             raise NotImplementedError(
@@ -261,7 +284,7 @@ class Trainer:
                 train_loader.shuffle(epoch)
             t0 = time.perf_counter()
             ts, train_loss, train_acc = self.train_epoch(ts, train_loader,
-                                                         epoch)
+                                                         epoch, seed)
             dt = time.perf_counter() - t0
             val_loss = val_acc = None
             if val_loader is not None:
@@ -322,9 +345,10 @@ def train_regression_model(model: Sequential, optimizer: Optimizer,
         if hasattr(train_loader, "shuffle"):
             train_loader.shuffle(epoch)
         total_loss, total_n = 0.0, 0
-        for x, y in train_loader:
+        for bi, (x, y) in enumerate(train_loader):
             loss_v, _ = step(ts, torch.as_tensor(x).to(dev),
-                             torch.as_tensor(y).to(dev), lr)
+                             torch.as_tensor(y).to(dev), lr,
+                             batch_generator(config.seed, epoch, bi, dev))
             total_loss += float(loss_v) * x.shape[0]
             total_n += x.shape[0]
         train_loss = total_loss / max(total_n, 1)

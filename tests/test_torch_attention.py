@@ -54,6 +54,8 @@ def _j(*arrays):
     (True, 72, 40, 16),     # sq > sk: the first 32 rows are fully masked
     (True, 40, 72, 8),      # head dims between the kernels' classes
     (False, 40, 72, 48),
+    (True, 40, 56, 192),    # head-dim class 256
+    (False, 24, 40, 256),
 ])
 def test_flash_plain_matches_pallas_interpret(causal, sq, sk, d):
     """O and the logsumexp of the port's plain flash forward against the

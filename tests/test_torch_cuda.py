@@ -15,22 +15,32 @@ bf16 2e-2: outputs, and in the backward dS and P, are rounded to bf16's
 does, so it is held to equality.
 """
 
+import importlib
+import os
+import sys
+
 import numpy as np
 import pytest
 import torch
 
 from dcnn_tpu_torch.core import TrainingConfig
 from dcnn_tpu_torch.data import ArrayDataLoader
-from dcnn_tpu_torch.interop import from_jax, to_jax
-from dcnn_tpu_torch.nn import MultiHeadAttentionLayer, SequentialBuilder
+from dcnn_tpu_torch.interop import from_jax, state_to_jax, to_jax
+from dcnn_tpu_torch.nn import (
+    DropoutLayer, MultiHeadAttentionLayer, SequentialBuilder,
+)
 from dcnn_tpu_torch.ops import _kernels
 from dcnn_tpu_torch.ops.attention import (
     flash_attention, flash_backward_reference, flash_forward_reference,
 )
+from dcnn_tpu_torch.ops.losses import get_loss
 from dcnn_tpu_torch.ops.pallas import conv as pconv
 from dcnn_tpu_torch.ops.pallas import fused as pfused
 from dcnn_tpu_torch.optim import SGD
-from dcnn_tpu_torch.train import Trainer, create_train_state
+from dcnn_tpu_torch.train import Trainer, create_train_state, make_train_step
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+_smoke = importlib.import_module("chip_smoke")
 
 pytestmark = pytest.mark.cuda
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
@@ -220,7 +230,7 @@ def _backward_check(causal, sq, sk, d, dtype, b=2, h=3):
         assert dq[:, :, :sq - sk].abs().max().item() == 0.0
 
 
-@pytest.mark.parametrize("d", _kernels.FLASH_HEAD_DIMS)
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
 @pytest.mark.parametrize("dtype", _kernels.FLASH_DTYPES, ids=["fp32", "bf16"])
 @pytest.mark.parametrize("causal,sq,sk", [
     (False, 200, 333),   # ragged
@@ -313,6 +323,110 @@ def test_kernels_take_more_than_65535_heads():
         assert _rel_err(got, ref) <= 1e-4
 
 
+@pytest.mark.parametrize("d", [136, 192, 200, 256])
+@pytest.mark.parametrize("dtype", _kernels.FLASH_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal,sq,sk", [
+    (False, 200, 333),   # ragged
+    (True, 150, 330),    # sq < sk
+    (True, 300, 100),    # sq > sk: fully masked rows
+])
+def test_flash_head_dims_above_128(causal, sq, sk, d, dtype):
+    """128 < D <= 256 runs as class 256: the forward in both types (O's
+    columns in two groups; fp32 in serial passes of 16-key tiles)
+    and both backward kernels in bf16 (dK/dV in two column groups), against
+    the plain versions. The fp32 backward refuses it: its fixed operands as
+    tf32 hi and lo need more than a block's shared memory."""
+    _flash_check(causal, sq, sk, d, dtype, b=1, h=2)
+    if dtype == torch.bfloat16:
+        _backward_check(causal, sq, sk, d, dtype, b=1, h=2)
+    else:
+        with pytest.raises(ValueError, match="shared memory"):
+            _backward_check(causal, sq, sk, d, dtype, b=1, h=2)
+
+
+def test_class_256_plans_as_launched():
+    """The plans the kernels take at D 256, each launch counted once: bf16
+    forward in 2 column groups of 64-row blocks and 2 stages of 128-key
+    tiles; fp32 forward in 2 groups, serial (one stage of 16 keys); bf16 dQ in one
+    group of 32-key tiles, dK/dV in 2 groups of 32-row q tiles."""
+    fwd_bf = _kernels.flash_plan(1024, 1024, 256, torch.bfloat16)
+    assert (fwd_bf.groups, fwd_bf.q_rows, fwd_bf.kv_tile, fwd_bf.stages,
+            fwd_bf.serial) == (2, 64, 128, 2, False)
+    fwd_32 = _kernels.flash_plan(1024, 1024, 256, torch.float32)
+    assert (fwd_32.groups, fwd_32.q_rows, fwd_32.kv_tile, fwd_32.stages,
+            fwd_32.serial) == (2, 64, 16, 1, True)
+    bwd = _kernels.flash_bwd_plan(1024, 1024, 256, torch.bfloat16)
+    assert (bwd.dq.groups, bwd.dq.tile, bwd.dkv.groups, bwd.dkv.tile) == (
+        1, 32, 2, 32)
+    before = _launches()
+    _flash_check(True, 1024, 1024, 256, torch.float32, b=1, h=2)
+    _backward_check(True, 1024, 1024, 256, torch.bfloat16, b=1, h=2)
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (2, 1, 1)
+
+
+def test_flash_attention_d256_strided_views_match_plain():
+    """Strided bf16 views (heads split out of a (B, S, H, D) tensor) at D
+    256 through ``flash_attention``: the op copies them for the kernels;
+    output and gradients against the plain versions on the same card."""
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.normal(size=(3, 2, 96, 2, 256)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    w = torch.from_numpy(rng.normal(size=(2, 2, 96, 256)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    views = [x[i].transpose(1, 2).requires_grad_() for i in range(3)]
+    assert not views[0].is_contiguous()
+    before = _launches()
+    out = flash_attention(*views, causal=True)
+    (out.float() * w.float()).sum().backward()
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (1, 1, 1)
+    q, k, v = (t.detach().contiguous() for t in views)
+    o_ref, lse_ref = flash_forward_reference(q, k, v, causal=True)
+    want = flash_backward_reference(q, k, v, o_ref, lse_ref, w, causal=True,
+                                    scale=256 ** -0.5)
+    assert _rel_err(out.detach(), o_ref) <= TOL[torch.bfloat16]
+    for t, ref in zip(views, want):
+        assert _rel_err(t.grad, ref) <= TOL[torch.bfloat16]
+
+
+def test_kernels_take_more_than_65535_heads_at_d256():
+    """B*H = 65537 at D 256 (bf16): every (q tile, column group,
+    batch*head) block of the 1-d grid runs; forward and both backward
+    kernels against the plain versions."""
+    rng = np.random.default_rng(22)
+    q, k, v, g = (torch.from_numpy(rng.normal(size=(65537, 1, 8, 256)).astype(
+        np.float32)).to("cuda", torch.bfloat16) for _ in range(4))
+    o, lse = _kernels.flash_fwd(q, k, v, causal=True, scale=0.0625)
+    o_ref, lse_ref = flash_forward_reference(q, k, v, causal=True,
+                                             scale=0.0625)
+    torch.cuda.synchronize()
+    assert _rel_err(o, o_ref) <= TOL[torch.bfloat16]
+    assert (lse - lse_ref).abs().max().item() <= TOL[torch.bfloat16]
+    delta = (g.float() * o.float()).sum(-1)
+    dq = _kernels.flash_bwd_dq(q, k, v, g, lse, delta, causal=True,
+                               scale=0.0625)
+    dk, dv = _kernels.flash_bwd_dkv(q, k, v, g, lse, delta, causal=True,
+                                    scale=0.0625)
+    want = flash_backward_reference(q, k, v, o, lse, g, causal=True,
+                                    scale=0.0625)
+    torch.cuda.synchronize()
+    for got, ref in zip((dq, dk, dv), want):
+        assert _rel_err(got, ref) <= TOL[torch.bfloat16]
+
+
+def test_head_dims_above_256_raise():
+    """D 257 (padded to 264 in bf16) and 264 are refused on the card,
+    naming the limit; the kernels are not launched."""
+    q = torch.zeros(1, 1, 8, 257, device="cuda", dtype=torch.bfloat16)
+    before = _launches()
+    with pytest.raises(ValueError, match="256"):
+        flash_attention(q, q, q)
+    wide = torch.zeros(1, 1, 8, 264, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="256"):
+        _kernels.flash_fwd(wide, wide, wide, causal=False, scale=1.0)
+    assert _launches() == before
+
+
 def test_backward_kernels_in_a_cuda_graph():
     """After their first calls the backward kernels can be captured in a
     CUDA graph; replays give the eager answers."""
@@ -397,6 +511,78 @@ def test_trainer_on_card_tracks_cpu():
         assert tuple(a - b for a, b in zip(_launches(), before)) == (want,) * 3
         hist[dev] = [h["train_loss"] for h in tr.history]
     np.testing.assert_allclose(hist["cuda"], hist["cpu"], rtol=1e-4)
+
+
+def test_dropout_on_card_keep_fraction_and_scale():
+    """Rate 0.3 over a million ones on CUDA, the mask drawn from a CUDA
+    generator: the kept share is 0.7 within 0.003 (about six standard
+    deviations), every kept value exactly 1/0.7, one generator state one
+    mask; a generator on the CPU is refused."""
+    x = torch.ones(1_000_000, device="cuda")
+    layer = DropoutLayer(0.3).train()
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(5)
+
+    y = layer(x, generator=gen())
+    kept = y != 0
+    assert abs(kept.float().mean().item() - 0.7) < 0.003
+    assert torch.equal(y[kept], torch.full_like(y[kept], 1 / 0.7))
+    assert torch.equal(y, layer(x, generator=gen()))
+    with pytest.raises(RuntimeError):
+        layer(x, generator=torch.Generator().manual_seed(5))
+
+
+@pytest.mark.parametrize("df", ["NCHW", "NHWC"])
+def test_cnn_train_step_on_card_tracks_cpu(df):
+    """One SGD step (momentum 0.9) of a narrow residual CNN (conv + BN stem,
+    a basic and a bottleneck block, groupnorm, pools, dense) on CUDA and on
+    the CPU from the same weights and batch: loss and logits within 1e-4
+    of the logit scale, every gradient within 1e-4 of its own largest
+    value, the BN running statistics and the updated params within 1e-5
+    (cuDNN's fp32 convs, TF32 off, summed in another order). A conv bias
+    that feeds a BN has a gradient that is zero in exact arithmetic: on
+    both devices it is held below 1e-3 of the model's largest gradient, as
+    ``chip_smoke.py`` holds ResNet-18's."""
+    shape = (3, 16, 16) if df == "NCHW" else (16, 16, 3)
+    m = (SequentialBuilder("narrow_cnn", df).input(shape)
+         .conv2d(8, 3, 1, 1, False, "stem").batchnorm(1e-3, 0.1, True, "bn")
+         .activation("relu").maxpool2d(2, 2, 0)
+         .basic_residual_block(8, 16, 2, "b1")
+         .bottleneck_residual_block(16, 4, 16, 1, "bt1")
+         .groupnorm(4).avgpool2d(2, 1, 0).flatten().dense(10).build())
+    m.init(generator=torch.Generator().manual_seed(16), device="cpu")
+    cfg, params, state = m.get_config(), to_jax(m), state_to_jax(m)
+    rng = np.random.default_rng(17)
+    x = rng.normal(size=(6, *shape)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 6)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        tm = from_jax(cfg, params, state, device=dev)
+        opt = SGD(0.05, momentum=0.9)
+        step = make_train_step(tm, get_loss("softmax_crossentropy"), opt)
+        loss, logits = step(create_train_state(tm, opt),
+                            torch.from_numpy(x).to(dev),
+                            torch.from_numpy(y).to(dev), 0.05)
+        out[dev] = (loss.item(), logits.cpu(),
+                    {n: p.grad.cpu() for n, p in tm.named_parameters()},
+                    [b.cpu() for b in tm.buffers()],
+                    [p.detach().cpu() for p in tm.parameters()])
+    (lg, og, gg, bg, pg), (lc, oc, gc, bc, pc) = out["cuda"], out["cpu"]
+    scale = oc.abs().max().item()
+    assert abs(lg - lc) <= 1e-4 * scale
+    assert (og - oc).abs().max().item() <= 1e-4 * scale
+    noise = _smoke.bias_before_bn(tm)
+    assert noise  # the basic block's convs
+    g_top = max(g.abs().max().item() for g in gc.values())
+    for n, b in gc.items():
+        if n in noise:
+            assert max(gg[n].abs().max().item(),
+                       b.abs().max().item()) <= 1e-3 * g_top, n
+        else:
+            assert _rel_err(gg[n], b) <= 1e-4, n
+    for a, b in zip(bg + pg, bc + pc):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
 
 
 def _conv_inputs(seed, n, h, w, cin, cout, dtype):

@@ -22,7 +22,10 @@ from dcnn_tpu_torch.ops.attention import _for_kernel
 
 jax_attn = importlib.import_module("dcnn_tpu.ops.attention")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-FLASH_CASES = importlib.import_module("chip_smoke").FLASH_CASES
+_smoke = importlib.import_module("chip_smoke")
+# the cases with a backward: the fp32 backward takes D <= 128
+FLASH_CASES = [c for c in _smoke.FLASH_CASES
+               if not _smoke.bwd_refused(c[7], c[5])]
 
 SHAPES = [(32, 32), (1, 1), (64, 64), (65, 65), (200, 10), (300, 429),
           (1000, 1000), (4096, 4096)]
@@ -116,8 +119,8 @@ def test_every_head_dim_is_padded_to_whole_chunks(dtype):
         w = _kernels.flash_head_width(d, dtype)
         assert w * es % 16 == 0 and d <= w < d + 16 // es
         assert _kernels.flash_head_class(w) == dc
-    with pytest.raises(ValueError, match="head dim 129"):
-        _kernels.flash_head_class(129)
+    with pytest.raises(ValueError, match="head dim 257"):
+        _kernels.flash_head_class(257)
 
 
 @pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: c[0])
@@ -156,6 +159,43 @@ def test_flash_bwd_live_tiles_are_the_tiles_with_an_allowed_pair(case):
         assert got == plain, (kb, got, plain)
         assert got == {t for t in range(-(-sq // bq))
                          if jax_pairs(t * bq, bq, kb * bkv, bkv)}
+
+
+@pytest.mark.parametrize("sq,sk", SHAPES, ids=lambda s: str(s))
+def test_class_256_bwd_plans_fit_and_groups_cover_d(sq, sk):
+    """bf16 at class 256: both kernels' plans within shared memory and the
+    register budget; dQ in one group (a 32-key tile fits beside its 64 x
+    256 accumulator), dK/dV in two groups of 128 columns (two 64 x 256
+    accumulators alone would take 256 registers), which cover the padded
+    head dim once; every D from 129 to 256 runs as the class."""
+    lay = _kernels._BwdLayout(256, 2)
+    for d in (136, 192, 200, 256):
+        plan = _kernels.flash_bwd_plan(sq, sk, d, torch.bfloat16)
+        assert (plan.chunks, plan.padded) == (4, 256)
+        for name, part, dq in _parts(plan):
+            assert part.smem <= _kernels.SMEM_MAX, name
+            assert part.smem == lay.smem(dq, part.rows, part.tile,
+                                         part.stages), name
+            assert part.regs == lay.regs(dq, part.tile, part.groups) \
+                <= _kernels.FLASH_BWD_REG_BUDGET, name
+            cols = plan.padded // part.groups
+            covered = sorted(c for g in range(part.groups)
+                             for c in range(g * cols, (g + 1) * cols))
+            assert covered == list(range(plan.padded)), name
+        assert (plan.dq.groups, plan.dq.tile) == (1, 32)
+        assert (plan.dkv.groups, plan.dkv.tile) == (2, 32)
+        assert lay.regs(False, 16, 1) > _kernels.FLASH_BWD_REG_BUDGET
+
+
+@pytest.mark.parametrize("d", [136, 256])
+def test_fp32_bwd_above_class_128_is_refused(d):
+    """fp32 at class 256: the fixed operands alone (Q and dO, or K and V,
+    as tf32 hi and lo over 64 rows) fill 256 KB, above a block's shared
+    memory, so there is no plan; the error names the limit."""
+    lay = _kernels._BwdLayout(256, 4)
+    assert lay.smem(True, 64, 16, 0) - 1024 - 256 == 4 * 64 * 1024
+    with pytest.raises(ValueError, match="shared memory.*up to 128"):
+        _kernels.flash_bwd_plan(100, 100, d, torch.float32)
 
 
 def test_op_copies_only_what_the_kernels_cannot_take():

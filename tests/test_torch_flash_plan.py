@@ -35,7 +35,9 @@ def test_flash_plan_fits_the_card_and_wgmma(dtype, d, sq, sk):
     64 (one multiplying warpgroup each); the kv tile a whole number of
     wgmma N steps (8) and K steps (16 keys bf16, 8 tf32) within N 256; two
     stages wherever there are two kv tiles (a pass holds the previous
-    tile's stage while it waits for the next)."""
+    tile's stage while it waits for the next), except a serial plan: one
+    stage of 64 rows, only where two stages do not fit beside 64 rows (fp32
+    at class 256); O's columns in 1 or 2 groups of whole chunks."""
     plan = _kernels.flash_plan(sq, sk, d, dtype)
     es = 2 if dtype == torch.bfloat16 else 4
     assert plan.smem <= _kernels.SMEM_MAX
@@ -43,23 +45,92 @@ def test_flash_plan_fits_the_card_and_wgmma(dtype, d, sq, sk):
     assert plan.q_rows == 64 or sq > 64
     assert plan.kv_tile % 16 == 0 and 16 <= plan.kv_tile <= 256
     assert plan.chunks * _kernels.ROW_BYTES >= d * es
+    assert plan.groups in (1, 2) and plan.chunks % plan.groups == 0
     tiles = -(-sk // plan.kv_tile)
     assert 1 <= plan.stages <= _kernels.FLASH_MAX_STAGES
-    assert plan.stages >= min(2, tiles) and plan.stages <= tiles
-    # the layout: Q (fp32: and its lo), then per stage K and V as they
-    # land (fp32: K's lo, V^T as hi and lo), 1024 bytes of alignment slack
-    # and 256 of barriers
+    assert plan.stages <= tiles
+    # the layout: Q (fp32: and its lo), then per stage K and the group's
+    # columns of V as they land (fp32: K's lo, V^T as hi and lo, a 128-byte
+    # row per column for each 32 keys), 1024 bytes of alignment slack and
+    # 256 of barriers
     rows = plan.chunks * _kernels.ROW_BYTES
     f32 = dtype == torch.float32
-    stage = plan.kv_tile * rows * (3 if f32 else 2) + (
-        2 * plan.kv_tile * plan.chunks * (_kernels.ROW_BYTES // es) * 4
-        if f32 else 0)
-    assert plan.smem == (1024 + plan.q_rows * rows * (2 if f32 else 1)
-                         + plan.stages * stage + 256)
-    # the largest block the card holds: one more stage would not fit, or
-    # the ring is as deep as it goes
-    assert (plan.stages in (_kernels.FLASH_MAX_STAGES, tiles)
-            or plan.smem + stage > _kernels.SMEM_MAX)
+    padded = plan.chunks * (_kernels.ROW_BYTES // es)
+    stage = plan.kv_tile * rows * (2 if f32 else 1) + (
+        plan.kv_tile * rows // plan.groups) + (
+        2 * -(-plan.kv_tile // 32) * padded // plan.groups
+        * _kernels.ROW_BYTES if f32 else 0)
+    fixed = 1024 + plan.q_rows * rows * (2 if f32 else 1) + 256
+    assert plan.smem == fixed + plan.stages * stage
+    two_at_64 = 1024 + 64 * rows * (2 if f32 else 1) + 256 + 2 * stage
+    assert plan.serial == (two_at_64 > _kernels.SMEM_MAX)
+    if plan.serial:
+        assert plan.stages == 1 and plan.q_rows == 64
+    else:
+        assert plan.stages >= min(2, tiles)
+        # the largest block the card holds: one more stage would not fit,
+        # or the ring is as deep as it goes
+        assert (plan.stages in (_kernels.FLASH_MAX_STAGES, tiles)
+                or plan.smem + stage > _kernels.SMEM_MAX)
+
+
+@pytest.mark.parametrize("d", _kernels.FLASH_HEAD_DIMS)
+@pytest.mark.parametrize("dtype", _kernels.FLASH_DTYPES, ids=["fp32", "bf16"])
+def test_flash_groups_follow_registers_and_shared_memory(dtype, d):
+    """O's columns in the fewest groups whose registers (O, S, P's A
+    operand) stay within the budget and whose one stage fits beside 64 q
+    rows: one group at every class up to 128, two at 256 (bf16 for the
+    registers: O alone would take 128; fp32 for shared memory)."""
+    plan = _kernels.flash_plan(4096, 4096, d, dtype)
+    f32 = dtype == torch.float32
+    padded = plan.chunks * _kernels.ROW_BYTES // (4 if f32 else 2)
+    regs = _kernels.flash_fwd_regs(padded, plan.kv_tile, f32, plan.groups)
+    assert regs <= _kernels.FLASH_BWD_REG_BUDGET
+    assert plan.groups == (2 if d == 256 else 1)
+    if dtype == torch.bfloat16 and d == 256:
+        assert _kernels.flash_fwd_regs(padded, plan.kv_tile, False, 1) > \
+            _kernels.FLASH_BWD_REG_BUDGET
+    assert plan.serial == (f32 and d == 256)
+
+
+# flash_plan and flash_bwd_plan as the previous head-dim classes' code gave
+# them (q_rows, kv_tile, stages, smem, chunks | per backward kernel: rows,
+# tile, stages, smem, regs): every D <= 128 keeps its plan
+PARENT_PLANS = {
+    ("fp32", 128, 4096, 4096): ((64, 32, 2, 230656, 4),
+                                (64, 32, 1, 230656, 128),
+                                (64, 16, 1, 230784, 176)),
+    ("bf16", 128, 4096, 4096): ((128, 128, 3, 230656, 2),
+                                (128, 64, 4, 197888, 144),
+                                (128, 32, 4, 133376, 176)),
+    ("bf16", 64, 4096, 4096): ((128, 128, 4, 148736, 1),
+                               (128, 64, 4, 99584, 112),
+                               (128, 64, 4, 101632, 160)),
+    ("fp32", 64, 1000, 1000): ((128, 64, 2, 230656, 2),
+                               (128, 32, 2, 230656, 96),
+                               (64, 32, 2, 198400, 160)),
+    ("fp32", 16, 32, 32): ((64, 64, 1, 58624, 1), (64, 64, 1, 83200, 144),
+                           (64, 32, 1, 67072, 128)),
+    ("bf16", 96, 300, 429): ((128, 128, 3, 230656, 2),
+                             (128, 64, 4, 197888, 144),
+                             (128, 32, 4, 133376, 176)),
+    ("fp32", 48, 200, 10): ((128, 64, 1, 148736, 2), (64, 32, 1, 115968, 96),
+                            (64, 32, 2, 198400, 160)),
+    ("bf16", 8, 65, 65): ((128, 128, 1, 50432, 1), (64, 64, 2, 50432, 112),
+                          (64, 64, 2, 51456, 160)),
+}
+
+
+@pytest.mark.parametrize("key", sorted(PARENT_PLANS), ids=str)
+def test_plans_up_to_class_128_are_unchanged(key):
+    dtn, d, sq, sk = key
+    dt = torch.float32 if dtn == "fp32" else torch.bfloat16
+    f, b = _kernels.flash_plan(sq, sk, d, dt), _kernels.flash_bwd_plan(
+        sq, sk, d, dt)
+    got = ((f.q_rows, f.kv_tile, f.stages, f.smem, f.chunks),
+           *((p.rows, p.tile, p.stages, p.smem, p.regs) for p in (b.dq, b.dkv)))
+    assert got == PARENT_PLANS[key]
+    assert (f.groups, f.serial, b.dq.groups, b.dkv.groups) == (1, False, 1, 1)
 
 
 @pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: c[0])

@@ -94,8 +94,8 @@ def test_from_jax_checks_names_and_shapes():
     with pytest.raises(ValueError, match="param entries"):
         from_jax(jm.get_config(), pnp[:3], device="cpu")
     cfg = jm.get_config()
-    cfg["layers"][2] = {"type": "dropout", "name": "p"}
-    with pytest.raises(ValueError, match="unknown layer type 'dropout'"):
+    cfg["layers"][2] = {"type": "quant_dense", "name": "p"}
+    with pytest.raises(ValueError, match="unknown layer type 'quant_dense'"):
         from_jax(cfg, pnp, device="cpu")
 
 

@@ -17,8 +17,10 @@ Phases, each fatal on failure:
    each case prints its plan (flash_plan, flash_bwd_plan), and the
    long-context backward is also replayed from a CUDA graph; the cases
    include head-dim class 256 (B2 H8 S2048 D256 bf16 causal timed against
-   SDPA and its bound; fp32 and bf16, causal and not, a ragged D), where
-   the fp32 backward must refuse D > 128;
+   SDPA and its bound; fp32 and bf16, causal and not, a ragged D) and the
+   sliced kernels: the fp32 backward at D 192 and 256, and D 320, 512 and
+   1000 in both types, causal and not (B2 H8 S2048 D512 bf16 causal timed
+   against SDPA and its bound);
 4. conv kernels: the same for the 3x3 implicit-GEMM convs (plain, BN
    prologue and output-column pairs, all on the tensor cores) and the
    fused scale/bias/ReLU, at the shapes of
@@ -42,9 +44,11 @@ Phases, each fatal on failure:
    the launch counters that the serving path ran the forward kernel;
 7. train: the same model and weights, trained for 2 epochs (16 Adam steps)
    on a synthetic marker task through ``Trainer.fit`` on CUDA and on the
-   CPU; check that the loss falls, that every epoch's loss and the final
-   params track the CPU run, and from the launch counters that every step
-   ran the forward, dQ and dK/dV kernels twice each;
+   CPU; the CUDA run checkpoints every epoch, is crashed by a FaultPlan in
+   epoch 2 and resumed with ``resume="auto"``; check that the loss falls,
+   that every epoch's loss and the final params track the CPU run, and
+   from the launch counters that every resumed step ran the forward, dQ
+   and dK/dV kernels twice each;
 8. serve cnn: full-width ``resnet18_tiny_imagenet`` (NHWC, random BN
    statistics) served through ``DynamicBatcher`` over
    ``InferenceEngine.from_model(..., fold=True)`` on CUDA, every answer held
@@ -58,7 +62,16 @@ Phases, each fatal on failure:
    steps on CUDA and on the CPU from the same weights: per-step losses,
    final params and BN running statistics against the CPU run; prints the
    warm steps' train samples/s and the top device ops of one profiled
-   step.
+   step;
+10. checkpoint: the same recipe on full-width ``resnet18_tiny_imagenet``
+   with ``checkpoint_dir`` (async saves every epoch) and a best-val
+   ``snapshot_dir``: the newest checkpoint restored onto the card equals
+   the arrays at save time bit for bit; a run crashed by a FaultPlan in
+   epoch 3 and resumed with ``resume="auto"`` tracks the uninterrupted
+   one; the cost of an async and a blocking save, the bytes and the
+   restore time; ``InferenceEngine.from_checkpoint`` of the best-val
+   snapshot serves 32 requests through DynamicBatcher against the CPU;
+   ``model_snapshots/mnist_cnn_model`` on the card against the CPU.
 
 Then it prints ``{"kernels": [...]}`` on a line of its own and, last,
 ``{"ok": true, "device": {...}}``. Times come from CUDA events around CUDA
@@ -230,18 +243,29 @@ FLASH_CASES = [  # name, B, H, Sq, Sk, D, causal, dtype name, timing reps
     ("band edge, 32-key tiles", 1, 2, 100, 133, 128, True, "float32", 50),
     # head-dim class 256: O's (and dK's, dV's) columns in two groups, the
     # fp32 forward in serial passes of 16-key tiles; causal and not, a
-    # ragged D; the fp32 backward refuses D > 128 (shared memory)
+    # ragged D; the fp32 backward at 128 < D <= 256 runs the sliced kernels
     ("d256 long context", 2, 8, 2048, 2048, 256, True, "bfloat16", 5),
     ("d256 ragged", 1, 2, 200, 333, 200, False, "bfloat16", 50),
     ("d256 fp32", 1, 2, 300, 300, 256, False, "float32", 20),
     ("d256 fp32 causal", 1, 2, 150, 330, 256, True, "float32", 20),
+    ("d192 fp32 causal", 1, 2, 150, 330, 192, True, "float32", 20),
+    # above 256 every kernel is the sliced one: S (and dP) summed over
+    # slices of 128 columns, the outputs in groups of 128; both types,
+    # causal and not, one ragged shape each
+    ("d512 long context", 2, 8, 2048, 2048, 512, True, "bfloat16", 3),
+    ("d320 bf16", 1, 2, 300, 300, 320, False, "bfloat16", 10),
+    ("d320 bf16 causal", 1, 2, 150, 330, 320, True, "bfloat16", 10),
+    ("d320 fp32", 1, 2, 200, 333, 320, False, "float32", 10),
+    ("d320 fp32 causal", 1, 2, 300, 300, 320, True, "float32", 10),
+    ("d512 bf16", 1, 2, 200, 333, 512, False, "bfloat16", 10),
+    ("d512 bf16 causal", 1, 2, 300, 300, 512, True, "bfloat16", 10),
+    ("d512 fp32", 1, 2, 300, 300, 512, False, "float32", 10),
+    ("d512 fp32 causal", 1, 2, 150, 330, 512, True, "float32", 10),
+    ("d1000 bf16", 1, 2, 300, 300, 1000, False, "bfloat16", 10),
+    ("d1000 bf16 causal", 1, 2, 200, 333, 1000, True, "bfloat16", 10),
+    ("d1000 fp32", 1, 2, 150, 330, 1000, False, "float32", 10),
+    ("d1000 fp32 causal", 1, 2, 300, 300, 1000, True, "float32", 10),
 ]
-
-
-def bwd_refused(dtn: str, d: int) -> bool:
-    """The fp32 backward takes D <= 128: its fixed operands as tf32 hi and
-    lo (Q and dO, or K and V) need 256 KB of shared memory at class 256."""
-    return dtn == "float32" and d > 128
 
 
 def phase_kernels():
@@ -340,22 +364,6 @@ def phase_bwd_kernels():
         scale = d ** -0.5
         o, lse = _kernels.flash_fwd(q, k, v, causal=causal, scale=scale)
         delta = (g.float() * o.float()).sum(-1)
-        if bwd_refused(dtn, d):
-            before = (_kernels.flash_bwd_dq.launches,
-                      _kernels.flash_bwd_dkv.launches)
-            for fn in (_kernels.flash_bwd_dq, _kernels.flash_bwd_dkv):
-                try:
-                    fn(q, k, v, g, lse, delta, causal=causal, scale=scale)
-                except ValueError as e:
-                    msg = str(e)
-                else:
-                    fail(f"{fn.__name__} [{name}]: fp32 D={d} was not refused")
-            if before != (_kernels.flash_bwd_dq.launches,
-                          _kernels.flash_bwd_dkv.launches):
-                fail(f"flash backward [{name}]: a refused call launched")
-            print(f"flash_bwd [{name}] D={d} {dtn}: refused as planned "
-                  f"({msg})", flush=True)
-            continue
 
         def dq_kernel():
             return _kernels.flash_bwd_dq(q, k, v, g, lse, delta,
@@ -691,7 +699,12 @@ def adam_param_diff(p_gpu, p_cpu, v_cpu, steps, lr, b1, b2, what,
 def phase_train(card: str):
     """16 Adam steps of full-width ``mha_classifier`` through
     ``Trainer.fit`` on CUDA and on the CPU, from the same weights and
-    batches."""
+    batches. The CUDA run checkpoints every epoch (``checkpoint_dir``,
+    async saves), is crashed by a FaultPlan in epoch 2 and resumed with
+    ``resume="auto"``; the launch counters are read over the resumed
+    epoch alone."""
+    import tempfile
+
     import numpy as np
     import torch
 
@@ -699,13 +712,17 @@ def phase_train(card: str):
     from dcnn_tpu_torch.data import ArrayDataLoader
     from dcnn_tpu_torch.interop import from_jax, opt_state_to_jax, to_jax
     from dcnn_tpu_torch.optim import Adam
+    from dcnn_tpu_torch.resilience import FaultPlan, InjectedCrash
     from dcnn_tpu_torch.train import Trainer, create_train_state
 
     cfg, params, rng = model_params()
     x, y = marker_task(rng)
     epochs, batch = 2, 32
+    per_epoch = len(x) // batch
     runs = {}
-    for dev in ("cuda", "cpu"):
+    ckpt = tempfile.TemporaryDirectory(prefix="chip_smoke_mha_", dir=ROOT)
+
+    def run(dev, **kw):
         model = from_jax(cfg, params, device=dev)
         opt = Adam(1e-3)
         ts = create_train_state(model, opt)
@@ -713,26 +730,46 @@ def phase_train(card: str):
                                  seed=SEED)
         trainer = Trainer(model, opt, "softmax_crossentropy", TrainingConfig(
             epochs=epochs, batch_size=batch, snapshot_dir=None,
-            progress_interval=0, device_type=dev))
-        if dev == "cuda":
-            reset_launches()  # the training path starts here
-            ts = trainer.fit(ts, loader)
-            torch.cuda.synchronize()
-            counts = {k: v for k, v in launches().items()  # the path ends
-                      if k.startswith("flash_")}
+            progress_interval=0, device_type=dev, **kw))
+        return trainer, ts, loader, model
+
+    with ckpt:
+        kw = dict(checkpoint_dir=ckpt.name, checkpoint_every=1)
+        trainer, ts, loader, _ = run("cuda", **kw)
+        crash = FaultPlan().arm("train.nonfinite_input", at=per_epoch + 2,
+                                exc=InjectedCrash)
+        try:
+            with crash:
+                trainer.fit(ts, loader)
+        except InjectedCrash:
+            pass
         else:
-            ts = trainer.fit(ts, loader)
-        runs[dev] = (trainer.history, to_jax(model),
-                     opt_state_to_jax(model, ts.opt_state), ts.step)
+            fail("train: the armed crash in epoch 2 did not fire")
+        trainer.checkpoints.close()
+        trainer, ts, loader, model = run("cuda", resume="auto", **kw)
+        reset_launches()  # the resumed training path starts here
+        ts = trainer.fit(ts, loader)
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in launches().items()  # the path ends
+                  if k.startswith("flash_")}
+        trainer.checkpoints.close()
+    runs["cuda"] = (trainer.history, to_jax(model),
+                    opt_state_to_jax(model, ts.opt_state), ts.step)
+    trainer, ts, loader, model = run("cpu")
+    ts = trainer.fit(ts, loader)
+    runs["cpu"] = (trainer.history, to_jax(model),
+                   opt_state_to_jax(model, ts.opt_state), ts.step)
 
     hist, p_gpu, _, steps = runs["cuda"]
     hist_cpu, p_cpu, st_cpu, _ = runs["cpu"]
-    if steps != epochs * len(x) // batch:
-        fail(f"train: {steps} steps, expected {epochs * len(x) // batch}")
-    per_step = {k: v / steps for k, v in counts.items()}
-    if any(v != 2 * steps for v in counts.values()):
-        fail(f"train: launches {counts} over {steps} steps; expected 2 of "
-             f"each kernel per step (two attention layers)")
+    if steps != epochs * per_epoch or len(hist) != epochs:
+        fail(f"train: {steps} steps in {len(hist)} epochs after the resume, "
+             f"expected {epochs * per_epoch} in {epochs}")
+    resumed = (epochs - 1) * per_epoch  # epoch 2, run after the resume
+    per_step = {k: v / resumed for k, v in counts.items()}
+    if any(v != 2 * resumed for v in counts.values()):
+        fail(f"train: launches {counts} over the {resumed} resumed steps; "
+             f"expected 2 of each kernel per step (two attention layers)")
     losses = [h["train_loss"] for h in hist]
     loss_rel = max(abs(a["train_loss"] - b["train_loss"])
                    / abs(b["train_loss"]) for a, b in zip(hist, hist_cpu))
@@ -758,9 +795,10 @@ def phase_train(card: str):
           f"{step_bound:.3e}) on {n_noise} of {n_all} elements below it "
           f"(by RMS-gradient band [lo, hi): elements, max |diff|: "
           f"{[(lo, n, d) for lo, (n, d) in zip(edges, bins)]}); "
-          f"launches {counts} ({per_step} per step); samples/s per epoch "
-          f"{sps} (epoch 1 includes first-call set-up) on {card}",
-          flush=True)
+          f"crashed in epoch 2 and resumed from epoch 1's checkpoint: "
+          f"launches over the resumed epoch {counts} ({per_step} per step); "
+          f"samples/s per epoch {sps} (epoch 1 from the first run, with "
+          f"first-call set-up) on {card}", flush=True)
     return {"launches": counts, "steps": steps, "losses": losses,
             "cpu_losses": [h["train_loss"] for h in hist_cpu],
             "loss_max_rel_diff": loss_rel, "param_max_abs_diff": worst,
@@ -1564,6 +1602,310 @@ def phase_train_cnn(card):
           f"(first steps included) on {card}", flush=True)
 
 
+CKPT_TRAIN_SAMPLES, CKPT_VAL_SAMPLES, CKPT_EPOCHS = 128, 64, 3
+CKPT_REQUESTS = 32
+
+
+def phase_checkpoint(card):
+    """Checkpoints on full-width ``resnet18_tiny_imagenet`` (NCHW) with the
+    train cnn phase's recipe (AdamW under WarmupCosineAnnealing stepped per
+    batch, B=32, the synthetic loader with ``random_crop(4)
+    .horizontal_flip(0.5)``), epochs of 128 train and 64 val samples, every
+    epoch checkpointed with async saves, and a best-val snapshot, on CUDA:
+
+    - restore: run A trains 3 epochs; its newest checkpoint, reloaded onto
+      the card, equals bit for bit the arrays captured on the card when
+      each save was called (params, BN statistics, Adam's m, v and t);
+    - resume: run B is crashed by a FaultPlan in epoch 3 and resumed with
+      ``resume="auto"`` (a new scheduler stepped to the checkpoint's global
+      step: schedulers are not in the checkpoint, as in the JAX package);
+      its history and final params track run A at the train cnn phase's
+      tolerances, and whether they are bit-equal is printed;
+    - cost: the training thread's time in an async save, the copies' time
+      on the card, a blocking save, the bytes written and the restore;
+    - serving: ``InferenceEngine.from_checkpoint(best-val snapshot,
+      fold=True)`` on CUDA answers 32 requests through DynamicBatcher, each
+      held to the unfolded model loaded from the same snapshot on the CPU;
+    - the committed snapshot ``model_snapshots/mnist_cnn_model`` served on
+      the card against the port's CPU engine on a seeded batch."""
+    import json as _json
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.core import TrainingConfig
+    from dcnn_tpu_torch.data import (
+        AugmentationBuilder, SyntheticClassificationLoader,
+    )
+    from dcnn_tpu_torch.interop import (
+        from_jax, opt_state_to_jax, state_to_jax, to_jax,
+    )
+    from dcnn_tpu_torch.models import create_model
+    from dcnn_tpu_torch.optim import AdamW, WarmupCosineAnnealing
+    from dcnn_tpu_torch.resilience import (
+        CheckpointManager, FaultPlan, InjectedCrash, list_steps,
+        restore_latest,
+    )
+    from dcnn_tpu_torch.serve import DynamicBatcher, InferenceEngine
+    from dcnn_tpu_torch.train import Trainer, create_train_state, load_checkpoint
+
+    cfg = create_model("resnet18_tiny_imagenet", "NCHW").get_config()
+    params, state = jax_layout(cfg, np.random.default_rng(SEED + 11))
+    per_epoch = CKPT_TRAIN_SAMPLES // CNN_TRAIN_BATCH
+    total = CKPT_EPOCHS * per_epoch
+
+    def loaders():
+        aug = (AugmentationBuilder("NCHW").random_crop(4)
+               .horizontal_flip(0.5).build())
+        return (SyntheticClassificationLoader(
+                    CKPT_TRAIN_SAMPLES, (3, 64, 64), 200,
+                    batch_size=CNN_TRAIN_BATCH, seed=SEED, augmentation=aug),
+                SyntheticClassificationLoader(
+                    CKPT_VAL_SAMPLES, (3, 64, 64), 200,
+                    batch_size=CNN_TRAIN_BATCH, seed=SEED + 1, shuffle=False))
+
+    def trainer_for(root, **kw):
+        model = from_jax(cfg, params, state, device="cuda")
+        opt = AdamW(CNN_TRAIN_LR, weight_decay=1e-4)
+        sched = WarmupCosineAnnealing(CNN_TRAIN_LR, warmup_steps=2,
+                                      total_steps=total)
+        config = TrainingConfig(
+            epochs=CKPT_EPOCHS, batch_size=CNN_TRAIN_BATCH,
+            learning_rate=CNN_TRAIN_LR, scheduler_step="batch",
+            snapshot_dir=os.path.join(root, "snap"),
+            checkpoint_dir=os.path.join(root, "ckpt"), checkpoint_every=1,
+            checkpoint_async=True, progress_interval=0, device_type="cuda",
+            **kw)
+        trainer = Trainer(model, opt, "softmax_crossentropy", config, sched)
+        return trainer, create_train_state(model, opt), sched
+
+    def on_card(model, opt_state):
+        return {"params": {n: p.detach().clone()
+                           for n, p in model.named_parameters()},
+                "buffers": {n: b.detach().clone()
+                            for n, b in model.named_buffers()},
+                "m": {n: t.clone() for n, t in opt_state["m"].items()},
+                "v": {n: t.clone() for n, t in opt_state["v"].items()},
+                "t": int(opt_state["t"])}
+
+    def equal(a, b):
+        if isinstance(a, dict):
+            return set(a) == set(b) and all(equal(a[k], b[k]) for k in a)
+        if isinstance(a, torch.Tensor):
+            return a.device == b.device and torch.equal(a, b)
+        return a == b
+
+    def rel(a, b):
+        return float(np.abs(a - b).max()) / (float(np.abs(b).max()) or 1.0)
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_", dir=ROOT)
+    with tmp:
+        # run A: 3 epochs, the arrays captured on the card at each save
+        a_dir = os.path.join(tmp.name, "a")
+        tr_a, ts_a, _ = trainer_for(a_dir)
+        saved, async_costs, called, committed = {}, [], [], {}
+        real_save_async = tr_a.checkpoints.save_async
+
+        def save_async(step, model, opt_state=None, optimizer=None,
+                       metadata=None):
+            saved[step] = on_card(model, opt_state)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            called.append(t0)
+            fut = real_save_async(step, model, opt_state, optimizer,
+                                  metadata)
+            t_call = time.perf_counter() - t0
+            torch.cuda.synchronize()  # the copies queued on the stream
+            async_costs.append((t_call, time.perf_counter() - t0))
+            fut.add_done_callback(
+                lambda f, s=step: committed.setdefault(s, time.perf_counter()))
+            return fut
+
+        tr_a.checkpoints.save_async = save_async
+        ts_a = tr_a.fit(ts_a, *loaders())
+        torch.cuda.synchronize()
+        tr_a.checkpoints.close()
+        if sorted(saved) != list(range(1, CKPT_EPOCHS + 1)):
+            fail(f"checkpoint: saves at epochs {sorted(saved)}, expected "
+                 f"1..{CKPT_EPOCHS}")
+        ckpt_a = os.path.join(a_dir, "ckpt")
+        t0 = time.perf_counter()
+        r = restore_latest(ckpt_a, device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if r is None or r.step != CKPT_EPOCHS:
+            fail(f"checkpoint: restore_latest gave "
+                 f"{None if r is None else r.step}, expected {CKPT_EPOCHS}")
+        got = on_card(r.model, r.opt_state)
+        if not equal(got, saved[CKPT_EPOCHS]):
+            fail("checkpoint: the restored arrays differ from those on the "
+                 "card at save time")
+        n_params = sum(p.numel() for p in r.model.parameters())
+        if n_params != CNN_PARAMS:
+            fail(f"checkpoint: {n_params} params, expected {CNN_PARAMS}")
+        files = {n: os.path.getsize(os.path.join(r.path, n))
+                 for n in sorted(os.listdir(r.path))}
+        state_bytes = sum(t.numel() * t.element_size() for part in (
+            "params", "buffers", "m", "v") for t in saved[CKPT_EPOCHS][
+            part].values())
+        if r.metadata["global_step"] != total or len(
+                r.metadata["history"]) != CKPT_EPOCHS:
+            fail(f"checkpoint: metadata {r.metadata}")
+        del r, got
+
+        # a blocking save of run A's final state, for its cost
+        with CheckpointManager(os.path.join(tmp.name, "blocking"),
+                               keep=1) as mgr:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mgr.save(CKPT_EPOCHS, tr_a.model, ts_a.opt_state, tr_a.optimizer,
+                     {"epoch": CKPT_EPOCHS})
+            blocking_s = time.perf_counter() - t0
+
+        # run B: crashed in epoch 3, then resumed
+        b_dir = os.path.join(tmp.name, "b")
+        tr_b, ts_b, _ = trainer_for(b_dir)
+        crash = FaultPlan().arm("train.nonfinite_input",
+                                at=(CKPT_EPOCHS - 1) * per_epoch + 1,
+                                exc=InjectedCrash)
+        try:
+            with crash:
+                tr_b.fit(ts_b, *loaders())
+        except InjectedCrash:
+            pass
+        else:
+            fail("checkpoint: the armed crash in epoch 3 did not fire")
+        tr_b.checkpoints.close()
+        ckpt_b = os.path.join(b_dir, "ckpt")
+        last = max(list_steps(ckpt_b))
+        with open(os.path.join(ckpt_b, f"ckpt-{last:08d}",
+                               "MANIFEST.json")) as f:
+            done = _json.load(f)["metadata"]["global_step"]
+        if last != CKPT_EPOCHS - 1 or done != last * per_epoch:
+            fail(f"checkpoint: the crashed run left checkpoint {last} at "
+                 f"step {done}, expected {CKPT_EPOCHS - 1} at "
+                 f"{(CKPT_EPOCHS - 1) * per_epoch}")
+        tr_r, ts_r, sched_r = trainer_for(b_dir, resume="auto")
+        for _ in range(done):
+            sched_r.step()
+        ts_r = tr_r.fit(ts_r, *loaders())
+        torch.cuda.synchronize()
+        tr_r.checkpoints.close()
+        if ts_r.step != total or [h["epoch"] for h in tr_r.history] != list(
+                range(1, CKPT_EPOCHS + 1)):
+            fail(f"checkpoint: the resumed run ended at step {ts_r.step} "
+                 f"with epochs {[h['epoch'] for h in tr_r.history]}")
+        hist_a = [h["train_loss"] for h in tr_a.history]
+        hist_r = [h["train_loss"] for h in tr_r.history]
+        loss_rel = max(abs(x - y) / abs(y) for x, y in zip(hist_r, hist_a))
+        if not (all(math.isfinite(v) for v in hist_r)
+                and loss_rel <= CNN_LOSS_RTOL):
+            fail(f"checkpoint: resumed losses {hist_r} vs run A {hist_a} "
+                 f"(rel {loss_rel:.3e} > {CNN_LOSS_RTOL:g})")
+        opt = tr_a.optimizer
+        p_a, p_r = to_jax(tr_a.model), to_jax(tr_r.model)
+        worst, worst_noise, n_noise, n_all, _, step_bound = adam_param_diff(
+            p_r, p_a, opt_state_to_jax(tr_a.model, ts_a.opt_state)["v"],
+            total, CNN_TRAIN_LR, opt.beta1, opt.beta2, "checkpoint resume",
+            atol=2 * total * CNN_TRAIN_LR * (1 - opt.beta1)
+            / math.sqrt(1 - opt.beta2))
+        s_a, s_r = state_to_jax(tr_a.model), state_to_jax(tr_r.model)
+        stats_rel = max(rel(x, y) for x, y in zip(_leaves(s_r), _leaves(s_a)))
+        if not stats_rel <= CNN_STATS_RTOL:
+            fail(f"checkpoint: resumed BN statistics differ from run A by "
+                 f"{stats_rel:.3e} (tol {CNN_STATS_RTOL:g})")
+        bit_equal = hist_r == hist_a and all(
+            np.array_equal(x, y) for x, y in zip(_leaves(p_r) + _leaves(s_r),
+                                                 _leaves(p_a) + _leaves(s_a)))
+
+        # serving from run A's best-val snapshot
+        snap = os.path.join(a_dir, "snap", tr_a.model.name)
+        cpu_model, _, _, snap_md = load_checkpoint(snap, device="cpu")
+        pool = np.random.default_rng(SEED + 12).normal(
+            size=(CKPT_REQUESTS, 3, 64, 64)).astype(np.float32)
+        with torch.no_grad():
+            ref = cpu_model.eval()(torch.from_numpy(pool)).numpy()
+        scale = float(np.abs(ref).max())
+        reset_launches()  # the serving path starts here
+        engine = InferenceEngine.from_checkpoint(snap, fold=True,
+                                                 max_batch=32, device="cuda")
+        batcher = DynamicBatcher(engine, max_wait_ms=2.0, queue_capacity=256)
+        futs = [batcher.submit(pool[i]) for i in range(CKPT_REQUESTS)]
+        answers = [f.result(timeout=300) for f in futs]
+        batcher.drain(timeout=300)
+        serve_counts = launches()  # the serving path ends here
+        serve_rel = 0.0
+        for y, want in zip(answers, ref):
+            y = np.asarray(y)
+            if y.shape != want.shape or not np.all(np.isfinite(y)):
+                fail(f"checkpoint serve: an answer of shape {y.shape}, "
+                     f"finite={bool(np.all(np.isfinite(y)))}")
+            serve_rel = max(serve_rel, float(np.abs(y - want).max()) / scale)
+        if serve_rel > CNN_SERVE_RTOL:
+            fail(f"checkpoint serve: answers differ from the CPU's unfolded "
+                 f"model by {serve_rel:.3e} of the logit scale (tol "
+                 f"{CNN_SERVE_RTOL:g})")
+
+    # the committed snapshot, on the card and on the CPU
+    mnist_snap = os.path.join(ROOT, "model_snapshots", "mnist_cnn_model")
+    xm = np.random.default_rng(SEED + 13).uniform(
+        0, 1, size=(32, 1, 28, 28)).astype(np.float32)
+    got_m = InferenceEngine.from_checkpoint(
+        mnist_snap, fold=True, max_batch=32, device="cuda").infer(
+        torch.from_numpy(xm)).cpu().numpy()
+    want_m = InferenceEngine.from_checkpoint(
+        mnist_snap, fold=True, max_batch=32, device="cpu").infer(
+        torch.from_numpy(xm)).numpy()
+    mnist_rel = rel(got_m, want_m)
+    if not (mnist_rel <= SERVE_TOL
+            and (got_m.argmax(-1) == want_m.argmax(-1)).all()):
+        fail(f"checkpoint: model_snapshots/mnist_cnn_model on the card vs "
+             f"the CPU: {mnist_rel:.3e} of the logit scale (tol "
+             f"{SERVE_TOL:g}), top-1 equal "
+             f"{bool((got_m.argmax(-1) == want_m.argmax(-1)).all())}")
+
+    async_host = [c[0] * 1e3 for c in async_costs]
+    async_copy = [c[1] * 1e3 for c in async_costs]
+    # each async save from its call to its commit on the saver thread, and
+    # whether the next save was called before it committed
+    commit_ms = [(committed[k + 1] - called[k]) * 1e3
+                 for k in range(len(called))]
+    overlap = [called[k + 1] < committed[k + 1]
+               for k in range(len(called) - 1)]
+    print(f"checkpoint cost: resnet18_tiny_imagenet state {state_bytes} bytes "
+          f"(params, BN statistics, Adam m and v) copied per save; async save "
+          f"on the training thread {async_host} ms (call), {async_copy} ms "
+          f"(call and its copies on the card), committed by the saver "
+          f"thread {commit_ms} ms after the call, the next save called "
+          f"before the last one committed {overlap}; blocking save "
+          f"{blocking_s * 1e3:.3f} ms; written per checkpoint {files} "
+          f"({sum(files.values())} bytes); restore_latest onto the card "
+          f"(verify, read, parse, build) {restore_s * 1e3:.3f} ms on {card}",
+          flush=True)
+    print(f"checkpoint: run A {CKPT_EPOCHS} epochs of {per_epoch} steps, "
+          f"losses {hist_a}; newest checkpoint restored onto the card equals "
+          f"the arrays at save time bit for bit; run B crashed in epoch "
+          f"{CKPT_EPOCHS}, resumed from checkpoint {last} (step {done}): "
+          f"losses {hist_r} (max rel diff {loss_rel:.3e}, tol "
+          f"{CNN_LOSS_RTOL:g}), params max |diff| {worst:.3e} and "
+          f"{worst_noise:.3e} on the {n_noise} of {n_all} elements with RMS "
+          f"gradient < {GRAD_FLOOR:g} (bound {step_bound:.3e}), BN "
+          f"statistics {stats_rel:.3e} (tol {CNN_STATS_RTOL:g}); bit-equal "
+          f"to run A: {bit_equal}; served the best-val snapshot (epoch "
+          f"{snap_md['epoch']}, val_acc {snap_md['val_acc']}) folded, "
+          f"{CKPT_REQUESTS} requests through DynamicBatcher: max |diff| "
+          f"{serve_rel:.3e} of the logit scale vs the unfolded CPU model (tol "
+          f"{CNN_SERVE_RTOL:g}), launches {serve_counts}; "
+          f"model_snapshots/mnist_cnn_model card vs CPU {mnist_rel:.3e} (tol "
+          f"{SERVE_TOL:g}), top-1 equal", flush=True)
+    return {"async_call_ms": async_host, "async_copy_ms": async_copy,
+            "async_commit_ms": commit_ms, "async_overlap": overlap,
+            "blocking_ms": blocking_s * 1e3, "restore_ms": restore_s * 1e3,
+            "bytes_written": sum(files.values()), "state_bytes": state_bytes,
+            "bit_equal": bit_equal}
+
+
 def bias_before_bn(model):
     """Names (as ``named_parameters`` gives them) of the conv biases that
     feed a batchnorm directly: their gradient is zero in exact arithmetic,
@@ -1619,11 +1961,13 @@ def main() -> None:
     train = phase_train(card)
     serve_cnn = phase_serve_cnn(card)
     phase_train_cnn(card)
+    phase_checkpoint(card)
 
     def row(name, source, replaces, cases, by_path):
         model_case = cases[0]  # the model's shape: B=32, H=4, S=32, D=16
         long = next(c for c in cases if c["case"] == "long context")
         d256 = next(c for c in cases if c["case"] == "d256 long context")
+        d512 = next(c for c in cases if c["case"] == "d512 long context")
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
@@ -1635,6 +1979,8 @@ def main() -> None:
                 "long_context": {k: long[k] for k in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
                 "d256_long_context": {k: d256[k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                "d512_long_context": {k: d512[k] for k in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
                 "cases": cases}
 

@@ -11,7 +11,8 @@ This package imports neither ``jax`` nor anything of ``dcnn_tpu``; the
 weights of a JAX model come across as numpy through :mod:`.interop`.
 """
 
-from . import core, data, interop, models, nn, ops, optim, serve, train
+from . import (core, data, interop, models, nn, obs, ops, optim, resilience,
+               serve, train)
 
-__all__ = ["core", "data", "interop", "models", "nn", "ops", "optim",
-           "serve", "train"]
+__all__ = ["core", "data", "interop", "models", "nn", "obs", "ops", "optim",
+           "resilience", "serve", "train"]

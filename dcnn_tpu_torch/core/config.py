@@ -5,8 +5,9 @@
 reads the same environment variables (EPOCHS, BATCH_SIZE, LR_DECAY_*,
 NUM_MICROBATCHES, DEVICE_TYPE, PROFILER_TYPE, ...). The port's trainer
 raises ``NotImplementedError`` for the fields whose features it has not
-ported yet (fault tolerance, elastic training, telemetry, the AOT cache,
-chunked dispatch, feed workers); see ``train/trainer.py``.
+ported yet (elastic training, slowness detection, telemetry, the flight
+recorder, the AOT cache, profiling, chunked dispatch, feed workers, debug
+mode); see ``train/trainer.py``.
 """
 
 from __future__ import annotations

@@ -127,7 +127,15 @@ def _layers_tree(cfgs: Sequence[Dict[str, Any]], prefix: str,
 
 def _tree(model: Sequential, named: Mapping[str, torch.Tensor]) -> tuple:
     flat = {n: t.detach().cpu().numpy() for n, t in named.items()}
-    return _layers_tree(model.get_config()["layers"], "layers.", flat)
+    return tree_from_flat(model.get_config(), flat)
+
+
+def tree_from_flat(config: Dict[str, Any],
+                   flat: Mapping[str, np.ndarray]) -> tuple:
+    """The JAX package's pytree for a model of ``config`` from numpy arrays
+    under the port's parameter or buffer names (what :func:`to_jax` and
+    :func:`state_to_jax` build from a live model)."""
+    return _layers_tree(config["layers"], "layers.", flat)
 
 
 def _flat(model: Sequential, tree: Sequence[Any],

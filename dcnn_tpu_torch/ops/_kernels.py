@@ -115,6 +115,17 @@ def _bind(lib: ctypes.CDLL) -> None:
     if hasattr(lib, "dcnn_conv3x3_tc"):
         lib.dcnn_conv3x3_tc.argtypes = [p] * 7 + [i] * 15 + [p]
         lib.dcnn_conv3x3_tc.restype = i
+    if hasattr(lib, "dcnn_flash_fwd_sliced"):
+        lib.dcnn_flash_fwd_sliced.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                              ctypes.c_float, i, i, i, i, p]
+        lib.dcnn_flash_fwd_sliced.restype = i
+    for name, n_out in (("dcnn_flash_bwd_dq_sliced", 1),
+                        ("dcnn_flash_bwd_dkv_sliced", 2)):
+        if hasattr(lib, name):
+            fn = getattr(lib, name)
+            fn.argtypes = [p] * (6 + n_out) + [i, i, i, i, i, ctypes.c_float,
+                                               i, i, i, i, p]
+            fn.restype = i
     for name in ("dcnn_conv3x3_tc_trace", "dcnn_flash_fwd_trace",
                  "dcnn_flash_bwd_trace"):
         if hasattr(lib, name):
@@ -169,9 +180,15 @@ def build(verbose: bool = False, extra: Tuple[str, ...] = ()
         return dict(_libs)
 
 
-# the head-dim classes the flash kernels are built for: a head dim d <= 256
-# runs as the smallest class >= d, columns d.. zero-filled by the copy
+# the head-dim classes the wgmma flash kernels are built for: a head dim d
+# <= 256 runs as the smallest class >= d, columns d.. zero-filled by the
+# copy; above 256 the sliced kernels run it (the class: the next multiple
+# of FLASH_SLICE)
 FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
+# columns of a slice of the contraction over d, and of an output group, in
+# the sliced kernels (flash.cuh sliced::kCols); their tiles are 64 rows
+FLASH_SLICE = 128
+FLASH_SLICED_TILE = 64
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
 SMEM_MAX = 232448      # a block's dynamic shared memory on sm_90
 FLASH_MAX_STAGES = 4
@@ -187,12 +204,32 @@ def _cdiv(a: int, b: int) -> int:
 
 
 def flash_head_class(d: int) -> int:
-    """The class of :data:`FLASH_HEAD_DIMS` a head dim runs as."""
+    """The class a head dim runs as: the smallest of :data:`FLASH_HEAD_DIMS`
+    >= d, or above 256 the next multiple of :data:`FLASH_SLICE` (the sliced
+    kernels' slices and groups)."""
+    if d < 1:
+        raise ValueError(f"head dim {d} < 1")
     for c in FLASH_HEAD_DIMS:
         if d <= c:
             return c
-    raise ValueError(f"head dim {d} > {FLASH_HEAD_DIMS[-1]}, the largest the "
-                     f"flash kernels take")
+    return _cdiv(d, FLASH_SLICE) * FLASH_SLICE
+
+
+def flash_sliced_smem(dkv: bool) -> int:
+    """Shared memory of a sliced kernel in bytes (flash.cuh
+    ``sliced::smem_bytes``): two staged 64 x 128 fp32 tiles (rows padded to
+    129 floats), one 64 x 64 tile of P or dS (dK/dV: P^T and dS^T; rows of
+    65 floats), and dK/dV's lse and delta of 64 q rows."""
+    tile, ld = FLASH_SLICED_TILE, FLASH_SLICE + 1
+    return 4 * (2 * tile * ld + (2 if dkv else 1) * tile * (tile + 1)
+                + (2 * tile if dkv else 0))
+
+
+def flash_sliced_regs(kernel: str) -> int:
+    """Registers a thread of a sliced kernel gives to its accumulators: S
+    (and dP) of a 64 x 64 tile, 16 each over 256 threads, and the output
+    group's 64 x 128 (dK/dV: two), 32 each."""
+    return {"fwd": 16 + 32, "dq": 2 * 16 + 32, "dkv": 2 * 16 + 2 * 32}[kernel]
 
 
 def flash_head_width(d: int, dtype: torch.dtype) -> int:
@@ -215,7 +252,10 @@ class FlashPlan:
     lo), each row of the head-dim class in ``chunks`` 128-byte chunks.
     ``serial``: two stages do not fit beside a 64-row block, so one stage
     holds a tile at a time and a pass runs S, the softmax and P·V in turn
-    (fp32 at class 256)."""
+    (fp32 at class 256). ``slices``: 0 for the wgmma kernel, which holds
+    the contraction over the head dim whole; above 256 the sliced kernel
+    sums S over ``slices`` slices of FLASH_SLICE columns (64-row tiles, one
+    stage, O in ``groups`` groups of FLASH_SLICE columns)."""
     q_rows: int
     kv_tile: int
     stages: int
@@ -223,6 +263,7 @@ class FlashPlan:
     chunks: int
     groups: int = 1
     serial: bool = False
+    slices: int = 0
 
     def kv_tiles(self, q_tile: int, sq: int, sk: int, causal: bool) -> range:
         """The kv tiles the kernel visits for q tile ``q_tile``: every tile
@@ -258,12 +299,18 @@ def flash_plan(sq: int, sk: int, d: int, dtype: torch.dtype) -> FlashPlan:
     warpgroups) above Sq 64 where two stages fit beside them, else 64; as
     many stages as shared memory holds, up to FLASH_MAX_STAGES and the
     number of kv tiles, and one stage with serial passes where two do not
-    fit beside 64 rows. The kernel refuses a plan whose tile, groups or
+    fit beside 64 rows. Head dims above 256 take the sliced kernel: S
+    summed over the slices, O in groups, 64-row tiles (see
+    :class:`FlashPlan`). The kernel refuses a plan whose tile, groups or
     shared memory differs from its own layout. Cached per shape."""
     dc = flash_head_class(d)
     es = 2 if dtype == torch.bfloat16 else 4
     f32 = es == 4
     chunks = _cdiv(dc * es, ROW_BYTES)
+    if dc > FLASH_HEAD_DIMS[-1]:
+        n = dc // FLASH_SLICE
+        return FlashPlan(FLASH_SLICED_TILE, FLASH_SLICED_TILE, 1,
+                         flash_sliced_smem(False), chunks, n, False, n)
     padded = chunks * (ROW_BYTES // es)   # D padded to whole chunks
     kv = ({128: 32, 256: 16}.get(dc, 64)) if f32 else 128
     kv_bytes = chunks * kv * ROW_BYTES    # one K tile as it lands
@@ -309,7 +356,8 @@ class BwdKernelPlan:
     in tiles of ``tile`` (keys for dQ, q rows for dK/dV) through a ring of
     ``stages``, the block's shared memory in bytes (``smem``), and
     ``regs``, the registers a multiplying thread gives to its accumulators,
-    S and dP fragments and A operands at that tile."""
+    S and dP fragments and A operands at that tile (a sliced kernel's
+    thread: its accumulators, :func:`flash_sliced_regs`)."""
     rows: int
     tile: int
     stages: int
@@ -370,11 +418,15 @@ class _BwdLayout:
 class FlashBwdPlan:
     """The tiling of both kernels of ``csrc/flash_bwd.cu`` for one shape:
     ``dq`` and ``dkv`` (:class:`BwdKernelPlan`), each row of the head-dim
-    class in ``chunks`` 128-byte chunks, ``padded`` columns in all."""
+    class in ``chunks`` 128-byte chunks, ``padded`` columns in all.
+    ``slices``: 0 for the wgmma kernels, which hold the contraction over
+    the head dim whole; else the sliced kernels sum S and dP over
+    ``slices`` slices of FLASH_SLICE columns."""
     dq: BwdKernelPlan
     dkv: BwdKernelPlan
     chunks: int
     padded: int
+    slices: int = 0
 
     def kv_tiles(self, q_block: int, sq: int, sk: int, causal: bool) -> range:
         """The kv tiles the dQ kernel visits for q block ``q_block``: every
@@ -406,21 +458,30 @@ def flash_bwd_plan(sq: int, sk: int, d: int, dtype: torch.dtype
     stages fit, else 64 (below that a block's latency, not the card's
     throughput, sets the time, and smaller blocks are more of them); as
     many stages as shared memory holds, up to FLASH_MAX_STAGES and the
-    number of streamed tiles. Raises ValueError where not one stage fits
-    beside a 64-row block: fp32 above class 128, whose fixed operands
-    alone (Q and dO, or K and V, as tf32 hi and lo: 4 x 64 rows x 1 KB)
-    fill 256 KB. The kernels refuse a plan that differs from their own
-    layout. Cached per shape."""
-    lay = _BwdLayout(flash_head_class(d), 2 if dtype == torch.bfloat16 else 4)
+    number of streamed tiles. Where not one stage fits beside a 64-row
+    block (fp32 above class 128, whose fixed operands alone, Q and dO or K
+    and V as tf32 hi and lo: 4 x 64 rows x 1 KB, fill 256 KB) and above
+    class 256 the sliced kernels run it: S and dP summed over slices of
+    FLASH_SLICE columns, the outputs in groups of FLASH_SLICE columns,
+    64-row blocks and 64-row tiles. The kernels refuse a plan that differs
+    from their own layout. Cached per shape."""
+    dc = flash_head_class(d)
+    es = 2 if dtype == torch.bfloat16 else 4
+    lay = _BwdLayout(dc, es)
+    if dc > FLASH_HEAD_DIMS[-1] or any(
+            lay.smem(dq, 64, lay.tile(dq), 1) > SMEM_MAX for dq in (True, False)):
+        n = dc // FLASH_SLICE
+        t = FLASH_SLICED_TILE
+        chunks = _cdiv(dc * es, ROW_BYTES)
+        return FlashBwdPlan(
+            BwdKernelPlan(t, t, 1, flash_sliced_smem(False),
+                          flash_sliced_regs("dq"), n),
+            BwdKernelPlan(t, t, 1, flash_sliced_smem(True),
+                          flash_sliced_regs("dkv"), n),
+            chunks, chunks * (ROW_BYTES // es), n)
 
     def part(dq: bool, own: int, other: int) -> BwdKernelPlan:
         n = lay.tile(dq)
-        if lay.smem(dq, 64, n, 1) > SMEM_MAX:
-            raise ValueError(
-                f"flash backward: head dim {d} in {dtype} needs "
-                f"{lay.smem(dq, 64, n, 1)} bytes of shared memory a block, "
-                f"above {SMEM_MAX}; the fp32 backward takes head dims up to "
-                f"128")
         per_stage = lay.smem(dq, 0, n, 1) - lay.smem(dq, 0, n, 0)
 
         def fit(rows: int) -> int:
@@ -440,8 +501,9 @@ def _check_attention(fn: str, q: torch.Tensor, k: torch.Tensor,
                      v: torch.Tensor, *like_q: torch.Tensor) -> None:
     """What every flash kernel takes: contiguous, 16-byte aligned CUDA
     tensors q (B, H, Sq, D), k and v (B, H, Sk, D), and ``like_q`` (dO)
-    shaped as q, all of one dtype of FLASH_DTYPES; 1 <= D <= 256 with rows
-    of whole 16-byte units (:func:`flash_head_width`); B*H >= 1."""
+    shaped as q, all of one dtype of FLASH_DTYPES; D >= 1 with rows of
+    whole 16-byte units (:func:`flash_head_width`); B*H >= 1 and a grid of
+    B*H x row tiles x column groups below 2^31 blocks."""
     for name, t in (("q", q), ("k", k), ("v", v),
                     *(("dO", t) for t in like_q)):
         if t.device.type != "cuda":
@@ -463,15 +525,25 @@ def _check_attention(fn: str, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"{fn}: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} disagree"
                          + "".join(f", dO {tuple(t.shape)}" for t in like_q))
-    if not (1 <= d <= FLASH_HEAD_DIMS[-1]) or flash_head_width(d, q.dtype) != d:
-        raise ValueError(f"{fn}: head dim {d} is not within 1..."
-                         f"{FLASH_HEAD_DIMS[-1]} with rows of whole 16-byte "
-                         f"units")
-    if not (b * h >= 1 and sq >= 1 and sk >= 1
-            and b * h * _cdiv(max(sq, sk), 64) < 2 ** 31):
-        raise ValueError(f"{fn}: need B*H >= 1, non-empty sequences and "
-                         f"fewer than 2^31 blocks, got B*H={b * h}, Sq={sq}, "
-                         f"Sk={sk}")
+    if d < 1 or flash_head_width(d, q.dtype) != d:
+        raise ValueError(f"{fn}: head dim {d} does not have rows of whole "
+                         f"16-byte units")
+    if not (b * h >= 1 and sq >= 1 and sk >= 1):
+        raise ValueError(f"{fn}: need B*H >= 1 and non-empty sequences, got "
+                         f"B*H={b * h}, Sq={sq}, Sk={sk}")
+    _check_grid(fn, b * h, sq, sk, d)
+
+
+def _check_grid(fn: str, bh: int, sq: int, sk: int, d: int) -> None:
+    """The most blocks a flash kernel's 1-d grid takes for this shape, one
+    per (batch*head, tile of 64 rows, group of 128 columns), below 2^31."""
+    groups = _cdiv(flash_head_class(d), FLASH_SLICE)
+    blocks = bh * _cdiv(max(sq, sk), 64) * groups
+    if blocks >= 2 ** 31:
+        raise ValueError(f"{fn}: the grid would overflow: B*H={bh} x "
+                         f"{_cdiv(max(sq, sk), 64)} tiles of 64 rows x "
+                         f"{groups} column groups = {blocks} blocks, the "
+                         f"1-d grid takes fewer than 2^31")
 
 
 def _check_rows(fn: str, q: torch.Tensor, **rows: torch.Tensor) -> None:
@@ -495,8 +567,9 @@ def _raise_on(lib: ctypes.CDLL, fn: str, err: int) -> None:
 def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool, scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch ``csrc/flash_fwd.cu`` on contiguous, 16-byte aligned CUDA
-    tensors q (B, H, Sq, D), k and v (B, H, Sk, D) of fp32 or bf16, D <=
-    256 in whole 16-byte units, tiled by :func:`flash_plan`. Returns (O
+    tensors q (B, H, Sq, D), k and v (B, H, Sk, D) of fp32 or bf16, any D
+    in whole 16-byte units, tiled by :func:`flash_plan` (above 256 the
+    sliced kernel). Returns (O
     like q, logsumexp (B, H, Sq) fp32). Raises on anything the kernel does
     not take."""
     out = _launch_flash(q, k, v, causal, scale)
@@ -516,14 +589,19 @@ def _launch_flash(q, k, v, causal: bool, scale: float,
     lib = build(extra=(lib_name,))[lib_name]
     o = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    bf16 = int(q.dtype == torch.bfloat16)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.dcnn_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                 o.data_ptr(), lse.data_ptr(), b * h, sq, sk,
-                                 d, int(causal), float(scale),
-                                 int(q.dtype == torch.bfloat16), plan.q_rows,
-                                 plan.kv_tile, plan.stages, plan.smem,
-                                 plan.groups, stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), b * h, sq, sk, d, int(causal), float(scale),
+                bf16)
+        if plan.slices:
+            err = lib.dcnn_flash_fwd_sliced(*args, plan.slices, plan.groups,
+                                            plan.smem, stream)
+        else:
+            err = lib.dcnn_flash_fwd(*args, plan.q_rows, plan.kv_tile,
+                                     plan.stages, plan.smem, plan.groups,
+                                     stream)
     _raise_on(lib, "flash_fwd", err)
     return o, lse
 
@@ -544,12 +622,17 @@ def _launch_flash_bwd(fn: str, q, k, v, do, lse, delta, outs, causal: bool,
     lib = build(extra=(lib_name,))[lib_name]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = getattr(lib, "dcnn_" + fn)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), *(t.data_ptr() for t in outs),
-            b * h, sq, sk, d, int(causal), float(scale),
-            int(q.dtype == torch.bfloat16), part.rows, part.tile, part.stages,
-            part.smem, part.groups, stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), delta.data_ptr(),
+                *(t.data_ptr() for t in outs), b * h, sq, sk, d, int(causal),
+                float(scale), int(q.dtype == torch.bfloat16))
+        if plan.slices:
+            err = getattr(lib, f"dcnn_{fn}_sliced")(
+                *args, plan.slices, part.groups, part.smem, stream)
+        else:
+            err = getattr(lib, "dcnn_" + fn)(
+                *args, part.rows, part.tile, part.stages, part.smem,
+                part.groups, stream)
     _raise_on(lib, fn, err)
 
 
@@ -561,7 +644,8 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     16-byte aligned CUDA tensors of fp32 or bf16 (D as :func:`flash_fwd`
     takes it), tiled by :func:`flash_bwd_plan`; ``lse`` the forward's
     logsumexp and ``delta`` = rowsum(dO * O), both (B, H, Sq) fp32. Returns
-    dQ like q. The fp32 kernels take D <= 128 (:func:`flash_bwd_plan`)."""
+    dQ like q. Above D 256, and above 128 in fp32, the sliced kernel runs
+    (:func:`flash_bwd_plan`)."""
     dq = torch.empty_like(q)
     _launch_flash_bwd("flash_bwd_dq", q, k, v, do, lse, delta, (dq,),
                       causal, scale)

@@ -203,4 +203,181 @@ struct PassClock<false> {
   __device__ __forceinline__ void save(unsigned long long (*)[8], int, int, bool) {}
 };
 
+// The sliced kernels (flash_fwd.cu flash_fwd_sliced_kernel, flash_bwd.cu
+// flash_bwd_dq_sliced_kernel and flash_bwd_dkv_sliced_kernel): the head
+// dims whose contraction the wgmma kernels cannot hold whole in shared
+// memory (every d > 256, and d > 128 in the fp32 backward). S = Q K^T and
+// dP = dO V^T are summed over slices of kCols columns of d, each slice of
+// both operands staged as fp32 in shared memory, into the same fp32
+// registers; the outputs are made in groups of kCols columns, one group a
+// block, each block recomputing S (and dP) over the whole of d. Products on
+// the CUDA cores in fp32: bf16 inputs are exact in fp32, and fp32 keeps
+// fp32 accuracy without the TF32 splits. A block is 16 x 16 threads; thread
+// (ty, tx) holds rows 4 ty .. 4 ty + 3 of a 64-row tile and columns tx +
+// 16 j, so the 16 threads of a row are one half-warp (row reductions are
+// four shuffles) and a column's 16 reads in a half-warp fall in 16 banks.
+namespace sliced {
+
+constexpr int kTile = 64;       // q rows and keys of a tile
+constexpr int kCols = 128;      // columns of d in a slice, and in an output group
+constexpr int kThreads = 256;
+constexpr int kLd = kCols + 1;  // floats of a staged row (+1: a column's rows in distinct banks)
+constexpr int kLdP = kTile + 1;
+constexpr int kStage = kTile * kLd;  // floats of one staged 64 x 128 tile
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+template <typename T>
+__device__ __forceinline__ T from_f(float x);
+template <>
+__device__ __forceinline__ float from_f<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+// x rounded to T (P and dS before their products, as the plain version does)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
+
+// rows [row0, row0 + 64) x columns [col0, col0 + 128) of a (rows, d)
+// row-major matrix, as fp32 into dst (row stride kLd), zero outside it. d
+// is a whole number of 16-byte vectors (the host's rule), so a vector lies
+// wholly inside or outside the matrix.
+template <typename T>
+__device__ void stage(float* dst, const T* src, int row0, int rows, int col0, int d) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kPerRow = kCols / kVec;
+  for (int i = threadIdx.x; i < kTile * kPerRow; i += kThreads) {
+    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
+    const int gr = row0 + r, gc = col0 + c;
+    float* out = dst + r * kLd + c;
+    if (gr < rows && gc < d) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)gr * d + gc);
+      const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) out[j] = to_f(e[j]);
+    } else {
+#pragma unroll
+      for (int j = 0; j < kVec; ++j) out[j] = 0.f;
+    }
+  }
+}
+
+// s[i][j] += sum over the slice's columns of a[4 ty + i] . b[tx + 16 j]
+__device__ __forceinline__ void add_products(float (&s)[4][4], const float* a, const float* b) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const float* ar = a + 4 * ty * kLd;
+  const float* br = b + tx * kLd;
+#pragma unroll 8
+  for (int c = 0; c < kCols; ++c) {
+    float av[4], bv[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) av[i] = ar[i * kLd + c];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) bv[j] = br[16 * j * kLd + c];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
+  }
+}
+
+// acc[i][j] += sum over the tile's 64 rows r of w[4 ty + i][r] * x[r][tx + 16 j]
+// (w: a 64 x 64 tile of row stride kLdP; x: a staged group of kCols columns)
+__device__ __forceinline__ void add_group(float (&acc)[4][8], const float* w, const float* x) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll 4
+  for (int r = 0; r < kTile; ++r) {
+    float wv[4], xv[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) wv[i] = w[(4 * ty + i) * kLdP + r];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) xv[j] = x[r * kLd + tx + 16 * j];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(wv[i], xv[j], acc[i][j]);
+  }
+}
+
+// the max and the sum of a row's 16 values, one per thread of a half-warp
+__device__ __forceinline__ float row_max(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float row_sum(float x) {
+#pragma unroll
+  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// rows [row0, row0 + 64) x columns [col0, col0 + 128) of acc into a (rows,
+// d) matrix, what lies inside it
+template <typename T>
+__device__ void store_group(T* dst, const float (&acc)[4][8], int row0, int rows, int col0, int d) {
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + 4 * ty + i;
+    if (r >= rows) continue;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int c = col0 + tx + 16 * j;
+      if (c < d) dst[(size_t)r * d + c] = from_f<T>(acc[i][j]);
+    }
+  }
+}
+
+// shared memory of a sliced kernel, mirrored by _kernels.flash_sliced_smem
+// (bytes): two staged tiles and one (forward, dQ) or two (dK/dV) 64 x 64
+// tiles of P or dS, and dK/dV's per-column lse and delta
+constexpr int smem_bytes(bool dkv) {
+  return 4 * (2 * kStage + (dkv ? 2 : 1) * kTile * kLdP + (dkv ? 2 * kTile : 0));
+}
+
+struct Params {
+  int sq, sk, d, causal, groups, n_tiles;
+  float scale, scale_log2;
+};
+
+// the block's (batch*head, tile, group) of a 1-d grid: the group fastest,
+// then the tile, the heaviest causal q tiles first where `reverse`
+struct Block {
+  long long bh;
+  int tile, group;
+  __device__ Block(const Params& p, bool reverse) {
+    long long i = blockIdx.x;
+    group = static_cast<int>(i % p.groups);
+    i /= p.groups;
+    const int t = static_cast<int>(i % p.n_tiles);
+    tile = reverse ? p.n_tiles - 1 - t : t;
+    bh = i / p.n_tiles;
+  }
+};
+
+// the plan a sliced launch must be given: slices and groups of kCols
+// columns covering d, and the kernel's shared memory; the grid (batch*head
+// x tiles of `rows` x groups) within 2^31 blocks
+inline cudaError_t check_plan(bool dkv, int bh, int rows, int d, int slices, int groups, int smem,
+                              long long* blocks) {
+  const int n = (d + kCols - 1) / kCols;
+  if (slices != n || groups != n || smem != smem_bytes(dkv)) return cudaErrorInvalidValue;
+  *blocks = (long long)bh * ((rows + kTile - 1) / kTile) * groups;
+  return *blocks > 0x7fffffffLL ? cudaErrorInvalidValue : cudaSuccess;
+}
+
+// raise a kernel's shared-memory limit, once per kernel (`raised` is the
+// caller's, one per instantiation; never inside a graph capture)
+template <typename K>
+cudaError_t allow_smem(K kernel, int smem, bool& raised) {
+  if (raised) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err == cudaSuccess) raised = true;
+  return err;
+}
+
+}  // namespace sliced
+
 }  // namespace

@@ -60,9 +60,10 @@
 // grid: each block recomputes S and dP over the whole of D (the contraction
 // stays whole) and accumulates only its group's columns. fp32 above D = 128
 // does not fit: its fixed operands alone as tf32 hi and lo (Q and dO, or K
-// and V: 4 x 64 rows x 1 KB) fill 256 KB, above a block's shared memory, so
-// the host refuses it. The host plans rows, groups, stages and shared
-// memory and the launch refuses any other plan.
+// and V: 4 x 64 rows x 1 KB) fill 256 KB, above a block's shared memory;
+// that and every d > 256 run the sliced kernels below, which stream the
+// contraction over d in slices. The host plans rows, groups, stages and
+// shared memory (or slices) and the launch refuses any other plan.
 //
 // What bounds it on an H100. At long context the products: per allowed
 // (q, k) pair 6 D FLOPs in dQ (S, dP, dS K) and 8 D in dK/dV (S, dP, P^T
@@ -801,6 +802,206 @@ int run(const void* q, const void* k, const void* v, const void* dout, const voi
   return static_cast<int>(err);
 }
 
+// The sliced backward (flash.cuh, namespace sliced): head dims above 256,
+// and above 128 in fp32, run by the host as d itself. S and dP are summed
+// over the slices of d (Q and K, then dO and V, staged in turn); P and dS
+// on the registers, rounded to the input type into shared memory; then the
+// output group's columns of the other operand are staged and multiplied.
+//   dQ:    one block per (batch*head, 64 q rows, group of 128 of dQ's
+//          columns), the heaviest causal tiles first; the kv loop ends at
+//          the last live tile. dQ += dS K.
+//   dK/dV: one block per (batch*head, 64 keys, group of 128 columns);
+//          S^T = K Q^T and dP^T = V dO^T directly, lse and delta per column
+//          staged per q tile; the q loop starts at the first live tile.
+//          dV += P^T dO and dK += dS^T Q.
+template <typename T>
+__global__ void __launch_bounds__(sliced::kThreads)
+    flash_bwd_dq_sliced_kernel(const T* q, const T* k, const T* v, const T* dout,
+                               const float* lse, const float* delta, T* dq, sliced::Params p) {
+  using namespace sliced;
+  extern __shared__ float smem[];
+  float* a = smem;
+  float* b = a + kStage;
+  float* dss = b + kStage;  // dS, rounded to the input type
+  const Block blk(p, p.causal != 0);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const size_t qo = (size_t)blk.bh * p.sq * p.d, ko = (size_t)blk.bh * p.sk * p.d;
+  q += qo, dout += qo, dq += qo, k += ko, v += ko;
+  lse += (size_t)blk.bh * p.sq, delta += (size_t)blk.bh * p.sq;
+  const int q0 = blk.tile * kTile, c0 = blk.group * kCols;
+  int n_kv = (p.sk + kTile - 1) / kTile;
+  if (p.causal) {
+    const int hi = min(q0 + kTile, p.sq) - 1 + p.sk - p.sq;
+    n_kv = hi < 0 ? 0 : min(n_kv, hi / kTile + 1);
+  }
+  float row_lse[4], row_delta[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + 4 * ty + i;
+    row_lse[i] = row < p.sq ? lse[row] * kLog2e : 0.f;
+    row_delta[i] = row < p.sq ? delta[row] : 0.f;
+  }
+  float acc[4][8] = {};
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = t * kTile;
+    float s[4][4] = {}, dp[4][4] = {};
+    for (int c = 0; c < p.d; c += kCols) {
+      __syncthreads();  // the last reads of a, b and dss are done
+      stage(a, q, q0, p.sq, c, p.d);
+      stage(b, k, k0, p.sk, c, p.d);
+      __syncthreads();
+      add_products(s, a, b);
+    }
+    for (int c = 0; c < p.d; c += kCols) {
+      __syncthreads();
+      stage(a, dout, q0, p.sq, c, p.d);
+      stage(b, v, k0, p.sk, c, p.d);
+      __syncthreads();
+      add_products(dp, a, b);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + 4 * ty + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + tx + 16 * j;
+        const bool ok = row < p.sq && key < p.sk && (!p.causal || key <= row + p.sk - p.sq);
+        const float pij = ok ? exp2f(s[i][j] * p.scale_log2 - row_lse[i]) : 0.f;
+        dss[(4 * ty + i) * kLdP + tx + 16 * j] =
+            round_to<T>(pij * (dp[i][j] - row_delta[i]) * p.scale);
+      }
+    }
+    __syncthreads();  // every product is summed (b is free) and dS is whole
+    stage(b, k, k0, p.sk, c0, p.d);
+    __syncthreads();
+    add_group(acc, dss, b);
+  }
+  store_group(dq, acc, q0, p.sq, c0, p.d);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(sliced::kThreads)
+    flash_bwd_dkv_sliced_kernel(const T* q, const T* k, const T* v, const T* dout,
+                                const float* lse, const float* delta, T* dk, T* dv,
+                                sliced::Params p) {
+  using namespace sliced;
+  extern __shared__ float smem[];
+  float* a = smem;
+  float* b = a + kStage;
+  float* pt = b + kStage;          // P^T, rounded to the input type
+  float* dst = pt + kTile * kLdP;  // dS^T, likewise
+  float* col_lse = dst + kTile * kLdP;
+  float* col_delta = col_lse + kTile;
+  const Block blk(p, false);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const size_t qo = (size_t)blk.bh * p.sq * p.d, ko = (size_t)blk.bh * p.sk * p.d;
+  q += qo, dout += qo, k += ko, v += ko, dk += ko, dv += ko;
+  lse += (size_t)blk.bh * p.sq, delta += (size_t)blk.bh * p.sq;
+  const int k0 = blk.tile * kTile, c0 = blk.group * kCols;
+  const int n_q = (p.sq + kTile - 1) / kTile;
+  int lo = 0;
+  if (p.causal) {  // the first q tile whose last row may see key k0
+    const int first = k0 - (p.sk - p.sq);
+    lo = first <= 0 ? 0 : min(n_q, first / kTile);
+  }
+  float acc_k[4][8] = {}, acc_v[4][8] = {};
+  for (int t = lo; t < n_q; ++t) {
+    const int q0 = t * kTile;
+    // the previous tile's elementwise phase, the last reader of col_lse and
+    // col_delta, ended before the barrier ahead of its products
+    if (threadIdx.x < kTile) {
+      const int row = q0 + threadIdx.x;
+      col_lse[threadIdx.x] = row < p.sq ? lse[row] * kLog2e : 0.f;
+      col_delta[threadIdx.x] = row < p.sq ? delta[row] : 0.f;
+    }
+    float s[4][4] = {}, dp[4][4] = {};
+    for (int c = 0; c < p.d; c += kCols) {
+      __syncthreads();
+      stage(a, k, k0, p.sk, c, p.d);
+      stage(b, q, q0, p.sq, c, p.d);
+      __syncthreads();
+      add_products(s, a, b);
+    }
+    for (int c = 0; c < p.d; c += kCols) {
+      __syncthreads();
+      stage(a, v, k0, p.sk, c, p.d);
+      stage(b, dout, q0, p.sq, c, p.d);
+      __syncthreads();
+      add_products(dp, a, b);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int key = k0 + 4 * ty + i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int qc = tx + 16 * j, row = q0 + qc;
+        const bool ok = row < p.sq && key < p.sk && (!p.causal || key <= row + p.sk - p.sq);
+        const float pij = ok ? exp2f(s[i][j] * p.scale_log2 - col_lse[qc]) : 0.f;
+        pt[(4 * ty + i) * kLdP + qc] = round_to<T>(pij);
+        dst[(4 * ty + i) * kLdP + qc] = round_to<T>(pij * (dp[i][j] - col_delta[qc]) * p.scale);
+      }
+    }
+    __syncthreads();  // every product is summed (a, b are free); P^T, dS^T whole
+    stage(a, dout, q0, p.sq, c0, p.d);
+    stage(b, q, q0, p.sq, c0, p.d);
+    __syncthreads();
+    add_group(acc_v, pt, a);
+    add_group(acc_k, dst, b);
+  }
+  store_group(dk, acc_k, k0, p.sk, c0, p.d);
+  store_group(dv, acc_v, k0, p.sk, c0, p.d);
+}
+
+template <typename T, bool kDq>
+cudaError_t launch_sliced(const void* q, const void* k, const void* v, const void* dout,
+                          const float* lse, const float* delta, void* g0, void* g1, int bh,
+                          int sq, int sk, int d, int causal, float scale, int slices, int groups,
+                          int smem, cudaStream_t stream) {
+  long long blocks = 0;
+  cudaError_t err = sliced::check_plan(!kDq, bh, kDq ? sq : sk, d, slices, groups, smem, &blocks);
+  if (err != cudaSuccess) return err;
+  const sliced::Params p{sq, sk, d, causal, groups,
+                         ((kDq ? sq : sk) + sliced::kTile - 1) / sliced::kTile, scale,
+                         scale * kLog2e};
+  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k);
+  const T *tv = static_cast<const T*>(v), *tdo = static_cast<const T*>(dout);
+  static bool raised = false;
+  if constexpr (kDq) {
+    const auto kernel = flash_bwd_dq_sliced_kernel<T>;
+    err = sliced::allow_smem(kernel, smem, raised);
+    if (err != cudaSuccess) return err;
+    kernel<<<(unsigned)blocks, sliced::kThreads, smem, stream>>>(tq, tk, tv, tdo, lse, delta,
+                                                                  static_cast<T*>(g0), p);
+  } else {
+    const auto kernel = flash_bwd_dkv_sliced_kernel<T>;
+    err = sliced::allow_smem(kernel, smem, raised);
+    if (err != cudaSuccess) return err;
+    kernel<<<(unsigned)blocks, sliced::kThreads, smem, stream>>>(
+        tq, tk, tv, tdo, lse, delta, static_cast<T*>(g0), static_cast<T*>(g1), p);
+  }
+  return cudaGetLastError();
+}
+
+template <bool kDq>
+int run_sliced(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* g0, void* g1, int bh, int sq, int sk, int d, int causal,
+               float scale, int is_bf16, int slices, int groups, int smem, void* stream) {
+  const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+                          reinterpret_cast<uintptr_t>(g0) | reinterpret_cast<uintptr_t>(g1);
+  if (bh < 1 || sq < 1 || sk < 1 || d < 1 || d * (is_bf16 ? 2 : 4) % 16 || align % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch_sliced<__nv_bfloat16, kDq>(q, k, v, dout, l, dl, g0, g1, bh, sq, sk, d,
+                                                  causal, scale, slices, groups, smem, s)
+              : launch_sliced<float, kDq>(q, k, v, dout, l, dl, g0, g1, bh, sq, sk, d, causal,
+                                          scale, slices, groups, smem, s);
+  return static_cast<int>(err);
+}
+
 }  // namespace
 
 extern "C" {
@@ -828,6 +1029,27 @@ int dcnn_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* 
                        int stages, int smem, int groups, void* stream) {
   return run<false>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, causal, scale, is_bf16,
                     rows, tile, stages, smem, groups, stream);
+}
+
+// The sliced kernels (head dims above 256, and above 128 in fp32): the
+// tensors as above, any d >= 1 with rows of whole 16-byte units. The plan
+// (_kernels.flash_bwd_plan): slices and groups of 128 columns covering d,
+// smem the kernel's shared memory in bytes; any other plan is refused.
+// Returns the launch's cudaError_t (0 = queued).
+int dcnn_flash_bwd_dq_sliced(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse, const void* delta, void* dq, int bh, int sq, int sk,
+                             int d, int causal, float scale, int is_bf16, int slices, int groups,
+                             int smem, void* stream) {
+  return run_sliced<true>(q, k, v, dout, lse, delta, dq, dq, bh, sq, sk, d, causal, scale,
+                          is_bf16, slices, groups, smem, stream);
+}
+
+int dcnn_flash_bwd_dkv_sliced(const void* q, const void* k, const void* v, const void* dout,
+                              const void* lse, const void* delta, void* dk, void* dv, int bh,
+                              int sq, int sk, int d, int causal, float scale, int is_bf16,
+                              int slices, int groups, int smem, void* stream) {
+  return run_sliced<false>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, causal, scale,
+                           is_bf16, slices, groups, smem, stream);
 }
 
 #ifdef FLASH_BWD_TRACE

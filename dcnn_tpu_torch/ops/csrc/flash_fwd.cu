@@ -14,7 +14,9 @@
 // Design. One block per (batch*head, tile of q_rows = 64 or 128 q rows,
 // group of O's columns), on a 1-d grid (any batch*head), the heaviest
 // causal tiles first. Any head dim d <= 256 runs as its class D (16, 32,
-// 64, 128 or 256; flash.cuh): columns d .. D - 1 are the copy's zero fill.
+// 64, 128 or 256; flash.cuh): columns d .. D - 1 are the copy's zero fill;
+// a head dim above 256 runs the sliced kernel below, which streams the
+// contraction over d in slices of 128 columns.
 // Where O's fp32 accumulator over D would not fit the register budget with
 // S and P (bf16 at D = 256: 128 registers for O alone), or a stage would not
 // fit beside 64 q rows (fp32 at D = 256), O's columns are cut in groups of
@@ -547,6 +549,111 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void*
   }
 }
 
+// The sliced forward (flash.cuh, namespace sliced): head dims above 256,
+// run by the host as d itself (a whole number of 16-byte vectors). One block
+// per (batch*head, 64 q rows, group of 128 of O's columns), the heaviest
+// causal tiles first. Per kv tile of 64 keys: S summed over the slices of
+// d (Q's and K's slice staged in turn; Q is read again for every kv tile,
+// from L2), the online softmax on S in registers (log2 domain, as the
+// wgmma kernel's), P rounded to V's type into shared memory, then the
+// group's columns of V staged and O += P V. Group 0 writes the logsumexp.
+template <typename T>
+__global__ void __launch_bounds__(sliced::kThreads)
+    flash_fwd_sliced_kernel(const T* q, const T* k, const T* v, T* o, float* lse,
+                            sliced::Params p) {
+  using namespace sliced;
+  extern __shared__ float smem[];
+  float* a = smem;           // Q's slice
+  float* b = a + kStage;     // K's slice, then V's group columns
+  float* ps = b + kStage;    // P, rounded to V's type
+  const Block blk(p, p.causal != 0);
+  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+  const size_t qo = (size_t)blk.bh * p.sq * p.d, ko = (size_t)blk.bh * p.sk * p.d;
+  q += qo, o += qo, k += ko, v += ko;
+  const int q0 = blk.tile * kTile, c0 = blk.group * kCols;
+  int n_kv = (p.sk + kTile - 1) / kTile;
+  if (p.causal) {
+    const int hi = min(q0 + kTile, p.sq) - 1 + p.sk - p.sq;
+    n_kv = hi < 0 ? 0 : min(n_kv, hi / kTile + 1);
+  }
+  float acc[4][8] = {}, m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) m[i] = kNeg, l[i] = 0.f;
+  for (int t = 0; t < n_kv; ++t) {
+    const int k0 = t * kTile;
+    float s[4][4] = {};
+    for (int c = 0; c < p.d; c += kCols) {
+      __syncthreads();  // the last reads of a, b and ps are done
+      stage(a, q, q0, p.sq, c, p.d);
+      stage(b, k, k0, p.sk, c, p.d);
+      __syncthreads();
+      add_products(s, a, b);
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = q0 + 4 * ty + i;
+      bool ok[4];
+      float mt = kNeg;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = k0 + tx + 16 * j;
+        ok[j] = row < p.sq && key < p.sk && (!p.causal || key <= row + p.sk - p.sq);
+        s[i][j] = ok[j] ? s[i][j] * p.scale_log2 : kNeg;
+        mt = fmaxf(mt, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mt));
+      const float corr = exp2f(m[i] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        // masked entries are zeroed: in a row masked so far exp2(kNeg - kNeg) is 1
+        const float pij = ok[j] ? exp2f(s[i][j] - m_new) : 0.f;
+        sum += pij;
+        ps[(4 * ty + i) * kLdP + tx + 16 * j] = round_to<T>(pij);
+      }
+      l[i] = l[i] * corr + row_sum(sum);
+      m[i] = m_new;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[i][j] *= corr;
+    }
+    __syncthreads();  // every S is summed (b is free) and P is whole
+    stage(b, v, k0, p.sk, c0, p.d);
+    __syncthreads();
+    add_group(acc, ps, b);
+  }
+  // O = acc / l with l clamped at 1e-30 (a row that saw no key gives 0);
+  // logsumexp m + log l, -1e30 where the row saw no key
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float lf = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = acc[i][j] / lf;
+    const int row = q0 + 4 * ty + i;
+    if (blk.group == 0 && tx == 0 && row < p.sq)
+      lse[(size_t)blk.bh * p.sq + row] = (m[i] == kNeg ? kNeg : m[i] * kLn2) + logf(lf);
+  }
+  store_group(o, acc, q0, p.sq, c0, p.d);
+}
+
+template <typename T>
+cudaError_t launch_sliced(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                          int sq, int sk, int d, int causal, float scale, int slices, int groups,
+                          int smem, cudaStream_t stream) {
+  long long blocks = 0;
+  cudaError_t err = sliced::check_plan(false, bh, sq, d, slices, groups, smem, &blocks);
+  if (err != cudaSuccess) return err;
+  const auto kernel = flash_fwd_sliced_kernel<T>;
+  static bool raised = false;
+  err = sliced::allow_smem(kernel, smem, raised);
+  if (err != cudaSuccess) return err;
+  sliced::Params p{sq, sk, d, causal, groups, (sq + sliced::kTile - 1) / sliced::kTile, scale,
+                   scale * kLog2e};
+  kernel<<<(unsigned)blocks, sliced::kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<T*>(o), static_cast<float*>(lse), p);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -572,6 +679,27 @@ int dcnn_flash_fwd(const void* q, const void* k, const void* v, void* o, void* l
                                         kv_tile, stages, smem, groups, s)
               : dispatch<float>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile,
                                 stages, smem, groups, s);
+  return static_cast<int>(err);
+}
+
+// The sliced forward (head dims above 256): q, k, v, o and lse as
+// dcnn_flash_fwd takes them, any d >= 1 with rows of whole 16-byte units.
+// The plan (_kernels.flash_plan): slices and groups of 128 columns covering
+// d, smem the kernel's shared memory in bytes; any other plan is refused.
+// Returns the launch's cudaError_t (0 = queued).
+int dcnn_flash_fwd_sliced(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                          int sq, int sk, int d, int causal, float scale, int is_bf16, int slices,
+                          int groups, int smem, void* stream) {
+  const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  if (bh < 1 || sq < 1 || sk < 1 || d < 1 || d * (is_bf16 ? 2 : 4) % 16 || align % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch_sliced<__nv_bfloat16>(q, k, v, o, lse, bh, sq, sk, d, causal, scale,
+                                             slices, groups, smem, s)
+              : launch_sliced<float>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, slices,
+                                     groups, smem, s);
   return static_cast<int>(err);
 }
 

@@ -47,7 +47,7 @@ def _sync(device: torch.device) -> None:
 class InferenceEngine:
     """Warm, bucketed inference over ``apply_fn(x) -> logits`` on one
     device (CUDA unless ``device="cpu"``). Build one from a live model with
-    :meth:`from_model`."""
+    :meth:`from_model`, or from a checkpoint with :meth:`from_checkpoint`."""
 
     def __init__(self, apply_fn: Callable[[torch.Tensor], torch.Tensor],
                  input_shape: Sequence[int], *, max_batch: int = 32,
@@ -107,6 +107,19 @@ class InferenceEngine:
         model = model.to(dev).eval()
         kw.setdefault("name", model.name)
         return cls(model, model.input_shape, device=dev, **kw)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, *, device: DeviceLike = None,
+                        **kw) -> "InferenceEngine":
+        """Engine from a checkpoint directory in the JAX package's format
+        (``model.json`` + ``arrays.msgpack``, written by either package;
+        the committed ``model_snapshots/mnist_cnn_model`` layout), the
+        model loaded onto ``device`` (CUDA unless ``"cpu"``). Other
+        arguments as in :meth:`from_model` (``fold=True`` by default)."""
+        from ..train.checkpoint import load_checkpoint
+
+        model, _, _, _ = load_checkpoint(path, device=device)
+        return cls.from_model(model, device=device, **kw)
 
     def bucket_for(self, n: int) -> int:
         """Smallest bucket >= n."""

@@ -7,14 +7,18 @@
 - :func:`make_train_step`: forward, :func:`upcast_logits`, loss, backward
   (autograd; the attention core's gradient comes from the flash backward
   kernels on CUDA) and the optimizer update, with optional microbatch
-  gradient accumulation; dropout draws from the step's generator.
+  gradient accumulation; dropout draws from the step's generator. With
+  ``guard=True`` a non-finite loss or gradient skips the update and puts
+  the batchnorm statistics back (``resilience/guards.py``).
 - :class:`Trainer`: the epoch loop over host loaders: per-batch or
   per-epoch scheduler stepping, multiplicative lr decay, validation,
-  progress prints and a ``history`` of dicts with the JAX package's keys.
-  Each batch's random draws come from a generator seeded by (seed, epoch,
-  batch) (:func:`batch_generator`), the JAX trainer's
-  ``fold_in(fold_in(key, epoch), batch)``: one seed gives the same masks
-  run after run.
+  progress prints and a ``history`` of dicts with the JAX package's keys;
+  the best-val snapshot (``snapshot_dir``), periodic checkpoints
+  (``checkpoint_dir``) and ``resume="auto"``, the non-finite guard's
+  policies and the stall watchdog. Each batch's random draws come from a
+  generator seeded by (seed, epoch, batch) (:func:`batch_generator`), the
+  JAX trainer's ``fold_in(fold_in(key, epoch), batch)``: one seed gives the
+  same masks run after run, so a resumed run replays the uninterrupted one.
 
 Runs on ``config.device_type`` (CUDA unless ``"cpu"``); asking for CUDA
 without a GPU raises. What the config asks for that this package has not
@@ -24,6 +28,7 @@ skipped silently.
 
 from __future__ import annotations
 
+import os
 import time
 import warnings
 from dataclasses import dataclass
@@ -41,14 +46,14 @@ from ..ops.losses import get_loss, upcast_logits
 from ..ops.metrics import correct_count
 from ..optim.optimizers import Optimizer
 from ..optim.schedulers import Scheduler
+from ..resilience import faults as _faults
+from ..resilience.checkpoint import CheckpointManager
+from ..resilience.guards import StallWatchdog, StepGuard, global_norm_sq
+from .checkpoint import save_checkpoint
 
 # (field, asks for it) of every TrainingConfig feature not ported yet
 _UNPORTED = (
     ("elastic", lambda c: c.elastic),
-    ("checkpoint_dir", lambda c: c.checkpoint_dir),
-    ("resume", lambda c: c.resume != "never"),
-    ("nonfinite_policy", lambda c: c.nonfinite_policy != "off"),
-    ("stall_timeout_s", lambda c: c.stall_timeout_s > 0),
     ("slow_detect", lambda c: c.slow_detect),
     ("metrics_port", lambda c: c.metrics_port >= 0),
     ("flight_dir", lambda c: c.flight_dir),
@@ -113,7 +118,8 @@ def batch_generator(seed: int, epoch: int, batch: int,
 
 
 def make_train_step(model: Sequential, loss_fn: Callable,
-                    optimizer: Optimizer, num_microbatches: int = 1):
+                    optimizer: Optimizer, num_microbatches: int = 1,
+                    guard: bool = False):
     """Returns ``step(ts, x, y, lr, generator=None) -> (loss, logits)``,
     which updates ``ts`` in place. ``x`` and ``y`` are tensors on the
     model's device; ``generator`` (on that device) feeds the model's dropout
@@ -123,7 +129,15 @@ def make_train_step(model: Sequential, loss_fn: Callable,
     the gradients of the pieces are summed and divided by their number
     (the loss likewise). A batch that does not divide evenly is trained
     whole, with a warning, as in the JAX package. The gradients stay in
-    each parameter's ``.grad`` until the next step."""
+    each parameter's ``.grad`` until the next step.
+
+    ``guard=True``: the step returns ``(loss, logits, bad)`` with ``bad =
+    not (isfinite(loss) and isfinite(Σ‖g‖²))``, read on the host after the
+    backward and before the optimizer runs. A bad step updates nothing:
+    params, optimizer state and ``ts.step`` are untouched, and the
+    batchnorm running statistics, which the training forward has already
+    moved in place, are put back from a copy taken before it. Without the
+    guard the step is exactly the unguarded one (no copy, no probe)."""
     n_mb = int(num_microbatches)
 
     def forward_loss(x, y, generator):
@@ -133,12 +147,13 @@ def make_train_step(model: Sequential, loss_fn: Callable,
         return loss.detach(), logits.detach()
 
     def step(ts: TrainState, x: torch.Tensor, y: torch.Tensor, lr: float,
-             generator: Optional[torch.Generator] = None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             generator: Optional[torch.Generator] = None):
         params = dict(model.named_parameters())
         model.train()
         for p in params.values():
             p.grad = None
+        if guard:  # the running statistics as they were before the forward
+            buffers = [(b, b.detach().clone()) for b in model.buffers()]
         if n_mb > 1 and x.shape[0] % n_mb != 0:
             warnings.warn(
                 f"batch size {x.shape[0]} not divisible by num_microbatches="
@@ -159,9 +174,17 @@ def make_train_step(model: Sequential, loss_fn: Callable,
             logits = torch.cat(outs).reshape(x.shape[0], -1)
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
+        if guard:
+            bad = not bool(torch.isfinite(loss)
+                           & torch.isfinite(global_norm_sq(grads.values())))
+            if bad:
+                with torch.no_grad():
+                    for b, saved in buffers:
+                        b.copy_(saved)
+                return loss, logits, True
         ts.opt_state = optimizer.update(grads, ts.opt_state, params, lr)
         ts.step += 1
-        return loss, logits
+        return (loss, logits, False) if guard else (loss, logits)
 
     return step
 
@@ -205,8 +228,10 @@ def evaluate_classification(model: Sequential, loss_fn: Callable, loader,
 
 class Trainer:
     """The epoch loop: per-epoch train and validate, lr decay or
-    scheduler, progress prints. The params live in ``ts.model``; the model
-    must already be on ``config.device_type``."""
+    scheduler, progress prints, the best-val snapshot, periodic
+    checkpoints and resume, the non-finite guard and the stall watchdog.
+    The params live in ``ts.model``; the model must already be on
+    ``config.device_type``."""
 
     def __init__(self, model: Sequential, optimizer: Optimizer,
                  loss: Callable | str, config: Optional[TrainingConfig] = None,
@@ -219,11 +244,53 @@ class Trainer:
         self.loss_fn = get_loss(loss) if isinstance(loss, str) else loss
         self.scheduler = scheduler
         self._global_step = 0
+        # the non-finite step guard (resilience/guards.py): "off" keeps the
+        # unguarded step, with no copy and no probe
+        cfg = self.config
+        self.guard = None
+        if cfg.nonfinite_policy != "off":
+            if cfg.nonfinite_policy == "rollback" and not cfg.checkpoint_dir:
+                raise ValueError(
+                    "nonfinite_policy='rollback' needs checkpoint_dir set "
+                    "(and checkpoint_every > 0) so there is a checkpoint "
+                    "to roll back to — a rollback that can only abort is "
+                    "a delayed crash, not a recovery policy")
+            self.guard = StepGuard(cfg.nonfinite_policy,
+                                   rollback_after=cfg.rollback_after)
+        # periodic atomic checkpoints and resume (resilience/checkpoint.py)
+        self.checkpoints = (CheckpointManager(cfg.checkpoint_dir,
+                                              keep=cfg.checkpoint_keep)
+                            if cfg.checkpoint_dir else None)
+        self.watchdog = None  # per fit(), when stall_timeout_s > 0
         self.train_step = make_train_step(model, self.loss_fn, optimizer,
-                                          self.config.num_microbatches)
+                                          self.config.num_microbatches,
+                                          guard=self.guard is not None)
         self.eval_step = make_eval_step(model, self.loss_fn)
         self.lr = self.config.learning_rate
         self.history: list = []
+
+    def _restore(self, ts: TrainState):
+        """Load the newest valid checkpoint into the model and ``ts`` (on
+        the config's device); returns it, or None where there is none."""
+        restored = self.checkpoints.restore_latest(device=self.device)
+        if restored is not None:
+            self.model.load_state_dict(restored.model.state_dict())
+            ts.opt_state = restored.opt_state
+            ts.step = int(restored.metadata.get("global_step", 0))
+        return restored
+
+    def _rollback(self, ts: TrainState) -> None:
+        """The 'rollback' guard policy: restore the training state from the
+        newest valid checkpoint (the run's state may already be poisoned;
+        one skipped step was not enough)."""
+        self.checkpoints.wait()  # queued async saves land first
+        restored = self._restore(ts)
+        if restored is None:
+            raise RuntimeError(
+                f"rollback requested but no valid checkpoint under "
+                f"{self.checkpoints.directory}")
+        print(f"  guard rollback: restored checkpoint step {restored.step} "
+              f"from {restored.path}", flush=True)
 
     def _check_device(self, ts: TrainState) -> None:
         dev = _model_device(ts.model)
@@ -246,9 +313,32 @@ class Trainer:
         for bi, (x, y) in enumerate(loader):
             xb, yb = _batch(x, y, self.device, scale)
             self._global_step += 1
-            loss, logits = self.train_step(
-                ts, xb, yb, self.lr,
-                batch_generator(seed, epoch, bi, self.device))
+            if self.watchdog is not None:
+                self.watchdog.beat()
+            if _faults.active() is not None:
+                # an armed "train.nonfinite_input" poisons this batch (the
+                # guard's path end to end); armed as an InjectedCrash it
+                # kills the run here (the mid-epoch crash resume restarts
+                # from)
+                try:
+                    _faults.trip("train.nonfinite_input",
+                                 step=self._global_step)
+                except _faults.InjectedCrash:
+                    raise
+                except _faults.InjectedFault:
+                    xb = torch.full_like(xb, float("nan"))
+            gen = batch_generator(seed, epoch, bi, self.device)
+            if self.guard is not None:
+                loss, logits, bad = self.train_step(ts, xb, yb, self.lr, gen)
+                action = self.guard.observe(self._global_step, bad,
+                                            float(loss))
+                if action == "rollback":
+                    self._rollback(ts)
+                    continue
+                if action == "skipped":
+                    continue  # a NaN loss must not poison the epoch mean
+            else:
+                loss, logits = self.train_step(ts, xb, yb, self.lr, gen)
             total_loss += float(loss) * x.shape[0]
             total_correct += int(correct_count(logits, yb))
             total_n += x.shape[0]
@@ -270,16 +360,49 @@ class Trainer:
             epochs: Optional[int] = None, seed: Optional[int] = None
             ) -> TrainState:
         """Train for ``epochs`` (default ``config.epochs``); the random draws
-        of every batch follow from ``seed`` (default ``config.seed``)."""
+        of every batch follow from ``seed`` (default ``config.seed``).
+
+        ``resume="auto"`` with ``checkpoint_dir``: restore the newest valid
+        checkpoint and continue at its epoch + 1 with its lr, history,
+        global step and best validation accuracy (a scheduler's own state
+        is not in the checkpoint, as in the JAX package). Saves queued by
+        ``checkpoint_async`` have landed when this returns."""
         cfg = self.config
-        if cfg.snapshot_dir and val_loader is not None:
-            raise NotImplementedError(
-                f"TrainingConfig.snapshot_dir={cfg.snapshot_dir!r} with a "
-                f"val_loader asks for a best-val snapshot: the checkpoint "
-                f"format is not ported to dcnn_tpu_torch yet; pass "
-                f"snapshot_dir=None")
         epochs = epochs or cfg.epochs
-        for epoch in range(1, epochs + 1):
+        best_val, start_epoch = -1.0, 1
+        if self.checkpoints is not None and cfg.resume == "auto":
+            restored = self._restore(ts)
+            if restored is not None:
+                md = restored.metadata
+                start_epoch = restored.step + 1
+                self.lr = md.get("lr", self.lr)
+                self.history = md.get("history", self.history) or []
+                self._global_step = int(md.get("global_step", 0))
+                best_val = md.get("best_val", -1.0)
+                print(f"resumed from checkpoint step {restored.step} "
+                      f"({restored.path}); continuing at epoch {start_epoch}",
+                      flush=True)
+        if cfg.stall_timeout_s > 0:
+            self.watchdog = StallWatchdog(cfg.stall_timeout_s).start()
+        try:
+            return self._fit_loop(ts, train_loader, val_loader, epochs,
+                                  start_epoch, seed, best_val)
+        finally:
+            if self.watchdog is not None:
+                self.watchdog.stop()
+                self.watchdog = None
+            if self.checkpoints is not None:
+                # an abandoned queue would lose the newest checkpoint; a
+                # saver-thread failure surfaces here
+                self.checkpoints.wait()
+
+    def _fit_loop(self, ts: TrainState, train_loader, val_loader,
+                  epochs: int, start_epoch: int, seed: Optional[int],
+                  best_val: float) -> TrainState:
+        cfg = self.config
+        for epoch in range(start_epoch, epochs + 1):
+            if self.watchdog is not None:
+                self.watchdog.beat()
             if hasattr(train_loader, "shuffle"):
                 train_loader.shuffle(epoch)
             t0 = time.perf_counter()
@@ -291,6 +414,14 @@ class Trainer:
                 val_loss, val_acc = evaluate_classification(
                     self.model, self.loss_fn, val_loader,
                     eval_step=self.eval_step)
+                # the best-val snapshot (the JAX trainer's)
+                if cfg.snapshot_dir and val_acc > best_val:
+                    best_val = val_acc
+                    save_checkpoint(
+                        os.path.join(cfg.snapshot_dir, self.model.name),
+                        self.model, ts.opt_state, self.optimizer,
+                        {"epoch": epoch, "val_acc": val_acc,
+                         "val_loss": val_loss})
             self.history.append({"epoch": epoch, "train_loss": train_loss,
                                  "train_acc": train_acc, "val_loss": val_loss,
                                  "val_acc": val_acc, "seconds": dt,
@@ -308,6 +439,18 @@ class Trainer:
             elif (cfg.lr_decay_factor != 1.0
                   and epoch % cfg.lr_decay_interval == 0):
                 self.lr *= cfg.lr_decay_factor
+            # the periodic checkpoint, after the lr schedule so that the
+            # saved lr is the one epoch + 1 trains with
+            if (self.checkpoints is not None and cfg.checkpoint_every
+                    and epoch % cfg.checkpoint_every == 0):
+                md = {"epoch": epoch, "lr": float(self.lr),
+                      "history": self.history, "best_val": best_val,
+                      "global_step": self._global_step}
+                # an earlier async save that failed fails the run now
+                self.checkpoints.check()
+                save = (self.checkpoints.save_async if cfg.checkpoint_async
+                        else self.checkpoints.save)
+                save(epoch, self.model, ts.opt_state, self.optimizer, md)
         return ts
 
 

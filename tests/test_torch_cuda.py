@@ -202,8 +202,8 @@ def test_backward_kernels_refuse_what_they_cannot_take():
     with pytest.raises(ValueError, match="delta must be contiguous fp32"):
         _kernels.flash_bwd_dkv(q, k, v, g, lse, delta.double(), causal=False,
                                scale=0.25)
-    with pytest.raises(ValueError, match="head dim 136"):
-        wide = [torch.zeros(*t.shape[:3], 136, device="cuda")
+    with pytest.raises(ValueError, match="head dim 134"):
+        wide = [torch.zeros(*t.shape[:3], 134, device="cuda")
                 for t in (q, k, v, g)]
         _kernels.flash_bwd_dq(*wide, lse, delta, causal=False, scale=0.25)
 
@@ -334,14 +334,13 @@ def test_flash_head_dims_above_128(causal, sq, sk, d, dtype):
     """128 < D <= 256 runs as class 256: the forward in both types (O's
     columns in two groups; fp32 in serial passes of 16-key tiles)
     and both backward kernels in bf16 (dK/dV in two column groups), against
-    the plain versions. The fp32 backward refuses it: its fixed operands as
-    tf32 hi and lo need more than a block's shared memory."""
+    the plain versions. The fp32 backward, whose fixed operands as tf32 hi
+    and lo need more than a block's shared memory, runs the sliced kernels
+    (two slices of 128 columns)."""
     _flash_check(causal, sq, sk, d, dtype, b=1, h=2)
-    if dtype == torch.bfloat16:
-        _backward_check(causal, sq, sk, d, dtype, b=1, h=2)
-    else:
-        with pytest.raises(ValueError, match="shared memory"):
-            _backward_check(causal, sq, sk, d, dtype, b=1, h=2)
+    if dtype == torch.float32:
+        assert _kernels.flash_bwd_plan(sq, sk, d, dtype).slices == 2
+    _backward_check(causal, sq, sk, d, dtype, b=1, h=2)
 
 
 def test_class_256_plans_as_launched():
@@ -415,16 +414,59 @@ def test_kernels_take_more_than_65535_heads_at_d256():
 
 
 def test_head_dims_above_256_raise():
-    """D 257 (padded to 264 in bf16) and 264 are refused on the card,
-    naming the limit; the kernels are not launched."""
-    q = torch.zeros(1, 1, 8, 257, device="cuda", dtype=torch.bfloat16)
+    """D 257 (padded to 264 in bf16) through ``flash_attention`` and 264
+    straight to the kernel are no longer refused: both run the sliced
+    kernels (3 slices and groups), one counted launch each, against the
+    plain versions; only a grid of 2^31 blocks or more is refused, naming
+    it."""
+    rng = np.random.default_rng(23)
+    q = torch.from_numpy(rng.normal(size=(1, 2, 40, 257)).astype(
+        np.float32)).to("cuda", torch.bfloat16).requires_grad_()
     before = _launches()
-    with pytest.raises(ValueError, match="256"):
-        flash_attention(q, q, q)
-    wide = torch.zeros(1, 1, 8, 264, device="cuda", dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="256"):
-        _kernels.flash_fwd(wide, wide, wide, causal=False, scale=1.0)
-    assert _launches() == before
+    out = flash_attention(q, q, q)
+    out.float().sum().backward()
+    torch.cuda.synchronize()
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (1, 1, 1)
+    o_ref, _ = flash_forward_reference(q.detach(), q.detach(), q.detach())
+    assert _rel_err(out.detach(), o_ref) <= TOL[torch.bfloat16]
+    assert _kernels.flash_plan(40, 40, 264, torch.bfloat16).slices == 3
+    _flash_check(False, 40, 56, 264, torch.bfloat16, b=1, h=2)
+    with pytest.raises(ValueError, match="grid would overflow"):
+        _kernels._check_grid("flash_fwd", 2 ** 24, 8192, 8192, 264)
+
+
+@pytest.mark.parametrize("d", [320, 512, 1000])
+@pytest.mark.parametrize("dtype", _kernels.FLASH_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("causal,sq,sk", [
+    (False, 200, 333),   # ragged
+    (True, 150, 330),    # sq < sk
+    (True, 300, 100),    # sq > sk: fully masked rows
+])
+def test_flash_head_dims_above_256(causal, sq, sk, d, dtype):
+    """D 320, 512 and 1000 run the sliced kernels (S and dP summed over
+    slices of 128 columns, the outputs in groups of 128): forward and both
+    backward kernels against the plain versions."""
+    _flash_check(causal, sq, sk, d, dtype, b=1, h=2)
+    _backward_check(causal, sq, sk, d, dtype, b=1, h=2)
+
+
+@pytest.mark.parametrize("d,dtype,n", [
+    (192, torch.float32, 2), (256, torch.float32, 2),
+    (320, torch.bfloat16, 3), (512, torch.float32, 4),
+    (1000, torch.bfloat16, 8)])
+def test_sliced_plans_as_launched(d, dtype, n):
+    """The sliced plans the kernels take, each launch counted once: n
+    slices and n groups of 128 columns, 64-row tiles, one stage (the fp32
+    backward at D 192 and 256; the forward only above 256)."""
+    fwd, bwd = (_kernels.flash_plan(300, 200, d, dtype),
+                _kernels.flash_bwd_plan(300, 200, d, dtype))
+    assert (bwd.slices, bwd.dq.groups, bwd.dkv.groups) == (n, n, n)
+    assert (bwd.dq.rows, bwd.dq.tile, bwd.dkv.rows, bwd.dkv.tile) == (
+        64, 64, 64, 64)
+    assert fwd.slices == (n if d > 256 else 0)
+    before = _launches()
+    _backward_check(True, 300, 200, d, dtype, b=1, h=2)
+    assert tuple(a - b for a, b in zip(_launches(), before)) == (1, 1, 1)
 
 
 def test_backward_kernels_in_a_cuda_graph():
@@ -695,3 +737,105 @@ def test_conv_kernels_refuse_what_they_cannot_take():
         _kernels.fused_scale_bias_relu(x, sc[:4], sh[:3])
     with pytest.raises(ValueError, match="scale is on cpu"):
         _kernels.fused_scale_bias_relu(x, sc[:4].cpu(), sh[:4])
+
+
+# -- checkpoints and the step guard on the card ------------------------------
+
+def _small_cnn(name="ckpt_card"):
+    return (SequentialBuilder(name).input((3, 8, 8))
+            .conv2d(4, 3, 1, 1).batchnorm().activation("relu")
+            .flatten().dense(5).build())
+
+
+def _cnn_state(seed=0):
+    from dcnn_tpu_torch.optim import Adam
+
+    model = _small_cnn()
+    opt = Adam(1e-3)
+    ts = create_train_state(model, opt, torch.Generator().manual_seed(seed),
+                            device="cuda")
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.normal(size=(8, 3, 8, 8)).astype(
+        np.float32)).cuda()
+    y = torch.from_numpy(np.eye(5, dtype=np.float32)[rng.integers(
+        0, 5, 8)]).cuda()
+    return model, opt, ts, x, y
+
+
+def _host_arrays(model, opt_state):
+    out = {f"p.{n}": t.detach().cpu() for n, t in model.named_parameters()}
+    out.update({f"b.{n}": t.detach().cpu() for n, t in model.named_buffers()})
+    for k, v in opt_state.items():
+        if k == "t":
+            out["t"] = int(v)
+        else:
+            out.update({f"{k}.{n}": t.detach().cpu() for n, t in v.items()})
+    return out
+
+
+def _assert_same(a, b):
+    assert set(a) == set(b)
+    for k in a:
+        if isinstance(a[k], torch.Tensor):
+            assert torch.equal(a[k], b[k]), k
+        else:
+            assert a[k] == b[k], k
+
+
+def test_checkpoint_saved_from_card_loads_on_cpu(tmp_path):
+    """A checkpoint saved from CUDA tensors (after two Adam steps on the
+    card) loads on the CPU with identical params, BN statistics and Adam
+    state, and back onto the card."""
+    from dcnn_tpu_torch.train import load_checkpoint, save_checkpoint
+
+    model, opt, ts, x, y = _cnn_state()
+    step = make_train_step(model, get_loss("softmax_crossentropy"), opt)
+    for _ in range(2):
+        step(ts, x, y, 1e-3)
+    save_checkpoint(str(tmp_path), model, ts.opt_state, opt, {"epoch": 2})
+    want = _host_arrays(model, ts.opt_state)
+    cpu_model, cpu_state, _, md = load_checkpoint(str(tmp_path), device="cpu")
+    assert md == {"epoch": 2} and next(cpu_model.parameters()).device.type \
+        == "cpu"
+    _assert_same(_host_arrays(cpu_model, cpu_state), want)
+    card_model, card_state, _, _ = load_checkpoint(str(tmp_path),
+                                                   device="cuda")
+    assert next(card_model.parameters()).is_cuda
+    _assert_same(_host_arrays(card_model, card_state), want)
+
+
+def test_async_save_then_in_place_step_keeps_pre_step_values(tmp_path):
+    """save_async queues its copies on the current stream and returns; an
+    in-place Adam step right after it cannot reach them: the committed
+    checkpoint holds the pre-step arrays."""
+    from dcnn_tpu_torch.resilience import CheckpointManager
+
+    model, opt, ts, x, y = _cnn_state(1)
+    step = make_train_step(model, get_loss("softmax_crossentropy"), opt)
+    step(ts, x, y, 1e-3)
+    want = _host_arrays(model, ts.opt_state)
+    with CheckpointManager(str(tmp_path), keep=1) as cm:
+        cm.save_async(1, model, ts.opt_state, opt, {"epoch": 1})
+        for _ in range(3):
+            step(ts, x, y, 1e-3)       # in place, at once
+        cm.wait(timeout=120)
+        r = cm.restore_latest(device="cpu")
+    _assert_same(_host_arrays(r.model, r.opt_state), want)
+    assert not torch.equal(next(model.parameters()).cpu(),
+                           next(r.model.parameters()))
+
+
+def test_guarded_skip_on_card_is_bit_identical():
+    """A NaN batch under the guard on the card: params, Adam's state, the
+    step count and the BN running statistics (moved to NaN in place by the
+    training forward, then put back) are bit-identical to before."""
+    model, opt, ts, x, y = _cnn_state(2)
+    step = make_train_step(model, get_loss("softmax_crossentropy"), opt,
+                           guard=True)
+    loss, _, bad = step(ts, x, y, 1e-3)
+    assert not bad
+    want, steps = _host_arrays(model, ts.opt_state), ts.step
+    loss, _, bad = step(ts, torch.full_like(x, float("nan")), y, 1e-3)
+    assert bad and not torch.isfinite(loss)
+    _assert_same(_host_arrays(model, ts.opt_state), want)
+    assert ts.step == steps

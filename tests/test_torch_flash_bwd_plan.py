@@ -24,8 +24,7 @@ jax_attn = importlib.import_module("dcnn_tpu.ops.attention")
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 _smoke = importlib.import_module("chip_smoke")
 # the cases with a backward: the fp32 backward takes D <= 128
-FLASH_CASES = [c for c in _smoke.FLASH_CASES
-               if not _smoke.bwd_refused(c[7], c[5])]
+FLASH_CASES = list(_smoke.FLASH_CASES)
 
 SHAPES = [(32, 32), (1, 1), (64, 64), (65, 65), (200, 10), (300, 429),
           (1000, 1000), (4096, 4096)]
@@ -106,7 +105,8 @@ def test_every_head_dim_is_padded_to_whole_chunks(dtype):
     rows are whole 128-byte chunks in bf16 and whole 32-byte wgmma K steps
     in fp32 (classes 16 and 32 fill one chunk); the accumulators span the
     chunks; the op pads D to whole 16-byte units first (TMA's row rule);
-    the forward's plan agrees on the chunks."""
+    the forward's plan agrees on the chunks. Above 256 a head dim runs as
+    the next multiple of 128, the sliced kernels' slices."""
     es = 2 if dtype == torch.bfloat16 else 4
     for d in HEAD_DIMS:
         dc = _kernels.flash_head_class(d)
@@ -119,8 +119,10 @@ def test_every_head_dim_is_padded_to_whole_chunks(dtype):
         w = _kernels.flash_head_width(d, dtype)
         assert w * es % 16 == 0 and d <= w < d + 16 // es
         assert _kernels.flash_head_class(w) == dc
-    with pytest.raises(ValueError, match="head dim 257"):
-        _kernels.flash_head_class(257)
+    assert [_kernels.flash_head_class(d) for d in (257, 320, 384, 1000)] == [
+        384, 384, 384, 1024]
+    with pytest.raises(ValueError, match="head dim 0"):
+        _kernels.flash_head_class(0)
 
 
 @pytest.mark.parametrize("case", FLASH_CASES, ids=lambda c: c[0])
@@ -189,13 +191,20 @@ def test_class_256_bwd_plans_fit_and_groups_cover_d(sq, sk):
 
 @pytest.mark.parametrize("d", [136, 256])
 def test_fp32_bwd_above_class_128_is_refused(d):
-    """fp32 at class 256: the fixed operands alone (Q and dO, or K and V,
-    as tf32 hi and lo over 64 rows) fill 256 KB, above a block's shared
-    memory, so there is no plan; the error names the limit."""
+    """fp32 at class 256: the wgmma kernels' fixed operands alone (Q and
+    dO, or K and V, as tf32 hi and lo over 64 rows) fill 256 KB, above a
+    block's shared memory, so that layout is refused and the plan is the
+    sliced kernels': S and dP summed over two slices of 128 columns, the
+    outputs in two groups, 64-row blocks and tiles, one stage."""
     lay = _kernels._BwdLayout(256, 4)
     assert lay.smem(True, 64, 16, 0) - 1024 - 256 == 4 * 64 * 1024
-    with pytest.raises(ValueError, match="shared memory.*up to 128"):
-        _kernels.flash_bwd_plan(100, 100, d, torch.float32)
+    plan = _kernels.flash_bwd_plan(100, 100, d, torch.float32)
+    assert plan.slices == 2 and (plan.chunks, plan.padded) == (8, 256)
+    for part, name in ((plan.dq, "dq"), (plan.dkv, "dkv")):
+        assert (part.rows, part.tile, part.stages, part.groups) == (64, 64, 1, 2)
+        assert part.smem == _kernels.flash_sliced_smem(name == "dkv")
+        assert part.smem <= _kernels.SMEM_MAX
+        assert part.regs == _kernels.flash_sliced_regs(name)
 
 
 def test_op_copies_only_what_the_kernels_cannot_take():
@@ -218,3 +227,47 @@ def test_op_copies_only_what_the_kernels_cannot_take():
     assert p.shape == (2, 3, 10, 8) and p.is_contiguous()
     assert torch.equal(p[..., :5], x[..., :5])
     assert torch.equal(p[..., 5:], torch.zeros(2, 3, 10, 3))
+
+
+@pytest.mark.parametrize("d,dtype,n", [
+    (192, torch.float32, 2), (320, torch.float32, 3),
+    (320, torch.bfloat16, 3), (512, torch.float32, 4),
+    (512, torch.bfloat16, 4), (1000, torch.float32, 8),
+    (1000, torch.bfloat16, 8)])
+def test_sliced_plans_fit_and_give_their_counts(d, dtype, n):
+    """The sliced kernels' plans (the fp32 backward at D 192; every kernel
+    above 256): the class is the next multiple of 128 and its n slices
+    and n output groups of 128 columns cover D once; 64-row blocks and
+    tiles in one stage; shared memory within a block's (two staged 64 x 128
+    fp32 tiles, P or dS, dK/dV's lse and delta) and the accumulators within
+    the register budget; the forward keeps its wgmma plan at D <= 256."""
+    dc = _kernels.flash_head_class(d)
+    assert dc == n * _kernels.FLASH_SLICE and dc - 128 < d <= dc
+    bwd = _kernels.flash_bwd_plan(300, 200, d, dtype)
+    assert bwd.slices == n and bwd.padded == dc
+    for part, dkv in ((bwd.dq, False), (bwd.dkv, True)):
+        assert (part.rows, part.tile, part.stages, part.groups) == (64, 64, 1, n)
+        assert part.smem == _kernels.flash_sliced_smem(dkv) <= _kernels.SMEM_MAX
+        assert part.regs <= _kernels.FLASH_BWD_REG_BUDGET
+    assert _kernels.flash_sliced_smem(False) == 4 * (2 * 64 * 129 + 64 * 65)
+    assert _kernels.flash_sliced_smem(True) == 4 * (2 * 64 * 129
+                                                    + 2 * 64 * 65 + 128)
+    fwd = _kernels.flash_plan(300, 200, d, dtype)
+    if d > 256:
+        assert (fwd.slices, fwd.groups, fwd.q_rows, fwd.kv_tile, fwd.stages,
+                fwd.serial) == (n, n, 64, 64, 1, False)
+        assert fwd.smem == _kernels.flash_sliced_smem(False)
+        assert _kernels.flash_sliced_regs("fwd") <= _kernels.FLASH_BWD_REG_BUDGET
+    else:
+        assert fwd.slices == 0
+    # the live tiles of the sliced kernels follow the same band rule
+    assert list(bwd.kv_tiles(1, 300, 200, True)) == list(range(0, 1))
+    assert list(bwd.q_tiles(0, 300, 200, True)) == list(range(1, 5))
+
+
+def test_grid_overflow_is_refused_naming_it():
+    """Only a grid of 2^31 blocks or more is refused (B*H x 64-row tiles x
+    128-column groups); the message names the product."""
+    _kernels._check_grid("flash_fwd", 2 ** 20, 4096, 4096, 1000)
+    with pytest.raises(ValueError, match="grid would overflow.*8 column groups"):
+        _kernels._check_grid("flash_fwd", 2 ** 22, 8192, 8192, 1000)

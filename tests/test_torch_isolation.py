@@ -1,7 +1,10 @@
 """The port stands alone: ``dcnn_tpu_torch`` (and ``chip_smoke.py``, which
-drives it on the GPU) import neither JAX nor anything of ``dcnn_tpu``, on
-the attention serving and training paths and on the CNN serving path with
-the conv kernels' plain versions."""
+drives it on the GPU) import neither JAX nor anything of ``dcnn_tpu``, nor
+``msgpack`` (the port's own codec writes and reads the checkpoint format,
+so the port needs no msgpack installed), on the attention serving and
+training paths, on the CNN serving path with the conv kernels' plain
+versions, and on the checkpoint path (save, async save, restore, resume,
+serving a snapshot)."""
 
 import ast
 import os
@@ -10,7 +13,7 @@ import sys
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "dcnn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "dcnn_tpu", "msgpack")
 
 
 def _forbidden(module: str) -> bool:
@@ -76,9 +79,36 @@ CNN = (
     "    assert bool(torch.isfinite(y).all())\n")
 
 
+CHECKPOINT = (
+    "import tempfile, numpy as np\n"
+    "from dcnn_tpu_torch.core import TrainingConfig\n"
+    "from dcnn_tpu_torch.data import ArrayDataLoader\n"
+    "from dcnn_tpu_torch.models import create_model\n"
+    "from dcnn_tpu_torch.optim import Adam\n"
+    "from dcnn_tpu_torch.serve import InferenceEngine\n"
+    "from dcnn_tpu_torch.train import Trainer, create_train_state\n"
+    "d = tempfile.mkdtemp()\n"
+    "ld = ArrayDataLoader(np.zeros((8, 32, 64), np.float32),"
+    " np.eye(10, dtype=np.float32)[np.arange(8) % 10], batch_size=4)\n"
+    "for resume in ('never', 'auto'):\n"
+    "    m = create_model('mha_classifier').init("
+    "generator=torch.Generator().manual_seed(0), device='cpu')\n"
+    "    opt = Adam(1e-3)\n"
+    "    tr = Trainer(m, opt, 'softmax_crossentropy', TrainingConfig("
+    "device_type='cpu', epochs=2, progress_interval=0, snapshot_dir=d,"
+    " checkpoint_dir=d + '/ck', checkpoint_every=1, resume=resume,"
+    " nonfinite_policy='skip_step'))\n"
+    "    ts = tr.fit(create_train_state(m, opt), ld, ld)\n"
+    "assert ts.step == 4 and len(tr.history) == 2\n"
+    "e = InferenceEngine.from_checkpoint(d + '/' + m.name, max_batch=2,"
+    " device='cpu')\n"
+    "assert e.infer(torch.zeros(32, 64)).shape == (10,)\n")
+
+
 def _run_isolated(body: str) -> None:
     """Run ``body`` in a fresh interpreter after ``import dcnn_tpu_torch``
-    and check that no module of JAX, flax or the JAX package was loaded."""
+    and check that no module of JAX, flax, msgpack or the JAX package was
+    loaded."""
     code = (
         "import sys, torch\n"
         "import dcnn_tpu_torch\n"
@@ -104,3 +134,7 @@ def test_import_and_cpu_train_step_leave_jax_out():
 
 def test_import_and_cpu_cnn_serving_and_conv_kernels_leave_jax_out():
     _run_isolated(CNN)
+
+
+def test_checkpoint_path_leaves_jax_and_msgpack_out():
+    _run_isolated(CHECKPOINT)

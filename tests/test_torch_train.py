@@ -17,6 +17,7 @@ rounding:
 """
 
 import math
+import os
 
 import jax
 import jax.numpy as jnp
@@ -315,12 +316,13 @@ def test_mha_classifier_trains_on_the_marker_task():
 
 
 UNPORTED = {
-    "elastic": True, "checkpoint_dir": "ckpt", "resume": "auto",
-    "nonfinite_policy": "skip_step", "stall_timeout_s": 5.0,
-    "slow_detect": True, "metrics_port": 0, "flight_dir": "flight",
-    "aot_cache_dir": "aot", "steps_per_dispatch": 4, "feed_workers": 2,
-    "debug": True,
+    "elastic": True, "slow_detect": True, "metrics_port": 0,
+    "flight_dir": "flight", "aot_cache_dir": "aot", "steps_per_dispatch": 4,
+    "feed_workers": 2, "debug": True,
 }
+# ported since: checkpoints, resume, the step guard and the watchdog
+PORTED = {"checkpoint_dir": "ckpt", "resume": "auto",
+          "nonfinite_policy": "skip_step", "stall_timeout_s": 5.0}
 
 
 @pytest.mark.parametrize("field", sorted(UNPORTED) + ["profiler"])
@@ -333,15 +335,33 @@ def test_unported_config_features_raise(field):
         Trainer(tm, Adam(), LOSS, cfg)
 
 
-def test_best_val_snapshot_and_resident_data_raise():
+@pytest.mark.parametrize("field", sorted(PORTED))
+def test_ported_config_features_construct(field, tmp_path):
+    """The fault-tolerance fields no longer raise: a Trainer builds with
+    each (a checkpoint manager where checkpoint_dir is set)."""
+    tm = create_mha_classifier().init(device="cpu")
+    value = PORTED[field]
+    kw = {field: str(tmp_path / value) if field == "checkpoint_dir"
+          else value}
+    tr = Trainer(tm, Adam(), LOSS, TrainingConfig(device_type="cpu", **kw))
+    assert (tr.checkpoints is not None) == (field == "checkpoint_dir")
+    assert (tr.guard is not None) == (field == "nonfinite_policy")
+
+
+def test_best_val_snapshot_and_resident_data_raise(tmp_path):
+    """``snapshot_dir`` with a val loader writes the best-val snapshot
+    (the checkpoint format is ported); a device-resident dataset still
+    raises."""
     tm = create_mha_classifier().init(device="cpu")
     x, y = marker_task(8, 32, 64)
     ld = ArrayDataLoader(x, y, batch_size=4)
     ts = create_train_state(tm, Adam())
-    tr = Trainer(tm, Adam(), LOSS, TrainingConfig(device_type="cpu",
-                                                  snapshot_dir="snaps"))
-    with pytest.raises(NotImplementedError, match="snapshot_dir"):
-        tr.fit(ts, ld, ld)
+    tr = Trainer(tm, Adam(), LOSS, TrainingConfig(
+        device_type="cpu", snapshot_dir=str(tmp_path), epochs=1,
+        progress_interval=0))
+    tr.fit(ts, ld, ld)
+    snap = tmp_path / tm.name
+    assert sorted(os.listdir(snap)) == ["arrays.msgpack", "model.json"]
 
     class DeviceDataset(ArrayDataLoader):
         """Stands in for the JAX package's HBM-resident dataset."""

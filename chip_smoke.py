@@ -71,7 +71,21 @@ Phases, each fatal on failure:
    one; the cost of an async and a blocking save, the bytes and the
    restore time; ``InferenceEngine.from_checkpoint`` of the best-val
    snapshot serves 32 requests through DynamicBatcher against the CPU;
-   ``model_snapshots/mnist_cnn_model`` on the card against the CPU.
+   ``model_snapshots/mnist_cnn_model`` on the card against the CPU;
+11. train feed: the device-side data feed on full-width
+   ``resnet18_tiny_imagenet`` with the Tiny-ImageNet trainer's RESIDENT
+   recipe (``phase_train_feed``): the 1,228,800,000-byte Tiny-ImageNet
+   train split staged and a resident epoch of 32 steps run with nothing
+   inside it waiting for the card, resident against the per-step loop,
+   ``Trainer.fit`` over a resident split (resident eval equal to the host
+   eval), the chunked path through ``PrefetchLoader(stage_batches=4,
+   feed_workers=2)`` (and ``mha_classifier`` chunked, the flash kernels
+   counted there), streaming shards bit-identical to ``serial_shards``
+   through the transfer engine and a 2-process worker pool, and per feed
+   the warm samples/s, the card's busy share, launches and copies per step
+   and host-to-device bytes per step, with the card's name and power
+   limit. The native host helpers (``dcnn_tpu_torch/native``) build with
+   ``g++`` beside the kernels.
 
 Then it prints ``{"kernels": [...]}`` on a line of its own and, last,
 ``{"ok": true, "device": {...}}``. Times come from CUDA events around CUDA
@@ -1906,6 +1920,450 @@ def phase_checkpoint(card):
             "bit_equal": bit_equal}
 
 
+FEED_BATCH, FEED_LR, FEED_CLASSES = 32, 1e-3, 200
+FEED_SPLIT = 100_000          # Tiny-ImageNet's train split, 1,228,800,000 B
+FEED_TRAIN, FEED_VAL = 512, 256
+FEED_RESIDENT_STEPS = 32
+FEED_STREAM, FEED_SHARD_BATCHES = 2048, 8
+FEED_CHUNK = 4                # stage_batches and steps_per_dispatch
+FEED_PROFILE_STEPS = 4
+FEED_KEYS = {"epoch", "train_loss", "train_acc", "val_loss", "val_acc",
+             "seconds", "lr"}
+
+
+def _dev_us(e) -> float:
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(e, attr):
+            return float(getattr(e, attr))
+    return 0.0
+
+
+def profiled(fn, steps: int) -> dict:
+    """``fn()`` once under ``torch.profiler``, synchronised at its end: per
+    train step its wall (profiler on), the card's busy time (the kernels'
+    and copies' device time), the card's busy share, kernel launches and
+    copies."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [e for e in prof.key_averages()
+           if getattr(e, "device_type", None) == DeviceType.CUDA
+           and _dev_us(e) > 0]
+    busy_ms = sum(_dev_us(e) for e in dev) / 1e3
+    copies = sum(e.count for e in dev if e.key.startswith(("Memcpy",
+                                                            "Memset")))
+    return {"wall_ms": wall_ms / steps, "busy_ms": busy_ms / steps,
+            "busy_share": busy_ms / wall_ms,
+            "launches_per_step": (sum(e.count for e in dev) - copies) / steps,
+            "copies_per_step": copies / steps}
+
+
+def phase_train_feed(card):
+    """The device-side data feed on full-width ``resnet18_tiny_imagenet``
+    (NCHW, fp32 parity precision) with the Tiny-ImageNet trainer's RESIDENT
+    recipe: B=32, AdamW(1e-3, weight decay 1e-4) under
+    ``WarmupCosineAnnealing`` stepped per batch,
+    ``DeviceAugmentBuilder("NCHW").random_crop(4).horizontal_flip(0.5)``.
+    Synthetic uint8 images and labels from ``SEED``:
+
+    - resident, full split: 100,000 x 3x64x64 uint8 (1,228,800,000 bytes)
+      and 400,000 bytes of int32 labels staged through reused pinned
+      buffers (the staging wall printed); a resident epoch of 32 steps,
+      warm, with nothing inside it waiting for the card
+      (``torch.cuda.set_sync_debug_mode("error")``), its samples/s;
+    - resident against the per-step loop: 4 steps over one batch order,
+      augmentation off, cuDNN deterministic: bit-equal, else at the train
+      cnn phase's loss tolerance (the printout says which);
+    - ``Trainer.fit`` over a ``DeviceDataset`` of 512 train (augmented) and
+      256 val samples, 2 epochs: a finite history with the JAX keys, train
+      accuracy NaN; resident eval equal to the host eval of the same split;
+    - chunked: ``PrefetchLoader(stage_batches=4, feed_workers=2)`` with
+      ``steps_per_dispatch=4`` over 512 samples against
+      ``PrefetchLoader(depth=2)`` per step from the same weights (losses at
+      the train cnn tolerance); ``mha_classifier`` on the marker task
+      through ``PrefetchLoader(stage_batches=4)``, ``steps_per_dispatch=4``,
+      the flash kernels counted over that run, its losses against the
+      per-step run's;
+    - streaming: ``StreamingDeviceDataset`` of 2,048 samples in shards of 8
+      batches, through the default transfer engine and through a
+      2-process worker pool: every shard the step receives bit-identical to
+      ``serial_shards``; then a training epoch through the engine;
+    - per feed (host loader with host augmentation, ``PrefetchLoader``,
+      chunked, resident, streaming): warm samples/s (the second epoch of
+      two, or the timed epoch), the card's busy share, kernel launches and
+      copies per step from one profiled window (4 steps; the chunked feed
+      one more 16-step epoch through its loader, its workers up), and the
+      host-to-device bytes per step the feed ships (counted from the
+      arrays it copies). The phase's wall is printed by part."""
+    import functools
+
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch import native
+    from dcnn_tpu_torch.core import TrainingConfig
+    from dcnn_tpu_torch.data import (
+        ArrayDataLoader, AugmentationBuilder, DeviceAugmentBuilder,
+        DeviceDataset, FeedWorkerPool, PrefetchLoader,
+        StreamingDeviceDataset, decode_batch, make_resident_epoch,
+        make_shard_step, serial_shards, train_streaming_epoch,
+    )
+    from dcnn_tpu_torch.interop import from_jax
+    from dcnn_tpu_torch.models import create_model
+    from dcnn_tpu_torch.ops.losses import get_loss
+    from dcnn_tpu_torch.optim import Adam, AdamW, WarmupCosineAnnealing
+    from dcnn_tpu_torch.train import (
+        Trainer, create_train_state, evaluate_classification, make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    parts, t_mark = {}, [t_phase]
+
+    def mark(name):
+        now = time.perf_counter()
+        parts[name] = round(now - t_mark[0], 1)
+        t_mark[0] = now
+    cfg = create_model("resnet18_tiny_imagenet", "NCHW").get_config()
+    params, state = jax_layout(cfg, np.random.default_rng(SEED + 21))
+    ce = get_loss("softmax_crossentropy")
+    rng = np.random.default_rng(SEED + 22)
+    x = rng.integers(0, 256, (FEED_STREAM, 3, 64, 64), dtype=np.uint8)
+    y = rng.integers(0, FEED_CLASSES, FEED_STREAM)
+    oh = np.eye(FEED_CLASSES, dtype=np.float32)[y]
+    tr_x, tr_y, tr_oh = x[:FEED_TRAIN], y[:FEED_TRAIN], oh[:FEED_TRAIN]
+    va = slice(FEED_TRAIN, FEED_TRAIN + FEED_VAL)
+    batch_h2d = tr_x[:FEED_BATCH].nbytes + tr_oh[:FEED_BATCH].nbytes
+    feeds = {}
+
+    def device_aug():
+        return (DeviceAugmentBuilder("NCHW").random_crop(4)
+                .horizontal_flip(0.5).build())
+
+    def host_aug():
+        return (AugmentationBuilder("NCHW").random_crop(4)
+                .horizontal_flip(0.5).build())
+
+    def model_opt():
+        model = from_jax(cfg, params, state, device="cuda")
+        return model, AdamW(FEED_LR, weight_decay=1e-4)
+
+    def fit(loader, val=None, spd=1, epochs=2):
+        model, opt = model_opt()
+        steps = len(loader)
+        trainer = Trainer(model, opt, ce, TrainingConfig(
+            epochs=epochs, batch_size=FEED_BATCH, learning_rate=FEED_LR,
+            scheduler_step="batch", snapshot_dir=None, progress_interval=0,
+            device_type="cuda", steps_per_dispatch=spd),
+            WarmupCosineAnnealing(FEED_LR, warmup_steps=2,
+                                  total_steps=epochs * steps))
+        ts = trainer.fit(create_train_state(model, opt), loader, val)
+        torch.cuda.synchronize()
+        return trainer, ts, model
+
+    def fit_few(ldr, spd=1):
+        """One epoch of ``ldr`` through a Trainer built beforehand, so that
+        the window holds the feed and the steps alone."""
+        model, opt = model_opt()
+        trainer = Trainer(model, opt, ce, TrainingConfig(
+            epochs=1, batch_size=FEED_BATCH, learning_rate=FEED_LR,
+            snapshot_dir=None, progress_interval=0, device_type="cuda",
+            steps_per_dispatch=spd))
+        ts = create_train_state(model, opt)
+        return lambda: trainer.fit(ts, ldr)
+
+    def loader(n=FEED_TRAIN, **kw):
+        return ArrayDataLoader(x[:n], oh[:n], batch_size=FEED_BATCH,
+                               seed=SEED, **kw)
+
+    def warm_sps(trainer, n=FEED_TRAIN):
+        return n / trainer.history[-1]["seconds"]
+
+    def finite(history):
+        return all(math.isfinite(h["train_loss"]) for h in history)
+
+    # host loader with host augmentation (the train cnn phase's path) and
+    # PrefetchLoader
+    trainer, _, _ = fit(loader(augmentation=host_aug()))
+    feeds["host"] = {"samples_per_s": warm_sps(trainer),
+                     "h2d_bytes_per_step": batch_h2d}
+    with PrefetchLoader(loader(), depth=2) as pf:
+        plain, _, _ = fit(pf)
+    feeds["prefetch"] = {"samples_per_s": warm_sps(plain),
+                         "h2d_bytes_per_step": batch_h2d}
+    mark("host and prefetch")
+    # chunked through a 2-process pool against the per-step run; one more
+    # epoch through the same loader (its workers up) is the profiled window
+    with PrefetchLoader(loader(), depth=2, stage_batches=FEED_CHUNK,
+                        feed_workers=2) as pf:
+        chunked, ts_c, _ = fit(pf, spd=FEED_CHUNK)
+        workers_alive = pf._pool.alive_workers()
+        chunk_profile = profiled(fit_few(pf, FEED_CHUNK),
+                                 FEED_TRAIN // FEED_BATCH)
+    mark("chunked")
+    chunk_rel = max(abs(a["train_loss"] - b["train_loss"])
+                    / abs(b["train_loss"])
+                    for a, b in zip(chunked.history, plain.history))
+    if not (finite(chunked.history) and chunk_rel <= CNN_LOSS_RTOL
+            and ts_c.step == 2 * FEED_TRAIN // FEED_BATCH
+            and workers_alive == 2
+            and math.isnan(chunked.history[0]["train_acc"])):
+        fail(f"train feed: chunked ResNet-18 losses "
+             f"{[h['train_loss'] for h in chunked.history]} vs per-step "
+             f"{[h['train_loss'] for h in plain.history]} (rel "
+             f"{chunk_rel:.3e}, tol {CNN_LOSS_RTOL:g}), {ts_c.step} steps, "
+             f"{workers_alive} workers alive")
+    feeds["chunked"] = {"samples_per_s": warm_sps(chunked),
+                        "h2d_bytes_per_step": batch_h2d,
+                        "profile": chunk_profile}
+
+    # Trainer.fit over a resident split, and resident eval vs host eval
+    train_ds = DeviceDataset(tr_x, tr_y, FEED_CLASSES, batch_size=FEED_BATCH,
+                             augment=device_aug())
+    val_ds = DeviceDataset(x[va], y[va], FEED_CLASSES, batch_size=FEED_BATCH)
+    resident, _, model = fit(train_ds, val_ds)
+    if not (len(resident.history) == 2 and finite(resident.history)
+            and all(set(h) == FEED_KEYS for h in resident.history)
+            and all(math.isnan(h["train_acc"]) for h in resident.history)
+            and all(math.isfinite(h["val_loss"]) for h in resident.history)):
+        fail(f"train feed: resident Trainer.fit history {resident.history}")
+    torch.backends.cudnn.deterministic = True
+    try:
+        ev_res = evaluate_classification(model, ce, val_ds)
+        ev_host = evaluate_classification(model, ce, ArrayDataLoader(
+            x[va], oh[va], batch_size=FEED_BATCH, shuffle=False,
+            drop_last=False))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if ev_res != ev_host:
+        fail(f"train feed: resident eval {ev_res} != host eval {ev_host}")
+    mark("resident fit")
+    feeds["resident"] = {"samples_per_s_512": round(warm_sps(resident), 1),
+                         "h2d_bytes_per_step": 4}  # its lr, from a vector
+
+    # resident against the per-step loop, one batch order, cuDNN
+    # deterministic
+    order = np.random.default_rng(SEED + 23).permutation(FEED_TRAIN)[
+        :4 * FEED_BATCH].reshape(4, FEED_BATCH)
+    torch.backends.cudnn.deterministic = True
+    try:
+        m_a, opt_a = model_opt()
+        ts_a, mean_a = make_resident_epoch(
+            m_a, ce, opt_a, num_classes=FEED_CLASSES, batch_size=FEED_BATCH)(
+            create_train_state(m_a, opt_a), train_ds.x, train_ds.y, 0,
+            FEED_LR, order=order)
+        m_b, opt_b = model_opt()
+        ts_b = create_train_state(m_b, opt_b)
+        step = make_train_step(m_b, ce, opt_b)
+        losses_b = torch.stack([step(
+            ts_b, decode_batch(torch.from_numpy(tr_x[i]).cuda()),
+            torch.from_numpy(tr_oh[i]).cuda(), FEED_LR)[0] for i in order])
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = False
+    mean_b = float(losses_b.mean())
+    bit_equal = (float(mean_a) == mean_b and all(
+        torch.equal(a, b) for a, b in zip(m_a.state_dict().values(),
+                                          m_b.state_dict().values())))
+    loop_rel = abs(float(mean_a) - mean_b) / abs(mean_b)
+    if not (bit_equal or loop_rel <= CNN_LOSS_RTOL):
+        fail(f"train feed: resident epoch mean loss {float(mean_a)} vs the "
+             f"per-step loop's {mean_b} (rel {loop_rel:.3e}, tol "
+             f"{CNN_LOSS_RTOL:g})")
+    mark("resident vs loop")
+    del train_ds, val_ds, m_a, m_b, ts_a, ts_b
+
+    # resident, the full split: staged through reused pinned buffers
+    big_x = np.frombuffer(np.random.default_rng(SEED + 24).bytes(
+        FEED_SPLIT * 3 * 64 * 64), np.uint8).reshape(FEED_SPLIT, 3, 64, 64)
+    big_y = np.random.default_rng(SEED + 25).integers(0, FEED_CLASSES,
+                                                      FEED_SPLIT)
+    aug = device_aug()
+    big = DeviceDataset(big_x, big_y, FEED_CLASSES, batch_size=FEED_BATCH,
+                        augment=aug)
+    staged_bytes, stage_s = big.hbm_bytes, big.stage_seconds
+    model, opt = model_opt()
+    ts = create_train_state(model, opt)
+    sched = WarmupCosineAnnealing(FEED_LR, warmup_steps=2,
+                                  total_steps=FEED_RESIDENT_STEPS)
+    lrs = [sched.step(None) for _ in range(FEED_RESIDENT_STEPS)]
+    make = functools.partial(make_resident_epoch, model, ce, opt,
+                             num_classes=FEED_CLASSES, batch_size=FEED_BATCH,
+                             augment=aug, scale=big.scale)
+    ts, warm = make(steps=2)(ts, big.x, big.y, 1, FEED_LR)
+    float(warm)
+    epoch = make(steps=FEED_RESIDENT_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")  # nothing inside may wait
+    try:
+        ts, mean = epoch(ts, big.x, big.y, 2, np.asarray(lrs, np.float32))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    mean = float(mean)
+    resident_s = time.perf_counter() - t0
+    if not math.isfinite(mean) or ts.step != FEED_RESIDENT_STEPS + 2:
+        fail(f"train feed: full-split resident epoch mean loss {mean}, "
+             f"{ts.step} steps")
+    feeds["resident"]["samples_per_s"] = (FEED_RESIDENT_STEPS * FEED_BATCH
+                                          / resident_s)
+    feeds["resident"]["profile"] = profiled(
+        lambda: float(make(steps=FEED_PROFILE_STEPS)(
+            ts, big.x, big.y, 3, FEED_LR)[1]), FEED_PROFILE_STEPS)
+    del big, big_x, epoch, make
+    torch.cuda.empty_cache()
+    mark("resident full split")
+
+    # streaming: shards bit-identical to serial_shards through the engine
+    # and the pool, then a training epoch through the engine
+    shard_rows = FEED_BATCH * FEED_SHARD_BATCHES
+    pool = FeedWorkerPool(x, y.astype(np.int32), shard_rows, num_workers=2,
+                          seed=SEED)
+    stream = {}
+    try:
+        for name, kw in (("engine", {}), ("pool", {"worker_pool": pool})):
+            ds = StreamingDeviceDataset(x, y, FEED_CLASSES,
+                                        batch_size=FEED_BATCH,
+                                        shard_batches=FEED_SHARD_BATCHES,
+                                        seed=SEED)
+            ref = StreamingDeviceDataset(x, y, FEED_CLASSES,
+                                         batch_size=FEED_BATCH,
+                                         shard_batches=FEED_SHARD_BATCHES,
+                                         seed=SEED)
+            want = list(serial_shards(ref.x, ref.y,
+                                      list(ref.shard_selections())))
+            got = []
+
+            def record(ts_, sx, sy, key, lr):
+                sx = torch.cat(sx) if isinstance(sx, tuple) else sx
+                got.append((sx.cpu().numpy(), sy.cpu().numpy()))
+                return ts_, torch.zeros((), device="cuda")
+
+            model, opt = model_opt()
+            ts = create_train_state(model, opt)
+            train_streaming_epoch(record, ts, ds, 0, FEED_LR, **kw)
+            same = len(got) == len(want) == FEED_STREAM // shard_rows and all(
+                np.array_equal(gx, wx) and np.array_equal(gy, wy)
+                for (gx, gy), (wx, wy, _) in zip(got, want))
+            if not same:
+                fail(f"train feed: streaming shards through the {name} "
+                     f"differ from serial_shards")
+            if name != "engine":
+                continue
+            step = make_shard_step(model, ce, opt, num_classes=FEED_CLASSES,
+                                   batch_size=FEED_BATCH,
+                                   shard_batches=FEED_SHARD_BATCHES,
+                                   augment=device_aug())
+            timeline = []
+            t0 = time.perf_counter()
+            ts, loss = train_streaming_epoch(step, ts, ds, 1, FEED_LR,
+                                             timeline=timeline, **kw)
+            wall = time.perf_counter() - t0
+            if not math.isfinite(loss) or ts.step != FEED_STREAM // FEED_BATCH:
+                fail(f"train feed: streaming epoch through the {name}: loss "
+                     f"{loss}, {ts.step} steps")
+            stream[name] = {
+                "samples_per_s": FEED_STREAM / wall,
+                "h2d_bytes_per_step": sum(t["bytes"] for t in timeline)
+                / (FEED_STREAM // FEED_BATCH) + 4 * FEED_BATCH,
+                "queue_wait_s": sum(t["queue_wait_s"] for t in timeline),
+                "h2d_gbps": [round(t["h2d_gbps"], 3) for t in timeline
+                             if t["h2d_gbps"]]}
+        alive = pool.alive_workers()
+    finally:
+        pool.close()
+    if alive != 2:
+        fail(f"train feed: {alive} of 2 streaming workers alive")
+    feeds["streaming"] = stream["engine"]
+    mark("streaming")
+
+    # one profiled window of 4 steps through the other feeds
+    few = FEED_PROFILE_STEPS * FEED_BATCH
+    feeds["host"]["profile"] = profiled(
+        fit_few(loader(few, augmentation=host_aug())), FEED_PROFILE_STEPS)
+    with PrefetchLoader(loader(few), depth=2) as pf:
+        feeds["prefetch"]["profile"] = profiled(fit_few(pf),
+                                                FEED_PROFILE_STEPS)
+    model, opt = model_opt()
+    step = make_shard_step(model, ce, opt, num_classes=FEED_CLASSES,
+                           batch_size=FEED_BATCH,
+                           shard_batches=FEED_PROFILE_STEPS,
+                           augment=device_aug())
+    few_ds = StreamingDeviceDataset(x[:few], y[:few], FEED_CLASSES,
+                                    batch_size=FEED_BATCH,
+                                    shard_batches=FEED_PROFILE_STEPS)
+    feeds["streaming"]["profile"] = profiled(
+        lambda: train_streaming_epoch(step, create_train_state(model, opt),
+                                      few_ds, 0, FEED_LR),
+        FEED_PROFILE_STEPS)
+
+    mark("profiles")
+    # mha_classifier through the chunked path: the flash kernels run there
+    m_cfg, m_params, m_rng = model_params()
+    m_x, m_y = marker_task(m_rng)
+
+    def mha_fit(spd):
+        model = from_jax(m_cfg, m_params, device="cuda")
+        opt = Adam(1e-3)
+        ldr = ArrayDataLoader(m_x, m_y, batch_size=FEED_BATCH, seed=SEED)
+        if spd > 1:
+            ldr = PrefetchLoader(ldr, stage_batches=spd)
+        trainer = Trainer(model, opt, "softmax_crossentropy", TrainingConfig(
+            epochs=2, batch_size=FEED_BATCH, snapshot_dir=None,
+            progress_interval=0, device_type="cuda", steps_per_dispatch=spd))
+        ts = trainer.fit(create_train_state(model, opt), ldr)
+        return trainer, ts
+
+    mha_plain, _ = mha_fit(1)
+    reset_launches()  # the chunked mha path starts here
+    mha_chunked, ts = mha_fit(FEED_CHUNK)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in launches().items()  # the path ends
+              if k.startswith("flash_")}
+    mha_steps = 2 * len(m_x) // FEED_BATCH
+    mha_rel = max(abs(a["train_loss"] - b["train_loss"])
+                  / abs(b["train_loss"])
+                  for a, b in zip(mha_chunked.history, mha_plain.history))
+    if not (ts.step == mha_steps and mha_rel <= TRAIN_LOSS_RTOL
+            and all(v == 2 * mha_steps for v in counts.values())
+            and len(counts) == 3):
+        fail(f"train feed: chunked mha_classifier: {ts.step} steps, losses "
+             f"{[h['train_loss'] for h in mha_chunked.history]} vs per-step "
+             f"{[h['train_loss'] for h in mha_plain.history]} (rel "
+             f"{mha_rel:.3e}, tol {TRAIN_LOSS_RTOL:g}), launches {counts} "
+             f"(expected {2 * mha_steps} each)")
+
+    mark("mha chunked")
+    for f in feeds.values():
+        f["samples_per_s"] = round(f["samples_per_s"], 1)
+        if "profile" in f:
+            f["profile"] = {k: round(v, 4) for k, v in f["profile"].items()}
+    helpers = "C++" if native.available() else "numpy"
+    print(f"train feed: native helpers {helpers} "
+          f"({native.lib_path().name}); full split {staged_bytes} device "
+          f"bytes staged in {stage_s:.3f} s "
+          f"({staged_bytes / stage_s / 1e9:.2f} GB/s); resident epoch "
+          f"of {FEED_RESIDENT_STEPS} steps {resident_s:.3f} s, no host sync "
+          f"inside; resident vs per-step loop over 4 steps: "
+          f"{'bit-equal' if bit_equal else f'rel {loop_rel:.3e}'}; resident "
+          f"eval == host eval {ev_res}; chunked ResNet-18 vs per-step rel "
+          f"{chunk_rel:.3e}; chunked mha_classifier vs per-step rel "
+          f"{mha_rel:.3e}, launches {counts}; streaming shards bit-identical "
+          f"to serial_shards through the engine and a 2-process pool; phase "
+          f"wall {time.perf_counter() - t_phase:.1f} s (by part: {parts}) on "
+          f"{card}", flush=True)
+    print("train feed: " + json.dumps({"card": card, "feeds": feeds}),
+          flush=True)
+    return {"launches": counts, "feeds": feeds}
+
+
 def bias_before_bn(model):
     """Names (as ``named_parameters`` gives them) of the conv biases that
     feed a batchnorm directly: their gradient is zero in exact arithmetic,
@@ -1949,10 +2407,20 @@ def main() -> None:
     from dcnn_tpu_torch.ops import _kernels
 
     set_precision("parity")
+    from dcnn_tpu_torch import native
+
     t0 = time.perf_counter()
+    # the host helpers (g++) build in a thread beside the kernels (nvcc)
+    helpers = threading.Thread(target=native.lib, name="native-build")
+    helpers.start()
     _kernels.build(verbose=True)
-    print(f"build: {sorted(_kernels.SOURCES)} in "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    helpers.join()
+    if not native.available():
+        fail("the native host helpers did not build with g++ "
+             f"({native.lib_path()})")
+    print(f"build: {sorted(_kernels.SOURCES)} and {native.lib_path().name} "
+          f"(native helpers: C++) in {time.perf_counter() - t0:.1f} s",
+          flush=True)
     fwd_cases = phase_kernels()
     bwd_cases = phase_bwd_kernels()
     conv_cases = phase_conv_kernels()
@@ -1962,6 +2430,7 @@ def main() -> None:
     serve_cnn = phase_serve_cnn(card)
     phase_train_cnn(card)
     phase_checkpoint(card)
+    feed = phase_train_feed(card)
 
     def row(name, source, replaces, cases, by_path):
         model_case = cases[0]  # the model's shape: B=32, H=4, S=32, D=16
@@ -2005,18 +2474,21 @@ def main() -> None:
                 "bound_ms": total["bound_ms"], "bound_by": by,
                 "library_ms": lib, "cases": cases}
 
-    tl = train["launches"]
+    tl, fl = train["launches"], feed["launches"]
     tc_src = "dcnn_tpu_torch/ops/csrc/conv3x3_tc.cu"
     kernels = [
         row("flash_fwd", "dcnn_tpu_torch/ops/csrc/flash_fwd.cu",
             "dcnn_tpu/ops/attention.py:297", fwd_cases,
-            {"serve": serve["launches"], "train": tl["flash_fwd"]}),
+            {"serve": serve["launches"], "train": tl["flash_fwd"],
+             "train_feed": fl["flash_fwd"]}),
         row("flash_bwd_dq", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:460", bwd_cases["dq"],
-            {"serve": 0, "train": tl["flash_bwd_dq"]}),
+            {"serve": 0, "train": tl["flash_bwd_dq"],
+             "train_feed": fl["flash_bwd_dq"]}),
         row("flash_bwd_dkv", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:478", bwd_cases["dkv"],
-            {"serve": 0, "train": tl["flash_bwd_dkv"]}),
+            {"serve": 0, "train": tl["flash_bwd_dkv"],
+             "train_feed": fl["flash_bwd_dkv"]}),
         site_row("conv3x3_s1", tc_src, "dcnn_tpu/ops/pallas/conv.py:82"),
         site_row("conv3x3_s1_pairs", tc_src,
                  "dcnn_tpu/ops/pallas/conv.py:173"),

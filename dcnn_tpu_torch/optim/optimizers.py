@@ -11,7 +11,9 @@ reference's update rules, which are not those of ``torch.optim``:
 
 As in the JAX package, an optimizer is a stateless spec: ``init(params)``
 makes the state and ``update(grads, opt_state, params, lr)`` applies one
-step, with ``lr`` given per step by the trainer or a scheduler. ``params``
+step, with ``lr`` given per step by the trainer or a scheduler: a float,
+or a 0-d tensor on the params' device (the resident and chunked epochs'
+per-batch lr vectors stay on the card). ``params``
 and ``grads`` map parameter names (``model.named_parameters()``) to tensors.
 Unlike the JAX functions, ``update`` works in place: it overwrites the
 params and the state's tensors and returns the state, which saves a copy of
@@ -29,6 +31,14 @@ import torch
 
 OptState = Dict[str, Any]
 Tensors = Mapping[str, torch.Tensor]
+
+
+def _lr(lr, default: float):
+    """The step's lr: the default, a float, or a device tensor kept as it
+    is (reading it would wait for the card)."""
+    if lr is None:
+        return default
+    return lr if isinstance(lr, torch.Tensor) else float(lr)
 
 
 def _zeros(params: Tensors) -> Dict[str, torch.Tensor]:
@@ -68,7 +78,7 @@ class SGD(Optimizer):
 
     @torch.no_grad()
     def update(self, grads, opt_state, params, lr=None):
-        lr = self.learning_rate if lr is None else float(lr)
+        lr = _lr(lr, self.learning_rate)
         for n, p in params.items():
             g = grads[n]
             if self.momentum > 0.0:
@@ -100,7 +110,7 @@ class Adam(Optimizer):
 
     @torch.no_grad()
     def update(self, grads, opt_state, params, lr=None):
-        lr = self.learning_rate if lr is None else float(lr)
+        lr = _lr(lr, self.learning_rate)
         b1, b2, eps, wd = self.beta1, self.beta2, self.epsilon, self.weight_decay
         t = int(opt_state["t"]) + 1
         # fp32 bias corrections, as the JAX package computes them from its

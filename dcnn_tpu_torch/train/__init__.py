@@ -1,16 +1,17 @@
 """Training (counterpart of ``dcnn_tpu/train``): the single-device
-trainer over host loaders, and checkpoints in the JAX package's format."""
+trainer over host loaders, resident datasets and staged chunks, and
+checkpoints in the JAX package's format."""
 
 from .checkpoint import load_checkpoint, save_checkpoint
 from .trainer import (
     TrainState, Trainer, batch_generator, create_train_state,
     evaluate_classification,
-    evaluate_regression, make_eval_step, make_train_step,
+    evaluate_regression, make_eval_step, make_multi_step, make_train_step,
     train_classification_model, train_regression_model,
 )
 
 __all__ = ["TrainState", "Trainer", "batch_generator", "create_train_state",
            "evaluate_classification", "evaluate_regression",
-           "load_checkpoint", "make_eval_step", "make_train_step",
-           "save_checkpoint", "train_classification_model",
-           "train_regression_model"]
+           "load_checkpoint", "make_eval_step", "make_multi_step",
+           "make_train_step", "save_checkpoint",
+           "train_classification_model", "train_regression_model"]

@@ -10,6 +10,8 @@
   gradient accumulation; dropout draws from the step's generator. With
   ``guard=True`` a non-finite loss or gradient skips the update and puts
   the batchnorm statistics back (``resilience/guards.py``).
+- :func:`make_multi_step`: K train steps over a [K, B, ...] chunk with
+  one read of their mean loss, the JAX package's one-dispatch chunk.
 - :class:`Trainer`: the epoch loop over host loaders: per-batch or
   per-epoch scheduler stepping, multiplicative lr decay, validation,
   progress prints and a ``history`` of dicts with the JAX package's keys;
@@ -19,6 +21,13 @@
   generator seeded by (seed, epoch, batch) (:func:`batch_generator`), the
   JAX trainer's ``fold_in(fold_in(key, epoch), batch)``: one seed gives the
   same masks run after run, so a resumed run replays the uninterrupted one.
+  Two fast paths read the losses once per epoch or chunk and report train
+  accuracy as NaN, as in the JAX package: a ``DeviceDataset`` trains
+  through the resident epoch (``data/device_dataset.py``), and
+  ``steps_per_dispatch = K > 1`` through :func:`make_multi_step` over the
+  [K, B, ...] chunks of ``PrefetchLoader(stage_batches=K)``; their keys
+  are ``fold_in(fold_in(seed, epoch), epoch)`` and ``fold_in(fold_in(seed,
+  epoch), chunk)`` (:mod:`dcnn_tpu_torch.core.keys`).
 
 Runs on ``config.device_type`` (CUDA unless ``"cpu"``); asking for CUDA
 without a GPU raises. What the config asks for that this package has not
@@ -40,6 +49,10 @@ import numpy as np
 
 from ..core.config import ProfilerType, TrainingConfig
 from ..core.device import DeviceLike, resolve_device
+from ..core.keys import fold_in, generator, to_device
+from ..data.device_dataset import (
+    DeviceDataset, lr_per_step, resident_epoch, resident_eval,
+)
 from ..data.wire import decode_batch, wire_scale
 from ..nn.sequential import Sequential
 from ..ops.losses import get_loss, upcast_logits
@@ -59,8 +72,6 @@ _UNPORTED = (
     ("flight_dir", lambda c: c.flight_dir),
     ("aot_cache_dir", lambda c: c.aot_cache_dir),
     ("profiler", lambda c: c.profiler != ProfilerType.NONE),
-    ("steps_per_dispatch", lambda c: c.steps_per_dispatch > 1),
-    ("feed_workers", lambda c: c.feed_workers > 0),
     ("debug", lambda c: c.debug),
 )
 
@@ -71,14 +82,6 @@ def _refuse_unported(config: TrainingConfig) -> None:
             raise NotImplementedError(
                 f"TrainingConfig.{field}={getattr(config, field)!r}: this "
                 f"feature is not ported to dcnn_tpu_torch yet (ROADMAP.md)")
-
-
-def _refuse_resident(loader) -> None:
-    if type(loader).__name__ in ("DeviceDataset", "ShardedDeviceDataset"):
-        raise NotImplementedError(
-            f"{type(loader).__name__}: device-resident datasets are not "
-            f"ported to dcnn_tpu_torch yet; pass a host loader "
-            f"(ArrayDataLoader)")
 
 
 def _model_device(model: Sequential) -> torch.device:
@@ -189,6 +192,29 @@ def make_train_step(model: Sequential, loss_fn: Callable,
     return step
 
 
+def make_multi_step(model: Sequential, loss_fn: Callable, optimizer: Optimizer,
+                    num_microbatches: int = 1):
+    """Returns ``multi_step(ts, xs, ys, key, lr) -> (ts, mean_loss)``: one
+    full train step per leading index of ``xs`` ([K, B, ...]) and ``ys``
+    ([K, B, classes]), step ``i`` drawing from ``generator(fold_in(key,
+    i))``, the same K steps as K calls of :func:`make_train_step`.
+    ``mean_loss`` stays on the device (a chunk is read once, as the JAX
+    package reads its one-dispatch chunk); ``lr`` is a scalar or a [K]
+    vector (per-batch schedules stay exact)."""
+    step = make_train_step(model, loss_fn, optimizer, num_microbatches)
+
+    def multi_step(ts: TrainState, xs, ys, key: int, lr):
+        k = xs.shape[0]
+        lrs = lr_per_step(lr, k, xs.device)
+        losses = torch.stack([
+            step(ts, xs[i], ys[i], lrs[i],
+                 generator(fold_in(key, i), xs.device))[0]
+            for i in range(k)])
+        return ts, losses.mean()
+
+    return multi_step
+
+
 def make_eval_step(model: Sequential, loss_fn: Callable):
     """``eval_step(x, y) -> (loss, correct)`` without gradients."""
 
@@ -209,8 +235,13 @@ def _batch(x, y, device: torch.device, scale: float):
 
 def evaluate_classification(model: Sequential, loss_fn: Callable, loader,
                             eval_step=None) -> Tuple[float, float]:
-    """(mean loss, accuracy) over a host loader, on the model's device."""
-    _refuse_resident(loader)
+    """(mean loss, accuracy) over a host loader, on the model's device; over
+    a ``DeviceDataset``, the whole-split resident eval (full batches and an
+    exact remainder)."""
+    if isinstance(loader, DeviceDataset):
+        ev = resident_eval(model, loss_fn, loader)
+        loss_sum, correct, n = ev(loader.x, loader.y, scale=loader.scale)
+        return float(loss_sum) / n, int(correct) / n
     eval_step = eval_step if eval_step is not None else make_eval_step(
         model, loss_fn)
     dev, scale = _model_device(model), wire_scale(loader)
@@ -249,6 +280,11 @@ class Trainer:
         cfg = self.config
         self.guard = None
         if cfg.nonfinite_policy != "off":
+            if cfg.steps_per_dispatch > 1:
+                raise ValueError(
+                    "nonfinite_policy guards the per-batch step loop; with "
+                    "steps_per_dispatch > 1 losses never reach the host "
+                    "per-step — use steps_per_dispatch=1 or policy 'off'")
             if cfg.nonfinite_policy == "rollback" and not cfg.checkpoint_dir:
                 raise ValueError(
                     "nonfinite_policy='rollback' needs checkpoint_dir set "
@@ -265,6 +301,9 @@ class Trainer:
         self.train_step = make_train_step(model, self.loss_fn, optimizer,
                                           self.config.num_microbatches,
                                           guard=self.guard is not None)
+        self.multi_step = (make_multi_step(model, self.loss_fn, optimizer,
+                                           cfg.num_microbatches)
+                           if cfg.steps_per_dispatch > 1 else None)
         self.eval_step = make_eval_step(model, self.loss_fn)
         self.lr = self.config.learning_rate
         self.history: list = []
@@ -303,10 +342,21 @@ class Trainer:
                     ) -> Tuple[TrainState, float, float]:
         """One pass over a host loader, batch ``bi`` drawing from
         :func:`batch_generator` (``seed`` (default ``config.seed``), epoch,
-        bi). Returns (ts, mean loss, accuracy)."""
+        bi). A ``DeviceDataset`` runs the resident epoch, and
+        ``steps_per_dispatch > 1`` the chunked one (train accuracy NaN on
+        both). Returns (ts, mean loss, accuracy)."""
         seed = self.config.seed if seed is None else seed
-        _refuse_resident(loader)
         self._check_device(ts)
+        if isinstance(loader, DeviceDataset):
+            if self.guard is not None:
+                raise ValueError(
+                    "nonfinite_policy guards the per-batch step loop; "
+                    "resident datasets run whole epochs in one dispatch "
+                    "(losses never reach the host per-step) — use a host "
+                    "loader or policy 'off'")
+            return self._train_epoch_resident(ts, loader, epoch, seed)
+        if self.multi_step is not None:
+            return self._train_epoch_chunked(ts, loader, epoch, seed)
         total_loss, total_correct, total_n = 0.0, 0, 0
         t0 = time.perf_counter()
         scale = wire_scale(loader)
@@ -355,6 +405,78 @@ class Trainer:
                       f"({total_n / dt:.1f} samples/s)", flush=True)
         n = max(total_n, 1)
         return ts, total_loss / n, total_correct / n
+
+    def _batch_lrs(self, k: int, metric):
+        """The per-batch schedule's lrs of the next ``k`` steps as a [k]
+        vector on the device, the scheduler stepped ``k`` times with one
+        metric evaluation (``metric`` at the first step, None after); else
+        the current scalar lr."""
+        if self.scheduler is None or self.config.scheduler_step != "batch":
+            return self.lr
+        lrs = []
+        for si in range(k):
+            lrs.append(self.lr)
+            self.lr = self.scheduler.step(metric if si == 0 else None)
+        return to_device(np.asarray(lrs, np.float32), self.device)
+
+    def _train_epoch_resident(self, ts: TrainState, ds: DeviceDataset,
+                              epoch: int, seed: int
+                              ) -> Tuple[TrainState, float, float]:
+        """The resident epoch (``data/device_dataset.py``): shuffle, gather,
+        decode, augment and every step on the device, the losses read once.
+        Train accuracy is NaN (validation measures it). A per-batch
+        schedule ships as a [steps] lr vector; a metric-driven one sees the
+        previous epoch's mean train loss, once per epoch."""
+        if ds.device.type != self.device.type:
+            raise ValueError(f"the dataset is staged on {ds.device}, the "
+                             f"config asks for {self.device}")
+        epoch_fn = resident_epoch(self.model, self.loss_fn, self.optimizer,
+                                  ds, self.config.num_microbatches)
+        metric = self.history[-1]["train_loss"] if self.history else None
+        lr_arg = self._batch_lrs(ds.steps_per_epoch, metric)
+        if self.watchdog is not None:
+            self.watchdog.beat()
+        key = fold_in(fold_in(seed, epoch), epoch)
+        ts, mean_loss = epoch_fn(ts, ds.x, ds.y, key, lr_arg)
+        self._global_step += ds.steps_per_epoch
+        return ts, float(mean_loss), float("nan")
+
+    def _train_epoch_chunked(self, ts: TrainState, loader, epoch: int,
+                             seed: int) -> Tuple[TrainState, float, float]:
+        """K train steps per chunk over [K, B, ...] chunks, each chunk's
+        mean loss read once. Train accuracy is NaN. A per-batch schedule's
+        K lrs ship as a vector (a metric-driven scheduler sees the running
+        loss before the chunk, once per chunk)."""
+        sample_ndim = len(self.model.input_shape)
+        total_loss, total_n = 0.0, 0
+        t0 = time.perf_counter()
+        scale = wire_scale(loader)
+        epoch_key = fold_in(seed, epoch)
+        for ci, (xs, ys) in enumerate(loader):
+            if self.watchdog is not None:
+                self.watchdog.beat()
+            xs, ys = _batch(xs, ys, self.device, scale)
+            if xs.ndim != sample_ndim + 2:
+                raise ValueError(
+                    f"steps_per_dispatch={self.config.steps_per_dispatch} "
+                    f"needs [K, B, ...] chunks (got shape {tuple(xs.shape)});"
+                    f" wrap the loader in PrefetchLoader(stage_batches=K)")
+            metric = (total_loss / total_n) if total_n > 0 else None
+            lr_arg = self._batch_lrs(xs.shape[0], metric)
+            ts, mean_loss = self.multi_step(ts, xs, ys,
+                                            fold_in(epoch_key, ci), lr_arg)
+            n = xs.shape[0] * xs.shape[1]
+            total_loss += float(mean_loss) * n
+            total_n += n
+            self._global_step += xs.shape[0]
+            if self.config.progress_interval and (ci + 1) % max(
+                    self.config.progress_interval // max(xs.shape[0], 1),
+                    1) == 0:
+                dt = time.perf_counter() - t0
+                print(f"  epoch {epoch} chunk {ci + 1}: loss "
+                      f"{total_loss / total_n:.4f} "
+                      f"({total_n / dt:.1f} samples/s)", flush=True)
+        return ts, total_loss / max(total_n, 1), float("nan")
 
     def fit(self, ts: TrainState, train_loader, val_loader=None,
             epochs: Optional[int] = None, seed: Optional[int] = None

@@ -1,5 +1,8 @@
 """The port's CUDA kernels on the card, each held against its plain PyTorch
-version, and the training path run through the flash kernels.
+version, the training path run through the flash kernels, and the data feed
+on the card (pinned buffers, side streams and events against the host
+bytes, a worker pool built after CUDA init, the device augmentations and a
+resident epoch against the CPU).
 
 Every test here needs an NVIDIA GPU and skips without one (decided inside
 the test). The file imports neither JAX nor the JAX package, so it also
@@ -839,3 +842,196 @@ def test_guarded_skip_on_card_is_bit_identical():
     assert bad and not torch.isfinite(loss)
     _assert_same(_host_arrays(model, ts.opt_state), want)
     assert ts.step == steps
+
+
+# -- the data feed on the card ---------------------------------------------------
+
+def _u8(n=41, seed=0, shape=(3, 8, 8)):
+    rng = np.random.default_rng(seed)
+    return (rng.integers(0, 256, (n, *shape), dtype=np.uint8),
+            rng.integers(0, 10, n).astype(np.int32))
+
+
+@pytest.mark.parametrize("mode", ["chunks", "concat"])
+@pytest.mark.parametrize("fence", [True, False])
+def test_engine_delivers_host_bytes_on_card(mode, fence):
+    """Chunks gathered into pinned buffers and copied on the engine's own
+    streams, landed on the current stream by their events, equal the host
+    rows; the source may be overwritten once a fenced call returns."""
+    from dcnn_tpu_torch.data import TransferEngine
+    from dcnn_tpu_torch.data.transfer import land
+
+    x, y = _u8()
+    sel = np.sort(np.random.default_rng(1).choice(41, 29, replace=False))
+    with TransferEngine(num_chunks=3, num_threads=2, reassemble=mode,
+                        fence=fence) as eng:
+        assert eng.device.type == "cuda"
+        for _ in range(3):
+            dx, dy, stats = eng.put_shard(x, y, sel)
+            assert stats["events"] and stats["inflight_max"] >= 1
+            land(stats["events"], dx, dy)
+            got = torch.cat(dx) if isinstance(dx, tuple) else dx
+            assert got.is_cuda and dy.is_cuda
+            np.testing.assert_array_equal(got.cpu().numpy(), x[sel])
+            np.testing.assert_array_equal(dy.cpu().numpy(), y[sel])
+        whole = eng.put_array(x)
+        np.testing.assert_array_equal(whole.cpu().numpy(), x)
+
+
+@pytest.mark.parametrize("chunk_bytes", [1000, 4096, 1 << 26])
+def test_stage_array_through_reused_pinned_buffers(chunk_bytes):
+    from dcnn_tpu_torch.data.transfer import stage_array
+
+    x, y = _u8(n=37, seed=2)
+    d = stage_array(x, "cuda", chunk_bytes=chunk_bytes)
+    dy = stage_array(y, "cuda", chunk_bytes=chunk_bytes)
+    np.testing.assert_array_equal(d.cpu().numpy(), x)
+    np.testing.assert_array_equal(dy.cpu().numpy(), y)
+
+
+def _serial_decoded(ld, epoch):
+    from dcnn_tpu_torch.data import decode_host
+
+    ld.shuffle(epoch)
+    return [(decode_host(a, ld.scale), b) for a, b in ld]
+
+
+@pytest.mark.parametrize("stage,engine", [(1, False), (2, False), (2, True)])
+def test_prefetch_delivers_host_bytes_on_card(stage, engine):
+    from dcnn_tpu_torch.data import PrefetchLoader, TransferEngine
+
+    x, y = _u8(n=48, seed=3)
+    ld = ArrayDataLoader(x, np.eye(10, dtype=np.float32)[y], batch_size=8,
+                         seed=4)
+    eng = TransferEngine(num_chunks=2, reassemble="concat") if engine \
+        else None
+    with PrefetchLoader(ld, stage_batches=stage, transfer_engine=eng) as pf:
+        for epoch in (0, 1):
+            pf.shuffle(epoch)
+            got = list(pf)
+            want = _serial_decoded(ld, epoch)
+            flat = [(a, b) for gx, gy in got for a, b in
+                    (zip(gx, gy) if stage > 1 else [(gx, gy)])]
+            assert len(flat) == len(want)
+            for (a, b), (wa, wb) in zip(flat, want):
+                assert a.is_cuda
+                np.testing.assert_array_equal(a.cpu().numpy(), wa)
+                np.testing.assert_array_equal(b.cpu().numpy(), wb)
+    if eng is not None:
+        eng.close()
+
+
+@pytest.mark.parametrize("mp_context", ["spawn", "fork"])
+def test_pool_created_after_cuda_init_delivers_host_bytes(mp_context):
+    """The 2-process pool built after CUDA is initialised (its children
+    never touch CUDA): pooled batches through pinned buffers and a side
+    stream equal the serial path's, epoch after epoch."""
+    from dcnn_tpu_torch.data import FeedWorkerPool, PrefetchLoader
+
+    torch.zeros(1, device="cuda").add_(1)
+    torch.cuda.synchronize()
+    x, y = _u8(n=64, seed=5)
+    oh = np.eye(10, dtype=np.float32)[y]
+    ld = ArrayDataLoader(x, oh, batch_size=8, seed=6)
+    with FeedWorkerPool(x, oh, 16, num_workers=2, seed=6,
+                        mp_context=mp_context, poll_s=0.05) as pool:
+        pf = PrefetchLoader(ld, stage_batches=2, worker_pool=pool)
+        for epoch in (0, 1):
+            pf.shuffle(epoch)
+            got = [(a, b) for gx, gy in pf for a, b in zip(gx, gy)]
+            want = _serial_decoded(ld, epoch)
+            assert len(got) == len(want)
+            for (a, b), (wa, wb) in zip(got, want):
+                np.testing.assert_array_equal(a.cpu().numpy(), wa)
+                np.testing.assert_array_equal(b.cpu().numpy(), wb)
+        assert pool.alive_workers() == 2
+
+
+@pytest.mark.parametrize("fmt", ["NCHW", "NHWC"])
+def test_device_augment_ops_on_card_equal_cpu(fmt):
+    """Each op's apply on CUDA equals its apply on the CPU given the same
+    draws: exactly, but for rotation (1e-5: cos/sin and the weights in
+    CUDA's arithmetic) and contrast (4 ulp of the data scale: the
+    per-image mean is a reduction summed in another order)."""
+    from dcnn_tpu_torch.data import augment_device as ad
+
+    x = torch.rand((6, 3, 12, 10) if fmt == "NCHW" else (6, 12, 10, 3),
+                   generator=torch.Generator().manual_seed(7))
+    ops = [ad.brightness(), ad.contrast(), ad.cutout(4, 0.7, fmt),
+           ad.gaussian_noise(), ad.horizontal_flip(0.5, fmt),
+           ad.vertical_flip(0.5, fmt),
+           ad.normalization([0.1, 0.2, 0.3], [0.5, 0.6, 0.7], fmt),
+           ad.random_crop(3, 0.8, fmt), ad.rotation(30.0, 0.8, fmt)]
+    eps = float(torch.finfo(torch.float32).eps)
+    for i, op in enumerate(ops):
+        draws = op.draw(x, torch.Generator().manual_seed(i))
+        cpu = op.apply(x, draws)
+        card = op.apply(x.cuda(), tuple(d.cuda() for d in draws)).cpu()
+        name = type(op).__name__
+        if name == "Rotation":
+            torch.testing.assert_close(card, cpu, rtol=0, atol=1e-5)
+        elif name == "Contrast":
+            torch.testing.assert_close(card, cpu, rtol=0, atol=4 * eps)
+        else:
+            assert torch.equal(card, cpu), name
+        # drawn on the card, from a generator on the card
+        card_draws = op.draw(x.cuda(), torch.Generator(device="cuda")
+                             .manual_seed(i))
+        assert all(d.is_cuda for d in card_draws)
+
+
+def _feed_cnn(device, seed=0):
+    model = (SequentialBuilder("feed_cnn", data_format="NHWC")
+             .input((8, 8, 1)).conv2d(8, 3, padding=1).batchnorm()
+             .activation("relu").maxpool2d(2).flatten().dense(4).build())
+    return model.init(generator=torch.Generator().manual_seed(seed),
+                      device=device)
+
+
+def test_resident_epoch_on_card_tracks_cpu_and_never_syncs():
+    """A narrow resident epoch on CUDA against the same epoch on the CPU
+    (one batch order, a per-batch lr vector, augmentation by the same
+    draws is not possible across devices, so none): the losses and params
+    within 1e-4 of their scale. Inside the epoch nothing waits for the
+    card (``torch.cuda.set_sync_debug_mode("error")``); the mean loss is
+    read after it. Resident eval on the card equals the host eval of the
+    same split on the card, bit for bit."""
+    from dcnn_tpu_torch.data import DeviceDataset, make_resident_epoch
+    from dcnn_tpu_torch.train import evaluate_classification
+
+    rng = np.random.default_rng(8)
+    y = rng.integers(0, 4, 64)
+    x = np.clip(y[:, None, None, None] * 50 + 20
+                + rng.normal(0, 10, (64, 8, 8, 1)), 0, 255).astype(np.uint8)
+    order = rng.permutation(64).reshape(8, 8)
+    lrs = np.linspace(0.05, 0.01, 8).astype(np.float32)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = _feed_cnn(dev)
+        opt = SGD(0.05, momentum=0.9)
+        ds = DeviceDataset(x, y, 4, batch_size=8, device=dev)
+        epoch = make_resident_epoch(model, get_loss("softmax_crossentropy"),
+                                    opt, num_classes=4, batch_size=8)
+        ts = create_train_state(model, opt)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                ts, mean = epoch(ts, ds.x, ds.y, 3, lrs, order=order)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        else:
+            ts, mean = epoch(ts, ds.x, ds.y, 3, lrs, order=order)
+        out[dev] = (float(mean), [p.detach().cpu() for p in
+                                  model.parameters()])
+        if dev == "cuda":
+            host = ArrayDataLoader(x, np.eye(4, dtype=np.float32)[y],
+                                   batch_size=8, shuffle=False,
+                                   drop_last=False)
+            loss = get_loss("softmax_crossentropy")
+            assert evaluate_classification(model, loss, ds) \
+                == evaluate_classification(model, loss, host)
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4 * abs(out["cpu"][0])
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()))

@@ -3,8 +3,11 @@ drives it on the GPU) import neither JAX nor anything of ``dcnn_tpu``, nor
 ``msgpack`` (the port's own codec writes and reads the checkpoint format,
 so the port needs no msgpack installed), on the attention serving and
 training paths, on the CNN serving path with the conv kernels' plain
-versions, and on the checkpoint path (save, async save, restore, resume,
-serving a snapshot)."""
+versions, on the checkpoint path (save, async save, restore, resume,
+serving a snapshot), and on the data feed (the native helpers, which build
+and load the port's own library and never one under ``dcnn_tpu/native/``,
+the resident dataset, ``PrefetchLoader`` with its spawned feed workers,
+the transfer engine and the streaming feed)."""
 
 import ast
 import os
@@ -105,6 +108,51 @@ CHECKPOINT = (
     "assert e.infer(torch.zeros(32, 64)).shape == (10,)\n")
 
 
+FEED = (
+    "import numpy as np\n"
+    "from dcnn_tpu_torch import native\n"
+    "from dcnn_tpu_torch.core import TrainingConfig\n"
+    "from dcnn_tpu_torch.data import (ArrayDataLoader, DeviceAugmentBuilder,"
+    " DeviceDataset, PrefetchLoader, RegressionDataLoader,"
+    " StreamingDeviceDataset, make_shard_step, train_streaming_epoch)\n"
+    "from dcnn_tpu_torch.nn import SequentialBuilder\n"
+    "from dcnn_tpu_torch.ops.losses import get_loss\n"
+    "from dcnn_tpu_torch.optim import SGD\n"
+    "from dcnn_tpu_torch.train import Trainer, create_train_state\n"
+    "assert native.available()\n"
+    "a = np.arange(24, dtype=np.uint8).reshape(6, 4)\n"
+    "assert (native.gather_rows(a, [5, 0]) == a[[5, 0]]).all()\n"
+    "assert native.lz4_decompress(native.lz4_compress(b'ab' * 50), 100)"
+    " == b'ab' * 50\n"
+    "maps = open('/proc/self/maps').read()\n"
+    "assert 'dcnn_tpu/native/' not in maps, 'the JAX package library loaded'\n"
+    "assert str(native.lib_path()) in maps\n"
+    "rng = np.random.default_rng(0)\n"
+    "x = rng.integers(0, 256, (64, 6, 6, 1), dtype=np.uint8)\n"
+    "y = rng.integers(0, 3, 64)\n"
+    "m = (SequentialBuilder('f', data_format='NHWC').input((6, 6, 1))"
+    ".flatten().dense(3).build()).init("
+    "generator=torch.Generator().manual_seed(0), device='cpu')\n"
+    "opt = SGD(0.1)\n"
+    "tr = Trainer(m, opt, 'softmax_crossentropy', TrainingConfig("
+    "device_type='cpu', progress_interval=0, snapshot_dir=None,"
+    " steps_per_dispatch=2))\n"
+    "aug = DeviceAugmentBuilder('NHWC').horizontal_flip().rotation().build()\n"
+    "ds = DeviceDataset(x, y, 3, batch_size=8, augment=aug, device='cpu')\n"
+    "ts = tr.fit(create_train_state(m, opt), ds, ds, epochs=1)\n"
+    "ld = ArrayDataLoader(x, np.eye(3, dtype=np.float32)[y], batch_size=8)\n"
+    "with PrefetchLoader(ld, stage_batches=2, feed_workers=2,"
+    " device='cpu') as pf:\n"
+    "    ts = tr.fit(ts, pf, epochs=1)\n"
+    "sd = StreamingDeviceDataset(x, y, 3, batch_size=8, shard_batches=2)\n"
+    "step = make_shard_step(m, get_loss('softmax_crossentropy'), opt,"
+    " num_classes=3, batch_size=8, shard_batches=2)\n"
+    "ts, loss = train_streaming_epoch(step, ts, sd, 0, 0.1)\n"
+    "assert np.isfinite(loss) and ts.step == 24\n"
+    "RegressionDataLoader(x.reshape(64, -1).astype(np.float32),"
+    " y.astype(np.float32)).load_data()\n")
+
+
 def _run_isolated(body: str) -> None:
     """Run ``body`` in a fresh interpreter after ``import dcnn_tpu_torch``
     and check that no module of JAX, flax, msgpack or the JAX package was
@@ -138,3 +186,7 @@ def test_import_and_cpu_cnn_serving_and_conv_kernels_leave_jax_out():
 
 def test_checkpoint_path_leaves_jax_and_msgpack_out():
     _run_isolated(CHECKPOINT)
+
+
+def test_data_feed_and_native_helpers_leave_jax_out():
+    _run_isolated(FEED)

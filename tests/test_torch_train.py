@@ -317,12 +317,13 @@ def test_mha_classifier_trains_on_the_marker_task():
 
 UNPORTED = {
     "elastic": True, "slow_detect": True, "metrics_port": 0,
-    "flight_dir": "flight", "aot_cache_dir": "aot", "steps_per_dispatch": 4,
-    "feed_workers": 2, "debug": True,
+    "flight_dir": "flight", "aot_cache_dir": "aot", "debug": True,
 }
-# ported since: checkpoints, resume, the step guard and the watchdog
+# ported since: checkpoints, resume, the step guard and the watchdog; the
+# chunked epoch (steps_per_dispatch) and the feed workers' config field
 PORTED = {"checkpoint_dir": "ckpt", "resume": "auto",
-          "nonfinite_policy": "skip_step", "stall_timeout_s": 5.0}
+          "nonfinite_policy": "skip_step", "stall_timeout_s": 5.0,
+          "steps_per_dispatch": 4, "feed_workers": 2}
 
 
 @pytest.mark.parametrize("field", sorted(UNPORTED) + ["profiler"])
@@ -337,8 +338,9 @@ def test_unported_config_features_raise(field):
 
 @pytest.mark.parametrize("field", sorted(PORTED))
 def test_ported_config_features_construct(field, tmp_path):
-    """The fault-tolerance fields no longer raise: a Trainer builds with
-    each (a checkpoint manager where checkpoint_dir is set)."""
+    """The fault-tolerance and feed fields no longer raise: a Trainer
+    builds with each (a checkpoint manager where checkpoint_dir is set, a
+    chunked step where steps_per_dispatch is)."""
     tm = create_mha_classifier().init(device="cpu")
     value = PORTED[field]
     kw = {field: str(tmp_path / value) if field == "checkpoint_dir"
@@ -346,12 +348,13 @@ def test_ported_config_features_construct(field, tmp_path):
     tr = Trainer(tm, Adam(), LOSS, TrainingConfig(device_type="cpu", **kw))
     assert (tr.checkpoints is not None) == (field == "checkpoint_dir")
     assert (tr.guard is not None) == (field == "nonfinite_policy")
+    assert (tr.multi_step is not None) == (field == "steps_per_dispatch")
 
 
 def test_best_val_snapshot_and_resident_data_raise(tmp_path):
     """``snapshot_dir`` with a val loader writes the best-val snapshot
-    (the checkpoint format is ported); a device-resident dataset still
-    raises."""
+    (the checkpoint format is ported); a data-parallel resident dataset
+    still raises (a single-device one trains: tests/test_torch_device_feed.py)."""
     tm = create_mha_classifier().init(device="cpu")
     x, y = marker_task(8, 32, 64)
     ld = ArrayDataLoader(x, y, batch_size=4)
@@ -363,11 +366,11 @@ def test_best_val_snapshot_and_resident_data_raise(tmp_path):
     snap = tmp_path / tm.name
     assert sorted(os.listdir(snap)) == ["arrays.msgpack", "model.json"]
 
-    class DeviceDataset(ArrayDataLoader):
-        """Stands in for the JAX package's HBM-resident dataset."""
+    from dcnn_tpu_torch.data import ShardedDeviceDataset
 
-    with pytest.raises(NotImplementedError, match="device-resident"):
-        tr.train_epoch(ts, DeviceDataset(x, y, batch_size=4))
+    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+        tr.train_epoch(ts, ShardedDeviceDataset(x, y, 10, batch_size=4,
+                                                mesh=None))
 
 
 def test_trainer_refuses_a_model_on_another_device():

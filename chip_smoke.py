@@ -85,9 +85,31 @@ Phases, each fatal on failure:
    the warm samples/s, the card's busy share, launches and copies per step
    and host-to-device bytes per step, with the card's name and power
    limit. The native host helpers (``dcnn_tpu_torch/native``) build with
-   ``g++`` beside the kernels.
+   ``g++`` beside the kernels;
+12. serve int8: full-width ``resnet18_tiny_imagenet`` (NHWC, random
+   weights and BN statistics) and ``mha_classifier``, each quantized once
+   on the CPU with a 64-sample calibration batch and served on the card
+   through ``InferenceEngine.from_model(..., int8_calib=...)`` behind
+   ``DynamicBatcher`` with 80 open-loop requests (``serve/traffic.py``):
+   p50/p99, the launch counters over that path (``conv_int8`` 21 a batch,
+   the flash forward 2 a batch on the attention classifier), the engine's
+   quantized params equal to the one quantization, logits bit-identical
+   at every batch 1..32 and near the CPU int8 engine; ``conv_int8.cu``
+   bit for bit against its plain version at the 21 conv sites at B=32 and
+   B=256 (hooked inputs) and at ragged shapes in both layouts, timed with
+   its bound and fp32/bf16 ``F.conv2d`` of the same shapes as context; the
+   int8 engine's B=32 and B=256 batch beside the folded fp32 and bf16
+   engines';
+13. decode: full-width ``mha_decoder`` through ``DecodeEngine(max_slots=8,
+   page_size=8, max_pages_per_seq=8)`` and a threaded
+   ``ContinuousBatcher``: 32 staggered sequences whose tokens must equal
+   ``decode_reference`` on the card and on the CPU (a divergence prints
+   the logit margin), a page-starved engine that must preempt and still
+   match; tokens/s, TTFT p50/p99, slot occupancy, the pool's pages and
+   bytes and each lattice point's step time.
 
-Then it prints ``{"kernels": [...]}`` on a line of its own and, last,
+Then it prints ``{"kernels": [...]}`` (rows 1-8, row 8 ``conv_int8``) on
+a line of its own and, last,
 ``{"ok": true, "device": {...}}``. Times come from CUDA events around CUDA
 graph replays of many calls, so host overhead is not in them.
 """
@@ -107,7 +129,8 @@ SEED = 0
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12,     # fp32 outside the tensor cores (TF32 off)
               "bfloat16": 989e12,   # bf16 tensor cores, dense
-              "tfloat32": 495e12}   # TF32 tensor cores, dense
+              "tfloat32": 495e12,   # TF32 tensor cores, dense
+              "int8": 1979e12}      # int8 tensor cores, dense (ops/s)
 TOL = {"float32": 1e-4,  # same math, another summation order
        "bfloat16": 2e-2}  # output rounded to bf16 (8 significant bits)
 # backward kernels: max |kernel - plain| over max |plain| per gradient.
@@ -2364,6 +2387,508 @@ def phase_train_feed(card):
     return {"launches": counts, "feeds": feeds}
 
 
+# serve int8 phase: full-width resnet18_tiny_imagenet (NHWC) and
+# mha_classifier quantized once on the CPU, served on the card
+INT8_CALIB = 64           # calibration images
+INT8_CONVS = 21           # resnet18_tiny_imagenet's convs, one launch each
+INT8_REQUESTS = 80        # open-loop single requests per int8 model
+INT8_RPS = 400.0          # offered rate: 80 requests over 0.2 s
+# card against CPU int8 logits, over the CPU's max |logit|: both run the
+# same int8 sums exactly; the float glue between them (the avg pool's sum)
+# may round differently, and a one-ulp change there can move an activation
+# across a rounding boundary of the next quantization
+INT8_CPU_RTOL = 1e-3
+# (N, Cin, H, W, Cout, k, stride, pad): K tails (Cin 3, 17, 40), ragged M
+# and N edges, strided, odd sizes
+INT8_RAGGED = [(3, 3, 13, 11, 70, 3, 1, 1), (2, 17, 9, 9, 33, 3, 2, 1),
+               (5, 40, 7, 5, 9, 1, 2, 0), (1, 16, 28, 28, 8, 5, 1, 0),
+               (2, 64, 12, 12, 130, 7, 2, 3), (4, 96, 6, 6, 64, 1, 1, 0)]
+
+
+def int8_bound(n, cin, h, w, cout, k, stride, pad):
+    """Least time for one int8 conv: x (int8), the weights (int8) read
+    once and the int32 output written once over HBM bandwidth, against
+    2 M Cout K operations over the int8 tensor-core peak."""
+    p = (h + 2 * pad - k) // stride + 1
+    q = (w + 2 * pad - k) // stride + 1
+    m, kk = n * p * q, cin * k * k
+    nbytes = n * h * w * cin + cout * kk + 4 * m * cout
+    ops = 2 * m * cout * kk
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["int8"]
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
+
+
+def int8_case(label, x_q, w_q, stride, pad, layout, reps, context=True):
+    """Hold ``conv_int8.cu`` against its plain version (float64 conv cast
+    to int32, on the card) bit for bit, and time the kernel, the plain
+    version and, as context (another function), fp32 and bf16
+    ``F.conv2d`` of the same shape in the same layout. No PyTorch call
+    computes the int8 conv: library_ms is None."""
+    import torch
+    import torch.nn.functional as F
+
+    from dcnn_tpu_torch.ops.conv import conv2d_int8, conv2d_int8_reference
+
+    def kern():
+        return conv2d_int8(x_q, w_q, stride=stride, padding=pad,
+                           data_format=layout)
+
+    def plain():
+        return conv2d_int8_reference(x_q, w_q, stride=stride, padding=pad,
+                                     data_format=layout)
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    bad = int((got != want).sum())
+    if got.dtype != torch.int32 or got.shape != want.shape or bad:
+        fail(f"conv_int8 [{label}]: {bad} of {want.numel()} int32 outputs "
+             f"differ from the plain version ({got.dtype} {tuple(got.shape)}"
+             f" vs {tuple(want.shape)})")
+    xl = x_q if layout == "NCHW" else x_q.permute(0, 3, 1, 2)
+    n, cin, h, w = xl.shape
+    cout, _, k, _ = w_q.shape
+    k_reps, p_reps = reps
+    ms, plain_ms = device_ms(kern, k_reps), device_ms(plain, p_reps)
+    ctx = {}
+    if context:
+        for dt in (torch.float32, torch.bfloat16):
+            mf = torch.channels_last if layout == "NHWC" else None
+            xf = xl.to(dt)
+            wf = (w_q.to(dt).contiguous(memory_format=mf) if mf
+                  else w_q.to(dt))
+            ctx[str(dt).replace("torch.", "")] = device_ms(
+                lambda: F.conv2d(xf, wf, stride=stride, padding=pad), k_reps)
+    bound_ms, bound_by, nbytes, ops = int8_bound(n, cin, h, w, cout, k,
+                                                 stride, pad)
+    print(f"conv_int8 [{label}] N{n} Cin{cin} {h}x{w} -> Cout{cout} k{k} "
+          f"s{stride} p{pad} {layout}: bit-equal; kernel_ms={ms:.6f} "
+          f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.3e} ({bound_by}), "
+          f"kernel at {100 * bound_ms / ms:.1f}% of bound; F.conv2d (a "
+          f"float conv, context) ms {ctx}", flush=True)
+    return {"case": label, "N": n, "Cin": cin, "H": h, "W": w, "Cout": cout,
+            "k": k, "stride": stride, "pad": pad, "layout": layout,
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "library_ms": None, "conv2d_ms_other_function": ctx,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": ops}
+
+
+def int8_sites(qmodel, x, label, reps):
+    """The int8 model's conv inputs at batch ``x`` (hooked), each site
+    held and timed by int8_case."""
+    import torch
+
+    from dcnn_tpu_torch.nn import QuantConv2DLayer
+    from dcnn_tpu_torch.ops import quant
+
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, args[0])))
+        for m in qmodel.modules() if isinstance(m, QuantConv2DLayer)]
+    with torch.inference_mode():
+        qmodel(x)
+    for h in hooks:
+        h.remove()
+    if len(seen) != INT8_CONVS:
+        fail(f"serve int8: {len(seen)} conv sites in the int8 model, not "
+             f"{INT8_CONVS}")
+    cases = []
+    for i, (mod, xin) in enumerate(seen):
+        x_q = quant.quantize_symmetric(xin, mod.x_scale)
+        (s, _), (p, _) = mod.stride, mod.padding  # square in the zoo
+        cases.append(int8_case(f"{label} site {i} {mod.name}", x_q, mod.w_q,
+                               s, p, mod.data_format, reps))
+    del seen
+    return cases
+
+
+def serve_open_loop(engine, pool, what):
+    """INT8_REQUESTS single requests from ``pool`` offered open loop
+    (serve/traffic.py) through a DynamicBatcher; returns ({index: logits},
+    metrics snapshot, batcher warm-up buckets)."""
+    from dcnn_tpu_torch.serve import DynamicBatcher
+    from dcnn_tpu_torch.serve.traffic import open_loop
+
+    batcher = DynamicBatcher(engine, max_wait_ms=2.0, queue_capacity=256)
+    warm = len(batcher.warmup_s)
+    futs = open_loop(batcher, list(pool), INT8_RPS,
+                     INT8_REQUESTS / INT8_RPS)
+    batcher.drain(timeout=300)
+    snap = batcher.metrics.snapshot()
+    if len(futs) != INT8_REQUESTS or snap["requests_shed"]:
+        fail(f"serve int8 {what}: {len(futs)} requests accepted, "
+             f"{snap['requests_shed']} shed, of {INT8_REQUESTS} offered")
+    return ({i: f.result(timeout=0) for i, f in futs}, snap, warm)
+
+
+def check_buckets(engine, pool, what):
+    """Logits of every n in 1..max_batch equal the full batch's rows bit
+    for bit; returns the full batch's logits (host)."""
+    import torch
+
+    ref = engine.infer(pool[:engine.max_batch]).cpu()
+    for n in range(1, engine.max_batch + 1):
+        got = engine.infer(pool[:n]).cpu()
+        if not torch.equal(got, ref[:n]):
+            fail(f"serve int8 {what}: a batch of {n} (bucket "
+                 f"{engine.bucket_for(n)}) differs from the same rows at "
+                 f"bucket {engine.max_batch} by "
+                 f"{float((got - ref[:n]).abs().max()):.3e}")
+    return ref
+
+
+def phase_serve_int8(card):
+    """int8 PTQ serving on the card: full-width resnet18_tiny_imagenet
+    (NHWC, random weights and BN statistics from a seed, carried by
+    interop) and mha_classifier, each quantized once on the CPU with a
+    64-sample calibration batch and served through
+    InferenceEngine.from_model(..., int8_calib=...) behind DynamicBatcher
+    (open-loop traffic); the launch counters over that path; logits
+    bit-identical at every bucket 1..32 and near the CPU int8 engine;
+    conv_int8.cu held bit for bit against its plain version at the 21
+    conv sites at B=32 and B=256 and at ragged shapes in both layouts;
+    the int8 engine's batch time beside the folded fp32 and bf16
+    engines'."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.core import set_precision
+    from dcnn_tpu_torch.interop import to_jax
+    from dcnn_tpu_torch.nn import quantize_model
+    from dcnn_tpu_torch.serve import InferenceEngine
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 10)
+    cfg, params, state, float_cpu = resnet18("cpu", rng)
+    calib = rng.normal(size=(INT8_CALIB, *cfg["input_shape"])).astype(
+        np.float32)
+    pool = rng.normal(size=(INT8_REQUESTS, *cfg["input_shape"])).astype(
+        np.float32)
+    t0 = time.perf_counter()
+    qmodel = quantize_model(float_cpu, calib)  # once, on the CPU
+    quant_s = time.perf_counter() - t0
+    cpu_engine = InferenceEngine.from_model(copy.deepcopy(qmodel), fold=False,
+                                            max_batch=32, device="cpu")
+
+    reset_launches()  # the int8 serving path starts here
+    engine = InferenceEngine.from_model(float_cpu, int8_calib=calib,
+                                        max_batch=32, device="cuda")
+    answers, snap, warm = serve_open_loop(engine, pool, "resnet18")
+    counts = launches()  # and ends here
+    dispatched = len(engine.bucket_sizes) + warm + snap["batches"]
+    if counts["conv_int8"] != INT8_CONVS * dispatched:
+        fail(f"serve int8: conv_int8 launched {counts['conv_int8']} times "
+             f"for {dispatched} batches ({INT8_CONVS} convs each)")
+    if not engine.batch_invariant:
+        fail("serve int8: the int8 engine is not batch_invariant")
+    mine, once = _leaves(to_jax(engine._apply)), _leaves(to_jax(qmodel))
+    if len(mine) != len(once) or any(
+            a.dtype != b.dtype or not np.array_equal(a, b)
+            for a, b in zip(mine, once)):
+        fail("serve int8: the engine's quantized params differ from the "
+             "one quantization on the CPU")
+    ref = check_buckets(engine, pool, "resnet18")
+    cpu_ref = cpu_engine.infer(pool[:32])
+    scale = float(cpu_ref.abs().max())
+    err = float((ref - cpu_ref).abs().max())
+    rows_equal = int((ref == cpu_ref).all(dim=1).sum())
+    own = engine.infer(pool).cpu().numpy()
+    served_err = max(float(np.abs(y - own[i]).max())
+                     for i, y in answers.items())
+    if err > INT8_CPU_RTOL * scale or served_err != 0.0:
+        fail(f"serve int8: card logits differ from the CPU int8 engine by "
+             f"{err:.3e} ({err / scale:.3e} of the logit scale {scale:.3e}, "
+             f"tol {INT8_CPU_RTOL:g}) or served answers from the engine's "
+             f"own by {served_err:.3e}")
+    print(f"serve int8: resnet18_tiny_imagenet NHWC quantized once on the "
+          f"CPU ({INT8_CALIB} calibration images, {quant_s:.2f} s); "
+          f"{len(answers)} open-loop requests at {INT8_RPS:g}/s through "
+          f"DynamicBatcher: {snap['batches']} batches, occupancy "
+          f"{snap['batch_occupancy']}, p50 {snap['p50_ms']} ms, p99 "
+          f"{snap['p99_ms']} ms, throughput {snap['throughput_rps']} "
+          f"samples/s; conv_int8 launches {counts['conv_int8']} = "
+          f"{INT8_CONVS} x {dispatched} batches ({len(engine.bucket_sizes)}"
+          f" engine warm-up, {warm} dispatcher warm-up, {snap['batches']} "
+          f"served); logits bit-identical at every batch 1..32; vs the CPU "
+          f"int8 engine max |err| {err:.3e} ({err / scale:.3e} of "
+          f"{scale:.3e}), {rows_equal}/32 rows bit-equal; on {card}",
+          flush=True)
+
+    # the kernel against its plain version at every site and ragged shapes
+    qcard = copy.deepcopy(qmodel).to("cuda")
+    x32 = torch.from_numpy(pool[:32]).cuda()
+    x256 = torch.from_numpy(rng.normal(size=(256, *cfg["input_shape"]))
+                            .astype(np.float32)).cuda()
+    sites32 = int8_sites(qcard, x32, "B32", (20, 3))
+    sites256 = int8_sites(qcard, x256, "B256", (5, 2))
+    ragged = []
+    for i, (n, cin, h, w, cout, k, s, p) in enumerate(INT8_RAGGED):
+        g = np.random.default_rng(SEED + 20 + i)
+        xq = torch.from_numpy(g.integers(-127, 128, (n, cin, h, w),
+                                         dtype=np.int8)).cuda()
+        wq = torch.from_numpy(g.integers(-127, 128, (cout, cin, k, k),
+                                         dtype=np.int8)).cuda()
+        for layout in ("NCHW", "NHWC"):
+            xl = (xq if layout == "NCHW"
+                  else xq.permute(0, 2, 3, 1).contiguous())
+            ragged.append(int8_case(f"ragged {i}", xl, wq, s, p, layout,
+                                    (20, 5), context=False))
+
+    # the int8 engine's batch time beside the folded fp32 and bf16 engines'
+    timing = {}
+    engines = {"int8": InferenceEngine.from_model(
+        copy.deepcopy(qmodel), fold=False, max_batch=256, device="cuda",
+        warmup=False)}
+    engines["fp32"] = InferenceEngine.from_model(
+        float_cpu, fold=True, max_batch=256, device="cuda", warmup=False)
+    engines["bf16"] = engines["fp32"]
+    for name, eng in engines.items():
+        set_precision("bf16" if name == "bf16" else "parity")
+        try:
+            for b, x in ((32, x32), (256, x256)):
+                timing[f"{name} B{b}"] = eager_ms(
+                    lambda: eng.run_padded(x), 10 if b == 32 else 5)
+        finally:
+            set_precision("parity")
+    for b in (32, 256):
+        timing[f"int8 B{b} samples/s"] = b / timing[f"int8 B{b}"] * 1e3
+    print(f"serve int8: batch wall ms (eager run_padded, host-issued, "
+          f"synchronised; the folded fp32 engine in parity mode, TF32 off, "
+          f"and in bf16 mode) {json.dumps(timing)}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+
+    mha = phase_serve_int8_mha(card)
+    return {"launches": counts, "requests": len(answers), **snap,
+            "max_abs_err_vs_cpu": err, "logit_scale": scale,
+            "rows_bit_equal_vs_cpu": rows_equal, "sites_b32": sites32,
+            "sites_b256": sites256, "ragged": ragged, "timing_ms": timing,
+            "mha": mha}
+
+
+def phase_serve_int8_mha(card):
+    """int8 mha_classifier (full width, S=32, E=64, 4 heads) quantized
+    once on the CPU and served on the card: its float core runs the flash
+    forward kernel, two launches a batch (one per attention layer)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.interop import from_jax
+    from dcnn_tpu_torch.nn import quantize_model
+    from dcnn_tpu_torch.serve import InferenceEngine
+
+    cfg, params, rng = model_params()
+    float_cpu = from_jax(cfg, params, device="cpu")
+    calib = rng.normal(size=(INT8_CALIB, *cfg["input_shape"])).astype(
+        np.float32)
+    pool = rng.normal(size=(INT8_REQUESTS, *cfg["input_shape"])).astype(
+        np.float32)
+    qmodel = quantize_model(float_cpu, calib)
+    cpu_engine = InferenceEngine.from_model(qmodel, fold=False, max_batch=32,
+                                            device="cpu")
+    reset_launches()  # the int8 attention serving path starts here
+    engine = InferenceEngine.from_model(float_cpu, int8_calib=calib,
+                                        max_batch=32, device="cuda")
+    answers, snap, warm = serve_open_loop(engine, pool, "mha_classifier")
+    counts = launches()  # and ends here
+    dispatched = len(engine.bucket_sizes) + warm + snap["batches"]
+    if counts["flash_fwd"] != 2 * dispatched or counts["conv_int8"]:
+        fail(f"serve int8 mha_classifier: flash_fwd launched "
+             f"{counts['flash_fwd']} times for {dispatched} batches (2 "
+             f"attention layers each); launches {counts}")
+    ref = check_buckets(engine, pool, "mha_classifier")
+    cpu_ref = cpu_engine.infer(pool[:32])
+    scale = float(cpu_ref.abs().max())
+    err = float((ref - cpu_ref).abs().max())
+    own = engine.infer(pool).cpu().numpy()
+    served_err = max(float(np.abs(y - own[i]).max())
+                     for i, y in answers.items())
+    if err > INT8_CPU_RTOL * scale or served_err != 0.0:
+        fail(f"serve int8 mha_classifier: card logits differ from the CPU "
+             f"int8 engine by {err:.3e} ({err / scale:.3e} of {scale:.3e}, "
+             f"tol {INT8_CPU_RTOL:g}) or served answers from the engine's "
+             f"own by {served_err:.3e}")
+    x32 = torch.from_numpy(pool[:32]).cuda()
+    ms32 = eager_ms(lambda: engine.run_padded(x32), 20)
+    fp32 = InferenceEngine.from_model(copy.deepcopy(float_cpu), max_batch=32,
+                                      device="cuda", warmup=False)
+    fp32_ms32 = eager_ms(lambda: fp32.run_padded(x32), 20)
+    print(f"serve int8: mha_classifier quantized once on the CPU; "
+          f"{len(answers)} open-loop requests: {snap['batches']} batches, "
+          f"p50 {snap['p50_ms']} ms, p99 {snap['p99_ms']} ms; flash_fwd "
+          f"launches {counts['flash_fwd']} = 2 x {dispatched} batches; "
+          f"logits bit-identical at every batch 1..32; vs the CPU int8 "
+          f"engine max |err| {err:.3e} ({err / scale:.3e} of {scale:.3e}); "
+          f"B=32 batch wall {ms32:.3f} ms int8, {fp32_ms32:.3f} ms fp32; "
+          f"on {card}", flush=True)
+    return {"launches": counts, "requests": len(answers), **snap,
+            "max_abs_err_vs_cpu": err, "b32_ms": ms32,
+            "fp32_b32_ms": fp32_ms32}
+
+
+# decode phase: full-width mha_decoder (V=64, E=64, 4 heads, 2 layers,
+# max_seq_len 64) behind ContinuousBatcher on the card
+DECODE_SEQS = 32
+DECODE_SLOTS, DECODE_PAGE, DECODE_PAGES = 8, 8, 8
+DECODE_STARVED_PAGES = 20      # 19 usable pages for up to 64 demanded
+DECODE_STAGGER_S = 0.002       # between two submissions
+
+
+def decoder_params(cfg, rng):
+    """The JAX decoder's params dict as numpy, Kaiming-uniform as its
+    ``init`` draws them (bound 1/sqrt(E)), from ``rng``; the head bias
+    drawn too, so that it is not all zero."""
+    import numpy as np
+
+    e, v = cfg["embed_dim"], cfg["vocab_size"]
+
+    def u(*shape):
+        return rng.uniform(-e ** -0.5, e ** -0.5, size=shape).astype(
+            np.float32)
+
+    blocks = [{**{n: u(e, e) for n in ("wq", "wk", "wv", "wo")},
+               **{n: u(e) for n in ("bq", "bk", "bv", "bo")}}
+              for _ in range(cfg["num_layers"])]
+    return {"embed": u(v, e), "head_w": u(e, v), "head_b": u(v),
+            "blocks": blocks}
+
+
+def decode_traffic(rng, max_context):
+    """DECODE_SEQS (prompt, max_new_tokens): prompts of 1-24 tokens,
+    8-40 new tokens, prompt + new within the context."""
+    out = []
+    for _ in range(DECODE_SEQS):
+        plen = int(rng.integers(1, 25))
+        new = int(min(rng.integers(8, 41), max_context - plen))
+        out.append((rng.integers(0, 64, plen).tolist(), new))
+    return out
+
+
+def first_divergence(model, prompt, got, want):
+    """Where two greedy continuations first differ, and the logit margin
+    between the two tokens there under the CPU model's full forward."""
+    import torch
+
+    n = min(len(got), len(want))
+    i = next((j for j in range(n) if got[j] != want[j]), n)
+    if i == len(want):
+        return i, float("nan")
+    with torch.no_grad():
+        logits = model(torch.tensor([list(prompt) + list(want[:i])]))[0, -1]
+    return i, float(logits[int(want[i])] - logits[int(got[i])])
+
+
+def phase_decode(card):
+    """Continuous-batching greedy decode of mha_decoder on the card:
+    DecodeEngine(max_slots=8, page_size=8, max_pages_per_seq=8) behind a
+    threaded ContinuousBatcher answering 32 staggered sequences; every
+    sequence's tokens held to decode_reference on the card and on the
+    CPU; a page-starved engine that must preempt and still match; tokens/s,
+    TTFT, slot occupancy, each lattice point's step time and the pool."""
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.interop import decoder_from_jax
+    from dcnn_tpu_torch.models import create_model
+    from dcnn_tpu_torch.serve import (
+        ContinuousBatcher, DecodeEngine, DecodeMetrics, decode_reference,
+    )
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 11)
+    cfg = create_model("mha_decoder").get_config()
+    params = decoder_params(cfg, rng)
+    cpu_model = decoder_from_jax(cfg, params, device="cpu")
+    geometry = dict(max_slots=DECODE_SLOTS, page_size=DECODE_PAGE,
+                    max_pages_per_seq=DECODE_PAGES)
+    cpu_engine = DecodeEngine(cpu_model, warmup=False, **geometry)
+    traffic = decode_traffic(rng, cpu_engine.max_context)
+    cpu_ref = [decode_reference(cpu_engine, p, max_new_tokens=n)
+               for p, n in traffic]
+
+    model = decoder_from_jax(cfg, params, device="cuda")
+    t0 = time.perf_counter()
+    engine = DecodeEngine(model, **geometry)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card_ref = [decode_reference(engine, p, max_new_tokens=n)
+                for p, n in traffic]
+    ref_s = time.perf_counter() - t0
+
+    def check(what, outs):
+        for i, ((p, _), got) in enumerate(zip(traffic, outs)):
+            for name, want in (("the card's", card_ref[i]),
+                               ("the CPU's", cpu_ref[i])):
+                if not np.array_equal(got, want):
+                    at, margin = first_divergence(cpu_model, p, got, want)
+                    fail(f"decode: {what} sequence {i} (prompt {p}) differs "
+                         f"from {name} decode_reference at token {at}: "
+                         f"{got.tolist()} vs {want.tolist()}; logit margin "
+                         f"there {margin:.3e}")
+
+    check("card decode_reference", card_ref)
+    metrics = DecodeMetrics()
+    batcher = ContinuousBatcher(engine, queue_capacity=64, metrics=metrics)
+    t0 = time.perf_counter()
+    futs = []
+    for p, n in traffic:
+        futs.append(batcher.submit(p, max_new_tokens=n))
+        time.sleep(DECODE_STAGGER_S)
+    batcher.drain(timeout=300)
+    wall = time.perf_counter() - t0
+    snap = metrics.snapshot()
+    check("continuous", [f.result(timeout=0) for f in futs])
+    if snap["completions"] != DECODE_SEQS:
+        fail(f"decode: {snap['completions']} of {DECODE_SEQS} completed")
+
+    starved = DecodeEngine(model, num_pages=DECODE_STARVED_PAGES,
+                           warmup=False, **geometry)
+    smetrics = DecodeMetrics()
+    sb = ContinuousBatcher(starved, start=False, queue_capacity=64,
+                           metrics=smetrics)
+    sfuts = [sb.submit(p, max_new_tokens=n) for p, n in traffic]
+    sb.drain()
+    ssnap = smetrics.snapshot()
+    check("starved", [f.result(timeout=0) for f in sfuts])
+    if ssnap["evictions"] < 1:
+        fail(f"decode: the starved pool ({DECODE_STARVED_PAGES} pages) "
+             f"never preempted")
+
+    # each lattice point's step as the batcher issues it (host arrays in,
+    # next tokens read back), on private pools
+    step_ms = {}
+    pk, pv = torch.zeros_like(engine.pool.k), torch.zeros_like(engine.pool.v)
+    for b, mp in sorted(engine.compile_stats):
+        toks = np.zeros(b, np.int32)
+        pos = np.arange(b, dtype=np.int32) % (mp * DECODE_PAGE)
+        table = np.tile(np.arange(1, mp + 1, dtype=np.int32), (b, 1))
+        step_ms[f"{b}x{mp}"] = eager_ms(
+            lambda: engine.run_step(toks, pos, table, pk, pv)[0].cpu(), 20)
+    pool = engine.pool.snapshot()
+    print(f"decode: mha_decoder (V=64, E=64, 4 heads, 2 layers) "
+          f"{DECODE_SEQS} sequences (prompts 1-24, 8-40 new tokens) "
+          f"submitted {DECODE_STAGGER_S * 1e3:g} ms apart: tokens equal "
+          f"decode_reference on the card and on the CPU; {snap['tokens']} "
+          f"tokens + {snap['prefill_tokens']} prefill in {snap['steps']} "
+          f"steps, wall {wall:.3f} s, {snap['tokens'] / wall:.1f} tokens/s "
+          f"(metrics {snap['tokens_per_sec']}), TTFT p50 "
+          f"{snap['ttft_p50_ms']} ms p99 {snap['ttft_p99_ms']} ms, mean slot "
+          f"occupancy {snap['slot_occupancy']}; starved pool "
+          f"({DECODE_STARVED_PAGES} pages): {ssnap['evictions']} evictions, "
+          f"tokens equal; pool {pool['num_pages']} pages x "
+          f"{pool['page_bytes']} B = {pool['pool_bytes']} B; engine built "
+          f"and {len(engine.compile_stats)} lattice points warmed in "
+          f"{build_s:.3f} s; card references {ref_s:.2f} s; step ms (eager, "
+          f"host to host) by batch x pages {json.dumps(step_ms)}; phase wall "
+          f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return {**snap, "wall_s": wall, "starved_evictions": ssnap["evictions"],
+            "step_ms": step_ms, "pool": pool}
+
+
 def bias_before_bn(model):
     """Names (as ``named_parameters`` gives them) of the conv biases that
     feed a batchnorm directly: their gradient is zero in exact arithmetic,
@@ -2382,6 +2907,29 @@ def bias_before_bn(model):
 
     walk(model.layers, "layers.")
     return names
+
+
+def int8_row(serve_int8):
+    """Row 8, conv_int8.cu: launches on the int8 serving path, times summed
+    over the 21 conv sites of resnet18_tiny_imagenet at B=32 (and, under
+    "b256", at B=256), each site timed on its own; no library call
+    computes the int8 conv."""
+    def total(sites):
+        out = {k: sum(c[k] for c in sites)
+               for k in ("ms", "plain_ms", "bound_ms")}
+        out["bound_by"] = max(sites, key=lambda c: c["bound_ms"])["bound_by"]
+        return out
+
+    cases = (serve_int8["sites_b32"] + serve_int8["sites_b256"]
+             + serve_int8["ragged"])
+    n = serve_int8["launches"]["conv_int8"]
+    return {"name": "conv_int8", "route": "cuda",
+            "source": "dcnn_tpu_torch/ops/csrc/conv_int8.cu",
+            "replaces": "dcnn_tpu/ops/conv.py:77", "launches": n,
+            "launches_by_path": {"serve_int8": n},
+            "max_abs_err": max(c["max_abs_err"] for c in cases),
+            **total(serve_int8["sites_b32"]), "library_ms": None,
+            "b256": total(serve_int8["sites_b256"]), "cases": cases}
 
 
 def _leaves(tree):
@@ -2431,6 +2979,8 @@ def main() -> None:
     phase_train_cnn(card)
     phase_checkpoint(card)
     feed = phase_train_feed(card)
+    serve_int8 = phase_serve_int8(card)
+    phase_decode(card)
 
     def row(name, source, replaces, cases, by_path):
         model_case = cases[0]  # the model's shape: B=32, H=4, S=32, D=16
@@ -2480,7 +3030,8 @@ def main() -> None:
         row("flash_fwd", "dcnn_tpu_torch/ops/csrc/flash_fwd.cu",
             "dcnn_tpu/ops/attention.py:297", fwd_cases,
             {"serve": serve["launches"], "train": tl["flash_fwd"],
-             "train_feed": fl["flash_fwd"]}),
+             "train_feed": fl["flash_fwd"],
+             "serve_int8": serve_int8["mha"]["launches"]["flash_fwd"]}),
         row("flash_bwd_dq", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:460", bwd_cases["dq"],
             {"serve": 0, "train": tl["flash_bwd_dq"],
@@ -2496,6 +3047,7 @@ def main() -> None:
                  "dcnn_tpu/ops/pallas/conv.py:209"),
         site_row("fused_scale_bias_relu", "dcnn_tpu_torch/ops/csrc/fused.cu",
                  "dcnn_tpu/ops/pallas/fused.py:49"),
+        int8_row(serve_int8),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

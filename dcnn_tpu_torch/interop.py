@@ -18,6 +18,11 @@ This module is where the two packages' weight layouts meet:
   ``F.linear``, so these are transposed. Biases carry over as they are.
 - ``dense``: both store ``w`` as (out, in); ``conv2d``: both store ``w``
   as OIHW; no transpose.
+- the int8 twins (``quant_conv2d``, ``quant_dense``,
+  ``quant_multi_head_attention``): int8 ``w_q`` (OIHW, or (out, in), the
+  attention projections' ``wq_q`` ... ``wo_q`` too), fp32 per-channel and
+  scalar scales, fp32 biases; the same layout in both packages, no
+  transpose.
 - ``batchnorm`` / ``groupnorm``: ``gamma`` and ``beta``, only when
   ``affine``; batchnorm's state ``running_mean`` and ``running_var`` are the
   port's buffers of the same names.
@@ -25,6 +30,11 @@ This module is where the two packages' weight layouts meet:
   (...)}``, one entry per nested layer.
 - ``flatten``, ``activation``, ``maxpool2d``, ``avgpool2d``, ``dropout``,
   ``log_softmax``: no params and no state (``{}``).
+
+:func:`decoder_from_jax` and :func:`decoder_to_jax` do the same for
+``mha_decoder`` (an ``MHADecoder``, not a ``Sequential``): ``embed``,
+``head_w`` and ``head_b`` carry over as they are, each of ``blocks`` by the
+attention layer's rule.
 """
 
 from __future__ import annotations
@@ -35,10 +45,12 @@ import numpy as np
 import torch
 
 from .core.device import DeviceLike, resolve_device
+from .models.decoder import MHADecoder
 from .nn.sequential import Sequential
 
 _MHA_WEIGHTS = ("wq", "wk", "wv", "wo")
-_AS_IS = ("dense", "conv2d", "batchnorm", "groupnorm")
+_AS_IS = ("dense", "conv2d", "batchnorm", "groupnorm", "quant_conv2d",
+          "quant_dense", "quant_multi_head_attention")
 _EMPTY = ("flatten", "activation", "maxpool2d", "avgpool2d", "dropout",
           "log_softmax")
 
@@ -181,3 +193,38 @@ def opt_state_from_jax(model: Sequential, jax_state: Mapping[str, Any]
     dev = next(model.parameters()).device
     return {k: (int(np.asarray(v)) if k == "t" else _flat(model, v, dev))
             for k, v in jax_state.items()}
+
+
+_DECODER_OWN = ("embed", "head_w", "head_b")
+
+
+def decoder_from_jax(config: Dict[str, Any], params_np: Mapping[str, Any], *,
+                     device: DeviceLike = None) -> MHADecoder:
+    """The port's :class:`~dcnn_tpu_torch.models.decoder.MHADecoder` from
+    the JAX decoder's ``get_config()`` and its params dict (``embed``,
+    ``head_w``, ``head_b``, ``blocks``) as numpy arrays, on ``device``
+    (CUDA unless ``"cpu"``), every array checked for name and shape."""
+    model = MHADecoder.from_config(config).init(
+        generator=torch.Generator().manual_seed(0), device=device)
+    blocks = params_np["blocks"]
+    if len(blocks) != model.num_layers:
+        raise ValueError(f"{model.num_layers} blocks but {len(blocks)} param "
+                         f"entries")
+    flat = {n: np.asarray(params_np[n]) for n in _DECODER_OWN}
+    for i, bp in enumerate(blocks):
+        _layer_state({"type": "multi_head_attention"}, bp, f"blocks.{i}.",
+                     flat)
+    model.load_state_dict({k: torch.tensor(a) for k, a in flat.items()},
+                          strict=True)
+    return model
+
+
+def decoder_to_jax(model: MHADecoder) -> Dict[str, Any]:
+    """The inverse of :func:`decoder_from_jax`: the JAX decoder's params
+    dict of numpy arrays."""
+    flat = {n: p.detach().cpu().numpy() for n, p in model.named_parameters()}
+    out: Dict[str, Any] = {n: flat[n] for n in _DECODER_OWN}
+    out["blocks"] = [_layer_tree({"type": "multi_head_attention"},
+                                 f"blocks.{i}.", flat)
+                     for i in range(model.num_layers)]
+    return out

@@ -2,21 +2,23 @@
 
 Every CNN of the JAX zoo, its builder calls copied (layer names, widths,
 strides, bias flags and BN epsilons as there, the reference's quirks
-included), and ``mha_classifier``. ``mha_decoder`` raises
-``NotImplementedError`` until decode serving is ported (ROADMAP.md). Every
-builder takes ``data_format``. Models come back without parameters: call
-``model.init(generator=..., device=...)`` or carry JAX weights over with
-:func:`dcnn_tpu_torch.interop.from_jax`.
+included), ``mha_classifier`` and ``mha_decoder`` (an
+:class:`~dcnn_tpu_torch.models.decoder.MHADecoder`, not a ``Sequential``).
+Every builder takes ``data_format``. Models come back without parameters:
+call ``model.init(generator=..., device=...)`` or carry JAX weights over
+with :func:`dcnn_tpu_torch.interop.from_jax` (``decoder_from_jax`` for the
+decoder).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Union
 
 from ..nn.attention_layer import MultiHeadAttentionLayer
 from ..nn.builder import SequentialBuilder
 from ..nn.residual import ResidualBlock
 from ..nn.sequential import Sequential
+from .decoder import MHADecoder, create_mha_decoder
 
 
 def create_mnist_trainer(data_format: str = "NCHW") -> Sequential:
@@ -338,7 +340,7 @@ def create_mha_classifier(data_format: str = "NCHW") -> Sequential:
             .build())
 
 
-MODEL_ZOO: Dict[str, Callable[..., Sequential]] = {
+MODEL_ZOO: Dict[str, Callable[..., Union[Sequential, MHADecoder]]] = {
     "mnist_cnn": create_mnist_trainer,
     "cifar10_cnn_v1": create_cifar10_trainer_v1,
     "cifar10_cnn_v2": create_cifar10_trainer_v2,
@@ -354,18 +356,13 @@ MODEL_ZOO: Dict[str, Callable[..., Sequential]] = {
     "resnet50_tiny_imagenet": create_resnet50_tiny_imagenet,
     "resnet50_imagenet": create_resnet50_imagenet,
     "mha_classifier": create_mha_classifier,
+    "mha_decoder": create_mha_decoder,
 }
 
-# names of the JAX zoo whose modules the port does not have yet
-NOT_PORTED = ("mha_decoder",)
 
-
-def create_model(name: str, data_format: str = "NCHW") -> Sequential:
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to dcnn_tpu_torch yet; see the "
-            f"port's queue in ROADMAP.md")
+def create_model(name: str, data_format: str = "NCHW"
+                 ) -> Union[Sequential, MHADecoder]:
     if name not in MODEL_ZOO:
         raise ValueError(f"unknown model {name!r}; known: "
-                         f"{sorted(MODEL_ZOO) + sorted(NOT_PORTED)}")
+                         f"{sorted(MODEL_ZOO)}")
     return MODEL_ZOO[name](data_format)

@@ -7,6 +7,10 @@ from .layers import (
     ActivationLayer, AvgPool2DLayer, BatchNormLayer, Conv2DLayer, DenseLayer,
     DropoutLayer, FlattenLayer, GroupNormLayer, LogSoftmaxLayer, MaxPool2DLayer,
 )
+from .quantize import (
+    QuantConv2DLayer, QuantDenseLayer, QuantMultiHeadAttentionLayer,
+    is_int8, quantize_model,
+)
 from .residual import ResidualBlock
 from .sequential import Sequential
 
@@ -16,4 +20,6 @@ __all__ = ["MultiHeadAttentionLayer", "SequentialBuilder", "layer_from_config",
            "BatchNormLayer", "Conv2DLayer", "DenseLayer", "DropoutLayer",
            "FlattenLayer",
            "GroupNormLayer", "LogSoftmaxLayer", "MaxPool2DLayer",
+           "QuantConv2DLayer", "QuantDenseLayer",
+           "QuantMultiHeadAttentionLayer", "is_int8", "quantize_model",
            "ResidualBlock", "Sequential"]

@@ -1,7 +1,8 @@
 """Multi-head self-attention layer (counterpart of
 ``dcnn_tpu/nn/attention_layer.py``). Per-sample shape ``(S, E)``; a batch
-is ``(B, S, E)``. The single-token decode methods of the JAX layer come in
-a later slice (ROADMAP.md)."""
+is ``(B, S, E)``. The single-token decode methods (:meth:`decode_qkv`,
+:meth:`decode_attend`, :meth:`decode`) serve ``models/decoder.py`` and the
+paged decode engine (``serve/decode.py``)."""
 
 from __future__ import annotations
 
@@ -11,7 +12,9 @@ import torch
 from torch import nn
 
 from ..core.precision import cast_to_compute
-from ..ops.attention import attention, blockwise_attention, flash_attention
+from ..ops.attention import (
+    NEG_INF, attention, blockwise_attention, flash_attention,
+)
 from . import initializers as init
 from .factory import register_layer
 from .layer import ParameterizedLayer
@@ -98,6 +101,53 @@ class MultiHeadAttentionLayer(ParameterizedLayer):
         k = self._project(x, self.wk, self.bk)
         v = self._project(x, self.wv, self.bv)
         return self._project(self._attend(q, k, v), self.wo, self.bo)
+
+    # -- single-token decode path (serve/decode.py) --
+    def decode_qkv(self, x_t: torch.Tensor):
+        """Single-token projections: ``x_t (B, E)`` -> ``(q, k, v)``, each
+        ``(B, E)``. ``k`` and ``v`` are what a decode step writes into its
+        KV cache; ``q`` goes to :meth:`decode_attend`."""
+        return (self._project(x_t, self.wq, self.bq),
+                self._project(x_t, self.wk, self.bk),
+                self._project(x_t, self.wv, self.bv))
+
+    def decode_attend(self, q_t: torch.Tensor, k_ctx: torch.Tensor,
+                      v_ctx: torch.Tensor,
+                      positions: torch.Tensor) -> torch.Tensor:
+        """One causal decode step against a materialised KV context:
+        ``q_t (B, E)`` attends to ``k_ctx``/``v_ctx (B, T, E)`` at
+        ``positions (B,)``; key slot ``j`` takes part iff
+        ``j <= position``. A row with ``position < 0`` is fully masked and
+        its attention is exactly 0 (only the out projection's bias is
+        left). Returns ``y_t (B, E)`` after the out projection."""
+        b_, t, e = k_ctx.shape
+        h, dh = self.num_heads, e // self.num_heads
+        q = q_t.reshape(b_, h, 1, dh)
+        k = k_ctx.reshape(b_, t, h, dh).transpose(1, 2)
+        v = v_ctx.reshape(b_, t, h, dh).transpose(1, 2)
+        s = torch.matmul(q, k.transpose(-1, -2))[:, :, 0] * dh ** -0.5
+        valid = (torch.arange(t, device=positions.device)[None, :]
+                 <= positions[:, None].long())     # (B, T); all False if < 0
+        s = s.masked_fill(~valid[:, None, :], NEG_INF)
+        # zero fully-masked rows (softmax of all-NEG_INF is uniform 1/T)
+        w = torch.softmax(s, dim=-1).masked_fill(~valid[:, None, :], 0.0)
+        o = torch.matmul(w[:, :, None, :], v)[:, :, 0]
+        return self._project(o.reshape(b_, e), self.wo, self.bo)
+
+    def decode(self, x_t: torch.Tensor, k_cache: torch.Tensor,
+               v_cache: torch.Tensor, positions: torch.Tensor):
+        """Single-token decode through a dense KV cache: write this token's
+        K/V rows at ``positions`` (clamped to 0, so an inactive row's write
+        lands on slot 0 of a row nothing attends), attend over the prefix,
+        return ``(y_t, k_cache, v_cache)`` with new caches. ``x_t (B, E)``;
+        caches ``(B, T, E)``; ``positions (B,)``, ``-1`` = inactive."""
+        q, k_t, v_t = self.decode_qkv(x_t)
+        rows = torch.arange(x_t.shape[0], device=x_t.device)
+        pos_c = torch.clamp_min(positions.long(), 0)
+        k_cache = k_cache.index_put((rows, pos_c), k_t)
+        v_cache = v_cache.index_put((rows, pos_c), v_t)
+        return (self.decode_attend(q, k_cache, v_cache, positions),
+                k_cache, v_cache)
 
     def output_shape(self, input_shape):
         return tuple(input_shape)

@@ -7,9 +7,9 @@
 - Histogram buckets are fixed and log-spaced (``start * factor**i``), so
   relative error is the same at every scale and ``observe`` allocates
   nothing.
-- ``snapshot()`` exports a plain dict. The JAX package's Prometheus text
-  exposition, and the resets and typed views its exporters use, are not
-  ported yet (``ROADMAP.md``).
+- ``snapshot()`` exports a plain dict; every instrument has ``reset()``.
+  The JAX package's Prometheus text exposition, and the typed views its
+  exporters use, are not ported yet (``ROADMAP.md``).
 
 :func:`get_registry` is the process-global registry, the default sink of
 the port's own instruments (checkpoint saves and restores, the step guard,
@@ -60,6 +60,9 @@ class Counter:
         with self._lock:
             return self._v
 
+    def reset(self) -> None:
+        with self._lock:
+            self._v = 0
 
 
 class Gauge:
@@ -86,6 +89,9 @@ class Gauge:
         with self._lock:
             return self._v
 
+    def reset(self) -> None:
+        with self._lock:
+            self._v = 0.0
 
 
 class Histogram:
@@ -143,6 +149,12 @@ class Histogram:
                 "overflow": self._counts[-1],
             }
 
+    def reset(self) -> None:
+        with self._lock:
+            self._counts = [0] * len(self._counts)
+            self._sum = 0.0
+            self._count = 0
+            self._min = self._max = None
 
 
 class MetricsRegistry:

@@ -1,3 +1,4 @@
+from . import elementwise, quant
 from .activations import ACTIVATIONS
 from .attention import (
     attention, blockwise_attention, flash_attention, flash_backward_reference,
@@ -9,7 +10,7 @@ from .losses import (
 )
 from .metrics import accuracy, correct_count
 
-__all__ = ["ACTIVATIONS", "attention", "blockwise_attention",
+__all__ = ["elementwise", "quant", "ACTIVATIONS", "attention", "blockwise_attention",
            "flash_attention", "flash_backward_reference",
            "flash_forward_reference",
            "cross_entropy", "softmax_cross_entropy",

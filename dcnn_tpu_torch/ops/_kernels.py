@@ -21,8 +21,9 @@ function reports a CUDA error, and counts its launches in a plain integer
 attribute (``flash_fwd.launches``, ``flash_bwd_dq.launches``,
 ``flash_bwd_dkv.launches``, ``conv3x3_s1.launches``,
 ``conv3x3_s1_pairs.launches``, ``conv3x3_s1_bnrelu_in.launches``,
-``fused_scale_bias_relu.launches``), so a run can show that its path went
-through the kernel. :data:`COUNTED` lists them all.
+``fused_scale_bias_relu.launches``, ``conv_int8.launches``), so a run can
+show that its path went through the kernel. :data:`COUNTED` lists them
+all.
 """
 
 from __future__ import annotations
@@ -42,7 +43,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "conv3x3_tc.cu", "fused.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "conv3x3_tc.cu", "fused.cu",
+           "conv_int8.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 # conv3x3_tc.cu's tile format: output pixels per tile (two 64-row wgmma
@@ -135,6 +137,10 @@ def _bind(lib: ctypes.CDLL) -> None:
         lib.dcnn_scale_bias_relu.argtypes = [p] * 4 + [ctypes.c_longlong, i,
                                                       i, p]
         lib.dcnn_scale_bias_relu.restype = i
+    if hasattr(lib, "dcnn_conv_int8"):
+        lib.dcnn_conv_int8.argtypes = ([p] * 3 + [i] * 13
+                                       + [ctypes.c_longlong] * 8 + [i, i, p])
+        lib.dcnn_conv_int8.restype = i
     lib.dcnn_cuda_error_string.argtypes = [i]
     lib.dcnn_cuda_error_string.restype = ctypes.c_char_p
 
@@ -939,6 +945,73 @@ def fused_scale_bias_relu(x: torch.Tensor, scale: torch.Tensor,
     return y
 
 
+# conv_int8.cu's packed weight rows: K padded to whole 16-byte loads
+INT8_K_ALIGN = 16
+
+
+def pack_int8_weight(w: torch.Tensor) -> torch.Tensor:
+    """OIHW int8 weights as ``csrc/conv_int8.cu`` reads them: (O, Kp), each
+    row the (kh, kw, Cin) taps in that order, zero-padded to Kp, the next
+    multiple of :data:`INT8_K_ALIGN`."""
+    o = w.shape[0]
+    k = w[0].numel()
+    kp = _cdiv(k, INT8_K_ALIGN) * INT8_K_ALIGN
+    wk = w.permute(0, 2, 3, 1).reshape(o, k)
+    if kp != k:
+        wk = torch.nn.functional.pad(wk, (0, kp - k))
+    return wk.contiguous()
+
+
+def conv_int8(x: torch.Tensor, w: torch.Tensor, *, stride: Tuple[int, int],
+              padding: Tuple[int, int], data_format: str) -> torch.Tensor:
+    """Launch ``csrc/conv_int8.cu``: int8 ``x`` (NCHW or NHWC, any
+    strides) and OIHW int8 ``w`` on one CUDA device, symmetric
+    ``padding``; returns the int32 conv, contiguous in ``data_format``.
+    Channels-last input with Cin a multiple of 16 takes the kernel's
+    16-byte loads; anything else its byte gather."""
+    fn = "conv_int8"
+    for name, t in (("x", x), ("w", w)):
+        if t.device.type != "cuda" or t.device != x.device:
+            raise ValueError(f"{fn}: {name} is on {t.device}, not on "
+                             f"{x.device} (CUDA)")
+        if t.dtype != torch.int8 or t.ndim != 4:
+            raise TypeError(f"{fn}: {name} must be a 4-D int8 tensor, got "
+                            f"{t.dtype} {tuple(t.shape)}")
+    if data_format not in ("NCHW", "NHWC"):
+        raise ValueError(f"{fn}: unsupported data_format {data_format!r}")
+    # the logical (N, C, H, W) view and its strides, whatever the layout
+    xl = x if data_format == "NCHW" else x.permute(0, 3, 1, 2)
+    n, c, h, wd = xl.shape
+    o, cw, r, s = w.shape
+    (sh, sw), (ph, pw) = stride, padding
+    if cw != c:
+        raise ValueError(f"{fn}: w has {cw} input channels, x has {c}")
+    if sh < 1 or sw < 1 or ph < 0 or pw < 0:
+        raise ValueError(f"{fn}: bad stride {stride} or padding {padding}")
+    p = (h + 2 * ph - r) // sh + 1
+    q = (wd + 2 * pw - s) // sw + 1
+    if min(n, o, p, q) < 1 or n * p * q >= 2 ** 31 - 128:
+        raise ValueError(f"{fn}: empty or oversized output ({n}, {o}, {p}, "
+                         f"{q}) for x {tuple(x.shape)}, w {tuple(w.shape)}")
+    wk = pack_int8_weight(w)
+    y = torch.empty((n, o, p, q) if data_format == "NCHW" else (n, p, q, o),
+                    dtype=torch.int32, device=x.device)
+    yl = y if data_format == "NCHW" else y.permute(0, 3, 1, 2)
+    xs = xl.stride()
+    vec = int(xs[1] == 1 and c % 16 == 0 and x.data_ptr() % 16 == 0
+              and all(v % 16 == 0 for v in (xs[0], xs[2], xs[3])))
+    lib = build()["conv_int8.cu"]
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.dcnn_conv_int8(x.data_ptr(), wk.data_ptr(), y.data_ptr(),
+                                 n, c, h, wd, o, p, q, r, s, sh, sw, ph, pw,
+                                 *xs, *yl.stride(), wk.shape[1], vec, stream)
+    _raise_on(lib, fn, err)
+    conv_int8.launches += 1
+    return y
+
+
+conv_int8.launches = 0
 conv3x3_s1.launches = 0
 conv3x3_s1_bnrelu_in.launches = 0
 conv3x3_s1_pairs.launches = 0
@@ -946,4 +1019,5 @@ fused_scale_bias_relu.launches = 0
 
 # every launch-counted wrapper, for runs that reset and read the counts
 COUNTED = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, conv3x3_s1,
-           conv3x3_s1_pairs, conv3x3_s1_bnrelu_in, fused_scale_bias_relu)
+           conv3x3_s1_pairs, conv3x3_s1_bnrelu_in, fused_scale_bias_relu,
+           conv_int8)

@@ -8,8 +8,14 @@ tensor. ``F.conv2d`` is the platform conv, as ``lax.conv_general_dilated``
 is the JAX package's; the hand-written 3×3 kernels live in
 :mod:`.pallas.conv`. The explicit gradient functions are autograd's
 vector-Jacobian products of :func:`conv2d`, as the JAX ones are
-``jax.vjp`` of theirs. ``conv2d_int8`` comes in a later slice
-(ROADMAP.md).
+``jax.vjp`` of theirs.
+
+:func:`conv2d_int8` is int8 × int8 → int32 with the same geometry. No
+PyTorch call computes it (``F.conv2d`` on int8 wraps in int8 on the CPU
+and is not implemented on CUDA), so on a CUDA tensor it launches the
+hand-written kernel ``csrc/conv_int8.cu`` (or raises), and on a CPU tensor
+it runs the plain version, ``F.conv2d`` in float64 cast to int32, exact
+because every partial sum is an integer below 2^53.
 """
 
 from __future__ import annotations
@@ -18,6 +24,8 @@ from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from . import _kernels
 
 IntOrPair = Union[int, Tuple[int, int], Sequence[int]]
 
@@ -46,6 +54,37 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     if apart:
         y = y + b.view(1, -1, 1, 1)
     return y.permute(0, 2, 3, 1) if data_format == "NHWC" else y
+
+
+def conv2d_int8_reference(x_q: torch.Tensor, w_q: torch.Tensor, *,
+                          stride: IntOrPair = 1, padding: IntOrPair = 0,
+                          data_format: str = "NCHW") -> torch.Tensor:
+    """Plain version of :func:`conv2d_int8`: the conv in float64, cast
+    to int32."""
+    y = conv2d(x_q.double(), w_q.double(), stride=stride, padding=padding,
+               data_format=data_format)
+    return y.to(torch.int32)
+
+
+def conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor, *,
+                stride: IntOrPair = 1, padding: IntOrPair = 0,
+                data_format: str = "NCHW") -> torch.Tensor:
+    """int8 × int8 → int32 convolution: :func:`conv2d`'s geometry (OIHW
+    weights, symmetric int padding, NCHW or NHWC), no bias; the caller
+    owns the scales."""
+    if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
+        raise TypeError(f"conv2d_int8 expects int8 operands, got "
+                        f"{x_q.dtype}/{w_q.dtype}")
+    if data_format not in ("NCHW", "NHWC"):
+        raise ValueError(f"unsupported data_format {data_format!r}")
+    if x_q.device.type == "cuda":
+        return _kernels.conv_int8(x_q, w_q, stride=_pair(stride),
+                                  padding=_pair(padding),
+                                  data_format=data_format)
+    if x_q.device.type == "cpu":
+        return conv2d_int8_reference(x_q, w_q, stride=stride,
+                                     padding=padding, data_format=data_format)
+    raise RuntimeError(f"conv2d_int8: no implementation for {x_q.device}")
 
 
 def _vjp(fn, primal: torch.Tensor, grad_out: torch.Tensor) -> torch.Tensor:

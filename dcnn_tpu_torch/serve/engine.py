@@ -10,7 +10,12 @@ size. Buckets still bound the shapes the kernels see to
 ``log2(max_batch)+1``.
 
 Padding is row-exact within a bucket: zero rows ride along and are sliced
-off. Float results are allclose, not bit-identical, across buckets.
+off. Float results are allclose, not bit-identical, across buckets (a GEMM
+or conv may sum in another order at another batch size). An int8 engine
+(``from_model(..., int8_calib=...)``, or any model whose every conv, dense
+and attention layer is an int8 twin) is ``batch_invariant``: its convs and
+GEMMs are exact integer sums, and everything else a sample computes is its
+own, so its logits are bit-identical at every bucket.
 JAX's AOT executable cache, XLA cost gauges and buffer donation have no
 counterpart here.
 """
@@ -24,6 +29,7 @@ import torch
 
 from ..core.device import DeviceLike, resolve_device
 from ..nn.fold import fold_batchnorm
+from ..nn.quantize import is_int8, quantize_model
 
 
 def serve_buckets(max_batch: int) -> List[int]:
@@ -52,8 +58,9 @@ class InferenceEngine:
     def __init__(self, apply_fn: Callable[[torch.Tensor], torch.Tensor],
                  input_shape: Sequence[int], *, max_batch: int = 32,
                  device: DeviceLike = None, warmup: bool = True,
-                 name: str = "engine"):
+                 batch_invariant: bool = False, name: str = "engine"):
         self.name = name
+        self.batch_invariant = bool(batch_invariant)
         self.device = resolve_device(device)
         self.input_shape = tuple(int(d) for d in input_shape)
         self.input_dtype = torch.float32
@@ -84,6 +91,7 @@ class InferenceEngine:
     @classmethod
     def from_model(cls, model, *, fold: bool = True,
                    int8_calib: Optional[Any] = None,
+                   act_quantile: Optional[float] = None,
                    device: DeviceLike = None, **kw) -> "InferenceEngine":
         """Engine over a live :class:`~dcnn_tpu_torch.nn.Sequential` in
         eval mode on ``device``, for inputs of its ``input_shape`` in
@@ -92,21 +100,26 @@ class InferenceEngine:
 
         ``fold=True`` serves :func:`~dcnn_tpu_torch.nn.fold.fold_batchnorm`
         of the model, a new model, and leaves the original untouched;
-        ``fold=False`` moves the model itself. ``int8_calib`` raises until
-        ``nn/quantize.py`` is ported."""
-        if int8_calib is not None:
-            raise NotImplementedError(
-                "int8 serving needs nn/quantize.py, which is not ported to "
-                "dcnn_tpu_torch yet (see ROADMAP.md)")
+        ``fold=False`` moves the model itself. A calibration batch as
+        ``int8_calib`` serves :func:`~dcnn_tpu_torch.nn.quantize_model` of
+        the model instead (folded first unless ``fold=False``, activation
+        scales at ``act_quantile`` of ``|x|`` when given, else absmax),
+        calibrated where the model lies and then moved; that engine is
+        ``batch_invariant`` (module docstring), as is one over a model
+        that is int8 already."""
         if model.input_shape is None:
             raise ValueError("model has no input_shape; build it through "
                              "SequentialBuilder.input or set input_shape")
         dev = resolve_device(device)
-        if fold:
+        if int8_calib is not None:
+            model = quantize_model(model, int8_calib, fold_bn=fold,
+                                   act_quantile=act_quantile)
+        elif fold:
             model = fold_batchnorm(model)
         model = model.to(dev).eval()
         kw.setdefault("name", model.name)
-        return cls(model, model.input_shape, device=dev, **kw)
+        return cls(model, model.input_shape, device=dev,
+                   batch_invariant=is_int8(model), **kw)
 
     @classmethod
     def from_checkpoint(cls, path: str, *, device: DeviceLike = None,
@@ -173,4 +186,5 @@ class InferenceEngine:
 
     def __repr__(self) -> str:
         return (f"InferenceEngine({self.name!r}, input={self.input_shape}, "
-                f"buckets={self.bucket_sizes}, device={self.device})")
+                f"buckets={self.bucket_sizes}, device={self.device}, "
+                f"batch_invariant={self.batch_invariant})")

@@ -18,6 +18,7 @@ bf16 2e-2: outputs, and in the backward dS and P, are rounded to bf16's
 does, so it is held to equality.
 """
 
+import copy
 import importlib
 import os
 import sys
@@ -1035,3 +1036,178 @@ def test_resident_epoch_on_card_tracks_cpu_and_never_syncs():
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         torch.testing.assert_close(a, b, rtol=0,
                                    atol=1e-4 * float(b.abs().max()))
+
+
+# ---------------------------------------------------------------- int8
+
+INT8_GEOMETRIES = [(1, 1, 0), (1, 2, 0), (3, 1, 0), (3, 1, 1), (3, 2, 1),
+                   (5, 1, 0), (7, 2, 3)]
+
+
+def _int8_pair(seed, n, cin, h, w, cout, k, layout):
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-127, 128, (n, cin, h, w), dtype=np.int8)
+    wt = rng.integers(-127, 128, (cout, cin, k, k), dtype=np.int8)
+    if layout == "NHWC":
+        x = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    return torch.from_numpy(x), torch.from_numpy(wt)
+
+
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+@pytest.mark.parametrize("k,stride,pad", INT8_GEOMETRIES)
+@pytest.mark.parametrize("cin,cout", [(3, 64), (16, 8), (17, 70), (64, 128)])
+def test_conv_int8_kernel_equals_plain_on_card(k, stride, pad, layout, cin,
+                                               cout):
+    """Every conv geometry of the zoo, K tails (C_in 3 and 17: K not a
+    multiple of 16 or 64), ragged M and N edges, both layouts: the int32
+    result equals the plain version bit for bit."""
+    from dcnn_tpu_torch.ops.conv import conv2d_int8, conv2d_int8_reference
+
+    x, w = _int8_pair(k * 7 + cin, 3, cin, 13, 11, cout, k, layout)
+    before = _kernels.conv_int8.launches
+    got = conv2d_int8(x.cuda(), w.cuda(), stride=stride, padding=pad,
+                      data_format=layout)
+    torch.cuda.synchronize()
+    assert _kernels.conv_int8.launches == before + 1
+    want = conv2d_int8_reference(x, w, stride=stride, padding=pad,
+                                 data_format=layout)
+    assert got.dtype == torch.int32 and got.is_contiguous()
+    assert torch.equal(got.cpu(), want)
+
+
+def test_conv_int8_kernel_takes_strided_views_and_extremes():
+    """A non-contiguous channels-last view (the byte-gather path), and
+    sums at the int8 extremes over K = 3*3*512."""
+    from dcnn_tpu_torch.ops.conv import conv2d_int8, conv2d_int8_reference
+
+    x, w = _int8_pair(5, 4, 32, 9, 9, 16, 3, "NHWC")
+    xv = x.cuda()[1:, :, :, :]
+    got = conv2d_int8(xv, w.cuda(), padding=1, data_format="NHWC")
+    assert torch.equal(got.cpu(), conv2d_int8_reference(
+        x[1:], w, padding=1, data_format="NHWC"))
+    xe = torch.full((2, 6, 6, 512), 127, dtype=torch.int8)
+    we = torch.full((130, 512, 3, 3), -127, dtype=torch.int8)
+    got = conv2d_int8(xe.cuda(), we.cuda(), padding=0, data_format="NHWC")
+    assert int(got.min()) == int(got.max()) == -4608 * 127 * 127
+
+
+def test_conv_int8_kernel_refuses_what_it_cannot_take():
+    x = torch.zeros(1, 4, 4, 4, dtype=torch.int8, device="cuda")
+    w = torch.zeros(2, 4, 3, 3, dtype=torch.int8, device="cuda")
+    with pytest.raises(TypeError):
+        _kernels.conv_int8(x.float(), w, stride=(1, 1), padding=(0, 0),
+                           data_format="NCHW")
+    with pytest.raises(ValueError, match="input channels"):
+        _kernels.conv_int8(x, w[:, :3], stride=(1, 1), padding=(0, 0),
+                           data_format="NCHW")
+    with pytest.raises(ValueError, match="not on"):
+        _kernels.conv_int8(x, w.cpu(), stride=(1, 1), padding=(0, 0),
+                           data_format="NCHW")
+    with pytest.raises(ValueError, match="empty"):
+        _kernels.conv_int8(x[:, :, :2, :2], w, stride=(1, 1),
+                           padding=(0, 0), data_format="NCHW")
+
+
+@pytest.mark.parametrize("m,k,n", [(64, 64, 64), (1, 64, 10), (16, 27, 3),
+                                   (17, 8, 8), (5, 2048, 10), (33, 100, 13)])
+def test_dense_int8_int_mm_equals_plain_on_card(m, k, n):
+    """dense_int8 on torch._int_mm, with zero padding where its shape rules
+    (more than 16 rows, K and N multiples of 8) refuse the shape."""
+    from dcnn_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(m + k + n)
+    x = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8))
+    w = torch.from_numpy(rng.integers(-127, 128, (n, k), dtype=np.int8))
+    got = quant.dense_int8(x.cuda(), w.cuda())
+    assert got.dtype == torch.int32 and got.shape == (m, n)
+    assert torch.equal(got.cpu(), quant.dense_int8_reference(x, w))
+    x3 = x.reshape(1, m, k).cuda()
+    assert torch.equal(quant.dense_int8(x3, w.cuda())[0].cpu(),
+                       quant.dense_int8_reference(x, w))
+
+
+def _int8_cnn(seed=0):
+    m = (SequentialBuilder("q8", "NHWC").input((12, 12, 3))
+         .conv2d(16, 3, 1, 1).batchnorm().activation("relu")
+         .basic_residual_block(16, 32, 2, "block")
+         .avgpool2d(6).flatten().dense(10).build())
+    return m.init(generator=torch.Generator().manual_seed(seed), device="cpu")
+
+
+@pytest.mark.parametrize("name", ["cnn", "mha_classifier"])
+def test_int8_engine_bit_identical_across_buckets_on_card(name):
+    """The int8 engine on the card: logits bit-identical at every bucket,
+    within 1e-4 of the logit scale of the CPU int8 engine (the float glue
+    sums in another order), the int8 kernels launched."""
+    from dcnn_tpu_torch.models import create_model
+    from dcnn_tpu_torch.serve import InferenceEngine
+
+    model = (_int8_cnn() if name == "cnn" else create_model(
+        "mha_classifier").init(generator=torch.Generator().manual_seed(0),
+                               device="cpu"))
+    rng = np.random.default_rng(1)
+    calib = rng.normal(size=(16, *model.input_shape)).astype(np.float32)
+    pool = rng.normal(size=(8, *model.input_shape)).astype(np.float32)
+    cpu = InferenceEngine.from_model(model, int8_calib=calib, max_batch=8,
+                                     device="cpu")
+    card = InferenceEngine.from_model(model, int8_calib=calib, max_batch=8,
+                                      device="cuda")
+    assert card.batch_invariant
+    before = (_kernels.conv_int8.launches, _kernels.flash_fwd.launches)
+    ref = card.infer(pool).cpu()
+    after = (_kernels.conv_int8.launches, _kernels.flash_fwd.launches)
+    assert after[0 if name == "cnn" else 1] > before[0 if name == "cnn"
+                                                     else 1]
+    for i in range(8):
+        assert torch.equal(card.infer(pool[i]).cpu(), ref[i])
+    want = cpu.infer(pool)
+    assert float((ref - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def test_decode_batcher_equals_reference_on_card():
+    """Continuous batching of mha_decoder on the card: every sequence's
+    tokens equal decode_reference on the card and on the CPU, staggered
+    submissions, a starved pool that preempts."""
+    from dcnn_tpu_torch.models import create_model
+    from dcnn_tpu_torch.serve import (
+        ContinuousBatcher, DecodeEngine, DecodeMetrics, decode_reference,
+    )
+
+    model = create_model("mha_decoder").init(
+        generator=torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 64, rng.integers(1, 9)).tolist()
+               for _ in range(10)]
+    cpu = DecodeEngine(model, max_slots=4, page_size=8, max_pages_per_seq=4)
+    for num_pages in (None, 6):
+        card = DecodeEngine(copy.deepcopy(model).to("cuda"), max_slots=4,
+                            page_size=8,
+                            max_pages_per_seq=4, num_pages=num_pages)
+        metrics = DecodeMetrics()
+        cb = ContinuousBatcher(card, start=False, metrics=metrics)
+        futs = []
+        for i, p in enumerate(prompts):
+            futs.append(cb.submit(p, max_new_tokens=12))
+            if i % 3 == 2:
+                cb.step()
+        cb.drain()
+        for p, f in zip(prompts, futs):
+            want = decode_reference(cpu, p, max_new_tokens=12)
+            assert np.array_equal(f.result(0), want), (p, f.result(0), want)
+            assert np.array_equal(
+                decode_reference(card, p, max_new_tokens=12), want)
+        if num_pages == 6:
+            assert metrics.snapshot()["evictions"] > 0
+
+
+def test_suggest_num_pages_reads_the_card():
+    from dcnn_tpu_torch.serve import KVPagePool, suggest_num_pages
+
+    page = KVPagePool(num_layers=2, embed_dim=64, page_size=8, num_pages=2,
+                      device="cuda").page_bytes
+    got = suggest_num_pages(page, fraction=0.5, cap=10 ** 9)
+    free, _ = torch.cuda.mem_get_info()
+    # free memory may move a little between the two reads
+    assert abs(got - free * 0.5 // page) <= (64 << 20) // page
+    # 20% of an H100's free memory is far more than 4096 pages of 8 KiB
+    assert suggest_num_pages(page) == 4096

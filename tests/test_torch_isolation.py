@@ -7,7 +7,10 @@ versions, on the checkpoint path (save, async save, restore, resume,
 serving a snapshot), and on the data feed (the native helpers, which build
 and load the port's own library and never one under ``dcnn_tpu/native/``,
 the resident dataset, ``PrefetchLoader`` with its spawned feed workers,
-the transfer engine and the streaming feed)."""
+the transfer engine and the streaming feed), on int8 serving (quantization
+of a CNN and of ``mha_classifier``, the int8 conv's plain version, a
+quantized checkpoint) and on continuous-batching decode of
+``mha_decoder``."""
 
 import ast
 import os
@@ -153,6 +156,45 @@ FEED = (
     " y.astype(np.float32)).load_data()\n")
 
 
+INT8_DECODE = (
+    "import tempfile, numpy as np\n"
+    "from dcnn_tpu_torch.models import create_model\n"
+    "from dcnn_tpu_torch.nn import quantize_model\n"
+    "from dcnn_tpu_torch.ops.conv import conv2d_int8\n"
+    "from dcnn_tpu_torch.serve import (ContinuousBatcher, DecodeEngine,"
+    " DynamicBatcher, InferenceEngine, decode_reference)\n"
+    "from dcnn_tpu_torch.serve.traffic import open_loop\n"
+    "from dcnn_tpu_torch.train import load_checkpoint, save_checkpoint\n"
+    "g = torch.Generator().manual_seed(0)\n"
+    "m = create_model('mnist_cnn', 'NHWC').init(generator=g, device='cpu')\n"
+    "calib = np.random.default_rng(0).normal(size=(4, 28, 28, 1))"
+    ".astype(np.float32)\n"
+    "e = InferenceEngine.from_model(m, int8_calib=calib, max_batch=2,"
+    " device='cpu')\n"
+    "assert e.batch_invariant and e.infer(calib[0]).shape == (10,)\n"
+    "b = DynamicBatcher(e, max_wait_ms=0.0)\n"
+    "futs = open_loop(b, list(calib), 200.0, 0.02)\n"
+    "b.drain(timeout=60)\n"
+    "assert futs and all(f.result(0).shape == (10,) for _, f in futs)\n"
+    "d = tempfile.mkdtemp()\n"
+    "save_checkpoint(d, quantize_model(m, calib))\n"
+    "assert load_checkpoint(d, device='cpu')[0].layers[0].w_q.dtype"
+    " == torch.int8\n"
+    "a = create_model('mha_classifier').init(generator=g, device='cpu')\n"
+    "qa = quantize_model(a, np.zeros((2, 32, 64), np.float32))\n"
+    "assert qa(torch.zeros(1, 32, 64)).shape == (1, 10)\n"
+    "x = torch.ones(1, 3, 5, 5, dtype=torch.int8)\n"
+    "assert conv2d_int8(x, x[:, :, :3, :3], padding=1).dtype"
+    " == torch.int32\n"
+    "dec = create_model('mha_decoder').init(generator=g, device='cpu')\n"
+    "eng = DecodeEngine(dec, max_slots=2, page_size=8, max_pages_per_seq=2)\n"
+    "cb = ContinuousBatcher(eng)\n"
+    "f = cb.submit([1, 2, 3], max_new_tokens=4)\n"
+    "cb.drain(timeout=60)\n"
+    "assert (f.result(0) == decode_reference(eng, [1, 2, 3],"
+    " max_new_tokens=4)).all()\n")
+
+
 def _run_isolated(body: str) -> None:
     """Run ``body`` in a fresh interpreter after ``import dcnn_tpu_torch``
     and check that no module of JAX, flax, msgpack or the JAX package was
@@ -190,3 +232,7 @@ def test_checkpoint_path_leaves_jax_and_msgpack_out():
 
 def test_data_feed_and_native_helpers_leave_jax_out():
     _run_isolated(FEED)
+
+
+def test_int8_serving_and_decode_leave_jax_out():
+    _run_isolated(INT8_DECODE)

@@ -20,7 +20,9 @@ from dcnn_tpu.nn import SequentialBuilder as JaxBuilder
 from dcnn_tpu.nn.residual import ResidualBlock as JaxResidual
 from dcnn_tpu_torch.core import precision, resolve_device
 from dcnn_tpu_torch.interop import from_jax
-from dcnn_tpu_torch.models import create_mha_classifier, create_model
+from dcnn_tpu_torch.models import (
+    MHADecoder, create_mha_classifier, create_model,
+)
 from dcnn_tpu_torch.nn import (
     FlattenLayer, MultiHeadAttentionLayer, Sequential, SequentialBuilder,
 )
@@ -94,8 +96,9 @@ def test_from_jax_checks_names_and_shapes():
     with pytest.raises(ValueError, match="param entries"):
         from_jax(jm.get_config(), pnp[:3], device="cpu")
     cfg = jm.get_config()
-    cfg["layers"][2] = {"type": "quant_dense", "name": "p"}
-    with pytest.raises(ValueError, match="unknown layer type 'quant_dense'"):
+    cfg["layers"][2] = {"type": "no_such_layer", "name": "p"}
+    with pytest.raises(ValueError,
+                       match="unknown layer type 'no_such_layer'"):
         from_jax(cfg, pnp, device="cpu")
 
 
@@ -153,8 +156,7 @@ def test_zoo_names():
     assert isinstance(create_model("mha_classifier"), Sequential)
     assert isinstance(create_model("resnet18_tiny_imagenet", "NHWC"),
                       Sequential)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model("mha_decoder")
+    assert isinstance(create_model("mha_decoder"), MHADecoder)
     with pytest.raises(ValueError, match="unknown model"):
         create_model("no_such_model")
 

@@ -2,7 +2,15 @@
 ``DynamicBatcher`` batching, shedding, teardown, and ``ServeMetrics``.
 These mirror ``tests/test_serve.py``; the model is a narrow attention
 classifier on the CPU (the kernel's plain path), and the engine's answers
-are held against the JAX model with the same weights."""
+are held against the JAX model with the same weights.
+
+The int8 engine (``from_model(..., int8_calib=...)``) is served from the
+JAX tests' narrow conv model (NHWC 8x8x3, conv-BN-ReLU, pool, dense) and
+from the attention classifier: ``batch_invariant``, its logits
+bit-identical at every bucket and through ``DynamicBatcher``, and within
+1e-5 of the logit scale of the JAX int8 engine with the same weights and
+calibration batch (the float glue between the int8 layers sums in another
+order)."""
 
 import threading
 import time
@@ -17,7 +25,9 @@ import torch
 from dcnn_tpu.nn import MultiHeadAttentionLayer as JaxMHA
 from dcnn_tpu.nn import SequentialBuilder as JaxBuilder
 from dcnn_tpu.nn.residual import ResidualBlock as JaxResidual
-from dcnn_tpu_torch.interop import from_jax
+from dcnn_tpu.serve import InferenceEngine as JaxEngine
+from dcnn_tpu_torch.interop import from_jax, state_to_jax, to_jax
+from dcnn_tpu_torch.nn import Sequential
 from dcnn_tpu_torch.serve import (
     DrainingError, DynamicBatcher, InferenceEngine, QueueFullError,
     ServeMetrics, ShutdownError, serve_buckets,
@@ -122,14 +132,114 @@ def test_engine_float_is_allclose_across_buckets(engine, tiny):
                                    rtol=1e-5, atol=1e-5)
 
 
-def test_engine_int8_not_ported(tiny):
+def test_engine_fold_without_batchnorm(tiny):
+    """fold is accepted: with no batchnorm it is the identity."""
     model, pool, _ = tiny
-    with pytest.raises(NotImplementedError, match="quantize"):
-        InferenceEngine.from_model(model, int8_calib=pool, device="cpu")
-    # fold is accepted: with no batchnorm it is the identity
     eng = InferenceEngine.from_model(model, fold=True, max_batch=2,
                                      device="cpu", warmup=False)
     assert eng.compile_stats.keys() == {1, 2}
+    assert not eng.batch_invariant
+    np.testing.assert_allclose(_np(eng.infer(pool[:2])),
+                               _np(InferenceEngine.from_model(
+                                   model, fold=False, max_batch=2,
+                                   device="cpu").infer(pool[:2])),
+                               rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------- int8
+
+INT8_JAX_TOL = 1e-5  # max |port - JAX| over max |JAX logit|
+
+
+@pytest.fixture(scope="module")
+def tiny_cnn():
+    """The JAX serve tests' narrow conv model, weights drawn by the port
+    (BN statistics at random) and carried to the JAX package."""
+    jm = (JaxBuilder(name="srv", data_format="NHWC").input((8, 8, 3))
+          .conv2d(4, 3, padding=1).batchnorm().activation("relu")
+          .maxpool2d(2).flatten().dense(5).build())
+    model = Sequential.from_config(jm.get_config()).init(
+        generator=torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(0)
+    bn = model.layers[1]
+    with torch.no_grad():
+        bn.running_mean.copy_(torch.from_numpy(rng.normal(0, 0.1, 4)))
+        bn.running_var.copy_(torch.from_numpy(rng.uniform(0.5, 1.5, 4)))
+    calib = rng.normal(size=(16, 8, 8, 3)).astype(np.float32)
+    pool = rng.normal(size=(16, 8, 8, 3)).astype(np.float32)
+    return jm, model, calib, pool
+
+
+@pytest.fixture(scope="module")
+def int8_engine(tiny_cnn):
+    _, model, calib, _ = tiny_cnn
+    return InferenceEngine.from_model(model, int8_calib=calib, max_batch=8,
+                                      device="cpu")
+
+
+def test_engine_int8_is_batch_invariant(int8_engine, tiny_cnn):
+    """The int8 graph's convs and GEMMs are exact integer sums: a
+    request's logits are bit-identical whichever bucket served it."""
+    *_, pool = tiny_cnn
+    assert int8_engine.batch_invariant
+    ref = _np(int8_engine.infer(pool[:8]))
+    for i in range(8):
+        np.testing.assert_array_equal(_np(int8_engine.infer(pool[i])),
+                                      ref[i])
+    for b in (2, 4):
+        np.testing.assert_array_equal(_np(int8_engine.infer(pool[:b])),
+                                      ref[:b])
+
+
+def test_engine_int8_matches_jax_int8_engine(int8_engine, tiny_cnn):
+    jm, model, calib, pool = tiny_cnn
+    jeng = JaxEngine.from_model(jm, to_jax(model), state_to_jax(model),
+                                int8_calib=jnp.asarray(calib), max_batch=8,
+                                aot_cache=False)
+    want = np.asarray(jeng.infer(pool[:8]))
+    got = _np(int8_engine.infer(pool[:8]))
+    assert np.abs(got - want).max() <= INT8_JAX_TOL * np.abs(want).max()
+    np.testing.assert_array_equal(got.argmax(-1), want.argmax(-1))
+
+
+def test_engine_int8_attention_is_batch_invariant(tiny):
+    """The int8 attention classifier keeps a float core (the flash plain
+    version here), each row its own: bit-identical across buckets too."""
+    model, pool, _ = tiny
+    eng = InferenceEngine.from_model(model, int8_calib=pool, max_batch=8,
+                                     device="cpu")
+    assert eng.batch_invariant
+    ref = _np(eng.infer(pool[:8]))
+    for i in range(8):
+        np.testing.assert_array_equal(_np(eng.infer(pool[i])), ref[i])
+
+
+def test_batcher_int8_bit_identical_to_engine_alone(int8_engine, tiny_cnn):
+    *_, pool = tiny_cnn
+    b = DynamicBatcher(int8_engine, max_batch=4, queue_capacity=64,
+                       start=False)
+    futs = [b.submit(pool[i]) for i in range(7)]  # batches of 4 + 3
+    b.drain()
+    for i, f in enumerate(futs):
+        np.testing.assert_array_equal(f.result(timeout=1),
+                                      _np(int8_engine.infer(pool[i])))
+
+
+def test_batcher_int8_mixed_size_requests(int8_engine, tiny_cnn):
+    *_, pool = tiny_cnn
+    b = DynamicBatcher(int8_engine, max_batch=8, queue_capacity=64,
+                       start=False)
+    f2 = b.submit(pool[:2])
+    f3 = b.submit(pool[2:5])
+    f1 = b.submit(pool[5])
+    b.drain()
+    np.testing.assert_array_equal(f2.result(1),
+                                  _np(int8_engine.infer(pool[:2])))
+    np.testing.assert_array_equal(f3.result(1),
+                                  _np(int8_engine.infer(pool[2:5])))
+    np.testing.assert_array_equal(f1.result(1),
+                                  _np(int8_engine.infer(pool[5])))
+    assert f1.result(1).shape == (5,)
 
 
 # ---------------------------------------------------------------- batcher
@@ -372,3 +482,80 @@ def test_metrics_empty_snapshot_is_unambiguous():
     s = ServeMetrics(clock=FakeClock()).snapshot()
     assert s["p50_ms"] is None and s["batch_occupancy"] is None
     assert s["requests_completed"] == 0 and s["shed_fraction"] == 0.0
+
+
+# ---------------------------------------------------------------- traffic
+
+def test_rate_schedules_equal_jax():
+    from dcnn_tpu.serve import traffic as jtraffic
+    from dcnn_tpu_torch.serve import traffic
+
+    pairs = [(traffic.diurnal(400.0, 40.0, 600.0, phase_s=7.0),
+              jtraffic.diurnal(400.0, 40.0, 600.0, phase_s=7.0)),
+             (traffic.spike(10.0, 100.0, 5.0, 2.0),
+              jtraffic.spike(10.0, 100.0, 5.0, 2.0)),
+             (traffic.step([(0.0, 5.0), (10.0, 50.0), (20.0, 2.0)]),
+              jtraffic.step([(0.0, 5.0), (10.0, 50.0), (20.0, 2.0)]))]
+    for mine, ref in pairs:
+        for t in np.linspace(0.0, 700.0, 97):
+            assert mine(float(t)) == ref(float(t))
+    rate = traffic.diurnal(400.0, 40.0, period_s=600.0)
+    assert rate(300.0) / rate(0.0) == pytest.approx(10.0)
+    for bad in (lambda: traffic.diurnal(10.0, 20.0, period_s=60.0),
+                lambda: traffic.step([(1.0, 5.0)]),
+                lambda: traffic.spike(0.0, 1.0, 0.0, 1.0)):
+        with pytest.raises(ValueError):
+            bad()
+
+
+class _Sink:
+    def __init__(self, clock):
+        self.clock, self.times = clock, []
+
+    def submit(self, x):
+        from concurrent.futures import Future
+
+        self.times.append(self.clock.t)
+        f = Future()
+        f.set_result(x)
+        return f
+
+
+def test_open_loop_paces_to_the_schedule():
+    from dcnn_tpu_torch.serve.traffic import open_loop, step
+
+    fc = FakeClock()
+    sink = _Sink(fc)
+    open_loop(sink, [np.zeros(4, np.float32)],
+              step([(0.0, 10.0), (5.0, 100.0)]), 10.0, clock=fc,
+              sleep=fc.advance)
+    assert abs(sum(t < 4.99 for t in sink.times) - 50) <= 1
+    assert abs(sum(t >= 4.99 for t in sink.times) - 500) <= 1
+    fc.t = 0.0
+    sink2 = _Sink(fc)
+    open_loop(sink2, [np.zeros(4, np.float32)], 20.0, 2.0, clock=fc,
+              sleep=fc.advance)
+    assert len(sink2.times) == 40
+    with pytest.raises(ValueError, match="rounds to zero"):
+        open_loop(_Sink(fc), [np.zeros(4, np.float32)],
+                  step([(0.0, 10.0), (1.0, float("inf"))]), 5.0, clock=fc,
+                  sleep=fc.advance)
+
+
+def test_open_loop_through_int8_batcher_fake_clock(int8_engine, tiny_cnn):
+    """Open-loop single requests through the int8 engine's batcher on a
+    fake clock (no real sleeps): every accepted answer equals the engine
+    alone; the ones past the queue's capacity are shed, not lost."""
+    from dcnn_tpu_torch.serve.traffic import open_loop
+
+    *_, pool = tiny_cnn
+    fc = FakeClock()
+    b = DynamicBatcher(int8_engine, max_batch=4, queue_capacity=12,
+                       clock=fc, start=False)
+    futs = open_loop(b, list(pool), 100.0, 0.2, clock=fc, sleep=fc.advance)
+    b.drain()
+    snap = b.metrics.snapshot()
+    assert len(futs) == 12 and snap["requests_shed"] == 8
+    for k, f in futs:
+        np.testing.assert_array_equal(f.result(timeout=0),
+                                      _np(int8_engine.infer(pool[k])))

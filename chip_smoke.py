@@ -91,14 +91,21 @@ Phases, each fatal on failure:
    on the CPU with a 64-sample calibration batch and served on the card
    through ``InferenceEngine.from_model(..., int8_calib=...)`` behind
    ``DynamicBatcher`` with 80 open-loop requests (``serve/traffic.py``):
-   p50/p99, the launch counters over that path (``conv_int8`` 21 a batch,
-   the flash forward 2 a batch on the attention classifier), the engine's
-   quantized params equal to the one quantization, logits bit-identical
-   at every batch 1..32 and near the CPU int8 engine; ``conv_int8.cu``
-   bit for bit against its plain version at the 21 conv sites at B=32 and
-   B=256 (hooked inputs) and at ragged shapes in both layouts, timed with
-   its bound and fp32/bf16 ``F.conv2d`` of the same shapes as context; the
-   int8 engine's B=32 and B=256 batch beside the folded fp32 and bf16
+   p50/p99, the launch counters over that path (``conv_int8_fused`` 21 a
+   batch plus the K-split reduces, mode A ``conv_int8`` 0, the weights
+   packed once a layer; the flash forward 2 a batch on the attention
+   classifier), the engine's quantized params equal to the one
+   quantization, logits bit-identical at every batch 1..32 and near the
+   CPU int8 engine; ``conv_int8.cu`` in both modes (A: int8 -> int32
+   against its plain version; B, the fused layer: against the unfused
+   chain on the card) bit for bit at the 21 conv sites at B=32 and B=256
+   (hooked inputs; B=32 also in bf16) and at ragged shapes (NCHW, NHWC,
+   bf16), each split-K site also against the same site unsplit; each
+   timed (A, B, the unfused chain of separate launches, the plain versions) beside both
+   bounds and bf16 ``F.conv2d`` of the same shape as context; the CUDA
+   kernels of one B=32 and one B=256 int8 engine batch counted by
+   ``torch.profiler``, fused and as the unfused chain; the int8 engine's B=32
+   and B=256 batch (fused and chain) beside the folded fp32 and bf16
    engines';
 13. decode: full-width ``mha_decoder`` through ``DecodeEngine(max_slots=8,
    page_size=8, max_pages_per_seq=8)`` and a threaded
@@ -108,7 +115,8 @@ Phases, each fatal on failure:
    match; tokens/s, TTFT p50/p99, slot occupancy, the pool's pages and
    bytes and each lattice point's step time.
 
-Then it prints ``{"kernels": [...]}`` (rows 1-8, row 8 ``conv_int8``) on
+Then it prints ``{"kernels": [...]}`` (rows 1-8, row 8 ``conv_int8_fused``
+with mode A ``conv_int8`` inside it) on
 a line of its own and, last,
 ``{"ok": true, "device": {...}}``. Times come from CUDA events around CUDA
 graph replays of many calls, so host overhead is not in them.
@@ -2405,82 +2413,157 @@ INT8_RAGGED = [(3, 3, 13, 11, 70, 3, 1, 1), (2, 17, 9, 9, 33, 3, 2, 1),
                (2, 64, 12, 12, 130, 7, 2, 3), (4, 96, 6, 6, 64, 1, 1, 0)]
 
 
-def int8_bound(n, cin, h, w, cout, k, stride, pad):
-    """Least time for one int8 conv: x (int8), the weights (int8) read
-    once and the int32 output written once over HBM bandwidth, against
-    2 M Cout K operations over the int8 tensor-core peak."""
+def int8_bound(n, cin, h, w, cout, k, stride, pad, in_bytes=1,
+               out_bytes=4):
+    """Least time for one int8 conv: x (``in_bytes`` a value: 1 for mode
+    A's int8, 4 or 2 for mode B's float input), the int8 weights read once
+    and the output (``out_bytes`` a value: mode A's int32, mode B's x type)
+    written once over HBM bandwidth, against 2 M Cout K operations over the
+    int8 tensor-core peak."""
     p = (h + 2 * pad - k) // stride + 1
     q = (w + 2 * pad - k) // stride + 1
     m, kk = n * p * q, cin * k * k
-    nbytes = n * h * w * cin + cout * kk + 4 * m * cout
+    nbytes = in_bytes * n * h * w * cin + cout * kk + out_bytes * m * cout
     ops = 2 * m * cout * kk
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / PEAK_FLOPS["int8"]
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations", nbytes, ops)
 
 
-def int8_case(label, x_q, w_q, stride, pad, layout, reps, context=True):
-    """Hold ``conv_int8.cu`` against its plain version (float64 conv cast
-    to int32, on the card) bit for bit, and time the kernel, the plain
-    version and, as context (another function), fp32 and bf16
-    ``F.conv2d`` of the same shape in the same layout. No PyTorch call
-    computes the int8 conv: library_ms is None."""
+def int8_chain(x, x_scale, w_q, w_scale, b, stride, pad, layout):
+    """The int8 conv layer unfused, as separate launches on the card:
+    quantize_symmetric (torch), conv2d_int8 (mode A, weights packed in the
+    call), the dequantize (torch), each its own launches."""
+    from dcnn_tpu_torch.ops import quant
+    from dcnn_tpu_torch.ops.conv import conv2d_int8
+
+    y = conv2d_int8(quant.quantize_symmetric(x, x_scale), w_q, stride=stride,
+                    padding=pad, data_format=layout)
+    shape = [1] * 4
+    shape[1 if layout == "NCHW" else 3] = -1
+    y = y.float() * (x_scale * w_scale).reshape(shape)
+    if b is not None:
+        y = y + b.reshape(shape)
+    return y.to(x.dtype)
+
+
+def int8_case(label, x, x_scale, w_q, w_scale, b, stride, pad, layout, reps,
+              context=True):
+    """Hold ``conv_int8.cu`` at one conv: mode A (int8 -> int32) against
+    its plain version (a float64 conv cast to int32) and mode B (the fused
+    layer: float x quantized in the prologue, dequantized with the bias in
+    the epilogue) against the unfused chain on the card
+    (quant_conv2d_reference), both bit for bit, and, where the plan splits
+    K, mode B split against unsplit bit for bit; time mode A's kernel, mode
+    B's, the unfused chain (int8_chain, what the fused mode replaces)
+    and the plain versions, and bf16 ``F.conv2d`` of the same shape as
+    context (a float conv, another function). No PyTorch call computes
+    either int8 function: library_ms is None."""
     import torch
     import torch.nn.functional as F
 
-    from dcnn_tpu_torch.ops.conv import conv2d_int8, conv2d_int8_reference
+    from dcnn_tpu_torch.ops import _kernels, quant
+    from dcnn_tpu_torch.ops.conv import conv2d_int8_reference
 
-    def kern():
-        return conv2d_int8(x_q, w_q, stride=stride, padding=pad,
-                           data_format=layout)
+    x_q = quant.quantize_symmetric(x, x_scale)
+    wk = _kernels.pack_int8_weight(w_q)
+    scale = (x_scale * w_scale).float()
+    geo = dict(stride=(stride, stride), padding=(pad, pad),
+               data_format=layout)
 
-    def plain():
+    def mode_a(split=None):
+        return _kernels.conv_int8(x_q, w_q, packed=wk, ksplit=split, **geo)
+
+    def mode_b(split=None):
+        return _kernels.conv_int8_fused(x, x_scale, w_q, scale, b,
+                                        packed=wk, ksplit=split, **geo)
+
+    def plain_a():
         return conv2d_int8_reference(x_q, w_q, stride=stride, padding=pad,
                                      data_format=layout)
 
-    got, want = kern(), plain()
+    def plain_b():
+        return quant.quant_conv2d_reference(x, x_scale, w_q, w_scale, b,
+                                            stride=stride, padding=pad,
+                                            data_format=layout)
+
+    def chain():
+        return int8_chain(x, x_scale, w_q, w_scale, b, stride, pad, layout)
+
+    got_a, want_a, got_b, want_b = mode_a(), plain_a(), mode_b(), plain_b()
     torch.cuda.synchronize()
-    bad = int((got != want).sum())
-    if got.dtype != torch.int32 or got.shape != want.shape or bad:
-        fail(f"conv_int8 [{label}]: {bad} of {want.numel()} int32 outputs "
-             f"differ from the plain version ({got.dtype} {tuple(got.shape)}"
-             f" vs {tuple(want.shape)})")
-    xl = x_q if layout == "NCHW" else x_q.permute(0, 3, 1, 2)
+    for mode, got, want in (("A", got_a, want_a), ("B", got_b, want_b)):
+        bad = int((got != want).sum()) if got.shape == want.shape else -1
+        if got.dtype != want.dtype or bad:
+            fail(f"conv_int8 [{label}] mode {mode}: {bad} of {want.numel()}"
+                 f" outputs differ from the plain version ({got.dtype} "
+                 f"{tuple(got.shape)} vs {want.dtype} {tuple(want.shape)})")
+    xl = x if layout == "NCHW" else x.permute(0, 3, 1, 2)
     n, cin, h, w = xl.shape
     cout, _, k, _ = w_q.shape
+    es = x.element_size()
+    plan = _kernels.conv_int8_plan(
+        n, cin, h, w, cout, k, k, stride, pad, x.dtype,
+        _kernels._card_sms(x.device),
+        channels_last=layout == "NHWC" and cin % 16 == 0)
+    split_equal = None
+    if plan.ksplit > 1:
+        unsplit = mode_b(1)
+        split_equal = bool(torch.equal(unsplit, got_b))
+        if not split_equal:
+            fail(f"conv_int8 [{label}]: K split {plan.ksplit} differs from "
+                 f"the unsplit kernel")
+    if reps is None:  # held, not timed
+        print(f"conv_int8 [{label}] {str(x.dtype)[6:]} {layout}: A and B "
+              f"bit-equal{'' if split_equal is None else ', split = unsplit'}",
+              flush=True)
+        return {"case": label, "dtype": str(x.dtype)[6:], "max_abs_err": 0.0,
+                "ksplit": plan.ksplit, "split_equal": split_equal}
     k_reps, p_reps = reps
-    ms, plain_ms = device_ms(kern, k_reps), device_ms(plain, p_reps)
-    ctx = {}
+    ms_a, ms_b = device_ms(mode_a, k_reps), device_ms(mode_b, k_reps)
+    chain_ms = device_ms(chain, k_reps)
+    plain_a_ms, plain_b_ms = device_ms(plain_a, p_reps), device_ms(
+        plain_b, p_reps)
+    ctx = None
     if context:
-        for dt in (torch.float32, torch.bfloat16):
-            mf = torch.channels_last if layout == "NHWC" else None
-            xf = xl.to(dt)
-            wf = (w_q.to(dt).contiguous(memory_format=mf) if mf
-                  else w_q.to(dt))
-            ctx[str(dt).replace("torch.", "")] = device_ms(
-                lambda: F.conv2d(xf, wf, stride=stride, padding=pad), k_reps)
-    bound_ms, bound_by, nbytes, ops = int8_bound(n, cin, h, w, cout, k,
-                                                 stride, pad)
+        mf = torch.channels_last if layout == "NHWC" else None
+        xf = xl.to(torch.bfloat16)
+        wf = w_q.to(torch.bfloat16)
+        if mf:
+            wf = wf.contiguous(memory_format=mf)
+        ctx = device_ms(lambda: F.conv2d(xf, wf, stride=stride, padding=pad),
+                        k_reps)
+    bound_a, by_a, bytes_a, ops = int8_bound(n, cin, h, w, cout, k, stride,
+                                             pad)
+    bound_b, by_b, bytes_b, _ = int8_bound(n, cin, h, w, cout, k, stride,
+                                           pad, es, es)
     print(f"conv_int8 [{label}] N{n} Cin{cin} {h}x{w} -> Cout{cout} k{k} "
-          f"s{stride} p{pad} {layout}: bit-equal; kernel_ms={ms:.6f} "
-          f"plain_ms={plain_ms:.6f} bound_ms={bound_ms:.3e} ({bound_by}), "
-          f"kernel at {100 * bound_ms / ms:.1f}% of bound; F.conv2d (a "
-          f"float conv, context) ms {ctx}", flush=True)
+          f"s{stride} p{pad} {layout} {str(x.dtype)[6:]}: A and B bit-equal"
+          f"{'' if split_equal is None else f', K split {plan.ksplit} = unsplit'}"
+          f"; A {ms_a:.6f} ms ({100 * bound_a / ms_a:.1f}% of "
+          f"{bound_a:.3e}, {by_a}); B {ms_b:.6f} ms ({100 * bound_b / ms_b:.1f}"
+          f"% of {bound_b:.3e}, {by_b}); unfused chain {chain_ms:.6f} ms; "
+          f"plain A {plain_a_ms:.6f} B {plain_b_ms:.6f} ms; bf16 F.conv2d "
+          f"(context) {ctx}; plan {plan.describe()}", flush=True)
     return {"case": label, "N": n, "Cin": cin, "H": h, "W": w, "Cout": cout,
             "k": k, "stride": stride, "pad": pad, "layout": layout,
-            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
-            "library_ms": None, "conv2d_ms_other_function": ctx,
-            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
-            "ops": ops}
+            "dtype": str(x.dtype)[6:], "max_abs_err": 0.0, "ms": ms_b,
+            "plain_ms": plain_b_ms, "bound_ms": bound_b, "bound_by": by_b,
+            "library_ms": None, "bytes": bytes_b, "ops": ops,
+            "mode_a": {"ms": ms_a, "plain_ms": plain_a_ms,
+                       "bound_ms": bound_a, "bound_by": by_a,
+                       "bytes": bytes_a},
+            "chain_ms": chain_ms, "bf16_conv2d_ms_other_function": ctx,
+            "ksplit": plan.ksplit, "split_equal": split_equal}
 
 
-def int8_sites(qmodel, x, label, reps):
+def int8_sites(qmodel, x, label, reps, dtype=None):
     """The int8 model's conv inputs at batch ``x`` (hooked), each site
-    held and timed by int8_case."""
+    held and timed by int8_case (``dtype``: the inputs cast to it and
+    held, not timed)."""
     import torch
 
     from dcnn_tpu_torch.nn import QuantConv2DLayer
-    from dcnn_tpu_torch.ops import quant
 
     seen = []
     hooks = [m.register_forward_pre_hook(
@@ -2495,10 +2578,13 @@ def int8_sites(qmodel, x, label, reps):
              f"{INT8_CONVS}")
     cases = []
     for i, (mod, xin) in enumerate(seen):
-        x_q = quant.quantize_symmetric(xin, mod.x_scale)
         (s, _), (p, _) = mod.stride, mod.padding  # square in the zoo
-        cases.append(int8_case(f"{label} site {i} {mod.name}", x_q, mod.w_q,
-                               s, p, mod.data_format, reps))
+        if dtype is not None:
+            xin = xin.to(dtype)
+        cases.append(int8_case(f"{label} site {i} {mod.name}", xin,
+                               mod.x_scale, mod.w_q, mod.w_scale, mod.b, s,
+                               p, mod.data_format,
+                               reps if dtype is None else None))
     del seen
     return cases
 
@@ -2546,10 +2632,11 @@ def phase_serve_int8(card):
     InferenceEngine.from_model(..., int8_calib=...) behind DynamicBatcher
     (open-loop traffic); the launch counters over that path; logits
     bit-identical at every bucket 1..32 and near the CPU int8 engine;
-    conv_int8.cu held bit for bit against its plain version at the 21
-    conv sites at B=32 and B=256 and at ragged shapes in both layouts;
-    the int8 engine's batch time beside the folded fp32 and bf16
-    engines'."""
+    conv_int8.cu's two modes held bit for bit against their plain
+    versions at the 21 conv sites at B=32 and B=256 and at ragged shapes,
+    split K against unsplit, each timed beside the unfused chain; the CUDA
+    kernels a batch, profiled; the int8 engine's batch time beside the
+    folded fp32 and bf16 engines'."""
     import copy
 
     import numpy as np
@@ -2557,7 +2644,8 @@ def phase_serve_int8(card):
 
     from dcnn_tpu_torch.core import set_precision
     from dcnn_tpu_torch.interop import to_jax
-    from dcnn_tpu_torch.nn import quantize_model
+    from dcnn_tpu_torch.nn import QuantConv2DLayer, quantize_model
+    from dcnn_tpu_torch.ops import quant
     from dcnn_tpu_torch.serve import InferenceEngine
 
     t_phase = time.perf_counter()
@@ -2579,9 +2667,17 @@ def phase_serve_int8(card):
     answers, snap, warm = serve_open_loop(engine, pool, "resnet18")
     counts = launches()  # and ends here
     dispatched = len(engine.bucket_sizes) + warm + snap["batches"]
-    if counts["conv_int8"] != INT8_CONVS * dispatched:
-        fail(f"serve int8: conv_int8 launched {counts['conv_int8']} times "
-             f"for {dispatched} batches ({INT8_CONVS} convs each)")
+    if (counts["conv_int8_fused"] != INT8_CONVS * dispatched
+            or counts["conv_int8"]):
+        fail(f"serve int8: conv_int8_fused launched "
+             f"{counts['conv_int8_fused']} times for {dispatched} batches "
+             f"({INT8_CONVS} convs each), mode A conv_int8 "
+             f"{counts['conv_int8']} times (0 on the served path)")
+    packs = sum(m.packs for m in engine._apply.modules()
+                if isinstance(m, QuantConv2DLayer))
+    if packs != INT8_CONVS:
+        fail(f"serve int8: {packs} weight packs over {dispatched} batches, "
+             f"not one per conv layer ({INT8_CONVS})")
     if not engine.batch_invariant:
         fail("serve int8: the int8 engine is not batch_invariant")
     mine, once = _leaves(to_jax(engine._apply)), _leaves(to_jax(qmodel))
@@ -2609,50 +2705,106 @@ def phase_serve_int8(card):
           f"DynamicBatcher: {snap['batches']} batches, occupancy "
           f"{snap['batch_occupancy']}, p50 {snap['p50_ms']} ms, p99 "
           f"{snap['p99_ms']} ms, throughput {snap['throughput_rps']} "
-          f"samples/s; conv_int8 launches {counts['conv_int8']} = "
-          f"{INT8_CONVS} x {dispatched} batches ({len(engine.bucket_sizes)}"
-          f" engine warm-up, {warm} dispatcher warm-up, {snap['batches']} "
-          f"served); logits bit-identical at every batch 1..32; vs the CPU "
+          f"samples/s; conv_int8_fused launches "
+          f"{counts['conv_int8_fused']} = {INT8_CONVS} x {dispatched} "
+          f"batches ({len(engine.bucket_sizes)} engine warm-up, {warm} "
+          f"dispatcher warm-up, {snap['batches']} served), K-split reduces "
+          f"{counts['conv_int8_reduce']} "
+          f"({(counts['conv_int8_fused'] + counts['conv_int8_reduce']) / dispatched:.2f}"
+          f" conv launches a batch), mode A 0, weights packed {packs} times "
+          f"(once a layer); logits bit-identical at every batch 1..32; vs the CPU "
           f"int8 engine max |err| {err:.3e} ({err / scale:.3e} of "
           f"{scale:.3e}), {rows_equal}/32 rows bit-equal; on {card}",
           flush=True)
 
-    # the kernel against its plain version at every site and ragged shapes
+    # both modes against their plain versions at every site (B=32 and
+    # B=256, fp32; B=32 also in bf16) and at ragged shapes
     qcard = copy.deepcopy(qmodel).to("cuda")
     x32 = torch.from_numpy(pool[:32]).cuda()
     x256 = torch.from_numpy(rng.normal(size=(256, *cfg["input_shape"]))
                             .astype(np.float32)).cuda()
     sites32 = int8_sites(qcard, x32, "B32", (20, 3))
     sites256 = int8_sites(qcard, x256, "B256", (5, 2))
+    held = int8_sites(qcard, x32, "B32 bf16", None, torch.bfloat16)
     ragged = []
     for i, (n, cin, h, w, cout, k, s, p) in enumerate(INT8_RAGGED):
         g = np.random.default_rng(SEED + 20 + i)
-        xq = torch.from_numpy(g.integers(-127, 128, (n, cin, h, w),
-                                         dtype=np.int8)).cuda()
+        x = torch.from_numpy(g.normal(size=(n, cin, h, w)).astype(
+            np.float32)).cuda()
         wq = torch.from_numpy(g.integers(-127, 128, (cout, cin, k, k),
                                          dtype=np.int8)).cuda()
-        for layout in ("NCHW", "NHWC"):
-            xl = (xq if layout == "NCHW"
-                  else xq.permute(0, 2, 3, 1).contiguous())
-            ragged.append(int8_case(f"ragged {i}", xl, wq, s, p, layout,
+        ws = torch.from_numpy(g.uniform(1e-3, 1e-2, cout).astype(
+            np.float32)).cuda()
+        b = torch.from_numpy(g.normal(size=cout).astype(np.float32)).cuda()
+        xs = quant.tensor_scale(x).cuda()
+        for layout, dt in (("NCHW", torch.float32), ("NHWC", torch.float32),
+                           ("NHWC", torch.bfloat16)):
+            xl = x if layout == "NCHW" else x.permute(0, 2, 3, 1).contiguous()
+            ragged.append(int8_case(f"ragged {i}", xl.to(dt), xs, wq, ws,
+                                    b if i % 2 == 0 else None, s, p, layout,
                                     (20, 5), context=False))
+    for label, sites in (("B32", sites32), ("B256", sites256)):
+        tot = {k: sum(c[k] for c in sites)
+               for k in ("ms", "chain_ms", "plain_ms", "bound_ms")}
+        tot_a = {k: sum(c["mode_a"][k] for c in sites)
+                 for k in ("ms", "plain_ms", "bound_ms")}
+        ctx = sum(c["bf16_conv2d_ms_other_function"] for c in sites)
+        print(f"conv_int8 {label} over the {INT8_CONVS} sites: B (fused) "
+              f"{tot['ms']:.6f} ms, bound {tot['bound_ms']:.6f} "
+              f"({100 * tot['bound_ms'] / tot['ms']:.1f}%); A "
+              f"{tot_a['ms']:.6f} ms, bound {tot_a['bound_ms']:.6f} "
+              f"({100 * tot_a['bound_ms'] / tot_a['ms']:.1f}%); unfused chain "
+              f"{tot['chain_ms']:.6f} ms; plain B {tot['plain_ms']:.6f}, A "
+              f"{tot_a['plain_ms']:.6f} ms; bf16 F.conv2d (context) "
+              f"{ctx:.6f} ms; split sites "
+              f"{sum(c['ksplit'] > 1 for c in sites)}, all bit-equal to "
+              f"unsplit; on {card}", flush=True)
 
-    # the int8 engine's batch time beside the folded fp32 and bf16 engines'
-    timing = {}
+    # CUDA kernels launched per int8 engine batch, profiled, on this path
+    # (one fused launch a conv) and unfused (int8_chain a conv)
+    chain_fwd = lambda mod, x: int8_chain(  # noqa: E731
+        x, mod.x_scale, mod.w_q, mod.w_scale, mod.b, mod.stride[0],
+        mod.padding[0], mod.data_format)
     engines = {"int8": InferenceEngine.from_model(
         copy.deepcopy(qmodel), fold=False, max_batch=256, device="cuda",
         warmup=False)}
     engines["fp32"] = InferenceEngine.from_model(
         float_cpu, fold=True, max_batch=256, device="cuda", warmup=False)
     engines["bf16"] = engines["fp32"]
-    for name, eng in engines.items():
+    profile = {}
+    fused_fwd = QuantConv2DLayer.forward
+    for path in ("int8", "int8 unfused chain"):
+        if path != "int8":
+            QuantConv2DLayer.forward = chain_fwd
+        try:
+            for b, x in ((32, x32), (256, x256)):
+                engines["int8"].run_padded(x)
+                profile[f"{path} B{b}"] = profiled(
+                    lambda: engines["int8"].run_padded(x), 1)
+        finally:
+            QuantConv2DLayer.forward = fused_fwd
+    print("serve int8: profiled CUDA kernels a batch (torch.profiler, one "
+          "batch each; launches exclude copies): " + json.dumps(
+              {k: {"launches": v["launches_per_step"],
+                   "copies": v["copies_per_step"],
+                   "device_busy_ms": v["busy_ms"], "wall_ms": v["wall_ms"]}
+               for k, v in profile.items()}), flush=True)
+
+    # the int8 engine's batch time (fused, and the unfused chain) beside the
+    # folded fp32 and bf16 engines'
+    timing = {}
+    for name in ("int8", "int8 unfused chain", "fp32", "bf16"):
+        eng = engines[name.split()[0]]
         set_precision("bf16" if name == "bf16" else "parity")
+        if name == "int8 unfused chain":
+            QuantConv2DLayer.forward = chain_fwd
         try:
             for b, x in ((32, x32), (256, x256)):
                 timing[f"{name} B{b}"] = eager_ms(
                     lambda: eng.run_padded(x), 10 if b == 32 else 5)
         finally:
             set_precision("parity")
+            QuantConv2DLayer.forward = fused_fwd
     for b in (32, 256):
         timing[f"int8 B{b} samples/s"] = b / timing[f"int8 B{b}"] * 1e3
     print(f"serve int8: batch wall ms (eager run_padded, host-issued, "
@@ -2664,8 +2816,8 @@ def phase_serve_int8(card):
     return {"launches": counts, "requests": len(answers), **snap,
             "max_abs_err_vs_cpu": err, "logit_scale": scale,
             "rows_bit_equal_vs_cpu": rows_equal, "sites_b32": sites32,
-            "sites_b256": sites256, "ragged": ragged, "timing_ms": timing,
-            "mha": mha}
+            "sites_b256": sites256, "held": held, "ragged": ragged,
+            "timing_ms": timing, "profile": profile, "mha": mha}
 
 
 def phase_serve_int8_mha(card):
@@ -2696,7 +2848,8 @@ def phase_serve_int8_mha(card):
     answers, snap, warm = serve_open_loop(engine, pool, "mha_classifier")
     counts = launches()  # and ends here
     dispatched = len(engine.bucket_sizes) + warm + snap["batches"]
-    if counts["flash_fwd"] != 2 * dispatched or counts["conv_int8"]:
+    if (counts["flash_fwd"] != 2 * dispatched or counts["conv_int8"]
+            or counts["conv_int8_fused"]):
         fail(f"serve int8 mha_classifier: flash_fwd launched "
              f"{counts['flash_fwd']} times for {dispatched} batches (2 "
              f"attention layers each); launches {counts}")
@@ -2910,25 +3063,38 @@ def bias_before_bn(model):
 
 
 def int8_row(serve_int8):
-    """Row 8, conv_int8.cu: launches on the int8 serving path, times summed
-    over the 21 conv sites of resnet18_tiny_imagenet at B=32 (and, under
-    "b256", at B=256), each site timed on its own; no library call
-    computes the int8 conv."""
+    """Row 8, conv_int8.cu: its fused mode (B, the one the int8 serving
+    path launches; with its K-split reduces) with launches on that path
+    and times summed over the 21 conv sites of resnet18_tiny_imagenet at
+    B=32 (and, under "b256", at B=256), each site timed on its own; mode A
+    (int8 -> int32, 0 launches on the served path) under "mode_a"; the
+    unfused chain under "chain_ms"; no library call computes either
+    function."""
     def total(sites):
         out = {k: sum(c[k] for c in sites)
-               for k in ("ms", "plain_ms", "bound_ms")}
+               for k in ("ms", "plain_ms", "bound_ms", "chain_ms")}
         out["bound_by"] = max(sites, key=lambda c: c["bound_ms"])["bound_by"]
+        out["mode_a"] = {k: sum(c["mode_a"][k] for c in sites)
+                         for k in ("ms", "plain_ms", "bound_ms")}
+        out["mode_a"]["bound_by"] = max(
+            sites, key=lambda c: c["mode_a"]["bound_ms"])["mode_a"]["bound_by"]
         return out
 
     cases = (serve_int8["sites_b32"] + serve_int8["sites_b256"]
-             + serve_int8["ragged"])
-    n = serve_int8["launches"]["conv_int8"]
-    return {"name": "conv_int8", "route": "cuda",
+             + serve_int8["held"] + serve_int8["ragged"])
+    counts = serve_int8["launches"]
+    b32 = total(serve_int8["sites_b32"])
+    mode_a = b32.pop("mode_a")
+    return {"name": "conv_int8_fused", "route": "cuda",
             "source": "dcnn_tpu_torch/ops/csrc/conv_int8.cu",
-            "replaces": "dcnn_tpu/ops/conv.py:77", "launches": n,
-            "launches_by_path": {"serve_int8": n},
+            "replaces": "dcnn_tpu/ops/conv.py:77", "launches":
+            counts["conv_int8_fused"],
+            "launches_by_path": {"serve_int8": counts["conv_int8_fused"]},
+            "splitk_reduce_launches": counts["conv_int8_reduce"],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
-            **total(serve_int8["sites_b32"]), "library_ms": None,
+            **b32, "library_ms": None,
+            "mode_a": {"name": "conv_int8", "launches": counts["conv_int8"],
+                       **mode_a, "library_ms": None},
             "b256": total(serve_int8["sites_b256"]), "cases": cases}
 
 

@@ -13,7 +13,11 @@ The recipe is the JAX package's static w8a8 PTQ:
   adds, the attention core's softmax) stays float: each int32 accumulator
   is dequantized per channel right after its conv or GEMM, in the JAX
   order (``scale = x_scale · w_scale`` rounded once, then
-  ``y_i32 · scale + b``, then the cast to the input's dtype).
+  ``y_i32 · scale + b``, then the cast to the input's dtype). On the card
+  a conv layer is one launch of the fused int8 conv
+  (:func:`~dcnn_tpu_torch.ops.quant.quant_conv2d`: quantize, products and
+  dequantize in one kernel, bit for bit this chain), from weights packed
+  once per layer and device (:meth:`QuantConv2DLayer.kernel_operands`).
 
 :func:`quantize_model` walks the model as ``fold_batchnorm`` does (into
 every residual block's main and shortcut paths) and returns a new model;
@@ -34,8 +38,8 @@ import torch
 from torch import nn
 
 from ..core.precision import cast_to_compute
+from ..ops import _kernels
 from ..ops import quant as quant_ops
-from ..ops.conv import conv2d_int8
 from .attention_layer import MultiHeadAttentionLayer
 from .factory import register_layer
 from .layer import ParameterizedLayer
@@ -46,6 +50,11 @@ from .sequential import Sequential
 
 def _frozen(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
+
+
+def _version(t: torch.Tensor) -> int:
+    """``t``'s in-place version counter (an inference tensor keeps none)."""
+    return -1 if t.is_inference() else t._version
 
 
 class _QuantizedLayer(ParameterizedLayer):
@@ -112,6 +121,9 @@ class QuantConv2DLayer(_QuantizedLayer):
         self.use_bias = bool(use_bias)
         self.in_channels = in_channels
         self.data_format = data_format
+        self._operands: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+        self._operands_key = None
+        self.packs = 0
         for n in ("w_q", "w_scale", "x_scale", "b"):
             self.register_parameter(n, None)
 
@@ -121,13 +133,33 @@ class QuantConv2DLayer(_QuantizedLayer):
         self._template((self.out_channels, cin, *self.kernel_size),
                        self.out_channels, device)
 
+    def set_quantized(self, w_q, w_scale, x_scale, b) -> None:
+        super().set_quantized(w_q, w_scale, x_scale, b)
+        self._operands_key = None
+
+    def kernel_operands(self) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The fused kernel's operands, (packed weights, ``x_scale ·
+        w_scale`` in fp32), made once and kept (not parameters: the
+        state_dict is unchanged); made again when ``w_q``, ``w_scale`` or
+        ``x_scale`` is another tensor, on another device or written in
+        place (a ``load_state_dict``, a ``.to()``). ``packs`` counts how
+        often they were made."""
+        key = tuple((t.data_ptr(), t.device, _version(t))
+                    for t in (self.w_q, self.w_scale, self.x_scale))
+        if key != self._operands_key:
+            with torch.no_grad():
+                self._operands = (_kernels.pack_int8_weight(self.w_q),
+                                  (self.x_scale * self.w_scale).float())
+            self._operands_key = key
+            self.packs += 1
+        return self._operands
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         self._check_mode()
-        x_q = quant_ops.quantize_symmetric(x, self.x_scale)
-        y = conv2d_int8(x_q, self.w_q, stride=self.stride,
-                        padding=self.padding, data_format=self.data_format)
-        return self._dequant(y, x.dtype,
-                             1 if self.data_format == "NCHW" else 3)
+        return quant_ops.quant_conv2d(
+            x, self.x_scale, self.w_q, self.w_scale, self.b,
+            stride=self.stride, padding=self.padding,
+            data_format=self.data_format, packed=self.kernel_operands())
 
 
 @register_layer("quant_dense")

@@ -9,9 +9,10 @@ unchanged one is reused. All missing libraries are compiled at once, one
 ``nvcc`` process per source.
 
 The 3×3 convs' tiling (:func:`conv_plan`), the flash forward's
-(:func:`flash_plan`) and the flash backward's (:func:`flash_bwd_plan`) are
-chosen here, in pure Python, and passed to ``csrc/conv3x3_tc.cu``,
-``csrc/flash_fwd.cu`` and ``csrc/flash_bwd.cu``, so the CPU tests reach
+(:func:`flash_plan`), the flash backward's (:func:`flash_bwd_plan`) and the
+int8 conv's (:func:`conv_int8_plan`) are chosen here, in pure Python, and
+passed to ``csrc/conv3x3_tc.cu``, ``csrc/flash_fwd.cu``,
+``csrc/flash_bwd.cu`` and ``csrc/conv_int8.cu``, so the CPU tests reach
 them; the conv's tile format (:data:`TILE_FORMAT`) is defined here alone
 and reaches that source's build as ``-D`` flags. The headers in ``csrc/``
 (``hopper.cuh``, ``flash.cuh``) are part of every library's hash.
@@ -21,7 +22,8 @@ function reports a CUDA error, and counts its launches in a plain integer
 attribute (``flash_fwd.launches``, ``flash_bwd_dq.launches``,
 ``flash_bwd_dkv.launches``, ``conv3x3_s1.launches``,
 ``conv3x3_s1_pairs.launches``, ``conv3x3_s1_bnrelu_in.launches``,
-``fused_scale_bias_relu.launches``, ``conv_int8.launches``), so a run can
+``fused_scale_bias_relu.launches``, ``conv_int8.launches``,
+``conv_int8_fused.launches``, ``conv_int8_reduce.launches``), so a run can
 show that its path went through the kernel. :data:`COUNTED` lists them
 all.
 """
@@ -37,7 +39,7 @@ import subprocess
 import threading
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -137,9 +139,9 @@ def _bind(lib: ctypes.CDLL) -> None:
         lib.dcnn_scale_bias_relu.argtypes = [p] * 4 + [ctypes.c_longlong, i,
                                                       i, p]
         lib.dcnn_scale_bias_relu.restype = i
+    ll = ctypes.c_longlong
     if hasattr(lib, "dcnn_conv_int8"):
-        lib.dcnn_conv_int8.argtypes = ([p] * 3 + [i] * 13
-                                       + [ctypes.c_longlong] * 8 + [i, i, p])
+        lib.dcnn_conv_int8.argtypes = [p] * 7 + [i] * 13 + [ll] * 8 + [i] * 11 + [p]
         lib.dcnn_conv_int8.restype = i
     lib.dcnn_cuda_error_string.argtypes = [i]
     lib.dcnn_cuda_error_string.restype = ctypes.c_char_p
@@ -945,38 +947,199 @@ def fused_scale_bias_relu(x: torch.Tensor, scale: torch.Tensor,
     return y
 
 
-# conv_int8.cu's packed weight rows: K padded to whole 16-byte loads
-INT8_K_ALIGN = 16
+# conv_int8.cu's tiling: tiles of 128 output pixels (two 64-row wgmma
+# slabs) by 64 or 128 output channels, K in chunks of 128 bytes (one
+# 128-byte swizzled row a pixel and a channel), a ring of up to
+# INT8_MAX_STAGES stages; the input types it takes (mode A int8, mode B
+# fp32 and bf16) and their codes
+INT8_TILE_M = 128
+INT8_CHUNK = 128
+INT8_MAX_STAGES = 4
+# the most shared memory a halo buffer takes (the tile's input box,
+# quantized once a slice of channels; the block holds two beside a ring
+# of 4 stages: 2 x 48 KB + 4 x 32 KB at BN 128)
+INT8_HALO_MAX = 49152
+INT8_IN_TYPES = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+
+
+def int8_slice(c: int) -> int:
+    """The channels of one K slice of conv_int8.cu for C input channels: C,
+    or 128 where C is a larger multiple of 128 (a slice's taps then fill
+    whole 128-byte chunks, one tap each)."""
+    return INT8_CHUNK if c > INT8_CHUNK and c % INT8_CHUNK == 0 else c
+
+
+def int8_halo_bytes(n: int, c: int, h: int, w: int, r: int, s: int, stride,
+                    pad) -> int:
+    """The largest halo box over the 128-pixel tiles of this conv, in bytes
+    (int8, one slice of channels, :func:`int8_slice`): as the kernel's
+    ``halo_box`` cuts it, the input rows a tile's output rows read (all of
+    them where the tile spans images) of every image it spans, all
+    columns."""
+    (sh, sw), (ph, pw) = _int_pair(stride), _int_pair(pad)
+    p = (h + 2 * ph - r) // sh + 1
+    q = (w + 2 * pw - s) // sw + 1
+    m, pq = n * p * q, p * q
+    m0 = torch.arange(0, m, INT8_TILE_M, dtype=torch.int64)
+    m1 = torch.clamp(m0 + INT8_TILE_M, max=m) - 1
+    n0, n1 = m0 // pq, m1 // pq
+    one = n0 == n1
+    lo = torch.where(one, (m0 - n0 * pq) // q * sh - ph, torch.full_like(m0, -ph))
+    hi = torch.where(one, (m1 - n1 * pq) // q * sh - ph + r - 1,
+                     torch.full_like(m0, (p - 1) * sh - ph + r - 1))
+    rows = torch.clamp(torch.clamp(hi, max=h - 1) - torch.clamp(lo, min=0) + 1,
+                       min=0)
+    return int(((n1 - n0 + 1) * rows).max()) * w * int8_slice(c)
+
+
+def int8_cout_tile(o: int) -> int:
+    """The output channels of one conv_int8.cu tile for O channels: 64 up
+    to 64, else 128."""
+    return 64 if o <= 64 else 128
+
+
+def int8_smem(bn: int, stages: int, halo: int = 0) -> int:
+    """Shared memory of a conv_int8.cu block in bytes (the kernel's
+    ``smem_bytes``): 1024 of alignment slack, per stage a 128 x 128-byte A
+    tile and a bn x 128-byte weight tile, two halo buffers of ``halo``
+    bytes (one per copying warpgroup), 256 for the barriers."""
+    return 1024 + stages * (INT8_TILE_M + bn) * INT8_CHUNK + 2 * halo + 256
+
+
+@dataclass(frozen=True)
+class ConvInt8Plan:
+    """How ``csrc/conv_int8.cu`` cuts one conv: ``tiles_m`` tiles of 128
+    output pixels by ``tiles_n`` tiles of ``bn`` output channels, K in
+    ``chunks`` chunks of 128 bytes (slices of :func:`int8_slice` channels,
+    each whole chunks) split in ``ksplit`` ranges across blocks, a ring of
+    ``stages`` stages (``smem`` bytes a block), and how the A tile is
+    copied: ``"vec"`` (16-byte units of 16 neighbouring channels:
+    channels-last, C a multiple of 16) or ``"gather"`` (value by value
+    through the strides), from x itself (``halo`` 0) or from the tile's
+    halo, loaded and quantized once a slice into one of two ``halo``-byte
+    buffers (float input and kernels of more than one tap whose boxes fit
+    INT8_HALO_MAX)."""
+    bn: int
+    stages: int
+    ksplit: int
+    copy: str
+    smem: int
+    tiles_m: int
+    tiles_n: int
+    chunks: int
+    halo: int = 0
+
+    @property
+    def works(self) -> int:
+        return self.tiles_m * self.tiles_n * self.ksplit
+
+    def k_ranges(self) -> Tuple[Tuple[int, int], ...]:
+        """Each split's chunks [c0, c1) as the kernel computes them."""
+        return tuple((k * self.chunks // self.ksplit,
+                      (k + 1) * self.chunks // self.ksplit)
+                     for k in range(self.ksplit))
+
+    def describe(self) -> str:
+        return (f"{self.tiles_m}x{self.tiles_n} tiles of 128x{self.bn}, K "
+                f"split {self.ksplit} of {self.chunks} chunks, "
+                f"{self.stages} stages, {self.copy} copies from "
+                + (f"a {self.halo}-byte halo" if self.halo else "x"))
+
+
+def _int_pair(v) -> Tuple[int, int]:
+    return (int(v), int(v)) if isinstance(v, int) else (int(v[0]), int(v[1]))
+
+
+@functools.lru_cache(maxsize=4096)
+def conv_int8_plan(n: int, c: int, h: int, w: int, o: int, r: int, s: int,
+                   stride, pad, in_dtype: torch.dtype, sms: int = CARD_SMS,
+                   *, channels_last: bool = True,
+                   ksplit: Optional[int] = None) -> ConvInt8Plan:
+    """The tiling of ``conv_int8.cu`` for an (n, c, h, w) input, O output
+    channels, an r x s kernel, ``stride`` and symmetric ``pad`` (ints or
+    pairs) and input type ``in_dtype`` (int8: mode A; fp32, bf16: mode B):
+    channel tiles of :func:`int8_cout_tile`; a ring as deep as shared
+    memory holds, up to INT8_MAX_STAGES; where the tiles are fewer than
+    ``sms``, K split in min(chunks, sms // tiles) ranges, so the work items
+    fill the card in one wave and no range is empty (``ksplit`` forces a
+    split, 1 none); 16-byte unit copies where ``channels_last`` (the
+    caller's test: channel stride 1 and the other strides and the base
+    16-byte aligned) and C % 16 == 0, else the gather; the halo copies for
+    float input (mode B, whose values are quantized once a tile there
+    rather than once a tap) where the kernel has more than one tap and the
+    largest box (:func:`int8_halo_bytes`, rounded up to 1024) fits
+    INT8_HALO_MAX (then a ring of 4, 2 stages for each copying
+    warpgroup); int8 input is read straight from x, two stages in flight.
+    Cached."""
+    (sh, sw), (ph, pw) = _int_pair(stride), _int_pair(pad)
+    if in_dtype not in INT8_IN_TYPES:
+        raise TypeError(f"conv_int8_plan: input type {in_dtype} not in "
+                        f"{tuple(INT8_IN_TYPES)}")
+    p = (h + 2 * ph - r) // sh + 1
+    q = (w + 2 * pw - s) // sw + 1
+    if min(n, c, o, r, s, sh, sw, p, q) < 1 or min(ph, pw) < 0:
+        raise ValueError(f"conv_int8_plan: empty or invalid conv: x ({n}, "
+                         f"{c}, {h}, {w}), {o} channels, kernel {r}x{s}, "
+                         f"stride {stride}, pad {pad}")
+    bn = int8_cout_tile(o)
+    tiles_m, tiles_n = _cdiv(n * p * q, INT8_TILE_M), _cdiv(o, bn)
+    cs = int8_slice(c)
+    chunks = c // cs * _cdiv(r * s * cs, INT8_CHUNK)
+    halo = 0
+    if r * s > 1 and in_dtype != torch.int8:
+        halo = _cdiv(int8_halo_bytes(n, c, h, w, r, s, (sh, sw), (ph, pw)),
+                     1024) * 1024
+        halo = halo if halo <= INT8_HALO_MAX else 0
+    per_stage = int8_smem(bn, 1) - int8_smem(bn, 0)
+    stages = min(INT8_MAX_STAGES,
+                 (SMEM_MAX - int8_smem(bn, 0, halo)) // per_stage)
+    if halo and stages < 4:  # a half of 2 stages for each copying warpgroup
+        halo = 0
+        stages = min(INT8_MAX_STAGES, (SMEM_MAX - int8_smem(bn, 0)) // per_stage)
+    tiles = tiles_m * tiles_n
+    if ksplit is None:
+        ksplit = 1 if tiles >= sms else min(chunks, sms // tiles)
+    if not 1 <= ksplit <= chunks:
+        raise ValueError(f"conv_int8_plan: K split {ksplit} outside 1.."
+                         f"{chunks} chunks")
+    copy = "vec" if channels_last and c % 16 == 0 else "gather"
+    return ConvInt8Plan(bn, stages, ksplit, copy, int8_smem(bn, stages, halo),
+                        tiles_m, tiles_n, chunks, halo)
 
 
 def pack_int8_weight(w: torch.Tensor) -> torch.Tensor:
-    """OIHW int8 weights as ``csrc/conv_int8.cu`` reads them: (O, Kp), each
-    row the (kh, kw, Cin) taps in that order, zero-padded to Kp, the next
-    multiple of :data:`INT8_K_ALIGN`."""
-    o = w.shape[0]
-    k = w[0].numel()
-    kp = _cdiv(k, INT8_K_ALIGN) * INT8_K_ALIGN
-    wk = w.permute(0, 2, 3, 1).reshape(o, k)
-    if kp != k:
-        wk = torch.nn.functional.pad(wk, (0, kp - k))
-    return wk.contiguous()
+    """OIHW int8 weights as ``csrc/conv_int8.cu`` reads them: (Opad, Kp),
+    row o in slices of cs = :func:`int8_slice` (Cin) input channels, each
+    slice its (kh, kw, channel) taps in that order, zero-padded to whole
+    INT8_CHUNK chunks (Kp their sum), and zero rows past O up to Opad
+    (whole channel tiles, :func:`int8_cout_tile`), so the kernel's weight
+    copies never leave the tensor."""
+    o, c, r, s = w.shape
+    cs = int8_slice(c)
+    kslice = r * s * cs
+    kpad = _cdiv(kslice, INT8_CHUNK) * INT8_CHUNK
+    opad = _cdiv(o, int8_cout_tile(o)) * int8_cout_tile(o)
+    wk = w.new_zeros((opad, c // cs, kpad))
+    wk[:o, :, :kslice] = (w.reshape(o, c // cs, cs, r, s)
+                          .permute(0, 1, 3, 4, 2).reshape(o, c // cs, kslice))
+    return wk.reshape(opad, -1)
 
 
-def conv_int8(x: torch.Tensor, w: torch.Tensor, *, stride: Tuple[int, int],
-              padding: Tuple[int, int], data_format: str) -> torch.Tensor:
-    """Launch ``csrc/conv_int8.cu``: int8 ``x`` (NCHW or NHWC, any
-    strides) and OIHW int8 ``w`` on one CUDA device, symmetric
-    ``padding``; returns the int32 conv, contiguous in ``data_format``.
-    Channels-last input with Cin a multiple of 16 takes the kernel's
-    16-byte loads; anything else its byte gather."""
-    fn = "conv_int8"
+def _check_int8(fn: str, x: torch.Tensor, w: torch.Tensor, stride, padding,
+                data_format: str, in_dtypes) -> Tuple[torch.Tensor, int, int]:
+    """x (NCHW or NHWC, any strides) of ``in_dtypes`` and OIHW int8 w on
+    one CUDA device; returns (x's logical NCHW view, P, Q)."""
     for name, t in (("x", x), ("w", w)):
         if t.device.type != "cuda" or t.device != x.device:
             raise ValueError(f"{fn}: {name} is on {t.device}, not on "
                              f"{x.device} (CUDA)")
-        if t.dtype != torch.int8 or t.ndim != 4:
-            raise TypeError(f"{fn}: {name} must be a 4-D int8 tensor, got "
-                            f"{t.dtype} {tuple(t.shape)}")
+    if x.dtype not in in_dtypes or x.ndim != 4:
+        raise TypeError(f"{fn}: x must be a 4-D tensor of "
+                        f"{tuple(in_dtypes)}, got {x.dtype} "
+                        f"{tuple(x.shape)}")
+    if w.dtype != torch.int8 or w.ndim != 4:
+        raise TypeError(f"{fn}: w must be a 4-D int8 tensor, got {w.dtype} "
+                        f"{tuple(w.shape)}")
     if data_format not in ("NCHW", "NHWC"):
         raise ValueError(f"{fn}: unsupported data_format {data_format!r}")
     # the logical (N, C, H, W) view and its strides, whatever the layout
@@ -990,28 +1153,171 @@ def conv_int8(x: torch.Tensor, w: torch.Tensor, *, stride: Tuple[int, int],
         raise ValueError(f"{fn}: bad stride {stride} or padding {padding}")
     p = (h + 2 * ph - r) // sh + 1
     q = (wd + 2 * pw - s) // sw + 1
-    if min(n, o, p, q) < 1 or n * p * q >= 2 ** 31 - 128:
-        raise ValueError(f"{fn}: empty or oversized output ({n}, {o}, {p}, "
-                         f"{q}) for x {tuple(x.shape)}, w {tuple(w.shape)}")
-    wk = pack_int8_weight(w)
-    y = torch.empty((n, o, p, q) if data_format == "NCHW" else (n, p, q, o),
-                    dtype=torch.int32, device=x.device)
-    yl = y if data_format == "NCHW" else y.permute(0, 3, 1, 2)
+    span = sum((d - 1) * abs(st) for d, st in zip(xl.shape, xl.stride()))
+    if min(n, o, p, q) < 1 or n * p * q * o >= 2 ** 31 or span >= 2 ** 31:
+        raise ValueError(f"{fn}: empty or oversized conv: output ({n}, {o}, "
+                         f"{p}, {q}) for x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}")
+    return xl, p, q
+
+
+@dataclass(frozen=True)
+class _Int8Launch:
+    """What a launch of conv_int8.cu takes besides its pointers, worked
+    out (and every check made) once per signature of its arguments."""
+    plan: ConvInt8Plan
+    out_shape: Tuple[int, ...]
+    out_dtype: torch.dtype
+    ws_numel: int
+    args: Tuple[int, ...]
+
+
+_int8_launches: Dict[tuple, _Int8Launch] = {}
+
+
+def _sig(t: Optional[torch.Tensor]):
+    return None if t is None else (t.dtype, t.device, t.shape,
+                                   t.is_contiguous())
+
+
+def _int8_launch(fn: str, x: torch.Tensor, w: torch.Tensor, stride, padding,
+                 data_format: str, xscale, scale, bias, packed: torch.Tensor,
+                 ksplit: Optional[int]) -> _Int8Launch:
+    """Check a launch's arguments and work out its plan and arguments."""
+    if scale is not None:
+        o = w.shape[0] if w.ndim == 4 else -1
+        for name, t, shape in (("x_scale", xscale, None),
+                               ("scale", scale, (o,)), ("bias", bias, (o,))):
+            if t is None and name == "bias":
+                continue
+            if (t is None or t.dtype != torch.float32 or t.device != x.device
+                    or not t.is_contiguous()
+                    or (t.numel() != 1 if shape is None
+                        else tuple(t.shape) != shape)):
+                raise ValueError(
+                    f"{fn}: {name} must be a contiguous fp32 "
+                    f"{'one-element tensor' if shape is None else shape} on "
+                    f"{x.device}, got {None if t is None else (t.dtype, tuple(t.shape), str(t.device))}")
+    xl, p, q = _check_int8(fn, x, w, stride, padding, data_format,
+                           (torch.int8,) if scale is None
+                           else (torch.float32, torch.bfloat16))
+    n, c, h, wd = xl.shape
+    o, _, r, s = w.shape
     xs = xl.stride()
-    vec = int(xs[1] == 1 and c % 16 == 0 and x.data_ptr() % 16 == 0
-              and all(v % 16 == 0 for v in (xs[0], xs[2], xs[3])))
-    lib = build()["conv_int8.cu"]
+    es = x.element_size()
+    aligned = (xs[1] == 1 and x.data_ptr() % 16 == 0
+               and all(v * es % 16 == 0 for v in (xs[0], xs[2], xs[3])))
+    sms = _card_sms(x.device)
+    plan = conv_int8_plan(n, c, h, wd, o, r, s, stride, padding, x.dtype,
+                          sms, channels_last=aligned, ksplit=ksplit)
+    want = (plan.tiles_n * plan.bn, plan.chunks * INT8_CHUNK)
+    if (packed.dtype != torch.int8 or tuple(packed.shape) != want
+            or packed.device != x.device or not packed.is_contiguous()):
+        raise ValueError(f"{fn}: packed weights must be contiguous int8 "
+                         f"{want} on {x.device} (pack_int8_weight), got "
+                         f"{packed.dtype} {tuple(packed.shape)} on "
+                         f"{packed.device}")
+    # y contiguous in data_format; its strides in (n, o, p, q) order
+    ys = ((o * p * q, p * q, q, 1) if data_format == "NCHW"
+          else (p * q * o, 1, q * o, o))
+    ypair = int(ys[1] == 1 and all(v % 2 == 0 for v in (ys[0], ys[2], ys[3])))
+    return _Int8Launch(
+        plan, (n, o, p, q) if data_format == "NCHW" else (n, p, q, o),
+        torch.int32 if scale is None else x.dtype,
+        plan.ksplit * n * p * q * o if plan.ksplit > 1 else 0,
+        (n, c, h, wd, o, p, q, r, s, *stride, *padding, *xs, *ys,
+         packed.shape[1], packed.shape[0], INT8_IN_TYPES[x.dtype], plan.bn,
+         plan.stages, plan.ksplit, int(plan.copy == "vec"), plan.halo,
+         ypair, plan.smem, sms))
+
+
+def _launch_int8(fn: str, x: torch.Tensor, w: torch.Tensor, stride,
+                 padding, data_format: str, *, xscale=None, scale=None,
+                 bias=None, packed: Optional[torch.Tensor] = None,
+                 ksplit: Optional[int] = None) -> torch.Tensor:
+    """Launch ``csrc/conv_int8.cu`` (mode A without ``scale``, mode B with
+    it), with its K-split reduce where the plan splits K. The packed
+    weights are ``packed`` where given (as :func:`pack_int8_weight` makes
+    them), else packed here; the split's int32 partial sums are scratch
+    allocated here. The checks, the plan and the C arguments are worked
+    out once per signature of the arguments (shapes, strides, types,
+    devices, the base's alignment) and kept."""
+    if packed is None:
+        packed = pack_int8_weight(w)
+    key = (scale is None, x.shape, x.stride(), x.dtype, x.device,
+           x.data_ptr() % 16 == 0, _sig(w), stride, padding, data_format,
+           ksplit, _sig(xscale), _sig(scale), _sig(bias), _sig(packed))
+    spec = _int8_launches.get(key)
+    if spec is None:
+        spec = _int8_launch(fn, x, w, stride, padding, data_format, xscale,
+                            scale, bias, packed, ksplit)
+        if len(_int8_launches) > 4096:
+            _int8_launches.clear()
+        _int8_launches[key] = spec
+    y = torch.empty(spec.out_shape, dtype=spec.out_dtype, device=x.device)
+    ws = (torch.empty(spec.ws_numel, dtype=torch.int32, device=x.device)
+          if spec.ws_numel else None)
+    lib = _libs.get("conv_int8.cu") or build()["conv_int8.cu"]
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.dcnn_conv_int8(x.data_ptr(), wk.data_ptr(), y.data_ptr(),
-                                 n, c, h, wd, o, p, q, r, s, sh, sw, ph, pw,
-                                 *xs, *yl.stride(), wk.shape[1], vec, stream)
+        err = lib.dcnn_conv_int8(
+            x.data_ptr(), packed.data_ptr(), y.data_ptr(),
+            None if ws is None else ws.data_ptr(),
+            None if xscale is None else xscale.data_ptr(),
+            None if scale is None else scale.data_ptr(),
+            None if bias is None else bias.data_ptr(), *spec.args,
+            torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, fn, err)
+    if ws is not None:
+        conv_int8_reduce.launches += 1
+    return y
+
+
+def conv_int8_reduce() -> int:
+    """The launch count of ``conv_int8.cu``'s K-split reduce, which
+    :func:`conv_int8` and :func:`conv_int8_fused` launch in the same C call
+    right after a conv whose plan splits K (the int32 partial sums added in
+    split order, through the conv's epilogue). Returns the count."""
+    return conv_int8_reduce.launches
+
+
+def conv_int8(x: torch.Tensor, w: torch.Tensor, *, stride: Tuple[int, int],
+              padding: Tuple[int, int], data_format: str,
+              packed: Optional[torch.Tensor] = None,
+              ksplit: Optional[int] = None) -> torch.Tensor:
+    """Launch ``csrc/conv_int8.cu`` in mode A: int8 ``x`` (NCHW or NHWC,
+    any strides) and OIHW int8 ``w`` on one CUDA device, symmetric
+    ``padding``; returns the int32 conv, contiguous in ``data_format``.
+    Tiled by :func:`conv_int8_plan` (``ksplit`` forces its K split); the
+    weights packed here unless ``packed`` holds them already."""
+    y = _launch_int8("conv_int8", x, w, stride, padding, data_format,
+                     packed=packed, ksplit=ksplit)
     conv_int8.launches += 1
     return y
 
 
+def conv_int8_fused(x: torch.Tensor, x_scale: torch.Tensor, w: torch.Tensor,
+                    scale: torch.Tensor, bias: Optional[torch.Tensor], *,
+                    stride: Tuple[int, int], padding: Tuple[int, int],
+                    data_format: str, packed: Optional[torch.Tensor] = None,
+                    ksplit: Optional[int] = None) -> torch.Tensor:
+    """Launch ``csrc/conv_int8.cu`` in mode B, the int8 conv layer in one
+    kernel: fp32 or bf16 ``x`` (NCHW or NHWC, any strides) quantized by
+    ``x_scale`` (a one-element fp32 tensor on x's device) in the prologue,
+    the exact int8 products with OIHW int8 ``w``, and ``acc · scale[o] +
+    bias[o]`` (``scale`` = x_scale · w_scale, contiguous fp32 (O,); ``bias``
+    the same or None) in the epilogue, cast to x's type. Returns the
+    output contiguous in ``data_format``, bit for bit the unfused chain
+    (quantize_symmetric, :func:`conv_int8`, the layer's dequantize)."""
+    y = _launch_int8("conv_int8_fused", x, w, stride, padding, data_format,
+                     xscale=x_scale, scale=scale, bias=bias, packed=packed,
+                     ksplit=ksplit)
+    conv_int8_fused.launches += 1
+    return y
+
+
 conv_int8.launches = 0
+conv_int8_fused.launches = 0
+conv_int8_reduce.launches = 0
 conv3x3_s1.launches = 0
 conv3x3_s1_bnrelu_in.launches = 0
 conv3x3_s1_pairs.launches = 0
@@ -1020,4 +1326,4 @@ fused_scale_bias_relu.launches = 0
 # every launch-counted wrapper, for runs that reset and read the counts
 COUNTED = (flash_fwd, flash_bwd_dq, flash_bwd_dkv, conv3x3_s1,
            conv3x3_s1_pairs, conv3x3_s1_bnrelu_in, fused_scale_bias_relu,
-           conv_int8)
+           conv_int8, conv_int8_fused, conv_int8_reduce)

@@ -11,6 +11,13 @@ from the same float inputs.
 columns where its shape rules refuse a shape (padding adds exact zeros);
 on a CPU tensor it is the plain version, a float64 product cast to int32,
 exact because every partial sum is an integer below 2^53.
+
+:func:`quant_conv2d` is the whole int8 conv layer: quantize the float input,
+the exact int8 conv, dequantize with the bias, in the JAX order
+(``dcnn_tpu/nn/quantize.py`` ``QuantConv2DLayer.apply``). On a CUDA tensor
+it is one launch of ``csrc/conv_int8.cu``'s fused mode (two where K is
+split), bit for bit the chain; on a CPU tensor the chain itself,
+:func:`quant_conv2d_reference`.
 """
 
 from __future__ import annotations
@@ -19,6 +26,9 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from . import _kernels
+from .conv import _pair, conv2d_int8_reference
 
 # int8 symmetric range; -128 is left out so that the range is symmetric
 QMAX = 127.0
@@ -120,3 +130,49 @@ def dense_int8(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     lead = x_q.shape[:-1]
     y = _int_mm_padded(x_q.reshape(-1, x_q.shape[-1]), w_q)
     return y.reshape(*lead, w_q.shape[0])
+
+
+def quant_conv2d_reference(x: torch.Tensor, x_scale: torch.Tensor,
+                           w_q: torch.Tensor, w_scale: torch.Tensor,
+                           b: Optional[torch.Tensor], *, stride=1, padding=0,
+                           data_format: str = "NCHW") -> torch.Tensor:
+    """Plain version of :func:`quant_conv2d`, the JAX layer's chain:
+    ``quantize_symmetric`` of x, the int8 conv (float64, exact), then
+    ``y · (x_scale · w_scale) + b`` with the scale product rounded once,
+    cast to x's dtype."""
+    x_q = quantize_symmetric(x, x_scale)
+    y = conv2d_int8_reference(x_q, w_q, stride=stride, padding=padding,
+                              data_format=data_format)
+    shape = [1] * 4
+    shape[1 if data_format == "NCHW" else 3] = -1
+    y = y.float() * (x_scale * w_scale).reshape(shape)
+    if b is not None:
+        y = y + b.reshape(shape)
+    return y.to(x.dtype)
+
+
+def quant_conv2d(x: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
+                 w_scale: torch.Tensor, b: Optional[torch.Tensor], *,
+                 stride=1, padding=0, data_format: str = "NCHW",
+                 packed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                 ) -> torch.Tensor:
+    """The int8 conv layer on float ``x`` (NCHW or NHWC): per-tensor input
+    scale ``x_scale`` (fp32, one element), OIHW int8 ``w_q`` with fp32
+    per-channel ``w_scale``, fp32 bias ``b`` or None; returns x's dtype.
+    ``packed``: the kernel's operands made once by the caller,
+    (``_kernels.pack_int8_weight(w_q)``, ``x_scale · w_scale`` in fp32);
+    made here where None. The plain version needs neither."""
+    if data_format not in ("NCHW", "NHWC"):
+        raise ValueError(f"unsupported data_format {data_format!r}")
+    if x.device.type == "cpu":
+        return quant_conv2d_reference(x, x_scale, w_q, w_scale, b,
+                                      stride=stride, padding=padding,
+                                      data_format=data_format)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"quant_conv2d: no implementation for {x.device}")
+    wk, scale = packed if packed is not None else (
+        _kernels.pack_int8_weight(w_q), (x_scale * w_scale).float())
+    return _kernels.conv_int8_fused(x, x_scale, w_q, scale, b,
+                                    stride=_pair(stride),
+                                    padding=_pair(padding),
+                                    data_format=data_format, packed=wk)

@@ -1108,6 +1108,173 @@ def test_conv_int8_kernel_refuses_what_it_cannot_take():
                            padding=(0, 0), data_format="NCHW")
 
 
+def _quant_layer_inputs(seed, n, cin, h, w, cout, k, layout, dtype):
+    """Float x (in ``layout``, ``dtype``), its fp32 scale on the card,
+    int8 OIHW weights, per-channel fp32 weight scales and bias, all on the
+    card, from numpy seeds."""
+    from dcnn_tpu_torch.ops import quant
+
+    rng = np.random.default_rng(seed)
+    x = rng.normal(0, 1, (n, cin, h, w)).astype(np.float32)
+    if layout == "NHWC":
+        x = np.ascontiguousarray(x.transpose(0, 2, 3, 1))
+    xt = torch.from_numpy(x).to("cuda", dtype)
+    wt = rng.integers(-127, 128, (cout, cin, k, k), dtype=np.int8)
+    w_scale = rng.uniform(1e-3, 1e-2, cout).astype(np.float32)
+    b = rng.normal(0, 1, cout).astype(np.float32)
+    return (xt, quant.tensor_scale(xt).cuda(), torch.from_numpy(wt).cuda(),
+            torch.from_numpy(w_scale).cuda(), torch.from_numpy(b).cuda())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+@pytest.mark.parametrize("k,stride,pad", INT8_GEOMETRIES)
+@pytest.mark.parametrize("cin,cout", [(3, 64), (16, 8), (17, 70), (64, 128)])
+def test_conv_int8_fused_equals_unfused_chain_on_card(k, stride, pad, layout,
+                                                      cin, cout, dtype):
+    """The fused mode (quantize in the prologue, dequantize and bias in the
+    epilogue) equals the unfused chain on the card (quantize_symmetric,
+    the exact int8 conv, the dequantize) bit for bit, with and without a
+    bias, in x's dtype and layout, one launch."""
+    from dcnn_tpu_torch.ops import quant
+
+    x, xs, w, ws, b = _quant_layer_inputs(k * 11 + cin, 3, cin, 13, 11, cout,
+                                          k, layout, dtype)
+    for bias in (b, None):
+        before = _kernels.conv_int8_fused.launches
+        got = quant.quant_conv2d(x, xs, w, ws, bias, stride=stride,
+                                 padding=pad, data_format=layout)
+        torch.cuda.synchronize()
+        assert _kernels.conv_int8_fused.launches == before + 1
+        want = quant.quant_conv2d_reference(x, xs, w, ws, bias, stride=stride,
+                                            padding=pad, data_format=layout)
+        assert got.dtype == dtype and got.is_contiguous()
+        assert got.shape == want.shape
+        assert torch.equal(got, want), float((got.float() - want.float())
+                                             .abs().max())
+
+
+# resnet18_tiny_imagenet's 21 convs at a 64x64 input: (Cin, H, W, Cout,
+# k, stride, pad) of each conv's input
+RESNET18_SITES = [(3, 64, 64, 32, 3, 1, 1)]
+for _cin, _cout, _hw, _s in ((32, 64, 32, 1), (64, 64, 32, 1),
+                             (64, 128, 32, 2), (128, 128, 16, 1),
+                             (128, 256, 16, 2), (256, 256, 8, 1),
+                             (256, 512, 8, 2), (512, 512, 4, 1)):
+    RESNET18_SITES += [(_cin, _hw, _hw, _cout, 3, _s, 1),
+                       (_cout, _hw // _s, _hw // _s, _cout, 3, 1, 1)]
+    if _cin != _cout:
+        RESNET18_SITES.append((_cin, _hw, _hw, _cout, 1, _s, 0))
+
+
+@pytest.mark.parametrize("batch", [1, 3, 8, 32])
+def test_conv_int8_fused_at_resnet18_sites_on_card(batch):
+    """The fused mode at every ResNet-18 site, NHWC fp32, at batches whose
+    plans differ (halo sizes, K splits, direct fallbacks): bit for bit
+    the unfused chain on the card."""
+    from dcnn_tpu_torch.ops import quant
+
+    for i, (cin, h, w, cout, k, stride, pad) in enumerate(RESNET18_SITES):
+        x, xs, wq, ws, b = _quant_layer_inputs(i, batch, cin, h, w, cout, k,
+                                               "NHWC", torch.float32)
+        got = quant.quant_conv2d(x, xs, wq, ws, b, stride=stride,
+                                 padding=pad, data_format="NHWC")
+        want = quant.quant_conv2d_reference(x, xs, wq, ws, b, stride=stride,
+                                            padding=pad, data_format="NHWC")
+        assert torch.equal(got, want), (i, batch)
+
+
+@pytest.mark.parametrize("ksplit", [None, 1, 2])
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+@pytest.mark.parametrize("shape,halo", [((2, 384, 9, 9, 16, 3, 1, 1), True),
+                                        ((1, 256, 20, 64, 8, 3, 2, 1), False),
+                                        ((40, 512, 4, 4, 512, 3, 1, 1), True),
+                                        ((8, 128, 16, 16, 64, 3, 2, 1), False),
+                                        ((3, 256, 24, 16, 8, 3, 1, 1), True)])
+def test_conv_int8_slices_halo_and_direct_on_card(shape, halo, layout,
+                                                  ksplit):
+    """K in slices of 128 channels (C 384, 256 and 512), from the halo
+    and, where the box would not fit, straight from x; as planned, unsplit
+    (every slice of a tile in one block, the copying warpgroups taking the
+    slices in turn) and split in two: both modes bit for bit."""
+    from dcnn_tpu_torch.ops import quant
+
+    n, cin, h, w, cout, k, stride, pad = shape
+    x, xs, wq, ws, b = _quant_layer_inputs(cin, n, cin, h, w, cout, k, layout,
+                                           torch.float32)
+    plan = _kernels.conv_int8_plan(n, cin, h, w, cout, k, k, stride, pad,
+                                   torch.float32,
+                                   channels_last=layout == "NHWC",
+                                   ksplit=ksplit)
+    assert bool(plan.halo) == halo and plan.chunks == cin // 128 * 9
+    geo = dict(stride=(stride, stride), padding=(pad, pad),
+               data_format=layout)
+    got = _kernels.conv_int8_fused(x, xs, wq, (xs * ws).float(), b,
+                                   ksplit=ksplit, **geo)
+    assert torch.equal(got, quant.quant_conv2d_reference(
+        x, xs, wq, ws, b, stride=stride, padding=pad, data_format=layout))
+    x_q = quant.quantize_symmetric(x, xs)
+    got = _kernels.conv_int8(x_q, wq, ksplit=ksplit, **geo)
+    assert torch.equal(got, quant.conv2d_int8_reference(
+        x_q, wq, stride=stride, padding=pad, data_format=layout))
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_conv_int8_split_k_is_bit_identical_on_card(fused):
+    """Forced K splits (2, 3 and 5 ranges of 5 chunks, one reduce launch
+    each) give the unsplit result bit for bit, in both modes."""
+    from dcnn_tpu_torch.ops import quant
+
+    x, xs, w, ws, b = _quant_layer_inputs(3, 2, 64, 9, 9, 130, 3, "NHWC",
+                                          torch.float32)
+    x_q = quant.quantize_symmetric(x, xs)
+
+    def run(split):
+        if fused:
+            return _kernels.conv_int8_fused(
+                x, xs, w, (xs * ws).float(), b, stride=(1, 1),
+                padding=(1, 1), data_format="NHWC", ksplit=split)
+        return _kernels.conv_int8(x_q, w, stride=(1, 1), padding=(1, 1),
+                                  data_format="NHWC", ksplit=split)
+
+    ref = run(1)
+    for split in (2, 3, 5):
+        before = _kernels.conv_int8_reduce.launches
+        got = run(split)
+        torch.cuda.synchronize()
+        assert _kernels.conv_int8_reduce.launches == before + 1
+        assert torch.equal(got, ref)
+    if not fused:
+        assert torch.equal(ref.cpu(), quant.conv2d_int8_reference(
+            x_q.cpu(), w.cpu(), padding=1, data_format="NHWC"))
+
+
+def test_conv_int8_fused_refuses_what_it_cannot_take():
+    x, xs, w, ws, b = _quant_layer_inputs(0, 1, 4, 4, 4, 2, 3, "NCHW",
+                                          torch.float32)
+    scale = (xs * ws).float()
+    kw = dict(stride=(1, 1), padding=(1, 1), data_format="NCHW")
+    with pytest.raises(TypeError):
+        _kernels.conv_int8_fused(x.to(torch.int8), xs, w, scale, b, **kw)
+    with pytest.raises(TypeError):
+        _kernels.conv_int8_fused(x.double(), xs, w, scale, b, **kw)
+    with pytest.raises(TypeError):
+        _kernels.conv_int8_fused(x[0], xs, w, scale, b, **kw)
+    with pytest.raises(ValueError):
+        _kernels.conv_int8_fused(x.cpu(), xs, w, scale, b, **kw)
+    with pytest.raises(ValueError, match="not on"):
+        _kernels.conv_int8_fused(x, xs, w.cpu(), scale, b, **kw)
+    with pytest.raises(ValueError, match="x_scale"):
+        _kernels.conv_int8_fused(x, xs.cpu(), w, scale, b, **kw)
+    with pytest.raises(ValueError, match="scale"):
+        _kernels.conv_int8_fused(x, xs, w, scale[:1], b, **kw)
+    with pytest.raises(ValueError, match="bias"):
+        _kernels.conv_int8_fused(x, xs, w, scale, b.double(), **kw)
+    with pytest.raises(ValueError, match="packed"):
+        _kernels.conv_int8_fused(x, xs, w, scale, b, packed=w.reshape(2, -1),
+                                 **kw)
+
+
 @pytest.mark.parametrize("m,k,n", [(64, 64, 64), (1, 64, 10), (16, 27, 3),
                                    (17, 8, 8), (5, 2048, 10), (33, 100, 13)])
 def test_dense_int8_int_mm_equals_plain_on_card(m, k, n):
@@ -1153,11 +1320,14 @@ def test_int8_engine_bit_identical_across_buckets_on_card(name):
     card = InferenceEngine.from_model(model, int8_calib=calib, max_batch=8,
                                       device="cuda")
     assert card.batch_invariant
-    before = (_kernels.conv_int8.launches, _kernels.flash_fwd.launches)
+    before = (_kernels.conv_int8_fused.launches, _kernels.flash_fwd.launches,
+              _kernels.conv_int8.launches)
     ref = card.infer(pool).cpu()
-    after = (_kernels.conv_int8.launches, _kernels.flash_fwd.launches)
+    after = (_kernels.conv_int8_fused.launches, _kernels.flash_fwd.launches,
+             _kernels.conv_int8.launches)
     assert after[0 if name == "cnn" else 1] > before[0 if name == "cnn"
                                                      else 1]
+    assert after[2] == before[2]  # the served convs are the fused kernel
     for i in range(8):
         assert torch.equal(card.infer(pool[i]).cpu(), ref[i])
     want = cpu.infer(pool)

@@ -18,9 +18,15 @@ Phases, each fatal on failure:
    long-context backward is also replayed from a CUDA graph; the cases
    include head-dim class 256 (B2 H8 S2048 D256 bf16 causal timed against
    SDPA and its bound; fp32 and bf16, causal and not, a ragged D) and the
-   sliced kernels: the fp32 backward at D 192 and 256, and D 320, 512 and
-   1000 in both types, causal and not (B2 H8 S2048 D512 bf16 causal timed
-   against SDPA and its bound);
+   wide modes (the forward above D 256, the dK/dV kernel above 256 and in
+   fp32 above 128; dQ there the sliced kernel): the fp32 backward at D 192
+   and 256 (B2 H8 S2048 D256 fp32 causal timed against SDPA and its
+   bound), and D 320, 512 and 1000 in both types, causal and not (B2 H8
+   S2048 D512 bf16 causal timed against SDPA and its bound); then
+   ``MultiHeadAttentionLayer(impl="flash")`` at E=1024, forward and
+   backward on the card against the same layer on the CPU: 2 heads (D
+   512) in bf16 mode and 4 heads (D 256) at parity precision, the launch
+   counters and plans showing the wide modes ran;
 4. conv kernels: the same for the 3x3 implicit-GEMM convs (plain, BN
    prologue and output-column pairs, all on the tensor cores) and the
    fused scale/bias/ReLU, at the shapes of
@@ -288,14 +294,17 @@ FLASH_CASES = [  # name, B, H, Sq, Sk, D, causal, dtype name, timing reps
     ("band edge, 32-key tiles", 1, 2, 100, 133, 128, True, "float32", 50),
     # head-dim class 256: O's (and dK's, dV's) columns in two groups, the
     # fp32 forward in serial passes of 16-key tiles; causal and not, a
-    # ragged D; the fp32 backward at 128 < D <= 256 runs the sliced kernels
+    # ragged D; the fp32 backward at 128 < D <= 256 runs the dK/dV kernel's
+    # wide mode and the sliced dQ
     ("d256 long context", 2, 8, 2048, 2048, 256, True, "bfloat16", 5),
+    ("d256 fp32 long context", 2, 8, 2048, 2048, 256, True, "float32", 3),
     ("d256 ragged", 1, 2, 200, 333, 200, False, "bfloat16", 50),
     ("d256 fp32", 1, 2, 300, 300, 256, False, "float32", 20),
     ("d256 fp32 causal", 1, 2, 150, 330, 256, True, "float32", 20),
     ("d192 fp32 causal", 1, 2, 150, 330, 192, True, "float32", 20),
-    # above 256 every kernel is the sliced one: S (and dP) summed over
-    # slices of 128 columns, the outputs in groups of 128; both types,
+    # above 256 the forward and the dK/dV kernel run their wide modes (S,
+    # or S^T and dP^T, summed over slices streamed through the ring, the
+    # outputs in column groups) and dQ the sliced kernel; both types,
     # causal and not, one ragged shape each
     ("d512 long context", 2, 8, 2048, 2048, 512, True, "bfloat16", 3),
     ("d320 bf16", 1, 2, 300, 300, 320, False, "bfloat16", 10),
@@ -501,6 +510,88 @@ def phase_bwd_kernels():
                   f"library_ms(sdpa bwd)={lib_ms} bound_ms={bound_ms:.6f} "
                   f"({bound_by}); {part}", flush=True)
     return results
+
+
+def phase_wide_layer():
+    """``MultiHeadAttentionLayer(impl="flash", causal=True)`` at E=1024
+    (B=2, S=256), forward and backward on the card and on the CPU from the
+    same weights and inputs: 2 heads (D 512) in bf16 mode and 4 heads (D
+    256) at parity precision (fp32). The card's run launches the forward,
+    dQ and dK/dV kernels once each (the counts are set to 0 just before
+    and read just after), and their plans are the wide modes (the forward
+    at D 512; dK/dV at both) with the sliced dQ. Output, input gradient and
+    every parameter gradient within TOL of the CPU's, relative to its
+    largest value (the key bias's, 0 in exact arithmetic, to the other
+    parameter gradients'). Returns the summed launches of both runs."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.core import cast_to_compute, set_precision
+    from dcnn_tpu_torch.nn import MultiHeadAttentionLayer
+    from dcnn_tpu_torch.ops import _kernels
+
+    b, s, e = 2, 256, 1024
+    rng = np.random.default_rng(SEED + 12)
+    total = {}
+    for heads, mode, dtn in ((2, "bf16", "bfloat16"), (4, "parity", "float32")):
+        d, dt = e // heads, getattr(torch, dtn)
+        fwd, bwd = (_kernels.flash_plan(s, s, d, dt),
+                    _kernels.flash_bwd_plan(s, s, d, dt))
+        if not (bwd.dkv.slices and bwd.dq.slices and (fwd.slices or d <= 256)):
+            fail(f"wide layer D {d} {dtn}: not the wide plans: {fwd}, {bwd}")
+        x = rng.normal(size=(b, s, e)).astype(np.float32)
+        w = rng.normal(size=(b, s, e)).astype(np.float32)
+        set_precision(mode)
+        try:
+            layer = MultiHeadAttentionLayer(num_heads=heads, causal=True)
+            layer.init((s, e), generator=torch.Generator().manual_seed(SEED))
+            runs = {}
+            for dev in ("cpu", "cuda"):
+                lay = copy.deepcopy(layer).to(dev)
+                xt = cast_to_compute(torch.from_numpy(x)).to(dev)
+                xt.requires_grad_()
+                if dev == "cuda":
+                    reset_launches()
+                y = lay(xt)
+                (y.float() * torch.from_numpy(w).to(dev)).sum().backward()
+                if dev == "cuda":
+                    torch.cuda.synchronize()
+                    counts = {k: v for k, v in launches().items()
+                              if k.startswith("flash")}
+                runs[dev] = {"out": y.detach().float().cpu(),
+                             "dx": xt.grad.float().cpu(),
+                             **{n: p.grad.float().cpu()
+                                for n, p in lay.named_parameters()}}
+        finally:
+            set_precision("parity")
+        if counts != {"flash_fwd": 1, "flash_bwd_dq": 1, "flash_bwd_dkv": 1}:
+            fail(f"wide layer D {d} {dtn}: launches {counts}, want one each")
+        # the key bias's gradient is 0 in exact arithmetic (a per-row shift
+        # of the scores), so its own largest value is rounding noise: it is
+        # held on the scale of the other parameter gradients
+        ref = runs["cpu"]
+        params = [n for n in ref if n not in ("out", "dx", "bk")]
+        param_top = max(ref[n].abs().max().item() for n in params)
+        errs = {}
+        for name, want in ref.items():
+            top = param_top if name == "bk" else want.abs().max().item()
+            rel = ((runs["cuda"][name] - want).abs().max().item()
+                   / (top if top > 0 else 1.0))
+            if not (math.isfinite(rel) and rel <= TOL[dtn]):
+                fail(f"wide layer D {d} {dtn}: {name} on the card against the "
+                     f"CPU {rel:.3e} of its largest value > {TOL[dtn]:g}")
+            errs[name] = float(f"{rel:.3e}")
+        worst = max(errs.values())
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        print(f"wide layer: MultiHeadAttentionLayer E={e} heads={heads} D={d} "
+              f"{mode} B={b} S={s} causal: output and {len(ref) - 1} "
+              f"gradients within {worst:.3e} of the CPU (tol {TOL[dtn]:g}; "
+              f"{errs}); launches {counts}; {fwd}; dkv {bwd.dkv}; dq {bwd.dq}",
+              flush=True)
+    return total
 
 
 def jax_layout(cfg, rng):
@@ -3137,6 +3228,7 @@ def main() -> None:
           flush=True)
     fwd_cases = phase_kernels()
     bwd_cases = phase_bwd_kernels()
+    wide = phase_wide_layer()
     conv_cases = phase_conv_kernels()
     site_counts, site_worst, site_cases = phase_model_sites(card)
     serve = phase_serve(card)
@@ -3153,6 +3245,7 @@ def main() -> None:
         long = next(c for c in cases if c["case"] == "long context")
         d256 = next(c for c in cases if c["case"] == "d256 long context")
         d512 = next(c for c in cases if c["case"] == "d512 long context")
+        d256f = next(c for c in cases if c["case"] == "d256 fp32 long context")
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
@@ -3166,6 +3259,8 @@ def main() -> None:
                 "d256_long_context": {k: d256[k] for k in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
                 "d512_long_context": {k: d512[k] for k in (
+                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                "d256_fp32_long_context": {k: d256f[k] for k in (
                     "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
                 "cases": cases}
 
@@ -3197,15 +3292,18 @@ def main() -> None:
             "dcnn_tpu/ops/attention.py:297", fwd_cases,
             {"serve": serve["launches"], "train": tl["flash_fwd"],
              "train_feed": fl["flash_fwd"],
-             "serve_int8": serve_int8["mha"]["launches"]["flash_fwd"]}),
+             "serve_int8": serve_int8["mha"]["launches"]["flash_fwd"],
+             "wide_layer": wide["flash_fwd"]}),
         row("flash_bwd_dq", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:460", bwd_cases["dq"],
             {"serve": 0, "train": tl["flash_bwd_dq"],
-             "train_feed": fl["flash_bwd_dq"]}),
+             "train_feed": fl["flash_bwd_dq"],
+             "wide_layer": wide["flash_bwd_dq"]}),
         row("flash_bwd_dkv", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:478", bwd_cases["dkv"],
             {"serve": 0, "train": tl["flash_bwd_dkv"],
-             "train_feed": fl["flash_bwd_dkv"]}),
+             "train_feed": fl["flash_bwd_dkv"],
+             "wide_layer": wide["flash_bwd_dkv"]}),
         site_row("conv3x3_s1", tc_src, "dcnn_tpu/ops/pallas/conv.py:82"),
         site_row("conv3x3_s1_pairs", tc_src,
                  "dcnn_tpu/ops/pallas/conv.py:173"),

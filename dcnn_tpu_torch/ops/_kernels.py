@@ -119,17 +119,10 @@ def _bind(lib: ctypes.CDLL) -> None:
     if hasattr(lib, "dcnn_conv3x3_tc"):
         lib.dcnn_conv3x3_tc.argtypes = [p] * 7 + [i] * 15 + [p]
         lib.dcnn_conv3x3_tc.restype = i
-    if hasattr(lib, "dcnn_flash_fwd_sliced"):
-        lib.dcnn_flash_fwd_sliced.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                              ctypes.c_float, i, i, i, i, p]
-        lib.dcnn_flash_fwd_sliced.restype = i
-    for name, n_out in (("dcnn_flash_bwd_dq_sliced", 1),
-                        ("dcnn_flash_bwd_dkv_sliced", 2)):
-        if hasattr(lib, name):
-            fn = getattr(lib, name)
-            fn.argtypes = [p] * (6 + n_out) + [i, i, i, i, i, ctypes.c_float,
-                                               i, i, i, i, p]
-            fn.restype = i
+    if hasattr(lib, "dcnn_flash_bwd_dq_sliced"):
+        lib.dcnn_flash_bwd_dq_sliced.argtypes = [p] * 7 + [
+            i, i, i, i, i, ctypes.c_float, i, i, i, i, p]
+        lib.dcnn_flash_bwd_dq_sliced.restype = i
     for name in ("dcnn_conv3x3_tc_trace", "dcnn_flash_fwd_trace",
                  "dcnn_flash_bwd_trace"):
         if hasattr(lib, name):
@@ -190,11 +183,11 @@ def build(verbose: bool = False, extra: Tuple[str, ...] = ()
 
 # the head-dim classes the wgmma flash kernels are built for: a head dim d
 # <= 256 runs as the smallest class >= d, columns d.. zero-filled by the
-# copy; above 256 the sliced kernels run it (the class: the next multiple
-# of FLASH_SLICE)
+# copy; above 256 the forward and the dK/dV kernel run their wide modes and
+# dQ the sliced kernel (the class: the next multiple of FLASH_SLICE)
 FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
 # columns of a slice of the contraction over d, and of an output group, in
-# the sliced kernels (flash.cuh sliced::kCols); their tiles are 64 rows
+# the sliced dQ kernel (flash.cuh sliced::kCols); its tiles are 64 rows
 FLASH_SLICE = 128
 FLASH_SLICED_TILE = 64
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
@@ -223,21 +216,19 @@ def flash_head_class(d: int) -> int:
     return _cdiv(d, FLASH_SLICE) * FLASH_SLICE
 
 
-def flash_sliced_smem(dkv: bool) -> int:
-    """Shared memory of a sliced kernel in bytes (flash.cuh
+def flash_sliced_smem() -> int:
+    """Shared memory of the sliced dQ kernel in bytes (flash.cuh
     ``sliced::smem_bytes``): two staged 64 x 128 fp32 tiles (rows padded to
-    129 floats), one 64 x 64 tile of P or dS (dK/dV: P^T and dS^T; rows of
-    65 floats), and dK/dV's lse and delta of 64 q rows."""
+    129 floats) and one 64 x 64 tile of dS (rows of 65 floats)."""
     tile, ld = FLASH_SLICED_TILE, FLASH_SLICE + 1
-    return 4 * (2 * tile * ld + (2 if dkv else 1) * tile * (tile + 1)
-                + (2 * tile if dkv else 0))
+    return 4 * (2 * tile * ld + tile * (tile + 1))
 
 
-def flash_sliced_regs(kernel: str) -> int:
-    """Registers a thread of a sliced kernel gives to its accumulators: S
-    (and dP) of a 64 x 64 tile, 16 each over 256 threads, and the output
-    group's 64 x 128 (dK/dV: two), 32 each."""
-    return {"fwd": 16 + 32, "dq": 2 * 16 + 32, "dkv": 2 * 16 + 2 * 32}[kernel]
+def flash_sliced_regs() -> int:
+    """Registers a thread of the sliced dQ kernel gives to its
+    accumulators: S and dP of a 64 x 64 tile, 16 each over 256 threads, and
+    dQ's group of 64 x 128, 32."""
+    return 2 * 16 + 32
 
 
 def flash_head_width(d: int, dtype: torch.dtype) -> int:
@@ -260,10 +251,11 @@ class FlashPlan:
     lo), each row of the head-dim class in ``chunks`` 128-byte chunks.
     ``serial``: two stages do not fit beside a 64-row block, so one stage
     holds a tile at a time and a pass runs S, the softmax and P·V in turn
-    (fp32 at class 256). ``slices``: 0 for the wgmma kernel, which holds
-    the contraction over the head dim whole; above 256 the sliced kernel
-    sums S over ``slices`` slices of FLASH_SLICE columns (64-row tiles, one
-    stage, O in ``groups`` groups of FLASH_SLICE columns)."""
+    (fp32 at class 256). ``slices``: 0 where a stage holds the contraction
+    over the head dim whole; above 256 the wide mode (:class:`_WideFwd`)
+    streams S's contraction through the ring in ``slices`` slices of one or
+    two chunks, each kv tile as its slices and then one unit of the group's
+    columns of V, O in ``groups`` groups of ``_WideFwd.group`` columns."""
     q_rows: int
     kv_tile: int
     stages: int
@@ -296,6 +288,39 @@ def flash_fwd_regs(padded: int, kv: int, f32: bool, groups: int) -> int:
     return padded // groups // 2 + kv // 2 + (kv if f32 else kv // 4)
 
 
+class _WideFwd:
+    """``Wide<T, kSC>`` of flash_fwd.cu, the forward's layout above head dim 256:
+    kv tiles of ``kv`` keys (bf16 64, fp32 32); O's columns in groups of
+    ``group`` = 256, one a block; S's contraction in slices of
+    ``slice_chunks`` 128-byte chunks (2 where the head dim's ``chunks``
+    pair up, else 1). A slice unit holds Q's q_rows rows and K's kv keys of
+    the slice (fp32: then their tf32 lo), a V unit the group's columns of
+    V's kv keys (fp32: then V^T as tf32 hi and lo, a 128-byte row per column
+    for each 32 keys); a stage holds the larger."""
+
+    group = 256
+
+    def __init__(self, es: int, chunks: int):
+        self.f32 = es == 4
+        self.slice_chunks = 1 if chunks % 2 else 2
+        self.kv = 32 if self.f32 else 64
+        vt = _cdiv(self.kv, 32) * self.group * ROW_BYTES
+        self.v_unit = (self.group * es // ROW_BYTES * self.kv * ROW_BYTES
+                       + (2 * vt if self.f32 else 0))
+
+    def stage(self, q_rows: int) -> int:
+        qk = ((2 if self.f32 else 1) * self.slice_chunks
+              * (q_rows + self.kv) * ROW_BYTES)
+        return max(qk, self.v_unit)
+
+    def smem(self, q_rows: int, stages: int) -> int:
+        return 1024 + stages * self.stage(q_rows) + 256
+
+    def fit(self, q_rows: int) -> int:
+        return min(FLASH_MAX_STAGES,
+                   (SMEM_MAX - self.smem(q_rows, 0)) // self.stage(q_rows))
+
+
 @functools.lru_cache(maxsize=1024)
 def flash_plan(sq: int, sk: int, d: int, dtype: torch.dtype) -> FlashPlan:
     """The tiling of ``flash_fwd.cu`` for head dim d (run as its class,
@@ -307,18 +332,22 @@ def flash_plan(sq: int, sk: int, d: int, dtype: torch.dtype) -> FlashPlan:
     warpgroups) above Sq 64 where two stages fit beside them, else 64; as
     many stages as shared memory holds, up to FLASH_MAX_STAGES and the
     number of kv tiles, and one stage with serial passes where two do not
-    fit beside 64 rows. Head dims above 256 take the sliced kernel: S
-    summed over the slices, O in groups, 64-row tiles (see
-    :class:`FlashPlan`). The kernel refuses a plan whose tile, groups or
+    fit beside 64 rows. Head dims above 256 take the wide mode
+    (:class:`_WideFwd`): 128 q rows a block above Sq 64 where two stages
+    fit beside them, else 64, and as many stages as shared memory holds, up
+    to FLASH_MAX_STAGES. The kernel refuses a plan whose tile, groups or
     shared memory differs from its own layout. Cached per shape."""
     dc = flash_head_class(d)
     es = 2 if dtype == torch.bfloat16 else 4
     f32 = es == 4
     chunks = _cdiv(dc * es, ROW_BYTES)
     if dc > FLASH_HEAD_DIMS[-1]:
-        n = dc // FLASH_SLICE
-        return FlashPlan(FLASH_SLICED_TILE, FLASH_SLICED_TILE, 1,
-                         flash_sliced_smem(False), chunks, n, False, n)
+        wide = _WideFwd(es, _cdiv(d * es, ROW_BYTES))
+        q_rows = 64 if sq <= 64 or wide.fit(128) < 2 else 128
+        stages = wide.fit(q_rows)
+        slices = _cdiv(d * es, ROW_BYTES) // wide.slice_chunks
+        return FlashPlan(q_rows, wide.kv, stages, wide.smem(q_rows, stages),
+                         chunks, _cdiv(d, wide.group), False, slices)
     padded = chunks * (ROW_BYTES // es)   # D padded to whole chunks
     kv = ({128: 32, 256: 16}.get(dc, 64)) if f32 else 128
     kv_bytes = chunks * kv * ROW_BYTES    # one K tile as it lands
@@ -364,14 +393,71 @@ class BwdKernelPlan:
     in tiles of ``tile`` (keys for dQ, q rows for dK/dV) through a ring of
     ``stages``, the block's shared memory in bytes (``smem``), and
     ``regs``, the registers a multiplying thread gives to its accumulators,
-    S and dP fragments and A operands at that tile (a sliced kernel's
-    thread: its accumulators, :func:`flash_sliced_regs`)."""
+    S and dP fragments and A operands at that tile (the sliced dQ kernel's
+    thread: its accumulators, :func:`flash_sliced_regs`). ``slices``: 0
+    where the kernel holds the contraction over the head dim whole; else
+    dQ runs the sliced kernel on the CUDA cores (S and dP summed over
+    ``slices`` slices of FLASH_SLICE columns, one stage, 64-row blocks and
+    tiles) and dK/dV its wide mode (:class:`_WideBwd`: ``slices`` slices
+    of one or two 128-byte chunks streamed through the ring for each q
+    tile)."""
     rows: int
     tile: int
     stages: int
     smem: int
     regs: int
     groups: int = 1
+    slices: int = 0
+
+
+class _WideBwd:
+    """``WideBwd<T, kSC>`` of flash_bwd.cu, the dK/dV kernel's layout above
+    head dim 256 and in fp32 above 128: blocks of 64 keys, each multiplying
+    warpgroup one group of ``group`` = 128 of dK's and dV's columns (two a
+    block); q tiles of ``tile`` rows (bf16 32, fp32 16, by the register
+    budget); each q tile as its slices of ``slice_chunks`` 128-byte chunks
+    (2 where the head dim's ``chunks`` pair up, else 1: Q's and dO's tile
+    rows, after K's and V's 64 rows where those are not held for the block;
+    fp32: then their tf32 lo) and one group unit a warpgroup (Q's and dO's
+    group columns; fp32: then Q^T and dO^T as tf32 hi and lo); a stage
+    holds the larger, beside its q tile's lse and delta; the two
+    warpgroups' S^T and dP^T fragments are exchanged through shared memory.
+    K and V are held where two stages fit beside them (bf16 up to 11
+    chunks)."""
+
+    group = 128
+
+    def __init__(self, es: int, chunks: int):
+        self.f32 = es == 4
+        self.chunks = chunks
+        self.slice_chunks = 1 if chunks % 2 else 2
+        self.tile = 16 if self.f32 else 32
+        group_chunks = self.group * es // ROW_BYTES
+        t_part = _cdiv(self.tile, 32) * self.group * ROW_BYTES
+        self.group_unit = (2 * group_chunks * self.tile * ROW_BYTES
+                           + (4 * t_part if self.f32 else 0))
+        self.exchange = 2 * 64 * self.tile * 4
+        # dK's and dV's group, S^T and dP^T, P^T and dS^T as A operands
+        self.regs = self.group + self.tile + (
+            2 * self.tile if self.f32 else self.tile // 2)
+
+    def stage(self, held: bool) -> int:
+        unit = ((2 if self.f32 else 1) * self.slice_chunks * 2
+                * (self.tile + (0 if held else 64)) * ROW_BYTES)
+        return max(unit, self.group_unit)
+
+    def smem(self, held: bool, stages: int) -> int:
+        kv = 2 * self.chunks * 64 * ROW_BYTES if held else 0
+        return (1024 + kv + stages * (self.stage(held) + 8 * self.tile)
+                + self.exchange + 256)
+
+    @property
+    def held(self) -> bool:
+        return not self.f32 and self.smem(True, 2) <= SMEM_MAX
+
+    def fit(self) -> int:
+        return min(FLASH_MAX_STAGES, (SMEM_MAX - self.smem(self.held, 0))
+                   // (self.stage(self.held) + 8 * self.tile))
 
 
 class _BwdLayout:
@@ -426,15 +512,11 @@ class _BwdLayout:
 class FlashBwdPlan:
     """The tiling of both kernels of ``csrc/flash_bwd.cu`` for one shape:
     ``dq`` and ``dkv`` (:class:`BwdKernelPlan`), each row of the head-dim
-    class in ``chunks`` 128-byte chunks, ``padded`` columns in all.
-    ``slices``: 0 for the wgmma kernels, which hold the contraction over
-    the head dim whole; else the sliced kernels sum S and dP over
-    ``slices`` slices of FLASH_SLICE columns."""
+    class in ``chunks`` 128-byte chunks, ``padded`` columns in all."""
     dq: BwdKernelPlan
     dkv: BwdKernelPlan
     chunks: int
     padded: int
-    slices: int = 0
 
     def kv_tiles(self, q_block: int, sq: int, sk: int, causal: bool) -> range:
         """The kv tiles the dQ kernel visits for q block ``q_block``: every
@@ -469,26 +551,29 @@ def flash_bwd_plan(sq: int, sk: int, d: int, dtype: torch.dtype
     number of streamed tiles. Where not one stage fits beside a 64-row
     block (fp32 above class 128, whose fixed operands alone, Q and dO or K
     and V as tf32 hi and lo: 4 x 64 rows x 1 KB, fill 256 KB) and above
-    class 256 the sliced kernels run it: S and dP summed over slices of
-    FLASH_SLICE columns, the outputs in groups of FLASH_SLICE columns,
-    64-row blocks and 64-row tiles. The kernels refuse a plan that differs
+    class 256 the plan is mixed: dQ runs the sliced kernel (S and dP summed
+    over slices of FLASH_SLICE columns, dQ in groups of FLASH_SLICE
+    columns, 64-row blocks and 64-row tiles) and dK/dV its wide mode
+    (:class:`_WideBwd`; blocks of 64 keys, as many stages as shared memory
+    holds, up to FLASH_MAX_STAGES). The kernels refuse a plan that differs
     from their own layout. Cached per shape."""
     dc = flash_head_class(d)
     es = 2 if dtype == torch.bfloat16 else 4
     lay = _BwdLayout(dc, es)
-    if dc > FLASH_HEAD_DIMS[-1] or any(
-            lay.smem(dq, 64, lay.tile(dq), 1) > SMEM_MAX for dq in (True, False)):
-        n = dc // FLASH_SLICE
-        t = FLASH_SLICED_TILE
-        chunks = _cdiv(dc * es, ROW_BYTES)
-        return FlashBwdPlan(
-            BwdKernelPlan(t, t, 1, flash_sliced_smem(False),
-                          flash_sliced_regs("dq"), n),
-            BwdKernelPlan(t, t, 1, flash_sliced_smem(True),
-                          flash_sliced_regs("dkv"), n),
-            chunks, chunks * (ROW_BYTES // es), n)
 
     def part(dq: bool, own: int, other: int) -> BwdKernelPlan:
+        if dc > FLASH_HEAD_DIMS[-1] or lay.smem(dq, 64, lay.tile(dq),
+                                                1) > SMEM_MAX:
+            if dq:
+                n, t = dc // FLASH_SLICE, FLASH_SLICED_TILE
+                return BwdKernelPlan(t, t, 1, flash_sliced_smem(),
+                                     flash_sliced_regs(), n, n)
+            wide = _WideBwd(es, _cdiv(d * es, ROW_BYTES))
+            stages = wide.fit()
+            return BwdKernelPlan(
+                64, wide.tile, stages, wide.smem(wide.held, stages),
+                wide.regs, _cdiv(d, wide.group),
+                wide.chunks // wide.slice_chunks)
         n = lay.tile(dq)
         per_stage = lay.smem(dq, 0, n, 1) - lay.smem(dq, 0, n, 0)
 
@@ -577,7 +662,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Launch ``csrc/flash_fwd.cu`` on contiguous, 16-byte aligned CUDA
     tensors q (B, H, Sq, D), k and v (B, H, Sk, D) of fp32 or bf16, any D
     in whole 16-byte units, tiled by :func:`flash_plan` (above 256 the
-    sliced kernel). Returns (O
+    wide mode). Returns (O
     like q, logsumexp (B, H, Sq) fp32). Raises on anything the kernel does
     not take."""
     out = _launch_flash(q, k, v, causal, scale)
@@ -603,13 +688,8 @@ def _launch_flash(q, k, v, causal: bool, scale: float,
         args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 lse.data_ptr(), b * h, sq, sk, d, int(causal), float(scale),
                 bf16)
-        if plan.slices:
-            err = lib.dcnn_flash_fwd_sliced(*args, plan.slices, plan.groups,
-                                            plan.smem, stream)
-        else:
-            err = lib.dcnn_flash_fwd(*args, plan.q_rows, plan.kv_tile,
-                                     plan.stages, plan.smem, plan.groups,
-                                     stream)
+        err = lib.dcnn_flash_fwd(*args, plan.q_rows, plan.kv_tile,
+                                 plan.stages, plan.smem, plan.groups, stream)
     _raise_on(lib, "flash_fwd", err)
     return o, lse
 
@@ -634,9 +714,9 @@ def _launch_flash_bwd(fn: str, q, k, v, do, lse, delta, outs, causal: bool,
                 lse.data_ptr(), delta.data_ptr(),
                 *(t.data_ptr() for t in outs), b * h, sq, sk, d, int(causal),
                 float(scale), int(q.dtype == torch.bfloat16))
-        if plan.slices:
-            err = getattr(lib, f"dcnn_{fn}_sliced")(
-                *args, plan.slices, part.groups, part.smem, stream)
+        if fn == "flash_bwd_dq" and part.slices:  # the sliced dQ kernel
+            err = lib.dcnn_flash_bwd_dq_sliced(*args, part.slices,
+                                               part.groups, part.smem, stream)
         else:
             err = getattr(lib, "dcnn_" + fn)(
                 *args, part.rows, part.tile, part.stages, part.smem,
@@ -666,7 +746,8 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool, scale: float
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the dK/dV kernel of ``csrc/flash_bwd.cu`` on the inputs
-    :func:`flash_bwd_dq` takes. Returns (dK like k, dV like v)."""
+    :func:`flash_bwd_dq` takes (above D 256, and above 128 in fp32, its
+    wide mode). Returns (dK like k, dV like v)."""
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_flash_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv),
                       causal, scale)

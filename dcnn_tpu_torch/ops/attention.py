@@ -179,7 +179,7 @@ def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool, scale: float
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(O, logsumexp (B, H, Sq) fp32). A CUDA tensor goes to the Hopper
-    kernels (above head dim 256 the sliced one), which raise on what they
+    kernels (above head dim 256 their wide modes), which raise on what they
     cannot take (a dtype other than fp32 or bf16, a grid above 2^31
     blocks); strided or misaligned views are copied
     first, and a head dim whose rows are not whole 16-byte units is padded

@@ -102,32 +102,6 @@ constexpr int kABytes = kTileM * kChunk;     // one stage's A tile
 constexpr int kUnits = kTileM * kChunk / 16 / 128;  // 16-byte units per copying thread: 8
 constexpr int kMaxStages = 8;
 
-// mbar_wait (try_wait, which suspends the thread between its tries, so
-// waiting warps leave the issue slots to the working ones) that traps
-// after 4 s without the phase: a fault in the ring's hand-over then ends
-// the launch with an error instead of hanging the card
-__device__ __forceinline__ void wait_or_trap(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = smem_u32(bar);
-  uint64_t t0 = 0;
-  for (uint32_t tries = 1;; ++tries) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    if ((tries & 0xffu) == 0) {
-      uint64_t now;
-      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
-      if (t0 == 0) t0 = now;
-      else if (now - t0 > 4000000000ull) __trap();
-    }
-  }
-}
-
 __host__ __device__ constexpr int smem_bytes(int bn, int stages, int halo) {
   // 1024 bytes of slack to align the base for the 128-byte swizzle, then
   // the stages' A tiles, their weight tiles, two halo buffers (halo bytes

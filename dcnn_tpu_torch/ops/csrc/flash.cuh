@@ -2,8 +2,10 @@
 // the tile format's constants, the head-dim class a kernel is built for,
 // exponentials on the special-function unit, operand conversions to
 // wgmma's register-A form, the fp32 tf32 splits and transposes in shared
-// memory, the named barriers by which two multiplying warpgroups take
-// turns, and the clock counters of the diagnostic builds.
+// memory, the forward's online softmax and the dK/dV kernels' P^T and
+// dS^T (each kernel's class and wide modes share them), the named barriers
+// by which two multiplying warpgroups take turns, and the clock counters of
+// the diagnostic builds.
 
 #pragma once
 
@@ -149,6 +151,119 @@ __device__ void transpose_split(uint8_t* x, uint8_t* lo, uint8_t* t_hi, uint8_t*
   }
 }
 
+// The online softmax of a kv tile on a warpgroup's S fragment of 64 rows by
+// N keys (sc[4j + e] is row row0 + 8 (e >> 1), key kv0 + 8j + 2 t4 + (e &
+// 1)), in the log2 domain: S scaled, masked (keys from sk on; causal: keys
+// after row + offset), P = 2^(S - m) into sc, the rows' running max m and
+// this thread's share of their sum l updated; the rows' rescale factors
+// 2^(m_old - m) through corr. first_row is the warpgroup's first q row.
+template <int N>
+__device__ __forceinline__ void online_softmax(float (&sc)[N / 2], float (&m)[2], float (&l)[2],
+                                               float (&corr)[2], float scale_log2, int kv0,
+                                               int sk, bool causal, int first_row, int row0,
+                                               int offset, int t4) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) sc[i] *= scale_log2;
+  // the mask only on tiles that cross the end of the keys or the
+  // diagonal, as a branch of its own: per element one compare against
+  // the row's last allowed key
+  if (kv0 + N > sk || (causal && kv0 + N - 1 > first_row + offset)) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int last = (causal ? min(sk - 1, row0 + 8 * h + offset) : sk - 1) - (kv0 + 2 * t4);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (8 * j + e > last) sc[4 * j + 2 * h + e] = kNeg;
+    }
+  }
+  // max and sum in 4 independent chains: the softmax's latency, not its
+  // issue rate, sets its pace
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx[4] = {kNeg, kNeg, kNeg, kNeg};
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+      mx[j & 3] = fmaxf(mx[j & 3], fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
+    float rmax = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
+    rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
+    rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 2));
+    const float m_new = fmaxf(m[h], rmax);
+    corr[h] = ex2(m[h] - m_new);
+    m[h] = m_new;
+    // a masked score is kNeg, so exp2(kNeg - m) is 0; in a row masked so
+    // far m is kNeg too, and its entries are exp2(kNeg - 0) = 0
+    const float m_use = m_new == kNeg ? 0.f : m_new;
+    float sum[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float pv = ex2(sc[4 * j + 2 * h + e] - m_use);
+        sc[4 * j + 2 * h + e] = pv;
+        sum[j & 3] += pv;
+      }
+    // this thread's share of the row; the quad's are added at the end
+    l[h] = l[h] * corr[h] + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
+  }
+}
+
+// P^T and dS^T of a q tile on a warpgroup's S^T and dP^T fragments of 64
+// keys by N q rows (sc[4j + e] is key key0 + 8 (e >> 1), q row q0 + 8j + 2
+// t4 + (e & 1)), from the tile's staged lse (times log2 e; +inf beyond sq)
+// and delta (rv[0 .. N), rv[N .. 2N)): P^T = 2^(S^T scale - lse), masked
+// before the exponential (causal: q rows before key - offset), dS^T = P^T
+// (dP^T - delta) scale; both to wgmma's A form (tf32 hi and lo in fp32).
+// last_key is the warpgroup's last real key.
+template <int N, bool kF32, int kA, int kLo>
+__device__ __forceinline__ void p_and_ds_t(float (&sc)[N / 2], float (&dp)[N / 2],
+                                           uint32_t (&pa)[kA][4], uint32_t (&plo)[kLo][4],
+                                           uint32_t (&da)[kA][4], uint32_t (&dlo)[kLo][4],
+                                           const float* rv, float scale_log2, float scale, int q0,
+                                           int key0, int last_key, int offset, bool causal,
+                                           int t4) {
+  float2 dl[N / 8];
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const float2 l2 = *reinterpret_cast<const float2*>(rv + 8 * j + 2 * t4);
+    dl[j] = *reinterpret_cast<const float2*>(rv + N + 8 * j + 2 * t4);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      sc[4 * j + 2 * h] = fmaf(sc[4 * j + 2 * h], scale_log2, -l2.x);
+      sc[4 * j + 2 * h + 1] = fmaf(sc[4 * j + 2 * h + 1], scale_log2, -l2.y);
+    }
+  }
+  // the causal mask only on tiles that cross the diagonal, as a branch of
+  // its own: per element one compare against the key's first allowed q row
+  if (causal && q0 + offset < last_key) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int first = key0 + 8 * h - offset - (q0 + 2 * t4);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (8 * j + e < first) sc[4 * j + 2 * h + e] = -INFINITY;
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i2 = 4 * j + e;
+      sc[i2] = ex2(sc[i2]);
+      dp[i2] = sc[i2] * (dp[i2] - ((e & 1) ? dl[j].y : dl[j].x)) * scale;
+    }
+  if constexpr (kF32) {
+    frag_to_tf32<N>(sc, pa, plo);
+    frag_to_tf32<N>(dp, da, dlo);
+  } else {
+    frag_to_bf16<N>(sc, pa);
+    frag_to_bf16<N>(dp, da);
+  }
+}
+
 // named barriers between the two multiplying warpgroups (256 threads)
 __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
@@ -203,19 +318,17 @@ struct PassClock<false> {
   __device__ __forceinline__ void save(unsigned long long (*)[8], int, int, bool) {}
 };
 
-// The sliced kernels (flash_fwd.cu flash_fwd_sliced_kernel, flash_bwd.cu
-// flash_bwd_dq_sliced_kernel and flash_bwd_dkv_sliced_kernel): the head
-// dims whose contraction the wgmma kernels cannot hold whole in shared
-// memory (every d > 256, and d > 128 in the fp32 backward). S = Q K^T and
-// dP = dO V^T are summed over slices of kCols columns of d, each slice of
-// both operands staged as fp32 in shared memory, into the same fp32
-// registers; the outputs are made in groups of kCols columns, one group a
-// block, each block recomputing S (and dP) over the whole of d. Products on
-// the CUDA cores in fp32: bf16 inputs are exact in fp32, and fp32 keeps
-// fp32 accuracy without the TF32 splits. A block is 16 x 16 threads; thread
-// (ty, tx) holds rows 4 ty .. 4 ty + 3 of a 64-row tile and columns tx +
-// 16 j, so the 16 threads of a row are one half-warp (row reductions are
-// four shuffles) and a column's 16 reads in a half-warp fall in 16 banks.
+// The sliced dQ kernel (flash_bwd.cu flash_bwd_dq_sliced_kernel): the head
+// dims whose contraction the wgmma dQ kernel cannot hold whole in shared
+// memory (every d > 256, and d > 128 in fp32). S = Q K^T and dP = dO V^T
+// are summed over slices of kCols columns of d, each slice of both
+// operands staged as fp32 in shared memory, into the same fp32 registers;
+// dQ is made in groups of kCols columns, one group a block, each block
+// recomputing S and dP over the whole of d. Products on the CUDA cores in
+// fp32: bf16 inputs are exact in fp32, and fp32 keeps fp32 accuracy
+// without the TF32 splits. A block is 16 x 16 threads; thread (ty, tx)
+// holds rows 4 ty .. 4 ty + 3 of a 64-row tile and columns tx + 16 j, so a
+// column's 16 reads in a half-warp fall in 16 banks.
 namespace sliced {
 
 constexpr int kTile = 64;       // q rows and keys of a tile
@@ -300,18 +413,6 @@ __device__ __forceinline__ void add_group(float (&acc)[4][8], const float* w, co
   }
 }
 
-// the max and the sum of a row's 16 values, one per thread of a half-warp
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // rows [row0, row0 + 64) x columns [col0, col0 + 128) of acc into a (rows,
 // d) matrix, what lies inside it
 template <typename T>
@@ -329,12 +430,10 @@ __device__ void store_group(T* dst, const float (&acc)[4][8], int row0, int rows
   }
 }
 
-// shared memory of a sliced kernel, mirrored by _kernels.flash_sliced_smem
-// (bytes): two staged tiles and one (forward, dQ) or two (dK/dV) 64 x 64
-// tiles of P or dS, and dK/dV's per-column lse and delta
-constexpr int smem_bytes(bool dkv) {
-  return 4 * (2 * kStage + (dkv ? 2 : 1) * kTile * kLdP + (dkv ? 2 * kTile : 0));
-}
+// shared memory of the sliced dQ kernel, mirrored by
+// _kernels.flash_sliced_smem (bytes): two staged tiles and a 64 x 64 tile
+// of dS
+constexpr int smem_bytes() { return 4 * (2 * kStage + kTile * kLdP); }
 
 struct Params {
   int sq, sk, d, causal, groups, n_tiles;
@@ -359,10 +458,10 @@ struct Block {
 // the plan a sliced launch must be given: slices and groups of kCols
 // columns covering d, and the kernel's shared memory; the grid (batch*head
 // x tiles of `rows` x groups) within 2^31 blocks
-inline cudaError_t check_plan(bool dkv, int bh, int rows, int d, int slices, int groups, int smem,
+inline cudaError_t check_plan(int bh, int rows, int d, int slices, int groups, int smem,
                               long long* blocks) {
   const int n = (d + kCols - 1) / kCols;
-  if (slices != n || groups != n || smem != smem_bytes(dkv)) return cudaErrorInvalidValue;
+  if (slices != n || groups != n || smem != smem_bytes()) return cudaErrorInvalidValue;
   *blocks = (long long)bh * ((rows + kTile - 1) / kTile) * groups;
   return *blocks > 0x7fffffffLL ? cudaErrorInvalidValue : cudaSuccess;
 }

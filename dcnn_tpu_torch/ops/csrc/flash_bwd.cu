@@ -61,9 +61,11 @@
 // stays whole) and accumulates only its group's columns. fp32 above D = 128
 // does not fit: its fixed operands alone as tf32 hi and lo (Q and dO, or K
 // and V: 4 x 64 rows x 1 KB) fill 256 KB, above a block's shared memory;
-// that and every d > 256 run the sliced kernels below, which stream the
-// contraction over d in slices. The host plans rows, groups, stages and
-// shared memory (or slices) and the launch refuses any other plan.
+// there and at every d > 256 the dK/dV kernel runs its wide mode
+// (flash_bwd_dkv_wide_kernel below, on wgmma, the contraction streamed
+// through the ring in slices) and dQ the sliced kernel (CUDA cores). The
+// host plans rows, groups, stages and shared memory (or slices) and the
+// launch refuses any other plan.
 //
 // What bounds it on an H100. At long context the products: per allowed
 // (q, k) pair 6 D FLOPs in dQ (S, dP, dS K) and 8 D in dK/dV (S, dP, P^T
@@ -587,52 +589,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     wgmma_commit();
   };
-  // P^T and dS^T of the tile at ring index i on the fragment (sc[4j + e]
-  // is key key0 + 8 (e >> 1), q row q0 + 8j + 2 t4 + (e & 1)), both to A
-  // operands
+  // P^T and dS^T of the tile at ring index i, both to A operands
   auto p_and_ds = [&](int i) {
-    const int q0 = (t0 + i) * kN;
-    const float* rv = rowv + (i % p.stages) * 2 * kN;
-    float2 dl[kN / 8];
-#pragma unroll
-    for (int j = 0; j < kN / 8; ++j) {
-      const float2 l2 = *reinterpret_cast<const float2*>(rv + 8 * j + 2 * t4);
-      dl[j] = *reinterpret_cast<const float2*>(rv + kN + 8 * j + 2 * t4);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        sc[4 * j + 2 * h] = fmaf(sc[4 * j + 2 * h], p.scale_log2, -l2.x);
-        sc[4 * j + 2 * h + 1] = fmaf(sc[4 * j + 2 * h + 1], p.scale_log2, -l2.y);
-      }
-    }
-    // the causal mask only on tiles that cross the diagonal, as a branch
-    // of its own: per element one compare against the key's first allowed
-    // q row
-    if (p.causal && q0 + offset < wg_last) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int first = key0 + 8 * h - offset - (q0 + 2 * t4);
-#pragma unroll
-        for (int j = 0; j < kN / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (8 * j + e < first) sc[4 * j + 2 * h + e] = -INFINITY;
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < kN / 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i2 = 4 * j + e;
-        sc[i2] = ex2(sc[i2]);
-        dp[i2] = sc[i2] * (dp[i2] - ((e & 1) ? dl[j].y : dl[j].x)) * p.scale;
-      }
-    if constexpr (L::kF32) {
-      frag_to_tf32<kN>(sc, pa, plo);
-      frag_to_tf32<kN>(dp, da, dlo);
-    } else {
-      frag_to_bf16<kN>(sc, pa);
-      frag_to_bf16<kN>(dp, da);
-    }
+    p_and_ds_t<kN, L::kF32>(sc, dp, pa, plo, da, dlo, rowv + (i % p.stages) * 2 * kN,
+                            p.scale_log2, p.scale, (t0 + i) * kN, key0, wg_last, offset,
+                            p.causal, t4);
   };
   // dV += P^T dO and dK += dS^T Q, dO and Q at stage st
   auto issue_kv = [&](uint32_t st) {
@@ -723,6 +684,418 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// The wide mode of the dK/dV kernel: head dims above 256, and in fp32 above
+// 128 (_kernels.flash_bwd_plan's dkv.slices > 0), where the fixed K and V do
+// not fit beside a ring as wgmma's operands (fp32 at d = 256: as tf32 hi and
+// lo, 256 KB for 64 keys) and two accumulators over d not the registers
+// (bf16 at d = 512: 512 a thread). One block per (batch*head, 64 keys, pair
+// of column groups of kG = 128); multiplying warpgroup w accumulates dK and
+// dV of group 2 pair + w. The two split S^T and dP^T between them: over the
+// slices of d warpgroup 0 adds S^T = K Q^T, warpgroup 1 dP^T = V dO^T, each
+// into one fp32 fragment; the two fragments are exchanged through shared
+// memory (two named barriers), and both build P^T and dS^T (as
+// flash_bwd_dkv_kernel does) and add dV += P^T dO_g and dK += dS^T Q_g for
+// their group by wgmma with P^T and dS^T in registers. K and V are held for
+// the whole block where they fit beside the ring (bf16 up to 11 chunks of
+// d), else every slice brings its chunks of them. A q tile is ns + 2 units
+// of the ring, in order: its slices (kSC chunks of Q's and dO's kN rows; K's
+// and V's 64 rows where they stream; fp32: then their tf32 lo, split in
+// place by warps 1-3), then one group unit for each warpgroup (Q's and dO's
+// group columns; fp32: then Q^T and dO^T as tf32 hi and lo), beside the
+// first of which warps 1-3 stage the q tile's lse and delta. A slice is two
+// chunks where d's chunks pair up, else one: every slice is whole and both
+// warpgroups run the same issues, so no branch sits among them (ptxas would
+// serialize the wgmma). A group's chunks wholly beyond d are not copied;
+// its columns are multiplied from stale shared memory into accumulator
+// columns that are never stored (a warpgroup whose group lies beyond d
+// stores nothing).
+//
+// What bounds it on an H100 at d = 512. The products, 8 d FLOPs per allowed
+// pair; this design does 4 d for S^T and dP^T in each of the ceil(d / 256)
+// blocks of a key tile and 4 * 128 for each group's dV and dK: 12 d at d =
+// 512 (1.5 times the bound's), 8 d at d = 256. Beside them L2: Q and dO
+// stream again for every block (and K and V for every q tile where they
+// are not held); fp32 waits on warps 1-3 splitting every slice.
+template <typename T, int SC>
+struct WideBwd {
+  static constexpr int kEs = sizeof(T);
+  static constexpr bool kF32 = kEs == 4;
+  static constexpr int kChunkE = kRow / kEs;   // elements of a 128-byte chunk
+  static constexpr int kG = 128;                // dK's and dV's columns a warpgroup
+  static constexpr int kGC = kG / kChunkE;      // their chunks
+  static constexpr int kN = kF32 ? 16 : 32;     // q rows a tile
+  static constexpr int kSC = SC;                // chunks of d a slice: 2 where they pair up, else 1
+  static constexpr int kParts = kF32 ? 2 : 1;   // fp32: hi and lo
+  static constexpr int kT = (kN + 31) / 32 * kG * kRow;       // fp32: Q^T or dO^T, one part
+  static constexpr int kGU = 2 * kGC * kN * kRow + (kF32 ? 4 * kT : 0);  // a group unit
+  static constexpr int kX = 2 * 64 * kN * 4;  // the exchanged S^T and dP^T
+  // K and V held for the block: 64 rows of each chunk of both
+  __host__ __device__ static constexpr int kv_bytes(int n_ch) { return 2 * n_ch * 64 * kRow; }
+  // a slice: Q's and dO's kSC chunks of kN rows, after K's and V's of 64
+  // rows where they stream; fp32: their lo
+  __host__ __device__ static constexpr int slice_bytes(bool held) {
+    return kParts * kSC * 2 * (kN + (held ? 0 : 64)) * kRow;
+  }
+  __host__ __device__ static constexpr int stage(bool held) {
+    return slice_bytes(held) > kGU ? slice_bytes(held) : kGU;
+  }
+  // 1024 bytes of slack to align the base for the swizzle, K and V where
+  // held, the ring with each stage's lse and delta, the exchange, the
+  // barriers
+  __host__ __device__ static constexpr int smem(bool held, int n_ch, int stages) {
+    return 1024 + (held ? kv_bytes(n_ch) : 0) + stages * (stage(held) + 8 * kN) + kX + 256;
+  }
+  // K and V are held where two stages fit beside them (bf16 only: as tf32
+  // hi and lo they would take twice the room)
+  __host__ __device__ static constexpr bool held(int n_ch) {
+    return !kF32 && smem(true, n_ch, 2) <= kSmemMax;
+  }
+  // registers of a multiplying thread: dK's and dV's group, S^T and dP^T,
+  // P^T and dS^T as A operands
+  static constexpr int kRegs = kG + kN + (kF32 ? 2 * kN : kN / 2);
+  static_assert(kRegs <= kRegBudget, "the wide tile does not fit the register budget");
+};
+
+template <typename T, int kSC>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_wide_kernel(const __grid_constant__ CUtensorMap qmap,
+                              const __grid_constant__ CUtensorMap kmap,
+                              const __grid_constant__ CUtensorMap vmap,
+                              const __grid_constant__ CUtensorMap omap, const Params p) {
+  using W = WideBwd<T, kSC>;
+  constexpr int kN = W::kN;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int n_ch = (p.d * W::kEs + kRow - 1) / kRow;  // chunks of d
+  const int ns = n_ch / kSC;                           // slices of a q tile
+  const int per = ns + 2;                              // its units: slices, two group units
+  const bool held = W::held(n_ch);
+  const int stage_b = W::stage(held);
+  uint8_t* kv = base;                                  // K's chunks, then V's (held)
+  uint8_t* ring = base + (held ? W::kv_bytes(n_ch) : 0);
+  float* xch = reinterpret_cast<float*>(ring + p.stages * stage_b);  // S^T, dP^T
+  float* rowv = xch + W::kX / 4;                                     // per stage: lse2, delta
+  uint64_t* full_x = reinterpret_cast<uint64_t*>(rowv + p.stages * 2 * kN);
+  uint64_t* full = full_x + 2;
+  uint64_t* ready = full + kMaxStages;  // lse and delta staged; fp32: the splits
+  uint64_t* empty = ready + kMaxStages;
+  // regions of a slice: K's, V's chunks (64 rows each, where they stream),
+  // Q's, dO's (kN rows each); fp32: their lo
+  const int kvs = held ? 0 : kSC * 64 * kRow, qo = 2 * kvs, oo = qo + kSC * kN * kRow;
+  const int lo = W::slice_bytes(held) / 2;
+  const int n_grp = (p.d + W::kG - 1) / W::kG, n_pair = (n_grp + 1) / 2;
+  // one block per (kv tile, pair of column groups, batch*head), the
+  // heaviest causal kv tiles first
+  const int idx = (int)(blockIdx.x / p.bh), pair = idx % n_pair, kt = idx / n_pair;
+  const int bh = blockIdx.x % p.bh, k0 = kt * 64, offset = p.sk - p.sq;
+  const int n_q = (p.sq + kN - 1) / kN;
+  // the first q tile whose last row may see key k0 (causal), else 0
+  int t0 = 0;
+  if (p.causal) {
+    const int lo_row = k0 - offset - (kN - 1);
+    t0 = lo_row <= 0 ? 0 : min((lo_row + kN - 1) / kN, n_q);
+  }
+  const int n_t = n_q - t0;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(full_x, 1);
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(ready + s, 96);  // warps 1-3 of the copying warpgroup
+      mbar_init(empty + s, 8);   // one arrival per multiplying warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // the copying warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (tid == 0) {
+      if (held && n_t > 0) {
+        mbar_expect_tx(full_x, W::kv_bytes(n_ch));
+        for (int c = 0; c < n_ch; ++c) {
+          tma_load_3d(smem_u32(kv + c * 64 * kRow), &kmap, full_x, c * W::kChunkE, k0, bh);
+          tma_load_3d(smem_u32(kv + (n_ch + c) * 64 * kRow), &vmap, full_x, c * W::kChunkE, k0,
+                      bh);
+        }
+      }
+      for (int u = 0; u < n_t * per; ++u) {
+        const int c = u % per, s = u % p.stages, q0 = (t0 + u / per) * kN;
+        wait_or_trap(empty + s, ((u / p.stages) & 1) ^ 1);
+        fence_proxy_async();  // fp32: the split's stores to this stage before the copy
+        uint8_t* st = ring + s * stage_b;
+        if (c < ns) {  // slice c: chunks c0 ..
+          const int c0 = c * kSC;
+          mbar_expect_tx(full + s, kSC * 2 * (kN + (held ? 0 : 64)) * kRow);
+          for (int j = 0; j < kSC; ++j) {
+            const int x = (c0 + j) * W::kChunkE;
+            if (!held) {
+              tma_load_3d(smem_u32(st + j * 64 * kRow), &kmap, full + s, x, k0, bh);
+              tma_load_3d(smem_u32(st + kvs + j * 64 * kRow), &vmap, full + s, x, k0, bh);
+            }
+            tma_load_3d(smem_u32(st + qo + j * kN * kRow), &qmap, full + s, x, q0, bh);
+            tma_load_3d(smem_u32(st + oo + j * kN * kRow), &omap, full + s, x, q0, bh);
+          }
+        } else {  // the group unit of warpgroup c - ns: its chunks below d
+          const int g0 = (2 * pair + c - ns) * W::kGC, nch = max(0, min(W::kGC, n_ch - g0));
+          mbar_expect_tx(full + s, 2 * nch * kN * kRow);
+          for (int j = 0; j < nch; ++j) {
+            tma_load_3d(smem_u32(st + j * kN * kRow), &qmap, full + s, (g0 + j) * W::kChunkE, q0,
+                        bh);
+            tma_load_3d(smem_u32(st + (W::kGC + j) * kN * kRow), &omap, full + s,
+                        (g0 + j) * W::kChunkE, q0, bh);
+          }
+        }
+      }
+      return;
+    }
+    if (tid >= 32) {  // warps 1-3: lse (times log2 e) and delta; fp32: the tf32 splits
+      const int st_tid = tid - 32;
+      for (int u = 0; u < n_t * per; ++u) {
+        const int c = u % per, s = u % p.stages, q0 = (t0 + u / per) * kN;
+        uint8_t* st = ring + s * stage_b;
+        wait_or_trap(empty + s, ((u / p.stages) & 1) ^ 1);
+        if (c == ns) {
+          float* rv = rowv + s * 2 * kN;
+          for (int r = st_tid; r < kN; r += 96) {
+            const int q = q0 + r;
+            const size_t at = (size_t)bh * p.sq + q;
+            // beyond sq: P = 2^(S - inf) = 0, delta 0
+            rv[r] = q < p.sq ? p.lse[at] * kLog2e : INFINITY;
+            rv[kN + r] = q < p.sq ? p.delta[at] : 0.f;
+          }
+        }
+        if constexpr (W::kF32) {
+          wait_or_trap(full + s, (u / p.stages) & 1);
+          if (c < ns) {
+            split_cells(st, st + lo, lo / 16, st_tid, 96);
+          } else {
+            const int gl = 2 * W::kGC * kN * kRow;
+            transpose_split<W::kG>(st, nullptr, st + gl, st + gl + W::kT, kN, st_tid, 96);
+            transpose_split<W::kG>(st + W::kGC * kN * kRow, nullptr, st + gl + 2 * W::kT,
+                                   st + gl + 3 * W::kT, kN, st_tid, 96);
+          }
+          fence_proxy_async();
+        }
+        mbar_arrive(ready + s);
+      }
+    }
+    return;
+  }
+
+  // the multiplying warpgroups: both take the block's 64 keys; wg's group
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+  const int ct = tid - 128, wg = ct >> 7, warp = (ct >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3, wt = ct & 127;
+  const int key0 = k0 + 16 * warp + g;  // this thread's keys: key0, key0 + 8
+  const int last_key = min(k0 + 64, p.sk) - 1;
+  const int grp = 2 * pair + wg;
+  const bool has_grp = grp < n_grp;
+
+  float acc_k[W::kG / 2], acc_v[W::kG / 2];
+#pragma unroll
+  for (int i = 0; i < W::kG / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  float xs[kN / 2];              // this warpgroup's product: S^T (0) or dP^T (1)
+  float sc[kN / 2], dp[kN / 2];  // S^T, then P^T; dP^T, then dS^T
+  constexpr int kA = W::kF32 ? kN / 8 : kN / 16, kLo = W::kF32 ? kN / 8 : 1;
+  uint32_t pa[kA][4], plo[kLo][4], da[kA][4], dlo[kLo][4];
+  auto unit_at = [&](int u) { return smem_u32(ring + (u % p.stages) * stage_b); };
+  auto wait_unit = [&](int u) {
+    if constexpr (!W::kF32) mbar_wait(full + u % p.stages, (u / p.stages) & 1);
+    mbar_wait(ready + u % p.stages, (u / p.stages) & 1);
+  };
+  auto release = [&](int u) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + u % p.stages);
+  };
+  // A: K's (warpgroup 0) or V's (1) rows of a chunk, held or in the slice
+  const uint32_t a_held = smem_u32(kv) + wg * n_ch * 64 * kRow;
+  const int a_unit = wg * kvs, b_unit = wg ? oo : qo;
+
+  // S^T += K Q^T (warpgroup 0) or dP^T += V dO^T (1) over slice c's
+  // chunks, the unit at st
+  auto issue_slice = [&](uint32_t st, int c) {
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kSC; ++j) {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {  // 32 bytes a step
+        const uint32_t a = (held ? a_held + (c * kSC + j) * 64 * kRow : st + a_unit + j * 64 * kRow) +
+                           32 * ks;
+        const uint32_t b = st + b_unit + j * kN * kRow + 32 * ks;
+        if constexpr (W::kF32) {
+          Wgmma<kN>::ss_tf32(xs, desc_sw128(a + lo), desc_sw128(b));
+          Wgmma<kN>::ss_tf32(xs, desc_sw128(a), desc_sw128(b + lo));
+          Wgmma<kN>::ss_tf32(xs, desc_sw128(a), desc_sw128(b));
+        } else {
+          Wgmma<kN>::ss_bf16(xs, desc_sw128(a), desc_sw128(b));
+        }
+      }
+    }
+    wgmma_commit();
+  };
+  // dV += P^T dO_g and dK += dS^T Q_g, the group unit at st
+  auto issue_kv = [&](uint32_t st) {
+    wgmma_fence();
+    if constexpr (W::kF32) {
+      const uint32_t qt_hi = st + 2 * W::kGC * kN * kRow, qt_lo = qt_hi + W::kT;
+      const uint32_t ot_hi = qt_hi + 2 * W::kT, ot_lo = qt_hi + 3 * W::kT;
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        const int off = (j >> 2) * W::kG * kRow + 32 * (j & 3);
+        const uint64_t ohi = desc_sw128(ot_hi + off), olo = desc_sw128(ot_lo + off);
+        const uint64_t qhi = desc_sw128(qt_hi + off), qlo = desc_sw128(qt_lo + off);
+        Wgmma<W::kG>::rs_tf32(acc_v, plo[j], ohi);
+        Wgmma<W::kG>::rs_tf32(acc_v, pa[j], olo);
+        Wgmma<W::kG>::rs_tf32(acc_v, pa[j], ohi);
+        Wgmma<W::kG>::rs_tf32(acc_k, dlo[j], qhi);
+        Wgmma<W::kG>::rs_tf32(acc_k, da[j], qlo);
+        Wgmma<W::kG>::rs_tf32(acc_k, da[j], qhi);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kN / 16; ++k)
+#pragma unroll
+        for (int c = 0; c < W::kGC; ++c) {  // 64 columns of the group a product
+          const uint32_t off = c * kN * kRow + k * 16 * kRow;
+          Wgmma<64>::rs_bf16<1>(acc_v + 32 * c, pa[k], desc_sw128(st + W::kGC * kN * kRow + off));
+          Wgmma<64>::rs_bf16<1>(acc_k + 32 * c, da[k], desc_sw128(st + off));
+        }
+    }
+    wgmma_commit();
+  };
+
+  if (held && n_t > 0) mbar_wait(full_x, 0);
+  // each q tile: its slices, each slice's product issued and the unit
+  // before it released once that completed; the exchange; P^T and dS^T;
+  // the group's products, waited for before the next q tile
+  for (int i = 0; i < n_t; ++i) {
+    int pend = -1;  // the slice whose product may still run
+#pragma unroll
+    for (int e = 0; e < kN / 2; ++e) xs[e] = 0.f;
+    for (int c = 0; c < ns; ++c) {
+      const int u = i * per + c;
+      wait_unit(u);
+      issue_slice(unit_at(u), c);
+      wgmma_wait1();
+      if (pend >= 0) release(pend);
+      pend = u;
+    }
+    wgmma_wait0();
+    fence_regs(xs);
+    release(pend);
+    // S^T from warpgroup 0, dP^T from warpgroup 1, to both
+#pragma unroll
+    for (int e = 0; e < kN / 2; ++e) xch[(wg * (kN / 2) + e) * 128 + wt] = xs[e];
+    named_sync(5);
+#pragma unroll
+    for (int e = 0; e < kN / 2; ++e) {
+      sc[e] = xch[e * 128 + wt];
+      dp[e] = xch[(kN / 2 + e) * 128 + wt];
+    }
+    named_sync(5);  // both read before the next q tile's writes
+    // the group units: the first carries the lse and delta; warpgroup w
+    // multiplies from unit w (a group beyond d: into accumulators that are
+    // never stored) and releases the other one unread
+    const int g0u = i * per + ns;
+    wait_unit(g0u);
+    p_and_ds_t<kN, W::kF32>(sc, dp, pa, plo, da, dlo, rowv + (g0u % p.stages) * 2 * kN,
+                            p.scale_log2, p.scale, (t0 + i) * kN, key0, last_key, offset,
+                            p.causal, t4);
+    if (wg == 1) release(g0u);
+    wait_unit(g0u + 1);
+    if (wg == 0) release(g0u + 1);
+    issue_kv(unit_at(g0u + wg));
+    wgmma_wait0();
+    fence_regs(acc_k);
+    fence_regs(acc_v);
+    hold_regs(pa);
+    hold_regs(da);
+    if constexpr (W::kF32) {
+      hold_regs(plo);
+      hold_regs(dlo);
+    }
+    release(g0u + wg);
+  }
+
+  // dK and dV of keys key0 and key0 + 8, the group's columns below d
+  if (!has_grp) return;
+  T* out_k = static_cast<T*>(p.g0) + grp * W::kG;
+  T* out_v = static_cast<T*>(p.g1) + grp * W::kG;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = key0 + 8 * h;
+    if (key >= p.sk) continue;
+    const size_t at = ((size_t)bh * p.sk + key) * p.d;
+#pragma unroll
+    for (int j = 0; j < W::kG / 8; ++j)
+      if (grp * W::kG + 8 * j + 2 * t4 < p.d) {  // d is even: a pair is stored whole or not at all
+        store2(out_k + at + 8 * j + 2 * t4, acc_k[4 * j + 2 * h], acc_k[4 * j + 2 * h + 1]);
+        store2(out_v + at + 8 * j + 2 * t4, acc_v[4 * j + 2 * h], acc_v[4 * j + 2 * h + 1]);
+      }
+  }
+}
+
+// the (bh, s, d) tensor maps of q, k, v and dout: boxes of one 128-byte
+// chunk of d by q_box rows (q, dout) or kv_box rows (k, v), zero beyond d
+// and s
+template <typename T>
+bool bwd_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v,
+              const void* dout, const Params& p, int q_box, int kv_box) {
+  const void* ptrs[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i) {
+    const bool is_q = i == 0 || i == 3;
+    const cuuint64_t s = is_q ? p.sq : p.sk;
+    const cuuint64_t dims[3] = {(cuuint64_t)p.d, s, (cuuint64_t)p.bh};
+    const cuuint64_t strides[2] = {(cuuint64_t)p.d * sizeof(T), s * p.d * sizeof(T)};
+    const cuuint32_t box[3] = {(cuuint32_t)(kRow / sizeof(T)), (cuuint32_t)(is_q ? q_box : kv_box),
+                               1};
+    if (!encode(&maps[i], sizeof(T) == 2, 3, ptrs[i], dims, strides, box)) return false;
+  }
+  return true;
+}
+
+template <typename T, int kSC>
+cudaError_t launch_wide_dkv(const void* q, const void* k, const void* v, const void* dout,
+                            const Params& p0, int rows, int tile, int smem, int groups,
+                            cudaStream_t stream) {
+  using W = WideBwd<T, kSC>;
+  // 64 keys a block; two stages at least: a slice's product is issued
+  // before the unit before it is released
+  const int n_ch = (p0.d * W::kEs + kRow - 1) / kRow;
+  if (tile != W::kN || groups != (p0.d + W::kG - 1) / W::kG || rows != 64 || p0.stages < 2 ||
+      p0.stages > kMaxStages || smem != W::smem(W::held(n_ch), n_ch, p0.stages) ||
+      smem > kSmemMax)
+    return cudaErrorInvalidValue;
+  const auto kernel = flash_bwd_dkv_wide_kernel<T, kSC>;
+  static bool raised = false;  // once per instantiation, never inside a graph capture
+  if (!raised) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (err != cudaSuccess) return err;
+    raised = true;
+  }
+  CUtensorMap maps[4] = {};
+  if (!bwd_maps<T>(maps, q, k, v, dout, p0, tile, rows)) return cudaErrorInvalidValue;
+  Params p = p0;
+  p.rows = rows;
+  p.n_blocks = (p.sk + rows - 1) / rows;
+  const long long blocks = (long long)p.n_blocks * ((groups + 1) / 2) * p.bh;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
+  return cudaGetLastError();
+}
+
+// the wide mode in slices of two chunks where d's chunks pair up, else one
+template <typename T>
+cudaError_t launch_wide_dkv(const void* q, const void* k, const void* v, const void* dout,
+                            const Params& p0, int rows, int tile, int smem, int groups,
+                            cudaStream_t stream) {
+  const int n_ch = (p0.d * (int)sizeof(T) + kRow - 1) / kRow;
+  return n_ch % 2 ? launch_wide_dkv<T, 1>(q, k, v, dout, p0, rows, tile, smem, groups, stream)
+                  : launch_wide_dkv<T, 2>(q, k, v, dout, p0, rows, tile, smem, groups, stream);
+}
+
 template <typename T, int D, bool kDq>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, const Params& p0,
                    int rows, int tile, int smem, int groups, cudaStream_t stream) {
@@ -739,20 +1112,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
     if (err != cudaSuccess) return err;
     raised = true;
   }
-  // (bh, s, d) as 3-d tensors, d innermost; boxes of one 128-byte chunk of D
-  // by the block's rows (dQ: Q, dO; dK/dV: K, V) or a tile's, zero beyond
-  // d, beyond s
   CUtensorMap maps[4] = {};
-  const void* ptrs[4] = {q, k, v, dout};
-  for (int i = 0; i < 4; ++i) {
-    const bool is_q = i == 0 || i == 3;
-    const cuuint64_t s = is_q ? p0.sq : p0.sk;
-    const cuuint64_t dims[3] = {(cuuint64_t)p0.d, s, (cuuint64_t)p0.bh};
-    const cuuint64_t strides[2] = {(cuuint64_t)p0.d * L::kEs, s * p0.d * L::kEs};
-    const int box_rows = is_q == kDq ? rows : tile;
-    const cuuint32_t box[3] = {(cuuint32_t)L::kChunkE, (cuuint32_t)box_rows, 1};
-    if (!encode(&maps[i], !L::kF32, 3, ptrs[i], dims, strides, box)) return cudaErrorInvalidValue;
-  }
+  if (!bwd_maps<T>(maps, q, k, v, dout, p0, kDq ? rows : tile, kDq ? tile : rows))
+    return cudaErrorInvalidValue;
   Params p = p0;
   p.rows = rows;
   p.n_blocks = ((kDq ? p.sq : p.sk) + rows - 1) / rows;
@@ -765,7 +1127,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 template <typename T, bool kDq>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* dout,
                      const Params& p, int rows, int tile, int smem, int groups, cudaStream_t s) {
-  switch (head_class(p.d)) {
+  const int dc = head_class(p.d);
+  if constexpr (!kDq) {  // above 256, and fp32 above 128: the wide mode
+    if (dc == 0 || (dc == 256 && !BwdTile<T, 256>::fits(false)))
+      return launch_wide_dkv<T>(q, k, v, dout, p, rows, tile, smem, groups, s);
+  }
+  switch (dc) {
     case 16: return launch<T, 16, kDq>(q, k, v, dout, p, rows, tile, smem, groups, s);
     case 32: return launch<T, 32, kDq>(q, k, v, dout, p, rows, tile, smem, groups, s);
     case 64: return launch<T, 64, kDq>(q, k, v, dout, p, rows, tile, smem, groups, s);
@@ -802,18 +1169,13 @@ int run(const void* q, const void* k, const void* v, const void* dout, const voi
   return static_cast<int>(err);
 }
 
-// The sliced backward (flash.cuh, namespace sliced): head dims above 256,
-// and above 128 in fp32, run by the host as d itself. S and dP are summed
-// over the slices of d (Q and K, then dO and V, staged in turn); P and dS
-// on the registers, rounded to the input type into shared memory; then the
-// output group's columns of the other operand are staged and multiplied.
-//   dQ:    one block per (batch*head, 64 q rows, group of 128 of dQ's
-//          columns), the heaviest causal tiles first; the kv loop ends at
-//          the last live tile. dQ += dS K.
-//   dK/dV: one block per (batch*head, 64 keys, group of 128 columns);
-//          S^T = K Q^T and dP^T = V dO^T directly, lse and delta per column
-//          staged per q tile; the q loop starts at the first live tile.
-//          dV += P^T dO and dK += dS^T Q.
+// The sliced dQ kernel (flash.cuh, namespace sliced): head dims above 256,
+// and above 128 in fp32, run by the host as d itself, on the CUDA cores.
+// One block per (batch*head, 64 q rows, group of 128 of dQ's columns), the
+// heaviest causal tiles first; the kv loop ends at the last live tile. S
+// and dP are summed over the slices of d (Q and K, then dO and V, staged in
+// turn); dS on the registers, rounded to the input type into shared memory;
+// then the group's columns of K are staged and dQ += dS K.
 template <typename T>
 __global__ void __launch_bounds__(sliced::kThreads)
     flash_bwd_dq_sliced_kernel(const T* q, const T* k, const T* v, const T* dout,
@@ -880,126 +1242,23 @@ __global__ void __launch_bounds__(sliced::kThreads)
 }
 
 template <typename T>
-__global__ void __launch_bounds__(sliced::kThreads)
-    flash_bwd_dkv_sliced_kernel(const T* q, const T* k, const T* v, const T* dout,
-                                const float* lse, const float* delta, T* dk, T* dv,
-                                sliced::Params p) {
-  using namespace sliced;
-  extern __shared__ float smem[];
-  float* a = smem;
-  float* b = a + kStage;
-  float* pt = b + kStage;          // P^T, rounded to the input type
-  float* dst = pt + kTile * kLdP;  // dS^T, likewise
-  float* col_lse = dst + kTile * kLdP;
-  float* col_delta = col_lse + kTile;
-  const Block blk(p, false);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const size_t qo = (size_t)blk.bh * p.sq * p.d, ko = (size_t)blk.bh * p.sk * p.d;
-  q += qo, dout += qo, k += ko, v += ko, dk += ko, dv += ko;
-  lse += (size_t)blk.bh * p.sq, delta += (size_t)blk.bh * p.sq;
-  const int k0 = blk.tile * kTile, c0 = blk.group * kCols;
-  const int n_q = (p.sq + kTile - 1) / kTile;
-  int lo = 0;
-  if (p.causal) {  // the first q tile whose last row may see key k0
-    const int first = k0 - (p.sk - p.sq);
-    lo = first <= 0 ? 0 : min(n_q, first / kTile);
-  }
-  float acc_k[4][8] = {}, acc_v[4][8] = {};
-  for (int t = lo; t < n_q; ++t) {
-    const int q0 = t * kTile;
-    // the previous tile's elementwise phase, the last reader of col_lse and
-    // col_delta, ended before the barrier ahead of its products
-    if (threadIdx.x < kTile) {
-      const int row = q0 + threadIdx.x;
-      col_lse[threadIdx.x] = row < p.sq ? lse[row] * kLog2e : 0.f;
-      col_delta[threadIdx.x] = row < p.sq ? delta[row] : 0.f;
-    }
-    float s[4][4] = {}, dp[4][4] = {};
-    for (int c = 0; c < p.d; c += kCols) {
-      __syncthreads();
-      stage(a, k, k0, p.sk, c, p.d);
-      stage(b, q, q0, p.sq, c, p.d);
-      __syncthreads();
-      add_products(s, a, b);
-    }
-    for (int c = 0; c < p.d; c += kCols) {
-      __syncthreads();
-      stage(a, v, k0, p.sk, c, p.d);
-      stage(b, dout, q0, p.sq, c, p.d);
-      __syncthreads();
-      add_products(dp, a, b);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int qc = tx + 16 * j, row = q0 + qc;
-        const bool ok = row < p.sq && key < p.sk && (!p.causal || key <= row + p.sk - p.sq);
-        const float pij = ok ? exp2f(s[i][j] * p.scale_log2 - col_lse[qc]) : 0.f;
-        pt[(4 * ty + i) * kLdP + qc] = round_to<T>(pij);
-        dst[(4 * ty + i) * kLdP + qc] = round_to<T>(pij * (dp[i][j] - col_delta[qc]) * p.scale);
-      }
-    }
-    __syncthreads();  // every product is summed (a, b are free); P^T, dS^T whole
-    stage(a, dout, q0, p.sq, c0, p.d);
-    stage(b, q, q0, p.sq, c0, p.d);
-    __syncthreads();
-    add_group(acc_v, pt, a);
-    add_group(acc_k, dst, b);
-  }
-  store_group(dk, acc_k, k0, p.sk, c0, p.d);
-  store_group(dv, acc_v, k0, p.sk, c0, p.d);
-}
-
-template <typename T, bool kDq>
-cudaError_t launch_sliced(const void* q, const void* k, const void* v, const void* dout,
-                          const float* lse, const float* delta, void* g0, void* g1, int bh,
-                          int sq, int sk, int d, int causal, float scale, int slices, int groups,
-                          int smem, cudaStream_t stream) {
+cudaError_t launch_sliced_dq(const void* q, const void* k, const void* v, const void* dout,
+                             const float* lse, const float* delta, void* dq, int bh, int sq, int sk,
+                             int d, int causal, float scale, int slices, int groups, int smem,
+                             cudaStream_t stream) {
   long long blocks = 0;
-  cudaError_t err = sliced::check_plan(!kDq, bh, kDq ? sq : sk, d, slices, groups, smem, &blocks);
+  cudaError_t err = sliced::check_plan(bh, sq, d, slices, groups, smem, &blocks);
   if (err != cudaSuccess) return err;
-  const sliced::Params p{sq, sk, d, causal, groups,
-                         ((kDq ? sq : sk) + sliced::kTile - 1) / sliced::kTile, scale,
+  const sliced::Params p{sq, sk, d, causal, groups, (sq + sliced::kTile - 1) / sliced::kTile, scale,
                          scale * kLog2e};
-  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k);
-  const T *tv = static_cast<const T*>(v), *tdo = static_cast<const T*>(dout);
+  const auto kernel = flash_bwd_dq_sliced_kernel<T>;
   static bool raised = false;
-  if constexpr (kDq) {
-    const auto kernel = flash_bwd_dq_sliced_kernel<T>;
-    err = sliced::allow_smem(kernel, smem, raised);
-    if (err != cudaSuccess) return err;
-    kernel<<<(unsigned)blocks, sliced::kThreads, smem, stream>>>(tq, tk, tv, tdo, lse, delta,
-                                                                  static_cast<T*>(g0), p);
-  } else {
-    const auto kernel = flash_bwd_dkv_sliced_kernel<T>;
-    err = sliced::allow_smem(kernel, smem, raised);
-    if (err != cudaSuccess) return err;
-    kernel<<<(unsigned)blocks, sliced::kThreads, smem, stream>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<T*>(g0), static_cast<T*>(g1), p);
-  }
+  err = sliced::allow_smem(kernel, smem, raised);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)blocks, sliced::kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), p);
   return cudaGetLastError();
-}
-
-template <bool kDq>
-int run_sliced(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-               const void* delta, void* g0, void* g1, int bh, int sq, int sk, int d, int causal,
-               float scale, int is_bf16, int slices, int groups, int smem, void* stream) {
-  const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
-                          reinterpret_cast<uintptr_t>(g0) | reinterpret_cast<uintptr_t>(g1);
-  if (bh < 1 || sq < 1 || sk < 1 || d < 1 || d * (is_bf16 ? 2 : 4) % 16 || align % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_sliced<__nv_bfloat16, kDq>(q, k, v, dout, l, dl, g0, g1, bh, sq, sk, d,
-                                                  causal, scale, slices, groups, smem, s)
-              : launch_sliced<float, kDq>(q, k, v, dout, l, dl, g0, g1, bh, sq, sk, d, causal,
-                                          scale, slices, groups, smem, s);
-  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -1007,8 +1266,9 @@ int run_sliced(const void* q, const void* k, const void* v, const void* dout, co
 extern "C" {
 
 // q, dout, dq: contiguous (bh, sq, d); k, v: contiguous (bh, sk, d); all fp32
-// (is_bf16 = 0) or bf16 (is_bf16 = 1), 16-byte aligned, 1 <= d <= 256 (fp32:
-// 128) with rows of whole 16-byte units. lse, delta: contiguous (bh, sq)
+// (is_bf16 = 0) or bf16 (is_bf16 = 1), 16-byte aligned, d >= 1 with rows of
+// whole 16-byte units (dQ: d <= 256, fp32 128; dK/dV above that in its wide
+// mode). lse, delta: contiguous (bh, sq)
 // fp32. The plan (_kernels.flash_bwd_plan, this kernel's part): rows (64 or
 // 128) a block, tile keys a stage, stages of the ring, smem the block's
 // dynamic shared memory in bytes, groups of the output's columns; a plan
@@ -1031,25 +1291,29 @@ int dcnn_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* 
                     rows, tile, stages, smem, groups, stream);
 }
 
-// The sliced kernels (head dims above 256, and above 128 in fp32): the
+// The sliced dQ kernel (head dims above 256, and above 128 in fp32): the
 // tensors as above, any d >= 1 with rows of whole 16-byte units. The plan
-// (_kernels.flash_bwd_plan): slices and groups of 128 columns covering d,
-// smem the kernel's shared memory in bytes; any other plan is refused.
-// Returns the launch's cudaError_t (0 = queued).
+// (_kernels.flash_bwd_plan's dq part): slices and groups of 128 columns
+// covering d, smem the kernel's shared memory in bytes; any other plan is
+// refused. Returns the launch's cudaError_t (0 = queued).
 int dcnn_flash_bwd_dq_sliced(const void* q, const void* k, const void* v, const void* dout,
                              const void* lse, const void* delta, void* dq, int bh, int sq, int sk,
                              int d, int causal, float scale, int is_bf16, int slices, int groups,
                              int smem, void* stream) {
-  return run_sliced<true>(q, k, v, dout, lse, delta, dq, dq, bh, sq, sk, d, causal, scale,
-                          is_bf16, slices, groups, smem, stream);
-}
-
-int dcnn_flash_bwd_dkv_sliced(const void* q, const void* k, const void* v, const void* dout,
-                              const void* lse, const void* delta, void* dk, void* dv, int bh,
-                              int sq, int sk, int d, int causal, float scale, int is_bf16,
-                              int slices, int groups, int smem, void* stream) {
-  return run_sliced<false>(q, k, v, dout, lse, delta, dk, dv, bh, sq, sk, d, causal, scale,
-                           is_bf16, slices, groups, smem, stream);
+  const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
+                          reinterpret_cast<uintptr_t>(dq);
+  if (bh < 1 || sq < 1 || sk < 1 || d < 1 || d * (is_bf16 ? 2 : 4) % 16 || align % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      is_bf16 ? launch_sliced_dq<__nv_bfloat16>(q, k, v, dout, l, dl, dq, bh, sq, sk, d, causal,
+                                                scale, slices, groups, smem, s)
+              : launch_sliced_dq<float>(q, k, v, dout, l, dl, dq, bh, sq, sk, d, causal, scale,
+                                        slices, groups, smem, s);
+  return static_cast<int>(err);
 }
 
 #ifdef FLASH_BWD_TRACE

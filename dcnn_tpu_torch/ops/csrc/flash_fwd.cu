@@ -15,8 +15,8 @@
 // group of O's columns), on a 1-d grid (any batch*head), the heaviest
 // causal tiles first. Any head dim d <= 256 runs as its class D (16, 32,
 // 64, 128 or 256; flash.cuh): columns d .. D - 1 are the copy's zero fill;
-// a head dim above 256 runs the sliced kernel below, which streams the
-// contraction over d in slices of 128 columns.
+// a head dim above 256 runs the wide mode (flash_fwd_wide_kernel below),
+// which streams the contraction over d through the ring in slices.
 // Where O's fp32 accumulator over D would not fit the register budget with
 // S and P (bf16 at D = 256: 128 registers for O alone), or a stage would not
 // fit beside 64 q rows (fp32 at D = 256), O's columns are cut in groups of
@@ -318,53 +318,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   // 8 (e >> 1), key kv0 + 8j + 2 t4 + (e & 1)): P into sc, m and l
   // updated; returns the rows' rescale factors through corr
   auto softmax = [&](int t, float (&corr)[2]) {
-    const int kv0 = t * kBKV;
-#pragma unroll
-    for (int i = 0; i < kBKV / 2; ++i) sc[i] *= p.scale_log2;
-    // the mask only on tiles that cross the end of the keys or the
-    // diagonal, as a branch of its own: per element one compare against
-    // the row's last allowed key
-    if (kv0 + kBKV > p.sk || (p.causal && kv0 + kBKV - 1 > wg_first + offset)) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int last = (p.causal ? min(p.sk - 1, row0 + 8 * h + offset) : p.sk - 1) -
-                         (kv0 + 2 * t4);
-#pragma unroll
-        for (int j = 0; j < kBKV / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (8 * j + e > last) sc[4 * j + 2 * h + e] = kNeg;
-      }
-    }
-    // max and sum in 4 independent chains: the softmax's latency, not its
-    // issue rate, sets its pace
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx[4] = {kNeg, kNeg, kNeg, kNeg};
-#pragma unroll
-      for (int j = 0; j < kBKV / 8; ++j)
-        mx[j & 3] = fmaxf(mx[j & 3], fmaxf(sc[4 * j + 2 * h], sc[4 * j + 2 * h + 1]));
-      float rmax = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 2));
-      const float m_new = fmaxf(m[h], rmax);
-      corr[h] = ex2(m[h] - m_new);
-      m[h] = m_new;
-      // a masked score is kNeg, so exp2(kNeg - m) is 0; in a row masked so
-      // far m is kNeg too, and its entries are exp2(kNeg - 0) = 0
-      const float m_use = m_new == kNeg ? 0.f : m_new;
-      float sum[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < kBKV / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const float pv = ex2(sc[4 * j + 2 * h + e] - m_use);
-          sc[4 * j + 2 * h + e] = pv;
-          sum[j & 3] += pv;
-        }
-      // this thread's share of the row; the quad's are added at the end
-      l[h] = l[h] * corr[h] + ((sum[0] + sum[1]) + (sum[2] + sum[3]));
-    }
+    online_softmax<kBKV>(sc, m, l, corr, p.scale_log2, t * kBKV, p.sk, p.causal, wg_first, row0,
+                         offset, t4);
   };
   // once no P V is in flight: O rescaled, and P in sc to wgmma's A form
   auto to_operand = [&](const float (&corr)[2]) {
@@ -490,6 +445,352 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// The wide mode: head dims above 256 (_kernels.flash_plan's slices > 0), any
+// d in whole 16-byte units. Neither Q's nor K's rows of d fit a stage whole
+// (bf16 at d = 512: a 128-key K tile is 128 KB), nor O's fp32 accumulator
+// over d the registers (256 a thread at d = 512), so the contraction of S =
+// Q K^T streams through the ring in slices of kSC 128-byte chunks of d, and
+// O's columns are cut in groups of kG = 256, one group a block (each block
+// recomputes S over the whole of d; group 0 writes the logsumexp). A slice
+// is two chunks where d's chunks pair up, else one: every slice is whole,
+// so no branch sits among the wgmma issues (ptxas would serialize them). A
+// kv tile is ns + 1 units of the ring, in order: its slices (Q's q_rows
+// rows and K's kBKV keys of kSC chunks; fp32: then their tf32 lo, split in
+// place by warps 1-3), then the group's columns of V (fp32: then V^T as
+// tf32 hi and lo). Q streams again with every kv tile: held for the block
+// instead (bf16, where it fits) it measured no faster (PERF.md). A
+// multiplying warpgroup (64 q rows) adds each slice's products into the
+// same fp32 S fragment, releasing the slice before it once the slice's
+// wgmma is issued and the one before has completed; runs the online softmax
+// on S; and adds P V for the group by wgmma with P in registers, as
+// flash_fwd_kernel does, left to run beside the next tile's first slice.
+// The two multiplying warpgroups run independently over the same units, so
+// one's softmax runs beside the other's products. A group's chunks wholly
+// beyond d are not copied; their columns are multiplied from stale shared
+// memory into accumulator columns that are never stored.
+//
+// What bounds it on an H100 at d = 512. The products, 4 d FLOPs per allowed
+// pair; this design does 2 d for S in each of the ceil(d / 256) groups and
+// 2 * 256 for P V: 6 d at d = 512 (1.5 times the bound's), 10 d at d = 1024.
+// Q is read again from L2 for every kv tile (Q, K and the V group: 224 KB
+// per 128 x 64 tile pair at d = 512 bf16, 56 FLOPs a byte), which puts L2
+// bandwidth beside the products.
+template <typename T, int SC>
+struct Wide {
+  static constexpr int kEs = sizeof(T);
+  static constexpr bool kF32 = kEs == 4;
+  static constexpr int kChunkE = kRow / kEs;  // elements of a 128-byte chunk
+  static constexpr int kBKV = kF32 ? 32 : 64;  // keys a kv tile
+  static constexpr int kG = 256;               // O's columns a block
+  static constexpr int kGC = kG / kChunkE;     // their chunks
+  static constexpr int kSC = SC;               // chunks of d a slice: 2 where they pair up, else 1
+  static constexpr int kParts = kF32 ? 2 : 1;  // fp32: hi and lo
+  static constexpr int kVL = kGC * kBKV * kRow;              // the group's columns of V
+  static constexpr int kVt = (kBKV + 31) / 32 * kG * kRow;   // fp32: V^T, one part
+  static constexpr int kVU = kVL + (kF32 ? 2 * kVt : 0);     // a V unit
+  // a slice unit: Q's kSC chunks of q_rows rows, K's of kBKV; fp32: their lo
+  __host__ __device__ static constexpr int qk_bytes(int q_rows) {
+    return kParts * kSC * (q_rows + kBKV) * kRow;
+  }
+  __host__ __device__ static constexpr int stage(int q_rows) {
+    return qk_bytes(q_rows) > kVU ? qk_bytes(q_rows) : kVU;
+  }
+  // 1024 bytes of slack to align the base for the swizzle, and the barriers
+  __host__ __device__ static constexpr int smem(int q_rows, int stages) {
+    return 1024 + stages * stage(q_rows) + 256;
+  }
+  // registers of a multiplying thread: O's group, S, P as the A operand
+  static constexpr int kRegs = kG / 2 + kBKV / 2 + (kF32 ? kBKV : kBKV / 4);
+  static_assert(kRegs <= kRegBudget, "the wide tile does not fit the register budget");
+};
+
+template <typename T, int kSC>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wide_kernel(const __grid_constant__ CUtensorMap qmap,
+                          const __grid_constant__ CUtensorMap kmap,
+                          const __grid_constant__ CUtensorMap vmap, const Params p) {
+  using W = Wide<T, kSC>;
+  constexpr int kBKV = W::kBKV;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int n_ch = (p.d * W::kEs + kRow - 1) / kRow;  // chunks of d
+  const int stage_b = W::stage(p.q_rows);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + p.stages * stage_b);
+  uint64_t* ready = full + kMaxStages;  // fp32: the unit split (V transposed)
+  uint64_t* empty = ready + kMaxStages;
+  const int nwg = p.q_rows / 64;
+  const int ns = n_ch / kSC;                           // slices of a kv tile
+  const int per = ns + 1;                              // its units: slices, then V
+  const int n_grp = (p.d + W::kG - 1) / W::kG;
+  // one block per (q tile, column group, batch*head), the heaviest causal
+  // q tiles first
+  const int idx = (int)(blockIdx.x / p.bh), grp = idx % n_grp;
+  const int qt = p.n_qtiles - 1 - idx / n_grp;
+  const int bh = blockIdx.x % p.bh, q0 = qt * p.q_rows, offset = p.sk - p.sq;
+  int n_kv = (p.sk + kBKV - 1) / kBKV;
+  if (p.causal) {
+    const int hi = min(q0 + p.q_rows, p.sq) - 1 + offset;
+    n_kv = hi < 0 ? 0 : min(n_kv, hi / kBKV + 1);
+  }
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(ready + s, 96);       // warps 1-3 of the copying warpgroup
+      mbar_init(empty + s, 4 * nwg);  // one arrival per multiplying warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // the copying warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (tid == 0) {
+      for (int u = 0; u < n_kv * per; ++u) {
+        const int t = u / per, c = u % per, s = u % p.stages;
+        wait_or_trap(empty + s, ((u / p.stages) & 1) ^ 1);
+        fence_proxy_async();  // fp32: the split's stores to this stage before the copy
+        uint8_t* st = ring + s * stage_b;
+        if (c < ns) {  // slice c: Q's and K's chunks c0 ..
+          const int c0 = c * kSC;
+          mbar_expect_tx(full + s, kSC * (p.q_rows + kBKV) * kRow);
+          for (int j = 0; j < kSC; ++j) {
+            tma_load_3d(smem_u32(st + j * p.q_rows * kRow), &qmap, full + s,
+                        (c0 + j) * W::kChunkE, q0, bh);
+            tma_load_3d(smem_u32(st + kSC * p.q_rows * kRow + j * kBKV * kRow), &kmap, full + s,
+                        (c0 + j) * W::kChunkE, t * kBKV, bh);
+          }
+        } else {  // the group's chunks of V that hold columns below d
+          const int g0 = grp * W::kGC, nch = min(W::kGC, n_ch - g0);
+          mbar_expect_tx(full + s, nch * kBKV * kRow);
+          for (int j = 0; j < nch; ++j)
+            tma_load_3d(smem_u32(st + j * kBKV * kRow), &vmap, full + s, (g0 + j) * W::kChunkE,
+                        t * kBKV, bh);
+        }
+      }
+      return;
+    }
+    if constexpr (W::kF32) {  // warps 1-3: the tf32 splits
+      if (tid >= 32) {
+        const int half = W::qk_bytes(p.q_rows) / 2;
+        for (int u = 0; u < n_kv * per; ++u) {
+          const int s = u % p.stages;
+          wait_or_trap(full + s, (u / p.stages) & 1);
+          uint8_t* st = ring + s * stage_b;
+          if (u % per < ns)
+            split_cells(st, st + half, half / 16, tid - 32, 96);
+          else
+            transpose_split<W::kG>(st, nullptr, st + W::kVL, st + W::kVL + W::kVt, kBKV, tid - 32,
+                                   96);
+          fence_proxy_async();
+          mbar_arrive(ready + s);
+        }
+      }
+    }
+    return;
+  }
+
+  // the multiplying warpgroups: wg's 64 rows of the q tile
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+  const int ct = tid - 128, wg = ct >> 7, warp = (ct >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int row0 = q0 + 64 * wg + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  const int wg_first = q0 + 64 * wg, wg_last = min(wg_first + 64, p.sq) - 1;
+  uint64_t* rdy = W::kF32 ? ready : full;
+  const int qo = wg * 64 * kRow, ko = kSC * p.q_rows * kRow, lo = W::qk_bytes(p.q_rows) / 2;
+
+  float o[W::kG / 2];
+#pragma unroll
+  for (int i = 0; i < W::kG / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  float sc[kBKV / 2];  // S of the tile, then its P in fp32
+  uint32_t pa[W::kF32 ? kBKV / 8 : kBKV / 16][4], plo[W::kF32 ? kBKV / 8 : 1][4];
+  int n_live = wg_first <= wg_last ? n_kv : 0;
+  if (p.causal && n_live) {
+    const int hi = wg_last + offset;
+    n_live = hi < 0 ? 0 : min(n_kv, hi / kBKV + 1);
+  }
+  auto unit_at = [&](int u) { return smem_u32(ring + (u % p.stages) * stage_b); };
+  auto wait_unit = [&](int u) { mbar_wait(rdy + u % p.stages, (u / p.stages) & 1); };
+  auto release = [&](int u) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + u % p.stages);
+  };
+
+  // S += Q K^T over a slice's chunks, the unit at st
+  auto issue_slice = [&](uint32_t st) {
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kSC; ++j) {
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {  // 32 bytes a step
+        const uint32_t qa = st + j * p.q_rows * kRow + qo + 32 * ks;
+        const uint32_t kb = st + ko + j * kBKV * kRow + 32 * ks;
+        if constexpr (W::kF32) {
+          Wgmma<kBKV>::ss_tf32(sc, desc_sw128(qa + lo), desc_sw128(kb));
+          Wgmma<kBKV>::ss_tf32(sc, desc_sw128(qa), desc_sw128(kb + lo));
+          Wgmma<kBKV>::ss_tf32(sc, desc_sw128(qa), desc_sw128(kb));
+        } else {
+          Wgmma<kBKV>::ss_bf16(sc, desc_sw128(qa), desc_sw128(kb));
+        }
+      }
+    }
+    wgmma_commit();
+  };
+  // O += P V over the group's columns, P in pa (and plo), the V unit at st
+  auto issue_pv = [&](uint32_t st) {
+    wgmma_fence();
+    if constexpr (W::kF32) {
+      const uint32_t vt_hi = st + W::kVL, vt_lo = vt_hi + W::kVt;
+#pragma unroll
+      for (int j = 0; j < kBKV / 8; ++j)
+#pragma unroll
+        for (int n = 0; n < W::kG / 128; ++n) {
+          const int off = (j >> 2) * W::kG * kRow + 32 * (j & 3) + n * 128 * kRow;
+          const uint64_t bhi = desc_sw128(vt_hi + off), blo = desc_sw128(vt_lo + off);
+          Wgmma<128>::rs_tf32(o + 64 * n, plo[j], bhi);
+          Wgmma<128>::rs_tf32(o + 64 * n, pa[j], blo);
+          Wgmma<128>::rs_tf32(o + 64 * n, pa[j], bhi);
+        }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kBKV / 16; ++k)
+#pragma unroll
+        for (int c = 0; c < W::kGC; ++c)  // 64 columns of the group a product
+          Wgmma<64>::rs_bf16<1>(o + 32 * c, pa[k], desc_sw128(st + c * kBKV * kRow + k * 16 * kRow));
+    }
+    wgmma_commit();
+  };
+
+  // each live tile: its slices, each slice's products issued and the unit
+  // before it released once those completed; the softmax; P V, left to run
+  // beside the next tile's first slice. The tiles above this warpgroup's
+  // band are released unread.
+  int pv_unit = -1;  // the V unit whose P V may still run
+  for (int t = 0; t < n_live; ++t) {
+    int pend = pv_unit;  // the unit whose products may still run
+#pragma unroll
+    for (int i = 0; i < kBKV / 2; ++i) sc[i] = 0.f;
+    for (int c = 0; c < ns; ++c) {
+      const int u = t * per + c;
+      wait_unit(u);
+      issue_slice(unit_at(u));
+      wgmma_wait1();
+      if (pend >= 0) release(pend);
+      pend = u;
+    }
+    wgmma_wait0();
+    fence_regs(sc);
+    fence_regs(o);
+    hold_regs(pa);
+    if constexpr (W::kF32) hold_regs(plo);
+    release(pend);
+    float corr[2];
+    online_softmax<kBKV>(sc, m, l, corr, p.scale_log2, t * kBKV, p.sk, p.causal, wg_first, row0,
+                         offset, t4);
+#pragma unroll
+    for (int i = 0; i < W::kG / 2; ++i) o[i] *= corr[(i >> 1) & 1];
+    if constexpr (W::kF32)
+      frag_to_tf32<kBKV>(sc, pa, plo);
+    else
+      frag_to_bf16<kBKV>(sc, pa);
+    const int uv = t * per + ns;
+    wait_unit(uv);
+    issue_pv(unit_at(uv));
+    pv_unit = uv;
+  }
+  wgmma_wait0();
+  fence_regs(o);
+  hold_regs(pa);
+  if constexpr (W::kF32) hold_regs(plo);
+  if (pv_unit >= 0) release(pv_unit);
+  for (int u = n_live * per; u < n_kv * per; ++u) {
+    wait_unit(u);
+    release(u);
+  }
+
+  // O = acc / max(l, 1e-30) for the group's columns below d; the logsumexp
+  T* out = static_cast<T*>(p.o) + grp * W::kG;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float sum = l[h];
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    const int row = row0 + 8 * h;
+    if (row >= p.sq) continue;
+    const float l_fin = fmaxf(sum, 1e-30f);
+    T* orow = out + ((size_t)bh * p.sq + row) * p.d;
+#pragma unroll
+    for (int j = 0; j < W::kG / 8; ++j)
+      if (grp * W::kG + 8 * j + 2 * t4 < p.d)  // d is even: a pair is stored whole or not at all
+        store2(orow + 8 * j + 2 * t4, o[4 * j + 2 * h] / l_fin, o[4 * j + 2 * h + 1] / l_fin);
+    if (t4 == 0 && grp == 0)
+      p.lse[(size_t)bh * p.sq + row] = m[h] == kNeg ? kNeg : m[h] * kLn2 + logf(l_fin);
+  }
+}
+
+// the (bh, s, d) tensor maps of q, k and v: boxes of one 128-byte chunk of d
+// by q_rows (q) or kv_tile (k, v) rows, zero beyond d and s
+template <typename T>
+bool fwd_maps(CUtensorMap (&maps)[3], const void* q, const void* k, const void* v, int bh, int sq,
+              int sk, int d, int q_rows, int kv_tile) {
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const cuuint64_t rows = i == 0 ? sq : sk;
+    const cuuint64_t dims[3] = {(cuuint64_t)d, rows, (cuuint64_t)bh};
+    const cuuint64_t strides[2] = {(cuuint64_t)d * sizeof(T), rows * d * sizeof(T)};
+    const cuuint32_t box[3] = {(cuuint32_t)(kRow / sizeof(T)), (cuuint32_t)(i == 0 ? q_rows : kv_tile),
+                               1};
+    if (!encode(&maps[i], sizeof(T) == 2, 3, ptrs[i], dims, strides, box)) return false;
+  }
+  return true;
+}
+
+template <typename T, int kSC>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                        int sq, int sk, int d, int causal, float scale, int q_rows, int kv_tile,
+                        int stages, int smem, int groups, cudaStream_t stream) {
+  using W = Wide<T, kSC>;
+  // two stages at least: a slice's products are issued before the unit
+  // before it is released
+  if (kv_tile != W::kBKV || groups != (d + W::kG - 1) / W::kG || (q_rows != 64 && q_rows != 128) ||
+      stages < 2 || stages > kMaxStages || smem != W::smem(q_rows, stages) || smem > kSmemMax)
+    return cudaErrorInvalidValue;
+  const auto kernel = flash_fwd_wide_kernel<T, kSC>;
+  static bool raised = false;  // once per instantiation, never inside a graph capture
+  if (!raised) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (err != cudaSuccess) return err;
+    raised = true;
+  }
+  CUtensorMap maps[3] = {};
+  if (!fwd_maps<T>(maps, q, k, v, bh, sq, sk, d, q_rows, kv_tile)) return cudaErrorInvalidValue;
+  Params p;
+  p.o = o;
+  p.lse = static_cast<float*>(lse);
+  p.sq = sq, p.sk = sk, p.d = d, p.causal = causal, p.q_rows = q_rows, p.stages = stages;
+  p.n_qtiles = (sq + q_rows - 1) / q_rows;
+  p.bh = bh;
+  p.scale_log2 = scale * kLog2e;
+  const long long blocks = (long long)p.n_qtiles * groups * bh;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, 128 + 2 * q_rows, smem, stream>>>(maps[0], maps[1], maps[2], p);
+  return cudaGetLastError();
+}
+
+// the wide mode in slices of two chunks where d's chunks pair up, else one
+template <typename T>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
+                        int sq, int sk, int d, int causal, float scale, int q_rows, int kv_tile,
+                        int stages, int smem, int groups, cudaStream_t stream) {
+  const int n_ch = (d * (int)sizeof(T) + kRow - 1) / kRow;
+  return n_ch % 2 ? launch_wide<T, 1>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile,
+                                      stages, smem, groups, stream)
+                  : launch_wide<T, 2>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile,
+                                      stages, smem, groups, stream);
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int sq,
                    int sk, int d, int causal, float scale, int q_rows, int kv_tile, int stages,
@@ -511,17 +812,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, void* l
     if (err != cudaSuccess) return err;
     raised = true;
   }
-  // (bh, s, d) as 3-d tensors, d innermost; boxes of one 128-byte chunk of D
-  // by q_rows or kv_tile rows, zero beyond d, beyond s
   CUtensorMap maps[3] = {};
-  const void* ptrs[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i) {
-    const cuuint64_t rows = i == 0 ? sq : sk;
-    const cuuint64_t dims[3] = {(cuuint64_t)d, rows, (cuuint64_t)bh};
-    const cuuint64_t strides[2] = {(cuuint64_t)d * L::kEs, rows * d * L::kEs};
-    const cuuint32_t box[3] = {(cuuint32_t)L::kChunkE, (cuuint32_t)(i == 0 ? q_rows : kv_tile), 1};
-    if (!encode(&maps[i], !L::kF32, 3, ptrs[i], dims, strides, box)) return cudaErrorInvalidValue;
-  }
+  if (!fwd_maps<T>(maps, q, k, v, bh, sq, sk, d, q_rows, kv_tile)) return cudaErrorInvalidValue;
   Params p;
   p.o = o;
   p.lse = static_cast<float*>(lse);
@@ -545,113 +837,8 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o, void*
     case 64: return launch<T, 64>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile, stages, smem, groups, s);
     case 128: return launch<T, 128>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile, stages, smem, groups, s);
     case 256: return launch<T, 256>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile, stages, smem, groups, s);
-    default: return cudaErrorInvalidValue;
+    default: return launch_wide<T>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile, stages, smem, groups, s);
   }
-}
-
-// The sliced forward (flash.cuh, namespace sliced): head dims above 256,
-// run by the host as d itself (a whole number of 16-byte vectors). One block
-// per (batch*head, 64 q rows, group of 128 of O's columns), the heaviest
-// causal tiles first. Per kv tile of 64 keys: S summed over the slices of
-// d (Q's and K's slice staged in turn; Q is read again for every kv tile,
-// from L2), the online softmax on S in registers (log2 domain, as the
-// wgmma kernel's), P rounded to V's type into shared memory, then the
-// group's columns of V staged and O += P V. Group 0 writes the logsumexp.
-template <typename T>
-__global__ void __launch_bounds__(sliced::kThreads)
-    flash_fwd_sliced_kernel(const T* q, const T* k, const T* v, T* o, float* lse,
-                            sliced::Params p) {
-  using namespace sliced;
-  extern __shared__ float smem[];
-  float* a = smem;           // Q's slice
-  float* b = a + kStage;     // K's slice, then V's group columns
-  float* ps = b + kStage;    // P, rounded to V's type
-  const Block blk(p, p.causal != 0);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const size_t qo = (size_t)blk.bh * p.sq * p.d, ko = (size_t)blk.bh * p.sk * p.d;
-  q += qo, o += qo, k += ko, v += ko;
-  const int q0 = blk.tile * kTile, c0 = blk.group * kCols;
-  int n_kv = (p.sk + kTile - 1) / kTile;
-  if (p.causal) {
-    const int hi = min(q0 + kTile, p.sq) - 1 + p.sk - p.sq;
-    n_kv = hi < 0 ? 0 : min(n_kv, hi / kTile + 1);
-  }
-  float acc[4][8] = {}, m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) m[i] = kNeg, l[i] = 0.f;
-  for (int t = 0; t < n_kv; ++t) {
-    const int k0 = t * kTile;
-    float s[4][4] = {};
-    for (int c = 0; c < p.d; c += kCols) {
-      __syncthreads();  // the last reads of a, b and ps are done
-      stage(a, q, q0, p.sq, c, p.d);
-      stage(b, k, k0, p.sk, c, p.d);
-      __syncthreads();
-      add_products(s, a, b);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
-      bool ok[4];
-      float mt = kNeg;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        ok[j] = row < p.sq && key < p.sk && (!p.causal || key <= row + p.sk - p.sq);
-        s[i][j] = ok[j] ? s[i][j] * p.scale_log2 : kNeg;
-        mt = fmaxf(mt, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mt));
-      const float corr = exp2f(m[i] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        // masked entries are zeroed: in a row masked so far exp2(kNeg - kNeg) is 1
-        const float pij = ok[j] ? exp2f(s[i][j] - m_new) : 0.f;
-        sum += pij;
-        ps[(4 * ty + i) * kLdP + tx + 16 * j] = round_to<T>(pij);
-      }
-      l[i] = l[i] * corr + row_sum(sum);
-      m[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] *= corr;
-    }
-    __syncthreads();  // every S is summed (b is free) and P is whole
-    stage(b, v, k0, p.sk, c0, p.d);
-    __syncthreads();
-    add_group(acc, ps, b);
-  }
-  // O = acc / l with l clamped at 1e-30 (a row that saw no key gives 0);
-  // logsumexp m + log l, -1e30 where the row saw no key
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float lf = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = acc[i][j] / lf;
-    const int row = q0 + 4 * ty + i;
-    if (blk.group == 0 && tx == 0 && row < p.sq)
-      lse[(size_t)blk.bh * p.sq + row] = (m[i] == kNeg ? kNeg : m[i] * kLn2) + logf(lf);
-  }
-  store_group(o, acc, q0, p.sq, c0, p.d);
-}
-
-template <typename T>
-cudaError_t launch_sliced(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                          int sq, int sk, int d, int causal, float scale, int slices, int groups,
-                          int smem, cudaStream_t stream) {
-  long long blocks = 0;
-  cudaError_t err = sliced::check_plan(false, bh, sq, d, slices, groups, smem, &blocks);
-  if (err != cudaSuccess) return err;
-  const auto kernel = flash_fwd_sliced_kernel<T>;
-  static bool raised = false;
-  err = sliced::allow_smem(kernel, smem, raised);
-  if (err != cudaSuccess) return err;
-  sliced::Params p{sq, sk, d, causal, groups, (sq + sliced::kTile - 1) / sliced::kTile, scale,
-                   scale * kLog2e};
-  kernel<<<(unsigned)blocks, sliced::kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), static_cast<float*>(lse), p);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -659,13 +846,12 @@ cudaError_t launch_sliced(const void* q, const void* k, const void* v, void* o, 
 extern "C" {
 
 // q, k, v, o: contiguous (bh, s, d) of fp32 (is_bf16 = 0) or bf16 (is_bf16 =
-// 1), 16-byte aligned, 1 <= d <= 256 with rows of whole 16-byte units (the
-// TMA copy's rule); lse: contiguous (bh, sq) fp32. The plan
-// (_kernels.flash_plan): q_rows (64 or 128) a block, kv_tile keys a stage,
-// stages of the K/V ring, smem the block's dynamic shared memory in bytes,
-// groups of O's columns; a plan this build would lay out otherwise is
-// refused. Returns the
-// launch's cudaError_t (0 = queued).
+// 1), 16-byte aligned, d >= 1 with rows of whole 16-byte units (the TMA
+// copy's rule; above 256 the wide mode); lse: contiguous (bh, sq) fp32. The
+// plan (_kernels.flash_plan): q_rows (64 or 128) a block, kv_tile keys a
+// kv tile, stages of the ring, smem the block's dynamic shared memory in
+// bytes, groups of O's columns; a plan this build would lay out otherwise
+// is refused. Returns the launch's cudaError_t (0 = queued).
 int dcnn_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse, int bh, int sq,
                    int sk, int d, int causal, float scale, int is_bf16, int q_rows, int kv_tile,
                    int stages, int smem, int groups, void* stream) {
@@ -679,27 +865,6 @@ int dcnn_flash_fwd(const void* q, const void* k, const void* v, void* o, void* l
                                         kv_tile, stages, smem, groups, s)
               : dispatch<float>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, q_rows, kv_tile,
                                 stages, smem, groups, s);
-  return static_cast<int>(err);
-}
-
-// The sliced forward (head dims above 256): q, k, v, o and lse as
-// dcnn_flash_fwd takes them, any d >= 1 with rows of whole 16-byte units.
-// The plan (_kernels.flash_plan): slices and groups of 128 columns covering
-// d, smem the kernel's shared memory in bytes; any other plan is refused.
-// Returns the launch's cudaError_t (0 = queued).
-int dcnn_flash_fwd_sliced(const void* q, const void* k, const void* v, void* o, void* lse, int bh,
-                          int sq, int sk, int d, int causal, float scale, int is_bf16, int slices,
-                          int groups, int smem, void* stream) {
-  const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
-  if (bh < 1 || sq < 1 || sk < 1 || d < 1 || d * (is_bf16 ? 2 : 4) % 16 || align % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_sliced<__nv_bfloat16>(q, k, v, o, lse, bh, sq, sk, d, causal, scale,
-                                             slices, groups, smem, s)
-              : launch_sliced<float>(q, k, v, o, lse, bh, sq, sk, d, causal, scale, slices,
-                                     groups, smem, s);
   return static_cast<int>(err);
 }
 

@@ -1,7 +1,8 @@
 // Hopper (sm_90a) helpers shared by the port's tensor-core kernels
-// (conv3x3_tc.cu, flash_fwd.cu, flash_bwd.cu, conv_int8.cu): mbarriers, TMA
-// copies and their tensor maps, the 128-byte-swizzle wgmma descriptor, and
-// the wgmma products in the forms those kernels issue. _kernels._lib_path hashes this header
+// (conv3x3_tc.cu, flash_fwd.cu, flash_bwd.cu, conv_int8.cu): mbarriers (and
+// a wait that traps on a stalled ring), TMA copies and their tensor maps,
+// the 128-byte-swizzle wgmma descriptor, and the wgmma products in the
+// forms those kernels issue. _kernels._lib_path hashes this header
 // with each source, so an edit rebuilds every library that includes it.
 
 #pragma once
@@ -57,6 +58,32 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(addr), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// mbar_wait (try_wait, which suspends the thread between its tries, so
+// waiting warps leave the issue slots to the working ones) that traps
+// after 4 s without the phase: a fault in the ring's hand-over then ends
+// the launch with an error instead of hanging the card
+__device__ __forceinline__ void wait_or_trap(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint64_t t0 = 0;
+  for (uint32_t tries = 1;; ++tries) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if ((tries & 0xffu) == 0) {
+      uint64_t now;
+      asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(now));
+      if (t0 == 0) t0 = now;
+      else if (now - t0 > 4000000000ull) __trap();
+    }
+  }
 }
 
 __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint64_t* bar,

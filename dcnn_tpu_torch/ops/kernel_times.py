@@ -1,13 +1,15 @@
 """Device times of the port's kernels at a few fixed shapes, for comparing
 two checkouts on one card in one call.
 
-    python3 -m dcnn_tpu_torch.ops.kernel_times [ROOT] [TAG]
+    python3 -m dcnn_tpu_torch.ops.kernel_times [ROOT] [TAG] [flash]
 
 imports ``dcnn_tpu_torch`` from the checkout at ROOT (default: the one this
 file is in), builds its kernels and prints one line tagged TAG: the 3×3
 conv, BN-prologue conv and (Cout ≤ 64) pairs conv at the JAX conv bench's
 shapes (bf16, B=256) and ResNet-18 sites (B=32), and the flash forward,
-dQ and dK/dV kernels at the shapes of ``chip_smoke.py``'s FLASH_CASES. Each
+dQ and dK/dV kernels at the shapes of ``chip_smoke.py``'s FLASH_CASES, the
+long-context ones of head dims 256 and 512 included (``flash``: only the
+flash kernels). Each
 time is the mean of a CUDA graph of calls, between CUDA events; the pairs
 conv's fused weights are made before the timed calls. Run parent, change,
 change, parent in one call: two calls may land on two cards.
@@ -30,7 +32,8 @@ FLASH = [  # B, H, Sq, Sk, D, dtype name, causal, calls a graph: chip_smoke.py's
     (2, 4, 1000, 1000, 64, "float32", True, 50), (2, 3, 77, 300, 128, "float32", True, 50),
     (1, 2, 200, 10, 32, "float32", True, 50), (1, 2, 100, 165, 32, "float32", True, 50),
     (1, 2, 300, 429, 64, "bfloat16", True, 50), (1, 2, 300, 365, 64, "float32", True, 50),
-    (1, 2, 100, 133, 128, "float32", True, 50)]
+    (1, 2, 100, 133, 128, "float32", True, 50), (2, 8, 2048, 2048, 256, "bfloat16", True, 5),
+    (2, 8, 2048, 2048, 256, "float32", True, 3), (2, 8, 2048, 2048, 512, "bfloat16", True, 3)]
 
 
 def graph_ms(fn, reps: int) -> float:
@@ -63,6 +66,7 @@ def main() -> None:
         os.path.abspath(__file__))))
     root = os.path.abspath(sys.argv[1]) if len(sys.argv) > 1 else here
     tag = sys.argv[2] if len(sys.argv) > 2 else root
+    flash_only = sys.argv[3:] == ["flash"]
     sys.path.insert(0, root)
     for name in [m for m in sys.modules if m.startswith("dcnn_tpu_torch")]:
         del sys.modules[name]  # the package of ROOT, not of this file
@@ -81,7 +85,7 @@ def main() -> None:
     _kernels.build()
     gen = torch.Generator(device="cuda").manual_seed(0)
     out = []
-    for n, h, w, cin, cout, dtn, reps in CONVS:
+    for n, h, w, cin, cout, dtn, reps in ([] if flash_only else CONVS):
         dt = getattr(torch, dtn)
         x = torch.randn(n, h, w, cin, device="cuda", generator=gen).to(dt)
         wt = (torch.randn(3, 3, cin, cout, device="cuda", generator=gen)

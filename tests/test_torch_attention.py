@@ -56,6 +56,10 @@ def _j(*arrays):
     (False, 40, 72, 48),
     (True, 40, 56, 192),    # head-dim class 256
     (False, 24, 40, 256),
+    (True, 40, 56, 320),    # above 256: the kernels' wide modes
+    (False, 24, 40, 320),
+    (False, 40, 24, 512),
+    (True, 40, 24, 512),    # sq > sk: the first 16 rows fully masked
 ])
 def test_flash_plain_matches_pallas_interpret(causal, sq, sk, d):
     """O and the logsumexp of the port's plain flash forward against the

@@ -339,11 +339,16 @@ def test_flash_head_dims_above_128(causal, sq, sk, d, dtype):
     columns in two groups; fp32 in serial passes of 16-key tiles)
     and both backward kernels in bf16 (dK/dV in two column groups), against
     the plain versions. The fp32 backward, whose fixed operands as tf32 hi
-    and lo need more than a block's shared memory, runs the sliced kernels
-    (two slices of 128 columns)."""
+    and lo need more than a block's shared memory, runs the sliced dQ
+    kernel (two slices of 128 columns) and the dK/dV kernel's wide mode
+    (slices of one or two 32-column chunks, two groups of 128 columns)."""
     _flash_check(causal, sq, sk, d, dtype, b=1, h=2)
     if dtype == torch.float32:
-        assert _kernels.flash_bwd_plan(sq, sk, d, dtype).slices == 2
+        plan = _kernels.flash_bwd_plan(sq, sk, d, dtype)
+        chunks = -(-d * 4 // 128)
+        assert (plan.dq.slices, plan.dkv.slices) == (
+            2, chunks // (1 if chunks % 2 else 2))
+        assert plan.dkv.groups == 2
     _backward_check(causal, sq, sk, d, dtype, b=1, h=2)
 
 
@@ -419,10 +424,10 @@ def test_kernels_take_more_than_65535_heads_at_d256():
 
 def test_head_dims_above_256_raise():
     """D 257 (padded to 264 in bf16) through ``flash_attention`` and 264
-    straight to the kernel are no longer refused: both run the sliced
-    kernels (3 slices and groups), one counted launch each, against the
-    plain versions; only a grid of 2^31 blocks or more is refused, naming
-    it."""
+    straight to the kernel are no longer refused: both run the wide
+    forward (5 slices of one 64-column chunk, 2 groups of 256), the sliced dQ and
+    the wide dK/dV, one counted launch each, against the plain versions;
+    only a grid of 2^31 blocks or more is refused, naming it."""
     rng = np.random.default_rng(23)
     q = torch.from_numpy(rng.normal(size=(1, 2, 40, 257)).astype(
         np.float32)).to("cuda", torch.bfloat16).requires_grad_()
@@ -433,7 +438,7 @@ def test_head_dims_above_256_raise():
     assert tuple(a - b for a, b in zip(_launches(), before)) == (1, 1, 1)
     o_ref, _ = flash_forward_reference(q.detach(), q.detach(), q.detach())
     assert _rel_err(out.detach(), o_ref) <= TOL[torch.bfloat16]
-    assert _kernels.flash_plan(40, 40, 264, torch.bfloat16).slices == 3
+    assert _kernels.flash_plan(40, 40, 264, torch.bfloat16).slices == 5
     _flash_check(False, 40, 56, 264, torch.bfloat16, b=1, h=2)
     with pytest.raises(ValueError, match="grid would overflow"):
         _kernels._check_grid("flash_fwd", 2 ** 24, 8192, 8192, 264)
@@ -447,9 +452,10 @@ def test_head_dims_above_256_raise():
     (True, 300, 100),    # sq > sk: fully masked rows
 ])
 def test_flash_head_dims_above_256(causal, sq, sk, d, dtype):
-    """D 320, 512 and 1000 run the sliced kernels (S and dP summed over
-    slices of 128 columns, the outputs in groups of 128): forward and both
-    backward kernels against the plain versions."""
+    """D 320, 512 and 1000 run the forward's and the dK/dV kernel's wide
+    modes on wgmma (S and dP summed over slices streamed through the ring,
+    the outputs in column groups) and the sliced dQ kernel: forward and
+    both backward kernels against the plain versions."""
     _flash_check(causal, sq, sk, d, dtype, b=1, h=2)
     _backward_check(causal, sq, sk, d, dtype, b=1, h=2)
 
@@ -459,15 +465,24 @@ def test_flash_head_dims_above_256(causal, sq, sk, d, dtype):
     (320, torch.bfloat16, 3), (512, torch.float32, 4),
     (1000, torch.bfloat16, 8)])
 def test_sliced_plans_as_launched(d, dtype, n):
-    """The sliced plans the kernels take, each launch counted once: n
-    slices and n groups of 128 columns, 64-row tiles, one stage (the fp32
-    backward at D 192 and 256; the forward only above 256)."""
+    """The mixed plans the kernels take, each launch counted once: the
+    sliced dQ in n slices and n groups of 128 columns, 64-row tiles, one
+    stage; the dK/dV kernel's wide mode in n groups of 128 columns, a slice
+    for each two 128-byte chunks of D (each one where their count is odd),
+    64-key blocks, q tiles of 16 (fp32) or 32 (bf16) rows, two stages or
+    more (the fp32 backward at D 192 and 256); the forward's wide mode only
+    above 256, in groups of 256 columns and the same slices."""
     fwd, bwd = (_kernels.flash_plan(300, 200, d, dtype),
                 _kernels.flash_bwd_plan(300, 200, d, dtype))
-    assert (bwd.slices, bwd.dq.groups, bwd.dkv.groups) == (n, n, n)
-    assert (bwd.dq.rows, bwd.dq.tile, bwd.dkv.rows, bwd.dkv.tile) == (
-        64, 64, 64, 64)
-    assert fwd.slices == (n if d > 256 else 0)
+    es = 4 if dtype == torch.float32 else 2
+    chunks = -(-d * es // 128)
+    slices = chunks // (1 if chunks % 2 else 2)
+    assert (bwd.dq.slices, bwd.dq.groups, bwd.dkv.groups) == (n, n, n)
+    assert (bwd.dq.rows, bwd.dq.tile, bwd.dq.stages) == (64, 64, 1)
+    assert bwd.dkv.slices == slices and bwd.dkv.rows == 64
+    assert bwd.dkv.tile == (16 if es == 4 else 32) and bwd.dkv.stages >= 2
+    assert fwd.slices == (slices if d > 256 else 0)
+    assert fwd.groups == (-(-d // 256) if d > 256 else 2)
     before = _launches()
     _backward_check(True, 300, 200, d, dtype, b=1, h=2)
     assert tuple(a - b for a, b in zip(_launches(), before)) == (1, 1, 1)

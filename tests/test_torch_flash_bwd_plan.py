@@ -189,22 +189,55 @@ def test_class_256_bwd_plans_fit_and_groups_cover_d(sq, sk):
         assert lay.regs(False, 16, 1) > _kernels.FLASH_BWD_REG_BUDGET
 
 
+def _wide_dkv_smem(es, d, stages):
+    """flash_bwd.cu ``WideBwd`` spelled out: 1024 bytes of alignment slack;
+    K and V of 64 keys held where two stages fit beside them (bf16 only);
+    per stage a slice (Q's and dO's q-tile rows of one or two 128-byte
+    chunks, two where the chunks pair up, after K's and V's 64 rows where
+    those stream; fp32: their tf32 lo) or a group unit (Q's and dO's 128
+    group columns; fp32: Q^T and dO^T as tf32 hi and lo, a 128-byte row per
+    column for each 32 q rows), whichever is larger, and its q tile's lse
+    and delta; the exchanged S^T and dP^T fragments; 256 bytes of barriers.
+    Returns (smem, held)."""
+    f32 = es == 4
+    tile, row = (16 if f32 else 32), _kernels.ROW_BYTES
+    chunks = -(-d * es // row)
+    sc = 1 if chunks % 2 else 2
+    group = 2 * (128 * es // row) * tile * row + (
+        4 * 128 * row if f32 else 0)
+
+    def total(held, n):
+        unit = (2 if f32 else 1) * sc * 2 * (tile + (0 if held else 64)) * row
+        return (1024 + (2 * chunks * 64 * row if held else 0)
+                + n * (max(unit, group) + 8 * tile) + 2 * 64 * tile * 4 + 256)
+
+    held = not f32 and total(True, 2) <= _kernels.SMEM_MAX
+    return total(held, stages), held
+
+
 @pytest.mark.parametrize("d", [136, 256])
 def test_fp32_bwd_above_class_128_is_refused(d):
     """fp32 at class 256: the wgmma kernels' fixed operands alone (Q and
     dO, or K and V, as tf32 hi and lo over 64 rows) fill 256 KB, above a
-    block's shared memory, so that layout is refused and the plan is the
-    sliced kernels': S and dP summed over two slices of 128 columns, the
-    outputs in two groups, 64-row blocks and tiles, one stage."""
+    block's shared memory, so that layout is refused and the plan is
+    mixed: dQ runs the sliced kernel (S and dP summed over two slices of
+    128 columns, dQ in two groups, 64-row blocks and tiles, one stage), the
+    dK/dV kernel its wide mode (64-key blocks, 16-row q tiles, two groups
+    of 128 columns, K and V streamed with every slice)."""
     lay = _kernels._BwdLayout(256, 4)
     assert lay.smem(True, 64, 16, 0) - 1024 - 256 == 4 * 64 * 1024
     plan = _kernels.flash_bwd_plan(100, 100, d, torch.float32)
-    assert plan.slices == 2 and (plan.chunks, plan.padded) == (8, 256)
-    for part, name in ((plan.dq, "dq"), (plan.dkv, "dkv")):
-        assert (part.rows, part.tile, part.stages, part.groups) == (64, 64, 1, 2)
-        assert part.smem == _kernels.flash_sliced_smem(name == "dkv")
-        assert part.smem <= _kernels.SMEM_MAX
-        assert part.regs == _kernels.flash_sliced_regs(name)
+    assert (plan.chunks, plan.padded) == (8, 256)
+    dq, dkv = plan.dq, plan.dkv
+    assert (dq.rows, dq.tile, dq.stages, dq.groups, dq.slices) == (
+        64, 64, 1, 2, 2)
+    assert dq.smem == _kernels.flash_sliced_smem() <= _kernels.SMEM_MAX
+    assert dq.regs == _kernels.flash_sliced_regs()
+    chunks = -(-d * 4 // 128)
+    assert (dkv.rows, dkv.tile, dkv.groups) == (64, 16, 2)
+    assert dkv.slices == chunks // (1 if chunks % 2 else 2)
+    assert dkv.smem == _wide_dkv_smem(4, d, dkv.stages)[0] <= _kernels.SMEM_MAX
+    assert not _wide_dkv_smem(4, d, dkv.stages)[1]
 
 
 def test_op_copies_only_what_the_kernels_cannot_take():
@@ -235,34 +268,72 @@ def test_op_copies_only_what_the_kernels_cannot_take():
     (512, torch.bfloat16, 4), (1000, torch.float32, 8),
     (1000, torch.bfloat16, 8)])
 def test_sliced_plans_fit_and_give_their_counts(d, dtype, n):
-    """The sliced kernels' plans (the fp32 backward at D 192; every kernel
-    above 256): the class is the next multiple of 128 and its n slices
-    and n output groups of 128 columns cover D once; 64-row blocks and
-    tiles in one stage; shared memory within a block's (two staged 64 x 128
-    fp32 tiles, P or dS, dK/dV's lse and delta) and the accumulators within
-    the register budget; the forward keeps its wgmma plan at D <= 256."""
+    """The mixed plans (the fp32 backward at D 192; every kernel above
+    256): the class is the next multiple of 128; the sliced dQ's n slices
+    and n groups of 128 columns cover D once, 64-row blocks and tiles in
+    one stage, its shared memory (two staged 64 x 128 fp32 tiles and dS)
+    within a block's; the dK/dV kernel's wide mode in n groups of 128
+    columns, a slice for every one or two chunks, two stages or more, its
+    registers within the budget; the forward keeps its wgmma plan at D <=
+    256 and takes its wide mode above."""
     dc = _kernels.flash_head_class(d)
     assert dc == n * _kernels.FLASH_SLICE and dc - 128 < d <= dc
+    es = 4 if dtype == torch.float32 else 2
     bwd = _kernels.flash_bwd_plan(300, 200, d, dtype)
-    assert bwd.slices == n and bwd.padded == dc
-    for part, dkv in ((bwd.dq, False), (bwd.dkv, True)):
-        assert (part.rows, part.tile, part.stages, part.groups) == (64, 64, 1, n)
-        assert part.smem == _kernels.flash_sliced_smem(dkv) <= _kernels.SMEM_MAX
-        assert part.regs <= _kernels.FLASH_BWD_REG_BUDGET
-    assert _kernels.flash_sliced_smem(False) == 4 * (2 * 64 * 129 + 64 * 65)
-    assert _kernels.flash_sliced_smem(True) == 4 * (2 * 64 * 129
-                                                    + 2 * 64 * 65 + 128)
+    assert bwd.padded == dc
+    assert (bwd.dq.rows, bwd.dq.tile, bwd.dq.stages, bwd.dq.groups,
+            bwd.dq.slices) == (64, 64, 1, n, n)
+    assert bwd.dq.smem == _kernels.flash_sliced_smem() <= _kernels.SMEM_MAX
+    assert bwd.dq.regs <= _kernels.FLASH_BWD_REG_BUDGET
+    assert _kernels.flash_sliced_smem() == 4 * (2 * 64 * 129 + 64 * 65)
+    chunks = -(-d * es // 128)
+    assert bwd.dkv.groups == n and bwd.dkv.rows == 64
+    assert bwd.dkv.slices == chunks // (1 if chunks % 2 else 2)
+    assert 2 <= bwd.dkv.stages <= _kernels.FLASH_MAX_STAGES
+    assert bwd.dkv.regs <= _kernels.FLASH_BWD_REG_BUDGET
     fwd = _kernels.flash_plan(300, 200, d, dtype)
-    if d > 256:
-        assert (fwd.slices, fwd.groups, fwd.q_rows, fwd.kv_tile, fwd.stages,
-                fwd.serial) == (n, n, 64, 64, 1, False)
-        assert fwd.smem == _kernels.flash_sliced_smem(False)
-        assert _kernels.flash_sliced_regs("fwd") <= _kernels.FLASH_BWD_REG_BUDGET
-    else:
-        assert fwd.slices == 0
-    # the live tiles of the sliced kernels follow the same band rule
+    assert fwd.slices == (bwd.dkv.slices if d > 256 else 0)
+    # the live tiles follow the same band rule: at offset sk - sq = -100,
+    # q row 100 is the first that sees key 0
+    t = bwd.dkv.tile
     assert list(bwd.kv_tiles(1, 300, 200, True)) == list(range(0, 1))
-    assert list(bwd.q_tiles(0, 300, 200, True)) == list(range(1, 5))
+    assert list(bwd.q_tiles(0, 300, 200, True)) == list(range(
+        100 // t, -(-300 // t)))
+
+
+@pytest.mark.parametrize("d", [192, 256, 320, 512, 1000])
+@pytest.mark.parametrize("dtype", _kernels.FLASH_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("sq,sk", [(2048, 2048), (300, 200), (40, 56)],
+                         ids=str)
+def test_wide_dkv_plans_fit_the_card(dtype, d, sq, sk):
+    """The dK/dV kernel's wide mode where it runs (every D above 256, and
+    fp32 above 128; bf16 at 192 and 256 keeps the class-256 kernel):
+    shared memory as its layout spells it and within a block's, two stages
+    or more and as many as fit up to FLASH_MAX_STAGES, registers (two
+    64 x 128 fp32 accumulators, S^T and dP^T of a q tile, P^T and dS^T as
+    A operands) within FLASH_BWD_REG_BUDGET, K and V held for the block
+    exactly where two stages fit beside them (bf16 at D 320 and 512, not
+    at 1000, never in fp32); the dQ part stays the sliced kernel's."""
+    es = 4 if dtype == torch.float32 else 2
+    plan = _kernels.flash_bwd_plan(sq, sk, d, dtype)
+    if d <= 256 and dtype == torch.bfloat16:
+        assert (plan.dq.slices, plan.dkv.slices) == (0, 0)
+        return
+    dq, dkv = plan.dq, plan.dkv
+    assert dq.slices == -(-d // 128) and dq.stages == 1  # still sliced
+    assert dkv.slices > 0 and (dkv.rows, dkv.tile) == (64, 16 if es == 4
+                                                        else 32)
+    smem, held = _wide_dkv_smem(es, d, dkv.stages)
+    assert dkv.smem == smem <= _kernels.SMEM_MAX
+    assert 2 <= dkv.stages <= _kernels.FLASH_MAX_STAGES
+    assert (dkv.stages == _kernels.FLASH_MAX_STAGES
+            or _wide_dkv_smem(es, d, dkv.stages + 1)[0] > _kernels.SMEM_MAX)
+    assert held == (es == 2 and d in (320, 512))
+    acc = 2 * 64 * 128 // 128  # dK and dV: 64 x 128 fp32 each, 128 threads
+    frag = 2 * 64 * dkv.tile // 128  # S^T and dP^T
+    ops = 2 * dkv.tile if es == 4 else dkv.tile // 2  # P^T, dS^T (tf32 hi, lo)
+    assert dkv.regs == acc + frag + ops <= _kernels.FLASH_BWD_REG_BUDGET
+    assert dkv.groups == -(-d // 128)
 
 
 def test_grid_overflow_is_refused_naming_it():

@@ -93,6 +93,53 @@ def test_flash_groups_follow_registers_and_shared_memory(dtype, d):
     assert plan.serial == (f32 and d == 256)
 
 
+def _wide_fwd_smem(es, d, q_rows, stages):
+    """flash_fwd.cu ``Wide`` spelled out: 1024 bytes of alignment slack;
+    per stage a slice unit (Q's q_rows rows and K's kv-tile keys of one or
+    two 128-byte chunks, two where the head dim's chunks pair up; fp32:
+    their tf32 lo) or a V unit (the group's 256 columns of V; fp32: then
+    V^T as tf32 hi and lo, a 128-byte row per column for each 32 keys),
+    whichever is larger; 256 bytes of barriers."""
+    f32, row = es == 4, _kernels.ROW_BYTES
+    kv = 32 if f32 else 64
+    chunks = -(-d * es // row)
+    sc = 1 if chunks % 2 else 2
+    qk = (2 if f32 else 1) * sc * (q_rows + kv) * row
+    v = 256 * es // row * kv * row + (2 * 256 * row if f32 else 0)
+    return 1024 + stages * max(qk, v) + 256
+
+
+@pytest.mark.parametrize("d", [264, 320, 512, 1000, 2048])
+@pytest.mark.parametrize("dtype", _kernels.FLASH_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("sq,sk", [(2048, 2048), (300, 200), (40, 56),
+                                   (64, 4096)], ids=str)
+def test_wide_forward_plans_fit_the_card(dtype, d, sq, sk):
+    """Above 256 the forward's wide mode: kv tiles of 64 keys (bf16) or 32
+    (fp32), O in groups of 256 columns covering D once, S's contraction in
+    one slice for every one or two chunks of D; shared memory as the layout
+    spells it and within a block's; two stages or more, as many as fit up
+    to FLASH_MAX_STAGES; 128 q rows a block above Sq 64; registers (O's
+    group, S of a kv tile, P as the A operand) within
+    FLASH_BWD_REG_BUDGET."""
+    es = 4 if dtype == torch.float32 else 2
+    plan = _kernels.flash_plan(sq, sk, d, dtype)
+    chunks = -(-d * es // _kernels.ROW_BYTES)
+    assert plan.kv_tile == (32 if es == 4 else 64) and not plan.serial
+    assert plan.groups == -(-d // 256) and (plan.groups - 1) * 256 < d
+    assert plan.slices == chunks // (1 if chunks % 2 else 2)
+    assert plan.q_rows == (64 if sq <= 64 else 128)
+    assert plan.smem == _wide_fwd_smem(es, d, plan.q_rows, plan.stages)
+    assert plan.smem <= _kernels.SMEM_MAX
+    assert 2 <= plan.stages <= _kernels.FLASH_MAX_STAGES
+    assert (plan.stages == _kernels.FLASH_MAX_STAGES
+            or _wide_fwd_smem(es, d, plan.q_rows, plan.stages + 1)
+            > _kernels.SMEM_MAX)
+    regs = 256 // 2 + plan.kv_tile // 2 + (
+        plan.kv_tile if es == 4 else plan.kv_tile // 4)
+    assert regs <= _kernels.FLASH_BWD_REG_BUDGET
+    _kernels._check_grid("flash_fwd", 16, sq, sk, d)
+
+
 # flash_plan and flash_bwd_plan as the previous head-dim classes' code gave
 # them (q_rows, kv_tile, stages, smem, chunks | per backward kernel: rows,
 # tile, stages, smem, regs): every D <= 128 keeps its plan

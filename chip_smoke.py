@@ -18,11 +18,12 @@ Phases, each fatal on failure:
    long-context backward is also replayed from a CUDA graph; the cases
    include head-dim class 256 (B2 H8 S2048 D256 bf16 causal timed against
    SDPA and its bound; fp32 and bf16, causal and not, a ragged D) and the
-   wide modes (the forward above D 256, the dK/dV kernel above 256 and in
-   fp32 above 128; dQ there the sliced kernel): the fp32 backward at D 192
-   and 256 (B2 H8 S2048 D256 fp32 causal timed against SDPA and its
-   bound), and D 320, 512 and 1000 in both types, causal and not (B2 H8
-   S2048 D512 bf16 causal timed against SDPA and its bound); then
+   wide modes (the forward above D 256, the dQ and dK/dV kernels above 256
+   and in fp32 above 128, all on wgmma): the fp32 backward at D 192 and 256
+   (B2 H8 S2048 D256 fp32 causal timed against SDPA and its bound), and D
+   320, 512 and 1000 in both types, causal and not (B2 H8 S2048 D512 bf16
+   causal timed against SDPA and its bound); each case names the kernel
+   that ran it (the class kernel or its wide mode); then
    ``MultiHeadAttentionLayer(impl="flash")`` at E=1024, forward and
    backward on the card against the same layer on the CPU: 2 heads (D
    512) in bf16 mode and 4 heads (D 256) at parity precision, the launch
@@ -294,18 +295,17 @@ FLASH_CASES = [  # name, B, H, Sq, Sk, D, causal, dtype name, timing reps
     ("band edge, 32-key tiles", 1, 2, 100, 133, 128, True, "float32", 50),
     # head-dim class 256: O's (and dK's, dV's) columns in two groups, the
     # fp32 forward in serial passes of 16-key tiles; causal and not, a
-    # ragged D; the fp32 backward at 128 < D <= 256 runs the dK/dV kernel's
-    # wide mode and the sliced dQ
+    # ragged D; the fp32 backward at 128 < D <= 256 runs both backward
+    # kernels' wide modes
     ("d256 long context", 2, 8, 2048, 2048, 256, True, "bfloat16", 5),
     ("d256 fp32 long context", 2, 8, 2048, 2048, 256, True, "float32", 3),
     ("d256 ragged", 1, 2, 200, 333, 200, False, "bfloat16", 50),
     ("d256 fp32", 1, 2, 300, 300, 256, False, "float32", 20),
     ("d256 fp32 causal", 1, 2, 150, 330, 256, True, "float32", 20),
     ("d192 fp32 causal", 1, 2, 150, 330, 192, True, "float32", 20),
-    # above 256 the forward and the dK/dV kernel run their wide modes (S,
-    # or S^T and dP^T, summed over slices streamed through the ring, the
-    # outputs in column groups) and dQ the sliced kernel; both types,
-    # causal and not, one ragged shape each
+    # above 256 every kernel runs its wide mode (S and dP, or S^T and dP^T,
+    # summed over slices streamed through the ring, the outputs in column
+    # groups); both types, causal and not, one ragged shape each
     ("d512 long context", 2, 8, 2048, 2048, 512, True, "bfloat16", 3),
     ("d320 bf16", 1, 2, 300, 300, 320, False, "bfloat16", 10),
     ("d320 bf16 causal", 1, 2, 150, 330, 320, True, "bfloat16", 10),
@@ -378,7 +378,9 @@ def phase_kernels():
                                                         causal, dtn)
         plan = _kernels.flash_plan(sq, sk, d, dt)
         r = {"case": name, "B": b, "H": h, "Sq": sq, "Sk": sk, "D": d,
-             "plan": str(plan),
+             "plan": str(plan), "kernel": ("flash_fwd_wide_kernel"
+                                           if plan.slices else
+                                           "flash_fwd_kernel"),
              "causal": causal, "dtype": dtn, "max_abs_err": err,
              "lse_max_abs_err": lse_err, "tolerance": TOL[dtn],
              "ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -497,7 +499,9 @@ def phase_bwd_kernels():
             part = getattr(plan, kname)
             results[kname].append({
                 "case": name, "B": b, "H": h, "Sq": sq, "Sk": sk, "D": d,
-                "plan": str(part),
+                "plan": str(part), "kernel": (f"flash_bwd_{kname}_wide_kernel"
+                                              if part.slices else
+                                              f"flash_bwd_{kname}_kernel"),
                 "causal": causal, "dtype": dtn, "max_abs_err": err,
                 "max_rel_err": rel, "tolerance": BWD_TOL[dtn],
                 "ms": kern_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
@@ -519,7 +523,7 @@ def phase_wide_layer():
     256) at parity precision (fp32). The card's run launches the forward,
     dQ and dK/dV kernels once each (the counts are set to 0 just before
     and read just after), and their plans are the wide modes (the forward
-    at D 512; dK/dV at both) with the sliced dQ. Output, input gradient and
+    at D 512; dQ and dK/dV at both). Output, input gradient and
     every parameter gradient within TOL of the CPU's, relative to its
     largest value (the key bias's, 0 in exact arithmetic, to the other
     parameter gradients'). Returns the summed launches of both runs."""
@@ -539,7 +543,8 @@ def phase_wide_layer():
         d, dt = e // heads, getattr(torch, dtn)
         fwd, bwd = (_kernels.flash_plan(s, s, d, dt),
                     _kernels.flash_bwd_plan(s, s, d, dt))
-        if not (bwd.dkv.slices and bwd.dq.slices and (fwd.slices or d <= 256)):
+        if not (bwd.dkv.slices and bwd.dq.slices and bwd.dq.rows == 64
+                and bwd.dq.stages >= 2 and (fwd.slices or d <= 256)):
             fail(f"wide layer D {d} {dtn}: not the wide plans: {fwd}, {bwd}")
         x = rng.normal(size=(b, s, e)).astype(np.float32)
         w = rng.normal(size=(b, s, e)).astype(np.float32)
@@ -3246,22 +3251,21 @@ def main() -> None:
         d256 = next(c for c in cases if c["case"] == "d256 long context")
         d512 = next(c for c in cases if c["case"] == "d512 long context")
         d256f = next(c for c in cases if c["case"] == "d256 fp32 long context")
+        keys = ("kernel", "ms", "plain_ms", "library_ms", "bound_ms",
+                "bound_by")
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
+                "kernels": sorted({c["kernel"] for c in cases}),
                 "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": model_case["ms"], "plain_ms": model_case["plain_ms"],
                 "bound_ms": model_case["bound_ms"],
                 "bound_by": model_case["bound_by"],
                 "library_ms": model_case["library_ms"],
-                "long_context": {k: long[k] for k in (
-                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
-                "d256_long_context": {k: d256[k] for k in (
-                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
-                "d512_long_context": {k: d512[k] for k in (
-                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
-                "d256_fp32_long_context": {k: d256f[k] for k in (
-                    "ms", "plain_ms", "library_ms", "bound_ms", "bound_by")},
+                "long_context": {k: long[k] for k in keys},
+                "d256_long_context": {k: d256[k] for k in keys},
+                "d512_long_context": {k: d512[k] for k in keys},
+                "d256_fp32_long_context": {k: d256f[k] for k in keys},
                 "cases": cases}
 
     def site_row(name, source, replaces):

@@ -119,10 +119,6 @@ def _bind(lib: ctypes.CDLL) -> None:
     if hasattr(lib, "dcnn_conv3x3_tc"):
         lib.dcnn_conv3x3_tc.argtypes = [p] * 7 + [i] * 15 + [p]
         lib.dcnn_conv3x3_tc.restype = i
-    if hasattr(lib, "dcnn_flash_bwd_dq_sliced"):
-        lib.dcnn_flash_bwd_dq_sliced.argtypes = [p] * 7 + [
-            i, i, i, i, i, ctypes.c_float, i, i, i, i, p]
-        lib.dcnn_flash_bwd_dq_sliced.restype = i
     for name in ("dcnn_conv3x3_tc_trace", "dcnn_flash_fwd_trace",
                  "dcnn_flash_bwd_trace"):
         if hasattr(lib, name):
@@ -183,13 +179,12 @@ def build(verbose: bool = False, extra: Tuple[str, ...] = ()
 
 # the head-dim classes the wgmma flash kernels are built for: a head dim d
 # <= 256 runs as the smallest class >= d, columns d.. zero-filled by the
-# copy; above 256 the forward and the dK/dV kernel run their wide modes and
-# dQ the sliced kernel (the class: the next multiple of FLASH_SLICE)
+# copy; above 256 every kernel runs its wide mode (the class: the next
+# multiple of FLASH_GROUP)
 FLASH_HEAD_DIMS = (16, 32, 64, 128, 256)
-# columns of a slice of the contraction over d, and of an output group, in
-# the sliced dQ kernel (flash.cuh sliced::kCols); its tiles are 64 rows
-FLASH_SLICE = 128
-FLASH_SLICED_TILE = 64
+# columns of an output group of the backward's wide modes (flash_bwd.cu
+# WideDq::kG, WideBwd::kG), one group a multiplying warpgroup
+FLASH_GROUP = 128
 FLASH_DTYPES = (torch.float32, torch.bfloat16)
 SMEM_MAX = 232448      # a block's dynamic shared memory on sm_90
 FLASH_MAX_STAGES = 4
@@ -206,29 +201,14 @@ def _cdiv(a: int, b: int) -> int:
 
 def flash_head_class(d: int) -> int:
     """The class a head dim runs as: the smallest of :data:`FLASH_HEAD_DIMS`
-    >= d, or above 256 the next multiple of :data:`FLASH_SLICE` (the sliced
-    kernels' slices and groups)."""
+    >= d, or above 256 the next multiple of :data:`FLASH_GROUP` (the wide
+    backward kernels' column groups)."""
     if d < 1:
         raise ValueError(f"head dim {d} < 1")
     for c in FLASH_HEAD_DIMS:
         if d <= c:
             return c
-    return _cdiv(d, FLASH_SLICE) * FLASH_SLICE
-
-
-def flash_sliced_smem() -> int:
-    """Shared memory of the sliced dQ kernel in bytes (flash.cuh
-    ``sliced::smem_bytes``): two staged 64 x 128 fp32 tiles (rows padded to
-    129 floats) and one 64 x 64 tile of dS (rows of 65 floats)."""
-    tile, ld = FLASH_SLICED_TILE, FLASH_SLICE + 1
-    return 4 * (2 * tile * ld + tile * (tile + 1))
-
-
-def flash_sliced_regs() -> int:
-    """Registers a thread of the sliced dQ kernel gives to its
-    accumulators: S and dP of a 64 x 64 tile, 16 each over 256 threads, and
-    dQ's group of 64 x 128, 32."""
-    return 2 * 16 + 32
+    return _cdiv(d, FLASH_GROUP) * FLASH_GROUP
 
 
 def flash_head_width(d: int, dtype: torch.dtype) -> int:
@@ -393,14 +373,13 @@ class BwdKernelPlan:
     in tiles of ``tile`` (keys for dQ, q rows for dK/dV) through a ring of
     ``stages``, the block's shared memory in bytes (``smem``), and
     ``regs``, the registers a multiplying thread gives to its accumulators,
-    S and dP fragments and A operands at that tile (the sliced dQ kernel's
-    thread: its accumulators, :func:`flash_sliced_regs`). ``slices``: 0
-    where the kernel holds the contraction over the head dim whole; else
-    dQ runs the sliced kernel on the CUDA cores (S and dP summed over
-    ``slices`` slices of FLASH_SLICE columns, one stage, 64-row blocks and
-    tiles) and dK/dV its wide mode (:class:`_WideBwd`: ``slices`` slices
-    of one or two 128-byte chunks streamed through the ring for each q
-    tile)."""
+    S and dP fragments and A operands at that tile. ``slices``: 0 where the
+    kernel holds the contraction over the head dim whole; else the kernel
+    runs its wide mode (dQ :class:`_WideDq`, dK/dV :class:`_WideBwd`):
+    64-row blocks whose two multiplying warpgroups take two of ``groups``
+    groups of FLASH_GROUP output columns, the contraction streamed through
+    the ring in ``slices`` slices of one 128-byte chunk (dQ) or of one or
+    two (dK/dV) for each streamed tile."""
     rows: int
     tile: int
     stages: int
@@ -425,7 +404,7 @@ class _WideBwd:
     K and V are held where two stages fit beside them (bf16 up to 11
     chunks)."""
 
-    group = 128
+    group = FLASH_GROUP
 
     def __init__(self, es: int, chunks: int):
         self.f32 = es == 4
@@ -458,6 +437,61 @@ class _WideBwd:
     def fit(self) -> int:
         return min(FLASH_MAX_STAGES, (SMEM_MAX - self.smem(self.held, 0))
                    // (self.stage(self.held) + 8 * self.tile))
+
+
+class _WideDq:
+    """``WideDq<T>`` of flash_bwd.cu, the dQ kernel's layout above head dim
+    256 and in fp32 above 128 (the dK/dV wide mode turned around): blocks
+    of 64 q rows, each multiplying warpgroup one group of ``group`` = 128
+    of dQ's columns (two a block); kv tiles of ``tile`` keys, the largest
+    power of two up to 128 whose registers (:meth:`regs_at`: dQ's group,
+    the slice product, S and dP after the exchange, dS as A operand) stay
+    within FLASH_BWD_REG_BUDGET (bf16 64, fp32 32); each kv tile as its
+    slices of ``slice_chunks`` = 1 128-byte chunk of d (K's and V's tile
+    rows, after Q's and dO's 64 rows where those are not held for the
+    block; fp32: then their tf32 lo), and one group unit a warpgroup (K's
+    group columns; fp32: then K_g^T as tf32 hi and lo, a 128-byte row per
+    column for each 32 keys); a stage holds the larger; the two
+    warpgroups' S and dP fragments are exchanged through shared memory. Q
+    and dO are held where two stages fit beside them (bf16 up to 10
+    chunks)."""
+
+    group = FLASH_GROUP
+    slice_chunks = 1
+
+    def __init__(self, es: int, chunks: int):
+        self.f32 = es == 4
+        self.chunks = chunks
+        self.tile = 128
+        while self.tile > 16 and self.regs_at(self.tile) > FLASH_BWD_REG_BUDGET:
+            self.tile //= 2
+        self.regs = self.regs_at(self.tile)
+        group_chunks = self.group * es // ROW_BYTES
+        t_part = _cdiv(self.tile, 32) * self.group * ROW_BYTES
+        self.group_unit = (group_chunks * self.tile * ROW_BYTES
+                           + (2 * t_part if self.f32 else 0))
+        self.exchange = 2 * 64 * self.tile * 4
+
+    def regs_at(self, n: int) -> int:
+        return self.group // 2 + n // 2 + n + (n if self.f32 else n // 4)
+
+    def stage(self, held: bool) -> int:
+        unit = ((2 if self.f32 else 1) * self.slice_chunks * 2
+                * (self.tile + (0 if held else 64)) * ROW_BYTES)
+        return max(unit, self.group_unit)
+
+    def smem(self, held: bool, stages: int) -> int:
+        qo = 2 * self.chunks * 64 * ROW_BYTES if held else 0
+        return (1024 + qo + stages * self.stage(held) + self.exchange
+                + 256)
+
+    @property
+    def held(self) -> bool:
+        return not self.f32 and self.smem(True, 2) <= SMEM_MAX
+
+    def fit(self) -> int:
+        return min(FLASH_MAX_STAGES, (SMEM_MAX - self.smem(self.held, 0))
+                   // self.stage(self.held))
 
 
 class _BwdLayout:
@@ -551,12 +585,11 @@ def flash_bwd_plan(sq: int, sk: int, d: int, dtype: torch.dtype
     number of streamed tiles. Where not one stage fits beside a 64-row
     block (fp32 above class 128, whose fixed operands alone, Q and dO or K
     and V as tf32 hi and lo: 4 x 64 rows x 1 KB, fill 256 KB) and above
-    class 256 the plan is mixed: dQ runs the sliced kernel (S and dP summed
-    over slices of FLASH_SLICE columns, dQ in groups of FLASH_SLICE
-    columns, 64-row blocks and 64-row tiles) and dK/dV its wide mode
-    (:class:`_WideBwd`; blocks of 64 keys, as many stages as shared memory
-    holds, up to FLASH_MAX_STAGES). The kernels refuse a plan that differs
-    from their own layout. Cached per shape."""
+    class 256 both kernels run their wide modes (:class:`_WideDq`,
+    :class:`_WideBwd`; blocks of 64 rows, outputs in groups of FLASH_GROUP
+    columns, as many stages as shared memory holds, up to
+    FLASH_MAX_STAGES). The kernels refuse a plan that differs from their
+    own layout. Cached per shape."""
     dc = flash_head_class(d)
     es = 2 if dtype == torch.bfloat16 else 4
     lay = _BwdLayout(dc, es)
@@ -564,11 +597,7 @@ def flash_bwd_plan(sq: int, sk: int, d: int, dtype: torch.dtype
     def part(dq: bool, own: int, other: int) -> BwdKernelPlan:
         if dc > FLASH_HEAD_DIMS[-1] or lay.smem(dq, 64, lay.tile(dq),
                                                 1) > SMEM_MAX:
-            if dq:
-                n, t = dc // FLASH_SLICE, FLASH_SLICED_TILE
-                return BwdKernelPlan(t, t, 1, flash_sliced_smem(),
-                                     flash_sliced_regs(), n, n)
-            wide = _WideBwd(es, _cdiv(d * es, ROW_BYTES))
+            wide = (_WideDq if dq else _WideBwd)(es, _cdiv(d * es, ROW_BYTES))
             stages = wide.fit()
             return BwdKernelPlan(
                 64, wide.tile, stages, wide.smem(wide.held, stages),
@@ -630,7 +659,7 @@ def _check_attention(fn: str, q: torch.Tensor, k: torch.Tensor,
 def _check_grid(fn: str, bh: int, sq: int, sk: int, d: int) -> None:
     """The most blocks a flash kernel's 1-d grid takes for this shape, one
     per (batch*head, tile of 64 rows, group of 128 columns), below 2^31."""
-    groups = _cdiv(flash_head_class(d), FLASH_SLICE)
+    groups = _cdiv(flash_head_class(d), FLASH_GROUP)
     blocks = bh * _cdiv(max(sq, sk), 64) * groups
     if blocks >= 2 ** 31:
         raise ValueError(f"{fn}: the grid would overflow: B*H={bh} x "
@@ -714,13 +743,9 @@ def _launch_flash_bwd(fn: str, q, k, v, do, lse, delta, outs, causal: bool,
                 lse.data_ptr(), delta.data_ptr(),
                 *(t.data_ptr() for t in outs), b * h, sq, sk, d, int(causal),
                 float(scale), int(q.dtype == torch.bfloat16))
-        if fn == "flash_bwd_dq" and part.slices:  # the sliced dQ kernel
-            err = lib.dcnn_flash_bwd_dq_sliced(*args, part.slices,
-                                               part.groups, part.smem, stream)
-        else:
-            err = getattr(lib, "dcnn_" + fn)(
-                *args, part.rows, part.tile, part.stages, part.smem,
-                part.groups, stream)
+        err = getattr(lib, "dcnn_" + fn)(
+            *args, part.rows, part.tile, part.stages, part.smem, part.groups,
+            stream)
     _raise_on(lib, fn, err)
 
 
@@ -732,7 +757,7 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     16-byte aligned CUDA tensors of fp32 or bf16 (D as :func:`flash_fwd`
     takes it), tiled by :func:`flash_bwd_plan`; ``lse`` the forward's
     logsumexp and ``delta`` = rowsum(dO * O), both (B, H, Sq) fp32. Returns
-    dQ like q. Above D 256, and above 128 in fp32, the sliced kernel runs
+    dQ like q. Above D 256, and above 128 in fp32, its wide mode runs
     (:func:`flash_bwd_plan`)."""
     dq = torch.empty_like(q)
     _launch_flash_bwd("flash_bwd_dq", q, k, v, do, lse, delta, (dq,),

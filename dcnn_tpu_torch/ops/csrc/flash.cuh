@@ -2,10 +2,10 @@
 // the tile format's constants, the head-dim class a kernel is built for,
 // exponentials on the special-function unit, operand conversions to
 // wgmma's register-A form, the fp32 tf32 splits and transposes in shared
-// memory, the forward's online softmax and the dK/dV kernels' P^T and
-// dS^T (each kernel's class and wide modes share them), the named barriers
-// by which two multiplying warpgroups take turns, and the clock counters of
-// the diagnostic builds.
+// memory, the forward's online softmax, the dQ kernels' P and dS and the
+// dK/dV kernels' P^T and dS^T (each kernel's class and wide modes share
+// them), the named barriers by which two multiplying warpgroups take
+// turns, and the clock counters of the diagnostic builds.
 
 #pragma once
 
@@ -82,21 +82,38 @@ __device__ __forceinline__ void frag_to_tf32(const float (&f)[N / 2], uint32_t (
   }
 }
 
+// fp32: the four values of v split into tf32 hi (in place) and tf32(x - hi)
+__device__ __forceinline__ void split4(float4& v, float4& r) {
+  float* a = reinterpret_cast<float*>(&v);
+  float* b = reinterpret_cast<float*>(&r);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float h = __uint_as_float(to_tf32(a[e]));
+    b[e] = __uint_as_float(to_tf32(a[e] - h));
+    a[e] = h;
+  }
+}
 // fp32: `cells` 16-byte cells of hi, split in place into tf32 hi and, at
 // the same offsets of lo, tf32(x - hi)
 __device__ void split_cells(uint8_t* hi, uint8_t* lo, int cells, int tid, int nthr) {
-  for (int i = tid; i < cells; i += nthr) {
-    float4 v = reinterpret_cast<float4*>(hi)[i], r;
-    float* a = reinterpret_cast<float*>(&v);
-    float* b = reinterpret_cast<float*>(&r);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float h = __uint_as_float(to_tf32(a[e]));
-      b[e] = __uint_as_float(to_tf32(a[e] - h));
-      a[e] = h;
-    }
-    reinterpret_cast<float4*>(hi)[i] = v;
-    reinterpret_cast<float4*>(lo)[i] = r;
+  float4* h4 = reinterpret_cast<float4*>(hi);
+  float4* l4 = reinterpret_cast<float4*>(lo);
+  int i = tid;
+  // two cells a step: both loads in flight before either is used
+  for (; i + nthr < cells; i += 2 * nthr) {
+    float4 v0 = h4[i], v1 = h4[i + nthr], r0, r1;
+    split4(v0, r0);
+    split4(v1, r1);
+    h4[i] = v0;
+    l4[i] = r0;
+    h4[i + nthr] = v1;
+    l4[i + nthr] = r1;
+  }
+  if (i < cells) {
+    float4 v = h4[i], r;
+    split4(v, r);
+    h4[i] = v;
+    l4[i] = r;
   }
 }
 
@@ -127,10 +144,13 @@ template <int DP>
 __device__ void transpose_split(uint8_t* x, uint8_t* lo, uint8_t* t_hi, uint8_t* t_lo, int rows,
                                 int tid, int nthr) {
   const int cells = DP / 32 * rows * 8;
-  for (int i = tid; i < cells; i += nthr) {
+  auto cell_at = [&](int i) {
     const int j = i & 7, r = (i >> 3) % rows, c = i / (8 * rows);
-    float4* cell = reinterpret_cast<float4*>(x + c * rows * kRow + r * kRow + ((j ^ (r & 7)) << 4));
-    float4 v = *cell, l;
+    return reinterpret_cast<float4*>(x + c * rows * kRow + r * kRow + ((j ^ (r & 7)) << 4));
+  };
+  auto put = [&](int i, float4* cell, float4 v) {
+    const int j = i & 7, r = (i >> 3) % rows, c = i / (8 * rows);
+    float4 l;
     float* ve = reinterpret_cast<float*>(&v);
     float* le = reinterpret_cast<float*>(&l);
     const int kk = key_pos(r), kc = kk >> 5, ki = kk & 31;
@@ -148,6 +168,19 @@ __device__ void transpose_split(uint8_t* x, uint8_t* lo, uint8_t* t_hi, uint8_t*
       *cell = v;
       *reinterpret_cast<float4*>(reinterpret_cast<uint8_t*>(cell) - x + lo) = l;
     }
+  };
+  int i = tid;
+  // two cells a step: both loads in flight before either is used
+  for (; i + nthr < cells; i += 2 * nthr) {
+    float4* c0 = cell_at(i);
+    float4* c1 = cell_at(i + nthr);
+    const float4 v0 = *c0, v1 = *c1;
+    put(i, c0, v0);
+    put(i + nthr, c1, v1);
+  }
+  if (i < cells) {
+    float4* c0 = cell_at(i);
+    put(i, c0, *c0);
   }
 }
 
@@ -264,6 +297,44 @@ __device__ __forceinline__ void p_and_ds_t(float (&sc)[N / 2], float (&dp)[N / 2
   }
 }
 
+// P and dS of a kv tile on a warpgroup's S and dP fragments of 64 q rows by
+// N keys (sc[4j + e] is row row0 + 8 (e >> 1), key kv0 + 8j + 2 t4 + (e &
+// 1)), from the thread's two rows' lse (times log2 e) and delta: P = 2^(S
+// scale - lse), masked before the exponential (keys from sk on; causal:
+// keys after row + offset), dS = P (dP - delta) scale into dp, then to
+// wgmma's A form (bf16: rounded; fp32: tf32 hi and lo). first_row is the
+// warpgroup's first q row.
+template <int N, bool kF32, int kA, int kLo>
+__device__ __forceinline__ void p_and_ds_rows(float (&sc)[N / 2], float (&dp)[N / 2],
+                                              uint32_t (&da)[kA][4], uint32_t (&dlo)[kLo][4],
+                                              const float (&lse2)[2], const float (&dlt)[2],
+                                              float scale_log2, float scale, int kv0, int sk,
+                                              bool causal, int first_row, int row0, int offset,
+                                              int t4) {
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) sc[i] = fmaf(sc[i], scale_log2, -lse2[(i >> 1) & 1]);
+  // the mask only on tiles that cross the end of the keys or the
+  // diagonal, as a branch of its own: per element one compare against
+  // the row's last allowed key; a masked exponent of -inf gives P = 0
+  if (kv0 + N > sk || (causal && kv0 + N - 1 > first_row + offset)) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int last = (causal ? min(sk - 1, row0 + 8 * h + offset) : sk - 1) - (kv0 + 2 * t4);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          if (8 * j + e > last) sc[4 * j + 2 * h + e] = -INFINITY;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) dp[i] = ex2(sc[i]) * (dp[i] - dlt[(i >> 1) & 1]) * scale;
+  if constexpr (kF32)
+    frag_to_tf32<N>(dp, da, dlo);
+  else
+    frag_to_bf16<N>(dp, da);
+}
+
 // named barriers between the two multiplying warpgroups (256 threads)
 __device__ __forceinline__ void named_sync(int id) {
   asm volatile("bar.sync %0, 256;" ::"r"(id) : "memory");
@@ -317,166 +388,5 @@ struct PassClock<false> {
   __device__ __forceinline__ void lap(int) {}
   __device__ __forceinline__ void save(unsigned long long (*)[8], int, int, bool) {}
 };
-
-// The sliced dQ kernel (flash_bwd.cu flash_bwd_dq_sliced_kernel): the head
-// dims whose contraction the wgmma dQ kernel cannot hold whole in shared
-// memory (every d > 256, and d > 128 in fp32). S = Q K^T and dP = dO V^T
-// are summed over slices of kCols columns of d, each slice of both
-// operands staged as fp32 in shared memory, into the same fp32 registers;
-// dQ is made in groups of kCols columns, one group a block, each block
-// recomputing S and dP over the whole of d. Products on the CUDA cores in
-// fp32: bf16 inputs are exact in fp32, and fp32 keeps fp32 accuracy
-// without the TF32 splits. A block is 16 x 16 threads; thread (ty, tx)
-// holds rows 4 ty .. 4 ty + 3 of a 64-row tile and columns tx + 16 j, so a
-// column's 16 reads in a half-warp fall in 16 banks.
-namespace sliced {
-
-constexpr int kTile = 64;       // q rows and keys of a tile
-constexpr int kCols = 128;      // columns of d in a slice, and in an output group
-constexpr int kThreads = 256;
-constexpr int kLd = kCols + 1;  // floats of a staged row (+1: a column's rows in distinct banks)
-constexpr int kLdP = kTile + 1;
-constexpr int kStage = kTile * kLd;  // floats of one staged 64 x 128 tile
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
-// x rounded to T (P and dS before their products, as the plain version does)
-template <typename T>
-__device__ __forceinline__ float round_to(float x) { return to_f(from_f<T>(x)); }
-
-// rows [row0, row0 + 64) x columns [col0, col0 + 128) of a (rows, d)
-// row-major matrix, as fp32 into dst (row stride kLd), zero outside it. d
-// is a whole number of 16-byte vectors (the host's rule), so a vector lies
-// wholly inside or outside the matrix.
-template <typename T>
-__device__ void stage(float* dst, const T* src, int row0, int rows, int col0, int d) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = kCols / kVec;
-  for (int i = threadIdx.x; i < kTile * kPerRow; i += kThreads) {
-    const int r = i / kPerRow, c = (i % kPerRow) * kVec;
-    const int gr = row0 + r, gc = col0 + c;
-    float* out = dst + r * kLd + c;
-    if (gr < rows && gc < d) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(src + (size_t)gr * d + gc);
-      const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) out[j] = to_f(e[j]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < kVec; ++j) out[j] = 0.f;
-    }
-  }
-}
-
-// s[i][j] += sum over the slice's columns of a[4 ty + i] . b[tx + 16 j]
-__device__ __forceinline__ void add_products(float (&s)[4][4], const float* a, const float* b) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const float* ar = a + 4 * ty * kLd;
-  const float* br = b + tx * kLd;
-#pragma unroll 8
-  for (int c = 0; c < kCols; ++c) {
-    float av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = ar[i * kLd + c];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = br[16 * j * kLd + c];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], bv[j], s[i][j]);
-  }
-}
-
-// acc[i][j] += sum over the tile's 64 rows r of w[4 ty + i][r] * x[r][tx + 16 j]
-// (w: a 64 x 64 tile of row stride kLdP; x: a staged group of kCols columns)
-__device__ __forceinline__ void add_group(float (&acc)[4][8], const float* w, const float* x) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll 4
-  for (int r = 0; r < kTile; ++r) {
-    float wv[4], xv[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) wv[i] = w[(4 * ty + i) * kLdP + r];
-#pragma unroll
-    for (int j = 0; j < 8; ++j) xv[j] = x[r * kLd + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(wv[i], xv[j], acc[i][j]);
-  }
-}
-
-// rows [row0, row0 + 64) x columns [col0, col0 + 128) of acc into a (rows,
-// d) matrix, what lies inside it
-template <typename T>
-__device__ void store_group(T* dst, const float (&acc)[4][8], int row0, int rows, int col0, int d) {
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + 4 * ty + i;
-    if (r >= rows) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int c = col0 + tx + 16 * j;
-      if (c < d) dst[(size_t)r * d + c] = from_f<T>(acc[i][j]);
-    }
-  }
-}
-
-// shared memory of the sliced dQ kernel, mirrored by
-// _kernels.flash_sliced_smem (bytes): two staged tiles and a 64 x 64 tile
-// of dS
-constexpr int smem_bytes() { return 4 * (2 * kStage + kTile * kLdP); }
-
-struct Params {
-  int sq, sk, d, causal, groups, n_tiles;
-  float scale, scale_log2;
-};
-
-// the block's (batch*head, tile, group) of a 1-d grid: the group fastest,
-// then the tile, the heaviest causal q tiles first where `reverse`
-struct Block {
-  long long bh;
-  int tile, group;
-  __device__ Block(const Params& p, bool reverse) {
-    long long i = blockIdx.x;
-    group = static_cast<int>(i % p.groups);
-    i /= p.groups;
-    const int t = static_cast<int>(i % p.n_tiles);
-    tile = reverse ? p.n_tiles - 1 - t : t;
-    bh = i / p.n_tiles;
-  }
-};
-
-// the plan a sliced launch must be given: slices and groups of kCols
-// columns covering d, and the kernel's shared memory; the grid (batch*head
-// x tiles of `rows` x groups) within 2^31 blocks
-inline cudaError_t check_plan(int bh, int rows, int d, int slices, int groups, int smem,
-                              long long* blocks) {
-  const int n = (d + kCols - 1) / kCols;
-  if (slices != n || groups != n || smem != smem_bytes()) return cudaErrorInvalidValue;
-  *blocks = (long long)bh * ((rows + kTile - 1) / kTile) * groups;
-  return *blocks > 0x7fffffffLL ? cudaErrorInvalidValue : cudaSuccess;
-}
-
-// raise a kernel's shared-memory limit, once per kernel (`raised` is the
-// caller's, one per instantiation; never inside a graph capture)
-template <typename K>
-cudaError_t allow_smem(K kernel, int smem, bool& raised) {
-  if (raised) return cudaSuccess;
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err == cudaSuccess) raised = true;
-  return err;
-}
-
-}  // namespace sliced
 
 }  // namespace

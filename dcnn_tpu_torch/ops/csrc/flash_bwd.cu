@@ -61,11 +61,13 @@
 // stays whole) and accumulates only its group's columns. fp32 above D = 128
 // does not fit: its fixed operands alone as tf32 hi and lo (Q and dO, or K
 // and V: 4 x 64 rows x 1 KB) fill 256 KB, above a block's shared memory;
-// there and at every d > 256 the dK/dV kernel runs its wide mode
-// (flash_bwd_dkv_wide_kernel below, on wgmma, the contraction streamed
-// through the ring in slices) and dQ the sliced kernel (CUDA cores). The
-// host plans rows, groups, stages and shared memory (or slices) and the
-// launch refuses any other plan.
+// there and at every d > 256 both kernels run their wide modes
+// (flash_bwd_dq_wide_kernel and flash_bwd_dkv_wide_kernel below, on wgmma:
+// 64 rows a block, the contraction over d streamed through the ring in
+// slices, S and dP split between the two multiplying warpgroups and
+// exchanged, each warpgroup one column group of 128 of the outputs). The
+// host plans rows, tiles, groups, stages and shared memory and the launch
+// refuses any other plan.
 //
 // What bounds it on an H100. At long context the products: per allowed
 // (q, k) pair 6 D FLOPs in dQ (S, dP, dS K) and 8 D in dK/dV (S, dP, P^T
@@ -91,11 +93,15 @@ constexpr bool kTrace = false;
 #endif
 
 // Clock counts of the live passes (the -DFLASH_BWD_TRACE build;
-// dcnn_flash_bwd_trace reads them), [kernel: 0 dQ, 1 dK/dV][warpgroup]:
-// [0] waiting for the tile, [1] issuing, [2] waiting for S and dP, [3] P,
-// dS and their A operands, [4] waiting for the accumulating products, [5]
-// the release, [7] the passes
-__device__ unsigned long long g_trace[2][2][8];
+// dcnn_flash_bwd_trace reads them), [kernel: 0 dQ, 1 dK/dV, 2 wide dQ, 3
+// wide dK/dV][warpgroup]. Class kernels: [0] waiting for the tile, [1]
+// issuing, [2] waiting for S and dP, [3] P, dS and their A operands, [4]
+// waiting for the accumulating products, [5] the release, [7] the passes.
+// Wide kernels (a pass is one streamed tile): [0] waiting for a slice, [1]
+// issuing the slices and draining their products, [2] the exchange, [3] P
+// and dS (P^T and dS^T) and their A operands, [4] the group product, [5]
+// the releases, [6] waiting for the group units, [7] the passes
+__device__ unsigned long long g_trace[4][2][8];
 
 // The tile format for head-dim class D, mirrored by _kernels.flash_bwd_plan
 template <typename T, int D>
@@ -324,31 +330,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   // P and dS of tile t on the fragment (sc[4j + e] is row row0 + 8 (e >>
   // 1), key kv0 + 8j + 2 t4 + (e & 1)), dS to the A operand
   auto p_and_ds = [&](int t) {
-    const int kv0 = t * kN;
-#pragma unroll
-    for (int i = 0; i < kN / 2; ++i) sc[i] = fmaf(sc[i], p.scale_log2, -lse2[(i >> 1) & 1]);
-    // the mask only on tiles that cross the end of the keys or the
-    // diagonal, as a branch of its own: per element one compare against
-    // the row's last allowed key; a masked exponent of -inf gives P = 0
-    if (kv0 + kN > p.sk || (p.causal && kv0 + kN - 1 > wg_first + offset)) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int last = (p.causal ? min(p.sk - 1, row0 + 8 * h + offset) : p.sk - 1) -
-                         (kv0 + 2 * t4);
-#pragma unroll
-        for (int j = 0; j < kN / 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e)
-            if (8 * j + e > last) sc[4 * j + 2 * h + e] = -INFINITY;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kN / 2; ++i)
-      dp[i] = ex2(sc[i]) * (dp[i] - dlt[(i >> 1) & 1]) * p.scale;
-    if constexpr (L::kF32)
-      frag_to_tf32<kN>(dp, da, dlo);
-    else
-      frag_to_bf16<kN>(dp, da);
+    p_and_ds_rows<kN, L::kF32>(sc, dp, da, dlo, lse2, dlt, p.scale_log2, p.scale, t * kN, p.sk,
+                               p.causal, wg_first, row0, offset, t4);
   };
   // dQ += dS K with dS in da (and dlo), K at stage st
   auto issue_dq = [&](uint32_t st) {
@@ -969,21 +952,28 @@ __global__ void __launch_bounds__(kThreads, 1)
   // each q tile: its slices, each slice's product issued and the unit
   // before it released once that completed; the exchange; P^T and dS^T;
   // the group's products, waited for before the next q tile
+  PassClock<kTrace> clk;
   for (int i = 0; i < n_t; ++i) {
+    clk.start();
     int pend = -1;  // the slice whose product may still run
 #pragma unroll
     for (int e = 0; e < kN / 2; ++e) xs[e] = 0.f;
     for (int c = 0; c < ns; ++c) {
       const int u = i * per + c;
       wait_unit(u);
+      clk.lap(0);
       issue_slice(unit_at(u), c);
       wgmma_wait1();
+      clk.lap(1);
       if (pend >= 0) release(pend);
       pend = u;
+      clk.lap(5);
     }
     wgmma_wait0();
     fence_regs(xs);
+    clk.lap(1);
     release(pend);
+    clk.lap(5);
     // S^T from warpgroup 0, dP^T from warpgroup 1, to both
 #pragma unroll
     for (int e = 0; e < kN / 2; ++e) xch[(wg * (kN / 2) + e) * 128 + wt] = xs[e];
@@ -994,17 +984,21 @@ __global__ void __launch_bounds__(kThreads, 1)
       dp[e] = xch[(kN / 2 + e) * 128 + wt];
     }
     named_sync(5);  // both read before the next q tile's writes
+    clk.lap(2);
     // the group units: the first carries the lse and delta; warpgroup w
     // multiplies from unit w (a group beyond d: into accumulators that are
     // never stored) and releases the other one unread
     const int g0u = i * per + ns;
     wait_unit(g0u);
+    clk.lap(6);
     p_and_ds_t<kN, W::kF32>(sc, dp, pa, plo, da, dlo, rowv + (g0u % p.stages) * 2 * kN,
                             p.scale_log2, p.scale, (t0 + i) * kN, key0, last_key, offset,
                             p.causal, t4);
+    clk.lap(3);
     if (wg == 1) release(g0u);
     wait_unit(g0u + 1);
     if (wg == 0) release(g0u + 1);
+    clk.lap(6);
     issue_kv(unit_at(g0u + wg));
     wgmma_wait0();
     fence_regs(acc_k);
@@ -1015,8 +1009,11 @@ __global__ void __launch_bounds__(kThreads, 1)
       hold_regs(plo);
       hold_regs(dlo);
     }
+    clk.lap(4);
     release(g0u + wg);
+    clk.lap(5);
   }
+  clk.save(g_trace[3], wg, n_t, wt == 0);
 
   // dK and dV of keys key0 and key0 + 8, the group's columns below d
   if (!has_grp) return;
@@ -1033,6 +1030,340 @@ __global__ void __launch_bounds__(kThreads, 1)
         store2(out_k + at + 8 * j + 2 * t4, acc_k[4 * j + 2 * h], acc_k[4 * j + 2 * h + 1]);
         store2(out_v + at + 8 * j + 2 * t4, acc_v[4 * j + 2 * h], acc_v[4 * j + 2 * h + 1]);
       }
+  }
+}
+
+// The wide mode of the dQ kernel: head dims above 256, and in fp32 above
+// 128 (_kernels.flash_bwd_plan's dq.slices > 0), where Q and dO do not fit
+// whole beside a ring as wgmma's operands (fp32 at d = 256: as tf32 hi and
+// lo, 256 KB for 64 rows) and dQ's accumulator over d not the registers
+// (bf16 at d = 512: 256 a thread). flash_bwd_dkv_wide_kernel turned
+// around: one block per (batch*head, 64 q rows, pair of column groups of
+// kG = 128); multiplying warpgroup w accumulates dQ's group 2 pair + w. The
+// two split S and dP between them: over the slices of d warpgroup 0 adds S
+// = Q K^T, warpgroup 1 dP = dO V^T, each into one fp32 fragment; the two
+// fragments are exchanged through shared memory (named barrier 5), and
+// both build P and dS on them (as flash_bwd_dq_kernel does, the rows' lse
+// and delta loaded once a block) and add dQ_g += dS K_g for their group by
+// wgmma with dS in registers. Q and dO are held for the block where two
+// stages fit beside them (bf16 up to 10 chunks of d), else every slice
+// brings its chunk of them. A kv tile is n_ch + 2 units of the ring, in
+// order: its slices, one 128-byte chunk of d each (K's and V's kN rows,
+// after Q's and dO's 64 rows where they stream; fp32: then their tf32 lo,
+// split in place by warps 1-3), then one group unit for each warpgroup (K's
+// group columns, read MN-major as the transposed B in bf16; fp32: then
+// K_g^T as tf32 hi and lo, written by warps 1-3). One-chunk slices keep
+// the units alike in size, so the ring holds four (two-chunk slices, as the
+// dK/dV kernel takes where d's chunks pair up, measured 13% slower on an
+// H100 at d = 512 in bf16 and 14% at d = 256 in fp32). The group units follow
+// flash_bwd_dkv_wide_kernel's rules: the same issues in both warpgroups (no
+// branch among the wgmma), a group's chunks beyond d not copied and its
+// columns never stored.
+//
+// What bounds it on an H100 at d = 512. The products, 6 d FLOPs per allowed
+// pair; this design does 4 d for S and dP in each of the ceil(d / 256)
+// blocks of a q tile and 2 d for dQ once: 10 d at d = 512 (1.67 times the
+// bound's), 6 d at d = 256 (1.0 times). Beside them L2: K and V stream
+// again for every block (and Q and dO for every kv tile where they are not
+// held); fp32 waits on warps 1-3 splitting every slice.
+__host__ __device__ constexpr int wide_dq_regs(bool f32, int n) {
+  // dQ's group (64 x 128 fp32), the slice product, S and dP after the
+  // exchange, dS as A operand (bf16 pairs; fp32 tf32 hi and lo)
+  return 64 + n / 2 + n + (f32 ? n : n / 4);
+}
+// the largest kv tile (a power of two up to 128) within the register budget
+__host__ __device__ constexpr int wide_dq_tile(bool f32) {
+  int n = 128;
+  while (n > 16 && wide_dq_regs(f32, n) > kRegBudget) n /= 2;
+  return n;
+}
+
+template <typename T>
+struct WideDq {
+  static constexpr int kEs = sizeof(T);
+  static constexpr bool kF32 = kEs == 4;
+  static constexpr int kChunkE = kRow / kEs;   // elements of a 128-byte chunk
+  static constexpr int kG = 128;                // dQ's columns a warpgroup
+  static constexpr int kGC = kG / kChunkE;      // their chunks
+  static constexpr int kN = wide_dq_tile(kF32);  // keys a kv tile: bf16 64, fp32 32
+  static constexpr int kParts = kF32 ? 2 : 1;   // fp32: hi and lo
+  static constexpr int kT = (kN + 31) / 32 * kG * kRow;                  // fp32: K_g^T, one part
+  static constexpr int kGU = kGC * kN * kRow + (kF32 ? 2 * kT : 0);     // a group unit
+  static constexpr int kX = 2 * 64 * kN * 4;  // the exchanged S and dP
+  static_assert(wide_dq_regs(kF32, kN) <= kRegBudget, "the wide tile does not fit the budget");
+  // Q and dO held for the block: 64 rows of each chunk of both
+  __host__ __device__ static constexpr int qo_bytes(int n_ch) { return 2 * n_ch * 64 * kRow; }
+  // a slice: K's and V's chunk of kN rows, after Q's and dO's of 64 rows
+  // where they stream; fp32: their lo
+  __host__ __device__ static constexpr int slice_bytes(bool held) {
+    return kParts * 2 * (kN + (held ? 0 : 64)) * kRow;
+  }
+  __host__ __device__ static constexpr int stage(bool held) {
+    return slice_bytes(held) > kGU ? slice_bytes(held) : kGU;
+  }
+  // 1024 bytes of slack to align the base for the swizzle, Q and dO where
+  // held, the ring, the exchange, the barriers
+  __host__ __device__ static constexpr int smem(bool held, int n_ch, int stages) {
+    return 1024 + (held ? qo_bytes(n_ch) : 0) + stages * stage(held) + kX + 256;
+  }
+  // Q and dO are held where two stages fit beside them (bf16 only: as tf32
+  // hi and lo they would take twice the room)
+  __host__ __device__ static constexpr bool held(int n_ch) {
+    return !kF32 && smem(true, n_ch, 2) <= kSmemMax;
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_wide_kernel(const __grid_constant__ CUtensorMap qmap,
+                             const __grid_constant__ CUtensorMap kmap,
+                             const __grid_constant__ CUtensorMap vmap,
+                             const __grid_constant__ CUtensorMap omap, const Params p) {
+  using W = WideDq<T>;
+  constexpr int kN = W::kN;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int ns = (p.d * W::kEs + kRow - 1) / kRow;  // chunks of d: the slices of a kv tile
+  const int per = ns + 2;                           // its units: slices, two group units
+  const bool held = W::held(ns);
+  const int stage_b = W::stage(held);
+  uint8_t* qo = base;                                  // Q's chunks, then dO's (held)
+  uint8_t* ring = base + (held ? W::qo_bytes(ns) : 0);
+  float* xch = reinterpret_cast<float*>(ring + p.stages * stage_b);  // S, dP
+  uint64_t* full_x = reinterpret_cast<uint64_t*>(xch + W::kX / 4);
+  uint64_t* full = full_x + 2;
+  uint64_t* ready = full + kMaxStages;  // fp32: the splits
+  uint64_t* empty = ready + kMaxStages;
+  // regions of a slice: Q's, dO's chunk (64 rows each, where they stream),
+  // K's, V's (kN rows each); fp32: their lo
+  const int qs = held ? 0 : 64 * kRow, ko = 2 * qs, vo = ko + kN * kRow;
+  const int lo = W::slice_bytes(held) / 2;
+  const int n_grp = (p.d + W::kG - 1) / W::kG, n_pair = (n_grp + 1) / 2;
+  // one block per (q tile, pair of column groups, batch*head), the heaviest
+  // causal q tiles first
+  const int idx = (int)(blockIdx.x / p.bh), pair = idx % n_pair;
+  const int qt = p.n_blocks - 1 - idx / n_pair;
+  const int bh = blockIdx.x % p.bh, q0 = qt * 64, offset = p.sk - p.sq;
+  // the kv tiles holding an allowed pair for a real row of this q tile
+  int n_kv = (p.sk + kN - 1) / kN;
+  if (p.causal) {
+    const int hi = min(q0 + 64, p.sq) - 1 + offset;
+    n_kv = hi < 0 ? 0 : min(n_kv, hi / kN + 1);
+  }
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    mbar_init(full_x, 1);
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full + s, 1);
+      mbar_init(ready + s, 96);  // warps 1-3 of the copying warpgroup
+      mbar_init(empty + s, 8);   // one arrival per multiplying warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (tid < 128) {  // the copying warpgroup
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;" ::: "memory");
+    if (tid == 0) {
+      if (held && n_kv > 0) {
+        mbar_expect_tx(full_x, W::qo_bytes(ns));
+        for (int c = 0; c < ns; ++c) {
+          tma_load_3d(smem_u32(qo + c * 64 * kRow), &qmap, full_x, c * W::kChunkE, q0, bh);
+          tma_load_3d(smem_u32(qo + (ns + c) * 64 * kRow), &omap, full_x, c * W::kChunkE, q0, bh);
+        }
+      }
+      for (int u = 0; u < n_kv * per; ++u) {
+        const int c = u % per, s = u % p.stages, k0 = (u / per) * kN;
+        wait_or_trap(empty + s, ((u / p.stages) & 1) ^ 1);
+        fence_proxy_async();  // fp32: the split's stores to this stage before the copy
+        uint8_t* st = ring + s * stage_b;
+        if (c < ns) {  // slice c: chunk c
+          const int x = c * W::kChunkE;
+          mbar_expect_tx(full + s, 2 * (kN + (held ? 0 : 64)) * kRow);
+          if (!held) {
+            tma_load_3d(smem_u32(st), &qmap, full + s, x, q0, bh);
+            tma_load_3d(smem_u32(st + qs), &omap, full + s, x, q0, bh);
+          }
+          tma_load_3d(smem_u32(st + ko), &kmap, full + s, x, k0, bh);
+          tma_load_3d(smem_u32(st + vo), &vmap, full + s, x, k0, bh);
+        } else {  // the group unit of warpgroup c - ns: K's chunks below d
+          const int g0 = (2 * pair + c - ns) * W::kGC, nch = max(0, min(W::kGC, ns - g0));
+          mbar_expect_tx(full + s, nch * kN * kRow);
+          for (int j = 0; j < nch; ++j)
+            tma_load_3d(smem_u32(st + j * kN * kRow), &kmap, full + s, (g0 + j) * W::kChunkE, k0,
+                        bh);
+        }
+      }
+      return;
+    }
+    if constexpr (W::kF32) {  // warps 1-3: the tf32 splits
+      if (tid >= 32) {
+        const int st_tid = tid - 32;
+        for (int u = 0; u < n_kv * per; ++u) {
+          const int c = u % per, s = u % p.stages;
+          uint8_t* st = ring + s * stage_b;
+          wait_or_trap(full + s, (u / p.stages) & 1);
+          if (c < ns) {  // the slice split in place, lo after it
+            split_cells(st, st + lo, lo / 16, st_tid, 96);
+          } else {  // K_g transposed as tf32 hi and lo
+            const int gl = W::kGC * kN * kRow;
+            transpose_split<W::kG>(st, nullptr, st + gl, st + gl + W::kT, kN, st_tid, 96);
+          }
+          fence_proxy_async();
+          mbar_arrive(ready + s);
+        }
+      }
+    }
+    return;
+  }
+
+  // the multiplying warpgroups: both take the block's 64 q rows; wg's group
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;" ::: "memory");
+  const int ct = tid - 128, wg = ct >> 7, warp = (ct >> 5) & 3, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3, wt = ct & 127;
+  const int row0 = q0 + 16 * warp + g;  // this thread's rows: row0, row0 + 8
+  const int grp = 2 * pair + wg;
+  float lse2[2], dlt[2];  // lse * log2(e); delta
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    const size_t i = (size_t)bh * p.sq + r;
+    lse2[h] = r < p.sq ? p.lse[i] * kLog2e : 0.f;
+    dlt[h] = r < p.sq ? p.delta[i] : 0.f;
+  }
+
+  float acc[W::kG / 2];
+#pragma unroll
+  for (int i = 0; i < W::kG / 2; ++i) acc[i] = 0.f;
+  float xs[kN / 2];              // this warpgroup's product: S (0) or dP (1)
+  float sc[kN / 2], dp[kN / 2];  // S, then P; dP, then dS
+  // dS as wgmma's A operand: bf16 pairs, or tf32 hi and lo
+  uint32_t da[W::kF32 ? kN / 8 : kN / 16][4], dlo[W::kF32 ? kN / 8 : 1][4];
+  uint64_t* rdy = W::kF32 ? ready : full;
+  auto unit_at = [&](int u) { return smem_u32(ring + (u % p.stages) * stage_b); };
+  auto wait_unit = [&](int u) { mbar_wait(rdy + u % p.stages, (u / p.stages) & 1); };
+  auto release = [&](int u) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + u % p.stages);
+  };
+  // A: Q's (warpgroup 0) or dO's (1) rows of a chunk, held or in the slice;
+  // B: K's or V's
+  const uint32_t a_held = smem_u32(qo) + wg * ns * 64 * kRow;
+  const int a_unit = wg * qs, b_unit = ko + wg * kN * kRow;
+
+  // S += Q K^T (warpgroup 0) or dP += dO V^T (1) over slice c's chunk, the
+  // unit at st
+  auto issue_slice = [&](uint32_t st, int c) {
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {  // 32 bytes a step
+      const uint32_t a = (held ? a_held + c * 64 * kRow : st + a_unit) + 32 * ks;
+      const uint32_t b = st + b_unit + 32 * ks;
+      if constexpr (W::kF32) {
+        Wgmma<kN>::ss_tf32(xs, desc_sw128(a + lo), desc_sw128(b));
+        Wgmma<kN>::ss_tf32(xs, desc_sw128(a), desc_sw128(b + lo));
+        Wgmma<kN>::ss_tf32(xs, desc_sw128(a), desc_sw128(b));
+      } else {
+        Wgmma<kN>::ss_bf16(xs, desc_sw128(a), desc_sw128(b));
+      }
+    }
+    wgmma_commit();
+  };
+  // dQ_g += dS K_g, the group unit at st
+  auto issue_dq = [&](uint32_t st) {
+    wgmma_fence();
+    if constexpr (W::kF32) {
+      const uint32_t kt_hi = st + W::kGC * kN * kRow, kt_lo = kt_hi + W::kT;
+#pragma unroll
+      for (int j = 0; j < kN / 8; ++j) {
+        const int off = (j >> 2) * W::kG * kRow + 32 * (j & 3);
+        const uint64_t bhi = desc_sw128(kt_hi + off), blo = desc_sw128(kt_lo + off);
+        Wgmma<W::kG>::rs_tf32(acc, dlo[j], bhi);
+        Wgmma<W::kG>::rs_tf32(acc, da[j], blo);
+        Wgmma<W::kG>::rs_tf32(acc, da[j], bhi);
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kN / 16; ++k)
+#pragma unroll
+        for (int c = 0; c < W::kGC; ++c)  // 64 columns of the group a product
+          Wgmma<64>::rs_bf16<1>(acc + 32 * c, da[k], desc_sw128(st + c * kN * kRow + k * 16 * kRow));
+    }
+    wgmma_commit();
+  };
+
+  if (held && n_kv > 0) mbar_wait(full_x, 0);
+  // each kv tile: its slices, each slice's product issued and the unit
+  // before it released once that completed; the exchange; P and dS; the
+  // group's products, waited for before the next kv tile
+  PassClock<kTrace> clk;
+  for (int t = 0; t < n_kv; ++t) {
+    clk.start();
+    int pend = -1;  // the slice whose product may still run
+#pragma unroll
+    for (int e = 0; e < kN / 2; ++e) xs[e] = 0.f;
+    for (int c = 0; c < ns; ++c) {
+      const int u = t * per + c;
+      wait_unit(u);
+      clk.lap(0);
+      issue_slice(unit_at(u), c);
+      wgmma_wait1();
+      clk.lap(1);
+      if (pend >= 0) release(pend);
+      pend = u;
+      clk.lap(5);
+    }
+    wgmma_wait0();
+    fence_regs(xs);
+    clk.lap(1);
+    release(pend);
+    clk.lap(5);
+    // S from warpgroup 0, dP from warpgroup 1, to both
+#pragma unroll
+    for (int e = 0; e < kN / 2; ++e) xch[(wg * (kN / 2) + e) * 128 + wt] = xs[e];
+    named_sync(5);
+#pragma unroll
+    for (int e = 0; e < kN / 2; ++e) {
+      sc[e] = xch[e * 128 + wt];
+      dp[e] = xch[(kN / 2 + e) * 128 + wt];
+    }
+    named_sync(5);  // both read before the next kv tile's writes
+    clk.lap(2);
+    p_and_ds_rows<kN, W::kF32>(sc, dp, da, dlo, lse2, dlt, p.scale_log2, p.scale, t * kN, p.sk,
+                               p.causal, q0, row0, offset, t4);
+    clk.lap(3);
+    // the group units: warpgroup w multiplies from unit w (a group beyond
+    // d: into an accumulator that is never stored) and releases the other
+    // one unread
+    const int g0u = t * per + ns;
+    wait_unit(g0u);
+    if (wg == 1) release(g0u);
+    wait_unit(g0u + 1);
+    if (wg == 0) release(g0u + 1);
+    clk.lap(6);
+    issue_dq(unit_at(g0u + wg));
+    wgmma_wait0();
+    fence_regs(acc);
+    hold_regs(da);
+    if constexpr (W::kF32) hold_regs(dlo);
+    clk.lap(4);
+    release(g0u + wg);
+    clk.lap(5);
+  }
+  clk.save(g_trace[2], wg, n_kv, wt == 0);
+
+  // dQ of rows row0 and row0 + 8, the group's columns below d
+  if (grp >= n_grp) return;
+  T* out = static_cast<T*>(p.g0) + grp * W::kG;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= p.sq) continue;
+    T* orow = out + ((size_t)bh * p.sq + row) * p.d;
+#pragma unroll
+    for (int j = 0; j < W::kG / 8; ++j)
+      if (grp * W::kG + 8 * j + 2 * t4 < p.d)  // d is even: a pair is stored whole or not at all
+        store2(orow + 8 * j + 2 * t4, acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
   }
 }
 
@@ -1096,6 +1427,37 @@ cudaError_t launch_wide_dkv(const void* q, const void* k, const void* v, const v
                   : launch_wide_dkv<T, 2>(q, k, v, dout, p0, rows, tile, smem, groups, stream);
 }
 
+template <typename T>
+cudaError_t launch_wide_dq(const void* q, const void* k, const void* v, const void* dout,
+                           const Params& p0, int rows, int tile, int smem, int groups,
+                           cudaStream_t stream) {
+  using W = WideDq<T>;
+  // 64 q rows a block; two stages at least: a slice's product is issued
+  // before the unit before it is released
+  const int n_ch = (p0.d * W::kEs + kRow - 1) / kRow;
+  if (tile != W::kN || groups != (p0.d + W::kG - 1) / W::kG || rows != 64 || p0.stages < 2 ||
+      p0.stages > kMaxStages || smem != W::smem(W::held(n_ch), n_ch, p0.stages) ||
+      smem > kSmemMax)
+    return cudaErrorInvalidValue;
+  const auto kernel = flash_bwd_dq_wide_kernel<T>;
+  static bool raised = false;  // once per instantiation, never inside a graph capture
+  if (!raised) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemMax);
+    if (err != cudaSuccess) return err;
+    raised = true;
+  }
+  CUtensorMap maps[4] = {};
+  if (!bwd_maps<T>(maps, q, k, v, dout, p0, rows, tile)) return cudaErrorInvalidValue;
+  Params p = p0;
+  p.rows = rows;
+  p.n_blocks = (p.sq + rows - 1) / rows;
+  const long long blocks = (long long)p.n_blocks * ((groups + 1) / 2) * p.bh;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  kernel<<<(unsigned)blocks, kThreads, smem, stream>>>(maps[0], maps[1], maps[2], maps[3], p);
+  return cudaGetLastError();
+}
+
 template <typename T, int D, bool kDq>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout, const Params& p0,
                    int rows, int tile, int smem, int groups, cudaStream_t stream) {
@@ -1128,8 +1490,10 @@ template <typename T, bool kDq>
 cudaError_t dispatch(const void* q, const void* k, const void* v, const void* dout,
                      const Params& p, int rows, int tile, int smem, int groups, cudaStream_t s) {
   const int dc = head_class(p.d);
-  if constexpr (!kDq) {  // above 256, and fp32 above 128: the wide mode
-    if (dc == 0 || (dc == 256 && !BwdTile<T, 256>::fits(false)))
+  if (dc == 0 || (dc == 256 && !BwdTile<T, 256>::fits(kDq))) {  // the wide modes
+    if constexpr (kDq)
+      return launch_wide_dq<T>(q, k, v, dout, p, rows, tile, smem, groups, s);
+    else
       return launch_wide_dkv<T>(q, k, v, dout, p, rows, tile, smem, groups, s);
   }
   switch (dc) {
@@ -1169,110 +1533,18 @@ int run(const void* q, const void* k, const void* v, const void* dout, const voi
   return static_cast<int>(err);
 }
 
-// The sliced dQ kernel (flash.cuh, namespace sliced): head dims above 256,
-// and above 128 in fp32, run by the host as d itself, on the CUDA cores.
-// One block per (batch*head, 64 q rows, group of 128 of dQ's columns), the
-// heaviest causal tiles first; the kv loop ends at the last live tile. S
-// and dP are summed over the slices of d (Q and K, then dO and V, staged in
-// turn); dS on the registers, rounded to the input type into shared memory;
-// then the group's columns of K are staged and dQ += dS K.
-template <typename T>
-__global__ void __launch_bounds__(sliced::kThreads)
-    flash_bwd_dq_sliced_kernel(const T* q, const T* k, const T* v, const T* dout,
-                               const float* lse, const float* delta, T* dq, sliced::Params p) {
-  using namespace sliced;
-  extern __shared__ float smem[];
-  float* a = smem;
-  float* b = a + kStage;
-  float* dss = b + kStage;  // dS, rounded to the input type
-  const Block blk(p, p.causal != 0);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const size_t qo = (size_t)blk.bh * p.sq * p.d, ko = (size_t)blk.bh * p.sk * p.d;
-  q += qo, dout += qo, dq += qo, k += ko, v += ko;
-  lse += (size_t)blk.bh * p.sq, delta += (size_t)blk.bh * p.sq;
-  const int q0 = blk.tile * kTile, c0 = blk.group * kCols;
-  int n_kv = (p.sk + kTile - 1) / kTile;
-  if (p.causal) {
-    const int hi = min(q0 + kTile, p.sq) - 1 + p.sk - p.sq;
-    n_kv = hi < 0 ? 0 : min(n_kv, hi / kTile + 1);
-  }
-  float row_lse[4], row_delta[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + 4 * ty + i;
-    row_lse[i] = row < p.sq ? lse[row] * kLog2e : 0.f;
-    row_delta[i] = row < p.sq ? delta[row] : 0.f;
-  }
-  float acc[4][8] = {};
-  for (int t = 0; t < n_kv; ++t) {
-    const int k0 = t * kTile;
-    float s[4][4] = {}, dp[4][4] = {};
-    for (int c = 0; c < p.d; c += kCols) {
-      __syncthreads();  // the last reads of a, b and dss are done
-      stage(a, q, q0, p.sq, c, p.d);
-      stage(b, k, k0, p.sk, c, p.d);
-      __syncthreads();
-      add_products(s, a, b);
-    }
-    for (int c = 0; c < p.d; c += kCols) {
-      __syncthreads();
-      stage(a, dout, q0, p.sq, c, p.d);
-      stage(b, v, k0, p.sk, c, p.d);
-      __syncthreads();
-      add_products(dp, a, b);
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + 4 * ty + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        const bool ok = row < p.sq && key < p.sk && (!p.causal || key <= row + p.sk - p.sq);
-        const float pij = ok ? exp2f(s[i][j] * p.scale_log2 - row_lse[i]) : 0.f;
-        dss[(4 * ty + i) * kLdP + tx + 16 * j] =
-            round_to<T>(pij * (dp[i][j] - row_delta[i]) * p.scale);
-      }
-    }
-    __syncthreads();  // every product is summed (b is free) and dS is whole
-    stage(b, k, k0, p.sk, c0, p.d);
-    __syncthreads();
-    add_group(acc, dss, b);
-  }
-  store_group(dq, acc, q0, p.sq, c0, p.d);
-}
-
-template <typename T>
-cudaError_t launch_sliced_dq(const void* q, const void* k, const void* v, const void* dout,
-                             const float* lse, const float* delta, void* dq, int bh, int sq, int sk,
-                             int d, int causal, float scale, int slices, int groups, int smem,
-                             cudaStream_t stream) {
-  long long blocks = 0;
-  cudaError_t err = sliced::check_plan(bh, sq, d, slices, groups, smem, &blocks);
-  if (err != cudaSuccess) return err;
-  const sliced::Params p{sq, sk, d, causal, groups, (sq + sliced::kTile - 1) / sliced::kTile, scale,
-                         scale * kLog2e};
-  const auto kernel = flash_bwd_dq_sliced_kernel<T>;
-  static bool raised = false;
-  err = sliced::allow_smem(kernel, smem, raised);
-  if (err != cudaSuccess) return err;
-  kernel<<<(unsigned)blocks, sliced::kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), p);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
 
 // q, dout, dq: contiguous (bh, sq, d); k, v: contiguous (bh, sk, d); all fp32
 // (is_bf16 = 0) or bf16 (is_bf16 = 1), 16-byte aligned, d >= 1 with rows of
-// whole 16-byte units (dQ: d <= 256, fp32 128; dK/dV above that in its wide
-// mode). lse, delta: contiguous (bh, sq)
-// fp32. The plan (_kernels.flash_bwd_plan, this kernel's part): rows (64 or
-// 128) a block, tile keys a stage, stages of the ring, smem the block's
-// dynamic shared memory in bytes, groups of the output's columns; a plan
-// this build would lay out otherwise is refused. Returns the launch's cudaError_t (0 = queued).
+// whole 16-byte units (above 256, and in fp32 above 128, the wide mode).
+// lse, delta: contiguous (bh, sq) fp32. The plan (_kernels.flash_bwd_plan,
+// this kernel's part): rows (64 or 128) a block, tile keys a stage, stages
+// of the ring, smem the block's dynamic shared memory in bytes, groups of
+// the output's columns; a plan this build would lay out otherwise is
+// refused. Returns the launch's cudaError_t (0 = queued).
 int dcnn_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int bh, int sq, int sk, int d,
                       int causal, float scale, int is_bf16, int rows, int tile, int stages,
@@ -1291,37 +1563,12 @@ int dcnn_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* 
                     rows, tile, stages, smem, groups, stream);
 }
 
-// The sliced dQ kernel (head dims above 256, and above 128 in fp32): the
-// tensors as above, any d >= 1 with rows of whole 16-byte units. The plan
-// (_kernels.flash_bwd_plan's dq part): slices and groups of 128 columns
-// covering d, smem the kernel's shared memory in bytes; any other plan is
-// refused. Returns the launch's cudaError_t (0 = queued).
-int dcnn_flash_bwd_dq_sliced(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* delta, void* dq, int bh, int sq, int sk,
-                             int d, int causal, float scale, int is_bf16, int slices, int groups,
-                             int smem, void* stream) {
-  const uintptr_t align = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                          reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
-                          reinterpret_cast<uintptr_t>(dq);
-  if (bh < 1 || sq < 1 || sk < 1 || d < 1 || d * (is_bf16 ? 2 : 4) % 16 || align % 16)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch_sliced_dq<__nv_bfloat16>(q, k, v, dout, l, dl, dq, bh, sq, sk, d, causal,
-                                                scale, slices, groups, smem, s)
-              : launch_sliced_dq<float>(q, k, v, dout, l, dl, dq, bh, sq, sk, d, causal, scale,
-                                        slices, groups, smem, s);
-  return static_cast<int>(err);
-}
-
 #ifdef FLASH_BWD_TRACE
 // the diagnostic build's clock counts (kernel x warpgroup x 8), zeroed after
 int dcnn_flash_bwd_trace(unsigned long long* host) {
   cudaError_t err = cudaMemcpyFromSymbol(host, g_trace, sizeof(g_trace));
   if (err == cudaSuccess) {
-    static unsigned long long zeros[2][2][8];
+    static unsigned long long zeros[4][2][8];
     err = cudaMemcpyToSymbol(g_trace, zeros, sizeof(g_trace));
   }
   return static_cast<int>(err);

@@ -21,7 +21,13 @@ Then the same for the backward's diagnostic build
 kernel (one streamed tile), waiting for the tile, issuing (S and dP; then
 dQ, or dV and dK), waiting for S and dP (``wait_sdp``), building P, dS and
 their A operands (``p_ds``), waiting for the accumulating products
-(``wait_acc``) and the release.
+(``wait_acc``) and the release. The wide modes (above D 256, and above 128
+in fp32; :data:`WIDE_CASES`, B2 H8 S2048 causal at D 512 bf16 and D 256
+fp32) per streamed tile: waiting for a slice (``wait_slice``), issuing the
+slices' products and draining them (``issue``), the exchange of S and dP
+(``exchange``), P and dS and their A operands (``p_ds``), the group's
+product (``group_product``), the releases, and waiting for the group units
+(``wait_group``).
 
 Exits 1 without a GPU.
 """
@@ -70,6 +76,12 @@ def stage_counts() -> None:
 
 BWD_NAMES = ("wait_tile", "issue", "wait_sdp", "p_ds", "wait_acc",
              "release")
+WIDE_NAMES = ("wait_slice", "issue", "exchange", "p_ds", "group_product",
+              "release", "wait_group")
+WIDE_CASES = [  # chip_smoke.py's d512 and d256 fp32 long-context cases
+    (2, 8, 2048, 2048, 512, True, "bfloat16"),
+    (2, 8, 2048, 2048, 256, True, "float32"),
+]
 
 
 def bwd_stage_counts() -> None:
@@ -80,10 +92,10 @@ def bwd_stage_counts() -> None:
 
     name = _kernels.FLASH_BWD_TRACE
     lib = _kernels.build(extra=(name,))[name]
-    counts = np.zeros((2, 2, 8), dtype=np.uint64)
+    counts = np.zeros((4, 2, 8), dtype=np.uint64)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for b, h, sq, sk, d, causal, dtn in CASES + [(32, 4, 32, 32, 16, False,
-                                                  "float32")]:
+                                                  "float32")] + WIDE_CASES:
         dt = getattr(torch, dtn)
         q, k, v, g = (torch.randn(b, h, s, d, device="cuda",
                                   generator=gen).to(dt) for s in (sq, sk, sk, sq))
@@ -100,13 +112,17 @@ def bwd_stage_counts() -> None:
                 torch.cuda.synchronize()
             lib.dcnn_flash_bwd_trace(counts.ctypes.data)
             part = plan.dq if kern == 0 else plan.dkv
-            for wg in range(part.rows // 64):
-                c = counts[kern, wg].astype(np.float64)
+            # the wide modes count in slots 2 (dQ) and 3 (dK/dV), both
+            # warpgroups of a 64-row block
+            wide = part.slices > 0
+            names = WIDE_NAMES if wide else BWD_NAMES
+            for wg in range(2 if wide else part.rows // 64):
+                c = counts[kern + 2 * wide, wg].astype(np.float64)
                 passes = max(c[7], 1.0)
                 print(f"{fn} B={b} H={h} Sq={sq} Sk={sk} D={d} causal={causal}"
                       f" {dtn} [{part}] warpgroup {wg}: cycles per live pass "
                       + ", ".join(f"{n}={x / passes:.0f}"
-                                  for n, x in zip(BWD_NAMES, c))
+                                  for n, x in zip(names, c))
                       + f" over {passes:.0f} passes", flush=True)
 
 

@@ -339,16 +339,16 @@ def test_flash_head_dims_above_128(causal, sq, sk, d, dtype):
     columns in two groups; fp32 in serial passes of 16-key tiles)
     and both backward kernels in bf16 (dK/dV in two column groups), against
     the plain versions. The fp32 backward, whose fixed operands as tf32 hi
-    and lo need more than a block's shared memory, runs the sliced dQ
-    kernel (two slices of 128 columns) and the dK/dV kernel's wide mode
-    (slices of one or two 32-column chunks, two groups of 128 columns)."""
+    and lo need more than a block's shared memory, runs both kernels' wide
+    modes (dQ in slices of one 32-column chunk, dK/dV of one or two; two
+    groups of 128 columns)."""
     _flash_check(causal, sq, sk, d, dtype, b=1, h=2)
     if dtype == torch.float32:
         plan = _kernels.flash_bwd_plan(sq, sk, d, dtype)
         chunks = -(-d * 4 // 128)
-        assert (plan.dq.slices, plan.dkv.slices) == (
-            2, chunks // (1 if chunks % 2 else 2))
-        assert plan.dkv.groups == 2
+        slices = chunks // (1 if chunks % 2 else 2)
+        assert (plan.dq.slices, plan.dkv.slices) == (chunks, slices)
+        assert plan.dq.groups == plan.dkv.groups == 2
     _backward_check(causal, sq, sk, d, dtype, b=1, h=2)
 
 
@@ -425,8 +425,8 @@ def test_kernels_take_more_than_65535_heads_at_d256():
 def test_head_dims_above_256_raise():
     """D 257 (padded to 264 in bf16) through ``flash_attention`` and 264
     straight to the kernel are no longer refused: both run the wide
-    forward (5 slices of one 64-column chunk, 2 groups of 256), the sliced dQ and
-    the wide dK/dV, one counted launch each, against the plain versions;
+    forward (5 slices of one 64-column chunk, 2 groups of 256), the wide dQ
+    and dK/dV, one counted launch each, against the plain versions;
     only a grid of 2^31 blocks or more is refused, naming it."""
     rng = np.random.default_rng(23)
     q = torch.from_numpy(rng.normal(size=(1, 2, 40, 257)).astype(
@@ -452,10 +452,10 @@ def test_head_dims_above_256_raise():
     (True, 300, 100),    # sq > sk: fully masked rows
 ])
 def test_flash_head_dims_above_256(causal, sq, sk, d, dtype):
-    """D 320, 512 and 1000 run the forward's and the dK/dV kernel's wide
-    modes on wgmma (S and dP summed over slices streamed through the ring,
-    the outputs in column groups) and the sliced dQ kernel: forward and
-    both backward kernels against the plain versions."""
+    """D 320, 512 and 1000 run every kernel's wide mode on wgmma (S and dP
+    summed over slices streamed through the ring, the outputs in column
+    groups): forward and both backward kernels against the plain
+    versions."""
     _flash_check(causal, sq, sk, d, dtype, b=1, h=2)
     _backward_check(causal, sq, sk, d, dtype, b=1, h=2)
 
@@ -465,20 +465,23 @@ def test_flash_head_dims_above_256(causal, sq, sk, d, dtype):
     (320, torch.bfloat16, 3), (512, torch.float32, 4),
     (1000, torch.bfloat16, 8)])
 def test_sliced_plans_as_launched(d, dtype, n):
-    """The mixed plans the kernels take, each launch counted once: the
-    sliced dQ in n slices and n groups of 128 columns, 64-row tiles, one
-    stage; the dK/dV kernel's wide mode in n groups of 128 columns, a slice
-    for each two 128-byte chunks of D (each one where their count is odd),
-    64-key blocks, q tiles of 16 (fp32) or 32 (bf16) rows, two stages or
-    more (the fp32 backward at D 192 and 256); the forward's wide mode only
-    above 256, in groups of 256 columns and the same slices."""
+    """The plans the sliced dQ kernel once ran, now the wide modes, as the
+    kernels take them, each launch counted once: the dQ
+    kernel's wide mode in n groups of 128 columns, 64-row blocks, kv tiles
+    of 32 (fp32) or 64 (bf16) keys, a slice for each 128-byte chunk of D;
+    the dK/dV kernel's in n groups, 64-key blocks, q tiles of 16 (fp32) or
+    32 (bf16) rows, a slice for each two chunks (each one where their count
+    is odd); both with two stages or more (the fp32 backward at D 192 and
+    256 too); the forward's wide mode only above 256, in groups of 256
+    columns and the dK/dV kernel's slices."""
     fwd, bwd = (_kernels.flash_plan(300, 200, d, dtype),
                 _kernels.flash_bwd_plan(300, 200, d, dtype))
     es = 4 if dtype == torch.float32 else 2
     chunks = -(-d * es // 128)
     slices = chunks // (1 if chunks % 2 else 2)
-    assert (bwd.dq.slices, bwd.dq.groups, bwd.dkv.groups) == (n, n, n)
-    assert (bwd.dq.rows, bwd.dq.tile, bwd.dq.stages) == (64, 64, 1)
+    assert (bwd.dq.slices, bwd.dq.groups, bwd.dkv.groups) == (chunks, n, n)
+    assert (bwd.dq.rows, bwd.dq.tile) == (64, 32 if es == 4 else 64)
+    assert bwd.dq.stages >= 2
     assert bwd.dkv.slices == slices and bwd.dkv.rows == 64
     assert bwd.dkv.tile == (16 if es == 4 else 32) and bwd.dkv.stages >= 2
     assert fwd.slices == (slices if d > 256 else 0)

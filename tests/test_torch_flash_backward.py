@@ -64,7 +64,7 @@ def _torch(a, dtype=torch.float32):
 
 
 # 8 and 48: between the classes; 192 and 256: class 256; 320 and 512: the
-# kernels' wide modes (and the sliced dQ)
+# kernels' wide modes
 @pytest.mark.parametrize("d", [8, 16, 48, 64, 192, 256, 320, 512])
 @pytest.mark.parametrize("causal,sq,sk", [
     (True, 40, 40),    # ragged: 40 is not a multiple of the 16-row tile

@@ -106,7 +106,7 @@ def test_every_head_dim_is_padded_to_whole_chunks(dtype):
     in fp32 (classes 16 and 32 fill one chunk); the accumulators span the
     chunks; the op pads D to whole 16-byte units first (TMA's row rule);
     the forward's plan agrees on the chunks. Above 256 a head dim runs as
-    the next multiple of 128, the sliced kernels' slices."""
+    the next multiple of 128, the wide backward kernels' column groups."""
     es = 2 if dtype == torch.bfloat16 else 4
     for d in HEAD_DIMS:
         dc = _kernels.flash_head_class(d)
@@ -215,27 +215,76 @@ def _wide_dkv_smem(es, d, stages):
     return total(held, stages), held
 
 
+def _wide_dq_smem(es, d, stages):
+    """flash_bwd.cu ``WideDq`` spelled out: 1024 bytes of alignment slack;
+    Q and dO of 64 q rows held where two stages fit beside them (bf16
+    only); per stage a slice (K's and V's kv-tile rows of one 128-byte
+    chunk, after Q's and dO's 64 rows where those stream; fp32: their tf32
+    lo) or a group unit (K's 128
+    group columns; fp32: then K_g^T as tf32 hi and lo, a 128-byte row per
+    column for each 32 keys), whichever is larger; the exchanged S and dP
+    fragments; 256 bytes of barriers. kv tiles of 64 keys in bf16, 32 in
+    fp32. Returns (smem, held)."""
+    f32 = es == 4
+    tile, row = (32 if f32 else 64), _kernels.ROW_BYTES
+    chunks = -(-d * es // row)
+    group = (128 * es // row) * tile * row + (2 * 128 * row if f32 else 0)
+
+    def total(held, n):
+        unit = (2 if f32 else 1) * 2 * (tile + (0 if held else 64)) * row
+        return (1024 + (2 * chunks * 64 * row if held else 0)
+                + n * max(unit, group) + 2 * 64 * tile * 4 + 256)
+
+    held = not f32 and total(True, 2) <= _kernels.SMEM_MAX
+    return total(held, stages), held
+
+
+def _check_wide_dq(plan, es, d):
+    """The wide dQ plan against its spelled-out layout: 64-row blocks, kv
+    tiles of 64 keys (bf16) or 32 (fp32), a slice for every chunk, shared
+    memory as ``WideDq`` lays it out and within a block's,
+    two stages or more and as many as fit up to FLASH_MAX_STAGES, the
+    registers (dQ's 64 x 128 fp32 group, the slice product, S and dP after
+    the exchange, dS as A operand) within FLASH_BWD_REG_BUDGET, and groups
+    of 128 columns covering d once. Returns whether Q and dO are held."""
+    dq = plan.dq
+    chunks = -(-d * es // 128)
+    assert (dq.rows, dq.tile) == (64, 32 if es == 4 else 64)
+    assert dq.slices == chunks
+    smem, held = _wide_dq_smem(es, d, dq.stages)
+    assert dq.smem == smem <= _kernels.SMEM_MAX
+    assert 2 <= dq.stages <= _kernels.FLASH_MAX_STAGES
+    assert (dq.stages == _kernels.FLASH_MAX_STAGES
+            or _wide_dq_smem(es, d, dq.stages + 1)[0] > _kernels.SMEM_MAX)
+    acc = 64 * 128 // 128  # dQ's group: 64 x 128 fp32, 128 threads
+    frag = 64 * dq.tile // 128  # S or dP of a kv tile
+    ops = dq.tile if es == 4 else dq.tile // 4  # dS (tf32 hi and lo)
+    assert dq.regs == acc + 3 * frag + ops <= _kernels.FLASH_BWD_REG_BUDGET
+    covered = sorted(c for g in range(dq.groups)
+                     for c in range(g * 128, min(g * 128 + 128, d)))
+    assert covered == list(range(d)) and dq.groups * 128 - d < 128
+    return held
+
+
 @pytest.mark.parametrize("d", [136, 256])
 def test_fp32_bwd_above_class_128_is_refused(d):
     """fp32 at class 256: the wgmma kernels' fixed operands alone (Q and
     dO, or K and V, as tf32 hi and lo over 64 rows) fill 256 KB, above a
-    block's shared memory, so that layout is refused and the plan is
-    mixed: dQ runs the sliced kernel (S and dP summed over two slices of
-    128 columns, dQ in two groups, 64-row blocks and tiles, one stage), the
-    dK/dV kernel its wide mode (64-key blocks, 16-row q tiles, two groups
-    of 128 columns, K and V streamed with every slice)."""
+    block's shared memory, so that layout is refused and both kernels run
+    their wide modes: dQ in 64-row blocks, 32-key tiles and two groups of
+    128 columns, Q and dO streamed with every slice; dK/dV in 64-key
+    blocks, 16-row q tiles and two groups, K and V streamed with every
+    slice."""
     lay = _kernels._BwdLayout(256, 4)
     assert lay.smem(True, 64, 16, 0) - 1024 - 256 == 4 * 64 * 1024
     plan = _kernels.flash_bwd_plan(100, 100, d, torch.float32)
     assert (plan.chunks, plan.padded) == (8, 256)
     dq, dkv = plan.dq, plan.dkv
-    assert (dq.rows, dq.tile, dq.stages, dq.groups, dq.slices) == (
-        64, 64, 1, 2, 2)
-    assert dq.smem == _kernels.flash_sliced_smem() <= _kernels.SMEM_MAX
-    assert dq.regs == _kernels.flash_sliced_regs()
+    assert dq.groups == 2 and not _check_wide_dq(plan, 4, d)
     chunks = -(-d * 4 // 128)
     assert (dkv.rows, dkv.tile, dkv.groups) == (64, 16, 2)
     assert dkv.slices == chunks // (1 if chunks % 2 else 2)
+    assert dq.slices == chunks
     assert dkv.smem == _wide_dkv_smem(4, d, dkv.stages)[0] <= _kernels.SMEM_MAX
     assert not _wide_dkv_smem(4, d, dkv.stages)[1]
 
@@ -268,25 +317,24 @@ def test_op_copies_only_what_the_kernels_cannot_take():
     (512, torch.bfloat16, 4), (1000, torch.float32, 8),
     (1000, torch.bfloat16, 8)])
 def test_sliced_plans_fit_and_give_their_counts(d, dtype, n):
-    """The mixed plans (the fp32 backward at D 192; every kernel above
-    256): the class is the next multiple of 128; the sliced dQ's n slices
-    and n groups of 128 columns cover D once, 64-row blocks and tiles in
-    one stage, its shared memory (two staged 64 x 128 fp32 tiles and dS)
-    within a block's; the dK/dV kernel's wide mode in n groups of 128
-    columns, a slice for every one or two chunks, two stages or more, its
+    """The plans the sliced dQ kernel once ran, now the wide modes (the
+    fp32 backward at D 192; every kernel above 256): the class is the next multiple of 128; the dQ kernel's wide mode
+    in n groups of 128 columns covering D once, 64-row blocks, a slice for
+    every chunk, two stages or more, its shared memory and
+    registers as its layout spells them; the dK/dV kernel's wide mode in n
+    groups of 128 columns and a slice for every one or two chunks, two
+    stages or more, its
     registers within the budget; the forward keeps its wgmma plan at D <=
     256 and takes its wide mode above."""
     dc = _kernels.flash_head_class(d)
-    assert dc == n * _kernels.FLASH_SLICE and dc - 128 < d <= dc
+    assert dc == n * _kernels.FLASH_GROUP and dc - 128 < d <= dc
     es = 4 if dtype == torch.float32 else 2
     bwd = _kernels.flash_bwd_plan(300, 200, d, dtype)
     assert bwd.padded == dc
-    assert (bwd.dq.rows, bwd.dq.tile, bwd.dq.stages, bwd.dq.groups,
-            bwd.dq.slices) == (64, 64, 1, n, n)
-    assert bwd.dq.smem == _kernels.flash_sliced_smem() <= _kernels.SMEM_MAX
-    assert bwd.dq.regs <= _kernels.FLASH_BWD_REG_BUDGET
-    assert _kernels.flash_sliced_smem() == 4 * (2 * 64 * 129 + 64 * 65)
+    assert bwd.dq.groups == n
+    _check_wide_dq(bwd, es, d)
     chunks = -(-d * es // 128)
+    assert bwd.dq.slices == chunks
     assert bwd.dkv.groups == n and bwd.dkv.rows == 64
     assert bwd.dkv.slices == chunks // (1 if chunks % 2 else 2)
     assert 2 <= bwd.dkv.stages <= _kernels.FLASH_MAX_STAGES
@@ -313,14 +361,14 @@ def test_wide_dkv_plans_fit_the_card(dtype, d, sq, sk):
     64 x 128 fp32 accumulators, S^T and dP^T of a q tile, P^T and dS^T as
     A operands) within FLASH_BWD_REG_BUDGET, K and V held for the block
     exactly where two stages fit beside them (bf16 at D 320 and 512, not
-    at 1000, never in fp32); the dQ part stays the sliced kernel's."""
+    at 1000, never in fp32); the dQ part is the dQ kernel's wide mode."""
     es = 4 if dtype == torch.float32 else 2
     plan = _kernels.flash_bwd_plan(sq, sk, d, dtype)
     if d <= 256 and dtype == torch.bfloat16:
         assert (plan.dq.slices, plan.dkv.slices) == (0, 0)
         return
     dq, dkv = plan.dq, plan.dkv
-    assert dq.slices == -(-d // 128) and dq.stages == 1  # still sliced
+    assert dq.slices > 0 and dq.groups == dkv.groups  # wide
     assert dkv.slices > 0 and (dkv.rows, dkv.tile) == (64, 16 if es == 4
                                                         else 32)
     smem, held = _wide_dkv_smem(es, d, dkv.stages)
@@ -334,6 +382,107 @@ def test_wide_dkv_plans_fit_the_card(dtype, d, sq, sk):
     ops = 2 * dkv.tile if es == 4 else dkv.tile // 2  # P^T, dS^T (tf32 hi, lo)
     assert dkv.regs == acc + frag + ops <= _kernels.FLASH_BWD_REG_BUDGET
     assert dkv.groups == -(-d // 128)
+
+
+@pytest.mark.parametrize("d", [192, 256, 320, 512, 1000])
+@pytest.mark.parametrize("dtype", _kernels.FLASH_DTYPES, ids=["fp32", "bf16"])
+@pytest.mark.parametrize("sq,sk", [(2048, 2048), (300, 200), (40, 56)],
+                         ids=str)
+def test_wide_dq_plans_fit_the_card(dtype, d, sq, sk):
+    """The dQ kernel's wide mode where it runs (every D above 256, and fp32
+    above 128; bf16 at 192 and 256 keeps the class-256 kernel): shared
+    memory as its layout spells it and within a block's, two stages or
+    more and as many as fit up to FLASH_MAX_STAGES, registers within
+    FLASH_BWD_REG_BUDGET, groups of 128 columns covering d once, Q and dO
+    held for the block exactly where two stages fit beside them (bf16 at
+    D 320 and 512, not at 1000, never in fp32); the plan does not depend
+    on the sequence lengths."""
+    es = 4 if dtype == torch.float32 else 2
+    plan = _kernels.flash_bwd_plan(sq, sk, d, dtype)
+    if d <= 256 and dtype == torch.bfloat16:
+        assert plan.dq.slices == 0 and plan.dq.tile == 32
+        return
+    held = _check_wide_dq(plan, es, d)
+    assert held == (es == 2 and d in (320, 512))
+    assert plan.dq == _kernels.flash_bwd_plan(64, 64, d, dtype).dq
+
+
+def _wide_dq_walk(q, k, v, o, lse, g, causal, scale, plan):
+    """dQ as the wide dQ kernel computes it, walked in torch on the CPU from
+    its plan: per 64-row q block the kv tiles of ``plan.dq.tile`` keys that
+    ``plan.kv_tiles`` names; S and dP summed slice by slice over
+    ``plan.dq.slices`` slices of d; P masked before the exponential; dS
+    rounded to the input type per tile; dQ summed in fp32 in groups of 128
+    columns and written once in the input type."""
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    es = q.element_size()
+    width = -(-d * es // 128) // plan.dq.slices * (128 // es)  # a slice
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    delta = (gf * o.float()).sum(-1)
+    rows, tile = plan.dq.rows, plan.dq.tile
+    dq = torch.zeros(b, h, sq, d)
+    for qb in range(-(-sq // rows)):
+        r0, r1 = qb * rows, min(qb * rows + rows, sq)
+        for t in plan.kv_tiles(qb, sq, sk, causal):
+            k0, k1 = t * tile, min(t * tile + tile, sk)
+            s = torch.zeros(b, h, r1 - r0, k1 - k0)
+            dp = torch.zeros_like(s)
+            for c in range(plan.dq.slices):
+                cols = slice(c * width, min(c * width + width, d))
+                s += qf[..., r0:r1, cols] @ kf[..., k0:k1, cols].transpose(-1, -2)
+                dp += gf[..., r0:r1, cols] @ vf[..., k0:k1, cols].transpose(-1, -2)
+            s = s * scale - lse[..., r0:r1, None].float()
+            if causal:
+                allowed = (torch.arange(k0, k1)[None, :]
+                           <= torch.arange(r0, r1)[:, None] + sk - sq)
+                s = s.masked_fill(~allowed, -float("inf"))
+            ds = (torch.exp(s) * (dp - delta[..., r0:r1, None]) * scale
+                  ).to(q.dtype).float()
+            for grp in range(plan.dq.groups):
+                cols = slice(grp * 128, min(grp * 128 + 128, d))
+                dq[..., r0:r1, cols] += ds @ kf[..., k0:k1, cols]
+    return dq.to(q.dtype)
+
+
+# the band edge of each type's kv tiles: the first q block's last row (63)
+# sees exactly the first key of the third kv tile (offset sk - sq = tile + 1)
+@pytest.mark.parametrize("d,dtype,sq,sk", [
+    (320, torch.bfloat16, 100, 165), (192, torch.float32, 100, 133)],
+    ids=["d320-bf16", "d192-fp32"])
+def test_wide_dq_walk_matches_pallas_interpret(d, dtype, sq, sk):
+    """The wide dQ plan walked in torch on the CPU (slices, kv tiles,
+    groups) against the JAX package's ``_flash_backward`` dQ with its Pallas
+    kernels in interpret mode, causal at the band edge of the plan's kv
+    tiles; tolerances as tests/test_torch_flash_backward.py states them
+    (fp32 1e-5: the same algorithm summed in another order; bf16 1e-2:
+    both round dS and dQ to bf16)."""
+    import jax.numpy as jnp
+
+    plan = _kernels.flash_bwd_plan(sq, sk, d, dtype)
+    assert plan.dq.slices and sk - sq == plan.dq.tile + 1
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float32
+    rng = np.random.default_rng(d + sq + sk)
+    q, k, v, g = (jnp.asarray(rng.normal(size=(1, 2, s, d)).astype(
+        np.float32)).astype(jdt) for s in (sq, sk, sk, sq))
+    scale = d ** -0.5
+    o, lse = jax_attn._flash_forward(q, k, v, causal=True, block_q=16,
+                                     block_kv=16, scale=scale, interpret=True)
+    want = jax_attn._flash_backward(q, k, v, o, lse, g, causal=True,
+                                    block_q=16, block_kv=16, scale=scale,
+                                    interpret=True)[0]
+
+    def t(a):
+        return torch.from_numpy(np.array(jnp.asarray(a).astype(jnp.float32))
+                                ).to(dtype)
+
+    lse = torch.from_numpy(np.array(lse[..., :sq], dtype=np.float32))
+    got = _wide_dq_walk(t(q), t(k), t(v), t(o), lse, t(g), True, scale, plan)
+    assert got.dtype == dtype
+    tol = (dict(atol=1e-2, rtol=1e-2) if dtype == torch.bfloat16
+           else dict(atol=1e-5, rtol=1e-5))
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want.astype(jnp.float32)), **tol)
 
 
 def test_grid_overflow_is_refused_naming_it():

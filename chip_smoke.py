@@ -86,8 +86,10 @@ Phases, each fatal on failure:
    inside it waiting for the card, resident against the per-step loop,
    ``Trainer.fit`` over a resident split (resident eval equal to the host
    eval), the chunked path through ``PrefetchLoader(stage_batches=4,
-   feed_workers=2)`` (and ``mha_classifier`` chunked, the flash kernels
-   counted there), streaming shards bit-identical to ``serial_shards``
+   feed_workers=2)`` held to the per-step path with cuDNN deterministic
+   (bit-equal, else its rel, printed; and ``mha_classifier`` chunked, the
+   flash kernels counted there), the full-split resident epoch again with
+   the tracer on and still nothing waiting for the card, streaming shards bit-identical to ``serial_shards``
    through the transfer engine and a 2-process worker pool, and per feed
    the warm samples/s, the card's busy share, launches and copies per step
    and host-to-device bytes per step, with the card's name and power
@@ -120,10 +122,23 @@ Phases, each fatal on failure:
    ``decode_reference`` on the card and on the CPU (a divergence prints
    the logit margin), a page-starved engine that must preempt and still
    match; tokens/s, TTFT p50/p99, slot occupancy, the pool's pages and
-   bytes and each lattice point's step time.
+   bytes and each lattice point's step time;
+14. obs: the observability core (``phase_obs``): ``mha_classifier``
+   trained with the tracer on, ``profiler=NORMAL``, ``flight_dir`` and
+   ``debug=True`` (bit-equal to the plain run, the flash kernels
+   launched, the LayerProfiler table, the JAX trainer's span names, a NaN
+   batch writing one ``nonfinite_guard`` bundle and raising under debug
+   mode); int8 ``resnet18_tiny_imagenet`` behind
+   ``DynamicBatcher.start_telemetry`` scraped over HTTP while it serves
+   (``conv_int8_fused`` launched, the card's memory gauges, ``/healthz``
+   503 after drain, logits equal to the untraced engine's); decode with the
+   tracer on (a ``decode.step`` span a step); the tracer's cost on the mha
+   train step and the int8 B=32 batch; the LayerProfiler table of one
+   ResNet-18 NCHW fp32 B=32 profiled step.
 
 Then it prints ``{"kernels": [...]}`` (rows 1-8, row 8 ``conv_int8_fused``
-with mode A ``conv_int8`` inside it) on
+with mode A ``conv_int8`` inside it; each row's ``launches_by_path`` has
+the obs phase's launches under ``"obs"`` where it launches the row) on
 a line of its own and, last,
 ``{"ok": true, "device": {...}}``. Times come from CUDA events around CUDA
 graph replays of many calls, so host overhead is not in them.
@@ -2105,7 +2120,9 @@ def phase_train_feed(card):
       and 400,000 bytes of int32 labels staged through reused pinned
       buffers (the staging wall printed); a resident epoch of 32 steps,
       warm, with nothing inside it waiting for the card
-      (``torch.cuda.set_sync_debug_mode("error")``), its samples/s;
+      (``torch.cuda.set_sync_debug_mode("error")``), its samples/s; the
+      same epoch again with the tracer on, inside a
+      ``train.resident_epoch`` span, still under that mode;
     - resident against the per-step loop: 4 steps over one batch order,
       augmentation off, cuDNN deterministic: bit-equal, else at the train
       cnn phase's loss tolerance (the printout says which);
@@ -2113,9 +2130,10 @@ def phase_train_feed(card):
       256 val samples, 2 epochs: a finite history with the JAX keys, train
       accuracy NaN; resident eval equal to the host eval of the same split;
     - chunked: ``PrefetchLoader(stage_batches=4, feed_workers=2)`` with
-      ``steps_per_dispatch=4`` over 512 samples against
-      ``PrefetchLoader(depth=2)`` per step from the same weights (losses at
-      the train cnn tolerance); ``mha_classifier`` on the marker task
+      ``steps_per_dispatch=4`` over 512 samples, timed; then again against
+      ``PrefetchLoader(depth=2)`` per step from the same weights, both
+      with cuDNN deterministic (bit-equal, else its rel, printed; gated at
+      the train cnn tolerance), beside the timed runs' rel; ``mha_classifier`` on the marker task
       through ``PrefetchLoader(stage_batches=4)``, ``steps_per_dispatch=4``,
       the flash kernels counted over that run, its losses against the
       per-step run's;
@@ -2226,8 +2244,8 @@ def phase_train_feed(card):
     feeds["prefetch"] = {"samples_per_s": warm_sps(plain),
                          "h2d_bytes_per_step": batch_h2d}
     mark("host and prefetch")
-    # chunked through a 2-process pool against the per-step run; one more
-    # epoch through the same loader (its workers up) is the profiled window
+    # chunked through a 2-process pool; one more epoch through the same
+    # loader (its workers up) is the profiled window
     with PrefetchLoader(loader(), depth=2, stage_batches=FEED_CHUNK,
                         feed_workers=2) as pf:
         chunked, ts_c, _ = fit(pf, spd=FEED_CHUNK)
@@ -2235,18 +2253,51 @@ def phase_train_feed(card):
         chunk_profile = profiled(fit_few(pf, FEED_CHUNK),
                                  FEED_TRAIN // FEED_BATCH)
     mark("chunked")
-    chunk_rel = max(abs(a["train_loss"] - b["train_loss"])
-                    / abs(b["train_loss"])
-                    for a, b in zip(chunked.history, plain.history))
-    if not (finite(chunked.history) and chunk_rel <= CNN_LOSS_RTOL
-            and ts_c.step == 2 * FEED_TRAIN // FEED_BATCH
+
+    def rel_losses(a, b):
+        return max(abs(p["train_loss"] - q["train_loss"])
+                   / abs(q["train_loss"])
+                   for p, q in zip(a.history, b.history))
+
+    # the timed runs above leave cuDNN free to pick non-deterministic
+    # algorithms (atomics in the conv backward), so their losses part by
+    # rounding that 32 steps amplify; the chunked step is held to the
+    # per-step one with cuDNN deterministic, both runs again
+    nondet_rel = rel_losses(chunked, plain)
+    torch.backends.cudnn.deterministic = True
+    try:
+        with PrefetchLoader(loader(), depth=2) as pf:
+            det_plain, _, m_plain = fit(pf)
+        with PrefetchLoader(loader(), depth=2, stage_batches=FEED_CHUNK,
+                            feed_workers=2) as pf:
+            det_chunk, ts_d, m_chunk = fit(pf, spd=FEED_CHUNK)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    chunk_rel = rel_losses(det_chunk, det_plain)
+    # params and running statistics; the reported losses are summed in
+    # fp32 a chunk and in double a step, so they differ in the last bits
+    chunk_bit_equal = all(torch.equal(a, b) for a, b in zip(
+        m_chunk.state_dict().values(), m_plain.state_dict().values()))
+    del m_plain, m_chunk
+    print(f"train feed: chunked vs per-step ResNet-18 with cuDNN "
+          f"deterministic: params and running statistics "
+          + ("bit-equal" if chunk_bit_equal else "differ")
+          + f", losses rel {chunk_rel:.3e} "
+          f"({[h['train_loss'] for h in det_chunk.history]} vs "
+          f"{[h['train_loss'] for h in det_plain.history]}); the timed "
+          f"runs, cuDNN free: rel {nondet_rel:.3e}", flush=True)
+    mark("chunked vs per-step")
+    if not (finite(chunked.history) and finite(det_chunk.history)
+            and chunk_rel <= CNN_LOSS_RTOL
+            and ts_c.step == ts_d.step == 2 * FEED_TRAIN // FEED_BATCH
             and workers_alive == 2
             and math.isnan(chunked.history[0]["train_acc"])):
         fail(f"train feed: chunked ResNet-18 losses "
-             f"{[h['train_loss'] for h in chunked.history]} vs per-step "
-             f"{[h['train_loss'] for h in plain.history]} (rel "
-             f"{chunk_rel:.3e}, tol {CNN_LOSS_RTOL:g}), {ts_c.step} steps, "
-             f"{workers_alive} workers alive")
+             f"{[h['train_loss'] for h in det_chunk.history]} vs per-step "
+             f"{[h['train_loss'] for h in det_plain.history]} with cuDNN "
+             f"deterministic (rel {chunk_rel:.3e}, tol {CNN_LOSS_RTOL:g}), "
+             f"{ts_c.step} and {ts_d.step} steps, {workers_alive} workers "
+             f"alive")
     feeds["chunked"] = {"samples_per_s": warm_sps(chunked),
                         "h2d_bytes_per_step": batch_h2d,
                         "profile": chunk_profile}
@@ -2339,6 +2390,26 @@ def phase_train_feed(card):
     if not math.isfinite(mean) or ts.step != FEED_RESIDENT_STEPS + 2:
         fail(f"train feed: full-split resident epoch mean loss {mean}, "
              f"{ts.step} steps")
+    # the same epoch again with the tracer on, inside the trainer's span:
+    # the span adds no synchronisation (the obs phase reports it)
+    from dcnn_tpu_torch.obs import configure
+
+    tracer = configure(enabled=True)
+    tracer.clear()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with tracer.span("train.resident_epoch", track="train", epoch=3):
+            ts, traced_mean = epoch(ts, big.x, big.y, 3,
+                                    np.asarray(lrs, np.float32))
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+        configure(enabled=False)
+    traced = {"mean_loss": float(traced_mean), "spans": tracer.span_counts()}
+    tracer.clear()
+    if not (math.isfinite(traced["mean_loss"])
+            and traced["spans"] == {"train.resident_epoch": 1}):
+        fail(f"train feed: traced resident epoch {traced}")
     feeds["resident"]["samples_per_s"] = (FEED_RESIDENT_STEPS * FEED_BATCH
                                           / resident_s)
     feeds["resident"]["profile"] = profiled(
@@ -2480,15 +2551,18 @@ def phase_train_feed(card):
           f"of {FEED_RESIDENT_STEPS} steps {resident_s:.3f} s, no host sync "
           f"inside; resident vs per-step loop over 4 steps: "
           f"{'bit-equal' if bit_equal else f'rel {loop_rel:.3e}'}; resident "
-          f"eval == host eval {ev_res}; chunked ResNet-18 vs per-step rel "
-          f"{chunk_rel:.3e}; chunked mha_classifier vs per-step rel "
+          f"eval == host eval {ev_res}; chunked ResNet-18 vs per-step "
+          f"(cuDNN deterministic) params "
+          f"{'bit-equal' if chunk_bit_equal else 'differ'}, losses rel "
+          f"{chunk_rel:.3e}; "
+          f"chunked mha_classifier vs per-step rel "
           f"{mha_rel:.3e}, launches {counts}; streaming shards bit-identical "
           f"to serial_shards through the engine and a 2-process pool; phase "
           f"wall {time.perf_counter() - t_phase:.1f} s (by part: {parts}) on "
           f"{card}", flush=True)
     print("train feed: " + json.dumps({"card": card, "feeds": feeds}),
           flush=True)
-    return {"launches": counts, "feeds": feeds}
+    return {"launches": counts, "feeds": feeds, "traced_resident": traced}
 
 
 # serve int8 phase: full-width resnet18_tiny_imagenet (NHWC) and
@@ -2762,7 +2836,9 @@ def phase_serve_int8(card):
                                         max_batch=32, device="cuda")
     answers, snap, warm = serve_open_loop(engine, pool, "resnet18")
     counts = launches()  # and ends here
-    dispatched = len(engine.bucket_sizes) + warm + snap["batches"]
+    # each bucket runs twice at construction (the FLOP-counted first call,
+    # then the warm-up), once on the dispatcher, then the served batches
+    dispatched = 2 * len(engine.bucket_sizes) + warm + snap["batches"]
     if (counts["conv_int8_fused"] != INT8_CONVS * dispatched
             or counts["conv_int8"]):
         fail(f"serve int8: conv_int8_fused launched "
@@ -2803,7 +2879,8 @@ def phase_serve_int8(card):
           f"{snap['p99_ms']} ms, throughput {snap['throughput_rps']} "
           f"samples/s; conv_int8_fused launches "
           f"{counts['conv_int8_fused']} = {INT8_CONVS} x {dispatched} "
-          f"batches ({len(engine.bucket_sizes)} engine warm-up, {warm} "
+          f"batches (2 x {len(engine.bucket_sizes)} engine first call and "
+          f"warm-up, {warm} "
           f"dispatcher warm-up, {snap['batches']} served), K-split reduces "
           f"{counts['conv_int8_reduce']} "
           f"({(counts['conv_int8_fused'] + counts['conv_int8_reduce']) / dispatched:.2f}"
@@ -2943,7 +3020,7 @@ def phase_serve_int8_mha(card):
                                         max_batch=32, device="cuda")
     answers, snap, warm = serve_open_loop(engine, pool, "mha_classifier")
     counts = launches()  # and ends here
-    dispatched = len(engine.bucket_sizes) + warm + snap["batches"]
+    dispatched = 2 * len(engine.bucket_sizes) + warm + snap["batches"]
     if (counts["flash_fwd"] != 2 * dispatched or counts["conv_int8"]
             or counts["conv_int8_fused"]):
         fail(f"serve int8 mha_classifier: flash_fwd launched "
@@ -3138,6 +3215,426 @@ def phase_decode(card):
             "step_ms": step_ms, "pool": pool}
 
 
+# obs phase: the observability core on the card's paths
+# (name, track, attribute keys) of the spans of Trainer.fit's host loop with
+# a val loader; tests/test_torch_obs.py pins the JAX trainer's to these
+OBS_TRAIN_SPANS = {
+    ("train.epoch", "train", ("epoch", "span_id", "trace_id")),
+    ("train.step", "train",
+     ("batch", "epoch", "parent_id", "span_id", "trace_id")),
+    ("train.eval", "train", ("epoch", "span_id", "trace_id")),
+}
+OBS_COST_REPS = 50        # calls a timing, tracer on and off
+OBS_COST_ROUNDS = 5       # alternating rounds of each
+OBS_PROFILE_SAMPLES = 64  # the ResNet-18 profiled epoch: two B=32 steps
+
+
+def _http(url):
+    """(status, body bytes) of a GET, 4xx/5xx included."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def tracer_cost(fn, reps=OBS_COST_REPS):
+    """Host wall ms a call of ``fn`` (which waits for its result), with the
+    process-global tracer on and off, ``OBS_COST_ROUNDS`` alternating rounds
+    each: (median on, median off, every round on, every round off)."""
+    import statistics
+
+    from dcnn_tpu_torch.obs import configure
+
+    times = {True: [], False: []}
+    fn()
+    for _ in range(OBS_COST_ROUNDS):
+        for on in (True, False):
+            tracer = configure(enabled=on)
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                fn()
+            times[on].append((time.perf_counter() - t0) * 1e3 / reps)
+            tracer.clear()
+    configure(enabled=False)
+    return (statistics.median(times[True]), statistics.median(times[False]),
+            [round(t, 4) for t in times[True]],
+            [round(t, 4) for t in times[False]])
+
+
+def phase_obs(card, traced_resident):
+    """The observability core (``dcnn_tpu_torch.obs``, ``train/profiling``,
+    ``core/debug``) on the card's paths:
+
+    (a) ``mha_classifier`` trained with the train phase's recipe (B=32,
+        Adam(1e-3), the marker task, 16 steps, a 64-sample val loader) with
+        the tracer on, ``profiler=NORMAL``, ``flight_dir`` and
+        ``debug=True``: losses and params bit-equal to the same run with
+        all four off (else within the train phase's tolerance, and the
+        printout says which), the flash kernels launched, the
+        ``LayerProfiler`` table with every layer's forward and backward
+        non-zero, the spans' names, tracks and keys those the CPU test pins
+        for the JAX trainer, no flight bundle; then one NaN-poisoned batch
+        under policy ``skip_step`` writes exactly one ``nonfinite_guard``
+        bundle, and under ``debug=True`` raises ``FloatingPointError``;
+    (b) int8 ``resnet18_tiny_imagenet`` served as the serve int8 phase
+        serves it (80 open-loop requests at 400/s) behind
+        ``DynamicBatcher.start_telemetry(port=0)``, ``/metrics``,
+        ``/healthz`` and ``/snapshot`` scraped over HTTP while the requests
+        run: the text parses, the card's memory gauges are non-zero,
+        ``/healthz`` 200 and 503 after ``drain()``, ``/snapshot`` with
+        serve, engine and tsdb, ``conv_int8_fused`` launched, logits
+        bit-identical to the same engine with the tracer off;
+    (c) the train feed phase's traced resident epoch (``traced_resident``,
+        run there under ``set_sync_debug_mode("error")``);
+    (d) ``mha_decoder``'s 32 staggered sequences with the tracer on: one
+        ``decode.step`` span a step, tokens equal to the untraced
+        ``decode_reference``, ``DecodeMetrics.prometheus()`` parses.
+
+    Prints the tracer's cost (the mha train step and the int8 B=32 batch,
+    tracer on and off) and the ``LayerProfiler`` table of one ResNet-18
+    NCHW fp32 B=32 profiled step (the train cnn recipe, one epoch), each
+    beside the card's name and power limit."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.core import ProfilerType, TrainingConfig, debug
+    from dcnn_tpu_torch.data import (
+        ArrayDataLoader, AugmentationBuilder, SyntheticClassificationLoader,
+    )
+    from dcnn_tpu_torch.interop import decoder_from_jax, from_jax
+    from dcnn_tpu_torch.models import create_model
+    from dcnn_tpu_torch.obs import configure, get_flight_recorder, get_tracer
+    from dcnn_tpu_torch.obs.exposition import parse_prometheus_text
+    from dcnn_tpu_torch.ops.losses import get_loss
+    from dcnn_tpu_torch.optim import Adam, AdamW
+    from dcnn_tpu_torch.resilience import FaultPlan
+    from dcnn_tpu_torch.serve import (
+        ContinuousBatcher, DecodeEngine, DecodeMetrics, DynamicBatcher,
+        InferenceEngine, decode_reference,
+    )
+    from dcnn_tpu_torch.serve.traffic import open_loop
+    from dcnn_tpu_torch.train import (
+        Trainer, create_train_state, make_train_step,
+    )
+
+    t_phase = time.perf_counter()
+    tracer = get_tracer()
+    rec = get_flight_recorder()
+    flight_before = rec.directory
+
+    # (a) traced, profiled, debug-mode mha_classifier training
+    cfg, params, rng = model_params()
+    x, y = marker_task(rng)
+    xv, yv = marker_task(np.random.default_rng(SEED + 30), n=64)
+    batch = 32
+
+    def mha_fit(epochs=2, **kw):
+        model = from_jax(cfg, params, device="cuda")
+        opt = Adam(1e-3)
+        trainer = Trainer(model, opt, "softmax_crossentropy", TrainingConfig(
+            epochs=epochs, batch_size=batch, snapshot_dir=None,
+            progress_interval=0, device_type="cuda", **kw))
+        ts = trainer.fit(create_train_state(model, opt),
+                         ArrayDataLoader(x, y, batch_size=batch, shuffle=True,
+                                         seed=SEED),
+                         ArrayDataLoader(xv, yv, batch_size=batch,
+                                         shuffle=False))
+        torch.cuda.synchronize()
+        return trainer, ts, model
+
+    plain, _, m_plain = mha_fit()
+    flight = tempfile.TemporaryDirectory(prefix="chip_smoke_flight_",
+                                         dir=ROOT)
+    try:
+        configure(enabled=True)
+        tracer.clear()
+        reset_launches()  # the traced training path starts here
+        try:
+            traced, ts_t, m_traced = mha_fit(
+                profiler=ProfilerType.NORMAL, flight_dir=flight.name,
+                debug=True)
+            counts = launches()  # and ends here
+        finally:
+            configure(enabled=False)
+            debug.disable_debug_mode()
+        events = tracer.events()
+        tracer.clear()
+        a_counts = {k: counts[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                           "flash_bwd_dkv")}
+        steps = ts_t.step
+        la = [(h["train_loss"], h["val_loss"]) for h in plain.history]
+        lb = [(h["train_loss"], h["val_loss"]) for h in traced.history]
+        bit_equal = la == lb and all(
+            torch.equal(p, q) for p, q in zip(m_plain.state_dict().values(),
+                                              m_traced.state_dict().values()))
+        loss_rel = max(abs(b[0] - a[0]) / abs(a[0]) for a, b in zip(la, lb))
+        if not (bit_equal or loss_rel <= TRAIN_LOSS_RTOL):
+            fail(f"obs: traced, profiled, debug-mode mha_classifier losses "
+                 f"{lb} vs plain {la} (rel {loss_rel:.3e}, tol "
+                 f"{TRAIN_LOSS_RTOL:g})")
+        if steps != 16 or any(v < 2 * steps for v in a_counts.values()):
+            fail(f"obs: traced mha training: {steps} steps, flash launches "
+                 f"{a_counts} (at least 2 of each a step)")
+        prof = traced.profiler
+        names = [l.name for l in m_traced.layers]
+        if not all(prof.forward_us.get(n, 0) > 0
+                   and prof.backward_us.get(n, 0) > 0 for n in names):
+            fail(f"obs: LayerProfiler missed a layer: forward "
+                 f"{dict(prof.forward_us)}, backward {dict(prof.backward_us)}")
+        shapes = {(e["name"], e["track"], tuple(sorted(e["args"])))
+                  for e in events}
+        n_spans = {n: sum(e["name"] == n for e in events)
+                   for n in ("train.epoch", "train.step", "train.eval")}
+        if shapes != OBS_TRAIN_SPANS or n_spans != {
+                "train.epoch": 2, "train.step": steps, "train.eval": 2}:
+            fail(f"obs: traced training spans {sorted(shapes)} "
+                 f"({n_spans}), expected {sorted(OBS_TRAIN_SPANS)}")
+        if rec.bundles():
+            fail(f"obs: a clean run wrote flight bundles {rec.bundles()}")
+        print(f"obs (a): mha_classifier {steps} steps of B={batch} with the "
+              f"tracer on, profiler=NORMAL, flight_dir and debug=True: "
+              f"losses and params "
+              + ("bit-equal to" if bit_equal
+                 else f"within {loss_rel:.3e} (tol {TRAIN_LOSS_RTOL:g}) of")
+              + f" the plain run ({lb}); flash launches {a_counts} (the "
+              f"profiled passes and the eval included); spans {n_spans}; "
+              f"LayerProfiler table of epoch 2 on {card}:\n"
+              f"{prof.summary()}", flush=True)
+
+        # one NaN batch: one nonfinite_guard bundle; under debug, raises
+        def nan_fit(**kw):
+            plan = FaultPlan().arm("train.nonfinite_input", at=3, times=1)
+            with plan, warnings.catch_warnings():
+                warnings.simplefilter("ignore")
+                return mha_fit(epochs=1, nonfinite_policy="skip_step",
+                               flight_dir=flight.name, **kw)
+
+        skipped, _, _ = nan_fit()
+        bundles = rec.bundles()
+        if ([b["trigger"] for b in bundles] != ["nonfinite_guard"]
+                or skipped.guard.total_skipped != 1):
+            fail(f"obs: a NaN batch under skip_step wrote bundles "
+                 f"{bundles}, skipped {skipped.guard.total_skipped} steps")
+        bundle_files = sorted(os.listdir(bundles[0]["path"]))
+        try:
+            nan_fit(debug=True)
+        except FloatingPointError as e:
+            raised = str(e)
+        else:
+            fail("obs: a NaN batch under debug=True did not raise "
+                 "FloatingPointError")
+        finally:
+            debug.disable_debug_mode()
+        print(f"obs (a): a NaN batch under policy skip_step: one "
+              f"nonfinite_guard bundle ({bundle_files}; reasons "
+              f"{bundles[0]['reasons']}); under debug=True: "
+              f"FloatingPointError({raised!r})", flush=True)
+    finally:
+        rec.directory = flight_before
+        flight.cleanup()
+
+    # the tracer's cost on the mha train step
+    model = from_jax(cfg, params, device="cuda")
+    opt = Adam(1e-3)
+    ts = create_train_state(model, opt)
+    step = make_train_step(model, get_loss("softmax_crossentropy"), opt)
+    xb, yb = torch.from_numpy(x[:batch]).cuda(), torch.from_numpy(
+        y[:batch]).cuda()
+
+    def train_step():
+        with tracer.span("train.step", track="train", epoch=0, batch=0):
+            float(step(ts, xb, yb, 1e-3)[0])
+
+    step_on, step_off, step_rounds_on, step_rounds_off = tracer_cost(
+        train_step)
+
+    # (b) int8 ResNet-18 behind start_telemetry, scraped while it serves
+    rng = np.random.default_rng(SEED + 10)
+    cfg_r, _, _, float_cpu = resnet18("cpu", rng)
+    calib = rng.normal(size=(INT8_CALIB, *cfg_r["input_shape"])).astype(
+        np.float32)
+    pool = rng.normal(size=(INT8_REQUESTS, *cfg_r["input_shape"])).astype(
+        np.float32)
+    configure(enabled=True)
+    tracer.clear()
+    reset_launches()  # the telemetry-served int8 path starts here
+    engine = InferenceEngine.from_model(float_cpu, int8_calib=calib,
+                                        max_batch=32, device="cuda")
+    batcher = DynamicBatcher(engine, max_wait_ms=2.0, queue_capacity=256)
+    cadence = os.environ.get("DCNN_TSDB_INTERVAL")
+    os.environ["DCNN_TSDB_INTERVAL"] = "0.05"  # samples within the traffic
+    try:
+        srv = batcher.start_telemetry(port=0)
+        live, done = [], threading.Event()
+
+        def scrape():
+            while not done.is_set():
+                live.append({p: _http(srv.url + p)
+                             for p in ("/metrics", "/healthz", "/snapshot")})
+
+        scraper = threading.Thread(target=scrape, name="obs-scraper")
+        scraper.start()
+        futs = open_loop(batcher, list(pool), INT8_RPS,
+                         INT8_REQUESTS / INT8_RPS)
+        done.set()
+        scraper.join()
+        answers = {i: f.result(timeout=300) for i, f in futs}
+        final = {p: _http(srv.url + p) for p in ("/metrics", "/snapshot")}
+        batcher.drain(timeout=300)
+        drained = _http(srv.url + "/healthz")
+        b_counts = launches()  # the served path ends here
+    finally:
+        batcher.shutdown()
+        configure(enabled=False)
+        if cadence is None:
+            os.environ.pop("DCNN_TSDB_INTERVAL", None)
+        else:
+            os.environ["DCNN_TSDB_INTERVAL"] = cadence
+    serve_spans = tracer.span_counts()
+    tracer.clear()
+    if not live:
+        fail("obs: no scrape completed while the requests ran")
+    fams = parse_prometheus_text(final["/metrics"][1].decode())
+    live_fams = parse_prometheus_text(live[-1]["/metrics"][1].decode())
+    snap = json.loads(final["/snapshot"][1])
+    codes = {p: live[-1][p][0] for p in live[-1]}
+    if not (codes == {"/metrics": 200, "/healthz": 200, "/snapshot": 200}
+            and drained[0] == 503
+            and fams["hbm_bytes_in_use"]["value"] > 0
+            and fams["hbm_peak_bytes"]["value"] > 0
+            and live_fams["hbm_bytes_in_use"]["value"] > 0
+            and {"serve", "engine", "tsdb"} <= set(snap)
+            and snap["tsdb"]["samples"] > 0
+            and fams["serve_samples_completed_total"]["value"]
+            == len(answers) == INT8_REQUESTS
+            and b_counts["conv_int8_fused"] > 0):
+        fail(f"obs: telemetry over the int8 engine: live codes {codes}, "
+             f"after drain {drained[0]}, hbm "
+             f"{fams.get('hbm_bytes_in_use')}, snapshot keys "
+             f"{sorted(snap)}, completed "
+             f"{fams.get('serve_samples_completed_total')}, "
+             f"{len(answers)} answers, conv_int8_fused "
+             f"{b_counts['conv_int8_fused']}")
+    plain_logits = engine.infer(pool).cpu().numpy()  # tracer off
+    if any(not np.array_equal(y, plain_logits[i]) for i, y in
+           answers.items()):
+        fail("obs: traced served int8 logits differ from the same engine's "
+             "with the tracer off")
+    x32 = torch.from_numpy(pool[:32]).cuda()
+
+    def int8_batch():
+        with tracer.span("serve.dispatch", track="serve", requests=32,
+                         rows=32):
+            with tracer.span("serve.infer", track="serve", bucket=32,
+                             rows=32):
+                engine.run_padded(x32).float().cpu()
+
+    int8_on, int8_off, int8_rounds_on, int8_rounds_off = tracer_cost(
+        int8_batch)
+    print(f"obs (b): int8 resnet18_tiny_imagenet, {len(answers)} open-loop "
+          f"requests at {INT8_RPS:g}/s behind start_telemetry(port=0): "
+          f"{len(live)} scrapes of /metrics /healthz /snapshot while they "
+          f"ran (codes {codes}), /healthz {drained[0]} after drain; "
+          f"hbm_bytes_in_use {fams['hbm_bytes_in_use']['value']:.0f}, "
+          f"hbm_peak_bytes {fams['hbm_peak_bytes']['value']:.0f}, "
+          f"hbm_bytes_limit {fams['hbm_bytes_limit']['value']:.0f}; "
+          f"/snapshot blocks {sorted(snap)}; tsdb {snap['tsdb']}; "
+          f"conv_int8_fused launches {b_counts['conv_int8_fused']}; spans "
+          f"{serve_spans}; logits bit-identical to the untraced engine's; "
+          f"on {card}", flush=True)
+    print(f"obs: tracer cost on {card}: mha_classifier train step (B=32, "
+          f"loss read) {step_on:.4f} ms traced, {step_off:.4f} ms not "
+          f"(rounds {step_rounds_on} and {step_rounds_off}); int8 resnet18 "
+          f"B=32 batch (logits read) {int8_on:.4f} ms traced, "
+          f"{int8_off:.4f} ms not (rounds {int8_rounds_on} and "
+          f"{int8_rounds_off}); medians of {OBS_COST_ROUNDS} alternating "
+          f"rounds of {OBS_COST_REPS} calls", flush=True)
+
+    # (c) from the train feed phase
+    print(f"obs (c): the train feed phase's full-split resident epoch again "
+          f"with the tracer on, under set_sync_debug_mode('error'): mean "
+          f"loss {traced_resident['mean_loss']}, spans "
+          f"{traced_resident['spans']}, no synchronisation", flush=True)
+
+    # (d) decode with the tracer on
+    rng = np.random.default_rng(SEED + 11)
+    cfg_d = create_model("mha_decoder").get_config()
+    params_d = decoder_params(cfg_d, rng)
+    dec = decoder_from_jax(cfg_d, params_d, device="cuda")
+    d_engine = DecodeEngine(dec, max_slots=DECODE_SLOTS, page_size=DECODE_PAGE,
+                            max_pages_per_seq=DECODE_PAGES)
+    traffic = decode_traffic(rng, d_engine.max_context)
+    want = [decode_reference(d_engine, p, max_new_tokens=n)
+            for p, n in traffic]
+    metrics = DecodeMetrics()
+    configure(enabled=True)
+    tracer.clear()
+    try:
+        cb = ContinuousBatcher(d_engine, queue_capacity=64, metrics=metrics)
+        futs = []
+        for p, n in traffic:
+            futs.append(cb.submit(p, max_new_tokens=n))
+            time.sleep(DECODE_STAGGER_S)
+        cb.drain(timeout=300)
+    finally:
+        configure(enabled=False)
+    d_spans = tracer.span_counts().get("decode.step", 0)
+    tracer.clear()
+    dsnap = metrics.snapshot()
+    dfams = parse_prometheus_text(metrics.prometheus())
+    same = all(np.array_equal(f.result(timeout=0), w)
+               for f, w in zip(futs, want))
+    if not (same and d_spans == dsnap["steps"] > 0
+            and dfams["decode_tokens_total"]["value"] == dsnap["tokens"]):
+        fail(f"obs: traced decode: tokens equal to the untraced reference "
+             f"{same}, decode.step spans {d_spans} for {dsnap['steps']} "
+             f"steps, decode_tokens_total "
+             f"{dfams.get('decode_tokens_total')} vs {dsnap['tokens']}")
+    print(f"obs (d): mha_decoder {DECODE_SEQS} sequences with the tracer "
+          f"on: {d_spans} decode.step spans for {dsnap['steps']} steps, "
+          f"tokens equal the untraced decode_reference, "
+          f"DecodeMetrics.prometheus() parses ({len(dfams)} families); on "
+          f"{card}", flush=True)
+
+    # the per-layer account of a ResNet-18 training step
+    cfg_c = create_model("resnet18_tiny_imagenet", "NCHW").get_config()
+    params_c, state_c = jax_layout(cfg_c, np.random.default_rng(SEED + 7))
+    model = from_jax(cfg_c, params_c, state_c, device="cuda")
+    opt = AdamW(CNN_TRAIN_LR, weight_decay=1e-4)
+    ldr = SyntheticClassificationLoader(
+        OBS_PROFILE_SAMPLES, (3, 64, 64), 200, batch_size=CNN_TRAIN_BATCH,
+        seed=SEED, augmentation=AugmentationBuilder("NCHW").random_crop(4)
+        .horizontal_flip(0.5).build())
+    trainer = Trainer(model, opt, "softmax_crossentropy", TrainingConfig(
+        epochs=1, batch_size=CNN_TRAIN_BATCH, learning_rate=CNN_TRAIN_LR,
+        snapshot_dir=None, progress_interval=0, device_type="cuda",
+        profiler=ProfilerType.NORMAL))
+    trainer.fit(create_train_state(model, opt), ldr)
+    prof = trainer.profiler
+    table = {n: [round(prof.forward_us[n], 1), round(prof.backward_us[n], 1)]
+             for n in prof.forward_us}
+    if not all(f > 0 and b > 0 for f, b in table.values()):
+        fail(f"obs: the ResNet-18 LayerProfiler table has an empty layer: "
+             f"{table}")
+    print(f"obs: LayerProfiler, one profiled step of resnet18_tiny_imagenet "
+          f"NCHW fp32 B={CNN_TRAIN_BATCH} (the train cnn recipe, one epoch; "
+          f"CUDA events per layer, forward and backward) on {card}:\n"
+          f"{prof.summary()}\nobs: " + json.dumps({"card": card,
+                                                   "resnet18_layers_us":
+                                                   table}), flush=True)
+    print(f"obs: phase wall {time.perf_counter() - t_phase:.1f} s on {card}",
+          flush=True)
+    return {**a_counts, "conv_int8_fused": b_counts["conv_int8_fused"],
+            "step_ms": (step_on, step_off), "int8_ms": (int8_on, int8_off)}
+
+
 def bias_before_bn(model):
     """Names (as ``named_parameters`` gives them) of the conv biases that
     feed a batchnorm directly: their gradient is zero in exact arithmetic,
@@ -3158,14 +3655,14 @@ def bias_before_bn(model):
     return names
 
 
-def int8_row(serve_int8):
+def int8_row(serve_int8, obs_launches):
     """Row 8, conv_int8.cu: its fused mode (B, the one the int8 serving
     path launches; with its K-split reduces) with launches on that path
     and times summed over the 21 conv sites of resnet18_tiny_imagenet at
     B=32 (and, under "b256", at B=256), each site timed on its own; mode A
     (int8 -> int32, 0 launches on the served path) under "mode_a"; the
     unfused chain under "chain_ms"; no library call computes either
-    function."""
+    function. ``obs_launches``: the obs phase's telemetry-served path."""
     def total(sites):
         out = {k: sum(c[k] for c in sites)
                for k in ("ms", "plain_ms", "bound_ms", "chain_ms")}
@@ -3184,8 +3681,9 @@ def int8_row(serve_int8):
     return {"name": "conv_int8_fused", "route": "cuda",
             "source": "dcnn_tpu_torch/ops/csrc/conv_int8.cu",
             "replaces": "dcnn_tpu/ops/conv.py:77", "launches":
-            counts["conv_int8_fused"],
-            "launches_by_path": {"serve_int8": counts["conv_int8_fused"]},
+            counts["conv_int8_fused"] + obs_launches,
+            "launches_by_path": {"serve_int8": counts["conv_int8_fused"],
+                                 "obs": obs_launches},
             "splitk_reduce_launches": counts["conv_int8_reduce"],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             **b32, "library_ms": None,
@@ -3244,6 +3742,7 @@ def main() -> None:
     feed = phase_train_feed(card)
     serve_int8 = phase_serve_int8(card)
     phase_decode(card)
+    obs = phase_obs(card, feed["traced_resident"])
 
     def row(name, source, replaces, cases, by_path):
         model_case = cases[0]  # the model's shape: B=32, H=4, S=32, D=16
@@ -3297,17 +3796,18 @@ def main() -> None:
             {"serve": serve["launches"], "train": tl["flash_fwd"],
              "train_feed": fl["flash_fwd"],
              "serve_int8": serve_int8["mha"]["launches"]["flash_fwd"],
-             "wide_layer": wide["flash_fwd"]}),
+             "wide_layer": wide["flash_fwd"], "obs": obs["flash_fwd"]}),
         row("flash_bwd_dq", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:460", bwd_cases["dq"],
             {"serve": 0, "train": tl["flash_bwd_dq"],
              "train_feed": fl["flash_bwd_dq"],
-             "wide_layer": wide["flash_bwd_dq"]}),
+             "wide_layer": wide["flash_bwd_dq"], "obs": obs["flash_bwd_dq"]}),
         row("flash_bwd_dkv", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:478", bwd_cases["dkv"],
             {"serve": 0, "train": tl["flash_bwd_dkv"],
              "train_feed": fl["flash_bwd_dkv"],
-             "wide_layer": wide["flash_bwd_dkv"]}),
+             "wide_layer": wide["flash_bwd_dkv"],
+             "obs": obs["flash_bwd_dkv"]}),
         site_row("conv3x3_s1", tc_src, "dcnn_tpu/ops/pallas/conv.py:82"),
         site_row("conv3x3_s1_pairs", tc_src,
                  "dcnn_tpu/ops/pallas/conv.py:173"),
@@ -3315,7 +3815,7 @@ def main() -> None:
                  "dcnn_tpu/ops/pallas/conv.py:209"),
         site_row("fused_scale_bias_relu", "dcnn_tpu_torch/ops/csrc/fused.cu",
                  "dcnn_tpu/ops/pallas/fused.py:49"),
-        int8_row(serve_int8),
+        int8_row(serve_int8, obs["conv_int8_fused"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,10 +9,19 @@ beside it that the CPU path and the tests use.
 
 This package imports neither ``jax`` nor anything of ``dcnn_tpu``; the
 weights of a JAX model come across as numpy through :mod:`.interop`.
+``DCNN_DEBUG=1`` turns debug mode (:mod:`.core.debug`) on at import.
 """
 
+from .utils.env import get_env as _get_env
+
+if _get_env("DCNN_DEBUG", False):
+    # debug mode for the whole process (core/debug.py)
+    from .core.debug import enable_debug_mode as _edm
+
+    _edm()
+
 from . import (core, data, interop, models, nn, obs, ops, optim, resilience,
-               serve, train)
+               serve, train, utils)
 
 __all__ = ["core", "data", "interop", "models", "nn", "obs", "ops", "optim",
-           "resilience", "serve", "train"]
+           "resilience", "serve", "train", "utils"]

@@ -3,11 +3,11 @@
 ``TrainingConfig`` has the JAX package's fields and defaults, except that
 ``device_type`` is ``"cuda"`` (default) or ``"cpu"``. ``load_from_env``
 reads the same environment variables (EPOCHS, BATCH_SIZE, LR_DECAY_*,
-NUM_MICROBATCHES, DEVICE_TYPE, PROFILER_TYPE, ...). The port's trainer
-raises ``NotImplementedError`` for the fields whose features it has not
-ported yet (elastic training, slowness detection, telemetry, the flight
-recorder, the AOT cache, profiling, chunked dispatch, feed workers, debug
-mode); see ``train/trainer.py``.
+NUM_MICROBATCHES, DEVICE_TYPE, PROFILER_TYPE, ...) through
+:func:`~dcnn_tpu_torch.utils.env.get_env`, which this module re-exports.
+The port's trainer raises ``NotImplementedError`` for the fields whose
+features it has not ported yet (elastic training, the telemetry server,
+the AOT cache); see ``train/trainer.py``.
 """
 
 from __future__ import annotations
@@ -15,38 +15,9 @@ from __future__ import annotations
 import os
 from dataclasses import asdict, dataclass
 from enum import Enum
-from typing import Callable, Optional, Type, TypeVar
+from typing import Optional
 
-T = TypeVar("T")
-_TRUE = {"1", "true", "yes", "on"}
-_FALSE = {"0", "false", "no", "off"}
-
-
-def get_env(name: str, default: T,
-            cast: Optional[Callable[[str], T]] = None) -> T:
-    """Typed environment lookup: the default's type decides the parse;
-    booleans accept 1/true/yes/on and 0/false/no/off (any case)."""
-    raw = os.environ.get(name)
-    if raw is None:
-        return default
-    if cast is not None:
-        return cast(raw)
-    ty: Type = type(default)
-    if ty is bool:
-        low = raw.strip().lower()
-        if low in _TRUE:
-            return True  # type: ignore[return-value]
-        if low in _FALSE:
-            return False  # type: ignore[return-value]
-        raise ValueError(f"env {name}={raw!r} is not a boolean")
-    try:
-        if ty is int:
-            return int(raw)  # type: ignore[return-value]
-        if ty is float:
-            return float(raw)  # type: ignore[return-value]
-    except ValueError as e:
-        raise ValueError(f"env {name}={raw!r}: expected {ty.__name__}") from e
-    return raw  # type: ignore[return-value]
+from ..utils.env import get_env
 
 
 class ProfilerType(Enum):

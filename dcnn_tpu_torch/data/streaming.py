@@ -27,7 +27,8 @@ import torch
 from .. import native
 from ..core.keys import fold_in, split
 from ..core.precision import get_compute_dtype
-from ..obs import get_registry
+from ..obs.registry import get_registry
+from ..obs.tracer import get_tracer
 from ..resilience import faults as _faults
 from .transfer import TransferEngine, land
 from .workers import FeedWorkerPool
@@ -295,7 +296,11 @@ def train_streaming_epoch(step, ts, dataset: StreamingDeviceDataset,
             i, sx, sy, stats, put_done_t = item
             land(stats["events"], sx, sy)
             t4 = time.perf_counter()
-            ts, loss = step(ts, sx, sy, fold_in(key, i), lr)
+            # the issue wall of the shard's step, not device time (the
+            # engine's h2d.* spans carry the feed side)
+            with get_tracer().span("train.shard_dispatch", track="train",
+                                   shard=i):
+                ts, loss = step(ts, sx, sy, fold_in(key, i), lr)
             t5 = time.perf_counter()
             del sx, sy
             losses.append(loss)

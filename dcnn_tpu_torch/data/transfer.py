@@ -41,7 +41,8 @@ import torch
 
 from .. import native
 from ..core.device import resolve_device
-from ..obs import get_registry
+from ..obs.registry import get_registry
+from ..obs.tracer import get_tracer
 
 STAGE_CHUNK_BYTES = 64 << 20
 
@@ -264,15 +265,23 @@ class TransferEngine:
     def _ship_chunk(self, k: int, arr: np.ndarray, sel, lo: int, hi: int,
                     t_base: float, peak: list):
         """One pool task: gather rows [lo, hi) and copy them to the device.
-        Returns (device chunk, event, span dict)."""
+        Returns (device chunk, event, span dict). Each phase is also a
+        tracer span (``h2d.gather``, ``h2d.put``) on the pool thread's
+        track, so chunk overlap shows in the trace; the span dict, from
+        which ``inflight_max`` and ``h2d_gbps`` come, works with tracing
+        off."""
+        tracer = get_tracer()
         t0 = time.perf_counter()
-        host, pinned = self._rows(arr, sel, lo, hi)
+        with tracer.span("h2d.gather", chunk=k, rows=hi - lo):
+            host, pinned = self._rows(arr, sel, lo, hi)
         t1 = time.perf_counter()
         with self._lock:
             self._inflight += 1
             peak[0] = max(peak[0], self._inflight)
         try:
-            d, ev = self._copy(host, pinned)
+            with tracer.span("h2d.put", chunk=k, rows=hi - lo,
+                             bytes=int(host.nbytes)):
+                d, ev = self._copy(host, pinned)
         finally:
             with self._lock:
                 self._inflight -= 1
@@ -358,24 +367,38 @@ class TransferEngine:
         events a consumer passes to :func:`land` before reading."""
         t_base = time.perf_counter() if t_base is None else t_base
         t_call0 = time.perf_counter()
-        peak = [0]
-        futs = self._submit(x, sel, t_base, peak)
-        dy, y_events = None, []
-        if y is not None:
-            try:
-                rows = len(sel) if sel is not None else len(y)
-                host, pinned = self._rows(y, sel, 0, rows)
-                dy, ev = self._copy(host, pinned)
-                y_events = [ev] if ev is not None else []
-            except BaseException:
-                self._collect(futs)  # let the chunks settle first
-                raise
-        chunks, events, spans = self._collect(futs)
-        if self.reassemble == "concat":
-            dx, events = self._concat(chunks, events)
-        else:
-            dx = tuple(chunks)
-        stats = self._stats(spans, peak[0], time.perf_counter() - t_call0)
+        tracer = get_tracer()
+        shard_span = tracer.begin("h2d.shard", track="h2d",
+                                  rows=int(sel.shape[0] if sel is not None
+                                           else x.shape[0]))
+        try:
+            peak = [0]
+            futs = self._submit(x, sel, t_base, peak)
+            dy, y_events = None, []
+            if y is not None:
+                try:
+                    rows = len(sel) if sel is not None else len(y)
+                    with tracer.span("h2d.put_labels", track="h2d"):
+                        host, pinned = self._rows(y, sel, 0, rows)
+                        dy, ev = self._copy(host, pinned)
+                    y_events = [ev] if ev is not None else []
+                except BaseException:
+                    self._collect(futs)  # let the chunks settle first
+                    raise
+            chunks, events, spans = self._collect(futs)
+            if self.reassemble == "concat":
+                dx, events = self._concat(chunks, events)
+            else:
+                dx = tuple(chunks)
+            stats = self._stats(spans, peak[0],
+                                time.perf_counter() - t_call0)
+        except BaseException as e:
+            # the failing shipment must not be the one missing from the
+            # trace
+            tracer.end(shard_span, error=type(e).__name__)
+            raise
+        tracer.end(shard_span, bytes=stats["bytes"],
+                   inflight_max=stats["inflight_max"])
         stats["events"] = events + y_events
         self._m_bytes.inc(stats["bytes"])
         self._m_chunks.inc(len(spans))

@@ -39,9 +39,18 @@ with threads (the prefetch producer, the transfer pool), where ``fork`` is
 unsafe; spawned workers import this module afresh, never touch CUDA, and
 see the dataset through a shared-memory copy (which costs the dataset's
 size in host memory once). ``mp_context="fork"`` shares the dataset
-copy-on-write instead, the JAX package's default. The JAX pool's
-gray-failure recycler (``slow_detect``) waits for ``resilience/slowness.py``
-(``ROADMAP.md``).
+copy-on-write instead, the JAX package's default.
+
+- **Gray failure is recycled** (``slow_detect``, default the
+  ``DCNN_SLOW_DETECT`` env, off): every worker's prep wall feeds a
+  :class:`~dcnn_tpu_torch.resilience.slowness.SlownessDetector`, and a
+  worker convicted as a sustained outlier against its peers is retired
+  through the worker-death fallback (``feed_worker_recycled_total``). The
+  ``feed.slow_worker`` delay point (``FaultPlan.slow``) stretches a
+  worker's prep wall. Output bytes never depend on which worker made them.
+- Each shard's gather, augment and pack phases are replayed onto the
+  tracer as ``feed.gather`` / ``feed.augment`` / ``feed.pack`` spans on a
+  ``feed-w<i>`` track (``feed-inline`` for the parent).
 """
 
 from __future__ import annotations
@@ -55,8 +64,11 @@ from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 import numpy as np
 
 from .. import native
-from ..obs import get_registry
+from ..obs.registry import get_registry
+from ..obs.tracer import get_tracer
 from ..resilience import faults as _faults
+from ..resilience.slowness import SlownessConfig, SlownessDetector
+from ..utils.env import get_env
 
 FALLBACK_RETRY_S = 0.05  # pause before the inline fallback's second try
 
@@ -391,17 +403,24 @@ class _SharedArray:
 # ---------------------------------------------------------------------------
 
 def _worker_loop(wid: int, task_get, result_put, x, y, slots, augment,
-                 seed: int) -> None:
+                 seed: int, retired=None) -> None:
     """Take ``(epoch, shard, slot, sel)`` tasks until the ``None``
     sentinel. The ``feed.prepare`` fault point sits between the claim
     report and the work: an armed ``InjectedCrash`` there stands in for a
     worker lost mid-shard (no report; the parent notices by liveness), any
-    other armed fault exercises the error report."""
+    other armed fault exercises the error report. The ``feed.slow_worker``
+    delay point stretches the prep wall the parent's recycler judges.
+    ``retired`` (thread backend) is the recycle flag: a convicted worker
+    refuses its next claim and exits, and the parent produces the shard
+    inline, the worker-death fallback."""
     while True:
         task = task_get()
         if task is None:
             return
         epoch, idx, slot_id, sel = task
+        if retired is not None and retired():
+            result_put(("retired", wid, epoch, idx))
+            return
         result_put(("start", wid, epoch, idx))
         try:
             _faults.trip("feed.prepare", worker=wid, shard=idx)
@@ -413,6 +432,15 @@ def _worker_loop(wid: int, task_get, result_put, x, y, slots, augment,
             _, _, t = prepare_shard(x, y, sel, augment=augment, rng=rng,
                                     out_x=out_x, out_y=out_y)
             del out_x, out_y
+            extra = _faults.slowdown("feed.slow_worker", t["prep_s"],
+                                     worker=wid, shard=idx)
+            if extra > 0.0:
+                # sleep inside the shard and fold the stretch into the
+                # reported walls: the parent sees a slow worker
+                time.sleep(extra)
+                t["pack_t1"] += extra
+                t["pack_s"] += extra
+                t["prep_s"] += extra
             t["worker"] = wid
             result_put(("done", wid, epoch, idx, t))
         except _faults.InjectedCrash:
@@ -548,8 +576,17 @@ class FeedWorkerPool:
       stall_timeout_s: with no worker message for this long and work
         outstanding, unclaimed shards are rescued inline (covers the
         narrow task-lost-with-its-worker window).
-      slow_detect: the JAX pool's gray-failure recycler; not ported yet,
-        ``True`` raises.
+      slow_detect: enable the gray-failure recycler (default: the
+        ``DCNN_SLOW_DETECT`` env, off). Per-worker prep walls feed a
+        :class:`~dcnn_tpu_torch.resilience.slowness.SlownessDetector`; a
+        convicted worker (a sustained outlier against its peers; a
+        fleet-wide slowdown convicts nobody) is retired through the
+        worker-death fallback and counted on ``feed_worker_recycled_total``.
+        Shard RNG never involves the worker id, so the bytes are unchanged.
+      slow_config: detector knobs (default ``min_peers=2`` and the
+        ``DCNN_SLOW_*`` env overrides).
+      registry, tracer: where the counters and the feed spans go (the
+        process-global ones by default).
     """
 
     def __init__(self, x: np.ndarray, y: np.ndarray, max_rows: int, *,
@@ -557,12 +594,9 @@ class FeedWorkerPool:
                  num_slots: Optional[int] = None, backend: str = "process",
                  mp_context: Optional[str] = None, slots=None,
                  poll_s: float = 0.1, stall_timeout_s: float = 120.0,
-                 slow_detect: bool = False, registry=None):
-        if slow_detect:
-            raise NotImplementedError(
-                "FeedWorkerPool(slow_detect=True): the gray-failure recycler "
-                "needs resilience/slowness.py, not ported to dcnn_tpu_torch "
-                "yet (ROADMAP.md)")
+                 slow_detect: Optional[bool] = None,
+                 slow_config: Optional[SlownessConfig] = None,
+                 registry=None, tracer=None):
         if num_workers < 0:
             raise ValueError(f"num_workers must be >= 0, got {num_workers}")
         if backend not in ("process", "thread"):
@@ -583,18 +617,30 @@ class FeedWorkerPool:
         self.stall_timeout_s = float(stall_timeout_s)
         self.num_slots = int(num_slots if num_slots is not None
                              else self.num_workers + 2)
+        self._tracer = tracer
         reg = registry if registry is not None else get_registry()
         self._c_shards = reg.counter("feed_shards_total",
                                      "shards prepared by the feed pool")
         self._c_fail = reg.counter("feed_worker_failures_total",
                                    "feed worker errors/deaths recovered "
                                    "by inline fallback")
+        self._c_recycled = reg.counter(
+            "feed_worker_recycled_total",
+            "slow (gray-failing) feed workers recycled through the "
+            "worker-death fallback")
         self._g_depth = reg.gauge("feed_queue_depth",
                                   "feed shards in flight (leased slots)")
         self._g_busy = reg.gauge("feed_workers_busy",
                                  "feed workers currently preparing a shard")
         self._g_free = reg.gauge("feed_slots_free",
                                  "free feed ring-buffer slots")
+
+        self.slow_detect = (get_env("DCNN_SLOW_DETECT", False)
+                            if slow_detect is None else bool(slow_detect))
+        self._slowness = SlownessDetector(SlownessConfig.from_env(
+            slow_config if slow_config is not None
+            else SlownessConfig(min_peers=2)))
+        self._retired: set = set()
 
         self._closed = False
         self._active = False
@@ -715,13 +761,53 @@ class FeedWorkerPool:
     def _thread_worker_main(self, wid: int) -> None:
         try:
             _worker_loop(wid, self._task_q.get, self._result_q.put,
-                         self.x, self.y, self.slots, self.augment, self.seed)
+                         self.x, self.y, self.slots, self.augment, self.seed,
+                         retired=lambda: wid in self._retired)
         except _faults.InjectedCrash:
             return  # simulated hard death: exit silently, liveness notices
 
     def _release_slot(self, sid: int) -> None:
         self._free.put(sid)
         self._g_free.set(self._free.qsize())
+
+    def _note_worker_wall(self, wid, prep_s: float) -> None:
+        """Gray-failure recycler: score this worker's prep wall against its
+        peers; a convicted worker is retired through the worker-death
+        fallback."""
+        if not isinstance(wid, int) or wid in self._retired:
+            return  # "inline" rescues are the parent; a retired worker's
+            # straggling report must not re-enter the forgotten score
+        self._slowness.observe(f"w{wid}", prep_s)
+        for tr in self._slowness.evaluate():
+            if tr["to"] == "convicted":
+                self._recycle_worker(int(str(tr["component"])[1:]))
+
+    def _recycle_worker(self, wid: int) -> None:
+        h = next((h for h in self._workers if h.wid == wid), None)
+        if h is None or h.reported_dead or wid in self._retired:
+            return
+        if self.alive_workers() <= 1:
+            return  # never retire the last producer
+        self._retired.add(wid)
+        self._slowness.forget(f"w{wid}")
+        self._c_recycled.inc()
+        # process backend: kill now (the death fallback rescues its
+        # in-flight shard); thread backend: the retired() flag makes the
+        # worker refuse its next claim and exit
+        h.terminate()
+
+    def _emit_spans(self, idx: int, t: dict) -> None:
+        tr = self._tracer if self._tracer is not None else get_tracer()
+        wid = t.get("worker", "inline")
+        track = f"feed-w{wid}" if wid != "inline" else "feed-inline"
+        rows = t.get("rows")
+        tr.record_span("feed.gather", t["gather_t0"], t["gather_t1"],
+                       track=track, shard=idx, rows=rows)
+        if t["augment_s"] > 0:
+            tr.record_span("feed.augment", t["augment_t0"], t["augment_t1"],
+                           track=track, shard=idx, rows=rows)
+        tr.record_span("feed.pack", t["pack_t0"], t["pack_t1"],
+                       track=track, shard=idx, rows=rows)
 
     def _produce_inline(self, epoch: int, idx: int, sel: np.ndarray,
                         slot: Optional[int]) -> dict:
@@ -754,6 +840,7 @@ class FeedWorkerPool:
     def _prepared(self, idx: int, info: dict) -> PreparedShard:
         rows = int(info["sel"].shape[0])
         self._c_shards.inc()
+        self._emit_spans(idx, info["timings"])
         if info.get("arrays") is not None:
             xg, yg = info["arrays"]
             return PreparedShard(idx, xg, yg, rows, info["timings"],
@@ -842,7 +929,7 @@ class FeedWorkerPool:
             self._busy.add(wid)
             self._g_busy.set(len(self._busy))
             return True
-        # done and error both end the worker's claim
+        # done, error and retired all end the worker's claim
         self._busy.discard(wid)
         self._g_busy.set(len(self._busy))
         sid = self._poisoned.pop((msg_epoch, idx), None)
@@ -857,6 +944,8 @@ class FeedWorkerPool:
         info = inflight.pop(idx)
         if kind == "done":
             info["timings"] = msg[4]
+            if self.slow_detect:
+                self._note_worker_wall(wid, msg[4].get("prep_s", 0.0))
             if discard:
                 self._release_slot(info["slot"])
             else:
@@ -867,7 +956,7 @@ class FeedWorkerPool:
             # data that would immediately be dropped
             self._c_fail.inc()
             self._release_slot(info["slot"])
-        else:  # "error": the shard is produced inline
+        else:  # "error"/"retired": the shard is produced inline
             self._c_fail.inc()
             res = self._produce_inline(epoch, idx, info["sel"], info["slot"])
             info["timings"] = res["timings"]
@@ -894,6 +983,7 @@ class FeedWorkerPool:
                     self.x, self.y, selections, augment=self.augment,
                     seed=self.seed, epoch=epoch)):
                 self._c_shards.inc()
+                self._emit_spans(i, t)
                 yield PreparedShard(i, xg, yg, int(xg.shape[0]), t, self,
                                     None)
             return

@@ -7,9 +7,10 @@
 - Histogram buckets are fixed and log-spaced (``start * factor**i``), so
   relative error is the same at every scale and ``observe`` allocates
   nothing.
-- ``snapshot()`` exports a plain dict; every instrument has ``reset()``.
-  The JAX package's Prometheus text exposition, and the typed views its
-  exporters use, are not ported yet (``ROADMAP.md``).
+- ``snapshot()`` exports a plain dict, ``prometheus()`` the text
+  exposition format (:mod:`.exposition`, byte for byte the JAX
+  renderer's), ``instruments()`` the typed view the tsdb sampler reads;
+  every instrument has ``reset()``.
 
 :func:`get_registry` is the process-global registry, the default sink of
 the port's own instruments (checkpoint saves and restores, the step guard,
@@ -21,7 +22,7 @@ from __future__ import annotations
 import threading
 import time
 from bisect import bisect_left
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 
 def _valid_name(name: str) -> str:
@@ -149,6 +150,17 @@ class Histogram:
                 "overflow": self._counts[-1],
             }
 
+    def cumulative(self) -> List[Tuple[float, int]]:
+        """(upper_bound, cumulative_count) pairs ending with (inf, count):
+        the Prometheus ``_bucket{le=...}`` series."""
+        with self._lock:
+            out, acc = [], 0
+            for b, c in zip(self.bounds, self._counts):
+                acc += c
+                out.append((b, acc))
+            out.append((float("inf"), acc + self._counts[-1]))
+            return out
+
     def reset(self) -> None:
         with self._lock:
             self._counts = [0] * len(self._counts)
@@ -196,6 +208,13 @@ class MetricsRegistry:
                                    factor=factor, buckets=buckets)
 
     # -- export ------------------------------------------------------------
+    def instruments(self) -> List[Tuple[str, object]]:
+        """Sorted ``(name, instrument)`` pairs: the typed view the tsdb
+        sampler reads (histograms keep their ``cumulative()`` buckets,
+        which ``snapshot()`` flattens away)."""
+        with self._lock:
+            return sorted(self._instruments.items())
+
     def snapshot(self) -> Dict[str, object]:
         """Point-in-time ``{name: value}`` dict (histograms expand to their
         stats dict). Sorted for stable JSON diffs."""
@@ -206,6 +225,24 @@ class MetricsRegistry:
             out[name] = inst.value
         out["_wall_s"] = max(self._clock() - self._t0, 0.0)
         return out
+
+    def prometheus(self) -> str:
+        """Prometheus text exposition (format 0.0.4), rendered by
+        :mod:`.exposition`, which ``ServeMetrics.prometheus`` shares."""
+        from .exposition import render_instruments
+
+        with self._lock:
+            items = sorted(self._instruments.items())
+        return "\n".join(render_instruments(items)) + "\n"
+
+    def reset(self) -> None:
+        """Zero every instrument and restart the wall clock. Instrument
+        identities are kept: holders of a Counter keep a valid object."""
+        with self._lock:
+            insts = list(self._instruments.values())
+            self._t0 = self._clock()
+        for inst in insts:
+            inst.reset()
 
 
 _GLOBAL_REGISTRY = MetricsRegistry()

@@ -13,7 +13,10 @@ As in the JAX package, an optimizer is a stateless spec: ``init(params)``
 makes the state and ``update(grads, opt_state, params, lr)`` applies one
 step, with ``lr`` given per step by the trainer or a scheduler: a float,
 or a 0-d tensor on the params' device (the resident and chunked epochs'
-per-batch lr vectors stay on the card). ``params``
+per-batch lr vectors stay on the card). Both give the same bits: a float
+lr is rounded to fp32 and a product with it (``wd·lr``) is taken in fp32,
+as the tensor lr's is and as the JAX package's f32 lr is, so a chunked
+epoch equals the per-step loop. ``params``
 and ``grads`` map parameter names (``model.named_parameters()``) to tensors.
 Unlike the JAX functions, ``update`` works in place: it overwrites the
 params and the state's tensors and returns the state, which saves a copy of
@@ -34,11 +37,20 @@ Tensors = Mapping[str, torch.Tensor]
 
 
 def _lr(lr, default: float):
-    """The step's lr: the default, a float, or a device tensor kept as it
-    is (reading it would wait for the card)."""
+    """The step's lr: the default or a float, rounded to fp32, or a device
+    tensor kept as it is (reading it would wait for the card)."""
     if lr is None:
-        return default
-    return lr if isinstance(lr, torch.Tensor) else float(lr)
+        lr = default
+    return lr if isinstance(lr, torch.Tensor) else float(np.float32(lr))
+
+
+def _times_lr(c: float, lr):
+    """``c·lr`` rounded as a tensor lr's product is: both factors in fp32,
+    the product rounded once to fp32 (a float product in double would
+    differ from it by an ulp for some lrs)."""
+    if isinstance(lr, torch.Tensor):
+        return c * lr
+    return float(np.float32(c) * np.float32(lr))
 
 
 def _zeros(params: Tensors) -> Dict[str, torch.Tensor]:
@@ -125,9 +137,9 @@ class Adam(Optimizer):
             update = lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
             if wd > 0.0:
                 if self.decouple_weight_decay:
-                    p.sub_(wd * lr * p)            # AdamW
-                else:
-                    update = update + wd * lr * p  # L2 in the update
+                    p.sub_(_times_lr(wd, lr) * p)  # AdamW
+                else:  # L2 in the update
+                    update = update + _times_lr(wd, lr) * p
             p.sub_(update)
         opt_state["t"] = t
         return opt_state

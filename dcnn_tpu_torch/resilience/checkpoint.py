@@ -43,7 +43,8 @@ from concurrent.futures import Future
 from typing import Any, Callable, Dict, NamedTuple, Optional
 
 from ..core.device import DeviceLike
-from ..obs import get_registry
+from ..obs.registry import get_registry
+from ..obs.tracer import get_tracer
 from . import faults
 from .atomic import commit_dir, sha256_file, stage_dir, sweep_stale_tmp
 
@@ -122,33 +123,35 @@ def restore_latest(directory: str, *, device: DeviceLike = None,
 
     reg = registry if registry is not None else get_registry()
     steps = sorted(list_steps(directory).items(), reverse=True)
+    tracer = get_tracer()
     for step, path in steps:
-        if not verify_dir(path):
-            # quarantine, don't just skip: a resumed run will want to
-            # commit this step number again, and an immutable corrupt
-            # dir squatting on it would turn recovery into
-            # FileExistsError. The bytes survive (renamed) for
-            # forensics; corrupt-* never matches list_steps.
-            quarantine = os.path.join(
-                directory,
-                f"corrupt-{os.path.basename(path)}-{uuid.uuid4().hex}")
-            try:
-                os.replace(path, quarantine)
-                where = f"quarantined as {quarantine}"
-            except OSError:
-                where = "left in place (rename failed)"
-            warnings.warn(
-                f"skipping torn/corrupt checkpoint {path} "
-                f"(manifest/checksum mismatch); {where}", stacklevel=2)
-            reg.counter("ckpt_restore_skipped_total",
-                        "corrupt checkpoints skipped on restore").inc()
-            continue
-        model, opt_state, optimizer, metadata = load_checkpoint(
-            path, device=device)
-        reg.counter("ckpt_restores_total",
-                    "successful checkpoint restores").inc()
-        return RestoredCheckpoint(model, opt_state, optimizer, metadata,
-                                  step, path)
+        with tracer.span("checkpoint.restore", track="ckpt", step=step):
+            if not verify_dir(path):
+                # quarantine, don't just skip: a resumed run will want to
+                # commit this step number again, and an immutable corrupt
+                # dir squatting on it would turn recovery into
+                # FileExistsError. The bytes survive (renamed) for
+                # forensics; corrupt-* never matches list_steps.
+                quarantine = os.path.join(
+                    directory,
+                    f"corrupt-{os.path.basename(path)}-{uuid.uuid4().hex}")
+                try:
+                    os.replace(path, quarantine)
+                    where = f"quarantined as {quarantine}"
+                except OSError:
+                    where = "left in place (rename failed)"
+                warnings.warn(
+                    f"skipping torn/corrupt checkpoint {path} "
+                    f"(manifest/checksum mismatch); {where}", stacklevel=2)
+                reg.counter("ckpt_restore_skipped_total",
+                            "corrupt checkpoints skipped on restore").inc()
+                continue
+            model, opt_state, optimizer, metadata = load_checkpoint(
+                path, device=device)
+            reg.counter("ckpt_restores_total",
+                        "successful checkpoint restores").inc()
+            return RestoredCheckpoint(model, opt_state, optimizer, metadata,
+                                      step, path)
     return None
 
 
@@ -260,10 +263,12 @@ class CheckpointManager:
     def save(self, step: int, model, opt_state=None, optimizer=None,
              metadata: Optional[Dict[str, Any]] = None) -> str:
         """Atomic synchronous save; returns the committed directory."""
-        manifest, snapshot = self._snapshot(model, opt_state, optimizer,
-                                            metadata)
-        with self._lock:
-            return self._write_and_commit(step, manifest, snapshot)
+        with get_tracer().span("checkpoint.save", track="ckpt", step=step,
+                               mode="sync"):
+            manifest, snapshot = self._snapshot(model, opt_state, optimizer,
+                                                metadata)
+            with self._lock:
+                return self._write_and_commit(step, manifest, snapshot)
 
     # -- async save --
     def _saver_loop(self) -> None:
@@ -281,8 +286,10 @@ class CheckpointManager:
             fut.set_result(None)
             return
         try:
-            with self._lock:
-                path = self._write_and_commit(step, manifest, snapshot)
+            with get_tracer().span("checkpoint.save", track="ckpt",
+                                   step=step, mode="async"):
+                with self._lock:
+                    path = self._write_and_commit(step, manifest, snapshot)
             fut.set_result(path)
         except BaseException as e:  # surfaced via the future / wait()
             fut.set_exception(e)
@@ -293,8 +300,10 @@ class CheckpointManager:
         training thread's only cost); the wait for them, serialization,
         hashing, writes and the commit run on the saver thread. Returns a
         Future resolving to the committed path."""
-        manifest, snapshot = self._snapshot(model, opt_state, optimizer,
-                                            metadata)
+        with get_tracer().span("checkpoint.snapshot", track="ckpt",
+                               step=step):
+            manifest, snapshot = self._snapshot(model, opt_state, optimizer,
+                                                metadata)
         if self._thread is None or not self._thread.is_alive():
             self._thread = threading.Thread(
                 target=self._saver_loop, daemon=True, name="dcnn-ckpt-saver")

@@ -29,8 +29,11 @@ The port's trip points have the JAX package's names:
                                 mid-epoch instead
 ==============================  ==============================================
 
-The JAX package's delay hooks (``FaultPlan.slow``) and per-plan trips
-serve call sites the port does not have yet. Standard library only.
+Delay hooks (fail-slow, not fail-stop): :meth:`FaultPlan.slow` arms a
+point so that :func:`slowdown` returns extra seconds for the call site to
+sleep inside its measured window, as a degraded host would run. The port's
+delay point is ``feed.slow_worker`` (a feed worker's prep wall;
+``data/workers.py``). Standard library only.
 """
 
 from __future__ import annotations
@@ -80,6 +83,10 @@ class FaultPlan:
         self._armed: Dict[str, Tuple[Optional[int], Optional[int],
                                      Type[BaseException]]] = {}
         self._counts: Dict[str, int] = {}
+        self._slow_armed: Dict[str, Tuple[Optional[int], Optional[int],
+                                          Optional[float],
+                                          Optional[float]]] = {}
+        self._slow_counts: Dict[str, int] = {}
 
     def arm(self, point: str, *, at: Optional[int] = None,
             times: Optional[int] = None,
@@ -116,6 +123,69 @@ class FaultPlan:
         if issubclass(exc, InjectedFault):
             raise exc(point, n, **context)
         raise exc(f"injected fault at {point!r} (invocation {n})")
+
+    def trip(self, point: str, **context) -> None:
+        """Per-plan trip: check THIS plan (not the process-global one), for
+        simulations that hand one plan to each of several in-process
+        components."""
+        self._check(point, context)
+
+    # -- delay injection (fail-slow, not fail-stop) ------------------------
+    def slow(self, point: str, *, factor: Optional[float] = None,
+             delay_s: Optional[float] = None, at: Optional[int] = None,
+             times: Optional[int] = None) -> "FaultPlan":
+        """Arm ``point`` as a **delay** hook: every matching
+        :meth:`slowdown` query returns extra seconds for the call site to
+        sleep. Exactly one of ``factor`` (scale the measured wall — a
+        ``factor=10`` component runs 10x slow) or ``delay_s`` (fixed
+        stall) must be given; ``at``/``times`` window invocations exactly
+        like :meth:`arm`."""
+        if (factor is None) == (delay_s is None):
+            raise ValueError(
+                "FaultPlan.slow wants exactly one of factor= or delay_s=")
+        if factor is not None and factor < 1.0:
+            raise ValueError(f"factor must be >= 1, got {factor}")
+        if delay_s is not None and delay_s < 0.0:
+            raise ValueError(f"delay_s must be >= 0, got {delay_s}")
+        with self._lock:
+            self._slow_armed[point] = (at, times, factor, delay_s)
+        return self
+
+    def unslow(self, point: str) -> "FaultPlan":
+        """Disarm a :meth:`slow` point — the fault "clears" (recovery /
+        probation-rejoin fixtures)."""
+        with self._lock:
+            self._slow_armed.pop(point, None)
+        return self
+
+    def slow_count(self, point: str) -> int:
+        with self._lock:
+            return self._slow_counts.get(point, 0)
+
+    def slowdown(self, point: str, base_s: float = 0.0,
+                 **context) -> float:
+        """Per-plan delay query: extra seconds the call site should
+        sleep on top of the ``base_s`` wall it measured — 0.0 unless
+        :meth:`slow` armed this point and the invocation window matches.
+        Deterministic like :meth:`trip`; never raises."""
+        with self._lock:
+            n = self._slow_counts.get(point, 0)
+            self._slow_counts[point] = n + 1
+            spec = self._slow_armed.get(point)
+            if spec is None:
+                return 0.0
+            at, times, factor, delay_s = spec
+            if at is not None and n < at:
+                return 0.0
+            if times is not None:
+                times -= 1
+                if times <= 0:
+                    self._slow_armed.pop(point, None)
+                else:
+                    self._slow_armed[point] = (at, times, factor, delay_s)
+        if delay_s is not None:
+            return delay_s
+        return base_s * max(float(factor) - 1.0, 0.0)
 
     # -- corruption utility (not a trip point: tests call it directly) --
     def bit_flip(self, path: str) -> Tuple[int, int]:
@@ -168,3 +238,15 @@ def trip(point: str, **context) -> None:
     this point/invocation. Free (one global check) otherwise."""
     if _ACTIVE is not None:
         _ACTIVE._check(point, context)
+
+
+def slowdown(point: str, base_s: float = 0.0, **context) -> float:
+    """Production-side delay hook (the fail-slow twin of :func:`trip`):
+    extra seconds to sleep at this point — 0.0 (one global check, no
+    allocation) unless an installed plan armed it via
+    :meth:`FaultPlan.slow`. Call sites sleep the return value INSIDE
+    their measured timing window so detectors see the slowness exactly
+    as a degraded host would produce it."""
+    if _ACTIVE is not None:
+        return _ACTIVE.slowdown(point, base_s, **context)
+    return 0.0

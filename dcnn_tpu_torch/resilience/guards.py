@@ -18,7 +18,11 @@ watchdog (counterpart of ``dcnn_tpu/resilience/guards.py``).
 
 :class:`StallWatchdog` flags (never kills) a loop that stopped beating:
 ``train_stalled`` / ``train_stall_flags_total`` on the metrics registry.
-The JAX package's flight-recorder bundles are not ported yet.
+Both write a flight-recorder bundle on their degradation edge
+(``nonfinite_guard`` at the start of a bad-step streak or before a
+``"raise"`` abort, ``watchdog_stall`` when a stall is first flagged), to
+the process-global recorder unless ``flight=`` injects one; a disabled
+recorder makes that a no-op.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from typing import Callable, Iterable, Optional
 
 import torch
 
-from ..obs import get_registry
+from ..obs.registry import get_registry
 
 
 class NonFiniteError(FloatingPointError):
@@ -64,7 +68,7 @@ class StepGuard:
     POLICIES = ("raise", "skip_step", "rollback")
 
     def __init__(self, policy: str = "raise", *, rollback_after: int = 3,
-                 registry=None):
+                 registry=None, flight=None):
         if policy not in self.POLICIES:
             raise ValueError(f"nonfinite_policy must be one of "
                              f"{self.POLICIES}, got {policy!r}")
@@ -76,6 +80,11 @@ class StepGuard:
         self._reg = registry if registry is not None else get_registry()
         self.consecutive_bad = 0
         self.total_skipped = 0
+        self._flight = flight  # None: the process-global recorder
+
+    def _flight_recorder(self):
+        from ..obs.flight import resolve_flight_recorder
+        return resolve_flight_recorder(self._flight)
 
     def observe(self, step: int, bad: bool,
                 loss: float = math.nan) -> str:
@@ -83,7 +92,27 @@ class StepGuard:
             self.consecutive_bad = 0
             return "ok"
         if self.policy == "raise":
+            # postmortem before the abort (a no-op while the recorder is
+            # disabled; never raises on its own)
+            self._flight_recorder().record(
+                "nonfinite_guard",
+                reasons=[f"non-finite loss/grad at step {step} "
+                         f"(loss={loss!r}); policy 'raise' aborts"],
+                registry=self._reg,
+                extra={"step": step, "loss": repr(loss),
+                       "policy": self.policy})
             raise NonFiniteError(step, loss)
+        if self.consecutive_bad == 0:
+            # the degradation edge, the start of a bad-step streak: one
+            # bundle an episode
+            self._flight_recorder().record(
+                "nonfinite_guard",
+                reasons=[f"non-finite loss/grad at step {step}: "
+                         f"policy {self.policy!r}"],
+                registry=self._reg,
+                extra={"step": step, "loss": repr(loss),
+                       "policy": self.policy,
+                       "rollback_after": self.rollback_after})
         self.consecutive_bad += 1
         self.total_skipped += 1
         self._reg.counter("train_skipped_steps_total",
@@ -114,13 +143,14 @@ class StallWatchdog:
 
     def __init__(self, timeout_s: float, *,
                  clock: Callable[[], float] = time.monotonic,
-                 registry=None, name: str = "train"):
+                 registry=None, name: str = "train", flight=None):
         if timeout_s <= 0:
             raise ValueError(f"timeout_s must be > 0, got {timeout_s}")
         self.timeout_s = timeout_s
         self._clock = clock
         self._reg = registry if registry is not None else get_registry()
         self._name = name
+        self._flight = flight  # None: the process-global recorder
         # beat() runs on the training thread, check() on the poll thread:
         # the beat/flag pair must change together or a beat landing between
         # check()'s read and its flag write un-stalls a loop the poll
@@ -159,6 +189,16 @@ class StallWatchdog:
             warnings.warn(
                 f"{self._name} loop stalled: no progress for {age:.1f}s "
                 f"(timeout {self.timeout_s:.1f}s)", stacklevel=2)
+            # edge-triggered postmortem: the spans leading into the stall
+            # say what stopped beating
+            from ..obs.flight import resolve_flight_recorder
+            resolve_flight_recorder(self._flight).record(
+                "watchdog_stall",
+                reasons=[f"{self._name} loop: no progress for {age:.1f}s "
+                         f"(timeout {self.timeout_s:g}s)"],
+                registry=self._reg,
+                extra={"watchdog": self._name, "age_s": age,
+                       "timeout_s": self.timeout_s})
         return True
 
     def start(self, poll_s: Optional[float] = None) -> "StallWatchdog":

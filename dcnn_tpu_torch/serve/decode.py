@@ -31,8 +31,14 @@ sequence's greedy tokens equal :func:`decode_reference` and the
 full-forward oracle under any interleaving, unless a near-tie of two
 logits flips.
 
-The JAX engine's AOT executable cache and its tracer spans wait for the
-port's observability work (``ROADMAP.md`` Queue 1 item 9).
+Spans (the JAX package's names, tracks and attributes): per lattice
+point a ``serve.compile`` span over the first, FLOP-counted step (its
+FLOPs in ``compile_stats``) and a ``serve.warmup`` span over a warm one,
+at construction; a ``decode.step`` span (track ``decode``) per batcher
+step, which ends once its tokens are on the host. The compile counters and
+the card's memory gauges go on ``registry`` (the process-global one by
+default). The JAX engine's AOT executable cache waits for ``ROADMAP.md``
+Queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -47,6 +53,9 @@ import numpy as np
 import torch
 
 from ..core.precision import cast_to_compute
+from ..obs.registry import get_registry
+from ..obs.tracer import get_tracer
+from ..obs.xla import jit_cost, record_compile, sample_hbm
 from ..resilience import faults
 from ..resilience.faults import InjectedCrash
 from .batcher import DrainingError, QueueFullError, ShutdownError
@@ -71,13 +80,14 @@ class DecodeEngine:
     def __init__(self, model, *, max_slots: int = 4, page_size: int = 8,
                  max_pages_per_seq: int = 4, num_pages: Optional[int] = None,
                  warmup: bool = True, name: str = "decode",
-                 aot_cache: Any = None):
+                 aot_cache: Any = None, registry=None):
         if aot_cache not in (None, False):
             raise NotImplementedError(
                 "DecodeEngine has no AOT executable cache: PyTorch runs the "
                 "step eagerly; the cache waits for ROADMAP.md Queue 1 item 9")
         self.model = model.eval()
         self.name = name
+        self.registry = registry if registry is not None else get_registry()
         self.device = next(model.parameters()).device
         self.bucket_sizes = serve_buckets(max_slots)
         self.max_slots = self.bucket_sizes[-1]
@@ -107,21 +117,40 @@ class DecodeEngine:
         # steps of :meth:`step` per lattice point (the batcher's dispatches)
         self.step_counts: Dict[Tuple[int, int], int] = {}
         self.compile_stats: Dict[Tuple[int, int], Dict[str, float]] = {}
+        tracer = get_tracer()
         for b in self.bucket_sizes:
             for mp in self.page_buckets:
                 t0 = time.perf_counter()
+                cost = None
+                with tracer.span("serve.compile", track="serve",
+                                 engine=name, bucket=b, pages=mp):
+                    if warmup:
+                        cost = jit_cost(self._idle_step, b, mp)
+                compile_s = time.perf_counter() - t0
+                record_compile(compile_s, what="decode",
+                               registry=self.registry)
+                t0 = time.perf_counter()
                 if warmup:
-                    # every row inactive: the writes touch only the null page
-                    self._step(torch.zeros(b, dtype=torch.long,
-                                           device=self.device),
-                               torch.full((b,), -1, dtype=torch.long,
-                                          device=self.device),
-                               torch.zeros((b, mp), dtype=torch.long,
-                                           device=self.device),
-                               self.pool.k, self.pool.v)
-                    _sync(self.device)
-                self.compile_stats[(b, mp)] = {
-                    "warmup_s": time.perf_counter() - t0}
+                    with tracer.span("serve.warmup", track="serve",
+                                     engine=name, bucket=b, pages=mp):
+                        self._idle_step(b, mp)
+                        _sync(self.device)
+                st = {"compile_s": round(compile_s, 4),
+                      "warmup_s": time.perf_counter() - t0}
+                if cost is not None:
+                    st["flops"] = cost["flops"]
+                self.compile_stats[(b, mp)] = st
+        # the post-construction memory watermark (pool and workspaces)
+        sample_hbm(self.registry)
+
+    def _idle_step(self, b: int, mp: int):
+        """A step at lattice point (b, mp) with every row inactive: its
+        writes touch only the null page."""
+        return self._step(
+            torch.zeros(b, dtype=torch.long, device=self.device),
+            torch.full((b,), -1, dtype=torch.long, device=self.device),
+            torch.zeros((b, mp), dtype=torch.long, device=self.device),
+            self.pool.k, self.pool.v)
 
     # -- the step --
     def _step(self, tokens: torch.Tensor, positions: torch.Tensor,
@@ -484,7 +513,9 @@ class ContinuousBatcher:
                 positions[i] = seq.pos
                 table[i] = self.engine.pool.table(seq.seq_id, mp)
             faults.trip("decode.step", step=self._steps)
-            nxt, _ = self.engine.step(tokens, positions, table)
+            with get_tracer().span("decode.step", track="decode",
+                                   active=len(active), bucket=b, pages=mp):
+                nxt, _ = self.engine.step(tokens, positions, table)
         except BaseException as e:
             with self._cond:
                 self._closing = True

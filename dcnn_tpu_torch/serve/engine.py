@@ -16,7 +16,14 @@ or conv may sum in another order at another batch size). An int8 engine
 and attention layer is an int8 twin) is ``batch_invariant``: its convs and
 GEMMs are exact integer sums, and everything else a sample computes is its
 own, so its logits are bit-identical at every bucket.
-JAX's AOT executable cache, XLA cost gauges and buffer donation have no
+
+Construction records, per bucket, a ``serve.compile`` span over the first
+call (kernel builds; its FLOPs counted by ``FlopCounterMode``,
+:mod:`~dcnn_tpu_torch.obs.xla`, into ``compile_stats``), counted on
+``compile_total`` / ``compile_serve_seconds_total``, then a
+``serve.warmup`` span over a warm call; the per-sample FLOPs gauge and the
+card's memory gauges go on ``registry`` (the process-global one by
+default). JAX's AOT executable cache and buffer donation have no
 counterpart here.
 """
 
@@ -28,6 +35,9 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..core.device import DeviceLike, resolve_device
+from ..obs.registry import get_registry
+from ..obs.tracer import get_tracer
+from ..obs.xla import jit_cost, record_compile, sample_hbm
 from ..nn.fold import fold_batchnorm
 from ..nn.quantize import is_int8, quantize_model
 
@@ -58,35 +68,76 @@ class InferenceEngine:
     def __init__(self, apply_fn: Callable[[torch.Tensor], torch.Tensor],
                  input_shape: Sequence[int], *, max_batch: int = 32,
                  device: DeviceLike = None, warmup: bool = True,
-                 batch_invariant: bool = False, name: str = "engine"):
+                 batch_invariant: bool = False, name: str = "engine",
+                 registry=None):
         self.name = name
         self.batch_invariant = bool(batch_invariant)
         self.device = resolve_device(device)
+        self.registry = registry if registry is not None else get_registry()
         self.input_shape = tuple(int(d) for d in input_shape)
         self.input_dtype = torch.float32
         self.bucket_sizes = serve_buckets(max_batch)
         self.max_batch = self.bucket_sizes[-1]
         self._apply = apply_fn
-        self.compile_stats: Dict[int, Dict[str, float]] = {
-            b: {"warmup_s": 0.0} for b in self.bucket_sizes}
-        if warmup:
-            for b, s in self.warm().items():
-                self.compile_stats[b]["warmup_s"] = s
+        self.compile_stats: Dict[int, Dict[str, float]] = {}
+        tracer = get_tracer()
+        for b in self.bucket_sizes:
+            t0 = time.perf_counter()
+            cost = None
+            with tracer.span("serve.compile", track="serve",
+                             engine=name, bucket=b):
+                if warmup:  # the first call builds what it launches
+                    cost = jit_cost(self._run_zeros, b)
+            compile_s = time.perf_counter() - t0
+            record_compile(compile_s, what="serve", registry=self.registry)
+            st = {"compile_s": round(compile_s, 4), "warmup_s": 0.0}
+            if warmup:
+                st["warmup_s"] = round(self._warm_bucket(b), 4)
+            if cost is not None:
+                st["flops"] = cost["flops"]
+            self.compile_stats[b] = st
+        self._export_cost_gauges(self.registry)
+        # the post-construction memory watermark
+        sample_hbm(self.registry)
+
+    def _run_zeros(self, b: int) -> torch.Tensor:
+        return self.run_padded(torch.zeros((b, *self.input_shape),
+                                           dtype=self.input_dtype,
+                                           device=self.device))
+
+    def _warm_bucket(self, b: int) -> float:
+        t0 = time.perf_counter()
+        with get_tracer().span("serve.warmup", track="serve",
+                               engine=self.name, bucket=b):
+            self._run_zeros(b)
+            _sync(self.device)
+        return time.perf_counter() - t0
 
     def warm(self) -> Dict[int, float]:
         """Run every bucket once on zeros, on the calling thread, and wait
-        for the device. Returns {bucket: seconds}. PyTorch keeps cuDNN's
-        handles and execution-plan cache per thread, so a thread that will
-        serve (the batcher's dispatcher) warms for itself."""
-        out = {}
-        for b in self.bucket_sizes:
-            t0 = time.perf_counter()
-            self.run_padded(torch.zeros((b, *self.input_shape),
-                                        dtype=self.input_dtype,
-                                        device=self.device))
-            _sync(self.device)
-            out[b] = time.perf_counter() - t0
-        return out
+        for the device (a ``serve.warmup`` span each). Returns {bucket:
+        seconds}. PyTorch keeps cuDNN's handles and execution-plan cache
+        per thread, so a thread that will serve (the batcher's dispatcher)
+        warms for itself."""
+        return {b: self._warm_bucket(b) for b in self.bucket_sizes}
+
+    def _export_cost_gauges(self, registry) -> None:
+        """Set the per-sample FLOPs gauge on ``registry`` (construction does
+        it for :attr:`registry`; ``start_telemetry`` repeats it for the
+        batcher's scrape registry). FLOPs are the aten ops'
+        (:mod:`~dcnn_tpu_torch.obs.xla`); no bytes are counted, so the
+        byte/FLOP gauge stays unset."""
+        top = self.compile_stats.get(self.max_batch, {})
+        if top.get("flops"):
+            registry.gauge(
+                "serve_flops_per_sample",
+                "XLA cost-analysis FLOPs per sample at the largest "
+                "serve bucket").set(top["flops"] / self.max_batch)
+            if top.get("bytes_per_flop") is not None:
+                registry.gauge(
+                    "serve_bytes_per_flop",
+                    "roofline byte/FLOP ratio of the largest serve "
+                    "bucket executable").set(top["bytes_per_flop"])
 
     @classmethod
     def from_model(cls, model, *, fold: bool = True,

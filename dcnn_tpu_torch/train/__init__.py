@@ -1,8 +1,9 @@
 """Training (counterpart of ``dcnn_tpu/train``): the single-device
-trainer over host loaders, resident datasets and staged chunks, and
-checkpoints in the JAX package's format."""
+trainer over host loaders, resident datasets and staged chunks,
+checkpoints in the JAX package's format, and per-layer profiling."""
 
 from .checkpoint import load_checkpoint, save_checkpoint
+from .profiling import LayerProfiler
 from .trainer import (
     TrainState, Trainer, batch_generator, create_train_state,
     evaluate_classification,
@@ -10,7 +11,8 @@ from .trainer import (
     train_classification_model, train_regression_model,
 )
 
-__all__ = ["TrainState", "Trainer", "batch_generator", "create_train_state",
+__all__ = ["LayerProfiler", "TrainState", "Trainer", "batch_generator",
+           "create_train_state",
            "evaluate_classification", "evaluate_regression",
            "load_checkpoint", "make_eval_step", "make_multi_step",
            "make_train_step", "save_checkpoint",

@@ -29,6 +29,20 @@
   are ``fold_in(fold_in(seed, epoch), epoch)`` and ``fold_in(fold_in(seed,
   epoch), chunk)`` (:mod:`dcnn_tpu_torch.core.keys`).
 
+Observability, as in the JAX trainer: ``train.epoch``, ``train.step``,
+``train.chunk``, ``train.resident_epoch`` and ``train.eval`` spans (track
+``train``; each step's, chunk's and epoch's span ends after its loss is
+read on the host, which the loop does anyway, so a span adds no wait for
+the card), per-epoch rollups on the process-global registry
+(``train_epochs_total``, ``train_epoch_seconds``, the memory gauges, ...),
+``flight_dir`` configuring the process-global flight recorder (the step
+guard's and the watchdog's bundles), ``profiler`` running one
+:class:`~dcnn_tpu_torch.train.profiling.LayerProfiler` forward and backward
+per epoch outside the step (buffers put back, so the run's numbers do not
+move), and ``debug`` turning on :mod:`~dcnn_tpu_torch.core.debug`'s
+non-finite checks. ``slow_detect`` is read by elastic training only, as in
+the JAX package, so a plain fit accepts it and does nothing.
+
 Runs on ``config.device_type`` (CUDA unless ``"cpu"``); asking for CUDA
 without a GPU raises. What the config asks for that this package has not
 ported yet raises ``NotImplementedError`` naming the field; nothing is
@@ -47,6 +61,7 @@ import torch
 
 import numpy as np
 
+from ..core import debug as _debug
 from ..core.config import ProfilerType, TrainingConfig
 from ..core.device import DeviceLike, resolve_device
 from ..core.keys import fold_in, generator, to_device
@@ -55,6 +70,9 @@ from ..data.device_dataset import (
 )
 from ..data.wire import decode_batch, wire_scale
 from ..nn.sequential import Sequential
+from ..obs.registry import get_registry
+from ..obs.tracer import get_tracer
+from ..obs.xla import sample_hbm
 from ..ops.losses import get_loss, upcast_logits
 from ..ops.metrics import correct_count
 from ..optim.optimizers import Optimizer
@@ -63,25 +81,24 @@ from ..resilience import faults as _faults
 from ..resilience.checkpoint import CheckpointManager
 from ..resilience.guards import StallWatchdog, StepGuard, global_norm_sq
 from .checkpoint import save_checkpoint
+from .profiling import LayerProfiler
 
-# (field, asks for it) of every TrainingConfig feature not ported yet
+# (field, asks for it, the ROADMAP.md Queue 1 item that ports it) of every
+# TrainingConfig feature not ported yet
 _UNPORTED = (
-    ("elastic", lambda c: c.elastic),
-    ("slow_detect", lambda c: c.slow_detect),
-    ("metrics_port", lambda c: c.metrics_port >= 0),
-    ("flight_dir", lambda c: c.flight_dir),
-    ("aot_cache_dir", lambda c: c.aot_cache_dir),
-    ("profiler", lambda c: c.profiler != ProfilerType.NONE),
-    ("debug", lambda c: c.debug),
+    ("elastic", lambda c: c.elastic, 6),
+    ("metrics_port", lambda c: c.metrics_port >= 0, 7),
+    ("aot_cache_dir", lambda c: c.aot_cache_dir, 8),
 )
 
 
 def _refuse_unported(config: TrainingConfig) -> None:
-    for field, asked in _UNPORTED:
+    for field, asked, item in _UNPORTED:
         if asked(config):
             raise NotImplementedError(
                 f"TrainingConfig.{field}={getattr(config, field)!r}: this "
-                f"feature is not ported to dcnn_tpu_torch yet (ROADMAP.md)")
+                f"feature is not ported to dcnn_tpu_torch yet (ROADMAP.md "
+                f"Queue 1 item {item})")
 
 
 def _model_device(model: Sequential) -> torch.device:
@@ -140,7 +157,11 @@ def make_train_step(model: Sequential, loss_fn: Callable,
     params, optimizer state and ``ts.step`` are untouched, and the
     batchnorm running statistics, which the training forward has already
     moved in place, are put back from a copy taken before it. Without the
-    guard the step is exactly the unguarded one (no copy, no probe)."""
+    guard the step is exactly the unguarded one (no copy, no probe).
+
+    While debug mode is on (:mod:`~dcnn_tpu_torch.core.debug`), a
+    non-finite loss or gradient raises ``FloatingPointError`` naming the
+    step, after the backward and before the guard or the optimizer."""
     n_mb = int(num_microbatches)
 
     def forward_loss(x, y, generator):
@@ -177,6 +198,9 @@ def make_train_step(model: Sequential, loss_fn: Callable,
             logits = torch.cat(outs).reshape(x.shape[0], -1)
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
+        if _debug.debug_nans():
+            _debug.check_finite(ts.step + 1, loss,
+                                global_norm_sq(grads.values()))
         if guard:
             bad = not bool(torch.isfinite(loss)
                            & torch.isfinite(global_norm_sq(grads.values())))
@@ -275,9 +299,19 @@ class Trainer:
         self.loss_fn = get_loss(loss) if isinstance(loss, str) else loss
         self.scheduler = scheduler
         self._global_step = 0
+        cfg = self.config
+        if cfg.debug:
+            # process-global, as the JAX trainer's jax_debug_nans
+            _debug.enable_debug_mode()
+        self.profiler = (LayerProfiler(cfg.profiler)
+                         if cfg.profiler != ProfilerType.NONE else None)
+        if cfg.flight_dir:
+            # the process-global recorder, so the step guard and the
+            # watchdog dump their bundles there (DCNN_FLIGHT_DIR's meaning)
+            from ..obs.flight import configure_flight
+            configure_flight(cfg.flight_dir)
         # the non-finite step guard (resilience/guards.py): "off" keeps the
         # unguarded step, with no copy and no probe
-        cfg = self.config
         self.guard = None
         if cfg.nonfinite_policy != "off":
             if cfg.steps_per_dispatch > 1:
@@ -357,6 +391,7 @@ class Trainer:
             return self._train_epoch_resident(ts, loader, epoch, seed)
         if self.multi_step is not None:
             return self._train_epoch_chunked(ts, loader, epoch, seed)
+        tracer = get_tracer()
         total_loss, total_correct, total_n = 0.0, 0, 0
         t0 = time.perf_counter()
         scale = wire_scale(loader)
@@ -378,19 +413,24 @@ class Trainer:
                 except _faults.InjectedFault:
                     xb = torch.full_like(xb, float("nan"))
             gen = batch_generator(seed, epoch, bi, self.device)
-            if self.guard is not None:
-                loss, logits, bad = self.train_step(ts, xb, yb, self.lr, gen)
-                action = self.guard.observe(self._global_step, bad,
-                                            float(loss))
-                if action == "rollback":
-                    self._rollback(ts)
-                    continue
-                if action == "skipped":
-                    continue  # a NaN loss must not poison the epoch mean
-            else:
-                loss, logits = self.train_step(ts, xb, yb, self.lr, gen)
-            total_loss += float(loss) * x.shape[0]
-            total_correct += int(correct_count(logits, yb))
+            # the loss and accuracy reads inside the span wait for the
+            # step, so step spans tile the epoch's wall
+            with tracer.span("train.step", track="train", epoch=epoch,
+                             batch=bi):
+                if self.guard is not None:
+                    loss, logits, bad = self.train_step(ts, xb, yb, self.lr,
+                                                        gen)
+                    action = self.guard.observe(self._global_step, bad,
+                                                float(loss))
+                    if action == "rollback":
+                        self._rollback(ts)
+                        continue
+                    if action == "skipped":
+                        continue  # a NaN loss must not poison the mean
+                else:
+                    loss, logits = self.train_step(ts, xb, yb, self.lr, gen)
+                total_loss += float(loss) * x.shape[0]
+                total_correct += int(correct_count(logits, yb))
             total_n += x.shape[0]
             if (self.scheduler is not None
                     and self.config.scheduler_step == "batch"):
@@ -437,9 +477,14 @@ class Trainer:
         if self.watchdog is not None:
             self.watchdog.beat()
         key = fold_in(fold_in(seed, epoch), epoch)
-        ts, mean_loss = epoch_fn(ts, ds.x, ds.y, key, lr_arg)
+        # the epoch is issued without a wait; the loss read inside the
+        # span waits for it, so the span is the epoch's wall
+        with get_tracer().span("train.resident_epoch", track="train",
+                               epoch=epoch):
+            ts, mean_loss = epoch_fn(ts, ds.x, ds.y, key, lr_arg)
+            mean_loss = float(mean_loss)
         self._global_step += ds.steps_per_epoch
-        return ts, float(mean_loss), float("nan")
+        return ts, mean_loss, float("nan")
 
     def _train_epoch_chunked(self, ts: TrainState, loader, epoch: int,
                              seed: int) -> Tuple[TrainState, float, float]:
@@ -463,10 +508,14 @@ class Trainer:
                     f" wrap the loader in PrefetchLoader(stage_batches=K)")
             metric = (total_loss / total_n) if total_n > 0 else None
             lr_arg = self._batch_lrs(xs.shape[0], metric)
-            ts, mean_loss = self.multi_step(ts, xs, ys,
-                                            fold_in(epoch_key, ci), lr_arg)
-            n = xs.shape[0] * xs.shape[1]
-            total_loss += float(mean_loss) * n
+            with get_tracer().span("train.chunk", track="train",
+                                   epoch=epoch, chunk=ci,
+                                   steps=int(xs.shape[0])):
+                ts, mean_loss = self.multi_step(ts, xs, ys,
+                                                fold_in(epoch_key, ci),
+                                                lr_arg)
+                n = xs.shape[0] * xs.shape[1]
+                total_loss += float(mean_loss) * n
             total_n += n
             self._global_step += xs.shape[0]
             if self.config.progress_interval and (ci + 1) % max(
@@ -518,24 +567,91 @@ class Trainer:
                 # saver-thread failure surfaces here
                 self.checkpoints.wait()
 
+    @staticmethod
+    def _epoch_samples(loader) -> Optional[int]:
+        """Samples an epoch consumes, for the throughput gauge; None (the
+        gauge skipped) when the loader tells nothing."""
+        spe = getattr(loader, "steps_per_epoch", None)
+        bs = getattr(loader, "batch_size", None)
+        if spe and bs:
+            return int(spe) * int(bs)
+        n = getattr(loader, "num_samples", None)
+        if n:
+            return int(n)
+        x = getattr(loader, "x", None)
+        if x is not None and hasattr(x, "shape"):
+            return int(x.shape[0])
+        return None
+
+    def _profile_epoch(self, ts: TrainState, loader, epoch: int,
+                       seed: Optional[int]) -> None:
+        """One profiled layer-by-layer forward and backward of the first
+        batch, outside the step, and the profiler's table printed. A
+        resident split profiles its first batch decoded (augmentation
+        excluded, as it runs inside the step there); a chunked loader its
+        first chunk's first batch. The profiler puts the model's buffers
+        back and touches no gradient, so training is unchanged."""
+        self.profiler.maybe_clear_per_batch()
+        if isinstance(loader, DeviceDataset):
+            b = loader.batch_size
+            x = decode_batch(loader.x[:b], loader.scale)
+            y = torch.nn.functional.one_hot(
+                loader.y[:b].long(), loader.num_classes).float()
+        else:
+            x, y = next(iter(loader))
+            if self.multi_step is not None:
+                x, y = x[0], y[0]
+            x, y = _batch(x, y, self.device, wire_scale(loader))
+        gen = generator(fold_in(self.config.seed if seed is None else seed,
+                                epoch), self.device)
+        logits = self.profiler.profile_forward(self.model, x, training=True,
+                                               generator=gen)
+        out = upcast_logits(logits).detach().requires_grad_(True)
+        with torch.enable_grad():
+            grad, = torch.autograd.grad(self.loss_fn(out, y), out)
+        self.profiler.profile_backward(self.model, x, grad, generator=gen)
+        print(self.profiler.summary(), flush=True)
+
     def _fit_loop(self, ts: TrainState, train_loader, val_loader,
                   epochs: int, start_epoch: int, seed: Optional[int],
                   best_val: float) -> TrainState:
         cfg = self.config
+        tracer, reg = get_tracer(), get_registry()
         for epoch in range(start_epoch, epochs + 1):
             if self.watchdog is not None:
                 self.watchdog.beat()
             if hasattr(train_loader, "shuffle"):
                 train_loader.shuffle(epoch)
             t0 = time.perf_counter()
-            ts, train_loss, train_acc = self.train_epoch(ts, train_loader,
-                                                         epoch, seed)
+            with tracer.span("train.epoch", track="train", epoch=epoch):
+                ts, train_loss, train_acc = self.train_epoch(
+                    ts, train_loader, epoch, seed)
             dt = time.perf_counter() - t0
+            # per-epoch rollups, live whether or not tracing is on
+            n_epoch = self._epoch_samples(train_loader)
+            reg.counter("train_epochs_total", "completed epochs").inc()
+            if n_epoch:
+                reg.counter("train_samples_total",
+                            "samples trained on").inc(n_epoch)
+                reg.gauge("train_throughput_ips",
+                          "last epoch samples/sec").set(n_epoch / dt)
+            reg.histogram("train_epoch_seconds",
+                          "wall per epoch").observe(dt)
+            sample_hbm(reg)  # a latched no-op without a card
+            reg.gauge("train_lr", "current learning rate").set(
+                float(self.lr))
+            reg.gauge("train_loss", "last epoch mean train loss").set(
+                float(train_loss))
+            if self.profiler is not None:
+                self._profile_epoch(ts, train_loader, epoch, seed)
             val_loss = val_acc = None
             if val_loader is not None:
-                val_loss, val_acc = evaluate_classification(
-                    self.model, self.loss_fn, val_loader,
-                    eval_step=self.eval_step)
+                with tracer.span("train.eval", track="train", epoch=epoch):
+                    val_loss, val_acc = evaluate_classification(
+                        self.model, self.loss_fn, val_loader,
+                        eval_step=self.eval_step)
+                reg.gauge("train_val_acc", "last validation accuracy").set(
+                    float(val_acc))
                 # the best-val snapshot (the JAX trainer's)
                 if cfg.snapshot_dir and val_acc > best_val:
                     best_val = val_acc

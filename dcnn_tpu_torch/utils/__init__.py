@@ -1,0 +1,6 @@
+"""Utilities (counterpart of ``dcnn_tpu/utils``). Ported so far:
+:mod:`.env`, the ``.env`` file and typed environment lookup."""
+
+from .env import get_env, load_env_file
+
+__all__ = ["get_env", "load_env_file"]

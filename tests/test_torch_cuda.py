@@ -2,7 +2,9 @@
 version, the training path run through the flash kernels, and the data feed
 on the card (pinned buffers, side streams and events against the host
 bytes, a worker pool built after CUDA init, the device augmentations and a
-resident epoch against the CPU).
+resident epoch against the CPU), and the observability core on the card
+(``sample_hbm``, ``LayerProfiler``'s CUDA events, a traced resident epoch
+with no synchronisation, the telemetry server over an int8 engine).
 
 Every test here needs an NVIDIA GPU and skips without one (decided inside
 the test). The file imports neither JAX nor the JAX package, so it also
@@ -1399,3 +1401,150 @@ def test_suggest_num_pages_reads_the_card():
     assert abs(got - free * 0.5 // page) <= (64 << 20) // page
     # 20% of an H100's free memory is far more than 4096 pages of 8 KiB
     assert suggest_num_pages(page) == 4096
+
+
+# ---------------------------------------------------------- observability
+
+def test_sample_hbm_reads_the_card():
+    """``sample_hbm`` on the card: the caching allocator's live bytes and
+    peak, the card's capacity, a monotone watermark."""
+    from dcnn_tpu_torch.obs import MetricsRegistry
+    from dcnn_tpu_torch.obs import xla as obs_xla
+
+    obs_xla._HBM_SUPPORTED = None
+    keep = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    reg = MetricsRegistry()
+    s = obs_xla.sample_hbm(reg)
+    assert s is not None and obs_xla._HBM_SUPPORTED is True
+    assert s["hbm_bytes_in_use"] >= keep.numel()
+    assert s["hbm_peak_bytes"] >= s["hbm_bytes_in_use"]
+    assert s["hbm_bytes_limit"] == torch.cuda.mem_get_info()[1]
+    peak = s["hbm_peak_bytes"]
+    del keep
+    torch.cuda.empty_cache()
+    assert obs_xla.sample_hbm(reg)["hbm_peak_bytes"] >= peak
+    assert reg.gauge("hbm_peak_bytes").value >= peak
+
+
+def test_layer_profiler_cuda_events_on_the_narrow_mha():
+    """``LayerProfiler`` on the card times every layer of a narrow MHA with
+    CUDA events, forward and backward, through the flash kernels, and puts
+    the model back as it found it."""
+    from dcnn_tpu_torch.core import ProfilerType
+    from dcnn_tpu_torch.train.profiling import LayerProfiler
+
+    model = (SequentialBuilder("prof_mha").input((16, 32))
+             .residual([MultiHeadAttentionLayer(num_heads=2)])
+             .residual([MultiHeadAttentionLayer(num_heads=2)])
+             .flatten().dense(10).build()).init(
+        generator=torch.Generator().manual_seed(0), device="cuda")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    x = torch.randn(8, 16, 32, device="cuda")
+    prof = LayerProfiler(ProfilerType.NORMAL)
+    f0, b0 = (_kernels.flash_fwd.launches, _kernels.flash_bwd_dq.launches)
+    out = prof.profile_forward(model, x, training=True)
+    g = prof.profile_backward(model, x, torch.ones_like(out))
+    assert _kernels.flash_fwd.launches > f0
+    assert _kernels.flash_bwd_dq.launches > b0
+    names = [l.name for l in model.layers]
+    assert list(prof.forward_us) == names
+    assert all(prof.forward_us[n] > 0 and prof.backward_us[n] > 0
+               for n in names)
+    assert g.shape == x.shape and bool(torch.isfinite(g).all())
+    assert all(torch.equal(v, before[k])
+               for k, v in model.state_dict().items())
+    assert all(p.grad is None for p in model.parameters())
+    assert "TOTAL" in prof.summary()
+
+
+def test_traced_resident_epoch_adds_no_synchronisation():
+    """A resident epoch on the card with the tracer on, inside the
+    trainer's ``train.resident_epoch`` span: nothing waits for the card
+    (``set_sync_debug_mode("error")``); the span and the loss read come
+    after."""
+    from dcnn_tpu_torch.data import DeviceDataset, make_resident_epoch
+    from dcnn_tpu_torch.obs import configure
+
+    rng = np.random.default_rng(8)
+    y = rng.integers(0, 4, 64)
+    x = np.clip(y[:, None, None, None] * 50 + 20
+                + rng.normal(0, 10, (64, 8, 8, 1)), 0, 255).astype(np.uint8)
+    model = _feed_cnn("cuda")
+    opt = SGD(0.05, momentum=0.9)
+    ds = DeviceDataset(x, y, 4, batch_size=8, device="cuda")
+    epoch = make_resident_epoch(model, get_loss("softmax_crossentropy"),
+                                opt, num_classes=4, batch_size=8)
+    ts = create_train_state(model, opt)
+    tracer = configure(enabled=True)
+    tracer.clear()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            with tracer.span("train.resident_epoch", track="train", epoch=1):
+                with tracer.span("inner", track="train"):
+                    ts, mean = epoch(ts, ds.x, ds.y, 3, 0.05)
+                tracer.instant("issued", track="train")
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert np.isfinite(float(mean))
+        assert tracer.span_counts() == {"inner": 1, "issued": 1,
+                                        "train.resident_epoch": 1}
+    finally:
+        configure(enabled=False)
+        tracer.clear()
+
+
+def test_telemetry_server_over_the_int8_engine():
+    """``DynamicBatcher.start_telemetry`` over an int8 engine on the card:
+    ``/metrics`` parses with the card's memory gauges non-zero, ``/healthz``
+    200 then 503 after ``drain``, ``/snapshot`` with the serve, engine and
+    tsdb blocks, the fused int8 conv launched, logits bit-identical to the
+    same engine served with the tracer off."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    from dcnn_tpu_torch.obs import configure
+    from dcnn_tpu_torch.obs.exposition import parse_prometheus_text
+    from dcnn_tpu_torch.serve import DynamicBatcher, InferenceEngine
+
+    model = _int8_cnn()
+    rng = np.random.default_rng(1)
+    calib = rng.normal(size=(16, *model.input_shape)).astype(np.float32)
+    pool = rng.normal(size=(6, *model.input_shape)).astype(np.float32)
+    eng = InferenceEngine.from_model(model, int8_calib=calib, max_batch=8,
+                                     device="cuda")
+    plain = eng.infer(pool).cpu()
+
+    def get(url):
+        try:
+            with urllib.request.urlopen(url, timeout=10) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    configure(enabled=True)
+    b = DynamicBatcher(eng, start=False)
+    srv = b.start_telemetry(port=0)
+    try:
+        before = _kernels.conv_int8_fused.launches
+        futs = [b.submit(pool[i]) for i in range(6)]
+        b.step()
+        got = torch.from_numpy(np.stack([f.result(10) for f in futs]))
+        assert _kernels.conv_int8_fused.launches > before
+        assert torch.equal(got, plain)
+        code, body = get(srv.url + "/metrics")
+        fams = parse_prometheus_text(body.decode())
+        assert code == 200
+        assert fams["hbm_bytes_in_use"]["value"] > 0
+        assert fams["hbm_peak_bytes"]["value"] > 0
+        assert fams["serve_samples_completed_total"]["value"] == 6
+        assert get(srv.url + "/healthz")[0] == 200
+        snap = json.loads(get(srv.url + "/snapshot")[1])
+        assert {"serve", "engine", "tsdb"} <= set(snap)
+        b.drain()
+        assert get(srv.url + "/healthz")[0] == 503
+    finally:
+        b.shutdown()
+        configure(enabled=False)

@@ -551,6 +551,39 @@ def test_trainer_fit_chunked_prefetch_matches_jax():
     assert ts.step == 8 and np.isnan(tt.history[0]["train_acc"])
 
 
+@pytest.mark.parametrize("decoupled", [True, False])
+def test_chunked_epoch_equals_the_per_step_epoch_bit_for_bit(decoupled):
+    """Two epochs of the narrow CNN chunked (``PrefetchLoader(
+    stage_batches=2)``, ``steps_per_dispatch=2``, the per-batch lrs as a
+    vector) and per step (the lr a float), Adam with weight decay (AdamW's
+    decoupled form and the L2 form) under a per-batch warmup-cosine
+    schedule: params and running statistics bit for bit. The per-step path
+    used to take ``wd·lr`` in double where the vector's product is fp32,
+    an ulp apart at some lrs; a large decay makes that visible here."""
+    x, y = _blobs(n=64, seed=3)
+    oh = np.eye(4, dtype=np.float32)[y]
+    runs = []
+    for spd in (1, 2):
+        tm = _pair(10)[3]
+        opt = Adam(0.03, weight_decay=0.9, decouple_weight_decay=decoupled)
+        ld = ArrayDataLoader(x, oh, batch_size=8, seed=1)
+        if spd > 1:
+            ld = PrefetchLoader(ld, stage_batches=spd, device="cpu")
+        tr = Trainer(tm, opt, LOSS, TrainingConfig(
+            device_type="cpu", learning_rate=0.03, snapshot_dir=None,
+            progress_interval=0, scheduler_step="batch",
+            steps_per_dispatch=spd),
+            WarmupCosineAnnealing(0.03, warmup_steps=2, total_steps=16))
+        ts = tr.fit(create_train_state(tm, opt), ld, epochs=2)
+        runs.append((tr, ts, [t.clone() for t in tm.state_dict().values()]))
+    (a, ts_a, sa), (b, ts_b, sb) = runs
+    assert ts_a.step == ts_b.step == 16
+    assert all(torch.equal(u, v) for u, v in zip(sa, sb))
+    for p, q in zip(a.history, b.history):
+        # the chunk's mean loss is summed in fp32, the per-step one in double
+        assert q["train_loss"] == pytest.approx(p["train_loss"], rel=1e-6)
+
+
 def test_trainer_fit_feed_workers_matches_jax():
     """``PrefetchLoader(feed_workers=2)`` (the port's spawned workers)
     through the per-step loop against the JAX package's pooled loader."""

@@ -447,8 +447,11 @@ def test_pool_rejects_oversized_shard_double_iter_and_slow_detect():
     pool.close()
     with pytest.raises(RuntimeError, match="closed"):
         list(pool.shards([np.arange(4, dtype=np.int64)]))
-    with pytest.raises(NotImplementedError, match="slowness"):
-        FeedWorkerPool(x, y, 16, num_workers=1, slow_detect=True)
+    # the gray-failure recycler is ported (tests/test_torch_slowness.py)
+    slow = FeedWorkerPool(x, y, 16, num_workers=1, backend="thread",
+                          slow_detect=True)
+    assert slow.slow_detect
+    slow.close()
 
 
 def test_registry_instruments_settle():

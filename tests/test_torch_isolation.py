@@ -9,14 +9,18 @@ and load the port's own library and never one under ``dcnn_tpu/native/``,
 the resident dataset, ``PrefetchLoader`` with its spawned feed workers,
 the transfer engine and the streaming feed), on int8 serving (quantization
 of a CNN and of ``mha_classifier``, the int8 conv's plain version, a
-quantized checkpoint) and on continuous-batching decode of
-``mha_decoder``."""
+quantized checkpoint), on continuous-batching decode of
+``mha_decoder``, and on the observability core: each of its modules
+imported alone, and the tracer, the telemetry server scraped over HTTP,
+the layer profiler, debug mode and ``hard_fence`` driven together."""
 
 import ast
 import os
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 REPO = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "dcnn_tpu", "msgpack")
@@ -236,3 +240,72 @@ def test_data_feed_and_native_helpers_leave_jax_out():
 
 def test_int8_serving_and_decode_leave_jax_out():
     _run_isolated(INT8_DECODE)
+
+
+# the observability core and its neighbours, each its own module
+OBS_MODULES = (
+    "dcnn_tpu_torch.utils.env", "dcnn_tpu_torch.obs.exposition",
+    "dcnn_tpu_torch.obs.tracer", "dcnn_tpu_torch.obs.xla",
+    "dcnn_tpu_torch.obs.flight", "dcnn_tpu_torch.obs.tsdb",
+    "dcnn_tpu_torch.obs.server", "dcnn_tpu_torch.resilience.retry",
+    "dcnn_tpu_torch.resilience.slowness", "dcnn_tpu_torch.core.fence",
+    "dcnn_tpu_torch.core.debug", "dcnn_tpu_torch.train.profiling",
+)
+OBS = (
+    "import numpy as np\n"
+    "from dcnn_tpu_torch.core.debug import debug_mode\n"
+    "from dcnn_tpu_torch.core.fence import hard_fence\n"
+    "from dcnn_tpu_torch.models import create_model\n"
+    "from dcnn_tpu_torch.obs import configure, get_tracer\n"
+    "from dcnn_tpu_torch.obs.exposition import parse_prometheus_text\n"
+    "from dcnn_tpu_torch.obs.tsdb import TimeSeriesStore, TsdbSampler\n"
+    "from dcnn_tpu_torch.obs.xla import sample_hbm\n"
+    "from dcnn_tpu_torch.serve import DynamicBatcher, InferenceEngine\n"
+    "from dcnn_tpu_torch.train.profiling import LayerProfiler\n"
+    "import urllib.request\n"
+    "configure(enabled=True)\n"
+    "m = create_model('mha_classifier').init("
+    "generator=torch.Generator().manual_seed(0), device='cpu')\n"
+    "e = InferenceEngine.from_model(m, max_batch=2, device='cpu')\n"
+    "b = DynamicBatcher(e, start=False)\n"
+    "srv = b.start_telemetry(port=0)\n"
+    "f = b.submit(np.zeros((32, 64), np.float32))\n"
+    "b.step()\n"
+    "text = urllib.request.urlopen(srv.url + '/metrics').read().decode()\n"
+    "assert parse_prometheus_text(text)['serve_samples_completed_total']"
+    "['value'] == 1\n"
+    "b.shutdown()\n"
+    "assert get_tracer().span_counts()['serve.infer'] == 1\n"
+    "p = LayerProfiler()\n"
+    "p.profile_forward(m, torch.zeros(2, 32, 64))\n"
+    "assert len(p.forward_us) == len(m.layers)\n"
+    "with debug_mode():\n"
+    "    hard_fence({'a': torch.ones(2)})\n"
+    "assert sample_hbm() is None\n")
+
+
+@pytest.mark.parametrize("module", OBS_MODULES)
+def test_obs_core_module_imports_no_jax(module):
+    """The source of each module of the observability core imports no
+    JAX, flax, msgpack or JAX-package module."""
+    path = REPO / (module.replace(".", "/") + ".py")
+    bad = [f"{line} imports {mod}" for line, mod in _imports(path)
+           if _forbidden(mod)]
+    assert not bad, bad
+
+
+def test_obs_core_modules_leave_jax_out_one_by_one():
+    """The modules of the observability core imported one after another in
+    a fresh interpreter: after each, no JAX, flax, msgpack or JAX-package
+    module is loaded."""
+    _run_isolated(
+        "import importlib\n"
+        f"for name in {OBS_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "    bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "    assert not bad, (name, bad)\n")
+
+
+def test_obs_core_path_leaves_jax_out():
+    _run_isolated(OBS)

@@ -315,40 +315,59 @@ def test_mha_classifier_trains_on_the_marker_task():
             _kernels.flash_bwd_dkv.launches) == before
 
 
-UNPORTED = {
-    "elastic": True, "slow_detect": True, "metrics_port": 0,
-    "flight_dir": "flight", "aot_cache_dir": "aot", "debug": True,
-}
+# the fields still refused, with the ROADMAP.md Queue 1 item that ports each
+UNPORTED = {"elastic": (True, 6), "metrics_port": (0, 7),
+            "aot_cache_dir": ("aot", 8)}
 # ported since: checkpoints, resume, the step guard and the watchdog; the
-# chunked epoch (steps_per_dispatch) and the feed workers' config field
+# chunked epoch (steps_per_dispatch) and the feed workers' config field;
+# the flight recorder, the layer profiler, debug mode and slow_detect (read
+# by elastic training only, as in the JAX package)
 PORTED = {"checkpoint_dir": "ckpt", "resume": "auto",
           "nonfinite_policy": "skip_step", "stall_timeout_s": 5.0,
-          "steps_per_dispatch": 4, "feed_workers": 2}
+          "steps_per_dispatch": 4, "feed_workers": 2, "flight_dir": "flight",
+          "profiler": "normal", "debug": True, "slow_detect": True}
 
 
-@pytest.mark.parametrize("field", sorted(UNPORTED) + ["profiler"])
+@pytest.mark.parametrize("field", sorted(UNPORTED))
 def test_unported_config_features_raise(field):
-    from dcnn_tpu_torch.core import ProfilerType
-    value = ProfilerType.NORMAL if field == "profiler" else UNPORTED[field]
+    value, item = UNPORTED[field]
     tm = create_mha_classifier().init(device="cpu")
     cfg = TrainingConfig(device_type="cpu", **{field: value})
-    with pytest.raises(NotImplementedError, match=f"TrainingConfig.{field}"):
+    with pytest.raises(NotImplementedError,
+                       match=f"TrainingConfig.{field}.*Queue 1 item {item}"):
         Trainer(tm, Adam(), LOSS, cfg)
 
 
 @pytest.mark.parametrize("field", sorted(PORTED))
 def test_ported_config_features_construct(field, tmp_path):
-    """The fault-tolerance and feed fields no longer raise: a Trainer
-    builds with each (a checkpoint manager where checkpoint_dir is set, a
-    chunked step where steps_per_dispatch is)."""
+    """The fault-tolerance, feed and observability fields no longer raise:
+    a Trainer builds with each (a checkpoint manager where checkpoint_dir
+    is set, a chunked step where steps_per_dispatch is, a layer profiler
+    where profiler is; flight_dir configures the process-global recorder
+    and debug the process-global debug mode, both put back here)."""
+    from dcnn_tpu_torch.core import ProfilerType, debug
+    from dcnn_tpu_torch.obs import get_flight_recorder
+
     tm = create_mha_classifier().init(device="cpu")
     value = PORTED[field]
-    kw = {field: str(tmp_path / value) if field == "checkpoint_dir"
-          else value}
-    tr = Trainer(tm, Adam(), LOSS, TrainingConfig(device_type="cpu", **kw))
-    assert (tr.checkpoints is not None) == (field == "checkpoint_dir")
-    assert (tr.guard is not None) == (field == "nonfinite_policy")
-    assert (tr.multi_step is not None) == (field == "steps_per_dispatch")
+    if field in ("checkpoint_dir", "flight_dir"):
+        value = str(tmp_path / value)
+    elif field == "profiler":
+        value = ProfilerType(value)
+    rec = get_flight_recorder()
+    old_dir = rec.directory
+    try:
+        tr = Trainer(tm, Adam(), LOSS,
+                     TrainingConfig(device_type="cpu", **{field: value}))
+        assert (tr.checkpoints is not None) == (field == "checkpoint_dir")
+        assert (tr.guard is not None) == (field == "nonfinite_policy")
+        assert (tr.multi_step is not None) == (field == "steps_per_dispatch")
+        assert (tr.profiler is not None) == (field == "profiler")
+        assert debug.debug_nans() == (field == "debug")
+        assert (rec.directory == value) == (field == "flight_dir")
+    finally:
+        debug.disable_debug_mode()
+        rec.directory = old_dir
 
 
 def test_best_val_snapshot_and_resident_data_raise(tmp_path):

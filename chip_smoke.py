@@ -136,6 +136,19 @@ Phases, each fatal on failure:
    train step and the int8 B=32 batch; the LayerProfiler table of one
    ResNet-18 NCHW fp32 B=32 profiled step.
 
+Compiled sessions (CUDA graphs, ``dcnn_tpu_torch/core/graphs.py``): in
+serve, serve cnn, serve int8 and decode every bucket or lattice point is a
+captured graph whose replay is held to the eager call of the same input
+bit for bit (logits; tokens, logits and pool writes for decode); in train,
+train cnn and train feed (per-step, chunked, resident) the replayed runs
+to their eager twins (losses, params, BN statistics, optimizer state;
+cuDNN deterministic where convs train); in checkpoint a resumed run, in
+obs a guarded epoch with a NaN batch, likewise. Those phases print the
+launches a batch or step adds to the counters (a replay adds its
+capture's count), eager against replayed host wall for the same work, the
+card's busy share of each and each graph pool's bytes ("... graphs: ..."
+lines).
+
 Then it prints ``{"kernels": [...]}`` (rows 1-8, row 8 ``conv_int8_fused``
 with mode A ``conv_int8`` inside it; each row's ``launches_by_path`` has
 the obs phase's launches under ``"obs"`` where it launches the row) on
@@ -243,6 +256,75 @@ def eager_ms(fn, reps: int) -> float:
         fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3 / reps
+
+
+def replay_vs_eager(replayed, eager, calls: int) -> dict:
+    """The same work (a batch or a step a call, each ending in the host's
+    read of its result, as a caller makes it) replayed from CUDA graphs and
+    run eagerly: host wall ms a call over ``calls`` calls, in the order
+    eager, replayed, replayed, eager (both runs of each kept), then each
+    profiled over ``calls`` calls (``profiled``: the card's busy ms and
+    share a call, and the kernels CUPTI saw a call), and the launch
+    counters' advance over one more replayed call."""
+    import torch
+
+    def wall(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / calls
+
+    def many(fn):
+        return lambda: [fn() for _ in range(calls)]
+
+    e1, r1, r2, e2 = (wall(f) for f in (eager, replayed, replayed, eager))
+    pe, pr = profiled(many(eager), calls), profiled(many(replayed), calls)
+    before = launches()
+    replayed()
+    counted = {k: v - before[k] for k, v in launches().items()
+               if v != before[k]}
+    return {"eager_ms": [e1, e2], "replayed_ms": [r1, r2],
+            "counted_launches_per_call": counted,
+            "eager_busy_ms": pe["busy_ms"], "replayed_busy_ms": pr["busy_ms"],
+            "eager_busy_share": pe["busy_share"],
+            "replayed_busy_share": pr["busy_share"],
+            "eager_cupti_kernels": pe["launches_per_step"],
+            "replayed_cupti_kernels": pr["launches_per_step"]}
+
+
+def check_engine_graphs(engine, what: str, rng) -> dict:
+    """Every bucket of ``engine`` is a captured graph whose replay equals
+    the eager forward of the same random input bit for bit (fatal
+    otherwise). Returns the launches a replayed batch adds to the counters
+    (its capture's delta) by bucket, checked against the counters, and the
+    pool's bytes."""
+    import numpy as np
+    import torch
+    from dcnn_tpu_torch.core import get_precision_mode
+
+    per_batch = {}
+    for b in engine.bucket_sizes:
+        s = engine.sessions.get((b, get_precision_mode()))
+        if s is None or s.graph is None:
+            fail(f"{what}: bucket {b} was not captured as a CUDA graph")
+        x = torch.from_numpy(rng.normal(size=(b, *engine.input_shape))
+                             .astype(np.float32)).cuda()
+        before = launches()
+        got = engine.run_padded(x)
+        moved = {k: v - before[k] for k, v in launches().items()
+                 if v != before[k]}
+        if moved != s.launch_names():
+            fail(f"{what}: bucket {b}'s replay moved the counters by "
+                 f"{moved}, its capture counted {s.launch_names()}")
+        if not torch.equal(got, engine._forward(x)):
+            fail(f"{what}: bucket {b}'s replay differs from the eager "
+                 f"forward of the same input")
+        per_batch[b] = moved
+    return {"buckets_bit_equal": len(per_batch),
+            "launches_per_batch": per_batch,
+            "pool_bytes": engine.graphs.bytes()}
 
 
 def allowed_pairs(sq: int, sk: int, causal: bool) -> int:
@@ -776,9 +858,16 @@ def phase_serve(card: str):
           f"{snap['throughput_rps']} samples/s, p50 {snap['p50_ms']} ms, "
           f"p99 {snap['p99_ms']} ms, wall {wall:.3f} s on {card}",
           flush=True)
+    graphs = check_engine_graphs(engine, "serve", rng)
+    x32 = torch.from_numpy(pool[:32]).cuda()
+    graphs["b32"] = replay_vs_eager(lambda: engine.run_padded(x32).cpu(),
+                                    lambda: engine._forward(x32).cpu(), 20)
+    print(f"serve graphs: every bucket's replay equals its eager forward "
+          f"bit for bit; {json.dumps(graphs)} on {card}", flush=True)
     return {"launches": launches_fwd, "warm_launches": warm_launches,
             "served_launches": served_launches, "batches": n_batches,
-            "requests": requests, "max_abs_err": worst, **snap}
+            "requests": requests, "max_abs_err": worst, "graphs": graphs,
+            **snap}
 
 
 def marker_task(rng, n=256, s=32, e=64):
@@ -876,9 +965,8 @@ def phase_train(card: str):
     epochs, batch = 2, 32
     per_epoch = len(x) // batch
     runs = {}
-    ckpt = tempfile.TemporaryDirectory(prefix="chip_smoke_mha_", dir=ROOT)
 
-    def run(dev, **kw):
+    def run(dev, jit=True, **kw):
         model = from_jax(cfg, params, device=dev)
         opt = Adam(1e-3)
         ts = create_train_state(model, opt)
@@ -887,30 +975,49 @@ def phase_train(card: str):
         trainer = Trainer(model, opt, "softmax_crossentropy", TrainingConfig(
             epochs=epochs, batch_size=batch, snapshot_dir=None,
             progress_interval=0, device_type=dev, **kw))
+        if not jit:  # the eager twin
+            trainer.train_step = eager_step(trainer)
         return trainer, ts, loader, model
 
-    with ckpt:
-        kw = dict(checkpoint_dir=ckpt.name, checkpoint_every=1)
-        trainer, ts, loader, _ = run("cuda", **kw)
-        crash = FaultPlan().arm("train.nonfinite_input", at=per_epoch + 2,
-                                exc=InjectedCrash)
-        try:
-            with crash:
-                trainer.fit(ts, loader)
-        except InjectedCrash:
-            pass
-        else:
-            fail("train: the armed crash in epoch 2 did not fire")
-        trainer.checkpoints.close()
-        trainer, ts, loader, model = run("cuda", resume="auto", **kw)
-        reset_launches()  # the resumed training path starts here
-        ts = trainer.fit(ts, loader)
-        torch.cuda.synchronize()
-        counts = {k: v for k, v in launches().items()  # the path ends
-                  if k.startswith("flash_")}
-        trainer.checkpoints.close()
-    runs["cuda"] = (trainer.history, to_jax(model),
-                    opt_state_to_jax(model, ts.opt_state), ts.step)
+    # crashed in epoch 2, resumed; the graph run, then its eager twin
+    for jit in (True, False):
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_mha_",
+                                         dir=ROOT) as ckpt:
+            kw = dict(checkpoint_dir=ckpt, checkpoint_every=1)
+            trainer, ts, loader, _ = run("cuda", jit, **kw)
+            crash = FaultPlan().arm("train.nonfinite_input",
+                                    at=per_epoch + 2, exc=InjectedCrash)
+            try:
+                with crash:
+                    trainer.fit(ts, loader)
+            except InjectedCrash:
+                pass
+            else:
+                fail("train: the armed crash in epoch 2 did not fire")
+            trainer.checkpoints.close()
+            trainer, ts, loader, model = run("cuda", jit, resume="auto",
+                                             **kw)
+            reset_launches()  # the resumed training path starts here
+            ts = trainer.fit(ts, loader)
+            torch.cuda.synchronize()
+            if jit:
+                counts = {k: v for k, v in launches().items()  # path ends
+                          if k.startswith("flash_")}
+            trainer.checkpoints.close()
+        runs["cuda" if jit else "eager"] = (
+            trainer.history, to_jax(model),
+            opt_state_to_jax(model, ts.opt_state), ts.step)
+    twin = same_run(runs["cuda"], runs["eager"])
+    if twin:
+        fail(f"train: the resumed run's graph replays differ from its eager "
+             f"twin: {twin}")
+    walls = step_walls(from_jax(cfg, params, device="cuda"), Adam(1e-3),
+                       torch.from_numpy(x[:batch]).cuda(),
+                       torch.from_numpy(y[:batch]).cuda(), 1e-3, 20)
+    print(f"train graphs: the crashed and resumed run (checkpoints, 16 "
+          f"steps) bit-equal to its eager twin (losses, params, Adam state); "
+          f"one B={batch} step replayed vs eager: {json.dumps(walls)} on "
+          f"{card}", flush=True)
     trainer, ts, loader, model = run("cpu")
     ts = trainer.fit(ts, loader)
     runs["cpu"] = (trainer.history, to_jax(model),
@@ -961,7 +1068,64 @@ def phase_train(card: str):
             "noise_param_max_abs_diff": worst_noise,
             "noise_elements": n_noise, "elements": n_all,
             "diff_by_rms_band": [(lo, n, d) for lo, (n, d) in zip(edges, bins)],
-            "samples_per_s": sps}
+            "samples_per_s": sps, "graphs": walls}
+
+
+def eager_step(trainer):
+    """``trainer``'s train step with ``jit=False``: the eager twin a
+    replayed run is held to."""
+    from dcnn_tpu_torch.train import make_train_step
+
+    return make_train_step(trainer.model, trainer.loss_fn, trainer.optimizer,
+                           trainer.config.num_microbatches,
+                           guard=trainer.guard is not None, jit=False)
+
+
+def same_run(a, b) -> str:
+    """'' where two runs' (history, params, optimizer state, steps) are
+    equal bit for bit (losses as floats, arrays exactly), else what
+    differs."""
+    import numpy as np
+
+    (ha, pa, sa, na), (hb, pb, sb, nb) = a, b
+    if na != nb:
+        return f"steps {na} vs {nb}"
+    la, lb = ([h["train_loss"] for h in h_] for h_ in (ha, hb))
+    if la != lb:
+        return f"losses {la} vs {lb}"
+    for what, u, v in (("params", pa, pb), ("optimizer state", sa, sb)):
+        for i, (c, d) in enumerate(zip(_leaves(u), _leaves(v))):
+            if not np.array_equal(c, d):
+                return (f"{what} leaf {i}: max |diff| "
+                        f"{float(np.abs(c - d).max()):.3e}")
+    return ""
+
+
+def step_walls(model, opt, x, y, lr, calls, gen=False) -> dict:
+    """``replay_vs_eager`` over train steps of ``model`` on one batch:
+    ``make_train_step`` with and without ``jit`` (the graph's eager first
+    call and capture made first), the loss read each step, a fresh
+    generator a step where ``gen``."""
+    import torch
+
+    from dcnn_tpu_torch.ops.losses import get_loss
+    from dcnn_tpu_torch.train import create_train_state, make_train_step
+
+    ts = create_train_state(model, opt)
+    ce = get_loss("softmax_crossentropy")
+    graph = make_train_step(model, ce, opt)
+    eager = make_train_step(model, ce, opt, jit=False)
+
+    def run(step):
+        g = (torch.Generator(device="cuda").manual_seed(ts.step) if gen
+             else None)
+        return float(step(ts, x, y, lr, g)[0])
+
+    run(graph)
+    run(graph)
+    out = replay_vs_eager(lambda: run(graph), lambda: run(eager), calls)
+    out["pool_bytes"] = graph.pool.bytes()
+    return out
 
 
 CONV_TOL = {"float32": 1e-4,   # the same products summed in another order
@@ -1407,15 +1571,15 @@ def phase_serve_cnn(card):
     for _ in range(5):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        engine.run_padded(x32)
+        engine._forward(x32)
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     wall_ms = sorted(walls)[2]
-    graph_ms = device_ms(lambda: engine.run_padded(x32), 5)
+    graph_ms = device_ms(lambda: engine._forward(x32), 5)
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
-        engine.run_padded(x32)
+        engine._forward(x32)
         torch.cuda.synchronize()
 
     def dev_us(e):
@@ -1442,7 +1606,7 @@ def phase_serve_cnn(card):
           f"folded) {len(answers)} requests ({snap['requests_completed']} "
           f"samples) per round; max |logit err| vs unfolded CPU "
           f"{worst:.3e} = {rel:.3e} of the logit scale {scale:.3e} (tol "
-          f"{CNN_SERVE_RTOL:g}); round 1: {snap['batches']} batches, "
+          f"{CNN_SERVE_RTOL:g}); round 1 (replayed graphs): {snap['batches']} batches, "
           f"occupancy {snap['batch_occupancy']}, throughput "
           f"{snap['throughput_rps']} samples/s, p50 {snap['p50_ms']} ms, p99 "
           f"{snap['p99_ms']} ms, wall {wall:.3f} s; round 2: "
@@ -1456,7 +1620,13 @@ def phase_serve_cnn(card):
           f"{warm_s:.3f} s building the engine, {dispatcher_warm_s:.3f} s "
           f"on the dispatcher; kernel launches {counts} (the platform conv "
           f"serves, as in the JAX package) on {card}", flush=True)
-    return {"requests": len(answers), "params": n_params,
+    graphs = check_engine_graphs(engine, "serve cnn", rng)
+    graphs["b32"] = replay_vs_eager(lambda: engine.run_padded(x32).cpu(),
+                                    lambda: engine._forward(x32).cpu(), 20)
+    print(f"serve cnn graphs: every bucket's replay equals its eager "
+          f"forward bit for bit; {json.dumps(graphs)} on {card}",
+          flush=True)
+    return {"requests": len(answers), "params": n_params, "graphs": graphs,
             "max_abs_err": worst, "round2": snap2, "cold_round": snap3,
             "dispatcher_warmup_s": dispatcher_warm_s,
             "max_rel_err": rel, "logit_scale": scale, "warmup_s": warm_s,
@@ -1545,8 +1715,7 @@ def phase_train_cnn(card):
     from dcnn_tpu_torch.ops.losses import get_loss
     from dcnn_tpu_torch.optim import AdamW, WarmupCosineAnnealing
     from dcnn_tpu_torch.train import (
-        batch_generator, create_train_state, make_train_step,
-        train_classification_model,
+        Trainer, batch_generator, create_train_state, make_train_step,
     )
 
     cfg = create_model("resnet18_tiny_imagenet", "NCHW").get_config()
@@ -1625,8 +1794,9 @@ def phase_train_cnn(card):
              f"BN at {step_noise:.3e} of the largest gradient (tol "
              f"{CNN_NOISE_TOL:g})")
 
-    # the 8 steps through the trainer, in fp64 and in fp32 (timed)
-    def train8(dev):
+    # the 8 steps through the trainer (train_classification_model's
+    # Trainer.fit), in fp64 and in fp32 (timed); jit=False: the eager twin
+    def train8(dev, jit=True):
         model = from_jax(cfg, params, state, device=dev)
         ldr, opt = loader(), optimizer()
         sched = WarmupCosineAnnealing(CNN_TRAIN_LR, warmup_steps=2,
@@ -1636,15 +1806,18 @@ def phase_train_cnn(card):
             scheduler_step="batch", snapshot_dir=None, progress_interval=0,
             device_type=dev)
         losses, stamps = [], []
+        trainer = Trainer(model, opt, ce, config, sched)
+        step = trainer.train_step if jit else eager_step(trainer)
 
-        def loss_fn(logits, y):
-            loss = ce(logits, y)
-            losses.append(loss.detach())
+        def recorded(*a):
+            out = step(*a)
+            losses.append(out[0])
             stamps.append(time.perf_counter())  # the step before has synced
-            return loss
+            return out
 
-        ts, trainer = train_classification_model(
-            model, opt, loss_fn, ldr, config=config, scheduler=sched)
+        trainer.train_step = recorded
+        ts = trainer.fit(create_train_state(model, opt), ldr)
+        trainer.train_step = step
         return dict(model=model, ts=ts, trainer=trainer, opt=opt, loader=ldr,
                     losses=[float(v) for v in losses], stamps=stamps,
                     params=to_jax(model), state=state_to_jax(model),
@@ -1668,6 +1841,18 @@ def phase_train_cnn(card):
     torch.cuda.synchronize()
     counts = launches()  # the path ends
     cpu = train8("cpu")
+    # replays against the eager twin, cuDNN deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        twins = [train8("cuda", jit) for jit in (True, False)]
+    finally:
+        torch.backends.cudnn.deterministic = False
+    twin = same_run(*([t["trainer"].history, t["params"], t["state"],
+                       t["ts"].step] for t in twins))
+    if twin or [float(v) for v in twins[0]["losses"]] != [
+            float(v) for v in twins[1]["losses"]]:
+        fail(f"train cnn: {steps} replayed steps differ from the eager twin "
+             f"(cuDNN deterministic): {twin or 'per-step losses'}")
     if gpu["ts"].step != steps or len(gpu["losses"]) != steps:
         fail(f"train cnn: {gpu['ts'].step} steps, expected {steps}")
     loss_rel = max(abs(a - b) / abs(b)
@@ -1694,11 +1879,11 @@ def phase_train_cnn(card):
     warm_sps = CNN_TRAIN_BATCH * (len(warm) - 1) / (warm[-1] - warm[0])
     epoch_s = gpu["trainer"].history[0]["seconds"]
 
-    # one more step, profiled: the top device ops of a train step
+    # one more step, eager and profiled: the top device ops of a train step
     model, opt = gpu["model"], gpu["opt"]
     xb = decode_batch(torch.as_tensor(x).cuda(), wire_scale(gpu["loader"]))
     yb = torch.as_tensor(y).cuda()
-    step = make_train_step(model, ce, opt)
+    step = make_train_step(model, ce, opt, jit=False)
     gen = batch_generator(SEED, 99, 0, torch.device("cuda"))
     step(gpu["ts"], xb, yb, CNN_TRAIN_LR, gen)
     torch.cuda.synchronize()
@@ -1734,6 +1919,14 @@ def phase_train_cnn(card):
     for e in host[:10]:
         print(f"  {e.self_cpu_time_total / 1e3:10.4f} ms  x{e.count:<5d} "
               f"{e.key[:90]}", flush=True)
+    walls = step_walls(from_jax(cfg, params, state, device="cuda"),
+                       optimizer(), xb, yb, CNN_TRAIN_LR, 10)
+    print(f"train cnn graphs: {steps} steps through the trainer replayed "
+          f"from the step's graph bit-equal to its eager twin (losses, "
+          f"params, BN statistics; cuDNN deterministic); one B=32 step "
+          f"replayed vs eager: {json.dumps(walls)}; the graph pool "
+          f"{twins[0]['trainer'].train_step.pool.bytes()} B on {card}",
+          flush=True)
     print(f"train cnn: resnet18_tiny_imagenet ({n_params} params, NCHW), "
           f"first step in fp64, card vs CPU: max {f64_err:.3e} (tol "
           f"{CNN_F64_TOL:g}); in fp32: loss {step_loss:.3e}, logits "
@@ -1785,6 +1978,7 @@ def phase_checkpoint(card):
     - the committed snapshot ``model_snapshots/mnist_cnn_model`` served on
       the card against the port's CPU engine on a seeded batch."""
     import json as _json
+    import shutil
     import tempfile
 
     import numpy as np
@@ -1942,6 +2136,43 @@ def phase_checkpoint(card):
             fail(f"checkpoint: the crashed run left checkpoint {last} at "
                  f"step {done}, expected {CKPT_EPOCHS - 1} at "
                  f"{(CKPT_EPOCHS - 1) * per_epoch}")
+        # the resume replayed from the step's graph and its eager twin,
+        # each from a copy of the crashed run's directory, cuDNN
+        # deterministic
+        twins, twin_profile = [], {}
+        torch.backends.cudnn.deterministic = True
+        try:
+            for jit in (True, False):
+                d = os.path.join(tmp.name, f"b_jit{int(jit)}")
+                shutil.copytree(b_dir, d)
+                tr_t, ts_t, sched_t = trainer_for(d, resume="auto")
+                if not jit:
+                    tr_t.train_step = eager_step(tr_t)
+                for _ in range(done):
+                    sched_t.step()
+                out = []
+                twin_profile["replayed" if jit else "eager"] = {
+                    k: round(v, 4) for k, v in profiled(
+                        lambda: out.append(tr_t.fit(ts_t, *loaders())),
+                        per_epoch).items()}
+                ts_t = out[0]
+                torch.cuda.synchronize()
+                tr_t.checkpoints.close()
+                if jit:
+                    twin_profile["launches_per_step"] = {
+                        k: v for _, ss in tr_t.train_step._sessions.values()
+                        for sess in ss
+                        for k, v in sess.launch_names().items()}
+                twins.append((tr_t.history, (to_jax(tr_t.model),
+                                             state_to_jax(tr_t.model)),
+                              opt_state_to_jax(tr_t.model, ts_t.opt_state),
+                              ts_t.step))
+        finally:
+            torch.backends.cudnn.deterministic = False
+        twin = same_run(*twins)
+        if twin:
+            fail(f"checkpoint: the resumed run replayed from graphs differs "
+                 f"from its eager twin (cuDNN deterministic): {twin}")
         tr_r, ts_r, sched_r = trainer_for(b_dir, resume="auto")
         for _ in range(done):
             sched_r.step()
@@ -2048,7 +2279,12 @@ def phase_checkpoint(card):
           f"{worst_noise:.3e} on the {n_noise} of {n_all} elements with RMS "
           f"gradient < {GRAD_FLOOR:g} (bound {step_bound:.3e}), BN "
           f"statistics {stats_rel:.3e} (tol {CNN_STATS_RTOL:g}); bit-equal "
-          f"to run A: {bit_equal}; served the best-val snapshot (epoch "
+          f"to run A: {bit_equal}; the resume from the crashed run's "
+          f"checkpoint replayed from graphs bit-equal to its eager twin "
+          f"(losses, params, BN statistics, AdamW state; cuDNN "
+          f"deterministic), the resumed epoch (its {per_epoch} steps, "
+          f"eval and save) profiled per step "
+          f"{json.dumps(twin_profile)}; served the best-val snapshot (epoch "
           f"{snap_md['epoch']}, val_acc {snap_md['val_acc']}) folded, "
           f"{CKPT_REQUESTS} requests through DynamicBatcher: max |diff| "
           f"{serve_rel:.3e} of the logit scale vs the unfolded CPU model (tol "
@@ -2148,8 +2384,6 @@ def phase_train_feed(card):
       one more 16-step epoch through its loader, its workers up), and the
       host-to-device bytes per step the feed ships (counted from the
       arrays it copies). The phase's wall is printed by part."""
-    import functools
-
     import numpy as np
     import torch
 
@@ -2166,7 +2400,8 @@ def phase_train_feed(card):
     from dcnn_tpu_torch.ops.losses import get_loss
     from dcnn_tpu_torch.optim import Adam, AdamW, WarmupCosineAnnealing
     from dcnn_tpu_torch.train import (
-        Trainer, create_train_state, evaluate_classification, make_train_step,
+        Trainer, create_train_state, evaluate_classification,
+        make_multi_step, make_train_step,
     )
 
     t_phase = time.perf_counter()
@@ -2200,7 +2435,7 @@ def phase_train_feed(card):
         model = from_jax(cfg, params, state, device="cuda")
         return model, AdamW(FEED_LR, weight_decay=1e-4)
 
-    def fit(loader, val=None, spd=1, epochs=2):
+    def fit(loader, val=None, spd=1, epochs=2, jit=True):
         model, opt = model_opt()
         steps = len(loader)
         trainer = Trainer(model, opt, ce, TrainingConfig(
@@ -2209,19 +2444,26 @@ def phase_train_feed(card):
             device_type="cuda", steps_per_dispatch=spd),
             WarmupCosineAnnealing(FEED_LR, warmup_steps=2,
                                   total_steps=epochs * steps))
+        if not jit:  # the eager twin
+            trainer.train_step = eager_step(trainer)
+            if spd > 1:
+                trainer.multi_step = make_multi_step(model, ce, opt,
+                                                     jit=False)
         ts = trainer.fit(create_train_state(model, opt), loader, val)
         torch.cuda.synchronize()
         return trainer, ts, model
 
     def fit_few(ldr, spd=1):
-        """One epoch of ``ldr`` through a Trainer built beforehand, so that
-        the window holds the feed and the steps alone."""
+        """One epoch of ``ldr`` through a Trainer built, and run for one
+        epoch (its steps' eager first calls and captures), beforehand, so
+        that the window holds the feed and the replayed steps alone."""
         model, opt = model_opt()
         trainer = Trainer(model, opt, ce, TrainingConfig(
             epochs=1, batch_size=FEED_BATCH, learning_rate=FEED_LR,
             snapshot_dir=None, progress_interval=0, device_type="cuda",
             steps_per_dispatch=spd))
         ts = create_train_state(model, opt)
+        trainer.fit(ts, ldr)
         return lambda: trainer.fit(ts, ldr)
 
     def loader(n=FEED_TRAIN, **kw):
@@ -2271,6 +2513,24 @@ def phase_train_feed(card):
         with PrefetchLoader(loader(), depth=2, stage_batches=FEED_CHUNK,
                             feed_workers=2) as pf:
             det_chunk, ts_d, m_chunk = fit(pf, spd=FEED_CHUNK)
+        # each against its eager twin: bit for bit
+        for spd, graphed, m_graphed in ((1, det_plain, m_plain),
+                                        (FEED_CHUNK, det_chunk, m_chunk)):
+            kw = ({"stage_batches": spd, "feed_workers": 2} if spd > 1
+                  else {})
+            with PrefetchLoader(loader(), depth=2, **kw) as pf:
+                eager, _, m_eager = fit(pf, spd=spd, jit=False)
+            if [h["train_loss"] for h in eager.history] != [
+                    h["train_loss"] for h in graphed.history] or not all(
+                    torch.equal(a, b) for a, b in zip(
+                        m_eager.state_dict().values(),
+                        m_graphed.state_dict().values())):
+                fail(f"train feed: the {'chunked' if spd > 1 else 'per-step'}"
+                     f" path replayed from graphs differs from its eager "
+                     f"twin (cuDNN deterministic): losses "
+                     f"{[h['train_loss'] for h in graphed.history]} vs "
+                     f"{[h['train_loss'] for h in eager.history]}")
+            del m_eager
     finally:
         torch.backends.cudnn.deterministic = False
     chunk_rel = rel_losses(det_chunk, det_plain)
@@ -2337,6 +2597,26 @@ def phase_train_feed(card):
             m_a, ce, opt_a, num_classes=FEED_CLASSES, batch_size=FEED_BATCH)(
             create_train_state(m_a, opt_a), train_ds.x, train_ds.y, 0,
             FEED_LR, order=order)
+        # the resident epoch's eager twin, augmented, against its replays
+        twins = []
+        for jit in (True, False):
+            m_t, opt_t = model_opt()
+            ts_t, mean_t = make_resident_epoch(
+                m_t, ce, opt_t, num_classes=FEED_CLASSES,
+                batch_size=FEED_BATCH, augment=device_aug(), steps=6,
+                jit=jit)(create_train_state(m_t, opt_t), train_ds.x,
+                         train_ds.y, 5, FEED_LR)
+            twins.append((float(mean_t), m_t.state_dict(), ts_t.opt_state))
+        if twins[0][0] != twins[1][0] or not all(
+                torch.equal(a, b) for a, b in zip(
+                    [*twins[0][1].values(), *twins[0][2]["m"].values(),
+                     *twins[0][2]["v"].values()],
+                    [*twins[1][1].values(), *twins[1][2]["m"].values(),
+                     *twins[1][2]["v"].values()])):
+            fail(f"train feed: the resident epoch replayed from its body's "
+                 f"graph differs from its eager twin (cuDNN deterministic): "
+                 f"mean loss {twins[0][0]} vs {twins[1][0]}")
+        del twins
         m_b, opt_b = model_opt()
         ts_b = create_train_state(m_b, opt_b)
         step = make_train_step(m_b, ce, opt_b)
@@ -2356,6 +2636,37 @@ def phase_train_feed(card):
              f"per-step loop's {mean_b} (rel {loop_rel:.3e}, tol "
              f"{CNN_LOSS_RTOL:g})")
     mark("resident vs loop")
+    # replayed against eager host wall: a resident epoch of 4 steps and a
+    # chunk of 4 steps, the mean loss read each call
+    graph_walls = {}
+    for jit_name, mk in (("resident", lambda jit, m, o: make_resident_epoch(
+            m, ce, o, num_classes=FEED_CLASSES, batch_size=FEED_BATCH,
+            augment=device_aug(), steps=FEED_CHUNK, jit=jit)),
+                         ("chunked", lambda jit, m, o: make_multi_step(
+                             m, ce, o, jit=jit))):
+        fns = []
+        for jit in (True, False):
+            m_w, opt_w = model_opt()
+            ts_w, fn = create_train_state(m_w, opt_w), mk(jit, m_w, opt_w)
+            if jit_name == "resident":
+                fns.append(lambda fn=fn, ts_w=ts_w: float(fn(
+                    ts_w, train_ds.x, train_ds.y, 9, FEED_LR)[1]))
+            else:
+                xs = decode_batch(torch.from_numpy(tr_x[:FEED_CHUNK * FEED_BATCH])
+                                  .cuda()).reshape(FEED_CHUNK, FEED_BATCH,
+                                                   3, 64, 64)
+                ys = torch.from_numpy(tr_oh[:FEED_CHUNK * FEED_BATCH]).cuda(
+                    ).reshape(FEED_CHUNK, FEED_BATCH, -1)
+                fns.append(lambda fn=fn, ts_w=ts_w, xs=xs, ys=ys: float(
+                    fn(ts_w, xs, ys, 9, FEED_LR)[1]))
+            fns[-1]()  # the graph's eager first step and capture
+        graph_walls[jit_name] = replay_vs_eager(fns[0], fns[1], 2)
+        graph_walls[jit_name]["steps_per_call"] = FEED_CHUNK
+    print(f"train feed graphs: per-step and chunked ResNet-18 runs and the "
+          f"augmented resident epoch bit-equal to their eager twins (cuDNN "
+          f"deterministic); replayed vs eager, a call of {FEED_CHUNK} "
+          f"steps: {json.dumps(graph_walls)} on {card}", flush=True)
+    mark("replayed vs eager")
     del train_ds, val_ds, m_a, m_b, ts_a, ts_b
 
     # resident, the full split: staged through reused pinned buffers
@@ -2372,12 +2683,14 @@ def phase_train_feed(card):
     sched = WarmupCosineAnnealing(FEED_LR, warmup_steps=2,
                                   total_steps=FEED_RESIDENT_STEPS)
     lrs = [sched.step(None) for _ in range(FEED_RESIDENT_STEPS)]
-    make = functools.partial(make_resident_epoch, model, ce, opt,
-                             num_classes=FEED_CLASSES, batch_size=FEED_BATCH,
-                             augment=aug, scale=big.scale)
-    ts, warm = make(steps=2)(ts, big.x, big.y, 1, FEED_LR)
+    epoch = make_resident_epoch(model, ce, opt, num_classes=FEED_CLASSES,
+                                batch_size=FEED_BATCH, augment=aug,
+                                scale=big.scale, steps=FEED_RESIDENT_STEPS)
+    # two steps over a given order: the body's eager first call and its
+    # capture, before the timed epoch (which replays alone)
+    ts, warm = epoch(ts, big.x, big.y, 1, FEED_LR,
+                     order=np.arange(2 * FEED_BATCH).reshape(2, FEED_BATCH))
     float(warm)
-    epoch = make(steps=FEED_RESIDENT_STEPS)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     torch.cuda.set_sync_debug_mode("error")  # nothing inside may wait
@@ -2413,9 +2726,11 @@ def phase_train_feed(card):
     feeds["resident"]["samples_per_s"] = (FEED_RESIDENT_STEPS * FEED_BATCH
                                           / resident_s)
     feeds["resident"]["profile"] = profiled(
-        lambda: float(make(steps=FEED_PROFILE_STEPS)(
-            ts, big.x, big.y, 3, FEED_LR)[1]), FEED_PROFILE_STEPS)
-    del big, big_x, epoch, make
+        lambda: float(epoch(ts, big.x, big.y, 3, FEED_LR, order=np.arange(
+            FEED_PROFILE_STEPS * FEED_BATCH).reshape(
+                FEED_PROFILE_STEPS, FEED_BATCH))[1]), FEED_PROFILE_STEPS)
+    feeds["resident"]["pool_bytes"] = epoch.step.pool.bytes()
+    del big, big_x, epoch
     torch.cuda.empty_cache()
     mark("resident full split")
 
@@ -2497,9 +2812,10 @@ def phase_train_feed(card):
     few_ds = StreamingDeviceDataset(x[:few], y[:few], FEED_CLASSES,
                                     batch_size=FEED_BATCH,
                                     shard_batches=FEED_PROFILE_STEPS)
+    few_ts = create_train_state(model, opt)
+    train_streaming_epoch(step, few_ts, few_ds, 0, FEED_LR)  # the captures
     feeds["streaming"]["profile"] = profiled(
-        lambda: train_streaming_epoch(step, create_train_state(model, opt),
-                                      few_ds, 0, FEED_LR),
+        lambda: train_streaming_epoch(step, few_ts, few_ds, 0, FEED_LR),
         FEED_PROFILE_STEPS)
 
     mark("profiles")
@@ -2812,7 +3128,7 @@ def phase_serve_int8(card):
     import numpy as np
     import torch
 
-    from dcnn_tpu_torch.core import set_precision
+    from dcnn_tpu_torch.core import get_precision_mode, set_precision
     from dcnn_tpu_torch.interop import to_jax
     from dcnn_tpu_torch.nn import QuantConv2DLayer, quantize_model
     from dcnn_tpu_torch.ops import quant
@@ -2889,11 +3205,17 @@ def phase_serve_int8(card):
           f"int8 engine max |err| {err:.3e} ({err / scale:.3e} of "
           f"{scale:.3e}), {rows_equal}/32 rows bit-equal; on {card}",
           flush=True)
+    graphs = check_engine_graphs(engine, "serve int8", rng)
+    x32 = torch.from_numpy(pool[:32]).cuda()
+    graphs["b32"] = replay_vs_eager(lambda: engine.run_padded(x32).cpu(),
+                                    lambda: engine._forward(x32).cpu(), 20)
+    print(f"serve int8 graphs: resnet18 every bucket's replay equals its "
+          f"eager forward bit for bit; {json.dumps(graphs)} on {card}",
+          flush=True)
 
     # both modes against their plain versions at every site (B=32 and
     # B=256, fp32; B=32 also in bf16) and at ragged shapes
     qcard = copy.deepcopy(qmodel).to("cuda")
-    x32 = torch.from_numpy(pool[:32]).cuda()
     x256 = torch.from_numpy(rng.normal(size=(256, *cfg["input_shape"]))
                             .astype(np.float32)).cuda()
     sites32 = int8_sites(qcard, x32, "B32", (20, 3))
@@ -2934,16 +3256,25 @@ def phase_serve_int8(card):
               f"unsplit; on {card}", flush=True)
 
     # CUDA kernels launched per int8 engine batch, profiled, on this path
-    # (one fused launch a conv) and unfused (int8_chain a conv)
+    # (one fused launch a conv) and unfused (int8_chain a conv), eager;
+    # then the same batch replayed from the engine's graph (the counters'
+    # delta beside what CUPTI saw)
     chain_fwd = lambda mod, x: int8_chain(  # noqa: E731
         x, mod.x_scale, mod.w_q, mod.w_scale, mod.b, mod.stride[0],
         mod.padding[0], mod.data_format)
     engines = {"int8": InferenceEngine.from_model(
         copy.deepcopy(qmodel), fold=False, max_batch=256, device="cuda",
         warmup=False)}
-    engines["fp32"] = InferenceEngine.from_model(
+    # one folded float engine, in parity mode and in bf16 mode: a graph
+    # a (bucket, mode), each captured at its first use
+    engines["fp32"] = engines["bf16"] = InferenceEngine.from_model(
         float_cpu, fold=True, max_batch=256, device="cuda", warmup=False)
-    engines["bf16"] = engines["fp32"]
+    set_precision("bf16")
+    try:
+        for x in (x32, x256):
+            engines["bf16"].run_padded(x)
+    finally:
+        set_precision("parity")
     profile = {}
     fused_fwd = QuantConv2DLayer.forward
     for path in ("int8", "int8 unfused chain"):
@@ -2951,11 +3282,18 @@ def phase_serve_int8(card):
             QuantConv2DLayer.forward = chain_fwd
         try:
             for b, x in ((32, x32), (256, x256)):
-                engines["int8"].run_padded(x)
+                engines["int8"]._forward(x)
                 profile[f"{path} B{b}"] = profiled(
-                    lambda: engines["int8"].run_padded(x), 1)
+                    lambda: engines["int8"]._forward(x), 1)
         finally:
             QuantConv2DLayer.forward = fused_fwd
+    for b, x in ((32, x32), (256, x256)):
+        engines["int8"].run_padded(x)
+        profile[f"int8 replayed B{b}"] = profiled(
+            lambda: engines["int8"].run_padded(x), 1)
+        profile[f"int8 replayed B{b}"]["counted_launches"] = sum(
+            engines["int8"].sessions[(b, get_precision_mode())]
+            .launch_names().values())
     print("serve int8: profiled CUDA kernels a batch (torch.profiler, one "
           "batch each; launches exclude copies): " + json.dumps(
               {k: {"launches": v["launches_per_step"],
@@ -2964,7 +3302,8 @@ def phase_serve_int8(card):
                for k, v in profile.items()}), flush=True)
 
     # the int8 engine's batch time (fused, and the unfused chain) beside the
-    # folded fp32 and bf16 engines'
+    # folded fp32 and bf16 engines': eager forwards, and the captured
+    # engines replayed
     timing = {}
     for name in ("int8", "int8 unfused chain", "fp32", "bf16"):
         eng = engines[name.split()[0]]
@@ -2973,20 +3312,28 @@ def phase_serve_int8(card):
             QuantConv2DLayer.forward = chain_fwd
         try:
             for b, x in ((32, x32), (256, x256)):
+                reps = 10 if b == 32 else 5
                 timing[f"{name} B{b}"] = eager_ms(
-                    lambda: eng.run_padded(x), 10 if b == 32 else 5)
+                    lambda: eng._forward(x), reps)
+                if name != "int8 unfused chain":
+                    timing[f"{name} replayed B{b}"] = eager_ms(
+                        lambda: eng.run_padded(x), reps)
         finally:
             set_precision("parity")
             QuantConv2DLayer.forward = fused_fwd
     for b in (32, 256):
-        timing[f"int8 B{b} samples/s"] = b / timing[f"int8 B{b}"] * 1e3
-    print(f"serve int8: batch wall ms (eager run_padded, host-issued, "
-          f"synchronised; the folded fp32 engine in parity mode, TF32 off, "
-          f"and in bf16 mode) {json.dumps(timing)}; phase wall "
+        for how in ("", " replayed"):
+            timing[f"int8{how} B{b} samples/s"] = b / timing[
+                f"int8{how} B{b}"] * 1e3
+    print(f"serve int8: batch wall ms (host-issued, synchronised; eager "
+          f"forwards, and replayed from the engines' graphs; the folded "
+          f"fp32 engine in parity mode, TF32 off, and in bf16 mode) "
+          f"{json.dumps(timing)}; phase wall "
           f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
 
     mha = phase_serve_int8_mha(card)
     return {"launches": counts, "requests": len(answers), **snap,
+            "graphs": graphs,
             "max_abs_err_vs_cpu": err, "logit_scale": scale,
             "rows_bit_equal_vs_cpu": rows_equal, "sites_b32": sites32,
             "sites_b256": sites256, "held": held, "ragged": ragged,
@@ -3038,8 +3385,10 @@ def phase_serve_int8_mha(card):
              f"int8 engine by {err:.3e} ({err / scale:.3e} of {scale:.3e}, "
              f"tol {INT8_CPU_RTOL:g}) or served answers from the engine's "
              f"own by {served_err:.3e}")
+    graphs = check_engine_graphs(engine, "serve int8 mha_classifier", rng)
     x32 = torch.from_numpy(pool[:32]).cuda()
     ms32 = eager_ms(lambda: engine.run_padded(x32), 20)
+    eager32 = eager_ms(lambda: engine._forward(x32), 20)
     fp32 = InferenceEngine.from_model(copy.deepcopy(float_cpu), max_batch=32,
                                       device="cuda", warmup=False)
     fp32_ms32 = eager_ms(lambda: fp32.run_padded(x32), 20)
@@ -3049,11 +3398,14 @@ def phase_serve_int8_mha(card):
           f"launches {counts['flash_fwd']} = 2 x {dispatched} batches; "
           f"logits bit-identical at every batch 1..32; vs the CPU int8 "
           f"engine max |err| {err:.3e} ({err / scale:.3e} of {scale:.3e}); "
-          f"B=32 batch wall {ms32:.3f} ms int8, {fp32_ms32:.3f} ms fp32; "
+          f"B=32 batch wall (replayed) {ms32:.3f} ms int8 (eager "
+          f"{eager32:.3f}), {fp32_ms32:.3f} ms fp32; every bucket's replay "
+          f"equals its eager forward bit for bit, launches a batch "
+          f"{graphs['launches_per_batch']}, pool {graphs['pool_bytes']} B; "
           f"on {card}", flush=True)
     return {"launches": counts, "requests": len(answers), **snap,
-            "max_abs_err_vs_cpu": err, "b32_ms": ms32,
-            "fp32_b32_ms": fp32_ms32}
+            "max_abs_err_vs_cpu": err, "b32_ms": ms32, "b32_eager_ms": eager32,
+            "fp32_b32_ms": fp32_ms32, "graphs": graphs}
 
 
 # decode phase: full-width mha_decoder (V=64, E=64, 4 heads, 2 layers,
@@ -3118,6 +3470,7 @@ def phase_decode(card):
     import numpy as np
     import torch
 
+    from dcnn_tpu_torch.core import get_precision_mode
     from dcnn_tpu_torch.interop import decoder_from_jax
     from dcnn_tpu_torch.models import create_model
     from dcnn_tpu_torch.serve import (
@@ -3185,15 +3538,67 @@ def phase_decode(card):
              f"never preempted")
 
     # each lattice point's step as the batcher issues it (host arrays in,
-    # next tokens read back), on private pools
-    step_ms = {}
-    pk, pv = torch.zeros_like(engine.pool.k), torch.zeros_like(engine.pool.v)
+    # next tokens read back), on the engine's pool (its graphs' own; put
+    # back afterwards): replayed, and eager
+    step_ms, eager_step_ms = {}, {}
+    pk, pv = engine.pool.k, engine.pool.v
+    saved = pk.clone(), pv.clone()
+
+    def on_card(*arrays):
+        return [torch.from_numpy(a).to("cuda", torch.long) for a in arrays]
+
     for b, mp in sorted(engine.compile_stats):
         toks = np.zeros(b, np.int32)
         pos = np.arange(b, dtype=np.int32) % (mp * DECODE_PAGE)
         table = np.tile(np.arange(1, mp + 1, dtype=np.int32), (b, 1))
         step_ms[f"{b}x{mp}"] = eager_ms(
             lambda: engine.run_step(toks, pos, table, pk, pv)[0].cpu(), 20)
+        eager_step_ms[f"{b}x{mp}"] = eager_ms(
+            lambda: engine._step(*on_card(toks, pos, table), pk,
+                                 pv)[0].cpu(), 20)
+    # every lattice point replayed against the eager step on a copy of the
+    # pool, random K/V in it: next tokens, logits and the pool after the
+    # step's writes bit for bit
+    g = np.random.default_rng(SEED + 12)
+    pk.normal_()
+    pv.normal_()
+    for b, mp in sorted(engine.compile_stats):
+        if engine.sessions[(b, mp, get_precision_mode())].graph is None:
+            fail(f"decode: lattice point {b}x{mp} was not captured")
+        pos = np.full(b, -1, np.int64)
+        table = np.zeros((b, mp), np.int64)
+        for r in range(b - (b > 1)):  # one row inactive where b > 1
+            pos[r] = g.integers(0, mp * DECODE_PAGE)
+            table[r, :pos[r] // DECODE_PAGE + 1] = g.choice(
+                np.arange(1, engine.pool.num_pages),
+                pos[r] // DECODE_PAGE + 1, replace=False)
+        toks = g.integers(0, cfg["vocab_size"], b)
+        ck, cv = pk.clone(), pv.clone()
+        nxt, logits, _, _ = engine.run_step(toks, pos, table, pk, pv)
+        want_nxt, want_logits = engine._step(*on_card(toks, pos, table),
+                                             ck, cv)
+        if not (torch.equal(nxt, want_nxt) and torch.equal(logits, want_logits)
+                and torch.equal(pk, ck) and torch.equal(pv, cv)):
+            fail(f"decode: lattice point {b}x{mp}'s replay differs from the "
+                 f"eager step (tokens, logits or pool writes)")
+    del ck, cv
+    b, mp = engine.max_slots, engine.max_pages_per_seq
+    toks = np.zeros(b, np.int32)
+    pos = np.arange(b, dtype=np.int32) % (mp * DECODE_PAGE)
+    table = np.tile(np.arange(1, mp + 1, dtype=np.int32), (b, 1))
+    graphs = replay_vs_eager(
+        lambda: engine.run_step(toks, pos, table, pk, pv)[0].cpu(),
+        lambda: engine._step(*on_card(toks, pos, table), pk, pv)[0].cpu(),
+        20)
+    graphs["pool_bytes"] = engine.graphs.bytes()
+    pk.copy_(saved[0])
+    pv.copy_(saved[1])
+    del saved
+    print(f"decode graphs: every lattice point's replay equals the eager "
+          f"step bit for bit (tokens, logits, pool writes); step ms "
+          f"replayed {json.dumps(step_ms)}, eager "
+          f"{json.dumps(eager_step_ms)}; at {b}x{mp} "
+          f"{json.dumps(graphs)} on {card}", flush=True)
     pool = engine.pool.snapshot()
     print(f"decode: mha_decoder (V=64, E=64, 4 heads, 2 layers) "
           f"{DECODE_SEQS} sequences (prompts 1-24, 8-40 new tokens) "
@@ -3208,11 +3613,13 @@ def phase_decode(card):
           f"tokens equal; pool {pool['num_pages']} pages x "
           f"{pool['page_bytes']} B = {pool['pool_bytes']} B; engine built "
           f"and {len(engine.compile_stats)} lattice points warmed in "
-          f"{build_s:.3f} s; card references {ref_s:.2f} s; step ms (eager, "
-          f"host to host) by batch x pages {json.dumps(step_ms)}; phase wall "
+          f"{build_s:.3f} s; card references {ref_s:.2f} s; step ms "
+          f"(replayed, host to host) by batch x pages {json.dumps(step_ms)};"
+          f" phase wall "
           f"{time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
     return {**snap, "wall_s": wall, "starved_evictions": ssnap["evictions"],
-            "step_ms": step_ms, "pool": pool}
+            "step_ms": step_ms, "eager_step_ms": eager_step_ms,
+            "graphs": graphs, "pool": pool}
 
 
 # obs phase: the observability core on the card's paths
@@ -3308,7 +3715,9 @@ def phase_obs(card, traced_resident):
     from dcnn_tpu_torch.data import (
         ArrayDataLoader, AugmentationBuilder, SyntheticClassificationLoader,
     )
-    from dcnn_tpu_torch.interop import decoder_from_jax, from_jax
+    from dcnn_tpu_torch.interop import (
+        decoder_from_jax, from_jax, opt_state_to_jax, to_jax,
+    )
     from dcnn_tpu_torch.models import create_model
     from dcnn_tpu_torch.obs import configure, get_flight_recorder, get_tracer
     from dcnn_tpu_torch.obs.exposition import parse_prometheus_text
@@ -3335,12 +3744,14 @@ def phase_obs(card, traced_resident):
     xv, yv = marker_task(np.random.default_rng(SEED + 30), n=64)
     batch = 32
 
-    def mha_fit(epochs=2, **kw):
+    def mha_fit(epochs=2, jit=True, **kw):
         model = from_jax(cfg, params, device="cuda")
         opt = Adam(1e-3)
         trainer = Trainer(model, opt, "softmax_crossentropy", TrainingConfig(
             epochs=epochs, batch_size=batch, snapshot_dir=None,
             progress_interval=0, device_type="cuda", **kw))
+        if not jit:  # the eager twin
+            trainer.train_step = eager_step(trainer)
         ts = trainer.fit(create_train_state(model, opt),
                          ArrayDataLoader(x, y, batch_size=batch, shuffle=True,
                                          seed=SEED),
@@ -3423,6 +3834,25 @@ def phase_obs(card, traced_resident):
             fail(f"obs: a NaN batch under skip_step wrote bundles "
                  f"{bundles}, skipped {skipped.guard.total_skipped} steps")
         bundle_files = sorted(os.listdir(bundles[0]["path"]))
+        # the guarded NaN epoch replayed from the step's two graphs and its
+        # eager twin, each profiled
+        twins, guard_profile = [], {}
+        for jit in (True, False):
+            got = []
+            guard_profile["replayed" if jit else "eager"] = {
+                k: round(v, 4) for k, v in profiled(
+                    lambda: got.append(nan_fit(jit=jit)), 8).items()}
+            t_, ts_, m_ = got[0]
+            twins.append((t_.history, to_jax(m_),
+                          opt_state_to_jax(m_, ts_.opt_state), ts_.step))
+            if jit:
+                guard_profile["launches_per_step"] = {
+                    k: v for _, ss in t_.train_step._sessions.values()
+                    for sess in ss for k, v in sess.launch_names().items()}
+        twin = same_run(*twins)
+        if twin or twins[0][3] != 7:
+            fail(f"obs: the guarded NaN epoch replayed from graphs differs "
+                 f"from its eager twin: {twin or twins[0][3]} steps")
         try:
             nan_fit(debug=True)
         except FloatingPointError as e:
@@ -3434,8 +3864,10 @@ def phase_obs(card, traced_resident):
             debug.disable_debug_mode()
         print(f"obs (a): a NaN batch under policy skip_step: one "
               f"nonfinite_guard bundle ({bundle_files}; reasons "
-              f"{bundles[0]['reasons']}); under debug=True: "
-              f"FloatingPointError({raised!r})", flush=True)
+              f"{bundles[0]['reasons']}), the guarded epoch (two graphs "
+              f"a step around the host's read) bit-equal to its eager twin, "
+              f"profiled a step {json.dumps(guard_profile)}; under "
+              f"debug=True: FloatingPointError({raised!r})", flush=True)
     finally:
         rec.directory = flight_before
         flight.cleanup()
@@ -3451,6 +3883,9 @@ def phase_obs(card, traced_resident):
     def train_step():
         with tracer.span("train.step", track="train", epoch=0, batch=0):
             float(step(ts, xb, yb, 1e-3)[0])
+
+    train_step()  # the eager first step
+    train_step()  # the capture; the timed calls replay
 
     step_on, step_off, step_rounds_on, step_rounds_off = tracer_cost(
         train_step)
@@ -3729,20 +4164,31 @@ def main() -> None:
     print(f"build: {sorted(_kernels.SOURCES)} and {native.lib_path().name} "
           f"(native helpers: C++) in {time.perf_counter() - t0:.1f} s",
           flush=True)
-    fwd_cases = phase_kernels()
-    bwd_cases = phase_bwd_kernels()
-    wide = phase_wide_layer()
-    conv_cases = phase_conv_kernels()
-    site_counts, site_worst, site_cases = phase_model_sites(card)
-    serve = phase_serve(card)
-    train = phase_train(card)
-    serve_cnn = phase_serve_cnn(card)
-    phase_train_cnn(card)
-    phase_checkpoint(card)
-    feed = phase_train_feed(card)
-    serve_int8 = phase_serve_int8(card)
-    phase_decode(card)
-    obs = phase_obs(card, feed["traced_resident"])
+    seconds = {"build": round(time.perf_counter() - t0, 1)}
+
+    def timed(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = round(time.perf_counter() - t, 1)
+        return out
+
+    fwd_cases = timed("flash", phase_kernels)
+    bwd_cases = timed("flash backward", phase_bwd_kernels)
+    wide = timed("wide layer", phase_wide_layer)
+    conv_cases = timed("conv", phase_conv_kernels)
+    site_counts, site_worst, site_cases = timed("model sites",
+                                                phase_model_sites, card)
+    serve = timed("serve", phase_serve, card)
+    train = timed("train", phase_train, card)
+    serve_cnn = timed("serve cnn", phase_serve_cnn, card)
+    timed("train cnn", phase_train_cnn, card)
+    timed("checkpoint", phase_checkpoint, card)
+    feed = timed("train feed", phase_train_feed, card)
+    serve_int8 = timed("serve int8", phase_serve_int8, card)
+    timed("decode", phase_decode, card)
+    obs = timed("obs", phase_obs, card, feed["traced_resident"])
+    print(f"phase seconds: {json.dumps(seconds)}, total "
+          f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
 
     def row(name, source, replaces, cases, by_path):
         model_case = cases[0]  # the model's shape: B=32, H=4, S=32, D=16

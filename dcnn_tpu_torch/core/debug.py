@@ -18,7 +18,11 @@ The port's counterparts:
 ``DCNN_DEBUG=1`` turns the mode on when ``dcnn_tpu_torch`` is imported;
 ``TrainingConfig(debug=True)`` does so when a trainer is built. The checks
 read values on the host, so every step waits for the card while the mode
-is on: a debug run, not the fast path.
+is on: a debug run, not the fast path. On CUDA the step's captured graphs
+go on with the mode (two graphs around the read); with ``checks=True``, or
+under :func:`checked`, the train and eval steps run eagerly instead
+(:func:`~dcnn_tpu_torch.core.graphs.debug_eager`), since a replay would run
+neither anomaly mode's reads nor the hooks.
 """
 
 from __future__ import annotations

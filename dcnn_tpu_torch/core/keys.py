@@ -8,11 +8,17 @@ takes its random numbers. Keys are folded on the host, so a loop that
 derives a key per step or per op adds no work on the card and waits for
 nothing there. The draws are PyTorch's, not ``jax.random``'s bits: one
 key gives the same draws run after run, not the JAX package's draws.
+
+A CUDA graph draws only from generators registered with it at capture
+(:mod:`~dcnn_tpu_torch.core.graphs`), so a graph's draws come from a fixed
+set of :func:`generators` that :func:`reseed` seeds on the host before each
+replay: a generator reseeded with ``key`` draws exactly what a fresh
+``generator(key)`` draws.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 import numpy as np
 import torch
@@ -34,6 +40,19 @@ def split(key: int, num: int = 2) -> List[int]:
 def generator(key: int, device) -> torch.Generator:
     """A generator on ``device`` seeded with ``key``."""
     return torch.Generator(device=device).manual_seed(int(key))
+
+
+def generators(n: int, device) -> List[torch.Generator]:
+    """``n`` generators on ``device``, to be seeded by :func:`reseed`."""
+    return [torch.Generator(device=device) for _ in range(n)]
+
+
+def reseed(gens: Sequence[torch.Generator], keys: Sequence[int]) -> None:
+    """Seed ``gens[i]`` with ``keys[i]``, on the host."""
+    if len(gens) != len(keys):
+        raise ValueError(f"{len(keys)} keys for {len(gens)} generators")
+    for g, k in zip(gens, keys):
+        g.manual_seed(int(k))
 
 
 def to_device(values, device, dtype=None) -> torch.Tensor:

@@ -15,7 +15,11 @@ i)``, as the JAX pipeline gives it ``jax.random.fold_in(key, i)``, so one
 (key, op list) gives one batch. The draws are PyTorch's, not
 ``jax.random``'s; the apply is the JAX op's arithmetic, so JAX's draws fed
 to ``apply`` give the JAX op's output. A per-sample "apply with probability
-p" is a uniform draw below ``p``.
+p" is a uniform draw below ``p``. ``op.run(x, gen)`` and
+``DeviceAugment.run(batch, gens)`` draw from generators the caller seeds
+(with ``DeviceAugment.keys(key)``: a CUDA graph's fixed generators,
+:func:`~dcnn_tpu_torch.core.keys.reseed`), giving what ``op(x, key)`` and
+``aug(batch, key)`` give.
 
 Rotation is the bilinear, edge-clamped resample of
 ``map_coordinates(order=1, mode="nearest")``, written out over the four
@@ -54,8 +58,8 @@ def _uniform(gen, n, lo, hi, dtype, device) -> torch.Tensor:
 
 
 class DeviceOp:
-    """One augmentation: ``op(x, key) == op.apply(x, op.draw(x, gen))``
-    with ``gen = generator(key, x.device)``."""
+    """One augmentation: ``op(x, key) == op.run(x, gen) == op.apply(x,
+    op.draw(x, gen))`` with ``gen = generator(key, x.device)``."""
 
     def draw(self, x: torch.Tensor, gen: torch.Generator) -> tuple:
         return ()
@@ -63,8 +67,11 @@ class DeviceOp:
     def apply(self, x: torch.Tensor, draws: tuple) -> torch.Tensor:
         raise NotImplementedError
 
+    def run(self, x: torch.Tensor, gen: torch.Generator) -> torch.Tensor:
+        return self.apply(x, self.draw(x, gen))
+
     def __call__(self, x: torch.Tensor, key: int) -> torch.Tensor:
-        return self.apply(x, self.draw(x, generator(key, x.device)))
+        return self.run(x, generator(key, x.device))
 
 
 class Brightness(DeviceOp):
@@ -344,10 +351,23 @@ class DeviceAugment:
         self.ops.append(op)
         return self
 
-    def __call__(self, batch: torch.Tensor, key: int) -> torch.Tensor:
-        for i, op in enumerate(self.ops):
-            batch = op(batch, fold_in(key, i))
+    def keys(self, key: int) -> List[int]:
+        """Op ``i``'s key, ``fold_in(key, i)``, for every op."""
+        return [fold_in(key, i) for i in range(len(self.ops))]
+
+    def run(self, batch: torch.Tensor,
+            gens: Sequence[torch.Generator]) -> torch.Tensor:
+        """The ops in order, op ``i`` drawing from ``gens[i]``."""
+        if len(gens) != len(self.ops):
+            raise ValueError(f"{len(gens)} generators for {len(self.ops)} "
+                             f"ops")
+        for op, gen in zip(self.ops, gens):
+            batch = op.run(batch, gen)
         return batch
+
+    def __call__(self, batch: torch.Tensor, key: int) -> torch.Tensor:
+        return self.run(batch, [generator(k, batch.device)
+                                for k in self.keys(key)])
 
 
 class DeviceAugmentBuilder:

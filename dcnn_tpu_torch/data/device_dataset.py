@@ -15,7 +15,9 @@ int32, and everything the host loader does per batch happens on the card:
 An epoch is one Python loop of train steps that never waits for the card:
 the permutation, the draws and the lr vector are device tensors, and the
 losses stay on the card until the caller reads their mean once (the JAX
-package's ``float(mean_loss)`` after its one-dispatch epoch). Validation
+package's ``float(mean_loss)`` after its one-dispatch epoch). On CUDA each
+step replays one CUDA graph of its whole body (:class:`BatchStep`), the
+counterpart of the JAX package's one ``lax.scan`` inside one jit. Validation
 runs full batches and one exact remainder batch, so any mean-reducing loss
 is exact.
 
@@ -42,9 +44,12 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..core.keys import fold_in, generator, split, to_device
+from ..core.graphs import debug_eager
+from ..core.keys import (
+    fold_in, generator, generators, reseed, split, to_device,
+)
 from ..core.precision import get_compute_dtype, get_precision_mode
-from ..ops.losses import upcast_logits
+from .augment_device import DeviceAugment
 from .transfer import stage_array
 
 AUGMENT_KEY = 0x0A6  # fold_in offset of a step's augmentation key
@@ -146,24 +151,93 @@ def _one_hot(labels: torch.Tensor, num_classes: int) -> torch.Tensor:
     return (labels.long()[:, None] == classes).float()
 
 
-def make_batch_step(step, x_all, y_all, *, num_classes, scale, cdt, augment):
+class BatchStep:
     """The gather -> decode -> augment -> one-hot -> train-step body shared
-    by the resident and the streaming feeds: ``body(ts, batch_indices,
-    key, lr) -> loss`` (a device scalar). ``step`` is a
+    by the resident and the streaming feeds: ``body(ts, x_all, y_all,
+    batch_indices, key, lr) -> loss`` (a device scalar). ``step`` is a
     :func:`~dcnn_tpu_torch.train.make_train_step` step; the step's dropout
-    draws from ``generator(key)``, its augmentation from
-    ``fold_in(key, 0x0A6)``."""
-    dev = x_all.device
+    draws from ``generator(key)``, augmentation op ``i`` from
+    ``fold_in(fold_in(key, 0x0A6), i)``, through a fixed set of generators
+    reseeded on the host each call.
 
-    def body(ts, bidx, key, lr_i):
-        xb = _decode(x_all[bidx], scale, cdt)
-        if augment is not None:
-            xb = augment(xb, fold_in(key, AUGMENT_KEY))
-        yb = _one_hot(y_all[bidx], num_classes)
-        loss, _ = step(ts, xb, yb, lr_i, generator(key, dev))
+    With the step's ``jit`` on CUDA the whole body is one CUDA graph, its
+    input the batch indices (a shape's first call eager, its warm-up; the
+    next captured in the step's pool), bound to the addresses of
+    ``x_all``, ``y_all`` and the train state's tensors (others capture
+    again). There ``augment`` must be a
+    :class:`~.augment_device.DeviceAugment`, whose draws come from the
+    reseeded generators: any other callable is refused, since a graph
+    would replay the draws it made at capture. On the CPU, or with
+    ``jit=False``, another callable is called with its key. While
+    :func:`~dcnn_tpu_torch.core.graphs.debug_eager` holds, the body runs
+    eagerly."""
+
+    def __init__(self, step, *, num_classes, scale, cdt, augment):
+        self.step = step
+        self.num_classes, self.scale, self.cdt = num_classes, scale, cdt
+        self.augment = augment
+        self._routed = isinstance(augment, DeviceAugment)
+        self.gens = None  # on the data's device, at the first call
+        self._aug_key = None
+        self._warm: set = set()
+        self._sessions: dict = {}
+
+    def run(self, ts, x_all, y_all, bidx):
+        """The body on the card, drawing from :attr:`gens`."""
+        xb = _decode(x_all[bidx], self.scale, self.cdt)
+        if self._routed:
+            xb = self.augment.run(xb, self.gens[1:])
+        elif self.augment is not None:
+            xb = self.augment(xb, self._aug_key)
+        yb = _one_hot(y_all[bidx], self.num_classes)
+        loss, _ = self.step.body(ts, xb, yb, self.gens[0])
         return loss
 
-    return body
+    def _session(self, ts, x_all, y_all, bidx):
+        key = (tuple(bidx.shape), tuple(x_all.shape), x_all.dtype,
+               tuple(y_all.shape), get_precision_mode())
+        if key not in self._warm:
+            self._warm.add(key)
+            return None
+        bind = (x_all.data_ptr(), y_all.data_ptr(), *self.step.binding(ts))
+        got = self._sessions.get(key)
+        if got is None or got[0] != bind:
+            got = self._sessions[key] = (bind, self.step.capture(
+                "batch_step", lambda b: self.run(ts, x_all, y_all, b),
+                (bidx,), self.gens))
+        return got[1]
+
+    def __call__(self, ts, x_all, y_all, bidx, key: int, lr):
+        step = self.step
+        if self.gens is None:
+            self.gens = generators(
+                1 + (len(self.augment.ops) if self._routed else 0),
+                x_all.device)
+        self._aug_key = fold_in(key, AUGMENT_KEY)
+        reseed(self.gens, [key] + (self.augment.keys(self._aug_key)
+                                   if self._routed else []))
+        step.model.train()
+        step.begin(ts, lr)
+        if step.pool is not None and self.augment is not None \
+                and not self._routed:
+            raise TypeError(
+                f"a captured batch step needs a DeviceAugment, got "
+                f"{type(self.augment).__name__}: a CUDA graph would replay "
+                f"the draws of its capture; build it with "
+                f"DeviceAugmentBuilder, or pass jit=False")
+        if step.pool is None or debug_eager(step.model):
+            loss = self.run(ts, x_all, y_all, bidx)
+        else:
+            with step.pool.lock:
+                session = self._session(ts, x_all, y_all, bidx)
+                if session is None:
+                    loss = self.run(ts, x_all, y_all, bidx)
+                else:
+                    loss = session(bidx)
+                    for p, g in session.grads:
+                        p.grad = g
+        step.end(ts)
+        return loss
 
 
 def lr_per_step(lr, k: int, device):
@@ -193,7 +267,7 @@ def make_resident_epoch(model, loss_fn: Callable, optimizer, *,
                         augment: Optional[Callable] = None,
                         scale: float = 1.0 / 255.0,
                         steps: Optional[int] = None,
-                        num_microbatches: int = 1):
+                        num_microbatches: int = 1, jit: bool = True):
     """Build the resident epoch: ``epoch(ts, x_all, y_all, key, lr,
     order=None) -> (ts, mean_loss)``, ``mean_loss`` a device scalar.
 
@@ -203,11 +277,17 @@ def make_resident_epoch(model, loss_fn: Callable, optimizer, *,
     updates, a per-step key). ``lr`` is a scalar or a [steps] vector (a
     per-batch schedule stays exact). ``steps`` beyond ``n // batch_size``
     tile further permutations. ``order`` ([steps, B] indices into the
-    split) replaces the drawn permutation."""
+    split) replaces the drawn permutation.
+
+    With ``jit`` on CUDA each step replays one graph of the whole body
+    (:class:`BatchStep`), the permutation drawn once an epoch outside it;
+    neither the replays nor the capture wait for the card."""
     from ..train.trainer import make_train_step
 
-    step = make_train_step(model, loss_fn, optimizer, num_microbatches)
-    cdt = get_compute_dtype()
+    step = make_train_step(model, loss_fn, optimizer, num_microbatches,
+                           jit=jit)
+    body = BatchStep(step, num_classes=num_classes, scale=scale,
+                     cdt=get_compute_dtype(), augment=augment)
 
     def epoch(ts, x_all, y_all, key: int, lr, order=None):
         n, dev = x_all.shape[0], x_all.device
@@ -228,12 +308,12 @@ def make_resident_epoch(model, loss_fn: Callable, optimizer, *,
                                  f"{tuple(idx.shape)}")
             k = idx.shape[0]
         lrs = lr_per_step(lr, k, dev)
-        body = make_batch_step(step, x_all, y_all, num_classes=num_classes,
-                               scale=scale, cdt=cdt, augment=augment)
-        losses = torch.stack([body(ts, idx[i], fold_in(kstep, i), lrs[i])
+        losses = torch.stack([body(ts, x_all, y_all, idx[i],
+                                   fold_in(kstep, i), lrs[i])
                               for i in range(k)])
         return ts, losses.mean()
 
+    epoch.step, epoch.body = step, body
     return epoch
 
 
@@ -245,22 +325,25 @@ def make_resident_eval(model, loss_fn: Callable, *, num_classes: int,
     mean-reducing loss). ``loss_sum`` accumulates ``loss * rows`` in
     float64 on the device, the sum a host loop forms in Python floats, so
     it equals the host eval of the same batches; ``correct`` is an int64
-    device scalar."""
+    device scalar. Each batch runs through
+    :func:`~dcnn_tpu_torch.train.make_eval_step`'s step, on CUDA one graph
+    for the full batches and one for the remainder."""
+    from ..train.trainer import make_eval_step
+
     cdt = get_compute_dtype()
+    step = make_eval_step(model, loss_fn)
 
     @torch.no_grad()
     def evaluate(x_all, y_all, scale: float = 1.0 / 255.0):
-        model.eval()
         n = x_all.shape[0]
         loss_sum = torch.zeros((), dtype=torch.float64, device=x_all.device)
         correct = torch.zeros((), dtype=torch.int64, device=x_all.device)
         for lo in range(0, n, batch_size):
             xb = _decode(x_all[lo:lo + batch_size], scale, cdt)
-            yb = y_all[lo:lo + batch_size].long()
-            logits = upcast_logits(model(xb))
-            loss = loss_fn(logits, _one_hot(yb, num_classes))
+            yb = y_all[lo:lo + batch_size]
+            loss, right = step(xb, _one_hot(yb, num_classes))
             loss_sum += loss.double() * yb.shape[0]
-            correct += (torch.argmax(logits, dim=-1) == yb).sum()
+            correct += right
         return loss_sum, correct, n
 
     return evaluate

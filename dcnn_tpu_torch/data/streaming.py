@@ -48,8 +48,10 @@ def make_shard_step(model, loss_fn: Callable, optimizer, *, num_classes: int,
     from . import device_dataset as dd
 
     train_step = make_train_step(model, loss_fn, optimizer, num_microbatches)
-    cdt = get_compute_dtype()
+    body = dd.BatchStep(train_step, num_classes=num_classes, scale=scale,
+                        cdt=get_compute_dtype(), augment=augment)
     k, b = shard_batches, batch_size
+    shard: list = []  # the body's rows: one buffer a shard is copied into
 
     def step(ts, x_u8, y, key: int, lr):
         if isinstance(x_u8, (tuple, list)):
@@ -57,13 +59,19 @@ def make_shard_step(model, loss_fn: Callable, optimizer, *, num_classes: int,
         if x_u8.shape[0] != k * b:
             raise ValueError(f"shard must hold exactly {k}x{b} samples, "
                              f"got {x_u8.shape[0]}")
+        if not shard or shard[0].shape != x_u8.shape \
+                or shard[0].dtype != x_u8.dtype \
+                or shard[0].device != x_u8.device:
+            shard[:] = [torch.empty_like(x_u8), torch.empty_like(y)]
+        xs, ys = shard
+        xs.copy_(x_u8)
+        ys.copy_(y)
         kperm, kstep = split(key)
         dev = x_u8.device
         idx = dd.permutation(kperm, k * b, k * b, dev).reshape(k, b)
         lrs = dd.lr_per_step(lr, k, dev)
-        body = dd.make_batch_step(train_step, x_u8, y, num_classes=num_classes,
-                               scale=scale, cdt=cdt, augment=augment)
-        losses = torch.stack([body(ts, idx[i], fold_in(kstep, i), lrs[i])
+        losses = torch.stack([body(ts, xs, ys, idx[i], fold_in(kstep, i),
+                                   lrs[i])
                               for i in range(k)])
         return ts, losses.mean()
 

@@ -13,11 +13,22 @@ As in the JAX package, an optimizer is a stateless spec: ``init(params)``
 makes the state and ``update(grads, opt_state, params, lr)`` applies one
 step, with ``lr`` given per step by the trainer or a scheduler: a float,
 or a 0-d tensor on the params' device (the resident and chunked epochs'
-per-batch lr vectors stay on the card). Both give the same bits: a float
-lr is rounded to fp32 and a product with it (``wd·lr``) is taken in fp32,
-as the tensor lr's is and as the JAX package's f32 lr is, so a chunked
-epoch equals the per-step loop. ``params``
-and ``grads`` map parameter names (``model.named_parameters()``) to tensors.
+per-batch lr vectors stay on the card). ``params`` and ``grads`` map
+parameter names (``model.named_parameters()``) to tensors.
+
+A step's host scalars (the lr; Adam's bias corrections, from the integer
+step ``t``) reach its kernels as 0-d fp32 tensors, not as constants, so
+that a CUDA graph of the step reads each step's values:
+:meth:`Optimizer.scalars` makes them once, :meth:`Optimizer.fill_scalars`
+writes the next step's values into them (fills queued on the card, no
+wait for it), :meth:`Optimizer.apply` is the step's device work
+reading them, and :meth:`Optimizer.advance` moves ``t`` on the host.
+``update`` is the four in a row. A float lr is rounded to fp32 in its
+tensor, and ``wd·lr`` is the fp32 product of two fp32 factors, so a float
+and a tensor lr give the same bits, as the JAX package's f32 lr does on
+both of its paths. ``t`` stays a host int in the state (the JAX layout),
+and the bias corrections stay the JAX package's fp32 values.
+
 Unlike the JAX functions, ``update`` works in place: it overwrites the
 params and the state's tensors and returns the state, which saves a copy of
 every parameter and moment per step. The state keeps the JAX names
@@ -27,30 +38,14 @@ carries it across.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Mapping
 
 import numpy as np
 import torch
 
 OptState = Dict[str, Any]
 Tensors = Mapping[str, torch.Tensor]
-
-
-def _lr(lr, default: float):
-    """The step's lr: the default or a float, rounded to fp32, or a device
-    tensor kept as it is (reading it would wait for the card)."""
-    if lr is None:
-        lr = default
-    return lr if isinstance(lr, torch.Tensor) else float(np.float32(lr))
-
-
-def _times_lr(c: float, lr):
-    """``c·lr`` rounded as a tensor lr's product is: both factors in fp32,
-    the product rounded once to fp32 (a float product in double would
-    differ from it by an ulp for some lrs)."""
-    if isinstance(lr, torch.Tensor):
-        return c * lr
-    return float(np.float32(c) * np.float32(lr))
+Scalars = Dict[str, torch.Tensor]
 
 
 def _zeros(params: Tensors) -> Dict[str, torch.Tensor]:
@@ -67,9 +62,37 @@ class Optimizer:
     def init(self, params: Tensors) -> OptState:
         raise NotImplementedError
 
-    def update(self, grads: Tensors, opt_state: OptState, params: Tensors,
-               lr: Optional[float] = None) -> OptState:
+    def scalars(self, device) -> Scalars:
+        """The step's host scalars as 0-d fp32 tensors on ``device``."""
+        return {"lr": torch.zeros((), dtype=torch.float32, device=device)}
+
+    def fill_scalars(self, scalars: Scalars, opt_state: OptState,
+                     lr=None) -> None:
+        """Write the values of the step after ``opt_state``'s into
+        ``scalars``: ``lr`` (the default when None) as a float rounded to
+        fp32 or a tensor copied on the card, never read on the host."""
+        lr = self.learning_rate if lr is None else lr
+        if isinstance(lr, torch.Tensor):
+            scalars["lr"].copy_(lr.reshape(()))
+        else:
+            scalars["lr"].fill_(float(np.float32(lr)))
+
+    def apply(self, grads: Tensors, opt_state: OptState, params: Tensors,
+              scalars: Scalars) -> None:
+        """The step's device work, in place, reading ``scalars``."""
         raise NotImplementedError
+
+    def advance(self, opt_state: OptState) -> None:
+        """Count the step on the host (Adam's ``t``)."""
+
+    def update(self, grads: Tensors, opt_state: OptState, params: Tensors,
+               lr=None) -> OptState:
+        """One step in place: fill, apply, advance. Returns the state."""
+        scalars = self.scalars(next(iter(params.values())).device)
+        self.fill_scalars(scalars, opt_state, lr)
+        self.apply(grads, opt_state, params, scalars)
+        self.advance(opt_state)
+        return opt_state
 
     def get_config(self) -> Dict[str, Any]:
         raise NotImplementedError
@@ -89,8 +112,8 @@ class SGD(Optimizer):
         return {}
 
     @torch.no_grad()
-    def update(self, grads, opt_state, params, lr=None):
-        lr = _lr(lr, self.learning_rate)
+    def apply(self, grads, opt_state, params, scalars):
+        lr = scalars["lr"]
         for n, p in params.items():
             g = grads[n]
             if self.momentum > 0.0:
@@ -99,7 +122,6 @@ class SGD(Optimizer):
                 p.add_(v)
             else:
                 p.sub_(lr * g)
-        return opt_state
 
     def get_config(self):
         return {"type": "sgd", "learning_rate": self.learning_rate,
@@ -120,15 +142,26 @@ class Adam(Optimizer):
     def init(self, params):
         return {"m": _zeros(params), "v": _zeros(params), "t": 0}
 
-    @torch.no_grad()
-    def update(self, grads, opt_state, params, lr=None):
-        lr = _lr(lr, self.learning_rate)
-        b1, b2, eps, wd = self.beta1, self.beta2, self.epsilon, self.weight_decay
-        t = int(opt_state["t"]) + 1
+    def scalars(self, device):
+        sc = super().scalars(device)
+        sc["bc1"] = torch.ones((), dtype=torch.float32, device=device)
+        sc["bc2"] = torch.ones((), dtype=torch.float32, device=device)
+        return sc
+
+    def fill_scalars(self, scalars, opt_state, lr=None):
+        super().fill_scalars(scalars, opt_state, lr)
+        t = np.float32(int(opt_state["t"]) + 1)
         # fp32 bias corrections, as the JAX package computes them from its
         # int32 step
-        bc1 = float(np.float32(1.0) - np.float32(b1) ** np.float32(t))
-        bc2 = float(np.float32(1.0) - np.float32(b2) ** np.float32(t))
+        one = np.float32(1.0)
+        scalars["bc1"].fill_(float(one - np.float32(self.beta1) ** t))
+        scalars["bc2"].fill_(float(one - np.float32(self.beta2) ** t))
+
+    @torch.no_grad()
+    def apply(self, grads, opt_state, params, scalars):
+        lr, bc1, bc2 = scalars["lr"], scalars["bc1"], scalars["bc2"]
+        b1, b2, eps, wd = self.beta1, self.beta2, self.epsilon, self.weight_decay
+        wd_lr = wd * lr if wd > 0.0 else None  # fp32 product, rounded once
         for n, p in params.items():
             g = grads[n]
             m, v = opt_state["m"][n], opt_state["v"][n]
@@ -137,12 +170,13 @@ class Adam(Optimizer):
             update = lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
             if wd > 0.0:
                 if self.decouple_weight_decay:
-                    p.sub_(_times_lr(wd, lr) * p)  # AdamW
+                    p.sub_(wd_lr * p)  # AdamW
                 else:  # L2 in the update
-                    update = update + _times_lr(wd, lr) * p
+                    update = update + wd_lr * p
             p.sub_(update)
-        opt_state["t"] = t
-        return opt_state
+
+    def advance(self, opt_state):
+        opt_state["t"] = int(opt_state["t"]) + 1
 
     def name(self):
         return "AdamW" if self.decouple_weight_decay else "Adam"

@@ -18,9 +18,17 @@
   mode, and the ``decode.step`` / ``decode.admit`` trip points
   (``resilience/faults.py``).
 
-PyTorch runs eagerly, so a lattice point is the step at that shape, not a
-compiled program; the lattice still bounds the shapes the card sees. The
-step writes the pool in place (the JAX step returns new pools).
+On CUDA a lattice point is a CUDA graph of the step at that shape
+(:mod:`~dcnn_tpu_torch.core.graphs`; its static inputs the tokens,
+positions and page table, the pools written in place at fixed addresses),
+captured at construction after one eager idle step, all in one memory
+pool, the counterpart of the JAX engine's compiled executables; on the CPU
+it is the plain step. The step writes the pool in place (the JAX step
+returns new pools), so a graph is bound to the engine's pool: another pool
+(:func:`decode_reference`'s private one) runs the plain step, the
+reference the graphs are held to. A graph computes in the precision mode
+of its capture, so sessions are keyed by (batch, pages, mode), another
+mode's captured at its first use after one eager idle step.
 
 Determinism: a row's tokens depend only on its own token, position, page
 table and pages; padding rows ride the null page and are masked to exact
@@ -52,7 +60,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..core.precision import cast_to_compute
+from ..core.graphs import GraphPool, Session
+from ..core.precision import cast_to_compute, get_precision_mode
 from ..obs.registry import get_registry
 from ..obs.tracer import get_tracer
 from ..obs.xla import jit_cost, record_compile, sample_hbm
@@ -83,8 +92,9 @@ class DecodeEngine:
                  aot_cache: Any = None, registry=None):
         if aot_cache not in (None, False):
             raise NotImplementedError(
-                "DecodeEngine has no AOT executable cache: PyTorch runs the "
-                "step eagerly; the cache waits for ROADMAP.md Queue 1 item 9")
+                "DecodeEngine has no AOT executable cache: its CUDA graphs "
+                "are captured in the process; the cache waits for ROADMAP.md "
+                "Queue 1 item 9")
         self.model = model.eval()
         self.name = name
         self.registry = registry if registry is not None else get_registry()
@@ -117,25 +127,34 @@ class DecodeEngine:
         # steps of :meth:`step` per lattice point (the batcher's dispatches)
         self.step_counts: Dict[Tuple[int, int], int] = {}
         self.compile_stats: Dict[Tuple[int, int], Dict[str, float]] = {}
+        self.graphs = GraphPool(self.device)
+        # {(b, mp, precision mode): session} over the engine's pool
+        self.sessions: Dict[Tuple[int, int, str], Session] = {}
         tracer = get_tracer()
-        for b in self.bucket_sizes:
-            for mp in self.page_buckets:
+        # largest first: the smaller points' graphs fit in what it freed
+        for b in reversed(self.bucket_sizes):
+            for mp in reversed(self.page_buckets):
                 t0 = time.perf_counter()
                 cost = None
                 with tracer.span("serve.compile", track="serve",
                                  engine=name, bucket=b, pages=mp):
-                    if warmup:
+                    if warmup:  # the first, eager, FLOP-counted call
                         cost = jit_cost(self._idle_step, b, mp)
                 compile_s = time.perf_counter() - t0
                 record_compile(compile_s, what="decode",
                                registry=self.registry)
+                capture_s = 0.0
                 t0 = time.perf_counter()
                 if warmup:
+                    s = self._capture(b, mp)
+                    capture_s = time.perf_counter() - t0
+                    t0 = time.perf_counter()
                     with tracer.span("serve.warmup", track="serve",
                                      engine=name, bucket=b, pages=mp):
-                        self._idle_step(b, mp)
+                        s(*self._idle_inputs(b, mp))
                         _sync(self.device)
                 st = {"compile_s": round(compile_s, 4),
+                      "capture_s": round(capture_s, 4),
                       "warmup_s": time.perf_counter() - t0}
                 if cost is not None:
                     st["flops"] = cost["flops"]
@@ -143,14 +162,38 @@ class DecodeEngine:
         # the post-construction memory watermark (pool and workspaces)
         sample_hbm(self.registry)
 
+    def _idle_inputs(self, b: int, mp: int):
+        """Tokens, positions and page table of a step at lattice point (b,
+        mp) with every row inactive: its writes touch only the null
+        page."""
+        return (torch.zeros(b, dtype=torch.long, device=self.device),
+                torch.full((b,), -1, dtype=torch.long, device=self.device),
+                torch.zeros((b, mp), dtype=torch.long, device=self.device))
+
     def _idle_step(self, b: int, mp: int):
-        """A step at lattice point (b, mp) with every row inactive: its
-        writes touch only the null page."""
-        return self._step(
-            torch.zeros(b, dtype=torch.long, device=self.device),
-            torch.full((b,), -1, dtype=torch.long, device=self.device),
-            torch.zeros((b, mp), dtype=torch.long, device=self.device),
-            self.pool.k, self.pool.v)
+        """The idle step on the engine's pool."""
+        return self._step(*self._idle_inputs(b, mp), self.pool.k,
+                          self.pool.v)
+
+    def _capture(self, b: int, mp: int) -> Session:
+        mode = get_precision_mode()
+        pool_k, pool_v = self.pool.k, self.pool.v
+        s = self.sessions[(b, mp, mode)] = Session(
+            f"{self.name} step {b}x{mp} ({mode})",
+            lambda t, p, pt: self._step(t, p, pt, pool_k, pool_v),
+            self._idle_inputs(b, mp), pool=self.graphs)
+        return s
+
+    def _session(self, b: int, mp: int) -> Session:
+        """The session of lattice point (b, mp) in the current precision
+        mode; where there is none yet (no warm-up at construction, or
+        another mode), an eager idle step and the capture."""
+        with self.graphs.lock:
+            s = self.sessions.get((b, mp, get_precision_mode()))
+            if s is None:
+                self._idle_step(b, mp)
+                s = self._capture(b, mp)
+            return s
 
     # -- the step --
     def _step(self, tokens: torch.Tensor, positions: torch.Tensor,
@@ -205,9 +248,10 @@ class DecodeEngine:
         """One step at a lattice point: ``tokens`` and ``positions`` (b,),
         ``page_table`` (b, mp) (arrays or tensors) must be exact buckets.
         Writes ``pool_k``/``pool_v`` in place and returns
-        ``(next_tokens, logits, pool_k, pool_v)`` on the device.
-        :func:`decode_reference` runs private pools through this;
-        :meth:`step` runs the engine's own."""
+        ``(next_tokens, logits, pool_k, pool_v)`` on the device. The
+        engine's own pool (:meth:`step`'s) replays the lattice point's
+        graph on CUDA; any other (:func:`decode_reference`'s private one)
+        runs the plain step."""
         b = np.shape(tokens)[0]
         key = (b, np.shape(page_table)[1])
         if key not in self.compile_stats:
@@ -223,8 +267,12 @@ class DecodeEngine:
                  else torch.from_numpy(np.asarray(a)))
             return t.to(self.device, torch.long)
 
-        nxt, logits = self._step(dev(tokens), dev(positions),
-                                 dev(page_table), pool_k, pool_v)
+        args = (dev(tokens), dev(positions), dev(page_table))
+        if self.graphs.cuda and pool_k is self.pool.k \
+                and pool_v is self.pool.v:
+            nxt, logits = self._session(*key)(*args)
+        else:
+            nxt, logits = self._step(*args, pool_k, pool_v)
         return nxt, logits, pool_k, pool_v
 
     def step(self, tokens, positions, page_table):
@@ -248,9 +296,10 @@ class DecodeEngine:
 def decode_reference(engine: DecodeEngine, prompt: Sequence[int], *,
                      max_new_tokens: int = 16,
                      eos_id: Optional[int] = None) -> np.ndarray:
-    """Batch-of-one greedy decode of ``prompt`` through the engine's step
-    (batch bucket 1, the page bucket of the sequence's own length) on a
-    private zeroed pool; the engine's pool and allocator are untouched.
+    """Batch-of-one greedy decode of ``prompt`` through the engine's plain
+    step, never a graph (batch bucket 1, the page bucket of the sequence's
+    own length) on a private zeroed pool; the engine's pool and allocator
+    are untouched.
     The per-sequence oracle the continuous batcher is held to."""
     prompt = [int(t) for t in prompt]
     if not prompt:

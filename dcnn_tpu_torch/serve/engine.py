@@ -1,13 +1,21 @@
 """Bucketed inference engine (counterpart of ``dcnn_tpu/serve/engine.py``).
 
-One session per batch bucket (powers of two up to ``max_batch``), each
-warmed once at construction so the first real request pays no first-call
-cost (kernel build, allocator growth, cuDNN plans), with
-zero-pad-to-bucket dispatch. :meth:`InferenceEngine.warm` repeats the
-warm-up on another thread (``DynamicBatcher`` calls it on its dispatcher).
-PyTorch runs eagerly, so a session is the model's forward at that batch
-size. Buckets still bound the shapes the kernels see to
-``log2(max_batch)+1``.
+One session per batch bucket (powers of two up to ``max_batch``), with
+zero-pad-to-bucket dispatch. On CUDA a session is a CUDA graph of the
+model's forward at that batch size (:mod:`~dcnn_tpu_torch.core.graphs`),
+the counterpart of the JAX engine's compiled, warmed executable: built at
+construction after one eager call, largest bucket first, all in one memory
+pool, so the first real request pays no first-call cost (kernel build,
+int8 weight packing, allocator growth, cuDNN plans) and each batch is one
+graph launch. A call copies the rows into the bucket's static input,
+replays and returns a copy of the logits; a lock serialises the replays of
+the batcher's dispatcher and of other callers. A graph computes in the
+precision mode of its capture, so sessions are keyed by (bucket, mode): a
+call in another mode (``set_precision``) runs that mode's graph, captured
+at its first use after one eager call, as the CPU engine computes in the
+mode of the call. :meth:`InferenceEngine.warm`
+replays every bucket on the calling thread (``DynamicBatcher`` calls it on
+its dispatcher). On the CPU a session is the plain forward.
 
 Padding is row-exact within a bucket: zero rows ride along and are sliced
 off. Float results are allclose, not bit-identical, across buckets (a GEMM
@@ -20,11 +28,12 @@ own, so its logits are bit-identical at every bucket.
 Construction records, per bucket, a ``serve.compile`` span over the first
 call (kernel builds; its FLOPs counted by ``FlopCounterMode``,
 :mod:`~dcnn_tpu_torch.obs.xla`, into ``compile_stats``), counted on
-``compile_total`` / ``compile_serve_seconds_total``, then a
-``serve.warmup`` span over a warm call; the per-sample FLOPs gauge and the
-card's memory gauges go on ``registry`` (the process-global one by
-default). JAX's AOT executable cache and buffer donation have no
-counterpart here.
+``compile_total`` / ``compile_serve_seconds_total``, then the capture
+(``capture_s`` in ``compile_stats``) and a ``serve.warmup`` span over a
+replay; the per-sample FLOPs gauge and the card's memory gauges go on
+``registry`` (the process-global one by default). With ``warmup=False`` a
+bucket is called, captured and replayed at its first use. JAX's AOT
+executable cache and buffer donation have no counterpart here.
 """
 
 from __future__ import annotations
@@ -35,6 +44,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from ..core.device import DeviceLike, resolve_device
+from ..core.graphs import GraphPool, Session
+from ..core.precision import get_precision_mode
 from ..obs.registry import get_registry
 from ..obs.tracer import get_tracer
 from ..obs.xla import jit_cost, record_compile, sample_hbm
@@ -79,19 +90,30 @@ class InferenceEngine:
         self.bucket_sizes = serve_buckets(max_batch)
         self.max_batch = self.bucket_sizes[-1]
         self._apply = apply_fn
+        self.graphs = GraphPool(self.device)
+        # {(bucket, precision mode): session}
+        self.sessions: Dict[Tuple[int, str], Session] = {}
         self.compile_stats: Dict[int, Dict[str, float]] = {}
         tracer = get_tracer()
-        for b in self.bucket_sizes:
+        # largest first: the smaller buckets' graphs fit in what it freed
+        for b in reversed(self.bucket_sizes):
             t0 = time.perf_counter()
             cost = None
             with tracer.span("serve.compile", track="serve",
                              engine=name, bucket=b):
-                if warmup:  # the first call builds what it launches
-                    cost = jit_cost(self._run_zeros, b)
+                if warmup:
+                    # the first call, eager and FLOP-counted: it builds the
+                    # kernels, packs the int8 weights and picks the cuDNN
+                    # plans, none of which may happen inside a capture
+                    cost = jit_cost(self._forward, self._zeros(b))
             compile_s = time.perf_counter() - t0
             record_compile(compile_s, what="serve", registry=self.registry)
-            st = {"compile_s": round(compile_s, 4), "warmup_s": 0.0}
+            st = {"compile_s": round(compile_s, 4), "capture_s": 0.0,
+                  "warmup_s": 0.0}
             if warmup:
+                t0 = time.perf_counter()
+                self._capture(b)
+                st["capture_s"] = round(time.perf_counter() - t0, 4)
                 st["warmup_s"] = round(self._warm_bucket(b), 4)
             if cost is not None:
                 st["flops"] = cost["flops"]
@@ -100,25 +122,48 @@ class InferenceEngine:
         # the post-construction memory watermark
         sample_hbm(self.registry)
 
-    def _run_zeros(self, b: int) -> torch.Tensor:
-        return self.run_padded(torch.zeros((b, *self.input_shape),
-                                           dtype=self.input_dtype,
-                                           device=self.device))
+    def _zeros(self, b: int) -> torch.Tensor:
+        return torch.zeros((b, *self.input_shape), dtype=self.input_dtype,
+                           device=self.device)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
+        with torch.inference_mode():
+            return self._apply(x)
+
+    def _capture(self, b: int) -> Session:
+        mode = get_precision_mode()
+        s = self.sessions[(b, mode)] = Session(
+            f"{self.name} bucket {b} ({mode})", self._forward,
+            (self._zeros(b),), pool=self.graphs)
+        return s
+
+    def _session(self, b: int) -> Session:
+        """Bucket ``b``'s session in the current precision mode; at its
+        first use (no warm-up at construction, or another mode), an eager
+        call and the capture."""
+        key = (b, get_precision_mode())
+        s = self.sessions.get(key)
+        if s is None:
+            with self.graphs.lock:
+                s = self.sessions.get(key)
+                if s is None:
+                    self._forward(self._zeros(b))
+                    s = self._capture(b)
+        return s
 
     def _warm_bucket(self, b: int) -> float:
         t0 = time.perf_counter()
         with get_tracer().span("serve.warmup", track="serve",
                                engine=self.name, bucket=b):
-            self._run_zeros(b)
+            self.run_padded(self._zeros(b))
             _sync(self.device)
         return time.perf_counter() - t0
 
     def warm(self) -> Dict[int, float]:
         """Run every bucket once on zeros, on the calling thread, and wait
-        for the device (a ``serve.warmup`` span each). Returns {bucket:
-        seconds}. PyTorch keeps cuDNN's handles and execution-plan cache
-        per thread, so a thread that will serve (the batcher's dispatcher)
-        warms for itself."""
+        for the device (a ``serve.warmup`` span each): on CUDA a replay of
+        each graph, captured first where construction did not. Returns
+        {bucket: seconds}."""
         return {b: self._warm_bucket(b) for b in self.bucket_sizes}
 
     def _export_cost_gauges(self, registry) -> None:
@@ -213,8 +258,10 @@ class InferenceEngine:
         if b not in self.bucket_sizes:
             raise ValueError(f"no session for batch {b}; buckets are "
                              f"{self.bucket_sizes}")
-        with torch.inference_mode():
-            return self._apply(x.to(self.device, self.input_dtype))
+        x = x.to(self.device, self.input_dtype)
+        if not self.graphs.cuda:
+            return self._forward(x)
+        return self._session(b)(x)
 
     def infer(self, x) -> torch.Tensor:
         """Run ``x`` — one sample ``input_shape`` or a batch

@@ -51,6 +51,7 @@ skipped silently.
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 import warnings
@@ -64,7 +65,9 @@ import numpy as np
 from ..core import debug as _debug
 from ..core.config import ProfilerType, TrainingConfig
 from ..core.device import DeviceLike, resolve_device
+from ..core.graphs import GraphPool, Session, debug_eager
 from ..core.keys import fold_in, generator, to_device
+from ..core.precision import get_precision_mode
 from ..data.device_dataset import (
     DeviceDataset, lr_per_step, resident_epoch, resident_eval,
 )
@@ -137,19 +140,239 @@ def batch_generator(seed: int, epoch: int, batch: int,
     return torch.Generator(device=device).manual_seed(int(state >> 1))
 
 
+def _tensors(tree):
+    """The tensors of a state tree (dicts of tensors, ints), in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for k in tree for t in _tensors(tree[k])]
+    return []
+
+
+class TrainStep:
+    """The train step :func:`make_train_step` returns; see there. Its
+    parts, for callers that compose it into a larger graph (the resident
+    and streaming feeds' batch body): :meth:`begin` (the optimizer's host
+    scalars), :meth:`body` (forward, backward and update, all on the card),
+    :meth:`end` (the host's step counts), :meth:`binding` (the addresses a
+    captured graph of the step writes) and :attr:`pool`."""
+
+    def __init__(self, model: Sequential, loss_fn: Callable,
+                 optimizer: Optimizer, num_microbatches: int = 1,
+                 guard: bool = False, jit: bool = True,
+                 pool: Optional[GraphPool] = None):
+        self.model, self.loss_fn, self.optimizer = model, loss_fn, optimizer
+        self.n_mb = int(num_microbatches)
+        self.guard = bool(guard)
+        self.jit = bool(jit)
+        self.pool = pool if jit else None
+        # on the params' device, at the first call (a Trainer is built
+        # before its params)
+        self.device = self.scalars = self.generator = None
+        self._warm: set = set()
+        self._sessions: dict = {}
+
+    def _place(self) -> None:
+        if self.device is None:
+            self.device = _model_device(self.model)
+            self.scalars = self.optimizer.scalars(self.device)
+            self.generator = torch.Generator(device=self.device)
+            if self.jit and self.pool is None \
+                    and self.device.type == "cuda":
+                self.pool = GraphPool(self.device)
+            if self.pool is not None and not self.pool.cuda:
+                self.pool = None
+
+    # -- the device work (capturable: nothing here reads the card) --
+    def _forward_backward(self, x, y, generator):
+        model = self.model
+        params = dict(model.named_parameters())
+        for p in params.values():
+            p.grad = None
+        n_mb = self.n_mb
+        if n_mb > 1 and x.shape[0] % n_mb != 0:
+            warnings.warn(
+                f"batch size {x.shape[0]} not divisible by num_microbatches="
+                f"{n_mb}: training this batch unmicrobatched "
+                f"(different BN statistics semantics)", stacklevel=4)
+
+        def forward_loss(xi, yi):
+            logits = upcast_logits(model(xi, generator=generator))
+            loss = self.loss_fn(logits, yi)
+            loss.backward()
+            return loss.detach(), logits.detach()
+
+        if n_mb == 1 or x.shape[0] % n_mb != 0:
+            loss, logits = forward_loss(x, y)
+        else:
+            losses, outs = [], []
+            for xi, yi in zip(x.chunk(n_mb), y.chunk(n_mb)):
+                li, oi = forward_loss(xi, yi)  # .grad sums
+                losses.append(li)
+                outs.append(oi)
+            for p in params.values():
+                if p.grad is not None:
+                    p.grad.div_(n_mb)
+            loss = sum(losses) / n_mb
+            logits = torch.cat(outs).reshape(x.shape[0], -1)
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in params.items()}
+        return loss, logits, grads
+
+    def _update(self, ts: TrainState, grads) -> None:
+        self.optimizer.apply(grads, ts.opt_state,
+                             dict(self.model.named_parameters()),
+                             self.scalars)
+
+    def body(self, ts: TrainState, x, y, generator=None):
+        """Forward, backward and update, reading :attr:`scalars` (filled
+        by :meth:`begin`); ``(loss, logits)`` on the card."""
+        loss, logits, grads = self._forward_backward(x, y, generator)
+        self._update(ts, grads)
+        return loss, logits
+
+    def _probe(self, ts: TrainState, x, y, generator):
+        """The first of the guarded (or debug-mode) step's two parts:
+        the buffers' copy (guard only), forward and backward, Σ‖g‖² and
+        whether the loss and it are finite."""
+        saved = ([b.detach().clone() for b in self.model.buffers()]
+                 if self.guard else [])
+        loss, logits, grads = self._forward_backward(x, y, generator)
+        gnorm = global_norm_sq(grads.values())
+        ok = torch.isfinite(loss) & torch.isfinite(gnorm)
+        return loss, logits, gnorm, ok, saved, grads
+
+    # -- the host's part --
+    def begin(self, ts: TrainState, lr) -> None:
+        """Write the step's lr and the optimizer's scalars for the step
+        after ``ts``'s (fills on the card, no wait)."""
+        self._place()
+        self.optimizer.fill_scalars(self.scalars, ts.opt_state, lr)
+
+    def end(self, ts: TrainState) -> None:
+        """Count a step that updated: the optimizer's ``t``, ``ts.step``."""
+        self.optimizer.advance(ts.opt_state)
+        ts.step += 1
+
+    def binding(self, ts: TrainState) -> tuple:
+        """The addresses of every tensor a step writes in place (params,
+        buffers, optimizer state): a graph captured for other addresses
+        would update tensors ``ts`` no longer holds."""
+        return tuple(t.data_ptr() for t in (*self.model.parameters(),
+                                            *self.model.buffers(),
+                                            *_tensors(ts.opt_state)))
+
+    def capture(self, name: str, fn: Callable, example, generators):
+        """A session of ``fn`` in this step's pool, the params' gradients
+        it writes kept on it (``grads``, put back on ``.grad`` after each
+        replay)."""
+        s = Session(name, fn, example, pool=self.pool, generators=generators)
+        s.grads = [(p, p.grad) for p in self.model.parameters()]
+        return s
+
+    def _sessions_for(self, ts, x, y, gen, split):
+        key = (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype,
+               gen is None, split, get_precision_mode())
+        if key not in self._warm:
+            self._warm.add(key)
+            return None  # the shape's first call: eager, its warm-up
+        bind = self.binding(ts)
+        got = self._sessions.get(key)
+        if got is not None and got[0] == bind:
+            return got[1]
+        gens = () if gen is None else (gen,)
+        if split:
+            first = self.capture("train_step.probe",
+                                 lambda xs, ys: self._probe(ts, xs, ys, gen),
+                                 (x, y), gens)
+            grads = first.outputs[-1]
+            second = self.capture("train_step.update",
+                                  lambda: self._update(ts, grads), (), ())
+            sessions = (first, second)
+        else:
+            sessions = (self.capture(
+                "train_step", lambda xs, ys: self.body(ts, xs, ys, gen),
+                (x, y), gens),)
+        self._sessions[key] = (bind, sessions)
+        return sessions
+
+    def __call__(self, ts: TrainState, x: torch.Tensor, y: torch.Tensor, lr,
+                 generator: Optional[torch.Generator] = None):
+        self.begin(ts, lr)
+        self.model.train()
+        gen = None
+        if generator is not None:  # its state, drawn from by the step
+            self.generator.set_state(generator.get_state())
+            gen = self.generator
+        split = self.guard or _debug.debug_nans()
+        lock = (self.pool.lock if self.pool is not None
+                else contextlib.nullcontext())
+        with lock:
+            sessions = (self._sessions_for(ts, x, y, gen, split)
+                        if self.pool is not None
+                        and not debug_eager(self.model) else None)
+            if not split:
+                if sessions is None:
+                    loss, logits = self.body(ts, x, y, gen)
+                else:
+                    loss, logits = sessions[0](x, y)
+                bad = False
+            else:
+                if sessions is None:
+                    loss, logits, gnorm, ok, saved, grads = self._probe(
+                        ts, x, y, gen)
+                else:
+                    loss, logits, gnorm, ok, saved, _ = sessions[0].replay(
+                        x, y)
+                    loss, logits = loss.clone(), logits.clone()
+                if _debug.debug_nans():
+                    _debug.check_finite(ts.step + 1, loss, gnorm)
+                bad = self.guard and not bool(ok)
+                if bad:  # the statistics the forward moved, put back
+                    with torch.no_grad():
+                        for b, s in zip(self.model.buffers(), saved):
+                            b.copy_(s)
+                elif sessions is None:
+                    self._update(ts, grads)
+                else:
+                    sessions[1].replay()
+            if sessions is not None:
+                for p, g in sessions[0].grads:
+                    p.grad = g
+        if generator is not None:
+            generator.set_state(self.generator.get_state())
+        if not bad:
+            self.end(ts)
+        return (loss, logits, bad) if self.guard else (loss, logits)
+
+
 def make_train_step(model: Sequential, loss_fn: Callable,
                     optimizer: Optimizer, num_microbatches: int = 1,
-                    guard: bool = False):
+                    guard: bool = False, jit: bool = True,
+                    pool: Optional[GraphPool] = None) -> TrainStep:
     """Returns ``step(ts, x, y, lr, generator=None) -> (loss, logits)``,
     which updates ``ts`` in place. ``x`` and ``y`` are tensors on the
     model's device; ``generator`` (on that device) feeds the model's dropout
-    layers, whose training forward raises without one.
+    layers, whose training forward raises without one, and advances as if
+    the step had drawn from it.
 
     With ``num_microbatches > 1`` the batch is split on the leading axis,
     the gradients of the pieces are summed and divided by their number
     (the loss likewise). A batch that does not divide evenly is trained
     whole, with a warning, as in the JAX package. The gradients stay in
     each parameter's ``.grad`` until the next step.
+
+    ``jit=True`` (the JAX signature's ``jit``): on CUDA the first call of
+    each batch shape (and precision mode) runs eagerly, as a real step
+    that is also its warm-up; the next captures ``zero grads -> forward -> backward ->
+    update`` as a CUDA graph (:mod:`~dcnn_tpu_torch.core.graphs`, in
+    ``pool``, a new one by default: a :class:`Trainer` gives its step and
+    chunk graphs one) and every call after it replays, bit for
+    bit the eager step. A capture that fails raises; nothing falls back to
+    eager. A graph is bound to the addresses it writes (params, buffers,
+    the optimizer state's tensors, :meth:`TrainStep.binding`): a call with
+    others captures again. ``jit=False``, and any call on the CPU, runs
+    eagerly.
 
     ``guard=True``: the step returns ``(loss, logits, bad)`` with ``bad =
     not (isfinite(loss) and isfinite(Σ‖g‖²))``, read on the host after the
@@ -161,71 +384,31 @@ def make_train_step(model: Sequential, loss_fn: Callable,
 
     While debug mode is on (:mod:`~dcnn_tpu_torch.core.debug`), a
     non-finite loss or gradient raises ``FloatingPointError`` naming the
-    step, after the backward and before the guard or the optimizer."""
-    n_mb = int(num_microbatches)
+    step, after the backward and before the guard or the optimizer.
 
-    def forward_loss(x, y, generator):
-        logits = upcast_logits(model(x, generator=generator))
-        loss = loss_fn(logits, y)
-        loss.backward()
-        return loss.detach(), logits.detach()
-
-    def step(ts: TrainState, x: torch.Tensor, y: torch.Tensor, lr: float,
-             generator: Optional[torch.Generator] = None):
-        params = dict(model.named_parameters())
-        model.train()
-        for p in params.values():
-            p.grad = None
-        if guard:  # the running statistics as they were before the forward
-            buffers = [(b, b.detach().clone()) for b in model.buffers()]
-        if n_mb > 1 and x.shape[0] % n_mb != 0:
-            warnings.warn(
-                f"batch size {x.shape[0]} not divisible by num_microbatches="
-                f"{n_mb}: training this batch unmicrobatched "
-                f"(different BN statistics semantics)", stacklevel=2)
-        if n_mb == 1 or x.shape[0] % n_mb != 0:
-            loss, logits = forward_loss(x, y, generator)
-        else:
-            losses, outs = [], []
-            for xi, yi in zip(x.chunk(n_mb), y.chunk(n_mb)):
-                li, oi = forward_loss(xi, yi, generator)  # .grad sums
-                losses.append(li)
-                outs.append(oi)
-            for p in params.values():
-                if p.grad is not None:
-                    p.grad.div_(n_mb)
-            loss = sum(losses) / n_mb
-            logits = torch.cat(outs).reshape(x.shape[0], -1)
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in params.items()}
-        if _debug.debug_nans():
-            _debug.check_finite(ts.step + 1, loss,
-                                global_norm_sq(grads.values()))
-        if guard:
-            bad = not bool(torch.isfinite(loss)
-                           & torch.isfinite(global_norm_sq(grads.values())))
-            if bad:
-                with torch.no_grad():
-                    for b, saved in buffers:
-                        b.copy_(saved)
-                return loss, logits, True
-        ts.opt_state = optimizer.update(grads, ts.opt_state, params, lr)
-        ts.step += 1
-        return (loss, logits, False) if guard else (loss, logits)
-
-    return step
+    With the guard or debug mode the host reads the card between backward
+    and update, so the step is two graphs split at that read. While
+    autograd's anomaly mode is on (debug mode's ``checks=True``) or the
+    model carries hooks (:func:`~dcnn_tpu_torch.core.debug.checked`'s),
+    every call runs eagerly (:func:`~dcnn_tpu_torch.core.graphs.debug_eager`):
+    a replay would run neither their host reads nor the hooks."""
+    return TrainStep(model, loss_fn, optimizer, num_microbatches, guard, jit,
+                     pool)
 
 
 def make_multi_step(model: Sequential, loss_fn: Callable, optimizer: Optimizer,
-                    num_microbatches: int = 1):
+                    num_microbatches: int = 1, jit: bool = True,
+                    pool: Optional[GraphPool] = None):
     """Returns ``multi_step(ts, xs, ys, key, lr) -> (ts, mean_loss)``: one
     full train step per leading index of ``xs`` ([K, B, ...]) and ``ys``
     ([K, B, classes]), step ``i`` drawing from ``generator(fold_in(key,
-    i))``, the same K steps as K calls of :func:`make_train_step`.
-    ``mean_loss`` stays on the device (a chunk is read once, as the JAX
-    package reads its one-dispatch chunk); ``lr`` is a scalar or a [K]
-    vector (per-batch schedules stay exact)."""
-    step = make_train_step(model, loss_fn, optimizer, num_microbatches)
+    i))``, the same K steps as K calls of :func:`make_train_step`, whose
+    graph (``jit=True``, on CUDA) it replays K times, each step's loss
+    copied out. ``mean_loss`` stays on the device (a chunk is read once,
+    as the JAX package reads its one-dispatch chunk); ``lr`` is a scalar or
+    a [K] vector (per-batch schedules stay exact)."""
+    step = make_train_step(model, loss_fn, optimizer, num_microbatches,
+                           jit=jit, pool=pool)
 
     def multi_step(ts: TrainState, xs, ys, key: int, lr):
         k = xs.shape[0]
@@ -239,16 +422,53 @@ def make_multi_step(model: Sequential, loss_fn: Callable, optimizer: Optimizer,
     return multi_step
 
 
-def make_eval_step(model: Sequential, loss_fn: Callable):
-    """``eval_step(x, y) -> (loss, correct)`` without gradients."""
+class EvalStep:
+    """The eval step :func:`make_eval_step` returns: on CUDA one graph a
+    shape of ``(x, y)`` (a warm eager call, the capture, then replays), in
+    ``pool`` (a new one by default); eager on the CPU, and while
+    :func:`~dcnn_tpu_torch.core.graphs.debug_eager` holds."""
+
+    def __init__(self, model: Sequential, loss_fn: Callable,
+                 pool: Optional[GraphPool] = None):
+        self.model, self.loss_fn = model, loss_fn
+        self.pool = pool  # else on the params' device, at the first call
+        self.sessions: dict = {}
+        self._bind = None
 
     @torch.no_grad()
-    def eval_step(x, y):
-        model.eval()
-        logits = upcast_logits(model(x))
-        return loss_fn(logits, y), correct_count(logits, y)
+    def run(self, x, y):
+        logits = upcast_logits(self.model(x))
+        return self.loss_fn(logits, y), correct_count(logits, y)
 
-    return eval_step
+    def __call__(self, x, y):
+        self.model.eval()
+        if self.pool is None and x.device.type == "cuda":
+            self.pool = GraphPool(x.device)
+        if self.pool is None or not self.pool.cuda \
+                or debug_eager(self.model):
+            return self.run(x, y)
+        # a graph reads the params and buffers at their capture addresses
+        bind = tuple(t.data_ptr() for t in (*self.model.parameters(),
+                                             *self.model.buffers()))
+        key = (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype,
+               get_precision_mode())
+        with self.pool.lock:
+            if bind != self._bind:
+                self.sessions.clear()
+                self._bind = bind
+            s = self.sessions.get(key)
+            if s is None:
+                self.run(x, y)  # the warm-up
+                s = self.sessions[key] = Session("eval_step", self.run,
+                                                 (x, y), pool=self.pool)
+            return s(x, y)
+
+
+def make_eval_step(model: Sequential, loss_fn: Callable,
+                   pool: Optional[GraphPool] = None) -> EvalStep:
+    """``eval_step(x, y) -> (loss, correct)`` without gradients; on CUDA
+    a graph per shape (:class:`EvalStep`) in ``pool``."""
+    return EvalStep(model, loss_fn, pool)
 
 
 def _batch(x, y, device: torch.device, scale: float):
@@ -279,6 +499,25 @@ def evaluate_classification(model: Sequential, loss_fn: Callable, loader,
     if total_n == 0:
         return 0.0, 0.0
     return total_loss / total_n, total_correct / total_n
+
+
+def _copy_into(dst, src):
+    """``src``'s values in ``dst``'s tensors, copied in place where the two
+    match in structure, shape, type and device, so that the train step's
+    graphs, which write ``dst``'s addresses, go on training the restored
+    state; else ``src`` itself (the graphs then capture again)."""
+    if isinstance(dst, dict) and isinstance(src, dict) \
+            and dst.keys() == src.keys():
+        for k in src:
+            dst[k] = _copy_into(dst[k], src[k])
+        return dst
+    if (isinstance(dst, torch.Tensor) and isinstance(src, torch.Tensor)
+            and dst.shape == src.shape and dst.dtype == src.dtype
+            and dst.device == src.device):
+        with torch.no_grad():
+            dst.copy_(src)
+        return dst
+    return src
 
 
 class Trainer:
@@ -332,13 +571,22 @@ class Trainer:
                                               keep=cfg.checkpoint_keep)
                             if cfg.checkpoint_dir else None)
         self.watchdog = None  # per fit(), when stall_timeout_s > 0
+        # one memory pool for the step's and the chunk's graphs, and one for
+        # the eval's: the gradients a step leaves on .grad live in its pool,
+        # where a graph captured before it may hold scratch, and an eval
+        # replayed between two steps would overwrite them
+        self.graphs = GraphPool(self.device)
+        self.eval_graphs = GraphPool(self.device)
         self.train_step = make_train_step(model, self.loss_fn, optimizer,
                                           self.config.num_microbatches,
-                                          guard=self.guard is not None)
+                                          guard=self.guard is not None,
+                                          pool=self.graphs)
         self.multi_step = (make_multi_step(model, self.loss_fn, optimizer,
-                                           cfg.num_microbatches)
+                                           cfg.num_microbatches,
+                                           pool=self.graphs)
                            if cfg.steps_per_dispatch > 1 else None)
-        self.eval_step = make_eval_step(model, self.loss_fn)
+        self.eval_step = make_eval_step(model, self.loss_fn,
+                                        self.eval_graphs)
         self.lr = self.config.learning_rate
         self.history: list = []
 
@@ -348,7 +596,7 @@ class Trainer:
         restored = self.checkpoints.restore_latest(device=self.device)
         if restored is not None:
             self.model.load_state_dict(restored.model.state_dict())
-            ts.opt_state = restored.opt_state
+            ts.opt_state = _copy_into(ts.opt_state, restored.opt_state)
             ts.step = int(restored.metadata.get("global_step", 0))
         return restored
 

@@ -2,9 +2,15 @@
 version, the training path run through the flash kernels, and the data feed
 on the card (pinned buffers, side streams and events against the host
 bytes, a worker pool built after CUDA init, the device augmentations and a
-resident epoch against the CPU), and the observability core on the card
+resident epoch against the CPU), the observability core on the card
 (``sample_hbm``, ``LayerProfiler``'s CUDA events, a traced resident epoch
-with no synchronisation, the telemetry server over an int8 engine).
+with no synchronisation, the telemetry server over an int8 engine), and
+the compiled sessions (``core/graphs.py``): every engine bucket and decode
+lattice point, and the per-step, guarded, chunked and resident train
+steps, replayed from CUDA graphs bit for bit against the eager path (cuDNN
+deterministic for training), the launch counters advanced by the captured
+delta, a host read refused at capture, two threads on one engine, and a
+rollback and a resume after capture.
 
 Every test here needs an NVIDIA GPU and skips without one (decided inside
 the test). The file imports neither JAX nor the JAX package, so it also
@@ -20,6 +26,7 @@ bf16 2e-2: outputs, and in the backward dS and P, are rounded to bf16's
 does, so it is held to equality.
 """
 
+import contextlib
 import copy
 import importlib
 import os
@@ -1548,3 +1555,479 @@ def test_telemetry_server_over_the_int8_engine():
     finally:
         b.shutdown()
         configure(enabled=False)
+
+
+# -- compiled sessions: CUDA graphs against the eager path ----------------------
+
+def _narrow_mha(device, dropout=0.0, seed=14):
+    b = (SequentialBuilder("narrow_g").input((16, 32))
+         .residual([MultiHeadAttentionLayer(num_heads=2)])
+         .residual([MultiHeadAttentionLayer(num_heads=2)]).flatten())
+    if dropout:
+        b = b.dropout(dropout)
+    m = b.dense(10).build()
+    return m.init(generator=torch.Generator().manual_seed(seed),
+                  device=device)
+
+
+def _narrow_cnn(seed=16):
+    m = (SequentialBuilder("narrow_cnn_g", "NCHW").input((3, 16, 16))
+         .conv2d(8, 3, 1, 1, False, "stem").batchnorm(1e-3, 0.1, True, "bn")
+         .activation("relu").maxpool2d(2, 2, 0)
+         .basic_residual_block(8, 16, 2, "b1").avgpool2d(4)
+         .flatten().dense(10).build())
+    return m.init(generator=torch.Generator().manual_seed(seed),
+                  device="cpu")
+
+
+@pytest.fixture
+def _deterministic_cudnn():
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def _engine(kind):
+    from dcnn_tpu_torch.serve import InferenceEngine
+
+    if kind == "mha":
+        return InferenceEngine.from_model(_narrow_mha("cpu"), max_batch=8,
+                                          device="cuda")
+    model = _int8_cnn() if kind == "int8" else _narrow_cnn()
+    calib = None
+    if kind == "int8":
+        calib = np.random.default_rng(1).normal(
+            size=(16, *model.input_shape)).astype(np.float32)
+    return InferenceEngine.from_model(model, fold=True, int8_calib=calib,
+                                      max_batch=8, device="cuda")
+
+
+@pytest.mark.parametrize("kind", ["mha", "cnn", "int8"])
+def test_engine_replays_equal_eager_at_every_bucket(kind):
+    """fp32 attention classifier, folded CNN and int8 CNN engines: every
+    bucket is a captured graph whose replay equals the eager forward of
+    the same input bit for bit, and each replay advances the launch
+    counters by exactly the capture's delta (two flash forwards a batch
+    for the attention classifier, the fused int8 conv for the int8
+    engine)."""
+    eng = _engine(kind)
+    rng = np.random.default_rng(3)
+    for b in eng.bucket_sizes:
+        s = eng.sessions[(b, "parity")]
+        assert s.graph is not None and eng.compile_stats[b]["capture_s"] > 0
+        x = torch.from_numpy(rng.normal(size=(b, *eng.input_shape))
+                             .astype(np.float32)).cuda()
+        before = graphs_launches()
+        got = eng.run_padded(x)
+        moved = {k: v - before[k] for k, v in graphs_launches().items()
+                 if v != before[k]}
+        assert moved == s.launch_names()
+        assert torch.equal(got, eng._forward(x))
+        if kind == "mha":
+            assert moved == {"flash_fwd": 2}
+        elif kind == "int8":
+            assert moved.get("conv_int8_fused", 0) >= 3
+    assert eng.graphs.bytes() > 0
+
+
+def graphs_launches():
+    return {w.__name__: w.launches for w in _kernels.COUNTED}
+
+
+def test_decode_replays_equal_eager_at_every_lattice_point():
+    """``DecodeEngine`` on the card: at every (batch, pages) point the
+    replayed step equals the eager step on a copy of the pool bit for bit:
+    next tokens, logits and the pool's pages after the writes."""
+    from dcnn_tpu_torch.models import create_model
+    from dcnn_tpu_torch.serve import DecodeEngine
+
+    model = create_model("mha_decoder").init(
+        generator=torch.Generator().manual_seed(0), device="cuda")
+    eng = DecodeEngine(model, max_slots=4, page_size=8, max_pages_per_seq=4,
+                       num_pages=24)
+    rng = np.random.default_rng(4)
+    with torch.no_grad():
+        eng.pool.k.normal_()
+        eng.pool.v.normal_()
+    for (b, mp, _), s in sorted(eng.sessions.items()):
+        assert s.graph is not None
+        table = np.zeros((b, mp), np.int64)
+        pos = np.full(b, -1, np.int64)
+        for r in range(b - 1):  # the last row stays inactive
+            pos[r] = rng.integers(0, mp * 8)
+            table[r, :pos[r] // 8 + 1] = rng.choice(
+                np.arange(1, 24), pos[r] // 8 + 1, replace=False)
+        tok = rng.integers(0, 64, b)
+        pk, pv = eng.pool.k.clone(), eng.pool.v.clone()
+        nxt, logits, _, _ = eng.run_step(tok, pos, table, eng.pool.k,
+                                         eng.pool.v)
+        dev = [torch.from_numpy(a).cuda() for a in (tok, pos, table)]
+        want_nxt, want_logits = eng._step(*dev, pk, pv)
+        assert torch.equal(nxt, want_nxt) and torch.equal(logits, want_logits)
+        assert torch.equal(eng.pool.k, pk) and torch.equal(eng.pool.v, pv)
+
+
+def _train_pair(kind):
+    """Two copies of one model on the card, its optimizer, and 6 batches
+    (the fourth all NaN for the guarded kind)."""
+    from dcnn_tpu_torch.optim import Adam, AdamW
+
+    rng = np.random.default_rng(5)
+    if kind == "cnn_bn":
+        base = _narrow_cnn()
+        xs = rng.normal(size=(6, 8, 3, 16, 16)).astype(np.float32)
+        opt = AdamW(1e-3, weight_decay=1e-4)
+    else:
+        base = _narrow_mha("cpu", dropout=0.2 if kind == "mha_dropout"
+                           else 0.0)
+        xs = rng.normal(size=(6, 8, 16, 32)).astype(np.float32)
+        opt = Adam(1e-3)
+    if kind == "guarded":
+        xs[3] = np.nan
+    ys = np.eye(10, dtype=np.float32)[rng.integers(0, 10, (6, 8))]
+    return ([copy.deepcopy(base).to("cuda") for _ in range(2)], opt,
+            [torch.from_numpy(a).cuda() for a in xs],
+            [torch.from_numpy(a).cuda() for a in ys])
+
+
+@pytest.mark.parametrize("kind", ["mha_dropout", "cnn_bn", "guarded"])
+def test_replayed_train_steps_equal_eager_steps(kind, _deterministic_cudnn):
+    """Six steps through ``make_train_step(jit=True)`` (the first eager, the
+    second captured, then replays; the guarded kind as two graphs around
+    the host's read) against six ``jit=False`` steps from the same weights,
+    batches and generators: losses, logits, params, BN statistics, the
+    optimizer's moments and step count equal bit for bit, the NaN batch
+    skipped on both; the flash launches count two of each kernel a step."""
+    models, opt, xs, ys = _train_pair(kind)
+    out = []
+    for model, jit in zip(models, (True, False)):
+        ts = create_train_state(model, opt)
+        step = make_train_step(model, get_loss("softmax_crossentropy"), opt,
+                               guard=kind == "guarded", jit=jit)
+        res = []
+        for i, (x, y) in enumerate(zip(xs, ys)):
+            before = _launches()
+            r = step(ts, x, y, 1e-3,
+                     torch.Generator(device="cuda").manual_seed(i))
+            if kind != "cnn_bn":
+                assert tuple(a - b for a, b in zip(_launches(), before)) \
+                    == (2, 2, 2)
+            res.append([t.cpu() for t in r[:2]] + list(r[2:]))
+        if jit:
+            assert step._sessions and all(
+                s.graph is not None for _, ss in step._sessions.values()
+                for s in ss)
+        out.append((res, _host_arrays(model, ts.opt_state), ts.step))
+    (rg, ag, ng), (re, ae, ne) = out
+    for a, b in zip(rg, re):  # bit for bit, the NaN batch's NaNs too
+        for u, v in zip(a[:2], b[:2]):
+            torch.testing.assert_close(u, v, rtol=0, atol=0, equal_nan=True)
+        assert a[2:] == b[2:]
+    _assert_same(ag, ae)
+    assert ng == ne == (5 if kind == "guarded" else 6)
+    if kind == "guarded":
+        assert rg[3][2] is True
+
+
+def test_chunked_and_resident_replays_equal_eager(_deterministic_cudnn):
+    """``make_multi_step`` (two chunks of four steps) and a resident epoch
+    of eight steps with device augmentation, each with ``jit=True`` against
+    ``jit=False`` from the same weights: mean losses, params, BN statistics
+    and optimizer state bit for bit; the resident epoch's steps after the
+    first replay one graph of the whole body."""
+    from dcnn_tpu_torch.data import DeviceAugmentBuilder, DeviceDataset
+    from dcnn_tpu_torch.data import make_resident_epoch
+    from dcnn_tpu_torch.optim import AdamW
+    from dcnn_tpu_torch.train import make_multi_step
+
+    rng = np.random.default_rng(6)
+    xs = torch.from_numpy(rng.normal(size=(2, 4, 8, 3, 16, 16))
+                          .astype(np.float32)).cuda()
+    ys = torch.from_numpy(np.eye(10, dtype=np.float32)[
+        rng.integers(0, 10, (2, 4, 8))]).cuda()
+    y = rng.integers(0, 4, 64)
+    x = np.clip(y[:, None, None, None] * 50 + 20
+                + rng.normal(0, 10, (64, 8, 8, 1)), 0, 255).astype(np.uint8)
+    aug = DeviceAugmentBuilder("NHWC").random_crop(2).horizontal_flip(0.5) \
+        .brightness(0.1).build()
+    base = _narrow_cnn()
+    out = []
+    for jit in (True, False):
+        model = copy.deepcopy(base).to("cuda")
+        opt = AdamW(1e-3, weight_decay=1e-4)
+        ts = create_train_state(model, opt)
+        multi = make_multi_step(model, get_loss("softmax_crossentropy"), opt,
+                                jit=jit)
+        means = [float(multi(ts, xs[c], ys[c], 7 + c, 1e-3)[1])
+                 for c in range(2)]
+        feed = _feed_cnn("cuda")
+        fopt = SGD(0.05, momentum=0.9)
+        fts = create_train_state(feed, fopt)
+        ds = DeviceDataset(x, y, 4, batch_size=8, augment=aug, device="cuda")
+        epoch = make_resident_epoch(feed, get_loss("softmax_crossentropy"),
+                                    fopt, num_classes=4, batch_size=8,
+                                    augment=aug, jit=jit)
+        fts, mean = epoch(fts, ds.x, ds.y, 3,
+                          np.linspace(0.05, 0.01, 8).astype(np.float32))
+        out.append((means, float(mean), _host_arrays(model, ts.opt_state),
+                    _host_arrays(feed, fts.opt_state)))
+        if jit:
+            assert [s.graph is not None for _, s in
+                    epoch.body._sessions.values()] == [True]
+    assert out[0][:2] == out[1][:2]
+    _assert_same(out[0][2], out[1][2])
+    _assert_same(out[0][3], out[1][3])
+
+
+def test_capture_with_a_host_read_raises_and_runs_nothing():
+    """A loss that reads the card (``.item()``): the first call runs
+    eagerly; the second's capture raises naming the step, updates nothing
+    and does not fall back to eager. The card works on afterwards. A bare
+    session over a host read raises the same way and leaves its in-place
+    write undone."""
+    from dcnn_tpu_torch.core.graphs import CaptureError, GraphPool, Session
+
+    ce = get_loss("softmax_crossentropy")
+
+    def reading_loss(logits, y):
+        loss = ce(logits, y)
+        if loss.item() < 0:  # a host read inside the step
+            raise AssertionError
+        return loss
+
+    model = _narrow_mha("cuda")
+    opt = SGD(0.05)
+    ts = create_train_state(model, opt)
+    step = make_train_step(model, reading_loss, opt)
+    x, y = (torch.randn(4, 16, 32, device="cuda"),
+            torch.eye(10, device="cuda")[:4])
+    step(ts, x, y, 0.05)
+    want = _host_arrays(model, ts.opt_state)
+    with pytest.raises(CaptureError, match="train_step"):
+        step(ts, x, y, 0.05)
+    _assert_same(_host_arrays(model, ts.opt_state), want)
+    assert ts.step == 1
+    t = torch.zeros(3, device="cuda")
+
+    def bad(a):
+        t.add_(a)
+        return float(t.sum())
+
+    with pytest.raises(CaptureError, match="adder"):
+        Session("adder", bad, (torch.ones(3, device="cuda"),),
+                pool=GraphPool("cuda"))
+    assert float(t.sum()) == 0.0
+    assert float(torch.ones(4, device="cuda").sum()) == 4.0
+
+
+def test_two_threads_replaying_one_engine_get_their_own_answers():
+    """Two threads (and a short switch interval) replaying the same
+    buckets of one engine 40 times each, each with its own inputs: every
+    answer equals that input's single-threaded answer bit for bit."""
+    import threading
+
+    eng = _engine("mha")
+    rng = np.random.default_rng(9)
+    inputs = [rng.normal(size=(n, 16, 32)).astype(np.float32)
+              for n in (3, 8)]
+    want = [eng.infer(a).cpu() for a in inputs]
+    errors = []
+
+    def worker(i):
+        try:
+            for _ in range(40):
+                if not torch.equal(eng.infer(inputs[i]).cpu(), want[i]):
+                    errors.append(i)
+        except Exception as e:  # reported below
+            errors.append(e)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=worker, args=(i,))
+                   for i in range(2)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=120)
+        assert not any(th.is_alive() for th in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert errors == []
+
+
+def test_rollback_and_resume_after_capture_train_on_restored_state(tmp_path):
+    """After the step's graph is captured, the trainer rolls back to epoch
+    1's checkpoint (``_restore`` copies into the tensors the graph writes)
+    and trains epoch 2 again; a new trainer resumes from the same
+    checkpoint: both equal the uninterrupted run's epoch 2 bit for bit."""
+    from dcnn_tpu_torch.optim import Adam
+
+    cfg, params = _narrow_weights()
+    rng = np.random.default_rng(15)
+    y_idx = rng.integers(0, 10, 64)
+    x = rng.normal(0, 0.1, (64, 16, 32)).astype(np.float32)
+    x[np.arange(64), y_idx, :8] += 2.5
+    y = np.eye(10, dtype=np.float32)[y_idx]
+
+    def trainer(d, resume="never"):
+        tm = from_jax(cfg, params, device="cuda")
+        opt = Adam(1e-3)
+        tr = Trainer(tm, opt, "softmax_crossentropy", TrainingConfig(
+            epochs=2, batch_size=16, snapshot_dir=None, progress_interval=0,
+            checkpoint_dir=d, checkpoint_every=1, checkpoint_async=False,
+            resume=resume, device_type="cuda"))
+        return tr, create_train_state(tm, opt)
+
+    def loader():
+        return ArrayDataLoader(x, y, batch_size=16, seed=1)
+
+    ref, ts = trainer(str(tmp_path / "ref"))
+    ts = ref.fit(ts, loader(), epochs=2)
+    want = _host_arrays(ref.model, ts.opt_state)
+    d = str(tmp_path / "run")
+    tr, ts = trainer(d)
+    ts = tr.fit(ts, loader(), epochs=1)
+    ld = loader()
+    ld.shuffle(2)
+    tr.train_epoch(ts, ld, 2)
+    assert tr.train_step._sessions  # captured before the rollback
+    tr._restore(ts)
+    ld.shuffle(2)
+    tr.train_epoch(ts, ld, 2)
+    _assert_same(_host_arrays(tr.model, ts.opt_state), want)
+    res, rts = trainer(d, resume="auto")
+    rts = res.fit(rts, loader(), epochs=2)
+    _assert_same(_host_arrays(res.model, rts.opt_state), want)
+
+
+@pytest.mark.parametrize("how", ["checks", "checked", "checked_after_capture"])
+def test_debug_paths_run_eagerly_and_keep_their_checks(how):
+    """Debug mode's ``checks=True`` (autograd anomaly mode, whose NaN check
+    reads the card) and ``checked`` (forward hooks) run the step eagerly on
+    the card: three steps raise no CaptureError and equal three
+    ``jit=False`` steps bit for bit, and a NaN batch raises
+    ``FloatingPointError``, also where ``checked`` wraps a step whose graph
+    was captured before."""
+    from dcnn_tpu_torch.core.debug import checked, debug_mode
+
+    x = [torch.from_numpy(np.random.default_rng(i).normal(
+        size=(4, 16, 32)).astype(np.float32)).cuda() for i in range(4)]
+    y = torch.eye(10, device="cuda")[:4]
+    base = _narrow_mha("cpu")
+    out = []
+    for jit in (True, False):
+        model = copy.deepcopy(base).to("cuda")
+        opt = SGD(0.05, momentum=0.9)
+        ts = create_train_state(model, opt)
+        inner = step = make_train_step(
+            model, get_loss("softmax_crossentropy"), opt, jit=jit)
+        if how == "checked_after_capture":
+            for xi in x[:3]:
+                step(ts, xi, y, 0.05)
+            assert not jit or inner._sessions
+        if how != "checks":
+            step = checked(inner)
+        ctx = (debug_mode(nans=False, checks=True) if how == "checks"
+               else contextlib.nullcontext())
+        with ctx:
+            for xi in x[:3]:
+                step(ts, xi, y, 0.05)
+            if how != "checks":
+                with pytest.raises(FloatingPointError, match="checked"):
+                    step(ts, torch.full_like(x[3], float("nan")), y, 0.05)
+        if how != "checked_after_capture":
+            assert not inner._sessions  # nothing was captured
+        out.append(_host_arrays(model, ts.opt_state))
+    _assert_same(*out)
+
+
+def test_engine_graphs_follow_the_precision_mode():
+    """One engine called in parity mode, then bf16, then parity again: each
+    call replays the graph of its mode (bf16's captured at its first use),
+    equal bit for bit to the eager forward in that mode, and bf16's logits
+    are not parity's."""
+    from dcnn_tpu_torch.core import get_precision_mode, set_precision
+
+    eng = _engine("mha")
+    x = torch.from_numpy(np.random.default_rng(12).normal(
+        size=(8, *eng.input_shape)).astype(np.float32)).cuda()
+    parity = eng.run_padded(x)
+    assert get_precision_mode() == "parity"
+    set_precision("bf16")
+    try:
+        first, again = eng.run_padded(x), eng.run_padded(x)
+        want = eng._forward(x)
+        assert eng.sessions[(8, "bf16")].graph is not None
+    finally:
+        set_precision("parity")
+    assert torch.equal(first, want) and torch.equal(again, want)
+    assert not torch.equal(want.float(), parity.float())
+    assert torch.equal(eng.run_padded(x), parity)
+    assert torch.equal(parity, eng._forward(x))
+
+
+def test_captured_resident_epoch_refuses_a_host_augment():
+    """A resident epoch on the card whose augment is a plain callable, not
+    a DeviceAugment, raises rather than capture its draws into a graph;
+    with ``jit=False`` it runs."""
+    from dcnn_tpu_torch.data import DeviceDataset, make_resident_epoch
+
+    rng = np.random.default_rng(13)
+    y = rng.integers(0, 4, 32)
+    x = rng.integers(0, 255, (32, 8, 8, 1)).astype(np.uint8)
+
+    def host_augment(xb, key):
+        return xb + float(np.random.default_rng(key).normal())
+
+    for jit in (True, False):
+        model = _feed_cnn("cuda")
+        opt = SGD(0.05)
+        ts = create_train_state(model, opt)
+        ds = DeviceDataset(x, y, 4, batch_size=8, device="cuda")
+        epoch = make_resident_epoch(model, get_loss("softmax_crossentropy"),
+                                    opt, num_classes=4, batch_size=8,
+                                    augment=host_augment, jit=jit)
+        if jit:
+            with pytest.raises(TypeError, match="DeviceAugment"):
+                epoch(ts, ds.x, ds.y, 3, 0.05)
+            assert ts.step == 0
+        else:
+            ts, mean = epoch(ts, ds.x, ds.y, 3, 0.05)
+            assert np.isfinite(float(mean)) and ts.step == 4
+
+
+def test_trainer_grads_survive_its_eval_graphs(_deterministic_cudnn):
+    """A Trainer whose epochs end in a partial batch (its step shape
+    captured in epoch 2, after the eval's graph) and whose validation
+    replays after it: every parameter's ``.grad`` after ``fit`` equals the
+    last step's gradients of an eager twin, bit for bit (the eval graphs
+    have a pool of their own)."""
+    cfg, params = _narrow_weights()
+    rng = np.random.default_rng(16)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 40)]
+    x = rng.normal(0, 1, (40, 16, 32)).astype(np.float32)
+    grads = []
+    for jit in (True, False):
+        tm = from_jax(cfg, params, device="cuda")
+        opt = SGD(0.05, momentum=0.9)
+        tr = Trainer(tm, opt, "softmax_crossentropy", TrainingConfig(
+            epochs=3, batch_size=16, snapshot_dir=None, progress_interval=0,
+            device_type="cuda"))
+        if not jit:
+            tr.train_step = make_train_step(tm, tr.loss_fn, opt, jit=False)
+        ts = create_train_state(tm, opt)
+        tr.fit(ts, ArrayDataLoader(x, y, batch_size=16, seed=1,
+                                   drop_last=False),
+               ArrayDataLoader(x[:24], y[:24], batch_size=16, shuffle=False,
+                               drop_last=False),
+               epochs=3)
+        grads.append({n: p.grad.cpu() for n, p in tm.named_parameters()})
+        if jit:
+            assert tr.eval_step.pool is not tr.train_step.pool
+            assert len(tr.train_step._sessions) == 2
+    for n in grads[0]:
+        assert torch.equal(grads[0][n], grads[1][n]), n

@@ -134,7 +134,24 @@ Phases, each fatal on failure:
    503 after drain, logits equal to the untraced engine's); decode with the
    tracer on (a ``decode.step`` span a step); the tracer's cost on the mha
    train step and the int8 B=32 batch; the LayerProfiler table of one
-   ResNet-18 NCHW fp32 B=32 profiled step.
+   ResNet-18 NCHW fp32 B=32 profiled step;
+15. export: the served program as an artifact and the AOT cache
+   (``phase_export``): int8 ``resnet18_tiny_imagenet`` and fp32
+   ``mha_classifier`` exported on the card (``nn/export.py``; the kernels
+   are ``dcnn::`` custom ops) and served through
+   ``InferenceEngine.from_artifact`` behind ``DynamicBatcher``, held to
+   engines over the live models at every bucket (logits bit for bit; the
+   same launches a replay: ``conv_int8_fused`` at the 21 sites, the flash
+   forward twice; ``pack_int8_weight`` never); a cold and a warm start
+   through a temporary AOT cache, each in a process of its own that first
+   serves the artifact file with building a model and reading a checkpoint
+   refused, then starts an engine with ``from_model(aot_cache=)``: the cold
+   one commits the libraries ``main`` built and the exported program, the
+   warm one, with ``nvcc`` and ``CUDA_HOME`` unreachable and an empty build
+   directory, restores every library and loads the program, tracing
+   nothing; a flipped byte of a cached program quarantined and exported
+   again. The checkpoint phase gates that no async save from the third on
+   pins new host memory.
 
 Compiled sessions (CUDA graphs, ``dcnn_tpu_torch/core/graphs.py``): in
 serve, serve cnn, serve int8 and decode every bucket or lattice point is a
@@ -151,7 +168,8 @@ lines).
 
 Then it prints ``{"kernels": [...]}`` (rows 1-8, row 8 ``conv_int8_fused``
 with mode A ``conv_int8`` inside it; each row's ``launches_by_path`` has
-the obs phase's launches under ``"obs"`` where it launches the row) on
+the obs phase's launches under ``"obs"`` and the export phase's under
+``"export"`` where they launch the row) on
 a line of its own and, last,
 ``{"ok": true, "device": {...}}``. Times come from CUDA events around CUDA
 graph replays of many calls, so host overhead is not in them.
@@ -2055,6 +2073,7 @@ def phase_checkpoint(card):
         a_dir = os.path.join(tmp.name, "a")
         tr_a, ts_a, _ = trainer_for(a_dir)
         saved, async_costs, called, committed = {}, [], [], {}
+        pinned = []  # pinned host buffers made so far, after each save
         real_save_async = tr_a.checkpoints.save_async
 
         def save_async(step, model, opt_state=None, optimizer=None,
@@ -2066,6 +2085,7 @@ def phase_checkpoint(card):
             fut = real_save_async(step, model, opt_state, optimizer,
                                   metadata)
             t_call = time.perf_counter() - t0
+            pinned.append(tr_a.checkpoints.pinned.allocations)
             torch.cuda.synchronize()  # the copies queued on the stream
             async_costs.append((t_call, time.perf_counter() - t0))
             fut.add_done_callback(
@@ -2254,6 +2274,11 @@ def phase_checkpoint(card):
 
     async_host = [c[0] * 1e3 for c in async_costs]
     async_copy = [c[1] * 1e3 for c in async_costs]
+    # two snapshots in flight reuse their pinned sets: from the third save
+    # on, no save pins new host memory
+    if len(pinned) > 2 and any(n != pinned[1] for n in pinned[2:]):
+        fail(f"checkpoint: pinned host buffers made by each async save "
+             f"{pinned}: the third and later saves pinned new memory")
     # each async save from its call to its commit on the saver thread, and
     # whether the next save was called before it committed
     commit_ms = [(committed[k + 1] - called[k]) * 1e3
@@ -2263,7 +2288,9 @@ def phase_checkpoint(card):
     print(f"checkpoint cost: resnet18_tiny_imagenet state {state_bytes} bytes "
           f"(params, BN statistics, Adam m and v) copied per save; async save "
           f"on the training thread {async_host} ms (call), {async_copy} ms "
-          f"(call and its copies on the card), committed by the saver "
+          f"(call and its copies on the card), pinned buffers made after "
+          f"each save "
+          f"{pinned} (none from the third on), committed by the saver "
           f"thread {commit_ms} ms after the call, the next save called "
           f"before the last one committed {overlap}; blocking save "
           f"{blocking_s * 1e3:.3f} ms; written per checkpoint {files} "
@@ -2292,6 +2319,7 @@ def phase_checkpoint(card):
           f"model_snapshots/mnist_cnn_model card vs CPU {mnist_rel:.3e} (tol "
           f"{SERVE_TOL:g}), top-1 equal", flush=True)
     return {"async_call_ms": async_host, "async_copy_ms": async_copy,
+            "pinned_after_each_save": pinned,
             "async_commit_ms": commit_ms, "async_overlap": overlap,
             "blocking_ms": blocking_s * 1e3, "restore_ms": restore_s * 1e3,
             "bytes_written": sum(files.values()), "state_bytes": state_bytes,
@@ -2300,7 +2328,7 @@ def phase_checkpoint(card):
 
 FEED_BATCH, FEED_LR, FEED_CLASSES = 32, 1e-3, 200
 FEED_SPLIT = 100_000          # Tiny-ImageNet's train split, 1,228,800,000 B
-FEED_TRAIN, FEED_VAL = 512, 256
+FEED_TRAIN, FEED_VAL = 256, 256
 FEED_RESIDENT_STEPS = 32
 FEED_STREAM, FEED_SHARD_BATCHES = 2048, 8
 FEED_CHUNK = 4                # stage_batches and steps_per_dispatch
@@ -2362,11 +2390,11 @@ def phase_train_feed(card):
     - resident against the per-step loop: 4 steps over one batch order,
       augmentation off, cuDNN deterministic: bit-equal, else at the train
       cnn phase's loss tolerance (the printout says which);
-    - ``Trainer.fit`` over a ``DeviceDataset`` of 512 train (augmented) and
+    - ``Trainer.fit`` over a ``DeviceDataset`` of 256 train (augmented) and
       256 val samples, 2 epochs: a finite history with the JAX keys, train
       accuracy NaN; resident eval equal to the host eval of the same split;
     - chunked: ``PrefetchLoader(stage_batches=4, feed_workers=2)`` with
-      ``steps_per_dispatch=4`` over 512 samples, timed; then again against
+      ``steps_per_dispatch=4`` over 256 samples, timed; then again against
       ``PrefetchLoader(depth=2)`` per step from the same weights, both
       with cuDNN deterministic (bit-equal, else its rel, printed; gated at
       the train cnn tolerance), beside the timed runs' rel; ``mha_classifier`` on the marker task
@@ -2381,7 +2409,7 @@ def phase_train_feed(card):
       chunked, resident, streaming): warm samples/s (the second epoch of
       two, or the timed epoch), the card's busy share, kernel launches and
       copies per step from one profiled window (4 steps; the chunked feed
-      one more 16-step epoch through its loader, its workers up), and the
+      one more 8-step epoch through its loader, its workers up), and the
       host-to-device bytes per step the feed ships (counted from the
       arrays it copies). The phase's wall is printed by part."""
     import numpy as np
@@ -2660,7 +2688,7 @@ def phase_train_feed(card):
                 fns.append(lambda fn=fn, ts_w=ts_w, xs=xs, ys=ys: float(
                     fn(ts_w, xs, ys, 9, FEED_LR)[1]))
             fns[-1]()  # the graph's eager first step and capture
-        graph_walls[jit_name] = replay_vs_eager(fns[0], fns[1], 2)
+        graph_walls[jit_name] = replay_vs_eager(fns[0], fns[1], 1)
         graph_walls[jit_name]["steps_per_call"] = FEED_CHUNK
     print(f"train feed graphs: per-step and chunked ResNet-18 runs and the "
           f"augmented resident epoch bit-equal to their eager twins (cuDNN "
@@ -4070,6 +4098,332 @@ def phase_obs(card, traced_resident):
             "step_ms": (step_on, step_off), "int8_ms": (int8_on, int8_off)}
 
 
+# export phase: the served program as an artifact and the AOT cache
+EXPORT_SEED = SEED + 16
+
+
+def export_models():
+    """The export phase's models on the CPU, from its seed: full-width
+    NHWC resnet18_tiny_imagenet (JAX-layout weights and random BN
+    statistics, carried by interop), its INT8_CALIB-sample calibration
+    batch, INT8_REQUESTS requests, and mha_classifier (fp32) with as many
+    requests of its shape."""
+    import numpy as np
+
+    from dcnn_tpu_torch.interop import from_jax
+
+    rng = np.random.default_rng(EXPORT_SEED)
+    cfg, _, _, resnet = resnet18("cpu", rng)
+    calib = rng.normal(size=(INT8_CALIB, *cfg["input_shape"])).astype(
+        np.float32)
+    pool = rng.normal(size=(INT8_REQUESTS, *cfg["input_shape"])).astype(
+        np.float32)
+    mcfg, mparams, mrng = model_params()
+    mha = from_jax(mcfg, mparams, device="cpu").eval()
+    mpool = mrng.normal(size=(INT8_REQUESTS, *mcfg["input_shape"])).astype(
+        np.float32)
+    return resnet, calib, pool, mha, mpool
+
+
+def export_start(cache_root: str, out: str, artifact: str,
+                 inputs: str) -> None:
+    """Two starts in a process of its own, ``nvcc`` refused throughout (a
+    cold process finds the libraries main built in the build directory
+    and commits them to the cache; a warm one restores them into an empty
+    build directory):
+
+    A. the int8 resnet18_tiny_imagenet artifact file ``artifact`` served
+       by InferenceEngine.from_artifact (its libraries through the cache
+       at ``cache_root``) on the batch in ``inputs``, with building a
+       model and reading a checkpoint refused: the artifact needs neither;
+       this is also the process's first ``torch.export.load``;
+    B. InferenceEngine.from_model(resnet18, int8_calib=..., aot_cache=
+       cache_root): a cold process calibrates, exports and commits the
+       program; a warm one (``out`` ending in "warm.json") loads it, with
+       ``torch.export.export`` refused.
+
+    Writes to ``out`` each start's seconds (the engine's construction: its
+    libraries, its program, its graphs; B's program load or export and
+    its captures within it), B's hit and the aot counters, and the logits
+    of A and B beside it as .npy."""
+    import numpy as np
+    import torch
+
+    import importlib
+
+    from dcnn_tpu_torch.obs.registry import MetricsRegistry
+    from dcnn_tpu_torch.ops import _kernels
+    from dcnn_tpu_torch.serve import InferenceEngine
+
+    sequential = importlib.import_module("dcnn_tpu_torch.nn.sequential")
+    checkpoint = importlib.import_module("dcnn_tpu_torch.train.checkpoint")
+
+    def refused(*a, **k):
+        raise AssertionError("this start must not run nvcc, trace, build "
+                             "a model or read a checkpoint")
+
+    _kernels._nvcc = refused
+    if out.endswith("warm.json"):
+        torch.export.export = refused
+    reg = MetricsRegistry()
+    x = np.load(inputs)
+
+    def timed(make):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        engine = make()
+        torch.cuda.synchronize()
+        return engine, time.perf_counter() - t0
+
+    init, load = sequential.Sequential.__init__, checkpoint.load_checkpoint
+    sequential.Sequential.__init__ = checkpoint.load_checkpoint = refused
+    art, art_s = timed(lambda: InferenceEngine.from_artifact(
+        artifact, max_batch=32, aot_cache=cache_root, registry=reg))
+    np.save(out[:-5] + "-artifact.npy", art.infer(x).cpu().numpy())
+    sequential.Sequential.__init__, checkpoint.load_checkpoint = init, load
+
+    resnet, calib, _, _, _ = export_models()
+    engine, start_s = timed(lambda: InferenceEngine.from_model(
+        resnet, int8_calib=calib, max_batch=32, device="cuda",
+        aot_cache=cache_root, registry=reg))
+    np.save(out[:-5] + ".npy", engine.infer(x).cpu().numpy())
+    snap = reg.snapshot()
+    info = engine.aot_info["program"]
+    with open(out, "w") as f:
+        json.dump({"artifact_start_s": art_s, "start_s": start_s,
+                   "program_load_s": info.get("load_s"),
+                   "program_compile_s": info.get("compile_s"),
+                   "capture_s": sum(st["capture_s"] for st in
+                                    engine.compile_stats.values()),
+                   "program_hit": info["hit"],
+                   "counters": {k: v for k, v in snap.items()
+                                if k.startswith(("aot_", "compile_"))}}, f)
+
+
+def _no_nvcc_path() -> str:
+    """PATH without the directories that hold an ``nvcc``."""
+    return os.pathsep.join(
+        d for d in os.environ.get("PATH", "").split(os.pathsep)
+        if d and not os.path.exists(os.path.join(d, "nvcc")))
+
+
+def phase_export(card):
+    """The served program as an artifact (nn/export.py, ops/library.py)
+    and the AOT cache (aot/, utils/compile_cache.py) on the card:
+    - int8 resnet18_tiny_imagenet (NHWC, quantized once on the CPU with
+      INT8_CALIB samples) and fp32 mha_classifier exported on the card to
+      files, served through InferenceEngine.from_artifact behind
+      DynamicBatcher (open-loop requests), against engines over the live
+      models at every bucket: int8 bit for bit, each replay launching
+      conv_int8_fused at the 21 sites and pack_int8_weight never; the
+      mha_classifier program's two flash forwards a replay, its logits
+      equal to the live engine's (or within 1e-5 relative, printed);
+    - a cold and a warm engine start through a temporary cache root, each
+      in a process of its own (export_start): the cold one commits the
+      libraries main built (no nvcc) and the exported program, the warm
+      one restores every library into an empty build directory with nvcc
+      and CUDA_HOME unreachable, loads the program, exports nothing, and
+      serves the cold start's logits bit for bit;
+    - one byte of a cached program (mha_classifier's) flipped:
+      quarantined and exported again, serving the same logits."""
+    import copy
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.aot import get_cache
+    from dcnn_tpu_torch.nn import export_inference, quantize_model
+    from dcnn_tpu_torch.obs.registry import MetricsRegistry
+    from dcnn_tpu_torch.ops import _kernels
+    from dcnn_tpu_torch.serve import InferenceEngine
+
+    resnet, calib, pool, mha, mpool = export_models()
+    qmodel = quantize_model(resnet, calib)  # once, on the CPU
+    out = {}
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_export_", dir=ROOT)
+    with tmp:
+        for name, model, requests, per_batch in (
+                ("resnet18", qmodel, pool, {"conv_int8_fused": INT8_CONVS}),
+                ("mha_classifier", mha, mpool, {"flash_fwd": 2})):
+            live = InferenceEngine.from_model(copy.deepcopy(model),
+                                              fold=False, max_batch=32,
+                                              device="cuda")
+            t0 = time.perf_counter()
+            blob = export_inference(copy.deepcopy(model), device="cuda")
+            export_s = time.perf_counter() - t0
+            path = os.path.join(tmp.name, f"{name}.pt2")
+            with open(path, "wb") as f:
+                f.write(blob)
+            packs = _kernels.pack_int8_weight.calls
+            reset_launches()  # the artifact's serving path starts here
+            t0 = time.perf_counter()
+            art = InferenceEngine.from_artifact(path, max_batch=32)
+            load_s = time.perf_counter() - t0
+            answers, snap, warm = serve_open_loop(art, requests,
+                                                  f"export {name}")
+            counts = launches()  # and ends here
+            dispatched = 2 * len(art.bucket_sizes) + warm + snap["batches"]
+            for k, n in per_batch.items():
+                if counts[k] != n * dispatched:
+                    fail(f"export {name}: {k} launched {counts[k]} times "
+                         f"for {dispatched} batches ({n} each)")
+            if counts["conv_int8"] or (name == "mha_classifier" and
+                                       counts["conv_int8_fused"]):
+                fail(f"export {name}: launches {counts}")
+            if _kernels.pack_int8_weight.calls != packs:
+                fail(f"export {name}: the artifact packed weights "
+                     f"{_kernels.pack_int8_weight.calls - packs} times")
+            own = art.infer(requests).cpu().numpy()
+            served_err = max(float(np.abs(y - own[i]).max())
+                             for i, y in answers.items())
+            worst = 0.0
+            per_replay = {}
+            for b in art.bucket_sizes:
+                x = torch.from_numpy(requests[:b]).cuda()
+                moved = []
+                for eng in (live, art):
+                    before = launches()
+                    y = eng.run_padded(x).cpu()
+                    moved.append(({k: v - before[k] for k, v in
+                                   launches().items() if v != before[k]}, y))
+                (lm, ly), (am, ay) = moved
+                rel = float((ay - ly).abs().max()) / float(ly.abs().max())
+                worst = max(worst, rel)
+                if lm != am or (name == "resnet18" and not torch.equal(ay, ly)) \
+                        or rel > 1e-5:
+                    fail(f"export {name}: bucket {b}: the artifact's replay "
+                         f"launched {am} (live {lm}), logits {rel:.3e} "
+                         f"relative from the live engine's")
+                per_replay[b] = am
+            # a float engine sums in another order at another bucket
+            if served_err > (0.0 if art.batch_invariant
+                             else 1e-5 * float(np.abs(own).max())):
+                fail(f"export {name}: served answers differ from the "
+                     f"artifact engine's own by {served_err:.3e}")
+            print(f"export: {name} exported on the card in {export_s:.2f} s "
+                  f"({len(blob)} bytes), loaded by from_artifact in "
+                  f"{load_s:.2f} s (graphs captured at every bucket); "
+                  f"{len(answers)} open-loop requests through DynamicBatcher: "
+                  f"{snap['batches']} batches, p50 {snap['p50_ms']} ms, p99 "
+                  f"{snap['p99_ms']} ms; launches {counts} over "
+                  f"{dispatched} batches, pack_int8_weight 0; served answers "
+                  f"against the engine's own max |diff| {served_err:.3e}; "
+                  f"every bucket "
+                  f"against the live engine: launches a replay equal "
+                  f"({per_replay[32]} at 32), logits "
+                  f"{'bit-identical' if worst == 0.0 else f'max rel {worst:.3e}'}"
+                  f"; on {card}", flush=True)
+            out[name] = {"launches": counts, "export_s": export_s,
+                         "load_s": load_s, "bytes": len(blob),
+                         "max_rel_vs_live": worst, **snap,
+                         "logits32": art.infer(requests[:32]).cpu().numpy()}
+
+        # cold and warm starts through the AOT cache, each its own process
+        croot = os.path.join(tmp.name, "cache")
+        inputs = os.path.join(tmp.name, "pool32.npy")
+        np.save(inputs, pool[:32])
+        artifact_logits = out["resnet18"].pop("logits32")
+        out["mha_classifier"].pop("logits32")
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("AOT_CACHE", "DCNN_COMPILE_CACHE")}
+        warm_env = dict(env, PATH=_no_nvcc_path(),
+                        CUDA_HOME=os.path.join(tmp.name, "no-cuda"),
+                        DCNN_COMPILE_CACHE=os.path.join(tmp.name, "build"))
+        starts = {}
+        for tag, e in (("cold", env), ("warm", warm_env)):
+            res = os.path.join(tmp.name, f"{tag}.json")
+            r = subprocess.run(
+                [sys.executable, "-c",
+                 f"import sys; sys.path.insert(0, {ROOT!r}); "
+                 f"import chip_smoke; chip_smoke.export_start("
+                 f"{croot!r}, {res!r}, "
+                 f"{os.path.join(tmp.name, 'resnet18.pt2')!r}, {inputs!r})"],
+                env=e, capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                fail(f"export: the {tag} start failed:\n{r.stderr[-3000:]}")
+            with open(res) as f:
+                starts[tag] = json.load(f)
+            for part in ("", "-artifact"):
+                got = np.load(res[:-5] + part + ".npy")
+                if not np.array_equal(got, artifact_logits):
+                    fail(f"export: the {tag} process's "
+                         f"{'artifact' if part else 'engine'} logits differ "
+                         f"from the artifact engine's here")
+        cold, warm_ = starts["cold"], starts["warm"]
+        libs = len(_kernels.SOURCES)
+        wc = warm_["counters"]
+        if (cold["program_hit"] or not warm_["program_hit"]
+                or wc.get("aot_hits_total") != libs + 1
+                or wc.get("aot_commits_total", 0)
+                or wc.get("compile_total", 0)
+                or cold["counters"].get("aot_commits_total") != libs + 1):
+            fail(f"export: cold start {cold['counters']} (program hit "
+                 f"{cold['program_hit']}), warm start {wc} (program hit "
+                 f"{warm_['program_hit']}): the warm start must hit every "
+                 f"library and the program and build nothing")
+        built = sorted(p for p in os.listdir(warm_env["DCNN_COMPILE_CACHE"])
+                       if p.endswith(".so"))
+        if built != sorted(_kernels._lib_path(n).name
+                           for n in _kernels.SOURCES):
+            fail(f"export: the warm start's build directory holds {built}")
+
+        # a flipped byte in a cached program (mha_classifier's, committed
+        # here): quarantined and exported again
+        reg = MetricsRegistry()
+        cache = get_cache(croot, registry=reg)
+
+        def mha_engine():
+            return InferenceEngine.from_model(
+                copy.deepcopy(mha), fold=False, max_batch=32, device="cuda",
+                aot_cache=cache, registry=reg, warmup=False)
+
+        first = mha_engine()
+        x32 = torch.from_numpy(mpool[:32]).cuda()
+        want = first.run_padded(x32).cpu()
+        key = first.aot_info["program"]["key"]
+        payload = os.path.join(cache.root, key, "payload.bin")
+        with open(payload, "r+b") as f:
+            f.seek(len(f.read()) // 2)
+            byte = f.read(1)
+            f.seek(-1, 1)
+            f.write(bytes([byte[0] ^ 0x40]))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            again = mha_engine()
+        info = again.aot_info["program"]
+        q = reg.snapshot().get("aot_quarantined_total", 0)
+        if (info["hit"] or not info["committed"] or info["key"] != key
+                or q != 1
+                or not any("quarantined" in str(w.message) for w in caught)):
+            fail(f"export: a flipped byte of the cached program: hit "
+                 f"{info['hit']}, committed {info['committed']}, "
+                 f"quarantined {q}")
+        if not torch.equal(again.run_padded(x32).cpu(), want):
+            fail("export: the program exported again after the quarantine "
+                 "serves other logits")
+    print(f"export: engine start through the AOT cache, int8 "
+          f"resnet18_tiny_imagenet, max_batch 32, each in a process of "
+          f"its own after that process served the int8 artifact file with "
+          f"building a model and reading a checkpoint refused (the "
+          f"process's first torch.export.load: cold "
+          f"{cold['artifact_start_s']:.3f} s, warm "
+          f"{warm_['artifact_start_s']:.3f} s): cold {cold['start_s']:.3f} "
+          f"s (calibration and export {cold['program_compile_s']} s, "
+          f"captures {cold['capture_s']:.3f} s; counters "
+          f"{json.dumps(cold['counters'])}), warm {warm_['start_s']:.3f} s "
+          f"with nvcc and CUDA_HOME unreachable and an empty build "
+          f"directory (program load {warm_['program_load_s']} s, captures "
+          f"{warm_['capture_s']:.3f} s; counters {json.dumps(wc)}), "
+          f"the artifact's and both engines' logits bit-identical to the "
+          f"artifact engine's here; a flipped byte of a cached program "
+          f"quarantined and exported again; on {card}", flush=True)
+    out["starts"] = {k: {n: v[n] for n in v if n != "logits"}
+                     for k, v in starts.items()}
+    return out
+
+
 def bias_before_bn(model):
     """Names (as ``named_parameters`` gives them) of the conv biases that
     feed a batchnorm directly: their gradient is zero in exact arithmetic,
@@ -4090,14 +4444,15 @@ def bias_before_bn(model):
     return names
 
 
-def int8_row(serve_int8, obs_launches):
+def int8_row(serve_int8, obs_launches, export_launches):
     """Row 8, conv_int8.cu: its fused mode (B, the one the int8 serving
     path launches; with its K-split reduces) with launches on that path
     and times summed over the 21 conv sites of resnet18_tiny_imagenet at
     B=32 (and, under "b256", at B=256), each site timed on its own; mode A
     (int8 -> int32, 0 launches on the served path) under "mode_a"; the
     unfused chain under "chain_ms"; no library call computes either
-    function. ``obs_launches``: the obs phase's telemetry-served path."""
+    function. ``obs_launches``: the obs phase's telemetry-served path;
+    ``export_launches``: the export phase's artifact-served path."""
     def total(sites):
         out = {k: sum(c[k] for c in sites)
                for k in ("ms", "plain_ms", "bound_ms", "chain_ms")}
@@ -4116,9 +4471,10 @@ def int8_row(serve_int8, obs_launches):
     return {"name": "conv_int8_fused", "route": "cuda",
             "source": "dcnn_tpu_torch/ops/csrc/conv_int8.cu",
             "replaces": "dcnn_tpu/ops/conv.py:77", "launches":
-            counts["conv_int8_fused"] + obs_launches,
+            counts["conv_int8_fused"] + obs_launches + export_launches,
             "launches_by_path": {"serve_int8": counts["conv_int8_fused"],
-                                 "obs": obs_launches},
+                                 "obs": obs_launches,
+                                 "export": export_launches},
             "splitk_reduce_launches": counts["conv_int8_reduce"],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             **b32, "library_ms": None,
@@ -4187,6 +4543,7 @@ def main() -> None:
     serve_int8 = timed("serve int8", phase_serve_int8, card)
     timed("decode", phase_decode, card)
     obs = timed("obs", phase_obs, card, feed["traced_resident"])
+    export = timed("export", phase_export, card)
     print(f"phase seconds: {json.dumps(seconds)}, total "
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
 
@@ -4242,7 +4599,8 @@ def main() -> None:
             {"serve": serve["launches"], "train": tl["flash_fwd"],
              "train_feed": fl["flash_fwd"],
              "serve_int8": serve_int8["mha"]["launches"]["flash_fwd"],
-             "wide_layer": wide["flash_fwd"], "obs": obs["flash_fwd"]}),
+             "wide_layer": wide["flash_fwd"], "obs": obs["flash_fwd"],
+             "export": export["mha_classifier"]["launches"]["flash_fwd"]}),
         row("flash_bwd_dq", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:460", bwd_cases["dq"],
             {"serve": 0, "train": tl["flash_bwd_dq"],
@@ -4261,7 +4619,8 @@ def main() -> None:
                  "dcnn_tpu/ops/pallas/conv.py:209"),
         site_row("fused_scale_bias_relu", "dcnn_tpu_torch/ops/csrc/fused.cu",
                  "dcnn_tpu/ops/pallas/fused.py:49"),
-        int8_row(serve_int8, obs["conv_int8_fused"]),
+        int8_row(serve_int8, obs["conv_int8_fused"],
+                 export["resnet18"]["launches"]["conv_int8_fused"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -5,7 +5,7 @@ CSVs, the host and device augmentations, the device-resident dataset,
 ``PrefetchLoader``, the transfer engine, the streaming feed and the feed
 worker pool. The data-parallel names (``ShardedDeviceDataset``,
 ``make_resident_epoch_dp``, ``resident_epoch_dp``, ``stage_sharded``)
-raise ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 7)."""
+raise ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 6)."""
 
 from .augment import (
     AugmentationBuilder, AugmentationStrategy, brightness, contrast, cutout,

@@ -1,5 +1,6 @@
 from .attention_layer import MultiHeadAttentionLayer
 from .builder import SequentialBuilder
+from .export import InferenceProgram, export_inference, load_inference
 from .factory import layer_from_config, register_layer
 from .fold import fold_batchnorm
 from .layer import Layer, ParameterizedLayer, StatelessLayer
@@ -15,6 +16,7 @@ from .residual import ResidualBlock
 from .sequential import Sequential
 
 __all__ = ["MultiHeadAttentionLayer", "SequentialBuilder", "layer_from_config",
+           "InferenceProgram", "export_inference", "load_inference",
            "register_layer", "fold_batchnorm", "Layer", "ParameterizedLayer",
            "StatelessLayer", "ActivationLayer", "AvgPool2DLayer",
            "BatchNormLayer", "Conv2DLayer", "DenseLayer", "DropoutLayer",

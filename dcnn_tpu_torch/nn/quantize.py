@@ -38,7 +38,7 @@ import torch
 from torch import nn
 
 from ..core.precision import cast_to_compute
-from ..ops import _kernels
+from ..ops import library
 from ..ops import quant as quant_ops
 from .attention_layer import MultiHeadAttentionLayer
 from .factory import register_layer
@@ -143,12 +143,22 @@ class QuantConv2DLayer(_QuantizedLayer):
         state_dict is unchanged); made again when ``w_q``, ``w_scale`` or
         ``x_scale`` is another tensor, on another device or written in
         place (a ``load_state_dict``, a ``.to()``). ``packs`` counts how
-        often they were made."""
+        often they were made. Under ``torch.export`` the operands made
+        before the trace are used as they are (a traced weight has no
+        storage to key on), and become constants of the program
+        (:func:`~dcnn_tpu_torch.nn.export.export_inference` makes them
+        first)."""
+        if torch.compiler.is_exporting():
+            if self._operands is None:
+                raise RuntimeError(
+                    f"{self.name}: the int8 conv's packed weights must be "
+                    f"made before the trace (export_inference does it)")
+            return self._operands
         key = tuple((t.data_ptr(), t.device, _version(t))
                     for t in (self.w_q, self.w_scale, self.x_scale))
         if key != self._operands_key:
             with torch.no_grad():
-                self._operands = (_kernels.pack_int8_weight(self.w_q),
+                self._operands = (library.pack_int8_weight(self.w_q),
                                   (self.x_scale * self.w_scale).float())
             self._operands_key = key
             self.packs += 1

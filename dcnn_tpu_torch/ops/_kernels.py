@@ -2,11 +2,16 @@
 
 Each source in ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a shared
 library of its own with a plain C interface, loaded with ``ctypes``. The
-build happens at first use, from the sources in the checkout, into
-``dcnn_tpu_torch/_build/`` (git-ignored). A library's file name carries a
-hash of its source and flags, so a changed source is rebuilt and an
-unchanged one is reused. All missing libraries are compiled at once, one
-``nvcc`` process per source.
+build happens at first use, from the sources in the checkout, into the
+build directory: ``dcnn_tpu_torch/_build/`` (git-ignored) unless
+``AOT_CACHE`` or ``DCNN_COMPILE_CACHE`` places it
+(:mod:`~dcnn_tpu_torch.utils.compile_cache`, which also checks the
+directory once a process). A library's file name carries a hash of its
+source and flags, so a changed source is rebuilt and an unchanged one is
+reused. With the AOT cache on (:mod:`~dcnn_tpu_torch.aot`), a library
+missing from the directory is restored from the cache before ``nvcc``
+would run, and every library loaded is committed to it. All libraries
+still missing are compiled at once, one ``nvcc`` process per source.
 
 The 3×3 convs' tiling (:func:`conv_plan`), the flash forward's
 (:func:`flash_plan`), the flash backward's (:func:`flash_bwd_plan`) and the
@@ -92,16 +97,26 @@ def _flags(name: str) -> Tuple[str, ...]:
     return (*NVCC_FLAGS, *_DEFINES.get(name, ()))
 
 
-def _lib_path(name: str) -> Path:
-    """The library of build ``name``: its file name hashes the source, every
-    header of ``csrc/`` (a source may include any) and the flags."""
+def build_root() -> Path:
+    """The build directory (:func:`~dcnn_tpu_torch.utils.compile_cache.
+    resolve_cache_root`); reading it checks nothing."""
+    from ..utils.compile_cache import resolve_cache_root
+
+    return Path(resolve_cache_root(str(BUILD_DIR)))
+
+
+def _lib_path(name: str, root: Optional[Path] = None) -> Path:
+    """The library of build ``name`` in ``root`` (the build directory by
+    default): its file name hashes the source, every header of ``csrc/``
+    (a source may include any) and the flags."""
     src = _source(name)
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.name.encode() + header.read_bytes())
     h.update(" ".join(_flags(name)).encode())
     stem = src.stem + name[len(src.name):].replace("+", "_")
-    return BUILD_DIR / f"lib{stem}-{h.hexdigest()[:16]}.so"
+    return (build_root() if root is None else Path(root)) / \
+        f"lib{stem}-{h.hexdigest()[:16]}.so"
 
 
 def _bind(lib: ctypes.CDLL) -> None:
@@ -136,22 +151,33 @@ def _bind(lib: ctypes.CDLL) -> None:
     lib.dcnn_cuda_error_string.restype = ctypes.c_char_p
 
 
-def build(verbose: bool = False, extra: Tuple[str, ...] = ()
-          ) -> Dict[str, ctypes.CDLL]:
+def build(verbose: bool = False, extra: Tuple[str, ...] = (),
+          cache=None) -> Dict[str, ctypes.CDLL]:
     """Compile every source not built yet (all ``nvcc`` runs in parallel)
     and load every library. ``extra`` names diagnostic builds to add
     (:data:`CONV_TC_TRACE`); the wrappers never launch those. ``verbose``
     adds ``-Xptxas -v`` to fresh builds and prints the compiler's report of
-    registers, shared memory and spills. Returns {build name: library}."""
+    registers, shared memory and spills. ``cache``: the AOT cache to
+    restore libraries from and commit them to (an ``ExecutableCache`` or a
+    root directory; None follows ``AOT_CACHE``; False: none). A build whose
+    libraries are all restored or present runs no compiler and asks for
+    none. Returns {build name: library}."""
     with _lock:
         missing = [s for s in dict.fromkeys((*SOURCES, *extra))
                    if s not in _libs]
+        if not missing:
+            return dict(_libs)
+        from ..aot import warm
+        from ..utils.compile_cache import enable_compile_cache
+
+        root = Path(enable_compile_cache(str(BUILD_DIR)))
+        aot = warm.resolve(cache)
         procs = []
         for name in missing:
-            out = _lib_path(name)
-            if out.exists():
+            out = _lib_path(name, root)
+            if out.exists() or (aot is not None
+                                and warm.restore_library(aot, name, out)):
                 continue
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [_nvcc(), *_flags(name),
                    *(["-Xptxas", "-v"] if verbose else []),
@@ -171,9 +197,12 @@ def build(verbose: bool = False, extra: Tuple[str, ...] = ()
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         for name in missing:
-            lib = ctypes.CDLL(str(_lib_path(name)))
+            path = _lib_path(name, root)
+            lib = ctypes.CDLL(str(path))
             _bind(lib)
             _libs[name] = lib
+            if aot is not None:
+                warm.commit_library(aot, name, path)
         return dict(_libs)
 
 
@@ -1219,7 +1248,9 @@ def pack_int8_weight(w: torch.Tensor) -> torch.Tensor:
     slice its (kh, kw, channel) taps in that order, zero-padded to whole
     INT8_CHUNK chunks (Kp their sum), and zero rows past O up to Opad
     (whole channel tiles, :func:`int8_cout_tile`), so the kernel's weight
-    copies never leave the tensor."""
+    copies never leave the tensor. ``pack_int8_weight.calls`` counts the
+    packs (not a kernel: PyTorch copies)."""
+    pack_int8_weight.calls += 1
     o, c, r, s = w.shape
     cs = int8_slice(c)
     kslice = r * s * cs
@@ -1421,6 +1452,7 @@ def conv_int8_fused(x: torch.Tensor, x_scale: torch.Tensor, w: torch.Tensor,
     return y
 
 
+pack_int8_weight.calls = 0
 conv_int8.launches = 0
 conv_int8_fused.launches = 0
 conv_int8_reduce.launches = 0

@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import _kernels
+from . import _kernels, library
 
 NEG_INF = -1e30
 
@@ -178,31 +178,31 @@ def _for_kernel(t: torch.Tensor, width: int) -> torch.Tensor:
 def _flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool, scale: float
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(O, logsumexp (B, H, Sq) fp32). A CUDA tensor goes to the Hopper
+    """(O, logsumexp (B, H, Sq) fp32) through the op ``dcnn::flash_fwd``
+    (:mod:`~dcnn_tpu_torch.ops.library`). A CUDA tensor goes to the Hopper
     kernels (above head dim 256 their wide modes), which raise on what they
     cannot take (a dtype other than fp32 or bf16, a grid above 2^31
-    blocks); strided or misaligned views are copied
-    first, and a head dim whose rows are not whole 16-byte units is padded
-    with zero columns, which add nothing to the scores, and cut off the
-    output. A CPU tensor goes to the plain version. There is no other
-    route."""
+    blocks); strided or misaligned views are copied first, and a head dim
+    whose rows are not whole 16-byte units is padded with zero columns,
+    which add nothing to the scores, and cut off the output. A CPU tensor
+    goes to the plain version. There is no other route."""
     _check_qkv(q, k, v)
-    if q.device.type == "cuda":
-        d = q.shape[-1]
-        w = _kernels.flash_head_width(d, q.dtype)
-        o, lse = _kernels.flash_fwd(*(_for_kernel(t, w) for t in (q, k, v)),
-                                    causal=causal, scale=scale)
-        return (o if w == d else o[..., :d]), lse
-    if q.device.type == "cpu":
-        return flash_forward_reference(q, k, v, causal=causal, scale=scale)
-    raise RuntimeError(f"flash_attention: no implementation for {q.device}")
+    _check_route(q)
+    return library.flash_fwd(q, k, v, bool(causal), float(scale))
+
+
+def _check_route(q: torch.Tensor) -> None:
+    if q.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"flash_attention: no implementation for "
+                           f"{q.device}")
 
 
 def flash_backward_reference(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              lse: torch.Tensor, g: torch.Tensor, *,
                              causal: bool, scale: float, block_q: int = 64,
-                             block_kv: int = 64
+                             block_kv: int = 64,
+                             delta: Optional[torch.Tensor] = None
                              ) -> Tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """Plain PyTorch version of both flash backward kernels (FlashAttention-2
@@ -212,13 +212,15 @@ def flash_backward_reference(q: torch.Tensor, k: torch.Tensor,
     dO·Vᵀ, dS = P∘(dP − Δ)·scale; dQ accumulates dS·K over kv tiles, dK
     dSᵀ·Q and dV Pᵀ·dO over q tiles, in fp32 (fp64 stays fp64). Under bf16
     dS and P are rounded to the input type before their products, as the
-    kernels do. Returns (dQ, dK, dV) in q's dtype. The CPU path and the
-    tests use it; ``chip_smoke.py`` holds the kernels against it."""
+    kernels do. ``delta``, where given, is Δ and ``o`` is not read. Returns
+    (dQ, dK, dV) in q's dtype. The CPU path and the tests use it;
+    ``chip_smoke.py`` holds the kernels against it."""
     _, _, sq, _ = q.shape
     sk = k.shape[2]
     acc_dt = torch.promote_types(q.dtype, torch.float32)
     qf, kf, vf, gf = (t.to(acc_dt) for t in (q, k, v, g))
-    delta = (gf * o.to(acc_dt)).sum(-1)
+    delta = ((gf * o.to(acc_dt)).sum(-1) if delta is None
+             else delta.to(acc_dt))
     lse = lse.to(acc_dt)
 
     def as_input(t):  # the cast the kernels make before a product
@@ -254,50 +256,27 @@ def _flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     o: torch.Tensor, lse: torch.Tensor, g: torch.Tensor, *,
                     causal: bool, scale: float
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(dQ, dK, dV). CUDA tensors go to the two Hopper kernels, which raise
-    on what they cannot take, after the copies and padding of
-    :func:`_flash_forward` (dO too); Δ = rowsum(dO·O) is computed here in
-    fp32, as the JAX package computes it outside its kernels. CPU tensors
-    go to the plain version. There is no other route."""
+    """(dQ, dK, dV) through the ops ``dcnn::flash_bwd_dq`` and
+    ``dcnn::flash_bwd_dkv``, with Δ = rowsum(dO·O) computed here in fp32
+    (fp64 stays fp64), as the JAX package computes it outside its kernels.
+    CUDA tensors go to the two Hopper kernels, which raise on what they
+    cannot take, after the copies and padding of :func:`_flash_forward`
+    (dO too), made once for both; CPU tensors go to the plain version.
+    There is no other route."""
     _check_qkv(q, k, v)
+    _check_route(q)
+    acc_dt = torch.promote_types(q.dtype, torch.float32)
+    delta = (g.to(acc_dt) * o.to(acc_dt)).sum(-1)
+    d = w = q.shape[-1]
     if q.device.type == "cuda":
-        delta = (g.float() * o.float()).sum(-1)
-        d = q.shape[-1]
         w = _kernels.flash_head_width(d, q.dtype)
-        qc, kc, vc, gc = (_for_kernel(t, w) for t in (q, k, v, g))
-        lse = lse.contiguous()
-        dq = _kernels.flash_bwd_dq(qc, kc, vc, gc, lse, delta, causal=causal,
-                                   scale=scale)
-        dk, dv = _kernels.flash_bwd_dkv(qc, kc, vc, gc, lse, delta,
-                                        causal=causal, scale=scale)
-        if w != d:
-            dq, dk, dv = (t[..., :d] for t in (dq, dk, dv))
-        return dq, dk, dv
-    if q.device.type == "cpu":
-        return flash_backward_reference(q, k, v, o, lse, g, causal=causal,
-                                        scale=scale)
-    raise RuntimeError(f"flash_attention: no implementation for {q.device}")
-
-
-class _FlashAttention(torch.autograd.Function):
-    """Forward through :func:`_flash_forward`, saving (q, k, v, O,
-    logsumexp); backward through :func:`_flash_backward` from them."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, causal: bool, scale: float):
-        o, lse = _flash_forward(q, k, v, causal=causal, scale=scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.scale = causal, scale
-        return o
-
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, o, lse = ctx.saved_tensors
-        # the head merge after the forward hands the cotangent back
-        # transposed; both paths take it in contiguous rows
-        grads = _flash_backward(q, k, v, o, lse, g.contiguous(),
-                                causal=ctx.causal, scale=ctx.scale)
-        return (*grads, None, None)
+        q, k, v, g = (_for_kernel(t, w) for t in (q, k, v, g))
+    args = (q, k, v, g, lse, delta, bool(causal), float(scale))
+    dq = library.flash_bwd_dq(*args)
+    dk, dv = library.flash_bwd_dkv(*args)
+    if w != d:
+        dq, dk, dv = (t[..., :d] for t in (dq, dk, dv))
+    return dq, dk, dv
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -315,4 +294,4 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if mask is not None:
         return blockwise_attention(q, k, v, causal=causal, scale=scale,
                                    mask=mask)
-    return _FlashAttention.apply(q, k, v, bool(causal), float(scale))
+    return _flash_forward(q, k, v, causal=causal, scale=scale)[0]

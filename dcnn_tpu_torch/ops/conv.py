@@ -25,7 +25,7 @@ from typing import Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
-from . import _kernels
+from . import library
 
 IntOrPair = Union[int, Tuple[int, int], Sequence[int]]
 
@@ -77,14 +77,11 @@ def conv2d_int8(x_q: torch.Tensor, w_q: torch.Tensor, *,
                         f"{x_q.dtype}/{w_q.dtype}")
     if data_format not in ("NCHW", "NHWC"):
         raise ValueError(f"unsupported data_format {data_format!r}")
-    if x_q.device.type == "cuda":
-        return _kernels.conv_int8(x_q, w_q, stride=_pair(stride),
-                                  padding=_pair(padding),
-                                  data_format=data_format)
-    if x_q.device.type == "cpu":
-        return conv2d_int8_reference(x_q, w_q, stride=stride,
-                                     padding=padding, data_format=data_format)
-    raise RuntimeError(f"conv2d_int8: no implementation for {x_q.device}")
+    if x_q.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"conv2d_int8: no implementation for "
+                           f"{x_q.device}")
+    return library.conv_int8(x_q, w_q, list(_pair(stride)),
+                             list(_pair(padding)), data_format, None)
 
 
 def _vjp(fn, primal: torch.Tensor, grad_out: torch.Tensor) -> torch.Tensor:

@@ -7,7 +7,8 @@ JAX package; a layer's OIHW weight goes in as
 launches its hand-written Hopper kernel (or raises): all three the
 tensor-core implicit GEMM of ``ops/csrc/conv3x3_tc.cu``, the pairs form as
 its 12-tap mode. On CPU tensors it runs the kernel's plain version here.
-There is no other route.
+There is no other route. Each goes through its ``dcnn::`` op
+(:mod:`~dcnn_tpu_torch.ops.library`), so a tracer sees one node.
 
 - :func:`conv3x3_s1`: the conv.
 - :func:`conv3x3_s1_bnrelu_in`: the conv of ``relu(x·scale + shift)``, the
@@ -28,7 +29,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .. import _kernels
+from .. import library
 
 
 def _acc_dtype(x: torch.Tensor) -> torch.dtype:
@@ -95,10 +96,9 @@ def _shapes(fn: str, x: torch.Tensor, w: torch.Tensor, batch_tile: int,
     return n, h, ww, cin, cout
 
 
-def _route(fn: str, x: torch.Tensor) -> str:
+def _route(fn: str, x: torch.Tensor) -> None:
     if x.device.type not in ("cuda", "cpu"):
         raise RuntimeError(f"{fn}: no implementation for {x.device}")
-    return x.device.type
 
 
 def conv3x3_s1(x: torch.Tensor, w: torch.Tensor, *, batch_tile: int = 1,
@@ -108,9 +108,8 @@ def conv3x3_s1(x: torch.Tensor, w: torch.Tensor, *, batch_tile: int = 1,
     default)."""
     _shapes("conv3x3_s1", x, w, batch_tile)
     out_dtype = out_dtype or x.dtype
-    if _route("conv3x3_s1", x) == "cuda":
-        return _kernels.conv3x3_s1(x, w, out_dtype=out_dtype)
-    return conv3x3_reference(x, w, out_dtype=out_dtype)
+    _route("conv3x3_s1", x)
+    return library.conv3x3_s1(x, w, out_dtype)
 
 
 def conv3x3_s1_bnrelu_in(x: torch.Tensor, w: torch.Tensor,
@@ -123,12 +122,8 @@ def conv3x3_s1_bnrelu_in(x: torch.Tensor, w: torch.Tensor,
     ``shift``: (Cin,); the kernel reads them as fp32."""
     _shapes("conv3x3_s1_bnrelu_in", x, w, batch_tile)
     out_dtype = out_dtype or x.dtype
-    if _route("conv3x3_s1_bnrelu_in", x) == "cuda":
-        # fp32 (and exact from bf16), as the Pallas kernel upcasts them
-        return _kernels.conv3x3_s1_bnrelu_in(
-            x, w, scale.float(), shift.float(), out_dtype=out_dtype)
-    return conv3x3_reference(bnrelu_reference(x, scale, shift), w,
-                             out_dtype=out_dtype)
+    _route("conv3x3_s1_bnrelu_in", x)
+    return library.conv3x3_s1_bnrelu_in(x, w, scale, shift, out_dtype)
 
 
 def fuse_pair_weights(w: torch.Tensor) -> torch.Tensor:
@@ -156,6 +151,5 @@ def conv3x3_s1_pairs(x: torch.Tensor, w: torch.Tensor, *, batch_tile: int = 1,
     if h % th:
         raise ValueError(f"h_tile {th} must divide H {h}")
     w2 = fuse_pair_weights(w)
-    if _route("conv3x3_s1_pairs", x) == "cuda":
-        return _kernels.conv3x3_s1_pairs(x, w2, out_dtype=out_dtype)
-    return conv3x3_pairs_reference(x, w2, out_dtype=out_dtype)
+    _route("conv3x3_s1_pairs", x)
+    return library.conv3x3_s1_pairs(x, w2, out_dtype)

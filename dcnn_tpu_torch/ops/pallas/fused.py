@@ -4,15 +4,17 @@ BN-inference epilogue, with scale and bias broadcast over the last axis.
 
 On CUDA tensors it launches the hand-written Hopper kernel in
 ``ops/csrc/fused.cu`` (or raises); on CPU tensors it runs the plain
-version, the same composition in x's type. There is no other route. x may
-have any leading shape and any number of rows and channels.
+version, the same composition in x's type, through the op
+``dcnn::fused_scale_bias_relu`` (:mod:`~dcnn_tpu_torch.ops.library`).
+There is no other route. x may have any leading shape and any number of
+rows and channels.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .. import _kernels
+from .. import library
 
 
 def scale_bias_relu_reference(x: torch.Tensor, scale: torch.Tensor,
@@ -29,9 +31,7 @@ def fused_scale_bias_relu(x: torch.Tensor, scale: torch.Tensor,
     if scale.shape != (c,) or bias.shape != (c,):
         raise ValueError(f"fused_scale_bias_relu: scale {tuple(scale.shape)} "
                          f"and bias {tuple(bias.shape)} must be ({c},)")
-    if x.device.type == "cuda":
-        return _kernels.fused_scale_bias_relu(x, scale, bias)
-    if x.device.type == "cpu":
-        return scale_bias_relu_reference(x, scale, bias)
-    raise RuntimeError(f"fused_scale_bias_relu: no implementation for "
-                       f"{x.device}")
+    if x.device.type not in ("cuda", "cpu"):
+        raise RuntimeError(f"fused_scale_bias_relu: no implementation for "
+                           f"{x.device}")
+    return library.fused_scale_bias_relu(x, scale, bias)

@@ -27,7 +27,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from . import _kernels
+from . import library
 from .conv import _pair, conv2d_int8_reference
 
 # int8 symmetric range; -128 is left out so that the range is symmetric
@@ -123,13 +123,9 @@ def dense_int8(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     if x_q.dtype != torch.int8 or w_q.dtype != torch.int8:
         raise TypeError(f"dense_int8 expects int8 operands, got "
                         f"{x_q.dtype}/{w_q.dtype}")
-    if x_q.device.type == "cpu":
-        return dense_int8_reference(x_q, w_q)
-    if x_q.device.type != "cuda":
+    if x_q.device.type not in ("cuda", "cpu"):
         raise RuntimeError(f"dense_int8: no implementation for {x_q.device}")
-    lead = x_q.shape[:-1]
-    y = _int_mm_padded(x_q.reshape(-1, x_q.shape[-1]), w_q)
-    return y.reshape(*lead, w_q.shape[0])
+    return library.dense_int8(x_q, w_q)
 
 
 def quant_conv2d_reference(x: torch.Tensor, x_scale: torch.Tensor,
@@ -164,15 +160,12 @@ def quant_conv2d(x: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
     made here where None. The plain version needs neither."""
     if data_format not in ("NCHW", "NHWC"):
         raise ValueError(f"unsupported data_format {data_format!r}")
-    if x.device.type == "cpu":
-        return quant_conv2d_reference(x, x_scale, w_q, w_scale, b,
-                                      stride=stride, padding=padding,
-                                      data_format=data_format)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cuda", "cpu"):
         raise RuntimeError(f"quant_conv2d: no implementation for {x.device}")
-    wk, scale = packed if packed is not None else (
-        _kernels.pack_int8_weight(w_q), (x_scale * w_scale).float())
-    return _kernels.conv_int8_fused(x, x_scale, w_q, scale, b,
-                                    stride=_pair(stride),
-                                    padding=_pair(padding),
-                                    data_format=data_format, packed=wk)
+    if packed is None:  # the plain version needs no packed weights
+        packed = (library.pack_int8_weight(w_q) if x.device.type == "cuda"
+                  else None, (x_scale * w_scale).float())
+    wk, scale = packed
+    return library.conv_int8_fused(x, x_scale, w_q, scale, b,
+                                   list(_pair(stride)), list(_pair(padding)),
+                                   data_format, wk)

@@ -185,21 +185,26 @@ class CheckpointManager:
         self._lock = threading.Lock()
         self._pending: list = []  # async-save futures not yet inspected
         self._last_failure: Optional[BaseException] = None  # health() latch
+        # pinned host buffers for two snapshots in flight, reused
+        from ..train.checkpoint import PinnedPool
+        self.pinned = PinnedPool(2)
 
     # -- serialization (format owned by train/checkpoint.py) --
-    @staticmethod
-    def _snapshot(model, opt_state, optimizer, metadata) -> tuple:
+    def _snapshot(self, model, opt_state, optimizer, metadata) -> tuple:
         """What a save needs, taken on the calling (training) thread: the
         manifest (metadata frozen by a JSON round trip: the trainer keeps
         appending to its history while the saver thread serializes) and a
         :class:`~dcnn_tpu_torch.train.checkpoint.HostSnapshot` of the
         arrays, whose copies are queued on the current stream before the
-        next step can update anything in place."""
+        next step can update anything in place, into a set of
+        :attr:`pinned`'s buffers: two snapshots in flight reuse their
+        pinned memory, and a third waits for the saver to release one
+        rather than pin more."""
         from ..train.checkpoint import HostSnapshot, checkpoint_manifest
 
         manifest = checkpoint_manifest(model, optimizer, metadata,
                                        opt_state is not None)
-        return manifest, HostSnapshot(model, opt_state)
+        return manifest, HostSnapshot(model, opt_state, pool=self.pinned)
 
     def _write_and_commit(self, step: int, model_manifest: dict,
                           snapshot) -> str:
@@ -267,8 +272,11 @@ class CheckpointManager:
                                mode="sync"):
             manifest, snapshot = self._snapshot(model, opt_state, optimizer,
                                                 metadata)
-            with self._lock:
-                return self._write_and_commit(step, manifest, snapshot)
+            try:
+                with self._lock:
+                    return self._write_and_commit(step, manifest, snapshot)
+            finally:
+                snapshot.release()
 
     # -- async save --
     def _saver_loop(self) -> None:
@@ -293,6 +301,8 @@ class CheckpointManager:
             fut.set_result(path)
         except BaseException as e:  # surfaced via the future / wait()
             fut.set_exception(e)
+        finally:
+            snapshot.release()  # a failed save gives its buffers back too
 
     def save_async(self, step: int, model, opt_state=None, optimizer=None,
                    metadata: Optional[Dict[str, Any]] = None) -> Future:

@@ -45,8 +45,12 @@ FLOPs in ``compile_stats``) and a ``serve.warmup`` span over a warm one,
 at construction; a ``decode.step`` span (track ``decode``) per batcher
 step, which ends once its tokens are on the host. The compile counters and
 the card's memory gauges go on ``registry`` (the process-global one by
-default). The JAX engine's AOT executable cache waits for ``ROADMAP.md``
-Queue 1 item 8.
+default). ``aot_cache=`` (None follows ``AOT_CACHE``, False is off, a
+directory) restores the kernel libraries from the AOT cache
+(:mod:`~dcnn_tpu_torch.aot`) and commits fresh builds to it; that is all it
+holds here. The JAX engine caches its compiled decode step, which the port
+does not have: the lattice's CUDA graphs cannot be serialized and are
+captured again in every process.
 """
 
 from __future__ import annotations
@@ -60,11 +64,13 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..aot import warm as aot_warm
 from ..core.graphs import GraphPool, Session
 from ..core.precision import cast_to_compute, get_precision_mode
 from ..obs.registry import get_registry
 from ..obs.tracer import get_tracer
 from ..obs.xla import jit_cost, record_compile, sample_hbm
+from ..ops import _kernels
 from ..resilience import faults
 from ..resilience.faults import InjectedCrash
 from .batcher import DrainingError, QueueFullError, ShutdownError
@@ -90,15 +96,16 @@ class DecodeEngine:
                  max_pages_per_seq: int = 4, num_pages: Optional[int] = None,
                  warmup: bool = True, name: str = "decode",
                  aot_cache: Any = None, registry=None):
-        if aot_cache not in (None, False):
-            raise NotImplementedError(
-                "DecodeEngine has no AOT executable cache: its CUDA graphs "
-                "are captured in the process; the cache waits for ROADMAP.md "
-                "Queue 1 item 9")
         self.model = model.eval()
         self.name = name
         self.registry = registry if registry is not None else get_registry()
         self.device = next(model.parameters()).device
+        if self.device.type == "cuda":
+            # the kernel libraries from the AOT cache (None follows
+            # AOT_CACHE, False is off), before the first eager step
+            cache = aot_warm.resolve(aot_cache, registry=self.registry)
+            if cache is not None:
+                _kernels.build(cache=cache)
         self.bucket_sizes = serve_buckets(max_slots)
         self.max_slots = self.bucket_sizes[-1]
         self.page_buckets = serve_buckets(max_pages_per_seq)

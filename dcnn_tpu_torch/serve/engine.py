@@ -1,5 +1,11 @@
 """Bucketed inference engine (counterpart of ``dcnn_tpu/serve/engine.py``).
 
+Three sources, as in the JAX package: a live model (:meth:`from_model`), a
+checkpoint (:meth:`from_checkpoint`) and an exported program
+(:meth:`from_artifact`, the bytes or file of
+:func:`~dcnn_tpu_torch.nn.export.export_inference`), which serves without
+the model class, the layer registry or a checkpoint.
+
 One session per batch bucket (powers of two up to ``max_batch``), with
 zero-pad-to-bucket dispatch. On CUDA a session is a CUDA graph of the
 model's forward at that batch size (:mod:`~dcnn_tpu_torch.core.graphs`),
@@ -32,20 +38,37 @@ call (kernel builds; its FLOPs counted by ``FlopCounterMode``,
 (``capture_s`` in ``compile_stats``) and a ``serve.warmup`` span over a
 replay; the per-sample FLOPs gauge and the card's memory gauges go on
 ``registry`` (the process-global one by default). With ``warmup=False`` a
-bucket is called, captured and replayed at its first use. JAX's AOT
-executable cache and buffer donation have no counterpart here.
+bucket is called, captured and replayed at its first use.
+
+The AOT cache (:mod:`~dcnn_tpu_torch.aot`; ``aot_cache=``: None follows
+``AOT_CACHE``, False is off, a directory or an ``ExecutableCache``) holds
+two things here: the kernel libraries, restored before the first call so a
+warm start runs no ``nvcc``, and, for :meth:`from_model`, the exported
+program, keyed by the model's structure, weights and transform
+(``aot_config``): on a hit the engine loads the program and builds, folds,
+calibrates and traces nothing. The CUDA graphs are captured again in every
+process; they cannot be serialized. An engine handed a cache without an
+``aot_config`` digest runs uncached, as the JAX engine does. Buffer
+donation has no counterpart here.
 """
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
+import os
 import time
+import warnings
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..aot import warm as aot_warm
 from ..core.device import DeviceLike, resolve_device
 from ..core.graphs import GraphPool, Session
-from ..core.precision import get_precision_mode
+from ..core.precision import get_precision_mode, set_precision
+from ..nn.export import InferenceProgram, export_inference
+from ..ops import _kernels
 from ..obs.registry import get_registry
 from ..obs.tracer import get_tracer
 from ..obs.xla import jit_cost, record_compile, sample_hbm
@@ -71,25 +94,71 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+@contextlib.contextmanager
+def _in_mode(mode: str):
+    """Run under precision mode ``mode`` (its TF32 switches are read when a
+    graph is captured), then put the caller's back."""
+    old = get_precision_mode()
+    if mode == old:
+        yield
+        return
+    set_precision(mode)
+    try:
+        yield
+    finally:
+        set_precision(old)
+
+
+def _resolve_aot(aot_cache: Any, aot_config: Optional[str], registry):
+    """``aot_cache`` as a cache, or None: off, unusable, or without a
+    weights digest (refused with a warning: a key that does not cover the
+    weights could serve another checkpoint's program)."""
+    aot = aot_warm.resolve(aot_cache, registry=registry)
+    if aot is not None and not aot_config:
+        warnings.warn(
+            "InferenceEngine: aot_cache set but no aot_config digest; the "
+            "cache is off for this engine (a key that does not cover the "
+            "weights could serve another checkpoint's program). Build "
+            "engines through from_model/from_checkpoint/from_artifact to "
+            "get the digest computed.", stacklevel=3)
+        return None
+    return aot
+
+
 class InferenceEngine:
     """Warm, bucketed inference over ``apply_fn(x) -> logits`` on one
     device (CUDA unless ``device="cpu"``). Build one from a live model with
-    :meth:`from_model`, or from a checkpoint with :meth:`from_checkpoint`."""
+    :meth:`from_model`, from a checkpoint with :meth:`from_checkpoint`, or
+    from an exported program with :meth:`from_artifact`. Over a loaded
+    program (an :class:`~dcnn_tpu_torch.nn.export.InferenceProgram`) the
+    sessions run in the program's precision mode (:attr:`precision`),
+    whatever the caller's; otherwise in the caller's."""
 
     def __init__(self, apply_fn: Callable[[torch.Tensor], torch.Tensor],
                  input_shape: Sequence[int], *, max_batch: int = 32,
+                 input_dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None, warmup: bool = True,
                  batch_invariant: bool = False, name: str = "engine",
-                 registry=None):
+                 registry=None, aot_cache: Any = None,
+                 aot_config: Optional[str] = None):
         self.name = name
         self.batch_invariant = bool(batch_invariant)
         self.device = resolve_device(device)
         self.registry = registry if registry is not None else get_registry()
         self.input_shape = tuple(int(d) for d in input_shape)
-        self.input_dtype = torch.float32
+        self.input_dtype = input_dtype
         self.bucket_sizes = serve_buckets(max_batch)
         self.max_batch = self.bucket_sizes[-1]
         self._apply = apply_fn
+        self.precision = (apply_fn.precision
+                          if isinstance(apply_fn, InferenceProgram) else None)
+        self.aot = _resolve_aot(aot_cache, aot_config, self.registry)
+        # {"program": warm_or_compile's info} where from_model used the cache
+        self.aot_info: Dict[str, Any] = {}
+        if self.aot is not None and self.device.type == "cuda":
+            # the kernel libraries, restored (or built and committed)
+            # before the first call
+            _kernels.build(cache=self.aot)
         self.graphs = GraphPool(self.device)
         # {(bucket, precision mode): session}
         self.sessions: Dict[Tuple[int, str], Session] = {}
@@ -105,9 +174,12 @@ class InferenceEngine:
                     # the first call, eager and FLOP-counted: it builds the
                     # kernels, packs the int8 weights and picks the cuDNN
                     # plans, none of which may happen inside a capture
-                    cost = jit_cost(self._forward, self._zeros(b))
+                    with _in_mode(self._mode()):
+                        cost = jit_cost(self._forward, self._zeros(b))
             compile_s = time.perf_counter() - t0
-            record_compile(compile_s, what="serve", registry=self.registry)
+            if self.precision is None:  # a loaded program compiles nothing
+                record_compile(compile_s, what="serve",
+                               registry=self.registry)
             st = {"compile_s": round(compile_s, 4), "capture_s": 0.0,
                   "warmup_s": 0.0}
             if warmup:
@@ -130,24 +202,31 @@ class InferenceEngine:
         with torch.inference_mode():
             return self._apply(x)
 
+    def _mode(self) -> str:
+        """The precision mode the sessions run in: a loaded program's own,
+        else the caller's."""
+        return self.precision or get_precision_mode()
+
     def _capture(self, b: int) -> Session:
-        mode = get_precision_mode()
-        s = self.sessions[(b, mode)] = Session(
-            f"{self.name} bucket {b} ({mode})", self._forward,
-            (self._zeros(b),), pool=self.graphs)
+        mode = self._mode()
+        with _in_mode(mode):
+            s = self.sessions[(b, mode)] = Session(
+                f"{self.name} bucket {b} ({mode})", self._forward,
+                (self._zeros(b),), pool=self.graphs)
         return s
 
     def _session(self, b: int) -> Session:
-        """Bucket ``b``'s session in the current precision mode; at its
-        first use (no warm-up at construction, or another mode), an eager
-        call and the capture."""
-        key = (b, get_precision_mode())
+        """Bucket ``b``'s session in its precision mode (:meth:`_mode`); at
+        its first use (no warm-up at construction, or another mode), an
+        eager call and the capture."""
+        key = (b, self._mode())
         s = self.sessions.get(key)
         if s is None:
             with self.graphs.lock:
                 s = self.sessions.get(key)
                 if s is None:
-                    self._forward(self._zeros(b))
+                    with _in_mode(key[1]):
+                        self._forward(self._zeros(b))
                     s = self._capture(b)
         return s
 
@@ -188,7 +267,9 @@ class InferenceEngine:
     def from_model(cls, model, *, fold: bool = True,
                    int8_calib: Optional[Any] = None,
                    act_quantile: Optional[float] = None,
-                   device: DeviceLike = None, **kw) -> "InferenceEngine":
+                   device: DeviceLike = None, aot_cache: Any = None,
+                   aot_config: Optional[str] = None,
+                   **kw) -> "InferenceEngine":
         """Engine over a live :class:`~dcnn_tpu_torch.nn.Sequential` in
         eval mode on ``device``, for inputs of its ``input_shape`` in
         whatever layout the model was built for (an image as (C, H, W) or
@@ -202,20 +283,96 @@ class InferenceEngine:
         scales at ``act_quantile`` of ``|x|`` when given, else absmax),
         calibrated where the model lies and then moved; that engine is
         ``batch_invariant`` (module docstring), as is one over a model
-        that is int8 already."""
+        that is int8 already.
+
+        With the AOT cache on (``aot_cache``, module docstring) the engine
+        serves the exported program of the transformed model, keyed by
+        ``aot_config`` (computed here where not given: the digest of the
+        model's config, its weights and the transform): a hit loads it
+        and leaves the model untouched; a miss transforms, exports,
+        loads the program back and commits it. An export that fails is
+        counted as a fallback and the transformed model served."""
         if model.input_shape is None:
             raise ValueError("model has no input_shape; build it through "
                              "SequentialBuilder.input or set input_shape")
         dev = resolve_device(device)
+        kw.setdefault("name", model.name)
+        registry = kw.get("registry")
+        aot = aot_warm.resolve(aot_cache, registry=registry)
+        if aot is not None:
+            if not aot_config:
+                from ..aot.keys import digest, digest_arrays
+
+                aot_config = digest({
+                    "model": model.get_config(),
+                    "weights": digest_arrays(model.state_dict()),
+                    "transform": {
+                        "fold": bool(fold), "act_quantile": act_quantile,
+                        "int8_calib": None if int8_calib is None
+                        else digest_arrays(int8_calib)}})
+            return cls._from_model_cached(model, fold, int8_calib,
+                                          act_quantile, dev, aot,
+                                          aot_config, kw)
+        model = cls._transform(model, fold, int8_calib, act_quantile, dev)
+        return cls(model, model.input_shape, device=dev,
+                   batch_invariant=is_int8(model), aot_cache=False, **kw)
+
+    @staticmethod
+    def _transform(model, fold, int8_calib, act_quantile, dev):
         if int8_calib is not None:
             model = quantize_model(model, int8_calib, fold_bn=fold,
                                    act_quantile=act_quantile)
         elif fold:
             model = fold_batchnorm(model)
-        model = model.to(dev).eval()
-        kw.setdefault("name", model.name)
-        return cls(model, model.input_shape, device=dev,
-                   batch_invariant=is_int8(model), **kw)
+        return model.to(dev).eval()
+
+    @classmethod
+    def _from_model_cached(cls, model, fold, int8_calib, act_quantile, dev,
+                           aot, aot_config, kw) -> "InferenceEngine":
+        """:meth:`from_model` over the cache: the exported program, loaded
+        from it or exported and committed."""
+        from ..aot.keys import TensorSpec
+
+        made = []  # the transformed model, where a miss made it
+
+        def export(spec):
+            made.append(cls._transform(model, fold, int8_calib,
+                                       act_quantile, dev))
+            return export_inference(made[0], device=dev)
+
+        registry = kw.get("registry")
+        if dev.type == "cuda":
+            _kernels.build(cache=aot)  # before the export's first call
+        try:
+            program, info = aot_warm.warm_or_compile(
+                export, TensorSpec(("batch", *model.input_shape),
+                                   torch.float32),
+                cache=aot, load=InferenceProgram, what="serve",
+                config=aot_config, extra={"device": dev.type},
+                registry=registry)
+        except Exception as e:
+            if not made:
+                raise  # the transform itself failed: not the cache's fault
+            from ..obs.xla import record_aot
+
+            warnings.warn(f"InferenceEngine: the export for the AOT cache "
+                          f"failed ({type(e).__name__}: {e}); serving the "
+                          f"transformed model uncached", stacklevel=3)
+            record_aot("fallback", registry=registry)
+            tm = made[0]
+            return cls(tm, tm.input_shape, device=dev,
+                       batch_invariant=is_int8(tm), aot_cache=aot,
+                       aot_config=aot_config, **kw)
+        engine = cls(program, program.input_shape, device=dev,
+                     input_dtype=program.input_dtype,
+                     batch_invariant=program.meta["int8"], aot_cache=aot,
+                     aot_config=aot_config, **kw)
+        engine.aot_info["program"] = info
+        for st in engine.compile_stats.values():
+            st["aot_hit"] = info["hit"]
+            if "load_s" in info:
+                st["load_s"] = info["load_s"]
+        return engine
 
     @classmethod
     def from_checkpoint(cls, path: str, *, device: DeviceLike = None,
@@ -229,6 +386,41 @@ class InferenceEngine:
 
         model, _, _, _ = load_checkpoint(path, device=device)
         return cls.from_model(model, device=device, **kw)
+
+    @classmethod
+    def from_artifact(cls, blob_or_path, **kw) -> "InferenceEngine":
+        """Engine over an exported program
+        (:func:`~dcnn_tpu_torch.nn.export.export_inference`'s bytes or a
+        file of them): its input shape and dtype, its precision mode and
+        its int8-ness (``batch_invariant``) come from the artifact, which
+        must have a symbolic batch (a pinned one runs one shape only,
+        which defeats the buckets) and lie on the engine's device. Loading
+        needs neither the model class, the layer registry nor a
+        checkpoint. The artifact's hash is its ``aot_config``: with the AOT
+        cache on, the kernel libraries come from it."""
+        if isinstance(blob_or_path, (str, os.PathLike)):
+            with open(blob_or_path, "rb") as f:
+                blob = f.read()
+        else:
+            blob = bytes(blob_or_path)
+        program = InferenceProgram(blob)
+        if program.batch_size is not None:
+            raise ValueError(
+                f"artifact has a pinned batch dimension "
+                f"({program.batch_size}); serve needs a batch-polymorphic "
+                f"export (export_inference with batch_size=None, the "
+                f"default)")
+        dev = resolve_device(kw.pop("device", None))
+        if program.meta["device"] != dev.type:
+            raise ValueError(
+                f"artifact was exported on {program.meta['device']}; it "
+                f"serves there, not on {dev}")
+        kw.setdefault("name", program.name)
+        kw.setdefault("aot_config",
+                      "artifact-" + hashlib.sha256(blob).hexdigest())
+        return cls(program, program.input_shape, device=dev,
+                   input_dtype=program.input_dtype,
+                   batch_invariant=program.meta["int8"], **kw)
 
     def bucket_for(self, n: int) -> int:
         """Smallest bucket >= n."""

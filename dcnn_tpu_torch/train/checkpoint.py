@@ -22,6 +22,7 @@ from __future__ import annotations
 
 import json
 import os
+import threading
 from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
@@ -53,31 +54,90 @@ def checkpoint_manifest(model: Sequential, optimizer: Optional[Optimizer],
     }
 
 
+class PinnedPool:
+    """Pinned host buffers for ``sets`` snapshots in flight, reused from
+    one snapshot to the next (a set is {tensor name: buffer}).
+    :meth:`acquire` hands out a free set, or waits until a snapshot
+    releases one: the saver's backpressure, so a training thread that
+    saves faster than the saver writes waits instead of pinning more
+    memory. A buffer is made in every set at once, the first time a
+    snapshot asks for it, so all the pinned memory is made by the first
+    save (and again only for a tensor of a new shape). ``allocations``
+    counts the pinned buffers ever made."""
+
+    def __init__(self, sets: int = 2):
+        if sets < 1:
+            raise ValueError(f"sets must be >= 1, got {sets}")
+        self.allocations = 0
+        self._sets = [{} for _ in range(sets)]
+        self._free = list(self._sets)
+        self._cond = threading.Condition()
+
+    def acquire(self) -> Dict[str, torch.Tensor]:
+        with self._cond:
+            while not self._free:
+                self._cond.wait()
+            return self._free.pop()
+
+    def release(self, buffers: Dict[str, torch.Tensor]) -> None:
+        with self._cond:
+            self._free.append(buffers)
+            self._cond.notify()
+
+    def buffer(self, buffers: Dict[str, torch.Tensor], name: str,
+               like: torch.Tensor) -> torch.Tensor:
+        """``buffers[name]``, pinned, of ``like``'s shape and dtype; made in
+        every set (and counted) where ``buffers`` has none that fits."""
+        host = buffers.get(name)
+        if host is None or host.shape != like.shape \
+                or host.dtype != like.dtype:
+            with self._cond:
+                for s in self._sets:
+                    s[name] = torch.empty(like.shape, dtype=like.dtype,
+                                          pin_memory=True)
+                    self.allocations += 1
+            host = buffers[name]
+        return host
+
+
 class HostSnapshot:
     """Host copies of a model's params and buffers and an optimizer state,
     taken on the calling thread, so a step that then updates them in place
     cannot reach the copies. CUDA tensors are copied on the current stream
     into pinned host buffers and an event is recorded after the copies:
     the caller goes on at once, and :meth:`tree` waits for the event. CPU
-    tensors are cloned."""
+    tensors are cloned. With ``pool`` (a :class:`PinnedPool`) the pinned
+    buffers are a set of the pool's, given back by :meth:`release`; without
+    it they are made for this snapshot."""
 
-    def __init__(self, model: Sequential, opt_state: Optional[Mapping[str, Any]]):
+    def __init__(self, model: Sequential, opt_state: Optional[Mapping[str, Any]],
+                 pool: Optional[PinnedPool] = None):
         self.config = model.get_config()
         self.event = None
-        self.params = self._copy(dict(model.named_parameters()))
-        self.buffers = self._copy(dict(model.named_buffers()))
+        self._pool = pool
+        self._set: Optional[Dict[str, torch.Tensor]] = None
+        self.params = self._copy("p", dict(model.named_parameters()))
+        self.buffers = self._copy("b", dict(model.named_buffers()))
         self.opt_state = None if opt_state is None else {
-            k: (int(v) if k == "t" else self._copy(v))
+            k: (int(v) if k == "t" else self._copy(f"o.{k}", v))
             for k, v in opt_state.items()}
         if self.event is not None:
             self.event.record()
 
-    def _copy(self, named: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def _pinned(self, name: str, t: torch.Tensor) -> torch.Tensor:
+        if self._pool is None:
+            return torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        if self._set is None:
+            self._set = self._pool.acquire()
+        return self._pool.buffer(self._set, name, t)
+
+    def _copy(self, group: str, named: Mapping[str, torch.Tensor]
+              ) -> Dict[str, torch.Tensor]:
         out = {}
         for n, t in named.items():
             t = t.detach()
             if t.device.type == "cuda":
-                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host = self._pinned(f"{group}.{n}", t)
                 host.copy_(t, non_blocking=True)
                 if self.event is None:
                     self.event = torch.cuda.Event()
@@ -87,9 +147,15 @@ class HostSnapshot:
         return out
 
     def release(self) -> None:
-        """Drop the host copies (pinned buffers go back to PyTorch's caching
-        host allocator, for the next snapshot to reuse)."""
+        """Drop the host copies: a pool's set goes back to the pool (after
+        the copies into it are done), other pinned buffers to PyTorch's
+        caching host allocator. Idempotent."""
         self.params = self.buffers = self.opt_state = None
+        if self._set is not None:
+            if self.event is not None:
+                self.event.synchronize()
+            self._pool.release(self._set)
+            self._set = None
 
     def tree(self) -> Dict[str, Any]:
         """The arrays in the JAX layout, as numpy: ``{"params", "state"}``

@@ -76,6 +76,7 @@ from ..nn.sequential import Sequential
 from ..obs.registry import get_registry
 from ..obs.tracer import get_tracer
 from ..obs.xla import sample_hbm
+from ..ops import _kernels
 from ..ops.losses import get_loss, upcast_logits
 from ..ops.metrics import correct_count
 from ..optim.optimizers import Optimizer
@@ -91,7 +92,6 @@ from .profiling import LayerProfiler
 _UNPORTED = (
     ("elastic", lambda c: c.elastic, 6),
     ("metrics_port", lambda c: c.metrics_port >= 0, 7),
-    ("aot_cache_dir", lambda c: c.aot_cache_dir, 8),
 )
 
 
@@ -589,6 +589,24 @@ class Trainer:
                                         self.eval_graphs)
         self.lr = self.config.learning_rate
         self.history: list = []
+        self._wire_aot()
+
+    def _wire_aot(self) -> None:
+        """Restore the kernel libraries from the AOT cache
+        (:mod:`~dcnn_tpu_torch.aot`; ``TrainingConfig.aot_cache_dir``,
+        else ``AOT_CACHE``) and commit fresh builds to it, so a warm start
+        runs no ``nvcc``. That is all the cache holds for training: the
+        port has no compiled step executable (the JAX package's cached
+        one), and the step's CUDA graphs cannot be serialized, so they
+        are captured again in every process. Off on the CPU, where no
+        kernel is built."""
+        if self.device.type != "cuda":
+            return
+        from ..aot.warm import resolve
+
+        cache = resolve(self.config.aot_cache_dir or None)
+        if cache is not None:
+            _kernels.build(cache=cache)
 
     def _restore(self, ts: TrainState):
         """Load the newest valid checkpoint into the model and ``ts`` (on

@@ -2031,3 +2031,176 @@ def test_trainer_grads_survive_its_eval_graphs(_deterministic_cudnn):
             assert len(tr.train_step._sessions) == 2
     for n in grads[0]:
         assert torch.equal(grads[0][n], grads[1][n]), n
+
+
+# -- the served program as an artifact, the AOT cache, the checkpoint pool ------
+
+def _artifact_pair(kind):
+    """(live engine, artifact engine) on the card: the int8 CNN (quantized
+    once) or the fp32 narrow attention classifier, exported on the card."""
+    from dcnn_tpu_torch.nn import export_inference, quantize_model
+    from dcnn_tpu_torch.serve import InferenceEngine
+
+    if kind == "int8":
+        model = _int8_cnn()
+        calib = np.random.default_rng(1).normal(
+            size=(16, *model.input_shape)).astype(np.float32)
+        model = quantize_model(model, calib)
+    else:
+        model = _narrow_mha("cpu")
+    live = InferenceEngine.from_model(copy.deepcopy(model), fold=False,
+                                      max_batch=8, device="cuda")
+    blob = export_inference(copy.deepcopy(model), device="cuda")
+    return live, InferenceEngine.from_artifact(blob, max_batch=8)
+
+
+@pytest.mark.parametrize("kind", ["int8", "mha"])
+def test_artifact_engine_equals_live_engine_at_every_bucket(kind):
+    """The exported program served through ``from_artifact``: at every
+    bucket its replay equals the live engine's bit for bit and launches
+    the same kernels as many times (the fused int8 conv at each site, two
+    flash forwards for the attention classifier), and no replay packs a
+    weight."""
+    live, art = _artifact_pair(kind)
+    assert art.batch_invariant == (kind == "int8")
+    rng = np.random.default_rng(4)
+    for b in art.bucket_sizes:
+        x = torch.from_numpy(rng.normal(size=(b, *art.input_shape))
+                             .astype(np.float32)).cuda()
+        moved = []
+        for eng in (live, art):
+            before = graphs_launches()
+            packs = _kernels.pack_int8_weight.calls
+            got = eng.run_padded(x)
+            moved.append({k: v - before[k]
+                          for k, v in graphs_launches().items()
+                          if v != before[k]})
+            assert _kernels.pack_int8_weight.calls == packs
+            moved[-1]["out"] = got
+        assert torch.equal(moved[0].pop("out"), moved[1].pop("out")), b
+        assert moved[0] == moved[1]
+        if kind == "mha":
+            assert moved[1] == {"flash_fwd": 2}
+        else:
+            assert moved[1].get("conv_int8_fused", 0) >= 3
+
+
+def _warm_entry(kind, cache):
+    """Run ``kind``'s entry point with ``aot_cache=cache`` (False: off) and
+    return what it computes, on the host."""
+    from dcnn_tpu_torch.models import create_model
+    from dcnn_tpu_torch.optim import Adam
+    from dcnn_tpu_torch.serve import DecodeEngine, InferenceEngine
+
+    if kind == "engine":
+        model = _int8_cnn()
+        calib = np.random.default_rng(1).normal(
+            size=(16, *model.input_shape)).astype(np.float32)
+        eng = InferenceEngine.from_model(model, int8_calib=calib,
+                                         max_batch=4, device="cuda",
+                                         aot_cache=cache)
+        x = np.random.default_rng(2).normal(
+            size=(3, *model.input_shape)).astype(np.float32)
+        return eng.infer(x).cpu()
+    if kind == "trainer":
+        model = _narrow_mha("cuda")
+        cfg = TrainingConfig(device_type="cuda", epochs=1, snapshot_dir=None,
+                             progress_interval=0,
+                             aot_cache_dir=cache or None)
+        tr = Trainer(model, Adam(1e-3), "softmax_crossentropy", cfg)
+        rng = np.random.default_rng(3)
+        ld = ArrayDataLoader(
+            rng.normal(size=(16, 16, 32)).astype(np.float32),
+            np.eye(10, dtype=np.float32)[rng.integers(0, 10, 16)],
+            batch_size=8)
+        tr.fit(create_train_state(model, tr.optimizer), ld)
+        return torch.cat([p.detach().cpu().flatten()
+                          for p in model.parameters()])
+    model = create_model("mha_decoder").init(
+        generator=torch.Generator().manual_seed(0), device="cuda")
+    eng = DecodeEngine(model, max_slots=2, page_size=8, max_pages_per_seq=2,
+                       aot_cache=cache)
+    from dcnn_tpu_torch.serve import decode_reference
+    return torch.tensor(decode_reference(eng, [1, 2, 3], max_new_tokens=6))
+
+
+@pytest.mark.parametrize("kind", ["engine", "trainer", "decode"])
+def test_warm_cache_restores_the_kernel_libraries(kind, tmp_path,
+                                                  monkeypatch):
+    """``InferenceEngine.from_model(aot_cache=)``,
+    ``TrainingConfig.aot_cache_dir`` and ``DecodeEngine(aot_cache=)``: a
+    cold process commits the kernel libraries it loaded; a warm one, with
+    an empty build directory and ``nvcc`` unreachable, restores every
+    library from the cache (the engine its program too) and computes bit
+    for bit what an uncached run computes."""
+    from dcnn_tpu_torch.aot import warm
+    from dcnn_tpu_torch.obs.registry import MetricsRegistry
+    from dcnn_tpu_torch.utils import compile_cache
+
+    monkeypatch.delenv("AOT_CACHE", raising=False)
+    monkeypatch.setattr(compile_cache, "_SESSIONS", {})
+    monkeypatch.setattr(warm, "_CACHES", {})
+    plain = _warm_entry(kind, False)
+    root = str(tmp_path / "root")
+    reg = MetricsRegistry()
+    warm.get_cache(root, registry=reg)
+    monkeypatch.setattr(_kernels, "_libs", {})
+    _warm_entry(kind, root)  # cold: the libraries of _build/ committed
+    assert reg.snapshot().get("aot_commits_total", 0) >= len(_kernels.SOURCES)
+
+    def unreachable():
+        raise AssertionError("the warm start asked for nvcc")
+
+    monkeypatch.setattr(_kernels, "_libs", {})
+    monkeypatch.setattr(_kernels, "_nvcc", unreachable)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setenv("PATH", os.path.dirname(sys.executable))
+    monkeypatch.setenv("DCNN_COMPILE_CACHE", str(tmp_path / "build"))
+    hits = reg.snapshot().get("aot_hits_total", 0)
+    got = _warm_entry(kind, root)
+    restored = reg.snapshot().get("aot_hits_total", 0) - hits
+    assert restored == len(_kernels.SOURCES) + (kind == "engine")
+    assert sorted(p.name for p in (tmp_path / "build").glob("*.so")) == \
+        sorted(_kernels._lib_path(n).name for n in _kernels.SOURCES)
+    assert torch.equal(got, plain)
+
+
+def test_async_checkpoint_saves_reuse_two_pinned_sets(tmp_path):
+    """Saves five times faster than the saver writes (each write sleeps):
+    the third and later snapshots pin no new host memory (they wait for a
+    released set instead), and every committed checkpoint holds the
+    arrays of its own save."""
+    import time
+
+    from dcnn_tpu_torch.resilience.checkpoint import (CheckpointManager,
+                                                      list_steps)
+    from dcnn_tpu_torch.train.checkpoint import load_checkpoint
+
+    def slow_write(path, data):
+        time.sleep(0.25)
+        with open(path, "wb") as f:
+            f.write(data)
+
+    model = _narrow_cnn().to("cuda")
+    n_tensors = len(list(model.parameters())) + len(list(model.buffers()))
+    mgr = CheckpointManager(str(tmp_path), keep=10, io_write=slow_write)
+    pinned, want = [], {}
+    for step in range(1, 6):
+        with torch.no_grad():
+            for p in model.parameters():
+                p.add_(1.0)
+        want[step] = {k: v.detach().cpu().clone()
+                      for k, v in model.state_dict().items()}
+        mgr.save_async(step, model)
+        pinned.append(mgr.pinned.allocations)
+        time.sleep(0.05)
+    mgr.wait()
+    mgr.close()
+    assert pinned[1] == 2 * n_tensors
+    assert pinned[2:] == [pinned[1]] * 3, pinned
+    steps = list_steps(str(tmp_path))
+    assert sorted(steps) == [1, 2, 3, 4, 5]
+    for step, path in steps.items():
+        got = load_checkpoint(path, device="cpu")[0]
+        for k, v in got.state_dict().items():
+            assert torch.equal(v, want[step][k]), (step, k)

@@ -774,7 +774,7 @@ def test_streaming_worker_crash_mid_epoch_completes():
 @pytest.mark.parametrize("fn", [ShardedDeviceDataset, make_resident_epoch_dp,
                                 resident_epoch_dp, stage_sharded])
 def test_data_parallel_names_raise(fn):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         fn(np.zeros((4, 2)), np.zeros(4), 2, batch_size=2, mesh=None)
 
 

@@ -10,9 +10,13 @@ the resident dataset, ``PrefetchLoader`` with its spawned feed workers,
 the transfer engine and the streaming feed), on int8 serving (quantization
 of a CNN and of ``mha_classifier``, the int8 conv's plain version, a
 quantized checkpoint), on continuous-batching decode of
-``mha_decoder``, and on the observability core: each of its modules
+``mha_decoder``, on the observability core: each of its modules
 imported alone, and the tracer, the telemetry server scraped over HTTP,
-the layer profiler, debug mode and ``hard_fence`` driven together."""
+the layer profiler, debug mode and ``hard_fence`` driven together, and on
+the export and the AOT cache: the ``dcnn::`` ops, ``nn/export.py``,
+``aot/*`` and ``utils/compile_cache.py`` each read alone, an engine over a
+cached program, the CLI, and an artifact served by a process that builds
+no model."""
 
 import ast
 import os
@@ -309,3 +313,83 @@ def test_obs_core_modules_leave_jax_out_one_by_one():
 
 def test_obs_core_path_leaves_jax_out():
     _run_isolated(OBS)
+
+
+# the served program as an artifact and the AOT cache
+EXPORT_MODULES = (
+    "dcnn_tpu_torch.ops.library", "dcnn_tpu_torch.nn.export",
+    "dcnn_tpu_torch.aot", "dcnn_tpu_torch.aot.keys",
+    "dcnn_tpu_torch.aot.cache", "dcnn_tpu_torch.aot.warm",
+    "dcnn_tpu_torch.aot.__main__", "dcnn_tpu_torch.utils.compile_cache",
+)
+
+
+@pytest.mark.parametrize("module", EXPORT_MODULES)
+def test_export_and_aot_module_imports_no_jax(module):
+    """The source of each module of the export and the AOT cache imports
+    no JAX, flax, msgpack or JAX-package module."""
+    name = module.replace(".", "/")
+    path = REPO / (name + "/__init__.py" if module == "dcnn_tpu_torch.aot"
+                   else name + ".py")
+    bad = [f"{line} imports {mod}" for line, mod in _imports(path)
+           if _forbidden(mod)]
+    assert not bad, bad
+
+
+EXPORT = (
+    "import tempfile\n"
+    "from dcnn_tpu_torch.models import create_model\n"
+    "from dcnn_tpu_torch.nn import export_inference, quantize_model\n"
+    "from dcnn_tpu_torch.aot.__main__ import main\n"
+    "d = tempfile.mkdtemp()\n"
+    "m = create_model('mha_classifier').init("
+    "generator=torch.Generator().manual_seed(0), device='cpu')\n"
+    "x = torch.zeros(2, 32, 64)\n"
+    "q = quantize_model(m, torch.randn(4, 32, 64))\n"
+    "open(d + '/m.pt2', 'wb').write(export_inference(q, device='cpu'))\n"
+    "from dcnn_tpu_torch.serve import InferenceEngine\n"
+    "e = InferenceEngine.from_model(m, max_batch=2, device='cpu',"
+    " aot_cache=d)\n"
+    "assert e.aot_info['program']['committed']\n"
+    "assert main(['--dir', d, '--json']) == 0\n")
+# a fresh process that only loads the artifact: no model is built, no
+# checkpoint read, no layer class named
+SERVE_ARTIFACT = (
+    "import sys\n"
+    "from dcnn_tpu_torch.serve import InferenceEngine\n"
+    "from dcnn_tpu_torch.nn import sequential\n"
+    "def refuse(*a, **k):\n"
+    "    raise AssertionError('a model was built')\n"
+    "sequential.Sequential.__init__ = refuse\n"
+    "e = InferenceEngine.from_artifact(sys.argv[1], max_batch=2,"
+    " device='cpu')\n"
+    "assert e.batch_invariant and e.infer(torch.zeros(32, 64)).shape == (10,)\n")
+
+
+def test_export_and_aot_cache_leave_jax_out():
+    _run_isolated(EXPORT)
+
+
+def test_artifact_serves_in_a_process_that_builds_no_model(tmp_path):
+    """An int8 ``mha_classifier`` exported here is served by a fresh
+    interpreter through ``from_artifact`` with ``Sequential`` unusable:
+    loading builds no model and imports no JAX."""
+    import torch
+
+    from dcnn_tpu_torch.models import create_model
+    from dcnn_tpu_torch.nn import export_inference, quantize_model
+
+    m = create_model("mha_classifier").init(
+        generator=torch.Generator().manual_seed(0), device="cpu")
+    path = tmp_path / "m.pt2"
+    path.write_bytes(export_inference(
+        quantize_model(m, torch.randn(4, 32, 64)), device="cpu"))
+    code = ("import sys, torch\nimport dcnn_tpu_torch\n" + SERVE_ARTIFACT
+            + "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+            f"{FORBIDDEN!r})\nassert not bad, bad\nprint('isolated')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code, str(path)], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "isolated" in out.stdout

@@ -619,3 +619,24 @@ def test_port_resumes_jax_checkpoints_and_tracks_jax(tmp_path):
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, np.asarray(w), rtol=1e-5, atol=1e-6)
     assert ts.step == 32
+
+
+def test_pinned_pool_hands_out_two_sets_and_waits_for_a_release():
+    """The async saver's pinned buffers: two sets, handed out in turn; a
+    third snapshot waits until one is released, and gets that one back
+    (no third set is ever made)."""
+    from dcnn_tpu_torch.train.checkpoint import PinnedPool
+
+    pool = PinnedPool(2)
+    a, b = pool.acquire(), pool.acquire()
+    assert a is not b
+    got = []
+    waiter = threading.Thread(target=lambda: got.append(pool.acquire()))
+    waiter.start()
+    waiter.join(0.2)
+    assert waiter.is_alive() and got == []  # the third waits
+    pool.release(a)
+    waiter.join(60)
+    assert got == [a] and got[0] is a
+    with pytest.raises(ValueError):
+        PinnedPool(0)

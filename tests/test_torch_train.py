@@ -316,16 +316,17 @@ def test_mha_classifier_trains_on_the_marker_task():
 
 
 # the fields still refused, with the ROADMAP.md Queue 1 item that ports each
-UNPORTED = {"elastic": (True, 6), "metrics_port": (0, 7),
-            "aot_cache_dir": ("aot", 8)}
+UNPORTED = {"elastic": (True, 6), "metrics_port": (0, 7)}
 # ported since: checkpoints, resume, the step guard and the watchdog; the
 # chunked epoch (steps_per_dispatch) and the feed workers' config field;
 # the flight recorder, the layer profiler, debug mode and slow_detect (read
-# by elastic training only, as in the JAX package)
+# by elastic training only, as in the JAX package); the AOT cache of the
+# kernel libraries (aot_cache_dir)
 PORTED = {"checkpoint_dir": "ckpt", "resume": "auto",
           "nonfinite_policy": "skip_step", "stall_timeout_s": 5.0,
           "steps_per_dispatch": 4, "feed_workers": 2, "flight_dir": "flight",
-          "profiler": "normal", "debug": True, "slow_detect": True}
+          "profiler": "normal", "debug": True, "slow_detect": True,
+          "aot_cache_dir": "aot"}
 
 
 @pytest.mark.parametrize("field", sorted(UNPORTED))
@@ -350,7 +351,7 @@ def test_ported_config_features_construct(field, tmp_path):
 
     tm = create_mha_classifier().init(device="cpu")
     value = PORTED[field]
-    if field in ("checkpoint_dir", "flight_dir"):
+    if field in ("checkpoint_dir", "flight_dir", "aot_cache_dir"):
         value = str(tmp_path / value)
     elif field == "profiler":
         value = ProfilerType(value)
@@ -387,7 +388,7 @@ def test_best_val_snapshot_and_resident_data_raise(tmp_path):
 
     from dcnn_tpu_torch.data import ShardedDeviceDataset
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
+    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
         tr.train_epoch(ts, ShardedDeviceDataset(x, y, 10, batch_size=4,
                                                 mesh=None))
 

@@ -152,6 +152,24 @@ Phases, each fatal on failure:
    nothing; a flipped byte of a cached program quarantined and exported
    again. The checkpoint phase gates that no async save from the third on
    pins new host memory.
+16. pipeline: model splitting and the host-driven pipeline
+   (``phase_pipeline``): full-width ``mha_classifier`` (B=64, M=4, 2
+   FLOP-balanced stages, an attention block in each) and
+   ``resnet18_tiny_imagenet`` (NCHW, B=128, M=8, 4 stages) trained through
+   ``train_pipeline_epoch`` under the sync and semi-async schedules, each
+   stage on its own CUDA stream, held to the unsplit
+   ``make_train_step(num_microbatches=M)`` on the card (cuDNN
+   deterministic) and, for ``mha_classifier``, to the same pipeline on the
+   CPU; the flash launch counters show rows 1-3 ran once a stage holding
+   attention and microbatch; samples/s and each stage's load report;
+17. compiled pipeline (``phase_compiled_pipeline``):
+   ``HeteroCompiledPipeline`` over the same ResNet-18 (S=4, M=8, B=128),
+   GPipe and 1F1B, fp32 and bf16 wire, each step one CUDA graph held bit
+   for bit to its eager twin, fp32 within 2e-5 of the host-driven
+   coordinator, 1F1B's peak device memory below GPipe's; one homogeneous
+   ``SequentialStageStack``. The pipeline phases' launches, samples/s,
+   load reports and memory print as ``{"pipeline": {...}}`` on a line
+   before the kernels line.
 
 Compiled sessions (CUDA graphs, ``dcnn_tpu_torch/core/graphs.py``): in
 serve, serve cnn, serve int8 and decode every bucket or lattice point is a
@@ -168,8 +186,9 @@ lines).
 
 Then it prints ``{"kernels": [...]}`` (rows 1-8, row 8 ``conv_int8_fused``
 with mode A ``conv_int8`` inside it; each row's ``launches_by_path`` has
-the obs phase's launches under ``"obs"`` and the export phase's under
-``"export"`` where they launch the row) on
+the obs phase's launches under ``"obs"``, the export phase's under
+``"export"`` and the pipeline phase's under ``"pipeline"`` where they
+launch the row) on
 a line of its own and, last,
 ``{"ok": true, "device": {...}}``. Times come from CUDA events around CUDA
 graph replays of many calls, so host overhead is not in them.
@@ -4424,6 +4443,458 @@ def phase_export(card):
     return out
 
 
+# pipeline phases: mha_classifier and resnet18_tiny_imagenet split into
+# stages, trained host-driven (sync, semi-async) and compiled (GPipe,
+# 1F1B as one graph each)
+PIPE_LR = 0.01            # SGD: params compare without Adam's noise floor
+PIPE_MHA = dict(batch=64, micro=4, stages=2)
+PIPE_CNN = dict(batch=128, micro=8, stages=4)
+PIPE_BATCHES = 4          # the first is every engine's warm-up
+PIPE_TIMED = 4            # warm steps a timed window (a compiled or unsplit
+PIPE_HOST_TIMED = 2       # step), warm batches a window of the host-driven
+PIPE_WINDOWS = 5          # windows an engine; a rate is their median
+PIPE_PARAM_TOL = TRAIN_PARAM_ATOL  # max |diff|, any param or BN statistic
+COMPILED_TOL = 2e-5       # compiled vs host-driven, the JAX package's test
+PIPE_ENGINES = ("sync", "semi_async")
+
+
+def pipe_batches(x, y, batch):
+    return [(x[i * batch:(i + 1) * batch], y[i * batch:(i + 1) * batch])
+            for i in range(PIPE_BATCHES)]
+
+
+def named_host(model) -> dict:
+    """Every param and buffer of ``model``, on the host."""
+    return {n: t.detach().cpu().double().numpy()
+            for n, t in list(model.named_parameters())
+            + list(model.named_buffers())}
+
+
+def window_rates(run, samples: int) -> dict:
+    """samples/s of ``run()`` (one window of ``samples`` samples, ending in
+    a host read) over ``PIPE_WINDOWS`` windows on the card: the median,
+    the slowest and fastest window, and the spread, (max - min) / median.
+    Two engines' rates differ by more than noise only where the gap
+    exceeds both spreads."""
+    import torch
+
+    rates = []
+    for _ in range(PIPE_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        rates.append(samples / (time.perf_counter() - t0))
+    rates.sort()
+    med = rates[len(rates) // 2]
+    return {"median": med, "min": rates[0], "max": rates[-1],
+            "spread": (rates[-1] - rates[0]) / med}
+
+
+def rate_text(r: dict) -> str:
+    return (f"{r['median']:.1f} samples/s (median of {PIPE_WINDOWS} "
+            f"windows, {r['min']:.1f}-{r['max']:.1f}, spread "
+            f"{100 * r['spread']:.1f}%)")
+
+
+def max_named_diff(a: dict, b: dict) -> float:
+    import numpy as np
+
+    if list(a) != list(b):
+        fail(f"pipeline: named tensors differ: {sorted(set(a) ^ set(b))}")
+    return max(float(np.abs(a[n] - b[n]).max()) for n in a)
+
+
+def unsplit_run(model, batches, micro, lr):
+    """``make_train_step(num_microbatches=micro)`` over ``batches``: the
+    per-batch losses, the final params and buffers, and the
+    :func:`window_rates` of windows of ``PIPE_TIMED`` more steps on the
+    last batch (replays: the first call ran eagerly, the second
+    captured)."""
+    import torch
+
+    from dcnn_tpu_torch.ops.losses import get_loss
+    from dcnn_tpu_torch.optim import SGD
+    from dcnn_tpu_torch.train import create_train_state, make_train_step
+
+    opt = SGD(lr)
+    ts = create_train_state(model, opt)
+    step = make_train_step(model, get_loss("softmax_crossentropy"), opt,
+                           num_microbatches=micro)
+    dev = next(model.parameters()).device
+    losses = []
+    for x, y in batches:
+        x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        losses.append(float(step(ts, x, y, lr)[0]))
+    named = named_host(model)
+
+    def window():
+        for _ in range(PIPE_TIMED):
+            float(step(ts, x, y, lr)[0])
+
+    return losses, named, window_rates(window, PIPE_TIMED * len(x))
+
+
+def pipeline_run(model, batches, spec, schedule, device):
+    """``train_pipeline_epoch`` over ``batches`` through an
+    ``InProcessPipelineCoordinator`` (FLOP-balanced): the first batch as
+    an epoch of its own (the warm-up), then the rest as one epoch.
+    Returns both epochs' mean losses, the gathered params and buffers
+    under the full model's names, the :func:`window_rates` of further
+    epochs of ``PIPE_HOST_TIMED`` batches (the last batch again; on the
+    card), the launches each of the first two epochs added to the
+    counters and the coordinator."""
+    import torch
+
+    from dcnn_tpu_torch.optim import SGD
+    from dcnn_tpu_torch.parallel import (
+        FlopBalancedPartitioner, InProcessPipelineCoordinator,
+    )
+    from dcnn_tpu_torch.parallel.pipeline import train_pipeline_epoch
+
+    coord = InProcessPipelineCoordinator(
+        model, SGD(PIPE_LR), "softmax_crossentropy",
+        num_stages=spec["stages"], partitioner=FlopBalancedPartitioner(),
+        devices=[device] * spec["stages"], num_microbatches=spec["micro"])
+    coord.deploy_stages()
+    losses, counts, sps = [], [], None
+    for epoch in (batches[:1], batches[1:]):
+        reset_launches()
+        losses.append(train_pipeline_epoch(coord, epoch, PIPE_LR, rng=SEED,
+                                           schedule=schedule)[0])
+        counts.append({k: v for k, v in launches().items() if v})
+    p, s = coord.gathered_params()
+    named = {n: t.double().numpy() for n, t in {**p, **s}.items()}
+    if device == "cuda":
+        sps = window_rates(
+            lambda: train_pipeline_epoch(
+                coord, batches[-1:] * PIPE_HOST_TIMED, PIPE_LR, rng=SEED,
+                schedule=schedule),
+            PIPE_HOST_TIMED * len(batches[0][0]))
+    return losses, named, sps, counts, coord
+
+
+def load_reports(coord, batch) -> list:
+    """Each stage's ``collect_load_reports()`` over two more semi-async
+    batches with every call fenced and timed (``track_load=True``)."""
+    from dcnn_tpu_torch.parallel.pipeline import train_pipeline_epoch
+
+    for s in coord.stages:
+        s.track_load = True
+        s.load.clear()
+    train_pipeline_epoch(coord, [batch, batch], PIPE_LR, rng=SEED + 1)
+    return coord.collect_load_reports()
+
+
+def epoch_means(losses, batches):
+    """The unsplit run's per-batch losses as the pipeline epochs' means:
+    the first batch, then the mean of the rest."""
+    return [losses[0], sum(losses[1:]) / (len(batches) - 1)]
+
+
+def phase_pipeline(card):
+    """Model splitting and the host-driven pipeline on the card:
+    full-width ``mha_classifier`` (B=64, M=4, 2 FLOP-balanced stages, an
+    attention block in each) and ``resnet18_tiny_imagenet`` (NCHW, B=128,
+    M=8, 4 FLOP-balanced stages), each trained over 4 batches (SGD)
+    through ``train_pipeline_epoch`` under the sync and semi-async
+    schedules, every stage on its own CUDA stream. Gates: losses and
+    params (BN statistics too) against the unsplit
+    ``make_train_step(num_microbatches=M)`` on the card (cuDNN
+    deterministic), and for ``mha_classifier`` against the same pipeline
+    on the CPU; the flash launch counters show rows 1-3 on the path (per
+    batch: one forward, one dQ and one dK/dV a stage holding attention and
+    microbatch). Prints samples/s of every engine and the stages' load
+    reports with the card's name and power limit."""
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.interop import from_jax
+    from dcnn_tpu_torch.models import create_model
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    out = {"launches": {}, "samples_per_s": {}, "load_reports": {}}
+    try:
+        # mha_classifier
+        cfg, params, rng = model_params()
+        spec = PIPE_MHA
+        x, y = marker_task(rng, n=spec["batch"] * PIPE_BATCHES)
+        batches = pipe_batches(x, y, spec["batch"])
+        ref_losses, ref_named, sps = unsplit_run(
+            from_jax(cfg, params, device="cuda"), batches, spec["micro"],
+            PIPE_LR)
+        out["samples_per_s"]["mha_unsplit"] = sps
+        for schedule in PIPE_ENGINES:
+            losses, named, sps, counts, coord = pipeline_run(
+                from_jax(cfg, params, device="cuda"), batches, spec,
+                schedule, "cuda")
+            if coord.partitions != [(0, 1), (1, 4)]:
+                fail(f"pipeline: mha partitions {coord.partitions}, "
+                     f"expected an attention block in each of 2 stages")
+            cpu_losses, cpu_named, _, _, _ = pipeline_run(
+                from_jax(cfg, params, device="cpu"), batches, spec,
+                schedule, "cpu")
+            for i, (n_batches, c) in enumerate(zip((1, PIPE_BATCHES - 1),
+                                                   counts)):
+                want = {k: 2 * spec["micro"] * n_batches
+                        for k in ("flash_fwd", "flash_bwd_dq",
+                                  "flash_bwd_dkv")}
+                if c != want:
+                    fail(f"pipeline: mha {schedule} epoch {i} launches {c}, "
+                         f"expected {want}")
+            out["launches"][f"mha_{schedule}"] = {
+                k: sum(c.get(k, 0) for c in counts)
+                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+            ref = epoch_means(ref_losses, batches)
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+            rel_cpu = max(abs(a - b) / abs(b)
+                          for a, b in zip(losses, cpu_losses))
+            d_ref = max_named_diff(named, ref_named)
+            d_cpu = max_named_diff(named, cpu_named)
+            if not (all(math.isfinite(v) for v in losses)
+                    and rel <= TRAIN_LOSS_RTOL and rel_cpu <= TRAIN_LOSS_RTOL
+                    and d_ref <= PIPE_PARAM_TOL and d_cpu <= PIPE_PARAM_TOL):
+                fail(f"pipeline: mha {schedule} losses {losses} vs unsplit "
+                     f"{ref} (rel {rel:.3e}) and CPU {cpu_losses} (rel "
+                     f"{rel_cpu:.3e}), tol {TRAIN_LOSS_RTOL:g}; params max "
+                     f"|diff| {d_ref:.3e} vs unsplit, {d_cpu:.3e} vs CPU, "
+                     f"tol {PIPE_PARAM_TOL:g}")
+            out["samples_per_s"][f"mha_{schedule}"] = sps
+            print(f"pipeline: mha_classifier B={spec['batch']} "
+                  f"M={spec['micro']} {schedule}, stages {coord.partitions}: "
+                  f"epoch losses {losses} (unsplit {ref}, rel {rel:.3e}; "
+                  f"CPU pipeline {cpu_losses}, rel {rel_cpu:.3e}); params "
+                  f"max |diff| {d_ref:.3e} vs unsplit, {d_cpu:.3e} vs CPU; "
+                  f"launches {counts} (the warm-up epoch, then the other "
+                  f"batches); {rate_text(sps)} on {card}", flush=True)
+        out["load_reports"]["mha"] = load_reports(coord, batches[0])
+
+        # resnet18_tiny_imagenet
+        spec = PIPE_CNN
+        cfg = create_model("resnet18_tiny_imagenet", "NCHW").get_config()
+        params, state = jax_layout(cfg, np.random.default_rng(SEED + 17))
+        rng = np.random.default_rng(SEED + 18)
+        n = spec["batch"] * PIPE_BATCHES
+        x = rng.normal(size=(n, 3, 64, 64)).astype(np.float32)
+        y = np.eye(200, dtype=np.float32)[rng.integers(0, 200, n)]
+        batches = pipe_batches(x, y, spec["batch"])
+        ref_losses, ref_named, sps = unsplit_run(
+            from_jax(cfg, params, state, device="cuda"), batches,
+            spec["micro"], PIPE_LR)
+        out["samples_per_s"]["resnet18_unsplit"] = sps
+        ref = epoch_means(ref_losses, batches)
+        for schedule in PIPE_ENGINES:
+            losses, named, sps, counts, coord = pipeline_run(
+                from_jax(cfg, params, state, device="cuda"), batches, spec,
+                schedule, "cuda")
+            rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref))
+            d_ref = max_named_diff(named, ref_named)
+            if not (all(math.isfinite(v) for v in losses)
+                    and rel <= TRAIN_LOSS_RTOL and d_ref <= PIPE_PARAM_TOL):
+                fail(f"pipeline: resnet18 {schedule} losses {losses} vs "
+                     f"unsplit {ref} (rel {rel:.3e}, tol "
+                     f"{TRAIN_LOSS_RTOL:g}); params and BN statistics max "
+                     f"|diff| {d_ref:.3e} (tol {PIPE_PARAM_TOL:g})")
+            out["samples_per_s"][f"resnet18_{schedule}"] = sps
+            print(f"pipeline: resnet18_tiny_imagenet B={spec['batch']} "
+                  f"M={spec['micro']} {schedule}, stages {coord.partitions}: "
+                  f"epoch losses {losses} (unsplit {ref}, rel {rel:.3e}); "
+                  f"params and BN statistics max |diff| {d_ref:.3e} vs "
+                  f"unsplit (cuDNN deterministic); {rate_text(sps)} on "
+                  f"{card}", flush=True)
+        out["load_reports"]["resnet18"] = load_reports(coord, batches[0])
+        out["resnet18"] = dict(cfg=cfg, params=params, state=state,
+                               batches=batches)
+        print(f"pipeline: load reports (track_load=True, ms per call) "
+              f"{json.dumps(out['load_reports'])}; samples/s "
+              f"{json.dumps(out['samples_per_s'])} on {card}", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return out
+
+
+def compiled_run(model, batches, spec, schedule, wire, jit):
+    """``HeteroCompiledPipeline`` (FLOP-balanced) steps over ``batches``
+    (SGD): per-step losses, final params and buffers, peak device bytes
+    of the first step above what was allocated before it, the step, and,
+    where ``jit``, the :func:`window_rates` of windows of ``PIPE_TIMED``
+    more replayed steps on the last batch after them (the first step ran
+    eagerly, the second captured; None without ``jit``)."""
+    import torch
+
+    from dcnn_tpu_torch.ops.losses import get_loss
+    from dcnn_tpu_torch.optim import SGD
+    from dcnn_tpu_torch.parallel import (
+        FlopBalancedPartitioner, HeteroCompiledPipeline,
+    )
+
+    pipe = HeteroCompiledPipeline(model, spec["stages"], spec["micro"],
+                                  device="cuda",
+                                  partitioner=FlopBalancedPartitioner(),
+                                  wire_dtype=wire)
+    params = dict(model.named_parameters())
+    state = dict(model.named_buffers())
+    opt = SGD(PIPE_LR)
+    ost = opt.init(params)
+    make = (pipe.make_train_step if schedule == "gpipe"
+            else pipe.make_train_step_1f1b)
+    step = make(get_loss("softmax_crossentropy"), opt, jit=jit)
+    m = spec["micro"]
+
+    def mb(x, y):
+        return (torch.from_numpy(x.reshape(m, -1, *x.shape[1:])).cuda(),
+                torch.from_numpy(y.reshape(m, -1, y.shape[-1])).cuda())
+
+    losses, peak = [], None
+    for i, (x, y) in enumerate(batches):
+        xs, ys = mb(x, y)
+        if i == 0:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+        params, ost, state, loss, _ = step(params, ost, state, xs, ys, SEED,
+                                           PIPE_LR)
+        losses.append(float(loss))
+        if i == 0:
+            peak = torch.cuda.max_memory_allocated() - base
+    named = named_host(model)
+    if not jit:
+        return losses, named, peak, step, None
+
+    def window():
+        for _ in range(PIPE_TIMED):
+            float(step(params, ost, state, xs, ys, SEED, PIPE_LR)[3])
+
+    return (losses, named, peak, step,
+            window_rates(window, PIPE_TIMED * len(batches[0][0])))
+
+
+def phase_compiled_pipeline(card, resnet):
+    """The compiled pipeline on the card: ``HeteroCompiledPipeline`` over
+    full-width ``resnet18_tiny_imagenet`` (NCHW, S=4 FLOP-balanced, M=8,
+    B=128, SGD), GPipe and 1F1B, fp32 and bf16 wire, each step one CUDA
+    graph (the first step eager, the second captured); and one
+    homogeneous ``SequentialStageStack`` (GroupNorm residual blocks).
+    Gates, cuDNN deterministic: every replayed run bit for bit its eager
+    twin (losses, params, BN statistics); fp32 losses, params and BN
+    statistics within 2e-5 of the host-driven sync coordinator over the
+    same batches; 1F1B's peak device memory in the eager step below
+    GPipe's. Prints samples/s (replayed, the loss read each step), peak
+    bytes and graph pool bytes with the card's name and power limit."""
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.interop import from_jax
+    from dcnn_tpu_torch.nn import (
+        Conv2DLayer, GroupNormLayer, ResidualBlock,
+    )
+    from dcnn_tpu_torch.optim import SGD
+    from dcnn_tpu_torch.parallel import (
+        SequentialStageStack, make_compiled_pipeline_train_step,
+    )
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    spec = PIPE_CNN
+    cfg, params, state = resnet["cfg"], resnet["params"], resnet["state"]
+    batches = resnet["batches"][:3]
+    out = {"samples_per_s": {}, "peak_bytes": {}, "pool_bytes": {}}
+    try:
+        host, host_named, _, _, coord = pipeline_run(
+            from_jax(cfg, params, state, device="cuda"), batches, spec,
+            "sync", "cuda")
+        for schedule in ("gpipe", "1f1b"):
+            for wire in (torch.float32, torch.bfloat16):
+                tag = f"{schedule}_{str(wire).split('.')[-1]}"
+                g_losses, g_named, _, g_step, sps = compiled_run(
+                    from_jax(cfg, params, state, device="cuda"), batches,
+                    spec, schedule, wire, True)
+                e_losses, e_named, peak, _, _ = compiled_run(
+                    from_jax(cfg, params, state, device="cuda"), batches,
+                    spec, schedule, wire, False)
+                if g_step.session() is None:
+                    fail(f"compiled pipeline: {tag} captured no graph")
+                if g_losses != e_losses or max_named_diff(g_named,
+                                                          e_named) != 0.0:
+                    fail(f"compiled pipeline: {tag} replays differ from the "
+                         f"eager twin: losses {g_losses} vs {e_losses}, "
+                         f"max |diff| {max_named_diff(g_named, e_named):.3e}")
+                line = (f"compiled pipeline: resnet18_tiny_imagenet {tag} "
+                        f"S={spec['stages']} M={spec['micro']} "
+                        f"B={spec['batch']}: 3 steps (eager, captured, "
+                        f"replayed) bit-equal to the eager twin, losses "
+                        f"{g_losses}; peak {peak} B above the params in the "
+                        f"eager step; graph pool "
+                        f"{g_step.compiled.pool.bytes()} B; "
+                        f"peak stash {g_step.peak_stash}")
+                if wire is torch.float32:
+                    # the host-driven run's epochs: the first batch, then
+                    # the mean of the other two
+                    mine = [g_losses[0], sum(g_losses[1:]) / 2]
+                    d_loss = max(abs(a - b) for a, b in zip(mine, host))
+                    # assert_allclose(atol=rtol=COMPILED_TOL): the worst
+                    # |diff| - rtol * |want| must be <= atol
+                    over = max(float((np.abs(g_named[n] - host_named[n])
+                                      - COMPILED_TOL
+                                      * np.abs(host_named[n])).max())
+                               for n in host_named)
+                    worst = max_named_diff(g_named, host_named)
+                    if d_loss > COMPILED_TOL or over > COMPILED_TOL:
+                        fail(f"compiled pipeline: {tag} vs the host-driven "
+                             f"sync schedule: losses {mine} vs {host} "
+                             f"(|diff| {d_loss:.3e}), params and BN "
+                             f"statistics max |diff| {worst:.3e} (atol and "
+                             f"rtol {COMPILED_TOL:g})")
+                    out["peak_bytes"][schedule] = peak
+                    line += (f"; vs the host-driven sync schedule: losses "
+                             f"|diff| {d_loss:.3e}, params and BN "
+                             f"statistics max |diff| {worst:.3e} (atol and "
+                             f"rtol {COMPILED_TOL:g})")
+                out["samples_per_s"][tag] = sps
+                out["pool_bytes"][tag] = g_step.compiled.pool.bytes()
+                print(f"{line}; {rate_text(sps)} replayed on {card}",
+                      flush=True)
+        if not out["peak_bytes"]["1f1b"] < out["peak_bytes"]["gpipe"]:
+            fail(f"compiled pipeline: 1F1B's peak {out['peak_bytes']} is not "
+                 f"below GPipe's")
+
+        # the homogeneous stack: GroupNorm residual blocks, shape-preserving
+        def stack_run(jit):
+            block = ResidualBlock(
+                layers=[Conv2DLayer(64, 3, 1, 1), GroupNormLayer(8)],
+                activation="relu")
+            stack = SequentialStageStack(block, 4, (64, 16, 16))
+            sp = stack.init(torch.Generator().manual_seed(SEED),
+                            device="cuda")
+            opt = SGD(PIPE_LR)
+            ost = opt.init(sp)
+            step = make_compiled_pipeline_train_step(
+                stack.stage_fn, lambda a, b: ((a - b) ** 2).mean(), opt, 4,
+                8, jit=jit)
+            rng = np.random.default_rng(SEED + 19)
+            xs = torch.from_numpy(rng.normal(size=(8, 16, 64, 16, 16))
+                                  .astype(np.float32)).cuda()
+            ys = torch.from_numpy(rng.normal(size=(8, 16, 64, 16, 16))
+                                  .astype(np.float32)).cuda()
+            losses = [float(step(sp, ost, xs, ys, PIPE_LR)[2])
+                      for _ in range(3)]
+            return losses, {n: t.detach().cpu().numpy()
+                            for n, t in sp.items()}
+
+        (gl, gp), (el, ep) = stack_run(True), stack_run(False)
+        if gl != el or any(not np.array_equal(gp[n], ep[n]) for n in gp):
+            fail(f"compiled pipeline: the homogeneous stack's replays differ "
+                 f"from its eager twin: {gl} vs {el}")
+        print(f"compiled pipeline: SequentialStageStack (4 GroupNorm residual "
+              f"blocks, 64x16x16, M=8, mb=16, remat) 3 steps bit-equal to the "
+              f"eager twin, losses {gl}; peak bytes {out['peak_bytes']}; "
+              f"samples/s {json.dumps(out['samples_per_s'])} on {card}",
+              flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = det
+    return out
+
+
 def bias_before_bn(model):
     """Names (as ``named_parameters`` gives them) of the conv biases that
     feed a batchnorm directly: their gradient is zero in exact arithmetic,
@@ -4544,6 +5015,9 @@ def main() -> None:
     timed("decode", phase_decode, card)
     obs = timed("obs", phase_obs, card, feed["traced_resident"])
     export = timed("export", phase_export, card)
+    pipe = timed("pipeline", phase_pipeline, card)
+    compiled = timed("compiled pipeline", phase_compiled_pipeline, card,
+                     pipe.pop("resnet18"))
     print(f"phase seconds: {json.dumps(seconds)}, total "
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
 
@@ -4592,6 +5066,8 @@ def main() -> None:
                 "library_ms": lib, "cases": cases}
 
     tl, fl = train["launches"], feed["launches"]
+    pl = {k: sum(run[k] for run in pipe["launches"].values())
+          for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     tc_src = "dcnn_tpu_torch/ops/csrc/conv3x3_tc.cu"
     kernels = [
         row("flash_fwd", "dcnn_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -4600,18 +5076,20 @@ def main() -> None:
              "train_feed": fl["flash_fwd"],
              "serve_int8": serve_int8["mha"]["launches"]["flash_fwd"],
              "wide_layer": wide["flash_fwd"], "obs": obs["flash_fwd"],
-             "export": export["mha_classifier"]["launches"]["flash_fwd"]}),
+             "export": export["mha_classifier"]["launches"]["flash_fwd"],
+             "pipeline": pl["flash_fwd"]}),
         row("flash_bwd_dq", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:460", bwd_cases["dq"],
             {"serve": 0, "train": tl["flash_bwd_dq"],
              "train_feed": fl["flash_bwd_dq"],
-             "wide_layer": wide["flash_bwd_dq"], "obs": obs["flash_bwd_dq"]}),
+             "wide_layer": wide["flash_bwd_dq"], "obs": obs["flash_bwd_dq"],
+             "pipeline": pl["flash_bwd_dq"]}),
         row("flash_bwd_dkv", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:478", bwd_cases["dkv"],
             {"serve": 0, "train": tl["flash_bwd_dkv"],
              "train_feed": fl["flash_bwd_dkv"],
              "wide_layer": wide["flash_bwd_dkv"],
-             "obs": obs["flash_bwd_dkv"]}),
+             "obs": obs["flash_bwd_dkv"], "pipeline": pl["flash_bwd_dkv"]}),
         site_row("conv3x3_s1", tc_src, "dcnn_tpu/ops/pallas/conv.py:82"),
         site_row("conv3x3_s1_pairs", tc_src,
                  "dcnn_tpu/ops/pallas/conv.py:173"),
@@ -4622,6 +5100,14 @@ def main() -> None:
         int8_row(serve_int8, obs["conv_int8_fused"],
                  export["resnet18"]["launches"]["conv_int8_fused"]),
     ]
+    print(json.dumps({"pipeline": {
+        "launches": pipe["launches"], "samples_per_s": {
+            **pipe["samples_per_s"],
+            **{f"resnet18_compiled_{k}": v
+               for k, v in compiled["samples_per_s"].items()}},
+        "load_reports": pipe["load_reports"],
+        "peak_bytes": compiled["peak_bytes"],
+        "pool_bytes": compiled["pool_bytes"]}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,17 +32,23 @@ Generators that ``fn`` draws from are registered with the graph
 (``CUDAGraph.register_generator_state``): the caller reseeds them on the
 host (``manual_seed``, or ``set_state``) before each call, and a replay
 draws exactly what a fresh generator of that seed draws.
+
+A step function that is called over and over (a train step, a resident
+batch body, a compiled pipeline schedule) keeps its sessions in a
+:class:`SessionCache`, which holds the one rule of when such a step runs
+eagerly, when it captures and which graph it replays.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Callable, Dict, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence, Tuple
 
 import torch
 
 from ..ops import _kernels
+from .precision import get_precision_mode
 
 
 class CaptureError(RuntimeError):
@@ -77,20 +83,22 @@ _HOOK_DICTS = ("_forward_hooks", "_forward_pre_hooks", "_backward_hooks",
                "_backward_pre_hooks")
 
 
-def debug_eager(model: torch.nn.Module) -> bool:
+def debug_eager(model: Optional[torch.nn.Module] = None) -> bool:
     """Whether a step over ``model`` must run eagerly: autograd's anomaly
     mode is on (its NaN check reads the card, which a capture refuses), or
-    ``model`` or one of its modules carries hooks, or global module hooks
-    are set (a replay would run none of them: ``debug.checked``'s checks,
-    say, would stop without a sign). These are the debug paths, as the JAX
-    package re-runs a step un-jitted under ``jax_debug_nans``."""
+    ``model`` (where there is one) or one of its modules carries hooks, or
+    global module hooks are set (a replay would run none of them:
+    ``debug.checked``'s checks, say, would stop without a sign). These are
+    the debug paths, as the JAX package re-runs a step un-jitted under
+    ``jax_debug_nans``."""
     if torch.is_anomaly_enabled():
         return True
     glob = torch.nn.modules.module
     if any(getattr(glob, f"_global{d}", None) for d in _HOOK_DICTS):
         return True
-    return any(getattr(m, d, None) for m in model.modules()
-               for d in _HOOK_DICTS)
+    return model is not None and any(getattr(m, d, None)
+                                     for m in model.modules()
+                                     for d in _HOOK_DICTS)
 
 
 def _clone(out):
@@ -193,3 +201,38 @@ class Session:
     def launch_names(self) -> Dict[str, int]:
         """``launches`` by wrapper name."""
         return {w.__name__: d for w, d in self.launches.items()}
+
+
+class SessionCache(dict):
+    """The sessions of one step function, ``{key: (binding, sessions)}``.
+
+    :meth:`lookup` returns None where the step must run eagerly: while
+    :func:`debug_eager` holds, and at a key's first call (a real call that
+    is also its warm-up). Later calls get the sessions captured for
+    ``binding`` (the addresses of the tensors the step reads and writes in
+    place), captured anew where the binding moved. A key is the caller's
+    (input shapes and dtypes, flags) and the precision mode, which decides
+    what the step computes."""
+
+    def __init__(self):
+        super().__init__()
+        self.warm: set = set()
+
+    def lookup(self, key: tuple, binding: tuple, capture: Callable[[], Any],
+               model: Optional[torch.nn.Module] = None):
+        """The sessions for ``key`` bound to ``binding`` (``capture()``
+        makes them), or None: run eagerly. Hold the pool's lock."""
+        if debug_eager(model):
+            return None
+        key = (*key, get_precision_mode())
+        if key not in self.warm:
+            self.warm.add(key)
+            return None
+        got = self.get(key)
+        if got is None or got[0] != binding:
+            got = self[key] = (binding, capture())
+        return got[1]
+
+    def latest(self):
+        """The sessions of the newest key (None before a capture)."""
+        return next(reversed(self.values()))[1] if self else None

@@ -44,7 +44,7 @@ import numpy as np
 import torch
 
 from ..core.device import resolve_device
-from ..core.graphs import debug_eager
+from ..core.graphs import SessionCache
 from ..core.keys import (
     fold_in, generator, generators, reseed, split, to_device,
 )
@@ -179,8 +179,7 @@ class BatchStep:
         self._routed = isinstance(augment, DeviceAugment)
         self.gens = None  # on the data's device, at the first call
         self._aug_key = None
-        self._warm: set = set()
-        self._sessions: dict = {}
+        self._sessions = SessionCache()
 
     def run(self, ts, x_all, y_all, bidx):
         """The body on the card, drawing from :attr:`gens`."""
@@ -195,17 +194,12 @@ class BatchStep:
 
     def _session(self, ts, x_all, y_all, bidx):
         key = (tuple(bidx.shape), tuple(x_all.shape), x_all.dtype,
-               tuple(y_all.shape), get_precision_mode())
-        if key not in self._warm:
-            self._warm.add(key)
-            return None
+               tuple(y_all.shape))
         bind = (x_all.data_ptr(), y_all.data_ptr(), *self.step.binding(ts))
-        got = self._sessions.get(key)
-        if got is None or got[0] != bind:
-            got = self._sessions[key] = (bind, self.step.capture(
+        return self._sessions.lookup(
+            key, bind, lambda: self.step.capture(
                 "batch_step", lambda b: self.run(ts, x_all, y_all, b),
-                (bidx,), self.gens))
-        return got[1]
+                (bidx,), self.gens), self.step.model)
 
     def __call__(self, ts, x_all, y_all, bidx, key: int, lr):
         step = self.step
@@ -225,7 +219,7 @@ class BatchStep:
                 f"{type(self.augment).__name__}: a CUDA graph would replay "
                 f"the draws of its capture; build it with "
                 f"DeviceAugmentBuilder, or pass jit=False")
-        if step.pool is None or debug_eager(step.model):
+        if step.pool is None:
             loss = self.run(ts, x_all, y_all, bidx)
         else:
             with step.pool.lock:

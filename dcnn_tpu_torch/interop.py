@@ -31,6 +31,16 @@ This module is where the two packages' weight layouts meet:
 - ``flatten``, ``activation``, ``maxpool2d``, ``avgpool2d``, ``dropout``,
   ``log_softmax``: no params and no state (``{}``).
 
+:func:`pipeline_from_jax` / :func:`pipeline_to_jax` carry a JAX
+pipeline's per-stage ``params``, ``state`` and ``opt_state`` onto the
+port's :class:`~dcnn_tpu_torch.parallel.InProcessPipelineCoordinator`
+stages and back, and :func:`compiled_from_jax` / :func:`compiled_to_jax`
+the per-stage trees of ``HeteroCompiledPipeline.unpack_params`` (the JAX
+engine's flat arrays, unpacked) onto the port's
+:class:`~dcnn_tpu_torch.parallel.HeteroCompiledPipeline` and back; a
+stage's trees follow its stage model's config, as a model's follow the
+model's.
+
 :func:`decoder_from_jax` and :func:`decoder_to_jax` do the same for
 ``mha_decoder`` (an ``MHADecoder``, not a ``Sequential``): ``embed``,
 ``head_w`` and ``head_b`` carry over as they are, each of ``blocks`` by the
@@ -193,6 +203,65 @@ def opt_state_from_jax(model: Sequential, jax_state: Mapping[str, Any]
     dev = next(model.parameters()).device
     return {k: (int(np.asarray(v)) if k == "t" else _flat(model, v, dev))
             for k, v in jax_state.items()}
+
+
+def pipeline_from_jax(coord, stage_params: Sequence[Any],
+                      stage_states: Sequence[Any],
+                      stage_opt_states: Optional[Sequence[Any]] = None
+                      ) -> None:
+    """Install a JAX pipeline's per-stage weights (each stage's ``params``
+    and ``state`` pytrees as numpy arrays and, optionally, its optimizer
+    state) on the deployed stages of the port's coordinator ``coord``."""
+    for i, stage in enumerate(coord.stages):
+        layers = stage.model.get_config()["layers"]
+        flat_p: Dict[str, np.ndarray] = {}
+        flat_s: Dict[str, np.ndarray] = {}
+        _layers_state(layers, stage_params[i], "layers.", flat_p)
+        _layers_state(layers, stage_states[i], "layers.", flat_s)
+        stage.set_weights(flat_p, flat_s)
+        if stage_opt_states is not None:
+            stage.opt_state = opt_state_from_jax(stage.model,
+                                                 stage_opt_states[i])
+
+
+def pipeline_to_jax(coord) -> list:
+    """The coordinator's stages as the JAX package's per-stage
+    ``(params, state, opt_state)`` pytrees of numpy arrays."""
+    coord.join()
+    return [(to_jax(s.model), state_to_jax(s.model),
+             opt_state_to_jax(s.model, s.opt_state)) for s in coord.stages]
+
+
+def compiled_from_jax(pipe, stage_params: Sequence[Any],
+                      stage_states: Sequence[Any]):
+    """Load the per-stage trees of the JAX engine's ``unpack_params`` into
+    the port's compiled pipeline ``pipe`` (its model initialised first
+    when it has no parameters); returns ``(params, state)`` for its
+    steps."""
+    model = pipe.model
+    if next(model.parameters(), None) is None:
+        pipe.init(torch.Generator().manual_seed(0))
+    dev = next(model.parameters()).device
+    params = [layer for tree in stage_params for layer in tree]
+    state = [layer for tree in stage_states for layer in tree]
+    flat = _flat(model, params, dev)
+    flat.update(_flat(model, state, dev))
+    model.load_state_dict(flat, strict=True)
+    return dict(model.named_parameters()), dict(model.named_buffers())
+
+
+def compiled_to_jax(pipe, params: Mapping[str, torch.Tensor],
+                    state: Mapping[str, torch.Tensor]) -> tuple:
+    """The JAX engine's ``unpack_params`` output, ``(per-stage params,
+    per-stage state)`` pytrees of numpy arrays, for the port's compiled
+    pipeline's ``params`` and ``state``."""
+    ps, ss = pipe.unpack_params(params, state)
+    trees = []
+    for per_stage in (ps, ss):
+        trees.append([tree_from_flat(
+            sm.get_config(), {n: t.numpy() for n, t in named.items()})
+            for sm, named in zip(pipe.stage_models, per_stage)])
+    return tuple(trees)
 
 
 _DECODER_OWN = ("embed", "head_w", "head_b")

@@ -152,6 +152,14 @@ class MultiHeadAttentionLayer(ParameterizedLayer):
     def output_shape(self, input_shape):
         return tuple(input_shape)
 
+    def forward_complexity(self, input_shape):
+        s, e = input_shape
+        return 4 * 2 * s * e * e + 2 * 2 * s * s * e  # projections, scores·v
+
+    def param_count(self, input_shape):
+        e = input_shape[1]
+        return 4 * e * e + (4 * e if self.use_bias else 0)
+
     def get_config(self):
         return {"type": self.type_name, "name": self.name,
                 "num_heads": self.num_heads, "embed_dim": self.embed_dim,

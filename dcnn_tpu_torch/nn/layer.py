@@ -38,6 +38,21 @@ class Layer(nn.Module):
     def output_shape(self, input_shape: Shape) -> Shape:
         return tuple(input_shape)
 
+    def forward_complexity(self, input_shape: Shape) -> int:
+        """Per-sample forward FLOP estimate for ``input_shape``; drives the
+        FLOP-balanced partitioner. The integers are the JAX layer's."""
+        del input_shape
+        return 0
+
+    def backward_complexity(self, input_shape: Shape) -> int:
+        """Backward ≈ 2× forward (two GEMMs against one)."""
+        return 2 * self.forward_complexity(input_shape)
+
+    def param_count(self, input_shape: Shape) -> int:
+        """Trainable parameters this layer holds for ``input_shape``."""
+        del input_shape
+        return 0
+
     def get_config(self) -> Dict[str, Any]:
         return {"type": self.type_name, "name": self.name}
 

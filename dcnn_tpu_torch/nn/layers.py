@@ -30,6 +30,13 @@ from .factory import register_layer
 from .layer import ParameterizedLayer, Shape, StatelessLayer
 
 
+def _numel(shape: Shape) -> int:
+    n = 1
+    for d in shape:
+        n *= d
+    return n
+
+
 def linear(x: torch.Tensor, w: torch.Tensor,
            b: Optional[torch.Tensor]) -> torch.Tensor:
     """``x·Wᵀ + b``. In bf16 the product is rounded to bf16 first and the
@@ -82,6 +89,13 @@ class DenseLayer(ParameterizedLayer):
     def output_shape(self, input_shape):
         return (self.out_features,)
 
+    def forward_complexity(self, input_shape):
+        return 2 * input_shape[0] * self.out_features
+
+    def param_count(self, input_shape):
+        return (input_shape[0] * self.out_features
+                + (self.out_features if self.use_bias else 0))
+
     def get_config(self):
         return {"type": self.type_name, "name": self.name,
                 "out_features": self.out_features, "use_bias": self.use_bias,
@@ -124,6 +138,9 @@ class DropoutLayer(StatelessLayer):
                           dtype=torch.float32) < 1.0 - self.rate
         return apply_dropout_mask(x, keep, self.rate)
 
+    def forward_complexity(self, input_shape):
+        return 2 * _numel(input_shape)
+
     def get_config(self):
         return {"type": self.type_name, "name": self.name, "rate": self.rate}
 
@@ -137,10 +154,7 @@ class FlattenLayer(StatelessLayer):
         return x.reshape(x.shape[0], -1)
 
     def output_shape(self, input_shape):
-        n = 1
-        for d in input_shape:
-            n *= d
-        return (n,)
+        return (_numel(input_shape),)
 
 
 @register_layer("activation")
@@ -162,6 +176,9 @@ class ActivationLayer(StatelessLayer):
         if self.activation == "elu":
             return act_ops.elu(x, self.alpha)
         return act_ops.ACTIVATIONS[self.activation](x)
+
+    def forward_complexity(self, input_shape):
+        return _numel(input_shape)
 
     def get_config(self):
         return {"type": self.type_name, "name": self.name,
@@ -231,6 +248,18 @@ class Conv2DLayer(ParameterizedLayer):
         if self.data_format == "NCHW":
             return (self.out_channels, oh, ow)
         return (oh, ow, self.out_channels)
+
+    def forward_complexity(self, input_shape):
+        cin = input_shape[_feature_axis(self.data_format)]
+        out = self.output_shape(input_shape)
+        oh, ow = out[1:] if self.data_format == "NCHW" else out[:2]
+        return (2 * self.out_channels * cin * self.kernel_size[0]
+                * self.kernel_size[1] * oh * ow)
+
+    def param_count(self, input_shape):
+        cin = input_shape[_feature_axis(self.data_format)]
+        n = self.out_channels * cin * self.kernel_size[0] * self.kernel_size[1]
+        return n + (self.out_channels if self.use_bias else 0)
 
     def get_config(self):
         return {"type": self.type_name, "name": self.name,
@@ -303,6 +332,12 @@ class BatchNormLayer(ParameterizedLayer):
                 self.running_var.copy_(new_var)
         return y.reshape(x.shape)
 
+    def forward_complexity(self, input_shape):
+        return 8 * _numel(input_shape)  # mean, var, normalize, affine
+
+    def param_count(self, input_shape):
+        return 2 * self._features(input_shape) if self.affine else 0
+
     def get_config(self):
         return {"type": self.type_name, "name": self.name,
                 "num_features": self.num_features, "epsilon": self.epsilon,
@@ -341,6 +376,13 @@ class GroupNormLayer(ParameterizedLayer):
             x, cast_to_compute(self.gamma), cast_to_compute(self.beta),
             self.num_groups, eps=self.epsilon, data_format=self.data_format)
 
+    def forward_complexity(self, input_shape):
+        return 8 * _numel(input_shape)
+
+    def param_count(self, input_shape):
+        return (2 * input_shape[_feature_axis(self.data_format)]
+                if self.affine else 0)
+
     def get_config(self):
         return {"type": self.type_name, "name": self.name,
                 "num_groups": self.num_groups,
@@ -365,6 +407,10 @@ class _Pool2DLayer(StatelessLayer):
         oh, ow = pool_ops.pool_output_shape((h, w), self.kernel_size,
                                             self.stride, self.padding)
         return (c, oh, ow) if self.data_format == "NCHW" else (oh, ow, c)
+
+    def forward_complexity(self, input_shape):
+        return (_numel(self.output_shape(input_shape)) * self.kernel_size[0]
+                * self.kernel_size[1])
 
     def get_config(self):
         return {"type": self.type_name, "name": self.name,

@@ -108,6 +108,8 @@ class QuantConv2DLayer(_QuantizedLayer):
 
     _cin = Conv2DLayer._cin
     output_shape = Conv2DLayer.output_shape
+    forward_complexity = Conv2DLayer.forward_complexity
+    param_count = Conv2DLayer.param_count
     get_config = Conv2DLayer.get_config
 
     def __init__(self, out_channels: int, kernel_size, stride=1, padding=0,
@@ -179,6 +181,8 @@ class QuantDenseLayer(_QuantizedLayer):
 
     _fan_in = DenseLayer._fan_in
     output_shape = DenseLayer.output_shape
+    forward_complexity = DenseLayer.forward_complexity
+    param_count = DenseLayer.param_count
     get_config = DenseLayer.get_config
 
     def __init__(self, out_features: int, use_bias: bool = True,
@@ -221,6 +225,8 @@ class QuantMultiHeadAttentionLayer(_QuantizedLayer):
     _embed = MultiHeadAttentionLayer._embed
     _attend = MultiHeadAttentionLayer._attend
     output_shape = MultiHeadAttentionLayer.output_shape
+    forward_complexity = MultiHeadAttentionLayer.forward_complexity
+    param_count = MultiHeadAttentionLayer.param_count
     get_config = MultiHeadAttentionLayer.get_config
 
     def __init__(self, num_heads: int, embed_dim: Optional[int] = None,

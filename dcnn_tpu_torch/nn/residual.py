@@ -56,6 +56,26 @@ class ResidualBlock(Layer):
             shape = layer.output_shape(shape)
         return shape
 
+    def _sum(self, metric: str, input_shape) -> int:
+        """``metric`` summed over the main path's and the shortcut's
+        layers, each at the shape it receives."""
+        total = 0
+        for layers in (self.layers, self.shortcut):
+            shape = tuple(input_shape)
+            for layer in layers:
+                total += getattr(layer, metric)(shape)
+                shape = layer.output_shape(shape)
+        return total
+
+    def forward_complexity(self, input_shape):
+        n = 1
+        for d in self.output_shape(input_shape):
+            n *= d
+        return self._sum("forward_complexity", input_shape) + 2 * n  # add, act
+
+    def param_count(self, input_shape):
+        return self._sum("param_count", input_shape)
+
     def get_config(self) -> Dict[str, Any]:
         return {
             "type": self.type_name, "name": self.name,

@@ -38,10 +38,12 @@ carries it across.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
+
+from ..nn.sequential import merge_named, split_named
 
 OptState = Dict[str, Any]
 Tensors = Mapping[str, torch.Tensor]
@@ -99,6 +101,38 @@ class Optimizer:
 
     def name(self) -> str:
         return type(self).__name__
+
+    # -- pipeline split/merge --
+    #
+    # The built-in optimizers' state is a dict whose values are either
+    # per-parameter mappings under the model's names (SGD's velocity,
+    # Adam's m and v), cut along layer ranges as ``Sequential.split_params``
+    # cuts the params, or whole-run leaves that every stage holds alike
+    # (Adam's step t; a 0-d tensor is copied): replicated on split, the
+    # first stage's taken on merge. An optimizer whose state breaks this
+    # convention overrides both methods.
+
+    def split_state(self, opt_state: OptState,
+                    partitions) -> List[OptState]:
+        """One state per ``[start, end)`` layer range, each under its stage
+        model's parameter names."""
+        out: List[OptState] = [{} for _ in partitions]
+        for k, v in opt_state.items():
+            if isinstance(v, Mapping):
+                for st, piece in zip(out, split_named(v, partitions)):
+                    st[k] = piece
+            else:
+                for st in out:
+                    st[k] = (v.clone() if isinstance(v, torch.Tensor)
+                             else v)
+        return out
+
+    def merge_state(self, states, partitions) -> OptState:
+        """The inverse of :meth:`split_state`, the stage states given in
+        partition order."""
+        return {k: (merge_named([st[k] for st in states], partitions)
+                    if isinstance(v0, Mapping) else v0)
+                for k, v0 in states[0].items()}
 
 
 class SGD(Optimizer):

@@ -65,7 +65,7 @@ import numpy as np
 from ..core import debug as _debug
 from ..core.config import ProfilerType, TrainingConfig
 from ..core.device import DeviceLike, resolve_device
-from ..core.graphs import GraphPool, Session, debug_eager
+from ..core.graphs import GraphPool, Session, SessionCache, debug_eager
 from ..core.keys import fold_in, generator, to_device
 from ..core.precision import get_precision_mode
 from ..data.device_dataset import (
@@ -169,8 +169,7 @@ class TrainStep:
         # on the params' device, at the first call (a Trainer is built
         # before its params)
         self.device = self.scalars = self.generator = None
-        self._warm: set = set()
-        self._sessions: dict = {}
+        self._sessions = SessionCache()
 
     def _place(self) -> None:
         if self.device is None:
@@ -270,16 +269,7 @@ class TrainStep:
         s.grads = [(p, p.grad) for p in self.model.parameters()]
         return s
 
-    def _sessions_for(self, ts, x, y, gen, split):
-        key = (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype,
-               gen is None, split, get_precision_mode())
-        if key not in self._warm:
-            self._warm.add(key)
-            return None  # the shape's first call: eager, its warm-up
-        bind = self.binding(ts)
-        got = self._sessions.get(key)
-        if got is not None and got[0] == bind:
-            return got[1]
+    def _capture(self, ts, x, y, gen, split):
         gens = () if gen is None else (gen,)
         if split:
             first = self.capture("train_step.probe",
@@ -288,13 +278,17 @@ class TrainStep:
             grads = first.outputs[-1]
             second = self.capture("train_step.update",
                                   lambda: self._update(ts, grads), (), ())
-            sessions = (first, second)
-        else:
-            sessions = (self.capture(
-                "train_step", lambda xs, ys: self.body(ts, xs, ys, gen),
-                (x, y), gens),)
-        self._sessions[key] = (bind, sessions)
-        return sessions
+            return first, second
+        return (self.capture(
+            "train_step", lambda xs, ys: self.body(ts, xs, ys, gen),
+            (x, y), gens),)
+
+    def _sessions_for(self, ts, x, y, gen, split):
+        key = (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype,
+               gen is None, split)
+        return self._sessions.lookup(
+            key, self.binding(ts),
+            lambda: self._capture(ts, x, y, gen, split), self.model)
 
     def __call__(self, ts: TrainState, x: torch.Tensor, y: torch.Tensor, lr,
                  generator: Optional[torch.Generator] = None):
@@ -309,8 +303,7 @@ class TrainStep:
                 else contextlib.nullcontext())
         with lock:
             sessions = (self._sessions_for(ts, x, y, gen, split)
-                        if self.pool is not None
-                        and not debug_eager(self.model) else None)
+                        if self.pool is not None else None)
             if not split:
                 if sessions is None:
                     loss, logits = self.body(ts, x, y, gen)

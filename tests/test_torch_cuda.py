@@ -2204,3 +2204,294 @@ def test_async_checkpoint_saves_reuse_two_pinned_sets(tmp_path):
         got = load_checkpoint(path, device="cpu")[0]
         for k, v in got.state_dict().items():
             assert torch.equal(v, want[step][k]), (step, k)
+
+
+# -- pipeline parallelism: per-stage streams and the compiled schedules --------
+
+def _pipe_model(kind):
+    """A model and a matching (x, y) of 16 samples: the narrow attention
+    classifier (an attention block a stage in 2 stages) or the narrow CNN
+    (BN, a residual block)."""
+    rng = np.random.default_rng(21)
+    if kind == "mha":
+        model, shape = _narrow_mha("cpu"), (16, 32)
+    else:
+        model, shape = _narrow_cnn(), (3, 16, 16)
+    x = rng.normal(size=(16, *shape)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 16)]
+    return model, x, y
+
+
+def _pipe_coord(kind, stages):
+    from dcnn_tpu_torch.parallel import (FlopBalancedPartitioner,
+                                         InProcessPipelineCoordinator)
+
+    model, x, y = _pipe_model(kind)
+    coord = InProcessPipelineCoordinator(
+        model, SGD(0.01), "softmax_crossentropy", num_stages=stages,
+        partitioner=FlopBalancedPartitioner(), num_microbatches=4)
+    coord.deploy_stages()
+    return coord, x, y
+
+
+@pytest.mark.parametrize("kind", ["mha", "cnn"])
+def test_pipeline_stage_streams_equal_one_stream(kind, _deterministic_cudnn):
+    """Every stage on its own CUDA stream, handing off through events, gives
+    the losses, logits, params and BN statistics of the same pipeline on one
+    stream, bit for bit, over 20 semi-async batches (a missing
+    ``record_stream`` or wait shows as a wrong result under load)."""
+    stages = 2 if kind == "mha" else 3
+    runs = []
+    for streams in (True, False):
+        coord, x, y = _pipe_coord(kind, stages)
+        if not streams:
+            for s in coord.stages:
+                s.stream = None
+        else:
+            assert len({s.stream for s in coord.stages}) == stages
+        before = _launches()
+        out = [coord.train_batch_semi_async(x, y, 0.01, i) for i in range(20)]
+        launched = tuple(a - b for a, b in zip(_launches(), before))
+        p, s = coord.gathered_params()
+        runs.append(([l for l, _ in out], [g.cpu() for _, g in out],
+                     {**p, **s}, launched))
+    (la, ga, na, ka), (lb, gb, nb, kb) = runs
+    assert la == lb
+    assert all(torch.equal(a, b) for a, b in zip(ga, gb))
+    assert all(torch.equal(na[n], nb[n]) for n in na)
+    if kind == "mha":  # one forward, dQ and dK/dV a stage and microbatch
+        assert ka == kb == (2 * 4 * 20,) * 3
+
+
+def _compiled_setup(kind, schedule, jit):
+    """A compiled step over 2 FLOP-balanced stages and 4 microbatches of
+    :func:`_pipe_model`, with its params, optimizer state, BN state and
+    microbatched (x, y) on the card."""
+    from dcnn_tpu_torch.parallel import (FlopBalancedPartitioner,
+                                         HeteroCompiledPipeline)
+
+    model, x, y = _pipe_model(kind)
+    model = model.to("cuda")
+    pipe = HeteroCompiledPipeline(model, 2, 4, device="cuda",
+                                  partitioner=FlopBalancedPartitioner())
+    params, state = (dict(model.named_parameters()),
+                     dict(model.named_buffers()))
+    opt = SGD(0.01, momentum=0.9)
+    make = (pipe.make_train_step if schedule == "gpipe"
+            else pipe.make_train_step_1f1b)
+    step = make(get_loss("softmax_crossentropy"), opt, jit=jit)
+    xs = torch.from_numpy(x.reshape(4, 4, *x.shape[1:])).cuda()
+    ys = torch.from_numpy(y.reshape(4, 4, 10)).cuda()
+    return step, params, opt.init(params), state, xs, ys
+
+
+def _named_host(params, state):
+    return {n: t.detach().cpu() for n, t in
+            list(params.items()) + list(state.items())}
+
+
+def _compiled_run(kind, schedule, jit, steps=3):
+    step, params, ost, state, xs, ys = _compiled_setup(kind, schedule, jit)
+    losses, logits = [], []
+    for i in range(steps):
+        before = _launches()
+        params, ost, state, loss, lg = step(params, ost, state, xs, ys, 5,
+                                            0.01)
+        losses.append(float(loss))
+        logits.append(lg.cpu())
+        counted = tuple(a - b for a, b in zip(_launches(), before))
+    return losses, logits, _named_host(params, state), step, counted
+
+
+@pytest.mark.parametrize("schedule", ["gpipe", "1f1b"])
+@pytest.mark.parametrize("kind", ["mha", "cnn"])
+def test_compiled_pipeline_replays_equal_eager(kind, schedule,
+                                               _deterministic_cudnn):
+    """The whole schedule's step as one CUDA graph (eager first step,
+    captured second, replayed third) equals its eager twin bit for bit:
+    losses, logits, params, BN statistics, optimizer state; a replay adds
+    its capture's launches to the counters."""
+    gl, glg, gn, gstep, counted = _compiled_run(kind, schedule, True)
+    el, elg, en, _, _ = _compiled_run(kind, schedule, False)
+    assert gstep.session() is not None and gstep.session().graph is not None
+    assert gl == el
+    assert all(torch.equal(a, b) for a, b in zip(glg, elg))
+    assert all(torch.equal(gn[n], en[n]) for n in gn)
+    if kind == "mha":  # 2 attention blocks x 4 microbatches a replay
+        names = gstep.session().launch_names()
+        assert {k: names[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                      "flash_bwd_dkv")} == dict.fromkeys(
+            ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"), 8)
+        assert counted == (8, 8, 8)
+
+
+@pytest.mark.parametrize("kind", ["mha", "cnn"])
+def test_compiled_pipeline_graphs_follow_the_precision_mode(
+        kind, _deterministic_cudnn):
+    """A compiled GPipe step run three times in parity mode (eager, capture,
+    replay), three in bf16 (its own warm-up, capture and replay) and three
+    in parity again (the first graph) equals the same nine steps with
+    ``jit=False`` bit for bit: a mode switch never replays the other
+    mode's graph."""
+    from dcnn_tpu_torch.core import set_precision
+
+    def run(jit):
+        step, params, ost, state, xs, ys = _compiled_setup(kind, "gpipe",
+                                                           jit)
+        losses = []
+        for mode in ("parity", "bf16", "parity"):
+            set_precision(mode)
+            try:
+                for _ in range(3):
+                    params, ost, state, loss, _ = step(params, ost, state,
+                                                       xs, ys, 5, 0.01)
+                    losses.append(float(loss))
+            finally:
+                set_precision("parity")
+        return losses, _named_host(params, state), step
+
+    (gl, gn, gstep), (el, en, _) = run(True), run(False)
+    assert sorted(k[-1] for k in gstep.compiled.sessions) == ["bf16",
+                                                              "parity"]
+    assert all(s.graph is not None
+               for _, s in gstep.compiled.sessions.values())
+    assert gl == el
+    assert all(torch.equal(gn[n], en[n]) for n in gn)
+
+
+@pytest.mark.parametrize("how", ["checks", "checked", "checked_after_capture"])
+def test_compiled_pipeline_debug_paths_run_eagerly(how, _deterministic_cudnn):
+    """Debug mode's ``checks=True`` and ``checked`` run the compiled
+    pipeline's step eagerly: three steps raise no CaptureError and equal
+    three ``jit=False`` steps bit for bit, nothing is captured under them,
+    and a NaN batch raises ``FloatingPointError`` from ``checked``'s hooks,
+    also where the step's graph was captured before."""
+    from dcnn_tpu_torch.core.debug import checked, debug_mode
+
+    out = []
+    for jit in (True, False):
+        step, params, ost, state, xs, ys = _compiled_setup("mha", "gpipe",
+                                                           jit)
+        live = [params, ost, state]
+
+        def go(fn, x):
+            got = fn(*live, x, ys, 5, 0.01)
+            live[:] = got[:3]
+            return float(got[3])
+
+        if how == "checked_after_capture":
+            for _ in range(3):
+                go(step, xs)
+            assert not jit or step.session().graph is not None
+        fn = (step if how == "checks"
+              else checked(step, model=step.pipe.model))
+        ctx = (debug_mode(nans=False, checks=True) if how == "checks"
+               else contextlib.nullcontext())
+        with ctx:
+            losses = [go(fn, xs) for _ in range(3)]
+            if how != "checks":
+                with pytest.raises(FloatingPointError, match="checked"):
+                    go(fn, torch.full_like(xs, float("nan")))
+        if how != "checked_after_capture":
+            assert step.session() is None  # nothing was captured
+        out.append((losses, _named_host(live[0], live[2])))
+    assert out[0][0] == out[1][0]
+    assert all(torch.equal(out[0][1][n], out[1][1][n]) for n in out[0][1])
+
+
+def test_compiled_pipeline_1f1b_peak_memory_below_gpipe(_deterministic_cudnn):
+    """1F1B holds at most S stage graphs a stage, GPipe M: with M=8 and
+    S=2 1F1B's peak device memory in an eager step is below GPipe's."""
+    from dcnn_tpu_torch.nn import SequentialBuilder as Builder
+    from dcnn_tpu_torch.parallel import HeteroCompiledPipeline
+
+    peaks = {}
+    rng = np.random.default_rng(3)
+    xs = torch.from_numpy(rng.normal(size=(8, 16, 3, 32, 32))
+                          .astype(np.float32)).cuda()
+    ys = torch.from_numpy(np.eye(10, dtype=np.float32)[
+        rng.integers(0, 10, (8, 16))]).cuda()
+    for schedule in ("gpipe", "1f1b"):
+        model = (Builder("mem").input((3, 32, 32))
+                 .conv2d(32, 3, 1, 1).batchnorm().activation("relu")
+                 .conv2d(32, 3, 1, 1).batchnorm().activation("relu")
+                 .conv2d(32, 3, 1, 1).batchnorm().activation("relu")
+                 .flatten().dense(10).build())
+        pipe = HeteroCompiledPipeline(model, 2, 8, device="cuda")
+        params, state = pipe.init(torch.Generator().manual_seed(0))
+        opt = SGD(0.01)
+        make = (pipe.make_train_step if schedule == "gpipe"
+                else pipe.make_train_step_1f1b)
+        step = make(get_loss("softmax_crossentropy"), opt, jit=False)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        step(params, opt.init(params), state, xs, ys, 0, 0.01)
+        torch.cuda.synchronize()
+        peaks[schedule] = torch.cuda.max_memory_allocated() - base
+        assert step.peak_stash == ([8, 8] if schedule == "gpipe" else [2, 1])
+    assert peaks["1f1b"] < peaks["gpipe"], peaks
+
+
+def test_compiled_homogeneous_stack_replays_equal_eager():
+    """The homogeneous stack's step (GroupNorm residual blocks, remat) as
+    one graph equals its eager twin bit for bit."""
+    from dcnn_tpu_torch.nn import Conv2DLayer, GroupNormLayer, ResidualBlock
+    from dcnn_tpu_torch.parallel import (SequentialStageStack,
+                                         make_compiled_pipeline_train_step)
+
+    def run(jit):
+        block = ResidualBlock(layers=[Conv2DLayer(8, 3, 1, 1),
+                                      GroupNormLayer(2)])
+        stack = SequentialStageStack(block, 4, (8, 8, 8))
+        sp = stack.init(torch.Generator().manual_seed(0), device="cuda")
+        opt = SGD(0.05)
+        ost = opt.init(sp)
+        step = make_compiled_pipeline_train_step(
+            stack.stage_fn, lambda a, b: ((a - b) ** 2).mean(), opt, 4, 6,
+            jit=jit)
+        rng = np.random.default_rng(4)
+        xs, ys = (torch.from_numpy(rng.normal(size=(6, 2, 8, 8, 8))
+                                   .astype(np.float32)).cuda()
+                  for _ in range(2))
+        losses = [float(step(sp, ost, xs, ys, 0.05)[2]) for _ in range(3)]
+        return losses, {n: t.detach().cpu() for n, t in sp.items()}
+
+    (gl, gp), (el, ep) = run(True), run(False)
+    assert gl == el
+    assert all(torch.equal(gp[n], ep[n]) for n in gp)
+
+
+def test_compiled_homogeneous_stack_runs_eagerly_in_anomaly_mode():
+    """The homogeneous step, which has no model to look at, still runs
+    eagerly while autograd's anomaly mode is on (debug mode's
+    ``checks=True``): no CaptureError, nothing captured, and the numbers
+    of ``jit=False`` bit for bit."""
+    from dcnn_tpu_torch.core.debug import debug_mode
+    from dcnn_tpu_torch.nn import Conv2DLayer, GroupNormLayer, ResidualBlock
+    from dcnn_tpu_torch.parallel import (SequentialStageStack,
+                                         make_compiled_pipeline_train_step)
+
+    def run(jit):
+        block = ResidualBlock(layers=[Conv2DLayer(8, 3, 1, 1),
+                                      GroupNormLayer(2)])
+        stack = SequentialStageStack(block, 4, (8, 8, 8))
+        sp = stack.init(torch.Generator().manual_seed(0), device="cuda")
+        opt = SGD(0.05)
+        ost = opt.init(sp)
+        step = make_compiled_pipeline_train_step(
+            stack.stage_fn, lambda a, b: ((a - b) ** 2).mean(), opt, 4, 6,
+            jit=jit)
+        rng = np.random.default_rng(4)
+        xs, ys = (torch.from_numpy(rng.normal(size=(6, 2, 8, 8, 8))
+                                   .astype(np.float32)).cuda()
+                  for _ in range(2))
+        with debug_mode(nans=False, checks=True):
+            losses = [float(step(sp, ost, xs, ys, 0.05)[2])
+                      for _ in range(3)]
+        assert not step.compiled.sessions
+        return losses, {n: t.detach().cpu() for n, t in sp.items()}
+
+    (gl, gp), (el, ep) = run(True), run(False)
+    assert gl == el
+    assert all(torch.equal(gp[n], ep[n]) for n in gp)

@@ -16,6 +16,9 @@
 - ``graphs.debug_eager``, which sends a step to the eager debug path, sees
   autograd's anomaly mode, ``debug.checked``'s hooks and hooks set on a
   submodule or globally, and nothing else.
+- ``graphs.SessionCache``, the one rule of the repeated steps (train step,
+  resident batch body, compiled pipeline): eager at a key's first call and
+  on the debug paths, then one capture a key, precision mode and binding.
 - ``Trainer._restore`` copies a checkpoint into the live state's tensors
   (which a captured step keeps writing); training on from a rollback or a
   resume equals the uninterrupted run bit for bit.
@@ -419,3 +422,37 @@ def test_debug_eager_sees_anomaly_mode_and_hooks(how):
         h.remove()
     assert seen == ([] if how == "plain" else [True])
     assert not graphs.debug_eager(model)
+
+
+def test_session_cache_warms_keys_by_precision_mode_and_binding():
+    """A key's first call runs eagerly (None), the next captures, later
+    ones reuse the capture; a new precision mode is a new key with its own
+    warm-up; a moved binding captures again; the debug paths run eagerly
+    without warming or capturing anything."""
+    from dcnn_tpu_torch.core import debug, set_precision
+
+    cache = graphs.SessionCache()
+    made = []
+
+    def look(bind=(1,), key=("k",)):
+        return cache.lookup(key, bind,
+                            lambda: made.append(bind) or len(made))
+
+    with debug.debug_mode(nans=False, checks=True):
+        assert look() is None
+    assert not cache.warm and not made
+    assert [look(), look(), look()] == [None, 1, 1]
+    set_precision("bf16")
+    try:
+        assert [look(), look()] == [None, 2]
+    finally:
+        set_precision("parity")
+    assert look() == 1
+    assert look(bind=(2,)) == 3 and look(bind=(2,)) == 3
+    assert made == [(1,), (1,), (2,)]
+    assert sorted(k[-1] for k in cache) == ["bf16", "parity"]
+    assert cache.latest() == 2
+    model = _cnn("cache_probe")
+    debug.checked(lambda m: made.append(cache.lookup(
+        ("k",), (2,), lambda: 0, m)))(model)
+    assert made[-1] is None and look(bind=(2,)) == 3

@@ -16,7 +16,9 @@ the layer profiler, debug mode and ``hard_fence`` driven together, and on
 the export and the AOT cache: the ``dcnn::`` ops, ``nn/export.py``,
 ``aot/*`` and ``utils/compile_cache.py`` each read alone, an engine over a
 cached program, the CLI, and an artifact served by a process that builds
-no model."""
+no model, and on pipeline parallelism: each ``parallel/`` module read and
+imported alone, and the host-driven coordinator and both compiled
+schedules driven on the CPU."""
 
 import ast
 import os
@@ -393,3 +395,58 @@ def test_artifact_serves_in_a_process_that_builds_no_model(tmp_path):
                          timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert "isolated" in out.stdout
+
+
+# pipeline parallelism: model splitting, the in-process coordinator and the
+# compiled schedules
+PIPELINE_MODULES = (
+    "dcnn_tpu_torch.parallel", "dcnn_tpu_torch.parallel.partitioner",
+    "dcnn_tpu_torch.parallel.pipeline",
+    "dcnn_tpu_torch.parallel.compiled_pipeline",
+)
+
+
+@pytest.mark.parametrize("module", PIPELINE_MODULES)
+def test_pipeline_module_imports_no_jax(module):
+    """The source of each pipeline module imports no JAX, flax, msgpack or
+    JAX-package module."""
+    name = module.replace(".", "/")
+    path = REPO / (name + "/__init__.py" if module == "dcnn_tpu_torch.parallel"
+                   else name + ".py")
+    bad = [f"{line} imports {mod}" for line, mod in _imports(path)
+           if _forbidden(mod)]
+    assert not bad, bad
+
+
+PIPELINE = (
+    "import importlib\n"
+    f"for name in {PIPELINE_MODULES!r}:\n"
+    "    importlib.import_module(name)\n"
+    "    bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+    f"{FORBIDDEN!r})\n"
+    "    assert not bad, (name, bad)\n"
+    "from dcnn_tpu_torch.models import create_model\n"
+    "from dcnn_tpu_torch.ops.losses import get_loss\n"
+    "from dcnn_tpu_torch.optim import SGD\n"
+    "from dcnn_tpu_torch.parallel import (FlopBalancedPartitioner,\n"
+    "    HeteroCompiledPipeline, InProcessPipelineCoordinator)\n"
+    "from dcnn_tpu_torch.parallel.pipeline import train_pipeline_epoch\n"
+    "g = torch.Generator().manual_seed(0)\n"
+    "m = create_model('mnist_cnn').init(generator=g, device='cpu')\n"
+    "x, y = torch.randn(8, 1, 28, 28), torch.eye(10)[torch.arange(8)]\n"
+    "c = InProcessPipelineCoordinator(m, SGD(0.01), 'softmax_crossentropy',\n"
+    "    2, FlopBalancedPartitioner(), devices=['cpu', 'cpu'],\n"
+    "    num_microbatches=2)\n"
+    "c.deploy_stages()\n"
+    "for s in ('sync', 'semi_async'):\n"
+    "    train_pipeline_epoch(c, [(x, y)], 0.01, schedule=s)\n"
+    "p = HeteroCompiledPipeline(m, 2, 2, device='cpu')\n"
+    "for make in (p.make_train_step, p.make_train_step_1f1b):\n"
+    "    opt = SGD(0.01)\n"
+    "    prm, st = dict(m.named_parameters()), dict(m.named_buffers())\n"
+    "    make(get_loss('softmax_crossentropy'), opt)(prm, opt.init(prm), st,\n"
+    "        x.reshape(2, 4, 1, 28, 28), y.reshape(2, 4, 10), 0, 0.01)\n")
+
+
+def test_pipeline_modules_and_paths_leave_jax_out():
+    _run_isolated(PIPELINE)

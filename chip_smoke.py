@@ -167,9 +167,21 @@ Phases, each fatal on failure:
    GPipe and 1F1B, fp32 and bf16 wire, each step one CUDA graph held bit
    for bit to its eager twin, fp32 within 2e-5 of the host-driven
    coordinator, 1F1B's peak device memory below GPipe's; one homogeneous
-   ``SequentialStageStack``. The pipeline phases' launches, samples/s,
-   load reports and memory print as ``{"pipeline": {...}}`` on a line
-   before the kernels line.
+   ``SequentialStageStack``;
+18. tcp pipeline (``phase_tcp_pipeline``): the same ``mha_classifier`` over
+   2 stage-worker processes (``python -m dcnn_tpu_torch.parallel.worker``
+   on the card, each its own CUDA context, loading the kernels built here)
+   under the sync (shuffle-lz4 frames) and semi-async (raw) schedules, and
+   the ResNet-18 over 4, through ``DistributedPipelineCoordinator``, held
+   to phase 16's in-process runs (losses, params, BN statistics); the
+   workers' shutdown lines count the flash kernels in their processes; a
+   worker SIGKILLed between two batches and respawned on its port, the run
+   recovering from its checkpoint with no batch lost, its params within
+   rtol 2e-4 / atol 2e-5 of the uninterrupted run. The pipeline phases'
+   launches, samples/s, load reports, memory and the TCP runs' rates,
+   wire bytes a batch, worker start seconds and recovery print as
+   ``{"pipeline": {...}}`` (``tcp_*`` keys) on a line before the kernels
+   line.
 
 Compiled sessions (CUDA graphs, ``dcnn_tpu_torch/core/graphs.py``): in
 serve, serve cnn, serve int8 and decode every bucket or lattice point is a
@@ -187,8 +199,8 @@ lines).
 Then it prints ``{"kernels": [...]}`` (rows 1-8, row 8 ``conv_int8_fused``
 with mode A ``conv_int8`` inside it; each row's ``launches_by_path`` has
 the obs phase's launches under ``"obs"``, the export phase's under
-``"export"`` and the pipeline phase's under ``"pipeline"`` where they
-launch the row) on
+``"export"``, the pipeline phase's under ``"pipeline"`` and the TCP
+workers' under ``"tcp_pipeline"`` where they launch the row) on
 a line of its own and, last,
 ``{"ok": true, "device": {...}}``. Times come from CUDA events around CUDA
 graph replays of many calls, so host overhead is not in them.
@@ -4470,16 +4482,16 @@ def named_host(model) -> dict:
             + list(model.named_buffers())}
 
 
-def window_rates(run, samples: int) -> dict:
+def window_rates(run, samples: int, windows: int = PIPE_WINDOWS) -> dict:
     """samples/s of ``run()`` (one window of ``samples`` samples, ending in
-    a host read) over ``PIPE_WINDOWS`` windows on the card: the median,
-    the slowest and fastest window, and the spread, (max - min) / median.
+    a host read) over ``windows`` windows on the card: the median, the
+    slowest and fastest window, and the spread, (max - min) / median.
     Two engines' rates differ by more than noise only where the gap
     exceeds both spreads."""
     import torch
 
     rates = []
-    for _ in range(PIPE_WINDOWS):
+    for _ in range(windows):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run()
@@ -4487,11 +4499,11 @@ def window_rates(run, samples: int) -> dict:
     rates.sort()
     med = rates[len(rates) // 2]
     return {"median": med, "min": rates[0], "max": rates[-1],
-            "spread": (rates[-1] - rates[0]) / med}
+            "spread": (rates[-1] - rates[0]) / med, "windows": windows}
 
 
 def rate_text(r: dict) -> str:
-    return (f"{r['median']:.1f} samples/s (median of {PIPE_WINDOWS} "
+    return (f"{r['median']:.1f} samples/s (median of {r['windows']} "
             f"windows, {r['min']:.1f}-{r['max']:.1f}, spread "
             f"{100 * r['spread']:.1f}%)")
 
@@ -4614,12 +4626,15 @@ def phase_pipeline(card):
     det = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     out = {"launches": {}, "samples_per_s": {}, "load_reports": {}}
+    # what phase_tcp_pipeline is held to
+    refs = out["tcp_refs"] = {"rates": out["samples_per_s"]}
     try:
         # mha_classifier
         cfg, params, rng = model_params()
         spec = PIPE_MHA
         x, y = marker_task(rng, n=spec["batch"] * PIPE_BATCHES)
         batches = pipe_batches(x, y, spec["batch"])
+        refs["mha"] = (cfg, params, batches)
         ref_losses, ref_named, sps = unsplit_run(
             from_jax(cfg, params, device="cuda"), batches, spec["micro"],
             PIPE_LR)
@@ -4660,6 +4675,7 @@ def phase_pipeline(card):
                      f"|diff| {d_ref:.3e} vs unsplit, {d_cpu:.3e} vs CPU, "
                      f"tol {PIPE_PARAM_TOL:g}")
             out["samples_per_s"][f"mha_{schedule}"] = sps
+            refs[f"mha_{schedule}"] = (losses, named)
             print(f"pipeline: mha_classifier B={spec['batch']} "
                   f"M={spec['micro']} {schedule}, stages {coord.partitions}: "
                   f"epoch losses {losses} (unsplit {ref}, rel {rel:.3e}; "
@@ -4696,6 +4712,7 @@ def phase_pipeline(card):
                      f"{TRAIN_LOSS_RTOL:g}); params and BN statistics max "
                      f"|diff| {d_ref:.3e} (tol {PIPE_PARAM_TOL:g})")
             out["samples_per_s"][f"resnet18_{schedule}"] = sps
+            refs[f"resnet18_{schedule}"] = (losses, named)
             print(f"pipeline: resnet18_tiny_imagenet B={spec['batch']} "
                   f"M={spec['micro']} {schedule}, stages {coord.partitions}: "
                   f"epoch losses {losses} (unsplit {ref}, rel {rel:.3e}); "
@@ -4895,6 +4912,343 @@ def phase_compiled_pipeline(card, resnet):
     return out
 
 
+# the TCP pipeline: stage workers as processes on the card
+TCP_CODECS = {"sync": "shuffle-lz4", "semi_async": "raw"}
+TCP_WINDOWS = 3           # timed windows of PIPE_HOST_TIMED batches a run
+TCP_HEARTBEAT_S = 1.0
+TCP_RECOVERY_TOL = dict(rtol=2e-4, atol=2e-5)  # tests/test_pipeline_recovery.py
+TCP_KILL_AFTER = 3        # batches trained before the SIGKILL
+TCP_CKPT_EVERY = 2
+
+
+def free_ports(n):
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    for s in socks:
+        s.bind(("127.0.0.1", 0))
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:
+        s.close()
+    return ports
+
+
+class TcpWorker:
+    """One ``python -m dcnn_tpu_torch.parallel.worker`` process on the card
+    (cuDNN deterministic), its stdout read by a thread: ``start_s`` is the
+    time from spawn to its listening line, ``result()`` its shutdown
+    line."""
+
+    def __init__(self, port: int, codec: str):
+        self.port = port
+        self.addr = f"127.0.0.1:{port}"
+        self.lines = []
+        self.start_s = None
+        self._t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "dcnn_tpu_torch.parallel.worker",
+             "--port", str(port), "--host", "127.0.0.1", "--compress", codec,
+             "--deterministic"], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip())
+            if self.start_s is None and line.startswith('{"listening"'):
+                self.start_s = time.perf_counter() - self._t0
+
+    def result(self, timeout=60.0) -> dict:
+        """The shutdown line, after the process exited 0."""
+        rc = self.proc.wait(timeout=timeout)
+        self._reader.join(timeout=10)
+        last = [json.loads(l) for l in self.lines if l.startswith('{"shutdown"')]
+        if rc != 0 or not last:
+            fail(f"tcp pipeline: worker :{self.port} exited {rc} without its "
+                 f"shutdown line:\n" + "\n".join(self.lines[-40:]))
+        return last[-1]
+
+    def kill(self) -> None:
+        self.proc.kill()
+        self.proc.wait()
+
+    def close(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+
+def tcp_coordinator(model, workers, spec, codec, **kw):
+    from dcnn_tpu_torch.optim import SGD
+    from dcnn_tpu_torch.parallel import (
+        DistributedPipelineCoordinator, FlopBalancedPartitioner,
+        PipelineTimeouts,
+    )
+
+    coord = DistributedPipelineCoordinator(
+        model, SGD(PIPE_LR), "softmax_crossentropy",
+        [w.addr for w in workers], FlopBalancedPartitioner(), spec["micro"],
+        track_load="sample", compress=codec, device="cuda",
+        timeouts=PipelineTimeouts(batch_s=300.0, heartbeat_s=TCP_HEARTBEAT_S,
+                                  connect_s=120.0, respawn_s=120.0), **kw)
+    coord.deploy_stages()
+    return coord
+
+
+def wire_sent() -> int:
+    from dcnn_tpu_torch.obs import get_registry
+
+    return int(get_registry().counter("comm_bytes_sent_total").value)
+
+
+def wire_received() -> int:
+    from dcnn_tpu_torch.obs import get_registry
+
+    return int(get_registry().counter("comm_bytes_received_total").value)
+
+
+def tcp_run(model, workers, batches, spec, schedule, codec, ref):
+    """``train_pipeline_epoch`` over ``batches`` (the first as an epoch of
+    its own, as :func:`pipeline_run`) through a
+    ``DistributedPipelineCoordinator`` over ``workers``, held to the
+    in-process run ``ref`` (epoch losses, named params and buffers); then
+    the load reports and :func:`window_rates` of ``TCP_WINDOWS`` windows of
+    ``PIPE_HOST_TIMED`` batches; the workers shut down. Returns the
+    record, the named params after the epochs and the number of batches
+    each worker trained."""
+    import numpy as np
+
+    from dcnn_tpu_torch.parallel.pipeline import train_pipeline_epoch
+
+    seconds = {}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = round(time.perf_counter() - t0, 2)
+        t0 = time.perf_counter()
+
+    sent0 = wire_sent()
+    coord = tcp_coordinator(model, workers, spec, codec)
+    deploy = wire_sent() - sent0
+    lap("deploy")
+    losses = []
+    for i, epoch in enumerate((batches[:1], batches[1:])):
+        losses.append(train_pipeline_epoch(coord, epoch, PIPE_LR, rng=SEED,
+                                           schedule=schedule)[0])
+        lap(f"epoch{i}")
+    received0 = wire_received()
+    p, st = coord.gathered_params()
+    gather = wire_received() - received0
+    lap("gather")
+    named = {n: t.double().numpy() for n, t in {**p, **st}.items()}
+    ref_losses, ref_named = ref
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    d = max_named_diff(named, ref_named)
+    sps = window_rates(
+        lambda: train_pipeline_epoch(coord, batches[-1:] * PIPE_HOST_TIMED,
+                                     PIPE_LR, rng=SEED, schedule=schedule),
+        PIPE_HOST_TIMED * len(batches[0][0]), TCP_WINDOWS)
+    lap("windows")
+    reports = coord.collect_load_reports()
+    partitions = coord.partitions
+    coord_sent = wire_sent() - sent0
+    coord.shutdown()
+    lines = [w.result() for w in workers]
+    lap("shutdown")
+    n_batches = len(batches) + TCP_WINDOWS * PIPE_HOST_TIMED
+    # every frame of every process but the weights' deploy and gather
+    sent = coord_sent + sum(l["wire_bytes"]["sent"] for l in lines)
+    per_batch = (sent - deploy - gather) / n_batches
+    rec = {"losses": losses, "ref_losses": ref_losses, "rel": rel,
+           "max_param_diff": d, "samples_per_s": sps,
+           "wire_bytes_per_batch": per_batch, "load_reports": reports,
+           "partitions": partitions, "codec": codec, "seconds": seconds,
+           "workers": [{"launches": {k: v for k, v in l["launches"].items()
+                                     if v},
+                        "device": l["device"]} for l in lines]}
+    if not (all(math.isfinite(v) for v in losses) and rel <= TRAIN_LOSS_RTOL
+            and d <= PIPE_PARAM_TOL):
+        fail(f"tcp pipeline: {schedule} ({codec}) losses {losses} vs the "
+             f"in-process pipeline's {ref_losses} (rel {rel:.3e}, tol "
+             f"{TRAIN_LOSS_RTOL:g}); params max |diff| {d:.3e} (tol "
+             f"{PIPE_PARAM_TOL:g})")
+    return rec, named, n_batches
+
+
+def phase_tcp_pipeline(card, refs, resnet):
+    """The TCP pipeline on the card: stage workers as processes of their own
+    (``python -m dcnn_tpu_torch.parallel.worker --deterministic``), each
+    with its CUDA context, loading the kernels this process built, and
+    ``DistributedPipelineCoordinator`` here (cuDNN deterministic, as
+    :func:`phase_pipeline`). (1) ``mha_classifier`` B=64 M=4 over 2
+    workers (an attention block in each), sync over shuffle-lz4 frames and
+    semi-async over raw ones; (2) ``resnet18_tiny_imagenet`` NCHW B=128 M=8
+    over 4 workers, sync, raw; each over ``PIPE_BATCHES`` batches, held to
+    the in-process pipeline's losses and params (BN statistics too) within
+    ``TRAIN_LOSS_RTOL`` and ``PIPE_PARAM_TOL``; every mha worker's
+    shutdown line must count the flash forward, dQ and dK/dV M times a
+    batch it trained. (3) The sync mha run with ``checkpoint_dir``: one
+    worker SIGKILLed between batches ``TCP_KILL_AFTER`` and
+    ``TCP_KILL_AFTER + 1``, respawned on its port; the run must recover
+    with no batch lost and end on the uninterrupted run's params within
+    the JAX package's recovery tolerance. Prints samples/s beside the
+    in-process rate, bytes on the wire a batch, load reports and worker
+    start seconds, with the card's name and power limit."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.core.keys import fold_in
+    from dcnn_tpu_torch.interop import from_jax
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    cfg, params, batches = refs["mha"]
+    spec = PIPE_MHA
+    ports = iter(free_ports(10))
+    fleets = {
+        "mha_sync": [TcpWorker(next(ports), TCP_CODECS["sync"])
+                     for _ in range(2)],
+        "mha_semi_async": [TcpWorker(next(ports), TCP_CODECS["semi_async"])
+                           for _ in range(2)],
+        "resnet18_sync": [TcpWorker(next(ports), "raw") for _ in range(4)],
+        "kill": [TcpWorker(next(ports), "raw") for _ in range(2)],
+    }
+    out = {"samples_per_s": {}, "wire_bytes_per_batch": {},
+           "load_reports": {}, "launches": {}, "worker_start_s": {},
+           "seconds": {}}
+    t0 = time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        out["seconds"][name] = round(time.perf_counter() - t0, 1)
+        t0 = time.perf_counter()
+
+    try:
+        mha_named = {}
+        for schedule in PIPE_ENGINES:
+            fleet = fleets[f"mha_{schedule}"]
+            rec, named, n = tcp_run(
+                from_jax(cfg, params, device="cuda"), fleet, batches, spec,
+                schedule, TCP_CODECS[schedule], refs[f"mha_{schedule}"])
+            mha_named[schedule] = named
+            if rec["partitions"] != [(0, 1), (1, 4)]:
+                fail(f"tcp pipeline: mha partitions {rec['partitions']}")
+            want = {k: spec["micro"] * n
+                    for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+            for i, w in enumerate(rec["workers"]):
+                got = {k: w["launches"].get(k, 0) for k in want}
+                if got != want:
+                    fail(f"tcp pipeline: mha {schedule} worker {i} launched "
+                         f"{w['launches']}, expected {want} ({n} batches)")
+            out["launches"][f"mha_{schedule}"] = {
+                k: sum(w["launches"].get(k, 0) for w in rec["workers"])
+                for k in want}
+            tag = f"mha_{schedule}"
+            out["samples_per_s"][tag] = rec["samples_per_s"]
+            out["wire_bytes_per_batch"][f"{tag}_{rec['codec']}"] = \
+                rec["wire_bytes_per_batch"]
+            out["load_reports"][tag] = rec["load_reports"]
+            print(f"tcp pipeline: mha_classifier B={spec['batch']} "
+                  f"M={spec['micro']} {schedule} over 2 worker processes "
+                  f"({rec['codec']} frames), stages {rec['partitions']}: "
+                  f"epoch losses {rec['losses']} (in-process "
+                  f"{rec['ref_losses']}, rel {rec['rel']:.3e}); params max "
+                  f"|diff| {rec['max_param_diff']:.3e} vs in-process; "
+                  f"worker launches {[w['launches'] for w in rec['workers']]}"
+                  f" over {n} batches; {rate_text(rec['samples_per_s'])} "
+                  f"(in-process host-driven: "
+                  f"{rate_text(refs['rates'][tag])}); "
+                  f"{rec['wire_bytes_per_batch']:.0f} wire bytes a batch; "
+                  f"seconds {rec['seconds']}; on {card}", flush=True)
+            lap(tag)
+
+        # resnet18_tiny_imagenet over 4 workers
+        spec = PIPE_CNN
+        rec, _, n = tcp_run(
+            from_jax(resnet["cfg"], resnet["params"], resnet["state"],
+                     device="cuda"),
+            fleets["resnet18_sync"], resnet["batches"], spec, "sync", "raw",
+            refs["resnet18_sync"])
+        out["samples_per_s"]["resnet18_sync"] = rec["samples_per_s"]
+        out["wire_bytes_per_batch"]["resnet18_sync_raw"] = \
+            rec["wire_bytes_per_batch"]
+        out["load_reports"]["resnet18_sync"] = rec["load_reports"]
+        print(f"tcp pipeline: resnet18_tiny_imagenet B={spec['batch']} "
+              f"M={spec['micro']} sync over 4 worker processes (raw frames), "
+              f"stages {rec['partitions']}: epoch losses {rec['losses']} "
+              f"(in-process {rec['ref_losses']}, rel {rec['rel']:.3e}); "
+              f"params and BN statistics max |diff| "
+              f"{rec['max_param_diff']:.3e} vs in-process; "
+              f"{rate_text(rec['samples_per_s'])} (in-process host-driven: "
+              f"{rate_text(refs['rates']['resnet18_sync'])}); "
+              f"{rec['wire_bytes_per_batch']:.0f} wire bytes a batch; "
+              f"seconds {rec['seconds']}; on {card}", flush=True)
+        lap("resnet18_sync")
+
+        # a real kill: SIGKILL stage 1 between two batches, respawn it
+        spec = PIPE_MHA
+        fleet = fleets["kill"]
+        keys = [fold_in(SEED, 0)] + [fold_in(SEED, i)
+                                     for i in range(len(batches) - 1)]
+        with tempfile.TemporaryDirectory() as ck:
+            coord = tcp_coordinator(from_jax(cfg, params, device="cuda"),
+                                    fleet, spec, "raw", checkpoint_dir=ck,
+                                    checkpoint_every=TCP_CKPT_EVERY)
+            for i, (x, y) in enumerate(batches):
+                if i == TCP_KILL_AFTER:
+                    fleet[1].kill()
+                    time.sleep(TCP_HEARTBEAT_S)
+                    fleet[1] = TcpWorker(fleet[1].port, "raw")
+                coord.train_batch_sync(x, y, PIPE_LR, keys[i])
+            p, st = coord.gathered_params()
+            stats = dict(coord.stats)
+            coord.shutdown()
+        named = {n: t.double().numpy() for n, t in {**p, **st}.items()}
+        ref = mha_named["sync"]
+        worst = max(float((np.abs(named[k] - ref[k])
+                           - TCP_RECOVERY_TOL["rtol"] * np.abs(ref[k])).max())
+                    for k in ref)
+        diff = max_named_diff(named, ref)
+        lines = [w.result() for w in fleet]
+        out["launches"]["kill"] = {
+            k: sum(l["launches"][k] for l in lines)
+            for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+        out["recovery"] = {k: stats[k] for k in (
+            "recoveries", "respawns", "replayed_batches", "batches_lost",
+            "detection_s", "recovery_s")}
+        if (stats["recoveries"] != 1 or stats["batches_lost"] != 0
+                or worst > TCP_RECOVERY_TOL["atol"]):
+            fail(f"tcp pipeline: the killed run {out['recovery']}, params max "
+                 f"|diff| {diff:.3e} vs the uninterrupted run (rtol "
+                 f"{TCP_RECOVERY_TOL['rtol']:g}, atol "
+                 f"{TCP_RECOVERY_TOL['atol']:g})")
+        print(f"tcp pipeline: mha_classifier sync, worker of stage 1 "
+              f"SIGKILLed after batch {TCP_KILL_AFTER} and respawned on its "
+              f"port (checkpoint every {TCP_CKPT_EVERY} batches): "
+              f"{json.dumps(out['recovery'])}; params max |diff| {diff:.3e} "
+              f"vs the uninterrupted TCP run; on {card}", flush=True)
+        lap("kill")
+        out["worker_start_s"] = {k: [w.start_s for w in f]
+                                 for k, f in fleets.items()}
+        print(f"tcp pipeline: seconds {json.dumps(out['seconds'])} (each "
+              f"run's from the last's end: its workers' start, deploy, "
+              f"batches, gathers, shutdown); worker start seconds "
+              f"{json.dumps(out['worker_start_s'])}; wire bytes a batch "
+              f"{json.dumps(out['wire_bytes_per_batch'])}; load reports "
+              f"(track_load='sample', ms a call) "
+              f"{json.dumps(out['load_reports'])} on {card}", flush=True)
+    finally:
+        torch.backends.cudnn.deterministic = det
+        for f in fleets.values():
+            for w in f:
+                w.close()
+    return out
+
+
 def bias_before_bn(model):
     """Names (as ``named_parameters`` gives them) of the conv biases that
     feed a batchnorm directly: their gradient is zero in exact arithmetic,
@@ -5016,8 +5370,11 @@ def main() -> None:
     obs = timed("obs", phase_obs, card, feed["traced_resident"])
     export = timed("export", phase_export, card)
     pipe = timed("pipeline", phase_pipeline, card)
+    resnet = pipe.pop("resnet18")
     compiled = timed("compiled pipeline", phase_compiled_pipeline, card,
-                     pipe.pop("resnet18"))
+                     resnet)
+    tcp = timed("tcp pipeline", phase_tcp_pipeline, card,
+                pipe.pop("tcp_refs"), resnet)
     print(f"phase seconds: {json.dumps(seconds)}, total "
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
 
@@ -5068,6 +5425,9 @@ def main() -> None:
     tl, fl = train["launches"], feed["launches"]
     pl = {k: sum(run[k] for run in pipe["launches"].values())
           for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    # counted in the worker processes, from their shutdown lines
+    tp = {k: sum(run[k] for run in tcp["launches"].values())
+          for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     tc_src = "dcnn_tpu_torch/ops/csrc/conv3x3_tc.cu"
     kernels = [
         row("flash_fwd", "dcnn_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -5077,19 +5437,21 @@ def main() -> None:
              "serve_int8": serve_int8["mha"]["launches"]["flash_fwd"],
              "wide_layer": wide["flash_fwd"], "obs": obs["flash_fwd"],
              "export": export["mha_classifier"]["launches"]["flash_fwd"],
-             "pipeline": pl["flash_fwd"]}),
+             "pipeline": pl["flash_fwd"], "tcp_pipeline": tp["flash_fwd"]}),
         row("flash_bwd_dq", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:460", bwd_cases["dq"],
             {"serve": 0, "train": tl["flash_bwd_dq"],
              "train_feed": fl["flash_bwd_dq"],
              "wide_layer": wide["flash_bwd_dq"], "obs": obs["flash_bwd_dq"],
-             "pipeline": pl["flash_bwd_dq"]}),
+             "pipeline": pl["flash_bwd_dq"],
+             "tcp_pipeline": tp["flash_bwd_dq"]}),
         row("flash_bwd_dkv", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:478", bwd_cases["dkv"],
             {"serve": 0, "train": tl["flash_bwd_dkv"],
              "train_feed": fl["flash_bwd_dkv"],
              "wide_layer": wide["flash_bwd_dkv"],
-             "obs": obs["flash_bwd_dkv"], "pipeline": pl["flash_bwd_dkv"]}),
+             "obs": obs["flash_bwd_dkv"], "pipeline": pl["flash_bwd_dkv"],
+             "tcp_pipeline": tp["flash_bwd_dkv"]}),
         site_row("conv3x3_s1", tc_src, "dcnn_tpu/ops/pallas/conv.py:82"),
         site_row("conv3x3_s1_pairs", tc_src,
                  "dcnn_tpu/ops/pallas/conv.py:173"),
@@ -5107,7 +5469,13 @@ def main() -> None:
                for k, v in compiled["samples_per_s"].items()}},
         "load_reports": pipe["load_reports"],
         "peak_bytes": compiled["peak_bytes"],
-        "pool_bytes": compiled["pool_bytes"]}}), flush=True)
+        "pool_bytes": compiled["pool_bytes"],
+        "tcp_samples_per_s": tcp["samples_per_s"],
+        "tcp_wire_bytes_per_batch": tcp["wire_bytes_per_batch"],
+        "tcp_load_reports": tcp["load_reports"],
+        "tcp_launches": tcp["launches"],
+        "tcp_worker_start_s": tcp["worker_start_s"],
+        "tcp_recovery": tcp["recovery"]}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

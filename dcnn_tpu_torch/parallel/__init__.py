@@ -1,12 +1,13 @@
 """Parallelism (counterpart of ``dcnn_tpu/parallel/``): the partitioners,
 the in-process pipeline (stages, the sync and semi-async schedules, the
-coordinator) and the compiled pipeline (a whole GPipe or 1F1B step as one
-CUDA graph).
+coordinator), the compiled pipeline (a whole GPipe or 1F1B step as one
+CUDA graph) and the TCP pipeline: framed channels (``comm``), stage-worker
+processes (``worker``, ``python -m dcnn_tpu_torch.parallel.worker``) and
+the self-healing ``DistributedPipelineCoordinator``.
 
-Not ported yet (ROADMAP.md Queue 1): the TCP pipeline (``comm``,
-``worker``, ``distributed_pipeline``; item 4), and data, sequence,
-multihost and elastic parallelism with ``core/mesh.py`` (item 6), which
-the JAX package's ``shard_stacked`` needs.
+Not ported yet (ROADMAP.md Queue 1): data, sequence, multihost and
+elastic parallelism with ``core/mesh.py`` (item 6), which the JAX
+package's ``shard_stacked`` needs.
 """
 
 from .compiled_pipeline import (
@@ -19,6 +20,20 @@ from .pipeline import (
     InProcessPipelineCoordinator, PipelineError, PipelineStage,
     train_pipeline_batch_sync,
 )
+from .distributed_pipeline import (
+    DistributedPipelineCoordinator, PipelineCollapsedError,
+    PipelineTimeouts, PipelineWorkerError, StageLostError,
+)
+
+
+def __getattr__(name: str):
+    # the worker module loads on first use, so that
+    # ``python -m dcnn_tpu_torch.parallel.worker`` runs it fresh
+    if name in ("StageWorker", "run_worker"):
+        from . import worker
+        return getattr(worker, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
 
 __all__ = [
     "Partitioner", "NaivePartitioner", "FlopBalancedPartitioner",
@@ -27,4 +42,7 @@ __all__ = [
     "HeteroCompiledPipeline", "SequentialStageStack",
     "make_compiled_pipeline_forward", "make_compiled_pipeline_train_step",
     "stack_stage_params",
+    "DistributedPipelineCoordinator", "PipelineWorkerError",
+    "StageLostError", "PipelineCollapsedError", "PipelineTimeouts",
+    "StageWorker", "run_worker",
 ]

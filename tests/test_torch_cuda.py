@@ -2495,3 +2495,231 @@ def test_compiled_homogeneous_stack_runs_eagerly_in_anomaly_mode():
     (gl, gp), (el, ep) = run(True), run(False)
     assert gl == el
     assert all(torch.equal(gp[n], ep[n]) for n in gp)
+
+
+# -- the TCP pipeline: stage workers as processes of their own on the card --
+
+_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _tcp_env(**extra):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = _ROOT
+    env.update(extra)
+    return env
+
+
+def _tcp_workers(n, codec="raw"):
+    """``n`` ``python -m dcnn_tpu_torch.parallel.worker --deterministic``
+    processes on the card, on free ports."""
+    return [_smoke.TcpWorker(p, codec) for p in _smoke.free_ports(n)]
+
+
+def _tcp_coordinator(model, addrs, micro=2, **kw):
+    from dcnn_tpu_torch.parallel import (
+        DistributedPipelineCoordinator, PipelineTimeouts,
+    )
+
+    co = DistributedPipelineCoordinator(
+        model, SGD(0.05, momentum=0.9), "softmax_crossentropy",
+        addrs, num_microbatches=micro, device="cuda",
+        timeouts=PipelineTimeouts(batch_s=300.0, heartbeat_s=1.0,
+                                  connect_s=300.0), **kw)
+    co.deploy_stages()
+    return co
+
+
+def _tcp_cnn():
+    return (SequentialBuilder("tcp_cnn").input((3, 8, 8))
+            .conv2d(8, 3, 1, 1).batchnorm().activation("relu")
+            .conv2d(8, 3, 1, 1).batchnorm().activation("relu")
+            .flatten().dense(10).build())
+
+
+def test_tcp_workers_on_card_equal_in_process(_deterministic_cudnn):
+    """Two CUDA worker processes under both schedules: every loss, logit,
+    parameter and BN statistic bit for bit the in-process coordinator's on
+    the card (cuDNN deterministic on both sides)."""
+    from dcnn_tpu_torch.parallel import InProcessPipelineCoordinator
+
+    rng = np.random.default_rng(0)
+    batches = [(rng.normal(size=(8, 3, 8, 8)).astype(np.float32),
+                np.eye(10, dtype=np.float32)[rng.integers(0, 10, 8)])
+               for _ in range(3)]
+    g = torch.Generator().manual_seed(0)
+    workers = _tcp_workers(2, "shuffle-lz4")
+    try:
+        co = _tcp_coordinator(_tcp_cnn().init(generator=g, device="cuda"),
+                              [w.addr for w in workers],
+                              compress="shuffle-lz4")
+        ref = InProcessPipelineCoordinator(
+            _tcp_cnn().init(generator=torch.Generator().manual_seed(0),
+                            device="cuda"),
+            SGD(0.05, momentum=0.9), "softmax_crossentropy", 2,
+            num_microbatches=2)
+        ref.deploy_stages()
+        for schedule in ("sync", "semi_async"):
+            for b, (x, y) in enumerate(batches):
+                got = getattr(co, f"train_batch_{schedule}")(x, y, 0.05, b)
+                want = getattr(ref, f"train_batch_{schedule}")(x, y, 0.05, b)
+                assert got[0] == want[0]
+                assert torch.equal(got[1], want[1])
+        p, s = co.gathered_params()
+        rp, rs = ref.gathered_params()
+        assert all(torch.equal(p[n], rp[n]) for n in rp)
+        assert all(torch.equal(s[n], rs[n]) for n in rs)
+        co.shutdown()
+        lines = [w.result() for w in workers]
+        assert all(l["device"] == torch.cuda.get_device_name(0)
+                   for l in lines)
+    finally:
+        for w in workers:
+            w.close()
+
+
+def test_tcp_worker_shutdown_line_counts_flash():
+    """A narrow mha classifier over 2 CUDA workers, an attention block in
+    each stage: each worker's shutdown line counts one flash forward, dQ
+    and dK/dV a microbatch it trained, and a forward-only call adds one
+    forward."""
+    from dcnn_tpu_torch.nn import ResidualBlock
+    from dcnn_tpu_torch.parallel import Partitioner
+
+    class OneBlockFirst(Partitioner):
+        def get_partitions(self, model, num_stages):
+            return [(0, 1), (1, 4)]
+
+    def block(name):
+        return ResidualBlock(layers=[MultiHeadAttentionLayer(
+            num_heads=2, impl="flash", name=f"{name}_mha")], shortcut=[],
+            activation="relu", name=name)
+
+    model = (SequentialBuilder("tcp_mha").input((8, 16)).add_layer(block("a0"))
+             .add_layer(block("a1")).flatten("flatten")
+             .dense(10, True, "head").build())
+    model.init(generator=torch.Generator().manual_seed(0), device="cuda")
+    rng = np.random.default_rng(1)
+    workers = _tcp_workers(2)
+    try:
+        co = _tcp_coordinator(model, [w.addr for w in workers],
+                              partitioner=OneBlockFirst())
+        assert co.partitions == [(0, 1), (1, 4)]
+        for b in range(3):
+            x = rng.normal(size=(8, 8, 16)).astype(np.float32)
+            y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 8)]
+            co.train_batch_semi_async(x, y, 0.05, b)
+        co.forward_only(x)
+        co.shutdown()
+        for w in workers:
+            got = w.result()["launches"]
+            assert (got["flash_fwd"], got["flash_bwd_dq"],
+                    got["flash_bwd_dkv"]) == (3 * 2 + 1, 3 * 2, 3 * 2)
+    finally:
+        for w in workers:
+            w.close()
+
+
+def test_bf16_frame_roundtrips_from_cuda_tensor():
+    """A bf16 activation made on a side stream goes out of a channel
+    through one pinned copy on that stream and comes back bit for bit."""
+    import socket
+    import threading
+
+    from dcnn_tpu_torch.parallel.comm import Channel
+
+    a, b = socket.socketpair()
+    tx, rx = Channel(a), Channel(b)
+    side = torch.cuda.Stream()
+    got = {}
+    reader = threading.Thread(target=lambda: got.update(frame=rx.recv()))
+    reader.start()
+    try:
+        with torch.cuda.stream(side):
+            t = (torch.randn(64, 257, device="cuda") * 3).to(torch.bfloat16)
+            t = t * 2  # queued work the send must wait for
+            tx.send("ACT", {"mb_id": 0}, array=t)
+        reader.join(30)
+        cmd, meta, got = got["frame"]
+        assert (cmd, meta) == ("ACT", {"mb_id": 0})
+        assert got.dtype == torch.bfloat16 and got.device.type == "cpu"
+        assert torch.equal(got, t.cpu())
+    finally:
+        tx.close()
+        rx.close()
+
+
+def test_four_workers_on_a_cold_kernel_cache_build_the_same_libraries(
+        tmp_path):
+    """Four processes building the kernels at once into one empty cache
+    root (each its own ``nvcc`` runs, renamed into place): all end with the
+    same libraries, loaded, and no temporary file is left."""
+    import json
+    import subprocess
+
+    code = ("import json\n"
+            "from dcnn_tpu_torch.ops import _kernels\n"
+            "libs = _kernels.build()\n"
+            "print(json.dumps(sorted(l._name for l in libs.values())))\n")
+    env = _tcp_env(DCNN_COMPILE_CACHE=str(tmp_path))
+    procs = [subprocess.Popen([sys.executable, "-c", code], cwd=_ROOT,
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for _ in range(4)]
+    outs = [p.communicate(timeout=1800) for p in procs]
+    assert all(p.returncode == 0 for p in procs), [e[-2000:] for _, e in outs]
+    libs = [json.loads(o.strip().splitlines()[-1]) for o, _ in outs]
+    assert all(l == libs[0] for l in libs)
+    assert len(libs[0]) == len(_kernels.SOURCES)
+    names = sorted(os.path.basename(p) for p in libs[0])
+    assert sorted(n for n in os.listdir(tmp_path) if n.endswith(".so")) == \
+        names
+    assert not [n for n in os.listdir(tmp_path) if n.endswith(".tmp")]
+
+
+def test_tcp_failed_kernel_launch_is_a_worker_error(monkeypatch):
+    """A kernel that fails to launch in a worker (two worker threads on the
+    card) surfaces at the coordinator as ``PipelineWorkerError`` with the
+    launch's error, never as a run elsewhere; the next batch trains."""
+    import threading
+
+    from dcnn_tpu_torch.nn import ResidualBlock
+    from dcnn_tpu_torch.parallel import PipelineWorkerError, StageWorker, comm
+
+    def block(name):
+        return ResidualBlock(layers=[MultiHeadAttentionLayer(
+            num_heads=2, impl="flash", name=f"{name}_mha")], shortcut=[],
+            activation="relu", name=name)
+
+    model = (SequentialBuilder("tcp_fail").input((8, 16))
+             .add_layer(block("a0")).add_layer(block("a1")).flatten("flatten")
+             .dense(10, True, "head").build())
+    model.init(generator=torch.Generator().manual_seed(0), device="cuda")
+    socks = [comm.listen(0, host="127.0.0.1") for _ in range(2)]
+    workers = [StageWorker(0, listen_sock=s, device="cuda") for s in socks]
+    threads = [threading.Thread(target=w.serve, daemon=True) for w in workers]
+    for t in threads:
+        t.start()
+    addrs = [f"127.0.0.1:{s.getsockname()[1]}" for s in socks]
+    rng = np.random.default_rng(2)
+    x = rng.normal(size=(8, 8, 16)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 8)]
+    try:
+        co = _tcp_coordinator(model, addrs)
+
+        def failing(*a, **k):
+            raise RuntimeError("flash_fwd: CUDA error: injected launch failure")
+
+        before = _launches()
+        with monkeypatch.context() as m:
+            m.setattr(_kernels, "flash_fwd", failing)
+            with pytest.raises(PipelineWorkerError, match="injected launch"):
+                co.train_batch_sync(x, y, 0.05, 0)
+        assert _launches() == before  # nothing ran in its place
+        loss, _ = co.train_batch_sync(x, y, 0.05, 1)
+        assert np.isfinite(loss)
+        co.shutdown()
+    finally:
+        for w in workers:
+            w.stop()
+        for t in threads:
+            t.join(timeout=30)

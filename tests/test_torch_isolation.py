@@ -18,7 +18,10 @@ the export and the AOT cache: the ``dcnn::`` ops, ``nn/export.py``,
 cached program, the CLI, and an artifact served by a process that builds
 no model, and on pipeline parallelism: each ``parallel/`` module read and
 imported alone, and the host-driven coordinator and both compiled
-schedules driven on the CPU."""
+schedules driven on the CPU, and on the TCP pipeline: the wire codecs,
+hardware info, framed channels, the coordinator and the stage worker, each
+read and imported alone, a two-worker run on the CPU and the worker's
+``python -m`` entry point, with ``ml_dtypes`` forbidden too."""
 
 import ast
 import os
@@ -450,3 +453,74 @@ PIPELINE = (
 
 def test_pipeline_modules_and_paths_leave_jax_out():
     _run_isolated(PIPELINE)
+
+
+# the TCP pipeline: wire codecs, hardware info, channels, the coordinator
+# and the stage worker; bf16 frames decode without ml_dtypes
+TCP_MODULES = (
+    "dcnn_tpu_torch.utils.compression", "dcnn_tpu_torch.utils.hardware",
+    "dcnn_tpu_torch.parallel.comm",
+    "dcnn_tpu_torch.parallel.distributed_pipeline",
+    "dcnn_tpu_torch.parallel.worker",
+)
+TCP_FORBIDDEN = FORBIDDEN + ("ml_dtypes",)
+
+
+@pytest.mark.parametrize("module", TCP_MODULES)
+def test_tcp_module_imports_no_jax(module):
+    """The source of each TCP-pipeline module imports no JAX, flax,
+    msgpack, ml_dtypes or JAX-package module."""
+    path = REPO / (module.replace(".", "/") + ".py")
+    bad = [f"{line} imports {mod}" for line, mod in _imports(path)
+           if mod.split(".")[0] in TCP_FORBIDDEN]
+    assert not bad, bad
+
+
+TCP = (
+    "import importlib, runpy, threading\n"
+    f"for name in {TCP_MODULES!r}:\n"
+    "    importlib.import_module(name)\n"
+    "    bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+    f"{TCP_FORBIDDEN!r})\n"
+    "    assert not bad, (name, bad)\n"
+    "from dcnn_tpu_torch.models import create_model\n"
+    "from dcnn_tpu_torch.optim import SGD\n"
+    "from dcnn_tpu_torch.parallel import (DistributedPipelineCoordinator,\n"
+    "    StageWorker, comm)\n"
+    "from dcnn_tpu_torch.utils.compression import MetaCompressor\n"
+    "from dcnn_tpu_torch.utils.hardware import HardwareInfo\n"
+    "socks = [comm.listen(0, host='127.0.0.1') for _ in range(2)]\n"
+    "ws = [StageWorker(0, listen_sock=s, device='cpu') for s in socks]\n"
+    "for w in ws:\n"
+    "    threading.Thread(target=w.serve, daemon=True).start()\n"
+    "m = create_model('mnist_cnn').init("
+    "generator=torch.Generator().manual_seed(0), device='cpu')\n"
+    "co = DistributedPipelineCoordinator(m, SGD(0.01), "
+    "'softmax_crossentropy',\n"
+    "    [f'127.0.0.1:{s.getsockname()[1]}' for s in socks],\n"
+    "    num_microbatches=2, compress='zlib', device='cpu')\n"
+    "co.deploy_stages()\n"
+    "x, y = torch.randn(4, 1, 28, 28), torch.eye(10)[torch.arange(4)]\n"
+    "loss, _ = co.train_batch_semi_async(x, y, 0.01, 0)\n"
+    "assert loss == loss and co.health_check()[1]['configured']\n"
+    "co.shutdown()\n"
+    "mc = MetaCompressor()\n"
+    "b = torch.randn(3, 5).to(torch.bfloat16)\n"
+    "assert torch.equal(mc.decompress_array(mc.compress_array(b)), b)\n"
+    "assert HardwareInfo.collect()['default_backend'] in ('cpu', 'cuda')\n"
+    "sys.argv = ['worker', '--help']\n"
+    "try:\n"
+    "    runpy.run_module('dcnn_tpu_torch.parallel.worker',"
+    " run_name='__main__')\n"
+    "except SystemExit as e:\n"
+    "    assert e.code == 0\n"
+    "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+    f"{TCP_FORBIDDEN!r})\n"
+    "assert not bad, bad\n")
+
+
+def test_tcp_pipeline_modules_and_worker_entry_leave_jax_out():
+    """The TCP modules imported one by one, a two-worker semi-async batch
+    on the CPU, a bf16 frame, hardware info and the worker's ``--help``
+    load no JAX, flax, msgpack, ml_dtypes or JAX-package module."""
+    _run_isolated(TCP)

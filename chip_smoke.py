@@ -181,7 +181,25 @@ Phases, each fatal on failure:
    launches, samples/s, load reports, memory and the TCP runs' rates,
    wire bytes a batch, worker start seconds and recovery print as
    ``{"pipeline": {...}}`` (``tcp_*`` keys) on a line before the kernels
-   line.
+   line;
+19. router (``phase_router``): int8 ``resnet18_tiny_imagenet`` committed
+   by ``CheckpointManager`` as v1..v4 and loaded by one ``EngineFactory``
+   into 2 ``LocalReplica``s behind a ``Router``, under open-loop traffic
+   (singles and batches of 2-8, 20% high, 60% normal, 20% low): a replica
+   killed mid-load, restarted and rejoined; v2 canaried by
+   ``ModelVersionManager`` and promoted; v3's canary armed with an
+   injected fault, rolled back and quarantined; a torn v4 skipped. Every
+   admitted request resolves, every result bit for bit one version's
+   reference engine, sheds typed (low first), ``conv_int8_fused`` 21 a
+   replayed batch, each retired engine's graph pool at 0 B;
+20. router tcp (``phase_router_tcp``): ``mha_classifier`` behind 2
+   ``ReplicaServer`` processes (``python chip_smoke.py --replica-server``,
+   each its own CUDA context) and their ``TcpReplica``s: one SIGKILLed
+   mid-load (seen through the connection's close; detection and recovery
+   seconds), a remote swap to v2 on the survivor; every result within
+   ``SERVE_TOL`` of one version's CPU reference, the survivor's flash
+   forward counted in its shutdown line. Both phases print ``{"router":
+   ..., "router_tcp": ...}`` on a line before the kernels line.
 
 Compiled sessions (CUDA graphs, ``dcnn_tpu_torch/core/graphs.py``): in
 serve, serve cnn, serve int8 and decode every bucket or lattice point is a
@@ -199,8 +217,10 @@ lines).
 Then it prints ``{"kernels": [...]}`` (rows 1-8, row 8 ``conv_int8_fused``
 with mode A ``conv_int8`` inside it; each row's ``launches_by_path`` has
 the obs phase's launches under ``"obs"``, the export phase's under
-``"export"``, the pipeline phase's under ``"pipeline"`` and the TCP
-workers' under ``"tcp_pipeline"`` where they launch the row) on
+``"export"``, the pipeline phase's under ``"pipeline"``, the TCP
+workers' under ``"tcp_pipeline"``, the router phase's replicas' under
+``"router"`` and the router tcp phase's surviving replica server's under
+``"router_tcp"`` where they launch the row) on
 a line of its own and, last,
 ``{"ok": true, "device": {...}}``. Times come from CUDA events around CUDA
 graph replays of many calls, so host overhead is not in them.
@@ -5249,6 +5269,654 @@ def phase_tcp_pipeline(card, refs, resnet):
     return out
 
 
+# router phases: the serving tier in front of several replicas
+ROUTER_RPS = 400.0          # offered requests/s, open loop, for as long as
+#                             the phase's events take
+ROUTER_POOL = 64            # distinct samples the requests draw rows from
+ROUTER_QUEUE = 16           # rows a replica queues: low (0.6 of the fleet's
+#                             32) sheds first when a replica is out
+ROUTER_MIX = (("high", 0.2), ("normal", 0.6), ("low", 0.2))
+ROUTER_OBSERVE_S = 1.0      # a canary's clean window before it promotes
+ROUTER_MIN_CANARY = 20      # completions the canary needs to be judged
+ROUTER_NOISE = 0.02         # std of the noise a new version adds to params
+
+
+class OpenLoopMix:
+    """Open-loop mixed traffic through ``Router.submit`` on a thread of its
+    own: request k goes at k / ``rps`` seconds (late ones at once, never
+    waiting on an answer), a single sample half the time, else a batch of
+    2-8 rows, all drawn from ``pool``; its priority class drawn 20% high,
+    60% normal, 20% low. A shed must be a ``RouterShedError``; anything
+    else raised at submit is recorded and fails the phase."""
+
+    def __init__(self, router, pool, rps, seed):
+        import numpy as np
+
+        self.router, self.pool, self.rps = router, pool, rps
+        self.rng = np.random.default_rng(seed)
+        self.sent = []      # (row indices, single, priority, future)
+        self.offered = {p: 0 for p, _ in ROUTER_MIX}
+        self.shed = {p: 0 for p, _ in ROUTER_MIX}
+        self.errors = []
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="router-open-loop")
+
+    def start(self) -> "OpenLoopMix":
+        self._thread.start()
+        return self
+
+    def _run(self):
+        from dcnn_tpu_torch.serve import RouterShedError
+
+        names = [p for p, _ in ROUTER_MIX]
+        probs = [w for _, w in ROUTER_MIX]
+        t0, k = time.perf_counter(), 0
+        while not self._stop.is_set():
+            wait = t0 + k / self.rps - time.perf_counter()
+            if wait > 0:
+                time.sleep(wait)
+            k += 1
+            prio = names[self.rng.choice(3, p=probs)]
+            single = bool(self.rng.random() < 0.5)
+            n = 1 if single else int(self.rng.integers(2, 9))
+            idx = self.rng.integers(0, len(self.pool), n)
+            x = self.pool[idx[0]] if single else self.pool[idx]
+            self.offered[prio] += 1
+            try:
+                fut = self.router.submit(x, priority=prio)
+            except RouterShedError:
+                self.shed[prio] += 1
+                continue
+            except Exception as e:  # noqa: BLE001 (recorded, fails the phase)
+                self.errors.append(f"{type(e).__name__}: {e}")
+                continue
+            self.sent.append((idx, single, prio, fut))
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join()
+
+
+def version_of(traffic, refs, what, exact, tol=0.0):
+    """Hold every resolved request to the reference logits of exactly one
+    version (``refs``: {version: logits of every pool row}): bit for bit
+    when ``exact``, else within ``tol``; all of a request's rows the same
+    version. Returns ({version: requests}, typed failures)."""
+    import numpy as np
+
+    served, failed = {v: 0 for v in refs}, 0
+    for idx, single, prio, fut in traffic.sent:
+        if not fut.done():
+            fail(f"{what}: an admitted {prio} request never resolved")
+        if fut.exception() is not None:
+            failed += 1
+            continue
+        y = np.asarray(fut.result())
+        rows = y[None] if single else y
+        hits = [v for v, ref in refs.items() if rows.shape == ref[idx].shape
+                and (np.array_equal(rows, ref[idx]) if exact
+                     else float(np.abs(rows - ref[idx]).max()) <= tol)]
+        if len(hits) != 1:
+            errs = {v: float(np.abs(rows - ref[idx]).max())
+                    for v, ref in refs.items()}
+            fail(f"{what}: a {prio} request of {len(idx)} row(s) matches "
+                 f"{len(hits)} versions' references (max |diff| by version "
+                 f"{errs}, {'bit for bit' if exact else f'tol {tol:g}'})")
+        served[hits[0]] += 1
+    return served, failed
+
+
+def shed_shares(traffic, what):
+    """Per class shed / offered; low's share must be at least normal's,
+    normal's at least high's."""
+    share = {p: traffic.shed[p] / max(traffic.offered[p], 1)
+             for p, _ in ROUTER_MIX}
+    if traffic.errors:
+        fail(f"{what}: submit raised other than RouterShedError: "
+             f"{traffic.errors[:3]}")
+    if not share["low"] >= share["normal"] >= share["high"]:
+        fail(f"{what}: shed shares {share} are not low >= normal >= high")
+    return share
+
+
+def pool_blocks(pool):
+    """(size, state) of every block in ``pool``'s segments."""
+    import torch
+
+    handle = tuple(pool.handle)
+    return [(b["size"], b["state"]) for s in torch.cuda.memory_snapshot()
+            if tuple(s.get("segment_pool_id", ())) == handle
+            for b in s["blocks"]]
+
+
+def counting_replica_class():
+    """``LocalReplica`` counting the bucket warm-ups of every batcher it
+    makes (each warms every bucket on its dispatcher: one replay each),
+    for the launch gates."""
+    from dcnn_tpu_torch.serve import LocalReplica
+
+    class CountingReplica(LocalReplica):
+        warmups = 0
+
+        def _make_batcher(self, engine):
+            b = super()._make_batcher(engine)
+            self.warmups += len(b.warmup_s)
+            return b
+
+    return CountingReplica
+
+
+def perturbed(model, rng):
+    """A copy of ``model`` with N(0, ROUTER_NOISE) added to every param:
+    the next checkpoint version, visibly another model."""
+    import copy
+
+    import torch
+
+    out = copy.deepcopy(model)
+    with torch.no_grad():
+        for p in out.parameters():
+            p.add_(torch.from_numpy(rng.normal(
+                0.0, ROUTER_NOISE, tuple(p.shape)).astype("float32")))
+    return out
+
+
+def commit_into(staging, root, step):
+    """Publish ``staging``'s committed ``ckpt-<step>`` under ``root`` as a
+    training run commits: written under a temporary name, then renamed."""
+    import shutil
+
+    name = f"ckpt-{step:08d}"
+    tmp = os.path.join(root, f"tmp-{name}")
+    shutil.copytree(os.path.join(staging, name), tmp)
+    os.rename(tmp, os.path.join(root, name))
+    return os.path.join(root, name)
+
+
+def phase_router(card):
+    """The router tier in process on the card: int8
+    ``resnet18_tiny_imagenet`` (NHWC, BN folded, random weights and BN
+    statistics from a seed in the JAX layout) committed by
+    ``CheckpointManager`` as v1..v4 (each the last plus noise) and loaded
+    by one ``EngineFactory`` (64-sample calibration batch, max_batch 32)
+    into 2 ``LocalReplica``s behind a ``Router`` with its default shares,
+    under open-loop mixed traffic (:class:`OpenLoopMix`). Events, in
+    order: replica r1 killed mid-load, restarted and rejoined on a
+    ``check_replicas`` sweep; ``ModelVersionManager(canary_fraction=0.5)``
+    finds v2, canaries it on one replica, serves mixed versions and
+    promotes it; v3's canary armed with an ``InjectedFault`` at
+    ``serve.replica_infer`` rolls back and is quarantined; a torn v4 (one
+    bit flipped) is skipped by ``newest_valid_version``. Gates: every
+    admitted request resolves and the ledger ends empty; every result bit
+    for bit the reference engine of exactly one version; every shed a
+    ``RouterShedError`` with low's share >= normal's >= high's;
+    ``conv_int8_fused`` 21 launches a replayed batch; the retired engine's
+    graph pool at 0 B after each swap and ``memory_reserved`` over v1 ->
+    v2 -> rollback within one engine's pool."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.obs.registry import MetricsRegistry
+    from dcnn_tpu_torch.resilience.checkpoint import (
+        CheckpointManager, list_steps,
+    )
+    from dcnn_tpu_torch.resilience.faults import FaultPlan, InjectedFault
+    from dcnn_tpu_torch.serve import (
+        EngineFactory, ModelVersionManager, Router, newest_valid_version,
+    )
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 30)
+    cfg, _, _, v1 = resnet18("cpu", rng)
+    models = {1: v1}
+    for v in (2, 3, 4):
+        models[v] = perturbed(models[v - 1], rng)
+    calib = rng.normal(size=(INT8_CALIB, *cfg["input_shape"])).astype(
+        np.float32)
+    pool = rng.normal(size=(ROUTER_POOL, *cfg["input_shape"])).astype(
+        np.float32)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_router_", dir=ROOT)
+    staging, root = os.path.join(tmp.name, "staging"), os.path.join(
+        tmp.name, "serve")
+    os.makedirs(root)
+    mgr = CheckpointManager(staging, keep=10)
+    for v, m in models.items():
+        mgr.save(v, m)
+    mgr.close()
+    reg = MetricsRegistry()
+
+    class CountingFactory(EngineFactory):
+        built = 0
+
+        def __call__(self, version):
+            eng = super().__call__(version)
+            self.built += 1
+            return eng
+
+    # the reference: one engine a version, from the very same commits
+    refs = {}
+    ref_factory = EngineFactory(staging, max_batch=32, int8_calib=calib,
+                                device="cuda")
+    for v in (1, 2, 3):
+        eng = ref_factory(v)
+        refs[v] = torch.cat([eng.infer(pool[i:i + 32]) for i in
+                             range(0, ROUTER_POOL, 32)]).cpu().numpy()
+        eng._release()
+        del eng
+    if any(np.array_equal(refs[a], refs[b]) for a, b in ((1, 2), (2, 3))):
+        fail("router: two versions' reference logits are equal")
+    commit_into(staging, root, 1)
+    out = {"swap_s": [], "pool_bytes_after_swap": []}
+    torch.cuda.synchronize()
+    reset_launches()  # the router path starts here
+    factory = CountingFactory(root, max_batch=32, int8_calib=calib,
+                              device="cuda", registry=reg)
+    Replica = counting_replica_class()
+    plans = {n: FaultPlan() for n in ("r0", "r1")}
+    reps = [Replica(factory, 1, name=n, queue_capacity=ROUTER_QUEUE,
+                    fault_plan=plans[n]) for n in ("r0", "r1")]
+    router = Router(reps)
+    pool_bytes = reps[0]._engine.graphs.bytes()
+    reserved = {"v1": torch.cuda.memory_reserved()}
+    mvm = ModelVersionManager(router, factory, canary_fraction=0.5,
+                              observe_s=ROUTER_OBSERVE_S,
+                              min_canary_requests=ROUTER_MIN_CANARY)
+    traffic = OpenLoopMix(router, pool, ROUTER_RPS, SEED + 31).start()
+
+    def poll(want, timeout=60.0, stop=("rolled_back", "swap_failed")):
+        """Poll the manager until it answers ``want``; every engine a
+        swap retired must have given its graph pool back."""
+        t0 = time.perf_counter()
+        while True:
+            before = {r.name: r._engine for r in reps}
+            pools = {n: e.graphs for n, e in before.items()}
+            t = time.perf_counter()
+            res = mvm.poll()
+            dt = time.perf_counter() - t
+            for r in reps:
+                if r._engine is not before[r.name]:
+                    out["swap_s"].append(round(dt, 3))
+                    left = pools[r.name].bytes()
+                    out["pool_bytes_after_swap"].append(left)
+                    if left:
+                        fail(f"router: {r.name}'s retired engine still "
+                             f"holds {left} B of graph pool after a swap "
+                             f"(blocks {pool_blocks(pools[r.name])})")
+            del before
+            if res["action"] == want:
+                return res
+            if res["action"] in stop or time.perf_counter() - t0 > timeout:
+                fail(f"router: waiting for {want!r}, the version manager "
+                     f"answered {res}")
+            time.sleep(0.05)
+
+    try:
+        time.sleep(0.5)
+        reps[1].kill()  # mid-load: its queue fails typed and re-admits
+        ejected = router.check_replicas()
+        time.sleep(0.3)
+        reps[1].restart()
+        rejoined = router.check_replicas()
+        if rejoined.get("r1") != "rejoined":
+            fail(f"router: r1 did not rejoin after its restart: "
+                 f"{ejected} then {rejoined}")
+        time.sleep(0.3)
+        commit_into(staging, root, 2)
+        res = poll("canary")
+        if len(res["canaries"]) != 1:
+            fail(f"router: v2's canary is {res}, not one replica of two")
+        time.sleep(0.2)
+        res = poll("promoted")
+        if {r.version for r in reps} != {2}:
+            fail(f"router: after the promotion replicas serve "
+                 f"{[r.version for r in reps]}")
+        reserved["v2"] = torch.cuda.memory_reserved()
+        commit_into(staging, root, 3)
+        res = poll("canary")
+        for name in res["canaries"]:
+            plans[name].arm("serve.replica_infer", exc=InjectedFault)
+        res = poll("rolled_back", stop=("promoted", "swap_failed"))
+        for p in plans.values():
+            p.disarm("serve.replica_infer")
+        if mvm.quarantined != {3} or {r.version for r in reps} != {2}:
+            fail(f"router: after the rollback quarantined "
+                 f"{mvm.quarantined}, replicas on "
+                 f"{[r.version for r in reps]}")
+        reserved["rollback"] = torch.cuda.memory_reserved()
+        torn = commit_into(staging, root, 4)
+        FaultPlan(seed=SEED).bit_flip(os.path.join(torn, "arrays.msgpack"))
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            idle = mvm.poll()
+            skipped = reg.snapshot().get(
+                "serve_swap_versions_skipped_total", 0)
+            newest = newest_valid_version(root, registry=MetricsRegistry())
+        if (idle["action"] != "none" or not skipped
+                or not any("torn/corrupt" in str(w.message) for w in caught)
+                or newest[0] != 3 or sorted(list_steps(root)) != [1, 2, 3, 4]):
+            fail(f"router: the torn v4 was not skipped to v3 ({idle}, "
+                 f"skipped {skipped}, steps {sorted(list_steps(root))})")
+        time.sleep(0.3)
+    finally:
+        traffic.stop()
+    router.drain(timeout=120)
+    counts = launches()  # and ends here
+    if router.outstanding():
+        fail(f"router: {router.outstanding()} rows left in the accepted "
+             f"ledger after drain")
+    served, failed = version_of(traffic, refs, "router", exact=True)
+    shares = shed_shares(traffic, "router")
+    snaps = [r.metrics.snapshot() for r in reps]
+    batches = sum(s["batches"] for s in snaps)
+    warm = sum(r.warmups for r in reps)
+    dispatched = (2 * len(reps[0]._engine.bucket_sizes) * factory.built
+                  + warm + batches)
+    if counts["conv_int8_fused"] != INT8_CONVS * dispatched \
+            or counts["conv_int8"]:
+        fail(f"router: conv_int8_fused launched {counts['conv_int8_fused']} "
+             f"times for {dispatched} batches ({INT8_CONVS} convs each), "
+             f"mode A {counts['conv_int8']}")
+    grew = {k: v - reserved["v1"] for k, v in reserved.items()}
+    if max(grew.values()) > pool_bytes:
+        fail(f"router: memory_reserved grew {grew} B over v1, more than one "
+             f"engine's pool ({pool_bytes} B)")
+    rsnap = router.metrics.snapshot()
+    regs = router.metrics.registry.snapshot()
+    for r in reps:
+        r.close()
+    tmp.cleanup()
+    out.update({
+        "requests": len(traffic.sent), "offered": traffic.offered,
+        "shed": traffic.shed, "shed_share": shares, "failed": failed,
+        "served_by_version": served, "launches": counts,
+        "dispatched": dispatched, "engines_built": factory.built,
+        "pool_bytes": pool_bytes, "reserved_growth": grew,
+        "readmits": regs.get("serve_router_readmits_total", 0),
+        "deaths": regs.get("serve_router_replica_deaths_total", 0),
+        "rejoins": regs.get("serve_router_rejoins_total", 0),
+        "promotions": regs.get("serve_router_promotions_total", 0),
+        "rollbacks": regs.get("serve_router_rollbacks_total", 0),
+        "skipped_versions": skipped,
+        "latency_ms": {p: {"p50": rsnap[p]["p50_ms"], "p99": rsnap[p]["p99_ms"]}
+                       for p, _ in ROUTER_MIX},
+        "throughput_rps": rsnap["total"]["throughput_rps"],
+        "phase_s": round(time.perf_counter() - t_phase, 1)})
+    if not (out["deaths"] >= 1 and out["rejoins"] >= 1
+            and out["promotions"] == 1 and out["rollbacks"] == 1
+            and served[1] and served[2]):
+        fail(f"router: events incomplete: {json.dumps(out)}")
+    print(f"router: int8 resnet18_tiny_imagenet, 2 LocalReplicas behind a "
+          f"Router, {len(traffic.sent)} admitted requests of "
+          f"{sum(traffic.offered.values())} offered at {ROUTER_RPS:g}/s; "
+          f"{json.dumps(out)}; every result bit for bit one version's "
+          f"reference, ledger empty, conv_int8_fused "
+          f"{counts['conv_int8_fused']} = {INT8_CONVS} x {dispatched} "
+          f"batches; on {card}", flush=True)
+    return out
+
+
+class ReplicaChild:
+    """One ``python chip_smoke.py --replica-server ...`` process on the
+    card (its own CUDA context, loading the kernels this process built),
+    its stdout read by a thread. Closing its stdin asks it to drain and
+    print its shutdown line."""
+
+    def __init__(self, port, root, version, name, calib=None):
+        self.port, self.name = port, name
+        self.lines = []
+        self.listening = threading.Event()
+        extra = [] if calib is None else ["--calib", calib]
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
+             "--replica-server", "--root", root, "--version", str(version),
+             "--port", str(port), "--name", name,
+             "--queue-capacity", str(ROUTER_QUEUE), *extra],
+            cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)
+        self._reader = threading.Thread(target=self._read, daemon=True)
+        self._reader.start()
+
+    def _read(self):
+        for line in self.proc.stdout:
+            self.lines.append(line.rstrip())
+            if line.startswith('{"listening"'):
+                self.listening.set()
+
+    def wait(self, timeout=180.0):
+        deadline = time.perf_counter() + timeout
+        while not self.listening.wait(0.1):
+            if self.proc.poll() is not None \
+                    or time.perf_counter() > deadline:
+                self._reader.join(timeout=10)
+                fail(f"router tcp: replica server {self.name} did not "
+                     f"listen (exit code {self.proc.poll()}):\n"
+                     + "\n".join(self.lines[-30:]))
+
+    def result(self, timeout=120.0) -> dict:
+        """Close its stdin; its shutdown line after it exited 0."""
+        self.proc.stdin.close()
+        rc = self.proc.wait(timeout=timeout)
+        self._reader.join(timeout=10)
+        last = [json.loads(l) for l in self.lines
+                if l.startswith('{"shutdown"')]
+        if rc != 0 or not last:
+            fail(f"router tcp: replica server {self.name} exited {rc} "
+                 f"without its shutdown line:\n" + "\n".join(self.lines[-30:]))
+        return last[-1]
+
+    def kill(self):
+        self.proc.kill()
+        self.proc.wait()
+
+    def close(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait()
+
+
+def replica_server_main(argv) -> None:
+    """``python chip_smoke.py --replica-server --root DIR --version V
+    --port P [--name N] [--queue-capacity Q] [--max-batch B] [--calib
+    FILE.npy]``: a ``ReplicaServer`` over a ``LocalReplica`` whose
+    ``EngineFactory`` loads ``DIR``'s commits on the card (int8 from the
+    calibration batch in ``FILE.npy`` where given, so every process
+    quantizes from the very same array). Prints ``{"listening": P, ...}``
+    when it serves; when its stdin closes it drains and prints
+    ``{"shutdown": true, "launches": ..., "dispatched": ...}``, the launch
+    counters of this process and the batches they cover."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --replica-server")
+    ap.add_argument("--root", required=True)
+    ap.add_argument("--version", type=int, required=True)
+    ap.add_argument("--port", type=int, required=True)
+    ap.add_argument("--name", default="replica")
+    ap.add_argument("--queue-capacity", type=int, default=128)
+    ap.add_argument("--max-batch", type=int, default=32)
+    ap.add_argument("--calib", default=None)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, ROOT)
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.core import set_precision
+    from dcnn_tpu_torch.ops import _kernels
+    from dcnn_tpu_torch.serve import EngineFactory, ReplicaServer
+
+    set_precision("parity")
+    _kernels.build()  # the libraries the parent built, from the build dir
+    kw = {} if args.calib is None else {"int8_calib": np.load(args.calib)}
+    factory = EngineFactory(args.root, max_batch=args.max_batch,
+                            device="cuda", **kw)
+    buckets = []
+
+    def make(version):
+        eng = factory(version)
+        buckets.append(len(eng.bucket_sizes))
+        return eng
+
+    replica = counting_replica_class()(
+        make, args.version, name=args.name,
+        queue_capacity=args.queue_capacity)
+    server = ReplicaServer(replica, port=args.port, host="127.0.0.1",
+                           own_replica=True)
+    print(json.dumps({"listening": server.port, "pid": os.getpid(),
+                      "device": torch.cuda.get_device_name(0)}), flush=True)
+    sys.stdin.read()  # until the parent closes it
+    server.close()  # drains and closes the replica
+    snap = replica.metrics.snapshot()
+    print(json.dumps({
+        "shutdown": True, "name": args.name, "version": replica.version,
+        "launches": launches(), "engines": len(buckets),
+        "warmups": replica.warmups, "batches": snap["batches"],
+        "dispatched": 2 * sum(buckets) + replica.warmups + snap["batches"]}),
+        flush=True)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def phase_router_tcp(card):
+    """The router tier over TCP on the card: full-width ``mha_classifier``
+    (S=32, E=64, 4 heads, fp32; JAX-layout weights from ``SEED``, v2 = v1
+    plus noise, both committed by ``CheckpointManager``) served by 2
+    ``ReplicaServer`` child processes (:class:`ReplicaChild`), with a
+    ``TcpReplica`` each and the ``Router`` here, under the open-loop mix.
+    One child is SIGKILLed mid-load: its death must be seen through the
+    connection's close (the last-heard timeout is 30 s), its accepted work
+    re-admitted to the survivor; then a remote swap to v2 on the survivor.
+    Gates: every admitted request resolves; every result within
+    ``SERVE_TOL`` of the CPU reference of exactly one version; the
+    survivor's shutdown line counts the flash forward twice a replayed
+    batch. Prints detection and recovery seconds."""
+    import tempfile
+
+    import numpy as np
+
+    from dcnn_tpu_torch.interop import from_jax
+    from dcnn_tpu_torch.resilience.checkpoint import CheckpointManager
+    from dcnn_tpu_torch.serve import InferenceEngine, Router, TcpReplica
+
+    t_phase = time.perf_counter()
+    cfg, params, rng = model_params()
+    models = {1: from_jax(cfg, params, device="cpu")}
+    rng = np.random.default_rng(SEED + 40)
+    models[2] = perturbed(models[1], rng)
+    pool = rng.normal(size=(ROUTER_POOL, *cfg["input_shape"])).astype(
+        np.float32)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_router_tcp_",
+                                      dir=ROOT)
+    mgr = CheckpointManager(tmp.name, keep=10)
+    refs = {}
+    for v, m in models.items():
+        path = mgr.save(v, m)
+        refs[v] = InferenceEngine.from_checkpoint(
+            path, max_batch=32, device="cpu").infer(pool).numpy()
+    mgr.close()
+    children = [ReplicaChild(p, tmp.name, 1, f"tcp{i}")
+                for i, p in enumerate(free_ports(2))]
+    clients, router, traffic = [], None, None
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        for c in children:
+            c.wait()
+        out["child_start_s"] = round(time.perf_counter() - t0, 1)
+        clients = [TcpReplica("127.0.0.1", c.port, name=c.name,
+                              timeout_s=30.0, connect_timeout=60.0)
+                   for c in children]
+        router = Router(clients)
+        traffic = OpenLoopMix(router, pool, ROUTER_RPS, SEED + 41).start()
+        time.sleep(1.0)
+        pending = [f for _, _, _, f in list(traffic.sent) if not f.done()]
+        t_kill = time.perf_counter()
+        children[1].kill()  # SIGKILL, mid-load
+        while not clients[1].is_dead():
+            if time.perf_counter() - t_kill > 10.0:
+                fail("router tcp: the killed replica's client did not see "
+                     "it die within 10 s")
+            time.sleep(0.001)
+        out["detection_s"] = round(time.perf_counter() - t_kill, 4)
+        reason = clients[1].health()
+        if "connection closed" not in reason:
+            fail(f"router tcp: death seen as {reason!r}, not through the "
+                 f"connection's close")
+        while not all(f.done() for f in pending):
+            if time.perf_counter() - t_kill > 60.0:
+                fail("router tcp: requests in flight at the kill did not "
+                     "resolve within 60 s")
+            time.sleep(0.001)
+        out["recovery_s"] = round(time.perf_counter() - t_kill, 4)
+        out["in_flight_at_kill"] = len(pending)
+        report = router.check_replicas()
+        if "ejected" not in report.get("tcp1", "") and \
+                router.replica_stats()["tcp1"]["state"] != "dead":
+            fail(f"router tcp: the dead replica was not ejected: {report}")
+        time.sleep(0.5)
+        t = time.perf_counter()
+        router.swap_replica("tcp0", 2)
+        out["swap_s"] = round(time.perf_counter() - t, 3)
+        clients[0].ping()  # its pong carries the remote version
+        t = time.perf_counter()
+        while clients[0].version != 2 and time.perf_counter() - t < 10.0:
+            time.sleep(0.01)
+        if clients[0].version != 2:
+            fail(f"router tcp: the survivor serves {clients[0].version} "
+                 f"after its remote swap to 2")
+        time.sleep(1.0)
+    finally:
+        if traffic is not None:
+            traffic.stop()
+        try:
+            if router is not None:
+                router.drain(timeout=120)
+        finally:
+            for c in clients:
+                c.close()
+            line = None
+            if children[0].proc.poll() is None:
+                line = children[0].result()
+            for c in children:
+                c.close()
+            tmp.cleanup()
+    if line is None:
+        fail("router tcp: the surviving replica server died")
+    served, failed = version_of(traffic, refs, "router tcp", exact=False,
+                                tol=SERVE_TOL)
+    shares = shed_shares(traffic, "router tcp")
+    fwd = line["launches"]["flash_fwd"]
+    if fwd != 2 * line["dispatched"] or not line["batches"] \
+            or line["version"] != 2:
+        fail(f"router tcp: the survivor's flash_fwd launches {fwd} for "
+             f"{line['dispatched']} batches (2 attention layers each); "
+             f"{line}")
+    rsnap = router.metrics.snapshot()
+    regs = router.metrics.registry.snapshot()
+    out.update({
+        "requests": len(traffic.sent), "offered": traffic.offered,
+        "shed": traffic.shed, "shed_share": shares, "failed": failed,
+        "served_by_version": served, "survivor": line,
+        "readmits": regs.get("serve_router_readmits_total", 0),
+        "latency_ms": {p: {"p50": rsnap[p]["p50_ms"], "p99": rsnap[p]["p99_ms"]}
+                       for p, _ in ROUTER_MIX},
+        "throughput_rps": rsnap["total"]["throughput_rps"],
+        "phase_s": round(time.perf_counter() - t_phase, 1)})
+    if not (served[1] and served[2]):
+        fail(f"router tcp: not both versions served: {json.dumps(out)}")
+    print(f"router tcp: mha_classifier fp32 over 2 ReplicaServer processes, "
+          f"one SIGKILLed mid-load (seen through the connection's close "
+          f"after {out['detection_s']} s, its {len(pending)} in-flight "
+          f"requests resolved after {out['recovery_s']} s), the survivor "
+          f"swapped to v2 remotely in {out['swap_s']} s; {json.dumps(out)}; "
+          f"every result within {SERVE_TOL:g} of one version's CPU "
+          f"reference, the survivor's flash_fwd {fwd} = 2 x "
+          f"{line['dispatched']} batches; on {card}", flush=True)
+    return out
+
+
 def bias_before_bn(model):
     """Names (as ``named_parameters`` gives them) of the conv biases that
     feed a batchnorm directly: their gradient is zero in exact arithmetic,
@@ -5269,7 +5937,7 @@ def bias_before_bn(model):
     return names
 
 
-def int8_row(serve_int8, obs_launches, export_launches):
+def int8_row(serve_int8, obs_launches, export_launches, router_launches):
     """Row 8, conv_int8.cu: its fused mode (B, the one the int8 serving
     path launches; with its K-split reduces) with launches on that path
     and times summed over the 21 conv sites of resnet18_tiny_imagenet at
@@ -5277,7 +5945,8 @@ def int8_row(serve_int8, obs_launches, export_launches):
     (int8 -> int32, 0 launches on the served path) under "mode_a"; the
     unfused chain under "chain_ms"; no library call computes either
     function. ``obs_launches``: the obs phase's telemetry-served path;
-    ``export_launches``: the export phase's artifact-served path."""
+    ``export_launches``: the export phase's artifact-served path;
+    ``router_launches``: the router phase's replicas."""
     def total(sites):
         out = {k: sum(c[k] for c in sites)
                for k in ("ms", "plain_ms", "bound_ms", "chain_ms")}
@@ -5296,10 +5965,12 @@ def int8_row(serve_int8, obs_launches, export_launches):
     return {"name": "conv_int8_fused", "route": "cuda",
             "source": "dcnn_tpu_torch/ops/csrc/conv_int8.cu",
             "replaces": "dcnn_tpu/ops/conv.py:77", "launches":
-            counts["conv_int8_fused"] + obs_launches + export_launches,
+            counts["conv_int8_fused"] + obs_launches + export_launches
+            + router_launches,
             "launches_by_path": {"serve_int8": counts["conv_int8_fused"],
                                  "obs": obs_launches,
-                                 "export": export_launches},
+                                 "export": export_launches,
+                                 "router": router_launches},
             "splitk_reduce_launches": counts["conv_int8_reduce"],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             **b32, "library_ms": None,
@@ -5375,6 +6046,8 @@ def main() -> None:
                      resnet)
     tcp = timed("tcp pipeline", phase_tcp_pipeline, card,
                 pipe.pop("tcp_refs"), resnet)
+    router = timed("router", phase_router, card)
+    router_tcp = timed("router tcp", phase_router_tcp, card)
     print(f"phase seconds: {json.dumps(seconds)}, total "
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
 
@@ -5437,7 +6110,8 @@ def main() -> None:
              "serve_int8": serve_int8["mha"]["launches"]["flash_fwd"],
              "wide_layer": wide["flash_fwd"], "obs": obs["flash_fwd"],
              "export": export["mha_classifier"]["launches"]["flash_fwd"],
-             "pipeline": pl["flash_fwd"], "tcp_pipeline": tp["flash_fwd"]}),
+             "pipeline": pl["flash_fwd"], "tcp_pipeline": tp["flash_fwd"],
+             "router_tcp": router_tcp["survivor"]["launches"]["flash_fwd"]}),
         row("flash_bwd_dq", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:460", bwd_cases["dq"],
             {"serve": 0, "train": tl["flash_bwd_dq"],
@@ -5460,7 +6134,8 @@ def main() -> None:
         site_row("fused_scale_bias_relu", "dcnn_tpu_torch/ops/csrc/fused.cu",
                  "dcnn_tpu/ops/pallas/fused.py:49"),
         int8_row(serve_int8, obs["conv_int8_fused"],
-                 export["resnet18"]["launches"]["conv_int8_fused"]),
+                 export["resnet18"]["launches"]["conv_int8_fused"],
+                 router["launches"]["conv_int8_fused"]),
     ]
     print(json.dumps({"pipeline": {
         "launches": pipe["launches"], "samples_per_s": {
@@ -5476,6 +6151,8 @@ def main() -> None:
         "tcp_launches": tcp["launches"],
         "tcp_worker_start_s": tcp["worker_start_s"],
         "tcp_recovery": tcp["recovery"]}}), flush=True)
+    print(json.dumps({"router": router, "router_tcp": router_tcp}),
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -5483,4 +6160,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--replica-server"]:
+        replica_server_main(sys.argv[2:])
+    else:
+        main()

@@ -14,9 +14,10 @@ intermediate memory, so two of them must never run together.
 
 Capture runs the Python of ``fn`` but launches nothing, while the kernel
 wrappers of :mod:`~dcnn_tpu_torch.ops._kernels` count a launch per call.
-A session takes that delta back when it captures (:func:`take_back`) and
-adds it at every replay (:func:`add_launches`), so the counters count what
-ran on the card.
+A session takes back what was counted while it captured (:func:`take_back`
+of ``_kernels.capture_tally``, which other graphs' replays meanwhile stay
+out of) and adds it at every replay (:func:`add_launches`), so the
+counters count what ran on the card.
 
 On a CPU device a session is the plain call of ``fn`` on the caller's
 inputs. On CUDA it is the graph or an exception: a capture that fails (a
@@ -26,7 +27,9 @@ eagerly before capture (kernel builds, packed weights, cuDNN plans and
 lazily filled caches happen there, never inside a graph). Capture uses
 ``capture_begin``/``capture_end`` on the pool's stream rather than the
 ``torch.cuda.graph`` context, whose entry synchronises the card and empties
-the allocator's cache; so a capture waits for nothing on the card.
+the allocator's cache; so a capture waits for nothing on the card. Captures
+of the process take one lock, which :meth:`GraphPool.release` (the graphs
+of a retired engine destroyed and their memory given back) takes too.
 
 Generators that ``fn`` draws from are registered with the graph
 (``CUDAGraph.register_generator_state``): the caller reseeds them on the
@@ -43,7 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Callable, Dict, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -55,28 +58,26 @@ class CaptureError(RuntimeError):
     """A CUDA graph capture failed; the function did not run."""
 
 
-def launch_counts() -> Tuple[int, ...]:
-    """The launch count of every counted kernel wrapper
-    (``_kernels.COUNTED``), in that order."""
-    return tuple(w.launches for w in _kernels.COUNTED)
+# held over every capture of the process and over a pool's release: a
+# release destroys graphs and empties the allocator's cache, which may
+# synchronise the device, and no capture may be in flight meanwhile
+_CAPTURE_LOCK = threading.Lock()
 
 
-def take_back(before: Sequence[int]) -> Dict[Any, int]:
-    """Subtract from each counted wrapper what it counted since ``before``
-    (a :func:`launch_counts` snapshot) and return those deltas, {wrapper:
-    launches}, the ones that moved."""
-    delta = {}
-    for w, b in zip(_kernels.COUNTED, before):
-        if w.launches != b:
-            delta[w] = w.launches - b
-            w.launches = b
+def take_back(delta: Dict[Any, int]) -> Dict[Any, int]:
+    """Subtract ``delta`` ({wrapper: launches}, what was counted while a
+    capture ran) from the wrappers' counters; returns it."""
+    with _kernels.COUNT_LOCK:
+        for w, d in delta.items():
+            w.launches -= d
     return delta
 
 
 def add_launches(delta: Dict[Any, int]) -> None:
     """Count ``delta`` ({wrapper: launches}) on the wrappers."""
-    for w, d in delta.items():
-        w.launches += d
+    with _kernels.COUNT_LOCK:
+        for w, d in delta.items():
+            w.launches += d
 
 
 _HOOK_DICTS = ("_forward_hooks", "_forward_pre_hooks", "_backward_hooks",
@@ -129,6 +130,30 @@ class GraphPool:
         return sum(s["total_size"] for s in torch.cuda.memory_snapshot()
                    if tuple(s.get("segment_pool_id", ())) == pool)
 
+    def release(self, sessions) -> None:
+        """Destroy ``sessions`` (captured in this pool; none may replay
+        again) and give the pool's segments back to the device: once no
+        graph captured into a pool lives and no tensor of it is held, the
+        allocator frees its segments at ``torch.cuda.empty_cache``. Runs
+        under the pool's lock and the process's capture lock, so it waits
+        for any capture in flight in any pool. Nothing happens on the
+        CPU."""
+        if not self.cuda:
+            return
+        with self.lock, _CAPTURE_LOCK:
+            for s in sessions:
+                if s.graph is not None:
+                    s.graph.reset()
+                s.graph = s.inputs = s.outputs = None
+            # cuBLAS keeps a workspace per (handle, stream), made at its
+            # first use on that stream: one first used inside a capture
+            # lies in that graph's pool and would hold a segment of it
+            # forever. Drop them all (the next call on a stream makes its
+            # own again; a captured graph keeps the address it baked in,
+            # inside its own pool), then free the segments.
+            torch._C._cuda_clearCublasWorkspaces()
+            torch.cuda.empty_cache()
+
 
 class Session:
     """``fn`` over inputs shaped like ``example``, captured in ``pool``.
@@ -155,9 +180,9 @@ class Session:
             graph = torch.cuda.CUDAGraph()
             for gen in generators:
                 graph.register_generator_state(gen)
-            before = launch_counts()
+            tally = _kernels.capture_tally()
             try:
-                with torch.cuda.stream(pool.stream):
+                with _CAPTURE_LOCK, tally, torch.cuda.stream(pool.stream):
                     graph.capture_begin(pool=pool.handle,
                                         capture_error_mode="thread_local")
                     try:
@@ -174,7 +199,7 @@ class Session:
                     f"and runs nothing eagerly instead): "
                     f"{type(e).__name__}: {e}") from e
             finally:
-                self.launches = take_back(before)
+                self.launches = take_back(tally.counts)
             self.outputs = out
             self.graph = graph
             # the graph is all a replay needs: keep no state fn closes over

@@ -30,7 +30,9 @@ attribute (``flash_fwd.launches``, ``flash_bwd_dq.launches``,
 ``fused_scale_bias_relu.launches``, ``conv_int8.launches``,
 ``conv_int8_fused.launches``, ``conv_int8_reduce.launches``), so a run can
 show that its path went through the kernel. :data:`COUNTED` lists them
-all.
+all. A count is taken under one lock, and while a CUDA graph is captured
+it also goes on that capture's tally (:class:`capture_tally`), which the
+replays of other graphs meanwhile stay out of.
 """
 
 from __future__ import annotations
@@ -246,6 +248,43 @@ def flash_head_width(d: int, dtype: torch.dtype) -> int:
     of whole 16-byte units): a multiple of 4 in fp32, of 8 in bf16."""
     unit = 16 // (2 if dtype == torch.bfloat16 else 4)
     return _cdiv(d, unit) * unit
+
+
+# counts under one lock: dispatcher threads replay (adding a graph's
+# launches) while other threads launch eagerly or capture
+COUNT_LOCK = threading.Lock()
+_tally: Optional[dict] = None  # the capture in flight's, if one is
+
+
+def _count(fn) -> None:
+    """One launch of wrapper ``fn``: on its counter and, while a capture
+    runs, on that capture's tally."""
+    with COUNT_LOCK:
+        fn.launches += 1
+        if _tally is not None:
+            _tally[fn] = _tally.get(fn, 0) + 1
+
+
+class capture_tally:
+    """``with capture_tally() as counts:`` collects in ``counts``
+    ({wrapper: launches}) what the wrappers count inside the block, from
+    any thread (autograd runs a captured backward on a thread of its own);
+    replays, which count through ``core/graphs.add_launches``, stay out.
+    One at a time: ``core/graphs.py`` holds its capture lock around it."""
+
+    def __init__(self):
+        self.counts: dict = {}
+
+    def __enter__(self) -> dict:
+        global _tally
+        with COUNT_LOCK:
+            _tally = self.counts
+        return self.counts
+
+    def __exit__(self, *exc) -> None:
+        global _tally
+        with COUNT_LOCK:
+            _tally = None
 
 
 @dataclass(frozen=True)
@@ -724,7 +763,7 @@ def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     like q, logsumexp (B, H, Sq) fp32). Raises on anything the kernel does
     not take."""
     out = _launch_flash(q, k, v, causal, scale)
-    flash_fwd.launches += 1
+    _count(flash_fwd)
     return out
 
 
@@ -791,7 +830,7 @@ def flash_bwd_dq(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dq = torch.empty_like(q)
     _launch_flash_bwd("flash_bwd_dq", q, k, v, do, lse, delta, (dq,),
                       causal, scale)
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq)
     return dq
 
 
@@ -805,7 +844,7 @@ def flash_bwd_dkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_flash_bwd("flash_bwd_dkv", q, k, v, do, lse, delta, (dk, dv),
                       causal, scale)
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv)
     return dk, dv
 
 
@@ -1018,7 +1057,7 @@ def conv3x3_s1(x: torch.Tensor, w: torch.Tensor, *,
     on contiguous CUDA tensors x (N, H, W, Cin) and w (3, 3, Cin, Cout) of
     one dtype of CONV_DTYPES. Returns (N, H, W, Cout) of ``out_dtype``."""
     out = _launch_conv("conv3x3_s1", x, w, None, None, out_dtype)
-    conv3x3_s1.launches += 1
+    _count(conv3x3_s1)
     return out
 
 
@@ -1038,7 +1077,7 @@ def conv3x3_s1_bnrelu_in(x: torch.Tensor, w: torch.Tensor,
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     out = _launch_conv("conv3x3_s1_bnrelu_in", x, w, scale, shift,
                           out_dtype)
-    conv3x3_s1_bnrelu_in.launches += 1
+    _count(conv3x3_s1_bnrelu_in)
     return out
 
 
@@ -1051,7 +1090,7 @@ def conv3x3_s1_pairs(x: torch.Tensor, w2: torch.Tensor, *,
     ``out_dtype``."""
     out = _launch_conv("conv3x3_s1_pairs", x, w2, None, None, out_dtype,
                        pairs=True)
-    conv3x3_s1_pairs.launches += 1
+    _count(conv3x3_s1_pairs)
     return out
 
 
@@ -1078,7 +1117,7 @@ def fused_scale_bias_relu(x: torch.Tensor, scale: torch.Tensor,
             x.data_ptr(), scale.data_ptr(), bias.data_ptr(), y.data_ptr(),
             x.numel(), c, int(x.dtype == torch.bfloat16), stream)
     _raise_on(lib, fn, err)
-    fused_scale_bias_relu.launches += 1
+    _count(fused_scale_bias_relu)
     return y
 
 
@@ -1405,7 +1444,7 @@ def _launch_int8(fn: str, x: torch.Tensor, w: torch.Tensor, stride,
             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(lib, fn, err)
     if ws is not None:
-        conv_int8_reduce.launches += 1
+        _count(conv_int8_reduce)
     return y
 
 
@@ -1428,7 +1467,7 @@ def conv_int8(x: torch.Tensor, w: torch.Tensor, *, stride: Tuple[int, int],
     weights packed here unless ``packed`` holds them already."""
     y = _launch_int8("conv_int8", x, w, stride, padding, data_format,
                      packed=packed, ksplit=ksplit)
-    conv_int8.launches += 1
+    _count(conv_int8)
     return y
 
 
@@ -1448,7 +1487,7 @@ def conv_int8_fused(x: torch.Tensor, x_scale: torch.Tensor, w: torch.Tensor,
     y = _launch_int8("conv_int8_fused", x, w, stride, padding, data_format,
                      xscale=x_scale, scale=scale, bias=bias, packed=packed,
                      ksplit=ksplit)
-    conv_int8_fused.launches += 1
+    _count(conv_int8_fused)
     return y
 
 

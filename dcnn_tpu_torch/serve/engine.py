@@ -90,8 +90,11 @@ def serve_buckets(max_batch: int) -> List[int]:
 
 
 def _sync(device: torch.device) -> None:
+    # the calling thread's stream, where its replays ran: a device-wide
+    # synchronise would also wait on (and may break) another replica's
+    # capture in flight on its own stream
     if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 @contextlib.contextmanager
@@ -139,9 +142,13 @@ class InferenceEngine:
                  input_dtype: torch.dtype = torch.float32,
                  device: DeviceLike = None, warmup: bool = True,
                  batch_invariant: bool = False, name: str = "engine",
-                 registry=None, aot_cache: Any = None,
-                 aot_config: Optional[str] = None):
+                 version: Optional[Any] = None, registry=None,
+                 aot_cache: Any = None, aot_config: Optional[str] = None):
         self.name = name
+        # model-version identity (the CheckpointManager step for engines
+        # built by serve/swap.py's EngineFactory; None for ad-hoc engines),
+        # which the router tier routes and reports on
+        self.version = version
         self.batch_invariant = bool(batch_invariant)
         self.device = resolve_device(device)
         self.registry = registry if registry is not None else get_registry()
@@ -237,6 +244,16 @@ class InferenceEngine:
             self.run_padded(self._zeros(b))
             _sync(self.device)
         return time.perf_counter() - t0
+
+    def _release(self) -> None:
+        """Destroy every session's graph and give the pool's device
+        memory back (:meth:`GraphPool.release`); a later call captures
+        again. ``LocalReplica.swap`` calls it on the engine it retired,
+        once that engine's batcher has drained."""
+        with self.graphs.lock:
+            sessions = list(self.sessions.values())
+            self.sessions.clear()
+            self.graphs.release(sessions)
 
     def warm(self) -> Dict[int, float]:
         """Run every bucket once on zeros, on the calling thread, and wait

@@ -1,8 +1,11 @@
-"""Serving metrics (the part of ``dcnn_tpu/serve/metrics.py`` the batchers
-need): :class:`ServeMetrics` for ``DynamicBatcher`` (rolling latency
-percentiles, queue depth, batch occupancy, throughput and shed accounting)
-and :class:`DecodeMetrics` for ``ContinuousBatcher`` (tokens, prefill
-tokens, slots, pages, admissions, evictions and time to first token).
+"""Serving metrics (counterpart of ``dcnn_tpu/serve/metrics.py``):
+:class:`ServeMetrics` for ``DynamicBatcher`` (rolling latency percentiles,
+queue depth, batch occupancy, throughput and shed accounting),
+:class:`RouterMetrics` for the ``Router`` (per-priority requests, sheds,
+completions, failures and latency; fleet gauges; swap, canary, hedge and
+probation counters) and :class:`DecodeMetrics` for ``ContinuousBatcher``
+(tokens, prefill tokens, slots, pages, admissions, evictions and time to
+first token).
 
 Every timestamp comes from an injectable ``clock`` (default
 ``time.monotonic``), so tests drive it by hand and assert exact values.
@@ -13,8 +16,8 @@ never resets its instruments, :meth:`ServeMetrics.reset` does).
 ``prometheus()`` renders that registry and appends the exact windowed
 views as gauges, byte for byte the JAX module's text for the same calls.
 :meth:`snapshot` reads the plain fields under one lock, so its percentiles
-stay exact. The router metrics of the JAX module are not ported yet
-(``ROADMAP.md`` Queue 1 item 5).
+stay exact. :class:`RouterMetrics` (with :data:`PRIORITIES`) is the router
+tier's accounting on the same rules.
 """
 
 from __future__ import annotations
@@ -239,6 +242,276 @@ class ServeMetrics:
         s = self.snapshot()
         return (f"ServeMetrics(completed={s['requests_completed']}, "
                 f"shed={s['requests_shed']}, p99_ms={s['p99_ms']})")
+
+
+#: Router priority classes, best first. Admission shares are keyed on
+#: these; anything else at ``Router.submit`` is a ``ValueError``.
+PRIORITIES = ("high", "normal", "low")
+
+
+class RouterMetrics:
+    """Router-tier accounting: per-priority-class request/shed/latency
+    series plus fleet gauges and swap/rollback counters, on the same
+    rules as :class:`ServeMetrics` — injectable clock, O(1) recorders,
+    one private registry per instance (``registry=`` to pool), exact
+    windowed percentiles per priority in :meth:`snapshot`, Prometheus
+    text via the shared :mod:`~dcnn_tpu_torch.obs.exposition` renderer.
+
+    The registry has no label support (by design, as in the JAX package),
+    so per-priority series are name-suffixed and keep the ``_total``
+    counter convention: ``serve_router_requests_<class>_total``,
+    ``serve_router_shed_<class>_total``,
+    ``serve_router_completed_<class>_total``,
+    ``serve_router_failed_<class>_total``, and histogram
+    ``serve_router_latency_seconds_<class>``. Fleet state rides gauges
+    (``serve_router_replicas`` / ``_replicas_routable`` /
+    ``_outstanding_rows`` / ``_capacity_rows`` / ``_canary_replicas`` /
+    ``_version``) and lifecycle counters
+    (``serve_router_readmits_total``, ``serve_router_replica_deaths_total``,
+    ``serve_router_rejoins_total``, ``serve_router_replica_errors_total``,
+    ``serve_router_swaps_total``, ``serve_router_swap_failures_total``,
+    ``serve_router_promotions_total``, ``serve_router_rollbacks_total``).
+    Gray-failure serving: ``serve_router_hedges_total`` /
+    ``serve_router_hedge_wins_total`` count tail-latency hedging,
+    ``serve_router_probations_total`` /
+    ``serve_router_probation_rejoins_total`` + gauge
+    ``serve_router_probation_replicas`` track slow-replica probation.
+    """
+
+    def __init__(self, *, window: int = 4096,
+                 clock: Callable[[], float] = time.monotonic,
+                 registry: Optional[MetricsRegistry] = None):
+        if window < 1:
+            raise ValueError(f"window must be >= 1, got {window}")
+        self._clock = clock
+        self._window = window
+        self._lock = threading.Lock()
+        self.registry = (registry if registry is not None
+                         else MetricsRegistry(clock=clock))
+        r = self.registry
+        self._req = {p: r.counter(f"serve_router_requests_{p}_total",
+                                  f"{p}-priority requests admitted")
+                     for p in PRIORITIES}
+        self._shed = {p: r.counter(f"serve_router_shed_{p}_total",
+                                   f"{p}-priority requests shed at admission")
+                      for p in PRIORITIES}
+        self._done = {p: r.counter(f"serve_router_completed_{p}_total",
+                                   f"{p}-priority requests completed")
+                      for p in PRIORITIES}
+        self._fail = {p: r.counter(f"serve_router_failed_{p}_total",
+                                   f"{p}-priority requests failed with a "
+                                   f"typed error")
+                      for p in PRIORITIES}
+        self._lat_hist = {p: r.histogram(
+            f"serve_router_latency_seconds_{p}",
+            f"{p}-priority request latency (admit to complete)")
+            for p in PRIORITIES}
+        self._readmits = r.counter(
+            "serve_router_readmits_total",
+            "accepted requests re-admitted to a surviving replica")
+        self._deaths = r.counter("serve_router_replica_deaths_total",
+                                 "replicas ejected as dead")
+        self._rejoins = r.counter("serve_router_rejoins_total",
+                                  "dead replicas re-admitted to the fleet")
+        self._errors = r.counter("serve_router_replica_errors_total",
+                                 "request failures attributed to a replica")
+        self._swaps = r.counter("serve_router_swaps_total",
+                                "completed replica version swaps")
+        self._swap_failures = r.counter(
+            "serve_router_swap_failures_total",
+            "version swaps that failed (replica rejoined on old version)")
+        self._promotions = r.counter(
+            "serve_router_promotions_total",
+            "canary versions promoted to the whole fleet")
+        self._rollbacks = r.counter(
+            "serve_router_rollbacks_total",
+            "canary versions rolled back on regression")
+        self._decommissions = r.counter(
+            "serve_router_decommissions_total",
+            "replicas removed via graceful drain-then-remove")
+        self._decommission_sweeps = r.counter(
+            "serve_router_decommission_sweeps_total",
+            "decommissions that had to force-sweep outstanding work "
+            "(drain timeout or death mid-drain); the work failed typed "
+            "and re-admitted — never silently dropped")
+        self._hedges = r.counter(
+            "serve_router_hedges_total",
+            "tail requests duplicated to a second replica after the "
+            "hedge delay")
+        self._hedge_wins = r.counter(
+            "serve_router_hedge_wins_total",
+            "hedged requests where the duplicate answered first")
+        self._probations = r.counter(
+            "serve_router_probations_total",
+            "replicas demoted to probation as sustained latency outliers")
+        self._probation_rejoins = r.counter(
+            "serve_router_probation_rejoins_total",
+            "probation replicas released after a clean probe")
+        self.replicas = r.gauge("serve_router_replicas",
+                                "replicas known to the router")
+        self.replicas_routable = r.gauge(
+            "serve_router_replicas_routable",
+            "replicas currently accepting traffic")
+        self.outstanding_rows = r.gauge(
+            "serve_router_outstanding_rows",
+            "accepted sample rows not yet resolved")
+        self.capacity_rows = r.gauge(
+            "serve_router_capacity_rows",
+            "aggregate queue capacity of routable replicas")
+        self.canary_replicas = r.gauge(
+            "serve_router_canary_replicas",
+            "replicas currently serving the canary version")
+        self.version = r.gauge("serve_router_version",
+                               "fleet model version (checkpoint step)")
+        self.probation_replicas = r.gauge(
+            "serve_router_probation_replicas",
+            "replicas currently held in latency probation")
+        self._init_local()
+
+    def _init_local(self) -> None:
+        with self._lock:
+            self._lat_s = {p: deque(maxlen=self._window) for p in PRIORITIES}
+            self._counts = {p: {"requests": 0, "shed": 0, "completed": 0,
+                                "failed": 0} for p in PRIORITIES}
+            self._t0 = self._clock()
+
+    # -- recorders (all O(1), thread-safe) --
+    def record_submit(self, priority: str, n: int = 1) -> None:
+        with self._lock:
+            self._counts[priority]["requests"] += n
+        self._req[priority].inc(n)
+
+    def record_shed(self, priority: str, n: int = 1) -> None:
+        with self._lock:
+            self._counts[priority]["shed"] += n
+        self._shed[priority].inc(n)
+
+    def record_done(self, priority: str, latency_s: float,
+                    n: int = 1) -> None:
+        with self._lock:
+            self._counts[priority]["completed"] += n
+            self._lat_s[priority].append(latency_s)
+        self._done[priority].inc(n)
+        self._lat_hist[priority].observe(latency_s)
+
+    def record_failed(self, priority: str, n: int = 1) -> None:
+        with self._lock:
+            self._counts[priority]["failed"] += n
+        self._fail[priority].inc(n)
+
+    def record_readmit(self) -> None:
+        self._readmits.inc()
+
+    def record_replica_death(self) -> None:
+        self._deaths.inc()
+
+    def record_rejoin(self) -> None:
+        self._rejoins.inc()
+
+    def record_replica_error(self) -> None:
+        self._errors.inc()
+
+    def record_swap(self, ok: bool) -> None:
+        (self._swaps if ok else self._swap_failures).inc()
+
+    def record_promotion(self) -> None:
+        self._promotions.inc()
+
+    def record_rollback(self) -> None:
+        self._rollbacks.inc()
+
+    def record_decommission(self, clean: bool = True) -> None:
+        self._decommissions.inc()
+        if not clean:
+            self._decommission_sweeps.inc()
+
+    def record_hedge(self) -> None:
+        self._hedges.inc()
+
+    def record_hedge_win(self) -> None:
+        self._hedge_wins.inc()
+
+    def record_probation(self) -> None:
+        self._probations.inc()
+
+    def record_probation_rejoin(self) -> None:
+        self._probation_rejoins.inc()
+
+    def p99_ms(self, min_samples: int = 20) -> Optional[float]:
+        """Exact windowed p99 across ALL priority classes — the hedge
+        delay's base signal. ``None`` until ``min_samples`` completions
+        exist (a hedge delay derived from two data points would fire on
+        noise)."""
+        with self._lock:
+            lat = sorted(v for p in PRIORITIES for v in self._lat_s[p])
+        if len(lat) < max(min_samples, 1):
+            return None
+        i = min(int(0.99 * (len(lat) - 1) + 0.5), len(lat) - 1)
+        return lat[i] * 1e3
+
+    # -- export --
+    def snapshot(self) -> Dict[str, object]:
+        """Point-in-time per-priority view + totals, consistent under one
+        lock; latency keys ``None`` until the first completion (same
+        no-data-is-not-zero rule as :meth:`ServeMetrics.snapshot`)."""
+        with self._lock:
+            lat = {p: sorted(self._lat_s[p]) for p in PRIORITIES}
+            counts = {p: dict(self._counts[p]) for p in PRIORITIES}
+            wall_s = max(self._clock() - self._t0, 0.0)
+
+        def pct(vals, q):
+            if not vals:
+                return None
+            i = min(int(q * (len(vals) - 1) + 0.5), len(vals) - 1)
+            return vals[i] * 1e3
+
+        out: Dict[str, object] = {"wall_s": wall_s}
+        totals = {"requests": 0, "shed": 0, "completed": 0, "failed": 0}
+        for p in PRIORITIES:
+            c = counts[p]
+            offered = c["requests"] + c["shed"]
+            out[p] = {
+                **c,
+                "shed_fraction": (c["shed"] / offered) if offered else 0.0,
+                "p50_ms": pct(lat[p], 0.50),
+                "p99_ms": pct(lat[p], 0.99),
+                "mean_ms": (sum(lat[p]) / len(lat[p]) * 1e3)
+                if lat[p] else None,
+            }
+            for k in totals:
+                totals[k] += c[k]
+        offered = totals["requests"] + totals["shed"]
+        totals["shed_fraction"] = (totals["shed"] / offered) if offered \
+            else 0.0
+        completed = totals["completed"]
+        totals["throughput_rps"] = (completed / wall_s) if wall_s > 0 \
+            else None
+        out["total"] = totals
+        return out
+
+    def prometheus(self) -> str:
+        """Registry instruments plus the exact per-priority windowed
+        percentiles appended as gauges (derived views, like
+        :meth:`ServeMetrics.prometheus`)."""
+        from ..obs.exposition import render_scalar
+
+        s = self.snapshot()
+        lines = [self.registry.prometheus().rstrip("\n")]
+        for p in PRIORITIES:
+            for key, v in ((f"serve_router_latency_window_p50_ms_{p}",
+                            s[p]["p50_ms"]),
+                           (f"serve_router_latency_window_p99_ms_{p}",
+                            s[p]["p99_ms"])):
+                if v is None:
+                    continue  # absent series, not a lying 0.0
+                lines.extend(render_scalar(
+                    key, "gauge", v))  # dcnn: metric=serve_router_latency_window_*
+        return "\n".join(lines) + "\n"
+
+    def __repr__(self) -> str:
+        t = self.snapshot()["total"]
+        return (f"RouterMetrics(completed={t['completed']}, "
+                f"shed={t['shed']}, failed={t['failed']})")
 
 
 class DecodeMetrics:

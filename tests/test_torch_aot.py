@@ -503,8 +503,11 @@ def test_subprocess_round_trip_bit_identical_no_recompile(tmp_path):
     logits."""
     cache_dir = str(tmp_path / "aot")
     script = _SUBPROC.format(repo=REPO)
+    # DCNN_PRECISION too: importing bench.py (another test file, in the
+    # same worker) sets it to bf16 for the processes started after it
     env = {k: v for k, v in os.environ.items()
-           if k not in ("AOT_CACHE", "DCNN_COMPILE_CACHE", "PYTHONPATH")}
+           if k not in ("AOT_CACHE", "DCNN_COMPILE_CACHE", "PYTHONPATH",
+                        "DCNN_PRECISION")}
 
     def run(tag, warm):
         out = str(tmp_path / f"{tag}.json")

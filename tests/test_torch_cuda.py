@@ -2723,3 +2723,143 @@ def test_tcp_failed_kernel_launch_is_a_worker_error(monkeypatch):
             w.stop()
         for t in threads:
             t.join(timeout=30)
+
+
+# ------------------------------------------------------------- router tier
+
+def _router_versions(tmp_path, seed=0):
+    """A checkpoint root with v1 and v2 (v2 = v1 plus noise) of a small
+    NHWC CNN, its calibration batch saved beside it, and a request pool."""
+    from dcnn_tpu_torch.resilience.checkpoint import CheckpointManager
+
+    model = (SequentialBuilder(name="rt", data_format="NHWC")
+             .input((16, 16, 3)).conv2d(16, 3, padding=1).batchnorm()
+             .activation("relu").maxpool2d(2).conv2d(32, 3, padding=1)
+             .activation("relu").flatten().dense(10).build()).init(
+        generator=torch.Generator().manual_seed(seed), device="cpu")
+    rng = np.random.default_rng(seed)
+    root = str(tmp_path / "ck")
+    mgr = CheckpointManager(root, keep=5)
+    mgr.save(1, model)
+    mgr.save(2, _smoke.perturbed(model, rng))
+    mgr.close()
+    calib = rng.normal(size=(16, 16, 16, 3)).astype(np.float32)
+    np.save(tmp_path / "calib.npy", calib)
+    pool = rng.normal(size=(32, 16, 16, 3)).astype(np.float32)
+    return root, calib, pool
+
+
+def test_router_local_replica_swap_frees_the_old_pool(tmp_path):
+    """Each hot swap gives the retired int8 engine's graph pool back (0 B)
+    and ``memory_reserved`` stays within one engine's pool of where it
+    started; the swapped replica answers bit for bit a fresh engine of its
+    version."""
+    from dcnn_tpu_torch.serve import EngineFactory, LocalReplica
+
+    root, calib, pool = _router_versions(tmp_path)
+    factory = EngineFactory(root, max_batch=8, int8_calib=calib)
+    rep = LocalReplica(factory, 1, name="r0")
+    try:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_reserved()
+        one_pool = rep._engine.graphs.bytes()
+        assert one_pool > 0
+        for v in (2, 1, 2):
+            old = rep._engine.graphs
+            rep.swap(v)
+            assert rep.version == v
+            assert old.bytes() == 0
+            assert torch.cuda.memory_reserved() - base <= one_pool
+        fresh = factory(2)
+        for n in (1, 3, 8):
+            got = rep.submit(pool[:n]).result(timeout=60)
+            np.testing.assert_array_equal(got,
+                                          fresh.infer(pool[:n]).cpu().numpy())
+    finally:
+        rep.close()
+
+
+def test_router_capture_during_another_replicas_traffic(tmp_path):
+    """Replica b swaps (its new engine's eager calls and captures, the old
+    pool's release) while replica a's dispatcher replays on the same card:
+    every one of a's answers is bit for bit v1's, and b then serves v2."""
+    import threading
+
+    from dcnn_tpu_torch.serve import EngineFactory, LocalReplica
+
+    root, calib, pool = _router_versions(tmp_path)
+    factory = EngineFactory(root, max_batch=8, int8_calib=calib)
+    refs = {v: factory(v).infer(pool).cpu().numpy() for v in (1, 2)}
+    a = LocalReplica(factory, 1, name="a")
+    b = LocalReplica(factory, 1, name="b")
+    stop, got, errors = threading.Event(), [], []
+
+    def serve():
+        i = 0
+        while not stop.is_set():
+            idx = (np.arange(1 + i % 8) + i) % len(pool)
+            try:
+                got.append((idx, a.submit(pool[idx]).result(timeout=60)))
+            except Exception as e:  # noqa: BLE001 (asserted below)
+                errors.append(e)
+            i += 1
+
+    t = threading.Thread(target=serve)
+    t.start()
+    try:
+        for v in (2, 1, 2):
+            b.swap(v)
+    finally:
+        stop.set()
+        t.join()
+        a.close()
+    try:
+        assert not errors, errors[:3]
+        assert got
+        for idx, y in got:
+            np.testing.assert_array_equal(y, refs[1][idx])
+        np.testing.assert_array_equal(b.submit(pool[:4]).result(timeout=60),
+                                      refs[2][:4])
+    finally:
+        b.close()
+
+
+def test_router_tcp_replica_over_a_child_process(tmp_path):
+    """A ``ReplicaServer`` in a child process on the card (``python
+    chip_smoke.py --replica-server``: its own CUDA context, the kernels
+    this process built, int8 from the calibration batch saved beside the
+    checkpoints) behind a ``TcpReplica`` and a ``Router``: its int8 logits
+    bit for bit this process's engine of the same version, before and
+    after a remote swap; its shutdown line counts ``conv_int8_fused`` at
+    the model's 2 convs a replayed batch."""
+    from dcnn_tpu_torch.serve import EngineFactory, Router, TcpReplica
+
+    root, _, pool = _router_versions(tmp_path)
+    calib_path = str(tmp_path / "calib.npy")
+    factory = EngineFactory(root, max_batch=32,
+                            int8_calib=np.load(calib_path))
+    port = _smoke.free_ports(1)[0]
+    child = _smoke.ReplicaChild(port, root, 1, "child", calib=calib_path)
+    try:
+        child.wait()
+        cli = TcpReplica("127.0.0.1", port, name="child", timeout_s=30.0,
+                         connect_timeout=60.0)
+        router = Router([cli])
+        for v in (1, 2):
+            if v == 2:
+                router.swap_replica("child", 2)
+            want = factory(v).infer(pool).cpu().numpy()
+            futs = [router.submit(pool[i]) for i in range(8)]
+            futs.append(router.submit(pool[8:13]))
+            for i, f in enumerate(futs[:8]):
+                np.testing.assert_array_equal(f.result(timeout=60), want[i])
+            np.testing.assert_array_equal(futs[8].result(timeout=60),
+                                          want[8:13])
+        router.shutdown()
+        cli.close()
+        line = child.result()
+    finally:
+        child.close()
+    assert line["version"] == 2 and line["engines"] == 2
+    assert line["batches"] > 0
+    assert line["launches"]["conv_int8_fused"] == 2 * line["dispatched"]

@@ -297,29 +297,41 @@ def test_jit_step_equals_eager_and_the_jax_step(guard):
 def test_launch_deltas_are_taken_back_at_capture_and_added_per_replay(
         monkeypatch):
     """Three fake counted wrappers: what they count while a capture runs
-    is subtracted back and returned as the capture's delta (only the ones
-    that moved); each replay adds it. On the CPU a session is the plain
-    call and counts nothing itself."""
+    (``capture_tally``), on this thread or another (autograd runs a
+    captured backward on its own thread), is the capture's delta (only
+    the ones that moved) and is subtracted back, while a replay of another
+    graph in the meantime stays counted and out of the delta; each replay
+    adds the delta. On the CPU a session is the plain call and counts
+    nothing itself."""
+    import threading
+
     def fake(name):
         def f():
-            f.launches += 1
+            _kernels._count(f)
         f.__name__, f.launches = name, 5
         return f
 
     a, b, c = fake("a"), fake("b"), fake("c")
     monkeypatch.setattr(_kernels, "COUNTED", (a, b, c))
-    before = graphs.launch_counts()
-    assert before == (5, 5, 5)
-    for f in (a, a, c):  # what a captured function launches
-        f()
-    delta = graphs.take_back(before)
+
+    def counts():
+        return tuple(w.launches for w in _kernels.COUNTED)
+
+    with _kernels.capture_tally() as delta:
+        a()  # what a captured function launches, here and on another thread
+        for target in (a, c, lambda: graphs.add_launches({b: 1})):
+            other = threading.Thread(target=target)  # the last: a replay
+            other.start()
+            other.join()
     assert delta == {a: 2, c: 1}
-    assert graphs.launch_counts() == before
+    assert graphs.take_back(delta) is delta
+    assert counts() == (5, 6, 5)
     for _ in range(3):
         graphs.add_launches(delta)
-    assert graphs.launch_counts() == (11, 5, 8)
+    assert counts() == (11, 6, 8)
     pool = graphs.GraphPool("cpu")
     assert pool.bytes() == 0 and pool.handle is None
+    pool.release([])  # nothing to give back on the CPU
     s = graphs.Session("plain", lambda x: (a(), x + 1)[1], (torch.zeros(2),),
                        pool=pool)
     assert s.graph is None and s.launches == {}

@@ -21,7 +21,10 @@ imported alone, and the host-driven coordinator and both compiled
 schedules driven on the CPU, and on the TCP pipeline: the wire codecs,
 hardware info, framed channels, the coordinator and the stage worker, each
 read and imported alone, a two-worker run on the CPU and the worker's
-``python -m`` entry point, with ``ml_dtypes`` forbidden too."""
+``python -m`` entry point, with ``ml_dtypes`` forbidden too, and on the
+router tier: ``serve/replica.py``, ``serve/swap.py`` and
+``serve/router.py`` each read and imported alone, and a router over a
+local and a TCP replica hot-swapping a checkpointed model on the CPU."""
 
 import ast
 import os
@@ -524,3 +527,65 @@ def test_tcp_pipeline_modules_and_worker_entry_leave_jax_out():
     on the CPU, a bf16 frame, hardware info and the worker's ``--help``
     load no JAX, flax, msgpack, ml_dtypes or JAX-package module."""
     _run_isolated(TCP)
+
+
+# the router tier: replicas in process and over TCP, versioned hot-swap
+ROUTER_MODULES = ("dcnn_tpu_torch.serve.replica", "dcnn_tpu_torch.serve.swap",
+                  "dcnn_tpu_torch.serve.router")
+
+
+@pytest.mark.parametrize("module", ROUTER_MODULES)
+def test_router_module_imports_no_jax(module):
+    """The source of each router-tier module imports no JAX, flax,
+    msgpack, ml_dtypes or JAX-package module."""
+    path = REPO / (module.replace(".", "/") + ".py")
+    bad = [f"{line} imports {mod}" for line, mod in _imports(path)
+           if mod.split(".")[0] in TCP_FORBIDDEN]
+    assert not bad, bad
+
+
+ROUTER = (
+    "import importlib, tempfile\n"
+    f"for name in {ROUTER_MODULES!r}:\n"
+    "    importlib.import_module(name)\n"
+    "    bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+    f"{TCP_FORBIDDEN!r})\n"
+    "    assert not bad, (name, bad)\n"
+    "import numpy as np\n"
+    "from dcnn_tpu_torch.nn import SequentialBuilder\n"
+    "from dcnn_tpu_torch.resilience.checkpoint import CheckpointManager\n"
+    "from dcnn_tpu_torch.serve import (EngineFactory, LocalReplica,\n"
+    "    ModelVersionManager, ReplicaServer, Router, TcpReplica)\n"
+    "d = tempfile.mkdtemp()\n"
+    "m = (SequentialBuilder('r', data_format='NHWC').input((6, 6, 1))"
+    ".flatten().dense(3).build()).init("
+    "generator=torch.Generator().manual_seed(0), device='cpu')\n"
+    "mgr = CheckpointManager(d)\n"
+    "mgr.save(1, m)\n"
+    "f = EngineFactory(d, max_batch=2, device='cpu')\n"
+    "local = LocalReplica(f, 1, name='local')\n"
+    "backend = LocalReplica(f, 1, name='backend')\n"
+    "srv = ReplicaServer(backend, port=0)\n"
+    "tcp = TcpReplica('127.0.0.1', srv.port, name='tcp')\n"
+    "r = Router([local, tcp])\n"
+    "x = np.zeros((6, 6, 1), np.float32)\n"
+    "assert all(r.submit(x).result(30).shape == (3,) for _ in range(4))\n"
+    "mgr.save(2, m)\n"
+    "mvm = ModelVersionManager(r, f, canary_fraction=1.0, observe_s=0.0,"
+    " min_canary_requests=0)\n"
+    "assert mvm.poll()['action'] == 'canary'\n"
+    "assert mvm.poll()['action'] == 'promoted'\n"
+    "assert r.submit(x, priority='high').result(30).shape == (3,)\n"
+    "r.shutdown()\n"
+    "tcp.close(); srv.close(); backend.close(); local.close(); mgr.close()\n"
+    "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+    f"{TCP_FORBIDDEN!r})\n"
+    "assert not bad, bad\n")
+
+
+def test_router_tier_leaves_jax_out():
+    """The router-tier modules imported one by one, then a router over a
+    local and a TCP replica serving a checkpointed model on the CPU and
+    promoting its next version, load no JAX, flax, msgpack, ml_dtypes or
+    JAX-package module."""
+    _run_isolated(ROUTER)

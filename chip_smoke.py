@@ -199,7 +199,39 @@ Phases, each fatal on failure:
    seconds), a remote swap to v2 on the survivor; every result within
    ``SERVE_TOL`` of one version's CPU reference, the survivor's flash
    forward counted in its shutdown line. Both phases print ``{"router":
-   ..., "router_tcp": ...}`` on a line before the kernels line.
+   ..., "router_tcp": ...}`` on a line before the kernels line;
+21. data parallel (``phase_data_parallel``, ``phase_elastic``): full-width
+   ``resnet18_tiny_imagenet`` (NCHW, B=32, AdamW, cuDNN deterministic):
+   (a) ``make_data_parallel_train_step`` in a world of 1 over NCCL in this
+   process, eager and replayed (the NCCL all-reduces inside the CUDA
+   graph), each bit for bit ``make_train_step`` over 4 steps, and the
+   replayed step timed; (b) a world of 2 over gloo in two peer processes on
+   the card (``python chip_smoke.py --elastic-peer RANK ...``; global-batch
+   BN across them, the collectives staged through the host), held to the
+   single-process step: the first step's loss and gradients in fp64
+   (``DP_F64_TOL``, the check of the numbers), the fp32 losses, params and
+   BN statistics (sanity bounds, ``DP_*``);
+22. elastic (``phase_elastic``): the same two processes each run
+   ``Trainer.fit`` with ``TrainingConfig(elastic=True, elastic_peers=...,
+   elastic_rank=...)`` on 256 uint8 rows, global batch 64, K=4,
+   checkpoints every 2 steps, 2 epochs; peer 1 is SIGKILLed after step 5:
+   the survivor reconfigures once to world 1, every step's global batch
+   is 64 rows, worlds {1, 2}, step 8 reached, each step's loss held to a
+   solo (world 1, K=4) run here (params and BN statistics to sanity
+   bounds). Before that run the two train 4 steps in fp64 with SGD, peer
+   1 crashing after step 3 and the survivor restoring step 2's checkpoint,
+   held to the elastic semantics computed by hand here at world 2 and
+   then 1 (``ELASTIC_F64_TOL``: param changes, averaged BN statistics,
+   losses); prints the step
+   walls at world 2 and 1, the exchange's seconds a step (copy out, TCP,
+   the leader's sum, copy in) and bytes, detection and reconfiguration
+   seconds, samples/s;
+23. elastic mha (``phase_elastic_mha``): a 2-peer fleet of
+   ``mha_classifier`` as threads of this process, uninterrupted and with
+   the leader crashed at a heartbeat; the survivor within the JAX test's
+   ``RTOL, ATOL`` of the uninterrupted run, the flash kernels counted in
+   every peer's replayed grad steps. The three print ``{"data_parallel":
+   ...}`` on a line before the kernels line.
 
 Compiled sessions (CUDA graphs, ``dcnn_tpu_torch/core/graphs.py``): in
 serve, serve cnn, serve int8 and decode every bucket or lattice point is a
@@ -219,8 +251,9 @@ with mode A ``conv_int8`` inside it; each row's ``launches_by_path`` has
 the obs phase's launches under ``"obs"``, the export phase's under
 ``"export"``, the pipeline phase's under ``"pipeline"``, the TCP
 workers' under ``"tcp_pipeline"``, the router phase's replicas' under
-``"router"`` and the router tcp phase's surviving replica server's under
-``"router_tcp"`` where they launch the row) on
+``"router"``, the router tcp phase's surviving replica server's under
+``"router_tcp"`` and the elastic mha phase's under ``"elastic_mha"``
+where they launch the row) on
 a line of its own and, last,
 ``{"ok": true, "device": {...}}``. Times come from CUDA events around CUDA
 graph replays of many calls, so host overhead is not in them.
@@ -4953,50 +4986,113 @@ def free_ports(n):
     return ports
 
 
-class TcpWorker:
-    """One ``python -m dcnn_tpu_torch.parallel.worker`` process on the card
-    (cuDNN deterministic), its stdout read by a thread: ``start_s`` is the
-    time from spawn to its listening line, ``result()`` its shutdown
-    line."""
+class ChildProcess:
+    """A child process on the card (``python ARGV...``, from the root of
+    the repo), its stdout read line by line by a thread: each line that
+    parses as a JSON object is kept, with the seconds from spawn at which
+    it came. ``what`` names it in a failure, beside its last lines."""
 
-    def __init__(self, port: int, codec: str):
-        self.port = port
-        self.addr = f"127.0.0.1:{port}"
-        self.lines = []
-        self.start_s = None
+    def __init__(self, what, argv, stdin=False):
+        self.what = what
+        self.lines, self.json, self.at = [], [], []
+        self.new = threading.Condition()
         self._t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "dcnn_tpu_torch.parallel.worker",
-             "--port", str(port), "--host", "127.0.0.1", "--compress", codec,
-             "--deterministic"], cwd=ROOT, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
+            [sys.executable, *argv], cwd=ROOT,
+            stdin=subprocess.PIPE if stdin else None,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         self._reader = threading.Thread(target=self._read, daemon=True)
         self._reader.start()
 
     def _read(self):
         for line in self.proc.stdout:
-            self.lines.append(line.rstrip())
-            if self.start_s is None and line.startswith('{"listening"'):
-                self.start_s = time.perf_counter() - self._t0
+            line = line.rstrip()
+            obj = None
+            if line.startswith("{"):
+                try:
+                    obj = json.loads(line)
+                except ValueError:
+                    pass  # a log line, not one of the child's results
+            with self.new:
+                self.lines.append(line)
+                if isinstance(obj, dict):
+                    self.json.append(obj)
+                    self.at.append(time.perf_counter() - self._t0)
+                self.new.notify_all()
+        with self.new:
+            self.new.notify_all()
 
-    def result(self, timeout=60.0) -> dict:
-        """The shutdown line, after the process exited 0."""
+    def _fail(self, why):
+        fail(f"{self.what} {why} (exit code {self.proc.poll()}):\n"
+             + "\n".join(self.lines[-40:]))
+
+    def seconds_to(self, key):
+        """Seconds from spawn to its first JSON line with ``key``, or None."""
+        return next((t for t, j in zip(self.at, self.json) if key in j),
+                    None)
+
+    def wait_for(self, key, timeout=300.0) -> dict:
+        """The first JSON line with ``key``; fails if the process ends or
+        the time runs out first."""
+        deadline = time.perf_counter() + timeout
+        with self.new:
+            while True:
+                got = [j for j in self.json if key in j]
+                if got:
+                    return got[0]
+                left = deadline - time.perf_counter()
+                if left <= 0 or (self.proc.poll() is not None
+                                 and not self._reader.is_alive()):
+                    break
+                self.new.wait(min(left, 1.0))
+        self._fail(f"printed no {key!r} line")
+
+    def finish(self, key=None, timeout=120.0):
+        """Its stdin closed (where it has one), the exit after it, which
+        must be 0; then its last JSON line with ``key`` where one is
+        named, which it must have printed."""
+        if self.proc.stdin is not None:
+            self.proc.stdin.close()
         rc = self.proc.wait(timeout=timeout)
         self._reader.join(timeout=10)
-        last = [json.loads(l) for l in self.lines if l.startswith('{"shutdown"')]
-        if rc != 0 or not last:
-            fail(f"tcp pipeline: worker :{self.port} exited {rc} without its "
-                 f"shutdown line:\n" + "\n".join(self.lines[-40:]))
-        return last[-1]
+        if rc != 0:
+            self._fail("exited non-zero")
+        if key is not None:
+            got = [j for j in self.json if key in j]
+            if not got:
+                self._fail(f"exited without its {key!r} line")
+            return got[-1]
 
-    def kill(self) -> None:
+    def kill(self):
         self.proc.kill()
         self.proc.wait()
 
-    def close(self) -> None:
+    def close(self):
         if self.proc.poll() is None:
             self.proc.kill()
         self.proc.wait()
+
+
+class TcpWorker(ChildProcess):
+    """One ``python -m dcnn_tpu_torch.parallel.worker`` process on the card
+    (cuDNN deterministic): ``start_s`` is the time from spawn to its
+    listening line, ``result()`` its shutdown line."""
+
+    def __init__(self, port: int, codec: str):
+        self.port = port
+        self.addr = f"127.0.0.1:{port}"
+        super().__init__(
+            f"tcp pipeline: worker :{port}",
+            ["-m", "dcnn_tpu_torch.parallel.worker", "--port", str(port),
+             "--host", "127.0.0.1", "--compress", codec, "--deterministic"])
+
+    @property
+    def start_s(self):
+        return self.seconds_to("listening")
+
+    def result(self, timeout=60.0) -> dict:
+        """The shutdown line, after the process exited 0."""
+        return self.finish("shutdown", timeout)
 
 
 def tcp_coordinator(model, workers, spec, codec, **kw):
@@ -5659,63 +5755,27 @@ def phase_router(card):
     return out
 
 
-class ReplicaChild:
+class ReplicaChild(ChildProcess):
     """One ``python chip_smoke.py --replica-server ...`` process on the
-    card (its own CUDA context, loading the kernels this process built),
-    its stdout read by a thread. Closing its stdin asks it to drain and
-    print its shutdown line."""
+    card (its own CUDA context, loading the kernels this process built).
+    Closing its stdin asks it to drain and print its shutdown line."""
 
     def __init__(self, port, root, version, name, calib=None):
         self.port, self.name = port, name
-        self.lines = []
-        self.listening = threading.Event()
         extra = [] if calib is None else ["--calib", calib]
-        self.proc = subprocess.Popen(
-            [sys.executable, os.path.join(ROOT, "chip_smoke.py"),
-             "--replica-server", "--root", root, "--version", str(version),
-             "--port", str(port), "--name", name,
-             "--queue-capacity", str(ROUTER_QUEUE), *extra],
-            cwd=ROOT, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True)
-        self._reader = threading.Thread(target=self._read, daemon=True)
-        self._reader.start()
-
-    def _read(self):
-        for line in self.proc.stdout:
-            self.lines.append(line.rstrip())
-            if line.startswith('{"listening"'):
-                self.listening.set()
+        super().__init__(
+            f"router tcp: replica server {name}",
+            [os.path.join(ROOT, "chip_smoke.py"), "--replica-server",
+             "--root", root, "--version", str(version), "--port", str(port),
+             "--name", name, "--queue-capacity", str(ROUTER_QUEUE), *extra],
+            stdin=True)
 
     def wait(self, timeout=180.0):
-        deadline = time.perf_counter() + timeout
-        while not self.listening.wait(0.1):
-            if self.proc.poll() is not None \
-                    or time.perf_counter() > deadline:
-                self._reader.join(timeout=10)
-                fail(f"router tcp: replica server {self.name} did not "
-                     f"listen (exit code {self.proc.poll()}):\n"
-                     + "\n".join(self.lines[-30:]))
+        self.wait_for("listening", timeout)
 
     def result(self, timeout=120.0) -> dict:
         """Close its stdin; its shutdown line after it exited 0."""
-        self.proc.stdin.close()
-        rc = self.proc.wait(timeout=timeout)
-        self._reader.join(timeout=10)
-        last = [json.loads(l) for l in self.lines
-                if l.startswith('{"shutdown"')]
-        if rc != 0 or not last:
-            fail(f"router tcp: replica server {self.name} exited {rc} "
-                 f"without its shutdown line:\n" + "\n".join(self.lines[-30:]))
-        return last[-1]
-
-    def kill(self):
-        self.proc.kill()
-        self.proc.wait()
-
-    def close(self):
-        if self.proc.poll() is None:
-            self.proc.kill()
-        self.proc.wait()
+        return self.finish("shutdown", timeout)
 
 
 def replica_server_main(argv) -> None:
@@ -5917,6 +5977,838 @@ def phase_router_tcp(card):
     return out
 
 
+# -- phases 21-23: data parallelism over processes and elastic peers -------
+
+DP_SEED = SEED + 20
+DP_BATCH = 32             # the mesh step's global batch
+DP_STEPS = 4
+DP_LR = 1e-3              # AdamW, weight decay 1e-4 (the Tiny-ImageNet recipe)
+DP_TIMED = 10             # replayed world-1 steps timed
+# world 2 over gloo (global-batch BN, two ranks of 16 rows) against one
+# process on the 32 rows, a new batch a step: the same sums in another
+# order. ResNet-18's fp32 gradients are ill-conditioned at this
+# initialisation (BN's backward subtracts nearly equal sums; the train cnn
+# phase measures fp32 up to 9.3e-2 of a tensor's largest value from fp64),
+# so the first step's gradients are held in fp64: within DP_F64_TOL of
+# each tensor's largest |g| (a conv bias that feeds a BN, whose gradient
+# is zero in exact arithmetic, of the model's largest), which a wrong 1/W
+# scale or a wrong global-BN backward would break: that is the check of
+# the numbers. In fp32 the losses are held within DP_LOSS_RTOL, and, as
+# sanity bounds only, every param within Adam's step bound
+# 2·steps·lr·(1-b1)/sqrt(1-b2) (as in train cnn; the worst param where
+# Adam's RMS gradient is at least GRAD_FLOOR is printed, and the worst
+# outside the conv biases that feed a BN) and the BN statistics within
+# DP_STATS_RTOL of their scale (a conv bias that feeds a BN moves by
+# Adam's noise, and the BN's running mean with it).
+DP_LOSS_RTOL = 1e-3
+DP_F64_TOL = 1e-8
+DP_STATS_RTOL = 5e-2
+ELASTIC_ROWS, ELASTIC_BATCH, ELASTIC_K, ELASTIC_EPOCHS = 256, 64, 4, 2
+ELASTIC_CKPT_STEPS = 2
+ELASTIC_KILL_AFTER = 5    # steps peer 1 trains before its SIGKILL
+# The elastic numbers are checked in fp64: before the killed fp32 run the
+# two peers train ELASTIC64_ROWS rows (one epoch of ELASTIC64_ROWS /
+# ELASTIC_BATCH steps, K=ELASTIC_K, checkpoints every ELASTIC_CKPT_STEPS,
+# plain SGD so that a step's param change is lr times the exchanged mean
+# gradient) in fp64; peer 1 crashes (InjectedCrash, its sockets closed) at
+# the heartbeat after step ELASTIC64_CRASH_AFTER, and the survivor
+# restores the last checkpoint and finishes at world 1. That run is held
+# to elastic_reference, the elastic semantics by hand in fp64 in this
+# process, at world 2 up to the checkpoint and at world 1 after it: the
+# mean gradient over the K microbatches, the running statistics threaded
+# through each host's microbatches and averaged weighted by their count,
+# the mean loss. The leader sums in fp32 (as the JAX package's does),
+# which bounds the agreement near fp32's 6e-8 of a tensor's largest term:
+# ELASTIC_F64_TOL of each tensor's largest change (a conv bias that feeds
+# a BN, whose gradient is zero in exact arithmetic, of the model's
+# largest), of each statistic's scale, and of each step's loss. A wrong
+# 1/K, weighting, row or restore, or a stale mean, is off by O(1) there.
+ELASTIC64_ROWS, ELASTIC64_LR, ELASTIC64_CRASH_AFTER = 256, 1e-2, 3
+ELASTIC_F64_TOL = 1e-5
+# The killed fp32 run (Adam) against a solo (world 1, K=4) run of the same
+# weights and rows: the first step's loss within ELASTIC_LOSS1_RTOL (the
+# same params; only the loss sum is reassociated). After it the fp32
+# runs part (fp32 gradients are 1.5e-2 off fp64 here, see DP_F64_TOL, and
+# Adam turns noise in a small gradient into steps of +-lr), so the later
+# losses, the params and the BN statistics get sanity bounds only, the
+# fp64 run above being the check of the numbers: losses ELASTIC_LOSS_RTOL
+# (set from the 3.5e-3 read on the card, a restore of the wrong step or
+# of the initial weights is off by 0.1-0.5), params Adam's step bound,
+# and BN statistics ELASTIC_STATS_RTOL of their scale, as they depend on
+# the world (threaded through 2 microbatches a host and averaged, a step
+# moves them by 1 - 0.9^2 of the way to the batch statistics, against
+# 1 - 0.9^4 in a row).
+ELASTIC_LOSS1_RTOL = 1e-5
+ELASTIC_LOSS_RTOL = 2e-2
+ELASTIC_STATS_RTOL = 1.0
+ELASTIC_MHA_ROWS, ELASTIC_MHA_BATCH, ELASTIC_MHA_K = 256, 32, 2
+ELASTIC_MHA_KILL_AT = 6   # the leader's heartbeat that crashes
+ELASTIC_RTOL, ELASTIC_ATOL = 2e-4, 2e-5  # tests/test_elastic.py
+
+
+def dp_setup():
+    """Full-width ``resnet18_tiny_imagenet`` (NCHW) config and JAX-layout
+    weights from ``DP_SEED``, and ``ELASTIC_ROWS`` synthetic uint8 rows
+    with one-hot labels of its 200 classes: the same in every process."""
+    import numpy as np
+
+    from dcnn_tpu_torch.models import create_model
+
+    cfg = create_model("resnet18_tiny_imagenet", "NCHW").get_config()
+    params, state = jax_layout(cfg, np.random.default_rng(DP_SEED))
+    rng = np.random.default_rng(DP_SEED + 1)
+    x = rng.integers(0, 256, (ELASTIC_ROWS, 3, 64, 64), dtype=np.uint8)
+    y = np.eye(200, dtype=np.float32)[rng.integers(0, 200, ELASTIC_ROWS)]
+    return cfg, params, state, x, y
+
+
+def deterministic_cudnn():
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+
+def host_named(model, grads=False) -> dict:
+    """A model's params (or their ``.grad``) and buffers as numpy, by
+    name."""
+    import numpy as np
+
+    def host(t):
+        return np.array(t.detach().cpu())  # a copy, also of a CPU tensor
+
+    if grads:
+        return {n: host(p.grad) for n, p in model.named_parameters()}
+    out = {n: host(p) for n, p in model.named_parameters()}
+    out.update({n: host(b) for n, b in model.named_buffers()})
+    return out
+
+
+def dp_run(kind, setup, mesh=None, timed=0, steps=DP_STEPS, dtype=None):
+    """``DP_STEPS`` AdamW steps of the setup's model on the card, step
+    ``i`` on the ``i``-th ``DP_BATCH`` rows (cycling): ``kind`` "plain"
+    (``make_train_step``, eager), "dp_eager" / "dp"
+    (``make_data_parallel_train_step`` over ``mesh``, eager / ``jit=True``)
+    on this rank's shard. Then ``timed`` more steps timed one by one.
+    Returns losses, params and buffers, the first step's gradients, Adam's
+    v, the step and its walls in ms. ``steps`` and ``dtype`` (fp32 by
+    default; the model and the batches cast to it) change the run."""
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.data import decode_batch
+    from dcnn_tpu_torch.interop import from_jax
+    from dcnn_tpu_torch.ops.losses import get_loss
+    from dcnn_tpu_torch.optim import AdamW
+    from dcnn_tpu_torch.parallel import (make_data_parallel_train_step,
+                                         shard_batch)
+    from dcnn_tpu_torch.train import create_train_state, make_train_step
+
+    cfg, params, state, x, y = setup
+    ce = get_loss("softmax_crossentropy")
+    dtype = dtype or torch.float32
+    model = from_jax(cfg, params, state, device="cuda").to(dtype)
+    opt = AdamW(DP_LR, weight_decay=1e-4)
+    ts = create_train_state(model, opt)
+    xs = decode_batch(torch.from_numpy(x).cuda(), 1.0 / 255.0).to(dtype)
+    ys = torch.from_numpy(y).cuda().to(dtype)
+    batches = [(xs[i:i + DP_BATCH], ys[i:i + DP_BATCH])
+               for i in range(0, len(x), DP_BATCH)]
+    if kind == "plain":
+        step = make_train_step(model, ce, opt, jit=False)
+    else:
+        step = make_data_parallel_train_step(model, ce, opt, mesh,
+                                             jit=kind == "dp")
+        batches = [shard_batch(b, mesh) for b in batches]
+    losses, walls, grads = [], [], None
+    for i in range(steps + timed):
+        xb, yb = batches[i % len(batches)]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, _ = step(ts, xb, yb, DP_LR)
+        lv = float(loss)
+        walls.append((time.perf_counter() - t) * 1e3)
+        if i < steps:
+            losses.append(lv)
+        if i == 0:
+            grads = host_named(model, grads=True)
+        if i == steps - 1:
+            final = host_named(model)
+            v = {n: np.array(t_.detach().cpu())
+                 for n, t_ in ts.opt_state["v"].items()}
+    return {"losses": losses, "final": final, "grads": grads, "v": v,
+            "step": step, "walls_ms": walls}
+
+
+def split_named(model_cfg_names, tree):
+    """(params, buffers) of a ``host_named`` dict."""
+    params = {n: a for n, a in tree.items() if n in model_cfg_names}
+    bufs = {n: a for n, a in tree.items() if n not in model_cfg_names}
+    return params, bufs
+
+
+def stats_rel(a: dict, b: dict) -> float:
+    """Largest |a - b| of any BN statistic over that statistic's scale."""
+    import numpy as np
+
+    return max(float(np.abs(a[n] - b[n]).max())
+               / (float(np.abs(b[n]).max()) or 1.0) for n in b)
+
+
+def median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2] if xs else float("nan")
+
+
+def start_elastic_peers():
+    """The two peer processes of phases 21 (b) and 22, started first so
+    that they import torch while phase 21 (a) runs here."""
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="dcnn_elastic_")
+    store, p0, p1, q0, q1 = free_ports(5)
+    args = ["--store", str(store), "--peers", f"127.0.0.1:{p0},127.0.0.1:{p1}",
+            "--peers64", f"127.0.0.1:{q0},127.0.0.1:{q1}", "--dir", d]
+    return d, [ChildProcess(f"elastic peer {r}",
+                            [os.path.join(ROOT, "chip_smoke.py"),
+                             "--elastic-peer", str(r), *args])
+               for r in (0, 1)]
+
+
+def elastic64_rows(setup):
+    """The fp64 run's rows: the first ``ELASTIC64_ROWS``, decoded."""
+    import numpy as np
+
+    _cfg, _p, _s, x, y = setup
+    return ((x[:ELASTIC64_ROWS] / 255.0).astype(np.float64),
+            y[:ELASTIC64_ROWS].astype(np.float64))
+
+
+def elastic_reference(setup, worlds):
+    """The elastic fp64 run by hand (see ELASTIC_F64_TOL) on the card: the
+    loader's epoch-1 batches of ``elastic64_rows``, step ``i`` at world
+    ``worlds[i]``; host ``h`` of a world ``w`` takes microbatches
+    ``h·K/w .. (h+1)·K/w - 1``,
+    threading the running statistics through them from the step's start;
+    the gradient is the sum of their mean gradients over K, the statistics
+    the hosts' mean weighted by microbatch count, the loss the
+    microbatches' mean; then SGD. Returns (the final params and buffers by
+    name, the losses a step)."""
+    import torch
+
+    from dcnn_tpu_torch.data import ArrayDataLoader
+    from dcnn_tpu_torch.interop import from_jax
+    from dcnn_tpu_torch.ops.losses import get_loss
+
+    cfg, params, state, _, _ = setup
+    x, y = elastic64_rows(setup)
+    model = from_jax(cfg, params, state, device="cuda").double().train()
+    ce = get_loss("softmax_crossentropy")
+    loader = ArrayDataLoader(x, y, batch_size=ELASTIC_BATCH, seed=SEED)
+    loader.shuffle(1)
+    k, rows = ELASTIC_K, ELASTIC_BATCH // ELASTIC_K
+    ps = list(model.parameters())
+    bufs = [b for b in model.buffers() if b.is_floating_point()]
+    losses = []
+    for idx, world in zip(loader.batch_indices(), worlds):
+        start = [b.clone() for b in bufs]
+        grad = [torch.zeros_like(p) for p in ps]
+        mean = [torch.zeros_like(b) for b in bufs]
+        loss = 0.0
+        for h in range(world):
+            with torch.no_grad():
+                for b, b0 in zip(bufs, start):
+                    b.copy_(b0)
+            lo, hi = h * k // world, (h + 1) * k // world
+            for m in range(lo, hi):
+                sel = idx[m * rows:(m + 1) * rows]
+                lm = ce(model(torch.from_numpy(x[sel]).cuda()),
+                        torch.from_numpy(y[sel]).cuda())
+                for g, gm in zip(grad, torch.autograd.grad(lm, ps)):
+                    g += gm
+                loss += lm.item()
+            for s_, b in zip(mean, bufs):
+                s_ += (hi - lo) * b.detach()
+        with torch.no_grad():
+            for p, g in zip(ps, grad):
+                p -= ELASTIC64_LR * (g / k)
+            for b, s_ in zip(bufs, mean):
+                b.copy_(s_ / k)
+        losses.append(loss / k)
+    return host_named(model), losses
+
+
+def elastic_peer_main(argv) -> None:
+    """``python chip_smoke.py --elastic-peer RANK --store PORT --peers
+    H:P,H:P --peers64 H:P,H:P --dir DIR``: one rank of a world of 2 on the
+    card.
+
+    (b) ``make_data_parallel_train_step`` over a gloo world of 2 (the
+    store on rank 0's ``PORT``; global-batch BN across the two ranks), the
+    first ``DP_BATCH`` rows sharded, ``DP_STEPS`` steps, results to
+    ``DIR/dp<RANK>.pt``; then the elastic fits, ``Trainer.fit`` with
+    ``TrainingConfig(elastic=True, elastic_peers=..., elastic_rank=RANK)``:
+    the fp64 one over ``--peers64`` (see ELASTIC_F64_TOL; rank 0 writes
+    ``DIR/elastic64.pt``), then the fp32 one on the ``ELASTIC_ROWS`` rows,
+    checkpoints in ``DIR/ckpt``. Rank 1 prints ``{"at_step": ...}`` at the
+    heartbeat of step ``ELASTIC_KILL_AFTER`` and waits there to be
+    SIGKILLed; rank 0 finishes, writes ``DIR/elastic0.pt`` and prints
+    ``{"elastic": ...}``.
+    """
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --elastic-peer")
+    ap.add_argument("rank", type=int)
+    ap.add_argument("--store", type=int, required=True)
+    ap.add_argument("--peers", required=True)
+    ap.add_argument("--peers64", required=True)
+    ap.add_argument("--dir", required=True)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, ROOT)
+    import torch
+
+    from dcnn_tpu_torch.core import TrainingConfig, set_precision
+    from dcnn_tpu_torch.core.mesh import make_mesh
+    from dcnn_tpu_torch.data import ArrayDataLoader
+    from dcnn_tpu_torch.interop import from_jax
+    from dcnn_tpu_torch.ops import _kernels
+    from dcnn_tpu_torch.optim import SGD, AdamW
+    from dcnn_tpu_torch.parallel import multihost
+    from dcnn_tpu_torch.parallel.data_parallel import HOST_STAGING
+    from dcnn_tpu_torch.resilience import faults
+    from dcnn_tpu_torch.train import Trainer, create_train_state
+
+    set_precision("parity")
+    _kernels.build()  # the libraries the parent built, from the build dir
+    deterministic_cudnn()
+    rank = args.rank
+    setup = dp_setup()
+    multihost.initialize(f"127.0.0.1:{args.store}", 2, rank,
+                         backend="gloo", timeout_s=300)
+    mesh = make_mesh()
+    run = dp_run("dp", setup, mesh, timed=DP_TIMED)
+    n_steps = DP_STEPS + DP_TIMED
+    staging = {k: v / n_steps for k, v in HOST_STAGING.items()}
+    run64 = dp_run("dp", setup, mesh, steps=1, dtype=torch.float64)
+    torch.save({"losses": run["losses"], "final": run["final"],
+                "grads": run["grads"], "loss64": run64["losses"][0],
+                "grads64": run64["grads"]},
+               os.path.join(args.dir, f"dp{rank}.pt"))
+    print(json.dumps({"dp": {"rank": rank, "losses": run["losses"],
+                             "walls_ms": run["walls_ms"],
+                             "staging_per_step": staging,
+                             "graphs": run["step"].pool is not None}}),
+          flush=True)
+    multihost.barrier("dp done", timeout_ms=300_000)
+    multihost.shutdown()
+
+    cfg, params, state, x, y = setup
+    class CrashAfter(faults.FaultPlan):
+        """Peer 1's death in the fp64 run: at the heartbeat after step
+        ELASTIC64_CRASH_AFTER."""
+
+        def _check(self, point, context):
+            if point == "elastic.heartbeat" \
+                    and context.get("step") == ELASTIC64_CRASH_AFTER:
+                raise faults.InjectedCrash(point, 0, **context)
+
+    model = from_jax(cfg, params, state, device="cuda").double()
+    opt = SGD(ELASTIC64_LR)
+    trainer = Trainer(model, opt, "softmax_crossentropy", TrainingConfig(
+        epochs=1, batch_size=ELASTIC_BATCH, learning_rate=ELASTIC64_LR,
+        seed=SEED, snapshot_dir=None, elastic=True,
+        elastic_peers=args.peers64, elastic_rank=rank,
+        elastic_microbatches=ELASTIC_K, elastic_ckpt_steps=ELASTIC_CKPT_STEPS,
+        checkpoint_dir=os.path.join(args.dir, "ckpt64"),
+        elastic_heartbeat_s=1.0, elastic_timeout_s=60.0))
+    if rank == 1:
+        faults.install(CrashAfter())
+    try:
+        trainer.fit(create_train_state(model, opt), ArrayDataLoader(
+            *elastic64_rows(setup), batch_size=ELASTIC_BATCH, seed=SEED))
+    except faults.InjectedCrash:
+        if rank != 1:
+            raise
+    faults.clear()
+    if rank == 0:
+        ctl = trainer.elastic
+        torch.save({"final": host_named(model), "step_log": ctl.step_log,
+                    "reconfigures": ctl.stats["reconfigures"]},
+                   os.path.join(args.dir, "elastic64.pt"))
+
+    model = from_jax(cfg, params, state, device="cuda")
+    opt = AdamW(DP_LR, weight_decay=1e-4)
+    tcfg = TrainingConfig(
+        epochs=ELASTIC_EPOCHS, batch_size=ELASTIC_BATCH,
+        learning_rate=DP_LR, seed=SEED, snapshot_dir=None, elastic=True,
+        elastic_peers=args.peers, elastic_rank=rank,
+        elastic_microbatches=ELASTIC_K, elastic_ckpt_steps=ELASTIC_CKPT_STEPS,
+        checkpoint_dir=os.path.join(args.dir, "ckpt"),
+        elastic_heartbeat_s=1.0, elastic_timeout_s=60.0)
+    trainer = Trainer(model, opt, "softmax_crossentropy", tcfg)
+
+    class StopBeforeStep(faults.FaultPlan):
+        """At the heartbeat that starts step ELASTIC_KILL_AFTER + 1: print
+        this peer's exchange so far and wait for the SIGKILL."""
+
+        def _check(self, point, context):
+            if point == "elastic.heartbeat" \
+                    and context.get("step") == ELASTIC_KILL_AFTER:
+                ctl = trainer.elastic
+                print(json.dumps({"at_step": ELASTIC_KILL_AFTER,
+                                  "exchange": ctl.stats["exchange"],
+                                  "step_log": ctl.step_log}), flush=True)
+                time.sleep(600)
+
+    if rank == 1:
+        faults.install(StopBeforeStep())
+    loader = ArrayDataLoader(x, y, batch_size=ELASTIC_BATCH, seed=SEED)
+    trainer.fit(create_train_state(model, opt), loader)
+    ctl = trainer.elastic
+    torch.save(host_named(model), os.path.join(args.dir, f"elastic{rank}.pt"))
+    print(json.dumps({"elastic": {
+        "rank": rank, "stats": ctl.stats, "step_log": ctl.step_log,
+        "history": trainer.history, "gen": ctl.gen, "world": ctl.world}}),
+        flush=True)
+    sys.stdout.flush()
+    os._exit(0)
+
+
+def phase_data_parallel(card):
+    """Phase 21 (a): ``make_data_parallel_train_step`` in a world of 1 over
+    NCCL in this process, on full-width ``resnet18_tiny_imagenet`` (NCHW,
+    B=32, AdamW, cuDNN deterministic): eager and replayed (the whole step,
+    the NCCL all-reduces of the BN sums, gradients and loss inside one CUDA
+    graph), each bit for bit ``make_train_step`` over ``DP_STEPS`` steps;
+    then ``DP_TIMED`` replayed steps timed. Returns the plain run (the
+    reference of (b)) and what it prints."""
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.core.mesh import make_mesh
+    from dcnn_tpu_torch.parallel import multihost
+
+    deterministic_cudnn()
+    setup = dp_setup()
+    multihost.initialize(num_processes=1, backend="nccl")
+    try:
+        mesh = make_mesh()
+        runs = {k: dp_run(k, setup, mesh, timed=DP_TIMED if k == "dp" else 0)
+                for k in ("plain", "dp_eager", "dp")}
+    finally:
+        multihost.shutdown()
+    ref = runs["plain"]
+    ref64 = dp_run("plain", setup, steps=1, dtype=torch.float64)
+    ref["loss64"], ref["grads64"] = ref64["losses"][0], ref64["grads"]
+    for k in ("dp_eager", "dp"):
+        r = runs[k]
+        if r["losses"] != ref["losses"]:
+            fail(f"data parallel: world 1 {k} losses {r['losses']} != "
+                 f"make_train_step's {ref['losses']}")
+        bad = [n for n in ref["final"]
+               if not np.array_equal(r["final"][n], ref["final"][n])]
+        if bad:
+            fail(f"data parallel: world 1 {k} differs from make_train_step "
+                 f"in {len(bad)} tensors ({bad[:4]})")
+    sessions = runs["dp"]["step"]._sessions.latest()
+    if not sessions or sessions[0].graph is None:
+        fail("data parallel: the NCCL world-1 step never replayed a graph")
+    warm = runs["dp"]["walls_ms"][DP_STEPS:]
+    out = {"world1_nccl": {
+        "bit_equal": ["dp_eager", "dp"], "losses": ref["losses"],
+        "graph_launches": sessions[0].launch_names(),
+        "step_ms_median": median(warm), "step_ms": warm,
+        "eager_step_ms_median": median(runs["dp_eager"]["walls_ms"][1:]),
+        "samples_per_s": DP_BATCH / (median(warm) / 1e3)}}
+    print(f"data parallel (a): resnet18_tiny_imagenet NCHW B={DP_BATCH}, "
+          f"world 1 over NCCL: eager and replayed steps bit for bit "
+          f"make_train_step over {DP_STEPS} steps; replayed step "
+          f"{median(warm):.2f} ms median ({out['world1_nccl']['samples_per_s']:.0f} "
+          f"samples/s), eager {out['world1_nccl']['eager_step_ms_median']:.2f}"
+          f" ms; on {card}", flush=True)
+    return ref, out
+
+
+def phase_elastic(card, directory, peers, dp_ref, dp_out):
+    """Phase 21 (b) and 22, from the two peer processes: (b) the mesh step
+    at world 2 over gloo held to the single-process step ``dp_ref``; then
+    the elastic fit, peer 1 SIGKILLed before its step
+    ``ELASTIC_KILL_AFTER + 1``: the survivor reconfigures once to world 1,
+    every step's global batch is ``ELASTIC_BATCH`` rows, it reaches step
+    8, and its params match a solo (world 1, K=4) run of the same weights
+    and rows, run here."""
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.core import TrainingConfig
+    from dcnn_tpu_torch.data import ArrayDataLoader
+    from dcnn_tpu_torch.interop import from_jax
+    from dcnn_tpu_torch.optim import AdamW
+    from dcnn_tpu_torch.train import Trainer, create_train_state
+
+    try:
+        dps = [p.wait_for("dp") for p in peers]
+        got = [torch.load(os.path.join(directory, f"dp{r}.pt"),
+                          weights_only=False) for r in (0, 1)]
+        names = set(dp_ref["grads"])
+        for n in got[0]["final"]:
+            if not np.array_equal(got[0]["final"][n], got[1]["final"][n]):
+                fail(f"data parallel (b): ranks differ in {n}")
+        rel_loss = max(abs(a - b) / abs(b) for a, b in
+                       zip(got[0]["losses"], dp_ref["losses"]))
+        if rel_loss > DP_LOSS_RTOL:
+            fail(f"data parallel (b): losses {got[0]['losses']} vs "
+                 f"{dp_ref['losses']} (rel {rel_loss:.3e} > {DP_LOSS_RTOL})")
+        zero = bias_before_bn(dp_ref["step"].model)
+
+        def grad_rels(a, b):
+            top = max(float(np.abs(g).max()) for g in b.values())
+            return sorted(((float(np.abs(a[n] - b[n]).max())
+                            / (top if n in zero
+                               else float(np.abs(b[n]).max()) or 1.0), n)
+                           for n in b), reverse=True)
+
+        rels64 = grad_rels(got[0]["grads64"], dp_ref["grads64"])
+        loss64 = abs(got[0]["loss64"] - dp_ref["loss64"]) / abs(
+            dp_ref["loss64"])
+        if max(rels64[0][0], loss64) > DP_F64_TOL:
+            fail(f"data parallel (b): the first step in fp64, world 2 vs one "
+                 f"process: loss {loss64:.3e}, gradients (rel, name) "
+                 f"{rels64[:6]} (tol {DP_F64_TOL:g})")
+        grad32 = grad_rels(got[0]["grads"], dp_ref["grads"])[0]
+        p_got, b_got = split_named(names, got[0]["final"])
+        p_ref, b_ref = split_named(names, dp_ref["final"])
+        bound = 2 * DP_STEPS * DP_LR * 0.1 / math.sqrt(1 - 0.999)
+        worst, noise, n_noise, n_all, _bins, bound = adam_param_diff(
+            p_got, p_ref, dp_ref["v"], DP_STEPS, DP_LR, 0.9, 0.999,
+            "data parallel (b)", atol=bound)
+        worst_rest = max((float(np.abs(p_got[n] - p_ref[n]).max()), n)
+                         for n in p_ref if n not in zero)
+        bn_rel = stats_rel(b_got, b_ref)
+        if bn_rel > DP_STATS_RTOL:
+            fail(f"data parallel (b): BN statistics differ by {bn_rel:.3e} "
+                 f"of their scale (> {DP_STATS_RTOL})")
+        w2 = [median(d["dp"]["walls_ms"][1:]) for d in dps]
+        dp_out["world2_gloo"] = {
+            "loss_rel": rel_loss, "fp64_loss_rel": loss64,
+            "fp64_grad_rel": rels64[0], "fp32_grad_rel": grad32,
+            "param_max_diff": worst, "param_noise_max_diff": noise,
+            "param_max_diff_not_bias_before_bn": worst_rest,
+            "noise_elements": n_noise, "elements": n_all,
+            "adam_step_bound": bound, "bn_stats_rel": bn_rel,
+            "step_ms_median": w2,
+            "staging_per_step": [d["dp"]["staging_per_step"] for d in dps],
+            "graphs": [d["dp"]["graphs"] for d in dps]}
+        print(f"data parallel (b): world 2 over gloo (2 processes on the "
+              f"card, global-batch BN) against one process: the first step "
+              f"in fp64 within {max(rels64[0][0], loss64):.2e} (loss and "
+              f"gradients; fp32 gradients {grad32[0]:.2e}, {grad32[1]}); "
+              f"fp32 losses within {rel_loss:.2e}, params {worst:.2e} where "
+              f"Adam's RMS gradient >= {GRAD_FLOOR:g} ({worst_rest[0]:.2e} "
+              f"outside the conv biases before a BN, in {worst_rest[1]}; "
+              f"{noise:.2e} below; bound {bound:.2e}), BN statistics "
+              f"{bn_rel:.2e}; step "
+              f"{w2[0]:.1f} ms median (eager; staged through the host a "
+              f"step: {dps[0]['dp']['staging_per_step']}); on {card}",
+              flush=True)
+
+        at = peers[1].wait_for("at_step")
+        t_kill = time.time()
+        peers[1].kill()
+        res = peers[0].wait_for("elastic")["elastic"]
+        peers[0].finish()
+    finally:
+        for p in peers:
+            p.close()
+    f64 = phase_elastic64(directory)
+    log = res["step_log"]
+    stats = res["stats"]
+    if stats["reconfigures"] != 1 or res["world"] != 1:
+        fail(f"elastic: survivor reconfigured {stats['reconfigures']} times "
+             f"to world {res['world']} (expected once, to 1)")
+    if {e["global_rows"] for e in log} != {ELASTIC_BATCH}:
+        fail(f"elastic: global rows {sorted({e['global_rows'] for e in log})}")
+    if {e["world"] for e in log} != {1, 2}:
+        fail(f"elastic: worlds {sorted({e['world'] for e in log})}")
+    steps = ELASTIC_EPOCHS * ELASTIC_ROWS // ELASTIC_BATCH
+    if log[-1]["gs"] != steps:
+        fail(f"elastic: the run ended at step {log[-1]['gs']}, not {steps}")
+
+    # the solo reference: world 1, K=4, the same weights and rows
+    cfg, params, state, x, y = dp_setup()
+    model = from_jax(cfg, params, state, device="cuda")
+    opt = AdamW(DP_LR, weight_decay=1e-4)
+    trainer = Trainer(model, opt, "softmax_crossentropy", TrainingConfig(
+        epochs=ELASTIC_EPOCHS, batch_size=ELASTIC_BATCH, learning_rate=DP_LR,
+        seed=SEED, snapshot_dir=None, elastic=True, elastic_rank=0,
+        elastic_microbatches=ELASTIC_K, elastic_heartbeat_s=0.0))
+    ts = create_train_state(model, opt)
+    trainer.fit(ts, ArrayDataLoader(x, y, batch_size=ELASTIC_BATCH, seed=SEED))
+    solo = host_named(model)
+    # each step's loss against the solo run's step of the same number (a
+    # step re-run after the restore, too)
+    solo_loss = {e["gs"]: e["loss"] for e in trainer.elastic.step_log}
+    loss_rels = [(abs(e["loss"] - solo_loss[e["gs"]]) / abs(solo_loss[e["gs"]]),
+                  e["gs"]) for e in log]
+    for rel, gs in loss_rels:
+        tol = ELASTIC_LOSS1_RTOL if gs == 1 else ELASTIC_LOSS_RTOL
+        if rel > tol:
+            fail(f"elastic: step {gs}'s loss differs from the solo run's by "
+                 f"{rel:.3e} of it (> {tol:g}); losses "
+                 f"{[(e['gs'], e['loss']) for e in log]}, solo {solo_loss}")
+    names = {n for n, _ in model.named_parameters()}
+    v = {n: t.detach().cpu().numpy() for n, t in ts.opt_state["v"].items()}
+    got = torch.load(os.path.join(directory, "elastic0.pt"),
+                     weights_only=False)
+    p_got, b_got = split_named(names, got)
+    p_ref, b_ref = split_named(names, solo)
+    bound = 2 * steps * DP_LR * 0.1 / math.sqrt(1 - 0.999)
+    worst, noise, n_noise, n_all, _bins, bound = adam_param_diff(
+        p_got, p_ref, v, steps, DP_LR, 0.9, 0.999, "elastic", atol=bound)
+    zero = bias_before_bn(model)
+    worst_rest = max((float(np.abs(p_got[n] - p_ref[n]).max()), n)
+                     for n in p_ref if n not in zero)
+    bn_rel = stats_rel(b_got, b_ref)
+    if bn_rel > ELASTIC_STATS_RTOL:
+        fail(f"elastic: BN statistics differ from the solo run by "
+             f"{bn_rel:.3e} of their scale (> {ELASTIC_STATS_RTOL})")
+    def per_step(entries):
+        """Medians over the warm world-2 steps (after a count's eager
+        first call and its capture) of each exchange figure a step."""
+        warm = [e["exchange"] for e in entries
+                if e["world"] == 2 and "exchange" in e][2:]
+        return {k: median([w.get(k, 0.0) for w in warm])
+                for k in ("d2h_s", "net_s", "sum_s", "h2d_s", "bytes")}
+
+    # warm walls: the steps after a count's eager first call and capture
+    w2 = [e["seconds"] for e in log if e["world"] == 2][2:]
+    w1 = [e["seconds"] for e in log if e["world"] == 1][2:]
+    solo_w = [e["seconds"] for e in trainer.elastic.step_log][2:]
+    out = {
+        "step_s_world2": median(w2), "step_s_world1": median(w1),
+        "step_s_solo": median(solo_w),
+        "samples_per_s_world2": ELASTIC_BATCH / median(w2),
+        "samples_per_s_world1": ELASTIC_BATCH / median(w1),
+        "exchange_leader_per_step": per_step(log),
+        "exchange_follower_per_step": per_step(at["step_log"]),
+        "exchange_totals": {"leader": stats["exchange"],
+                            "follower": at["exchange"]},
+        "leader_save_s": [e["save_s"] for e in log if "save_s" in e],
+        "detection_s": stats["reconfigure_at"][0] - t_kill,
+        "silence_before_detection_s": stats["detection_s"],
+        "reconfigure_s": stats["reconfigure_s"],
+        "restore_s": stats["restore_s"], "steps_lost": stats["steps_lost"],
+        "steps_rerun": len(log) - len({e["gs"] for e in log}),
+        "loss_rel_step1": max(r for r, gs in loss_rels if gs == 1),
+        "loss_rel_max": max(loss_rels),
+        "param_max_diff": worst, "param_noise_max_diff": noise,
+        "param_max_diff_not_bias_before_bn": worst_rest,
+        "noise_elements": n_noise, "elements": n_all,
+        "adam_step_bound": bound, "bn_stats_rel": bn_rel,
+        "fp64": f64,
+        "worlds": sorted({e["world"] for e in log}), "steps": log[-1]["gs"]}
+    print(f"elastic: resnet18_tiny_imagenet, {ELASTIC_ROWS} uint8 rows, "
+          f"global batch {ELASTIC_BATCH}, K={ELASTIC_K}, 2 peer processes "
+          f"over TCP, peer 1 SIGKILLed after step {ELASTIC_KILL_AFTER}: "
+          f"detected {out['detection_s']:.3f} s after the kill, "
+          f"reconfigured in {stats['reconfigure_s'][0]:.3f} s (restore "
+          f"{stats['restore_s'][-1]:.3f} s, {out['steps_rerun']} steps "
+          f"re-run), world 2 -> 1, step {log[-1]['gs']}; in fp64 (peer 1 "
+          f"crashed after step {ELASTIC64_CRASH_AFTER}, worlds "
+          f"{f64['worlds']}) against the elastic semantics by hand: param "
+          f"changes within "
+          f"{f64['param_rel'][0]:.2e} ({f64['param_rel'][1]}), BN "
+          f"statistics {f64['stats_rel'][0]:.2e}, losses "
+          f"{f64['loss_rel']:.2e} (tol {ELASTIC_F64_TOL:g}); in fp32 "
+          f"against the solo run: step 1's loss within "
+          f"{out['loss_rel_step1']:.2e}, every step's {max(loss_rels)[0]:.2e}"
+          f" (step {max(loss_rels)[1]}), params {worst:.2e} where Adam's "
+          f"RMS gradient >= {GRAD_FLOOR:g} ({worst_rest[0]:.2e} outside the "
+          f"conv biases before a BN, in {worst_rest[1]}; {noise:.2e} below; "
+          f"bound {bound:.2e}), BN statistics {bn_rel:.2e} of their scale; "
+          f"a warm step "
+          f"{median(w2):.3f} s at world 2 ({out['samples_per_s_world2']:.0f}"
+          f" samples/s), {median(w1):.3f} s at world 1 "
+          f"({out['samples_per_s_world1']:.0f} samples/s; solo "
+          f"{median(solo_w):.3f} s); the exchange a warm step (medians), "
+          f"leader {json.dumps(out['exchange_leader_per_step'])}, follower "
+          f"{json.dumps(out['exchange_follower_per_step'])} (its wait "
+          f"includes the leader's checkpoint saves, "
+          f"{json.dumps(out['leader_save_s'])} s); on {card}", flush=True)
+    return out
+
+
+def phase_elastic64(directory):
+    """The fp64 elastic run (the survivor's ``elastic64.pt`` in
+    ``directory``) against :func:`elastic_reference` at world 2 up to the
+    checkpoint before the crash and at world 1 after it: each tensor's
+    change from the initial weights, each BN statistic and each step's
+    loss within ``ELASTIC_F64_TOL`` (see there)."""
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.interop import from_jax
+
+    setup = dp_setup()
+    got = torch.load(os.path.join(directory, "elastic64.pt"),
+                     weights_only=False)
+    n_steps = ELASTIC64_ROWS // ELASTIC_BATCH
+    ckpt = ELASTIC64_CRASH_AFTER // ELASTIC_CKPT_STEPS * ELASTIC_CKPT_STEPS
+    worlds = [2] * ckpt + [1] * (n_steps - ckpt)
+    last = {e["gs"]: e for e in got["step_log"]}  # a re-run step's last run
+    kept = [last[gs] for gs in sorted(last)]
+    if got["reconfigures"] != 1 or [e["world"] for e in kept] != worlds:
+        fail(f"elastic fp64: {got['reconfigures']} reconfigurations, steps "
+             f"{[(e['gs'], e['world']) for e in got['step_log']]} (expected "
+             f"one, and worlds {worlds} by step)")
+    ref, ref_losses = elastic_reference(setup, worlds)
+    cfg, params, state, _, _ = setup
+    init_model = from_jax(cfg, params, state, device="cpu").double()
+    init = host_named(init_model)
+    names = {n for n, _ in init_model.named_parameters()}
+    zero = bias_before_bn(init_model)
+    p_got, b_got = split_named(names, got["final"])
+    p_ref, b_ref = split_named(names, ref)
+    d_ref = {n: p_ref[n] - init[n] for n in p_ref}
+    top = max(float(np.abs(d).max()) for d in d_ref.values())
+    param_rel = max((float(np.abs(p_got[n] - p_ref[n]).max())
+                     / (top if n in zero else float(np.abs(d_ref[n]).max())),
+                     n) for n in p_ref)
+    stats = max((float(np.abs(b_got[n] - b_ref[n]).max())
+                 / float(np.abs(b_ref[n]).max()), n) for n in b_ref)
+    losses = [e["loss"] for e in kept]
+    loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, ref_losses))
+    if max(param_rel[0], stats[0], loss_rel) > ELASTIC_F64_TOL:
+        fail(f"elastic fp64: the run against the elastic semantics by hand: "
+             f"param changes {param_rel}, BN statistics {stats}, losses "
+             f"{losses} vs {ref_losses} ({loss_rel:.3e}); tol "
+             f"{ELASTIC_F64_TOL:g}")
+    return {"param_rel": param_rel, "stats_rel": stats, "loss_rel": loss_rel,
+            "losses": losses, "worlds": worlds,
+            "steps_run": len(got["step_log"])}
+
+
+def phase_elastic_mha(card):
+    """Phase 23: a 2-peer elastic fleet of full-width ``mha_classifier``
+    (S=32, E=64, 4 heads; JAX-layout weights from ``SEED``), the peers
+    threads of this process over loopback, SGD on the marker task: one run
+    uninterrupted, one whose leader crashes at a heartbeat (``FaultPlan`` +
+    ``InjectedCrash``) and whose survivor takes over. Gates: replicas bit
+    for bit, the survivor's params within the JAX test's ``RTOL, ATOL``
+    of the uninterrupted run's, and the flash kernels (rows 1-3) launched
+    by every peer's grad-step graphs. Returns the counters' launches."""
+    import tempfile
+
+    import numpy as np
+
+    from dcnn_tpu_torch.core import TrainingConfig
+    from dcnn_tpu_torch.data import ArrayDataLoader
+    from dcnn_tpu_torch.interop import from_jax
+    from dcnn_tpu_torch.optim import SGD
+    from dcnn_tpu_torch.parallel import comm
+    from dcnn_tpu_torch.parallel.elastic import ElasticController, PeerSpec
+    from dcnn_tpu_torch.resilience import FaultPlan
+    from dcnn_tpu_torch.resilience.faults import InjectedCrash
+    from dcnn_tpu_torch.train import create_train_state
+
+    cfg, params, _rng = model_params()
+    x, y = marker_task(np.random.default_rng(SEED + 21), n=ELASTIC_MHA_ROWS)
+
+    def fleet(crash_leader):
+        socks = [comm.listen(0, host="127.0.0.1") for _ in range(2)]
+        peers = [PeerSpec(i, "127.0.0.1", s.getsockname()[1])
+                 for i, s in enumerate(socks)]
+        ctls, results = {}, {}
+        d = tempfile.mkdtemp(prefix="dcnn_elastic_mha_")
+
+        def runner(i):
+            plan = (FaultPlan().arm("elastic.heartbeat",
+                                    at=ELASTIC_MHA_KILL_AT, exc=InjectedCrash)
+                    if crash_leader and i == 0 else None)
+            model = from_jax(cfg, params, device="cuda")
+            opt = SGD(0.05)
+            tcfg = TrainingConfig(
+                epochs=2, learning_rate=0.05, seed=SEED, snapshot_dir=None,
+                elastic=True, elastic_microbatches=ELASTIC_MHA_K,
+                elastic_timeout_s=30.0, elastic_heartbeat_s=0.0,
+                elastic_ckpt_steps=2, checkpoint_dir=d)
+            try:
+                ctl = ElasticController(
+                    model, opt, "softmax_crossentropy",
+                    ArrayDataLoader(x, y, batch_size=ELASTIC_MHA_BATCH,
+                                    seed=SEED), config=tcfg, rank=i,
+                    peers=peers, listen_sock=socks[i], fault_plan=plan)
+                ctls[i] = ctl
+                ctl.fit(create_train_state(model, opt))
+                results[i] = host_named(model)
+            except InjectedCrash:
+                results[i] = "crashed"
+            except BaseException as e:  # reported by the main thread
+                results[i] = e
+
+        threads = [threading.Thread(target=runner, args=(i,), daemon=True)
+                   for i in range(2)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        if any(t.is_alive() for t in threads):
+            fail("elastic mha: the fleet hung")
+        per_peer = {}
+        for i, ctl in ctls.items():
+            counts = {}
+            for g in ctl._grad_steps.values():
+                for k, n in g.launches.items():
+                    counts[k] = counts.get(k, 0) + n
+            per_peer[i] = counts
+        return ctls, results, per_peer
+
+    reset_launches()
+    t0 = time.perf_counter()
+    ctls, base, base_counts = fleet(False)
+    ctls_k, crash, crash_counts = fleet(True)
+    counts = launches()
+    wall = time.perf_counter() - t0
+    for name, res in (("uninterrupted", base), ("crashed", crash)):
+        for i, r in res.items():
+            if isinstance(r, BaseException):
+                fail(f"elastic mha: {name} peer {i} raised "
+                     f"{type(r).__name__}: {r}")
+    if crash[0] != "crashed" or ctls_k[1].world != 1 or ctls_k[1].gen != 1:
+        fail(f"elastic mha: the leader's crash did not leave peer 1 leading "
+             f"world 1 (result {crash[0]!r}, world {ctls_k[1].world})")
+    for n in base[0]:
+        if not np.array_equal(base[0][n], base[1][n]):
+            fail(f"elastic mha: uninterrupted replicas differ in {n}")
+    worst = 0.0
+    for n in base[0]:
+        a, b = crash[1][n], base[0][n]
+        if not np.allclose(a, b, rtol=ELASTIC_RTOL, atol=ELASTIC_ATOL):
+            fail(f"elastic mha: survivor's {n} differs from the "
+                 f"uninterrupted run beyond rtol {ELASTIC_RTOL}, atol "
+                 f"{ELASTIC_ATOL} (max {float(np.abs(a - b).max()):.3e})")
+        worst = max(worst, float(np.abs(a - b).max()))
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    for what, per in (("uninterrupted", base_counts), ("crashed", crash_counts)):
+        for i, c in per.items():
+            if any(c.get(k, 0) <= 0 for k in flash):
+                fail(f"elastic mha: {what} peer {i}'s grad-step graphs "
+                     f"launched {c} (every flash kernel expected)")
+    out = {"launches": {k: counts[k] for k in flash},
+           "per_peer_replayed": {"uninterrupted": base_counts,
+                                 "crashed": crash_counts},
+           "survivor_max_diff": worst, "phase_s": wall,
+           "reconfigure_s": ctls_k[1].stats["reconfigure_s"],
+           "steps_lost": ctls_k[1].stats["steps_lost"]}
+    print(f"elastic mha: mha_classifier, 2 thread peers on the card, the "
+          f"leader crashed at heartbeat {ELASTIC_MHA_KILL_AT}: survivor "
+          f"within {worst:.2e} of the uninterrupted run (rtol "
+          f"{ELASTIC_RTOL}, atol {ELASTIC_ATOL}); flash launches "
+          f"{out['launches']}, by each peer's replayed grad steps "
+          f"{json.dumps(out['per_peer_replayed'])}; on {card}", flush=True)
+    return out
+
+
 def bias_before_bn(model):
     """Names (as ``named_parameters`` gives them) of the conv biases that
     feed a batchnorm directly: their gradient is zero in exact arithmetic,
@@ -6048,6 +6940,11 @@ def main() -> None:
                 pipe.pop("tcp_refs"), resnet)
     router = timed("router", phase_router, card)
     router_tcp = timed("router tcp", phase_router_tcp, card)
+    elastic_dir, elastic_peers = start_elastic_peers()
+    dp_ref, dp = timed("data parallel", phase_data_parallel, card)
+    dp["elastic"] = timed("elastic", phase_elastic, card, elastic_dir,
+                          elastic_peers, dp_ref, dp)
+    dp["elastic_mha"] = timed("elastic mha", phase_elastic_mha, card)
     print(f"phase seconds: {json.dumps(seconds)}, total "
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
 
@@ -6101,6 +6998,7 @@ def main() -> None:
     # counted in the worker processes, from their shutdown lines
     tp = {k: sum(run[k] for run in tcp["launches"].values())
           for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    em = dp["elastic_mha"]["launches"]
     tc_src = "dcnn_tpu_torch/ops/csrc/conv3x3_tc.cu"
     kernels = [
         row("flash_fwd", "dcnn_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -6111,21 +7009,24 @@ def main() -> None:
              "wide_layer": wide["flash_fwd"], "obs": obs["flash_fwd"],
              "export": export["mha_classifier"]["launches"]["flash_fwd"],
              "pipeline": pl["flash_fwd"], "tcp_pipeline": tp["flash_fwd"],
-             "router_tcp": router_tcp["survivor"]["launches"]["flash_fwd"]}),
+             "router_tcp": router_tcp["survivor"]["launches"]["flash_fwd"],
+             "elastic_mha": em["flash_fwd"]}),
         row("flash_bwd_dq", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:460", bwd_cases["dq"],
             {"serve": 0, "train": tl["flash_bwd_dq"],
              "train_feed": fl["flash_bwd_dq"],
              "wide_layer": wide["flash_bwd_dq"], "obs": obs["flash_bwd_dq"],
              "pipeline": pl["flash_bwd_dq"],
-             "tcp_pipeline": tp["flash_bwd_dq"]}),
+             "tcp_pipeline": tp["flash_bwd_dq"],
+             "elastic_mha": em["flash_bwd_dq"]}),
         row("flash_bwd_dkv", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:478", bwd_cases["dkv"],
             {"serve": 0, "train": tl["flash_bwd_dkv"],
              "train_feed": fl["flash_bwd_dkv"],
              "wide_layer": wide["flash_bwd_dkv"],
              "obs": obs["flash_bwd_dkv"], "pipeline": pl["flash_bwd_dkv"],
-             "tcp_pipeline": tp["flash_bwd_dkv"]}),
+             "tcp_pipeline": tp["flash_bwd_dkv"],
+             "elastic_mha": em["flash_bwd_dkv"]}),
         site_row("conv3x3_s1", tc_src, "dcnn_tpu/ops/pallas/conv.py:82"),
         site_row("conv3x3_s1_pairs", tc_src,
                  "dcnn_tpu/ops/pallas/conv.py:173"),
@@ -6153,6 +7054,7 @@ def main() -> None:
         "tcp_recovery": tcp["recovery"]}}), flush=True)
     print(json.dumps({"router": router, "router_tcp": router_tcp}),
           flush=True)
+    print(json.dumps({"data_parallel": dp}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6162,5 +7064,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--replica-server"]:
         replica_server_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["--elastic-peer"]:
+        elastic_peer_main(sys.argv[2:])
     else:
         main()

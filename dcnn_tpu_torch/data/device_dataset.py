@@ -30,7 +30,7 @@ hand it the JAX package's permutation.
 
 The data-parallel variants (``ShardedDeviceDataset``,
 ``make_resident_epoch_dp``, ``resident_epoch_dp``, ``stage_sharded``) are
-not ported yet and raise (``ROADMAP.md`` Queue 1 item 6).
+not ported yet and raise (``ROADMAP.md`` Queue 1 item 6b).
 """
 
 from __future__ import annotations
@@ -54,7 +54,7 @@ from .transfer import stage_array
 
 AUGMENT_KEY = 0x0A6  # fold_in offset of a step's augmentation key
 _DP_MSG = ("data-parallel resident datasets are not ported to "
-           "dcnn_tpu_torch yet (ROADMAP.md Queue 1 item 6, Parallel)")
+           "dcnn_tpu_torch yet (ROADMAP.md Queue 1 item 6b, Parallel)")
 
 
 class DeviceDataset:

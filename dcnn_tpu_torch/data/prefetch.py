@@ -77,7 +77,7 @@ class PrefetchLoader:
         if sharding is not None:
             raise NotImplementedError(
                 "PrefetchLoader(sharding=...): data-parallel placement is not "
-                "ported to dcnn_tpu_torch yet (ROADMAP.md Queue 1 item 6, "
+                "ported to dcnn_tpu_torch yet (ROADMAP.md Queue 1 item 6b, "
                 "Parallel)")
         if depth < 1:
             raise ValueError("depth must be >= 1")

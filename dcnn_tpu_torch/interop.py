@@ -98,18 +98,23 @@ def _layers_state(cfgs: Sequence[Dict[str, Any]], params: Sequence[Any],
 
 def from_jax(config: Dict[str, Any], params_np: Sequence[Any],
              state_np: Optional[Sequence[Any]] = None, *,
-             device: DeviceLike = None) -> Sequential:
+             device: DeviceLike = None,
+             dtype: Optional[torch.dtype] = None) -> Sequential:
     """Build the port's model from a JAX ``Sequential.get_config()`` dict,
     its params pytree and (optionally) its state pytree as numpy arrays, on
     ``device`` (CUDA unless ``"cpu"``). Without ``state_np`` the running
     statistics keep their initial values (mean 0, variance 1). Every array
     is checked for name and shape against the port's parameters and
-    buffers."""
+    buffers. The model is fp32 unless ``dtype`` names another floating
+    type, which it takes before the arrays load into it (fp64 arrays stay
+    exact in an fp64 model)."""
     dev = resolve_device(device)
     model = Sequential.from_config(config)
     # parameters and buffers are created (and then overwritten) so that
     # load_state_dict can check every name and shape
     model.init(generator=torch.Generator().manual_seed(0), device=dev)
+    if dtype is not None:
+        model.to(dtype)
     flat: Dict[str, np.ndarray] = {}
     _layers_state(config["layers"], params_np, "layers.", flat)
     if state_np is not None:

@@ -6,13 +6,36 @@ sums taken over ``x − running_mean``, the variance clamped at 0, an
 unbiased batch variance into the running buffer, and
 ``running = (1 − momentum)·running + momentum·batch``. ``group_norm`` stays
 two-pass, as there.
+
+Inside :func:`reduce_batch_stats` a training ``batch_norm`` hands its
+per-channel sums and row count to a reducer before it uses them: the
+mesh data-parallel step's all-reduce, so that the statistics are the
+global batch's, as GSPMD makes them in the JAX package.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+import threading
+from typing import Callable, Optional, Tuple
 
 import torch
+
+_REDUCER = threading.local()
+
+
+@contextlib.contextmanager
+def reduce_batch_stats(reducer: Callable):
+    """While active on this thread, a training ``batch_norm`` replaces its
+    one-pass sums ``(s1, s2, n)`` (per-channel sums of ``x − pivot`` and
+    of its square, and the rows a channel counts) by ``reducer(s1, s2,
+    n)``."""
+    prev = getattr(_REDUCER, "fn", None)
+    _REDUCER.fn = reducer
+    try:
+        yield
+    finally:
+        _REDUCER.fn = prev
 
 
 def _stat_dtype(x: torch.Tensor) -> torch.dtype:
@@ -42,6 +65,9 @@ def batch_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         xs = xf - pivot.reshape(shape)
         s1 = xs.sum(reduce_axes)
         s2 = (xs * xs).sum(reduce_axes)
+        reducer = getattr(_REDUCER, "fn", None)
+        if reducer is not None:
+            s1, s2, n = reducer(s1, s2, n)
         mean_c = s1 / n
         var = torch.clamp_min(s2 / n - mean_c * mean_c, 0.0)
         mean = mean_c + pivot

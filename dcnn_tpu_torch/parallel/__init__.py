@@ -3,11 +3,14 @@ the in-process pipeline (stages, the sync and semi-async schedules, the
 coordinator), the compiled pipeline (a whole GPipe or 1F1B step as one
 CUDA graph) and the TCP pipeline: framed channels (``comm``), stage-worker
 processes (``worker``, ``python -m dcnn_tpu_torch.parallel.worker``) and
-the self-healing ``DistributedPipelineCoordinator``.
+the self-healing ``DistributedPipelineCoordinator``; data parallelism
+over a mesh of processes (``data_parallel``, ``multihost``, with
+``core/mesh.py``) and elastic data parallelism over TCP peers
+(``elastic``).
 
-Not ported yet (ROADMAP.md Queue 1): data, sequence, multihost and
-elastic parallelism with ``core/mesh.py`` (item 6), which the JAX
-package's ``shard_stacked`` needs.
+Not ported yet (ROADMAP.md Queue 1 item 6b): sequence parallelism, the
+data-parallel device feed, spatial sharding and the compiled pipeline's
+``data_axis=`` / ``shard_stacked``.
 """
 
 from .compiled_pipeline import (
@@ -20,6 +23,16 @@ from .pipeline import (
     InProcessPipelineCoordinator, PipelineError, PipelineStage,
     train_pipeline_batch_sync,
 )
+from .data_parallel import (
+    make_data_parallel_train_step, make_elastic_apply_step,
+    make_elastic_grad_step, replicate, shard_batch,
+)
+from .elastic import (
+    ElasticController, EvictedError, Membership, PeerSpec,
+    PreemptedError, WorldCollapsedError, elastic_fit, microbatch_span,
+    parse_peers,
+)
+from .multihost import PeerLostError
 from .distributed_pipeline import (
     DistributedPipelineCoordinator, PipelineCollapsedError,
     PipelineTimeouts, PipelineWorkerError, StageLostError,
@@ -37,6 +50,11 @@ def __getattr__(name: str):
 
 __all__ = [
     "Partitioner", "NaivePartitioner", "FlopBalancedPartitioner",
+    "make_data_parallel_train_step", "shard_batch", "replicate",
+    "make_elastic_grad_step", "make_elastic_apply_step",
+    "ElasticController", "Membership", "PeerSpec", "PeerLostError",
+    "EvictedError", "PreemptedError", "WorldCollapsedError",
+    "microbatch_span", "parse_peers", "elastic_fit",
     "PipelineStage", "InProcessPipelineCoordinator", "PipelineError",
     "train_pipeline_batch_sync",
     "HeteroCompiledPipeline", "SequentialStageStack",

@@ -1,0 +1,421 @@
+"""Data-parallel training over a mesh of processes (counterpart of
+``dcnn_tpu/parallel/data_parallel.py``).
+
+The JAX package shards the batch over a device mesh and lets GSPMD insert
+the collectives. Here every rank is a process holding the whole model and
+its own slice of the batch (:func:`shard_batch`), and the collectives are
+explicit, over the mesh axis's process group:
+
+- :func:`make_data_parallel_train_step`: the mesh step. Batchnorm's
+  statistics are the *global* batch's (the per-rank one-pass sums go
+  through an all-reduce that autograd sees, :class:`AllReduceSum`), as
+  GSPMD computes them; after the backward the gradients and the loss are
+  all-reduced and divided by the axis size. Each rank's local loss
+  backpropagates through the statistics' all-reduce, whose backward
+  all-reduces again, so the ranks' gradients add up to the gradient of the
+  sum of the local losses, and their mean is the global batch's gradient.
+- ``make_train_step(reduce_axis=)`` (:class:`MeshReduce` with
+  ``global_bn=False``): per-shard statistics, then gradients, loss and the
+  updated batchnorm statistics averaged over the axis (the JAX step's
+  ``pmean``).
+- :func:`make_elastic_grad_step` / :func:`make_elastic_apply_step`: the
+  two halves of the elastic step (``parallel/elastic.py``), which
+  exchanges over TCP between them.
+
+Collectives on CUDA tensors over a gloo group go through the host
+explicitly (:func:`all_reduce_`): one copy to the host, gloo's all-reduce
+there, one copy back, counted in :data:`HOST_STAGING`. A gloo collective
+runs on the host and cannot sit in a CUDA graph, so under gloo the steps
+run eagerly; under NCCL the whole step, collectives included, is one
+graph, as ``make_train_step(jit=True)`` captures it.
+
+``spatial_axis=`` (H sharded over a mesh axis) is not ported yet
+(ROADMAP.md Queue 1 item 6b) and raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from ..core.graphs import GraphPool, Session, SessionCache
+from ..core.keys import fold_in, generators, reseed
+from ..core.mesh import DATA_AXIS, Mesh, active_mesh
+from ..ops import norm as _norm
+from ..ops.losses import upcast_logits
+
+# collectives of CUDA tensors staged through the host for a gloo group:
+# how many, and the bytes copied each way
+HOST_STAGING: Dict[str, int] = {"collectives": 0, "bytes": 0}
+_STAGING_LOCK = threading.Lock()
+
+
+def _no_spatial(spatial_axis) -> None:
+    if spatial_axis is not None:
+        raise NotImplementedError(
+            f"spatial_axis={spatial_axis!r}: spatial (H) sharding is not "
+            f"ported to dcnn_tpu_torch yet (ROADMAP.md Queue 1 item 6b)")
+
+
+def _backend(group) -> str:
+    import torch.distributed as dist
+
+    return dist.get_backend(group)
+
+
+def _collective(op, t: torch.Tensor, group, **kw) -> torch.Tensor:
+    """``op`` (a ``torch.distributed`` collective) on ``t`` in place; a
+    CUDA tensor over a gloo group goes through the host, counted."""
+    if t.is_cuda and _backend(group) != "nccl":
+        host = t.cpu()
+        op(host, group=group, **kw)
+        t.copy_(host)
+        with _STAGING_LOCK:
+            HOST_STAGING["collectives"] += 1
+            HOST_STAGING["bytes"] += 2 * t.numel() * t.element_size()
+        return t
+    op(t, group=group, **kw)
+    return t
+
+
+def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """Sum ``t`` over ``group`` in place. A CUDA tensor over a gloo group
+    is copied to the host, reduced there and copied back (counted in
+    :data:`HOST_STAGING`); NCCL reduces it on the card."""
+    import torch.distributed as dist
+
+    return _collective(dist.all_reduce, t, group)
+
+
+def broadcast_(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
+    """Broadcast ``t`` in place from global rank ``src`` (staged through
+    the host as :func:`all_reduce_` is)."""
+    import torch.distributed as dist
+
+    return _collective(dist.broadcast, t, group, src=src)
+
+
+class AllReduceSum(torch.autograd.Function):
+    """``y = Σ_ranks x`` whose backward is ``∂x = Σ_ranks ∂y``: every
+    rank's loss depends on every rank's ``x`` through ``y``."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.contiguous().clone(), ctx.group), None
+
+
+def _float_buffers(model):
+    return [b for b in model.buffers() if b.is_floating_point()]
+
+
+def _resolve_group(axis, mesh: Optional[Mesh]):
+    """The process group of ``axis``: a group itself, or an axis name of
+    ``mesh`` (else of the active ``with mesh:`` one)."""
+    if not isinstance(axis, str):
+        return axis
+    mesh = mesh if mesh is not None else active_mesh()
+    if mesh is None:
+        raise ValueError(
+            f"reduce axis {axis!r} names a mesh axis, but no mesh is "
+            f"active: call the step inside `with mesh:` or pass a process "
+            f"group")
+    if axis not in mesh.shape:
+        raise ValueError(f"axis {axis!r} not in mesh axes "
+                         f"{tuple(mesh.shape)}")
+    return mesh.get_group(axis)
+
+
+class MeshReduce:
+    """What a train step reduces over a mesh axis (``axis``: an axis name
+    or a process group): after the backward, the gradients and the loss
+    (and, unless ``global_bn``, the float buffers) summed over the axis in
+    one collective and divided by its size; with ``global_bn`` the
+    forward's batchnorm statistics summed over it too. Resolved at each
+    call, so an axis name finds the mesh active then."""
+
+    def __init__(self, axis: Any = DATA_AXIS, mesh: Optional[Mesh] = None,
+                 global_bn: bool = False):
+        self.axis, self.mesh, self.global_bn = axis, mesh, global_bn
+
+    def group(self):
+        return _resolve_group(self.axis, self.mesh)
+
+    def capturable(self) -> bool:
+        """Whether a CUDA graph can hold the collectives (NCCL's)."""
+        return _backend(self.group()) == "nccl"
+
+    def forward(self):
+        """The context the step's forward and backward run in."""
+        if not self.global_bn:
+            return contextlib.nullcontext()
+        import torch.distributed as dist
+
+        group = self.group()
+        size = dist.get_world_size(group)
+
+        def stats(s1, s2, n):
+            c = s1.shape[0]
+            both = AllReduceSum.apply(torch.cat([s1, s2]), group)
+            return both[:c], both[c:], n * size
+
+        return _norm.reduce_batch_stats(stats)
+
+    def reduce(self, model, loss: torch.Tensor,
+               grads: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """Average ``grads`` (in place), the float buffers (unless
+        ``global_bn``: the global statistics are already equal on every
+        rank) and ``loss`` over the axis; returns the mean loss."""
+        import torch.distributed as dist
+
+        group = self.group()
+        size = dist.get_world_size(group)
+        gs = list(grads.values())
+        bufs = [] if self.global_bn else _float_buffers(model)
+        dt = gs[0].dtype if gs else loss.dtype
+        flat = torch.cat([t.reshape(-1).to(dt) for t in (*gs, *bufs)]
+                         + [loss.detach().reshape(1).to(dt)])
+        all_reduce_(flat, group)
+        flat.div_(size)
+        off = 0
+        with torch.no_grad():
+            for t in (*gs, *bufs):
+                t.copy_(flat[off:off + t.numel()].view_as(t))
+                off += t.numel()
+        return flat[off].to(loss.dtype)
+
+
+def replicate(obj, mesh: Mesh):
+    """Broadcast ``obj`` (a ``TrainState``, a model, a dict or a tensor)
+    from rank 0 of ``mesh`` to every rank, in place; returns it."""
+    src = int(mesh.devices.reshape(-1)[0])
+
+    def put(o):
+        if isinstance(o, torch.Tensor):
+            with torch.no_grad():
+                broadcast_(o.data if isinstance(o, torch.nn.Parameter)
+                           else o, src=src)
+        elif isinstance(o, torch.nn.Module):
+            for t in (*o.parameters(), *o.buffers()):
+                put(t)
+        elif isinstance(o, dict):
+            for v in o.values():
+                put(v)
+        elif isinstance(o, (list, tuple)):
+            for v in o:
+                put(v)
+        elif hasattr(o, "model") and hasattr(o, "opt_state"):
+            put(o.model)
+            put(o.opt_state)
+        return o
+
+    return put(obj)
+
+
+def shard_batch(batch, mesh: Mesh, axis: str = DATA_AXIS,
+                spatial_axis: Optional[str] = None, spatial_dim: int = 2):
+    """This rank's slice of the global batch (array(s) whose leading axis
+    is the batch), contiguous along ``axis``: rank at coordinate ``i`` of
+    ``n`` takes rows ``[i·B/n, (i+1)·B/n)``. ``B`` must divide evenly."""
+    _no_spatial(spatial_axis)
+    n = mesh.shape[axis]
+    i = mesh.coordinate(axis)
+
+    def take(x):
+        if isinstance(x, (tuple, list)):
+            return type(x)(take(v) for v in x)
+        if isinstance(x, dict):
+            return {k: take(v) for k, v in x.items()}
+        b = x.shape[0]
+        if b % n:
+            raise ValueError(f"batch of {b} rows not divisible by the "
+                             f"{n}-way {axis!r} axis")
+        per = b // n
+        return x[i * per:(i + 1) * per]
+
+    return take(batch)
+
+
+def make_data_parallel_train_step(model, loss_fn: Callable, optimizer,
+                                  mesh: Mesh, num_microbatches: int = 1,
+                                  spatial_axis: Optional[str] = None,
+                                  jit: bool = True):
+    """The train step over ``mesh``'s data axis: ``step(ts, xs, ys, lr,
+    generator=None) -> (loss, logits)`` with ``xs, ys = shard_batch((x,
+    y), mesh)``, ``ts`` replicated (:func:`replicate`) and updated in
+    place identically on every rank. ``loss`` is the global batch's mean;
+    ``logits`` stay local to the shard.
+
+    Batchnorm statistics are computed over the *global* batch, as GSPMD
+    computes them in the JAX package, so the step matches the
+    single-process step on the whole batch. With ``num_microbatches > 1``
+    each rank splits its own shard, so a microbatch is the union of the
+    ranks' i-th pieces (the same gradient as one process's contiguous
+    microbatches for a model without batchnorm). Dropout draws from
+    ``generator`` on each rank: pass each rank its own.
+
+    On CUDA with an NCCL group the step is one CUDA graph
+    (``make_train_step(jit=True)``'s capture, collectives included); over
+    gloo it runs eagerly, its collectives staged through the host."""
+    _no_spatial(spatial_axis)
+    from ..train.trainer import TrainStep
+
+    return TrainStep(model, loss_fn, optimizer, num_microbatches, jit=jit,
+                     reduce=MeshReduce(DATA_AXIS, mesh, global_bn=True))
+
+
+# -- the elastic step's two halves ------------------------------------------
+
+class ElasticGradStep:
+    """The gradient half of the elastic step (see
+    :func:`make_elastic_grad_step`)."""
+
+    def __init__(self, model, loss_fn: Callable, num_microbatches: int,
+                 jit: bool = True, pool: Optional[GraphPool] = None):
+        self.model, self.loss_fn = model, loss_fn
+        self.n_mb = int(num_microbatches)
+        self.jit = bool(jit)
+        self.pool = pool if jit else None
+        self.gens = None
+        self._sessions = SessionCache()
+        # kernel launches of this step's replays, by wrapper name
+        self.launches: Dict[str, int] = {}
+
+    def _place(self, device) -> None:
+        if self.gens is None:
+            self.gens = generators(self.n_mb, device)
+            if self.jit and self.pool is None and device.type == "cuda":
+                self.pool = GraphPool(device)
+            if self.pool is not None and not self.pool.cuda:
+                self.pool = None  # on the CPU a session is the plain call
+
+    def _body(self, x, y):
+        """Forward and backward of every local microbatch, the buffers
+        threaded through them; the packed ``grad_sum ‖ a·state ‖
+        loss_sum`` vector."""
+        model, a = self.model, self.n_mb
+        params = list(model.parameters())
+        for p in params:
+            p.grad = None
+        loss_sum = None
+        for i, (xi, yi) in enumerate(zip(x.chunk(a), y.chunk(a))):
+            logits = upcast_logits(model(xi, generator=self.gens[i]))
+            loss = self.loss_fn(logits, yi)
+            loss.backward()  # .grad sums the microbatches' mean gradients
+            loss_sum = loss.detach() if loss_sum is None \
+                else loss_sum + loss.detach()
+        dt = params[0].dtype
+        return torch.cat(
+            [(p.grad if p.grad is not None else torch.zeros_like(p))
+             .reshape(-1).to(dt) for p in params]
+            + [(b.reshape(-1).to(dt) * a) for b in _float_buffers(model)]
+            + [loss_sum.reshape(1).to(dt)])
+
+    def binding(self) -> tuple:
+        return tuple(t.data_ptr() for t in (*self.model.parameters(),
+                                            *self.model.buffers()))
+
+    def packed(self, ts, x, y, key: int, mb0: int) -> torch.Tensor:
+        """The packed vector of this host's microbatches ``mb0 ..
+        mb0+a-1`` (a fresh tensor, or on CUDA the graph's static output,
+        valid until the next call)."""
+        if x.shape[0] % self.n_mb:
+            raise ValueError(
+                f"host batch of {x.shape[0]} rows not divisible by "
+                f"{self.n_mb} local microbatches — the global microbatch "
+                f"grid must evenly tile every host share")
+        self._place(x.device)
+        # dropout keys by GLOBAL microbatch index: world-size independent
+        reseed(self.gens, [fold_in(key, mb0 + i) for i in range(self.n_mb)])
+        self.model.train()
+        if self.pool is None:
+            return self._body(x, y)
+        with self.pool.lock:
+            k = (tuple(x.shape), x.dtype, tuple(y.shape), y.dtype)
+            sessions = self._sessions.lookup(
+                k, self.binding(),
+                lambda: (Session("elastic_grad_step", self._body, (x, y),
+                                 pool=self.pool, generators=self.gens),),
+                self.model)
+            if sessions is None:
+                return self._body(x, y)
+            for name, d in sessions[0].launch_names().items():
+                self.launches[name] = self.launches.get(name, 0) + d
+            return sessions[0].replay(x, y)
+
+    def unpack(self, flat: torch.Tensor):
+        """``(grads, state, loss)`` views of a packed vector: ``grads`` by
+        parameter name, ``state`` the float buffers' values by name."""
+        names = [n for n, _ in self.model.named_parameters()]
+        bnames = [n for n, b in self.model.named_buffers()
+                  if b.is_floating_point()]
+        params = dict(self.model.named_parameters())
+        bufs = dict(self.model.named_buffers())
+        grads, state, off = {}, {}, 0
+        for n in names:
+            k = params[n].numel()
+            grads[n] = flat[off:off + k].view_as(params[n])
+            off += k
+        for n in bnames:
+            k = bufs[n].numel()
+            state[n] = flat[off:off + k].view_as(bufs[n])
+            off += k
+        return grads, state, flat[off]
+
+    def __call__(self, ts, x, y, key: int, mb0: int):
+        """``(grad_sum, state_final, loss_sum)``: ``state_final`` is the
+        model's float buffers after the local microbatches (the JAX step
+        returns them unscaled, and so does this)."""
+        flat = self.packed(ts, x, y, key, mb0).clone()
+        grads, state, loss = self.unpack(flat)
+        state = {n: v / self.n_mb for n, v in state.items()}
+        return grads, state, loss
+
+
+def make_elastic_grad_step(model, loss_fn: Callable, num_microbatches: int,
+                           jit: bool = True,
+                           pool: Optional[GraphPool] = None
+                           ) -> ElasticGradStep:
+    """The gradient half of a host-level data-parallel step:
+    ``gstep(ts, x, y, key, mb0) -> (grad_sum, state_final, loss_sum)``
+    with NO optimizer update — the update happens after the cross-host
+    exchange (``parallel/elastic.py``).
+
+    ``x`` is this host's contiguous slice of the *global* microbatch grid:
+    ``num_microbatches`` local microbatches whose global indices start at
+    ``mb0``. Microbatch ``m``'s dropout draws come from
+    ``generator(fold_in(key, m))`` — world-size independent, so the same
+    global microbatch draws the same masks whichever host runs it.
+
+    Returns **sums**, not means: ``grad_sum`` sums the per-microbatch mean
+    gradients and ``loss_sum`` the per-microbatch mean losses, so the
+    reduce side divides once by the global count K. ``state_final`` is the
+    batchnorm state threaded through the local microbatches (in the
+    model's buffers too). :meth:`ElasticGradStep.packed` gives the one
+    vector the exchange ships, ``grad_sum ‖ a·state ‖ loss_sum``.
+
+    ``jit=True`` on CUDA: a graph per input shape, captured at its second
+    call (:class:`~dcnn_tpu_torch.core.graphs.SessionCache`); the
+    controller keeps one such step a local microbatch count."""
+    return ElasticGradStep(model, loss_fn, num_microbatches, jit, pool)
+
+
+def make_elastic_apply_step(optimizer):
+    """The update half: ``apply(params, opt_state, grads, lr) -> (params,
+    opt_state)``, in place. Every surviving host applies it to the SAME
+    broadcast gradient bytes, so the replicated params and optimizer state
+    stay bit-identical across hosts without a parameter broadcast."""
+
+    def apply(params: Dict[str, torch.Tensor], opt_state, grads, lr):
+        with torch.no_grad():
+            optimizer.update(grads, opt_state, params, lr)
+        return params, opt_state
+
+    return apply

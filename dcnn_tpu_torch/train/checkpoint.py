@@ -207,6 +207,14 @@ def _tuples(tree: Any) -> Any:
     return tree
 
 
+def _leaves(tree):
+    if isinstance(tree, (dict, tuple, list)):
+        for t in (tree.values() if isinstance(tree, dict) else tree):
+            yield from _leaves(t)
+    else:
+        yield tree
+
+
 def restore_arrays(manifest: Dict[str, Any], array_bytes: bytes,
                    device: DeviceLike = None
                    ) -> Tuple[Sequential, Any, Optional[Optimizer]]:
@@ -214,10 +222,13 @@ def restore_arrays(manifest: Dict[str, Any], array_bytes: bytes,
     ``arrays.msgpack``'s bytes: the model built from its config on
     ``device`` (CUDA unless ``"cpu"``) with every param and buffer checked
     for name and shape, the optimizer state on the model's device with the
-    model's parameter names and shapes."""
+    model's parameter names and shapes. A model whose every param was
+    saved in fp64 comes back in fp64."""
     tree = _tuples(_msgpack.msgpack_restore(array_bytes))
-    model = interop.from_jax(manifest["model"], tree["params"],
-                             tree["state"], device=device)
+    dtypes = {np.asarray(a).dtype for a in _leaves(tree["params"])}
+    model = interop.from_jax(
+        manifest["model"], tree["params"], tree["state"], device=device,
+        dtype=torch.float64 if dtypes == {np.dtype(np.float64)} else None)
     if model.input_shape is None:
         raise ValueError("checkpoint model config lacks input_shape")
     optimizer = (OptimizerFactory.create_from_config(manifest["optimizer"])

@@ -41,7 +41,8 @@ guard's and the watchdog's bundles), ``profiler`` running one
 per epoch outside the step (buffers put back, so the run's numbers do not
 move), and ``debug`` turning on :mod:`~dcnn_tpu_torch.core.debug`'s
 non-finite checks. ``slow_detect`` is read by elastic training only, as in
-the JAX package, so a plain fit accepts it and does nothing.
+the JAX package, so a plain fit accepts it and does nothing. With
+``elastic`` the fit delegates to ``parallel/elastic.py``.
 
 Runs on ``config.device_type`` (CUDA unless ``"cpu"``); asking for CUDA
 without a GPU raises. What the config asks for that this package has not
@@ -90,8 +91,8 @@ from .profiling import LayerProfiler
 # (field, asks for it, the ROADMAP.md Queue 1 item that ports it) of every
 # TrainingConfig feature not ported yet
 _UNPORTED = (
-    ("elastic", lambda c: c.elastic, 6),
-    ("metrics_port", lambda c: c.metrics_port >= 0, 7),
+    # the elastic fit serves its own telemetry (parallel/elastic.py)
+    ("metrics_port", lambda c: c.metrics_port >= 0 and not c.elastic, 7),
 )
 
 
@@ -160,12 +161,14 @@ class TrainStep:
     def __init__(self, model: Sequential, loss_fn: Callable,
                  optimizer: Optimizer, num_microbatches: int = 1,
                  guard: bool = False, jit: bool = True,
-                 pool: Optional[GraphPool] = None):
+                 pool: Optional[GraphPool] = None, reduce=None):
         self.model, self.loss_fn, self.optimizer = model, loss_fn, optimizer
         self.n_mb = int(num_microbatches)
         self.guard = bool(guard)
         self.jit = bool(jit)
         self.pool = pool if jit else None
+        # parallel/data_parallel.MeshReduce: the collectives over a mesh axis
+        self.reduce = reduce
         # on the params' device, at the first call (a Trainer is built
         # before its params)
         self.device = self.scalars = self.generator = None
@@ -179,8 +182,10 @@ class TrainStep:
             if self.jit and self.pool is None \
                     and self.device.type == "cuda":
                 self.pool = GraphPool(self.device)
-            if self.pool is not None and not self.pool.cuda:
-                self.pool = None
+            if self.pool is not None and (
+                    not self.pool.cuda or (self.reduce is not None
+                                           and not self.reduce.capturable())):
+                self.pool = None  # gloo's host collectives: eager
 
     # -- the device work (capturable: nothing here reads the card) --
     def _forward_backward(self, x, y, generator):
@@ -201,21 +206,25 @@ class TrainStep:
             loss.backward()
             return loss.detach(), logits.detach()
 
-        if n_mb == 1 or x.shape[0] % n_mb != 0:
-            loss, logits = forward_loss(x, y)
-        else:
-            losses, outs = [], []
-            for xi, yi in zip(x.chunk(n_mb), y.chunk(n_mb)):
-                li, oi = forward_loss(xi, yi)  # .grad sums
-                losses.append(li)
-                outs.append(oi)
-            for p in params.values():
-                if p.grad is not None:
-                    p.grad.div_(n_mb)
-            loss = sum(losses) / n_mb
-            logits = torch.cat(outs).reshape(x.shape[0], -1)
+        with (self.reduce.forward() if self.reduce is not None
+              else contextlib.nullcontext()):
+            if n_mb == 1 or x.shape[0] % n_mb != 0:
+                loss, logits = forward_loss(x, y)
+            else:
+                losses, outs = [], []
+                for xi, yi in zip(x.chunk(n_mb), y.chunk(n_mb)):
+                    li, oi = forward_loss(xi, yi)  # .grad sums
+                    losses.append(li)
+                    outs.append(oi)
+                for p in params.values():
+                    if p.grad is not None:
+                        p.grad.div_(n_mb)
+                loss = sum(losses) / n_mb
+                logits = torch.cat(outs).reshape(x.shape[0], -1)
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
+        if self.reduce is not None:
+            loss = self.reduce.reduce(model, loss, grads)
         return loss, logits, grads
 
     def _update(self, ts: TrainState, grads) -> None:
@@ -342,7 +351,8 @@ class TrainStep:
 def make_train_step(model: Sequential, loss_fn: Callable,
                     optimizer: Optimizer, num_microbatches: int = 1,
                     guard: bool = False, jit: bool = True,
-                    pool: Optional[GraphPool] = None) -> TrainStep:
+                    pool: Optional[GraphPool] = None,
+                    reduce_axis=None) -> TrainStep:
     """Returns ``step(ts, x, y, lr, generator=None) -> (loss, logits)``,
     which updates ``ts`` in place. ``x`` and ``y`` are tensors on the
     model's device; ``generator`` (on that device) feeds the model's dropout
@@ -384,9 +394,22 @@ def make_train_step(model: Sequential, loss_fn: Callable,
     autograd's anomaly mode is on (debug mode's ``checks=True``) or the
     model carries hooks (:func:`~dcnn_tpu_torch.core.debug.checked`'s),
     every call runs eagerly (:func:`~dcnn_tpu_torch.core.graphs.debug_eager`):
-    a replay would run neither their host reads nor the hooks."""
+    a replay would run neither their host reads nor the hooks.
+
+    ``reduce_axis``: the data-parallel step of a rank in a mesh — an axis
+    name of the mesh active at the call (``with mesh:``,
+    :mod:`~dcnn_tpu_torch.core.mesh`) or a process group. After the
+    backward the gradients, the loss and the updated batchnorm statistics
+    are averaged over the axis (the JAX step's ``pmean``: per-shard batch
+    statistics, mesh-averaged) before the optimizer update; the logits
+    stay local. Over gloo the step runs eagerly (a host collective cannot
+    be captured); over NCCL it is one graph as above."""
+    reduce = None
+    if reduce_axis is not None:
+        from ..parallel.data_parallel import MeshReduce
+        reduce = MeshReduce(reduce_axis)
     return TrainStep(model, loss_fn, optimizer, num_microbatches, guard, jit,
-                     pool)
+                     pool, reduce)
 
 
 def make_multi_step(model: Sequential, loss_fn: Callable, optimizer: Optimizer,
@@ -513,6 +536,23 @@ def _copy_into(dst, src):
     return src
 
 
+def wire_aot(device: torch.device, aot_cache_dir: Optional[str]) -> None:
+    """Restore the kernel libraries from the AOT cache
+    (:mod:`~dcnn_tpu_torch.aot`; ``aot_cache_dir``, else ``AOT_CACHE``) and
+    commit fresh builds to it, so a warm start runs no ``nvcc``. That is
+    all the cache holds for training: the port has no compiled step
+    executable (the JAX package's cached one), and the step's CUDA graphs
+    cannot be serialized, so they are captured again in every process.
+    Off on the CPU, where no kernel is built."""
+    if device.type != "cuda":
+        return
+    from ..aot.warm import resolve
+
+    cache = resolve(aot_cache_dir or None)
+    if cache is not None:
+        _kernels.build(cache=cache)
+
+
 class Trainer:
     """The epoch loop: per-epoch train and validate, lr decay or
     scheduler, progress prints, the best-val snapshot, periodic
@@ -585,21 +625,7 @@ class Trainer:
         self._wire_aot()
 
     def _wire_aot(self) -> None:
-        """Restore the kernel libraries from the AOT cache
-        (:mod:`~dcnn_tpu_torch.aot`; ``TrainingConfig.aot_cache_dir``,
-        else ``AOT_CACHE``) and commit fresh builds to it, so a warm start
-        runs no ``nvcc``. That is all the cache holds for training: the
-        port has no compiled step executable (the JAX package's cached
-        one), and the step's CUDA graphs cannot be serialized, so they
-        are captured again in every process. Off on the CPU, where no
-        kernel is built."""
-        if self.device.type != "cuda":
-            return
-        from ..aot.warm import resolve
-
-        cache = resolve(self.config.aot_cache_dir or None)
-        if cache is not None:
-            _kernels.build(cache=cache)
+        wire_aot(self.device, self.config.aot_cache_dir)
 
     def _restore(self, ts: TrainState):
         """Load the newest valid checkpoint into the model and ``ts`` (on
@@ -796,8 +822,19 @@ class Trainer:
         checkpoint and continue at its epoch + 1 with its lr, history,
         global step and best validation accuracy (a scheduler's own state
         is not in the checkpoint, as in the JAX package). Saves queued by
-        ``checkpoint_async`` have landed when this returns."""
+        ``checkpoint_async`` have landed when this returns.
+
+        ``config.elastic``: the elastic data-parallel fit
+        (:func:`~dcnn_tpu_torch.parallel.elastic.elastic_fit`: the peers of
+        ``elastic_peers``, this one ``elastic_rank``), which survives
+        losing a host mid-epoch; its controller is left on
+        ``self.elastic``."""
         cfg = self.config
+        if cfg.elastic:
+            # lazy: the parallel package imports this module
+            from ..parallel.elastic import elastic_fit
+            return elastic_fit(self, ts, train_loader, val_loader, epochs,
+                               seed=seed)
         epochs = epochs or cfg.epochs
         best_val, start_epoch = -1.0, 1
         if self.checkpoints is not None and cfg.resume == "auto":

@@ -52,7 +52,8 @@ from dcnn_tpu_torch.interop import (
 from dcnn_tpu_torch.optim import SGD, Adam, AdamW
 from dcnn_tpu_torch.serve import InferenceEngine
 from dcnn_tpu_torch.train import (
-    _msgpack, load_checkpoint, save_checkpoint, train_classification_model,
+    _msgpack, create_train_state, load_checkpoint, save_checkpoint,
+    train_classification_model,
 )
 from dcnn_tpu_torch.train import trainer as port_trainer
 from dcnn_tpu_torch.train.checkpoint import HostSnapshot
@@ -296,6 +297,30 @@ def test_checkpoint_without_optimizer_state(tmp_path):
     model, opt_state, opt, _ = load_checkpoint(str(tmp_path), device="cpu")
     assert opt_state is None and opt is None
     _assert_identical(state_to_jax(model), snp)
+
+
+def test_fp64_model_round_trips_in_fp64(tmp_path):
+    """A checkpoint of an fp64 model (params, buffers and Adam's state)
+    loads back in fp64, bit for bit; an fp32 one stays fp32."""
+    jm, pnp, snp, _ = _jax_model("cnn_nchw")
+    tm = from_jax(jm.get_config(), pnp, snp, device="cpu").double()
+    opt = Adam(1e-3)
+    ts = create_train_state(tm, opt)
+    with torch.no_grad():
+        for p in tm.parameters():  # below fp32's resolution of the weights
+            p.add_(1e-12)
+    save_checkpoint(str(tmp_path), tm, ts.opt_state, opt)
+    model, opt_state, _, _ = load_checkpoint(str(tmp_path), device="cpu")
+    for (n, a), (_, b) in zip(tm.state_dict().items(),
+                              model.state_dict().items()):
+        assert b.dtype == torch.float64, n
+        torch.testing.assert_close(b, a, rtol=0, atol=0)
+    for n, a in ts.opt_state["m"].items():
+        torch.testing.assert_close(opt_state["m"][n], a, rtol=0, atol=0)
+    save_checkpoint(str(tmp_path / "f32"), from_jax(
+        jm.get_config(), pnp, snp, device="cpu"))
+    model, _, _, _ = load_checkpoint(str(tmp_path / "f32"), device="cpu")
+    assert {p.dtype for p in model.parameters()} == {torch.float32}
 
 
 def test_load_refuses_a_mismatched_optimizer_state(tmp_path):

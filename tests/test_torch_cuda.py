@@ -2863,3 +2863,100 @@ def test_router_tcp_replica_over_a_child_process(tmp_path):
     assert line["version"] == 2 and line["engines"] == 2
     assert line["batches"] > 0
     assert line["launches"]["conv_int8_fused"] == 2 * line["dispatched"]
+
+
+# ---------------------------------------------------------------------------
+# data parallelism: the mesh step over NCCL, the elastic fit
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def _nccl_world_of_one():
+    from dcnn_tpu_torch.parallel import multihost
+
+    multihost.initialize(num_processes=1, backend="nccl")
+    try:
+        yield
+    finally:
+        multihost.shutdown()
+
+
+@pytest.mark.parametrize("kind", ["cnn_bn", "mha_dropout"])
+def test_nccl_world_of_one_step_replays_bit_for_bit(kind, _nccl_world_of_one,
+                                                    _deterministic_cudnn):
+    """``make_data_parallel_train_step`` over a world of 1 on NCCL: the
+    whole step (the BN sums', gradients' and loss's all-reduces included)
+    captured as one graph and replayed, against the same step eager and
+    against ``make_train_step``: losses, logits, params, BN statistics and
+    the optimizer state equal bit for bit over six steps."""
+    from dcnn_tpu_torch.core.mesh import make_mesh
+    from dcnn_tpu_torch.parallel import (make_data_parallel_train_step,
+                                         shard_batch)
+
+    mesh = make_mesh()
+    assert mesh.shape == {"data": 1}
+    models, opt, xs, ys = _train_pair(kind)
+    models.append(copy.deepcopy(models[0]))
+    loss = get_loss("softmax_crossentropy")
+    out = []
+    for i, model in enumerate(models):
+        ts = create_train_state(model, opt)
+        step = (make_train_step(model, loss, opt, jit=False) if i == 2 else
+                make_data_parallel_train_step(model, loss, opt, mesh,
+                                              jit=i == 0))
+        res = []
+        for j, (x, y) in enumerate(zip(xs, ys)):
+            x, y = shard_batch((x, y), mesh)
+            lv, logits = step(ts, x, y, 1e-3,
+                              torch.Generator(device="cuda").manual_seed(j))
+            res.append((lv.cpu(), logits.cpu()))
+        if i == 0:
+            assert step._sessions.latest()[0].graph is not None
+        out.append((res, [t.detach().cpu() for t in
+                          (*model.parameters(), *model.buffers())],
+                    ts.opt_state))
+    for other in out[1:]:
+        for (la, oa), (lb, ob) in zip(out[0][0], other[0]):
+            assert torch.equal(la, lb) and torch.equal(oa, ob)
+        for a, b in zip(out[0][1], other[1]):
+            assert torch.equal(a, b)
+        for n in out[0][2]["m"]:
+            assert torch.equal(out[0][2]["m"][n], other[2]["m"][n])
+            assert torch.equal(out[0][2]["v"][n], other[2]["v"][n])
+
+
+def test_elastic_solo_fit_on_card_matches_the_cpu():
+    """``Trainer.fit`` with ``elastic=True`` alone (world 1, K=2, SGD: no
+    Adam noise floor) on the card and on the CPU from the same weights
+    and rows: the grad step's graph replays (its flash launches counted),
+    the losses and final params agree to 1e-4 of their scale."""
+    base = _narrow_mha("cpu")
+    rng = np.random.default_rng(7)
+    x = rng.normal(size=(64, 16, 32)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 64)]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = copy.deepcopy(base).to(dev)
+        cfg = TrainingConfig(epochs=2, learning_rate=0.05, seed=3,
+                             snapshot_dir=None, elastic=True, elastic_rank=0,
+                             elastic_microbatches=2, elastic_heartbeat_s=0.0,
+                             device_type=dev)
+        trainer = Trainer(model, SGD(0.05), "softmax_crossentropy", cfg)
+        ts = trainer.fit(create_train_state(model, trainer.optimizer),
+                         ArrayDataLoader(x, y, batch_size=16, seed=3))
+        out[dev] = (trainer.history, [p.detach().cpu()
+                                      for p in ts.model.parameters()],
+                    trainer.elastic)
+    (hg, pg, cg), (hc, pc, _) = out["cuda"], out["cpu"]
+    assert [h["world"] for h in hg] == [1, 1]
+    for a, b in zip(hg, hc):
+        assert abs(a["train_loss"] - b["train_loss"]) <= 1e-4 * abs(
+            b["train_loss"])
+    for a, b in zip(pg, pc):
+        assert (a - b).abs().max().item() <= 1e-4 * max(
+            b.abs().max().item(), 1.0)
+    replayed = {}
+    for g in cg._grad_steps.values():
+        for k, n in g.launches.items():
+            replayed[k] = replayed.get(k, 0) + n
+    assert all(replayed.get(k, 0) > 0
+               for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))

@@ -24,7 +24,11 @@ read and imported alone, a two-worker run on the CPU and the worker's
 ``python -m`` entry point, with ``ml_dtypes`` forbidden too, and on the
 router tier: ``serve/replica.py``, ``serve/swap.py`` and
 ``serve/router.py`` each read and imported alone, and a router over a
-local and a TCP replica hot-swapping a checkpointed model on the CPU."""
+local and a TCP replica hot-swapping a checkpointed model on the CPU, and
+on data parallelism: ``core/mesh.py``, ``parallel/multihost.py``,
+``parallel/data_parallel.py`` and ``parallel/elastic.py`` each read and
+imported alone, a mesh step over a world of one, an elastic fleet of two
+thread peers and an elastic ``Trainer.fit`` on the CPU."""
 
 import ast
 import os
@@ -589,3 +593,85 @@ def test_router_tier_leaves_jax_out():
     promoting its next version, load no JAX, flax, msgpack, ml_dtypes or
     JAX-package module."""
     _run_isolated(ROUTER)
+
+
+# data parallelism over processes and elastic peers
+DP_MODULES = ("dcnn_tpu_torch.core.mesh", "dcnn_tpu_torch.parallel.multihost",
+              "dcnn_tpu_torch.parallel.data_parallel",
+              "dcnn_tpu_torch.parallel.elastic")
+
+
+@pytest.mark.parametrize("module", DP_MODULES)
+def test_data_parallel_module_imports_no_jax(module):
+    """The source of each data-parallel module imports no JAX, flax,
+    msgpack, ml_dtypes or JAX-package module."""
+    path = REPO / (module.replace(".", "/") + ".py")
+    bad = [f"{line} imports {mod}" for line, mod in _imports(path)
+           if mod.split(".")[0] in TCP_FORBIDDEN]
+    assert not bad, bad
+
+
+DATA_PARALLEL = (
+    "import importlib, threading\n"
+    f"for name in {DP_MODULES!r}:\n"
+    "    importlib.import_module(name)\n"
+    "    bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+    f"{TCP_FORBIDDEN!r})\n"
+    "    assert not bad, (name, bad)\n"
+    "import numpy as np\n"
+    "from dcnn_tpu_torch.core import TrainingConfig\n"
+    "from dcnn_tpu_torch.core.mesh import make_mesh\n"
+    "from dcnn_tpu_torch.data import ArrayDataLoader\n"
+    "from dcnn_tpu_torch.nn import SequentialBuilder\n"
+    "from dcnn_tpu_torch.ops.losses import get_loss\n"
+    "from dcnn_tpu_torch.optim import SGD\n"
+    "from dcnn_tpu_torch.parallel import (comm, multihost,\n"
+    "    make_data_parallel_train_step, replicate, shard_batch)\n"
+    "from dcnn_tpu_torch.parallel.elastic import ElasticController, PeerSpec\n"
+    "from dcnn_tpu_torch.train import Trainer, create_train_state\n"
+    "def model():\n"
+    "    return (SequentialBuilder('d').input((4,)).dense(4).batchnorm()"
+    ".dense(2).build()).init(generator=torch.Generator().manual_seed(0),"
+    " device='cpu')\n"
+    "multihost.initialize(num_processes=1, backend='gloo')\n"
+    "mesh = make_mesh()\n"
+    "m, opt = model(), SGD(0.1)\n"
+    "ts = replicate(create_train_state(m, opt), mesh)\n"
+    "x, y = torch.ones(4, 4), torch.eye(2)[[0, 1, 0, 1]]\n"
+    "step = make_data_parallel_train_step(m, get_loss('mse'), opt, mesh)\n"
+    "assert torch.isfinite(step(ts, *shard_batch((x, y), mesh), 0.1)[0])\n"
+    "multihost.shutdown()\n"
+    "rows = np.random.default_rng(0).normal(size=(8, 4)).astype(np.float32)\n"
+    "ys = np.eye(2, dtype=np.float32)[[0, 1] * 4]\n"
+    "socks = [comm.listen(0, host='127.0.0.1') for _ in range(2)]\n"
+    "peers = [PeerSpec(i, '127.0.0.1', s.getsockname()[1])"
+    " for i, s in enumerate(socks)]\n"
+    "out = {}\n"
+    "def run(i):\n"
+    "    cfg = TrainingConfig(epochs=1, elastic=True, elastic_microbatches=2,"
+    " elastic_heartbeat_s=0.0, device_type='cpu', seed=1)\n"
+    "    mi = model()\n"
+    "    c = ElasticController(mi, SGD(0.1), 'mse', ArrayDataLoader(rows, ys,"
+    " batch_size=4), config=cfg, rank=i, peers=peers, listen_sock=socks[i])\n"
+    "    out[i] = c.fit(create_train_state(mi, c.optimizer))\n"
+    "ts_ = [threading.Thread(target=run, args=(i,)) for i in range(2)]\n"
+    "[t.start() for t in ts_]; [t.join(60) for t in ts_]\n"
+    "assert all(torch.equal(a, b) for a, b in zip("
+    "out[0].model.parameters(), out[1].model.parameters()))\n"
+    "cfg = TrainingConfig(epochs=1, elastic=True, elastic_rank=0,"
+    " elastic_heartbeat_s=0.0, device_type='cpu')\n"
+    "tr = Trainer(model(), SGD(0.1), 'mse', cfg)\n"
+    "tr.fit(create_train_state(tr.model, tr.optimizer),"
+    " ArrayDataLoader(rows, ys, batch_size=4))\n"
+    "assert tr.history and tr.history[0]['world'] == 1\n"
+    "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+    f"{TCP_FORBIDDEN!r})\n"
+    "assert not bad, bad\n")
+
+
+def test_data_parallel_and_elastic_leave_jax_out():
+    """The mesh, multihost, data-parallel and elastic modules imported one
+    by one, then a mesh step over a world of one, an elastic fleet of two
+    thread peers and an elastic ``Trainer.fit`` on the CPU, load no JAX,
+    flax, msgpack, ml_dtypes or JAX-package module."""
+    _run_isolated(DATA_PARALLEL)

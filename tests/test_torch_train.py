@@ -316,17 +316,18 @@ def test_mha_classifier_trains_on_the_marker_task():
 
 
 # the fields still refused, with the ROADMAP.md Queue 1 item that ports each
-UNPORTED = {"elastic": (True, 6), "metrics_port": (0, 7)}
+UNPORTED = {"metrics_port": (0, 7)}
 # ported since: checkpoints, resume, the step guard and the watchdog; the
 # chunked epoch (steps_per_dispatch) and the feed workers' config field;
 # the flight recorder, the layer profiler, debug mode and slow_detect (read
 # by elastic training only, as in the JAX package); the AOT cache of the
-# kernel libraries (aot_cache_dir)
+# kernel libraries (aot_cache_dir); elastic training (fit delegates to
+# parallel/elastic.py: tests/test_torch_elastic.py)
 PORTED = {"checkpoint_dir": "ckpt", "resume": "auto",
           "nonfinite_policy": "skip_step", "stall_timeout_s": 5.0,
           "steps_per_dispatch": 4, "feed_workers": 2, "flight_dir": "flight",
           "profiler": "normal", "debug": True, "slow_detect": True,
-          "aot_cache_dir": "aot"}
+          "aot_cache_dir": "aot", "elastic": True}
 
 
 @pytest.mark.parametrize("field", sorted(UNPORTED))

@@ -231,7 +231,33 @@ Phases, each fatal on failure:
    the leader crashed at a heartbeat; the survivor within the JAX test's
    ``RTOL, ATOL`` of the uninterrupted run, the flash kernels counted in
    every peer's replayed grad steps. The three print ``{"data_parallel":
-   ...}`` on a line before the kernels line.
+   ...}`` on a line before the kernels line;
+24. sequence parallel (a) (``phase_sequence``): ring (causal and not),
+   zigzag and Ulysses (causal and not) over a ``"seq"`` axis of one NCCL
+   rank in this process at B4 H8 S4096 D64, forward and backward, held to
+   ``flash_attention`` on the whole sequence in bf16 and to the kernels'
+   plain versions in fp32 (``SEQ_TOL``); each call's flash launches equal
+   the schedule's live block pairs (ring 1, zigzag 3, Ulysses 1, of the
+   forward, dQ and dK/dV each); fwd+bwd walls;
+26 (a), 27. dp feed (``phase_dp_feed``), world 1 over NCCL: the DP
+   resident epoch (``make_resident_epoch_dp``) on phase 21's ResNet-18
+   setup bit for bit the single-device resident epoch given one order,
+   replayed; ``Trainer.fit`` over a ``ShardedDeviceDataset``;
+   ``PrefetchLoader(sharding=mesh)`` bit for bit ``shard_batch``'s; the
+   compiled pipeline's ``data_axis="data"`` step (4 GroupNorm residual
+   blocks at 64x32x32, M=8, B=32), eager and replayed with the all-reduce
+   in the graph, bit for bit the step without a data axis;
+25, 26 (b). sequence peers (``phase_seq_peers``; two processes ``python
+   chip_smoke.py --seq-peer RANK ...`` over gloo, started before phase 24
+   and set going after phase 27): the sequence paths at world 2 in bf16
+   and fp32 (``SEQ_TOL``), each rank held to its slice of the whole
+   sequence's run, its launches
+   a call ring r+1 causal and 2 not, zigzag 5, Ulysses 1, with fwd+bwd
+   walls and the bytes staged through the host; then ``Trainer.fit`` over
+   a ``ShardedDeviceDataset`` (one epoch), the ranks' params bit for bit
+   equal, and one fp64 SGD step of the DP epoch within ``DPR_F64_TOL`` of
+   the per-shard gradients averaged by hand. Phases 24-27 print
+   ``{"sequence": ...}`` on a line before the kernels line.
 
 Compiled sessions (CUDA graphs, ``dcnn_tpu_torch/core/graphs.py``): in
 serve, serve cnn, serve int8 and decode every bucket or lattice point is a
@@ -252,8 +278,9 @@ the obs phase's launches under ``"obs"``, the export phase's under
 ``"export"``, the pipeline phase's under ``"pipeline"``, the TCP
 workers' under ``"tcp_pipeline"``, the router phase's replicas' under
 ``"router"``, the router tcp phase's surviving replica server's under
-``"router_tcp"`` and the elastic mha phase's under ``"elastic_mha"``
-where they launch the row) on
+``"router_tcp"``, the elastic mha phase's under ``"elastic_mha"`` and
+the sequence paths' (both worlds) under ``"sequence"`` where they launch
+the row) on
 a line of its own and, last,
 ``{"ok": true, "device": {...}}``. Times come from CUDA events around CUDA
 graph replays of many calls, so host overhead is not in them.
@@ -5031,18 +5058,29 @@ class ChildProcess:
         return next((t for t, j in zip(self.at, self.json) if key in j),
                     None)
 
-    def wait_for(self, key, timeout=300.0) -> dict:
-        """The first JSON line with ``key``; fails if the process ends or
-        the time runs out first."""
-        deadline = time.perf_counter() + timeout
+    def _ended(self):
+        return self.proc.poll() is not None and not self._reader.is_alive()
+
+    def _first(self, key):
         with self.new:
-            while True:
-                got = [j for j in self.json if key in j]
-                if got:
-                    return got[0]
+            return next((j for j in self.json if key in j), None)
+
+    def wait_for(self, key, timeout=300.0, partners=()) -> dict:
+        """The first JSON line with ``key``; fails if the process ends or
+        the time runs out first, or as soon as one of ``partners`` (peers
+        of one world, which this one may be waiting on) ends without its
+        own ``key`` line."""
+        deadline = time.perf_counter() + timeout
+        while True:
+            for p in partners:
+                if p is not self and p._ended() and p._first(key) is None:
+                    p._fail(f"exited before its {key!r} line")
+            with self.new:
+                got = self._first(key)
+                if got is not None:
+                    return got
                 left = deadline - time.perf_counter()
-                if left <= 0 or (self.proc.poll() is not None
-                                 and not self._reader.is_alive()):
+                if left <= 0 or self._ended():
                     break
                 self.new.wait(min(left, 1.0))
         self._fail(f"printed no {key!r} line")
@@ -6809,6 +6847,640 @@ def phase_elastic_mha(card):
     return out
 
 
+# sequence parallelism, the DP resident feed and the compiled pipeline's
+# data axis
+
+SEQ_SEED = SEED + 21
+SEQ_SHAPE = (4, 8, 4096, 64)  # B, H, S, D: FLASH_CASES' "long context"
+SEQ_PATHS = (("ring", False), ("ring", True), ("zigzag", True),
+             ("ulysses", False), ("ulysses", True))
+# A path's output and dQ/dK/dV against the whole sequence's, as max |diff|
+# over that tensor's largest |value| (as BWD_TOL's gates). bf16, against
+# flash_attention on the whole sequence: the flash gates' BWD_TOL; each
+# live block's O leaves the forward kernel rounded to bf16 before the fp32
+# merge (zigzag merges 2 blocks a chunk, the ring at world 2 up to 2), and
+# each pair's dQ, dK and dV leave the backward kernels rounded to bf16
+# before the fp32 sums, a few bf16 units (2^-8) where whole-sequence flash
+# rounds once. fp32, against the plain versions (flash_forward_reference,
+# flash_backward_reference) on the card: TOL's fp32, the same sums in
+# another order. A wrong mask, merge or return of dK/dV is off by O(1).
+SEQ_TOL = {"bfloat16": 2e-2, "float32": 1e-4}
+SEQ_TIMED = 5             # fwd+bwd calls timed a path
+SEQ_PLAIN_BLOCK = 256     # the plain backward's tiles (the whole sequence)
+# the fp64 one-step SGD run of the DP epoch; a power of two, exact in the
+# fp32 scalar the optimizer keeps its lr in
+DPR_F64_LR = 2.0 ** -7
+DPR_F64_TOL = DP_F64_TOL  # of each tensor's largest change (see DP_F64_TOL)
+STACK_SHAPE = (64, 32, 32)  # resnet18_tiny_imagenet's layer1: 64 ch, 32x32
+STACK_STAGES, STACK_M, STACK_BATCH, STACK_STEPS = 4, 8, 32, 3
+
+
+def seq_inputs(dtype):
+    """q, k, v and dO at SEQ_SHAPE on the card, from SEQ_SEED (the same in
+    every process)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(SEQ_SEED)
+    return [torch.from_numpy(rng.standard_normal(SEQ_SHAPE, np.float32))
+            .cuda().to(dtype) for _ in range(4)]
+
+
+def seq_whole(q, k, v, do, causal, dtype_name):
+    """The whole sequence's [out, dq, dk, dv]: bf16 through
+    ``flash_attention`` (the kernels), fp32 through the kernels' plain
+    versions, both on the card."""
+    from dcnn_tpu_torch.ops.attention import (
+        flash_attention, flash_backward_reference, flash_forward_reference)
+
+    scale = q.shape[-1] ** -0.5
+    if dtype_name == "float32":
+        o, lse = flash_forward_reference(q, k, v, causal=causal, scale=scale,
+                                         block_kv=SEQ_PLAIN_BLOCK)
+        return [o, *flash_backward_reference(
+            q, k, v, o, lse, do, causal=causal, scale=scale,
+            block_q=SEQ_PLAIN_BLOCK, block_kv=SEQ_PLAIN_BLOCK)]
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention(*leaves, causal=causal, scale=scale)
+    out.backward(do)
+    return [out.detach()] + [t.grad for t in leaves]
+
+
+def seq_paths(mesh, dtype_names, label):
+    """Every SEQ_PATHS path over ``mesh``'s ``"seq"`` axis, each dtype:
+    this rank's shard (``shard_sequence``; ``zigzag_shard`` for zigzag)
+    forward and backward (dO this rank's slice), held to this rank's slice
+    of the whole sequence's run (SEQ_TOL); the flash launches of the
+    path's call equal to its schedule's live block pairs for the forward,
+    dQ and dK/dV each; then SEQ_TIMED calls timed (wall, synchronised),
+    with the host-staged bytes a call. Returns, by "dtype kind[_causal]":
+    errors, each reference tensor's largest |value|, launches a call, wall
+    ms, staged bytes; and "launches", the
+    flash launches of every path call here (not the references')."""
+    import torch
+
+    from dcnn_tpu_torch.parallel import sequence
+    from dcnn_tpu_torch.parallel.data_parallel import HOST_STAGING
+
+    n, r = mesh.shape["seq"], mesh.coordinate("seq")
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    total = dict.fromkeys(flash, 0)
+    out = {}
+    for dtype_name in dtype_names:
+        q, k, v, do = seq_inputs(getattr(torch, dtype_name))
+        for kind, causal in SEQ_PATHS:
+            name = f"{dtype_name} {kind}{'_causal' if causal else ''}"
+            if kind == "zigzag":
+                f = sequence.make_zigzag_ring_attention(mesh)
+                shard = sequence.zigzag_shard
+                live = sequence.live_pairs(n, r, causal=True, zigzag=True)
+            else:
+                f = (sequence.make_ring_attention if kind == "ring" else
+                     sequence.make_ulysses_attention)(mesh, causal=causal)
+                shard = sequence.shard_sequence
+                live = 1 if kind == "ulysses" else sequence.live_pairs(
+                    n, r, causal=causal, zigzag=False)
+            local = shard([q, k, v, do], mesh)
+            want = shard(seq_whole(q, k, v, do, causal, dtype_name), mesh)
+
+            def call():
+                leaves = [t.detach().clone().requires_grad_(True)
+                          for t in local[:3]]
+                o = f(*leaves)
+                o.backward(local[3])
+                return [o.detach()] + [t.grad for t in leaves]
+
+            walls, staged = [], []
+            for i in range(1 + SEQ_TIMED):
+                before, b0 = launches(), HOST_STAGING["bytes"]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                got = call()
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t0) * 1e3)
+                staged.append(HOST_STAGING["bytes"] - b0)
+                counts = {k_: launches()[k_] - before[k_] for k_ in flash}
+                for k_ in flash:
+                    total[k_] += counts[k_]
+                if counts != dict.fromkeys(flash, live):
+                    fail(f"{label}: {name} launched {counts}, not the "
+                         f"schedule's {live} live block pairs each")
+                if i == 0:
+                    errs, tops = {}, {}
+                    for t, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+                        err = (a.float() - b.float()).abs().max().item()
+                        tops[t] = b.float().abs().max().item()
+                        errs[t] = err / tops[t] if tops[t] > 0 else err
+                    bad = {t: e for t, e in errs.items()
+                           if not e <= SEQ_TOL[dtype_name]}
+                    if bad:
+                        fail(f"{label}: {name} differs from the whole "
+                             f"sequence's run: {bad} (gate "
+                             f"{SEQ_TOL[dtype_name]:g} of each tensor's "
+                             f"largest |value|)")
+            out[name] = {"errors": errs, "largest": tops,
+                         "launches_per_call": live,
+                         "wall_ms_median": median(walls[1:]),
+                         "wall_ms": walls[1:],
+                         "staged_bytes_per_call": staged[-1]}
+        del q, k, v, do
+    out["launches"] = total
+    return out
+
+
+def seq_whole_ms(dtype_name="bfloat16"):
+    """Wall ms of one whole-sequence ``flash_attention`` forward and
+    backward at SEQ_SHAPE on this card, median of SEQ_TIMED, per
+    causality."""
+    import torch
+
+    from dcnn_tpu_torch.ops.attention import flash_attention
+
+    q, k, v, do = seq_inputs(getattr(torch, dtype_name))
+    out = {}
+    for causal in (False, True):
+        walls = []
+        for _ in range(1 + SEQ_TIMED):
+            leaves = [t.detach().clone().requires_grad_(True)
+                      for t in (q, k, v)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flash_attention(*leaves, causal=causal).backward(do)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        out["causal" if causal else "full"] = median(walls[1:])
+    return out
+
+
+def seq_text(res, dtype_name):
+    return "; ".join(
+        f"{name.split(' ')[1]} {r['wall_ms_median']:.3f} ms "
+        f"(launches {r['launches_per_call']}x3, err "
+        f"{max(r['errors'].values()):.2e}, staged "
+        f"{r['staged_bytes_per_call']} B)"
+        for name, r in res.items()
+        if name != "launches" and name.startswith(dtype_name))
+
+
+def phase_sequence(card):
+    """Phase 24, sequence parallel (a): ring (causal and not), zigzag and
+    Ulysses (causal and not) over a ``"seq"`` axis of one NCCL rank in
+    this process, at SEQ_SHAPE in bf16 (against ``flash_attention`` on the
+    whole sequence) and fp32 (against the kernels' plain versions), each
+    forward and backward; launches per call: ring 1, zigzag 3, Ulysses 1,
+    of the forward, dQ and dK/dV each (see ``seq_paths``)."""
+    from dcnn_tpu_torch.core.mesh import make_mesh
+    from dcnn_tpu_torch.parallel import multihost
+
+    multihost.initialize(num_processes=1, backend="nccl")
+    try:
+        res = seq_paths(make_mesh((1,), ("seq",)), ("bfloat16", "float32"),
+                        "sequence parallel (a)")
+    finally:
+        multihost.shutdown()
+    whole = seq_whole_ms()
+    res["whole_flash_ms"] = whole
+    b, h, s, d = SEQ_SHAPE
+    print(f"sequence parallel (a): world 1 over NCCL, B{b} H{h} S{s} D{d}, "
+          f"forward+backward held to the whole sequence (bf16 "
+          f"{SEQ_TOL['bfloat16']:g}, fp32 {SEQ_TOL['float32']:g} of each "
+          f"tensor's largest); bf16: {seq_text(res, 'bfloat16')}; fp32: "
+          f"{seq_text(res, 'float32')}; whole-sequence flash fwd+bwd bf16 "
+          f"{whole['full']:.3f} ms, causal {whole['causal']:.3f} ms; on "
+          f"{card}", flush=True)
+    return res
+
+
+def start_seq_peers():
+    """The two processes of phases 25 and 26 (b), started before phase 24
+    so that they import torch while it runs; they wait for the parent's
+    go (``phase_seq_peers``) before they touch the card's work."""
+    import tempfile
+
+    d = tempfile.mkdtemp(prefix="dcnn_seq_")
+    (store,) = free_ports(1)
+    return d, [ChildProcess(f"sequence peer {r}",
+                            [os.path.join(ROOT, "chip_smoke.py"),
+                             "--seq-peer", str(r), "--store", str(store),
+                             "--dir", d], stdin=True)
+               for r in (0, 1)]
+
+
+def dpr_orders(n_local, local_batch, world):
+    """Each rank's one-step order for the fp64 DP run: ``local_batch`` of
+    its ``n_local`` rows, from SEED + 23 (the same in every process)."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 23)
+    return [rng.permutation(n_local)[:local_batch][None]
+            for _ in range(world)]
+
+
+def dpr_by_hand(setup, orders, world):
+    """The fp64 DP step by hand on the card (JAX's
+    ``make_resident_epoch_dp`` semantics): each shard's rows (shard ``s``
+    is rows ``s·N/W ..``, its order applied) through the model from the
+    start, per-shard batch statistics; the mean of the shards' gradients,
+    an SGD step; the shards' updated running statistics averaged; the
+    mean loss. Returns (params and buffers by name, loss)."""
+    import torch
+
+    from dcnn_tpu_torch.interop import from_jax
+    from dcnn_tpu_torch.ops.losses import get_loss
+
+    cfg, params, state, x, y = setup
+    model = from_jax(cfg, params, state, device="cuda").double().train()
+    ce = get_loss("softmax_crossentropy")
+    ps = list(model.parameters())
+    bufs = [b for b in model.buffers() if b.is_floating_point()]
+    start = [b.clone() for b in bufs]
+    grad = [torch.zeros_like(p) for p in ps]
+    mean = [torch.zeros_like(b) for b in bufs]
+    per = len(x) // world
+    loss = 0.0
+    for s in range(world):
+        with torch.no_grad():
+            for b, b0 in zip(bufs, start):
+                b.copy_(b0)
+        rows = s * per + orders[s][0]
+        xb = torch.from_numpy(x[rows]).cuda().double() * (1.0 / 255.0)
+        lm = ce(model(xb), torch.from_numpy(y[rows]).cuda())
+        for g, gm in zip(grad, torch.autograd.grad(lm, ps)):
+            g += gm
+        for m_, b in zip(mean, bufs):
+            m_ += b.detach()
+        loss += lm.item()
+    with torch.no_grad():
+        for p, g in zip(ps, grad):
+            p -= DPR_F64_LR * (g / world)
+        for b, m_ in zip(bufs, mean):
+            b.copy_(m_ / world)
+    return host_named(model), loss / world
+
+
+def dpr_f64_rel(got, want, start, model):
+    """(worst, name) of the fp64 DP step against the hand one: a param's
+    change over the hand change's largest (a conv bias that feeds a BN,
+    whose change is zero in exact arithmetic, over the model's largest),
+    a buffer's |diff| over its largest |value|."""
+    import numpy as np
+
+    names = {n for n, _ in model.named_parameters()}
+    zero = bias_before_bn(model)
+    top = max(float(np.abs(want[n] - start[n]).max()) for n in names)
+    worst = (-1.0, "")
+    for n in want:
+        if n in names:
+            scale = (top if n in zero
+                     else float(np.abs(want[n] - start[n]).max()) or top)
+        else:
+            scale = float(np.abs(want[n]).max()) or 1.0
+        rel = float(np.abs(got[n] - want[n]).max()) / scale
+        worst = max(worst, (rel, n))
+    return worst
+
+
+def dp_resident_world2(mesh, rank, directory):
+    """Phase 26 (b), in a peer: the DP resident epoch over a gloo world of
+    2 on the card. fp32: ``Trainer.fit`` over a ``ShardedDeviceDataset``
+    (the data-parallel phase's setup: full-width NCHW ResNet-18, AdamW,
+    256 uint8 rows, global B=32, one epoch of 8 steps), the params and
+    buffers to ``DIR/dpres<RANK>.pt`` for the parent to compare. fp64:
+    one SGD step of ``make_resident_epoch_dp`` given ``dpr_orders``; rank
+    0 holds it to ``dpr_by_hand``."""
+    import torch
+
+    from dcnn_tpu_torch.core import TrainingConfig, set_precision
+    from dcnn_tpu_torch.data import (
+        ShardedDeviceDataset, make_resident_epoch_dp, stage_sharded)
+    from dcnn_tpu_torch.interop import from_jax
+    from dcnn_tpu_torch.ops.losses import get_loss
+    from dcnn_tpu_torch.optim import SGD, AdamW
+    from dcnn_tpu_torch.parallel.data_parallel import HOST_STAGING
+    from dcnn_tpu_torch.train import Trainer, create_train_state
+
+    setup = dp_setup()
+    cfg, params, state, x, y = setup
+    model = from_jax(cfg, params, state, device="cuda")
+    opt = AdamW(DP_LR, weight_decay=1e-4)
+    trainer = Trainer(model, opt, "softmax_crossentropy", TrainingConfig(
+        epochs=1, batch_size=DP_BATCH, learning_rate=DP_LR, seed=SEED,
+        snapshot_dir=None, progress_interval=0))
+    ds = ShardedDeviceDataset(x, y, 200, batch_size=DP_BATCH, mesh=mesh)
+    b0 = HOST_STAGING["bytes"]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit(create_train_state(model, opt), ds)
+    wall = time.perf_counter() - t0
+    torch.save(host_named(model), os.path.join(directory,
+                                                f"dpres{rank}.pt"))
+    out = {"rank": rank, "epoch_s": wall, "steps": ds.steps_per_epoch,
+           "train_loss": trainer.history[0]["train_loss"],
+           "staged_bytes_per_step":
+               (HOST_STAGING["bytes"] - b0) / ds.steps_per_epoch,
+           "local_samples": ds.local_samples}
+
+    set_precision("fp64")
+    try:
+        model = from_jax(cfg, params, state, device="cuda").double()
+        start = host_named(model)
+        opt = SGD(DPR_F64_LR)
+        epoch = make_resident_epoch_dp(
+            model, get_loss("softmax_crossentropy"), opt, num_classes=200,
+            batch_size=DP_BATCH, mesh=mesh)
+        xs, ys = stage_sharded(x, y, mesh, global_shuffle_seed=None)
+        orders = dpr_orders(xs.shape[0], DP_BATCH // 2, 2)
+        _, loss = epoch(create_train_state(model, opt), xs, ys, SEED,
+                        DPR_F64_LR, order=orders[rank])
+        out["loss64"] = float(loss)
+        if rank == 0:
+            want, want_loss = dpr_by_hand(setup, orders, 2)
+            rel, name = dpr_f64_rel(host_named(model), want, start, model)
+            loss_rel = abs(float(loss) - want_loss) / abs(want_loss)
+            out["f64"] = {"worst": rel, "at": name, "loss_rel": loss_rel}
+            if not (rel <= DPR_F64_TOL and loss_rel <= DPR_F64_TOL):
+                fail(f"dp resident (b): the fp64 DP step differs from the "
+                     f"per-shard gradients averaged by hand: {rel:.3e} at "
+                     f"{name}, loss {loss_rel:.3e} (gate {DPR_F64_TOL:g})")
+    finally:
+        set_precision("parity")
+    return out
+
+
+def seq_peer_main(argv) -> None:
+    """``python chip_smoke.py --seq-peer RANK --store PORT --dir DIR``: one
+    rank of a gloo world of 2 on the card (the store on rank 0's PORT):
+    phase 25 (``seq_paths`` over a ``"seq"`` axis of 2, bf16 and fp32;
+    prints
+    ``{"seq": ...}``), then phase 26 (b) (``dp_resident_world2`` over a
+    ``"data"`` axis of 2; prints ``{"dp_resident": ...}``)."""
+    import argparse
+
+    ap = argparse.ArgumentParser(prog="chip_smoke.py --seq-peer")
+    ap.add_argument("rank", type=int)
+    ap.add_argument("--store", type=int, required=True)
+    ap.add_argument("--dir", required=True)
+    args = ap.parse_args(argv)
+    sys.path.insert(0, ROOT)
+
+    from dcnn_tpu_torch.core import set_precision
+    from dcnn_tpu_torch.core.mesh import make_mesh
+    from dcnn_tpu_torch.ops import _kernels
+    from dcnn_tpu_torch.parallel import multihost
+
+    set_precision("parity")
+    _kernels.build()  # the libraries the parent built, from the build dir
+    deterministic_cudnn()
+    # the parent's own phases run first: wait for its word, so that the
+    # two workloads never share the card
+    print(json.dumps({"ready": args.rank}), flush=True)
+    if sys.stdin.readline().strip() != "go":
+        fail("sequence peer: the parent closed its pipe without a go")
+    multihost.initialize(f"127.0.0.1:{args.store}", 2, args.rank,
+                         backend="gloo", timeout_s=300)
+    seq = seq_paths(make_mesh((2,), ("seq",)), ("bfloat16", "float32"),
+                    f"sequence parallel (b) rank {args.rank}")
+    print(json.dumps({"seq": {"rank": args.rank, **seq}}), flush=True)
+    dpr = dp_resident_world2(make_mesh((2,), ("data",)), args.rank,
+                             args.dir)
+    print(json.dumps({"dp_resident": dpr}), flush=True)
+    multihost.barrier("seq peer done", timeout_ms=300_000)
+    multihost.shutdown()
+
+
+def phase_seq_peers(card, directory, peers, seq_a):
+    """Phases 25 and 26 (b) from the two peer processes: the sequence
+    paths at world 2 (each rank's launches per call: causal ring r+1,
+    ring 2, zigzag 5, Ulysses 1), and the DP resident epoch at world 2:
+    the ranks' params and buffers bit for bit equal after the fp32 epoch,
+    the fp64 step within DPR_F64_TOL of the hand one (rank 0). Returns
+    both results."""
+    import numpy as np
+    import torch
+
+    def each(key):
+        """Both peers' ``key`` values; fails as soon as one ends without."""
+        return [p.wait_for(key, 300, partners=peers)[key] for p in peers]
+
+    try:
+        each("ready")
+        for p in peers:
+            p.proc.stdin.write("go\n")
+            p.proc.stdin.flush()
+        seqs = each("seq")
+        dprs = each("dp_resident")
+        for p in peers:
+            p.finish(timeout=120)
+    finally:
+        for p in peers:
+            p.close()
+    got = [torch.load(os.path.join(directory, f"dpres{r}.pt"),
+                      weights_only=False) for r in (0, 1)]
+    bad = [n for n in got[0] if not np.array_equal(got[0][n], got[1][n])]
+    if bad:
+        fail(f"dp resident (b): the ranks differ after the epoch in "
+             f"{len(bad)} tensors ({bad[:4]})")
+    if "f64" not in dprs[0]:
+        fail("dp resident (b): rank 0 printed no fp64 check")
+    b, h, s, d = SEQ_SHAPE
+    for r, res in enumerate(seqs):
+        print(f"sequence parallel (b): world 2 over gloo (two processes on "
+              f"one card: a protocol's cost, not scaling), rank {r}, B{b} "
+              f"H{h} S{s} D{d}, held to the whole sequence (bf16 "
+              f"{SEQ_TOL['bfloat16']:g}, fp32 {SEQ_TOL['float32']:g} of each "
+              f"tensor's largest); bf16: {seq_text(res, 'bfloat16')}; fp32: "
+              f"{seq_text(res, 'float32')}; whole-"
+              f"sequence flash fwd+bwd {seq_a['whole_flash_ms']['full']:.3f}"
+              f" ms, causal {seq_a['whole_flash_ms']['causal']:.3f} ms "
+              f"(phase 24); on {card}", flush=True)
+    f64 = dprs[0]["f64"]
+    print(f"dp resident (b): world 2 over gloo, Trainer.fit over a "
+          f"ShardedDeviceDataset (resnet18_tiny_imagenet NCHW, AdamW, "
+          f"global B={DP_BATCH}, {dprs[0]['steps']} steps): the ranks' "
+          f"params and buffers bit for bit equal; epoch "
+          f"{dprs[0]['epoch_s']:.2f} s / {dprs[1]['epoch_s']:.2f} s, "
+          f"{dprs[0]['staged_bytes_per_step']:.0f} B staged through the "
+          f"host a step; fp64 one SGD step vs the per-shard gradients "
+          f"averaged by hand: {f64['worst']:.3e} at {f64['at']}, loss "
+          f"{f64['loss_rel']:.3e} (gate {DPR_F64_TOL:g}); on {card}",
+          flush=True)
+    return seqs, dprs
+
+
+def phase_dp_feed(card):
+    """Phases 26 (a) and 27, world 1 over NCCL in this process, cuDNN
+    deterministic. (a) The DP resident epoch (``make_resident_epoch_dp``)
+    on the data-parallel phase's setup (full-width NCHW ResNet-18, AdamW,
+    256 uint8 rows, B=32, 8 steps) given one order, bit for bit the
+    single-device resident epoch given it (losses, params, buffers), its
+    steps replayed as CUDA graphs; then ``Trainer.fit`` over a
+    ``ShardedDeviceDataset`` (2 epochs, finite losses, graphs replayed);
+    ``PrefetchLoader(sharding=mesh)`` yields ``shard_batch``'s batches bit
+    for bit. 27: the compiled pipeline's ``data_axis="data"`` step on a
+    ``SequentialStageStack`` of 4 GroupNorm residual blocks at ResNet-18's
+    layer1 (64x32x32), M=8, B=32: eager and replayed (the all-reduce in
+    the graph), bit for bit the step without a data axis."""
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.core import TrainingConfig
+    from dcnn_tpu_torch.core.mesh import make_mesh
+    from dcnn_tpu_torch.data import (
+        ArrayDataLoader, PrefetchLoader, ShardedDeviceDataset,
+        make_resident_epoch, make_resident_epoch_dp, resident_epoch_dp,
+        stage_sharded)
+    from dcnn_tpu_torch.data.transfer import stage_array
+    from dcnn_tpu_torch.interop import from_jax
+    from dcnn_tpu_torch.nn import Conv2DLayer, GroupNormLayer, ResidualBlock
+    from dcnn_tpu_torch.ops.losses import get_loss
+    from dcnn_tpu_torch.optim import SGD, AdamW
+    from dcnn_tpu_torch.parallel import (
+        SequentialStageStack, make_compiled_pipeline_train_step, multihost,
+        shard_batch)
+    from dcnn_tpu_torch.train import Trainer, create_train_state
+
+    deterministic_cudnn()
+    setup = dp_setup()
+    cfg, params, state, x, y = setup
+    ce = get_loss("softmax_crossentropy")
+    order = np.random.default_rng(SEED + 22).permutation(len(x)).reshape(
+        -1, DP_BATCH)
+    out = {}
+    multihost.initialize(num_processes=1, backend="nccl")
+    try:
+        mesh = make_mesh()
+        runs = {}
+        for kind in ("single", "dp"):
+            model = from_jax(cfg, params, state, device="cuda")
+            opt = AdamW(DP_LR, weight_decay=1e-4)
+            if kind == "single":
+                epoch = make_resident_epoch(model, ce, opt, num_classes=200,
+                                            batch_size=DP_BATCH)
+                xs = stage_array(x, torch.device("cuda"))
+                ys = stage_array(y.argmax(-1).astype(np.int32),
+                                 torch.device("cuda"))
+            else:
+                epoch = make_resident_epoch_dp(model, ce, opt,
+                                               num_classes=200,
+                                               batch_size=DP_BATCH, mesh=mesh)
+                xs, ys = stage_sharded(x, y, mesh, global_shuffle_seed=None)
+            ts = create_train_state(model, opt)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, loss = epoch(ts, xs, ys, SEED, DP_LR, order=order)
+            lv = float(loss)
+            runs[kind] = (lv, host_named(model),
+                          (time.perf_counter() - t0) * 1e3 / len(order),
+                          epoch.body._sessions.latest())
+        (l1, n1, ms1, _), (l2, n2, ms2, sess) = runs["single"], runs["dp"]
+        bad = [n for n in n1 if not np.array_equal(n1[n], n2[n])]
+        if l1 != l2 or bad:
+            fail(f"dp resident (a): the DP epoch at world 1 differs from the "
+                 f"single-device resident epoch: loss {l2} vs {l1}, "
+                 f"{len(bad)} tensors ({bad[:4]})")
+        if sess is None or sess.graph is None:
+            fail("dp resident (a): the NCCL world-1 epoch replayed no graph")
+
+        model = from_jax(cfg, params, state, device="cuda")
+        opt = AdamW(DP_LR, weight_decay=1e-4)
+        trainer = Trainer(model, opt, "softmax_crossentropy", TrainingConfig(
+            epochs=2, batch_size=DP_BATCH, learning_rate=DP_LR, seed=SEED,
+            snapshot_dir=None, progress_interval=0))
+        ds = ShardedDeviceDataset(x, y, 200, batch_size=DP_BATCH, mesh=mesh)
+        trainer.fit(create_train_state(model, opt), ds)
+        fit_losses = [h_["train_loss"] for h_ in trainer.history]
+        fit_sess = resident_epoch_dp(model, trainer.loss_fn, opt,
+                                     ds).body._sessions.latest()
+        if not all(np.isfinite(fit_losses)) or fit_sess is None \
+                or fit_sess.graph is None:
+            fail(f"dp resident (a): Trainer.fit over a ShardedDeviceDataset: "
+                 f"losses {fit_losses}, graph replayed "
+                 f"{fit_sess is not None}")
+
+        loader = ArrayDataLoader(x[:128], y[:128], batch_size=DP_BATCH,
+                                 shuffle=False)
+        loader.load_data()
+        plain = [shard_batch(b, mesh) for b in PrefetchLoader(loader)]
+        sharded = list(PrefetchLoader(loader, sharding=mesh))
+        if len(plain) != len(sharded) or not all(
+                torch.equal(a, b) for pa, pb in zip(plain, sharded)
+                for a, b in zip(pa, pb)):
+            fail("dp resident (a): PrefetchLoader(sharding=mesh) batches "
+                 "differ from shard_batch's")
+        out["resident"] = {"bit_equal": True, "loss": l1,
+                           "step_ms_single": ms1, "step_ms_dp": ms2,
+                           "fit_losses": fit_losses,
+                           "graph_launches": sess.launch_names(),
+                           "prefetch_batches": len(sharded)}
+        print(f"dp resident (a): world 1 over NCCL, resnet18_tiny_imagenet "
+              f"NCHW B={DP_BATCH}, {len(order)} steps: the DP resident epoch "
+              f"bit for bit the single-device one given the same order "
+              f"(loss {l1}); host wall a step, the first two (warm-up, "
+              f"capture) included: single {ms1:.2f} ms, DP {ms2:.2f} ms; "
+              f"Trainer.fit over a ShardedDeviceDataset, 2 epochs: losses "
+              f"{fit_losses}, replayed; PrefetchLoader(sharding=mesh): "
+              f"{len(sharded)} batches bit for bit shard_batch's; on {card}",
+              flush=True)
+
+        def stack_run(jit, data_axis):
+            block = ResidualBlock(
+                layers=[Conv2DLayer(STACK_SHAPE[0], 3, 1, 1),
+                        GroupNormLayer(8)], activation="relu")
+            stack = SequentialStageStack(block, STACK_STAGES, STACK_SHAPE)
+            sp = stack.init(torch.Generator().manual_seed(SEED),
+                            device="cuda")
+            opt = SGD(PIPE_LR)
+            ost = opt.init(sp)
+            step = make_compiled_pipeline_train_step(
+                stack.stage_fn, lambda a, b: ((a - b) ** 2).mean(), opt,
+                STACK_STAGES, STACK_M, jit=jit, mesh=mesh,
+                data_axis=data_axis)
+            rng = np.random.default_rng(SEED + 24)
+            shape = (STACK_M, STACK_BATCH // STACK_M, *STACK_SHAPE)
+            xs = torch.from_numpy(rng.normal(size=shape)
+                                  .astype(np.float32)).cuda()
+            ys = torch.from_numpy(rng.normal(size=shape)
+                                  .astype(np.float32)).cuda()
+            walls, losses = [], []
+            for _ in range(STACK_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(step(sp, ost, xs, ys, PIPE_LR)[2]))
+                walls.append((time.perf_counter() - t0) * 1e3)
+            return (losses, {n: t.detach().cpu().numpy()
+                             for n, t in sp.items()}, step, walls)
+
+        ref = stack_run(False, None)
+        stack = {}
+        for jit in (False, True):
+            for dax in ((None, "data") if jit else ("data",)):
+                tag = f"{'replayed' if jit else 'eager'} data_axis={dax}"
+                losses, named, step, walls = stack_run(jit, dax)
+                if losses != ref[0] or any(
+                        not np.array_equal(named[n], ref[1][n])
+                        for n in named):
+                    fail(f"compiled pipeline data axis: {tag} differs from "
+                         f"the eager step without a data axis: {losses} vs "
+                         f"{ref[0]}")
+                if jit and step.compiled.session() is None:
+                    fail(f"compiled pipeline data axis: {tag} captured no "
+                         f"graph")
+                stack[tag] = walls[-1]
+        out["pipeline_data_axis"] = {"bit_equal": sorted(stack),
+                                     "losses": ref[0], "last_step_ms": stack}
+        print(f"compiled pipeline data axis: SequentialStageStack "
+              f"({STACK_STAGES} GroupNorm residual blocks, "
+              f"{'x'.join(map(str, STACK_SHAPE))},"
+              f" M={STACK_M}, B={STACK_BATCH}) with data_axis='data' over "
+              f"NCCL world 1, eager and replayed (the all-reduce in the "
+              f"graph): {STACK_STEPS} steps bit for bit the step without a "
+              f"data axis, losses {ref[0]}; last step ms {json.dumps(stack)}"
+              f"; on {card}", flush=True)
+    finally:
+        multihost.shutdown()
+    return out
+
+
 def bias_before_bn(model):
     """Names (as ``named_parameters`` gives them) of the conv biases that
     feed a batchnorm directly: their gradient is zero in exact arithmetic,
@@ -6945,6 +7617,11 @@ def main() -> None:
     dp["elastic"] = timed("elastic", phase_elastic, card, elastic_dir,
                           elastic_peers, dp_ref, dp)
     dp["elastic_mha"] = timed("elastic mha", phase_elastic_mha, card)
+    seq_dir, seq_peers = start_seq_peers()
+    seq = timed("sequence", phase_sequence, card)
+    dp["resident"] = timed("dp feed", phase_dp_feed, card)
+    seq["world2"], dp["resident"]["world2"] = timed(
+        "sequence peers", phase_seq_peers, card, seq_dir, seq_peers, seq)
     print(f"phase seconds: {json.dumps(seconds)}, total "
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
 
@@ -6999,6 +7676,10 @@ def main() -> None:
     tp = {k: sum(run[k] for run in tcp["launches"].values())
           for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     em = dp["elastic_mha"]["launches"]
+    # the sequence paths' launches: world 1 here, world 2 in both peers
+    sq = {k: seq["launches"][k] + sum(r["launches"][k]
+                                      for r in seq["world2"])
+          for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
     tc_src = "dcnn_tpu_torch/ops/csrc/conv3x3_tc.cu"
     kernels = [
         row("flash_fwd", "dcnn_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -7010,7 +7691,8 @@ def main() -> None:
              "export": export["mha_classifier"]["launches"]["flash_fwd"],
              "pipeline": pl["flash_fwd"], "tcp_pipeline": tp["flash_fwd"],
              "router_tcp": router_tcp["survivor"]["launches"]["flash_fwd"],
-             "elastic_mha": em["flash_fwd"]}),
+             "elastic_mha": em["flash_fwd"],
+             "sequence": sq["flash_fwd"]}),
         row("flash_bwd_dq", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:460", bwd_cases["dq"],
             {"serve": 0, "train": tl["flash_bwd_dq"],
@@ -7018,7 +7700,8 @@ def main() -> None:
              "wide_layer": wide["flash_bwd_dq"], "obs": obs["flash_bwd_dq"],
              "pipeline": pl["flash_bwd_dq"],
              "tcp_pipeline": tp["flash_bwd_dq"],
-             "elastic_mha": em["flash_bwd_dq"]}),
+             "elastic_mha": em["flash_bwd_dq"],
+             "sequence": sq["flash_bwd_dq"]}),
         row("flash_bwd_dkv", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:478", bwd_cases["dkv"],
             {"serve": 0, "train": tl["flash_bwd_dkv"],
@@ -7026,7 +7709,8 @@ def main() -> None:
              "wide_layer": wide["flash_bwd_dkv"],
              "obs": obs["flash_bwd_dkv"], "pipeline": pl["flash_bwd_dkv"],
              "tcp_pipeline": tp["flash_bwd_dkv"],
-             "elastic_mha": em["flash_bwd_dkv"]}),
+             "elastic_mha": em["flash_bwd_dkv"],
+             "sequence": sq["flash_bwd_dkv"]}),
         site_row("conv3x3_s1", tc_src, "dcnn_tpu/ops/pallas/conv.py:82"),
         site_row("conv3x3_s1_pairs", tc_src,
                  "dcnn_tpu/ops/pallas/conv.py:173"),
@@ -7055,6 +7739,7 @@ def main() -> None:
     print(json.dumps({"router": router, "router_tcp": router_tcp}),
           flush=True)
     print(json.dumps({"data_parallel": dp}), flush=True)
+    print(json.dumps({"sequence": seq}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7066,5 +7751,7 @@ if __name__ == "__main__":
         replica_server_main(sys.argv[2:])
     elif sys.argv[1:2] == ["--elastic-peer"]:
         elastic_peer_main(sys.argv[2:])
+    elif sys.argv[1:2] == ["--seq-peer"]:
+        seq_peer_main(sys.argv[2:])
     else:
         main()

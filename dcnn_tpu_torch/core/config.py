@@ -5,9 +5,9 @@
 reads the same environment variables (EPOCHS, BATCH_SIZE, LR_DECAY_*,
 NUM_MICROBATCHES, DEVICE_TYPE, PROFILER_TYPE, ...) through
 :func:`~dcnn_tpu_torch.utils.env.get_env`, which this module re-exports.
-The port's trainer raises ``NotImplementedError`` for the fields whose
-features it has not ported yet (elastic training, the telemetry server,
-the AOT cache); see ``train/trainer.py``.
+The port's trainer raises ``NotImplementedError`` for the one field whose
+feature it has not ported yet: ``metrics_port`` on the non-elastic fit
+(the elastic fit serves its own telemetry); see ``train/trainer.py``.
 """
 
 from __future__ import annotations

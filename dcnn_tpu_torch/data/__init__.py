@@ -3,9 +3,9 @@
 WiFi loaders, the MNIST, CIFAR and Tiny-ImageNet readers, the digits28
 CSVs, the host and device augmentations, the device-resident dataset,
 ``PrefetchLoader``, the transfer engine, the streaming feed and the feed
-worker pool. The data-parallel names (``ShardedDeviceDataset``,
-``make_resident_epoch_dp``, ``resident_epoch_dp``, ``stage_sharded``)
-raise ``NotImplementedError`` (``ROADMAP.md`` Queue 1 item 6b)."""
+worker pool, and the data-parallel resident feed
+(``ShardedDeviceDataset``, ``make_resident_epoch_dp``,
+``resident_epoch_dp``, ``stage_sharded``)."""
 
 from .augment import (
     AugmentationBuilder, AugmentationStrategy, brightness, contrast, cutout,

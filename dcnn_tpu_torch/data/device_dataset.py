@@ -28,9 +28,11 @@ key splits into a permutation key and a step key, step ``i`` draws with
 explicit batch order too (``order=``, [steps, B] indices), so a test can
 hand it the JAX package's permutation.
 
-The data-parallel variants (``ShardedDeviceDataset``,
-``make_resident_epoch_dp``, ``resident_epoch_dp``, ``stage_sharded``) are
-not ported yet and raise (``ROADMAP.md`` Queue 1 item 6b).
+The data-parallel variants (:class:`ShardedDeviceDataset`,
+:func:`make_resident_epoch_dp`, :func:`resident_epoch_dp`,
+:func:`stage_sharded`) keep each rank's shard of the split on its own
+card and run the epoch on every rank of a mesh's ``"data"`` axis, the
+gradients averaged over it each step.
 """
 
 from __future__ import annotations
@@ -53,8 +55,6 @@ from .augment_device import DeviceAugment
 from .transfer import stage_array
 
 AUGMENT_KEY = 0x0A6  # fold_in offset of a step's augmentation key
-_DP_MSG = ("data-parallel resident datasets are not ported to "
-           "dcnn_tpu_torch yet (ROADMAP.md Queue 1 item 6b, Parallel)")
 
 
 class DeviceDataset:
@@ -375,20 +375,173 @@ def resident_eval(model, loss_fn, dataset: DeviceDataset):
                                  dataset.batch_size, get_precision_mode())
 
 
+def _data_axis(mesh):
+    from ..core.mesh import DATA_AXIS
+
+    return mesh.shape[DATA_AXIS], mesh.coordinate(DATA_AXIS)
+
+
+def stage_sharded(x, y, mesh, *, global_shuffle_seed: Optional[int] = 0,
+                  device=None):
+    """This rank's shard of a split over the mesh's ``"data"`` axis, staged
+    on ``device`` (CUDA unless ``"cpu"``): ``(x_local, y_local)``, the rank
+    at coordinate ``i`` of ``D`` holding rows ``[i·N/D, (i+1)·N/D)`` of the
+    split trimmed to a multiple of ``D`` (every rank passes the whole
+    split, as every JAX host does). Labels as int32 (one-hot collapsed).
+
+    A seeded global permutation (numpy's ``default_rng(seed)``, the JAX
+    package's draw) is applied first (``global_shuffle_seed=None`` skips
+    it): the resident DP epoch only reshuffles within a shard, so a
+    class-sorted split would otherwise pin each rank to a class-biased
+    shard for good."""
+    d, i = _data_axis(mesh)
+    x, y = np.asarray(x), np.asarray(y)
+    n = (len(x) // d) * d
+    if global_shuffle_seed is not None:
+        perm = np.random.default_rng(global_shuffle_seed).permutation(len(x))
+        x, y = x[perm], y[perm]
+    if y.ndim == 2:
+        y = y.argmax(axis=-1)
+    per = n // d
+    dev = resolve_device(device)
+    return (stage_array(np.ascontiguousarray(x[i * per:(i + 1) * per]), dev),
+            stage_array(y[i * per:(i + 1) * per].astype(np.int32), dev))
+
+
 class ShardedDeviceDataset:
-    """Not ported yet: a split sharded over several cards."""
+    """A split staged sharded over a mesh's ``"data"`` axis
+    (:func:`stage_sharded`): ``x`` and ``y`` are this rank's ``N/D`` rows
+    on its device. ``Trainer.fit`` trains it through the data-parallel
+    resident epoch (:func:`resident_epoch_dp`). ``batch_size`` is the
+    global batch (each rank's step takes ``batch_size / D`` rows of its
+    shard). Validation takes a replicated :class:`DeviceDataset`.
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(f"ShardedDeviceDataset: {_DP_MSG}")
+    ``num_samples`` is the trimmed global count and ``local_samples`` this
+    rank's; ``stage_seconds`` the staging's wall time."""
+
+    def __init__(self, x: np.ndarray, y: np.ndarray, num_classes: int, *,
+                 batch_size: int, mesh, augment: Optional[Callable] = None,
+                 scale: Optional[float] = None, device=None):
+        x = np.asarray(x)
+        if len(x) != len(np.asarray(y)):
+            raise ValueError(
+                f"x/y length mismatch: {len(x)} vs {len(np.asarray(y))}")
+        d, _ = _data_axis(mesh)
+        self.mesh = mesh
+        self.num_classes = int(num_classes)
+        self.batch_size = int(batch_size)
+        if self.batch_size % d != 0:
+            raise ValueError(f"global batch {batch_size} % data size {d} != 0")
+        self.augment = augment
+        self.scale = float(scale if scale is not None
+                           else (1.0 / 255.0 if x.dtype == np.uint8 else 1.0))
+        self.device = resolve_device(device)
+        self.sample_shape = x.shape[1:]
+        t0 = time.perf_counter()
+        self.x, self.y = stage_sharded(x, y, mesh, device=self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.stage_seconds = time.perf_counter() - t0
+        self.local_samples = int(self.x.shape[0])
+        self.num_samples = self.local_samples * d
+
+    @property
+    def local_batch(self) -> int:
+        return self.batch_size // _data_axis(self.mesh)[0]
+
+    @property
+    def steps_per_epoch(self) -> int:
+        return self.local_samples // self.local_batch
+
+    def __len__(self) -> int:
+        return self.steps_per_epoch
 
 
-def make_resident_epoch_dp(*args, **kwargs):
-    raise NotImplementedError(f"make_resident_epoch_dp: {_DP_MSG}")
+def make_resident_epoch_dp(model, loss_fn: Callable, optimizer, *,
+                           num_classes: int, batch_size: int, mesh,
+                           augment: Optional[Callable] = None,
+                           scale: float = 1.0 / 255.0,
+                           num_microbatches: int = 1, jit: bool = True):
+    """The data-parallel resident epoch: ``epoch(ts, x_local, y_local, key,
+    lr, order=None) -> (ts, mean_loss)`` on every rank of the mesh's
+    ``"data"`` axis, over its shard (:func:`stage_sharded`), ``ts``
+    replicated and updated alike on every rank.
+
+    Each rank permutes its own shard from ``fold_in(perm_key, rank)`` and
+    runs ``N/D // (B/D)`` steps of ``B/D`` rows (``batch_size`` B is
+    global); step ``i`` draws from ``fold_in(fold_in(step_key, i), rank)``
+    (augmentation from ``fold_in(that, 0x0A6)``), the JAX package's keys.
+    The step is :func:`~dcnn_tpu_torch.train.make_train_step` with
+    ``reduce_axis="data"``: per-shard batch statistics, then gradients,
+    loss and batchnorm statistics averaged over the axis before the
+    update, so the loss is the global batch's mean. ``order`` ([steps,
+    B/D] indices into this rank's shard) replaces the drawn permutation.
+
+    Under NCCL on CUDA each step replays one CUDA graph of the whole body,
+    all-reduce included (:class:`BatchStep`); under gloo it runs eagerly,
+    its collectives staged through the host."""
+    from ..core.mesh import DATA_AXIS
+    from ..train.trainer import make_train_step
+
+    d, rank = _data_axis(mesh)
+    if batch_size % d != 0:
+        raise ValueError(f"global batch {batch_size} % data size {d} != 0")
+    local_batch = batch_size // d
+    step = make_train_step(model, loss_fn, optimizer, num_microbatches,
+                           jit=jit, reduce_axis=DATA_AXIS)
+    body = BatchStep(step, num_classes=num_classes, scale=scale,
+                     cdt=get_compute_dtype(), augment=augment)
+
+    def epoch(ts, x_local, y_local, key: int, lr, order=None):
+        n_local, dev = x_local.shape[0], x_local.device
+        k = n_local // local_batch
+        if k == 0:
+            raise ValueError(
+                f"resident DP epoch needs at least one local batch: shard "
+                f"has {n_local} samples < local batch {local_batch} "
+                f"(global {batch_size} over {d} devices)")
+        kperm, kstep = split(key)
+        if order is None:
+            idx = permutation(fold_in(kperm, rank), n_local,
+                              k * local_batch, dev).reshape(k, local_batch)
+        else:
+            idx = (order.to(dev) if isinstance(order, torch.Tensor)
+                   else to_device(np.asarray(order, np.int64), dev))
+            if idx.ndim != 2 or idx.shape[1] != local_batch:
+                raise ValueError(f"order must be [steps, {local_batch}], "
+                                 f"got {tuple(idx.shape)}")
+            k = idx.shape[0]
+        lrs = lr_per_step(lr, k, dev)
+        with mesh:
+            losses = torch.stack([
+                body(ts, x_local, y_local, idx[i],
+                     fold_in(fold_in(kstep, i), rank), lrs[i])
+                for i in range(k)])
+        return ts, losses.mean()
+
+    epoch.step, epoch.body = step, body
+    return epoch
 
 
-def resident_epoch_dp(*args, **kwargs):
-    raise NotImplementedError(f"resident_epoch_dp: {_DP_MSG}")
+@functools.lru_cache(maxsize=32)
+def _resident_epoch_dp_cached(model, loss_fn, optimizer, num_classes,
+                              batch_size, mesh, augment, scale,
+                              num_microbatches, _mode):
+    return make_resident_epoch_dp(model, loss_fn, optimizer,
+                                  num_classes=num_classes,
+                                  batch_size=batch_size, mesh=mesh,
+                                  augment=augment, scale=scale,
+                                  num_microbatches=num_microbatches)
 
 
-def stage_sharded(*args, **kwargs):
-    raise NotImplementedError(f"stage_sharded: {_DP_MSG}")
+def resident_epoch_dp(model, loss_fn, optimizer,
+                      dataset: ShardedDeviceDataset,
+                      num_microbatches: int = 1):
+    """The DP epoch function for a (model, loss, optimizer, dataset
+    geometry, mesh, precision mode), built once and reused, as
+    :func:`resident_epoch` is."""
+    return _resident_epoch_dp_cached(model, loss_fn, optimizer,
+                                     dataset.num_classes, dataset.batch_size,
+                                     dataset.mesh, dataset.augment,
+                                     dataset.scale, num_microbatches,
+                                     get_precision_mode())

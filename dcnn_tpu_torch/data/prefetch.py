@@ -62,8 +62,13 @@ class PrefetchLoader:
     ``transform``. ``worker_pool`` injects a caller-owned pool; ``close()``
     (or leaving ``with PrefetchLoader(...)``) releases an internally built
     one. ``device`` is where batches go (CUDA unless ``"cpu"``; by default
-    the engine's device where one is given). ``sharding`` (a data-parallel
-    placement) is not ported yet and raises.
+    the engine's device where one is given). ``sharding`` (a
+    :class:`~dcnn_tpu_torch.core.mesh.Mesh`, the counterpart of JAX's
+    ``NamedSharding(mesh, P("data"))``) places each batch data-parallel:
+    every rank's inner loader yields the global batch and only this rank's
+    rows along the mesh's ``"data"`` axis
+    (:func:`~dcnn_tpu_torch.parallel.shard_batch`; the batch dim of a
+    staged [K, B, ...] chunk) are copied to its device.
     """
 
     def __init__(self, inner, depth: int = 2, sharding: Optional[Any] = None,
@@ -75,10 +80,15 @@ class PrefetchLoader:
                  worker_augment: Optional[Callable] = None,
                  worker_pool: Optional[Any] = None, device=None):
         if sharding is not None:
-            raise NotImplementedError(
-                "PrefetchLoader(sharding=...): data-parallel placement is not "
-                "ported to dcnn_tpu_torch yet (ROADMAP.md Queue 1 item 6b, "
-                "Parallel)")
+            from ..core.mesh import Mesh
+
+            if not isinstance(sharding, Mesh):
+                raise TypeError(
+                    f"PrefetchLoader(sharding=...) takes a "
+                    f"dcnn_tpu_torch.core.mesh.Mesh (each rank keeps its "
+                    f"rows along the 'data' axis), got "
+                    f"{type(sharding).__name__}")
+        self.sharding = sharding
         if depth < 1:
             raise ValueError("depth must be >= 1")
         if stage_batches < 1:
@@ -241,6 +251,8 @@ class PrefetchLoader:
     def _device_put(self, x, y, side):
         """One batch (or staged chunk) onto the device: ``(dx, dy,
         events)``; the source arrays may be reused when this returns."""
+        if self.sharding is not None:
+            x, y = self._shard(x), self._shard(y)
         xform = self._device_xform()
         if self.device.type != "cuda":
             dx = (self.transfer_engine.put_array(x)
@@ -265,6 +277,17 @@ class PrefetchLoader:
             ev = torch.cuda.Event()
             ev.record(side)
         return dx, dy, [ev]
+
+    def _shard(self, a):
+        """This rank's rows of a global batch (or of every batch of a
+        staged chunk)."""
+        from ..parallel.data_parallel import shard_batch
+
+        a = np.asarray(a)
+        if self.stage_batches > 1:
+            return np.ascontiguousarray(np.swapaxes(
+                shard_batch(np.swapaxes(a, 0, 1), self.sharding), 0, 1))
+        return np.ascontiguousarray(shard_batch(a, self.sharding))
 
     def _side_stream(self):
         return (torch.cuda.Stream(self.device)

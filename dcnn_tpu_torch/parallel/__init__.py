@@ -5,18 +5,20 @@ CUDA graph) and the TCP pipeline: framed channels (``comm``), stage-worker
 processes (``worker``, ``python -m dcnn_tpu_torch.parallel.worker``) and
 the self-healing ``DistributedPipelineCoordinator``; data parallelism
 over a mesh of processes (``data_parallel``, ``multihost``, with
-``core/mesh.py``) and elastic data parallelism over TCP peers
-(``elastic``).
+``core/mesh.py``; the compiled pipeline's ``data_axis=``), elastic data
+parallelism over TCP peers (``elastic``) and sequence parallelism over a
+mesh's ``"seq"`` axis (``sequence``: ring, zigzag and Ulysses attention on
+the flash kernels).
 
-Not ported yet (ROADMAP.md Queue 1 item 6b): sequence parallelism, the
-data-parallel device feed, spatial sharding and the compiled pipeline's
-``data_axis=`` / ``shard_stacked``.
+Not ported yet (ROADMAP.md Queue 1 item 6b): spatial sharding
+(``shard_batch(spatial_axis=)``, ``make_data_parallel_train_step(
+spatial_axis=)``).
 """
 
 from .compiled_pipeline import (
     HeteroCompiledPipeline, SequentialStageStack,
     make_compiled_pipeline_forward, make_compiled_pipeline_train_step,
-    stack_stage_params,
+    shard_stacked, stack_stage_params,
 )
 from .partitioner import FlopBalancedPartitioner, NaivePartitioner, Partitioner
 from .pipeline import (
@@ -33,6 +35,10 @@ from .elastic import (
     parse_peers,
 )
 from .multihost import PeerLostError
+from .sequence import (
+    make_ring_attention, make_ulysses_attention, make_zigzag_ring_attention,
+    shard_sequence, zigzag_permutation, zigzag_shard,
+)
 from .distributed_pipeline import (
     DistributedPipelineCoordinator, PipelineCollapsedError,
     PipelineTimeouts, PipelineWorkerError, StageLostError,
@@ -59,7 +65,10 @@ __all__ = [
     "train_pipeline_batch_sync",
     "HeteroCompiledPipeline", "SequentialStageStack",
     "make_compiled_pipeline_forward", "make_compiled_pipeline_train_step",
-    "stack_stage_params",
+    "stack_stage_params", "shard_stacked",
+    "make_ring_attention", "make_ulysses_attention",
+    "make_zigzag_ring_attention", "shard_sequence", "zigzag_permutation",
+    "zigzag_shard",
     "DistributedPipelineCoordinator", "PipelineWorkerError",
     "StageLostError", "PipelineCollapsedError", "PipelineTimeouts",
     "StageWorker", "run_worker",

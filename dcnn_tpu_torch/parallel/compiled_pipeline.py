@@ -40,8 +40,15 @@ seeded ``stage_key(rng, m, s)``, as the coordinator's stage does; the
 ``M × S`` generators are registered with the graph and reseeded on the
 host before each call.
 
-Where the JAX function takes a ``mesh``, the port runs on ``device`` (or
-where its inputs live). ``remat`` is taken by the homogeneous train step
+Where the JAX function takes a ``mesh`` for its ``"stage"`` axis, the
+port keeps every stage in the process, on ``device`` (or where its inputs
+live). The homogeneous functions' ``data_axis=`` composes data
+parallelism with the pipeline, as the JAX package's 2-D ``("data",
+"stage")`` mesh does: each rank of ``mesh[data_axis]`` runs every stage on
+its slice of the microbatch dim, and the train step averages the
+gradients and the loss over the axis's group before the update (one
+all-reduce, inside the step's graph under NCCL; eager under gloo).
+``remat`` is taken by the homogeneous train step
 (``torch.utils.checkpoint`` around each stage application; a stage there
 has no state); the heterogeneous engine keeps whole graphs, as above.
 Span: ``pipe.compiled.step`` (track ``pipeline``; attrs ``schedule``,
@@ -138,6 +145,32 @@ def _stage_slices(stacked: Mapping[str, torch.Tensor],
     return [{n: t[i] for n, t in stacked.items()} for i in range(num_stages)]
 
 
+def shard_stacked(tree: Mapping[str, torch.Tensor], mesh=None,
+                  device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """The stacked stage params on this rank's device (CUDA unless
+    ``"cpu"``), as leaves that take gradients. The JAX package shards the
+    leading stage axis over ``mesh``'s ``"stage"`` axis; the port keeps
+    every stage in the process, so ``mesh`` exists for the JAX signature
+    and has no effect: every rank holds the whole stack."""
+    dev = resolve_device(device)
+    return {n: t.detach().to(dev).requires_grad_(True)
+            for n, t in tree.items()}
+
+
+def _data_reduce(mesh, data_axis: Optional[str]):
+    """The ``MeshReduce`` over ``mesh[data_axis]`` (None without a data
+    axis), its group resolved now so that a bad axis fails here."""
+    if data_axis is None:
+        return None
+    if mesh is None:
+        raise ValueError(f"data_axis={data_axis!r} needs the mesh it names")
+    from .data_parallel import MeshReduce
+
+    reduce = MeshReduce(data_axis, mesh)
+    reduce.group()
+    return reduce
+
+
 def _check_microbatches(mbs: torch.Tensor, num_microbatches: int) -> None:
     if mbs.shape[0] != num_microbatches:
         raise ValueError(
@@ -146,14 +179,20 @@ def _check_microbatches(mbs: torch.Tensor, num_microbatches: int) -> None:
 
 
 def make_compiled_pipeline_forward(stage_fn: Callable, num_stages: int,
-                                   num_microbatches: int, jit: bool = True):
+                                   num_microbatches: int, jit: bool = True,
+                                   mesh=None, data_axis: Optional[str] = None):
     """``forward(stacked_params, microbatches) -> outputs``: each of the
     ``(num_microbatches, mb, ...)`` microbatches through the
     ``num_stages`` stages, ``stage_fn(stage_params, x) -> y`` keeping the
     activation's shape; outputs are the last stage's, shaped like the
-    input. No gradients; one graph a shape on the card."""
+    input. No gradients; one graph a shape on the card. ``mesh`` and
+    ``data_axis`` exist for the JAX signature and change nothing: each
+    rank passes its own slice of the microbatch dim (JAX's ``P(None,
+    data_axis)``) and the forward reduces nothing over the axis; they are
+    only checked."""
     if num_microbatches < 1:
         raise ValueError("need at least one microbatch")
+    _data_reduce(mesh, data_axis)
     compiled = _Compiled("pipe.compiled.forward", jit)
 
     def forward(stacked_params, mbs):
@@ -178,16 +217,30 @@ def make_compiled_pipeline_forward(stage_fn: Callable, num_stages: int,
 def make_compiled_pipeline_train_step(stage_fn: Callable, loss_fn: Callable,
                                       optimizer: Optimizer, num_stages: int,
                                       num_microbatches: int,
-                                      remat: bool = True, jit: bool = True):
+                                      remat: bool = True, jit: bool = True,
+                                      mesh=None,
+                                      data_axis: Optional[str] = None):
     """One train step over the GPipe schedule of a homogeneous stack:
     ``step(stacked_params, opt_state, mb_x, mb_y, lr) -> (params,
     opt_state, loss, outputs)``. The loss is the mean of the microbatch
     losses; the optimizer updates ``stacked_params`` and ``opt_state`` in
     place (both returned), every stage's slice in one update. ``remat``
     recomputes each stage application in the backward instead of keeping
-    its intermediates. On the card the whole step is one graph."""
+    its intermediates. On the card the whole step is one graph.
+
+    ``data_axis`` (an axis of ``mesh``): data parallelism over the axis.
+    ``mb_x``, ``mb_y`` and the outputs are this rank's slice of the
+    microbatch dim (rows ``[i·mb/D, (i+1)·mb/D)`` of each microbatch);
+    the gradients and the loss are summed over the axis's group in one
+    all-reduce and divided by its size before the update, so with equal
+    slices and a mean-reducing loss every rank applies the whole batch's
+    gradient. Under NCCL the all-reduce is inside the step's graph; under
+    gloo the step runs eagerly, its all-reduce staged through the host."""
     if num_microbatches < 1:
         raise ValueError("need at least one microbatch")
+    reduce = _data_reduce(mesh, data_axis)
+    if reduce is not None:
+        jit = jit and reduce.capturable()
     compiled = _Compiled("pipe.compiled.step", jit)
     scalars: Dict[str, torch.Tensor] = {}
 
@@ -217,6 +270,8 @@ def make_compiled_pipeline_train_step(stage_fn: Callable, loss_fn: Callable,
                 loss = torch.stack(losses).mean()
                 grads = torch.autograd.grad(
                     loss, [stacked_params[n] for n in names])
+            if reduce is not None:
+                loss = reduce.mean(grads, loss)
             optimizer.apply(dict(zip(names, grads)), opt_state,
                             stacked_params, scalars)
             return loss.detach(), torch.stack([o.detach() for o in outs])

@@ -22,6 +22,10 @@ explicit, over the mesh axis's process group:
   two halves of the elastic step (``parallel/elastic.py``), which
   exchanges over TCP between them.
 
+The sequence-parallel paths (``parallel/sequence.py``) exchange over an
+axis group with :func:`ring_shift` (send to the next rank, receive from
+the previous) and :func:`all_to_all_tiled` (``AllToAll`` under autograd).
+
 Collectives on CUDA tensors over a gloo group go through the host
 explicitly (:func:`all_reduce_`): one copy to the host, gloo's all-reduce
 there, one copy back, counted in :data:`HOST_STAGING`. A gloo collective
@@ -66,16 +70,26 @@ def _backend(group) -> str:
     return dist.get_backend(group)
 
 
+def _staged(t: torch.Tensor, group) -> bool:
+    """Whether a collective of ``t`` over ``group`` goes through the host:
+    a CUDA tensor over a gloo group."""
+    return t.is_cuda and _backend(group) != "nccl"
+
+
+def _count_staged(nbytes: int) -> None:
+    with _STAGING_LOCK:
+        HOST_STAGING["collectives"] += 1
+        HOST_STAGING["bytes"] += nbytes
+
+
 def _collective(op, t: torch.Tensor, group, **kw) -> torch.Tensor:
     """``op`` (a ``torch.distributed`` collective) on ``t`` in place; a
     CUDA tensor over a gloo group goes through the host, counted."""
-    if t.is_cuda and _backend(group) != "nccl":
+    if _staged(t, group):
         host = t.cpu()
         op(host, group=group, **kw)
         t.copy_(host)
-        with _STAGING_LOCK:
-            HOST_STAGING["collectives"] += 1
-            HOST_STAGING["bytes"] += 2 * t.numel() * t.element_size()
+        _count_staged(2 * t.numel() * t.element_size())
         return t
     op(t, group=group, **kw)
     return t
@@ -96,6 +110,79 @@ def broadcast_(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     import torch.distributed as dist
 
     return _collective(dist.broadcast, t, group, src=src)
+
+
+def ring_shift(tensors, group):
+    """Send each of ``tensors`` to the next rank of ``group``'s ring and
+    receive the previous rank's in its place (``jax.lax.ppermute`` with
+    ``d -> d + 1``): fresh tensors, in order, over one
+    ``batch_isend_irecv``. A group of one returns ``tensors`` as they are.
+    CUDA tensors over gloo go through the host (counted in
+    :data:`HOST_STAGING`, one collective a call)."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    if n == 1:
+        return list(tensors)
+    me = dist.get_rank(group)
+    nxt = dist.get_global_rank(group, (me + 1) % n)
+    prv = dist.get_global_rank(group, (me - 1) % n)
+    staged = _staged(tensors[0], group)
+    send = [t.cpu() if staged else t.contiguous() for t in tensors]
+    recv = [torch.empty_like(s) for s in send]
+    ops = []
+    for i, (s, r) in enumerate(zip(send, recv)):
+        ops.append(dist.P2POp(dist.isend, s, nxt, group, tag=i))
+        ops.append(dist.P2POp(dist.irecv, r, prv, group, tag=i))
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    if staged:
+        recv = [r.to(t.device) for r, t in zip(recv, tensors)]
+        _count_staged(2 * sum(t.numel() * t.element_size() for t in tensors))
+    return recv
+
+
+def all_to_all_tiled(x: torch.Tensor, split_dim: int, concat_dim: int,
+                     group) -> torch.Tensor:
+    """``jax.lax.all_to_all(x, split_axis=split_dim,
+    concat_axis=concat_dim, tiled=True)`` over ``group``: ``x`` cut into
+    ``n`` equal pieces along ``split_dim``, piece ``j`` sent to rank ``j``,
+    and the pieces received from ranks ``0 .. n-1`` concatenated along
+    ``concat_dim``, over one ``all_to_all_single``. CUDA tensors over gloo
+    go through the host (counted in :data:`HOST_STAGING`)."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    if x.shape[split_dim] % n:
+        raise ValueError(f"dim {split_dim} of {tuple(x.shape)} does not "
+                         f"split {n} ways")
+    inp = torch.stack(x.chunk(n, split_dim))
+    staged = _staged(x, group)
+    if staged:
+        inp = inp.cpu()
+    out = torch.empty_like(inp)
+    dist.all_to_all_single(out, inp, group=group)
+    if staged:
+        out = out.to(x.device)
+        _count_staged(2 * x.numel() * x.element_size())
+    return torch.cat(out.unbind(0), dim=concat_dim)
+
+
+class AllToAll(torch.autograd.Function):
+    """:func:`all_to_all_tiled` whose backward is the reverse exchange
+    (split ``concat_dim``, concatenate ``split_dim``), the transpose JAX
+    takes of ``all_to_all``."""
+
+    @staticmethod
+    def forward(ctx, x, split_dim, concat_dim, group):
+        ctx.dims, ctx.group = (split_dim, concat_dim), group
+        return all_to_all_tiled(x, split_dim, concat_dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_dim, concat_dim = ctx.dims
+        return (all_to_all_tiled(grad.contiguous(), concat_dim, split_dim,
+                                 ctx.group), None, None, None)
 
 
 class AllReduceSum(torch.autograd.Function):
@@ -173,20 +260,24 @@ class MeshReduce:
         """Average ``grads`` (in place), the float buffers (unless
         ``global_bn``: the global statistics are already equal on every
         rank) and ``loss`` over the axis; returns the mean loss."""
+        bufs = [] if self.global_bn else _float_buffers(model)
+        return self.mean([*grads.values(), *bufs], loss)
+
+    def mean(self, tensors, loss: torch.Tensor) -> torch.Tensor:
+        """Average ``tensors`` (in place) and ``loss`` over the axis in one
+        all-reduce of their flat concatenation (in the first tensor's
+        dtype); returns the mean loss."""
         import torch.distributed as dist
 
         group = self.group()
-        size = dist.get_world_size(group)
-        gs = list(grads.values())
-        bufs = [] if self.global_bn else _float_buffers(model)
-        dt = gs[0].dtype if gs else loss.dtype
-        flat = torch.cat([t.reshape(-1).to(dt) for t in (*gs, *bufs)]
+        dt = tensors[0].dtype if tensors else loss.dtype
+        flat = torch.cat([t.reshape(-1).to(dt) for t in tensors]
                          + [loss.detach().reshape(1).to(dt)])
         all_reduce_(flat, group)
-        flat.div_(size)
+        flat.div_(dist.get_world_size(group))
         off = 0
         with torch.no_grad():
-            for t in (*gs, *bufs):
+            for t in tensors:
                 t.copy_(flat[off:off + t.numel()].view_as(t))
                 off += t.numel()
         return flat[off].to(loss.dtype)

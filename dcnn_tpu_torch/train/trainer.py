@@ -23,7 +23,9 @@
   same masks run after run, so a resumed run replays the uninterrupted one.
   Two fast paths read the losses once per epoch or chunk and report train
   accuracy as NaN, as in the JAX package: a ``DeviceDataset`` trains
-  through the resident epoch (``data/device_dataset.py``), and
+  through the resident epoch (``data/device_dataset.py``), a
+  ``ShardedDeviceDataset`` through its data-parallel twin on every rank of
+  its mesh, and
   ``steps_per_dispatch = K > 1`` through :func:`make_multi_step` over the
   [K, B, ...] chunks of ``PrefetchLoader(stage_batches=K)``; their keys
   are ``fold_in(fold_in(seed, epoch), epoch)`` and ``fold_in(fold_in(seed,
@@ -70,7 +72,8 @@ from ..core.graphs import GraphPool, Session, SessionCache, debug_eager
 from ..core.keys import fold_in, generator, to_device
 from ..core.precision import get_precision_mode
 from ..data.device_dataset import (
-    DeviceDataset, lr_per_step, resident_epoch, resident_eval,
+    DeviceDataset, ShardedDeviceDataset, lr_per_step, resident_epoch,
+    resident_epoch_dp, resident_eval,
 )
 from ..data.wire import decode_batch, wire_scale
 from ..nn.sequential import Sequential
@@ -497,7 +500,13 @@ def evaluate_classification(model: Sequential, loss_fn: Callable, loader,
                             eval_step=None) -> Tuple[float, float]:
     """(mean loss, accuracy) over a host loader, on the model's device; over
     a ``DeviceDataset``, the whole-split resident eval (full batches and an
-    exact remainder)."""
+    exact remainder). A ``ShardedDeviceDataset`` is refused: stage the
+    (small) validation split replicated."""
+    if isinstance(loader, ShardedDeviceDataset):
+        raise TypeError(
+            "validation over a ShardedDeviceDataset is not supported — val "
+            "splits are small: stage them replicated with DeviceDataset "
+            "(the whole-split eval is one pass either way)")
     if isinstance(loader, DeviceDataset):
         ev = resident_eval(model, loss_fn, loader)
         loss_sum, correct, n = ev(loader.x, loader.y, scale=loader.scale)
@@ -661,19 +670,22 @@ class Trainer:
                     ) -> Tuple[TrainState, float, float]:
         """One pass over a host loader, batch ``bi`` drawing from
         :func:`batch_generator` (``seed`` (default ``config.seed``), epoch,
-        bi). A ``DeviceDataset`` runs the resident epoch, and
+        bi). A ``DeviceDataset`` runs the resident epoch, a
+        ``ShardedDeviceDataset`` the data-parallel one, and
         ``steps_per_dispatch > 1`` the chunked one (train accuracy NaN on
-        both). Returns (ts, mean loss, accuracy)."""
+        all three). Returns (ts, mean loss, accuracy)."""
         seed = self.config.seed if seed is None else seed
         self._check_device(ts)
-        if isinstance(loader, DeviceDataset):
+        if isinstance(loader, (DeviceDataset, ShardedDeviceDataset)):
             if self.guard is not None:
                 raise ValueError(
                     "nonfinite_policy guards the per-batch step loop; "
                     "resident datasets run whole epochs in one dispatch "
                     "(losses never reach the host per-step) — use a host "
                     "loader or policy 'off'")
-            return self._train_epoch_resident(ts, loader, epoch, seed)
+            return self._train_epoch_resident(
+                ts, loader, epoch, seed,
+                dp=isinstance(loader, ShardedDeviceDataset))
         if self.multi_step is not None:
             return self._train_epoch_chunked(ts, loader, epoch, seed)
         tracer = get_tracer()
@@ -745,27 +757,41 @@ class Trainer:
         return to_device(np.asarray(lrs, np.float32), self.device)
 
     def _train_epoch_resident(self, ts: TrainState, ds: DeviceDataset,
-                              epoch: int, seed: int
+                              epoch: int, seed: int, dp: bool = False
                               ) -> Tuple[TrainState, float, float]:
         """The resident epoch (``data/device_dataset.py``): shuffle, gather,
         decode, augment and every step on the device, the losses read once.
         Train accuracy is NaN (validation measures it). A per-batch
         schedule ships as a [steps] lr vector; a metric-driven one sees the
-        previous epoch's mean train loss, once per epoch."""
+        previous epoch's mean train loss, once per epoch. ``dp``
+        (a ``ShardedDeviceDataset``): the data-parallel epoch on every
+        rank of the dataset's mesh, at a scalar lr only."""
         if ds.device.type != self.device.type:
             raise ValueError(f"the dataset is staged on {ds.device}, the "
                              f"config asks for {self.device}")
-        epoch_fn = resident_epoch(self.model, self.loss_fn, self.optimizer,
-                                  ds, self.config.num_microbatches)
-        metric = self.history[-1]["train_loss"] if self.history else None
-        lr_arg = self._batch_lrs(ds.steps_per_epoch, metric)
+        if dp:
+            if (self.scheduler is not None
+                    and self.config.scheduler_step == "batch"):
+                raise NotImplementedError(
+                    "per-batch LR scheduling with ShardedDeviceDataset: the "
+                    "DP epoch takes a scalar lr; use scheduler_step='epoch'")
+            epoch_fn = resident_epoch_dp(self.model, self.loss_fn,
+                                         self.optimizer, ds,
+                                         self.config.num_microbatches)
+            lr_arg = self.lr
+        else:
+            epoch_fn = resident_epoch(self.model, self.loss_fn,
+                                      self.optimizer, ds,
+                                      self.config.num_microbatches)
+            metric = self.history[-1]["train_loss"] if self.history else None
+            lr_arg = self._batch_lrs(ds.steps_per_epoch, metric)
         if self.watchdog is not None:
             self.watchdog.beat()
         key = fold_in(fold_in(seed, epoch), epoch)
         # the epoch is issued without a wait; the loss read inside the
         # span waits for it, so the span is the epoch's wall
         with get_tracer().span("train.resident_epoch", track="train",
-                               epoch=epoch):
+                               epoch=epoch, **({"dp": True} if dp else {})):
             ts, mean_loss = epoch_fn(ts, ds.x, ds.y, key, lr_arg)
             mean_loss = float(mean_loss)
         self._global_step += ds.steps_per_epoch
@@ -884,12 +910,14 @@ class Trainer:
         """One profiled layer-by-layer forward and backward of the first
         batch, outside the step, and the profiler's table printed. A
         resident split profiles its first batch decoded (augmentation
-        excluded, as it runs inside the step there); a chunked loader its
-        first chunk's first batch. The profiler puts the model's buffers
-        back and touches no gradient, so training is unchanged."""
+        excluded, as it runs inside the step there; a sharded split its
+        first local batch); a chunked loader its first chunk's first
+        batch. The profiler puts the model's buffers back and touches no
+        gradient, so training is unchanged."""
         self.profiler.maybe_clear_per_batch()
-        if isinstance(loader, DeviceDataset):
-            b = loader.batch_size
+        if isinstance(loader, (DeviceDataset, ShardedDeviceDataset)):
+            b = (loader.local_batch if isinstance(loader, ShardedDeviceDataset)
+                 else loader.batch_size)
             x = decode_batch(loader.x[:b], loader.scale)
             y = torch.nn.functional.one_hot(
                 loader.y[:b].long(), loader.num_classes).float()

@@ -2960,3 +2960,55 @@ def test_elastic_solo_fit_on_card_matches_the_cpu():
             replayed[k] = replayed.get(k, 0) + n
     assert all(replayed.get(k, 0) > 0
                for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"))
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism: ring, zigzag and Ulysses over NCCL at world 1
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind,causal", [("ring", False), ("ring", True),
+                                         ("zigzag", True),
+                                         ("ulysses", False),
+                                         ("ulysses", True)])
+def test_sequence_ring_zigzag_ulysses_world_of_one(kind, causal, dtype,
+                                                   _nccl_world_of_one):
+    """Each sequence-parallel path over a ``"seq"`` axis of one NCCL rank
+    against ``flash_attention`` on the whole sequence, on the card:
+    output and dQ/dK/dV within ``TOL`` of their largest |value|, and the flash
+    launches equal to the schedule's live block pairs (ring 1, zigzag 3,
+    Ulysses 1) for the forward, dQ and dK/dV each."""
+    from dcnn_tpu_torch.core.mesh import make_mesh
+    from dcnn_tpu_torch.ops.attention import flash_attention
+    from dcnn_tpu_torch.parallel import sequence
+
+    mesh = make_mesh((1,), ("seq",))
+    q, k, v, do = (torch.from_numpy(a).cuda().to(dtype)
+                   for a in _arrays(11, 256, 256, 64, b=2, h=4))
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = flash_attention(*leaves, causal=causal)
+    ref.backward(do)
+    want = [ref.detach()] + [t.grad for t in leaves]
+    perm = (sequence.zigzag_permutation(256, 1).cuda() if kind == "zigzag"
+            else torch.arange(256, device="cuda"))
+    inv = torch.argsort(perm)
+    if kind == "zigzag":
+        f = sequence.make_zigzag_ring_attention(mesh)
+    elif kind == "ring":
+        f = sequence.make_ring_attention(mesh, causal=causal)
+    else:
+        f = sequence.make_ulysses_attention(mesh, causal=causal)
+    local = [t.index_select(2, perm).requires_grad_(True) for t in (q, k, v)]
+    before = _launches()
+    out = f(*local)
+    out.backward(do.index_select(2, perm))
+    torch.cuda.synchronize()
+    counts = [a - b for a, b in zip(_launches(), before)]
+    live = {"ring": 1, "zigzag": 3, "ulysses": 1}[kind]
+    assert counts == [live] * 3, counts
+    got = [out.detach()] + [t.grad for t in local]
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        a = a.index_select(2, inv).float()
+        scale = b.float().abs().max().item()
+        err = (a - b.float()).abs().max().item()
+        assert err <= TOL[dtype] * scale, (name, err, scale)

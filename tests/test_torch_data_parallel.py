@@ -169,7 +169,10 @@ def spawn_world(script: str, world: int, d, timeout: float = 120.0):
     """``world`` ranks of ``script`` over gloo; every rank must exit 0 and
     print ``rank R OK``."""
     port = free_port()
-    env = dict(os.environ, JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
+    # not DCNN_PRECISION: a test that imported bench.py set it to bf16 in
+    # this process, and the ranks compute at the port's default (parity)
+    env = {k: v for k, v in os.environ.items() if k != "DCNN_PRECISION"}
+    env.update(JAX_PLATFORMS="cpu", OMP_NUM_THREADS="1")
     procs = [subprocess.Popen(
         [sys.executable, "-c", script.format(repo=REPO), str(r), str(world),
          str(port), str(d)], stdout=subprocess.PIPE,

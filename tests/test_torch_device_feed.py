@@ -15,8 +15,9 @@
 - The port's own invariants: the resident epoch equals the port's per-step
   loop bit for bit; resident eval equals the host eval of the same split
   bit for bit; one key gives one run.
-- The refusals: the data-parallel names, ``nonfinite_policy`` with the fast
-  paths, a chunked trainer fed unchunked batches.
+- The refusals: ``nonfinite_policy`` with the fast paths, a chunked
+  trainer fed unchunked batches. (The data-parallel resident feed is
+  held against the JAX package in ``tests/test_torch_dp_feed.py``.)
 """
 
 import threading
@@ -45,9 +46,8 @@ from dcnn_tpu_torch.core.keys import fold_in, split
 from dcnn_tpu_torch.data import (
     ArrayDataLoader, AugmentationBuilder, DeviceAugment,
     DeviceAugmentBuilder, DeviceDataset, PrefetchLoader,
-    ShardedDeviceDataset, StreamingDeviceDataset, TransferEngine,
-    make_resident_epoch, make_resident_epoch_dp, make_resident_eval,
-    make_shard_step, resident_epoch_dp, stage_sharded, train_streaming_epoch,
+    StreamingDeviceDataset, TransferEngine, make_resident_epoch,
+    make_resident_eval, make_shard_step, train_streaming_epoch,
 )
 from dcnn_tpu_torch.data import augment_device as pad
 from dcnn_tpu_torch.data import device_dataset as pdd
@@ -770,13 +770,6 @@ def test_streaming_worker_crash_mid_epoch_completes():
 
 
 # -- refusals -------------------------------------------------------------------
-
-@pytest.mark.parametrize("fn", [ShardedDeviceDataset, make_resident_epoch_dp,
-                                resident_epoch_dp, stage_sharded])
-def test_data_parallel_names_raise(fn):
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        fn(np.zeros((4, 2)), np.zeros(4), 2, batch_size=2, mesh=None)
-
 
 def test_guard_refuses_the_fast_paths():
     _, _, _, tm = _pair()

@@ -813,7 +813,7 @@ def test_prefetch_refusals():
     y = np.zeros((16, 2), np.float32)
     ld = ArrayDataLoader(x, y, batch_size=4, shuffle=False,
                          augmentation=lambda b, r: b)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(TypeError, match="Mesh"):
         PrefetchLoader(ld, sharding=object(), device="cpu")
     with pytest.raises(ValueError, match="transform"):
         PrefetchLoader(ld, feed_workers=2, transform=lambda a, b: (a, b),

@@ -675,3 +675,90 @@ def test_data_parallel_and_elastic_leave_jax_out():
     thread peers and an elastic ``Trainer.fit`` on the CPU, load no JAX,
     flax, msgpack, ml_dtypes or JAX-package module."""
     _run_isolated(DATA_PARALLEL)
+
+
+# sequence parallelism, the data-parallel device feed and the compiled
+# pipeline's data axis
+SEQ_MODULES = ("dcnn_tpu_torch.parallel.sequence",
+               "dcnn_tpu_torch.data.device_dataset",
+               "dcnn_tpu_torch.data.prefetch",
+               "dcnn_tpu_torch.parallel.compiled_pipeline")
+
+
+@pytest.mark.parametrize("module", SEQ_MODULES)
+def test_sequence_and_dp_feed_module_imports_no_jax(module):
+    """The source of each module of this path imports no JAX, flax,
+    msgpack, ml_dtypes or JAX-package module."""
+    path = REPO / (module.replace(".", "/") + ".py")
+    bad = [f"{line} imports {mod}" for line, mod in _imports(path)
+           if mod.split(".")[0] in TCP_FORBIDDEN]
+    assert not bad, bad
+
+
+SEQUENCE_AND_DP_FEED = (
+    "import importlib\n"
+    f"for name in {SEQ_MODULES!r}:\n"
+    "    importlib.import_module(name)\n"
+    "    bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+    f"{TCP_FORBIDDEN!r})\n"
+    "    assert not bad, (name, bad)\n"
+    "import numpy as np\n"
+    "from dcnn_tpu_torch.core import TrainingConfig\n"
+    "from dcnn_tpu_torch.core.mesh import make_mesh\n"
+    "from dcnn_tpu_torch.data import (ArrayDataLoader, PrefetchLoader,\n"
+    "    ShardedDeviceDataset)\n"
+    "from dcnn_tpu_torch.nn import (Conv2DLayer, GroupNormLayer,\n"
+    "    ResidualBlock, SequentialBuilder)\n"
+    "from dcnn_tpu_torch.optim import SGD\n"
+    "from dcnn_tpu_torch.parallel import (multihost, SequentialStageStack,\n"
+    "    make_compiled_pipeline_train_step, make_ring_attention,\n"
+    "    make_ulysses_attention, make_zigzag_ring_attention, shard_sequence,\n"
+    "    zigzag_shard)\n"
+    "from dcnn_tpu_torch.train import Trainer, create_train_state\n"
+    "multihost.initialize(num_processes=1, backend='gloo')\n"
+    "seq = make_mesh((1,), ('seq',))\n"
+    "g = torch.Generator().manual_seed(0)\n"
+    "qkv = [torch.randn(1, 2, 16, 8, generator=g) for _ in range(3)]\n"
+    "for f, shard in ((make_ring_attention(seq, causal=True), shard_sequence),"
+    " (make_zigzag_ring_attention(seq), zigzag_shard),"
+    " (make_ulysses_attention(seq), shard_sequence)):\n"
+    "    loc = [t.requires_grad_(True) for t in shard(qkv, seq)]\n"
+    "    f(*loc).sum().backward()\n"
+    "    assert all(torch.isfinite(t.grad).all() for t in loc)\n"
+    "data = make_mesh()\n"
+    "rng = np.random.default_rng(0)\n"
+    "x = rng.integers(0, 256, (32, 4, 4, 1), dtype=np.uint8)\n"
+    "y = rng.integers(0, 2, 32)\n"
+    "m = (SequentialBuilder('d', 'NHWC').input((4, 4, 1)).flatten()"
+    ".dense(4).batchnorm().dense(2).build()).init("
+    "generator=torch.Generator().manual_seed(0), device='cpu')\n"
+    "tr = Trainer(m, SGD(0.1), 'softmax_crossentropy', TrainingConfig("
+    "epochs=1, device_type='cpu', snapshot_dir=None))\n"
+    "tr.fit(create_train_state(m, tr.optimizer), ShardedDeviceDataset("
+    "x, y, 2, batch_size=8, mesh=data, device='cpu'))\n"
+    "assert np.isfinite(tr.history[0]['train_loss'])\n"
+    "ld = ArrayDataLoader(x, np.eye(2, dtype=np.float32)[y], batch_size=8)\n"
+    "assert len(list(PrefetchLoader(ld, sharding=data, device='cpu'))) == 4\n"
+    "stack = SequentialStageStack(ResidualBlock([Conv2DLayer(4, 3, 1, 1),"
+    " GroupNormLayer(2)]), 2, (4, 4, 4))\n"
+    "sp = stack.init(torch.Generator().manual_seed(0), device='cpu')\n"
+    "opt = SGD(0.1)\n"
+    "step = make_compiled_pipeline_train_step(stack.stage_fn,"
+    " lambda a, b: ((a - b) ** 2).mean(), opt, 2, 2, mesh=data,"
+    " data_axis='data')\n"
+    "xs = torch.randn(2, 2, 4, 4, 4, generator=g)\n"
+    "assert torch.isfinite(step(sp, opt.init(sp), xs, xs, 0.1)[2])\n"
+    "multihost.shutdown()\n"
+    "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+    f"{TCP_FORBIDDEN!r})\n"
+    "assert not bad, bad\n")
+
+
+def test_sequence_dp_feed_and_pipeline_data_axis_leave_jax_out():
+    """The sequence, device-dataset, prefetch and compiled-pipeline modules
+    imported one by one, then ring, zigzag and Ulysses attention forward
+    and backward over a world of one, ``Trainer.fit`` over a
+    ``ShardedDeviceDataset``, ``PrefetchLoader(sharding=)`` and a compiled
+    pipeline step with ``data_axis=`` on the CPU, load no JAX, flax,
+    msgpack, ml_dtypes or JAX-package module."""
+    _run_isolated(SEQUENCE_AND_DP_FEED)

@@ -375,7 +375,9 @@ def test_ported_config_features_construct(field, tmp_path):
 def test_best_val_snapshot_and_resident_data_raise(tmp_path):
     """``snapshot_dir`` with a val loader writes the best-val snapshot
     (the checkpoint format is ported); a data-parallel resident dataset
-    still raises (a single-device one trains: tests/test_torch_device_feed.py)."""
+    trains in a world of one and is refused as a validation loader (a
+    sharded split is validated replicated; the DP feed against the JAX
+    package: tests/test_torch_dp_feed.py)."""
     tm = create_mha_classifier().init(device="cpu")
     x, y = marker_task(8, 32, 64)
     ld = ArrayDataLoader(x, y, batch_size=4)
@@ -387,11 +389,55 @@ def test_best_val_snapshot_and_resident_data_raise(tmp_path):
     snap = tmp_path / tm.name
     assert sorted(os.listdir(snap)) == ["arrays.msgpack", "model.json"]
 
+    from dcnn_tpu_torch.core.mesh import make_mesh
     from dcnn_tpu_torch.data import ShardedDeviceDataset
+    from dcnn_tpu_torch.parallel import multihost
 
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        tr.train_epoch(ts, ShardedDeviceDataset(x, y, 10, batch_size=4,
-                                                mesh=None))
+    multihost.initialize(num_processes=1, backend="gloo")
+    try:
+        ds = ShardedDeviceDataset(x, y, 10, batch_size=4, mesh=make_mesh(),
+                                  device="cpu")
+        _, loss, acc = tr.train_epoch(ts, ds)
+        assert np.isfinite(loss) and np.isnan(acc)
+        with pytest.raises(TypeError, match="replicated"):
+            tr.fit(ts, ld, ds)
+    finally:
+        multihost.shutdown()
+
+
+def test_sharded_dataset_refusals_and_profile():
+    """A ``ShardedDeviceDataset`` in a world of one: the non-finite guard
+    and a per-batch LR schedule are refused (the DP epoch takes a scalar
+    lr), as in the JAX trainer; with the layer profiler the first local
+    batch is profiled and the epoch trains."""
+    from dcnn_tpu_torch.core import ProfilerType
+    from dcnn_tpu_torch.core.mesh import make_mesh
+    from dcnn_tpu_torch.data import ShardedDeviceDataset
+    from dcnn_tpu_torch.parallel import multihost
+
+    tm = create_mha_classifier().init(device="cpu")
+    x, y = marker_task(8, 32, 64)
+    multihost.initialize(num_processes=1, backend="gloo")
+    try:
+        ds = ShardedDeviceDataset(x, y, 10, batch_size=4, mesh=make_mesh(),
+                                  device="cpu")
+        ts = create_train_state(tm, Adam())
+        guarded = Trainer(tm, Adam(), LOSS, TrainingConfig(
+            device_type="cpu", nonfinite_policy="skip_step"))
+        with pytest.raises(ValueError, match="nonfinite_policy"):
+            guarded.train_epoch(ts, ds)
+        sched = Trainer(tm, Adam(), LOSS, TrainingConfig(
+            device_type="cpu", scheduler_step="batch"),
+            WarmupCosineAnnealing(1e-3, warmup_steps=1, total_steps=4))
+        with pytest.raises(NotImplementedError, match="scalar lr"):
+            sched.train_epoch(ts, ds)
+        prof = Trainer(tm, Adam(), LOSS, TrainingConfig(
+            device_type="cpu", profiler=ProfilerType("normal"), epochs=1,
+            snapshot_dir=None, progress_interval=0))
+        prof.fit(create_train_state(tm, prof.optimizer), ds)
+        assert np.isfinite(prof.history[0]["train_loss"])
+    finally:
+        multihost.shutdown()
 
 
 def test_trainer_refuses_a_model_on_another_device():

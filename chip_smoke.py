@@ -258,6 +258,25 @@ Phases, each fatal on failure:
    equal, and one fp64 SGD step of the DP epoch within ``DPR_F64_TOL`` of
    the per-shard gradients averaged by hand. Phases 24-27 print
    ``{"sequence": ...}`` on a line before the kernels line.
+28. spatial (``phase_spatial``, ``spatial_world2`` in the sequence peers,
+   ``check_spatial_world2``): ``make_data_parallel_train_step(
+   spatial_axis="sp")`` on phase 21's full-width ResNet-18 setup. (a) A
+   (data 1, sp 1) mesh over NCCL here: eager and replayed (one graph) bit
+   for bit the mesh step without ``spatial_axis``. (b) A (data 1, sp 2)
+   mesh over gloo in the two peers (H 64 -> 32 rows a rank, halos
+   exchanged at every 3x3 conv): the ranks bit-equal, the fp64 step's
+   loss, gradients and BN statistics within ``SP_F64_TOL`` of one
+   process's, the fp32 steps at the data-parallel sanity bounds; step
+   wall, halo and staged bytes a step and each rank's peak memory beside
+   one process's.
+29. telemetry (``phase_telemetry``): ``Trainer.fit`` of full-width
+   ResNet-18 over ``PrefetchLoader(feed_workers=2)`` with
+   ``metrics_port=0``: ``/metrics``, ``/healthz``, ``/snapshot`` and
+   ``/goodput`` scraped mid-fit, the goodput buckets summing to the
+   window's wall; ``feed.slow_worker`` armed for the last epoch flips the
+   verdict to feed-bound with exactly one flight bundle and one profiler
+   capture; samples/s with the plane on and off. Phases 28-29 print under
+   ``{"data_parallel": {"spatial": ..., "telemetry": ...}}``.
 
 Compiled sessions (CUDA graphs, ``dcnn_tpu_torch/core/graphs.py``): in
 serve, serve cnn, serve int8 and decode every bucket or lattice point is a
@@ -6127,7 +6146,9 @@ def dp_run(kind, setup, mesh=None, timed=0, steps=DP_STEPS, dtype=None):
     ``i`` on the ``i``-th ``DP_BATCH`` rows (cycling): ``kind`` "plain"
     (``make_train_step``, eager), "dp_eager" / "dp"
     (``make_data_parallel_train_step`` over ``mesh``, eager / ``jit=True``)
-    on this rank's shard. Then ``timed`` more steps timed one by one.
+    on this rank's shard, "sp_eager" / "sp" the same with
+    ``spatial_axis="sp"`` (the shard's dim-2 slice too). Then ``timed``
+    more steps timed one by one.
     Returns losses, params and buffers, the first step's gradients, Adam's
     v, the step and its walls in ms. ``steps`` and ``dtype`` (fp32 by
     default; the model and the batches cast to it) change the run."""
@@ -6155,9 +6176,12 @@ def dp_run(kind, setup, mesh=None, timed=0, steps=DP_STEPS, dtype=None):
     if kind == "plain":
         step = make_train_step(model, ce, opt, jit=False)
     else:
+        spatial = "sp" if kind.startswith("sp") else None
         step = make_data_parallel_train_step(model, ce, opt, mesh,
-                                             jit=kind == "dp")
-        batches = [shard_batch(b, mesh) for b in batches]
+                                             spatial_axis=spatial,
+                                             jit=kind in ("dp", "sp"))
+        batches = [shard_batch(b, mesh, spatial_axis=spatial)
+                   for b in batches]
     losses, walls, grads = [], [], None
     for i in range(steps + timed):
         xb, yb = batches[i % len(batches)]
@@ -6438,6 +6462,7 @@ def phase_data_parallel(card):
     ref = runs["plain"]
     ref64 = dp_run("plain", setup, steps=1, dtype=torch.float64)
     ref["loss64"], ref["grads64"] = ref64["losses"][0], ref64["grads"]
+    ref["final64"] = ref64["final"]  # the spatial phase's (b) too
     for k in ("dp_eager", "dp"):
         r = runs[k]
         if r["losses"] != ref["losses"]:
@@ -7213,7 +7238,9 @@ def seq_peer_main(argv) -> None:
     phase 25 (``seq_paths`` over a ``"seq"`` axis of 2, bf16 and fp32;
     prints
     ``{"seq": ...}``), then phase 26 (b) (``dp_resident_world2`` over a
-    ``"data"`` axis of 2; prints ``{"dp_resident": ...}``)."""
+    ``"data"`` axis of 2; prints ``{"dp_resident": ...}``), then phase 28
+    (b) (``spatial_world2`` over a (data 1, sp 2) mesh; prints
+    ``{"spatial": ...}``)."""
     import argparse
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py --seq-peer")
@@ -7244,12 +7271,16 @@ def seq_peer_main(argv) -> None:
     dpr = dp_resident_world2(make_mesh((2,), ("data",)), args.rank,
                              args.dir)
     print(json.dumps({"dp_resident": dpr}), flush=True)
+    sp = spatial_world2(make_mesh((1, 2), ("data", "sp")), args.rank,
+                        args.dir)
+    print(json.dumps({"spatial": sp}), flush=True)
     multihost.barrier("seq peer done", timeout_ms=300_000)
     multihost.shutdown()
 
 
 def phase_seq_peers(card, directory, peers, seq_a):
-    """Phases 25 and 26 (b) from the two peer processes: the sequence
+    """Phases 25, 26 (b) and 28 (b) from the two peer processes (28 (b)'s
+    lines returned for ``check_spatial_world2``): the sequence
     paths at world 2 (each rank's launches per call: causal ring r+1,
     ring 2, zigzag 5, Ulysses 1), and the DP resident epoch at world 2:
     the ranks' params and buffers bit for bit equal after the fp32 epoch,
@@ -7269,6 +7300,7 @@ def phase_seq_peers(card, directory, peers, seq_a):
             p.proc.stdin.flush()
         seqs = each("seq")
         dprs = each("dp_resident")
+        sps = each("spatial")
         for p in peers:
             p.finish(timeout=120)
     finally:
@@ -7304,7 +7336,7 @@ def phase_seq_peers(card, directory, peers, seq_a):
           f"averaged by hand: {f64['worst']:.3e} at {f64['at']}, loss "
           f"{f64['loss_rel']:.3e} (gate {DPR_F64_TOL:g}); on {card}",
           flush=True)
-    return seqs, dprs
+    return seqs, dprs, sps
 
 
 def phase_dp_feed(card):
@@ -7481,6 +7513,433 @@ def phase_dp_feed(card):
     return out
 
 
+# spatial (dim-2) sharding of the mesh step: (a) world 1 over NCCL here,
+# (b) world 2 over gloo in the sequence peers. (b)'s fp64 step is the check
+# of the numbers: its loss, gradients and BN statistics within SP_F64_TOL
+# of each tensor's largest |value| of the single-process fp64 step (a conv
+# bias that feeds a BN, whose gradient is zero in exact arithmetic, of the
+# model's largest), which a wrong 1/S, a halo row off by one or a statistic
+# over the wrong group misses by orders of magnitude. Its fp32 steps get
+# the data-parallel phase's sanity bounds (DP_LOSS_RTOL, Adam's step
+# bound, DP_STATS_RTOL), not a correctness gate: fp32 ResNet-18 gradients
+# are ill-conditioned at this initialisation (see DP_F64_TOL).
+SP_TIMED = 6              # more eager world-2 steps, timed
+SP_F64_TOL = 1e-10
+# the trainer's telemetry plane: full-width ResNet-18 through Trainer.fit
+# over a PrefetchLoader fed by 2 feed workers (threads, so that the
+# process's FaultPlan reaches them), plane off (3 epochs) and on (4
+# epochs: the tracer on, /metrics /healthz /snapshot /goodput scraped in
+# epoch 2, feed.slow_worker armed for epoch 4). B=128 (a ~50 ms step), so
+# that the host's jitter (a GC pass, the sampler's GIL) stays well inside
+# the anomaly band's 50% floor; the slow workers' 0.5 s a shard then make
+# the feed ~80% of the wall. The goodput window and the sampler's cadence
+# are shortened (the JAX package's env knobs) so that an epoch spans
+# several windows, a pass every quarter window: the verdict crosses from
+# compute- to feed-bound in under a pass of healthy windows, which the
+# classifier's 2-window dwell does not confirm.
+TELEM_BATCH = 128
+TELEM_STEPS = 32          # steps an epoch
+TELEM_WINDOW_S = "2.0"    # DCNN_GOODPUT_WINDOW
+TELEM_INTERVAL_S = "0.5"  # DCNN_TSDB_INTERVAL
+TELEM_SLOW_S = 0.5        # a feed worker's extra seconds a shard, armed
+
+
+def phase_spatial(card):
+    """Phase 28 (a): ``make_data_parallel_train_step(spatial_axis="sp")``
+    over a (data 1, sp 1) mesh in a world of 1 over NCCL, on phase 21's
+    full-width ``resnet18_tiny_imagenet`` setup (NCHW, B=32, AdamW, cuDNN
+    deterministic): eager and replayed (one CUDA graph), each bit for bit
+    the mesh step without ``spatial_axis`` over ``DP_STEPS`` steps; then
+    the single process's peak memory of ``make_train_step`` at B=32
+    (above what was allocated before it), the reference of (b)'s."""
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.core.mesh import make_mesh
+    from dcnn_tpu_torch.parallel import multihost
+
+    deterministic_cudnn()
+    setup = dp_setup()
+    multihost.initialize(num_processes=1, backend="nccl")
+    try:
+        mesh = make_mesh((1, 1), ("data", "sp"))
+        runs = {k: dp_run(k, setup, mesh, timed=DP_TIMED if k == "sp" else 0)
+                for k in ("dp", "sp_eager", "sp")}
+    finally:
+        multihost.shutdown()
+    ref = runs["dp"]
+    for k in ("sp_eager", "sp"):
+        r = runs[k]
+        bad = [n for n in ref["final"]
+               if not np.array_equal(r["final"][n], ref["final"][n])]
+        if r["losses"] != ref["losses"] or bad:
+            fail(f"spatial (a): world 1 {k} differs from the mesh step "
+                 f"without spatial_axis: losses {r['losses']} vs "
+                 f"{ref['losses']}, {len(bad)} tensors ({bad[:4]})")
+    sessions = runs["sp"]["step"]._sessions.latest()
+    if not sessions or sessions[0].graph is None:
+        fail("spatial (a): the NCCL world-1 spatial step never replayed a "
+             "graph")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    plain = dp_run("plain", setup, steps=2)
+    peak = torch.cuda.max_memory_allocated() - base
+    warm = runs["sp"]["walls_ms"][DP_STEPS:]
+    out = {"bit_equal": ["sp_eager", "sp"], "losses": ref["losses"],
+           "graph_launches": sessions[0].launch_names(),
+           "step_ms_median": median(warm),
+           "eager_step_ms_median": median(runs["sp_eager"]["walls_ms"][1:]),
+           "single_process_peak_bytes": peak,
+           "single_process_step_ms_median": median(plain["walls_ms"][1:])}
+    print(f"spatial (a): resnet18_tiny_imagenet NCHW B={DP_BATCH}, mesh "
+          f"(data 1, sp 1) over NCCL: eager and replayed spatial steps bit "
+          f"for bit the mesh step without spatial_axis over {DP_STEPS} "
+          f"steps, one graph; replayed {median(warm):.2f} ms median, eager "
+          f"{out['eager_step_ms_median']:.2f} ms; one process's eager step "
+          f"peaks {peak / 2**20:.0f} MiB above its start; on {card}",
+          flush=True)
+    return out
+
+
+def spatial_world2(mesh, rank, directory):
+    """Phase 28 (b), in a peer: the spatial mesh step over a (data 1, sp
+    2) mesh of the gloo world of 2 on the card (H of 64 rows, 32 a rank),
+    phase 21's setup: one fp64 AdamW step, then ``DP_STEPS + SP_TIMED``
+    fp32 steps, timed, this rank's peak memory above its start and the
+    halo and host-staged bytes a step; the runs to ``DIR/sp<RANK>.pt`` for
+    the parent to compare."""
+    import torch
+
+    from dcnn_tpu_torch.parallel.data_parallel import HALO, HOST_STAGING
+
+    setup = dp_setup()
+    run64 = dp_run("sp_eager", setup, mesh, steps=1, dtype=torch.float64)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    h0, s0 = HALO["bytes"], HOST_STAGING["bytes"]
+    run = dp_run("sp_eager", setup, mesh, timed=SP_TIMED)
+    steps = DP_STEPS + SP_TIMED
+    peak = torch.cuda.max_memory_allocated() - base
+    torch.save({"losses": run["losses"], "final": run["final"],
+                "grads": run["grads"], "loss64": run64["losses"][0],
+                "grads64": run64["grads"], "final64": run64["final"]},
+               os.path.join(directory, f"sp{rank}.pt"))
+    return {"rank": rank, "walls_ms": run["walls_ms"],
+            "halo_bytes_per_step": (HALO["bytes"] - h0) / steps,
+            "staged_bytes_per_step": (HOST_STAGING["bytes"] - s0) / steps,
+            "peak_bytes": peak}
+
+
+def check_spatial_world2(card, directory, sps, dp_ref, sp_a):
+    """Phase 28 (b) in the parent: the two ranks' params and buffers bit
+    for bit equal; the fp64 step's loss, gradients and BN statistics held
+    to phase 21's single-process fp64 step within ``SP_F64_TOL``; the
+    fp32 steps to its fp32 run at the sanity bounds; the step wall, the
+    halo and staged bytes a step and each rank's peak memory printed
+    beside the single process's (phase 28 (a))."""
+    import numpy as np
+    import torch
+
+    got = [torch.load(os.path.join(directory, f"sp{r}.pt"),
+                      weights_only=False) for r in (0, 1)]
+    for k in ("final", "final64"):
+        bad = [n for n in got[0][k]
+               if not np.array_equal(got[0][k][n], got[1][k][n])]
+        if bad:
+            fail(f"spatial (b): the ranks differ in {k} ({bad[:4]})")
+    zero = bias_before_bn(dp_ref["step"].model)
+    names = set(dp_ref["grads"])
+
+    def rels(a, b, scale_zero):
+        top = max(float(np.abs(v).max()) for v in b.values())
+        return sorted(((float(np.abs(a[n] - b[n]).max())
+                        / (top if n in scale_zero
+                           else float(np.abs(b[n]).max()) or 1.0), n)
+                       for n in b), reverse=True)
+
+    g64 = rels(got[0]["grads64"], dp_ref["grads64"], zero)
+    _p64, b64_got = split_named(names, got[0]["final64"])
+    _p64r, b64_ref = split_named(names, dp_ref["final64"])
+    s64 = rels(b64_got, b64_ref, ())
+    loss64 = abs(got[0]["loss64"] - dp_ref["loss64"]) / abs(dp_ref["loss64"])
+    worst64 = max(g64[0][0], s64[0][0], loss64)
+    if worst64 > SP_F64_TOL:
+        fail(f"spatial (b): the fp64 step at sp 2 vs one process: loss "
+             f"{loss64:.3e}, gradients {g64[:4]}, BN statistics {s64[:4]} "
+             f"(tol {SP_F64_TOL:g} of each tensor's largest)")
+    rel_loss = max(abs(a - b) / abs(b) for a, b in
+                   zip(got[0]["losses"], dp_ref["losses"]))
+    if rel_loss > DP_LOSS_RTOL:
+        fail(f"spatial (b): fp32 losses {got[0]['losses']} vs "
+             f"{dp_ref['losses']} (rel {rel_loss:.3e} > {DP_LOSS_RTOL})")
+    p_got, b_got = split_named(names, got[0]["final"])
+    p_ref, b_ref = split_named(names, dp_ref["final"])
+    bound = 2 * DP_STEPS * DP_LR * 0.1 / math.sqrt(1 - 0.999)
+    worst, noise, _n_noise, _n_all, _bins, bound = adam_param_diff(
+        p_got, p_ref, dp_ref["v"], DP_STEPS, DP_LR, 0.9, 0.999,
+        "spatial (b)", atol=bound)
+    bn_rel = stats_rel(b_got, b_ref)
+    if bn_rel > DP_STATS_RTOL:
+        fail(f"spatial (b): fp32 BN statistics differ by {bn_rel:.3e} of "
+             f"their scale (> {DP_STATS_RTOL})")
+    walls = [median(s["walls_ms"][1:]) for s in sps]
+    out = {"fp64_loss_rel": loss64, "fp64_grad_rel": g64[0],
+           "fp64_bn_stats_rel": s64[0], "fp32_loss_rel": rel_loss,
+           "fp32_param_max_diff": worst, "fp32_param_noise_max_diff": noise,
+           "adam_step_bound": bound, "fp32_bn_stats_rel": bn_rel,
+           "step_ms_median": walls,
+           "halo_bytes_per_step": [s["halo_bytes_per_step"] for s in sps],
+           "staged_bytes_per_step": [s["staged_bytes_per_step"]
+                                     for s in sps],
+           "peak_bytes": [s["peak_bytes"] for s in sps],
+           "single_process_peak_bytes": sp_a["single_process_peak_bytes"],
+           "single_process_step_ms_median":
+               sp_a["single_process_step_ms_median"]}
+    mib = [b / 2**20 for b in out["peak_bytes"]]
+    print(f"spatial (b): resnet18_tiny_imagenet NCHW B={DP_BATCH}, mesh "
+          f"(data 1, sp 2) over gloo (two processes on one card: the "
+          f"protocol's cost, not scaling), H 64 -> 32 rows a rank: the fp64 "
+          f"step within {worst64:.2e} of one process's (loss {loss64:.2e}, "
+          f"gradients {g64[0][0]:.2e} at {g64[0][1]}, BN statistics "
+          f"{s64[0][0]:.2e}; gate {SP_F64_TOL:g}); fp32 losses within "
+          f"{rel_loss:.2e}, params {worst:.2e} (Adam bound {bound:.2e}), BN "
+          f"statistics {bn_rel:.2e}; eager step {walls[0]:.1f} / "
+          f"{walls[1]:.1f} ms median (one process "
+          f"{out['single_process_step_ms_median']:.1f} ms); "
+          f"halo {out['halo_bytes_per_step'][0]:.0f} / "
+          f"{out['halo_bytes_per_step'][1]:.0f} B sent a step, "
+          f"{out['staged_bytes_per_step'][0]:.0f} B staged through the host "
+          f"a step (rank 0); peak memory above start {mib[0]:.0f} / "
+          f"{mib[1]:.0f} MiB a rank vs "
+          f"{sp_a['single_process_peak_bytes'] / 2**20:.0f} MiB for one "
+          f"process; on {card}", flush=True)
+    return out
+
+
+def phase_telemetry(card):
+    """Phase 29: the trainer's telemetry plane on full-width
+    ``resnet18_tiny_imagenet`` (NCHW, B=128, AdamW, synthetic uint8 rows)
+    through ``Trainer.fit`` over a ``PrefetchLoader`` fed by 2 feed
+    workers. First one ``try_trace`` capture of two steps alone, its start
+    and its stop and export timed.
+    Then the fit with the plane off (3 epochs), then on
+    (``metrics_port=0``, the tracer on, 4 epochs): ``/metrics``,
+    ``/healthz``, ``/snapshot`` and ``/goodput`` scraped mid-epoch 2 (from
+    the loader, between two steps: an event, not a sleep), the window's
+    buckets and unattributed residue summing to its wall;
+    ``FaultPlan.slow("feed.slow_worker")`` armed for epoch 4: the verdict
+    flips to feed-bound (scraped once it has) and the episode writes
+    exactly one flight bundle and one profiler capture (the flight
+    recorder's per-trigger cooldown set to 0 for the phase, so that the
+    count is the anomaly monitor's own). Samples/s of the faster of
+    epochs 2-3 with the plane on and off; no speed gate."""
+    import tempfile
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.core import TrainingConfig
+    from dcnn_tpu_torch.data import (ArrayDataLoader, FeedWorkerPool,
+                                     PrefetchLoader)
+    from dcnn_tpu_torch.interop import from_jax
+    from dcnn_tpu_torch.obs import configure, configure_flight
+    from dcnn_tpu_torch.optim import AdamW
+    from dcnn_tpu_torch.resilience import faults
+    from dcnn_tpu_torch.train import Trainer, create_train_state
+    from dcnn_tpu_torch.train.profiling import try_trace
+
+    cfg, params, state, _x, _y = dp_setup()
+    rng = np.random.default_rng(SEED + 22)
+    n = TELEM_STEPS * TELEM_BATCH
+    x = rng.integers(0, 256, (n, 3, 64, 64), dtype=np.uint8)
+    y = np.eye(200, dtype=np.float32)[rng.integers(0, 200, n)]
+    d = tempfile.mkdtemp(prefix="dcnn_telemetry_")
+    flight_dir, prof_dir = os.path.join(d, "flight"), os.path.join(d, "prof")
+    os.makedirs(prof_dir)
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=30) as r:
+            return r.status, r.read()
+
+    def summed(doc):
+        led = doc["ledger"]
+        total = sum(led["buckets"].values()) + led["unattributed_s"]
+        if not abs(total - led["wall_s"]) <= 1e-9 * max(led["wall_s"], 1e-9):
+            fail(f"telemetry: the goodput buckets sum to {total} s, the "
+                 f"window's wall is {led['wall_s']} s ({led})")
+        return led
+
+    class Driven(PrefetchLoader):
+        """The fit's loader: in epoch 2 (plane on) it scrapes the four
+        endpoints between two steps; from epoch 3 it arms the slow feed
+        and scrapes ``/goodput`` once the verdict has flipped."""
+
+        def __init__(self, *a, trainer_ref=None, **kw):
+            super().__init__(*a, **kw)
+            self.epoch, self.trainer_ref, self.seen = 0, trainer_ref, {}
+
+        def __iter__(self):
+            self.epoch += 1
+            tr = self.trainer_ref[0] if self.trainer_ref else None
+            if tr is not None and self.epoch == 4:
+                self.seen["before"] = (
+                    sorted(os.listdir(flight_dir))
+                    if os.path.isdir(flight_dir) else [],
+                    sorted(os.listdir(prof_dir)))
+                faults.install(faults.FaultPlan().slow(
+                    "feed.slow_worker", delay_s=TELEM_SLOW_S))
+                self.seen["armed_at"] = time.perf_counter()
+            for i, b in enumerate(super().__iter__()):
+                if tr is not None and self.epoch == 2 \
+                        and i == TELEM_STEPS // 2:
+                    url = tr.telemetry.url
+                    self.seen["scrape"] = {
+                        e: get(url + e) for e in ("/metrics", "/healthz",
+                                                  "/snapshot", "/goodput")}
+                if tr is not None and self.epoch == 4 \
+                        and "flipped" not in self.seen \
+                        and tr._goodput.classifier.state == "feed_bound":
+                    self.seen["flipped"] = (
+                        time.perf_counter() - self.seen["armed_at"],
+                        json.loads(get(tr.telemetry.url + "/goodput")[1]))
+                yield b
+
+    def fit(plane):
+        model = from_jax(cfg, params, state, device="cuda")
+        opt = AdamW(DP_LR, weight_decay=1e-4)
+        ref = []
+        pool = FeedWorkerPool(x, y, TELEM_BATCH, num_workers=2,
+                              backend="thread", seed=SEED)
+        loader = Driven(ArrayDataLoader(x, y, batch_size=TELEM_BATCH,
+                                        seed=SEED),
+                        depth=2, feed_workers=2, worker_pool=pool,
+                        trainer_ref=ref if plane else None)
+        trainer = Trainer(model, opt, "softmax_crossentropy", TrainingConfig(
+            epochs=4 if plane else 3, batch_size=TELEM_BATCH,
+            learning_rate=DP_LR, seed=SEED, snapshot_dir=None,
+            progress_interval=0, feed_workers=2,
+            metrics_port=0 if plane else -1))
+        ref.append(trainer)
+        try:
+            trainer.fit(create_train_state(model, opt), loader)
+        finally:
+            faults.clear()
+            pool.close()
+        return trainer, loader.seen
+
+    # one capture alone, around two replayed train steps: its start (in a
+    # fresh process CUPTI's set-up; in the whole script the train cnn
+    # phase has profiled already), then its stop and trace export
+    model = from_jax(cfg, params, state, device="cuda")
+    opt = AdamW(DP_LR, weight_decay=1e-4)
+    cold = Trainer(model, opt, "softmax_crossentropy", TrainingConfig(
+        epochs=1, batch_size=TELEM_BATCH, snapshot_dir=None,
+        progress_interval=0))
+    ts0 = create_train_state(model, opt)
+    xb = torch.from_numpy(x[:TELEM_BATCH]).cuda().float() / 255.0
+    yb = torch.from_numpy(y[:TELEM_BATCH]).cuda()
+    for _ in range(2):  # eager, then captured: the replayed step profiled
+        cold.train_step(ts0, xb, yb, DP_LR)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cm = try_trace(os.path.join(d, "cold"))
+    cm.__enter__()
+    t1 = time.perf_counter()
+    for _ in range(2):
+        float(cold.train_step(ts0, xb, yb, DP_LR)[0])
+    t2 = time.perf_counter()
+    cm.__exit__(None, None, None)
+    capture_s = {"start": t1 - t0, "two_steps": t2 - t1,
+                 "stop_and_export": time.perf_counter() - t2}
+    del cold, model, ts0
+
+    off, _ = fit(False)
+    env = {"DCNN_GOODPUT_WINDOW": TELEM_WINDOW_S,
+           "DCNN_TSDB_INTERVAL": TELEM_INTERVAL_S,
+           "DCNN_ANOMALY_XPROF": prof_dir}
+    saved_env = {k: os.environ.get(k) for k in env}
+    rec = configure_flight(flight_dir)
+    cooldown = rec.min_interval_s
+    rec.min_interval_s = 0.0
+    os.environ.update(env)
+    tracer = configure(enabled=True)
+    tracer.clear()  # the windows read this fit's spans alone
+    try:
+        on, seen = fit(True)
+    finally:
+        configure(enabled=False)
+        tracer.clear()
+        rec.min_interval_s = cooldown
+        rec.directory = None
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if on.telemetry is not None:
+        fail("telemetry: the server outlived fit()")
+    scrape = seen.get("scrape")
+    if not scrape or any(code != 200 for code, _ in scrape.values()):
+        codes = scrape and {e: c for e, (c, _) in scrape.items()}
+        fail(f"telemetry: mid-fit scrape {codes}")
+    health = json.loads(scrape["/healthz"][1])
+    if health["status"] != "ok" or "alerts" not in health["checks"]:
+        fail(f"telemetry: /healthz {health}")
+    if b"goodput_fraction" not in scrape["/metrics"][1]:
+        fail("telemetry: /metrics carries no goodput_fraction")
+    mid = summed(json.loads(scrape["/goodput"][1]))
+    if "flipped" not in seen:
+        fail("telemetry: the verdict never flipped to feed_bound under the "
+             "slow feed workers")
+    flip_s, flip_doc = seen["flipped"]
+    slow = summed(flip_doc)
+    before_b, before_p = seen["before"]
+    bundles = [b for b in sorted(os.listdir(flight_dir))
+               if b not in before_b and not b.startswith("tmp-")]
+    profiles = [p for p in sorted(os.listdir(prof_dir)) if p not in before_p]
+    reasons = []
+    for b in bundles:
+        with open(os.path.join(flight_dir, b, "extra.json")) as f:
+            reasons.append(json.load(f).get("detail"))
+    if len(bundles) != 1 or len(profiles) != 1 or not os.path.isfile(
+            os.path.join(prof_dir, profiles[0], "trace.json")):
+        fail(f"telemetry: the slow-feed episode wrote {len(bundles)} flight "
+             f"bundles ({reasons}) and {len(profiles)} profiler captures "
+             f"({profiles}); one of each expected")
+    if not str(reasons[0].get("transition", "")).endswith("->feed_bound"):
+        fail(f"telemetry: the episode's bundle is {reasons[0]}, not the "
+             f"flip to feed_bound")
+    rows = TELEM_STEPS * TELEM_BATCH
+    sps = {"off": max(rows / h["seconds"] for h in off.history[1:3]),
+           "on": max(rows / h["seconds"] for h in on.history[1:3]),
+           "slow_epoch": rows / on.history[3]["seconds"]}
+    out = {"samples_per_s": sps, "mid_epoch_window": mid,
+           "flip_after_s": flip_s, "slow_window": slow,
+           "bundle": reasons[0], "profile": profiles[0],
+           "captures_before_arming": len(before_b),
+           "first_capture_s": capture_s}
+    print(f"telemetry: resnet18_tiny_imagenet NCHW B={TELEM_BATCH} through "
+          f"Trainer.fit over PrefetchLoader(feed_workers=2): /metrics "
+          f"/healthz /snapshot /goodput answered mid-fit; window "
+          f"{mid['wall_s']:.2f} s = buckets + unattributed (goodput "
+          f"{mid['goodput_fraction']:.3f}, verdict {mid['verdict']}, "
+          f"mfu_live {mid['mfu_live']}); feed.slow_worker "
+          f"({TELEM_SLOW_S} s a shard) armed for epoch 4: feed_bound "
+          f"{flip_s:.2f} s later (feed_stall "
+          f"{slow['buckets']['feed_stall']:.2f} of {slow['wall_s']:.2f} s), "
+          f"1 flight bundle ({reasons[0]}) and 1 profiler capture "
+          f"({len(before_b)} captures before arming); samples/s plane off "
+          f"{sps['off']:.0f}, on {sps['on']:.0f} (no gate), slow epoch "
+          f"{sps['slow_epoch']:.0f}; a profiler capture alone: start "
+          f"{capture_s['start']:.2f} s, two steps {capture_s['two_steps']:.3f}"
+          f" s, stop and export {capture_s['stop_and_export']:.2f} s; on "
+          f"{card}", flush=True)
+    return out
+
+
 def bias_before_bn(model):
     """Names (as ``named_parameters`` gives them) of the conv biases that
     feed a batchnorm directly: their gradient is zero in exact arithmetic,
@@ -7620,8 +8079,12 @@ def main() -> None:
     seq_dir, seq_peers = start_seq_peers()
     seq = timed("sequence", phase_sequence, card)
     dp["resident"] = timed("dp feed", phase_dp_feed, card)
-    seq["world2"], dp["resident"]["world2"] = timed(
+    dp["spatial"] = timed("spatial", phase_spatial, card)
+    seq["world2"], dp["resident"]["world2"], sp_lines = timed(
         "sequence peers", phase_seq_peers, card, seq_dir, seq_peers, seq)
+    dp["spatial"]["world2"] = check_spatial_world2(
+        card, seq_dir, sp_lines, dp_ref, dp["spatial"])
+    dp["telemetry"] = timed("telemetry", phase_telemetry, card)
     print(f"phase seconds: {json.dumps(seconds)}, total "
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
 

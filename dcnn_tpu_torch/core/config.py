@@ -5,9 +5,8 @@
 reads the same environment variables (EPOCHS, BATCH_SIZE, LR_DECAY_*,
 NUM_MICROBATCHES, DEVICE_TYPE, PROFILER_TYPE, ...) through
 :func:`~dcnn_tpu_torch.utils.env.get_env`, which this module re-exports.
-The port's trainer raises ``NotImplementedError`` for the one field whose
-feature it has not ported yet: ``metrics_port`` on the non-elastic fit
-(the elastic fit serves its own telemetry); see ``train/trainer.py``.
+Every field is ported: ``metrics_port`` serves the trainer's telemetry
+plane (``train/trainer.py``; the elastic fit serves its own).
 """
 
 from __future__ import annotations
@@ -134,12 +133,13 @@ class TrainingConfig:
                                       # hosts). None: AOT_CACHE env, else
                                       # off.
 
-    # -- external telemetry (dcnn_tpu/obs/server.py; docs/observability.md)
+    # -- external telemetry (obs/server.py, obs/goodput.py, obs/rules.py)
     metrics_port: int = -1            # >=0: serve /metrics + /healthz +
-                                      # /snapshot over HTTP for the whole
-                                      # fit() (0 = ephemeral port; -1 = off).
-                                      # healthz wires the stall watchdog and
-                                      # checkpoint health automatically
+                                      # /snapshot + /goodput over HTTP for
+                                      # the whole fit() (0 = ephemeral
+                                      # port; -1 = off). healthz wires the
+                                      # stall watchdog, checkpoint health
+                                      # and the alert rules automatically
     flight_dir: Optional[str] = None  # failure flight recorder root
                                       # (obs/flight.py): degradation edges
                                       # (healthz 503, watchdog stall,

@@ -15,9 +15,12 @@ process group an axis. The canonical axis names are the JAX package's:
 - ``"seq"``   — sequence/context parallelism.
 
 ``mesh.shape`` maps axis names to sizes, as JAX's does, so callers keep
-``mesh.shape[DATA_AXIS]``. A mesh is also a context manager: inside
-``with mesh:``, ``make_train_step(reduce_axis="data")`` resolves the axis
-name against it, as a JAX axis name resolves inside ``shard_map``.
+``mesh.shape[DATA_AXIS]``. ``mesh.get_group(("data", "sp"))`` is the
+group of this rank's plane over several axes (the spatial step reduces
+its batchnorm sums and gradients over one). A mesh is also a context
+manager: inside ``with mesh:``, ``make_train_step(reduce_axis="data")``
+resolves the axis name against it, as a JAX axis name resolves inside
+``shard_map``.
 """
 
 from __future__ import annotations
@@ -59,14 +62,42 @@ class Mesh:
         self.device_mesh = device_mesh
         self.devices = devices
         self.axis_names = axis_names
+        self._groups: Dict[Tuple[str, ...], object] = {}
 
     @property
     def shape(self) -> Dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
 
-    def get_group(self, axis: str):
-        """The process group of this rank's line along ``axis``."""
-        return self.device_mesh.get_group(axis)
+    def get_group(self, axis):
+        """The process group of this rank's line along ``axis``, or, for a
+        tuple of axis names, of its plane over those axes. A tuple's
+        groups are built at its first call, which every rank of the world
+        makes alike (``new_group`` is collective)."""
+        if isinstance(axis, str):
+            return self.device_mesh.get_group(axis)
+        axes = tuple(axis)
+        if axes not in self._groups:
+            missing = [a for a in axes if a not in self.axis_names]
+            if missing or len(set(axes)) != len(axes):
+                raise ValueError(f"axes {axes} are not distinct axes of "
+                                 f"{self.axis_names}")
+            self._groups[axes] = self._new_plane_group(axes)
+        return self._groups[axes]
+
+    def _new_plane_group(self, axes: Tuple[str, ...]):
+        """Every plane's group over ``axes`` (one a coordinate of the other
+        axes, each built by every rank, in order); returns this rank's."""
+        dist = _dist()
+        keep = [self.axis_names.index(a) for a in axes]
+        rest = [i for i in range(self.devices.ndim) if i not in keep]
+        planes = np.transpose(self.devices, rest + keep).reshape(
+            -1, int(np.prod([self.devices.shape[i] for i in keep])))
+        me, mine = dist.get_rank(), None
+        for ranks in planes:
+            g = dist.new_group([int(r) for r in ranks])
+            if me in ranks:
+                mine = g
+        return mine
 
     def coordinate(self, axis: str) -> int:
         """This rank's index along ``axis``."""

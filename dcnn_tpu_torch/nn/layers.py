@@ -25,6 +25,7 @@ from ..ops import activations as act_ops
 from ..ops import conv as conv_ops
 from ..ops import norm as norm_ops
 from ..ops import pool as pool_ops
+from ..ops import spatial as spatial_ops
 from . import initializers as init
 from .factory import register_layer
 from .layer import ParameterizedLayer, Shape, StatelessLayer
@@ -119,7 +120,14 @@ class DropoutLayer(StatelessLayer):
     never from the global generator, and a training call without one
     raises, as the JAX layer does without its rng key. Identity in eval
     mode or at rate 0. The two packages draw different bits from one seed
-    (``apply_dropout_mask`` takes a mask made elsewhere)."""
+    (``apply_dropout_mask`` takes a mask made elsewhere).
+
+    On an activation sharded along dim 2 (the spatial mesh step,
+    :mod:`~dcnn_tpu_torch.ops.spatial`) a rank draws the mask of the whole
+    gathered map from its generator and keeps its own rows: with the same
+    generator state on every rank of the axis (the step's contract) the
+    ranks' masks are the single process's, sliced, and a rank's generator
+    advances as the single process's would."""
 
     draws = True  # Sequential passes its generator on
 
@@ -134,8 +142,7 @@ class DropoutLayer(StatelessLayer):
         if generator is None:
             raise ValueError(f"{self.name}: dropout in training mode needs a "
                              f"generator")
-        keep = torch.rand(x.shape, generator=generator, device=x.device,
-                          dtype=torch.float32) < 1.0 - self.rate
+        keep = spatial_ops.dropout_keep(x, 1.0 - self.rate, generator)
         return apply_dropout_mask(x, keep, self.rate)
 
     def forward_complexity(self, input_shape):
@@ -148,10 +155,12 @@ class DropoutLayer(StatelessLayer):
 @register_layer("flatten")
 class FlattenLayer(StatelessLayer):
     """Flatten per-sample dims, row-major: (B, S, E) -> (B, S·E); a
-    logical NHWC image in H, W, C order."""
+    logical NHWC image in H, W, C order. An image still sharded along
+    dim 2 (the spatial mesh step) is gathered first, so the dense layers
+    after it see the whole map."""
 
     def forward(self, x):
-        return x.reshape(x.shape[0], -1)
+        return spatial_ops.gather(x).reshape(x.shape[0], -1)
 
     def output_shape(self, input_shape):
         return (_numel(input_shape),)

@@ -1,6 +1,10 @@
 """Residual block (counterpart of ``dcnn_tpu/nn/residual.py``):
 ``out = act(main(x) + shortcut(x))``, with an empty shortcut the identity.
-Configs nest their layer configs as in the JAX package."""
+Configs nest their layer configs as in the JAX package. Under the spatial
+mesh step both branches start from the same sharding state, and where
+one gathered dim 2 and the other did not, the other's output is gathered
+too, so that they add row for row
+(:func:`~dcnn_tpu_torch.ops.spatial.branches`)."""
 
 from __future__ import annotations
 
@@ -9,6 +13,7 @@ from typing import Any, Dict, Optional, Sequence
 from torch import nn
 
 from ..ops import activations as act_ops
+from ..ops import spatial as spatial_ops
 from .factory import layer_from_config, register_layer
 from .layer import Layer
 
@@ -46,8 +51,8 @@ class ResidualBlock(Layer):
                      if getattr(layer, "draws", False) else layer(h))
             return h
 
-        h = run(self.layers, x)
-        s = run(self.shortcut, x)
+        h, s = spatial_ops.branches(x, lambda v: run(self.layers, v),
+                                    lambda v: run(self.shortcut, v))
         return act_ops.ACTIVATIONS[self.activation](h + s)
 
     def output_shape(self, input_shape):

@@ -18,6 +18,14 @@ and one span tracer for the whole port, and the surfaces that export them.
   :func:`configure_flight`.
 - :mod:`.tsdb`: :class:`TimeSeriesStore` and :class:`TsdbSampler`
   (resolved lazily, so ``python -m dcnn_tpu_torch.obs.tsdb`` runs clean).
+- :mod:`.rules`: :class:`RuleEngine`, recording and alert rules with
+  hold windows over a store, :func:`rules_check` for ``/healthz``
+  (resolved lazily).
+- :mod:`.goodput`: the wall-time attribution ledger, the bottleneck
+  classifier and :class:`~.goodput.GoodputMonitor` (``/goodput``);
+  :mod:`.anomaly`: the step-time band and its one capture an episode.
+  The trainer wires both with the rules behind
+  ``TrainingConfig.metrics_port``.
 - :mod:`.xla`: FLOP counts, compile counters and the card's memory
   gauges (``sample_hbm``).
 
@@ -31,7 +39,11 @@ from .server import (TelemetryServer, checkpoint_check, elastic_check,
                      pipeline_check, watchdog_check)
 from .tracer import Tracer, configure, get_tracer
 
-_LAZY = {"TimeSeriesStore": "tsdb", "TsdbSampler": "tsdb"}
+_LAZY = {
+    "TimeSeriesStore": "tsdb", "TsdbSampler": "tsdb",
+    "RuleEngine": "rules", "AlertRule": "rules",
+    "RecordingRule": "rules", "rules_check": "rules",
+}
 
 
 def __getattr__(name: str):
@@ -50,4 +62,5 @@ __all__ = [
     "elastic_check", "pipeline_check",
     "FlightRecorder", "get_flight_recorder", "configure_flight",
     "TimeSeriesStore", "TsdbSampler",
+    "RuleEngine", "AlertRule", "RecordingRule", "rules_check",
 ]

@@ -19,7 +19,9 @@
   ``.peak``) and ``torch.cuda.mem_get_info`` (the limit). None of these
   waits for the card. With no card it returns ``None``, as the JAX
   package does on a backend without memory stats.
-- :func:`analytic_mfu`: achieved FLOP/s over a peak.
+- :func:`analytic_mfu`: achieved FLOP/s over a peak;
+  :func:`peak_tflops`: the peak of an H100 for a step's dtype (the dense
+  figures of ``PERF.md``'s "Device" row), ``None`` for any other card.
 
 ``torch`` is imported inside the functions, so the ``obs`` package stays
 standard-library only at import time.
@@ -118,6 +120,34 @@ def analytic_mfu(flops_per_sample: Optional[float],
     if not flops_per_sample or not samples_per_sec or not peak_tflops:
         return None
     return (flops_per_sample * samples_per_sec) / (peak_tflops * 1e12)
+
+
+# an H100 SXM's dense peak, TFLOP/s, by the step's compute type: fp32 on
+# the CUDA cores, TF32 / bf16 / fp16 on the tensor cores
+H100_PEAK_TFLOPS: Dict[str, float] = {
+    "float32": 67.0, "tf32": 495.0, "bfloat16": 989.0, "float16": 989.0}
+
+
+def peak_tflops(dtype: str, device_name: Optional[str] = None,
+                tf32: bool = False) -> Optional[float]:
+    """The card's dense peak for a step computing in ``dtype`` (a torch
+    dtype's name: ``"float32"``, ``"bfloat16"``, ...; fp32 with ``tf32``
+    on the tensor cores), when ``device_name`` (default: card 0's) is an
+    H100; else ``None``, so that ``mfu_live`` stays absent rather than
+    wrong."""
+    if device_name is None:
+        try:
+            import torch
+
+            if not torch.cuda.is_available():
+                return None
+            device_name = torch.cuda.get_device_name(0)
+        except Exception:
+            return None
+    if "H100" not in str(device_name):
+        return None
+    key = "tf32" if dtype == "float32" and tf32 else dtype
+    return H100_PEAK_TFLOPS.get(key)
 
 
 def sample_hbm(registry: Optional[MetricsRegistry] = None,

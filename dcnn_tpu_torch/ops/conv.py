@@ -16,6 +16,15 @@ and is not implemented on CUDA), so on a CUDA tensor it launches the
 hand-written kernel ``csrc/conv_int8.cu`` (or raises), and on a CPU tensor
 it runs the plain version, ``F.conv2d`` in float64 cast to int32, exact
 because every partial sum is an integer below 2^53.
+
+Under a spatial context (:mod:`.spatial`, the spatial mesh step) a
+:func:`conv2d` on a sharded activation exchanges ``pad`` rows of dim 2
+with its neighbours and convolves with no padding on dim 2 and its own on
+the other spatial dim, stride 2 included (ResNet-18's stride-2 3×3 convs
+and 1×1 projections while the local rows are even); a conv whose local
+rows do not divide by its stride, or whose halo exceeds a neighbour's
+rows, gathers dim 2 first and runs replicated from there on, what GSPMD's
+reshard amounts to.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from . import library
+from . import spatial as _spatial
 
 IntOrPair = Union[int, Tuple[int, int], Sequence[int]]
 
@@ -46,6 +56,9 @@ def conv2d(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None,
     fp32 the bias goes into the conv's call (one kernel fewer)."""
     if data_format not in ("NCHW", "NHWC"):
         raise ValueError(f"unsupported data_format {data_format!r}")
+    if _spatial.current() is not None:
+        x, padding = _spatial.prepare_window(
+            x, w.shape[2:], _pair(stride), _pair(padding), data_format, 0.0)
     if data_format == "NHWC":
         x = x.permute(0, 3, 1, 2)
     apart = b is not None and x.dtype == torch.bfloat16

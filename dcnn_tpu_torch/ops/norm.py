@@ -10,7 +10,10 @@ two-pass, as there.
 Inside :func:`reduce_batch_stats` a training ``batch_norm`` hands its
 per-channel sums and row count to a reducer before it uses them: the
 mesh data-parallel step's all-reduce, so that the statistics are the
-global batch's, as GSPMD makes them in the JAX package.
+global batch's, as GSPMD makes them in the JAX package. Under a spatial
+context (:mod:`.spatial`) on a sharded activation, the sums and count
+go over the context's (data, sp) plane instead, and ``group_norm``'s
+per-sample sums (both passes) over its sp axis.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import threading
 from typing import Callable, Optional, Tuple
 
 import torch
+
+from . import spatial as _spatial
 
 _REDUCER = threading.local()
 
@@ -65,8 +70,11 @@ def batch_norm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
         xs = xf - pivot.reshape(shape)
         s1 = xs.sum(reduce_axes)
         s2 = (xs * xs).sum(reduce_axes)
+        sp = _spatial.current()
         reducer = getattr(_REDUCER, "fn", None)
-        if reducer is not None:
+        if sp is not None:
+            s1, s2, n = sp.batch_stats(s1, s2, n)
+        elif reducer is not None:
             s1, s2, n = reducer(s1, s2, n)
         mean_c = s1 / n
         var = torch.clamp_min(s2 / n - mean_c * mean_c, 0.0)
@@ -98,8 +106,15 @@ def group_norm(x: torch.Tensor, gamma: Optional[torch.Tensor],
         raise ValueError(f"channels {c} not divisible by groups {num_groups}")
     stat_dt = _stat_dtype(x)
     xg = x.to(stat_dt).reshape(n, num_groups, c // num_groups, h, w)
-    mean = xg.mean(dim=(2, 3, 4), keepdim=True)
-    var = xg.var(dim=(2, 3, 4), unbiased=False, keepdim=True)
+    sp = _spatial.current()
+    if sp is None:
+        mean = xg.mean(dim=(2, 3, 4), keepdim=True)
+        var = xg.var(dim=(2, 3, 4), unbiased=False, keepdim=True)
+    else:  # dim 2 sharded: both passes' sums over the sp axis
+        count = (c // num_groups) * h * w * sp.size
+        mean = sp.axis_sum(xg.sum(dim=(2, 3, 4), keepdim=True)) / count
+        d = xg - mean
+        var = sp.axis_sum((d * d).sum(dim=(2, 3, 4), keepdim=True)) / count
     y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(n, c, h, w)
     if gamma is not None:
         y = y * gamma.to(stat_dt).reshape(1, c, 1, 1)

@@ -5,6 +5,14 @@ max pooling, 0 for average pooling. ``F.max_pool2d`` and ``F.avg_pool2d``
 take at most half a window of padding, so the pad is applied here with
 ``F.pad`` and the pools run unpadded, which gives the same result for any
 padding. A ``stride`` of ``None`` is the kernel size.
+
+Under a spatial context (:mod:`.spatial`) a pool on a sharded activation
+follows the conv's rule with its window, stride and padding: the halo
+rows past the global edges are the pad value (−inf for max, 0 for
+average), so the edges match the JAX pools; a pool whose window does not
+fit the local rows (ResNet-18's ``avgpool2d(4, 1, 0)`` over the last 4
+rows) gathers. An average pool with ``count_include_pad=False`` gathers
+too.
 """
 
 from __future__ import annotations
@@ -13,6 +21,8 @@ from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
+
+from . import spatial as _spatial
 
 IntOrPair = Union[int, Tuple[int, int]]
 
@@ -28,6 +38,10 @@ def _pool(x: torch.Tensor, kernel, stride, padding, data_format: str, fn,
     kh, kw = _pair(kernel)
     sh, sw = _pair(stride if stride is not None else kernel)
     ph, pw = _pair(padding)
+    if _spatial.current() is not None:
+        x, (ph, pw) = _spatial.prepare_window(x, (kh, kw), (sh, sw),
+                                              (ph, pw), data_format,
+                                              pad_value)
     if data_format == "NHWC":
         x = x.permute(0, 3, 1, 2)
     if ph or pw:
@@ -50,6 +64,8 @@ def avg_pool2d(x: torch.Tensor, kernel: IntOrPair,
                count_include_pad: bool = True) -> torch.Tensor:
     """Average pool. By default a window is divided by its full size,
     padded cells included (the reference's semantics)."""
+    if not count_include_pad:
+        x = _spatial.gather(x)  # the real-cell counts need the whole map
     summed_mean = _pool(x, kernel, stride, padding, data_format,
                         F.avg_pool2d, 0.0)
     if count_include_pad:

@@ -6,13 +6,12 @@ processes (``worker``, ``python -m dcnn_tpu_torch.parallel.worker``) and
 the self-healing ``DistributedPipelineCoordinator``; data parallelism
 over a mesh of processes (``data_parallel``, ``multihost``, with
 ``core/mesh.py``; the compiled pipeline's ``data_axis=``), elastic data
-parallelism over TCP peers (``elastic``) and sequence parallelism over a
+parallelism over TCP peers (``elastic``), sequence parallelism over a
 mesh's ``"seq"`` axis (``sequence``: ring, zigzag and Ulysses attention on
-the flash kernels).
-
-Not ported yet (ROADMAP.md Queue 1 item 6b): spatial sharding
+the flash kernels) and spatial sharding of the mesh step
 (``shard_batch(spatial_axis=)``, ``make_data_parallel_train_step(
-spatial_axis=)``).
+spatial_axis=)``: dim 2 over a second mesh axis, the halos exchanged by
+``data_parallel``'s ``HaloExchange`` at each conv and pool).
 """
 
 from .compiled_pipeline import (

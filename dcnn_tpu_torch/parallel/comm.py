@@ -253,6 +253,12 @@ class Inbox:
         except queue.Empty:
             raise TimeoutError("no message within timeout") from None
 
+    def empty(self) -> bool:
+        """Nothing queued. A connection's reader queues every frame it
+        read before its ``on_close`` runs, so a peer found closed while
+        this is true has no frame left to read."""
+        return self._q.empty()
+
     def post(self, cmd: str, meta: Optional[Dict] = None,
              payload: Any = None, chan: Optional[Channel] = None) -> None:
         """A local frame: wake-up sentinels and tests."""

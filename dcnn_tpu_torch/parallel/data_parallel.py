@@ -33,8 +33,34 @@ runs on the host and cannot sit in a CUDA graph, so under gloo the steps
 run eagerly; under NCCL the whole step, collectives included, is one
 graph, as ``make_train_step(jit=True)`` captures it.
 
-``spatial_axis=`` (H sharded over a mesh axis) is not ported yet
-(ROADMAP.md Queue 1 item 6b) and raises ``NotImplementedError``.
+``spatial_axis=`` shards dim 2 of the batch (H under NCHW, W under NHWC)
+over a second mesh axis beside ``"data"``, as the JAX step does: rank
+``(i, j)`` holds batch rows ``i`` and dim-2 slice ``j``
+(:func:`shard_batch`). GSPMD inserts the halos there; here the step
+enters a :class:`SpatialContext` for each forward and the ops exchange
+them (:mod:`dcnn_tpu_torch.ops.spatial` says which op runs locally and
+which gathers): :class:`HaloExchange` (point-to-point between the two
+neighbours on the axis, zero or −inf rows at the global edges, its
+backward sending the halo rows' gradients back to their owners, which add
+them) and :class:`GatherDim` (an all-gather of dim 2 whose backward is its
+transpose, an all-reduce of the gradient over the axis and this rank's
+slice of it). Batchnorm on a sharded activation sums over the (data, sp)
+plane, on a gathered one over ``"data"``; group norm's per-sample sums go
+over the sp axis.
+
+The gradient convention of the spatial step: the ``S`` ranks of one data
+row gather the same logits and compute the same loss ``L_i``, and each
+back-propagates ``L_i / S``, its share. With every collective's backward
+its exact transpose (the all-reduces of batchnorm's sums add the
+cotangents over the same plane, the gather's backward sums over the sp
+axis before it slices, the halo's backward adds the neighbours' rows), the
+ranks' parameter gradients add up to the gradient of ``Σ_i L_i``: partial
+sums over each rank's rows for the layers before the gather, ``1/S`` each
+of the replicated layers' after it. So the step sums the gradients over
+the (data, sp) plane and divides by the data size ``D`` (summing ``L_i /
+S`` likewise gives the mean loss): the gradients are summed over sp and
+averaged over data, not averaged over the whole plane, which would be off
+by ``S``. An sp axis of size 1 shards nothing: its ops run as without it.
 """
 
 from __future__ import annotations
@@ -49,19 +75,16 @@ from ..core.graphs import GraphPool, Session, SessionCache
 from ..core.keys import fold_in, generators, reseed
 from ..core.mesh import DATA_AXIS, Mesh, active_mesh
 from ..ops import norm as _norm
+from ..ops import spatial as _spatial
 from ..ops.losses import upcast_logits
 
 # collectives of CUDA tensors staged through the host for a gloo group:
 # how many, and the bytes copied each way
 HOST_STAGING: Dict[str, int] = {"collectives": 0, "bytes": 0}
+# the spatial step's halo exchanges (forward and backward): how many, and
+# the bytes this process sent to its neighbours
+HALO: Dict[str, int] = {"exchanges": 0, "bytes": 0}
 _STAGING_LOCK = threading.Lock()
-
-
-def _no_spatial(spatial_axis) -> None:
-    if spatial_axis is not None:
-        raise NotImplementedError(
-            f"spatial_axis={spatial_axis!r}: spatial (H) sharding is not "
-            f"ported to dcnn_tpu_torch yet (ROADMAP.md Queue 1 item 6b)")
 
 
 def _backend(group) -> str:
@@ -199,6 +222,167 @@ class AllReduceSum(torch.autograd.Function):
         return all_reduce_(grad.contiguous().clone(), ctx.group), None
 
 
+def _neighbours(group):
+    """(previous, next) global ranks of this rank on ``group``'s line;
+    None past either edge (the line does not wrap)."""
+    import torch.distributed as dist
+
+    n, me = dist.get_world_size(group), dist.get_rank(group)
+    prv = dist.get_global_rank(group, me - 1) if me > 0 else None
+    nxt = dist.get_global_rank(group, me + 1) if me < n - 1 else None
+    return prv, nxt
+
+
+def _swap_edges(to_prev, to_next, group, tags):
+    """Send ``to_prev`` to the previous rank and ``to_next`` to the next
+    (either may be None past an edge) and receive theirs: ``(from_prev,
+    from_next)``, None past an edge, on the sent tensors' device. CUDA
+    tensors over gloo go through the host (counted in
+    :data:`HOST_STAGING`)."""
+    import torch.distributed as dist
+
+    prv, nxt = _neighbours(group)
+    like = to_prev if to_prev is not None else to_next
+    staged = _staged(like, group)
+    ops, recv, sent = [], [None, None], 0
+    for i, (peer, out) in enumerate(((prv, to_prev), (nxt, to_next))):
+        if peer is None:
+            continue
+        s = out.cpu() if staged else out.contiguous()
+        recv[i] = torch.empty_like(s)
+        # what goes up carries tags[0] and what goes down tags[1]: a rank
+        # receives from its previous neighbour what that one sent down
+        ops.append(dist.P2POp(dist.isend, s, peer, group, tag=tags[i]))
+        ops.append(dist.P2POp(dist.irecv, recv[i], peer, group,
+                              tag=tags[1 - i]))
+        sent += s.numel() * s.element_size()
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    if staged:
+        recv = [None if r is None else r.to(like.device) for r in recv]
+        _count_staged(2 * sent)
+    with _STAGING_LOCK:
+        HALO["exchanges"] += 1
+        HALO["bytes"] += sent
+    return recv
+
+
+class HaloExchange(torch.autograd.Function):
+    """``x`` (dim 2 sharded over ``group``'s line) with ``h`` rows of
+    each neighbour on either side of dim 2: the previous rank's last ``h``
+    rows above, the next rank's first ``h`` below, ``fill`` rows past the
+    global edges. The backward sends the halo rows' gradients back to
+    their owners, which add them to their own rows' (the fill rows'
+    gradients are dropped)."""
+
+    @staticmethod
+    def forward(ctx, x, h, fill, group):
+        ctx.h, ctx.group = h, group
+        r = x.shape[2]
+        top, bot = _swap_edges(x.narrow(2, 0, h), x.narrow(2, r - h, h),
+                               group, (0, 1))
+        edge = list(x.shape)
+        edge[2] = h
+        top = top if top is not None else x.new_full(edge, fill)
+        bot = bot if bot is not None else x.new_full(edge, fill)
+        return torch.cat([top, x, bot], dim=2)
+
+    @staticmethod
+    def backward(ctx, grad):
+        h = ctx.h
+        r = grad.shape[2] - 2 * h
+        g = grad.narrow(2, h, r).clone()
+        prv, nxt = _neighbours(ctx.group)
+        from_prev, from_next = _swap_edges(
+            grad.narrow(2, 0, h) if prv is not None else None,
+            grad.narrow(2, h + r, h) if nxt is not None else None,
+            ctx.group, (2, 3))
+        if from_prev is not None:  # the previous rank's bottom halo: my top
+            g.narrow(2, 0, h).add_(from_prev)
+        if from_next is not None:
+            g.narrow(2, r - h, h).add_(from_next)
+        return g, None, None, None
+
+
+def all_gather_dim(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """The ranks' ``x`` of ``group`` concatenated along ``dim`` in rank
+    order (one ``all_gather``; CUDA tensors over gloo through the host,
+    counted in :data:`HOST_STAGING`)."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    staged = _staged(x, group)
+    src = x.detach().cpu() if staged else x.detach().contiguous()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    out = torch.cat(parts, dim=dim)
+    if staged:
+        _count_staged(2 * out.numel() * out.element_size())
+        out = out.to(x.device)
+    return out
+
+
+class GatherDim(torch.autograd.Function):
+    """:func:`all_gather_dim` under autograd. Its backward is the
+    transpose: the gradient summed over ``group`` (every rank's loss
+    depends on every rank's rows through the gathered tensor), then this
+    rank's slice."""
+
+    @staticmethod
+    def forward(ctx, x, dim, group):
+        import torch.distributed as dist
+
+        ctx.dim, ctx.group = dim, group
+        ctx.rows, ctx.me = x.shape[dim], dist.get_rank(group)
+        return all_gather_dim(x, dim, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = all_reduce_(grad.contiguous().clone(), ctx.group)
+        return (g.narrow(ctx.dim, ctx.me * ctx.rows, ctx.rows).contiguous(),
+                None, None)
+
+
+class SpatialContext:
+    """One forward's dim-2 sharding, the object :mod:`..ops.spatial` hands
+    the ops: the spatial axis's ``group``, this rank's ``coord`` and the
+    axis ``size``, the (data, sp) plane's ``plane`` group, the global
+    ``extent`` of dim 2 at the input, and ``sharded``, whether the
+    activation is still sharded (an axis of size 1 never is)."""
+
+    def __init__(self, group, plane, extent: Optional[int] = None):
+        import torch.distributed as dist
+
+        self.group, self.plane = group, plane
+        self.size = dist.get_world_size(group)
+        self.coord = dist.get_rank(group)
+        self.plane_size = dist.get_world_size(plane)
+        self.extent = extent
+        self.sharded = self.size > 1
+
+    def halo(self, x: torch.Tensor, h: int, fill: float) -> torch.Tensor:
+        """``x`` with ``h`` neighbour rows either side of dim 2
+        (:class:`HaloExchange`)."""
+        return HaloExchange.apply(x, h, fill, self.group)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` with dim 2 gathered (:class:`GatherDim`); what follows
+        runs replicated."""
+        self.sharded = False
+        return GatherDim.apply(x, 2, self.group)
+
+    def batch_stats(self, s1, s2, n):
+        """Batchnorm's one-pass sums and count over the (data, sp) plane."""
+        c = s1.shape[0]
+        both = AllReduceSum.apply(torch.cat([s1, s2]), self.plane)
+        return both[:c], both[c:], n * self.plane_size
+
+    def axis_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` summed over the spatial axis, under autograd."""
+        return AllReduceSum.apply(t, self.group)
+
+
 def _float_buffers(model):
     return [b for b in model.buffers() if b.is_floating_point()]
 
@@ -226,26 +410,53 @@ class MeshReduce:
     (and, unless ``global_bn``, the float buffers) summed over the axis in
     one collective and divided by its size; with ``global_bn`` the
     forward's batchnorm statistics summed over it too. Resolved at each
-    call, so an axis name finds the mesh active then."""
+    call, so an axis name finds the mesh active then.
+
+    ``spatial_axis`` (with ``global_bn``, the spatial mesh step): each
+    forward runs in a :class:`SpatialContext` over that axis of ``mesh``,
+    back-propagates ``loss / S`` and gathers a still-sharded output; the
+    gradients and the loss are summed over the (``axis``, ``spatial_axis``)
+    plane and divided by the ``axis`` size (the module docstring's
+    convention)."""
 
     def __init__(self, axis: Any = DATA_AXIS, mesh: Optional[Mesh] = None,
-                 global_bn: bool = False):
+                 global_bn: bool = False,
+                 spatial_axis: Optional[str] = None):
         self.axis, self.mesh, self.global_bn = axis, mesh, global_bn
+        self.spatial_axis = spatial_axis
+        if spatial_axis is not None:
+            # built now: every rank makes the step, and new_group is
+            # collective
+            self._plane = mesh.get_group((axis, spatial_axis))
+            self._sp = mesh.get_group(spatial_axis)
+            self._sp_size = mesh.shape[spatial_axis]
+            self._data_size = mesh.shape[axis]
 
     def group(self):
+        if self.spatial_axis is not None:
+            return self._plane
         return _resolve_group(self.axis, self.mesh)
 
     def capturable(self) -> bool:
         """Whether a CUDA graph can hold the collectives (NCCL's)."""
         return _backend(self.group()) == "nccl"
 
-    def forward(self):
-        """The context the step's forward and backward run in."""
+    @property
+    def loss_scale(self) -> float:
+        """What each rank's loss is scaled by before its backward: its
+        share ``1/S`` of the loss the sp ranks of its data row hold."""
+        return 1.0 / self._sp_size if self.spatial_axis is not None else 1.0
+
+    def forward(self, x: Optional[torch.Tensor] = None):
+        """The context one forward and its backward run in (``x``, the
+        forward's input, gives the spatial context its extent)."""
         if not self.global_bn:
             return contextlib.nullcontext()
         import torch.distributed as dist
 
-        group = self.group()
+        group = (_resolve_group(self.axis, self.mesh)
+                 if self.spatial_axis is None
+                 else self.mesh.get_group(self.axis))
         size = dist.get_world_size(group)
 
         def stats(s1, s2, n):
@@ -253,7 +464,19 @@ class MeshReduce:
             both = AllReduceSum.apply(torch.cat([s1, s2]), group)
             return both[:c], both[c:], n * size
 
-        return _norm.reduce_batch_stats(stats)
+        if self.spatial_axis is None:
+            return _norm.reduce_batch_stats(stats)
+        stack = contextlib.ExitStack()
+        stack.enter_context(_norm.reduce_batch_stats(stats))
+        extent = None if x is None else int(x.shape[2]) * self._sp_size
+        stack.enter_context(_spatial.activate(
+            SpatialContext(self._sp, self._plane, extent)))
+        return stack
+
+    def output(self, out: torch.Tensor) -> torch.Tensor:
+        """The forward's output, gathered over the spatial axis while it
+        is still sharded (a model that ends on a sharded map)."""
+        return _spatial.gather(out)
 
     def reduce(self, model, loss: torch.Tensor,
                grads: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -266,15 +489,20 @@ class MeshReduce:
     def mean(self, tensors, loss: torch.Tensor) -> torch.Tensor:
         """Average ``tensors`` (in place) and ``loss`` over the axis in one
         all-reduce of their flat concatenation (in the first tensor's
-        dtype); returns the mean loss."""
+        dtype); returns the mean loss. Under ``spatial_axis``: summed over
+        the plane, divided by the data size, the loss taken at its share
+        ``1/S``."""
         import torch.distributed as dist
 
         group = self.group()
         dt = tensors[0].dtype if tensors else loss.dtype
-        flat = torch.cat([t.reshape(-1).to(dt) for t in tensors]
-                         + [loss.detach().reshape(1).to(dt)])
+        share = loss.detach().reshape(1).to(dt)
+        if self.spatial_axis is not None and self._sp_size > 1:
+            share = share / self._sp_size
+        flat = torch.cat([t.reshape(-1).to(dt) for t in tensors] + [share])
         all_reduce_(flat, group)
-        flat.div_(dist.get_world_size(group))
+        flat.div_(self._data_size if self.spatial_axis is not None
+                  else dist.get_world_size(group))
         off = 0
         with torch.no_grad():
             for t in tensors:
@@ -314,10 +542,19 @@ def shard_batch(batch, mesh: Mesh, axis: str = DATA_AXIS,
                 spatial_axis: Optional[str] = None, spatial_dim: int = 2):
     """This rank's slice of the global batch (array(s) whose leading axis
     is the batch), contiguous along ``axis``: rank at coordinate ``i`` of
-    ``n`` takes rows ``[i·B/n, (i+1)·B/n)``. ``B`` must divide evenly."""
-    _no_spatial(spatial_axis)
+    ``n`` takes rows ``[i·B/n, (i+1)·B/n)``. With ``spatial_axis``, an
+    array of more than ``spatial_dim`` dims is also cut along
+    ``spatial_dim``: coordinate ``j`` of ``m`` on that axis takes slice
+    ``[j·E/m, (j+1)·E/m)`` (the labels stay whole along it, as JAX's spec
+    shards only arrays that have the dim). Either size that does not
+    divide raises ``ValueError``. The spatial step
+    (:func:`make_data_parallel_train_step`) takes dim-2 slices, the
+    default."""
     n = mesh.shape[axis]
     i = mesh.coordinate(axis)
+    if spatial_axis is not None:
+        m = mesh.shape[spatial_axis]
+        j = mesh.coordinate(spatial_axis)
 
     def take(x):
         if isinstance(x, (tuple, list)):
@@ -329,7 +566,18 @@ def shard_batch(batch, mesh: Mesh, axis: str = DATA_AXIS,
             raise ValueError(f"batch of {b} rows not divisible by the "
                              f"{n}-way {axis!r} axis")
         per = b // n
-        return x[i * per:(i + 1) * per]
+        x = x[i * per:(i + 1) * per]
+        if spatial_axis is not None and x.ndim > spatial_dim:
+            e = x.shape[spatial_dim]
+            if e % m:
+                raise ValueError(
+                    f"dim {spatial_dim} of {e} not divisible by the "
+                    f"{m}-way {spatial_axis!r} axis")
+            x = x.narrow(spatial_dim, j * (e // m), e // m) \
+                if isinstance(x, torch.Tensor) else \
+                x[(slice(None),) * spatial_dim
+                  + (slice(j * (e // m), (j + 1) * (e // m)),)]
+        return x
 
     return take(batch)
 
@@ -352,14 +600,30 @@ def make_data_parallel_train_step(model, loss_fn: Callable, optimizer,
     microbatches for a model without batchnorm). Dropout draws from
     ``generator`` on each rank: pass each rank its own.
 
+    ``spatial_axis``: dim 2 of the 4-D input is sharded over that mesh
+    axis too (``xs, ys = shard_batch((x, y), mesh,
+    spatial_axis=spatial_axis)``); the convs and pools exchange halos, the
+    statistics are the global batch's over N and every row, and the step
+    still equals the single-process step on the whole batch (the module
+    docstring). The logits are the data shard's, gathered whole along
+    dim 2 on every rank of the axis. A model whose input is not 4-D
+    raises ``ValueError``, as in JAX. Give the ranks of one data row the
+    same ``generator`` state: a dropout on a sharded map then draws the
+    single process's mask and keeps its rows.
+
     On CUDA with an NCCL group the step is one CUDA graph
     (``make_train_step(jit=True)``'s capture, collectives included); over
     gloo it runs eagerly, its collectives staged through the host."""
-    _no_spatial(spatial_axis)
     from ..train.trainer import TrainStep
 
+    if spatial_axis is not None:
+        x_rank = (len(model.input_shape) + 1
+                  if model.input_shape is not None else 4)
+        if x_rank != 4:
+            raise ValueError("spatial_axis requires 4-D image input")
     return TrainStep(model, loss_fn, optimizer, num_microbatches, jit=jit,
-                     reduce=MeshReduce(DATA_AXIS, mesh, global_bn=True))
+                     reduce=MeshReduce(DATA_AXIS, mesh, global_bn=True,
+                                       spatial_axis=spatial_axis))
 
 
 # -- the elastic step's two halves ------------------------------------------

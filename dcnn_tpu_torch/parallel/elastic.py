@@ -60,9 +60,10 @@ and meta keys are the JAX package's. Where the port departs from it: the
 train state lives in the model's tensors, so a restore copies into them
 (the grad step's CUDA graphs keep their addresses); one graph session a
 local microbatch count replaces the per-count re-jit; the AOT cache holds
-kernel libraries only (the port has no serializable step); and the
-goodput anomaly detector, not ported, is not suppressed during a
-reconfiguration. ``clock`` and ``sleep`` are injectable, so a test drives
+kernel libraries only (the port has no serializable step). As in the JAX
+package, a reconfiguration runs under ``obs.anomaly.suppress()``: its
+expected stall feeds neither the goodput anomaly detector's step-time
+band nor a capture. ``clock`` and ``sleep`` are injectable, so a test drives
 the straggler detector on a fake clock.
 """
 
@@ -946,7 +947,10 @@ class ElasticController:
         raises :class:`PeerLostError`."""
         while True:
             gone = self.membership.dead() & expect
-            if gone:
+            # a peer that closed after its last frame (a leader that
+            # finished right after its GSUM broadcast) is judged dead only
+            # once its queued frames are read
+            if gone and self.membership.inbox.empty():
                 raise PeerLostError(f"waiting for {sorted(want)}",
                                     "peer connection lost", sorted(gone))
             if self._clock() > deadline:
@@ -1054,14 +1058,18 @@ class ElasticController:
         tracer = get_tracer()
         rspan = tracer.begin("elastic.reconfigure", track="elastic",
                              rank=self.rank, gen_from=self.gen)
+        # an expected stall: fenced from the goodput anomaly detector, so a
+        # planned recovery never burns a capture (obs/anomaly.py)
+        from ..obs.anomaly import suppress as _anomaly_suppress
         try:
-            while True:
-                try:
-                    with tracer.activate(rspan):
-                        out = self._reconfigure_once(sig, ts)
-                    break
-                except (PeerLostError, _ReconfigureSignal) as again:
-                    sig = again
+            with _anomaly_suppress():
+                while True:
+                    try:
+                        with tracer.activate(rspan):
+                            out = self._reconfigure_once(sig, ts)
+                        break
+                    except (PeerLostError, _ReconfigureSignal) as again:
+                        sig = again
             epoch, step, new_gs = out
             if self._gen_ctx is None or self.rank == self.survivors[0]:
                 self._gen_ctx = rspan.context()

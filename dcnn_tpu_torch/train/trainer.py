@@ -46,10 +46,24 @@ non-finite checks. ``slow_detect`` is read by elastic training only, as in
 the JAX package, so a plain fit accepts it and does nothing. With
 ``elastic`` the fit delegates to ``parallel/elastic.py``.
 
+``metrics_port >= 0`` serves the live telemetry plane for the fit, as
+the JAX trainer does: a :class:`~dcnn_tpu_torch.obs.server.TelemetryServer`
+(``/metrics``, ``/healthz`` with the watchdog's, the checkpoints' and the
+alert rules' checks, ``/snapshot``, ``/goodput``), a
+:class:`~dcnn_tpu_torch.obs.tsdb.TsdbSampler` every
+``DCNN_TSDB_INTERVAL`` seconds (1.0), and after each of its passes the
+:class:`~dcnn_tpu_torch.obs.goodput.GoodputMonitor` over the trailing
+``DCNN_GOODPUT_WINDOW`` seconds (30.0; its anomaly monitor captures
+``torch.profiler`` traces under ``DCNN_ANOMALY_XPROF``) and the goodput
+and gray-failure alert rules. The per-batch and chunked loops hand the
+monitor each step's wall, taken around the span that already ends on the
+loss read, so the plane adds no wait for the card; ``mfu_live`` counts
+3 × the model's forward FLOPs a sample against an H100's peak for the
+step's dtype (none on another card). The attribution reads the tracer's
+spans: with tracing off its windows are empty.
+
 Runs on ``config.device_type`` (CUDA unless ``"cpu"``); asking for CUDA
-without a GPU raises. What the config asks for that this package has not
-ported yet raises ``NotImplementedError`` naming the field; nothing is
-skipped silently.
+without a GPU raises.
 """
 
 from __future__ import annotations
@@ -90,23 +104,6 @@ from ..resilience.checkpoint import CheckpointManager
 from ..resilience.guards import StallWatchdog, StepGuard, global_norm_sq
 from .checkpoint import save_checkpoint
 from .profiling import LayerProfiler
-
-# (field, asks for it, the ROADMAP.md Queue 1 item that ports it) of every
-# TrainingConfig feature not ported yet
-_UNPORTED = (
-    # the elastic fit serves its own telemetry (parallel/elastic.py)
-    ("metrics_port", lambda c: c.metrics_port >= 0 and not c.elastic, 7),
-)
-
-
-def _refuse_unported(config: TrainingConfig) -> None:
-    for field, asked, item in _UNPORTED:
-        if asked(config):
-            raise NotImplementedError(
-                f"TrainingConfig.{field}={getattr(config, field)!r}: this "
-                f"feature is not ported to dcnn_tpu_torch yet (ROADMAP.md "
-                f"Queue 1 item {item})")
-
 
 def _model_device(model: Sequential) -> torch.device:
     return next(model.parameters()).device
@@ -203,27 +200,35 @@ class TrainStep:
                 f"{n_mb}: training this batch unmicrobatched "
                 f"(different BN statistics semantics)", stacklevel=4)
 
+        reduce = self.reduce
+        scale = reduce.loss_scale if reduce is not None else 1.0
+
         def forward_loss(xi, yi):
-            logits = upcast_logits(model(xi, generator=generator))
-            loss = self.loss_fn(logits, yi)
-            loss.backward()
+            # a mesh step's context (its batchnorm sums, a spatial step's
+            # sharding) is one forward's and its backward's
+            with (reduce.forward(xi) if reduce is not None
+                  else contextlib.nullcontext()):
+                out = model(xi, generator=generator)
+                if reduce is not None:
+                    out = reduce.output(out)
+                logits = upcast_logits(out)
+                loss = self.loss_fn(logits, yi)
+                (loss if scale == 1.0 else loss * scale).backward()
             return loss.detach(), logits.detach()
 
-        with (self.reduce.forward() if self.reduce is not None
-              else contextlib.nullcontext()):
-            if n_mb == 1 or x.shape[0] % n_mb != 0:
-                loss, logits = forward_loss(x, y)
-            else:
-                losses, outs = [], []
-                for xi, yi in zip(x.chunk(n_mb), y.chunk(n_mb)):
-                    li, oi = forward_loss(xi, yi)  # .grad sums
-                    losses.append(li)
-                    outs.append(oi)
-                for p in params.values():
-                    if p.grad is not None:
-                        p.grad.div_(n_mb)
-                loss = sum(losses) / n_mb
-                logits = torch.cat(outs).reshape(x.shape[0], -1)
+        if n_mb == 1 or x.shape[0] % n_mb != 0:
+            loss, logits = forward_loss(x, y)
+        else:
+            losses, outs = [], []
+            for xi, yi in zip(x.chunk(n_mb), y.chunk(n_mb)):
+                li, oi = forward_loss(xi, yi)  # .grad sums
+                losses.append(li)
+                outs.append(oi)
+            for p in params.values():
+                if p.grad is not None:
+                    p.grad.div_(n_mb)
+            loss = sum(losses) / n_mb
+            logits = torch.cat(outs).reshape(x.shape[0], -1)
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
         if self.reduce is not None:
@@ -573,7 +578,6 @@ class Trainer:
                  loss: Callable | str, config: Optional[TrainingConfig] = None,
                  scheduler: Optional[Scheduler] = None):
         self.config = config or TrainingConfig()
-        _refuse_unported(self.config)
         self.device = resolve_device(self.config.device_type)
         self.model = model
         self.optimizer = optimizer
@@ -613,6 +617,9 @@ class Trainer:
                                               keep=cfg.checkpoint_keep)
                             if cfg.checkpoint_dir else None)
         self.watchdog = None  # per fit(), when stall_timeout_s > 0
+        # per fit(), when metrics_port >= 0: the HTTP server, the tsdb
+        # sampler and the goodput monitor
+        self.telemetry = self._tsdb = self._goodput = None
         # one memory pool for the step's and the chunk's graphs, and one for
         # the eval's: the gradients a step leaves on .grad live in its pool,
         # where a graph captured before it may hold scratch, and an eval
@@ -711,7 +718,9 @@ class Trainer:
                     xb = torch.full_like(xb, float("nan"))
             gen = batch_generator(seed, epoch, bi, self.device)
             # the loss and accuracy reads inside the span wait for the
-            # step, so step spans tile the epoch's wall
+            # step, so step spans tile the epoch's wall, and the goodput
+            # monitor's step wall needs no wait of its own
+            t_step = time.perf_counter()
             with tracer.span("train.step", track="train", epoch=epoch,
                              batch=bi):
                 if self.guard is not None:
@@ -728,6 +737,7 @@ class Trainer:
                     loss, logits = self.train_step(ts, xb, yb, self.lr, gen)
                 total_loss += float(loss) * x.shape[0]
                 total_correct += int(correct_count(logits, yb))
+            self._observe_step(time.perf_counter() - t_step)
             total_n += x.shape[0]
             if (self.scheduler is not None
                     and self.config.scheduler_step == "batch"):
@@ -819,6 +829,7 @@ class Trainer:
                     f" wrap the loader in PrefetchLoader(stage_batches=K)")
             metric = (total_loss / total_n) if total_n > 0 else None
             lr_arg = self._batch_lrs(xs.shape[0], metric)
+            t_chunk = time.perf_counter()
             with get_tracer().span("train.chunk", track="train",
                                    epoch=epoch, chunk=ci,
                                    steps=int(xs.shape[0])):
@@ -827,6 +838,9 @@ class Trainer:
                                                 lr_arg)
                 n = xs.shape[0] * xs.shape[1]
                 total_loss += float(mean_loss) * n
+            # a chunk is K steps: the anomaly band sees a step's share
+            self._observe_step((time.perf_counter() - t_chunk)
+                               / max(xs.shape[0], 1))
             total_n += n
             self._global_step += xs.shape[0]
             if self.config.progress_interval and (ci + 1) % max(
@@ -878,9 +892,13 @@ class Trainer:
         if cfg.stall_timeout_s > 0:
             self.watchdog = StallWatchdog(cfg.stall_timeout_s).start()
         try:
+            if cfg.metrics_port >= 0:
+                # inside the try: a failed bind still stops the watchdog
+                self._start_telemetry()
             return self._fit_loop(ts, train_loader, val_loader, epochs,
                                   start_epoch, seed, best_val)
         finally:
+            self._stop_telemetry()
             if self.watchdog is not None:
                 self.watchdog.stop()
                 self.watchdog = None
@@ -888,6 +906,95 @@ class Trainer:
                 # an abandoned queue would lose the newest checkpoint; a
                 # saver-thread failure surfaces here
                 self.checkpoints.wait()
+
+    def _mfu_costs(self) -> dict:
+        """``mfu_live``'s inputs: 3 × the model's forward FLOPs a sample
+        (forward and backward) and the card's peak for the step's dtype
+        (:func:`~dcnn_tpu_torch.obs.xla.peak_tflops`: an H100's, else
+        None, and then the gauge stays absent)."""
+        if self.device.type != "cuda":
+            return {}
+        from ..obs.xla import peak_tflops
+
+        mode = get_precision_mode()
+        dtype = ("bfloat16" if mode == "bf16"
+                 else str(next(self.model.parameters()).dtype)
+                 .replace("torch.", ""))
+        peak = peak_tflops(dtype, torch.cuda.get_device_name(self.device),
+                           tf32=mode in ("fast", "default"))
+        if peak is None:
+            return {}
+        return {"flops_per_sample": 3.0 * self.model.forward_complexity(),
+                "peak_tflops": peak}
+
+    def _start_telemetry(self) -> None:
+        """The live telemetry plane of one fit (the module docstring)."""
+        from ..obs import (TelemetryServer, checkpoint_check,
+                           get_flight_recorder, watchdog_check)
+        from ..obs.anomaly import AnomalyMonitor
+        from ..obs.goodput import GoodputMonitor
+        from ..obs.rules import (RuleEngine, goodput_alert_rules,
+                                 gray_failure_alert_rules, rules_check)
+        from ..obs.tsdb import TimeSeriesStore, TsdbSampler
+
+        cfg = self.config
+        reg, tracer = get_registry(), get_tracer()
+        srv = TelemetryServer(registry=reg, tracer=tracer,
+                              port=cfg.metrics_port)
+        srv.set_identity(component="trainer")
+        srv.attach_flight(get_flight_recorder())
+        if self.watchdog is not None:
+            srv.add_check("watchdog", watchdog_check(self.watchdog))
+        if self.checkpoints is not None:
+            srv.add_check("checkpoint", checkpoint_check(self.checkpoints))
+        self.telemetry = srv.start()
+        store = TimeSeriesStore()
+        self._tsdb = TsdbSampler(
+            store, registry=reg,
+            interval_s=float(os.environ.get("DCNN_TSDB_INTERVAL",
+                                            "1.0"))).start()
+        srv.add_snapshot("tsdb", store.summary)
+        get_flight_recorder().attach_tsdb(store)
+        self._goodput = GoodputMonitor(
+            tracer=tracer, registry=reg, store=store,
+            window_s=float(os.environ.get("DCNN_GOODPUT_WINDOW", "30.0")),
+            samples_per_step=cfg.batch_size,
+            anomaly=AnomalyMonitor(
+                registry=reg,
+                profile_dir=os.environ.get("DCNN_ANOMALY_XPROF")),
+            **self._mfu_costs()).attach(srv)
+        self._tsdb.add_after_sample(self._goodput.poll)
+        engine = RuleEngine(store, registry=reg)
+        for rule in goodput_alert_rules() + gray_failure_alert_rules():
+            engine.add_alert(rule)
+        self._tsdb.add_after_sample(lambda _s: engine.evaluate())
+        srv.add_check("alerts", rules_check(engine))
+        print(f"telemetry: {srv.url}/metrics /healthz /snapshot /goodput",
+              flush=True)
+
+    def _stop_telemetry(self) -> None:
+        """Tear the plane down (each part that started): the anomaly
+        monitor's open capture closed, the flight recorder's store
+        detached if it is still this fit's, the sampler and the server
+        stopped."""
+        if self._goodput is not None:
+            self._goodput.close()
+            self._goodput = None
+        if self._tsdb is not None:
+            from ..obs import get_flight_recorder
+
+            rec = get_flight_recorder()
+            if getattr(rec, "_tsdb", None) is self._tsdb.store:
+                rec.attach_tsdb(None)
+            self._tsdb.stop()
+            self._tsdb = None
+        if self.telemetry is not None:
+            self.telemetry.stop()
+            self.telemetry = None
+
+    def _observe_step(self, dt_s: float) -> None:
+        if self._goodput is not None:
+            self._goodput.observe_step(dt_s)
 
     @staticmethod
     def _epoch_samples(loader) -> Optional[int]:

@@ -2924,6 +2924,102 @@ def test_nccl_world_of_one_step_replays_bit_for_bit(kind, _nccl_world_of_one,
             assert torch.equal(out[0][2]["v"][n], other[2]["v"][n])
 
 
+def test_nccl_world_of_one_spatial_step_is_the_mesh_step(
+        _nccl_world_of_one, _deterministic_cudnn):
+    """``make_data_parallel_train_step(spatial_axis="sp")`` over a (data 1,
+    sp 1) mesh on NCCL, replayed as one graph and eager, against the mesh
+    step without ``spatial_axis``: losses, logits, params, BN statistics
+    and the optimizer's moments equal bit for bit over six steps."""
+    from dcnn_tpu_torch.core.mesh import make_mesh
+    from dcnn_tpu_torch.parallel import (make_data_parallel_train_step,
+                                         shard_batch)
+
+    mesh = make_mesh((1, 1), ("data", "sp"))
+    models, opt, xs, ys = _train_pair("cnn_bn")
+    models.append(copy.deepcopy(models[0]))
+    loss = get_loss("softmax_crossentropy")
+    out = []
+    for i, model in enumerate(models):
+        ts = create_train_state(model, opt)
+        spatial = "sp" if i < 2 else None
+        step = make_data_parallel_train_step(model, loss, opt, mesh,
+                                             spatial_axis=spatial,
+                                             jit=i == 0)
+        res = []
+        for j, (x, y) in enumerate(zip(xs, ys)):
+            x, y = shard_batch((x, y), mesh, spatial_axis=spatial)
+            lv, logits = step(ts, x, y, 1e-3,
+                              torch.Generator(device="cuda").manual_seed(j))
+            res.append((lv.cpu(), logits.cpu()))
+        if i == 0:
+            assert step._sessions.latest()[0].graph is not None
+        out.append((res, [t.detach().cpu() for t in
+                          (*model.parameters(), *model.buffers())],
+                    ts.opt_state))
+    for other in out[1:]:
+        for (la, oa), (lb, ob) in zip(out[0][0], other[0]):
+            assert torch.equal(la, lb) and torch.equal(oa, ob)
+        for a, b in zip(out[0][1], other[1]):
+            assert torch.equal(a, b)
+        for n in out[0][2]["m"]:
+            assert torch.equal(out[0][2]["m"][n], other[2]["m"][n])
+            assert torch.equal(out[0][2]["v"][n], other[2]["v"][n])
+
+
+def test_metrics_port_fit_on_card_serves_goodput():
+    """``Trainer.fit`` on the card with ``metrics_port=0`` and the tracer
+    on: ``/goodput`` scraped mid-fit (gated on the loader, no sleeps)
+    answers a window whose buckets and unattributed residue sum to its
+    wall, and ``mfu_live`` is set on an H100 (the card's peak known)."""
+    import json
+    import threading
+    import urllib.request
+
+    from dcnn_tpu_torch.obs import configure
+
+    model = _narrow_cnn().to("cuda")
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(64, 3, 16, 16)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 64)]
+    docs = []
+
+    class Scraped(ArrayDataLoader):
+        def __iter__(self):
+            for i, b in enumerate(super().__iter__()):
+                if i == 6:
+                    srv = trainer.telemetry
+                    trainer._tsdb.sample_once()  # a window now, no waiting
+                    with urllib.request.urlopen(srv.url + "/goodput",
+                                                timeout=10) as r:
+                        docs.append(json.loads(r.read()))
+                yield b
+
+    old = os.environ.get("DCNN_GOODPUT_WINDOW")
+    os.environ["DCNN_GOODPUT_WINDOW"] = "60"
+    tracer = configure(enabled=True)
+    try:
+        trainer = Trainer(model, SGD(0.05), "softmax_crossentropy",
+                          TrainingConfig(epochs=1, batch_size=8,
+                                         metrics_port=0, snapshot_dir=None,
+                                         progress_interval=0))
+        trainer.fit(create_train_state(model, trainer.optimizer),
+                    Scraped(x, y, batch_size=8, seed=3))
+    finally:
+        configure(enabled=False)
+        tracer.clear()
+        if old is None:
+            os.environ.pop("DCNN_GOODPUT_WINDOW")
+        else:
+            os.environ["DCNN_GOODPUT_WINDOW"] = old
+    assert docs and trainer.telemetry is None
+    led = docs[0]["ledger"]
+    assert led["wall_s"] > 0 and led["steps"] >= 5
+    total = sum(led["buckets"].values()) + led["unattributed_s"]
+    assert abs(total - led["wall_s"]) <= 1e-9 * led["wall_s"]
+    if "H100" in torch.cuda.get_device_name(0):
+        assert led["mfu_live"] is not None and led["mfu_live"] > 0
+
+
 def test_elastic_solo_fit_on_card_matches_the_cpu():
     """``Trainer.fit`` with ``elastic=True`` alone (world 1, K=2, SGD: no
     Adam noise floor) on the card and on the CPU from the same weights

@@ -351,22 +351,6 @@ def test_reduce_axis_matches_jax_shard_map(world2):
         jax.tree_util.tree_leaves(dp_s)))
 
 
-def test_spatial_axis_raises_naming_the_roadmap_item():
-    from dcnn_tpu_torch.nn import SequentialBuilder as PortBuilder
-    from dcnn_tpu_torch.ops.losses import get_loss
-    from dcnn_tpu_torch.optim import SGD
-    from dcnn_tpu_torch.parallel import (make_data_parallel_train_step,
-                                         shard_batch)
-
-    m = PortBuilder("m").input((1, 8, 8)).conv2d(2, 3, 1, 1).build()
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        make_data_parallel_train_step(m, get_loss("softmax_crossentropy"),
-                                      SGD(0.1), mesh=None,
-                                      spatial_axis="sp")
-    with pytest.raises(NotImplementedError, match="item 6b"):
-        shard_batch(np.zeros((2, 1, 8, 8)), None, spatial_axis="sp")
-
-
 def test_reduce_axis_needs_an_active_mesh():
     """An axis name resolves against the mesh active at the call; outside
     ``with mesh:`` the step refuses rather than reduce over nothing."""

@@ -88,7 +88,11 @@ def _batch(rng, n=8, hw=8):
 
 
 def _env():
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    # not DCNN_PRECISION: a test that imported bench.py (another file on
+    # the same xdist worker) set it to bf16 in this process, and the
+    # workers compute at the port's default (parity), as the reference
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "DCNN_PRECISION")}
     env["PYTHONPATH"] = ROOT
     return env
 
@@ -547,6 +551,8 @@ def test_package_exports_match_jax():
     for n in parallel.__all__:
         assert getattr(parallel, n) is not None
     assert set(utils.__all__) == set(jax_utils.__all__)
-    unported = parallel.__doc__.split("Not ported yet")[1]
+    doc = parallel.__doc__
+    unported = doc.split("Not ported yet")[1] if "Not ported yet" in doc \
+        else ""
     assert "TCP" not in unported and "comm" not in unported
     assert "Ported so far" not in utils.__doc__

@@ -912,8 +912,8 @@ def test_batchnorm_fleet_matches_jax_fleet(k):
 
 def test_elastic_fit_serves_its_telemetry(monkeypatch):
     """With ``metrics_port`` the elastic fit serves ``/healthz`` over its
-    controller (JAX ``elastic_fit``'s wiring); the non-elastic fit still
-    refuses the field (ROADMAP.md Queue 1 item 7)."""
+    controller (JAX ``elastic_fit``'s wiring), and the non-elastic fit
+    serves the trainer's own plane, ``/goodput`` among its routes."""
     import dataclasses
 
     import dcnn_tpu_torch.obs as obs
@@ -935,5 +935,70 @@ def test_elastic_fit_serves_its_telemetry(monkeypatch):
     assert len(served) == 1
     code, body = served[0].health()
     assert code == 200, body
-    with pytest.raises(NotImplementedError, match="metrics_port"):
-        _trainer(dataclasses.replace(cfg, elastic=False))
+    trainer, ts = _trainer(dataclasses.replace(cfg, elastic=False))
+    trainer.fit(ts, _loader())
+    assert len(served) == 2
+    code, body = served[1].health()
+    assert code == 200, body
+    code, doc = served[1].route_body("/goodput")
+    assert code == 200 and "bottleneck" in doc, doc
+
+
+def test_reconfiguration_suppresses_the_anomaly_monitor(monkeypatch,
+                                                        tmp_path):
+    """A host killed mid-epoch: the survivor's reconfiguration runs under
+    ``obs.anomaly.suppress()`` (as JAX ``elastic.py`` fences it), so a
+    step-time sample observed during it opens no anomaly episode and feeds
+    no band; the fence is lifted after."""
+    from dcnn_tpu_torch.obs import MetricsRegistry, anomaly
+
+    seen = []
+    orig = ElasticController._reconfigure_once
+
+    def spy(self, sig, ts):
+        mon = anomaly.AnomalyMonitor(
+            registry=MetricsRegistry(), flight=_NoFlight(),
+            detector=anomaly.EwmaBand(warmup=0), profiler=lambda d: None)
+        seen.append((anomaly.is_suppressed(), mon.observe_step(1e6),
+                     mon.detector.mean))
+        return orig(self, sig, ts)
+
+    monkeypatch.setattr(ElasticController, "_reconfigure_once", spy)
+    ctls, results, _ = run_fleet("port", 2, faults={1: [KILL]},
+                                 ckpt_dir=str(tmp_path))
+    assert results[1] == "crashed"
+    _ok(results, 0)
+    assert ctls[0].stats["reconfigures"] == 1
+    assert seen and all(s == (True, False, None) for s in seen), seen
+    assert not anomaly.is_suppressed()
+
+
+class _NoFlight:
+    def record(self, trigger, **kw):
+        raise AssertionError(f"a capture fired under suppress: {trigger}")
+
+
+def test_recv_reads_a_closed_peers_queued_frame_first():
+    """A leader that broadcasts its last GSUM and finishes closes its
+    connection; the follower must still read the queued frame before it
+    judges the leader dead (else it drops the step and reconfigures
+    alone). ``_recv`` returns a dead peer's queued frame, and raises
+    ``PeerLostError`` only once the inbox is drained."""
+    from types import SimpleNamespace
+
+    from dcnn_tpu_torch.obs import MetricsRegistry
+
+    inbox = comm.Inbox()
+    inbox.post("GSUM", {"gen": 0, "step": 11, "rank": 0}, "payload")
+    membership = SimpleNamespace(inbox=inbox, dead=lambda: {0},
+                                 heard=lambda r: None,
+                                 check_peers=lambda: None)
+    clock = FakeClock()
+    ctl = SimpleNamespace(membership=membership, _clock=clock, poll_s=0.0,
+                          cfg=SimpleNamespace(elastic_timeout_s=5.0),
+                          slowness=None, gen=0, _reg=MetricsRegistry())
+    got = ElasticController._recv(ctl, {"GSUM"}, clock() + 5.0, {0},
+                                  match=lambda m: m.get("step") == 11)
+    assert got[0] == "GSUM" and got[2] == "payload"
+    with pytest.raises(PeerLostError, match="peer connection lost"):
+        ElasticController._recv(ctl, {"GSUM"}, clock() + 5.0, {0})

@@ -28,7 +28,10 @@ local and a TCP replica hot-swapping a checkpointed model on the CPU, and
 on data parallelism: ``core/mesh.py``, ``parallel/multihost.py``,
 ``parallel/data_parallel.py`` and ``parallel/elastic.py`` each read and
 imported alone, a mesh step over a world of one, an elastic fleet of two
-thread peers and an elastic ``Trainer.fit`` on the CPU."""
+thread peers and an elastic ``Trainer.fit`` on the CPU, and on spatial
+sharding and the trainer's telemetry plane: ``ops/spatial.py`` and
+``obs/goodput.py``, ``obs/anomaly.py`` and ``obs/rules.py`` each read and
+imported alone, a spatial mesh step and a fit serving ``/goodput``."""
 
 import ast
 import os
@@ -762,3 +765,79 @@ def test_sequence_dp_feed_and_pipeline_data_axis_leave_jax_out():
     pipeline step with ``data_axis=`` on the CPU, load no JAX, flax,
     msgpack, ml_dtypes or JAX-package module."""
     _run_isolated(SEQUENCE_AND_DP_FEED)
+
+
+# spatial sharding and the trainer's telemetry plane
+SPATIAL_TELEMETRY_MODULES = ("dcnn_tpu_torch.ops.spatial",
+                             "dcnn_tpu_torch.obs.anomaly",
+                             "dcnn_tpu_torch.obs.goodput",
+                             "dcnn_tpu_torch.obs.rules")
+
+
+@pytest.mark.parametrize("module", SPATIAL_TELEMETRY_MODULES)
+def test_spatial_and_telemetry_module_imports_no_jax(module):
+    """The source of each module imports no JAX, flax, msgpack, ml_dtypes
+    or JAX-package module."""
+    path = REPO / (module.replace(".", "/") + ".py")
+    bad = [f"{line} imports {mod}" for line, mod in _imports(path)
+           if mod.split(".")[0] in TCP_FORBIDDEN]
+    assert not bad, bad
+
+
+SPATIAL_AND_TELEMETRY = (
+    "import importlib, json, urllib.request\n"
+    f"for name in {SPATIAL_TELEMETRY_MODULES!r}:\n"
+    "    importlib.import_module(name)\n"
+    "    bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+    f"{TCP_FORBIDDEN!r})\n"
+    "    assert not bad, (name, bad)\n"
+    "import numpy as np\n"
+    "from dcnn_tpu_torch.core import TrainingConfig\n"
+    "from dcnn_tpu_torch.core.mesh import make_mesh\n"
+    "from dcnn_tpu_torch.data import ArrayDataLoader\n"
+    "from dcnn_tpu_torch.nn import SequentialBuilder\n"
+    "from dcnn_tpu_torch.ops.losses import get_loss\n"
+    "from dcnn_tpu_torch.optim import SGD\n"
+    "from dcnn_tpu_torch.parallel import (multihost,\n"
+    "    make_data_parallel_train_step, replicate, shard_batch)\n"
+    "from dcnn_tpu_torch.train import Trainer, create_train_state\n"
+    "def model():\n"
+    "    return (SequentialBuilder('s').input((1, 8, 8)).conv2d(2, 3, 1, 1)"
+    ".batchnorm().maxpool2d(2).flatten().dense(2).build()).init("
+    "generator=torch.Generator().manual_seed(0), device='cpu')\n"
+    "multihost.initialize(num_processes=1, backend='gloo')\n"
+    "mesh = make_mesh((1, 1), ('data', 'sp'))\n"
+    "m, opt = model(), SGD(0.1)\n"
+    "ts = replicate(create_train_state(m, opt), mesh)\n"
+    "x, y = torch.ones(4, 1, 8, 8), torch.eye(2)[[0, 1, 0, 1]]\n"
+    "step = make_data_parallel_train_step(m, get_loss('mse'), opt, mesh,"
+    " spatial_axis='sp')\n"
+    "xs, ys = shard_batch((x, y), mesh, spatial_axis='sp')\n"
+    "assert torch.isfinite(step(ts, xs, ys, 0.1)[0])\n"
+    "multihost.shutdown()\n"
+    "rows = np.random.default_rng(0).normal(size=(8, 1, 8, 8))"
+    ".astype(np.float32)\n"
+    "ys = np.eye(2, dtype=np.float32)[[0, 1] * 4]\n"
+    "served = []\n"
+    "class Loader(ArrayDataLoader):\n"
+    "    def __iter__(self):\n"
+    "        for i, b in enumerate(super().__iter__()):\n"
+    "            if i == 1:\n"
+    "                url = tr.telemetry.url + '/goodput'\n"
+    "                served.append(json.loads(urllib.request.urlopen(url,"
+    " timeout=10).read()))\n"
+    "            yield b\n"
+    "tr = Trainer(model(), SGD(0.1), 'mse', TrainingConfig(epochs=1,"
+    " metrics_port=0, device_type='cpu', snapshot_dir=None,"
+    " progress_interval=0))\n"
+    "tr.fit(create_train_state(tr.model, tr.optimizer),"
+    " Loader(rows, ys, batch_size=4))\n"
+    "assert served and 'bottleneck' in served[0]\n")
+
+
+def test_spatial_step_and_telemetry_plane_leave_jax_out():
+    """The spatial op rule and the goodput, anomaly and rules modules
+    imported one by one, then a spatial mesh step over a world of one and
+    a ``Trainer.fit`` serving ``/goodput`` on the CPU, load no JAX, flax,
+    msgpack, ml_dtypes or JAX-package module."""
+    _run_isolated(SPATIAL_AND_TELEMETRY)

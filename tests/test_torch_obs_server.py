@@ -6,14 +6,16 @@ flipping to 503 on a stalled watchdog and on a rotting checkpoint,
 (``start_telemetry`` twice without a leaked port), ``obs/xla`` (FLOPs
 through ``FlopCounterMode``, the compile counters, ``sample_hbm`` returning
 ``None`` without a card), the tracer's flush and truncation, and the
-render -> parse round trip. No test here waits on a wall clock: fakes and
-injected clocks drive every state. The trainer's live-scrape twins wait
-for ``TrainingConfig.metrics_port`` (``ROADMAP.md`` Queue 1 item 7).
+render -> parse round trip, and the trainer's ``metrics_port`` (a live
+fit scraped mid-epoch, gated on an event; a failed bind that still stops
+the watchdog). No test here waits on a wall clock: fakes, injected clocks
+and events drive every state.
 """
 
 import gzip
 import json
 import os
+import threading
 import urllib.error
 import urllib.request
 
@@ -375,6 +377,113 @@ def test_batcher_telemetry_lifecycle():
     assert b._telemetry is None
     with pytest.raises(urllib.error.URLError):
         urllib.request.urlopen(srv.url + "/healthz", timeout=2)
+
+
+# ----------------------------------------------------------- train wiring
+
+def test_trainer_live_scrape():
+    """Twin of the JAX test: a live fit (mid-epoch, gated on an event, no
+    sleeps) answers ``/metrics``, ``/healthz``, ``/snapshot`` and
+    ``/goodput`` on its ephemeral port; the server is gone after
+    ``fit()`` returns."""
+    from dcnn_tpu_torch.core.config import TrainingConfig
+    from dcnn_tpu_torch.nn import SequentialBuilder
+    from dcnn_tpu_torch.optim import Adam
+    from dcnn_tpu_torch.train.trainer import Trainer, create_train_state
+
+    model = (SequentialBuilder("obs_live").input((1, 8, 8))
+             .conv2d(2, 3, 1, 1).activation("relu").flatten().dense(10)
+             .build())
+    x = np.zeros((4, 1, 8, 8), np.float32)
+    y = np.eye(10, dtype=np.float32)[np.zeros(4, int)]
+
+    class GatedLoader:
+        batch_size = 4
+
+        def __init__(self):
+            self.mid_epoch = threading.Event()
+            self.release = threading.Event()
+
+        def __iter__(self):
+            yield x, y
+            self.mid_epoch.set()
+            assert self.release.wait(60)
+            yield x, y
+
+    cfg = TrainingConfig(epochs=1, snapshot_dir=None, metrics_port=0,
+                         progress_interval=0, device_type="cpu")
+    trainer = Trainer(model, Adam(1e-3), "softmax_crossentropy", cfg)
+    ts = create_train_state(model, Adam(1e-3),
+                            torch.Generator().manual_seed(0), device="cpu")
+    loader = GatedLoader()
+    err = []
+
+    def run():
+        try:
+            trainer.fit(ts, loader, epochs=1)
+        except BaseException as e:  # surfaced after join
+            err.append(e)
+
+    th = threading.Thread(target=run)
+    th.start()
+    try:
+        assert loader.mid_epoch.wait(60), "training never reached batch 1"
+        srv = trainer.telemetry
+        assert srv is not None
+        code, hdrs, body = _get(srv.url + "/metrics")
+        assert code == 200 and hdrs["Content-Type"] == CONTENT_TYPE
+        assert_exposition_conformant(body.decode())
+        code, _, body = _get(srv.url + "/healthz")
+        health = json.loads(body)
+        assert code == 200 and health["status"] == "ok"
+        assert "alerts" in health["checks"]
+        code, _, body = _get(srv.url + "/snapshot")
+        assert code == 200 and "metrics" in json.loads(body)
+        code, _, body = _get(srv.url + "/goodput")
+        doc = json.loads(body)
+        assert code == 200 and doc["bottleneck"]["state"] in (
+            "healthy", "feed_bound", "compute_bound", "compile_bound",
+            "io_bound")
+        assert "anomaly" in doc
+        url = srv.url
+    finally:
+        loader.release.set()
+        th.join(120)
+    assert not err, err
+    assert trainer.telemetry is None  # stopped by fit()'s finally
+    assert trainer._tsdb is None and trainer._goodput is None
+    with pytest.raises(urllib.error.URLError):
+        urllib.request.urlopen(url + "/healthz", timeout=2)
+
+
+def test_trainer_server_bind_failure_stops_watchdog():
+    """Twin of the JAX test: a failed telemetry bind (a fixed port
+    already in use) must not leak the already-started stall watchdog."""
+    import socket
+
+    from dcnn_tpu_torch.core.config import TrainingConfig
+    from dcnn_tpu_torch.nn import SequentialBuilder
+    from dcnn_tpu_torch.optim import Adam
+    from dcnn_tpu_torch.train.trainer import Trainer, create_train_state
+
+    blocker = socket.socket()
+    try:
+        blocker.bind(("127.0.0.1", 0))
+        blocker.listen(1)
+        port = blocker.getsockname()[1]
+        model = SequentialBuilder("bindfail").input((4,)).dense(2).build()
+        cfg = TrainingConfig(epochs=1, snapshot_dir=None,
+                             metrics_port=port, stall_timeout_s=60,
+                             progress_interval=0, device_type="cpu")
+        trainer = Trainer(model, Adam(1e-3), "softmax_crossentropy", cfg)
+        ts = create_train_state(model, Adam(1e-3),
+                                torch.Generator().manual_seed(0),
+                                device="cpu")
+        with pytest.raises(OSError):
+            trainer.fit(ts, [], epochs=1)
+        assert trainer.watchdog is None and trainer.telemetry is None
+    finally:
+        blocker.close()
 
 
 def test_start_telemetry_twice_replaces_not_leaks():

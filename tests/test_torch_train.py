@@ -315,35 +315,24 @@ def test_mha_classifier_trains_on_the_marker_task():
             _kernels.flash_bwd_dkv.launches) == before
 
 
-# the fields still refused, with the ROADMAP.md Queue 1 item that ports each
-UNPORTED = {"metrics_port": (0, 7)}
-# ported since: checkpoints, resume, the step guard and the watchdog; the
+# ported: checkpoints, resume, the step guard and the watchdog; the
 # chunked epoch (steps_per_dispatch) and the feed workers' config field;
 # the flight recorder, the layer profiler, debug mode and slow_detect (read
 # by elastic training only, as in the JAX package); the AOT cache of the
 # kernel libraries (aot_cache_dir); elastic training (fit delegates to
-# parallel/elastic.py: tests/test_torch_elastic.py)
+# parallel/elastic.py: tests/test_torch_elastic.py); the telemetry plane
+# (metrics_port, served for the length of fit: tests/test_torch_goodput.py)
 PORTED = {"checkpoint_dir": "ckpt", "resume": "auto",
           "nonfinite_policy": "skip_step", "stall_timeout_s": 5.0,
           "steps_per_dispatch": 4, "feed_workers": 2, "flight_dir": "flight",
           "profiler": "normal", "debug": True, "slow_detect": True,
-          "aot_cache_dir": "aot", "elastic": True}
-
-
-@pytest.mark.parametrize("field", sorted(UNPORTED))
-def test_unported_config_features_raise(field):
-    value, item = UNPORTED[field]
-    tm = create_mha_classifier().init(device="cpu")
-    cfg = TrainingConfig(device_type="cpu", **{field: value})
-    with pytest.raises(NotImplementedError,
-                       match=f"TrainingConfig.{field}.*Queue 1 item {item}"):
-        Trainer(tm, Adam(), LOSS, cfg)
+          "aot_cache_dir": "aot", "elastic": True, "metrics_port": 0}
 
 
 @pytest.mark.parametrize("field", sorted(PORTED))
 def test_ported_config_features_construct(field, tmp_path):
-    """The fault-tolerance, feed and observability fields no longer raise:
-    a Trainer builds with each (a checkpoint manager where checkpoint_dir
+    """The fault-tolerance, feed and observability fields: a Trainer
+    builds with each (a checkpoint manager where checkpoint_dir
     is set, a chunked step where steps_per_dispatch is, a layer profiler
     where profiler is; flight_dir configures the process-global recorder
     and debug the process-global debug mode, both put back here)."""
@@ -367,6 +356,7 @@ def test_ported_config_features_construct(field, tmp_path):
         assert (tr.profiler is not None) == (field == "profiler")
         assert debug.debug_nans() == (field == "debug")
         assert (rec.directory == value) == (field == "flight_dir")
+        assert tr.telemetry is None  # a server runs only inside fit()
     finally:
         debug.disable_debug_mode()
         rec.directory = old_dir

@@ -307,9 +307,11 @@ graph replays of many calls, so host overhead is not in them.
 
 from __future__ import annotations
 
+import collections
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -5439,8 +5441,12 @@ class OpenLoopMix:
     own: request k goes at k / ``rps`` seconds (late ones at once, never
     waiting on an answer), a single sample half the time, else a batch of
     2-8 rows, all drawn from ``pool``; its priority class drawn 20% high,
-    60% normal, 20% low. A shed must be a ``RouterShedError``; anything
-    else raised at submit is recorded and fails the phase."""
+    60% normal, 20% low. ``rps`` may be a rate schedule, ``f(t) -> rps``
+    over seconds since the start (``serve.traffic.diurnal``): the gap after
+    an arrival at t is then 1 / f(t). A shed must be a
+    ``RouterShedError``; anything else raised at submit is recorded and
+    fails the phase. Each shed is also counted under its regime
+    (:func:`shed_regime`) in ``shed_by``."""
 
     def __init__(self, router, pool, rps, seed):
         import numpy as np
@@ -5450,6 +5456,8 @@ class OpenLoopMix:
         self.sent = []      # (row indices, single, priority, future)
         self.offered = {p: 0 for p, _ in ROUTER_MIX}
         self.shed = {p: 0 for p, _ in ROUTER_MIX}
+        self.shed_by = {r: {p: 0 for p, _ in ROUTER_MIX}
+                        for r in ("class", "fleet", "unknown")}
         self.errors = []
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._run, daemon=True,
@@ -5464,9 +5472,13 @@ class OpenLoopMix:
 
         names = [p for p, _ in ROUTER_MIX]
         probs = [w for _, w in ROUTER_MIX]
-        t0, k = time.perf_counter(), 0
+        t0, k, t_rel = time.perf_counter(), 0, 0.0
         while not self._stop.is_set():
-            wait = t0 + k / self.rps - time.perf_counter()
+            if callable(self.rps):
+                wait = t0 + t_rel - time.perf_counter()
+                t_rel += 1.0 / self.rps(t_rel)
+            else:
+                wait = t0 + k / self.rps - time.perf_counter()
             if wait > 0:
                 time.sleep(wait)
             k += 1
@@ -5478,8 +5490,9 @@ class OpenLoopMix:
             self.offered[prio] += 1
             try:
                 fut = self.router.submit(x, priority=prio)
-            except RouterShedError:
+            except RouterShedError as e:
                 self.shed[prio] += 1
+                self.shed_by[shed_regime(e)][prio] += 1
                 continue
             except Exception as e:  # noqa: BLE001 (recorded, fails the phase)
                 self.errors.append(f"{type(e).__name__}: {e}")
@@ -5520,14 +5533,39 @@ def version_of(traffic, refs, what, exact, tol=0.0):
     return served, failed
 
 
-def shed_shares(traffic, what):
+SHED_LIMIT = re.compile(r"outstanding (\d+) \+ (\d+) over class limit \S+ "
+                        r"\(fleet capacity (\d+)\)")
+
+
+def shed_regime(err) -> str:
+    """The regime that shed a request, read from the router's message:
+    ``"class"`` when the fleet had room for its rows (outstanding + rows
+    within the whole capacity) and only its class's share refused them,
+    the regime where the priorities tell the classes apart; ``"fleet"``
+    when they fit at no priority (outstanding + rows over the capacity, as
+    right after a replica's death takes its capacity away while its rows
+    are readmitted, or every replica's own queue full), which sheds every
+    class alike; ``"unknown"`` for a message of neither form."""
+    msg = str(err)
+    m = SHED_LIMIT.search(msg)
+    if m:
+        out, n, cap = map(int, m.groups())
+        return "class" if out + n <= cap else "fleet"
+    return "fleet" if "every routable replica shed" in msg else "unknown"
+
+
+def shed_shares(traffic, what, regime=None):
     """Per class shed / offered; low's share must be at least normal's,
-    normal's at least high's."""
-    share = {p: traffic.shed[p] / max(traffic.offered[p], 1)
-             for p, _ in ROUTER_MIX}
+    normal's at least high's. With ``regime``, only the sheds of that
+    regime (:func:`shed_regime`) count, and a shed of no known regime
+    fails."""
+    shed = traffic.shed if regime is None else traffic.shed_by[regime]
+    share = {p: shed[p] / max(traffic.offered[p], 1) for p, _ in ROUTER_MIX}
     if traffic.errors:
         fail(f"{what}: submit raised other than RouterShedError: "
              f"{traffic.errors[:3]}")
+    if regime is not None and any(traffic.shed_by["unknown"].values()):
+        fail(f"{what}: sheds of no known regime {traffic.shed_by}")
     if not share["low"] >= share["normal"] >= share["high"]:
         fail(f"{what}: shed shares {share} are not low >= normal >= high")
     return share
@@ -5817,11 +5855,16 @@ class ReplicaChild(ChildProcess):
     card (its own CUDA context, loading the kernels this process built).
     Closing its stdin asks it to drain and print its shutdown line."""
 
-    def __init__(self, port, root, version, name, calib=None):
+    def __init__(self, port, root, version, name, calib=None,
+                 metrics_port=None, trace=None):
         self.port, self.name = port, name
         extra = [] if calib is None else ["--calib", calib]
+        if metrics_port is not None:
+            extra += ["--metrics-port", str(metrics_port)]
+        if trace is not None:
+            extra += ["--trace", trace]
         super().__init__(
-            f"router tcp: replica server {name}",
+            f"replica server {name}",
             [os.path.join(ROOT, "chip_smoke.py"), "--replica-server",
              "--root", root, "--version", str(version), "--port", str(port),
              "--name", name, "--queue-capacity", str(ROUTER_QUEUE), *extra],
@@ -5838,13 +5881,17 @@ class ReplicaChild(ChildProcess):
 def replica_server_main(argv) -> None:
     """``python chip_smoke.py --replica-server --root DIR --version V
     --port P [--name N] [--queue-capacity Q] [--max-batch B] [--calib
-    FILE.npy]``: a ``ReplicaServer`` over a ``LocalReplica`` whose
-    ``EngineFactory`` loads ``DIR``'s commits on the card (int8 from the
-    calibration batch in ``FILE.npy`` where given, so every process
-    quantizes from the very same array). Prints ``{"listening": P, ...}``
-    when it serves; when its stdin closes it drains and prints
-    ``{"shutdown": true, "launches": ..., "dispatched": ...}``, the launch
-    counters of this process and the batches they cover."""
+    FILE.npy] [--metrics-port M] [--trace SHARD]``: a ``ReplicaServer``
+    over a ``LocalReplica`` whose ``EngineFactory`` loads ``DIR``'s
+    commits on the card (int8 from the calibration batch in ``FILE.npy``
+    where given, so every process quantizes from the very same array);
+    with ``--metrics-port`` the replica's telemetry server on port M, and
+    with ``--trace`` the tracer on, its JSONL shard rewritten at SHARD
+    every 0.25 s (so a SIGKILL leaves the last one) and at shutdown.
+    Prints ``{"listening": P, ...}`` when it serves; when its stdin closes
+    it drains and prints ``{"shutdown": true, "launches": ...,
+    "dispatched": ...}``, the launch counters of this process and the
+    batches they cover."""
     import argparse
 
     ap = argparse.ArgumentParser(prog="chip_smoke.py --replica-server")
@@ -5855,6 +5902,8 @@ def replica_server_main(argv) -> None:
     ap.add_argument("--queue-capacity", type=int, default=128)
     ap.add_argument("--max-batch", type=int, default=32)
     ap.add_argument("--calib", default=None)
+    ap.add_argument("--metrics-port", type=int, default=None)
+    ap.add_argument("--trace", default=None)
     args = ap.parse_args(argv)
     sys.path.insert(0, ROOT)
     import numpy as np
@@ -5866,6 +5915,19 @@ def replica_server_main(argv) -> None:
 
     set_precision("parity")
     _kernels.build()  # the libraries the parent built, from the build dir
+    stop_flush = threading.Event()
+    if args.trace is not None:
+        from dcnn_tpu_torch.obs import configure
+
+        tracer = configure(enabled=True)
+        tracer.process_name = args.name
+
+        def flush():
+            while not stop_flush.wait(0.25):
+                tracer.export_jsonl(args.trace)
+
+        threading.Thread(target=flush, daemon=True,
+                         name="trace-shard").start()
     kw = {} if args.calib is None else {"int8_calib": np.load(args.calib)}
     factory = EngineFactory(args.root, max_batch=args.max_batch,
                             device="cuda", **kw)
@@ -5879,12 +5941,18 @@ def replica_server_main(argv) -> None:
     replica = counting_replica_class()(
         make, args.version, name=args.name,
         queue_capacity=args.queue_capacity)
+    metrics = (None if args.metrics_port is None
+               else replica.start_telemetry(port=args.metrics_port).port)
     server = ReplicaServer(replica, port=args.port, host="127.0.0.1",
                            own_replica=True)
     print(json.dumps({"listening": server.port, "pid": os.getpid(),
+                      "metrics": metrics,
                       "device": torch.cuda.get_device_name(0)}), flush=True)
     sys.stdin.read()  # until the parent closes it
     server.close()  # drains and closes the replica
+    if args.trace is not None:
+        stop_flush.set()
+        tracer.export_jsonl(args.trace)
     snap = replica.metrics.snapshot()
     print(json.dumps({
         "shutdown": True, "name": args.name, "version": replica.version,
@@ -7940,6 +8008,806 @@ def phase_telemetry(card):
     return out
 
 
+# -- phases 30-32: the fleet plane and autoscaling -------------------------
+
+FLEET_TARGETS = ("loc0", "loc1", "tcp0", "tcp1")
+FLEET_SETTLE_S = 1.0      # traffic before a poll, and after the rejoin
+AUTOSCALE_QUEUE = 256     # rows a replica queues: a stall of the shared
+#                           host (an engine build, a swap, a pool's
+#                           release) must not shed trough traffic
+AUTOSCALE_MEASURE_S = 3.0  # one replica's sustained rate, offered flat out
+AUTOSCALE_PERIOD_S = 30.0  # one diurnal day: trough, peak at 15 s, trough
+AUTOSCALE_TICK_S = 0.5
+AUTOSCALE_KILL_AT = 12.0  # the newest replica the autoscaler built dies
+AUTOSCALE_CANARY_AT = 18.0  # v2 committed; ModelVersionManager canaries it
+AUTOSCALE_TAIL_S = 30.0   # the trough after the day, for the scale-downs
+AUTOSCALE_WINDOW = 512    # a replica's latency window: an overload ages out
+#                           of its p99 within seconds of trough traffic
+LEASE_EPOCHS = 4          # the fixed-world run's epochs; the leased run's
+LEASE_SEG1_EPOCHS = 2     # first segment trains to epoch 2 at world 2 -> 1
+FLAT_OUT_RPS = 1e6        # an open loop that never waits: a spike
+
+
+def dispatched(replicas, engines_built, buckets):
+    """Batches an engine ran on the card over ``replicas``: two calls a
+    bucket at each engine's construction (the eager first call and the
+    capture), each batcher's warm replays, and the served batches."""
+    return (2 * buckets * engines_built + sum(r.warmups for r in replicas)
+            + sum(r.metrics.snapshot()["batches"] for r in replicas))
+
+
+def phase_fleet(card):
+    """Phase 30: a ``FleetAggregator`` over 2 in-process ``LocalReplica``s
+    of full-width ``mha_classifier`` (fp32, S=32, E=64, 4 heads; read
+    through their ``TelemetryServer``s, no socket) and 2 ``ReplicaServer``
+    processes (:class:`ReplicaChild` with a telemetry port, scraped over
+    HTTP by ``HttpScraper``), a ``RuleEngine`` over its store (one
+    ``fleet_target_up`` alert a target), behind a ``Router`` under the
+    open-loop mix, the tracer on in every process. One poll merges the
+    four targets into ``replica``, ``sum`` and ``max`` series; ``/fleet``,
+    ``/alerts`` and ``/healthz`` answer. tcp1 is SIGKILLed: its
+    ``fleet_target_up`` reads 0, the roll-up and ``/healthz`` degrade, its
+    alert fires and the router records a ``replica_death`` bundle; a
+    standby process rejoins as tcp1 and the alert resolves. The shards
+    merge through ``python -m dcnn_tpu_torch.obs.trace merge`` into one
+    Chrome trace that ``validate_chrome`` accepts, with a request's
+    ``trace_id`` under two or more pids; ``inspect_bundle`` reads the
+    bundle. Gates: every served result within ``SERVE_TOL`` of the CPU
+    reference; the sheds of the class regime ordered low >= normal >= high
+    by share (the kill's burst, while the readmitted rows stand over the
+    three survivors' capacity, sheds every class alike: counted apart as
+    the fleet regime); ``flash_fwd`` twice a dispatched batch here and in
+    each surviving process. Prints the seconds a scrape, in process and over
+    HTTP, and a poll's wall time."""
+    import tempfile
+
+    import numpy as np
+
+    from dcnn_tpu_torch.interop import from_jax
+    from dcnn_tpu_torch.obs import configure, get_tracer
+    from dcnn_tpu_torch.obs.fleet import FleetAggregator
+    from dcnn_tpu_torch.obs.flight import FlightRecorder
+    from dcnn_tpu_torch.obs.registry import MetricsRegistry
+    from dcnn_tpu_torch.obs.rules import RuleEngine
+    from dcnn_tpu_torch.obs.trace import (inspect_bundle, read_shard,
+                                          validate_chrome)
+    from dcnn_tpu_torch.resilience.checkpoint import CheckpointManager
+    from dcnn_tpu_torch.serve import (EngineFactory, InferenceEngine, Router,
+                                      TcpReplica)
+
+    t_phase = time.perf_counter()
+    cfg, params, _ = model_params()
+    rng = np.random.default_rng(SEED + 50)
+    pool = rng.normal(size=(ROUTER_POOL, *cfg["input_shape"])).astype(
+        np.float32)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_", dir=ROOT)
+    root = os.path.join(tmp.name, "serve")
+    mgr = CheckpointManager(root, keep=2)
+    path = mgr.save(1, from_jax(cfg, params, device="cpu"))
+    mgr.close()
+    refs = {1: InferenceEngine.from_checkpoint(
+        path, max_batch=32, device="cpu").infer(pool).numpy()}
+
+    def shard(name):
+        return os.path.join(tmp.name, f"{name}.jsonl")
+
+    # tcp1's standby starts with the others and takes its place after the
+    # kill, so the rejoin waits for no process start
+    ports = free_ports(6)
+    children = {
+        key: ReplicaChild(ports[2 * i], root, 1, name,
+                          metrics_port=ports[2 * i + 1], trace=shard(key))
+        for i, (key, name) in enumerate((("tcp0", "tcp0"), ("tcp1", "tcp1"),
+                                         ("standby", "tcp1")))}
+    was = get_tracer().enabled
+    tracer = configure(enabled=True)
+    tracer.clear()
+    tracer.process_name = "router"
+    rec = FlightRecorder(os.path.join(tmp.name, "flight"),
+                         min_interval_s=0.0, tracer=tracer)
+    freg = MetricsRegistry()
+    agg = FleetAggregator(registry=freg)
+    rules = RuleEngine(agg.store, registry=freg)
+    for name in FLEET_TARGETS:
+        rules.add_alert(name=f"target_down_{name}",
+                        series=f'fleet_target_up{{replica="{name}"}}',
+                        op="<", threshold=1.0, for_s=0.0, window_s=60.0,
+                        description=f"{name} unreachable")
+    agg.rules = rules
+    Replica = counting_replica_class()
+    reset_launches()  # the fleet path starts here
+    factory = EngineFactory(root, max_batch=32, device="cuda")
+    locs = [Replica(factory, 1, name=n, queue_capacity=ROUTER_QUEUE)
+            for n in FLEET_TARGETS[:2]]
+    clients, router, traffic, lines = [], None, None, {}
+    out = {"scrape_s": {"in_process": [], "http": []}, "poll_s": []}
+
+    def poll():
+        t = time.perf_counter()
+        res = agg.poll()
+        out["poll_s"].append(time.perf_counter() - t)
+        for name, r in res.items():
+            kind = "in_process" if name.startswith("loc") else "http"
+            if r["fetched"]:
+                out["scrape_s"][kind].append(r["dur_s"])
+        return res
+
+    try:
+        for loc in locs:
+            agg.add_target(loc.name, server=loc.start_telemetry(port=0))
+        for name in ("tcp0", "tcp1"):
+            line = children[name].wait_for("listening", 180.0)
+            agg.add_target(name, url=f"http://127.0.0.1:{line['metrics']}")
+            clients.append(TcpReplica("127.0.0.1", children[name].port,
+                                      name=name, timeout_s=30.0,
+                                      connect_timeout=60.0))
+        router = Router([*locs, *clients], flight=rec)
+        fsrv = agg.serve()
+        traffic = OpenLoopMix(router, pool, ROUTER_RPS, SEED + 51).start()
+        time.sleep(FLEET_SETTLE_S)
+        res = poll()
+        down = [n for n in FLEET_TARGETS if res[n]["values"] is None]
+        if down:
+            fail(f"fleet: targets {down} unread by the first poll: {res}")
+        m = "serve_samples_completed_total"
+        per = {n: res[n]["values"][m] for n in FLEET_TARGETS}
+        got = {n: agg.store.latest(f'{m}{{replica="{n}"}}')[1]
+               for n in FLEET_TARGETS}
+        fsum = agg.store.latest(f'{m}{{fleet="sum"}}')[1]
+        fmax = agg.store.latest(f'{m}{{fleet="max"}}')[1]
+        if got != per or fsum != sum(per.values()) \
+                or fmax != max(per.values()) or not all(per.values()):
+            fail(f"fleet: merged {m} {got}, sum {fsum}, max {fmax} against "
+                 f"the four scrapes {per}")
+        codes = {r: _http(fsrv.url + r)[0]
+                 for r in ("/fleet", "/alerts", "/healthz")}
+        if set(codes.values()) != {200}:
+            fail(f"fleet: the fleet routes answered {codes} with every "
+                 f"target up")
+        out["merged"] = {"per_replica": per, "sum": fsum, "max": fmax}
+
+        children["tcp1"].kill()  # SIGKILL, mid-load
+        t_kill = time.perf_counter()
+        while not clients[1].is_dead():
+            if time.perf_counter() - t_kill > 10.0:
+                fail("fleet: the killed replica's client did not see it die "
+                     "within 10 s")
+            time.sleep(0.001)
+        router.check_replicas()
+        res = poll()
+        up = agg.store.latest('fleet_target_up{replica="tcp1"}')[1]
+        rollup = agg.health_rollup() or ""
+        code, health = _http(fsrv.url + "/healthz")
+        health, alerts = (json.loads(health),
+                          json.loads(_http(fsrv.url + "/alerts")[1]))
+        if (res["tcp1"]["fetched"] or up != 0.0 or "tcp1" not in rollup
+                or code != 503 or alerts.get("firing") != ["target_down_tcp1"]
+                or not any("target_down_tcp1" in r
+                           for r in health["reasons"])):
+            fail(f"fleet: after tcp1's kill up={up}, roll-up {rollup!r}, "
+                 f"/healthz {code} {health}, alerts {alerts}")
+        out["after_kill"] = {"target_up": up, "rollup": rollup,
+                             "healthz": code, "firing": alerts["firing"]}
+
+        line = children["standby"].wait_for("listening", 180.0)
+        router.remove_replica("tcp1")
+        clients[1].close()
+        clients[1] = TcpReplica("127.0.0.1", children["standby"].port,
+                                name="tcp1", timeout_s=30.0,
+                                connect_timeout=60.0)
+        router.add_replica(clients[1])
+        agg.remove_target("tcp1")
+        agg.add_target("tcp1", url=f"http://127.0.0.1:{line['metrics']}")
+        time.sleep(FLEET_SETTLE_S)
+        poll()
+        code, _ = _http(fsrv.url + "/healthz")
+        state = {a["name"]: a for a in rules.alerts()}["target_down_tcp1"]
+        if (code != 200 or state["state"] != "inactive"
+                or state["resolved_total"] != 1 or agg.health_rollup()):
+            fail(f"fleet: after the rejoin /healthz {code}, tcp1's alert "
+                 f"{state}, roll-up {agg.health_rollup()!r}")
+        out["after_rejoin"] = {"healthz": code, "alert": state["state"]}
+    finally:
+        if traffic is not None:
+            traffic.stop()
+        try:
+            if router is not None:
+                router.drain(timeout=120)
+        finally:
+            agg.close()
+            for c in clients:
+                c.close()
+            for name in ("tcp0", "standby"):
+                if children[name].proc.poll() is None:
+                    lines[name] = children[name].result()
+            for c in children.values():
+                c.close()
+    counts = launches()  # and ends here
+    snaps = [loc.metrics.snapshot() for loc in locs]
+    local = dispatched(locs, 2, len(locs[0]._engine.bucket_sizes))
+    for loc in locs:
+        loc.close()
+    shards = [tracer.export_jsonl(shard("router"))]
+    shards += [p for p in map(shard, children) if os.path.exists(p)]
+    configure(enabled=was)
+    merged = os.path.join(tmp.name, "merged.json")
+    cli = subprocess.run(
+        [sys.executable, "-m", "dcnn_tpu_torch.obs.trace", "merge", *shards,
+         "-o", merged, "--json"], cwd=ROOT, capture_output=True, text=True,
+        timeout=120)
+    if cli.returncode != 0:
+        fail(f"fleet: the trace merge CLI exited {cli.returncode}: "
+             f"{cli.stderr[-2000:]}")
+    summary = json.loads(cli.stdout)
+    problems = validate_chrome(merged)
+    with open(merged) as f:
+        doc = json.load(f)
+    pids = {}
+    for e in doc["traceEvents"]:
+        tid = e.get("args", {}).get("trace_id") if e["ph"] != "M" else None
+        if tid:
+            pids.setdefault(tid, set()).add(e["pid"])
+    spanning = sum(1 for p in pids.values() if len(p) >= 2)
+    if problems or not spanning:
+        fail(f"fleet: merged trace problems {problems[:5]}, traces under "
+             f"two or more pids {spanning}")
+    deaths = [b for b in rec.bundles() if b["trigger"] == "replica_death"]
+    info = inspect_bundle(deaths[0]["path"]) if deaths else {}
+    if (len(deaths) != 1 or info["manifest"]["trigger"] != "replica_death"
+            or not info.get("spans")):
+        fail(f"fleet: replica_death bundles {deaths}, inspected {info}")
+    served, failed = version_of(traffic, refs, "fleet", exact=False,
+                                tol=SERVE_TOL)
+    shares = shed_shares(traffic, "fleet", regime="class")
+    if counts["flash_fwd"] != 2 * local or not all(s["batches"]
+                                                   for s in snaps):
+        fail(f"fleet: flash_fwd launched {counts['flash_fwd']} times here "
+             f"for {local} batches of the two local replicas (2 attention "
+             f"layers each); batches {[s['batches'] for s in snaps]}")
+    for name, line in lines.items():
+        fwd = line["launches"]["flash_fwd"]
+        if fwd != 2 * line["dispatched"] or not line["batches"]:
+            fail(f"fleet: {name}'s flash_fwd {fwd} for {line['dispatched']} "
+                 f"batches; {line}")
+    if set(lines) != {"tcp0", "standby"}:
+        fail(f"fleet: surviving processes' shutdown lines {sorted(lines)}")
+    tmp.cleanup()
+    sc = out.pop("scrape_s")
+    polls = out.pop("poll_s")
+    out.update({
+        "requests": len(traffic.sent), "offered": traffic.offered,
+        "shed": traffic.shed, "shed_by_regime": traffic.shed_by,
+        "shed_share_class": shares, "failed": failed,
+        "served_by_version": served,
+        "scrape_s_in_process_mean": sum(sc["in_process"])
+        / len(sc["in_process"]),
+        "scrape_s_http_mean": sum(sc["http"]) / len(sc["http"]),
+        "scrape_s_http_max": max(sc["http"]),
+        "poll_s": polls, "trace_merge": {
+            k: summary[k] for k in ("events", "trace_ids",
+                                    "events_dropped_by_writers")},
+        "shards": len(shards), "traces_across_pids": spanning,
+        "bundle": {k: info[k] for k in ("spans", "trace_ids")},
+        "launches": {"here": counts["flash_fwd"],
+                     "tcp0": lines["tcp0"]["launches"]["flash_fwd"],
+                     "tcp1_rejoined":
+                         lines["standby"]["launches"]["flash_fwd"]},
+        "phase_s": round(time.perf_counter() - t_phase, 1)})
+    print(f"fleet: FleetAggregator over 2 in-process and 2 HTTP "
+          f"mha_classifier replicas behind a Router ({len(traffic.sent)} "
+          f"requests at {ROUTER_RPS:g}/s), tcp1 SIGKILLed and rejoined; "
+          f"{json.dumps(out)}; every result within {SERVE_TOL:g} of the CPU "
+          f"reference, flash_fwd 2 x batches in every surviving process; "
+          f"on {card}", flush=True)
+    return out
+
+
+def phase_autoscale(card):
+    """Phase 31: an ``Autoscaler`` reading through its ``FleetAggregator``
+    over a ``Router`` of ``LocalReplica``s of int8
+    ``resnet18_tiny_imagenet`` (full width, one ``EngineFactory`` as in
+    phase 19, every bucket a CUDA graph), ``min_replicas=1``,
+    ``max_replicas=4``, ticked every ``AUTOSCALE_TICK_S`` here. One
+    replica's sustained request rate is measured first, on a replica of
+    its own (the open-loop mix offered flat out for
+    ``AUTOSCALE_MEASURE_S``); then one diurnal day of ``AUTOSCALE_PERIOD_S``
+    in real time, peak twice that rate, trough a tenth of the peak, and
+    the trough held up to ``AUTOSCALE_TAIL_S`` more until the fleet is
+    back to one replica. Faults as ``run_diurnal_soak`` injects them: the
+    newest replica the autoscaler built killed mid-load, and v2 canaried
+    through ``ModelVersionManager`` (which may promote it). Gates: every
+    admitted request resolved, 99% of them completed; at least one
+    scale-up and one scale-down, every scale-down a ``decommission``;
+    every result bit for bit its version's reference engine; every
+    retired engine's graph pool at 0 B; no scale-up whose build or capture
+    failed (``autoscale_scale_up_failures_total`` 0, no tick's
+    ``last_error``); ``conv_int8_fused`` 21 a dispatched batch; each
+    reaction at most ``up_cooldown_s`` plus a tick plus the slowest
+    spin-up. The day's turns and injections are ``serve/soak.py``'s
+    ``SoakInjections``. Prints each scale-up's spin-up (engine build,
+    captures, warm replays), ``sample_hbm`` after it, the reaction and
+    SLO-violation seconds, p99 and the fleet size over time."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.obs.registry import MetricsRegistry
+    from dcnn_tpu_torch.obs.xla import sample_hbm
+    from dcnn_tpu_torch.resilience.checkpoint import CheckpointManager
+    from dcnn_tpu_torch.serve import (Autoscaler, AutoscalerConfig,
+                                      EngineFactory, ModelVersionManager,
+                                      Router, ServeMetrics, diurnal)
+    from dcnn_tpu_torch.serve.soak import SoakInjections
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(SEED + 60)
+    cfg, _, _, v1 = resnet18("cpu", rng)
+    models = {1: v1, 2: perturbed(v1, rng)}
+    calib = rng.normal(size=(INT8_CALIB, *cfg["input_shape"])).astype(
+        np.float32)
+    pool = rng.normal(size=(ROUTER_POOL, *cfg["input_shape"])).astype(
+        np.float32)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_autoscale_",
+                                      dir=ROOT)
+    staging, root = (os.path.join(tmp.name, d) for d in ("staging", "serve"))
+    os.makedirs(root)
+    mgr = CheckpointManager(staging, keep=4)
+    for v, m in models.items():
+        mgr.save(v, m)
+    mgr.close()
+    refs = {}
+    ref_factory = EngineFactory(staging, max_batch=32, int8_calib=calib,
+                                device="cuda")
+    for v in (1, 2):
+        eng = ref_factory(v)
+        refs[v] = torch.cat([eng.infer(pool[i:i + 32]) for i in
+                             range(0, ROUTER_POOL, 32)]).cpu().numpy()
+        eng._release()
+        del eng
+    commit_into(staging, root, 1)
+    reg = MetricsRegistry()
+
+    class CountingFactory(EngineFactory):
+        engines = []
+
+        def __call__(self, version):
+            eng = super().__call__(version)
+            self.engines.append(eng)
+            return eng
+
+    torch.cuda.synchronize()
+    reset_launches()  # the autoscale path starts here
+    factory = CountingFactory(root, max_batch=32, int8_calib=calib,
+                              device="cuda", registry=reg)
+    Replica = counting_replica_class()
+    made, spinups = [], []
+
+    def make_replica(version):
+        t = time.perf_counter()
+        rep = Replica(factory, 1 if version is None else version,
+                      name=f"as{len(made)}", queue_capacity=AUTOSCALE_QUEUE,
+                      metrics=ServeMetrics(window=AUTOSCALE_WINDOW))
+        spinups.append(round(time.perf_counter() - t, 4))
+        made.append(rep)
+        return rep
+
+    # one replica's sustained rate, on a replica of its own: its latency
+    # window then holds no overload when the day starts
+    router = Router([make_replica(1)])
+    measure = OpenLoopMix(router, pool, FLAT_OUT_RPS, SEED + 61).start()
+    t0 = time.perf_counter()
+    time.sleep(AUTOSCALE_MEASURE_S)
+    measure.stop()
+    router.drain(timeout=60)
+    wall = time.perf_counter() - t0
+    done = sum(1 for *_, f in measure.sent if f.exception() is None)
+    one_rps = done / wall
+    made[0].close()
+    router = Router([make_replica(1)])
+    boot = made[1]
+    # replicas share one card and one GIL, so a control action stalls them
+    # all: the SLO (p99 250 ms, 1% shed) is a peak's overload, not a stall
+    scfg = AutoscalerConfig(
+        slo_p99_ms=250.0, max_shed_fraction=0.01, high_utilization=0.7,
+        low_utilization=0.2, min_replicas=1, max_replicas=4,
+        up_cooldown_s=2.0, down_cooldown_s=4.0, breach_ticks=1,
+        idle_ticks=3, drain_timeout_s=10.0)
+    scaler = Autoscaler(router, make_replica, config=scfg)
+    mvm = ModelVersionManager(router, factory, canary_fraction=0.25,
+                              observe_s=2.0, min_canary_requests=20)
+    torch.cuda.synchronize()
+    alloc_before = torch.cuda.memory_allocated()
+    peak = 2.0 * one_rps
+    curve = diurnal(peak, peak / 10.0, AUTOSCALE_PERIOD_S)
+    day = OpenLoopMix(router, pool, lambda t: curve(
+        min(t, AUTOSCALE_PERIOD_S)), SEED + 62)
+    turns, hbm, promoted = [], [], []
+
+    def kill_newest():
+        stats, owned = router.replica_stats(), scaler.owned_replicas()
+        newest = [r for r in reversed(made) if r.name in owned
+                  and stats.get(r.name, {}).get("state") == "up"]
+        if not newest:
+            return None  # none of the autoscaler's yet: the next turn
+        newest[0].kill()  # preemption mid-load
+        return newest[0].name
+
+    def canary_v2():
+        commit_into(staging, root, 2)
+        res = mvm.poll()
+        if res["action"] != "canary":
+            fail(f"autoscale: v2's canary answered {res}")
+        return res["canaries"]
+
+    inject = SoakInjections(router, scaler, tick_dt=AUTOSCALE_TICK_S,
+                            kill_at=AUTOSCALE_KILL_AT,
+                            canary_at=AUTOSCALE_CANARY_AT, kill=kill_newest,
+                            canary=canary_v2)
+    t_day = time.perf_counter()
+    day.start()
+    try:
+        while True:
+            t = time.perf_counter() - t_day
+            sizes = inject.fleet_sizes
+            if t >= AUTOSCALE_PERIOD_S + AUTOSCALE_TAIL_S or (
+                    t >= AUTOSCALE_PERIOD_S and sizes[-1][1] == 1
+                    and any(o["action"] == "down" for o in turns)):
+                break
+            if "canary" in inject.events:
+                res = mvm.poll()
+                if res["action"] in ("rolled_back", "swap_failed"):
+                    fail(f"autoscale: the version manager answered {res}")
+                if res["action"] == "promoted":
+                    promoted.append(round(t, 2))
+            out = inject.turn(t)
+            # a scale-up whose build or capture raised is the autoscaler's
+            # "factory failures" turn (or an error beside an "up" of
+            # step_up > 1): the phase fails on it, never serves around it
+            if out["action"] == "error" or scaler.last_error:
+                fail(f"autoscale: a tick failed: {out}, last error "
+                     f"{scaler.last_error}")
+            turns.append(out)
+            if out["action"] == "up":
+                s = sample_hbm(reg)
+                hbm.append(None if s is None else int(s["hbm_bytes_in_use"]))
+            # a tick from this one's start: a slow turn (a spin-up) is
+            # not followed by a burst of turns catching up
+            time.sleep(max(0.0, t_day + t + AUTOSCALE_TICK_S
+                           - time.perf_counter()))
+    finally:
+        day.stop()
+    router.drain(timeout=120)
+    counts = launches()  # and ends here
+    torch.cuda.synchronize()
+    alloc_after = torch.cuda.memory_allocated()
+    live = {id(r._engine) for r in router.replicas().values()
+            if not r.is_dead()}
+    live_pools = {n: r._engine.graphs.bytes()
+                  for n, r in router.replicas().items() if not r.is_dead()}
+    retired = [e for e in factory.engines if id(e) not in live]
+    left = {e.name: e.graphs.bytes() for e in retired if e.graphs.bytes()}
+    if left:
+        fail(f"autoscale: retired engines still hold graph pool bytes "
+             f"{left}")
+    if router.outstanding():
+        fail(f"autoscale: {router.outstanding()} rows left in the ledger")
+    accepted = len(day.sent)
+    served, failed = version_of(day, refs, "autoscale", exact=True)
+    if day.errors:
+        fail(f"autoscale: submit raised {day.errors[:3]}")
+    completed = accepted - failed
+    regs = router.metrics.registry.snapshot()
+    ups, downs = (regs["autoscale_scale_ups_total"],
+                  regs["autoscale_scale_downs_total"])
+    decoms = regs.get("serve_router_decommissions_total", 0)
+    up_failures = regs.get("autoscale_scale_up_failures_total", 0)
+    drains = [o["drain"] for o in turns if o["action"] == "down"]
+    sizes = [(round(t, 2), n) for t, n in inject.fleet_sizes]
+    events = {k: (v, round(t, 2)) for k, (v, t) in inject.events.items()}
+    if promoted:
+        events["promoted"] = promoted[0]
+    if up_failures:
+        fail(f"autoscale: {up_failures} scale-up(s) failed to build or "
+             f"capture")
+    if not (completed >= 0.99 * accepted and ups >= 1 and downs >= 1
+            and decoms == downs == len(drains)):
+        fail(f"autoscale: {completed} of {accepted} admitted completed, "
+             f"{ups} scale-ups, {downs} scale-downs, {decoms} "
+             f"decommissions, drains {drains}; fleet sizes {sizes}; the "
+             f"last turns {[{k: v for k, v in o.items() if k != 'drain'}
+                            for o in turns[-6:]]}")
+    n_disp = dispatched(made, len(factory.engines),
+                        len(boot._engine.bucket_sizes))
+    if counts["conv_int8_fused"] != INT8_CONVS * n_disp or counts["conv_int8"]:
+        fail(f"autoscale: conv_int8_fused launched "
+             f"{counts['conv_int8_fused']} times for {n_disp} batches "
+             f"({INT8_CONVS} convs each), mode A {counts['conv_int8']}")
+    reaction = regs["autoscale_scale_up_reaction_seconds"]
+    up_spinups = spinups[2:]  # after the measured replica and the boot one
+    bound = scfg.up_cooldown_s + AUTOSCALE_TICK_S + max(up_spinups)
+    if reaction["count"] and reaction["max"] > bound:
+        fail(f"autoscale: a scale-up reacted in {reaction['max']:.3f} s, "
+             f"over up_cooldown_s + a tick + the slowest spin-up "
+             f"({bound:.3f} s)")
+    rsnap = router.metrics.snapshot()
+    for r in made:
+        r.close()
+    if any(e.graphs.bytes() for e in factory.engines):
+        fail("autoscale: a closed replica's engine kept its graph pool")
+    tmp.cleanup()
+    out = {
+        "one_replica_rps": round(one_rps, 1),
+        "measure_shed": sum(measure.shed.values()),
+        "peak_rps": round(peak, 1), "trough_rps": round(peak / 10.0, 1),
+        "accepted": accepted, "completed": completed, "failed": failed,
+        "availability": completed / accepted,
+        "offered": sum(day.offered.values()),
+        "shed": sum(day.shed.values()), "served_by_version": served,
+        "scale_ups": ups, "scale_up_failures": up_failures,
+        "scale_downs": downs, "decommissions": decoms, "drains": drains,
+        "spinup_s": up_spinups,
+        "autoscale_spinup_seconds": regs["autoscale_spinup_seconds"],
+        "hbm_bytes_after_up": hbm,
+        "reaction_s": reaction, "reaction_bound_s": round(bound, 4),
+        "slo_violation_s": regs["autoscale_slo_violation_seconds_total"],
+        "latency_ms": {p: {"p50": rsnap[p]["p50_ms"], "p99": rsnap[p]["p99_ms"]}
+                       for p, _ in ROUTER_MIX},
+        "fleet_sizes": sizes, "events": events,
+        # idle turns the down-guard held (PERF.md section 7: a trough
+        # scale-up pins the fleet until traffic falls below its watermark)
+        "down_guard_holds": sum(1 for o in turns
+                                if o.get("reason") == "traffic needs fleet"),
+        # each turn's answer, counted over the day and over the tail
+        "turn_tally": {part: dict(collections.Counter(
+            f"{o['action']}: {o['reason']}" if "reason" in o
+            else o["action"] for o, (t, _) in zip(turns, inject.fleet_sizes)
+            if (t >= AUTOSCALE_PERIOD_S) == (part == "tail")))
+            for part in ("day", "tail")},
+        "engines_built": len(factory.engines),
+        "retired_engines": len(retired), "live_pool_bytes": live_pools,
+        "allocated_before": alloc_before, "allocated_after": alloc_after,
+        "launches": counts["conv_int8_fused"], "dispatched": n_disp,
+        "phase_s": round(time.perf_counter() - t_phase, 1)}
+    print(f"autoscale: int8 resnet18_tiny_imagenet, Autoscaler 1-4 "
+          f"LocalReplicas through its FleetAggregator, one replica "
+          f"{one_rps:.1f} requests/s, a {AUTOSCALE_PERIOD_S:g} s day at peak "
+          f"{peak:.1f}/s; {json.dumps(out)}; every result bit for bit its "
+          f"version's reference, retired pools 0 B, conv_int8_fused "
+          f"{counts['conv_int8_fused']} = {INT8_CONVS} x {n_disp} batches; "
+          f"on {card}", flush=True)
+    return out
+
+
+def phase_lease(card):
+    """Phase 32: a ``DeviceLeaseBroker(devices=3)`` as three lease slots on
+    the one card. Training holds 2: a ``LeasedElasticTrainer`` of 2
+    ``ElasticController`` threads of full-width ``mha_classifier`` (phase
+    23's topology and marker task, SGD). Serving holds 1: an ``Autoscaler``
+    over fp32 ``mha_classifier`` ``LocalReplica``s. A spike (the open-loop
+    mix flat out) makes the autoscaler ask for a lease; the broker revokes
+    one from training, rank 1 is preempted and the world trains on at 1;
+    the spike ends, the scale-down returns the lease and the next segment
+    regrows to 2 from the newest commit. Gates: the final params within
+    the JAX test's ``RTOL, ATOL = 2e-4, 2e-5`` of an uninterrupted
+    fixed-world run on the card; ``flash_fwd``, ``flash_bwd_dq`` and
+    ``flash_bwd_dkv`` launched on the leased path; no failed scale-up.
+    Prints the seconds from the revocation to the surrender, each
+    segment's wall and world."""
+    import functools
+    import tempfile
+
+    import numpy as np
+
+    from dcnn_tpu_torch.core import TrainingConfig
+    from dcnn_tpu_torch.data import ArrayDataLoader
+    from dcnn_tpu_torch.interop import from_jax
+    from dcnn_tpu_torch.obs.registry import MetricsRegistry
+    from dcnn_tpu_torch.optim import SGD
+    from dcnn_tpu_torch.parallel import (ElasticController,
+                                         LeasedElasticTrainer, TrainLease)
+    from dcnn_tpu_torch.resilience.checkpoint import CheckpointManager
+    from dcnn_tpu_torch.serve import (Autoscaler, AutoscalerConfig,
+                                      DeviceLeaseBroker, EngineFactory,
+                                      Router)
+    from dcnn_tpu_torch.train import create_train_state
+
+    t_phase = time.perf_counter()
+    cfg, params, _ = model_params()
+    x, y = marker_task(np.random.default_rng(SEED + 70), n=ELASTIC_MHA_ROWS)
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_lease_", dir=ROOT)
+    root = os.path.join(tmp.name, "serve")
+    mgr = CheckpointManager(root, keep=2)
+    mgr.save(1, from_jax(cfg, params, device="cpu"))
+    mgr.close()
+    pool = np.random.default_rng(SEED + 71).normal(
+        size=(ROUTER_POOL, *cfg["input_shape"])).astype(np.float32)
+
+    def controllers(ckpt, seen):
+        def make(rank, peers, sock):
+            model, opt = from_jax(cfg, params, device="cuda"), SGD(0.05)
+            ctl = ElasticController(
+                model, opt, "softmax_crossentropy",
+                ArrayDataLoader(x, y, batch_size=ELASTIC_MHA_BATCH,
+                                seed=SEED),
+                config=TrainingConfig(
+                    epochs=LEASE_EPOCHS, learning_rate=0.05, seed=SEED,
+                    snapshot_dir=None, elastic=True,
+                    elastic_microbatches=ELASTIC_MHA_K,
+                    elastic_timeout_s=30.0, elastic_heartbeat_s=0.0,
+                    elastic_ckpt_steps=2, elastic_min_world=1,
+                    checkpoint_dir=ckpt),
+                rank=rank, peers=peers, listen_sock=sock)
+            ctl.fit = functools.partial(ctl.fit,
+                                        create_train_state(model, opt))
+            seen[rank] = ctl
+            return ctl
+        return make
+
+    def params_of(results):
+        for rank, r in sorted(results.items()):
+            if isinstance(r, BaseException):
+                fail(f"lease: rank {rank} raised {type(r).__name__}: {r}")
+        return {r: host_named(ts.model) for r, ts in results.items()
+                if not isinstance(ts, str)}
+
+    base_ctls = {}
+    t = time.perf_counter()
+    base = params_of(LeasedElasticTrainer(
+        controllers(os.path.join(tmp.name, "base"), base_ctls),
+        registry=MetricsRegistry()).run_segment(
+            LEASE_EPOCHS, target_world=2, resume=True))
+    base_s = time.perf_counter() - t
+
+    reg = MetricsRegistry()
+    broker = DeviceLeaseBroker(3, registry=reg)
+    lease = TrainLease(broker, initial=2, min_hold=1, registry=reg)
+    broker.register("serve", priority=1, held=1)
+    stamps = {}
+    surrender = lease.surrender
+
+    def stamped_surrender(n=1):
+        stamps.setdefault("surrender", time.perf_counter())
+        surrender(n)
+    lease.surrender = stamped_surrender
+    reset_launches()  # the leased path starts here
+    factory = EngineFactory(root, max_batch=32, device="cuda")
+    Replica = counting_replica_class()
+    made = []
+
+    def make_replica(version):
+        made.append(Replica(factory, 1 if version is None else version,
+                            name=f"lease{len(made)}",
+                            queue_capacity=ROUTER_QUEUE))
+        return made[-1]
+
+    router = Router([make_replica(1)])
+    scaler = Autoscaler(router, make_replica, broker=broker, tenant="serve",
+                        # the spike's shed is the breach; a p99 its
+                        # queueing left in the window must not pin it
+                        config=AutoscalerConfig(
+                            slo_p99_ms=1000.0, up_cooldown_s=0.0,
+                            down_cooldown_s=0.0, breach_ticks=1,
+                            idle_ticks=1, min_replicas=1, max_replicas=2,
+                            drain_timeout_s=10.0))
+    seen = {}
+    trainer = LeasedElasticTrainer(
+        controllers(os.path.join(tmp.name, "leased"), seen), lease=lease,
+        min_world=1, registry=reg)
+    seg1, walls, turns = {}, [], []
+
+    def checked_tick():
+        # a scale-up whose build or capture raised fails the phase
+        out = scaler.tick()
+        turns.append({k: v for k, v in out.items() if k != "drain"})
+        if out["action"] == "error" or scaler.last_error:
+            fail(f"lease: a tick failed: {turns[-1]}, last error "
+                 f"{scaler.last_error}")
+        return out
+
+    def segment1():
+        t = time.perf_counter()
+        seg1.update(trainer.run_segment(LEASE_SEG1_EPOCHS, target_world=2,
+                                        resume=True))
+        walls.append(time.perf_counter() - t)
+
+    th = threading.Thread(target=segment1, daemon=True, name="lease-seg1")
+    th.start()
+    deadline = time.perf_counter() + 120.0
+    while not (seen.get(0) is not None and len(seen[0].step_log) >= 2):
+        if time.perf_counter() > deadline or not th.is_alive():
+            fail("lease: the training world made no progress")
+        time.sleep(0.01)
+    spike = OpenLoopMix(router, pool, FLAT_OUT_RPS, SEED + 72).start()
+    try:
+        deadline = time.perf_counter() + 60.0
+        while True:
+            time.sleep(0.2)
+            out = checked_tick()
+            if out["action"] == "blocked" and "revoked" not in stamps:
+                stamps["revoked"] = time.perf_counter()
+            if out["action"] == "up":
+                break
+            if time.perf_counter() > deadline:
+                fail(f"lease: the serving scale-up never got a lease: "
+                     f"{turns[-5:]}")
+    finally:
+        spike.stop()
+    th.join(timeout=300)
+    if th.is_alive():
+        fail("lease: the first segment hung")
+    ctl0 = seen[0]
+    if (seg1.get(1) != "preempted" or ctl0.world != 1
+            or ctl0.stats["reconfigures"] < 1
+            or "revoked" not in stamps or "surrender" not in stamps):
+        fail(f"lease: the revocation did not shrink the world to 1: "
+             f"{ {r: type(v).__name__ for r, v in seg1.items()} }, world "
+             f"{ctl0.world}, stamps {sorted(stamps)}")
+    # the spike is over: the next idle turns scale down, returning the lease
+    deadline = time.perf_counter() + 30.0
+    while True:
+        time.sleep(0.2)
+        out = checked_tick()
+        if out["action"] == "down":
+            break
+        if time.perf_counter() > deadline:
+            fail(f"lease: no scale-down after the spike: {turns[-5:]}")
+    if broker.free() != 1 or out["drain"]["swept"]:
+        fail(f"lease: the scale-down left {broker.free()} lease(s) free, "
+             f"drain {out['drain']}")
+    t = time.perf_counter()
+    seg2 = params_of(trainer.run_segment(LEASE_EPOCHS, target_world=2,
+                                         resume=True))
+    walls.append(time.perf_counter() - t)
+    counts = launches()  # and ends here
+    up_failures = router.metrics.registry.snapshot().get(
+        "autoscale_scale_up_failures_total", 0)
+    if up_failures:
+        fail(f"lease: {up_failures} scale-up(s) failed to build or capture")
+    worlds = [s["world"] for s in trainer.segments]
+    if worlds != [2, 2] or sorted(seg2) != [0, 1]:
+        fail(f"lease: segments {trainer.segments}")
+    for n in seg2[0]:
+        if not np.array_equal(seg2[0][n], seg2[1][n]):
+            fail(f"lease: the regrown replicas differ in {n}")
+    worst = 0.0
+    for n, b in base[0].items():
+        a = seg2[0][n]
+        if not np.allclose(a, b, rtol=ELASTIC_RTOL, atol=ELASTIC_ATOL):
+            fail(f"lease: {n} differs from the fixed-world run beyond rtol "
+                 f"{ELASTIC_RTOL}, atol {ELASTIC_ATOL} (max "
+                 f"{float(np.abs(a - b).max()):.3e})")
+        worst = max(worst, float(np.abs(a - b).max()))
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    if any(counts[k] <= 0 for k in flash):
+        fail(f"lease: flash launches on the leased path {counts}")
+    router.drain(timeout=60)
+    for r in made:
+        r.close()
+    tmp.cleanup()
+    out = {"launches": {k: counts[k] for k in flash},
+           "revocation_to_surrender_s": round(
+               stamps["surrender"] - stamps["revoked"], 4),
+           "segment_s": [round(w, 3) for w in walls],
+           "fixed_world_s": round(base_s, 3),
+           "segments": trainer.segments,
+           "seg1_worlds": [2, ctl0.world],
+           "reconfigure_s": ctl0.stats["reconfigure_s"],
+           "lease": {k: v for k, v in reg.snapshot().items()
+                     if k.startswith(("lease_", "train_"))},
+           "turns": turns, "spike_requests": len(spike.sent),
+           "spike_shed": sum(spike.shed.values()),
+           "max_diff": worst,
+           "phase_s": round(time.perf_counter() - t_phase, 1)}
+    print(f"lease: 3 lease slots on one card, training 2 elastic "
+          f"mha_classifier peers, serving 1; a spike revoked one (world 2 -> "
+          f"1 mid-segment), the scale-down returned it, the next segment "
+          f"regrew to 2; {json.dumps(out)}; final params within "
+          f"{worst:.2e} of the fixed-world run (rtol {ELASTIC_RTOL}, atol "
+          f"{ELASTIC_ATOL}); on {card}", flush=True)
+    return out
+
+
 def bias_before_bn(model):
     """Names (as ``named_parameters`` gives them) of the conv biases that
     feed a batchnorm directly: their gradient is zero in exact arithmetic,
@@ -7960,7 +8828,8 @@ def bias_before_bn(model):
     return names
 
 
-def int8_row(serve_int8, obs_launches, export_launches, router_launches):
+def int8_row(serve_int8, obs_launches, export_launches, router_launches,
+             autoscale_launches):
     """Row 8, conv_int8.cu: its fused mode (B, the one the int8 serving
     path launches; with its K-split reduces) with launches on that path
     and times summed over the 21 conv sites of resnet18_tiny_imagenet at
@@ -7969,7 +8838,8 @@ def int8_row(serve_int8, obs_launches, export_launches, router_launches):
     unfused chain under "chain_ms"; no library call computes either
     function. ``obs_launches``: the obs phase's telemetry-served path;
     ``export_launches``: the export phase's artifact-served path;
-    ``router_launches``: the router phase's replicas."""
+    ``router_launches``: the router phase's replicas;
+    ``autoscale_launches``: the autoscale phase's replicas."""
     def total(sites):
         out = {k: sum(c[k] for c in sites)
                for k in ("ms", "plain_ms", "bound_ms", "chain_ms")}
@@ -7989,11 +8859,12 @@ def int8_row(serve_int8, obs_launches, export_launches, router_launches):
             "source": "dcnn_tpu_torch/ops/csrc/conv_int8.cu",
             "replaces": "dcnn_tpu/ops/conv.py:77", "launches":
             counts["conv_int8_fused"] + obs_launches + export_launches
-            + router_launches,
+            + router_launches + autoscale_launches,
             "launches_by_path": {"serve_int8": counts["conv_int8_fused"],
                                  "obs": obs_launches,
                                  "export": export_launches,
-                                 "router": router_launches},
+                                 "router": router_launches,
+                                 "autoscale": autoscale_launches},
             "splitk_reduce_launches": counts["conv_int8_reduce"],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             **b32, "library_ms": None,
@@ -8085,6 +8956,9 @@ def main() -> None:
     dp["spatial"]["world2"] = check_spatial_world2(
         card, seq_dir, sp_lines, dp_ref, dp["spatial"])
     dp["telemetry"] = timed("telemetry", phase_telemetry, card)
+    fleet = {"fleet": timed("fleet", phase_fleet, card),
+             "autoscale": timed("autoscale", phase_autoscale, card),
+             "lease": timed("lease", phase_lease, card)}
     print(f"phase seconds: {json.dumps(seconds)}, total "
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
 
@@ -8143,6 +9017,9 @@ def main() -> None:
     sq = {k: seq["launches"][k] + sum(r["launches"][k]
                                       for r in seq["world2"])
           for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    # the fleet phase's flash forwards: here and in the surviving children
+    fp = sum(fleet["fleet"]["launches"].values())
+    ll = fleet["lease"]["launches"]
     tc_src = "dcnn_tpu_torch/ops/csrc/conv3x3_tc.cu"
     kernels = [
         row("flash_fwd", "dcnn_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -8155,7 +9032,8 @@ def main() -> None:
              "pipeline": pl["flash_fwd"], "tcp_pipeline": tp["flash_fwd"],
              "router_tcp": router_tcp["survivor"]["launches"]["flash_fwd"],
              "elastic_mha": em["flash_fwd"],
-             "sequence": sq["flash_fwd"]}),
+             "sequence": sq["flash_fwd"], "fleet": fp,
+             "lease": ll["flash_fwd"]}),
         row("flash_bwd_dq", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:460", bwd_cases["dq"],
             {"serve": 0, "train": tl["flash_bwd_dq"],
@@ -8164,7 +9042,7 @@ def main() -> None:
              "pipeline": pl["flash_bwd_dq"],
              "tcp_pipeline": tp["flash_bwd_dq"],
              "elastic_mha": em["flash_bwd_dq"],
-             "sequence": sq["flash_bwd_dq"]}),
+             "sequence": sq["flash_bwd_dq"], "lease": ll["flash_bwd_dq"]}),
         row("flash_bwd_dkv", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:478", bwd_cases["dkv"],
             {"serve": 0, "train": tl["flash_bwd_dkv"],
@@ -8173,7 +9051,8 @@ def main() -> None:
              "obs": obs["flash_bwd_dkv"], "pipeline": pl["flash_bwd_dkv"],
              "tcp_pipeline": tp["flash_bwd_dkv"],
              "elastic_mha": em["flash_bwd_dkv"],
-             "sequence": sq["flash_bwd_dkv"]}),
+             "sequence": sq["flash_bwd_dkv"],
+             "lease": ll["flash_bwd_dkv"]}),
         site_row("conv3x3_s1", tc_src, "dcnn_tpu/ops/pallas/conv.py:82"),
         site_row("conv3x3_s1_pairs", tc_src,
                  "dcnn_tpu/ops/pallas/conv.py:173"),
@@ -8183,7 +9062,8 @@ def main() -> None:
                  "dcnn_tpu/ops/pallas/fused.py:49"),
         int8_row(serve_int8, obs["conv_int8_fused"],
                  export["resnet18"]["launches"]["conv_int8_fused"],
-                 router["launches"]["conv_int8_fused"]),
+                 router["launches"]["conv_int8_fused"],
+                 fleet["autoscale"]["launches"]),
     ]
     print(json.dumps({"pipeline": {
         "launches": pipe["launches"], "samples_per_s": {
@@ -8203,6 +9083,7 @@ def main() -> None:
           flush=True)
     print(json.dumps({"data_parallel": dp}), flush=True)
     print(json.dumps({"sequence": seq}), flush=True)
+    print(json.dumps({"fleet_plane": fleet}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -28,6 +28,12 @@ and one span tracer for the whole port, and the surfaces that export them.
   ``TrainingConfig.metrics_port``.
 - :mod:`.xla`: FLOP counts, compile counters and the card's memory
   gauges (``sample_hbm``).
+- :mod:`.fleet`: :class:`FleetAggregator` (N telemetry surfaces merged
+  into labeled fleet series, ``/fleet``, ``/alerts`` and a roll-up
+  ``/healthz``) and :class:`HttpScraper` (resolved lazily).
+- :mod:`.trace`: ``python -m dcnn_tpu_torch.obs.trace merge|inspect``,
+  the per-process JSONL shards merged into one Chrome trace, and flight
+  bundles summarized.
 
 Standard library only at import time.
 """
@@ -43,6 +49,7 @@ _LAZY = {
     "TimeSeriesStore": "tsdb", "TsdbSampler": "tsdb",
     "RuleEngine": "rules", "AlertRule": "rules",
     "RecordingRule": "rules", "rules_check": "rules",
+    "FleetAggregator": "fleet", "HttpScraper": "fleet",
 }
 
 
@@ -63,4 +70,5 @@ __all__ = [
     "FlightRecorder", "get_flight_recorder", "configure_flight",
     "TimeSeriesStore", "TsdbSampler",
     "RuleEngine", "AlertRule", "RecordingRule", "rules_check",
+    "FleetAggregator", "HttpScraper",
 ]

@@ -31,8 +31,9 @@ per-thread context stack: entering ``with tracer.span(...)`` activates the
 span for the thread, so nested spans chain; :meth:`Tracer.inject`
 snapshots the active context as a JSON-safe carrier dict and
 :meth:`Tracer.activate` adopts a carrier from another thread or process.
-The JSONL shards have the JAX package's format, so its merge CLI
-(``python -m dcnn_tpu.obs.trace``) reads them too. Disabled, ``inject``
+The JSONL shards (``dcnn-trace-jsonl/1``, the JAX package's format)
+merge into one Chrome trace through the port's own CLI,
+``python -m dcnn_tpu_torch.obs.trace merge``. Disabled, ``inject``
 returns ``None`` and ``activate`` the shared null context manager.
 
 **Saturation is visible.** Ring-buffer eviction increments
@@ -430,9 +431,10 @@ class Tracer:
 
     # -- exporters ---------------------------------------------------------
     def shard_meta(self) -> Dict[str, Any]:
-        """The JSONL shard header: everything a merge tool (the JAX
-        package's ``python -m dcnn_tpu.obs.trace`` reads this format) needs to place this process's
-        events on a shared timeline — the tracer epoch in its own clock
+        """The JSONL shard header: everything the merge tool
+        (``python -m dcnn_tpu_torch.obs.trace merge``, :mod:`.trace`)
+        needs to place this process's events on a shared timeline — the
+        tracer epoch in its own clock
         domain (``perf_counter`` = CLOCK_MONOTONIC on Linux: one clock
         system-wide, so same-host shards align exactly), plus the process
         identity merged traces are attributed to."""

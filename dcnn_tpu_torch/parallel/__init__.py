@@ -8,7 +8,9 @@ over a mesh of processes (``data_parallel``, ``multihost``, with
 ``core/mesh.py``; the compiled pipeline's ``data_axis=``), elastic data
 parallelism over TCP peers (``elastic``), sequence parallelism over a
 mesh's ``"seq"`` axis (``sequence``: ring, zigzag and Ulysses attention on
-the flash kernels) and spatial sharding of the mesh step
+the flash kernels), the elastic world's side of the device leases it
+shares with the serving autoscaler (``autoscale``: ``TrainLease``,
+``LeasedElasticTrainer``) and spatial sharding of the mesh step
 (``shard_batch(spatial_axis=)``, ``make_data_parallel_train_step(
 spatial_axis=)``: dim 2 over a second mesh axis, the halos exchanged by
 ``data_parallel``'s ``HaloExchange`` at each conv and pool).
@@ -34,6 +36,7 @@ from .elastic import (
     parse_peers,
 )
 from .multihost import PeerLostError
+from .autoscale import LeasedElasticTrainer, TrainLease
 from .sequence import (
     make_ring_attention, make_ulysses_attention, make_zigzag_ring_attention,
     shard_sequence, zigzag_permutation, zigzag_shard,
@@ -60,6 +63,7 @@ __all__ = [
     "ElasticController", "Membership", "PeerSpec", "PeerLostError",
     "EvictedError", "PreemptedError", "WorldCollapsedError",
     "microbatch_span", "parse_peers", "elastic_fit",
+    "LeasedElasticTrainer", "TrainLease",
     "PipelineStage", "InProcessPipelineCoordinator", "PipelineError",
     "train_pipeline_batch_sync",
     "HeteroCompiledPipeline", "SequentialStageStack",

@@ -12,6 +12,10 @@ from .replica import (
 from .router import NoReplicasError, Router, RouterShedError
 from .swap import EngineFactory, ModelVersionManager, newest_valid_version
 from .traffic import diurnal, open_loop, spike, step
+from .autoscale import (
+    Autoscaler, AutoscalerConfig, DeviceLeaseBroker, HttpScraper,
+    autoscale_check,
+)
 
 __all__ = ["DrainingError", "DynamicBatcher", "QueueFullError",
            "ShutdownError", "ContinuousBatcher", "DecodeEngine",
@@ -21,4 +25,6 @@ __all__ = ["DrainingError", "DynamicBatcher", "QueueFullError",
            "LocalReplica", "TcpReplica", "ReplicaServer", "ReplicaError",
            "ReplicaDeadError", "SwapError", "Router", "RouterShedError",
            "NoReplicasError", "EngineFactory", "ModelVersionManager",
-           "newest_valid_version", "open_loop", "diurnal", "spike", "step"]
+           "newest_valid_version", "open_loop", "diurnal", "spike", "step",
+           "Autoscaler", "AutoscalerConfig", "DeviceLeaseBroker",
+           "HttpScraper", "autoscale_check"]

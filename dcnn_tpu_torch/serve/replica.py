@@ -366,15 +366,23 @@ class LocalReplica:
             self._dead_reason = None
 
     def close(self) -> None:
-        """Graceful teardown: drain accepted work, then stop."""
+        """Graceful teardown: drain accepted work, then stop. An engine
+        this replica built from its factory then gives its graph pool
+        back (``_release``), as a swap's retired engine does: a replica
+        the autoscaler scaled down holds no device memory. An engine
+        passed in stays the caller's."""
         with self._lock:
             if self._state == "closed":
                 return
             batcher, self._batcher = self._batcher, None
             self._state = "closed"
             self._dead_reason = "closed"
+            engine = self._engine
         if batcher is not None:
             batcher.shutdown(drain=True, timeout=self.drain_timeout_s)
+        release = getattr(engine, "_release", None)
+        if release is not None and self._factory is not None:
+            release()
 
     def __enter__(self) -> "LocalReplica":
         return self

@@ -10,7 +10,9 @@ lattice point, and the per-step, guarded, chunked and resident train
 steps, replayed from CUDA graphs bit for bit against the eager path (cuDNN
 deterministic for training), the launch counters advanced by the captured
 delta, a host read refused at capture, two threads on one engine, and a
-rollback and a resume after capture.
+rollback and a resume after capture; the router tier's and the
+autoscaler's replicas (a scale-up builds and serves an engine replica, a
+scale-down leaves its pool at 0 B).
 
 Every test here needs an NVIDIA GPU and skips without one (decided inside
 the test). The file imports neither JAX nor the JAX package, so it also
@@ -2863,6 +2865,91 @@ def test_router_tcp_replica_over_a_child_process(tmp_path):
     assert line["version"] == 2 and line["engines"] == 2
     assert line["batches"] > 0
     assert line["launches"]["conv_int8_fused"] == 2 * line["dispatched"]
+
+
+# --------------------------------------------------------- autoscaling
+
+def _autoscaled_fleet(tmp_path):
+    """A ``Router`` over one int8 engine replica of v1 and an
+    ``Autoscaler`` whose factory builds more from the same
+    ``EngineFactory``; its scrape reads breach or idle text on demand."""
+    from dcnn_tpu_torch.obs.exposition import render_scalar
+    from dcnn_tpu_torch.serve import (Autoscaler, AutoscalerConfig,
+                                      EngineFactory, LocalReplica, Router)
+
+    root, calib, pool = _router_versions(tmp_path)
+    engines = EngineFactory(root, max_batch=8, int8_calib=calib)
+    made = []
+
+    def factory(version):
+        rep = LocalReplica(engines, version, name=f"as{len(made)}")
+        made.append(rep)
+        return rep
+
+    router = Router([factory(1)])
+    mode = {"depth": 30.0, "p99": 1000.0}
+
+    def scrape(name, replica):
+        return "\n".join(
+            render_scalar("serve_queue_depth", "gauge", mode["depth"])
+            + render_scalar("serve_latency_window_p99_ms", "gauge",
+                            mode["p99"])) + "\n"
+
+    scaler = Autoscaler(router, factory, scrape=scrape, config=
+                        AutoscalerConfig(up_cooldown_s=0.0,
+                                         down_cooldown_s=0.0,
+                                         breach_ticks=1, idle_ticks=1,
+                                         max_replicas=2))
+    return router, scaler, made, mode, engines, pool
+
+
+def test_autoscale_up_builds_an_engine_replica_that_serves(tmp_path):
+    """A scale-up on a breach builds a real int8 engine replica (its
+    buckets captured as graphs) while the first serves; requests routed
+    to the new one answer bit for bit a fresh engine of the version."""
+    router, scaler, made, _mode, engines, pool = _autoscaled_fleet(tmp_path)
+    try:
+        out = scaler.tick()
+        assert out["action"] == "up" and len(made) == 2
+        new = made[1]
+        assert new._engine.graphs.bytes() > 0
+        want = engines(1).infer(pool).cpu().numpy()
+        got = new.submit(pool[:5]).result(timeout=60)
+        np.testing.assert_array_equal(got, want[:5])
+        futs = [router.submit(pool[i]) for i in range(16)]
+        for i, f in enumerate(futs):
+            np.testing.assert_array_equal(f.result(timeout=60), want[i])
+        assert new.metrics.snapshot()["requests_completed"] > 0
+        snap = router.metrics.registry.snapshot()
+        assert snap["autoscale_spinup_seconds"]["count"] == 1
+    finally:
+        router.shutdown()
+        for r in made:
+            r.close()
+
+
+def test_autoscale_down_leaves_the_retired_pool_empty(tmp_path):
+    """The scale-down drains and decommissions the replica the autoscaler
+    built and closes it: its engine's graph pool reads 0 B, and the
+    survivor still serves."""
+    router, scaler, made, mode, engines, pool = _autoscaled_fleet(tmp_path)
+    try:
+        assert scaler.tick()["action"] == "up"
+        victim = made[1]
+        mode.update(depth=0.0, p99=1.0)
+        out = scaler.tick()
+        assert out["action"] == "down" and out["removed"] == victim.name
+        assert out["drain"]["swept"] == 0
+        assert victim._engine.graphs.bytes() == 0
+        assert made[0]._engine.graphs.bytes() > 0
+        want = engines(1).infer(pool[:3]).cpu().numpy()
+        np.testing.assert_array_equal(
+            router.submit(pool[:3]).result(timeout=60), want)
+    finally:
+        router.shutdown()
+        for r in made:
+            r.close()
+    assert made[0]._engine.graphs.bytes() == 0
 
 
 # ---------------------------------------------------------------------------

@@ -23,9 +23,8 @@ profilers:
   whose ``analysis/`` is not ported);
 - the H100 peak behind ``mfu_live`` and the trainer's wiring of it.
 
-The JAX tests of the fleet roll-up (``obs/fleet.py``) and of the
-benchmark regression gate (``obs/regress.py``) have no twin here: those
-modules are not ported yet.
+The JAX test of the benchmark regression gate (``obs/regress.py``) has
+no twin here: that module is not ported yet.
 """
 
 import json

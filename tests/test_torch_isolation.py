@@ -31,7 +31,12 @@ imported alone, a mesh step over a world of one, an elastic fleet of two
 thread peers and an elastic ``Trainer.fit`` on the CPU, and on spatial
 sharding and the trainer's telemetry plane: ``ops/spatial.py`` and
 ``obs/goodput.py``, ``obs/anomaly.py`` and ``obs/rules.py`` each read and
-imported alone, a spatial mesh step and a fit serving ``/goodput``."""
+imported alone, a spatial mesh step and a fit serving ``/goodput``, and
+on the fleet plane and autoscaling: ``obs/trace.py``, ``obs/fleet.py``,
+``serve/autoscale.py``, ``parallel/autoscale.py`` and ``serve/soak.py``
+each read and imported alone, then the soak, the aggregator over HTTP and
+in-process targets, the trace CLI and a leased training segment driven on
+the CPU with JAX, flax and the JAX package blocked at import."""
 
 import ast
 import os
@@ -218,11 +223,24 @@ INT8_DECODE = (
     " max_new_tokens=4)).all()\n")
 
 
-def _run_isolated(body: str) -> None:
+# a meta-path finder that refuses the forbidden names outright, so an
+# import of one fails where it is made instead of loading quietly
+BLOCKER = (
+    "import importlib.abc, sys\n"
+    "class _Block(importlib.abc.MetaPathFinder):\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    f"        if name.split('.')[0] in {FORBIDDEN!r}:\n"
+    "            raise ImportError(f'blocked: {name}')\n"
+    "        return None\n"
+    "sys.meta_path.insert(0, _Block())\n")
+
+
+def _run_isolated(body: str, blocked: bool = False) -> None:
     """Run ``body`` in a fresh interpreter after ``import dcnn_tpu_torch``
     and check that no module of JAX, flax, msgpack or the JAX package was
-    loaded."""
+    loaded; with ``blocked``, importing one raises from the start."""
     code = (
+        (BLOCKER if blocked else "") +
         "import sys, torch\n"
         "import dcnn_tpu_torch\n"
         + body +
@@ -841,3 +859,87 @@ def test_spatial_step_and_telemetry_plane_leave_jax_out():
     a ``Trainer.fit`` serving ``/goodput`` on the CPU, load no JAX, flax,
     msgpack, ml_dtypes or JAX-package module."""
     _run_isolated(SPATIAL_AND_TELEMETRY)
+
+
+# the fleet plane and autoscaling
+FLEET_MODULES = ("dcnn_tpu_torch.obs.trace", "dcnn_tpu_torch.obs.fleet",
+                 "dcnn_tpu_torch.serve.autoscale",
+                 "dcnn_tpu_torch.parallel.autoscale",
+                 "dcnn_tpu_torch.serve.soak")
+
+
+@pytest.mark.parametrize("module", FLEET_MODULES)
+def test_fleet_and_autoscale_module_imports_no_jax(module):
+    """The source of each module imports no JAX, flax, msgpack or
+    JAX-package module."""
+    path = REPO / (module.replace(".", "/") + ".py")
+    bad = [f"{line} imports {mod}" for line, mod in _imports(path)
+           if _forbidden(mod)]
+    assert not bad, bad
+
+
+FLEET = (
+    "import importlib, json, os, tempfile, threading, urllib.request\n"
+    f"for name in {FLEET_MODULES!r}:\n"
+    "    importlib.import_module(name)\n"
+    "    bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+    f"{FORBIDDEN!r})\n"
+    "    assert not bad, (name, bad)\n"
+    "import numpy as np\n"
+    "from dcnn_tpu_torch.obs import FleetAggregator, HttpScraper, configure\n"
+    "from dcnn_tpu_torch.obs.flight import FlightRecorder\n"
+    "from dcnn_tpu_torch.obs.registry import MetricsRegistry\n"
+    "from dcnn_tpu_torch.obs.trace import main as trace_main\n"
+    "from dcnn_tpu_torch.parallel import LeasedElasticTrainer, TrainLease\n"
+    "from dcnn_tpu_torch.serve import DeviceLeaseBroker, LocalReplica\n"
+    "from dcnn_tpu_torch.serve.soak import (run_diurnal_soak,"
+    " synthetic_engine_factory)\n"
+    "report, scaler, router = run_diurnal_soak(seconds=30.0, period=30.0,"
+    " kill_at=12.0, canary_at=18.0)\n"
+    "assert report['silently_dropped'] == 0 and report['scale_ups'] >= 1\n"
+    "assert report['history']['points'] > 0\n"
+    "tracer = configure(enabled=True)\n"
+    "rep = LocalReplica(synthetic_engine_factory, 1, name='r0', start=False)\n"
+    "srv = rep.start_telemetry(port=0)\n"
+    "f = rep.submit(np.zeros(4, np.float32))\n"
+    "rep.step()\n"
+    "assert (f.result(0) == 1).all()\n"
+    "agg = FleetAggregator(registry=MetricsRegistry())\n"
+    "agg.add_target('local', server=srv)\n"
+    "agg.add_target('http', url=srv.url)\n"
+    "agg.add_target('gone', url='http://127.0.0.1:9')\n"
+    "agg.poll()\n"
+    "fsrv = agg.serve()\n"
+    "doc = json.loads(urllib.request.urlopen(fsrv.url + '/fleet',"
+    " timeout=10).read())\n"
+    "assert doc['series']['serve_samples_completed_total']['sum'] == 2\n"
+    "assert 'gone' in agg.health_rollup()\n"
+    "assert HttpScraper({'r0': srv.url})('r0')\n"
+    "agg.close()\n"
+    "rep.close()\n"
+    "d = tempfile.mkdtemp()\n"
+    "shard = tracer.export_jsonl(os.path.join(d, 's.jsonl'))\n"
+    "assert trace_main(['merge', shard, '-o', os.path.join(d, 'm.json'),"
+    " '--json']) == 0\n"
+    "b = FlightRecorder(d, min_interval_s=0.0).record('unit', reasons=['r'])\n"
+    "assert trace_main(['inspect', b]) == 0\n"
+    "broker = DeviceLeaseBroker(2, registry=MetricsRegistry())\n"
+    "lease = TrainLease(broker, initial=2, registry=MetricsRegistry())\n"
+    "broker.register('serve', priority=1)\n"
+    "class Ctl:\n"
+    "    def preempt(self, reason=''):\n"
+    "        pass\n"
+    "    def fit(self, epochs, resume=True):\n"
+    "        return 'done'\n"
+    "t = LeasedElasticTrainer(lambda r, p, s: Ctl(), lease=lease,"
+    " registry=MetricsRegistry())\n"
+    "assert t.run_segment(1) == {0: 'done', 1: 'done'}\n")
+
+
+def test_fleet_plane_and_autoscaling_leave_jax_out():
+    """The five modules imported one by one, then the diurnal soak, a
+    ``FleetAggregator`` over an in-process, an HTTP and a dead target
+    serving ``/fleet``, the trace CLI's merge and inspect and a leased
+    training segment, on the CPU with JAX, flax, msgpack and the JAX
+    package blocked at import: nothing of them is loaded."""
+    _run_isolated(FLEET, blocked=True)

@@ -273,10 +273,21 @@ Phases, each fatal on failure:
    ResNet-18 over ``PrefetchLoader(feed_workers=2)`` with
    ``metrics_port=0``: ``/metrics``, ``/healthz``, ``/snapshot`` and
    ``/goodput`` scraped mid-fit, the goodput buckets summing to the
-   window's wall; ``feed.slow_worker`` armed for the last epoch flips the
-   verdict to feed-bound with exactly one flight bundle and one profiler
-   capture; samples/s with the plane on and off. Phases 28-29 print under
+   window's wall; a pause of the loader brings the verdict to healthy,
+   then ``feed.slow_worker`` armed for the last epoch flips it to
+   feed-bound with exactly one flight bundle and one profiler capture;
+   samples/s with the plane on and off. Phases 28-29 print under
    ``{"data_parallel": {"spatial": ..., "telemetry": ...}}``.
+30-32. fleet, autoscale and lease (``phase_fleet``, ``phase_autoscale``,
+   ``phase_lease``; see their docstrings), under ``{"fleet_plane": ...}``.
+33. examples (``phase_examples``): the example drivers of
+   ``dcnn_tpu_torch/examples`` as a user starts them: the long-context
+   trainer at its defaults (flash kernels, fresh-data accuracy >= 0.9),
+   the committed snapshot evaluated (unfolded, folded, int8, each within
+   a sample of the CPU's) and served int8 (``conv_int8_fused`` launched,
+   each site bit for bit its plain version), digits28 trained to its 0.99
+   gate, the other drivers in processes of their own; under
+   ``{"examples": ...}``.
 
 Compiled sessions (CUDA graphs, ``dcnn_tpu_torch/core/graphs.py``): in
 serve, serve cnn, serve int8 and decode every bucket or lattice point is a
@@ -529,6 +540,8 @@ FLASH_CASES = [  # name, B, H, Sq, Sk, D, causal, dtype name, timing reps
     ("causal ragged", 2, 4, 1000, 1000, 64, True, "float32", 20),
     ("causal sq<sk", 2, 3, 77, 300, 128, True, "float32", 50),
     ("long context", 4, 8, 4096, 4096, 64, True, "bfloat16", 5),
+    # the long-context example driver's attention (phase 33)
+    ("examples long context", 32, 2, 2048, 2048, 64, True, "float32", 3),
     ("fully masked rows", 1, 2, 200, 10, 32, True, "float32", 50),
     # diagonal offset 65: the last key the first 64-row q tile may see is
     # the first key of the third kv tile, the edge of the backward
@@ -7595,21 +7608,27 @@ SP_TIMED = 6              # more eager world-2 steps, timed
 SP_F64_TOL = 1e-10
 # the trainer's telemetry plane: full-width ResNet-18 through Trainer.fit
 # over a PrefetchLoader fed by 2 feed workers (threads, so that the
-# process's FaultPlan reaches them), plane off (3 epochs) and on (4
+# process's FaultPlan reaches them), plane off (3 epochs) and on (5
 # epochs: the tracer on, /metrics /healthz /snapshot /goodput scraped in
-# epoch 2, feed.slow_worker armed for epoch 4). B=128 (a ~50 ms step), so
+# epoch 2, the loader paused in epoch 4, feed.slow_worker armed for epoch
+# 5). B=128 (a ~50 ms step), so
 # that the host's jitter (a GC pass, the sampler's GIL) stays well inside
 # the anomaly band's 50% floor; the slow workers' 0.5 s a shard then make
 # the feed ~80% of the wall. The goodput window and the sampler's cadence
 # are shortened (the JAX package's env knobs) so that an epoch spans
-# several windows, a pass every quarter window: the verdict crosses from
-# compute- to feed-bound in under a pass of healthy windows, which the
-# classifier's 2-window dwell does not confirm.
+# several windows, a pass every quarter window. The episode starts from
+# healthy: from compute-bound, the window's open tail (a slow shard's
+# spans land only when it is done) can hold the verdict between the two
+# states for the 2 passes the dwell confirms, a flip of its own. The pause
+# (the loader yields nothing: unattributed time) flips compute-bound to
+# healthy, and its capture closes on the fast steps after it, before the
+# arming; from healthy the slow feed has one flip to make.
 TELEM_BATCH = 128
 TELEM_STEPS = 32          # steps an epoch
 TELEM_WINDOW_S = "2.0"    # DCNN_GOODPUT_WINDOW
 TELEM_INTERVAL_S = "0.5"  # DCNN_TSDB_INTERVAL
 TELEM_SLOW_S = 0.5        # a feed worker's extra seconds a shard, armed
+TELEM_PAUSE_MAX_S = 20.0  # the pause's limit: the verdict healthy by then
 
 
 def phase_spatial(card):
@@ -7793,16 +7812,19 @@ def phase_telemetry(card):
     workers. First one ``try_trace`` capture of two steps alone, its start
     and its stop and export timed.
     Then the fit with the plane off (3 epochs), then on
-    (``metrics_port=0``, the tracer on, 4 epochs): ``/metrics``,
+    (``metrics_port=0``, the tracer on, 5 epochs): ``/metrics``,
     ``/healthz``, ``/snapshot`` and ``/goodput`` scraped mid-epoch 2 (from
     the loader, between two steps: an event, not a sleep), the window's
-    buckets and unattributed residue summing to its wall;
-    ``FaultPlan.slow("feed.slow_worker")`` armed for epoch 4: the verdict
-    flips to feed-bound (scraped once it has) and the episode writes
-    exactly one flight bundle and one profiler capture (the flight
-    recorder's per-trigger cooldown set to 0 for the phase, so that the
-    count is the anomaly monitor's own). Samples/s of the faster of
-    epochs 2-3 with the plane on and off; no speed gate."""
+    buckets and unattributed residue summing to its wall; mid-epoch 4 the
+    loader pauses until the verdict reads healthy (no capture open when
+    it starts), and that flip's capture closes on the epoch's remaining
+    steps; ``FaultPlan.slow("feed.slow_worker")`` armed for epoch 5 from
+    healthy, no capture open: the verdict flips to feed-bound (scraped
+    once it has) and the episode writes exactly one flight bundle and one
+    profiler capture (the flight recorder's per-trigger cooldown set to 0
+    for the phase, so that the count is the anomaly monitor's own).
+    Samples/s of the faster of epochs 2-3 with the plane on and off; no
+    speed gate."""
     import tempfile
     import urllib.request
 
@@ -7842,21 +7864,36 @@ def phase_telemetry(card):
 
     class Driven(PrefetchLoader):
         """The fit's loader: in epoch 2 (plane on) it scrapes the four
-        endpoints between two steps; from epoch 3 it arms the slow feed
-        and scrapes ``/goodput`` once the verdict has flipped."""
+        endpoints between two steps; in epoch 4 it pauses until the
+        verdict reads healthy; at epoch 5 it arms the slow feed and
+        scrapes ``/goodput`` once the verdict has flipped."""
 
         def __init__(self, *a, trainer_ref=None, **kw):
             super().__init__(*a, **kw)
             self.epoch, self.trainer_ref, self.seen = 0, trainer_ref, {}
 
+        def pause(self, tr):
+            # no step, no span: the window fills with unattributed time
+            # until compute falls out of its band and the dwell confirms
+            clf, t = tr._goodput.classifier, time.perf_counter()
+            state = clf.state
+            while clf.state != "healthy" \
+                    and time.perf_counter() - t < TELEM_PAUSE_MAX_S:
+                time.sleep(0.05)
+            self.seen["pause"] = {"from": state, "to": clf.state,
+                                  "seconds": time.perf_counter() - t}
+
         def __iter__(self):
             self.epoch += 1
             tr = self.trainer_ref[0] if self.trainer_ref else None
-            if tr is not None and self.epoch == 4:
+            if tr is not None and self.epoch == 5:
                 self.seen["before"] = (
                     sorted(os.listdir(flight_dir))
                     if os.path.isdir(flight_dir) else [],
                     sorted(os.listdir(prof_dir)))
+                self.seen["at_arming"] = {
+                    "state": tr._goodput.classifier.state,
+                    "quiet": tr._goodput.anomaly.quiet_for(0.0)}
                 faults.install(faults.FaultPlan().slow(
                     "feed.slow_worker", delay_s=TELEM_SLOW_S))
                 self.seen["armed_at"] = time.perf_counter()
@@ -7867,7 +7904,14 @@ def phase_telemetry(card):
                     self.seen["scrape"] = {
                         e: get(url + e) for e in ("/metrics", "/healthz",
                                                   "/snapshot", "/goodput")}
+                # the pause once no capture is open: its flip's capture
+                # then closes on this epoch's remaining steps
                 if tr is not None and self.epoch == 4 \
+                        and i >= TELEM_STEPS // 2 \
+                        and "pause" not in self.seen \
+                        and tr._goodput.anomaly.quiet_for(0.0):
+                    self.pause(tr)
+                if tr is not None and self.epoch == 5 \
                         and "flipped" not in self.seen \
                         and tr._goodput.classifier.state == "feed_bound":
                     self.seen["flipped"] = (
@@ -7886,7 +7930,7 @@ def phase_telemetry(card):
                         depth=2, feed_workers=2, worker_pool=pool,
                         trainer_ref=ref if plane else None)
         trainer = Trainer(model, opt, "softmax_crossentropy", TrainingConfig(
-            epochs=4 if plane else 3, batch_size=TELEM_BATCH,
+            epochs=5 if plane else 3, batch_size=TELEM_BATCH,
             learning_rate=DP_LR, seed=SEED, snapshot_dir=None,
             progress_interval=0, feed_workers=2,
             metrics_port=0 if plane else -1))
@@ -7959,6 +8003,10 @@ def phase_telemetry(card):
     if b"goodput_fraction" not in scrape["/metrics"][1]:
         fail("telemetry: /metrics carries no goodput_fraction")
     mid = summed(json.loads(scrape["/goodput"][1]))
+    if seen.get("at_arming") != {"state": "healthy", "quiet": True}:
+        fail(f"telemetry: the slow feed was armed at {seen.get('at_arming')}"
+             f" (the pause: {seen.get('pause')}), not from healthy with no "
+             f"capture open")
     if "flipped" not in seen:
         fail("telemetry: the verdict never flipped to feed_bound under the "
              "slow feed workers")
@@ -7983,19 +8031,21 @@ def phase_telemetry(card):
     rows = TELEM_STEPS * TELEM_BATCH
     sps = {"off": max(rows / h["seconds"] for h in off.history[1:3]),
            "on": max(rows / h["seconds"] for h in on.history[1:3]),
-           "slow_epoch": rows / on.history[3]["seconds"]}
+           "slow_epoch": rows / on.history[4]["seconds"]}
     out = {"samples_per_s": sps, "mid_epoch_window": mid,
            "flip_after_s": flip_s, "slow_window": slow,
            "bundle": reasons[0], "profile": profiles[0],
-           "captures_before_arming": len(before_b),
+           "pause": seen["pause"], "captures_before_arming": len(before_b),
            "first_capture_s": capture_s}
     print(f"telemetry: resnet18_tiny_imagenet NCHW B={TELEM_BATCH} through "
           f"Trainer.fit over PrefetchLoader(feed_workers=2): /metrics "
           f"/healthz /snapshot /goodput answered mid-fit; window "
           f"{mid['wall_s']:.2f} s = buckets + unattributed (goodput "
           f"{mid['goodput_fraction']:.3f}, verdict {mid['verdict']}, "
-          f"mfu_live {mid['mfu_live']}); feed.slow_worker "
-          f"({TELEM_SLOW_S} s a shard) armed for epoch 4: feed_bound "
+          f"mfu_live {mid['mfu_live']}); a pause of "
+          f"{seen['pause']['seconds']:.2f} s took the verdict from "
+          f"{seen['pause']['from']} to healthy; feed.slow_worker "
+          f"({TELEM_SLOW_S} s a shard) armed for epoch 5: feed_bound "
           f"{flip_s:.2f} s later (feed_stall "
           f"{slow['buckets']['feed_stall']:.2f} of {slow['wall_s']:.2f} s), "
           f"1 flight bundle ({reasons[0]}) and 1 profiler capture "
@@ -8808,6 +8858,332 @@ def phase_lease(card):
     return out
 
 
+# phase 33: the example drivers (dcnn_tpu_torch/examples)
+EX_TIMEOUT_S = 110         # each driver run in a subprocess
+EX_PROCS = 6               # subprocess drivers at a time
+EX_TEST_ROWS = 359         # the digits28 test split
+LONG_CONTEXT_MIN_ACC = 0.9
+EX_INT8_REPS = (200, 10)   # kernel, plain: device_ms reps at a snapshot site
+# drivers whose data is real: none may fall back to synthetic data
+EX_REAL_DATA = {"evaluate_snapshot", "serve_snapshot", "accuracy_gates",
+                "resume_training", "trace_training", "dataset_visual_check"}
+# (driver, argv, env) run as subprocesses at their smallest documented
+# sizes; the pipeline over TCP through its launcher
+EX_SUBPROCESS = [
+    ("mnist_cnn_trainer", [], {"EPOCHS": "1"}),
+    ("cifar10_cnn_trainer", [], {"EPOCHS": "1"}),
+    ("cifar10_resnet9", [], {"EPOCHS": "1"}),
+    ("cifar100_cnn_trainer", [], {"EPOCHS": "1"}),
+    ("tiny_imagenet_trainer", [], {"EPOCHS": "1", "MODEL": "resnet18"}),
+    ("uji_ips_trainer", [], {"EPOCHS": "1"}),
+    ("resume_training", [], {}),
+    ("trace_training", [], {"TRACE_EPOCHS": "1"}),
+    ("serve_router", ["--seconds", "0.5"], {}),
+    ("serve_decode", [], {}),
+    ("serve_autoscale", ["--seconds", "60"], {}),
+    ("pipeline_trainer", [], {"EPOCHS": "1", "MODEL": "mha_classifier"}),
+    ("launch_pipeline.sh", ["2", "sync"], {"EPOCHS": "1"}),
+    ("hardware_info_example", [], {}),
+    ("backend_comparison", [], {}),
+    ("dataset_visual_check", [], {}),
+]
+
+
+class _Tee:
+    """A text stream writing to ``stream`` and keeping a copy."""
+
+    def __init__(self, stream):
+        self.stream, self.parts = stream, []
+
+    def write(self, s):
+        self.parts.append(s)
+        return self.stream.write(s)
+
+    def flush(self):
+        self.stream.flush()
+
+    def text(self) -> str:
+        return "".join(self.parts)
+
+
+def run_example(name, argv=(), env=None):
+    """``dcnn_tpu_torch.examples.<name>`` in this process: loaded through
+    runpy, its ``main`` called with ``sys.argv`` and the environment set
+    for the call (both put back after), its stdout copied. Returns (what
+    main returned, the stdout). A driver's SystemExit fails the phase."""
+    import contextlib
+    import runpy
+
+    saved_env, saved_argv = dict(os.environ), sys.argv
+    os.environ.update(env or {})
+    sys.argv = [name, *argv]
+    tee = _Tee(sys.stdout)
+    try:
+        ns = runpy.run_module(f"dcnn_tpu_torch.examples.{name}",
+                              run_name="dcnn_example")
+        with contextlib.redirect_stdout(tee):
+            out = ns["main"]()
+    except SystemExit as e:
+        fail(f"examples: {name} exited: {e}")
+    finally:
+        os.environ.clear()
+        os.environ.update(saved_env)
+        sys.argv = saved_argv
+    return out, tee.text()
+
+
+def consecutive_free_ports(n):
+    """A port p with p..p+n-1 free on localhost."""
+    import random
+    import socket
+
+    rng = random.Random(os.getpid())
+    for _ in range(200):
+        base = rng.randrange(20000, 40000)
+        socks = []
+        try:
+            for p in range(base, base + n):
+                s = socket.socket()
+                s.bind(("127.0.0.1", p))
+                socks.append(s)
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    fail("examples: no free ports")
+
+
+def example_subprocess(name, argv, env, tmp):
+    """One driver in a process of its own on the card from the repo's
+    root; (return code, seconds, stdout, stderr's tail)."""
+    e = {k: v for k, v in os.environ.items() if k != "DCNN_PRECISION"}
+    e.update(PYTHONPATH=ROOT, DEVICE_TYPE="cuda", TMPDIR=tmp,
+             SNAPSHOT_DIR=os.path.join(tmp, "snap", name),
+             RESULTS_DIR=os.path.join(tmp, "results"), **env)
+    if name.endswith(".sh"):
+        e.update(BASE_PORT=str(consecutive_free_ports(2)),
+                 PYTHON=sys.executable)
+        cmd = ["bash", os.path.join(ROOT, "dcnn_tpu_torch", "examples", name),
+               *argv]
+    else:
+        cmd = [sys.executable, "-m", f"dcnn_tpu_torch.examples.{name}",
+               *argv]
+    t = time.perf_counter()
+    try:
+        proc = subprocess.run(cmd, cwd=ROOT, env=e, capture_output=True,
+                              text=True, timeout=EX_TIMEOUT_S)
+    except subprocess.TimeoutExpired as err:
+        return (124, time.perf_counter() - t, err.stdout or "",
+                str(err.stderr or "")[-2000:])
+    return (proc.returncode, time.perf_counter() - t, proc.stdout,
+            proc.stderr[-2000:])
+
+
+def snapshot_int8_sites(qmodel, x):
+    """Row 8 at the int8 snapshot's conv sites, fed the model's own
+    activations of the eval batch ``x`` (hooked): each site held bit for
+    bit in both modes and timed by int8_case."""
+    import torch
+
+    from dcnn_tpu_torch.nn import QuantConv2DLayer
+
+    seen = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((mod, args[0])))
+        for m in qmodel.modules() if isinstance(m, QuantConv2DLayer)]
+    with torch.inference_mode():
+        qmodel(x)
+    for h in hooks:
+        h.remove()
+    if len(seen) != 3:
+        fail(f"examples: {len(seen)} int8 conv sites in the snapshot, not 3")
+    cases = []
+    for mod, xin in seen:
+        (s, _), (p, _) = mod.stride, mod.padding
+        cases.append(int8_case(f"snapshot {mod.name} B={xin.shape[0]}", xin,
+                               mod.x_scale, mod.w_q, mod.w_scale, mod.b, s,
+                               p, mod.data_format, EX_INT8_REPS,
+                               context=False))
+    return cases
+
+
+def phase_examples(card):
+    """Phase 33: the example drivers (``dcnn_tpu_torch/examples``), each as
+    a user starts it, on the card. In this process (``run_example``:
+    through runpy, so the launch counters see them; counted from 0 around
+    each): ``long_context_trainer`` at its defaults (B32, S2048, E128, H2:
+    D 64, fp32, 60 steps x 8 epochs, the flash kernels, with
+    ``blockwise_attention`` counted: it must not run), ``evaluate_snapshot``
+    on ``model_snapshots/mnist_cnn_model`` and the digits28 test split (and
+    again with ``DEVICE_TYPE=cpu`` for the CPU's top-1), ``serve_snapshot``
+    with ``INT8=1`` and ``accuracy_gates digits28`` (40 epochs to its 0.99
+    gate). After them ``EX_SUBPROCESS``'s drivers run as processes of
+    their own, ``EX_PROCS`` at a time, each within ``EX_TIMEOUT_S``: no
+    time of the in-process drivers is taken beside them.
+    Gates: (a) int8 and (b) unfolded and folded top-1 on the card within 1
+    of the 359 samples of the CPU's, the driver's fold and int8 gates
+    held; (c) ``conv_int8_fused`` launched by evaluate_snapshot and by
+    serve_snapshot, each snapshot site bit for bit its plain version; (d)
+    the flash forward, dQ and dK/dV launched by long_context_trainer, no
+    blockwise call, its final fresh-data accuracy at least
+    ``LONG_CONTEXT_MIN_ACC``; (e) digits28 passes its gate; (f) no
+    real-data driver fell back to synthetic data; every subprocess exits
+    0."""
+    import concurrent.futures
+    import importlib
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dcnn_tpu_torch.data import MNISTDataLoader, decode_host
+    from dcnn_tpu_torch.data.digits28 import ensure_digits28_csvs
+    from dcnn_tpu_torch.examples.common import SYNTHETIC_MARK
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_examples_",
+                                      dir=ROOT)
+    env = {"DEVICE_TYPE": "cuda", "SNAPSHOT_DIR": os.path.join(tmp.name,
+                                                               "snap"),
+           "RESULTS_DIR": os.path.join(tmp.name, "results")}
+    stdout = {}
+
+    # (d) the long-context trainer alone first: its step times are the
+    # card's without the subprocess drivers beside it
+    layer_mod = importlib.import_module("dcnn_tpu_torch.nn.attention_layer")
+    ops_mod = importlib.import_module("dcnn_tpu_torch.ops.attention")
+    blockwise = {"calls": 0}
+    original = ops_mod.blockwise_attention
+
+    def counted_blockwise(*a, **k):
+        blockwise["calls"] += 1
+        return original(*a, **k)
+
+    layer_mod.blockwise_attention = ops_mod.blockwise_attention = \
+        counted_blockwise
+    reset_launches()
+    try:
+        lc, stdout["long_context_trainer"] = run_example(
+            "long_context_trainer", env=env)
+    finally:
+        layer_mod.blockwise_attention = ops_mod.blockwise_attention = \
+            original
+    lc_counts = launches()
+    flash = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+    if any(lc_counts[k] <= 0 for k in flash) or blockwise["calls"]:
+        fail(f"examples (d): long_context_trainer launches "
+             f"{ {k: lc_counts[k] for k in flash} }, blockwise calls "
+             f"{blockwise['calls']}")
+    if lc["final_acc"] < LONG_CONTEXT_MIN_ACC:
+        fail(f"examples (d): long_context_trainer's fresh-data accuracy "
+             f"{lc['final_acc']} < {LONG_CONTEXT_MIN_ACC}: "
+             f"{json.dumps(lc['epochs'])}")
+    last = lc["epochs"][-1]
+    print(f"examples (d): long_context_trainer B32 H2 S2048 D64 fp32, 8 "
+          f"epochs of 60 steps: fresh-data accuracy "
+          f"{[e['acc'] for e in lc['epochs']]}, {last['ms_per_step']:.3f} "
+          f"ms/step = {last['tokens_per_s']:.0f} tokens/s (last epoch); "
+          f"launches { {k: lc_counts[k] for k in flash} }, blockwise 0; "
+          f"on {card}", flush=True)
+
+    # (a)-(c) the snapshot on the card and on the CPU, and (e), before the
+    # subprocess drivers start: their timings are the card's alone
+    reset_launches()
+    ev, stdout["evaluate_snapshot"] = run_example("evaluate_snapshot",
+                                                  env=env)
+    ev_counts = launches()
+    ev_cpu, _ = run_example("evaluate_snapshot",
+                            env={**env, "DEVICE_TYPE": "cpu"})
+    for kind in ("unfolded", "folded", "int8"):
+        diff = abs(ev[kind]["top1"] - ev_cpu[kind]["top1"])
+        if diff * EX_TEST_ROWS > 1 + 1e-9:
+            fail(f"examples (a/b): {kind} top-1 {ev[kind]['top1']} on "
+                 f"the card, {ev_cpu[kind]['top1']} on the CPU")
+    if ev_counts["conv_int8_fused"] <= 0:
+        fail(f"examples (c): evaluate_snapshot launched no "
+             f"conv_int8_fused: {ev_counts}")
+    d = ensure_digits28_csvs(ROOT)
+    val = MNISTDataLoader(os.path.join(d, "test.csv"), batch_size=256,
+                          shuffle=False, drop_last=False)
+    val.load_data()
+    x = torch.from_numpy(decode_host(np.asarray(next(iter(val))[0]),
+                                     val.scale)).cuda()
+    sites = snapshot_int8_sites(ev["models"]["int8"], x)
+
+    reset_launches()
+    served, stdout["serve_snapshot"] = run_example(
+        "serve_snapshot", env={**env, "INT8": "1", "SERVE_LOADS": "300",
+                               "SERVE_SECONDS": "1.0"})
+    sv_counts = launches()
+    if sv_counts["conv_int8_fused"] <= 0:
+        fail(f"examples (c): serve_snapshot INT8=1 launched no "
+             f"conv_int8_fused: {sv_counts}")
+
+    # (e) digits28 to its gate
+    gates, stdout["accuracy_gates"] = run_example(
+        "accuracy_gates", ["digits28"], env=env)
+    g = gates[0]
+    if not g["passed"]:
+        fail(f"examples (e): digits28 reached {g['val_acc']} < "
+             f"{g['target']}")
+
+    # the other drivers, EX_PROCS processes at a time
+    with concurrent.futures.ThreadPoolExecutor(max_workers=EX_PROCS) as pool:
+        futures = {name: pool.submit(example_subprocess, name, argv, extra,
+                                     tmp.name)
+                   for name, argv, extra in EX_SUBPROCESS}
+        results = {name: f.result() for name, f in futures.items()}
+    walls, failed = {}, []
+    for name, (rc, secs, out, err) in results.items():
+        walls[name] = round(secs, 1)
+        stdout[name] = out
+        tail = (out.strip().splitlines() or [""])[-1][:200]
+        print(f"examples: {name} exited {rc} after {secs:.1f} s: {tail}",
+              flush=True)
+        if rc != 0:
+            failed.append(name)
+            print(f"examples: {name}'s output ends: {out[-1500:]} {err}",
+                  flush=True)
+    if failed:
+        fail(f"examples: {failed} exited non-zero")
+    # (f) real data only
+    synthetic = sorted(n for n, text in stdout.items()
+                       if n in EX_REAL_DATA and SYNTHETIC_MARK in text)
+    if synthetic:
+        fail(f"examples (f): {synthetic} fell back to synthetic data")
+    tmp.cleanup()
+    launches_on_path = {k: lc_counts[k] for k in flash}
+    launches_on_path["conv_int8_fused"] = (ev_counts["conv_int8_fused"]
+                                           + sv_counts["conv_int8_fused"])
+    out = {
+        "launches": launches_on_path,
+        "long_context": {"final_acc": lc["final_acc"],
+                         "acc_by_epoch": [e["acc"] for e in lc["epochs"]],
+                         "ms_per_step": [round(e["ms_per_step"], 3)
+                                         for e in lc["epochs"]],
+                         "tokens_per_s": [round(e["tokens_per_s"])
+                                          for e in lc["epochs"]],
+                         "launches": {k: lc_counts[k] for k in flash}},
+        "evaluate_snapshot": {
+            dev: {k: {m: r[k][m] for m in r[k]} for k in
+                  ("unfolded", "folded", "int8")}
+            for dev, r in (("card", ev), ("cpu", ev_cpu))},
+        "evaluate_launches": ev_counts["conv_int8_fused"],
+        "serve_snapshot_int8": {"points": served["points"],
+                                "conv_int8_fused": sv_counts[
+                                    "conv_int8_fused"]},
+        "digits28": {k: g[k] for k in ("val_acc", "target", "passed",
+                                       "epochs", "wall_clock_s",
+                                       "seconds_to_target")},
+        "subprocess_s": walls,
+        "phase_s": round(time.perf_counter() - t_phase, 1)}
+    print(f"examples: {json.dumps(out)}; on {card}", flush=True)
+    out["int8_sites"] = sites
+    return out
+
+
 def bias_before_bn(model):
     """Names (as ``named_parameters`` gives them) of the conv biases that
     feed a batchnorm directly: their gradient is zero in exact arithmetic,
@@ -8829,7 +9205,7 @@ def bias_before_bn(model):
 
 
 def int8_row(serve_int8, obs_launches, export_launches, router_launches,
-             autoscale_launches):
+             autoscale_launches, examples):
     """Row 8, conv_int8.cu: its fused mode (B, the one the int8 serving
     path launches; with its K-split reduces) with launches on that path
     and times summed over the 21 conv sites of resnet18_tiny_imagenet at
@@ -8839,7 +9215,9 @@ def int8_row(serve_int8, obs_launches, export_launches, router_launches,
     function. ``obs_launches``: the obs phase's telemetry-served path;
     ``export_launches``: the export phase's artifact-served path;
     ``router_launches``: the router phase's replicas;
-    ``autoscale_launches``: the autoscale phase's replicas."""
+    ``autoscale_launches``: the autoscale phase's replicas; ``examples``:
+    phase 33's launches (evaluate_snapshot and serve_snapshot) and its
+    snapshot sites, each held and timed at the eval batch ("examples")."""
     def total(sites):
         out = {k: sum(c[k] for c in sites)
                for k in ("ms", "plain_ms", "bound_ms", "chain_ms")}
@@ -8851,7 +9229,8 @@ def int8_row(serve_int8, obs_launches, export_launches, router_launches,
         return out
 
     cases = (serve_int8["sites_b32"] + serve_int8["sites_b256"]
-             + serve_int8["held"] + serve_int8["ragged"])
+             + serve_int8["held"] + serve_int8["ragged"]
+             + examples["int8_sites"])
     counts = serve_int8["launches"]
     b32 = total(serve_int8["sites_b32"])
     mode_a = b32.pop("mode_a")
@@ -8859,18 +9238,22 @@ def int8_row(serve_int8, obs_launches, export_launches, router_launches,
             "source": "dcnn_tpu_torch/ops/csrc/conv_int8.cu",
             "replaces": "dcnn_tpu/ops/conv.py:77", "launches":
             counts["conv_int8_fused"] + obs_launches + export_launches
-            + router_launches + autoscale_launches,
+            + router_launches + autoscale_launches
+            + examples["launches"]["conv_int8_fused"],
             "launches_by_path": {"serve_int8": counts["conv_int8_fused"],
                                  "obs": obs_launches,
                                  "export": export_launches,
                                  "router": router_launches,
-                                 "autoscale": autoscale_launches},
+                                 "autoscale": autoscale_launches,
+                                 "examples": examples["launches"][
+                                     "conv_int8_fused"]},
             "splitk_reduce_launches": counts["conv_int8_reduce"],
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             **b32, "library_ms": None,
             "mode_a": {"name": "conv_int8", "launches": counts["conv_int8"],
                        **mode_a, "library_ms": None},
-            "b256": total(serve_int8["sites_b256"]), "cases": cases}
+            "b256": total(serve_int8["sites_b256"]),
+            "examples": total(examples["int8_sites"]), "cases": cases}
 
 
 def _leaves(tree):
@@ -8916,6 +9299,9 @@ def main() -> None:
         t = time.perf_counter()
         out = fn(*args)
         seconds[name] = round(time.perf_counter() - t, 1)
+        # as each phase ends, so a run that fails later still shows them
+        print(f"phase {name}: {seconds[name]} s, {time.perf_counter() - t0:.1f}"
+              f" s since the build began", flush=True)
         return out
 
     fwd_cases = timed("flash", phase_kernels)
@@ -8959,6 +9345,7 @@ def main() -> None:
     fleet = {"fleet": timed("fleet", phase_fleet, card),
              "autoscale": timed("autoscale", phase_autoscale, card),
              "lease": timed("lease", phase_lease, card)}
+    examples = timed("examples", phase_examples, card)
     print(f"phase seconds: {json.dumps(seconds)}, total "
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
 
@@ -8968,6 +9355,8 @@ def main() -> None:
         d256 = next(c for c in cases if c["case"] == "d256 long context")
         d512 = next(c for c in cases if c["case"] == "d512 long context")
         d256f = next(c for c in cases if c["case"] == "d256 fp32 long context")
+        ex_long = next(c for c in cases
+                       if c["case"] == "examples long context")
         keys = ("kernel", "ms", "plain_ms", "library_ms", "bound_ms",
                 "bound_by")
         return {"name": name, "route": "cuda", "source": source,
@@ -8983,6 +9372,7 @@ def main() -> None:
                 "d256_long_context": {k: d256[k] for k in keys},
                 "d512_long_context": {k: d512[k] for k in keys},
                 "d256_fp32_long_context": {k: d256f[k] for k in keys},
+                "examples_long_context": {k: ex_long[k] for k in keys},
                 "cases": cases}
 
     def site_row(name, source, replaces):
@@ -9020,6 +9410,7 @@ def main() -> None:
     # the fleet phase's flash forwards: here and in the surviving children
     fp = sum(fleet["fleet"]["launches"].values())
     ll = fleet["lease"]["launches"]
+    xl = examples["launches"]
     tc_src = "dcnn_tpu_torch/ops/csrc/conv3x3_tc.cu"
     kernels = [
         row("flash_fwd", "dcnn_tpu_torch/ops/csrc/flash_fwd.cu",
@@ -9033,7 +9424,7 @@ def main() -> None:
              "router_tcp": router_tcp["survivor"]["launches"]["flash_fwd"],
              "elastic_mha": em["flash_fwd"],
              "sequence": sq["flash_fwd"], "fleet": fp,
-             "lease": ll["flash_fwd"]}),
+             "lease": ll["flash_fwd"], "examples": xl["flash_fwd"]}),
         row("flash_bwd_dq", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:460", bwd_cases["dq"],
             {"serve": 0, "train": tl["flash_bwd_dq"],
@@ -9042,7 +9433,8 @@ def main() -> None:
              "pipeline": pl["flash_bwd_dq"],
              "tcp_pipeline": tp["flash_bwd_dq"],
              "elastic_mha": em["flash_bwd_dq"],
-             "sequence": sq["flash_bwd_dq"], "lease": ll["flash_bwd_dq"]}),
+             "sequence": sq["flash_bwd_dq"], "lease": ll["flash_bwd_dq"],
+             "examples": xl["flash_bwd_dq"]}),
         row("flash_bwd_dkv", "dcnn_tpu_torch/ops/csrc/flash_bwd.cu",
             "dcnn_tpu/ops/attention.py:478", bwd_cases["dkv"],
             {"serve": 0, "train": tl["flash_bwd_dkv"],
@@ -9052,7 +9444,7 @@ def main() -> None:
              "tcp_pipeline": tp["flash_bwd_dkv"],
              "elastic_mha": em["flash_bwd_dkv"],
              "sequence": sq["flash_bwd_dkv"],
-             "lease": ll["flash_bwd_dkv"]}),
+             "lease": ll["flash_bwd_dkv"], "examples": xl["flash_bwd_dkv"]}),
         site_row("conv3x3_s1", tc_src, "dcnn_tpu/ops/pallas/conv.py:82"),
         site_row("conv3x3_s1_pairs", tc_src,
                  "dcnn_tpu/ops/pallas/conv.py:173"),
@@ -9063,7 +9455,7 @@ def main() -> None:
         int8_row(serve_int8, obs["conv_int8_fused"],
                  export["resnet18"]["launches"]["conv_int8_fused"],
                  router["launches"]["conv_int8_fused"],
-                 fleet["autoscale"]["launches"]),
+                 fleet["autoscale"]["launches"], examples),
     ]
     print(json.dumps({"pipeline": {
         "launches": pipe["launches"], "samples_per_s": {
@@ -9084,6 +9476,8 @@ def main() -> None:
     print(json.dumps({"data_parallel": dp}), flush=True)
     print(json.dumps({"sequence": seq}), flush=True)
     print(json.dumps({"fleet_plane": fleet}), flush=True)
+    print(json.dumps({"examples": {k: v for k, v in examples.items()
+                                   if k != "int8_sites"}}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

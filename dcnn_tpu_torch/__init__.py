@@ -12,6 +12,8 @@ weights of a JAX model come across as numpy through :mod:`.interop`.
 ``DCNN_DEBUG=1`` turns debug mode (:mod:`.core.debug`) on at import.
 """
 
+__version__ = "0.1.0"
+
 from .utils.env import get_env as _get_env
 
 if _get_env("DCNN_DEBUG", False):
@@ -24,4 +26,4 @@ from . import (core, data, interop, models, nn, obs, ops, optim, resilience,
                serve, train, utils)
 
 __all__ = ["core", "data", "interop", "models", "nn", "obs", "ops", "optim",
-           "resilience", "serve", "train", "utils"]
+           "resilience", "serve", "train", "utils", "__version__"]

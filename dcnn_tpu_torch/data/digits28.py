@@ -1,33 +1,47 @@
-"""The bundled offline image dataset: sklearn's 8x8 digits upsampled to
-MNIST's 28x28 and written as MNIST-format CSVs (counterpart of
+"""The bundled offline image dataset: the 8x8 handwritten digits upsampled
+to MNIST's 28x28 and written as MNIST-format CSVs (counterpart of
 ``dcnn_tpu/data/digits28.py``, the dataset ``model_snapshots/
 mnist_cnn_model`` was trained on).
 
-:func:`ensure_digits28_csvs` generates ``<root>/data/digits28/{train,
-test}.csv`` (a seeded 80/20 split) where they are missing; it imports
-scipy and sklearn only then. :class:`~dcnn_tpu_torch.data.MNISTDataLoader`
-reads the files.
+The 8x8 images ship with the package (``digits8x8.npz``, UCI optdigits
+under CC BY 4.0; see ``digits8x8.md``), so the CSVs build with numpy and
+scipy alone, byte for byte the JAX package's (which reads the same images
+through scikit-learn). :func:`ensure_digits28_csvs` generates
+``<root>/data/digits28/{train,test}.csv`` (a seeded 80/20 split) where
+they are missing; :class:`~dcnn_tpu_torch.data.MNISTDataLoader` reads the
+files.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Tuple
 
 import numpy as np
+
+DIGITS_NPZ = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "digits8x8.npz")
+
+
+def load_digits8x8() -> Tuple[np.ndarray, np.ndarray]:
+    """``(pixels, labels)``: float64 (1797, 64) in 0..16 and int64 (1797,),
+    the arrays ``sklearn.datasets.load_digits(return_X_y=True)`` gives."""
+    with np.load(DIGITS_NPZ) as f:
+        return (f["pixels"].astype(np.float64),
+                f["labels"].astype(np.int64))
 
 
 def ensure_digits28_csvs(root: str) -> str:
     """Generate ``<root>/data/digits28/{train,test}.csv`` if absent; returns
     the dataset dir. Cheap and deterministic — a gitignored ``data/``
     regenerates identically on any host."""
-    from scipy import ndimage
-    from sklearn.datasets import load_digits
-
     d = os.path.join(root, "data", "digits28")
     if all(os.path.isfile(os.path.join(d, f))
            for f in ("train.csv", "test.csv")):
         return d
-    X, y = load_digits(return_X_y=True)
+    from scipy import ndimage
+
+    X, y = load_digits8x8()
     X = X.reshape(-1, 8, 8) / 16.0
     X28 = np.stack([ndimage.zoom(img, 3.5, order=1) for img in X])
     X28 = np.clip(X28 * 255.0, 0, 255).astype(np.uint8).reshape(len(X), -1)
@@ -41,8 +55,10 @@ def ensure_digits28_csvs(root: str) -> str:
         path = os.path.join(d, name)
         if not os.path.exists(path):
             # temp-write + atomic rename: an interrupted run must never
-            # leave a truncated CSV that later gates silently train on
-            tmp = path + ".tmp"
+            # leave a truncated CSV that later gates silently train on; the
+            # temp name is the process's, so concurrent writers never share
+            # one
+            tmp = f"{path}.tmp-{os.getpid()}"
             with open(tmp, "w") as f:
                 f.write("label," + ",".join(
                     f"pixel{i}" for i in range(784)) + "\n")

@@ -133,6 +133,12 @@ def gather_available() -> bool:
     return available()
 
 
+def lz4_available() -> bool:
+    """True where the library's LZ4 codec runs."""
+    l = lib()
+    return l is not None and hasattr(l, "dcnn_lz4_compress")
+
+
 def byte_shuffle(data: bytes, typesize: int,
                  inverse: bool = False) -> Optional[bytes]:
     """Blosc-style byte-plane (un)shuffle. None if the library is

@@ -1,7 +1,7 @@
 from .attention_layer import MultiHeadAttentionLayer
 from .builder import SequentialBuilder
 from .export import InferenceProgram, export_inference, load_inference
-from .factory import layer_from_config, register_layer
+from .factory import LayerFactory, layer_from_config, register_layer
 from .fold import fold_batchnorm
 from .layer import Layer, ParameterizedLayer, StatelessLayer
 from .layers import (
@@ -15,7 +15,8 @@ from .quantize import (
 from .residual import ResidualBlock
 from .sequential import Sequential
 
-__all__ = ["MultiHeadAttentionLayer", "SequentialBuilder", "layer_from_config",
+__all__ = ["MultiHeadAttentionLayer", "SequentialBuilder", "LayerFactory",
+           "layer_from_config",
            "InferenceProgram", "export_inference", "load_inference",
            "register_layer", "fold_batchnorm", "Layer", "ParameterizedLayer",
            "StatelessLayer", "ActivationLayer", "AvgPool2DLayer",

@@ -25,3 +25,15 @@ def layer_from_config(cfg: Dict[str, Any]) -> Layer:
         raise ValueError(f"unknown layer type {ty!r}; registered in the port: "
                          f"{sorted(_REGISTRY)} (see ROADMAP.md for the rest)")
     return _REGISTRY[ty].from_config(cfg)
+
+
+class LayerFactory:
+    """Class-style façade over the registry."""
+
+    @staticmethod
+    def create(cfg: Dict[str, Any]) -> Layer:
+        return layer_from_config(cfg)
+
+    @staticmethod
+    def registered() -> Dict[str, Type[Layer]]:
+        return dict(_REGISTRY)

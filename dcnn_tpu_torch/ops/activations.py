@@ -6,7 +6,7 @@ in both packages. Defaults: LeakyReLU slope 0.01, ELU alpha 1.0.
 
 from __future__ import annotations
 
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
 
@@ -50,3 +50,17 @@ ACTIVATIONS: Dict[str, Callable] = {
     "linear": linear,
     "none": linear,
 }
+
+
+def apply_activation(name: Optional[str], x: torch.Tensor,
+                     **kwargs) -> torch.Tensor:
+    """String-keyed dispatch (``None`` is the identity), case-insensitive;
+    an unknown name raises ``ValueError``."""
+    if name is None:
+        return x
+    try:
+        fn = ACTIVATIONS[name.lower()]
+    except KeyError:
+        raise ValueError(f"unknown activation {name!r}; known: "
+                         f"{sorted(ACTIVATIONS)}") from None
+    return fn(x, **kwargs)

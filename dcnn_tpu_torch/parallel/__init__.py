@@ -37,6 +37,7 @@ from .elastic import (
 )
 from .multihost import PeerLostError
 from .autoscale import LeasedElasticTrainer, TrainLease
+from ..core.mesh import SEQ_AXIS
 from .sequence import (
     make_ring_attention, make_ulysses_attention, make_zigzag_ring_attention,
     shard_sequence, zigzag_permutation, zigzag_shard,
@@ -69,7 +70,7 @@ __all__ = [
     "HeteroCompiledPipeline", "SequentialStageStack",
     "make_compiled_pipeline_forward", "make_compiled_pipeline_train_step",
     "stack_stage_params", "shard_stacked",
-    "make_ring_attention", "make_ulysses_attention",
+    "SEQ_AXIS", "make_ring_attention", "make_ulysses_attention",
     "make_zigzag_ring_attention", "shard_sequence", "zigzag_permutation",
     "zigzag_shard",
     "DistributedPipelineCoordinator", "PipelineWorkerError",

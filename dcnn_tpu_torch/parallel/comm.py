@@ -40,7 +40,7 @@ import socket
 import struct
 import threading
 import time
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -232,6 +232,7 @@ class Inbox:
 
     def __init__(self) -> None:
         self._q: "queue.Queue[Tuple[str, Dict, Any, Channel]]" = queue.Queue()
+        self._readers: List[threading.Thread] = []
 
     def attach(self, chan: Channel, on_close=None) -> threading.Thread:
         def reader():
@@ -245,7 +246,19 @@ class Inbox:
 
         t = threading.Thread(target=reader, daemon=True)
         t.start()
+        self._readers.append(t)
         return t
+
+    def join(self, timeout: float) -> None:
+        """Wait, at most ``timeout`` seconds in all, for the reader threads
+        to end (each ends when its channel closes). A process that exits
+        with a reader still waking from its socket can abort in the
+        interpreter's shutdown ("terminate called without an active
+        exception"), so the owners join theirs first."""
+        deadline = time.monotonic() + timeout
+        for t in self._readers:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        self._readers = [t for t in self._readers if t.is_alive()]
 
     def get(self, timeout: Optional[float] = None):
         try:

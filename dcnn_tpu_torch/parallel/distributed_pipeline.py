@@ -1200,6 +1200,9 @@ class DistributedPipelineCoordinator:
         for chan in self.chans:
             chan.close()
         self.chans = []
+        # each reader wakes on its closed socket: wait for them, so the
+        # process never exits under a waking thread
+        self.inbox.join(timeout=5.0)
         if self.checkpoints is not None:
             self.checkpoints.close()
 

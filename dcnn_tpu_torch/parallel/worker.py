@@ -283,6 +283,10 @@ class StageWorker:
             self._running = False
             self._close_all()
             self._stop_beat()
+            # the acceptor and the readers wake on the closed sockets: wait
+            # for them, so the process never exits under a waking thread
+            acceptor.join(timeout=5.0)
+            self.inbox.join(timeout=5.0)
 
     def _shutdown_listener(self) -> None:
         """Shut down and close the listener, so a dead worker's port stops

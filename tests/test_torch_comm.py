@@ -276,6 +276,24 @@ def test_inbox_attach_post_and_close_callback():
     rx.close()
 
 
+def test_inbox_join_waits_for_readers_of_closed_channels():
+    """``Inbox.join`` returns once each reader has seen its channel close
+    (the stage worker and the coordinator join theirs before the process
+    exits), and gives up at its timeout on a channel still open."""
+    pairs = [socket.socketpair() for _ in range(3)]
+    inbox = Inbox()
+    readers = [inbox.attach(Channel(b)) for _, b in pairs]
+    for a, _ in pairs[:2]:
+        a.close()
+    inbox.join(timeout=0.3)
+    assert [t.is_alive() for t in readers] == [False, False, True]
+    pairs[2][0].close()
+    inbox.join(timeout=10)
+    assert not readers[2].is_alive()
+    for _, b in pairs:
+        b.close()
+
+
 def test_listen_connect_and_parse_addr():
     srv = comm.listen(0, host="127.0.0.1")
     try:

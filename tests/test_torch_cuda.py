@@ -3195,3 +3195,164 @@ def test_sequence_ring_zigzag_ulysses_world_of_one(kind, causal, dtype,
         scale = b.float().abs().max().item()
         err = (a - b.float()).abs().max().item()
         assert err <= TOL[dtype] * scale, (name, err, scale)
+
+
+# ----------------------------------------------------- the example drivers
+
+def test_device_manager_on_card():
+    """The registry lists every CUDA device, then CPU:0; the default is
+    CUDA:0; each device computes."""
+    from dcnn_tpu_torch.core import (DeviceManager, default_device,
+                                     device_count, local_devices)
+
+    n = torch.cuda.device_count()
+    dm = DeviceManager()
+    assert [d.id for d in dm.all()] == [f"CUDA:{i}" for i in range(n)] + [
+        "CPU:0"]
+    assert dm.default().id == "CUDA:0" and dm.default().is_accelerator
+    assert default_device() == torch.device("cuda", 0)
+    assert device_count() == n
+    assert local_devices() == [torch.device("cuda", i) for i in range(n)]
+    assert [d.id for d in dm.accelerators()] == [f"CUDA:{i}"
+                                                 for i in range(n)]
+    for info in dm.all():
+        y = torch.arange(8.0, device=info.device) * 2.0
+        assert float(y.sum()) == 56.0
+
+
+# the committed snapshot's conv sites (mnist_cnn_model, NCHW):
+# (cin, h, w, cout, k, stride, pad) of conv1, conv2_1x1 and conv3
+SNAPSHOT_SITES = [(1, 28, 28, 8, 5, 1, 0), (8, 8, 8, 16, 1, 1, 0),
+                  (16, 8, 8, 48, 5, 1, 0)]
+
+
+@pytest.mark.parametrize("batch", [1, 16, 256])
+@pytest.mark.parametrize("site", range(len(SNAPSHOT_SITES)))
+def test_conv_int8_at_snapshot_sites_on_card(site, batch):
+    """Row 8 at the snapshot's sites (K = 25, 8 and 400; 28x28 and 8x8
+    maps) and the eval and serving batches: the fused layer bit for bit
+    the unfused chain, mode A bit for bit its int32 reference."""
+    from dcnn_tpu_torch.ops import quant
+
+    cin, h, w, cout, k, stride, pad = SNAPSHOT_SITES[site]
+    x, xs, wq, ws, b = _quant_layer_inputs(site * 31 + batch, batch, cin, h,
+                                           w, cout, k, "NCHW",
+                                           torch.float32)
+    before = _kernels.conv_int8_fused.launches
+    got = quant.quant_conv2d(x, xs, wq, ws, b, stride=stride, padding=pad,
+                             data_format="NCHW")
+    torch.cuda.synchronize()
+    assert _kernels.conv_int8_fused.launches > before
+    assert torch.equal(got, quant.quant_conv2d_reference(
+        x, xs, wq, ws, b, stride=stride, padding=pad, data_format="NCHW"))
+    x_q = quant.quantize_symmetric(x, xs)
+    got_a = _kernels.conv_int8(x_q, wq, stride=(stride, stride),
+                               padding=(pad, pad), data_format="NCHW")
+    assert torch.equal(got_a, quant.conv2d_int8_reference(
+        x_q, wq, stride=stride, padding=pad, data_format="NCHW"))
+
+
+def test_snapshot_int8_sites_on_card_equal_plain(tmp_path):
+    """The committed snapshot quantized on the card, its three int8 conv
+    sites fed the model's own activations of a 256-image batch of the
+    digits28 test split: each kernel output bit for bit its plain
+    version, and the int8 model's predictions equal the CPU int8 model's
+    on that batch."""
+    from dcnn_tpu_torch.data import MNISTDataLoader, decode_host
+    from dcnn_tpu_torch.data.digits28 import ensure_digits28_csvs
+    from dcnn_tpu_torch.nn import QuantConv2DLayer, quantize_model
+    from dcnn_tpu_torch.ops import quant
+    from dcnn_tpu_torch.train import load_checkpoint
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    d = ensure_digits28_csvs(str(tmp_path))
+    ld = MNISTDataLoader(os.path.join(d, "test.csv"), batch_size=256,
+                         shuffle=False, drop_last=False)
+    ld.load_data()
+    x = decode_host(np.asarray(next(iter(ld))[0]), ld.scale)
+    snap = os.path.join(root, "model_snapshots", "mnist_cnn_model")
+    preds = {}
+    for dev in ("cuda", "cpu"):
+        model = load_checkpoint(snap, device=dev)[0]
+        qm = quantize_model(model, x)
+        seen = []
+        hooks = [m.register_forward_pre_hook(
+            lambda mod, args: seen.append((mod, args[0])))
+            for m in qm.modules() if isinstance(m, QuantConv2DLayer)]
+        with torch.inference_mode():
+            preds[dev] = qm(torch.from_numpy(x).to(dev)).argmax(-1).cpu()
+        for h in hooks:
+            h.remove()
+        assert len(seen) == 3
+        if dev == "cuda":
+            for mod, xin in seen:
+                (s, _), (p, _) = mod.stride, mod.padding
+                got = quant.quant_conv2d(xin, mod.x_scale, mod.w_q,
+                                         mod.w_scale, mod.b, stride=s,
+                                         padding=p, data_format="NCHW")
+                assert torch.equal(got, quant.quant_conv2d_reference(
+                    xin, mod.x_scale, mod.w_q, mod.w_scale, mod.b, stride=s,
+                    padding=p, data_format="NCHW")), mod.name
+    assert int((preds["cuda"] != preds["cpu"]).sum()) <= 1
+
+
+def test_flash_kernels_at_long_context_trainer_shape():
+    """Rows 1-3 at the long-context driver's shape, B32 H2 S2048 D64 fp32
+    causal: O and logsumexp within TOL, dQ, dK, dV within TOL of their
+    largest |value|, one counted launch each."""
+    b, h, s, d = 32, 2, 2048, 64
+    q, k, v, g = (torch.from_numpy(a).cuda()
+                  for a in _arrays(24, s, s, d, b=b, h=h))
+    scale = d ** -0.5
+    before = _launches()
+    o, lse = _kernels.flash_fwd(q, k, v, causal=True, scale=scale)
+    delta = (g * o).sum(-1)
+    dq = _kernels.flash_bwd_dq(q, k, v, g, lse, delta, causal=True,
+                               scale=scale)
+    dk, dv = _kernels.flash_bwd_dkv(q, k, v, g, lse, delta, causal=True,
+                                    scale=scale)
+    torch.cuda.synchronize()
+    assert _launches() == tuple(n + 1 for n in before)
+    o_ref, lse_ref = flash_forward_reference(q, k, v, causal=True)
+    assert (o - o_ref).abs().max().item() <= TOL[torch.float32]
+    assert (lse - lse_ref).abs().max().item() <= TOL[torch.float32]
+    want = flash_backward_reference(q, k, v, o, lse, g, causal=True,
+                                    scale=scale)
+    for got, ref in zip((dq, dk, dv), want):
+        err = (got - ref).abs().max().item()
+        assert err <= TOL[torch.float32] * ref.abs().max().item()
+
+
+def test_long_context_trainer_repeats_and_learns_as_blockwise(monkeypatch,
+                                                              capsys):
+    """``long_context_trainer`` at its defaults (B32 H2 S2048 D64 fp32, 8
+    epochs of 60 steps), twice through the flash kernels and once with the
+    layers' ``impl="blockwise"`` (plain online softmax), from one seed:
+    the two flash runs equal to the bit (the kernels carry nothing between
+    blocks: no atomics), and each run ends at a fresh-data accuracy of at
+    least 0.9 (``chip_smoke.py``'s gate (d)). Prints the accuracies by
+    epoch of both kinds and the first epoch at 0.9 or more."""
+    from dcnn_tpu_torch.examples import long_context_trainer as lct
+
+    monkeypatch.setenv("DEVICE_TYPE", "cuda")
+    monkeypatch.setenv("ENV_FILE", os.devnull)
+    flash = [lct.main(), lct.main()]
+    layer = lct.MultiHeadAttentionLayer
+    monkeypatch.setattr(lct, "MultiHeadAttentionLayer",
+                        lambda **kw: layer(**{**kw, "impl": "blockwise"}))
+    before = _launches()
+    blockwise = lct.main()
+    assert _launches() == before  # no flash kernel in the blockwise run
+    epochs = {k: [(e["loss"], e["acc"]) for e in r["epochs"]]
+              for k, r in (("flash", flash[0]), ("again", flash[1]),
+                           ("blockwise", blockwise))}
+    assert epochs["flash"] == epochs["again"]
+    learnt = {k: next((i + 1 for i, (_, a) in enumerate(v) if a >= 0.9),
+                      None) for k, v in epochs.items()}
+    with capsys.disabled():
+        for k, v in epochs.items():
+            print(f"\nlong_context_trainer {k}: accuracy by epoch "
+                  f"{[a for _, a in v]}, loss {[round(x, 4) for x, _ in v]}"
+                  f", first at >= 0.9: epoch {learnt[k]}; on "
+                  f"{torch.cuda.get_device_name(0)}")
+    assert flash[0]["final_acc"] >= 0.9 and blockwise["final_acc"] >= 0.9

@@ -288,6 +288,13 @@ Phases, each fatal on failure:
    each site bit for bit its plain version), digits28 trained to its 0.99
    gate, the other drivers in processes of their own; under
    ``{"examples": ...}``.
+34. analysis (``phase_analysis``): the port's static-analysis suite
+   (``dcnn_tpu_torch.analysis``) names TS01, TS03 and TS05 in a capture
+   fixture and nothing in its clean functions, and ``core.graphs.Session``
+   shows each claim on the card: ``CaptureError`` for the host read, a
+   ``print`` and an ``append`` run once at capture and never at a replay,
+   ``count_host`` counts every replay, the clean function replays bit for
+   bit; under ``{"analysis": ...}``.
 
 Compiled sessions (CUDA graphs, ``dcnn_tpu_torch/core/graphs.py``): in
 serve, serve cnn, serve int8 and decode every bucket or lattice point is a
@@ -9267,6 +9274,180 @@ def _leaves(tree):
     return [np.asarray(tree)]
 
 
+# phase 34: the static-analysis suite's claims about capture, on the card.
+# One fixture module: a function for each hazard the suite names, one it
+# counts through count_host, and a clean one, each captured by a Session
+# built in sessions() (which makes them capture roots)
+ANALYSIS_FIXTURE = """\
+import io
+
+import torch
+
+from dcnn_tpu_torch.core.graphs import Session, count_host
+
+SINK = io.StringIO()
+CALLS = []
+HOST = {"n": 0}
+
+
+def host_sync(x):
+    return x * x.sum().item()
+
+
+def printer(x):
+    print("step", file=SINK)
+    return x * 2
+
+
+def impure(x):
+    CALLS.append(1)
+    return x + 1
+
+
+def counted(x):
+    count_host(HOST, "n")
+    return x - 1
+
+
+def clean(x):
+    return torch.relu(x) * 2 + torch.tanh(x)
+
+
+def sessions(pool, x):
+    return {
+        "host_sync": lambda: Session("host_sync", host_sync, (x,), pool=pool),
+        "printer": lambda: Session("printer", printer, (x,), pool=pool),
+        "impure": lambda: Session("impure", impure, (x,), pool=pool),
+        "counted": lambda: Session("counted", counted, (x,), pool=pool),
+        "clean": lambda: Session("clean", clean, (x,), pool=pool),
+    }
+
+
+def effects():
+    return {"printer": SINK.getvalue().count("step"),
+            "impure": len(CALLS), "counted": HOST["n"]}
+
+
+def reset():
+    SINK.seek(0)
+    SINK.truncate()
+    CALLS.clear()
+    HOST["n"] = 0
+"""
+# the port's suite over the fixture: unsuppressed check ids by function
+ANALYSIS_EXPECTED = {"host_sync": ["TS01"], "printer": ["TS03"],
+                     "impure": ["TS05"], "counted": [], "clean": [],
+                     "sessions": [], "effects": [], "reset": []}
+ANALYSIS_REPLAYS = 10
+
+
+def phase_analysis(card):
+    """Phase 34: the port's static-analysis suite
+    (``dcnn_tpu_torch.analysis``) over :data:`ANALYSIS_FIXTURE` reports
+    exactly :data:`ANALYSIS_EXPECTED` (TS01 for a host read, TS03 for a
+    ``print``, TS05 for a closed-over ``append``, nothing for a function
+    that counts through ``count_host`` or for a clean one). Then
+    ``core.graphs.Session`` captures each on the card, after one eager
+    call and its effects reset: the TS01 function raises ``CaptureError``
+    (and the card works on after it); the TS03 and TS05 functions' Python
+    side effects count 1 after the capture and still 1 after
+    :data:`ANALYSIS_REPLAYS` replays, while ``count_host`` counts 0 at the
+    capture and one a replay; the clean function's replays equal its eager
+    call bit for bit. Host-light: no kernel of the port runs here."""
+    import importlib.util
+    import shutil
+    import tempfile
+
+    import torch
+
+    from dcnn_tpu_torch.analysis import analyze_paths, unsuppressed
+    from dcnn_tpu_torch.core.graphs import CaptureError, GraphPool
+
+    t0 = time.perf_counter()
+    d = tempfile.mkdtemp(prefix="dcnn-analysis-")
+    try:
+        path = os.path.join(d, "capture_fixture.py")
+        with open(path, "w") as f:
+            f.write(ANALYSIS_FIXTURE)
+        found = {name: [] for name in ANALYSIS_EXPECTED}
+        for f in unsuppressed(analyze_paths([d])):
+            found.setdefault(f.symbol.split(".")[0], []).append(f.check_id)
+        found = {k: sorted(v) for k, v in found.items()}
+        if found != ANALYSIS_EXPECTED:
+            fail(f"analysis: the suite reports {found} over the capture "
+                 f"fixture, expected {ANALYSIS_EXPECTED}")
+        t_lint = time.perf_counter() - t0
+        spec = importlib.util.spec_from_file_location("capture_fixture", path)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+    dev = torch.device("cuda")
+    pool = GraphPool(dev)
+    x = (torch.arange(1024, dtype=torch.float32, device=dev)
+         .reshape(32, 32) / 64.0 - 8.0)
+    build = mod.sessions(pool, x)
+    made, after_capture, after_replays = [], {}, {}
+    for name in ("printer", "impure", "counted"):
+        getattr(mod, name)(x)  # the eager call a capture follows
+        torch.cuda.synchronize()
+        mod.reset()
+        s = build[name]()
+        made.append(s)
+        after_capture[name] = mod.effects()[name]
+        want = getattr(mod, name)(x)  # eager again: its effects undone
+        mod.reset()
+        for i in range(ANALYSIS_REPLAYS):
+            got = s(x)
+            if not torch.equal(got, want):
+                fail(f"analysis: {name} replay {i} differs from its eager "
+                     f"call")
+        torch.cuda.synchronize()
+        after_replays[name] = (after_capture[name]
+                               + mod.effects()[name])
+    want = {"printer": 1, "impure": 1, "counted": 0}
+    if after_capture != want:
+        fail(f"analysis: effects after capture {after_capture}, expected "
+             f"{want}")
+    want = {"printer": 1, "impure": 1, "counted": ANALYSIS_REPLAYS}
+    if after_replays != want:
+        fail(f"analysis: effects after {ANALYSIS_REPLAYS} replays "
+             f"{after_replays}, expected {want}")
+    eager = mod.clean(x)
+    torch.cuda.synchronize()
+    clean = build["clean"]()
+    made.append(clean)
+    for i in range(ANALYSIS_REPLAYS):
+        if not torch.equal(clean(x), eager):
+            fail(f"analysis: clean replay {i} is not its eager call bit for "
+                 f"bit")
+    mod.host_sync(x)
+    torch.cuda.synchronize()
+    try:
+        made.append(build["host_sync"]())
+        fail("analysis: capturing the TS01 fixture (.item()) raised no "
+             "CaptureError")
+    except CaptureError as e:
+        raised = str(e).splitlines()[0]
+    torch.cuda.synchronize()
+    if not torch.equal(clean(x), eager) or not torch.isfinite(
+            (x + 1).sum()).item():
+        fail("analysis: the card misbehaves after the failed capture")
+    pool.release(made)
+    out = {"findings": found, "after_capture": after_capture,
+           "after_replays": after_replays, "replays": ANALYSIS_REPLAYS,
+           "capture_error": raised, "lint_s": round(t_lint, 3),
+           "phase_s": round(time.perf_counter() - t0, 2)}
+    print(f"analysis: the suite names TS01/TS03/TS05 in the capture fixture "
+          f"and nothing in the clean and count_host functions; on the card "
+          f"the TS01 function raised CaptureError ({raised}), print and "
+          f"append ran once at capture and not in {ANALYSIS_REPLAYS} "
+          f"replays, count_host counted each replay, the clean function "
+          f"replayed bit for bit; {json.dumps(out)}; on {card}", flush=True)
+    return out
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "dcnn_tpu_torch")):
         fail(f"no dcnn_tpu_torch package in {ROOT}: run this script from a "
@@ -9346,6 +9527,7 @@ def main() -> None:
              "autoscale": timed("autoscale", phase_autoscale, card),
              "lease": timed("lease", phase_lease, card)}
     examples = timed("examples", phase_examples, card)
+    analysis = timed("analysis", phase_analysis, card)
     print(f"phase seconds: {json.dumps(seconds)}, total "
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
 
@@ -9478,6 +9660,7 @@ def main() -> None:
     print(json.dumps({"fleet_plane": fleet}), flush=True)
     print(json.dumps({"examples": {k: v for k, v in examples.items()
                                    if k != "int8_sites"}}), flush=True)
+    print(json.dumps({"analysis": analysis}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

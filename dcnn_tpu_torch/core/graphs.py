@@ -17,7 +17,8 @@ wrappers of :mod:`~dcnn_tpu_torch.ops._kernels` count a launch per call.
 A session takes back what was counted while it captured (:func:`take_back`
 of ``_kernels.capture_tally``, which other graphs' replays meanwhile stay
 out of) and adds it at every replay (:func:`add_launches`), so the
-counters count what ran on the card.
+counters count what ran on the card. Host counters of work the graph does
+go through :func:`count_host`, which a session replays the same way.
 
 On a CPU device a session is the plain call of ``fn`` on the caller's
 inputs. On CUDA it is the graph or an exception: a capture that fails (a
@@ -78,6 +79,52 @@ def add_launches(delta: Dict[Any, int]) -> None:
     with _kernels.COUNT_LOCK:
         for w, d in delta.items():
             w.launches += d
+
+
+# host counters of work a graph does (the bytes a halo exchange sends,
+# say): what captured code counts is kept for its session, which adds it at
+# every replay, as the wrappers' launches are; one capture at a time
+_HOST_LOCK = threading.Lock()
+_host_tally: Optional[list] = None
+
+
+def count_host(table: Dict[str, int], key: str, n: int = 1) -> None:
+    """Add ``n`` to ``table[key]``: now, or, while a capture runs, at each
+    replay of the graph it captures (the counted work runs then)."""
+    with _HOST_LOCK:
+        if _host_tally is not None:
+            # the capture's record, which its session replays
+            _host_tally.append((table, key, n))  # dcnn: disable=TS05
+        else:
+            table[key] += n
+
+
+def add_host(counts) -> None:
+    """Apply ``counts`` (``[(table, key, n)]``, a capture's
+    :class:`host_tally`)."""
+    with _HOST_LOCK:
+        for table, key, n in counts:
+            table[key] += n
+
+
+class host_tally:
+    """``with host_tally() as counts:`` collects in ``counts`` what
+    :func:`count_host` counts inside the block, from any thread, instead
+    of counting it."""
+
+    def __init__(self):
+        self.counts: list = []
+
+    def __enter__(self) -> list:
+        global _host_tally
+        with _HOST_LOCK:
+            _host_tally = self.counts
+        return self.counts
+
+    def __exit__(self, *exc) -> None:
+        global _host_tally
+        with _HOST_LOCK:
+            _host_tally = None
 
 
 _HOOK_DICTS = ("_forward_hooks", "_forward_pre_hooks", "_backward_hooks",
@@ -173,6 +220,7 @@ class Session:
         self.pool = pool
         self.graph = None
         self.launches: Dict[Any, int] = {}
+        self.host_counts: list = []
         if not pool.cuda:
             return
         with pool.lock:
@@ -180,9 +228,9 @@ class Session:
             graph = torch.cuda.CUDAGraph()
             for gen in generators:
                 graph.register_generator_state(gen)
-            tally = _kernels.capture_tally()
+            tally, host = _kernels.capture_tally(), host_tally()
             try:
-                with _CAPTURE_LOCK, tally, torch.cuda.stream(pool.stream):
+                with _CAPTURE_LOCK, tally, host, torch.cuda.stream(pool.stream):
                     graph.capture_begin(pool=pool.handle,
                                         capture_error_mode="thread_local")
                     try:
@@ -200,6 +248,7 @@ class Session:
                     f"{type(e).__name__}: {e}") from e
             finally:
                 self.launches = take_back(tally.counts)
+                self.host_counts = host.counts
             self.outputs = out
             self.graph = graph
             # the graph is all a replay needs: keep no state fn closes over
@@ -215,6 +264,8 @@ class Session:
             s.copy_(x)
         self.graph.replay()
         add_launches(self.launches)
+        if self.host_counts:
+            add_host(self.host_counts)
         return self.outputs
 
     def __call__(self, *xs):

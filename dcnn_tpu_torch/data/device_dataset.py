@@ -40,7 +40,7 @@ from __future__ import annotations
 import functools
 import time
 import warnings
-from typing import Callable, Optional
+from typing import TYPE_CHECKING, Callable, Optional
 
 import numpy as np
 import torch
@@ -53,6 +53,9 @@ from ..core.keys import (
 from ..core.precision import get_compute_dtype, get_precision_mode
 from .augment_device import DeviceAugment
 from .transfer import stage_array
+
+if TYPE_CHECKING:  # the trainer imports this module
+    from ..train.trainer import TrainStep
 
 AUGMENT_KEY = 0x0A6  # fold_in offset of a step's augmentation key
 
@@ -139,7 +142,8 @@ class DeviceDataset:
                    augment=augment, device=device)
 
 
-def _decode(x: torch.Tensor, scale: float, cdt) -> torch.Tensor:
+def _decode(x: torch.Tensor, scale: float,
+            cdt: Optional[torch.dtype]) -> torch.Tensor:
     """``x`` in the compute dtype times ``scale`` rounded to it, as the JAX
     package's ``x.astype(cdt) * asarray(scale, cdt)``."""
     cdt = cdt or torch.float32
@@ -172,7 +176,8 @@ class BatchStep:
     :func:`~dcnn_tpu_torch.core.graphs.debug_eager` holds, the body runs
     eagerly."""
 
-    def __init__(self, step, *, num_classes, scale, cdt, augment):
+    def __init__(self, step: TrainStep, *, num_classes, scale, cdt,
+                 augment):
         self.step = step
         self.num_classes, self.scale, self.cdt = num_classes, scale, cdt
         self.augment = augment

@@ -49,6 +49,7 @@ from ..data.digits28 import ensure_digits28_csvs as _ensure_digits28
 from ..nn.builder import SequentialBuilder
 from ..ops.losses import softmax_cross_entropy
 from ..optim import Adam
+from ..resilience.atomic import write_file_atomic
 from ..train import (Trainer, create_train_state, evaluate_classification,
                      load_checkpoint)
 from ..utils.env import get_env
@@ -328,8 +329,7 @@ def write_results(results, out_dir):
         if "skipped" not in r or r["gate"] not in by_gate:
             by_gate[r["gate"]] = r
     merged = list(by_gate.values())
-    with open(path, "w") as f:
-        json.dump(merged, f, indent=1)
+    write_file_atomic(path, json.dumps(merged, indent=1).encode("utf-8"))
     md = ["# Accuracy gates (real data)", "",
           "Produced by `python -m dcnn_tpu_torch.examples.accuracy_gates`.",
           "",
@@ -347,8 +347,8 @@ def write_results(results, out_dir):
                 f"| {'yes' if r['passed'] else 'NO'} | {r['wall_clock_s']} "
                 f"| {r['seconds_to_target']} | {r['device']} "
                 f"| {r['precision']} |")
-    with open(os.path.join(out_dir, "RESULTS.md"), "w") as f:
-        f.write("\n".join(md) + "\n")
+    write_file_atomic(os.path.join(out_dir, "RESULTS.md"),
+                      ("\n".join(md) + "\n").encode("utf-8"))
     return merged
 
 

@@ -25,6 +25,7 @@ import tempfile
 import numpy as np
 
 from ..data.digits28 import ensure_digits28_csvs
+from ..resilience.atomic import write_file_atomic
 from .common import ROOT, setup
 
 
@@ -35,9 +36,7 @@ def _write_ppm(path: str, img: np.ndarray) -> None:
     if img.shape[-1] == 1:
         img = np.repeat(img, 3, axis=-1)
     h, w, _ = img.shape
-    with open(path, "wb") as f:
-        f.write(f"P6\n{w} {h}\n255\n".encode())
-        f.write(img.tobytes())
+    write_file_atomic(path, f"P6\n{w} {h}\n255\n".encode() + img.tobytes())
 
 
 def _ascii(img: np.ndarray, width: int = 32) -> str:

@@ -36,6 +36,7 @@ from ..data import MNISTDataLoader, decode_host
 from ..data.digits28 import ensure_digits28_csvs
 from ..nn import fold_batchnorm, quantize_model
 from ..ops.losses import softmax_cross_entropy
+from ..resilience.atomic import write_file_atomic
 from ..train import (evaluate_classification, load_checkpoint,
                      make_eval_step)
 from .common import ROOT, device_of, setup
@@ -142,8 +143,7 @@ def main(argv=None) -> dict:
         for tag, m in (("folded", fmodel), ("int8", qmodel)):
             blob = export_inference(m, device=dev)
             path = os.path.join(out_dir, f"{model.name}_{tag}.pt2")
-            with open(path, "wb") as f:
-                f.write(blob)
+            write_file_atomic(path, blob)
             with torch.inference_mode():
                 live = m(xb)
             art = load_inference(blob)(xb)

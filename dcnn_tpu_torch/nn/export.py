@@ -39,6 +39,7 @@ import torch
 from ..core.device import DeviceLike, resolve_device
 from ..core.precision import get_precision_mode
 from .quantize import is_int8
+from .sequential import Sequential
 
 # the artifact's own record, stored beside the program in the archive
 META = "dcnn_export.json"
@@ -52,7 +53,7 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).replace("torch.", "")
 
 
-def export_inference(model, *, batch_size: Optional[int] = None,
+def export_inference(model: Sequential, *, batch_size: Optional[int] = None,
                      input_dtype: torch.dtype = torch.float32,
                      device: DeviceLike = None) -> bytes:
     """Export ``model``'s eval-mode forward, weights included; returns the

@@ -105,7 +105,7 @@ def record_aot(event: str, seconds: float = 0.0, *,
     }
     name, help_ = names.get(event, (f"aot_{event}_total",
                                     f"AOT cache {event} events"))
-    reg.counter(name, help_).inc()
+    reg.counter(name, help_).inc()  # dcnn: metric=aot_*_total
     if event == "hit" and seconds > 0:
         reg.counter("aot_deserialize_seconds_total",
                     "wall seconds deserializing cached AOT "

@@ -172,10 +172,13 @@ class Channel:
                     raise ChannelClosed(
                         "channel broken by an earlier partial send")
                 try:
-                    # the lock exists to keep whole frames together on the
-                    # socket: the blocking write is the critical section
+                    # deliberate blocking-send-under-lock: _send_lock
+                    # exists to serialize whole frames onto the socket —
+                    # the one place in the package where the blocking IO
+                    # IS the critical section. Callers must not hold
+                    # their own locks across send() (DL02 flags them).
                     for buf in (head, *parts):
-                        self._sock.sendall(buf)
+                        self._sock.sendall(buf)  # dcnn: disable=DL02
                 except OSError:
                     self._broken = True
                     raise

@@ -442,11 +442,21 @@ class HeteroCompiledPipeline:
         return ScheduledStep(self, loss_fn, optimizer, "1f1b", jit)
 
 
+def _peak_stash(schedule: Sequence[Op], num_stages: int) -> List[int]:
+    """The most forward graphs each stage holds at once under
+    ``schedule``: an F stashes one, its B frees it."""
+    held, peak = [0] * num_stages, [0] * num_stages
+    for op, s, _ in schedule:
+        held[s] += 1 if op == "F" else -1
+        peak[s] = max(peak[s], held[s])
+    return peak
+
+
 class ScheduledStep:
     """The step :meth:`HeteroCompiledPipeline.make_train_step` and
     ``make_train_step_1f1b`` return. ``schedule`` is its list of ops;
-    ``peak_stash[s]`` the most graphs stage s held at once in the latest
-    eager run or capture."""
+    ``peak_stash[s]`` the most graphs stage s holds at once in a step, which
+    the schedule decides."""
 
     def __init__(self, pipe: HeteroCompiledPipeline, loss_fn: Callable,
                  optimizer: Optimizer, schedule: str, jit: bool):
@@ -457,7 +467,7 @@ class ScheduledStep:
                          else one_f_one_b_schedule(S, M))
         self.compiled = _Compiled(f"pipe.compiled.{schedule}", jit,
                                   pipe.model)
-        self.peak_stash = [0] * S
+        self.peak_stash = _peak_stash(self.schedule, S)
         self.scalars = optimizer.scalars(pipe.device)
         self._gens = (generators(S * M, pipe.device) if pipe.draws else [])
         self._live: tuple = ()
@@ -491,7 +501,6 @@ class ScheduledStep:
         grads_back: Dict[Tuple[int, int], torch.Tensor] = {}
         losses: List[Optional[torch.Tensor]] = [None] * M
         logits: List[Optional[torch.Tensor]] = [None] * M
-        self.peak_stash = [0] * S
         for op, s, m in self.schedule:
             sm = pipe.stage_models[s]
             if op == "F":
@@ -510,7 +519,6 @@ class ScheduledStep:
                     else:
                         sent[(s, m)] = out.detach()
                 stash[s][m] = (xin, out, root)
-                self.peak_stash[s] = max(self.peak_stash[s], len(stash[s]))
             else:
                 xin, out, root = stash[s].pop(m)
                 wrt = self._stage_params[s] + ([xin] if s > 0 else [])

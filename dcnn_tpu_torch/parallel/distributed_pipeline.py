@@ -328,12 +328,12 @@ class DistributedPipelineCoordinator:
         # and the beat thread
         self._lock = threading.Lock()
         self._live_enabled = self.t.heartbeat_s > 0
-        self._chan_sid: Dict[int, int] = {}
-        self._last_heard: Dict[int, float] = {}
-        self._probe_at: Dict[int, float] = {}
-        self._dead: Dict[int, float] = {}
-        self._detections: List[Tuple[int, float]] = []
-        self._closed = False
+        self._chan_sid: Dict[int, int] = {}  # dcnn: guarded_by=_lock
+        self._last_heard: Dict[int, float] = {}  # dcnn: guarded_by=_lock
+        self._probe_at: Dict[int, float] = {}  # dcnn: guarded_by=_lock
+        self._dead: Dict[int, float] = {}  # dcnn: guarded_by=_lock
+        self._detections: List[Tuple[int, float]] = []  # dcnn: guarded_by=_lock
+        self._closed = False  # dcnn: guarded_by=_lock
         self._beat_stop = threading.Event()
         self._beat_thread: Optional[threading.Thread] = None
         self.recovering = False
@@ -363,7 +363,7 @@ class DistributedPipelineCoordinator:
 
     # -- deploy --
     def deploy_stages(self, generator: Optional[torch.Generator] = None
-                      ) -> None:
+                      ) -> None:  # dcnn: protocol=pipe.c2w role=sender
         """Connect to every worker, partition and ship each stage its
         config and weights. The model is initialised from ``generator`` on
         the coordinator's device first when one is given or it has no
@@ -408,7 +408,7 @@ class DistributedPipelineCoordinator:
         self._reg.gauge("pipeline_generation",
                         "current pipeline batch generation").set(self._gen)
 
-    def _ship_stages(self, params, state, opt_state) -> None:
+    def _ship_stages(self, params, state, opt_state) -> None:  # dcnn: protocol=pipe.c2w role=sender
         """(Re)partition over the current workers and ship configs and
         weights (and, on a recovery or rebalance, the optimizer state,
         split by ``Optimizer.split_state``, so momentum survives a
@@ -487,7 +487,7 @@ class DistributedPipelineCoordinator:
                 self._last_heard[sid] = self._clock()
                 self._probe_at.pop(sid, None)
 
-    def _check_liveness(self) -> None:
+    def _check_liveness(self) -> None:  # dcnn: protocol=pipe.c2w role=sender
         """Probe-then-convict: silence past ``convict_s`` sends one
         HEALTH_CHECK probe, a probe unanswered for ``probe_s`` convicts; a
         closed connection or a failed send is immediate. Raises
@@ -542,7 +542,7 @@ class DistributedPipelineCoordinator:
         self._beat_stop = threading.Event()
         stop = self._beat_stop
 
-        def loop() -> None:
+        def loop() -> None:  # dcnn: protocol=pipe.c2w role=sender
             while not stop.wait(self.t.heartbeat_s):
                 for ch in self._beat_targets():
                     try:
@@ -554,6 +554,7 @@ class DistributedPipelineCoordinator:
         self._beat_thread.start()
 
     # -- fenced receive: drops messages of aborted generations --
+    # dcnn: protocol=pipe.w2c role=handler
     def _recv(self) -> Tuple[str, Dict, Any]:
         clock = getattr(self, "_clock", time.monotonic)
         deadline = clock() + self.timeout
@@ -641,6 +642,7 @@ class DistributedPipelineCoordinator:
             raise StageLostError(sid, f"send {cmd} failed: {e}") from e
 
     # -- schedules (the in-process coordinator's numbers) --
+    # dcnn: protocol=pipe.c2w role=sender
     def _send_forward(self, mb_id: int, x, key: int,
                       training: bool = True) -> None:
         self._send_stage(0, "FORWARD_JOB", {
@@ -695,6 +697,7 @@ class DistributedPipelineCoordinator:
         total = sum(torch.stack([losses[i] for i in order]).tolist())
         return total / n, torch.cat([outputs[i] for i in order])
 
+    # dcnn: protocol=pipe.c2w role=sender
     def _batch_sync(self, x, y, lr, rng: int, bno: Optional[int] = None):
         bno = bno if bno is not None else self._batch + 1
         mb_x = split_microbatches(x, self.num_microbatches)
@@ -713,6 +716,7 @@ class DistributedPipelineCoordinator:
         self.update_parameters(lr, batch=bno)
         return self._finish(losses, outputs, x.shape[0])
 
+    # dcnn: protocol=pipe.c2w role=sender
     def _batch_semi_async(self, x, y, lr, rng: int,
                           bno: Optional[int] = None):
         bno = bno if bno is not None else self._batch + 1
@@ -750,6 +754,7 @@ class DistributedPipelineCoordinator:
         return self._with_recovery(run)
 
     # -- parameter update broadcast --
+    # dcnn: protocol=pipe.c2w role=sender
     def update_parameters(self, lr, batch: Optional[int] = None) -> None:
         for sid in range(self.num_stages):
             meta = {"lr": float(lr)}
@@ -759,6 +764,7 @@ class DistributedPipelineCoordinator:
         self._join("PARAMETERS_UPDATED", self.num_stages)
 
     # -- nonce-fenced rounds --
+    # dcnn: protocol=pipe.c2w role=sender frames=LOAD_REPORT_REQUEST,PRINT_PROFILING,CLEAR_PROFILING,GATHER_WEIGHTS,HEALTH_CHECK
     def _round(self, request: str, reply: str, attr: str,
                count: Optional[int] = None) -> List[Tuple[Dict, Any]]:
         """Broadcast ``request`` under a fresh nonce kept in ``attr`` and
@@ -774,7 +780,7 @@ class DistributedPipelineCoordinator:
         finally:
             setattr(self, attr, None)
 
-    def collect_load_reports(self) -> List[Dict[str, float]]:
+    def collect_load_reports(self) -> List[Dict[str, float]]:  # dcnn: protocol=pipe.c2w role=sender
         got = self._round("LOAD_REPORT_REQUEST", "LOAD_REPORT", "_load_nonce")
         by_stage = {m["stage_id"]: m["report"] for m, _ in got}
         return [by_stage[i] for i in range(self.num_stages)]
@@ -863,7 +869,7 @@ class DistributedPipelineCoordinator:
                     "_profiling_nonce")
 
     # -- weight gather --
-    def _gather_stage_blobs(self) -> List[Tuple[Dict, Any]]:
+    def _gather_stage_blobs(self) -> List[Tuple[Dict, Any]]:  # dcnn: protocol=pipe.c2w role=sender
         return self._round("GATHER_WEIGHTS", "WEIGHTS", "_gather_nonce",
                            count=len(self.chans))
 
@@ -1063,7 +1069,7 @@ class DistributedPipelineCoordinator:
         self._start_beat()
         self._replay_journal(from_batch)
 
-    def _rebuild_channels(self) -> List[Tuple[str, Channel]]:
+    def _rebuild_channels(self) -> List[Tuple[str, Channel]]:  # dcnn: protocol=pipe.c2w role=sender
         """Sweep the original addresses: healthy channels reused, dead ones
         closed and re-dialled for ``respawn_s`` (a success counts on
         ``pipeline_stage_respawns_total``), unreachable ones dropped this
@@ -1145,7 +1151,8 @@ class DistributedPipelineCoordinator:
                               "journaled batches re-run by recovery").inc()
 
     # -- failure handling --
-    def abort(self) -> None:
+    # dcnn: protocol=pipe.w2c role=handler frames=*
+    def abort(self) -> None:  # dcnn: protocol=pipe.c2w role=sender
         """Bump the generation (fencing every in-flight message of the dead
         batch on both ends), broadcast ABORT (caches, gradients and layer
         state reset), drain the live stages' ABORTED acks within
@@ -1174,7 +1181,7 @@ class DistributedPipelineCoordinator:
             if cmd == "ABORTED" and meta.get("gen") == self._gen:
                 acked += 1
 
-    def health_check(self) -> List[Dict[str, Any]]:
+    def health_check(self) -> List[Dict[str, Any]]:  # dcnn: protocol=pipe.c2w role=sender
         """One vitals dict per stage ({stage_id, configured, gen, batch,
         rss_kb}), ordered by stage; raises ``TimeoutError`` or
         :class:`StageLostError` if a worker is dead. Batch messages that
@@ -1183,7 +1190,7 @@ class DistributedPipelineCoordinator:
         return sorted((m for m, _ in acks),
                       key=lambda v: v.get("stage_id", -1))
 
-    def shutdown(self) -> None:
+    def shutdown(self) -> None:  # dcnn: protocol=pipe.c2w role=sender
         """Stop the beats, send SHUTDOWN to every worker, close the
         channels and the checkpoint manager."""
         self._beat_stop.set()

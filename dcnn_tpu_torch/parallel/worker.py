@@ -127,13 +127,13 @@ class StageWorker:
         self._layers = None           # the [start, end) range this stage holds
         # shared with the beat thread and the readers' on_close callbacks
         self._lock = threading.Lock()
-        self.coord: Optional[Channel] = None
-        self.stage_id = -1
-        self.gen = 0
-        self._hb_s = 0.0
-        self._coord_timeout_s = 0.0
-        self._coord_heard = 0.0
-        self._coord_lost = False
+        self.coord: Optional[Channel] = None   # dcnn: guarded_by=_lock
+        self.stage_id = -1                     # dcnn: guarded_by=_lock
+        self.gen = 0                           # dcnn: guarded_by=_lock
+        self._hb_s = 0.0                       # dcnn: guarded_by=_lock
+        self._coord_timeout_s = 0.0            # dcnn: guarded_by=_lock
+        self._coord_heard = 0.0                # dcnn: guarded_by=_lock
+        self._coord_lost = False               # dcnn: guarded_by=_lock
         self._beat_stop = threading.Event()
         self._beat_thread: Optional[threading.Thread] = None
 
@@ -218,7 +218,7 @@ class StageWorker:
         self._beat_stop = threading.Event()
         stop = self._beat_stop
 
-        def loop() -> None:
+        def loop() -> None:  # dcnn: protocol=pipe.w2c role=sender
             first = True
             while first or not stop.wait(hb_s):
                 first = False
@@ -242,7 +242,7 @@ class StageWorker:
             self._beat_thread = None
 
     # -- lifecycle ---------------------------------------------------------
-    def serve(self) -> None:
+    def serve(self) -> None:  # dcnn: protocol=pipe.w2c role=sender
         """Listen and process messages until SHUTDOWN or :meth:`stop`."""
         if self._srv is None:
             self._srv = listen(self.port)
@@ -333,8 +333,9 @@ class StageWorker:
             except OSError as e:
                 raise PeerLost(peer, e) from e
 
+    # dcnn: protocol=pipe.c2w role=handler frames=BEAT,_STOP
     def _dispatch(self, cmd: str, meta: Dict[str, Any], payload: Any,
-                  chan: Channel) -> None:
+                  chan: Channel) -> None:  # dcnn: protocol=pipe.w2c role=sender
         if cmd in ("FORWARD_JOB", "BACKWARD_JOB", "UPDATE_PARAMETERS",
                    "CONFIG_TRANSFER", "GATHER_WEIGHTS"):
             # the kill-a-stage point, fired per dispatched job: a test's
@@ -357,9 +358,10 @@ class StageWorker:
                     old.close()
             return
 
-        # a re-deploy adopts the shipped generation (a respawned
-        # coordinator restarts its own count)
-        if cmd == "CONFIG_TRANSFER":
+        # deliberate non-fence: a re-deploy adopts the shipped generation
+        # (a respawned coordinator restarts its own count, so a worker
+        # that refused lower gens could never be re-deployed)
+        if cmd == "CONFIG_TRANSFER":  # dcnn: disable=PR02
             self._handle_configuration(meta, payload)
             return
 
@@ -386,7 +388,8 @@ class StageWorker:
                 self._send_out(self._coord_chan(), "FORWARD_RESULT",
                                {"mb_id": mb_id, "gen": meta.get("gen", 0)}, y)
             else:
-                self._send_out(self.next, "FORWARD_JOB", dict(meta), y)
+                self._send_out(self.next, "FORWARD_JOB", dict(meta),
+                               y)  # dcnn: protocol=pipe.c2w
             return
 
         if cmd == "BACKWARD_JOB":
@@ -403,6 +406,7 @@ class StageWorker:
                     "BACKWARD_DONE",
                     {"mb_id": mb_id, "gen": meta.get("gen", 0)})
             else:
+                # dcnn: protocol=pipe.c2w
                 self._send_out(self.prev, "BACKWARD_JOB",
                                {"mb_id": mb_id, "gen": meta.get("gen", 0)},
                                xgrad)
@@ -420,8 +424,10 @@ class StageWorker:
                                      "gen": self._gen_now()})
             return
 
-        if cmd == "GATHER_WEIGHTS":
-            self._handle_gather(meta)  # echoes the nonce
+        # deliberate non-fence: the nonce is ECHOED (inside
+        # _handle_gather's WEIGHTS reply) for the coordinator to fence
+        if cmd == "GATHER_WEIGHTS":  # dcnn: disable=PR02
+            self._handle_gather(meta)
             return
 
         if cmd == "LOAD_REPORT_REQUEST":
@@ -485,7 +491,7 @@ class StageWorker:
 
     # -- CONFIG_TRANSFER --
     def _handle_configuration(self, meta: Dict[str, Any],
-                              payload: Any) -> None:
+                              payload: Any) -> None:  # dcnn: protocol=pipe.w2c role=sender
         with self._lock:
             self.stage_id = meta["stage_id"]
             # a recovery re-ship carries the post-abort generation
@@ -512,7 +518,7 @@ class StageWorker:
             try:
                 self.next = connect(host, port, compress=self.compress,
                                     timeout=float(meta.get("connect_s", 60.0)))
-                self.next.send("HELLO", {"role": "prev_stage"})
+                self.next.send("HELLO", {"role": "prev_stage"})  # dcnn: protocol=pipe.c2w
             except OSError as e:
                 raise PeerLost(self._sid() + 1, e) from e
             self.inbox.attach(self.next, on_close=self._on_chan_close)
@@ -525,7 +531,7 @@ class StageWorker:
                                 {"stage_id": self._sid(),
                                  "gen": self._gen_now()})
 
-    def _handle_gather(self, meta: Dict[str, Any]) -> None:
+    def _handle_gather(self, meta: Dict[str, Any]) -> None:  # dcnn: protocol=pipe.w2c role=sender
         coord = self._coord_chan()
         st = self.stage
         if st is None or st.opt_state is None:

@@ -85,8 +85,8 @@ class FaultPlan:
         self._counts: Dict[str, int] = {}
         self._slow_armed: Dict[str, Tuple[Optional[int], Optional[int],
                                           Optional[float],
-                                          Optional[float]]] = {}
-        self._slow_counts: Dict[str, int] = {}
+                                          Optional[float]]] = {}  # dcnn: guarded_by=_lock
+        self._slow_counts: Dict[str, int] = {}  # dcnn: guarded_by=_lock
 
     def arm(self, point: str, *, at: Optional[int] = None,
             times: Optional[int] = None,

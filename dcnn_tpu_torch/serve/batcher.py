@@ -101,10 +101,10 @@ class DynamicBatcher:
         # the dispatch slot exists, idle, from construction
         self.metrics.record_slot_state("idle")
         self._clock = clock
-        self._q: deque = deque()  # guarded by _cond
-        self._rows = 0  # guarded by _cond
+        self._q: deque = deque()  # dcnn: guarded_by=_cond
+        self._rows = 0  # dcnn: guarded_by=_cond
         # every accepted, not-yet-resolved future: the no-orphan ledger
-        self._accepted: set = set()  # guarded by _cond
+        self._accepted: set = set()  # dcnn: guarded_by=_cond
         self._cond = threading.Condition()
         self._closing = False
         self._thread: Optional[threading.Thread] = None

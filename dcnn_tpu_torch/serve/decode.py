@@ -392,10 +392,11 @@ class ContinuousBatcher:
             clock=clock)
         self._clock = clock
         self._cond = threading.Condition()
-        self._pending: deque = deque()
-        self._active: List[_Seq] = []
-        self._accepted: set = set()  # every accepted, unresolved future
-        self._closing = False
+        self._pending: deque = deque()  # dcnn: guarded_by=_cond
+        self._active: List[_Seq] = []  # dcnn: guarded_by=_cond
+        # every accepted, unresolved future
+        self._accepted: set = set()  # dcnn: guarded_by=_cond
+        self._closing = False  # dcnn: guarded_by=_cond
         self._steps = 0
         self._next_id = 0
         self._thread: Optional[threading.Thread] = None

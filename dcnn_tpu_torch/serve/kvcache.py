@@ -71,8 +71,9 @@ class KVPagePool:
         self.k = torch.zeros(shape, dtype=dtype, device=self.device)
         self.v = torch.zeros(shape, dtype=dtype, device=self.device)
         self._lock = threading.Lock()
-        self._free: deque = deque(range(1, self.num_pages))  # not page 0
-        self._tables: Dict[Any, List[int]] = {}
+        # page 0 excluded: it is the null page
+        self._free: deque = deque(range(1, self.num_pages))  # dcnn: guarded_by=_lock
+        self._tables: Dict[Any, List[int]] = {}  # dcnn: guarded_by=_lock
 
     # -- geometry --
     def pages_for(self, length: int) -> int:

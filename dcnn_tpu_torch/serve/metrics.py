@@ -235,7 +235,8 @@ class ServeMetrics:
         for name, v in derived.items():
             if v is None:
                 continue  # absent series, not a lying 0.0
-            lines.extend(render_scalar(name, "gauge", v))
+            lines.extend(render_scalar(
+                name, "gauge", v))  # dcnn: metric=serve_latency_window_*_ms,serve_batch_occupancy,serve_shed_fraction,serve_throughput_rps,serve_slot_goodput
         return "\n".join(lines) + "\n"
 
     def __repr__(self) -> str:
@@ -702,7 +703,8 @@ class DecodeMetrics:
         for name, v in derived.items():
             if v is None:
                 continue  # absent series, not a lying 0.0
-            lines.extend(render_scalar(name, "gauge", v))
+            lines.extend(render_scalar(
+                name, "gauge", v))  # dcnn: metric=decode_ttft_window_*_ms,decode_slot_occupancy,decode_tokens_per_sec
         return "\n".join(lines) + "\n"
 
     def __repr__(self) -> str:

@@ -303,8 +303,10 @@ def _register_session(root: str) -> None:
     _SESSIONS[root] = _libraries(root)
     try:
         os.makedirs(os.path.join(root, _INFLIGHT), exist_ok=True)
-        with open(os.path.join(root, _INFLIGHT, str(os.getpid())), "w",
-                  encoding="utf-8") as f:  # existence-only marker
+        # existence-only marker: content is irrelevant, a torn write is
+        # indistinguishable from a whole one
+        marker = os.path.join(root, _INFLIGHT, str(os.getpid()))
+        with open(marker, "w", encoding="utf-8") as f:  # dcnn: disable=AT01
             f.write("")
     except OSError:
         pass

@@ -62,11 +62,21 @@ EXCLUDED = {
         "the port's int8 dense shares geometry through _QuantizedLayer",
     "dcnn_tpu.nn.attention_layer.MHAGeometryMixin":
         "the port's int8 attention shares geometry through _QuantizedLayer",
+    "dcnn_tpu.analysis.callgraph.JIT_WRAPPERS":
+        "JAX-only: the trace roots; the port's capture roots are "
+        "callgraph.SESSION_TAILS, autograd.Function and custom ops",
+    "dcnn_tpu.analysis.callgraph.traced_functions":
+        "JAX-only: the set under jax.jit; the port's is "
+        "callgraph.captured_functions",
+    "dcnn_tpu.analysis.retrace.JIT_TAILS":
+        "JAX-only: jit wrapper names; TS06 in the port watches "
+        "callgraph.SESSION_TAILS and SessionCache.lookup keys",
+    "dcnn_tpu.analysis.trace_safety.HOST_SYNC_FUNCS":
+        "JAX-only: jax.device_get / jax.block_until_ready; the port's host "
+        "reads are methods (trace_safety.HOST_SYNC_ATTRS)",
 }
 
 EXCLUDED_MODULES = {
-    "dcnn_tpu.analysis": "not ported: its AST checks run over the port "
-                         "with the existing CLI (ROADMAP)",
     "dcnn_tpu.core.compat": "JAX-only: version shims for jax APIs",
     "dcnn_tpu.obs.regress": "gates the BENCH_r*.json captures: waits for "
                             "the port's benchmark PR (ROADMAP)",

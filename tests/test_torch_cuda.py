@@ -3356,3 +3356,18 @@ def test_long_context_trainer_repeats_and_learns_as_blockwise(monkeypatch,
                   f", first at >= 0.9: epoch {learnt[k]}; on "
                   f"{torch.cuda.get_device_name(0)}")
     assert flash[0]["final_acc"] >= 0.9 and blockwise["final_acc"] >= 0.9
+
+
+def test_capture_hazards_the_analysis_suite_names():
+    """``chip_smoke.py`` phase 34: the port's static-analysis suite names
+    TS01, TS03 and TS05 in its capture fixture and nothing in the clean
+    and ``count_host`` functions; under ``Session`` the host read raises
+    ``CaptureError``, the ``print`` and the ``append`` run at capture only,
+    ``count_host`` counts every replay and the clean function replays bit
+    for bit."""
+    out = _smoke.phase_analysis(torch.cuda.get_device_name(0))
+    assert out["findings"] == _smoke.ANALYSIS_EXPECTED
+    assert out["after_capture"] == {"printer": 1, "impure": 1, "counted": 0}
+    assert out["after_replays"] == {"printer": 1, "impure": 1,
+                                    "counted": out["replays"]}
+

@@ -12,7 +12,8 @@
 - ``make_train_step(jit=True)`` (the plain call on the CPU) equals
   ``jit=False`` bit for bit, guarded or not, and both equal the JAX step
   within ``tests/test_torch_train.py``'s tolerance.
-- The launch-delta bookkeeping, on fake counted wrappers.
+- The launch-delta bookkeeping, on fake counted wrappers, and the host
+  counters that a session replays the same way (``count_host``).
 - ``graphs.debug_eager``, which sends a step to the eager debug path, sees
   autograd's anomaly mode, ``debug.checked``'s hooks and hooks set on a
   submodule or globally, and nothing else.
@@ -337,6 +338,37 @@ def test_launch_deltas_are_taken_back_at_capture_and_added_per_replay(
     assert s.graph is None and s.launches == {}
     assert torch.equal(s(torch.ones(2)), torch.full((2,), 2.0))
     assert a.launches == 12
+
+
+def test_host_counts_are_held_at_capture_and_added_per_replay():
+    """``count_host`` (the spatial step's halo counts): what captured code
+    counts, on this thread or another, is held for the session instead of
+    counted, and each replay adds it; outside a capture it counts at
+    once. The halo counters of ``parallel/data_parallel.py`` count through
+    it."""
+    import threading
+
+    from dcnn_tpu_torch.parallel import data_parallel
+
+    table = {"exchanges": 0, "bytes": 0}
+    graphs.count_host(table, "bytes", 3)
+    assert table == {"exchanges": 0, "bytes": 3}
+    with graphs.host_tally() as held:
+        graphs.count_host(table, "exchanges")
+        other = threading.Thread(
+            target=lambda: graphs.count_host(table, "bytes", 8))
+        other.start()
+        other.join()
+    assert table == {"exchanges": 0, "bytes": 3}
+    assert held == [(table, "exchanges", 1), (table, "bytes", 8)]
+    for _ in range(4):
+        graphs.add_host(held)
+    assert table == {"exchanges": 4, "bytes": 35}
+    graphs.count_host(table, "exchanges")
+    assert table["exchanges"] == 5
+    src = open(data_parallel.__file__).read()
+    assert 'count_host(HALO, "exchanges")' in src
+    assert 'HALO["exchanges"] +=' not in src
 
 
 # -- the restored state trains on ------------------------------------------------

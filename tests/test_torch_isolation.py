@@ -36,7 +36,11 @@ on the fleet plane and autoscaling: ``obs/trace.py``, ``obs/fleet.py``,
 ``serve/autoscale.py``, ``parallel/autoscale.py`` and ``serve/soak.py``
 each read and imported alone, then the soak, the aggregator over HTTP and
 in-process targets, the trace CLI and a leased training segment driven on
-the CPU with JAX, flax and the JAX package blocked at import."""
+the CPU with JAX, flax and the JAX package blocked at import, and on the
+static-analysis suite: each module of ``dcnn_tpu_torch/analysis/`` read
+alone (it keeps its own copy of ``dcnn_tpu.analysis``, which is plain
+``ast``) and imported one by one, an analysis and the CLI's
+``--write-baseline`` run with the same blocks."""
 
 import ast
 import os
@@ -943,3 +947,50 @@ def test_fleet_plane_and_autoscaling_leave_jax_out():
     training segment, on the CPU with JAX, flax, msgpack and the JAX
     package blocked at import: nothing of them is loaded."""
     _run_isolated(FLEET, blocked=True)
+
+
+# the static-analysis suite
+ANALYSIS_MODULES = tuple(
+    f"dcnn_tpu_torch.analysis.{m}" for m in (
+        "core", "atomicity", "concurrency", "callgraph", "locks",
+        "protocol", "coverage", "trace_safety", "retrace", "__main__",
+        "__init__"))
+
+
+@pytest.mark.parametrize("module", ANALYSIS_MODULES)
+def test_analysis_module_imports_no_jax(module):
+    """The source of each module of the port's suite imports no JAX,
+    flax, msgpack or JAX-package module (``dcnn_tpu.analysis``, which is
+    plain ``ast``, included)."""
+    path = REPO / (module.replace(".", "/") + ".py")
+    assert path.is_file(), path
+    bad = [f"{line} imports {mod}" for line, mod in _imports(path)
+           if _forbidden(mod)]
+    assert not bad, bad
+
+
+_IMPORTABLE = tuple(m for m in ANALYSIS_MODULES
+                    if not m.endswith("__init__"))
+ANALYSIS = (
+    "import importlib, os, tempfile\n"
+    f"for name in {_IMPORTABLE!r}:\n"
+    "    importlib.import_module(name)\n"
+    "    bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+    f"{FORBIDDEN!r})\n"
+    "    assert not bad, (name, bad)\n"
+    "from dcnn_tpu_torch.analysis import analyze_paths, unsuppressed\n"
+    "from dcnn_tpu_torch.analysis.__main__ import main\n"
+    "d = tempfile.mkdtemp()\n"
+    "open(os.path.join(d, 'm.py'), 'w').write('def f(x):\\n    print(x)\\n')\n"
+    "assert not unsuppressed(analyze_paths([d]))\n"
+    "base = os.path.join(d, 'b.json')\n"
+    "assert main([d, '--no-baseline', '--write-baseline', base]) == 0\n"
+    "assert main([d, '--list-checks']) == 0\n")
+
+
+def test_analysis_suite_leaves_jax_out():
+    """Each module of the suite imported one by one, an analysis and the
+    CLI's ``--write-baseline`` (through the port's atomic write), with JAX,
+    flax, msgpack and the JAX package blocked at import."""
+    _run_isolated(ANALYSIS, blocked=True)
+

@@ -295,6 +295,12 @@ Phases, each fatal on failure:
    ``print`` and an ``append`` run once at capture and never at a replay,
    ``count_host`` counts every replay, the clean function replays bit for
    bit; under ``{"analysis": ...}``.
+35. regress (``phase_regress``): the port's bench regression gate
+   (``python3 -m dcnn_tpu_torch.obs.regress``) as a user runs it, each in
+   a process of its own: ``--self-test`` exits 0 and prints ``self-test:
+   PASS``, and a planted history of ``BENCH_TORCH_rNN.json`` captures (the
+   last 25% below the window's best img/s) exits 1 with ``img_per_sec``
+   flagged; under ``{"regress": ...}``, with the exit codes and seconds.
 
 Compiled sessions (CUDA graphs, ``dcnn_tpu_torch/core/graphs.py``): in
 serve, serve cnn, serve int8 and decode every bucket or lattice point is a
@@ -9448,6 +9454,62 @@ def phase_analysis(card):
     return out
 
 
+# phase 35: a planted img/s history, oldest first; the last capture is 25%
+# below the best of the four before it
+REGRESS_PLANTED = (1000.0, 1100.0, 1200.0, 1250.0, 1300.0, 975.0)
+
+
+def phase_regress(card):
+    """Phase 35: the port's bench regression gate
+    (``dcnn_tpu_torch.obs.regress``) through its command line, each run a
+    process of its own with this machine's Python: ``--self-test`` exits 0
+    and prints ``self-test: PASS``; :data:`REGRESS_PLANTED`, written as
+    ``BENCH_TORCH_rNN.json`` captures to a temp dir, exits 1 with exactly
+    ``img_per_sec`` among ``--json``'s regressions. Host-only: no kernel of
+    the port runs here."""
+    import shutil
+    import subprocess
+    import tempfile
+
+    cmd = [sys.executable, "-m", "dcnn_tpu_torch.obs.regress"]
+    t0 = time.perf_counter()
+    st = subprocess.run(cmd + ["--self-test"], cwd=ROOT, capture_output=True,
+                        text=True, timeout=120)
+    self_s = time.perf_counter() - t0
+    if st.returncode != 0 or "self-test: PASS" not in st.stdout:
+        fail(f"regress: --self-test exited {st.returncode}: "
+             f"{st.stdout[-1500:]}{st.stderr[-1500:]}")
+    d = tempfile.mkdtemp(prefix="dcnn-regress-")
+    try:
+        files = []
+        for n, value in enumerate(REGRESS_PLANTED, start=1):
+            files.append(os.path.join(d, f"BENCH_TORCH_r{n:02d}.json"))
+            with open(files[-1], "w") as f:
+                json.dump({"n": n, "parsed": {"metric": "m",
+                                              "value": value}}, f)
+        t = time.perf_counter()
+        planted = subprocess.run(cmd + ["--json"] + files, cwd=ROOT,
+                                 capture_output=True, text=True, timeout=120)
+        planted_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    if planted.returncode != 1:
+        fail(f"regress: the planted history exited {planted.returncode}, "
+             f"expected 1: {planted.stdout[-1500:]}{planted.stderr[-1500:]}")
+    regressions = json.loads(planted.stdout)["regressions"]
+    if regressions != ["img_per_sec"]:
+        fail(f"regress: the planted history flagged {regressions}, expected "
+             f"['img_per_sec']")
+    out = {"self_test_rc": st.returncode, "self_test_s": round(self_s, 2),
+           "planted_rc": planted.returncode, "planted_s": round(planted_s, 2),
+           "planted_regressions": regressions,
+           "phase_s": round(time.perf_counter() - t0, 2)}
+    print(json.dumps({"regress": out}), flush=True)
+    print(f"regress: --self-test passed and the planted 25% img/s drop "
+          f"exited 1 with img_per_sec flagged; on {card}", flush=True)
+    return out
+
+
 def main() -> None:
     if not os.path.isdir(os.path.join(ROOT, "dcnn_tpu_torch")):
         fail(f"no dcnn_tpu_torch package in {ROOT}: run this script from a "
@@ -9528,6 +9590,7 @@ def main() -> None:
              "lease": timed("lease", phase_lease, card)}
     examples = timed("examples", phase_examples, card)
     analysis = timed("analysis", phase_analysis, card)
+    timed("regress", phase_regress, card)
     print(f"phase seconds: {json.dumps(seconds)}, total "
           f"{time.perf_counter() - t0:.1f} s on {card}", flush=True)
 

@@ -34,6 +34,9 @@ and one span tracer for the whole port, and the surfaces that export them.
 - :mod:`.trace`: ``python -m dcnn_tpu_torch.obs.trace merge|inspect``,
   the per-process JSONL shards merged into one Chrome trace, and flight
   bundles summarized.
+- :mod:`.regress`: the bench-history regression gate over the port's own
+  ``BENCH_TORCH_r*.json`` captures, ``python -m
+  dcnn_tpu_torch.obs.regress`` (``--self-test`` runs its fixtures).
 
 Standard library only at import time.
 """

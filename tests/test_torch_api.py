@@ -78,8 +78,6 @@ EXCLUDED = {
 
 EXCLUDED_MODULES = {
     "dcnn_tpu.core.compat": "JAX-only: version shims for jax APIs",
-    "dcnn_tpu.obs.regress": "gates the BENCH_r*.json captures: waits for "
-                            "the port's benchmark PR (ROADMAP)",
 }
 
 

@@ -21,10 +21,9 @@ profilers:
 - **span coverage**: every literal span name under ``dcnn_tpu_torch/``
   is a key of the port's ``SPAN_BUCKETS`` (the JAX package's GP01 lint,
   whose ``analysis/`` is not ported);
-- the H100 peak behind ``mfu_live`` and the trainer's wiring of it.
-
-The JAX test of the benchmark regression gate (``obs/regress.py``) has
-no twin here: that module is not ported yet.
+- the H100 peak behind ``mfu_live`` and the trainer's wiring of it;
+- the bench regression gate (``obs/regress.py``) carrying the
+  ``goodput_fraction`` spec, as the JAX package's does.
 """
 
 import json
@@ -709,6 +708,27 @@ def test_span_table_is_the_jax_packages():
     assert pg.BUCKETS == jg.BUCKETS and pg.CLAIM_ORDER == jg.CLAIM_ORDER
     assert pg.STATES == jg.STATES and pg.STATE_CODES == jg.STATE_CODES
     assert pg.SPAN_BUCKETS == jg.SPAN_BUCKETS
+
+
+def test_regress_gate_carries_goodput_fraction_spec():
+    """The port's bench gate knows the metric, at the wide tolerance a
+    scheduling-noisy fraction needs, spec for spec the JAX gate's;
+    captures without the path are skipped, not failed."""
+    from dcnn_tpu.obs.regress import DEFAULT_METRICS as JAX_METRICS
+
+    from dcnn_tpu_torch.obs.regress import DEFAULT_METRICS, compare
+
+    spec = {m.name: m for m in DEFAULT_METRICS}["goodput_fraction"]
+    assert spec.path == "telemetry_essentials.goodput.goodput_fraction"
+    assert spec.higher_is_better and spec.tolerance == 0.25
+    jax_spec = {m.name: m for m in JAX_METRICS}["goodput_fraction"]
+    assert (spec.path, spec.higher_is_better, spec.tolerance, spec.guard,
+            spec.fallback, spec.atol) == (
+        jax_spec.path, jax_spec.higher_is_better, jax_spec.tolerance,
+        jax_spec.guard, jax_spec.fallback, jax_spec.atol)
+    cap = {"telemetry_essentials": {"goodput": {"goodput_fraction": 0.9}}}
+    rows = {r["metric"]: r for r in compare([{"value": 1.0}, cap])["metrics"]}
+    assert rows["goodput_fraction"]["verdict"].startswith("skipped")
 
 
 # ------------------------------------------------------------- parity

@@ -40,7 +40,10 @@ the CPU with JAX, flax and the JAX package blocked at import, and on the
 static-analysis suite: each module of ``dcnn_tpu_torch/analysis/`` read
 alone (it keeps its own copy of ``dcnn_tpu.analysis``, which is plain
 ``ast``) and imported one by one, an analysis and the CLI's
-``--write-baseline`` run with the same blocks."""
+``--write-baseline`` run with the same blocks, and on the bench
+regression gate: ``obs/regress.py`` (standard library only, no torch)
+loaded from its file alone and its self-test and command line run with
+torch blocked too."""
 
 import ast
 import os
@@ -994,3 +997,49 @@ def test_analysis_suite_leaves_jax_out():
     flax, msgpack and the JAX package blocked at import."""
     _run_isolated(ANALYSIS, blocked=True)
 
+
+
+# the bench regression gate
+REGRESS = REPO / "dcnn_tpu_torch" / "obs" / "regress.py"
+
+
+def test_regress_module_imports_no_jax_and_no_torch():
+    """``obs/regress.py`` imports no JAX, flax, msgpack or JAX-package
+    module, and no torch either: it is standard library only."""
+    bad = [f"{line} imports {mod}" for line, mod in _imports(REGRESS)
+           if _forbidden(mod) or mod.split(".")[0] == "torch"]
+    assert not bad, bad
+
+
+def test_regress_gate_runs_alone_and_leaves_jax_out():
+    """The module loaded from its file alone, with JAX, flax, msgpack, the
+    JAX package and torch blocked at import, passes its self-test and
+    gates the committed captures given as paths; then its command line
+    through the package, with JAX blocked, passes its self-test."""
+    blocked = FORBIDDEN + ("torch",)
+    files = sorted(str(p) for p in REPO.glob("BENCH_r0*.json"))
+    code = (
+        "import importlib.abc, importlib.util, sys\n"
+        "class _Block(importlib.abc.MetaPathFinder):\n"
+        "    def find_spec(self, name, path=None, target=None):\n"
+        f"        if name.split('.')[0] in {blocked!r}:\n"
+        "            raise ImportError(f'blocked: {name}')\n"
+        "        return None\n"
+        "sys.meta_path.insert(0, _Block())\n"
+        f"spec = importlib.util.spec_from_file_location('regress', "
+        f"{str(REGRESS)!r})\n"
+        "m = sys.modules['regress'] = importlib.util.module_from_spec(spec)\n"
+        "spec.loader.exec_module(m)\n"
+        "assert m.self_test() == 0\n"
+        f"assert m.main({files!r}) == 0\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        f"{blocked!r})\n"
+        "assert not bad, bad\n"
+        "print('isolated')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "isolated" in out.stdout
+    _run_isolated("from dcnn_tpu_torch.obs.regress import main\n"
+                  "assert main(['--self-test']) == 0\n", blocked=True)

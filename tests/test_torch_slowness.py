@@ -3,8 +3,11 @@ package's ``tests/test_slowness.py`` for what the port has. The shared
 :class:`SlownessDetector` contract on fake clocks, the ``FaultPlan.slow``
 delay hooks, the feed worker pool's recycler (bit-identical to
 ``serial_shards``), and the detector and the delay hooks held to the JAX
-package's on the same inputs. The elastic, pipeline and router surfaces
-wait for ``ROADMAP.md`` Queue 1 items 4-6.
+package's on the same inputs. The twins of the elastic, pipeline and
+router surfaces live with those surfaces' tests: the slow elastic peer in
+``tests/test_torch_elastic.py``, the slow stage's measured rebalance in
+``tests/test_torch_pipeline_recovery.py``, the slow replica's hedging and
+probation in ``tests/test_torch_router.py``.
 """
 
 import numpy as np
